@@ -1,0 +1,211 @@
+"""Plain PyTorch versions of the frontier kernels.
+
+:func:`frontier_grid_ref` and :func:`frontier_grid_with_grads_ref` are the
+semantics of the two CUDA kernels in ``csrc/frontier_grid.cu``: the CPU path
+runs them, and ``chip_smoke.py`` holds each kernel against them on the card.
+Every family of ``core.distributions.FAMILIES`` (normal, lognormal, drift,
+empirical, defective) flows through the ``family_*`` dispatch.
+
+Grid: ``t_j = tmax * (j / (T - 1))``, with ``j / (T - 1)`` formed in float32
+before the multiply, in both the kernels and this module. (The JAX
+reference's oracle uses ``linspace``; its TPU kernel uses this form. The two
+differ in the last bit of some grid points, inside every test tolerance.)
+
+Numerics, as in the kernels: per-channel terms are float32 and every sum
+over channels or grid points is float64 (``log F``, the trapezoid sums, the
+P/Pv accumulators, the epilogue). The variance and the var-adjoints are
+differences of nearly equal sums, where a float32 sum loses ~3 digits; the
+outputs are rounded to float32 at the end. The JAX reference sums in
+float32, so this module is the more accurate of the two.
+
+The adjoint is written out by hand, never taken by autograd through the
+forward: ``torch.clamp`` passes gradient 1 at its bounds, while the
+contract's gate is 0.5 where the CDF saturates at 1.0 and 0 below the floor.
+The Pv accumulators sum ``a * (t - mu)`` per grid point; ``P1 - mu * P0``
+would cancel catastrophically when var << mu^2.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import distributions as dists
+
+__all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
+           "CDF_FLOOR", "time_fractions"]
+
+# log-CDF clamp floor; a normal float32 so no subnormal reaches the log
+CDF_FLOOR = 1e-37
+
+
+def time_fractions(num_t: int, device) -> torch.Tensor:
+    """``j / (T - 1)`` for j = 0..T-1, each a correctly rounded float32
+    division (the grid of both paths)."""
+    if num_t < 2:
+        raise ValueError(f"num_t must be >= 2, got {num_t}")
+    frac = np.arange(num_t, dtype=np.float32) / np.float32(num_t - 1)
+    return torch.from_numpy(frac).to(device)
+
+
+def _family_args(dist_id, extra, W):
+    if extra is None:
+        return torch.zeros((dists.extra_rows(dist_id), W.shape[1]),
+                           dtype=torch.float32, device=W.device)
+    return torch.as_tensor(extra, dtype=torch.float32, device=W.device)
+
+
+# repro: allow[RPA001] layout-only axis alignment: the family dispatch
+# happens in the family_* call of the caller, which holds dist_id
+def _stat_bcast(mus, sigmas, extra):
+    """Align shared (K,) / (E, K) or per-row (F, K) / (E, F, K) statistics
+    with the (F, T, K) grid."""
+    if mus.ndim == 2:
+        return mus[:, None, :], sigmas[:, None, :], extra[:, :, None, :]
+    return mus, sigmas, extra
+
+
+def _as_f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def frontier_grid_ref(W, mus, sigmas, num_t: int = 1024, z: float = 10.0,
+                      dist_id: str = "normal", extra=None):
+    """(mu, var) of the max completion time for each candidate row of W.
+
+    W (F, K); mus/sigmas (K,) shared or (F, K) per-row; extra (E, K) or
+    (E, F, K). Per-row grid ``[0, max_k(mean_k + z std_k)]`` on the family's
+    effective moments, trapezoid quadrature of the survival integrals.
+    """
+    W = _as_f32(W, None)
+    mus = _as_f32(mus, W.device)
+    sigmas = _as_f32(sigmas, W.device)
+    extra = _family_args(dist_id, extra, W)
+    means_eff, stds_eff = dists.family_effective_moments(
+        dist_id, W, mus, sigmas, extra)
+    tmax = torch.clamp_min(torch.amax(means_eff + z * stds_eff, dim=-1),
+                           1e-12)
+    ts = tmax[:, None] * time_fractions(num_t, W.device)[None, :]
+
+    mus_b, sgs_b, ex_b = _stat_bcast(mus, sigmas, extra)
+    cdf = dists.family_cdf(dist_id, ts[:, :, None], W[:, None, :],
+                           mus_b, sgs_b, ex_b)
+    _, mu, m2 = _moments(torch.clamp(cdf, CDF_FLOOR, 1.0), ts, tmax, num_t)
+    return mu.float(), torch.clamp_min(m2 - mu * mu, 0.0).float()
+
+
+def _trapezoid_weights(num_t: int, device) -> torch.Tensor:
+    wq = torch.ones((num_t,), dtype=torch.float64, device=device)
+    wq[0] = 0.5
+    wq[-1] = 0.5
+    return wq
+
+
+def _moments(Cc, ts, tmax, num_t: int):
+    """``(w F, mu, m2)`` in float64 from the clamped channel CDFs
+    (F, T, K): ``log F`` summed over channels, the trapezoid sums over the
+    grid (weights 1/2 at the ends)."""
+    logF = torch.sum(torch.log(Cc).double(), dim=-1)
+    F_t = torch.exp(logF)
+    surv = 1.0 - F_t
+    wq = _trapezoid_weights(num_t, ts.device)
+    dt = tmax.double() / (num_t - 1)
+    mu = torch.sum(wq * surv, -1) * dt
+    m2 = 2.0 * torch.sum(wq * ts.double() * surv, -1) * dt
+    return wq * F_t, mu, m2
+
+
+def frontier_grid_with_grads_ref(W, mus, sigmas, num_t: int = 1024,
+                                 z: float = 10.0, dist_id: str = "normal",
+                                 extra=None, param_grads: bool = False):
+    """``(mu, var, dmu_dW, dvar_dW)`` with the analytic adjoints.
+
+    With ``param_grads=True`` the 10-tuple ``(mu, var, dmu_dW, dvar_dW,
+    dmu_dmus, dvar_dmus, dmu_dsigmas, dvar_dsigmas, dmu_dex, dvar_dex)``,
+    all adjoints (F, K); ``d*_dex`` is the adjoint of ``extra`` row 0 and is
+    zero for families without a differentiable shape parameter.
+
+    The conventions are those of autodiff through the quadrature: the clamp
+    passes 1 inside its bounds, 0.5 at a saturated CDF of 1.0 and 0 below
+    the floor; the tmax term on the argmax channel splits evenly over ties;
+    degenerate channels get no direct gradient but still the tmax term;
+    ``dvar`` is zero where ``m2 - mu^2 <= 0``.
+    """
+    W = _as_f32(W, None)
+    mus = _as_f32(mus, W.device)
+    sigmas = _as_f32(sigmas, W.device)
+    extra = _family_args(dist_id, extra, W)
+    means_eff, stds_eff = dists.family_effective_moments(
+        dist_id, W, mus, sigmas, extra)
+    reach = means_eff + z * stds_eff
+    amax = torch.amax(reach, dim=-1)
+    tmax = torch.clamp_min(amax, 1e-12)
+    ts = tmax[:, None] * time_fractions(num_t, W.device)[None, :]
+
+    mus_b, sgs_b, ex_b = _stat_bcast(mus, sigmas, extra)
+    cdf_raw, D, ok, zsc = dists.family_adjoint_parts(
+        dist_id, ts[:, :, None], W[:, None, :], mus_b, sgs_b, ex_b)
+    cdf = torch.where(ok, cdf_raw,
+                      dists.point_mass_cdf(ts[:, :, None],
+                                           means_eff[:, None, :]))
+    Cc = torch.clamp(cdf, CDF_FLOOR, 1.0)
+    wF, mu, m2 = _moments(Cc, ts, tmax, num_t)
+    var_raw = m2 - mu * mu
+    dt = tmax.double() / (num_t - 1)
+
+    gate = (torch.where(cdf_raw >= 1.0, 0.5, 1.0)
+            * (cdf_raw > CDF_FLOOR) * ok)
+    r = gate * D / Cc
+    a = (wF.float()[:, :, None] * r).double()
+    use_1, use_t, use_z = dists.family_features(dist_id, params=param_grads)
+    ts64 = ts.double()
+    tmu = ts64 - mu[:, None]
+    P0 = a.sum(1) if use_1 else 0.0
+    Pv0 = torch.einsum("ftk,ft->fk", a, tmu) if use_1 else 0.0
+    at = a * ts64[:, :, None] if use_t else None
+    P1 = at.sum(1) if use_t else 0.0
+    Pv1 = torch.einsum("ftk,ft->fk", at, tmu) if use_t else 0.0
+    az = a * zsc.double() if use_z else None
+    Pz = az.sum(1) if use_z else 0.0
+    Pvz = torch.einsum("ftk,ft->fk", az, tmu) if use_z else 0.0
+
+    alpha, beta, gamma0, gamma1 = (c.double() for c in dists.family_coeffs(
+        dist_id, W, mus, sigmas, extra))
+    tmx = tmax.double()
+    b_mu = (mu - dt * torch.sum(gamma0 * P0 + gamma1 * P1, -1)) / tmx
+    b_var = 2.0 * (var_raw
+                   - dt * torch.sum(gamma0 * Pv0 + gamma1 * Pv1, -1)) / tmx
+    ind = (reach == amax[:, None]).double()
+    tie = ind / torch.sum(ind, -1, keepdim=True) * (amax > 1e-12)[:, None]
+    var_pos = (var_raw > 0.0)[:, None]
+
+    def contract(coeff_1, coeff_t, coeff_z, dreach):
+        """Fixed-grid plus moving-grid adjoint for one parameter axis."""
+        c1, ct, cz = (torch.as_tensor(c).double()
+                      for c in (coeff_1, coeff_t, coeff_z))
+        gvec = dreach.double() * tie
+        dmu_th = (-dt[:, None] * (c1 * P0 + ct * P1 + cz * Pz)
+                  + b_mu[:, None] * gvec)
+        dvar_th = torch.where(
+            var_pos,
+            -2.0 * dt[:, None] * (c1 * Pv0 + ct * Pv1 + cz * Pvz)
+            + b_var[:, None] * gvec, 0.0)
+        return dmu_th.float(), dvar_th.float()
+
+    mu, var = mu.float(), torch.clamp_min(var_raw, 0.0).float()
+    dreach_w = dists.family_dreach(dist_id, W, mus, sigmas, extra, z)
+    zero_fk = torch.zeros_like(W * mus)
+    dmu, dvar = contract(alpha, beta, 0.0, dreach_w)
+    if not param_grads:
+        return mu, var, dmu, dvar
+
+    c_mu, c_sigma, c_rho = dists.family_param_coeffs(
+        dist_id, W, mus, sigmas, extra)
+    dr_mu, dr_sigma, dr_rho = dists.family_dreach_params(
+        dist_id, W, mus, sigmas, extra, z)
+    dmu_m, dvar_m = contract(*c_mu, dr_mu)
+    dmu_s, dvar_s = contract(*c_sigma, dr_sigma)
+    if dists.family_has_extra_grads(dist_id):
+        dmu_e, dvar_e = contract(*c_rho, dr_rho)
+    else:
+        dmu_e, dvar_e = zero_fk, zero_fk
+    return (mu, var, dmu, dvar, dmu_m, dvar_m, dmu_s, dvar_s, dmu_e, dvar_e)
