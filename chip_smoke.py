@@ -7,7 +7,8 @@
 Phases, in order:
 
 1. ``card``   — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. ``build``  — nvcc builds ``csrc/`` into ``build/repro_torch/``.
+2. ``build``  — nvcc builds ``csrc/`` into ``build/repro_torch/``, and
+   beside it a variant with float32 sums (``-DFG_ACC=float``), both at once.
 3. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
@@ -16,15 +17,19 @@ Phases, in order:
 4. ``tick``   — the fleet tick, K=1024 channels, F=4096 candidates, T=256:
    kernel against plain, and their times, for fwd, grad and pgrad, three
    families.
-5. ``loop``   — the main path: ``UncertaintyAwareBalancer(1024, lam=0.02,
+5. ``acc32``  — what the float64 sums cost: the shipped kernels against the
+   float32-sum build, interleaved, at the fleet tick and at a refresh's
+   launch shapes, each also held against the plain version (reported, not
+   asserted: the float32 sums are the reference's arithmetic).
+6. ``loop``   — the main path: ``UncertaintyAwareBalancer(1024, lam=0.02,
    refresh_every=10, pgd_steps=60)`` against
    ``ClusterSim.heterogeneous(1024, seed=0)`` for 40 ticks, channel 0 slowed
    3x at tick 20, with policy "frontier", "equal", and "frontier" with
    adaptive refresh and risk_lam=0.5. Launch counters are zeroed before and
    read after; every mode must have launched.
-6. ``profile`` — one warm balancer refresh at K=1024 on the host clock and
+7. ``profile`` — one warm balancer refresh at K=1024 on the host clock and
    under torch.profiler: device time by kernel and the busy share.
-7. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
+8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
@@ -47,7 +52,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-PHASES = ("card", "build", "check", "tick", "loop", "profile", "twoch")
+PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
+          "twoch")
+
+# nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
+ACC32 = ("FG_ACC=float",)
 
 # H100 SXM peaks (NVIDIA data sheet; 1.98 GHz boost): device memory, FP32
 # outside the tensor cores, and the special function units (16 results per
@@ -94,9 +103,12 @@ def phase_card(ctx):
 
 
 def phase_build(ctx):
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import frontier_grid as fg
     t0 = time.perf_counter()
-    fg.build()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fg.build, d) for d in ((), ACC32)]:
+            f.result()
     ctx["build_s"] = time.perf_counter() - t0
     log(f"[build] {fg.BUILD_INFO['path']} in {ctx['build_s']:.1f} s")
     for line in fg.BUILD_INFO.get("log", "").splitlines():
@@ -333,6 +345,68 @@ def phase_tick(ctx):
         raise AssertionError(f"kernel/plain disagreement: {fails}")
 
 
+# (family, mode, F, K, T, per-row statistics): the fleet tick, a refresh's
+# launches at K=1024, and the shape where float32 sums missed the plain
+# version most (ROADMAP section 3 item 3)
+ACC32_CASES = (("normal", "fwd", 4096, 1024, 256, False),
+               ("normal", "grad", 4096, 1024, 256, False),
+               ("normal", "pgrad", 4096, 1024, 256, False),
+               ("drift", "grad", 4096, 1024, 256, False),
+               ("normal", "fwd", 3, 1024, 2048, False),
+               ("normal", "grad", 3, 1024, 1024, False),
+               ("normal", "pgrad", 3, 1024, 1024, False),
+               ("drift", "pgrad", 256, 128, 256, True))
+
+
+def phase_acc32(ctx):
+    import torch
+    from repro_torch.kernels import frontier_grid as fg, ops
+    dev = torch.device("cuda")
+    libs = {"f64": fg.build(), "f32": fg.build(ACC32)}
+    rows = []
+    for i, (fam, mode, F, K, T, per_row) in enumerate(ACC32_CASES):
+        W, mus, sgs, ex = _case(fam, F, K, per_row, 300 + i, dev)
+
+        def run(lib, mode=mode):
+            if mode == "fwd":
+                return fg.launch_fwd(lib, W, mus, sgs, ex, per_row, num_t=T,
+                                     z=10.0, dist_id=fam)
+            return fg.launch_grad(lib, W, mus, sgs, ex, per_row, num_t=T,
+                                  z=10.0, dist_id=fam,
+                                  param_grads=(mode == "pgrad"))
+
+        want = ops.plain_moments(W, mus, sgs, ex, num_t=T, dist_id=fam,
+                                 mode=mode)
+        row = {"family": fam, "mode": mode, "F": F, "K": K, "T": T,
+               "per_row": per_row}
+        for name, lib in libs.items():
+            got = run(lib)
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{name} build gave non-finite output")
+            errs, rel, _ = _compare(got, want)
+            row[f"{name}_max_abs_err"] = max(errs)
+            row[f"{name}_max_rel_l2_adj"] = max(rel) if rel else None
+        # f64, f32, f32, f64: each build's time is the mean of its two
+        times = {"f64": [], "f32": []}
+        for name in ("f64", "f32", "f32", "f64"):
+            times[name].append(_time_cuda(lambda: run(libs[name]), reps=7))
+        for name, ts in times.items():
+            row[f"{name}_ms"] = sum(ts) / len(ts)
+        row["f64_over_f32"] = row["f64_ms"] / row["f32_ms"]
+        rows.append(row)
+        adj = ("" if row["f32_max_rel_l2_adj"] is None else
+               f"  relL2(adj) f64 {row['f64_max_rel_l2_adj']:.1e} "
+               f"f32 {row['f32_max_rel_l2_adj']:.1e}")
+        log(f"[acc32] {fam:9s} {mode:5s} F={F} K={K} T={T}"
+            f"{' per-row' if per_row else ''}: float64 sums "
+            f"{row['f64_ms']:.3f} ms, float32 sums {row['f32_ms']:.3f} ms, "
+            f"ratio {row['f64_over_f32']:.3f}; max|err| f64 "
+            f"{row['f64_max_abs_err']:.1e} f32 {row['f32_max_abs_err']:.1e}"
+            + adj)
+        torch.cuda.empty_cache()
+    ctx["acc32"] = rows
+
+
 def _closed_loop(policy, device, ticks=40, K=1024, slow_at=20, **kw):
     import numpy as np
     import torch
@@ -494,7 +568,8 @@ def main(argv=None):
     t_start = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     fns = {"card": phase_card, "build": phase_build, "check": phase_check,
-           "tick": phase_tick, "loop": phase_loop, "profile": phase_profile,
+           "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
+           "profile": phase_profile,
            "twoch": phase_twoch}
     for p in PHASES:
         if p in phases:
@@ -517,7 +592,8 @@ def main(argv=None):
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"smi": ctx.get("smi"), "kernels": kernels,
                    "main_path_ms": ctx.get("main_path_ms"),
-                   "tick": ctx.get("tick"), "loop": ctx.get("loop"),
+                   "tick": ctx.get("tick"), "acc32": ctx.get("acc32"),
+                   "loop": ctx.get("loop"),
                    "launches": ctx.get("launches"),
                    "profile": ctx.get("profile"),
                    "build_s": ctx.get("build_s"),

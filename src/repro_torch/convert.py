@@ -34,16 +34,14 @@ def _plain(x):
     return x
 
 
-def balancer_from_reference(state_dict: dict, device="cuda",
-                            restart_starts=None) -> UncertaintyAwareBalancer:
+def balancer_from_reference(state_dict: dict,
+                            device="cuda") -> UncertaintyAwareBalancer:
     """The port's balancer from a JAX balancer's ``state_dict``, solving on
     ``device``. The reference's ``"impl"`` names a JAX backend and is not
-    carried over. ``restart_starts`` (R, K) fixes the random PGD restarts
-    (the reference draws its own from a JAX key, which torch cannot
-    reproduce)."""
+    carried over. The PGD restarts are not state: the port draws them from
+    ``default_rng(0)``, the reference from a JAX key."""
     d = _plain(copy.deepcopy(state_dict))
-    return UncertaintyAwareBalancer.from_state_dict(
-        d, device=device, restart_starts=restart_starts)
+    return UncertaintyAwareBalancer.from_state_dict(d, device=device)
 
 
 def sim_from_reference(state_dict: dict) -> ClusterSim:

@@ -29,10 +29,11 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def joint_cdf(t, means, stds):
+def joint_cdf(t, means, stds, device="cuda"):
     """P(T <= t) = prod_i P(T_i <= t); ``t`` any shape, means/stds (K,)."""
-    t = torch.as_tensor(t)[..., None]
-    return torch.prod(safe_cdf(t, means, stds), dim=-1)
+    dev = resolve_device(device)
+    t = _f32(t, dev)[..., None]
+    return torch.prod(safe_cdf(t, _f32(means, dev), _f32(stds, dev)), dim=-1)
 
 
 def joint_cdf_w(t, w, mus, sigmas, family="normal", device="cuda"):
@@ -61,7 +62,7 @@ def max_moments_quad(means, stds, num: int = 2048, device="cuda"
     means = _f32(means, dev)
     stds = _f32(stds, dev)
     ts = time_grid(means, stds, num=num)
-    surv = 1.0 - joint_cdf(ts, means, stds)
+    surv = 1.0 - joint_cdf(ts, means, stds, device=dev)
     mu = torch.trapezoid(surv, ts)
     m2 = 2.0 * torch.trapezoid(ts * surv, ts)
     return mu, torch.clamp_min(m2 - mu * mu, 0.0)
@@ -86,11 +87,11 @@ def max_moments_quad_w(w, mus, sigmas, num: int = 2048, family="normal",
     return mu, torch.clamp_min(m2 - mu * mu, 0.0)
 
 
-def clark_max_moments_2(mu1, s1, mu2, s2):
+def clark_max_moments_2(mu1, s1, mu2, s2, device="cuda"):
     """Exact first two moments of max(X, Y) for independent Gaussians
     (Clark 1961); a deterministic pair (a = 0) is handled by a guard."""
-    mu1, s1, mu2, s2 = (torch.as_tensor(x, dtype=torch.float32)
-                        for x in (mu1, s1, mu2, s2))
+    dev = resolve_device(device)
+    mu1, s1, mu2, s2 = (_f32(x, dev) for x in (mu1, s1, mu2, s2))
     a2 = s1 * s1 + s2 * s2
     a = torch.sqrt(torch.clamp_min(a2, 0.0))
     ok = a > 0.0
@@ -104,14 +105,16 @@ def clark_max_moments_2(mu1, s1, mu2, s2):
     return m1, torch.clamp_min(m2 - m1 * m1, 0.0)
 
 
-def clark_max_moments_seq(means, stds):
+def clark_max_moments_seq(means, stds, device="cuda"):
     """Sequential Clark approximation for K channels, folded left to right
     (exact for K <= 2)."""
-    means = torch.as_tensor(means, dtype=torch.float32)
-    stds = torch.as_tensor(stds, dtype=torch.float32)
+    dev = resolve_device(device)
+    means = _f32(means, dev)
+    stds = _f32(stds, dev)
     m, v = means[0], stds[0] ** 2
     for i in range(1, means.shape[0]):
-        m, v = clark_max_moments_2(m, torch.sqrt(v), means[i], stds[i])
+        m, v = clark_max_moments_2(m, torch.sqrt(v), means[i], stds[i],
+                                   device=dev)
     return m, v
 
 

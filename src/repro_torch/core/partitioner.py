@@ -40,15 +40,16 @@ class PartitionDecision:
         return float(other.mu / max(self.mu, 1e-12))
 
 
-def equal_split(k: int, device="cpu") -> torch.Tensor:
+def equal_split(k: int, device="cuda") -> torch.Tensor:
     """Map-reduce baseline: equal shares."""
     return torch.full((k,), 1.0 / k, dtype=torch.float32,
                       device=resolve_device(device))
 
 
-def inverse_mu_split(mus) -> torch.Tensor:
+def inverse_mu_split(mus, device="cuda") -> torch.Tensor:
     """w_i proportional to 1 / mu_i: equal expected finish times."""
-    inv = 1.0 / torch.as_tensor(mus, dtype=torch.float32)
+    inv = 1.0 / torch.as_tensor(mus, dtype=torch.float32,
+                                device=resolve_device(device))
     return inv / torch.sum(inv)
 
 
@@ -154,7 +155,7 @@ def optimize_weights(mus, sigmas, lam: float = 0.0, steps: int = 200,
         mus = torch.as_tensor(mus_r, dtype=torch.float32, device=dev)
         sigmas = torch.as_tensor(sigmas_r, dtype=torch.float32, device=dev)
         extra = torch.as_tensor(extra_r, dtype=torch.float32, device=dev)
-    starts = [equal_split(k, dev), inverse_mu_split(mus)]
+    starts = [equal_split(k, dev), inverse_mu_split(mus, dev)]
     if warm_start is not None:
         ws = torch.as_tensor(warm_start, dtype=torch.float32, device=dev)
         starts.insert(0, torch.clamp_min(ws, 0.0)
@@ -207,8 +208,10 @@ def predict_moments(w, mus, sigmas, exact: bool = True, num_t: int = 2048,
         mu, var = max_moments_quad_w(w, mus, sigmas, num=num_t,
                                      family=family, device=device)
     else:
-        w = torch.as_tensor(w, dtype=torch.float32)
+        dev = resolve_device(device)
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
         mu, var = clark_max_moments_seq(
-            w * torch.as_tensor(mus, dtype=torch.float32),
-            w * torch.as_tensor(sigmas, dtype=torch.float32))
+            w * torch.as_tensor(mus, dtype=torch.float32, device=dev),
+            w * torch.as_tensor(sigmas, dtype=torch.float32, device=dev),
+            device=dev)
     return float(mu), float(var)

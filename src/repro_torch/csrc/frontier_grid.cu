@@ -46,11 +46,19 @@
 #include "family.cuh"
 
 namespace fg {
+// The accumulator type of every sum over channels or grid points: float64.
+// Building with -DFG_ACC=float gives the reference's float32 sums, which
+// chip_smoke.py times against this build.
+#ifndef FG_ACC
+#define FG_ACC double
+#endif
+using acc_t = FG_ACC;
+
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_NPT = 8;  // grid points per thread: T <= 8 * blockDim
 
-__device__ __forceinline__ double warp_sum(double v) {
+__device__ __forceinline__ acc_t warp_sum(acc_t v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
@@ -66,24 +74,24 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Fixed-order block reductions; every thread gets the result. blockDim.x
 // is a multiple of 32.
-__device__ double block_sum(double v, double* red) {
+__device__ acc_t block_sum(acc_t v, acc_t* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   v = warp_sum(v);
   if (lane == 0) red[wid] = v;
   __syncthreads();
   if (wid == 0) {
-    double x = lane < nw ? red[lane] : 0.0;
+    acc_t x = lane < nw ? red[lane] : 0.0;
     x = warp_sum(x);
     if (lane == 0) red[32] = x;
   }
   __syncthreads();
-  const double out = red[32];
+  const acc_t out = red[32];
   __syncthreads();
   return out;
 }
 
-__device__ float block_max(float v, double* red) {
+__device__ float block_max(float v, acc_t* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   v = warp_max(v);
@@ -114,8 +122,8 @@ struct Args {
 // tid, tid + blockDim, ...: the argmax tie test then compares the very
 // values the maximum was taken over.
 template <int FAM>
-__device__ float row_amax(const Args& a, int f, double* red,
-                          double* reach_out) {
+__device__ float row_amax(const Args& a, int f, acc_t* red,
+                          acc_t* reach_out) {
   float m = -INFINITY;
   for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
     const float rk = reach<FAM>(
@@ -146,7 +154,7 @@ __device__ void grid_points(const Args& a, float tmax, float* t, float* lt) {
 template <int FAM>
 __device__ void log_joint_cdf(const Args& a, int f, Chan<FAM>* tile,
                               const float* t, const float* lt,
-                              double* logF) {
+                              acc_t* logF) {
   const int nth = blockDim.x, tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < MAX_NPT; ++i) logF[i] = 0.0;
@@ -163,7 +171,7 @@ __device__ void log_joint_cdf(const Args& a, int f, Chan<FAM>* tile,
       for (int i = 0; i < MAX_NPT; ++i) {
         if (tid + i * nth < a.T) {
           const float cv = cdf<FAM>(ch, t[i], lt[i]);
-          logF[i] += (double)logf(fminf(fmaxf(cv, CDF_FLOOR), 1.0f));
+          logF[i] += (acc_t)logf(fminf(fmaxf(cv, CDF_FLOOR), 1.0f));
         }
       }
     }
@@ -175,25 +183,25 @@ __device__ void log_joint_cdf(const Args& a, int f, Chan<FAM>* tile,
 // and the trapezoid sums of surv and t surv, all float64. Returns mu and
 // m2 (every thread gets them) and leaves w_j F_j in Fw.
 __device__ __forceinline__ void moments(const Args& a, float tmax,
-                                        const float* t, const double* logF,
-                                        double* Fw, double* red, double& mu,
-                                        double& m2) {
+                                        const float* t, const acc_t* logF,
+                                        acc_t* Fw, acc_t* red, acc_t& mu,
+                                        acc_t& m2) {
   const int nth = blockDim.x, tid = threadIdx.x;
-  double s1 = 0.0, s2 = 0.0;
+  acc_t s1 = 0.0, s2 = 0.0;
 #pragma unroll
   for (int i = 0; i < MAX_NPT; ++i) {
     const int j = tid + i * nth;
     Fw[i] = 0.0;
     if (j < a.T) {
-      const double wq = (j == 0 || j == a.T - 1) ? 0.5 : 1.0;
-      const double Fj = exp(logF[i]);
-      const double surv = 1.0 - Fj;
+      const acc_t wq = (j == 0 || j == a.T - 1) ? 0.5 : 1.0;
+      const acc_t Fj = exp(logF[i]);
+      const acc_t surv = 1.0 - Fj;
       Fw[i] = wq * Fj;
       s1 += wq * surv;
-      s2 += wq * (double)t[i] * surv;
+      s2 += wq * (acc_t)t[i] * surv;
     }
   }
-  const double dt = (double)tmax / (double)(a.T - 1);
+  const acc_t dt = (acc_t)tmax / (acc_t)(a.T - 1);
   mu = block_sum(s1, red) * dt;
   m2 = 2.0 * block_sum(s2, red) * dt;
 }
@@ -204,20 +212,20 @@ frontier_fwd_kernel(Args a, float* __restrict__ mu_out,
                     float* __restrict__ var_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
-  __shared__ double red[33];
+  __shared__ acc_t red[33];
   const int f = blockIdx.x;
 
   const float amax = row_amax<FAM>(a, f, red, nullptr);
   const float tmax = fmaxf(amax, 1e-12f);
   float t[MAX_NPT], lt[MAX_NPT];
-  double logF[MAX_NPT], Fw[MAX_NPT];
+  acc_t logF[MAX_NPT], Fw[MAX_NPT];
   grid_points<FAM>(a, tmax, t, lt);
   log_joint_cdf<FAM>(a, f, tile, t, lt, logF);
-  double mu, m2;
+  acc_t mu, m2;
   moments(a, tmax, t, logF, Fw, red, mu, m2);
   if (threadIdx.x == 0) {
     mu_out[f] = (float)mu;
-    var_out[f] = (float)fmax(m2 - mu * mu, 0.0);
+    var_out[f] = (float)fmax(m2 - mu * mu, (acc_t)0);
   }
 }
 
@@ -225,7 +233,7 @@ struct GradOut {
   float* mu;
   float* var;
   float* d[8];  // dmu_dW, dvar_dW [, mus, sigmas, extra row 0 pairs]
-  double* scratch;
+  acc_t* scratch;
 };
 
 template <int FAM, bool P>
@@ -240,37 +248,37 @@ frontier_grad_kernel(Args a, GradOut o) {
   // shared: the grid (t, log t) for both passes, then a region holding the
   // channel tile in pass 1 and (t - mu, w F) in pass 2
   extern __shared__ __align__(16) unsigned char smem[];
-  double* s_tmu = reinterpret_cast<double*>(smem);
+  acc_t* s_tmu = reinterpret_cast<acc_t*>(smem);
   float* s_wF = reinterpret_cast<float*>(s_tmu + a.T);
   float* s_t = s_wF + a.T;
   float* s_lt = s_t + a.T;
   Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
-  __shared__ double red[33];
+  __shared__ acc_t red[33];
   const int f = blockIdx.x, nth = blockDim.x, tid = threadIdx.x;
   const int K = a.K, T = a.T;
 
   // ---- pass 1: the forward moments
-  double* acc_row = o.scratch + (long long)f * (NACC + 1) * K;
-  double* reach_row = acc_row + (long long)NACC * K;
+  acc_t* acc_row = o.scratch + (long long)f * (NACC + 1) * K;
+  acc_t* reach_row = acc_row + (long long)NACC * K;
   const float amax = row_amax<FAM>(a, f, red, reach_row);
   const float tmax = fmaxf(amax, 1e-12f);
   float t[MAX_NPT], lt[MAX_NPT];
-  double logF[MAX_NPT], Fw[MAX_NPT];
+  acc_t logF[MAX_NPT], Fw[MAX_NPT];
   grid_points<FAM>(a, tmax, t, lt);
   log_joint_cdf<FAM>(a, f, tile, t, lt, logF);
-  double mu, m2;
+  acc_t mu, m2;
   moments(a, tmax, t, logF, Fw, red, mu, m2);
-  const double var_raw = m2 - mu * mu;
+  const acc_t var_raw = m2 - mu * mu;
   if (tid == 0) {
     o.mu[f] = (float)mu;
-    o.var[f] = (float)fmax(var_raw, 0.0);
+    o.var[f] = (float)fmax(var_raw, (acc_t)0);
   }
   // the reductions in moments() ended on a barrier: the tile is free
 #pragma unroll
   for (int i = 0; i < MAX_NPT; ++i) {
     const int j = tid + i * nth;
     if (j < T) {
-      s_tmu[j] = (double)t[i] - mu;
+      s_tmu[j] = (acc_t)t[i] - mu;
       s_wF[j] = (float)Fw[i];
       s_t[j] = t[i];
       s_lt[j] = lt[i];
@@ -279,25 +287,25 @@ frontier_grad_kernel(Args a, GradOut o) {
   __syncthreads();
 
   // ---- pass 2: per-channel accumulators over the grid, in grid order
-  double part_mu = 0.0, part_var = 0.0, ties = 0.0;
+  acc_t part_mu = 0.0, part_var = 0.0, ties = 0.0;
   for (int k = tid; k < K; k += nth) {
     const Raw r = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
                                 a.per_row);
     const Chan<FAM> ch = make_chan<FAM>(r);
-    double P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
+    acc_t P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
     if (ch.ok != 0.0f) {
       for (int j = 0; j < T; ++j) {
         const float tj = s_t[j];
-        const double tmu = s_tmu[j];
+        const acc_t tmu = s_tmu[j];
         float craw, D, zj;
         adjoint_parts<FAM>(ch, tj, s_lt[j], craw, D, zj);
         const float Cc = fminf(fmaxf(craw, CDF_FLOOR), 1.0f);
         const float gate = (craw >= 1.0f ? 0.5f : 1.0f)
                            * (craw > CDF_FLOOR ? 1.0f : 0.0f);
-        const double av = (double)(s_wF[j] * (gate * D / Cc));
+        const acc_t av = (acc_t)(s_wF[j] * (gate * D / Cc));
         if (Fe::u1) { P0 += av; Pv0 += av * tmu; }
-        if (Fe::ut) { const double at = av * (double)tj; P1 += at; Pv1 += at * tmu; }
-        if (Fe::uz) { const double az = av * (double)zj; Pz += az; Pvz += az * tmu; }
+        if (Fe::ut) { const acc_t at = av * (acc_t)tj; P1 += at; Pv1 += at * tmu; }
+        if (Fe::uz) { const acc_t az = av * (acc_t)zj; Pz += az; Pvz += az * tmu; }
       }
     }
     if (Fe::u1) { acc_row[(S0 + 0) * K + k] = P0; acc_row[(S0 + 1) * K + k] = Pv0; }
@@ -305,38 +313,38 @@ frontier_grad_kernel(Args a, GradOut o) {
     if (Fe::uz) { acc_row[(SZ + 0) * K + k] = Pz; acc_row[(SZ + 1) * K + k] = Pvz; }
     float al, be, g0, g1;
     coeffs<FAM>(r, al, be, g0, g1);
-    part_mu += (double)g0 * P0 + (double)g1 * P1;
-    part_var += (double)g0 * Pv0 + (double)g1 * Pv1;
-    ties += reach_row[k] == (double)amax ? 1.0 : 0.0;
+    part_mu += (acc_t)g0 * P0 + (acc_t)g1 * P1;
+    part_var += (acc_t)g0 * Pv0 + (acc_t)g1 * Pv1;
+    ties += reach_row[k] == (acc_t)amax ? 1.0 : 0.0;
   }
-  const double S_mu = block_sum(part_mu, red);
-  const double S_var = block_sum(part_var, red);
-  const double n_tie = block_sum(ties, red);
+  const acc_t S_mu = block_sum(part_mu, red);
+  const acc_t S_var = block_sum(part_var, red);
+  const acc_t n_tie = block_sum(ties, red);
 
   // ---- epilogue: fixed-grid plus moving-grid (tmax) terms per channel
-  const double dt = (double)tmax / (double)(T - 1);
-  const double tmx = (double)tmax;
-  const double b_mu = (mu - dt * S_mu) / tmx;
-  const double b_var = 2.0 * (var_raw - dt * S_var) / tmx;
-  const double live = amax > 1e-12f ? 1.0 : 0.0;
+  const acc_t dt = (acc_t)tmax / (acc_t)(T - 1);
+  const acc_t tmx = (acc_t)tmax;
+  const acc_t b_mu = (mu - dt * S_mu) / tmx;
+  const acc_t b_var = 2.0 * (var_raw - dt * S_var) / tmx;
+  const acc_t live = amax > 1e-12f ? 1.0 : 0.0;
   const bool var_pos = var_raw > 0.0;
   for (int k = tid; k < K; k += nth) {
     const Raw r = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
                                 a.per_row);
-    double P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
+    acc_t P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
     if (Fe::u1) { P0 = acc_row[(S0 + 0) * K + k]; Pv0 = acc_row[(S0 + 1) * K + k]; }
     if (Fe::ut) { P1 = acc_row[(S1 + 0) * K + k]; Pv1 = acc_row[(S1 + 1) * K + k]; }
     if (Fe::uz) { Pz = acc_row[(SZ + 0) * K + k]; Pvz = acc_row[(SZ + 1) * K + k]; }
-    const double ind = reach_row[k] == (double)amax ? 1.0 : 0.0;
-    const double tie = ind / n_tie * live;
+    const acc_t ind = reach_row[k] == (acc_t)amax ? 1.0 : 0.0;
+    const acc_t tie = ind / n_tie * live;
     const long long fk = (long long)f * K + k;
 
     auto contract = [&](float c1, float ct, float cz, float dre, float* dmu,
                         float* dvar) {
-      const double gvec = (double)dre * tie;
-      const double fix = (double)c1 * P0 + (double)ct * P1 + (double)cz * Pz;
-      const double fixv =
-          (double)c1 * Pv0 + (double)ct * Pv1 + (double)cz * Pvz;
+      const acc_t gvec = (acc_t)dre * tie;
+      const acc_t fix = (acc_t)c1 * P0 + (acc_t)ct * P1 + (acc_t)cz * Pz;
+      const acc_t fixv =
+          (acc_t)c1 * Pv0 + (acc_t)ct * Pv1 + (acc_t)cz * Pvz;
       dmu[fk] = (float)(-dt * fix + b_mu * gvec);
       dvar[fk] = var_pos ? (float)(-2.0 * dt * fixv + b_var * gvec) : 0.0f;
     };
@@ -409,6 +417,10 @@ using namespace fg;
 
 extern "C" {
 
+// Bytes of one accumulator (8, or 4 in a -DFG_ACC=float build): the caller
+// sizes the fused kernel's scratch with it.
+int fg_acc_bytes() { return (int)sizeof(acc_t); }
+
 // Forward moments. Returns a cudaError_t value (0 on success).
 int fg_forward(int fam, const float* W, const float* mus, const float* sgs,
                const float* ex, int per_row, int F, int K, int T, float z,
@@ -431,7 +443,7 @@ int fg_forward(int fam, const float* W, const float* mus, const float* sgs,
 int fg_grad(int fam, int param_grads, const float* W, const float* mus,
             const float* sgs, const float* ex, int per_row, int F, int K,
             int T, float z, int threads, float* mu_out, float* var_out,
-            float** outs, double* scratch, void* stream) {
+            float** outs, acc_t* scratch, void* stream) {
   Args a{W, mus, sgs, ex, per_row, F, K, T, z};
   GradOut o;
   o.mu = mu_out;

@@ -18,15 +18,13 @@ lognormal, drift and defective families keep 5 floats of per-channel
 constants, the empirical mixture 17; the fused adjoint keeps 2 to 6
 accumulators per channel (drift 4 in grad mode, defective 6 in pgrad mode).
 
-The in-process cache is filled by the model, or from a JSON cache file in
-the build directory when one exists; :func:`cache_state` snapshots it so a
-restored process launches the same shapes (the launch shape fixes the float
-reduction order). A timed sweep is later work.
+The in-process cache is filled by the model and keyed on what the model
+reads; :func:`cache_state` snapshots it so a restored process launches the
+same shapes (the launch shape fixes the float reduction order). A timed
+sweep, and a cache file for its results, are later work.
 """
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, Sequence, Tuple
 
 from ..core.distributions import EMP_COMPONENTS, extra_rows, family_features
@@ -34,8 +32,7 @@ from ..core.distributions import EMP_COMPONENTS, extra_rows, family_features
 __all__ = ["ROW_BUCKETS", "MODES", "MAX_THREADS", "MAX_POINTS_PER_THREAD",
            "MAX_NUM_T", "SMEM_LIMIT_BYTES", "bucket_rows", "accumulators",
            "smem_bytes", "pick_threads", "pick_block_rows", "check_launch",
-           "lookup", "clear_cache", "cache_state", "load_cache_state",
-           "default_cache_path"]
+           "lookup", "clear_cache", "cache_state", "load_cache_state"]
 
 # serving row-count buckets: a stacked launch pads its row axis up to one
 ROW_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048,
@@ -55,15 +52,8 @@ _EMP_CHAN_FLOATS = 2 + 5 * EMP_COMPONENTS
 # peak bytes of one plain-path chunk's (rows, T, K) intermediates
 PLAIN_CHUNK_BYTES = 1 << 30
 
-_KEY_VERSION = "v1"
+_KEY_VERSION = "v2"
 _CACHE: Dict[str, dict] = {}
-_JSON_LOADED = False
-
-
-def default_cache_path() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))))
-    return os.path.join(root, "build", "repro_torch", "autotune_cache.json")
 
 
 def _check_mode(mode: str) -> None:
@@ -72,10 +62,10 @@ def _check_mode(mode: str) -> None:
 
 
 def _key(F: int, K: int, num_t: int, backend: str, mode: str,
-         dist_id: str, stacked: bool) -> str:
-    suffix = ":stk" if stacked else ""
-    return (f"{_KEY_VERSION}:{backend}:F{F}:K{K}:T{num_t}:mode{mode}"
-            f":fam{dist_id}{suffix}")
+         dist_id: str) -> str:
+    # the threads model reads (T, mode, family); the chunk model F and K too
+    rows = f":F{F}:K{K}" if backend == "plain" else ""
+    return f"{_KEY_VERSION}:{backend}{rows}:T{num_t}:mode{mode}:fam{dist_id}"
 
 
 def bucket_rows(F: int, buckets: Sequence[int] = ROW_BUCKETS) -> int:
@@ -145,31 +135,15 @@ def pick_block_rows(F: int, K: int, num_t: int, mode: str,
     return max(1, min(F, PLAIN_CHUNK_BYTES // max(per_row, 1)))
 
 
-def _load_json() -> None:
-    """Merge the JSON cache file of the build directory, once."""
-    global _JSON_LOADED
-    if _JSON_LOADED:
-        return
-    _JSON_LOADED = True
-    try:
-        with open(default_cache_path()) as fh:
-            disk = json.load(fh)
-    except (OSError, ValueError):
-        return
-    for k, v in disk.items():
-        _CACHE.setdefault(k, v)
-
-
 def lookup(F: int, K: int, num_t: int, backend: str = "cuda",
-           mode: str = "fwd", dist_id: str = "normal",
-           stacked: bool = False) -> int:
+           mode: str = "fwd", dist_id: str = "normal") -> int:
     """Threads per block (``cuda``) or rows per chunk (``plain``) for a
-    launch: in-process cache, then the JSON cache file, then the model."""
+    launch: the in-process cache (or a restored snapshot), else the
+    model."""
     _check_mode(mode)
     if backend not in ("cuda", "plain"):
         raise ValueError(f"backend must be 'cuda' or 'plain', got {backend!r}")
-    _load_json()
-    key = _key(F, K, num_t, backend, mode, dist_id, stacked)
+    key = _key(F, K, num_t, backend, mode, dist_id)
     hit = _CACHE.get(key)
     if hit is not None:
         return int(hit["value"])
@@ -182,10 +156,8 @@ def lookup(F: int, K: int, num_t: int, backend: str = "cuda",
 
 
 def clear_cache() -> None:
-    """Drop the in-process cache (the JSON file is read again)."""
-    global _JSON_LOADED
+    """Drop the in-process cache."""
     _CACHE.clear()
-    _JSON_LOADED = False
 
 
 def cache_state() -> dict:

@@ -17,7 +17,9 @@ runs the kernel's plain version from ``kernels/ref.py``. Nothing else
 selects the path. The shared library is built with ``nvcc`` for ``sm_90a``
 at the first launch, into ``build/repro_torch/`` at the root of the
 checkout (importing this module needs neither ``nvcc`` nor a card), and
-bound with ``ctypes``. ``LAUNCHES`` counts kernel launches per mode.
+bound with ``ctypes``. ``LAUNCHES`` counts the wrappers' kernel launches
+per mode; :func:`launch_fwd` and :func:`launch_grad` launch a given library
+uncounted (``chip_smoke.py`` times a float32-sum build with them).
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ from ..core import distributions as dists
 from . import autotune
 from . import ref
 
-__all__ = ["frontier_grid", "frontier_grid_with_grads", "LAUNCHES",
-           "reset_launches", "build", "BUILD_INFO", "build_dir"]
+__all__ = ["frontier_grid", "frontier_grid_with_grads", "launch_fwd",
+           "launch_grad",
+           "LAUNCHES", "reset_launches", "build", "BUILD_INFO", "build_dir"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -48,10 +51,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel mode since the last reset_launches()
 LAUNCHES = {"fwd": 0, "grad": 0, "pgrad": 0}
 
-# what the last build did: library path, seconds, compiler output
+# what the build of the wrappers' library did: path, seconds, compiler output
 BUILD_INFO: dict = {}
 
-_LIB = None
+# loaded libraries by their extra nvcc defines; () is the one the wrappers
+# launch
+_LIBS: dict = {}
 
 
 def reset_launches() -> None:
@@ -74,17 +79,21 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> ctypes.CDLL:
+def build(defines: tuple = ()) -> ctypes.CDLL:
     """Compile ``csrc/frontier_grid.cu`` (once per source content) and load
-    it; the library name carries a hash of the sources."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+    it; the library name carries a hash of the sources and flags.
+    ``defines`` (``"NAME=value"`` strings) builds a variant beside it, such
+    as ``("FG_ACC=float",)`` for float32 sums; the wrappers launch only the
+    library of ``build()``."""
+    defines = tuple(defines)
+    if defines in _LIBS:
+        return _LIBS[defines]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     digest = hashlib.sha256()
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as fh:
             digest.update(fh.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir,
@@ -93,7 +102,7 @@ def build() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not os.path.exists(lib_path):
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [_nvcc(), *flags, "-o", tmp,
                os.path.join(_CSRC, "frontier_grid.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
@@ -108,9 +117,12 @@ def build() -> ctypes.CDLL:
     lib.fg_grad.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci,
                             vp, vp, vp, vp, vp]
     lib.fg_grad.restype = ci
-    BUILD_INFO.update(path=lib_path, seconds=time.perf_counter() - t0,
-                      log=log)
-    _LIB = lib
+    lib.fg_acc_bytes.argtypes = []
+    lib.fg_acc_bytes.restype = ci
+    if not defines:
+        BUILD_INFO.update(path=lib_path, seconds=time.perf_counter() - t0,
+                          log=log)
+    _LIBS[defines] = lib
     return lib
 
 
@@ -167,11 +179,19 @@ def frontier_grid(W, mus, sigmas, extra, *, num_t: int = 1024,
                                      dist_id=dist_id, extra=extra)
     if W.device.type != "cuda":
         raise ValueError(f"unsupported device {W.device}")
+    out = launch_fwd(build(), W, mus, sigmas, extra, per_row, num_t=num_t,
+                     z=z, dist_id=dist_id)
+    LAUNCHES["fwd"] += 1
+    return out
+
+
+def launch_fwd(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
+               z: float, dist_id: str):
+    """One launch of the forward kernel of ``lib`` (a :func:`build`
+    library) on checked CUDA inputs; not counted in ``LAUNCHES``."""
     F, K = W.shape
-    th = autotune.lookup(F, K, num_t, mode="fwd", dist_id=dist_id,
-                         stacked=per_row)
+    th = autotune.lookup(F, K, num_t, mode="fwd", dist_id=dist_id)
     autotune.check_launch(th, num_t, "fwd", dist_id)
-    lib = build()
     mu = torch.empty((F,), dtype=torch.float32, device=W.device)
     var = torch.empty_like(mu)
     stream = torch.cuda.current_stream(W.device).cuda_stream
@@ -180,7 +200,6 @@ def frontier_grid(W, mus, sigmas, extra, *, num_t: int = 1024,
                          int(per_row), F, K, num_t, float(z), th,
                          mu.data_ptr(), var.data_ptr(), stream)
     _check(err, "frontier forward")
-    LAUNCHES["fwd"] += 1
     return mu, var
 
 
@@ -199,12 +218,21 @@ def frontier_grid_with_grads(W, mus, sigmas, extra, *, num_t: int = 1024,
             param_grads=param_grads)
     if W.device.type != "cuda":
         raise ValueError(f"unsupported device {W.device}")
+    outs = launch_grad(build(), W, mus, sigmas, extra, per_row,
+                       num_t=num_t, z=z, dist_id=dist_id,
+                       param_grads=param_grads)
+    LAUNCHES["pgrad" if param_grads else "grad"] += 1
+    return outs
+
+
+def launch_grad(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
+                z: float, dist_id: str, param_grads: bool):
+    """One launch of the fused kernel of ``lib`` (a :func:`build` library)
+    on checked CUDA inputs; not counted in ``LAUNCHES``."""
     mode = "pgrad" if param_grads else "grad"
     F, K = W.shape
-    th = autotune.lookup(F, K, num_t, mode=mode, dist_id=dist_id,
-                         stacked=per_row)
+    th = autotune.lookup(F, K, num_t, mode=mode, dist_id=dist_id)
     autotune.check_launch(th, num_t, mode, dist_id)
-    lib = build()
     dev = W.device
     mu = torch.empty((F,), dtype=torch.float32, device=dev)
     var = torch.empty_like(mu)
@@ -212,7 +240,8 @@ def frontier_grid_with_grads(W, mus, sigmas, extra, *, num_t: int = 1024,
     outs = [torch.empty((F, K), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
     n_acc = autotune.accumulators(dist_id, param_grads)
-    scratch = torch.empty((F, n_acc + 1, K), dtype=torch.float64, device=dev)
+    acc = torch.float64 if lib.fg_acc_bytes() == 8 else torch.float32
+    scratch = torch.empty((F, n_acc + 1, K), dtype=acc, device=dev)
     ptrs = (ctypes.c_void_p * 8)(*([o.data_ptr() for o in outs]
                                    + [0] * (8 - n_out)))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -223,5 +252,4 @@ def frontier_grid_with_grads(W, mus, sigmas, extra, *, num_t: int = 1024,
                       ctypes.cast(ptrs, ctypes.c_void_p), scratch.data_ptr(),
                       stream)
     _check(err, f"frontier {mode}")
-    LAUNCHES[mode] += 1
     return (mu, var, *outs)

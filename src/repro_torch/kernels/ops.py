@@ -71,7 +71,7 @@ def plain_moments(W, mus, sigmas, extra, *, num_t: int, z: float = 10.0,
     pgrad)."""
     F, K = W.shape
     rows = block_rows or _at.lookup(F, K, num_t, backend="plain", mode=mode,
-                                    dist_id=dist_id, stacked=mus.ndim == 2)
+                                    dist_id=dist_id)
     outs = []
     for wb, mb, sb, eb in _row_chunks(rows, W, mus, sigmas, extra):
         if mode == "fwd":

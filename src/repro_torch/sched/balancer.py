@@ -74,9 +74,6 @@ class UncertaintyAwareBalancer:
               "inverse_mu" (deterministic balance baseline).
     family  — a family name, a ``ChannelFamily``, or "auto".
     device  — where the solves and posteriors run ("cuda" or "cpu").
-    restart_starts — optional (R, K) Dirichlet restarts for every solve;
-              None draws them from ``default_rng(0)`` (the same rows on
-              every solve).
     """
 
     num_channels: int
@@ -97,7 +94,6 @@ class UncertaintyAwareBalancer:
     auto_min_obs: int = 12      # history needed before scoring starts
     hysteresis: int = 3         # consecutive wins before a family switch
     explore: float = 0.15       # auto-mode probe amplitude (see weights())
-    restart_starts: Optional[np.ndarray] = field(default=None, repr=False)
     _nig: NIGState = field(default=None, repr=False)
     _cached_w: np.ndarray = field(default=None, repr=False)
     _cached_family_key: object = field(default=None, repr=False)
@@ -223,7 +219,8 @@ class UncertaintyAwareBalancer:
         if self.policy == "equal":
             w = np.full((k,), 1.0 / k)
         elif self.policy == "inverse_mu":
-            w = inverse_mu_split(mus).numpy().astype(np.float64)
+            w = inverse_mu_split(mus, self.device).cpu().numpy().astype(
+                np.float64)
         else:
             # cached between refreshes; a family change always re-solves
             fam_key = self._family_key(fam)
@@ -244,11 +241,9 @@ class UncertaintyAwareBalancer:
                 warm = (self._cached_w
                         if self._cached_w is not None
                         and len(self._cached_w) == k else None)
-                starts = (None if restarts == 0 or self.restart_starts is None
-                          else self.restart_starts)
                 out = optimize_weights(
                     mus, sigmas, lam=self.lam, steps=self.pgd_steps,
-                    restarts=restarts, restart_starts=starts,
+                    restarts=restarts,
                     num_t=self.num_t, warm_start=warm, family=fam,
                     risk_lam=self.risk_lam,
                     posterior=(self._nig if self.risk_lam > 0
@@ -406,13 +401,9 @@ class UncertaintyAwareBalancer:
         }
 
     @classmethod
-    def from_state_dict(cls, d: dict, device=None,
-                        restart_starts=None) -> "UncertaintyAwareBalancer":
-        """Restore on ``device`` (default: the device type saved under
-        ``"impl"``, or "cuda" when that names no torch device)."""
-        if device is None:
-            device = d.get("impl") if d.get("impl") in ("cuda", "cpu") \
-                else "cuda"
+    def from_state_dict(cls, d: dict,
+                        device="cuda") -> "UncertaintyAwareBalancer":
+        """Restore on ``device``; the saved ``"impl"`` does not choose it."""
         fam_spec = d.get("family", "normal")
         fam = "auto" if fam_spec == "auto" else get_family(fam_spec)
         b = cls(num_channels=d["num_channels"], lam=d["lam"],
@@ -429,7 +420,7 @@ class UncertaintyAwareBalancer:
                 auto_min_obs=d.get("auto_min_obs", 12),
                 hysteresis=d.get("hysteresis", 3),
                 explore=d.get("explore", 0.15),
-                family=fam, restart_starts=restart_starts)
+                family=fam)
         b._nig = NIGState(**{k: torch.tensor(np.asarray(v, np.float32),
                                              device=b.device)
                              for k, v in d["nig"].items()})

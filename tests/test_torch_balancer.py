@@ -16,6 +16,7 @@ import torch
 from repro.sched import UncertaintyAwareBalancer as JBalancer
 from repro.sim import ClusterSim as JSim
 from repro_torch import convert
+from repro_torch.core import partitioner
 from repro_torch.sched import UncertaintyAwareBalancer, integerize
 from repro_torch.sim import Channel, ClusterSim
 
@@ -78,14 +79,20 @@ def _warm_reference(family, K=8, seed=3):
 
 
 @pytest.mark.parametrize("family", ["lognormal", "auto"])
-def test_closed_loop_matches_reference_tick_by_tick(family):
+def test_closed_loop_matches_reference_tick_by_tick(family, monkeypatch):
     K = 8
     jb, js = _warm_reference(family, K)
-    # the reference draws its two PGD restarts from PRNGKey(0) every solve
+    # the reference draws its two PGD restarts from PRNGKey(0) every solve;
+    # the port's solver takes the same rows here
     starts = np.asarray(jax.random.dirichlet(jax.random.PRNGKey(0),
                                              jnp.ones((K,)), (2,)))
-    tb = convert.balancer_from_reference(jb.state_dict(), device=DEV,
-                                         restart_starts=starts)
+
+    def jax_starts(k, restarts, rng):
+        assert (k, restarts, rng) == (K, 2, None)
+        return starts
+
+    monkeypatch.setattr(partitioner, "_dirichlet_starts", jax_starts)
+    tb = convert.balancer_from_reference(jb.state_dict(), device=DEV)
     ts = convert.sim_from_reference(js.state_dict())
     for tick in range(20):
         wj, wt = jb.weights(), tb.weights()
@@ -97,8 +104,7 @@ def test_closed_loop_matches_reference_tick_by_tick(family):
         tb.observe(dt, wt)
     sd = tb.state_dict()
     assert sd.keys() == jb.state_dict().keys()
-    again = UncertaintyAwareBalancer.from_state_dict(sd, device=DEV,
-                                                     restart_starts=starts)
+    again = UncertaintyAwareBalancer.from_state_dict(sd, device=DEV)
     assert again.state_dict() == sd
     np.testing.assert_array_equal(again.weights(), tb.weights())
 

@@ -10,9 +10,11 @@ Tolerances: ``mu`` rtol = atol = 1e-4; ``var`` rtol 1e-2, atol 1e-3
 (``tests/test_kernels.py``); every adjoint relative L2 <= 1e-4
 (``tests/test_frontier_grads.py``). The adjoints are held to 1e-4 with the
 reference's erf substituted into the port (``shared_erf``), which isolates
-the algorithm; with each framework's own float32 erf (up to 5 ulps apart)
-the var cancellation amplifies the difference to a measured 3.7e-4, so that
-comparison is held to 1e-3 (ROADMAP section 3).
+the algorithm. With each framework's own float32 erf (up to 5 ulps apart)
+the mu-adjoints still read under 4e-5 and are held to 1e-4; the var
+cancellation amplifies the erf difference in the var-adjoints to at most
+3.7e-4 over the seeds and shapes of ROADMAP section 3, so they alone are
+held to 5e-4.
 """
 import jax
 import jax.numpy as jnp
@@ -23,10 +25,15 @@ import torch
 from repro.core import distributions as jd
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import convert
 from repro_torch.core import distributions as td
+from repro_torch.core import (clark_max_moments_2, clark_max_moments_seq,
+                              equal_split, inverse_mu_split, joint_cdf,
+                              predict_moments)
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import frontier_grid as fg
 from repro_torch.kernels import ref
+from repro_torch.sched import UncertaintyAwareBalancer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -41,7 +48,7 @@ def _one_torch_thread():
 
 F, K, T = 24, 8, 256
 ADJ_TOL = 1e-4
-ADJ_TOL_OWN_ERF = 1e-3
+ADJ_TOL_OWN_ERF_VAR = 5e-4
 
 
 def _xla_erf(x):
@@ -101,13 +108,16 @@ def _rel_l2(a, b):
     return np.linalg.norm(a - b) / (n if n > 0 else 1.0)
 
 
-def _check(got, want, adj_tol):
+def _check(got, want, adj_tol, var_adj_tol=None):
+    """mu, var, then (d mu, d var) adjoint pairs; ``var_adj_tol`` (default
+    ``adj_tol``) holds the var-adjoints."""
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                rtol=1e-2, atol=1e-3)
     for i, (g, w) in enumerate(zip(got[2:], want[2:])):
-        assert _rel_l2(g.numpy(), w) <= adj_tol, (i, _rel_l2(g.numpy(), w))
+        tol = adj_tol if i % 2 == 0 or var_adj_tol is None else var_adj_tol
+        assert _rel_l2(g.numpy(), w) <= tol, (i, _rel_l2(g.numpy(), w))
 
 
 MODES = ("fwd", "grad", "pgrad")
@@ -142,8 +152,9 @@ def test_plain_version_matches_reference(fam, per_row, mode, shared_erf):
 @pytest.mark.parametrize("fam", td.FAMILIES)
 def test_plain_version_with_torch_erf(fam):
     for per_row in (False, True):
-        got, want = _run_both(fam, per_row, "pgrad", seed=1)
-        _check(got, want, ADJ_TOL_OWN_ERF)
+        for seed in range(4):
+            got, want = _run_both(fam, per_row, "pgrad", seed=seed)
+            _check(got, want, ADJ_TOL, ADJ_TOL_OWN_ERF_VAR)
 
 
 def test_grid_is_j_over_t_minus_one():
@@ -176,7 +187,8 @@ def test_pv_accumulators_do_not_cancel_when_var_is_tiny():
     got = ref.frontier_grid_with_grads_ref(*_t(W, mus, sgs), num_t=512)
     want = jref.frontier_grid_with_grads_ref(W, mus, sgs, num_t=512)
     assert float(got[1][0]) > 0.0
-    assert _rel_l2(got[3].numpy(), want[3]) <= ADJ_TOL_OWN_ERF
+    assert _rel_l2(got[2].numpy(), want[2]) <= ADJ_TOL
+    assert _rel_l2(got[3].numpy(), want[3]) <= ADJ_TOL_OWN_ERF_VAR
 
 
 @pytest.mark.parametrize("fam", td.FAMILIES)
@@ -265,6 +277,39 @@ def test_device_rule_cuda_without_a_card_raises():
     W, mus, sgs, _ = _case("normal", False)
     with pytest.raises(RuntimeError):
         ops.frontier_moments(W, mus, sgs, num_t=T)      # device="cuda"
+
+
+def _saved_balancer():
+    return UncertaintyAwareBalancer(4, device="cpu").state_dict()
+
+
+_MUS4 = np.array([10.0, 12.0, 15.0, 20.0], np.float32)
+_W4 = np.full(4, 0.25, np.float32)
+
+# every public entry point defaults to the card, however small its work
+_ENTRY_POINTS = {
+    "equal_split": lambda: equal_split(4),
+    "inverse_mu_split": lambda: inverse_mu_split(_MUS4),
+    "predict_moments_clark": lambda: predict_moments(
+        _W4, _MUS4, 0.1 * _MUS4, exact=False),
+    "clark_max_moments_2": lambda: clark_max_moments_2(3.0, 1.0, 2.0, 1.0),
+    "clark_max_moments_seq": lambda: clark_max_moments_seq(_MUS4,
+                                                           0.1 * _MUS4),
+    "joint_cdf": lambda: joint_cdf(np.float32(12.0), _MUS4, 0.1 * _MUS4),
+    "balancer": lambda: UncertaintyAwareBalancer(4),
+    "balancer_from_state_dict": lambda: UncertaintyAwareBalancer
+    .from_state_dict(_saved_balancer()),
+    "balancer_from_reference": lambda: convert.balancer_from_reference(
+        _saved_balancer()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_device_rule_entry_points_raise_without_a_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run there")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _ENTRY_POINTS[name]()
 
 
 def test_autotune_buckets_modes_and_launch_model():

@@ -56,11 +56,11 @@ def test_maxstat_matches_reference():
     a = tc.max_moments_quad(w * mus, w * sgs, num=1024, device=DEV)
     b = jc.max_moments_quad(w * mus, w * sgs, num=1024)
     np.testing.assert_allclose(float(a[0]), float(b[0]), rtol=1e-4)
-    a = tc.clark_max_moments_seq(w * mus, w * sgs)
+    a = tc.clark_max_moments_seq(w * mus, w * sgs, device=DEV)
     b = jc.clark_max_moments_seq(jnp.asarray(w * mus), jnp.asarray(w * sgs))
     np.testing.assert_allclose([float(x) for x in a], [float(x) for x in b],
                                rtol=1e-5)
-    a = tc.clark_max_moments_2(30.0, 2.0, 20.0, 0.0)
+    a = tc.clark_max_moments_2(30.0, 2.0, 20.0, 0.0, device=DEV)
     b = jc.clark_max_moments_2(30.0, 2.0, 20.0, 0.0)
     np.testing.assert_allclose([float(x) for x in a], [float(x) for x in b],
                                rtol=1e-6)
