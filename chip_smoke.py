@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # every phase, about a minute
+    python3 chip_smoke.py                 # every phase, a few minutes
     python3 chip_smoke.py --phases card,build,check
+    python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
 
 Phases, in order:
 
 1. ``card``   — the card's name and power limit (nvidia-smi), torch and CUDA.
-2. ``build``  — nvcc builds ``csrc/`` into ``build/repro_torch/``, and
-   beside it a variant with float32 sums (``-DFG_ACC=float``), both at once.
+2. ``build``  — nvcc builds each library of ``csrc/`` into
+   ``build/repro_torch/`` (frontier_grid, its float32-sum variant
+   ``-DFG_ACC=float``, rmsnorm, attention), all four at once.
 3. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
@@ -31,9 +33,30 @@ Phases, in order:
    under torch.profiler: device time by kernel and the busy share.
 8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
+9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode)
+   against their plain versions on the card, float32 and bf16, run twice
+   (bitwise-equal): causal, window, GQA, rectangular, ragged and Qwen3-8B's
+   own shapes; dead rows give 0; the tiny Qwen3 config on the card against
+   the same weights on the CPU (prefill logits and greedy tokens).
+10. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
+   bf16, seeded weights drawn on the card) shared by two ReplicaGroups
+   behind a PartitionedBatcher (policy frontier) on ClusterSim([Channel(20,
+   2), Channel(14, 5)]); 5 batches of 64 prompts of 16 tokens, max_new 8.
+   First the full-width prefill through the kernels against the plain
+   versions. Launch counters are zeroed before the batches and read after;
+   every model kernel and the frontier grad kernel must have launched; two
+   generate calls on one batch must agree.
+11. ``lmtick`` — each model kernel's time at the path's shapes and at the
+   serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
+   32768 x 4096 norms), beside its bound, its plain version (where it fits)
+   and the yardstick PyTorch call (scaled_dot_product_attention, rms_norm),
+   which the port never calls.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
-var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4.
+var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
+atol = rtol = 2e-4 in float32 and 1e-2 in bf16; the tiny model on the card
+against the CPU at atol 2e-4 / rtol 2e-3; the full-width bf16 prefill
+through the kernels against the plain versions at relative L2 < 0.1.
 
 Any failure exits non-zero. Without a card, or without the repository's
 ``src/`` beside this script, it fails before printing a result. The line
@@ -53,7 +76,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
-          "twoch")
+          "twoch", "lmcheck", "serve", "lmtick")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -103,17 +126,25 @@ def phase_card(ctx):
 
 
 def phase_build(ctx):
+    """Every library at once, one nvcc each: the frontier kernels, their
+    float32-sum variant, RMSNorm, and attention (prefill and decode)."""
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.kernels import rmsnorm as rn
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fg.build, d) for d in ((), ACC32)]:
+    jobs = (lambda: fg.build(), lambda: fg.build(ACC32), rn.build, fa.build)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(job) for job in jobs]:
             f.result()
     ctx["build_s"] = time.perf_counter() - t0
-    log(f"[build] {fg.BUILD_INFO['path']} in {ctx['build_s']:.1f} s")
-    for line in fg.BUILD_INFO.get("log", "").splitlines():
-        if "entry function" in line or "Used" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] {len(jobs)} libraries in {ctx['build_s']:.1f} s")
+    for stem, info in sorted(_cuda.BUILD_INFO.items()):
+        log(f"[build] {stem}: {info['path']} ({info['seconds']:.1f} s)")
+        for line in info.get("log", "").splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def _case(fam, F, K, per_row, seed, device):
@@ -540,6 +571,454 @@ def phase_twoch(ctx):
         raise AssertionError("two-channel split differs from the plain path")
 
 
+# ---------------------------------------------------------------- model zoo
+# Model kernels: JSON name, source, the Pallas kernel each replaces.
+LM_KERNELS = {
+    "rmsnorm": ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:21"),
+    "flash_attention": ("flash_attention", "src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/flash_attention.py:83"),
+    "flash_decode": ("flash_decode", "src/repro_torch/csrc/attention.cu",
+                     "src/repro/kernels/flash_decode.py:68"),
+}
+
+# kernel against plain version on the card, per dtype (atol = rtol)
+LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# the tiny model on the card against the same model on the CPU
+MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
+
+BF16_OPS_PER_S = 989e12
+
+# Qwen3-8B's serving path: 5 batches of 64 prompts of 16 tokens, max_new 8,
+# split across two replica groups (about 32 prompts each)
+SERVE_BATCHES, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 5, 64, 16, 8
+
+# (name, B, Hq, Hkv, Sq, Sk, D, causal, window)
+ATTN_CASES = (
+    ("causal", 2, 4, 4, 256, 256, 128, True, None),
+    ("window64-ragged", 2, 4, 2, 300, 300, 64, True, 64),
+    ("gqa4", 1, 8, 2, 200, 200, 128, True, None),
+    ("rect-noncausal", 2, 4, 2, 100, 260, 64, False, None),
+    ("noncausal-d80", 1, 4, 1, 128, 128, 80, False, None),
+    ("qwen3-8b prefill", 32, 32, 8, 16, 16, 128, True, None),
+    ("tiny prefill", 2, 4, 2, 16, 16, 16, True, None),
+)
+# (name, B, Hkv, G, S, D, valid slots)
+DECODE_CASES = (
+    ("qwen3-8b decode", 32, 8, 4, 24, 128, 17),
+    ("qwen3-8b last step", 32, 8, 4, 24, 128, 24),
+    ("g1-ragged", 2, 2, 1, 200, 64, 150),
+    ("g8", 1, 1, 8, 256, 128, 256),
+    ("tiny decode", 2, 2, 2, 20, 16, 17),
+)
+# (name, rows, D): Qwen3-8B's norms at the serving path's prefill (32 x 16
+# tokens: ln1/ln2/final_norm, q_norm over 32 heads, k_norm over 8) and
+# decode shapes, a ragged count and the tiny config
+NORM_CASES = (("ln prefill", 512, 4096), ("q_norm prefill", 16384, 128),
+              ("k_norm prefill", 4096, 128), ("ln decode", 32, 4096),
+              ("ragged", 21, 4096), ("tiny", 7, 16))
+
+
+def _lm_modules():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    return rn, fa, fd
+
+
+def _reset_all():
+    from repro_torch.kernels import frontier_grid as fg
+    for mod in (fg, *_lm_modules()):
+        mod.reset_launches()
+
+
+def _lm_launches():
+    out = {}
+    for mod in _lm_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _gen(seed):
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _randn(gen, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _attn_inputs(case, dtype, seed):
+    _, B, Hq, Hkv, Sq, Sk, D, _, _ = case
+    g = _gen(seed)
+    return (_randn(g, (B, Hq, Sq, D), dtype), _randn(g, (B, Hkv, Sk, D), dtype),
+            _randn(g, (B, Hkv, Sk, D), dtype))
+
+
+def _decode_inputs(case, dtype, seed):
+    import torch
+    _, B, Hkv, G, S, D, n_valid = case
+    g = _gen(seed)
+    valid = torch.zeros(S, dtype=torch.bool, device="cuda")
+    valid[torch.randperm(S, generator=g, device="cuda")[:n_valid]] = True
+    return (_randn(g, (B, Hkv, G, D), dtype), _randn(g, (B, Hkv, S, D), dtype),
+            _randn(g, (B, Hkv, S, D), dtype), valid)
+
+
+def _norm_inputs(rows, D, dtype, seed):
+    g = _gen(seed)
+    x = 3.0 * _randn(g, (rows, D), dtype)
+    w = (1.0 + 0.1 * _randn(g, (D,), dtype).float()).to(dtype)
+    return x, w
+
+
+def phase_lmcheck(ctx):
+    """Each model kernel against its plain version on the card, in float32
+    and bf16, twice (bitwise-equal runs), plus the dead-row rule; then the
+    tiny Qwen3 model on the card against itself on the CPU."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    fails, worst = [], {k: 0.0 for k in LM_KERNELS}
+
+    def hold(kernel, tag, run, plain):
+        got = run()
+        again = run()
+        want = plain()
+        torch.cuda.synchronize()
+        tol = LM_TOL[str(got.dtype).split(".")[-1]]
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol))
+        ok = ok and bool(torch.isfinite(got).all()) and torch.equal(got, again)
+        worst[kernel] = max(worst[kernel], err)
+        log(f"[lmcheck] {kernel:15s} {tag:40s} max|err| {err:.2e} "
+            f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"{kernel} {tag}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for i, case in enumerate(ATTN_CASES):
+            name, *_, causal, window = case
+            q, k, v = _attn_inputs(case, dtype, 10 + i)
+            hold("flash_attention", f"{name} {dn} {tuple(q.shape)}",
+                 lambda: ops.attention(q, k, v, causal=causal, window=window),
+                 lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window))
+        for i, case in enumerate(DECODE_CASES):
+            q, k, v, valid = _decode_inputs(case, dtype, 30 + i)
+            hold("flash_decode", f"{case[0]} {dn} S={case[4]}",
+                 lambda: ops.decode_attention(q, k, v, valid),
+                 lambda: ref.decode_attention_ref(q, k, v, valid))
+        for i, (name, rows, D) in enumerate(NORM_CASES):
+            x, w = _norm_inputs(rows, D, dtype, 50 + i)
+            hold("rmsnorm", f"{name} {dn} ({rows}, {D})",
+                 lambda: ops.rmsnorm(x, w, eps=1e-6),
+                 lambda: ref.rmsnorm_ref(x, w, eps=1e-6))
+    # dead rows: the kernels give 0 where the plain versions give NaN
+    q, k, v = _attn_inputs(ATTN_CASES[0], torch.float32, 70)
+    dead_fa = ops.attention(q, k, v, causal=True, window=0)
+    qd, kd, vd, _ = _decode_inputs(DECODE_CASES[0], torch.float32, 71)
+    none = torch.zeros(kd.shape[2], dtype=torch.bool, device="cuda")
+    dead_fd = ops.decode_attention(qd, kd, vd, none)
+    torch.cuda.synchronize()
+    dead_ok = bool((dead_fa == 0).all()) and bool((dead_fd == 0).all())
+    log(f"[lmcheck] dead rows (window=0; no valid slot) give 0: {dead_ok}")
+    if not dead_ok:
+        fails.append("dead rows")
+    ctx["lm_max_abs_err"] = worst
+    ctx["lmcheck_model"] = _tiny_model_check()
+    if not ctx["lmcheck_model"]["ok"]:
+        fails.append("tiny model cuda vs cpu")
+    if fails:
+        raise AssertionError(f"model kernel/plain disagreement: {fails}")
+
+
+def _tiny_model_check():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("qwen3-8b").tiny()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    gpu = build_model(cfg, device="cuda", seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 16))
+    with torch.inference_mode():
+        lc, _ = cpu.prefill(torch.as_tensor(prompts), cache_len=24)
+        lg, _ = gpu.prefill(torch.as_tensor(prompts, device="cuda"),
+                            cache_len=24)
+    err = float((lg.cpu() - lc).abs().max())
+    close = bool(torch.allclose(lg.cpu(), lc, **MODEL_TOL))
+    tc = ServeEngine(cpu, cfg, device="cpu").generate(prompts, 8)
+    tg = ServeEngine(gpu, cfg, device="cuda").generate(prompts, 8).cpu()
+    same = bool(torch.equal(tc, tg))
+    log(f"[lmcheck] tiny qwen3-8b f32 prefill logits cuda vs cpu max|err| "
+        f"{err:.2e} ({'ok' if close else 'FAIL'}); greedy tokens equal: "
+        f"{same}")
+    return {"prefill_max_abs_err": err, "tokens_equal": same,
+            "ok": close and same}
+
+
+class _TimedEngine:
+    """A ServeEngine whose generate calls are timed on the host clock,
+    synchronized (the per-group generation wall time of a batch)."""
+
+    def __init__(self, engine):
+        self.engine, self.seconds = engine, []
+
+    def generate(self, prompts, max_new):
+        import torch
+        t0 = time.perf_counter()
+        out = self.engine.generate(prompts, max_new)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def _plain_ops():
+    """The model's ops swapped for their plain versions (a comparison
+    path, restored on exit)."""
+    import contextlib
+    from repro_torch.kernels import ops, ref
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = ops.attention, ops.decode_attention, ops.rmsnorm
+        ops.attention = ref.flash_attention_ref
+        ops.decode_attention = ref.decode_attention_ref
+        ops.rmsnorm = ref.rmsnorm_ref
+        try:
+            yield
+        finally:
+            ops.attention, ops.decode_attention, ops.rmsnorm = saved
+    return swapped()
+
+
+def phase_serve(ctx):
+    """The main path at full width: Qwen3-8B (36 layers, bf16, weights from
+    a seeded generator on the card) shared by two replica groups behind a
+    PartitionedBatcher (policy frontier) on ClusterSim([Channel(20, 2),
+    Channel(14, 5)]), as ``launch/serve.py`` sets it up."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.models import build_model
+    from repro_torch.serve import PartitionedBatcher, ReplicaGroup, ServeEngine
+    from repro_torch.sim import Channel, ClusterSim
+    cfg = get_config("qwen3-8b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}"
+        f", {n_params / 1e9:.3f} B parameters in {cfg.param_dtype}, drawn on "
+        f"the card in {init_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f}"
+        f" GB allocated")
+
+    # full width, on a small input: the kernels' path against the same
+    # model with the plain versions swapped in, both on the card
+    rng = np.random.default_rng(0)
+    small = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
+                            device="cuda")
+    with torch.inference_mode():
+        lk, _ = model.prefill(small, cache_len=24)
+        with _plain_ops():
+            lp, _ = model.prefill(small, cache_len=24)
+    lk, lp = lk[..., :cfg.vocab_size].float(), lp[..., :cfg.vocab_size].float()
+    rel = float(torch.linalg.norm(lk - lp) / torch.linalg.norm(lp))
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(lk).all())
+    log(f"[serve] full-width prefill (2 x 16), kernels vs plain on the card: "
+        f"relative L2 {rel:.2e}, argmax agreement {agree:.3f}, finite "
+        f"{finite}")
+    if not (rel < 0.1 and finite):
+        raise AssertionError(f"full-width prefill disagrees: rel L2 {rel}")
+
+    engine = ServeEngine(model, cfg)
+    timed = [_TimedEngine(engine), _TimedEngine(engine)]
+    groups = [ReplicaGroup("fast", timed[0]), ReplicaGroup("slow", timed[1])]
+    sim = ClusterSim([Channel(mu=20.0, sigma=2.0), Channel(mu=14.0, sigma=5.0)])
+    batcher = PartitionedBatcher(groups, policy="frontier", sim=sim)
+    batches = []
+    torch.cuda.synchronize()
+    _reset_all()
+    for i in range(SERVE_BATCHES):
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+        t0 = time.perf_counter()
+        join, counts, resp = batcher.run_batch(prompts, max_new=SERVE_NEW,
+                                               execute=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gen_s = [t.seconds[-1] if c else 0.0 for t, c in zip(timed, counts)]
+        for c, r in zip(counts, resp):
+            if c and not (r.shape == (c, SERVE_NEW) and r.min() >= 0
+                          and r.max() < cfg.vocab_size):
+                raise AssertionError(f"bad response {r.shape} for {c}")
+        tokens = int(counts.sum()) * SERVE_NEW
+        batches.append({"split": counts.tolist(), "join_latency": join,
+                        "generate_s": gen_s, "wall_s": wall,
+                        "tokens_per_s": tokens / wall})
+        log(f"[serve] batch {i}: split {counts.tolist()} join {join:.3f} s "
+            f"(sim); generate {gen_s[0]:.3f} / {gen_s[1]:.3f} s; batch wall "
+            f"{wall:.3f} s, {tokens / wall:.1f} tokens/s")
+    torch.cuda.synchronize()
+    counts = {**dict(fg.LAUNCHES), **_lm_launches()}
+    log(f"[serve] launches {counts}")
+    ctx["serve_launches"] = counts
+    # the batcher's balancer solves its two-channel split on the card
+    # through the frontier kernels (forward moments at K=2)
+    frontier = sum(counts[m] for m in MODES)
+    missing = [k for k in LM_KERNELS if counts[k] <= 0]
+    if missing or frontier <= 0:
+        raise AssertionError(f"the serving path never launched {missing} "
+                             f"(frontier kernels: {frontier})")
+    a = engine.generate(prompts, SERVE_NEW)
+    b = engine.generate(prompts, SERVE_NEW)
+    same = bool(torch.equal(a, b))
+    log(f"[serve] two generate calls on one batch of {len(prompts)}: "
+        f"identical tokens {same}")
+    if not same:
+        raise AssertionError("generate is not deterministic")
+    prof = _profile_generate(engine, prompts[:SERVE_REQUESTS // 2])
+    steady = batches[1:]
+    ctx["serve"] = {
+        "model": cfg.name, "params": n_params, "init_s": init_s,
+        "full_width_rel_l2": rel, "full_width_argmax_agreement": agree,
+        "batches": batches, "deterministic": same, "profile": prof,
+        "tokens_per_s_steady": (sum(x["tokens_per_s"] for x in steady)
+                                / len(steady)),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, engine, timed, groups, batcher
+    torch.cuda.empty_cache()
+
+
+def _profile_generate(engine, prompts):
+    """One group's generate (prefill + decode steps) on the host clock and
+    under torch.profiler: device time by kernel and the busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = (by_name.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy = dev_ms / wall_ms if dev_ms > 0 else None
+    log(f"[serve] one group's generate ({len(prompts)} prompts, {SERVE_NEW} "
+        f"tokens): wall {wall_ms:.2f} ms, device "
+        + (f"{dev_ms:.2f} ms, busy share {busy:.3f}" if busy is not None
+           else "time not measured (the profiler saw no device time)"))
+    for n, ms in top:
+        log(f"[serve]   {ms:8.3f} ms  {n[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
+            "busy_share": busy,
+            "top": [{"name": n, "ms": ms} for n, ms in top]}
+
+
+def _roof(nbytes, t_ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and ``t_ops``, the operations over their peak rate (seconds)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def _fits(nbytes):
+    import torch
+    free, _ = torch.cuda.mem_get_info()
+    return nbytes < 0.8 * free
+
+
+def phase_lmtick(ctx):
+    """Each model kernel's time at the serving path's shapes and at the
+    repository's serving shapes cut to one layer, beside its bound, its
+    plain version and the yardstick library call (timed here only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    rows = []
+
+    def tick(kernel, shape, run, plain, library, bound, plain_bytes):
+        ms = _time_cuda(run, reps=7)
+        plain_ms = (_time_cuda(plain, reps=5, warm=1)
+                    if _fits(plain_bytes) else None)
+        lib_ms = _time_cuda(library, reps=7)
+        bound_ms, by = bound
+        rows.append({"kernel": kernel, "shape": shape, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": by})
+        log(f"[lmtick] {kernel:15s} {shape:46s} kernel {ms:9.4f} ms  plain "
+            + (f"{plain_ms:9.4f}" if plain_ms is not None else "  no room")
+            + f" ms  library {lib_ms:9.4f} ms  bound {bound_ms:.4f} ms ({by})"
+            f"  kernel/bound {ms / bound_ms:.1f}x")
+        torch.cuda.empty_cache()
+
+    # flash_attention: the path (one group's prefill), then prefill_32k's
+    # S = 32768 with B cut from 32 to 1
+    for tag, B, S in (("path", 32, 16), ("serving prefill_32k B=1", 1, 32768)):
+        Hq, Hkv, D = 32, 8, 128
+        q, k, v = _attn_inputs(("", B, Hq, Hkv, S, S, D, True, None), bf, 90)
+        nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+        flops = 4 * B * Hq * S * S * D / 2       # causal
+        tick("flash_attention", f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S})",
+             lambda: ops.attention(q, k, v, causal=True),
+             lambda: ref.flash_attention_ref(q, k, v, causal=True),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True),
+             _roof(nbytes, flops / BF16_OPS_PER_S),
+             plain_bytes=4 * 3 * B * Hq * S * S)
+        del q, k, v
+    # flash_decode: the path's last step (cache of 24, all valid), then
+    # decode_32k's S = 32768 with B cut from 128 to 32
+    for tag, B, S in (("path", 32, 24), ("serving decode_32k B=32", 32, 32768)):
+        Hkv, G, D = 8, 4, 128
+        q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S), bf, 91)
+        nbytes = 2 * (2 * B * Hkv * G * D + 2 * B * Hkv * S * D) + S
+        tick("flash_decode", f"{tag} (B={B}, Hkv={Hkv}, G={G}, S={S})",
+             lambda: ops.decode_attention(q, k, v, valid),
+             lambda: ref.decode_attention_ref(q, k, v, valid),
+             lambda: F.scaled_dot_product_attention(
+                 q.reshape(B, Hkv * G, 1, D), k, v,
+                 attn_mask=valid[None, None, None, :], enable_gqa=True),
+             _roof(nbytes, 4 * B * Hkv * G * S * D / BF16_OPS_PER_S),
+             plain_bytes=4 * 2 * B * Hkv * S * D)
+        del q, k, v
+    # rmsnorm: the path's residual-stream and per-head norms, then 32768
+    # rows of 4096
+    for tag, R, D in (("path ln (32 x 16 tokens)", 512, 4096),
+                      ("path q_norm (32 x 16 x 32 heads)", 16384, 128),
+                      ("serving 32768 x 4096", 32768, 4096)):
+        x, w = _norm_inputs(R, D, bf, 92)
+        tick("rmsnorm", f"{tag} ({R}, {D})",
+             lambda: ops.rmsnorm(x, w, eps=1e-6),
+             lambda: ref.rmsnorm_ref(x, w, eps=1e-6),
+             lambda: F.rms_norm(x, (D,), w, 1e-6),
+             _roof(2 * (2 * R * D + D), 4 * R * D / FP32_OPS_PER_S),
+             plain_bytes=4 * 3 * R * D)
+    ctx["lmtick"] = rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -569,8 +1048,9 @@ def main(argv=None):
     os.makedirs(OUT_DIR, exist_ok=True)
     fns = {"card": phase_card, "build": phase_build, "check": phase_check,
            "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
-           "profile": phase_profile,
-           "twoch": phase_twoch}
+           "profile": phase_profile, "twoch": phase_twoch,
+           "lmcheck": phase_lmcheck, "serve": phase_serve,
+           "lmtick": phase_lmtick}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -589,6 +1069,21 @@ def main(argv=None):
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": None})
+    # the model kernels: times at the serving path's first shape of each
+    path = {}
+    for r in ctx.get("lmtick", []):
+        if r["shape"].startswith("path"):
+            path.setdefault(r["kernel"], r)
+    for key, (name, source, replaces) in LM_KERNELS.items():
+        r = path.get(key, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": ctx.get("serve_launches", {}).get(key),
+            "max_abs_err": ctx.get("lm_max_abs_err", {}).get(key),
+            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+            "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+            "library_ms": r.get("library_ms")})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"smi": ctx.get("smi"), "kernels": kernels,
                    "main_path_ms": ctx.get("main_path_ms"),
@@ -596,6 +1091,11 @@ def main(argv=None):
                    "loop": ctx.get("loop"),
                    "launches": ctx.get("launches"),
                    "profile": ctx.get("profile"),
+                   "lm_max_abs_err": ctx.get("lm_max_abs_err"),
+                   "lmcheck_model": ctx.get("lmcheck_model"),
+                   "serve": ctx.get("serve"),
+                   "serve_launches": ctx.get("serve_launches"),
+                   "lmtick": ctx.get("lmtick"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,24 +1,37 @@
 """Carry state across from the JAX package.
 
-The system has no model weights: what a running deployment accumulates is
-its estimation state (per-channel posteriors, the selected family with its
-fitted parameters, the rate history, the cached solve) and its simulated
-world (channel physics and the generator state). Both packages serialize
-them as plain lists, numbers and numpy arrays, so a JAX
+What a running balancer accumulates is its estimation state (per-channel
+posteriors, the selected family with its fitted parameters, the rate
+history, the cached solve) and its simulated world (channel physics and
+the generator state). Both packages serialize them as plain lists, numbers
+and numpy arrays, so a JAX
 ``UncertaintyAwareBalancer.state_dict()`` or ``ClusterSim.state_dict()``
 turns into the port's objects here without importing the JAX package.
 Families cross through ``ChannelFamily.state_dict`` dictionaries.
+
+The model zoo's configurations and weights cross too:
+:func:`config_from_reference` takes ``dataclasses.asdict`` of a JAX
+``ModelConfig``, and :func:`lm_from_reference` the JAX ``LM.init`` pytree
+as numpy arrays (its per-pattern-position weights stacked over repeats are
+unstacked into the port's per-layer submodules).
 """
 from __future__ import annotations
 
 import copy
 
 import numpy as np
+import torch
 
+from .configs.base import LayerSpec, ModelConfig
+from .models.transformer import LM
 from .sched.balancer import UncertaintyAwareBalancer
 from .sim.cluster import ClusterSim
 
-__all__ = ["balancer_from_reference", "sim_from_reference"]
+__all__ = ["balancer_from_reference", "sim_from_reference",
+           "config_from_reference", "lm_from_reference"]
+
+# the JAX ModelConfig's execution switches; the port selects by device
+_JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
 
 
 def _plain(x):
@@ -53,3 +66,44 @@ def sim_from_reference(state_dict: dict) -> ClusterSim:
     if rng_state is not None:
         sim.rng.bit_generator.state = rng_state
     return sim
+
+
+def config_from_reference(d: dict) -> ModelConfig:
+    """The port's ``ModelConfig`` from ``dataclasses.asdict`` of a JAX one;
+    its four execution switches are dropped."""
+    d = {k: v for k, v in d.items() if k not in _JAX_ONLY_FIELDS}
+    d["pattern"] = tuple(LayerSpec(**s) if isinstance(s, dict)
+                         else LayerSpec(*s) for s in d["pattern"])
+    return ModelConfig(**d)
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes: exact through float32
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a))   # a writable copy
+
+
+def lm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> LM:
+    """The port's :class:`LM` on ``device`` holding the weights of a JAX
+    ``LM.init`` pytree (numpy leaves): repeat r of pattern position i, the
+    r-th slice of ``blocks/pos{i}/*``, becomes ``layers[r * P + i]``."""
+    lm = LM(cfg, device=device)
+    state = {"embed.embedding": params["embed"]["embedding"],
+             "embed.head": params["embed"]["head"],
+             "final_norm": params["final_norm"]}
+    P = cfg.pattern_len
+    for i in range(P):
+        for name, stacked in _leaves(params["blocks"][f"pos{i}"]):
+            for r in range(cfg.num_repeats):
+                state[f"layers.{r * P + i}.{name}"] = np.asarray(stacked)[r]
+    lm.load_state_dict({k: _tensor(v) for k, v in state.items()}, strict=True)
+    return lm

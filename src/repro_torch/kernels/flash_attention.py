@@ -1,0 +1,114 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/attention.cu``).
+
+:func:`flash_attention` is online-softmax GQA attention with causal and
+sliding-window masks and non-causal rectangular (cross) attention. It
+replaces the Pallas TPU kernel of the JAX package's
+``kernels/flash_attention.py`` and keeps its rules: a causal or windowed
+call needs Sq == Sk, query head h reads kv head ``h // (Hq // Hkv)``, and
+the scale multiplies after the dot. Unlike the Pallas wrapper it takes any
+Sq and Sk: the kernel masks the ragged last tiles itself.
+
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+the plain version, ``kernels/ref.flash_attention_ref``. The kernel reads
+q, k and v through their batch, head and sequence strides, so the model's
+``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views without a
+copy; it needs a unit stride on D and raises otherwise. The library is
+built at the first launch (``kernels/_cuda.py``) and also holds the flash
+decode kernel. ``LAUNCHES`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _cuda
+from . import ref
+
+__all__ = ["flash_attention", "build", "LAUNCHES", "reset_launches",
+           "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 128   # the kernel's accumulator columns (csrc MAX_D)
+
+# kernel launches since the last reset_launches()
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci, cll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+    lib.flash_attention_launch.argtypes = ([ci, vp, vp, vp, vp]
+                                           + [ci] * 6 + [cll] * 9
+                                           + [ci, ci, cf, vp])
+    lib.flash_attention_launch.restype = ci
+    lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci,
+                                        ci, ci, cf, vp]
+    lib.flash_decode_launch.restype = ci
+
+
+def build() -> ctypes.CDLL:
+    """The library of ``csrc/attention.cu``, built on first use."""
+    return _cuda.build("attention", ("dtype.cuh",), bind=_bind)
+
+
+def _check_args(q, k, v, causal, window):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} need "
+                         f"one B and D and Hq % Hkv == 0")
+    if Sq != k.shape[2] and (causal or window is not None):
+        raise ValueError("a rectangular call (Sq != Sk) must be non-causal "
+                         "and without a window")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0 or None, got {window}")
+    if q.dtype not in _cuda.DTYPES or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share one dtype in "
+                        f"{list(_cuda.DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    sm_scale: Optional[float] = None):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's
+    dtype. ``sm_scale`` defaults to ``D ** -0.5``."""
+    _check_args(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, "
+                         f"got {D}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the kernel takes q, k and v with unit stride on "
+                         "D (any strides on B, H and S)")
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    # a window of Sq or more masks nothing beyond causal: pass it as none
+    win = -1 if window is None or window >= Sq else int(window)
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = build().flash_attention_launch(
+        _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), win, float(scale), stream)
+    _cuda.check(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -15,48 +15,32 @@ each kernel: normal, lognormal, drift, empirical and defective (5 forward,
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the kernel's plain version from ``kernels/ref.py``. Nothing else
 selects the path. The shared library is built with ``nvcc`` for ``sm_90a``
-at the first launch, into ``build/repro_torch/`` at the root of the
-checkout (importing this module needs neither ``nvcc`` nor a card), and
-bound with ``ctypes``. ``LAUNCHES`` counts the wrappers' kernel launches
-per mode; :func:`launch_fwd` and :func:`launch_grad` launch a given library
-uncounted (``chip_smoke.py`` times a float32-sum build with them).
+at the first launch by ``kernels/_cuda.py`` (importing this module needs
+neither ``nvcc`` nor a card), and bound with ``ctypes``. ``LAUNCHES``
+counts the wrappers' kernel launches per mode; :func:`launch_fwd` and
+:func:`launch_grad` launch a given library uncounted (``chip_smoke.py``
+times a float32-sum build with them).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
+
 import torch
 
 from ..core import distributions as dists
+from . import _cuda
 from . import autotune
 from . import ref
 
 __all__ = ["frontier_grid", "frontier_grid_with_grads", "launch_fwd",
-           "launch_grad",
-           "LAUNCHES", "reset_launches", "build", "BUILD_INFO", "build_dir"]
+           "launch_grad", "LAUNCHES", "reset_launches", "build"]
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-_SOURCES = ("frontier_grid.cu", "family.cuh")
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # float32 operation as the plain version's tensor operations do
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = _cuda.ARCH_FLAGS + ("--fmad=false",)
 
 # launches of each kernel mode since the last reset_launches()
 LAUNCHES = {"fwd": 0, "grad": 0, "pgrad": 0}
-
-# what the build of the wrappers' library did: path, seconds, compiler output
-BUILD_INFO: dict = {}
-
-# loaded libraries by their extra nvcc defines; () is the one the wrappers
-# launch
-_LIBS: dict = {}
 
 
 def reset_launches() -> None:
@@ -64,52 +48,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build_dir() -> str:
-    """``build/repro_torch`` at the root of the checkout."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))))
-    return os.path.join(root, "build", "repro_torch")
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA frontier kernels are "
-                           "built with nvcc on the machine with the card")
-    return path
-
-
 def build(defines: tuple = ()) -> ctypes.CDLL:
     """Compile ``csrc/frontier_grid.cu`` (once per source content) and load
-    it; the library name carries a hash of the sources and flags.
-    ``defines`` (``"NAME=value"`` strings) builds a variant beside it, such
-    as ``("FG_ACC=float",)`` for float32 sums; the wrappers launch only the
-    library of ``build()``."""
-    defines = tuple(defines)
-    if defines in _LIBS:
-        return _LIBS[defines]
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256()
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as fh:
-            digest.update(fh.read())
-    digest.update(" ".join(flags).encode())
-    out_dir = build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir,
-                            f"libfrontier_grid_{digest.hexdigest()[:16]}.so")
-    log = ""
-    t0 = time.perf_counter()
-    if not os.path.exists(lib_path):
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *flags, "-o", tmp,
-               os.path.join(_CSRC, "frontier_grid.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    it (``kernels/_cuda.py``). ``defines`` (``"NAME=value"`` strings) builds
+    a variant beside it, such as ``("FG_ACC=float",)`` for float32 sums;
+    the wrappers launch only the library of ``build()``."""
+    return _cuda.build("frontier_grid", ("family.cuh",), flags=NVCC_FLAGS,
+                       defines=defines, bind=_bind)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fg_forward.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci,
                                vp, vp, vp]
@@ -119,11 +67,6 @@ def build(defines: tuple = ()) -> ctypes.CDLL:
     lib.fg_grad.restype = ci
     lib.fg_acc_bytes.argtypes = []
     lib.fg_acc_bytes.restype = ci
-    if not defines:
-        BUILD_INFO.update(path=lib_path, seconds=time.perf_counter() - t0,
-                          log=log)
-    _LIBS[defines] = lib
-    return lib
 
 
 def _prepare(W, mus, sigmas, extra, dist_id: str, num_t: int):
@@ -160,11 +103,6 @@ def _prepare(W, mus, sigmas, extra, dist_id: str, num_t: int):
             extra.contiguous(), per_row)
 
 
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA {what} launch failed: cudaError {err}")
-
-
 def frontier_grid(W, mus, sigmas, extra, *, num_t: int = 1024,
                   z: float = 10.0, dist_id: str = "normal"):
     """(mu, var), each (F,), for candidate splits W (F, K).
@@ -199,7 +137,7 @@ def launch_fwd(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                          mus.data_ptr(), sigmas.data_ptr(), extra.data_ptr(),
                          int(per_row), F, K, num_t, float(z), th,
                          mu.data_ptr(), var.data_ptr(), stream)
-    _check(err, "frontier forward")
+    _cuda.check(err, "frontier forward")
     return mu, var
 
 
@@ -251,5 +189,5 @@ def launch_grad(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                       th, mu.data_ptr(), var.data_ptr(),
                       ctypes.cast(ptrs, ctypes.c_void_p), scratch.data_ptr(),
                       stream)
-    _check(err, f"frontier {mode}")
+    _cuda.check(err, f"frontier {mode}")
     return (mu, var, *outs)

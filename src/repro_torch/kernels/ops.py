@@ -1,4 +1,12 @@
-"""The port's single entry point for candidate-split moments.
+"""The port's kernel entry points: candidate-split moments and the model
+kernels.
+
+:func:`attention`, :func:`decode_attention` and :func:`rmsnorm` are what
+the model zoo calls. A CUDA tensor launches the CUDA kernel of
+``kernels/flash_attention.py``, ``flash_decode.py`` or ``rmsnorm.py``; a
+CPU tensor runs its plain version. (The JAX package chose by an ``impl``
+string; here the device chooses. Its ``_xla_chunked_attention`` bounded
+XLA's memory at long S and has no counterpart: the kernel takes any S.)
 
 :func:`frontier_moments` and :func:`frontier_moments_with_grads` are what
 the frontier tracers, the PGD solver, the balancer and the sensitivity
@@ -28,11 +36,14 @@ import torch
 from ..core.distributions import resolve_family
 from ..device import resolve_device
 from . import autotune as _at
+from . import flash_attention as _fa
+from . import flash_decode as _fd
 from . import frontier_grid as _fg
 from . import ref
+from . import rmsnorm as _rn
 
 __all__ = ["frontier_moments", "frontier_moments_with_grads",
-           "plain_moments"]
+           "plain_moments", "attention", "decode_attention", "rmsnorm"]
 
 
 def _resolve_family(family, K: int, device):
@@ -179,3 +190,21 @@ def frontier_moments_with_grads(W, mus, sigmas, *, num_t: int = 1024,
         return _moments_grads(W, mus, sigmas, extra, num_t=num_t, z=z,
                               dist_id=dist_id, block_rows=block_rows,
                               param_grads=param_grads)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              sm_scale: Optional[float] = None):
+    """GQA flash attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale)
+
+
+def decode_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
+    """Single-token attention over a KV cache. q: (B, Hkv, G, D); caches:
+    (B, Hkv, S, D); valid: (S,) bool."""
+    return _fd.flash_decode(q, k_cache, v_cache, valid, sm_scale=sm_scale)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """RMSNorm of x (..., D) over its last axis, scaled by w (D,)."""
+    return _rn.rmsnorm(x, w, eps=eps)

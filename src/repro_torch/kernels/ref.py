@@ -1,4 +1,12 @@
-"""Plain PyTorch versions of the frontier kernels.
+"""Plain PyTorch versions of the port's kernels.
+
+The model kernels' plain versions (:func:`flash_attention_ref`,
+:func:`decode_attention_ref`, :func:`rmsnorm_ref`) follow the JAX
+package's ``kernels/ref.py`` line for line: float32 math, output in the
+input's dtype, masked logits at ``-inf`` (a row with no live key gives NaN
+here, and 0 from the CUDA kernels, as from the Pallas kernels).
+
+The frontier kernels' plain versions:
 
 :func:`frontier_grid_ref` and :func:`frontier_grid_with_grads_ref` are the
 semantics of the two CUDA kernels in ``csrc/frontier_grid.cu``: the CPU path
@@ -26,13 +34,16 @@ would cancel catastrophically when var << mu^2.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..core import distributions as dists
 
 __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
-           "CDF_FLOOR", "time_fractions"]
+           "CDF_FLOOR", "time_fractions", "flash_attention_ref",
+           "rmsnorm_ref", "decode_attention_ref"]
 
 # log-CDF clamp floor; a normal float32 so no subnormal reaches the log
 CDF_FLOOR = 1e-37
@@ -209,3 +220,52 @@ def frontier_grid_with_grads_ref(W, mus, sigmas, num_t: int = 1024,
     else:
         dmu_e, dvar_e = zero_fk, zero_fk
     return (mu, var, dmu, dvar, dmu_m, dvar_m, dmu_s, dvar_s, dmu_e, dvar_e)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        sm_scale: Optional[float] = None):
+    """GQA attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); query head
+    h reads kv head ``h // (Hq // Hkv)``.
+
+    Rectangular Sq != Sk is allowed here; causal then aligns the last query
+    with the last key (standard self-attention when Sq == Sk).
+    """
+    Hq, Sq, D = q.shape[1], q.shape[2], q.shape[3]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    kx = torch.repeat_interleave(k, group, dim=1)
+    vx = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
+    return out.to(q.dtype)
+
+
+def rmsnorm_ref(x, w, eps: float = 1e-6):
+    """RMSNorm over the last axis: ``(x * rsqrt(mean(x^2) + eps)) * w`` in
+    float32, cast to x's dtype."""
+    xf = x.float()
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * rms * w.float()).to(x.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid, sm_scale=None):
+    """Single-token GQA attention. q: (B, Hkv, G, D); caches (B, Hkv, S, D);
+    valid: (S,) bool -> (B, Hkv, G, D). The probabilities stay float32."""
+    D = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), k_cache.float()) * scale
+    s = s.masked_fill(~valid[None, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    return o.to(q.dtype)

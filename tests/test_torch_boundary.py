@@ -40,9 +40,11 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_imports_without_jax_or_a_build():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.sched, repro_torch.sim, repro_torch.convert;"
-            "from repro_torch.kernels import frontier_grid as fg;"
-            "assert not fg._LIBS;"
+            "repro_torch.sched, repro_torch.sim, repro_torch.convert, "
+            "repro_torch.configs, repro_torch.models, repro_torch.serve, "
+            "repro_torch.launch.serve;"
+            "from repro_torch.kernels import _cuda;"
+            "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')];"
             "assert not bad, bad")
@@ -54,7 +56,10 @@ def test_kernel_sources_name_every_family():
     text = (PORT / "csrc" / "family.cuh").read_text()
     for fam in ("NORMAL", "LOGNORMAL", "DRIFT", "EMPIRICAL", "DEFECTIVE"):
         assert fam in text
-    cu = (PORT / "csrc" / "frontier_grid.cu").read_text()
-    assert not re.search(r"atomic[A-Z]", cu)   # fixed-order reductions only
-    assert "use_fast_math" not in (PORT / "kernels"
-                                   / "frontier_grid.py").read_text()
+    sources = sorted((PORT / "csrc").glob("*.cu*"))
+    assert {p.name for p in sources} >= {"frontier_grid.cu", "rmsnorm.cu",
+                                         "attention.cu"}
+    for path in sources:   # fixed-order reductions only
+        assert not re.search(r"atomic[A-Z]", path.read_text()), path
+    for path in (PORT / "kernels").glob("*.py"):
+        assert "use_fast_math" not in path.read_text(), path

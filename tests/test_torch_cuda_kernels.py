@@ -1,0 +1,92 @@
+"""The model kernels on the card against their plain versions.
+
+Marked ``cuda``: each test skips without an NVIDIA GPU. This file imports
+neither jax nor the JAX package, so it runs on a machine with only the
+port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: atol = rtol = 2e-4 in float32, 1e-2 in bf16 (one bf16 ulp is
+about 0.4% of the value).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rn
+
+TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs these checks "
+                    "on the card")
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _close(got, want):
+    tol = TOL[got.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, None, 200, 200), (True, 64, 300, 300), (False, None, 100, 260)])
+def test_flash_attention_matches_plain(card, dtype, causal, window, Sq, Sk):
+    g = torch.Generator(device=card).manual_seed(0)
+    q = _randn(g, (2, 8, Sq, 128), dtype, card)
+    k = _randn(g, (2, 2, Sk, 128), dtype, card)
+    v = _randn(g, (2, 2, Sk, 128), dtype, card)
+    n = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == n + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window))
+    # strided (B, S, H, D) views, as the model passes them
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(fa.flash_attention(qs, k, v, causal=causal,
+                                          window=window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,S", [(1, 200), (4, 24)])
+def test_flash_decode_matches_plain(card, dtype, G, S):
+    g = torch.Generator(device=card).manual_seed(1)
+    q = _randn(g, (3, 8, G, 128), dtype, card)
+    k = _randn(g, (3, 8, S, 128), dtype, card)
+    v = _randn(g, (3, 8, S, 128), dtype, card)
+    valid = torch.rand(S, generator=g, device=card) < 0.7
+    valid[0] = True
+    got = fd.flash_decode(q, k, v, valid)
+    _close(got, ref.decode_attention_ref(q, k, v, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,D", [(21, 4096), (300, 128)])
+def test_rmsnorm_matches_plain(card, dtype, rows, D):
+    g = torch.Generator(device=card).manual_seed(2)
+    x = 3.0 * _randn(g, (rows, D), dtype, card)
+    w = _randn(g, (D,), dtype, card)
+    _close(rn.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+
+
+@pytest.mark.cuda
+def test_dead_rows_give_zero(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (_randn(g, (1, 2, 64, 32), torch.float32, card)
+               for _ in range(3))
+    assert (fa.flash_attention(q, k, v, window=0) == 0).all()
+    none = torch.zeros(64, dtype=torch.bool, device=card)
+    assert (fd.flash_decode(q[:, :, :4].contiguous(), k, v, none) == 0).all()

@@ -26,6 +26,7 @@ from repro.core import distributions as jd
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import convert
+from repro_torch.configs import get_config
 from repro_torch.core import distributions as td
 from repro_torch.core import (clark_max_moments_2, clark_max_moments_seq,
                               equal_split, inverse_mu_split, joint_cdf,
@@ -33,7 +34,10 @@ from repro_torch.core import (clark_max_moments_2, clark_max_moments_seq,
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import frontier_grid as fg
 from repro_torch.kernels import ref
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import build_model
 from repro_torch.sched import UncertaintyAwareBalancer
+from repro_torch.serve import PartitionedBatcher, ReplicaGroup, ServeEngine
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -301,6 +305,14 @@ _ENTRY_POINTS = {
     .from_state_dict(_saved_balancer()),
     "balancer_from_reference": lambda: convert.balancer_from_reference(
         _saved_balancer()),
+    "build_model": lambda: build_model(get_config("qwen3-8b").tiny()),
+    "serve_engine": lambda: ServeEngine(
+        build_model(get_config("qwen3-8b").tiny(), device="cpu"),
+        get_config("qwen3-8b").tiny()),
+    "partitioned_batcher": lambda: PartitionedBatcher(
+        [ReplicaGroup("fast"), ReplicaGroup("slow")]),
+    "serve_cli": lambda: serve_cli.main(["--arch", "qwen3-8b", "--tiny",
+                                         "--batches", "1"]),
 }
 
 
