@@ -4,13 +4,14 @@
     python3 chip_smoke.py                 # every phase, a few minutes
     python3 chip_smoke.py --phases card,build,check
     python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
+    python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
 
 Phases, in order:
 
 1. ``card``   — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. ``build``  — nvcc builds each library of ``csrc/`` into
    ``build/repro_torch/`` (frontier_grid, its float32-sum variant
-   ``-DFG_ACC=float``, rmsnorm, attention), all four at once.
+   ``-DFG_ACC=float``, rmsnorm, attention, ssd_scan), all five at once.
 3. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
@@ -33,11 +34,13 @@ Phases, in order:
    under torch.profiler: device time by kernel and the busy share.
 8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
-9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode)
-   against their plain versions on the card, float32 and bf16, run twice
-   (bitwise-equal): causal, window, GQA, rectangular, ragged and Qwen3-8B's
-   own shapes; dead rows give 0; the tiny Qwen3 config on the card against
-   the same weights on the CPU (prefill logits and greedy tokens).
+9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
+   ssd_scan) against their plain versions on the card, float32 and bf16,
+   run twice (bitwise-equal): causal, window, GQA, rectangular, ragged and
+   Qwen3-8B's own shapes; for ssd_scan y and the final state at ragged S,
+   S >= 1024, G = 2, chunks of 16/64/128 and Mamba2-2.7B's own shapes; dead
+   rows give 0; the tiny Qwen3 and Mamba2 configs on the card against the
+   same weights on the CPU (prefill logits and greedy tokens).
 10. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
    bf16, seeded weights drawn on the card) shared by two ReplicaGroups
    behind a PartitionedBatcher (policy frontier) on ClusterSim([Channel(20,
@@ -46,17 +49,33 @@ Phases, in order:
    versions. Launch counters are zeroed before the batches and read after;
    every model kernel and the frontier grad kernel must have launched; two
    generate calls on one batch must agree.
-11. ``lmtick`` — each model kernel's time at the path's shapes and at the
+11. ``ssmserve`` — the same serving path with full-width Mamba2-2.7B (64
+   mamba layers, bf16, seeded weights on the card). On 2 x 300 tokens
+   (three chunks, the last ragged) and 4 more: every layer on its own input
+   at full depth, its mixer through the kernels against the plain versions
+   and its 4 decode steps from the kernel's final state against its
+   forward on 304; then through ``prefill``/``decode_step``/``apply`` at 8,
+   16, 32 and 64 layers the same two comparisons end to end (held up to 8
+   layers, reported deeper), and the plain path in bf16 against float32 on
+   the same weights. Then 5 batches of 64 prompts of 16 tokens, max_new 8,
+   through the batcher, with ssd_scan (64 per prefill), rmsnorm (129 per
+   forward) and the frontier forward kernel counted; two generate calls
+   must agree; one group's generate profiled.
+12. ``lmtick`` — each model kernel's time at the path's shapes and at the
    serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
-   32768 x 4096 norms), beside its bound, its plain version (where it fits)
-   and the yardstick PyTorch call (scaled_dot_product_attention, rms_norm),
-   which the port never calls.
+   32768 x 4096 norms; ssd_scan at prefill_32k with B=8 and long_500k at
+   B=1), beside its bound, its plain version (where it fits) and the
+   yardstick PyTorch call (scaled_dot_product_attention, rms_norm; none
+   computes the SSD scan), which the port never calls.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
-atol = rtol = 2e-4 in float32 and 1e-2 in bf16; the tiny model on the card
-against the CPU at atol 2e-4 / rtol 2e-3; the full-width bf16 prefill
-through the kernels against the plain versions at relative L2 < 0.1.
+atol = rtol = 2e-4 in float32 and 1e-2 in bf16 (ssd_scan: 5e-4 for float32
+y and every final state, 1e-2 for bf16 y); the tiny models on the card
+against the CPU at atol 2e-4 / rtol 2e-3; the full-width bf16 prefills
+through the kernels against the plain versions, and Mamba2's decode
+continuation against its forward, at relative L2 < 0.1 (Mamba2: every
+layer at full depth, and end to end up to SSM_E2E_LAYERS layers).
 
 Any failure exits non-zero. Without a card, or without the repository's
 ``src/`` beside this script, it fails before printing a result. The line
@@ -76,7 +95,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
-          "twoch", "lmcheck", "serve", "lmtick")
+          "twoch", "lmcheck", "serve", "ssmserve", "lmtick")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -127,14 +146,17 @@ def phase_card(ctx):
 
 def phase_build(ctx):
     """Every library at once, one nvcc each: the frontier kernels, their
-    float32-sum variant, RMSNorm, and attention (prefill and decode)."""
+    float32-sum variant, RMSNorm, attention (prefill and decode) and the
+    SSD scan."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import frontier_grid as fg
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
     t0 = time.perf_counter()
-    jobs = (lambda: fg.build(), lambda: fg.build(ACC32), rn.build, fa.build)
+    jobs = (lambda: fg.build(), lambda: fg.build(ACC32), rn.build, fa.build,
+            ssd.build)
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(job) for job in jobs]:
             f.result()
@@ -572,18 +594,24 @@ def phase_twoch(ctx):
 
 
 # ---------------------------------------------------------------- model zoo
-# Model kernels: JSON name, source, the Pallas kernel each replaces.
+# Model kernels: JSON name, source, the Pallas kernel each replaces, and the
+# serving phase whose launch counts the JSON line reports.
 LM_KERNELS = {
     "rmsnorm": ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-                "src/repro/kernels/rmsnorm.py:21"),
+                "src/repro/kernels/rmsnorm.py:21", "serve"),
     "flash_attention": ("flash_attention", "src/repro_torch/csrc/attention.cu",
-                        "src/repro/kernels/flash_attention.py:83"),
+                        "src/repro/kernels/flash_attention.py:83", "serve"),
     "flash_decode": ("flash_decode", "src/repro_torch/csrc/attention.cu",
-                     "src/repro/kernels/flash_decode.py:68"),
+                     "src/repro/kernels/flash_decode.py:68", "serve"),
+    "ssd_scan": ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:80", "ssmserve"),
 }
 
-# kernel against plain version on the card, per dtype (atol = rtol)
+# kernel against plain version on the card, per output dtype (atol = rtol)
 LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# the SSD scan's y and final state: its sums run over up to L (L+1) / 2 + N
+# products, ~1.5x those of attention's rows at D = 128
+SSD_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
 # the tiny model on the card against the same model on the CPU
 MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 
@@ -611,6 +639,18 @@ DECODE_CASES = (
     ("g8", 1, 1, 8, 256, 128, 256),
     ("tiny decode", 2, 2, 2, 20, 16, 17),
 )
+# (name, B, S, H, P, G, N, chunk): ragged S, S >= 1024, G = 2, chunks of
+# 16/64/128, Mamba2-2.7B's own shapes (the full-width prefill check and one
+# group's serving prefill) and the tiny config
+SSD_CASES = (
+    ("ragged g2 chunk64", 2, 200, 4, 32, 2, 64, 64),
+    ("many chunks chunk128", 1, 1100, 4, 64, 1, 128, 128),
+    ("many chunks g2 chunk16", 2, 1030, 4, 16, 2, 32, 16),
+    ("mamba2-2.7b prefill 2x300", 2, 300, 80, 64, 1, 128, 128),
+    ("mamba2-2.7b path", 32, 16, 80, 64, 1, 128, 128),
+    ("short prompt", 3, 13, 8, 64, 1, 128, 128),
+    ("tiny", 2, 24, 16, 8, 1, 16, 16),
+)
 # (name, rows, D): Qwen3-8B's norms at the serving path's prefill (32 x 16
 # tokens: ln1/ln2/final_norm, q_norm over 32 heads, k_norm over 8) and
 # decode shapes, a ragged count and the tiny config
@@ -623,7 +663,8 @@ def _lm_modules():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
-    return rn, fa, fd
+    from repro_torch.kernels import ssd_scan as ssd
+    return rn, fa, fd, ssd
 
 
 def _reset_all():
@@ -668,6 +709,23 @@ def _decode_inputs(case, dtype, seed):
             _randn(g, (B, Hkv, S, D), dtype), valid)
 
 
+def _ssd_inputs(case, dtype, seed):
+    """x, dt, A, Bm, Cm, D of an SSD case: dt = softplus(normal) / 2,
+    A = -exp(0.3 normal), B and C 0.3 normal, D = 0.5 + |normal|."""
+    import torch
+    import torch.nn.functional as F
+    _, B, S, H, P, G, N, _ = case
+    g = _gen(seed)
+    f32 = torch.float32
+    x = _randn(g, (B, S, H, P), dtype)
+    dt = F.softplus(_randn(g, (B, S, H), f32)) * 0.5
+    A = -torch.exp(0.3 * _randn(g, (H,), f32))
+    Bm = (0.3 * _randn(g, (B, S, G, N), f32)).to(dtype)
+    Cm = (0.3 * _randn(g, (B, S, G, N), f32)).to(dtype)
+    D = 0.5 + _randn(g, (H,), f32).abs()
+    return x, dt, A, Bm, Cm, D
+
+
 def _norm_inputs(rows, D, dtype, seed):
     g = _gen(seed)
     x = 3.0 * _randn(g, (rows, D), dtype)
@@ -678,24 +736,31 @@ def _norm_inputs(rows, D, dtype, seed):
 def phase_lmcheck(ctx):
     """Each model kernel against its plain version on the card, in float32
     and bf16, twice (bitwise-equal runs), plus the dead-row rule; then the
-    tiny Qwen3 model on the card against itself on the CPU."""
+    tiny Qwen3 and Mamba2 models on the card against themselves on the
+    CPU."""
     import torch
     from repro_torch.kernels import ops, ref
     fails, worst = [], {k: 0.0 for k in LM_KERNELS}
 
-    def hold(kernel, tag, run, plain):
-        got = run()
-        again = run()
-        want = plain()
+    def hold(kernel, tag, run, plain, tols=LM_TOL):
+        """Every output of ``run`` against ``plain``'s, each at the
+        tolerance of its own dtype; a second run must repeat the bits."""
+        got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
-        tol = LM_TOL[str(got.dtype).split(".")[-1]]
-        err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
-                                 rtol=tol))
-        ok = ok and bool(torch.isfinite(got).all()) and torch.equal(got, again)
-        worst[kernel] = max(worst[kernel], err)
-        log(f"[lmcheck] {kernel:15s} {tag:40s} max|err| {err:.2e} "
-            f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if isinstance(got, torch.Tensor):
+            got, again, want = (got,), (again,), (want,)
+        errs, ok = [], True
+        for g, a, w in zip(got, again, want):
+            tol = tols[str(g.dtype).split(".")[-1]]
+            errs.append(float((g.float() - w.float()).abs().max()))
+            ok &= bool(torch.allclose(g.float(), w.float(), atol=tol,
+                                      rtol=tol))
+            ok &= bool(torch.isfinite(g).all()) and torch.equal(g, a)
+        worst[kernel] = max(worst[kernel], *errs)
+        log(f"[lmcheck] {kernel:15s} {tag:40s} max|err| "
+            + " ".join(f"{e:.2e}" for e in errs)
+            + f" (tol {tols[str(got[0].dtype).split('.')[-1]]:g}) "
+            + ("ok" if ok else "FAIL"))
         if not ok:
             fails.append(f"{kernel} {tag}")
 
@@ -718,6 +783,15 @@ def phase_lmcheck(ctx):
             hold("rmsnorm", f"{name} {dn} ({rows}, {D})",
                  lambda: ops.rmsnorm(x, w, eps=1e-6),
                  lambda: ref.rmsnorm_ref(x, w, eps=1e-6))
+        for i, case in enumerate(SSD_CASES):
+            args, chunk = _ssd_inputs(case, dtype, 60 + i), case[-1]
+            # y and the final state
+            hold("ssd_scan", f"{case[0]} {dn} S={case[2]}",
+                 lambda: ops.ssd(*args, chunk=chunk, return_final_state=True),
+                 lambda: ref.ssd_chunked_ref(*args, chunk=chunk,
+                                             return_final_state=True),
+                 tols=SSD_TOL)
+            del args
     # dead rows: the kernels give 0 where the plain versions give NaN
     q, k, v = _attn_inputs(ATTN_CASES[0], torch.float32, 70)
     dead_fa = ops.attention(q, k, v, causal=True, window=0)
@@ -730,24 +804,28 @@ def phase_lmcheck(ctx):
     if not dead_ok:
         fails.append("dead rows")
     ctx["lm_max_abs_err"] = worst
-    ctx["lmcheck_model"] = _tiny_model_check()
-    if not ctx["lmcheck_model"]["ok"]:
-        fails.append("tiny model cuda vs cpu")
+    # Mamba2's tiny chunk is 16: a prompt of 20 carries a state across two
+    ctx["lmcheck_model"] = {arch: _tiny_model_check(arch, S)
+                            for arch, S in (("qwen3-8b", 16),
+                                            ("mamba2-2.7b", 20))}
+    for arch, r in ctx["lmcheck_model"].items():
+        if not r["ok"]:
+            fails.append(f"tiny {arch} cuda vs cpu")
     if fails:
         raise AssertionError(f"model kernel/plain disagreement: {fails}")
 
 
-def _tiny_model_check():
+def _tiny_model_check(arch, S):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
-    cfg = get_config("qwen3-8b").tiny()
+    cfg = get_config(arch).tiny()
     cpu = build_model(cfg, device="cpu", seed=0)
     gpu = build_model(cfg, device="cuda", seed=1)
     gpu.load_state_dict(cpu.state_dict())
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 16))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, S))
     with torch.inference_mode():
         lc, _ = cpu.prefill(torch.as_tensor(prompts), cache_len=24)
         lg, _ = gpu.prefill(torch.as_tensor(prompts, device="cuda"),
@@ -757,7 +835,7 @@ def _tiny_model_check():
     tc = ServeEngine(cpu, cfg, device="cpu").generate(prompts, 8)
     tg = ServeEngine(gpu, cfg, device="cuda").generate(prompts, 8).cpu()
     same = bool(torch.equal(tc, tg))
-    log(f"[lmcheck] tiny qwen3-8b f32 prefill logits cuda vs cpu max|err| "
+    log(f"[lmcheck] tiny {arch} f32 prefill logits cuda vs cpu max|err| "
         f"{err:.2e} ({'ok' if close else 'FAIL'}); greedy tokens equal: "
         f"{same}")
     return {"prefill_max_abs_err": err, "tokens_equal": same,
@@ -788,65 +866,72 @@ def _plain_ops():
 
     @contextlib.contextmanager
     def swapped():
-        saved = ops.attention, ops.decode_attention, ops.rmsnorm
+        saved = ops.attention, ops.decode_attention, ops.rmsnorm, ops.ssd
         ops.attention = ref.flash_attention_ref
         ops.decode_attention = ref.decode_attention_ref
         ops.rmsnorm = ref.rmsnorm_ref
+        ops.ssd = ref.ssd_chunked_ref
         try:
             yield
         finally:
-            ops.attention, ops.decode_attention, ops.rmsnorm = saved
+            (ops.attention, ops.decode_attention, ops.rmsnorm,
+             ops.ssd) = saved
     return swapped()
 
 
-def phase_serve(ctx):
-    """The main path at full width: Qwen3-8B (36 layers, bf16, weights from
-    a seeded generator on the card) shared by two replica groups behind a
-    PartitionedBatcher (policy frontier) on ClusterSim([Channel(20, 2),
-    Channel(14, 5)]), as ``launch/serve.py`` sets it up."""
-    import numpy as np
+def _build_full(cfg, tag):
+    """The full-width model on the card, weights from seed 0, with its
+    parameter count, init time and memory logged."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import frontier_grid as fg
     from repro_torch.models import build_model
-    from repro_torch.serve import PartitionedBatcher, ReplicaGroup, ServeEngine
-    from repro_torch.sim import Channel, ClusterSim
-    cfg = get_config("qwen3-8b")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}"
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}"
         f", {n_params / 1e9:.3f} B parameters in {cfg.param_dtype}, drawn on "
         f"the card in {init_s:.1f} s; {torch.cuda.memory_allocated() / 1e9:.1f}"
         f" GB allocated")
+    return model, init_s, n_params
 
-    # full width, on a small input: the kernels' path against the same
-    # model with the plain versions swapped in, both on the card
-    rng = np.random.default_rng(0)
-    small = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
-                            device="cuda")
-    with torch.inference_mode():
-        lk, _ = model.prefill(small, cache_len=24)
-        with _plain_ops():
-            lp, _ = model.prefill(small, cache_len=24)
-    lk, lp = lk[..., :cfg.vocab_size].float(), lp[..., :cfg.vocab_size].float()
-    rel = float(torch.linalg.norm(lk - lp) / torch.linalg.norm(lp))
-    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    finite = bool(torch.isfinite(lk).all())
-    log(f"[serve] full-width prefill (2 x 16), kernels vs plain on the card: "
-        f"relative L2 {rel:.2e}, argmax agreement {agree:.3f}, finite "
-        f"{finite}")
-    if not (rel < 0.1 and finite):
-        raise AssertionError(f"full-width prefill disagrees: rel L2 {rel}")
 
+def _hold_logits(tag, what, got, want, cfg, limit=0.1):
+    """Relative L2 and argmax agreement of two logit tensors over the
+    unpadded vocabulary; fails at ``limit`` or above (None: reported only)
+    or on a non-finite value."""
+    import torch
+    got = got[..., :cfg.vocab_size].float()
+    want = want[..., :cfg.vocab_size].float()
+    rel = _rel_l2(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(got).all())
+    log(f"[{tag}] {what}: relative L2 {rel:.2e}, argmax agreement "
+        f"{agree:.3f}, finite {finite}"
+        + (" (reported, not held)" if limit is None else ""))
+    if not finite or (limit is not None and not rel < limit):
+        raise AssertionError(f"{what} disagrees: rel L2 {rel}")
+    return rel, agree
+
+
+def _serve_batches(tag, model, cfg, rng):
+    """SERVE_BATCHES batches through two replica groups sharing ``model``
+    behind a PartitionedBatcher (policy frontier) on ClusterSim([Channel(20,
+    2), Channel(14, 5)]), as ``launch/serve.py`` sets it up, with every
+    launch counter zeroed before the batches and read after. Returns the
+    engine, the per-batch records, the counts, the last prompts and the
+    number of generate calls."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.serve import PartitionedBatcher, ReplicaGroup, ServeEngine
+    from repro_torch.sim import Channel, ClusterSim
     engine = ServeEngine(model, cfg)
     timed = [_TimedEngine(engine), _TimedEngine(engine)]
     groups = [ReplicaGroup("fast", timed[0]), ReplicaGroup("slow", timed[1])]
     sim = ClusterSim([Channel(mu=20.0, sigma=2.0), Channel(mu=14.0, sigma=5.0)])
     batcher = PartitionedBatcher(groups, policy="frontier", sim=sim)
-    batches = []
+    batches, calls = [], 0
     torch.cuda.synchronize()
     _reset_all()
     for i in range(SERVE_BATCHES):
@@ -857,6 +942,7 @@ def phase_serve(ctx):
                                                execute=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        calls += int((counts > 0).sum())
         gen_s = [t.seconds[-1] if c else 0.0 for t, c in zip(timed, counts)]
         for c, r in zip(counts, resp):
             if c and not (r.shape == (c, SERVE_NEW) and r.min() >= 0
@@ -866,41 +952,224 @@ def phase_serve(ctx):
         batches.append({"split": counts.tolist(), "join_latency": join,
                         "generate_s": gen_s, "wall_s": wall,
                         "tokens_per_s": tokens / wall})
-        log(f"[serve] batch {i}: split {counts.tolist()} join {join:.3f} s "
+        log(f"[{tag}] batch {i}: split {counts.tolist()} join {join:.3f} s "
             f"(sim); generate {gen_s[0]:.3f} / {gen_s[1]:.3f} s; batch wall "
             f"{wall:.3f} s, {tokens / wall:.1f} tokens/s")
     torch.cuda.synchronize()
-    counts = {**dict(fg.LAUNCHES), **_lm_launches()}
-    log(f"[serve] launches {counts}")
-    ctx["serve_launches"] = counts
+    launches = {**dict(fg.LAUNCHES), **_lm_launches()}
+    log(f"[{tag}] launches {launches} over {calls} generate calls")
     # the batcher's balancer solves its two-channel split on the card
     # through the frontier kernels (forward moments at K=2)
-    frontier = sum(counts[m] for m in MODES)
-    missing = [k for k in LM_KERNELS if counts[k] <= 0]
-    if missing or frontier <= 0:
-        raise AssertionError(f"the serving path never launched {missing} "
-                             f"(frontier kernels: {frontier})")
+    if sum(launches[m] for m in MODES) <= 0:
+        raise AssertionError("the batcher's solve never launched a frontier "
+                             "kernel")
+    return engine, batches, launches, prompts, calls
+
+
+def _repeat_and_profile(tag, engine, prompts):
+    """Two generate calls on one batch must agree; then one group's
+    generate under the profiler."""
+    import torch
     a = engine.generate(prompts, SERVE_NEW)
     b = engine.generate(prompts, SERVE_NEW)
     same = bool(torch.equal(a, b))
-    log(f"[serve] two generate calls on one batch of {len(prompts)}: "
+    log(f"[{tag}] two generate calls on one batch of {len(prompts)}: "
         f"identical tokens {same}")
     if not same:
         raise AssertionError("generate is not deterministic")
-    prof = _profile_generate(engine, prompts[:SERVE_REQUESTS // 2])
+    return same, _profile_generate(tag, engine,
+                                   prompts[:SERVE_REQUESTS // 2])
+
+
+def _serve_record(cfg, n_params, init_s, batches, same, prof, **checks):
+    import torch
     steady = batches[1:]
-    ctx["serve"] = {
-        "model": cfg.name, "params": n_params, "init_s": init_s,
-        "full_width_rel_l2": rel, "full_width_argmax_agreement": agree,
-        "batches": batches, "deterministic": same, "profile": prof,
-        "tokens_per_s_steady": (sum(x["tokens_per_s"] for x in steady)
-                                / len(steady)),
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del model, engine, timed, groups, batcher
+    return {"model": cfg.name, "params": n_params, "init_s": init_s,
+            **checks, "batches": batches, "deterministic": same,
+            "profile": prof,
+            "tokens_per_s_steady": (sum(x["tokens_per_s"] for x in steady)
+                                    / len(steady)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve(ctx):
+    """The main path at full width: Qwen3-8B (36 layers, bf16, weights from
+    a seeded generator on the card) shared by two replica groups behind a
+    PartitionedBatcher (policy frontier) on ClusterSim([Channel(20, 2),
+    Channel(14, 5)]), as ``launch/serve.py`` sets it up."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-8b")
+    model, init_s, n_params = _build_full(cfg, "serve")
+
+    # full width, on a small input: the kernels' path against the same
+    # model with the plain versions swapped in, both on the card
+    rng = np.random.default_rng(0)
+    small = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
+                            device="cuda")
+    with torch.inference_mode():
+        lk, _ = model.prefill(small, cache_len=24)
+        with _plain_ops():
+            lp, _ = model.prefill(small, cache_len=24)
+    rel, agree = _hold_logits(
+        "serve", "full-width prefill (2 x 16), kernels vs plain on the card",
+        lk, lp, cfg)
+
+    engine, batches, counts, prompts, _ = _serve_batches("serve", model, cfg,
+                                                         rng)
+    ctx["serve_launches"] = counts
+    missing = [k for k, v in LM_KERNELS.items()
+               if v[3] == "serve" and counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the serving path never launched {missing}")
+    same, prof = _repeat_and_profile("serve", engine, prompts)
+    ctx["serve"] = _serve_record(cfg, n_params, init_s, batches, same, prof,
+                                 full_width_rel_l2=rel,
+                                 full_width_argmax_agreement=agree)
+    del model, engine
     torch.cuda.empty_cache()
 
 
-def _profile_generate(engine, prompts):
+# Depths (of Mamba2-2.7B's 64 layers) of the end-to-end comparisons; those
+# up to SSM_E2E_LAYERS are held at relative L2 < 0.1, the deeper ones are
+# reported. A random-weight Mamba2 amplifies a rounding difference from
+# layer to layer: at full depth its plain path in bf16 and in float32, on
+# the same weights, end more than the logits' norm apart, so no end-to-end
+# tolerance there can tell a kernel from its plain version. Every layer is
+# held at full depth on its own inputs instead (_ssm_layerwise).
+SSM_DEPTHS = (8, 16, 32, 64)
+SSM_E2E_LAYERS = 8
+
+
+def _ssm_layerwise(model, cfg, toks):
+    """Each mamba layer of ``model`` on the kernel path's own input (the
+    residual stream of the forward on all of ``toks``): its mixer through
+    the kernels against the plain versions on the first S - 4 tokens (y of
+    the scan and its final state both feed the output), and its 4 decode
+    steps from the kernel's final state against its forward on all S.
+    Returns the worst relative L2 of each over the layers, each held at
+    0.1."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed_lookup, rms_norm
+    S = toks.shape[1] - 4
+    worst = {"prefill": (0.0, -1), "decode": (0.0, -1)}
+    with torch.inference_mode():
+        x = embed_lookup(model.embed, toks, cfg)
+        for i, blk in enumerate(model.layers):
+            h = rms_norm(x, blk.ln1, cfg.norm_eps)
+            full = ssm.mamba_apply(blk.mixer, h, cfg)
+            mk, (st, cv) = ssm.mamba_apply(blk.mixer, h[:, :S], cfg,
+                                           return_state=True)
+            with _plain_ops():
+                mp = ssm.mamba_apply(blk.mixer, h[:, :S], cfg)
+            dec = torch.cat([ssm.mamba_decode(blk.mixer, h[:, t:t + 1], cfg,
+                                              st, cv)[0]
+                             for t in range(S, S + 4)], 1)
+            for key, rel in (("prefill", _rel_l2(mk.float(), mp.float())),
+                             ("decode", _rel_l2(dec.float(),
+                                                full[:, S:].float()))):
+                if rel >= worst[key][0]:
+                    worst[key] = (rel, i)
+            x = x + full
+    for key, (rel, i) in worst.items():
+        log(f"[ssmserve] every layer on its own input: worst {key} relative "
+            f"L2 {rel:.2e} (layer {i})")
+        if not rel < 0.1:
+            raise AssertionError(f"layer {i}'s {key} disagrees: {rel}")
+    return {k: v[0] for k, v in worst.items()}
+
+
+def _ssm_end_to_end(model, cfg, toks):
+    """Through the entry points at each depth of SSM_DEPTHS (the model's
+    first layers): prefill of S - 4 tokens through the kernels against the
+    plain versions, and that prefill then 4 decode steps against ``apply``
+    on all S; then, at full depth, the plain path in bf16 against the same
+    weights in float32 (the model's own sensitivity to rounding)."""
+    import torch
+    from repro_torch.models import build_model
+    S = toks.shape[1] - 4
+    layers, out = model.layers, {}
+    try:
+        for depth in SSM_DEPTHS:
+            model.layers = layers[:depth]
+            limit = 0.1 if depth <= SSM_E2E_LAYERS else None
+            with torch.inference_mode():
+                lk, _ = model.prefill(toks[:, :S])
+                with _plain_ops():
+                    lp, _ = model.prefill(toks[:, :S])
+                full = model.apply(toks)
+                _, cache = model.prefill(toks[:, :S])
+                steps = torch.cat([model.decode_step(cache,
+                                                     toks[:, t:t + 1])[0]
+                                   for t in range(S, S + 4)], 1)
+            pre = _hold_logits(
+                "ssmserve", f"{depth} layers: prefill ({toks.shape[0]} x "
+                f"{S}), kernels vs plain", lk, lp, cfg, limit)
+            dec = _hold_logits(
+                "ssmserve", f"{depth} layers: prefill then 4 decode steps vs "
+                f"apply on {S + 4}", steps, full[:, S:], cfg, limit)
+            out[depth] = {"prefill_rel_l2": pre[0], "prefill_argmax": pre[1],
+                          "decode_rel_l2": dec[0], "decode_argmax": dec[1]}
+            del lk, lp, full, cache, steps
+    finally:
+        model.layers = layers
+    m32 = build_model(cfg.replace(param_dtype="float32",
+                                  activation_dtype="float32"),
+                      device="cuda", seed=0)
+    m32.load_state_dict(model.state_dict())
+    with torch.inference_mode(), _plain_ops():
+        lp, _ = model.prefill(toks[:, :S])
+        l32, _ = m32.prefill(toks[:, :S])
+    out["bf16_vs_float32_plain_rel_l2"] = _hold_logits(
+        "ssmserve", f"{len(layers)} layers, plain path: bf16 vs the same "
+        "weights in float32", lp, l32, cfg, None)[0]
+    del m32, lp, l32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssmserve(ctx):
+    """The serving path with full-width Mamba2-2.7B (64 mamba layers, bf16,
+    weights from a seeded generator on the card): the SSD scan runs once
+    per layer per prefill, the decode steps run the recurrence in plain
+    torch on the state the kernel returned."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b")
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s, n_params = _build_full(cfg, "ssmserve")
+    rng = np.random.default_rng(1)
+    # 300 tokens are chunks of 128, 128 and a ragged 44, so the carry
+    # between chunks and the final state run (the serving prompts of 16
+    # tokens fit in one chunk); 4 more tokens for the decode steps
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 304)),
+                           device="cuda")
+    layerwise = _ssm_layerwise(model, cfg, toks)
+    end_to_end = _ssm_end_to_end(model, cfg, toks)
+
+    engine, batches, counts, prompts, calls = _serve_batches(
+        "ssmserve", model, cfg, rng)
+    ctx["ssmserve_launches"] = counts
+    # one scan per layer per prefill; ln1 and the gated ssm_norm per layer
+    # plus the final norm per forward, SERVE_NEW forwards per generate
+    want = {"ssd_scan": cfg.num_layers * calls,
+            "rmsnorm": (2 * cfg.num_layers + 1) * SERVE_NEW * calls}
+    got = {k: counts[k] for k in want}
+    log(f"[ssmserve] launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"the Mamba2 path launched {got}, not {want}")
+    same, prof = _repeat_and_profile("ssmserve", engine, prompts)
+    ctx["ssmserve"] = _serve_record(
+        cfg, n_params, init_s, batches, same, prof,
+        layerwise_rel_l2=layerwise, end_to_end=end_to_end)
+    del model, engine
+    torch.cuda.empty_cache()
+
+
+def _profile_generate(tag, engine, prompts):
     """One group's generate (prefill + decode steps) on the host clock and
     under torch.profiler: device time by kernel and the busy share."""
     import torch
@@ -923,12 +1192,12 @@ def _profile_generate(engine, prompts):
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy = dev_ms / wall_ms if dev_ms > 0 else None
-    log(f"[serve] one group's generate ({len(prompts)} prompts, {SERVE_NEW} "
+    log(f"[{tag}] one group's generate ({len(prompts)} prompts, {SERVE_NEW} "
         f"tokens): wall {wall_ms:.2f} ms, device "
         + (f"{dev_ms:.2f} ms, busy share {busy:.3f}" if busy is not None
            else "time not measured (the profiler saw no device time)"))
     for n, ms in top:
-        log(f"[serve]   {ms:8.3f} ms  {n[:90]}")
+        log(f"[{tag}]   {ms:8.3f} ms  {n[:90]}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
             "busy_share": busy,
             "top": [{"name": n, "ms": ms} for n, ms in top]}
@@ -959,18 +1228,22 @@ def phase_lmtick(ctx):
     bf = torch.bfloat16
     rows = []
 
-    def tick(kernel, shape, run, plain, library, bound, plain_bytes):
-        ms = _time_cuda(run, reps=7)
-        plain_ms = (_time_cuda(plain, reps=5, warm=1)
+    def tick(kernel, shape, run, plain, library, bound, plain_bytes,
+             reps=7, plain_reps=5):
+        """``library`` None: no PyTorch call computes the function."""
+        ms = _time_cuda(run, reps=reps)
+        plain_ms = (_time_cuda(plain, reps=plain_reps, warm=1)
                     if _fits(plain_bytes) else None)
-        lib_ms = _time_cuda(library, reps=7)
+        lib_ms = _time_cuda(library, reps=7) if library is not None else None
         bound_ms, by = bound
         rows.append({"kernel": kernel, "shape": shape, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": bound_ms, "bound_by": by})
         log(f"[lmtick] {kernel:15s} {shape:46s} kernel {ms:9.4f} ms  plain "
             + (f"{plain_ms:9.4f}" if plain_ms is not None else "  no room")
-            + f" ms  library {lib_ms:9.4f} ms  bound {bound_ms:.4f} ms ({by})"
+            + " ms  library "
+            + (f"{lib_ms:9.4f} ms" if lib_ms is not None else "none")
+            + f"  bound {bound_ms:.4f} ms ({by})"
             f"  kernel/bound {ms / bound_ms:.1f}x")
         torch.cuda.empty_cache()
 
@@ -1016,7 +1289,42 @@ def phase_lmtick(ctx):
              lambda: F.rms_norm(x, (D,), w, 1e-6),
              _roof(2 * (2 * R * D + D), 4 * R * D / FP32_OPS_PER_S),
              plain_bytes=4 * 3 * R * D)
+    # ssd_scan at Mamba2-2.7B's H, P, G, N and chunk: the path (one group's
+    # prefill, 32 prompts of 16 tokens: one chunk of 16), prefill_32k's
+    # S = 32768 with B cut from 32 to 8, and long_500k's S = 524288 at its
+    # own B = 1 (80 blocks, one per (b, h), on the card's SMs). No PyTorch
+    # call computes the scan.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tag, B, S in (("path", 32, 16), ("serving prefill_32k B=8", 8, 32768),
+                      ("serving long_500k B=1", 1, 524288)):
+        H, P, G, N, chunk = 80, 64, 1, 128, 128
+        args = _ssd_inputs(("", B, S, H, P, G, N, chunk), bf, 93)
+        long_s = S > 100000
+        log(f"[lmtick] ssd_scan {tag}: {B * H} blocks on {sms} SMs")
+        tick("ssd_scan", f"{tag} (B={B}, H={H}, S={S})",
+             lambda: ops.ssd(*args, chunk=chunk, return_final_state=True),
+             lambda: ref.ssd_chunked_ref(*args, chunk=chunk,
+                                         return_final_state=True),
+             None, _roof(*_ssd_work(B, S, H, P, G, N, chunk)),
+             plain_bytes=3 * 2 * B * S * H * P,
+             reps=3 if long_s else 7, plain_reps=2 if long_s else 5)
+        del args
     ctx["lmtick"] = rows
+
+
+def _ssd_work(B, S, H, P, G, N, chunk):
+    """(bytes, seconds of operations) of one bf16 SSD scan with its final
+    state: each input read once (x, B, C bf16; dt, A, D float32), y (bf16)
+    and the state (float32) written once; per chunk of l rows and head,
+    l (l + 1) / 2 (N + P) + 2 l N P multiply-adds over the causal half, at
+    the bf16 tensor-core rate."""
+    nbytes = (2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N
+              + 4 * 2 * H + 2 * B * S * H * P + 4 * B * H * P * N)
+    L = min(chunk, S)
+    full, tail = divmod(S, L)
+    mads = sum(n * l * (l + 1) // 2 * (N + P) + n * 2 * l * N * P
+               for n, l in ((full, L), (1 if tail else 0, tail)))
+    return nbytes, 2 * B * H * mads / BF16_OPS_PER_S
 
 
 def main(argv=None):
@@ -1050,7 +1358,7 @@ def main(argv=None):
            "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
            "profile": phase_profile, "twoch": phase_twoch,
            "lmcheck": phase_lmcheck, "serve": phase_serve,
-           "lmtick": phase_lmtick}
+           "ssmserve": phase_ssmserve, "lmtick": phase_lmtick}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -1074,12 +1382,12 @@ def main(argv=None):
     for r in ctx.get("lmtick", []):
         if r["shape"].startswith("path"):
             path.setdefault(r["kernel"], r)
-    for key, (name, source, replaces) in LM_KERNELS.items():
+    for key, (name, source, replaces, phase) in LM_KERNELS.items():
         r = path.get(key, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": ctx.get("serve_launches", {}).get(key),
+            "launches": ctx.get(f"{phase}_launches", {}).get(key),
             "max_abs_err": ctx.get("lm_max_abs_err", {}).get(key),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
@@ -1095,6 +1403,8 @@ def main(argv=None):
                    "lmcheck_model": ctx.get("lmcheck_model"),
                    "serve": ctx.get("serve"),
                    "serve_launches": ctx.get("serve_launches"),
+                   "ssmserve": ctx.get("ssmserve"),
+                   "ssmserve_launches": ctx.get("ssmserve_launches"),
                    "lmtick": ctx.get("lmtick"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)

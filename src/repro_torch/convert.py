@@ -13,7 +13,9 @@ The model zoo's configurations and weights cross too:
 :func:`config_from_reference` takes ``dataclasses.asdict`` of a JAX
 ``ModelConfig``, and :func:`lm_from_reference` the JAX ``LM.init`` pytree
 as numpy arrays (its per-pattern-position weights stacked over repeats are
-unstacked into the port's per-layer submodules).
+unstacked into the port's per-layer submodules; each leaf lands in its
+parameter's dtype, so a mamba mixer's float32 ``A_log``, ``dt_bias`` and
+``D`` stay float32, bit for bit, inside a bf16 model).
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
 """The port's kernel entry points: candidate-split moments and the model
 kernels.
 
-:func:`attention`, :func:`decode_attention` and :func:`rmsnorm` are what
-the model zoo calls. A CUDA tensor launches the CUDA kernel of
-``kernels/flash_attention.py``, ``flash_decode.py`` or ``rmsnorm.py``; a
-CPU tensor runs its plain version. (The JAX package chose by an ``impl``
-string; here the device chooses. Its ``_xla_chunked_attention`` bounded
-XLA's memory at long S and has no counterpart: the kernel takes any S.)
+:func:`attention`, :func:`decode_attention`, :func:`rmsnorm` and
+:func:`ssd` are what the model zoo calls. A CUDA tensor launches the CUDA
+kernel of ``kernels/flash_attention.py``, ``flash_decode.py``,
+``rmsnorm.py`` or ``ssd_scan.py``; a CPU tensor runs its plain version.
+(The JAX package chose by an ``impl`` string; here the device chooses. Its
+``_xla_chunked_attention`` bounded XLA's memory at long S and has no
+counterpart: the kernel takes any S. Its ``ssd`` took the XLA scan
+whenever the final state was asked for; the port's kernel returns it.)
 
 :func:`frontier_moments` and :func:`frontier_moments_with_grads` are what
 the frontier tracers, the PGD solver, the balancer and the sensitivity
@@ -41,9 +43,11 @@ from . import flash_decode as _fd
 from . import frontier_grid as _fg
 from . import ref
 from . import rmsnorm as _rn
+from . import ssd_scan as _ssd
 
 __all__ = ["frontier_moments", "frontier_moments_with_grads",
-           "plain_moments", "attention", "decode_attention", "rmsnorm"]
+           "plain_moments", "attention", "decode_attention", "rmsnorm",
+           "ssd"]
 
 
 def _resolve_family(family, K: int, device):
@@ -208,3 +212,13 @@ def decode_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """RMSNorm of x (..., D) over its last axis, scaled by w (D,)."""
     return _rn.rmsnorm(x, w, eps=eps)
+
+
+def ssd(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
+        return_final_state: bool = False):
+    """Mamba2 SSD scan. x: (B, S, H, P); dt: (B, S, H) float32; A, D_skip:
+    (H,) float32; Bm, Cm: (B, S, G, N). Returns y (B, S, H, P) and, with
+    ``return_final_state``, the (B, H, P, N) float32 state after the last
+    token (the prefill path)."""
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, D_skip, chunk=chunk,
+                         return_final_state=return_final_state)

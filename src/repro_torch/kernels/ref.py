@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
 The model kernels' plain versions (:func:`flash_attention_ref`,
-:func:`decode_attention_ref`, :func:`rmsnorm_ref`) follow the JAX
-package's ``kernels/ref.py`` line for line: float32 math, output in the
-input's dtype, masked logits at ``-inf`` (a row with no live key gives NaN
-here, and 0 from the CUDA kernels, as from the Pallas kernels).
+:func:`decode_attention_ref`, :func:`rmsnorm_ref`, :func:`ssd_scan_ref`)
+follow the JAX package's ``kernels/ref.py`` line for line: float32 math,
+output in the input's dtype, masked logits at ``-inf`` (a row with no live
+key gives NaN here, and 0 from the CUDA kernels, as from the Pallas
+kernels). :func:`ssd_chunked_ref` is the chunked block decomposition of the
+JAX package's ``ops._ssd_xla_chunked``: the SSD kernel's plain version.
 
 The frontier kernels' plain versions:
 
@@ -269,3 +271,93 @@ def decode_attention_ref(q, k_cache, v_cache, valid, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return o.to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, D_skip=None):
+    """Sequential Mamba2 SSD recurrence (the semantics oracle).
+
+    x: (B, S, H, P); dt: (B, S, H) positive step sizes; A: (H,) negative
+    decay rates; Bm, Cm: (B, S, G, N) with H % G == 0 (head h reads group
+    ``h // (H // G)``); D_skip: (H,) or None. Returns y (B, S, H, P) in x's
+    dtype::
+
+        state_t = exp(dt_t A_h) state_{t-1} + dt_t (x_t ⊗ B_t)
+        y_t     = C_t · state_t (+ D_h x_t)
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bh = torch.repeat_interleave(Bm.float(), rep, dim=2)   # (B, S, H, N)
+    Ch = torch.repeat_interleave(Cm.float(), rep, dim=2)
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af)                      # (B, H)
+        state = state * dA[..., None, None] + (
+            dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+            * Bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, 1)
+    if D_skip is not None:
+        y = y + D_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
+                    return_final_state: bool = False):
+    """The chunked SSD scan: the plain version of ``csrc/ssd_scan.cu``.
+
+    Shapes as in :func:`ssd_scan_ref`. The sequence is cut into chunks of
+    ``L = min(chunk, S)``; a ragged tail is padded with dt = 0 and x = 0
+    (B = C = 0), which leaves the state unchanged, and the padded rows are
+    dropped from y. Within a chunk, with ``cum`` the inclusive cumsum of
+    ``dt * A``::
+
+        y_t    = exp(cum_t) C_t · state + sum_{s<=t} (C_t · B_s)
+                 exp(min(cum_t - cum_s, 0)) dt_s x_s + D_h x_t
+        state' = exp(cum_L) state + sum_s exp(cum_L - cum_s) dt_s x_s ⊗ B_s
+
+    Returns y (B, S, H, P) in x's dtype and, with ``return_final_state``,
+    the (B, H, P, N) float32 state after the last token.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    f32 = torch.float32
+    Af = A.to(f32)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    causal = causal[None, :, :, None]                       # (1, L, L, 1)
+    state = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    # each chunk is widened (and B, C repeated over heads) on its own, so
+    # that no float32 copy of the whole sequence is made
+    for c0 in range(0, S, L):
+        n = min(L, S - c0)
+        xc, dtc = x[:, c0:c0 + L].to(f32), dt[:, c0:c0 + L].to(f32)
+        bc = torch.repeat_interleave(Bm[:, c0:c0 + L].to(f32), rep, dim=2)
+        cc = torch.repeat_interleave(Cm[:, c0:c0 + L].to(f32), rep, dim=2)
+        if n < L:   # exact: padded steps leave the state unchanged
+            xc, dtc, bc, cc = (torch.cat([t, t.new_zeros((Bsz, L - n)
+                                                         + t.shape[2:])], 1)
+                               for t in (xc, dtc, bc, cc))
+        cum = torch.cumsum(dtc * Af, dim=1)                 # (B, L, H)
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "blhn,bhpn->blhp", cc, state)
+        cb = torch.einsum("blhn,bshn->blsh", cc, bc)       # (B, L, L, H)
+        # the exponent is clamped at 0: exact on the causal region, and
+        # the masked entries cannot overflow
+        decay = torch.exp(torch.clamp_max(cum[:, :, None, :]
+                                          - cum[:, None, :, :], 0.0))
+        g = torch.where(causal, cb * decay * dtc[:, None, :, :], 0.0)
+        y_intra = torch.einsum("blsh,bshp->blhp", g, xc)
+        w = torch.exp(cum[:, -1:, :] - cum) * dtc           # (B, L, H)
+        state = (torch.exp(cum[:, -1, :])[..., None, None] * state
+                 + torch.einsum("blhp,blhn->bhpn", xc * w[..., None], bc))
+        y = y_inter + y_intra + D_skip.to(f32)[None, None, :, None] * xc
+        ys.append(y[:, :n].to(x.dtype))
+    y = torch.cat(ys, 1)
+    if return_final_state:
+        return y, state
+    return y

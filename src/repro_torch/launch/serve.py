@@ -1,13 +1,16 @@
 """Serving CLI: paper-partitioned request batching across replica groups.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --execute
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --execute
 
 Two replica groups ("fast", "slow") share one model whose weights are drawn
 from seed 0 on ``--device`` (the card by default); a
 :class:`PartitionedBatcher` splits each batch of ``--requests`` 16-token
 prompts between them on the simulated channels ``Channel(20, 2)`` and
 ``Channel(14, 5)``, and with ``--execute`` each group runs greedy
-generation on its share. ``--tiny`` serves the arch's reduced config.
+generation on its share. Any dense attention or Mamba2 arch serves
+(``models/transformer.py``). ``--tiny`` serves the arch's reduced config;
+``--tiny --device cpu`` runs it on the plain path without a card.
 """
 from __future__ import annotations
 

@@ -1,20 +1,22 @@
-"""Config-driven decoder LM: dense attention stacks.
+"""Config-driven decoder LM: dense attention and Mamba2 (SSD) stacks.
 
 The layer stack is ``num_repeats`` copies of ``cfg.pattern``. The JAX
 package stacks each pattern position's weights over the repeats and runs
 ``lax.scan``; here each layer is its own submodule (``layers[r * P + i]``
 holds repeat r of pattern position i) and the stack is a Python loop.
 
-This slice carries ``LayerSpec("attn", "dense")`` (and ``"none"`` MLPs).
-The mla and mamba mixers and the moe MLP raise ``NotImplementedError``
-naming the ROADMAP item that ports them; the reference's ``ShardCtx``
-sharding waits for ``torch.distributed``.
+This slice carries ``LayerSpec("attn", "dense")``, ``LayerSpec("mamba",
+"none")`` and ``"none"`` MLPs. The mla mixer and the moe MLP raise
+``NotImplementedError`` naming the ROADMAP item that ports them; the
+reference's ``ShardCtx`` sharding waits for ``torch.distributed``.
 
-Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd),
-``slot_pos`` (S,) int32 on the device and ``pos`` a Python int. Unlike the
-reference, :meth:`LM.decode_step` writes the new token's K/V and slot into
-the cache in place (no copy of the cache per step) and returns the same
-dict.
+Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
+for attention layers and ``{"ssm", "conv"}`` states ((B, H, P, N) float32,
+(B, width - 1, ssm_inner)) for mamba layers, ``slot_pos`` (S,) int32 on
+the device and ``pos`` a Python int. Unlike the reference,
+:meth:`LM.decode_step` writes the new token's K/V and slot into the cache
+and advances the mamba states in place (no copy of the cache per step) and
+returns the same dict.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch import nn
 from ..configs.base import LayerSpec, ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import ssm
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
                      mlp_init, param, rms_norm, rmsnorm_init, rope)
 
@@ -33,8 +36,6 @@ __all__ = ["LM", "Block"]
 
 _WAITS = {
     "mla": "the MLA mixer waits for its slice (ROADMAP §1 item 11)",
-    "mamba": "the Mamba2 mixer waits for the ssd_scan slice (ROADMAP §1, "
-             "next in the queue)",
     "moe": "the MoE MLP waits for its slice (ROADMAP §1 item 11)",
 }
 
@@ -66,7 +67,8 @@ def _prefill_slot_pos(S: int, cache_len: int, device):
 
 
 class Block(nn.Module):
-    """One layer: pre-norm attention and a pre-norm dense MLP."""
+    """One layer: a pre-norm mixer (attention or Mamba2) and, for a dense
+    MLP, a pre-norm MLP."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  generator: torch.Generator, device):
@@ -74,12 +76,16 @@ class Block(nn.Module):
         for kind in (spec.mixer, spec.mlp):
             if kind in _WAITS:
                 raise NotImplementedError(_WAITS[kind])
-        if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+        if (spec.mixer not in ("attn", "mamba")
+                or spec.mlp not in ("dense", "none")):
             raise ValueError(f"unknown layer {spec}")
         self.spec = spec
         dt = dtype_of(cfg.param_dtype)
         self.ln1 = param(rmsnorm_init(cfg.d_model, dt, device))
-        self.mixer = attn.attn_init(cfg, generator, device)
+        if spec.mixer == "attn":
+            self.mixer = attn.attn_init(cfg, generator, device)
+        else:
+            self.mixer = ssm.mamba_init(cfg, generator, device)
         if spec.mlp == "dense":
             self.ln2 = param(rmsnorm_init(cfg.d_model, dt, device))
             self.mlp = mlp_init(cfg, generator, device)
@@ -122,7 +128,14 @@ class LM(nn.Module):
         cfg = self.cfg
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
         entry = None
-        if collect:
+        if blk.spec.mixer == "mamba":
+            if collect:
+                m, (ssm_s, conv_s) = ssm.mamba_apply(blk.mixer, h, cfg,
+                                                     return_state=True)
+                entry = {"ssm": ssm_s, "conv": conv_s}
+            else:
+                m = ssm.mamba_apply(blk.mixer, h, cfg)
+        elif collect:
             m, (k, v) = attn.attn_apply(blk.mixer, h, cfg, positions,
                                         return_kv=True)
             entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
@@ -149,9 +162,15 @@ class LM(nn.Module):
         cfg = self.cfg
         dt = dtype or dtype_of(cfg.activation_dtype)
         kv = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
-        return {"layers": [{"k": torch.zeros(kv, dtype=dt, device=self.device),
-                            "v": torch.zeros(kv, dtype=dt, device=self.device)}
-                           for _ in self.layers],
+
+        def one(blk: Block) -> dict:
+            if blk.spec.mixer == "mamba":
+                s, c = ssm.mamba_state_init(cfg, batch, dt, self.device)
+                return {"ssm": s, "conv": c}
+            return {"k": torch.zeros(kv, dtype=dt, device=self.device),
+                    "v": torch.zeros(kv, dtype=dt, device=self.device)}
+
+        return {"layers": [one(blk) for blk in self.layers],
                 "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
                                        device=self.device),
                 "pos": 0}
@@ -160,6 +179,9 @@ class LM(nn.Module):
                       slot: int):
         cfg = self.cfg
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        if blk.spec.mixer == "mamba":
+            m, _ = ssm.mamba_decode(blk.mixer, h, cfg, c["ssm"], c["conv"])
+            return self._mlp_part(blk, x + m)
         B = x.shape[0]
         hkv, hd = cfg.num_kv_heads, cfg.head_dim
         k_new = (h @ blk.mixer["wk"]).reshape(B, 1, hkv, hd)
@@ -203,8 +225,10 @@ class LM(nn.Module):
         layers = []
         for blk in self.layers:
             x, entry = self._block_apply(blk, x, positions, collect=True)
-            layers.append({k: _place_seq(v, cache_len, 2)
-                           for k, v in entry.items()})
+            if blk.spec.mixer == "attn":
+                entry = {k: _place_seq(v, cache_len, 2)
+                         for k, v in entry.items()}
+            layers.append(entry)   # mamba states need no seq placement
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         logits = lm_head(self.embed, x, self.cfg)
         cache = {"layers": layers,

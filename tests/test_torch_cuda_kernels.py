@@ -7,7 +7,8 @@ port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: atol = rtol = 2e-4 in float32, 1e-2 in bf16 (one bf16 ulp is
-about 0.4% of the value).
+about 0.4% of the value); the SSD scan 5e-4 in float32 (y and the final
+state) and 1e-2 for bf16 y.
 """
 import pytest
 import torch
@@ -16,6 +17,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -90,3 +92,49 @@ def test_dead_rows_give_zero(card):
     assert (fa.flash_attention(q, k, v, window=0) == 0).all()
     none = torch.zeros(64, dtype=torch.bool, device=card)
     assert (fd.flash_decode(q[:, :, :4].contiguous(), k, v, none) == 0).all()
+
+
+def _ssd_inputs(g, B, S, H, P, G, N, dtype, dev):
+    x = _randn(g, (B, S, H, P), dtype, dev)
+    dt = torch.nn.functional.softplus(_randn(g, (B, S, H), torch.float32,
+                                             dev)) * 0.5
+    A = -torch.exp(0.3 * _randn(g, (H,), torch.float32, dev))
+    Bm = (0.3 * _randn(g, (B, S, G, N), torch.float32, dev)).to(dtype)
+    Cm = (0.3 * _randn(g, (B, S, G, N), torch.float32, dev)).to(dtype)
+    D = 0.5 + _randn(g, (H,), torch.float32, dev).abs()
+    return x, dt, A, Bm, Cm, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 200, 4, 32, 2, 64, 64), (1, 1100, 2, 16, 1, 32, 128),
+    (2, 37, 4, 8, 4, 16, 16), (2, 300, 8, 64, 1, 128, 128),
+    (3, 13, 2, 64, 1, 128, 128)])
+def test_ssd_scan_matches_plain(card, dtype, B, S, H, P, G, N, chunk):
+    g = torch.Generator(device=card).manual_seed(4)
+    args = _ssd_inputs(g, B, S, H, P, G, N, dtype, card)
+    n = ssd.LAUNCHES["ssd_scan"]
+    y, state = ssd.ssd_scan(*args, chunk=chunk, return_final_state=True)
+    assert ssd.LAUNCHES["ssd_scan"] == n + 1
+    want_y, want_state = ref.ssd_chunked_ref(*args, chunk=chunk,
+                                             return_final_state=True)
+    tol = 5e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=5e-4, rtol=5e-4)
+    again = ssd.ssd_scan(*args, chunk=chunk, return_final_state=True)
+    assert torch.equal(again[0], y) and torch.equal(again[1], state)
+    assert torch.equal(ssd.ssd_scan(*args, chunk=chunk), y)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_reads_strided_b_c(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    x, dt, A, _, _, D = _ssd_inputs(g, 2, 40, 4, 16, 2, 32, torch.bfloat16,
+                                    card)
+    bc = _randn(g, (2, 40, 128), torch.bfloat16, card)
+    Bm, Cm = bc[..., :64].reshape(2, 40, 2, 32), bc[..., 64:].reshape(
+        2, 40, 2, 32)
+    got = ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=16)
+    assert torch.equal(got, ssd.ssd_scan(x, dt, A, Bm.contiguous(),
+                                         Cm.contiguous(), D, chunk=16))
