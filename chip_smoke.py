@@ -37,7 +37,10 @@ Phases, in order:
 9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
    ssd_scan) against their plain versions on the card, float32 and bf16,
    run twice (bitwise-equal): causal, window, GQA, rectangular, ragged and
-   Qwen3-8B's own shapes; for ssd_scan y and the final state at ragged S,
+   Qwen3-8B's own shapes; attention at D = 64, 80, 128 and 192, Nemotron-4-
+   340B's layer (Hq 96, Hkv 8, D 192) cut in B and S, short prompts packed
+   by kv group (groups of 3, 4 and 12); decode with one and several splits,
+   whole splits invalid, S = 4096; for ssd_scan y and the final state at ragged S,
    S >= 1024, G = 2, chunks of 16/64/128 and Mamba2-2.7B's own shapes; dead
    rows give 0; the tiny Qwen3 and Mamba2 configs on the card against the
    same weights on the CPU (prefill logits and greedy tokens).
@@ -48,7 +51,8 @@ Phases, in order:
    First the full-width prefill through the kernels against the plain
    versions. Launch counters are zeroed before the batches and read after;
    every model kernel and the frontier grad kernel must have launched; two
-   generate calls on one batch must agree.
+   generate calls on one batch must agree. One group's generate is
+   profiled, with the device time of flash_attention and flash_decode.
 11. ``ssmserve`` — the same serving path with full-width Mamba2-2.7B (64
    mamba layers, bf16, seeded weights on the card). On 2 x 300 tokens
    (three chunks, the last ragged) and 4 more: every layer on its own input
@@ -64,9 +68,16 @@ Phases, in order:
 12. ``lmtick`` — each model kernel's time at the path's shapes and at the
    serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
    32768 x 4096 norms; ssd_scan at prefill_32k with B=8 and long_500k at
-   B=1), beside its bound, its plain version (where it fits) and the
-   yardstick PyTorch call (scaled_dot_product_attention, rms_norm; none
-   computes the SSD scan), which the port never calls.
+   B=1), and the attention kernels at a middle shape (prefill S=4096 at
+   B=8, decode S=2048 at B=32), beside its bound, its plain version (where
+   it fits) and the yardstick PyTorch call (scaled_dot_product_attention,
+   rms_norm; none computes the SSD scan), which the port never calls, with
+   kernel over bound and kernel over library. The attention kernels are
+   held against their plain versions at LM_TOL at the middle shapes and at
+   decode_32k (once more there with its first split invalid), and at the
+   path's shapes their device time per call under torch.profiler (no
+   launch path) and their host time per call (the launch path) stand
+   beside SDPA's.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -607,6 +618,10 @@ LM_KERNELS = {
                  "src/repro/kernels/ssd_scan.py:80", "ssmserve"),
 }
 
+# the CUDA functions of each attention kernel, as the profiler names them
+ATTN_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
+                "flash_decode": ("fd_split_kernel", "fd_combine_kernel")}
+
 # kernel against plain version on the card, per output dtype (atol = rtol)
 LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 # the SSD scan's y and final state: its sums run over up to L (L+1) / 2 + N
@@ -621,23 +636,38 @@ BF16_OPS_PER_S = 989e12
 # split across two replica groups (about 32 prompts each)
 SERVE_BATCHES, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 5, 64, 16, 8
 
-# (name, B, Hq, Hkv, Sq, Sk, D, causal, window)
+# (name, B, Hq, Hkv, Sq, Sk, D, causal, window): the bf16 kernel's head
+# dims 64, 80, 128 and 192, ragged S against its 128-row query tiles,
+# Nemotron-4-340B's layer (96 query and 8 KV heads of 192) with B and S
+# cut, and short prompts packed by kv group (Qwen3-8B's group of 4,
+# smollm-360m's group of 3, Nemotron's 12 across two blocks)
 ATTN_CASES = (
     ("causal", 2, 4, 4, 256, 256, 128, True, None),
     ("window64-ragged", 2, 4, 2, 300, 300, 64, True, 64),
     ("gqa4", 1, 8, 2, 200, 200, 128, True, None),
     ("rect-noncausal", 2, 4, 2, 100, 260, 64, False, None),
     ("noncausal-d80", 1, 4, 1, 128, 128, 80, False, None),
+    ("causal-d80-ragged", 1, 32, 8, 333, 333, 80, True, None),
+    ("window100-d192-ragged", 1, 4, 2, 450, 450, 192, True, 100),
+    ("nemotron-4-340b layer S=300", 1, 96, 8, 300, 300, 192, True, None),
+    ("nemotron-4-340b packed S=16", 2, 96, 8, 16, 16, 192, True, None),
     ("qwen3-8b prefill", 32, 32, 8, 16, 16, 128, True, None),
+    ("smollm-360m packed group 3", 4, 15, 5, 16, 16, 64, True, None),
     ("tiny prefill", 2, 4, 2, 16, 16, 16, True, None),
 )
-# (name, B, Hkv, G, S, D, valid slots)
+# (name, B, Hkv, G, S, D, valid slots[, leading slots cleared]): one split
+# at short S, several splits (flash_decode.decode_splits) with a whole
+# split invalid, S = 4096, Nemotron's group of 12 at D = 192
 DECODE_CASES = (
     ("qwen3-8b decode", 32, 8, 4, 24, 128, 17),
     ("qwen3-8b last step", 32, 8, 4, 24, 128, 24),
     ("g1-ragged", 2, 2, 1, 200, 64, 150),
     ("g8", 1, 1, 8, 256, 128, 256),
     ("tiny decode", 2, 2, 2, 20, 16, 17),
+    ("splits S=4096 two invalid", 1, 2, 4, 4096, 128, 3000, 600),
+    ("splits B=32 S=2048", 32, 8, 4, 2048, 128, 1500),
+    ("nemotron-4-340b decode splits", 2, 8, 12, 1000, 192, 700),
+    ("splits d80 ragged", 2, 8, 4, 777, 80, 500, 259),
 )
 # (name, B, S, H, P, G, N, chunk): ragged S, S >= 1024, G = 2, chunks of
 # 16/64/128, Mamba2-2.7B's own shapes (the full-width prefill check and one
@@ -700,11 +730,14 @@ def _attn_inputs(case, dtype, seed):
 
 
 def _decode_inputs(case, dtype, seed):
+    """q, k, v and a mask of ``n_valid`` random valid slots, the first
+    ``dead`` of them cleared (a split with no valid slot)."""
     import torch
-    _, B, Hkv, G, S, D, n_valid = case
+    _, B, Hkv, G, S, D, n_valid, *dead = case
     g = _gen(seed)
     valid = torch.zeros(S, dtype=torch.bool, device="cuda")
     valid[torch.randperm(S, generator=g, device="cuda")[:n_valid]] = True
+    valid[:dead[0] if dead else 0] = False
     return (_randn(g, (B, Hkv, G, D), dtype), _randn(g, (B, Hkv, S, D), dtype),
             _randn(g, (B, Hkv, S, D), dtype), valid)
 
@@ -739,8 +772,10 @@ def phase_lmcheck(ctx):
     tiny Qwen3 and Mamba2 models on the card against themselves on the
     CPU."""
     import torch
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops, ref
     fails, worst = [], {k: 0.0 for k in LM_KERNELS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def hold(kernel, tag, run, plain, tols=LM_TOL):
         """Every output of ``run`` against ``plain``'s, each at the
@@ -775,7 +810,9 @@ def phase_lmcheck(ctx):
                                                  window=window))
         for i, case in enumerate(DECODE_CASES):
             q, k, v, valid = _decode_inputs(case, dtype, 30 + i)
-            hold("flash_decode", f"{case[0]} {dn} S={case[4]}",
+            splits = fd.decode_splits(case[1], case[2], case[4], sms)[0]
+            hold("flash_decode",
+                 f"{case[0]} {dn} S={case[4]} splits={splits}",
                  lambda: ops.decode_attention(q, k, v, valid),
                  lambda: ref.decode_attention_ref(q, k, v, valid))
         for i, (name, rows, D) in enumerate(NORM_CASES):
@@ -1191,6 +1228,9 @@ def _profile_generate(tag, engine, prompts):
                               + e.self_device_time_total / 1e3)
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    attn = {k: sum(ms for n, ms in by_name.items()
+                   if any(sym in n for sym in syms))
+            for k, syms in ATTN_SYMBOLS.items()}
     busy = dev_ms / wall_ms if dev_ms > 0 else None
     log(f"[{tag}] one group's generate ({len(prompts)} prompts, {SERVE_NEW} "
         f"tokens): wall {wall_ms:.2f} ms, device "
@@ -1198,8 +1238,10 @@ def _profile_generate(tag, engine, prompts):
            else "time not measured (the profiler saw no device time)"))
     for n, ms in top:
         log(f"[{tag}]   {ms:8.3f} ms  {n[:90]}")
+    log(f"[{tag}] attention kernels' device time: "
+        + ", ".join(f"{k} {ms:.3f} ms" for k, ms in attn.items()))
     return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
-            "busy_share": busy,
+            "busy_share": busy, "attention_ms": attn,
             "top": [{"name": n, "ms": ms} for n, ms in top]}
 
 
@@ -1226,30 +1268,54 @@ def phase_lmtick(ctx):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     bf = torch.bfloat16
-    rows = []
+    rows, fails = [], []
 
     def tick(kernel, shape, run, plain, library, bound, plain_bytes,
-             reps=7, plain_reps=5):
-        """``library`` None: no PyTorch call computes the function."""
+             reps=7, plain_reps=5, check=False, device_time=False):
+        """``library`` None: no PyTorch call computes the function.
+        ``check``: hold the kernel's output against the plain version's at
+        LM_TOL first. ``device_time``: also the device time per call under
+        torch.profiler, without the launch path, and the host time per
+        call, the launch path alone, for kernel and library."""
+        err = _agree(kernel, shape, run, plain, fails) if check else None
         ms = _time_cuda(run, reps=reps)
         plain_ms = (_time_cuda(plain, reps=plain_reps, warm=1)
                     if _fits(plain_bytes) else None)
         lib_ms = _time_cuda(library, reps=7) if library is not None else None
+        dev_ms = _device_ms(run) if device_time else None
+        lib_dev_ms = (_device_ms(library) if device_time and library
+                      is not None else None)
+        host_ms = _host_ms(run) if device_time else None
+        lib_host_ms = (_host_ms(library) if device_time and library
+                       is not None else None)
         bound_ms, by = bound
         rows.append({"kernel": kernel, "shape": shape, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": by})
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "max_abs_err": err, "device_ms": dev_ms,
+                     "library_device_ms": lib_dev_ms, "host_ms": host_ms,
+                     "library_host_ms": lib_host_ms})
         log(f"[lmtick] {kernel:15s} {shape:46s} kernel {ms:9.4f} ms  plain "
             + (f"{plain_ms:9.4f}" if plain_ms is not None else "  no room")
             + " ms  library "
             + (f"{lib_ms:9.4f} ms" if lib_ms is not None else "none")
             + f"  bound {bound_ms:.4f} ms ({by})"
-            f"  kernel/bound {ms / bound_ms:.1f}x")
+            f"  kernel/bound {ms / bound_ms:.1f}x"
+            + (f"  kernel/library {ms / lib_ms:.2f}x" if lib_ms else ""))
+        if dev_ms is not None:
+            log(f"[lmtick] {kernel:15s} {shape:46s} device time per call: "
+                f"kernel {dev_ms:.4f} ms"
+                + (f", library {lib_dev_ms:.4f} ms, kernel/library "
+                   f"{dev_ms / lib_dev_ms:.2f}x" if lib_dev_ms else "")
+                + f"; host time per call: kernel {host_ms:.4f} ms"
+                + (f", library {lib_host_ms:.4f} ms" if lib_host_ms
+                   is not None else ""))
         torch.cuda.empty_cache()
 
-    # flash_attention: the path (one group's prefill), then prefill_32k's
-    # S = 32768 with B cut from 32 to 1
-    for tag, B, S in (("path", 32, 16), ("serving prefill_32k B=1", 1, 32768)):
+    # flash_attention: the path (one group's prefill), a middle shape, then
+    # prefill_32k's S = 32768 with B cut from 32 to 1
+    for tag, B, S in (("path", 32, 16), ("middle", 8, 4096),
+                      ("serving prefill_32k B=1", 1, 32768)):
         Hq, Hkv, D = 32, 8, 128
         q, k, v = _attn_inputs(("", B, Hq, Hkv, S, S, D, True, None), bf, 90)
         nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
@@ -1260,11 +1326,13 @@ def phase_lmtick(ctx):
              lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                     enable_gqa=True),
              _roof(nbytes, flops / BF16_OPS_PER_S),
-             plain_bytes=4 * 3 * B * Hq * S * S)
+             plain_bytes=4 * 3 * B * Hq * S * S, check=tag == "middle",
+             device_time=tag == "path")
         del q, k, v
-    # flash_decode: the path's last step (cache of 24, all valid), then
-    # decode_32k's S = 32768 with B cut from 128 to 32
-    for tag, B, S in (("path", 32, 24), ("serving decode_32k B=32", 32, 32768)):
+    # flash_decode: the path's last step (cache of 24, all valid), a middle
+    # shape, then decode_32k's S = 32768 with B cut from 128 to 32
+    for tag, B, S in (("path", 32, 24), ("middle", 32, 2048),
+                      ("serving decode_32k B=32", 32, 32768)):
         Hkv, G, D = 8, 4, 128
         q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S), bf, 91)
         nbytes = 2 * (2 * B * Hkv * G * D + 2 * B * Hkv * S * D) + S
@@ -1275,8 +1343,18 @@ def phase_lmtick(ctx):
                  q.reshape(B, Hkv * G, 1, D), k, v,
                  attn_mask=valid[None, None, None, :], enable_gqa=True),
              _roof(nbytes, 4 * B * Hkv * G * S * D / BF16_OPS_PER_S),
-             plain_bytes=4 * 2 * B * Hkv * S * D)
+             plain_bytes=4 * 2 * B * Hkv * S * D, check=tag != "path",
+             device_time=tag == "path")
         del q, k, v
+    # decode_32k's shape once more with a ragged mask whose first split (of
+    # three) has no valid slot, held against the plain version
+    case = ("", 32, 8, 4, 32768, 128, 20000, 10923)
+    q, k, v, valid = _decode_inputs(case, bf, 94)
+    _agree("flash_decode", "decode_32k B=32, first split invalid",
+           lambda: ops.decode_attention(q, k, v, valid),
+           lambda: ref.decode_attention_ref(q, k, v, valid), fails)
+    del q, k, v, valid
+    torch.cuda.empty_cache()
     # rmsnorm: the path's residual-stream and per-head norms, then 32768
     # rows of 4096
     for tag, R, D in (("path ln (32 x 16 tokens)", 512, 4096),
@@ -1310,6 +1388,70 @@ def phase_lmtick(ctx):
              reps=3 if long_s else 7, plain_reps=2 if long_s else 5)
         del args
     ctx["lmtick"] = rows
+    worst = ctx.setdefault("lm_max_abs_err", {})
+    for r in rows:
+        if r["max_abs_err"] is not None:
+            worst[r["kernel"]] = max(worst.get(r["kernel"], 0.0),
+                                     r["max_abs_err"])
+    if fails:
+        raise AssertionError(f"kernel/plain disagreement at lmtick shapes: "
+                             f"{fails}")
+
+
+def _agree(kernel, tag, run, plain, fails):
+    """Max |err| of ``run``'s output against ``plain``'s, held at LM_TOL of
+    the output's dtype; the output must be finite. A failure is logged and
+    appended to ``fails``."""
+    import torch
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    tol = LM_TOL[str(got.dtype).split(".")[-1]]
+    err = float((got.float() - want.float()).abs().max())
+    ok = (bool(torch.isfinite(got).all())
+          and bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)))
+    log(f"[lmtick] {kernel:15s} {tag:46s} against plain: max|err| "
+        f"{err:.2e} (tol {tol:g}) " + ("ok" if ok else "FAIL"))
+    if not ok:
+        fails.append(f"{kernel} {tag}")
+    del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def _host_ms(fn, reps=200):
+    """Host milliseconds per call of ``fn`` with the device idle at the
+    start and no synchronization between calls: the launch path, where the
+    device's work per call is shorter than it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / reps
+
+
+def _device_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn`` under torch.profiler: the sum
+    of the device time of every kernel it launches over ``reps`` calls,
+    divided by ``reps``; the host's launch path is not in it. None when the
+    profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
 
 
 def _ssd_work(B, S, H, P, G, N, chunk):

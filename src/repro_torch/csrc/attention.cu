@@ -1,59 +1,102 @@
 // Flash attention (prefill) and flash decode, online softmax in float32.
 //
-// flash_attention_kernel replaces the Pallas TPU kernel `_attn_kernel` of
-// the JAX package's src/repro/kernels/flash_attention.py
-// (`flash_attention`); flash_decode_kernel replaces `_decode_kernel` of
-// src/repro/kernels/flash_decode.py (`flash_decode`). Both keep the Pallas
-// kernels' arithmetic: s = (q . k) * sm_scale (the scale after the dot),
-// masked logits at NEG_INF = -1e30, a running max m, sum l and accumulator
-// in float32, the dead-row guard (a row with no live key gives 0, never
-// NaN), and o = acc / max(l, 1e-30). GQA: query head h reads kv head
-// h / group.
+// The prefill kernels replace the Pallas TPU kernel `_attn_kernel` of the
+// JAX package's src/repro/kernels/flash_attention.py (`flash_attention`);
+// the decode kernels replace `_decode_kernel` of
+// src/repro/kernels/flash_decode.py (`flash_decode`). All keep the Pallas
+// kernels' rules: s = (q . k) * sm_scale (the scale after the dot), masked
+// logits at NEG_INF = -1e30, a running max m, sum l and accumulator in
+// float32, the dead-row guard (a row with no live key gives 0, never NaN),
+// and o = acc / max(l, 1e-30). GQA: query head h reads kv head h / group.
+// No atomics anywhere: every reduction is a fixed-order shuffle butterfly
+// or a fixed-order loop, so two runs on one input give the same bits.
 //
-// What bounds them on the H100.
-// * flash_attention: operations at long S (4 B Hq Sq Sk D flops, halved
-//   when causal, against the inputs' 2 B (Hq + 2 Hkv) S D bytes: ~S/2
-//   flops per byte, above the card's ~295 bf16 flops per byte once S is in
-//   the thousands); bytes and launch latency at the serving path's S = 16.
-//   The design: one 128-thread block per (query tile of 64, q head, batch);
-//   the block walks the key tiles of 64 itself, skipping the tiles that the
-//   causal and window bounds exclude, and masks the ragged last tiles
-//   itself, so any Sq and Sk work. Q, K and V tiles sit in shared memory in
-//   their storage type (rows padded to an odd word stride, so the threads of
-//   a warp hit distinct banks); each thread holds a 4 x 8 block of scores
-//   and a 4 x D/8 block of the accumulator in registers. The products run
-//   on CUDA cores in float32: this is the simple, right first kernel, and
-//   it sits far from the tensor-core bound (wgmma/TMA tiles are later work).
-// * flash_decode: bytes (the whole K/V cache is read once per step for
-//   G = 4 query rows: ~1 flop per byte). The design: one block per (kv
-//   head, batch); the G query rows of a group share every K/V tile of 64
-//   slots that the block stages in shared memory. With B * Hkv blocks, a
-//   small batch leaves SMs idle (B = 32, Hkv = 8 gives 256 blocks for 132
-//   SMs); splitting S across blocks is later work.
+// flash_attention, bf16 (fa_wgmma_kernel). Bound by operations at long S
+// (4 B Hq Sq Sk D flops, halved when causal, against 2 B (Hq + 2 Hkv) S D
+// bytes: ~S/2 flops per byte, far above the card's ~295 bf16 flops per
+// byte), so both products run on the tensor cores with wgmma, in the shape
+// of FlashAttention-3's forward pass:
+//   * one block per (query tile of 128 rows, q head, batch): two consumer
+//     warpgroups of 64 rows each and a producer warpgroup, which hands its
+//     registers to the consumers (setmaxnreg: 24 and 240 a thread);
+//   * one producer thread keeps the K and V tiles of BK keys in flight with
+//     TMA loads (4-D tensor maps over the (B, H, S, D) views, so the
+//     model's strided projections are read without a copy) into a
+//     two-stage ring of 128-byte-swizzled panels, signalled by mbarriers;
+//     the consumers release a stage after their P . V (measured on the
+//     H100: overlapping a tile's softmax with the previous tile's P . V
+//     was slower; a third stage, releasing K early, or ping-pong turns of
+//     the two warpgroups on the tensor cores gained nothing);
+//   * S = Q . K^T is wgmma with both operands in shared memory, O += P . V
+//     wgmma with P in registers (rounded to bf16) and V read in its natural
+//     row-major layout as an MN-major operand; O accumulates in float32;
+//   * the online softmax runs on the accumulator fragment, with row
+//     reductions as quad shuffles; only the tiles that straddle the causal
+//     or window bound or the ragged end of Sk are masked; tiles that the
+//     bounds exclude are skipped, and the heaviest causal query tiles
+//     launch first;
+//   * short prompts (Sq <= 64) pack the query heads that share one kv head
+//     into a tile's rows (row r is head h0 + r / Sq at position r % Sq), so
+//     the serving path's 16-token prompts fill a 64-row wgmma tile.
+// Head dims up to 256 in steps of 8: the tile is DP = 64, 128, 192 or 256
+// columns, and TMA fills the columns past D with zeros (D = 80 runs as 128),
+// which add nothing to q . k and give columns of O that are not stored.
+// Unlike the Pallas kernel (P in float32), P is rounded to bf16 before
+// P . V, as the JAX model's own XLA path does, and l sums the rounded P.
 //
-// No atomics: every reduction is a fixed-order shuffle butterfly or a
-// fixed-order loop, so two runs on one input give the same bits.
+// flash_attention, float32 (fa_f32_kernel): the CUDA-core kernel of the
+// first port (TF32 would not meet the float32 tolerance): one 128-thread
+// block per (query tile of 64, q head, batch), Q, K and V tiles in shared
+// memory, a 4 x 8 block of scores and a 4 x D/8 block of the accumulator
+// per thread.
+//
+// flash_decode (fd_split_kernel, fd_combine_kernel), float32 and bf16.
+// Bound by bytes: the whole K/V cache is read once per step for G <= 16
+// query rows (~1 flop per byte), so the design is about bytes in flight:
+//   * the cache is split along S across blocks, grid (splits, Hkv, B); the
+//     wrapper picks the splits so that B Hkv splits is about four times the
+//     SM count with at least 256 slots each, and one split for short
+//     caches, which then write the output directly;
+//   * each block streams its K and V rows through a four-stage ring of
+//     16-byte cp.async copies (16 KB a stage), with zero fill past the
+//     split's end;
+//   * lanes span D in 16-byte vectors; a group of lps lanes takes one slot
+//     at a time and every one of the G query rows (held in registers) shares
+//     each K row it reads; the dot products reduce over the group's lanes
+//     with a fixed shuffle butterfly; each group keeps its own online
+//     softmax state (m, l and its slice of the G x D accumulator), with the
+//     logits and m in log2 units (sm_scale * log2 e after the dot, exp2);
+//   * the groups of a block combine in a fixed order (shuffles, then the
+//     four warps through shared memory); with several splits each block
+//     writes its float32 partial (m, l, acc) and fd_combine_kernel merges
+//     the splits in split order. A split with no valid slot has m = -1e30
+//     and l = 0 and weighs 0; a row with no valid slot anywhere gives 0.
+#include <cuda.h>
+
 #include "dtype.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-// flash_attention tiling
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int FA_THREADS = 128;  // 16 row groups of 4 rows x 8 column groups
-constexpr int MAX_D = 128;
-constexpr int COLS = MAX_D / 8;  // accumulator columns per thread, at most
-
-// flash_decode tiling
-constexpr int DS = 64;           // cache slots per tile (two warps' lanes)
-constexpr int FD_THREADS = 128;
-constexpr int FD_OUT = 8;        // outputs per thread: G * D <= 1024
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;  // element strides of the batch, head and sequence axes
 };
+
+// 2^x on the special function unit (relative error ~2^-22; subnormal
+// results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------ flash_attention, float32
+constexpr int BQ = 64;           // query rows per block
+constexpr int BK32 = 64;         // keys per tile
+constexpr int FA_THREADS = 128;  // 16 row groups of 4 rows x 8 column groups
 
 // Row stride, in elements, of a shared tile of D columns: an odd number of
 // 32-bit words for D % 4 == 0.
@@ -73,19 +116,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T>
+// COLS: accumulator columns per thread (D <= 8 COLS)
+template <typename T, int COLS>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int group, int Sq, int Sk, int D, Strides qs,
-                       Strides ks, Strides vs, int causal, int window,
-                       float scale) {
+fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, int Hq, int group,
+              int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
+              int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = pad_ld<T>(D);
-  float* Ps = reinterpret_cast<float*>(smem);       // BQ x (BK + 1)
-  T* Qs = reinterpret_cast<T*>(Ps + BQ * (BK + 1));  // BQ x ld
-  T* Ks = Qs + BQ * ld;                               // BK x ld
-  T* Vs = Ks + BK * ld;                               // BK x ld
+  float* Ps = reinterpret_cast<float*>(smem);        // BQ x (BK32 + 1)
+  T* Qs = reinterpret_cast<T*>(Ps + BQ * (BK32 + 1));  // BQ x ld
+  T* Ks = Qs + BQ * ld;                                 // BK32 x ld
+  T* Vs = Ks + BK32 * ld;                               // BK32 x ld
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3, cg = tid & 7;  // row group, column group
@@ -112,12 +155,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_begin = 0, k_end = Sk;
   if (causal) k_end = min(Sk, q_last + 1);
   if (window >= 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
+  k_begin = (k_begin / BK32) * BK32;
 
-  for (int kt = k_begin; kt < k_end; kt += BK) {
+  for (int kt = k_begin; kt < k_end; kt += BK32) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, kb, ks.s, kt, BK, Sk, D, ld, tid, FA_THREADS);
-    load_tile(Vs, vb, vs.s, kt, BK, Sk, D, ld, tid, FA_THREADS);
+    load_tile(Ks, kb, ks.s, kt, BK32, Sk, D, ld, tid, FA_THREADS);
+    load_tile(Vs, vb, vs.s, kt, BK32, Sk, D, ld, tid, FA_THREADS);
     __syncthreads();
 
     float s[4][8];
@@ -164,7 +207,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float p = ok[j] ? expf(s[i][j] - sub) : 0.f;
-        Ps[(rg * 4 + i) * (BK + 1) + cg + 8 * j] = p;
+        Ps[(rg * 4 + i) * (BK32 + 1) + cg + 8 * j] = p;
         rs += p;
       }
 #pragma unroll
@@ -177,10 +220,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < BK32; ++j) {
       float p[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(rg * 4 + i) * (BK + 1) + j];
+      for (int i = 0; i < 4; ++i) p[i] = Ps[(rg * 4 + i) * (BK32 + 1) + j];
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
         const int col = cg + 8 * c;
@@ -207,151 +250,756 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(FD_THREADS)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const unsigned char* __restrict__ valid,
-                    T* __restrict__ o, int Hkv, int G, int S, int D,
-                    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = pad_ld<T>(D);
-  float* Qs = reinterpret_cast<float*>(smem);  // G x D
-  float* Ps = Qs + G * D;                       // G x DS
-  float* Ms = Ps + G * DS;                      // running max, per row
-  float* Ls = Ms + G;                           // running sum
-  float* As = Ls + G;                           // this tile's rescale
-  int* okS = reinterpret_cast<int*>(As + G);    // DS
-  T* Ks = reinterpret_cast<T*>(okS + DS);       // DS x ld
-  T* Vs = Ks + DS * ld;                         // DS x ld
+template <int COLS>
+int attention_f32(const void* q, const void* k, const void* v, void* o,
+                  int B, int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
+                  Strides ks, Strides vs, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  const int ld = pad_ld<float>(D);
+  const size_t smem = sizeof(float) * BQ * (BK32 + 1) +
+                      sizeof(float) * (size_t)(BQ + 2 * BK32) * ld;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_f32_kernel<float, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  fa_f32_kernel<float, COLS><<<grid, FA_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
+      Sk, D, qs, ks, vs, causal, window, scale);
+  return (int)cudaGetLastError();
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long bh = (long long)b * Hkv + h;
-  const T* qb = q + bh * G * D;
-  const T* kb = k + bh * (long long)S * D;
-  const T* vb = v + bh * (long long)S * D;
+// --------------------------------------------- flash_attention, bf16 wgmma
+constexpr int NWG = 2;                         // consumer warpgroups
+constexpr int BQW = 64 * NWG;                  // query rows per block
+constexpr int FA3_THREADS = 128 * (NWG + 1);   // + the producer warpgroup
+constexpr int STAGES = 2;                      // depth of the K/V ring
+constexpr int PANEL_ROW = 128;                 // bytes: 64 bf16 columns
 
-  for (int idx = tid; idx < G * D; idx += FD_THREADS) Qs[idx] = to_f32(qb[idx]);
-  for (int g = tid; g < G; g += FD_THREADS) {
-    Ms[g] = NEG_INF;
-    Ls[g] = 0.f;
+struct FaArgs {
+  __nv_bfloat16* o;      // (B, Hq, Sq, D) contiguous
+  int Hq, group, Sq, Sk, D;
+  int causal, window;
+  float scale_log2;      // sm_scale * log2(e): p = 2^(s' - m') = e^(s - m)
+  int packed;            // rows are (head, position) pairs of one kv group
+  int heads_per_block;   // packed: query heads per block (its TMA box)
+  int blocks_per_kv;     // packed: blocks per kv head
+};
+
+// DP: the tile's padded head dim; BK: keys per tile
+template <int DP> struct FaTile {
+  static constexpr int NP = DP / 64;  // 64-column panels
+  static constexpr int BK = DP <= 128 ? 128 : 64;
+  static constexpr int Q_BYTES = NP * BQW * PANEL_ROW;
+  static constexpr int KV_BYTES = NP * BK * PANEL_ROW;  // one stage of K or V
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // + up to 1023 bytes to align the base, + the barriers
+  static constexpr int SMEM = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
+};
+
+// S = Q . K^T for one warpgroup's 64 query rows (panels at q, stride BQW
+// rows) and a K tile (panels at k, stride BK rows), into sc; asynchronous:
+// the caller commits and waits
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&sc)[FaTile<DP>::BK / 2],
+                                         uint32_t q, uint32_t k) {
+  constexpr int BK = FaTile<DP>::BK;
+#pragma unroll
+  for (int p = 0; p < FaTile<DP>::NP; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da =
+          sw128_desc(q + p * BQW * PANEL_ROW + 32 * kk, 16, 1024);
+      const uint64_t db =
+          sw128_desc(k + p * BK * PANEL_ROW + 32 * kk, 16, 1024);
+      wgmma_ss(sc, da, db, (p | kk) != 0);
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FA3_THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, FaArgs a) {
+  using Tile = FaTile<DP>;
+  constexpr int NP = Tile::NP, BK = Tile::BK;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled panels start on 1024-byte boundaries
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK = sQ + Tile::Q_BYTES;             // STAGES x KV_BYTES
+  const uint32_t sV = sK + STAGES * Tile::KV_BYTES;   // STAGES x KV_BYTES
+  const uint32_t bar = sQ + Tile::BAR_OFF;
+  // barriers: Q full; K and V full [STAGES]; stage released [STAGES]
+  const uint32_t barQ = bar;
+  auto barK = [&](int s) { return bar + 8 * (1 + s); };
+  auto barV = [&](int s) { return bar + 8 * (1 + STAGES + s); };
+  auto barE = [&](int s) { return bar + 8 * (1 + 2 * STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z;
+  int h0, hk, nheads, q0;
+  if (a.packed) {
+    hk = blockIdx.y / a.blocks_per_kv;
+    const int sub = blockIdx.y - hk * a.blocks_per_kv;
+    h0 = hk * a.group + sub * a.heads_per_block;
+    nheads = min(a.heads_per_block, a.group - sub * a.heads_per_block);
+    q0 = 0;
+  } else {
+    h0 = blockIdx.y;
+    hk = h0 / a.group;
+    nheads = 1;
+    q0 = (gridDim.x - 1 - blockIdx.x) * BQW;  // heaviest causal tiles first
   }
-  float acc[FD_OUT];
-#pragma unroll
-  for (int a = 0; a < FD_OUT; ++a) acc[a] = 0.f;
+  // positions this block's rows hold, and the key tiles they can see
+  const int pos_lo = q0;
+  const int pos_hi = a.packed ? a.Sq - 1 : min(q0 + BQW, a.Sq) - 1;
+  int k_begin = 0, k_end = a.Sk;
+  if (a.causal) k_end = min(a.Sk, pos_hi + 1);
+  if (a.window >= 0) k_begin = max(0, pos_lo - a.window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  for (int st = 0; st < S; st += DS) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, kb, (long long)D, st, DS, S, D, ld, tid, FD_THREADS);
-    load_tile(Vs, vb, (long long)D, st, DS, S, D, ld, tid, FD_THREADS);
-    for (int j = tid; j < DS; j += FD_THREADS)
-      okS[j] = (st + j < S) && valid[st + j];
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(barK(s), 1);
+      mbar_init(barV(s), 1);
+      mbar_init(barE(s), 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // scores: thread t takes slot t % DS for rows t / DS, + 2, + 4, ...
-    {
-      const int j = tid % DS;
-      for (int g = tid / DS; g < G; g += FD_THREADS / DS) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += Qs[g * D + d] * to_f32(Ks[j * ld + d]);
-        Ps[g * DS + j] = okS[j] ? dot * scale : NEG_INF;
+  if (warp >= 4 * NWG) {
+    // ---- producer: one lane issues every TMA load; the warpgroup hands
+    // its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 4 * NWG && lane == 0) {
+      const int q_rows = a.packed ? a.Sq * a.heads_per_block : BQW;
+      mbar_expect_tx(barQ, NP * q_rows * PANEL_ROW);
+      for (int p = 0; p < NP; ++p)
+        tma_load_4d(sQ + p * BQW * PANEL_ROW, &qmap, barQ, 64 * p, q0, h0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        const int kt = k_begin + t * BK;
+        if (t >= STAGES) mbar_wait(barE(s), ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(barK(s), Tile::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sK + s * Tile::KV_BYTES + p * BK * PANEL_ROW, &kmap,
+                      barK(s), 64 * p, kt, hk, b);
+        mbar_expect_tx(barV(s), Tile::KV_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sV + s * Tile::KV_BYTES + p * BK * PANEL_ROW, &vmap,
+                      barV(s), 64 * p, kt, hk, b);
       }
     }
-    __syncthreads();
+    return;
+  }
 
-    // online softmax: warp w updates rows w, w + 4, ...; lane holds slots
-    // lane and lane + 32
-    for (int g = warp; g < G; g += FD_THREADS / 32) {
-      const float s0 = Ps[g * DS + lane], s1 = Ps[g * DS + lane + 32];
-      const float mc = warp_max(fmaxf(s0, s1));
-      const float m_prev = Ms[g];
-      const float m_new = fmaxf(m_prev, mc);
-      const bool dead = m_new <= NEG_INF * 0.5f;
-      const float sub = dead ? 0.f : m_new;
-      const float p0 = okS[lane] ? expf(s0 - sub) : 0.f;
-      const float p1 = okS[lane + 32] ? expf(s1 - sub) : 0.f;
-      const float alpha = m_prev <= NEG_INF * 0.5f ? 0.f : expf(m_prev - sub);
-      const float rs = warp_sum(p0 + p1);
-      Ps[g * DS + lane] = p0;
-      Ps[g * DS + lane + 32] = p1;
+  // ---- consumers: warpgroup wg owns block rows 64 wg .. 64 wg + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp >> 2;
+  int head[2], pos[2];
+  bool live[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * hh;
+    if (a.packed) {
+      head[hh] = h0 + row / a.Sq;
+      pos[hh] = row % a.Sq;
+      live[hh] = row < nheads * a.Sq;
+    } else {
+      head[hh] = h0;
+      pos[hh] = q0 + row;
+      live[hh] = pos[hh] < a.Sq;
+    }
+  }
+  const bool wg_live = a.packed ? 64 * wg < nheads * a.Sq
+                                : q0 + 64 * wg < a.Sq;
+  const int wpos_lo = a.packed ? 0 : q0 + 64 * wg;
+  const int wpos_hi = a.packed ? a.Sq - 1 : q0 + 64 * wg + 63;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int col0 = 2 * (lane & 3);
+
+  float sc[BK / 2];
+  const uint32_t sQw = sQ + wg * 64 * PANEL_ROW;  // this warpgroup's rows
+
+  mbar_wait(barQ, 0);
+  if (!wg_live) {
+    // a warpgroup without live rows keeps the barriers' counts
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, phase = (t / STAGES) & 1;
+      mbar_wait(barK(s), phase);
+      mbar_wait(barV(s), phase);
+      if (lane == 0) mbar_arrive(barE(s));
+    }
+    return;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES, phase = (t / STAGES) & 1;
+    const int kt = k_begin + t * BK;
+    // S = Q . K^T
+    mbar_wait(barK(s), phase);
+    wgmma_fence();
+    issue_qk<DP>(sc, sQw, sK + s * Tile::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax; only the tiles that straddle a bound or the end of Sk
+    // are masked
+    const bool edge = kt + BK > a.Sk || (a.causal && kt + BK - 1 > wpos_lo) ||
+                      (a.window >= 0 && wpos_hi - kt >= a.window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int hh = (i >> 1) & 1;
+      float x = sc[i] * a.scale_log2;
+      if (edge) {
+        const int kpos = kt + 8 * (i >> 2) + col0 + (i & 1);
+        bool ok = kpos < a.Sk;
+        if (a.causal) ok = ok && pos[hh] >= kpos;
+        if (a.window >= 0) ok = ok && pos[hh] - kpos < a.window;
+        x = ok ? x : NEG_INF;
+      }
+      sc[i] = x;
+      mx[hh] = fmaxf(mx[hh], x);
+    }
+    float alpha[2], sub[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      sub[hh] = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+      alpha[hh] = m[hh] <= NEG_INF * 0.5f ? 0.f : ex2(m[hh] - sub[hh]);
+      m[hh] = m_new;
+    }
+    // P rounded to bf16, as the A fragments of P . V; l sums the rounded P
+    // (a masked logit gives 2^(-1e30 - sub) = 0)
+    uint32_t pa[BK / 4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const int hh = i & 1;
+      const __nv_bfloat162 pp = __floats2bfloat162_rn(
+          ex2(sc[2 * i] - sub[hh]), ex2(sc[2 * i + 1] - sub[hh]));
+      rs[hh] += __low2float(pp) + __high2float(pp);
+      pa[i] = *reinterpret_cast<const uint32_t*>(&pp);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P . V; then the stage goes back to the producer
+    mbar_wait(barV(s), phase);
+    wgmma_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const uint32_t af[4] = {pa[4 * ks], pa[4 * ks + 1], pa[4 * ks + 2],
+                              pa[4 * ks + 3]};
+      const uint64_t db =
+          sw128_desc(sV + s * Tile::KV_BYTES + ks * 16 * PANEL_ROW,
+                     BK * PANEL_ROW, 1024);
+      wgmma_rs_tb(o, af, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(barE(s));
+  }
+
+  // o = acc / max(l, 1e-30); l's four column quarters sum in a fixed order
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (!live[hh]) continue;
+    const float den = fmaxf(l[hh], 1e-30f);
+    __nv_bfloat16* orow =
+        a.o + (((long long)b * a.Hq + head[hh]) * a.Sq + pos[hh]) * a.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + col0;
+      if (col < a.D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            o[4 * j + 2 * hh] / den, o[4 * j + 2 * hh + 1] / den);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &status);
+#endif
+    if (status == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)ptr;
+  }
+  return fn;
+}
+
+// a (B, H, S, D) bf16 view as a 4-D tensor map, innermost first, with boxes
+// of 64 columns x rows x heads and the 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B,
+              Strides st, int box_rows, int box_heads) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, (cuuint32_t)box_heads,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int attention_bf16(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
+                   Strides ks, Strides vs, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  using Tile = FaTile<DP>;
+  FaArgs a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.Hq = Hq;
+  a.group = Hq / Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.D = D;
+  a.causal = causal;
+  a.window = window;
+  a.scale_log2 = scale * LOG2E;
+  // short prompts: the heads of one kv group share a tile's rows
+  a.packed = Sq <= BQW / 2 && a.group > 1;
+  a.heads_per_block = a.packed ? min(a.group, BQW / Sq) : 1;
+  a.blocks_per_kv =
+      a.packed ? (a.group + a.heads_per_block - 1) / a.heads_per_block : 1;
+  CUtensorMap qm, km, vm;
+  const bool ok =
+      make_map(&qm, q, D, Sq, Hq, B, qs, a.packed ? Sq : BQW,
+               a.heads_per_block) &&
+      make_map(&km, k, D, Sk, Hkv, B, ks, Tile::BK, 1) &&
+      make_map(&vm, v, D, Sk, Hkv, B, vs, Tile::BK, 1);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.packed ? 1 : (Sq + BQW - 1) / BQW,
+                  a.packed ? Hkv * a.blocks_per_kv : Hq, B);
+  fa_wgmma_kernel<DP><<<grid, FA3_THREADS, Tile::SMEM, stream>>>(qm, km, vm,
+                                                                   a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- flash_decode
+constexpr int FD_THREADS = 128;
+constexpr int FD_WARPS = FD_THREADS / 32;
+constexpr int FD_STAGES = 4;
+constexpr int FD_SLOTS = 4;  // slots per lane group per tile
+
+struct FdArgs {
+  const unsigned char* valid;  // (S,)
+  void* o;                     // (B, Hkv, G, D), splits == 1
+  float* part_acc;             // (B, Hkv, splits, G, D), splits > 1
+  float* part_ml;              // (B, Hkv, splits, G, 2): m, l
+  int Hkv, G, S, D;
+  int chunks;     // 16-byte chunks per row
+  int lps;        // lanes per slot (a power of two, <= 32)
+  int splits, split_len;
+  float scale_log2;  // sm_scale * log2(e): m and the logits in log2 units
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the E = 16 / sizeof(T) values of a 16-byte chunk, widened to float
+template <typename T>
+__device__ __forceinline__ void widen(const uint4& c, float* out);
+template <>
+__device__ __forceinline__ void widen<float>(const uint4& c, float* out) {
+  out[0] = __uint_as_float(c.x);
+  out[1] = __uint_as_float(c.y);
+  out[2] = __uint_as_float(c.z);
+  out[3] = __uint_as_float(c.w);
+}
+template <>
+__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& c,
+                                                     float* out) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The weight of an online-softmax state of max m (log2 units) in a merge
+// whose max is M: 0 for a state that saw no valid slot.
+__device__ __forceinline__ float state_weight(float m, float M) {
+  return m <= NEG_INF * 0.5f ? 0.f : ex2(m - M);
+}
+
+// GMAX: the most query rows per group; NCH: 16-byte chunks per lane
+template <typename T, int GMAX, int NCH>
+__global__ void __launch_bounds__(FD_THREADS)
+fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, FdArgs a) {
+  constexpr int E = 16 / sizeof(T);
+  // slots a group scores before one online-softmax update
+  constexpr int U = GMAX <= 4 ? 4 : (GMAX <= 8 ? 2 : 1);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * a.Hkv + h;
+  const int C = a.chunks, lps = a.lps;
+  const int groups = FD_THREADS / lps;           // lane groups per block
+  const int ts = groups * FD_SLOTS;              // slots per tile
+  const int gl = lane & (lps - 1);               // lane within its group
+  const int grp = tid / lps;
+  const int s_begin = sp * a.split_len;
+  const int s_end = min(a.S, s_begin + a.split_len);
+  const int n_tiles = (s_end - s_begin + ts - 1) / ts;
+  const int stage_bytes = 2 * ts * C * 16;
+  const uint32_t sbase = smem_u32(smem);
+
+  const uint4* kc = reinterpret_cast<const uint4*>(k) + bh * a.S * C;
+  const uint4* vc = reinterpret_cast<const uint4*>(v) + bh * a.S * C;
+  // a tile's K (and V) rows are ts * C consecutive chunks of the cache
+  auto load_tile = [&](int t) {
+    const uint32_t dst = sbase + (t % FD_STAGES) * stage_bytes;
+    const long long c0 = (long long)(s_begin + t * ts) * C;
+    const long long c_end = (long long)s_end * C;
+    const int n = ts * C;
+    for (int idx = tid; idx < n; idx += FD_THREADS) {
+      const long long ci = c0 + idx;
+      const bool in = ci < c_end;
+      cp_async16(dst + idx * 16, kc + (in ? ci : 0), in ? 16 : 0);
+      cp_async16(dst + (n + idx) * 16, vc + (in ? ci : 0), in ? 16 : 0);
+    }
+  };
+
+  // this lane's chunks of the G query rows: widened to float where they
+  // fit in 64 registers, else kept raw and widened at each use
+  constexpr bool QF = GMAX * NCH * E <= 64;
+  uint4 qv[GMAX][NCH];
+  float qw[QF ? GMAX : 1][NCH][E];
+  const uint4* qc = reinterpret_cast<const uint4*>(q) + bh * a.G * C;
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int c = gl + lps * i;
+      qv[g][i] = (g < a.G && c < C) ? qc[g * C + c] : make_uint4(0, 0, 0, 0);
+      if constexpr (QF) widen<T>(qv[g][i], qw[g][i]);
+    }
+
+  float m[GMAX], l[GMAX], acc[GMAX][NCH][E];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][i][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int t = 0; t < FD_STAGES - 1; ++t) {
+    if (t < n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = s_begin + t * ts;
+    // the validity of this lane's slots, read before the wait
+    bool okv[FD_SLOTS];
+#pragma unroll
+    for (int j = 0; j < FD_SLOTS; ++j) {
+      const int pos = t0 + j * groups + grp;
+      okv[j] = pos < s_end && a.valid[pos];
+    }
+    cp_async_wait<FD_STAGES - 2>();
+    __syncthreads();  // tile t landed; every reader of tile t - 1 is done
+    if (t + FD_STAGES - 1 < n_tiles) load_tile(t + FD_STAGES - 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (t % FD_STAGES) * stage_bytes;
+    const uint4* ks_ = reinterpret_cast<const uint4*>(st);
+    const uint4* vs_ = ks_ + ts * C;
+#pragma unroll
+    for (int r = 0; r < FD_SLOTS / U; ++r) {
+      // partial dots of the U slots' K rows with the G query rows
+      float s[U][GMAX];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int slot = (r * U + u) * groups + grp;
+        ok[u] = okv[r * U + u];
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) s[u][g] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const int c = gl + lps * i;
+          if (c < C) {
+            float kf[E];
+            widen<T>(ks_[slot * C + c], kf);
+#pragma unroll
+            for (int g = 0; g < GMAX; ++g) {
+              float qf[E];
+              if constexpr (QF) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) qf[e] = qw[g][i][e];
+              } else {
+                widen<T>(qv[g][i], qf);
+              }
+#pragma unroll
+              for (int e = 0; e < E; ++e) s[u][g] += qf[e] * kf[e];
+            }
+          }
+        }
+      }
+      // sum over the group's lanes: a butterfly whose every level issues
+      // its U x GMAX independent shuffles together
+      for (int off = lps >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g)
+            s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g)
+          s[u][g] = ok[u] ? s[u][g] * a.scale_log2 : NEG_INF;
+      // one online-softmax update for the U slots
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        float mc = s[0][g];
+#pragma unroll
+        for (int u = 1; u < U; ++u) mc = fmaxf(mc, s[u][g]);
+        const float m_new = fmaxf(m[g], mc);
+        const float sub = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+        const float alpha = m[g] <= NEG_INF * 0.5f ? 0.f : ex2(m[g] - sub);
+        float p[U];
+        float ps = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          p[u] = ok[u] ? ex2(s[u][g] - sub) : 0.f;
+          ps += p[u];
+        }
+        l[g] = l[g] * alpha + ps;
+        m[g] = m_new;
+#pragma unroll
+        for (int i = 0; i < NCH; ++i)
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][i][e] *= alpha;
+        s[0][g] = p[0];
+#pragma unroll
+        for (int u = 1; u < U; ++u) s[u][g] = p[u];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int slot = (r * U + u) * groups + grp;
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const int c = gl + lps * i;
+          if (c < C) {
+            float vf[E];
+            widen<T>(vs_[slot * C + c], vf);
+#pragma unroll
+            for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[g][i][e] += s[u][g] * vf[e];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states below
+
+  // the groups of a warp, pairwise in a fixed order
+  for (int off = lps; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float M = fmaxf(m[g], mo);
+      const float w0 = state_weight(m[g], M), w1 = state_weight(mo, M);
+      l[g] = w0 * l[g] + w1 * lo;
+      m[g] = M;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i][e], off);
+          acc[g][i][e] = w0 * acc[g][i][e] + w1 * ao;
+        }
+    }
+  }
+  // the warps, through shared memory: per warp G x D accumulators, then
+  // G (m, l) pairs
+  float* red = reinterpret_cast<float*>(smem);
+  float* redml = red + FD_WARPS * a.G * a.D;
+  if (lane < lps) {
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g >= a.G) break;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        const int c = gl + lps * i;
+        if (c < C)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            red[(warp * a.G + g) * a.D + c * E + e] = acc[g][i][e];
+      }
       if (lane == 0) {
-        Ls[g] = Ls[g] * alpha + rs;
-        Ms[g] = m_new;
-        As[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int a = 0; a < FD_OUT; ++a) {
-      const int idx = tid + FD_THREADS * a;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx - g * D;
-        float r = acc[a] * As[g];
-        for (int j = 0; j < DS; ++j) r += Ps[g * DS + j] * to_f32(Vs[j * ld + d]);
-        acc[a] = r;
+        redml[(warp * a.G + g) * 2] = m[g];
+        redml[(warp * a.G + g) * 2 + 1] = l[g];
       }
     }
   }
   __syncthreads();
-
-  T* ob = o + bh * G * D;
+  for (int idx = tid; idx < a.G * a.D; idx += FD_THREADS) {
+    const int g = idx / a.D;
+    float M = NEG_INF;
 #pragma unroll
-  for (int a = 0; a < FD_OUT; ++a) {
-    const int idx = tid + FD_THREADS * a;
-    if (idx < G * D) {
-      const int g = idx / D;
-      ob[idx] = from_f32<T>(acc[a] / fmaxf(Ls[g], 1e-30f));
+    for (int w = 0; w < FD_WARPS; ++w)
+      M = fmaxf(M, redml[(w * a.G + g) * 2]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < FD_WARPS; ++w) {
+      const float wt = state_weight(redml[(w * a.G + g) * 2], M);
+      L += wt * redml[(w * a.G + g) * 2 + 1];
+      A += wt * red[w * a.G * a.D + idx];
+    }
+    if (a.splits == 1) {
+      static_cast<T*>(a.o)[bh * a.G * a.D + idx] =
+          from_f32<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      const long long row = (bh * a.splits + sp) * a.G + g;
+      a.part_acc[row * a.D + (idx - g * a.D)] = A;
+      if (idx == g * a.D) {
+        a.part_ml[row * 2] = M;
+        a.part_ml[row * 2 + 1] = L;
+      }
     }
   }
 }
 
+// merges the splits of one (b, kv head) in split order
 template <typename T>
-int attention(const void* q, const void* k, const void* v, void* o, int B,
-              int Hq, int Hkv, int Sq, int Sk, int D, Strides qs, Strides ks,
-              Strides vs, int causal, int window, float scale,
-              cudaStream_t stream) {
-  const int ld = pad_ld<T>(D);
-  const size_t smem = sizeof(float) * BQ * (BK + 1) +
-                      sizeof(T) * (size_t)(BQ + 2 * BK) * ld;
+__global__ void __launch_bounds__(FD_THREADS)
+fd_combine_kernel(FdArgs a) {
+  const long long bh = blockIdx.x;
+  for (int idx = threadIdx.x; idx < a.G * a.D; idx += FD_THREADS) {
+    const int g = idx / a.D, d = idx - g * a.D;
+    float M = NEG_INF;
+    for (int s = 0; s < a.splits; ++s)
+      M = fmaxf(M, a.part_ml[((bh * a.splits + s) * a.G + g) * 2]);
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < a.splits; ++s) {
+      const long long row = (bh * a.splits + s) * a.G + g;
+      const float wt = state_weight(a.part_ml[row * 2], M);
+      L += wt * a.part_ml[row * 2 + 1];
+      A += wt * a.part_acc[row * a.D + d];
+    }
+    static_cast<T*>(a.o)[bh * a.G * a.D + idx] =
+        from_f32<T>(A / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T, int GMAX, int NCH>
+int decode_split(const void* q, const void* k, const void* v, FdArgs a,
+                 int B, cudaStream_t stream) {
+  const int ts = (FD_THREADS / a.lps) * FD_SLOTS;
+  const size_t ring = (size_t)FD_STAGES * 2 * ts * a.chunks * 16;
+  const size_t red = sizeof(float) * FD_WARPS * a.G * ((size_t)a.D + 2);
+  const size_t smem = ring > red ? ring : red;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fd_split_kernel<T, GMAX, NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<T><<<grid, FA_THREADS, smem, stream>>>(
+  const dim3 grid(a.splits, a.Hkv, B);
+  fd_split_kernel<T, GMAX, NCH><<<grid, FD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, Sq, Sk, D,
-      qs, ks, vs, causal, window, scale);
+      static_cast<const T*>(v), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  fd_combine_kernel<T><<<B * a.Hkv, FD_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int decode(const void* q, const void* k, const void* v, const void* valid,
-           void* o, int B, int Hkv, int G, int S, int D, float scale,
+int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
            cudaStream_t stream) {
-  const int ld = pad_ld<T>(D);
-  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * DS +
-                                       3 * (size_t)G) +
-                      sizeof(int) * DS + sizeof(T) * 2 * (size_t)DS * ld;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<T><<<grid, FD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const unsigned char*>(valid),
-      static_cast<T*>(o), Hkv, G, S, D, scale);
-  return (int)cudaGetLastError();
+  const int nch = a.chunks > 32 ? 2 : 1;
+  const int per = (a.chunks + nch - 1) / nch;
+  a.lps = 1;
+  while (a.lps < per) a.lps <<= 1;
+  const int gmax = a.G <= 4 ? 4 : (a.G <= 8 ? 8 : 16);
+#define FD_CASE(GM, NC)                                          \
+  if (gmax == GM && nch == NC)                                   \
+    return decode_split<T, GM, NC>(q, k, v, a, B, stream);
+  FD_CASE(4, 1) FD_CASE(8, 1) FD_CASE(16, 1)
+  if constexpr (sizeof(T) == 4) {
+    FD_CASE(4, 2) FD_CASE(8, 2) FD_CASE(16, 2)
+  }
+#undef FD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), each with unit stride on D and
 // the given element strides on its other axes; o: (B, Hq, Sq, D)
-// contiguous. window < 0 means no window. Returns cudaGetLastError().
+// contiguous. window < 0 means no window. float32: D <= 256; bf16: D a
+// multiple of 8 up to 256, 16-byte aligned bases and strides. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int Hq, int Hkv, int Sq, int Sk, int D, long long qsb, long long qsh,
@@ -359,33 +1007,72 @@ extern "C" int flash_attention_launch(
     long long vsb, long long vsh, long long vss, int causal, int window,
     float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      D <= 0 || D > MAX_D || B > 65535 || Hq > 65535)
+      D <= 0 || D > 256 || B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return attention<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
-                            causal, window, scale, s);
-  if (dtype == DT_BF16)
-    return attention<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs,
-                                    ks, vs, causal, window, scale, s);
+  if (dtype == DT_F32) {
+    if (D <= 64)
+      return attention_f32<8>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
+                              causal, window, scale, s);
+    if (D <= 128)
+      return attention_f32<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
+                               causal, window, scale, s);
+    return attention_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
+                             causal, window, scale, s);
+  }
+  // bf16 tiles are whole 64-column panels: a head dim between two runs in
+  // the wider tile with its columns past D zero (D = 80 in the 128 tile)
+  if (dtype == DT_BF16 && D % 8 == 0) {
+    if (D <= 64)
+      return attention_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
+                                vs, causal, window, scale, s);
+    if (D <= 128)
+      return attention_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
+                                 vs, causal, window, scale, s);
+    if (D <= 192)
+      return attention_bf16<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
+                                 vs, causal, window, scale, s);
+    return attention_bf16<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
+                               causal, window, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // q: (B, Hkv, G, D), k, v: (B, Hkv, S, D), o: (B, Hkv, G, D), all
-// contiguous; valid: (S,) bytes (torch.bool). Returns cudaGetLastError().
+// contiguous with 16-byte aligned bases and rows (D * element size a
+// multiple of 16); valid: (S,) bytes (torch.bool); G <= 16, D <= 256.
+// part: B * Hkv * splits * G * (D + 2) floats of scratch when splits > 1;
+// split s covers slots [s * split_len, min(S, (s + 1) * split_len)).
+// Returns cudaGetLastError().
 extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
                                    const void* v, const void* valid, void* o,
-                                   int B, int Hkv, int G, int S, int D,
+                                   void* part, int B, int Hkv, int G, int S,
+                                   int D, int splits, int split_len,
                                    float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || G <= 0 || S <= 0 || D <= 0 ||
-      G * D > FD_THREADS * FD_OUT || B > 65535)
+  const int esize = dtype == DT_F32 ? 4 : 2;
+  if (B <= 0 || Hkv <= 0 || G <= 0 || G > 16 || S <= 0 || D <= 0 ||
+      D > 256 || (D * esize) % 16 || B > 65535 || Hkv > 65535 ||
+      splits <= 0 || split_len <= 0 ||
+      (long long)splits * split_len < S || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  FdArgs a;
+  a.valid = static_cast<const unsigned char*>(valid);
+  a.o = o;
+  const long long rows = (long long)B * Hkv * splits * G;
+  a.part_acc = static_cast<float*>(part);
+  a.part_ml = a.part_acc == nullptr ? nullptr : a.part_acc + rows * D;
+  a.Hkv = Hkv;
+  a.G = G;
+  a.S = S;
+  a.D = D;
+  a.chunks = D * esize / 16;
+  a.lps = 1;
+  a.splits = splits;
+  a.split_len = split_len;
+  a.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return decode<float>(q, k, v, valid, o, B, Hkv, G, S, D, scale, s);
-  if (dtype == DT_BF16)
-    return decode<__nv_bfloat16>(q, k, v, valid, o, B, Hkv, G, S, D, scale,
-                                 s);
+  if (dtype == DT_F32) return decode<float>(q, k, v, a, B, s);
+  if (dtype == DT_BF16) return decode<__nv_bfloat16>(q, k, v, a, B, s);
   return (int)cudaErrorInvalidValue;
 }

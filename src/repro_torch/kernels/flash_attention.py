@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/attention.cu``).
 
 :func:`flash_attention` is online-softmax GQA attention with causal and
 sliding-window masks and non-causal rectangular (cross) attention. It
@@ -6,15 +6,27 @@ replaces the Pallas TPU kernel of the JAX package's
 ``kernels/flash_attention.py`` and keeps its rules: a causal or windowed
 call needs Sq == Sk, query head h reads kv head ``h // (Hq // Hkv)``, and
 the scale multiplies after the dot. Unlike the Pallas wrapper it takes any
-Sq and Sk: the kernel masks the ragged last tiles itself.
+Sq and Sk: the kernels mask the ragged last tiles themselves.
 
-On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-the plain version, ``kernels/ref.flash_attention_ref``. The kernel reads
-q, k and v through their batch, head and sequence strides, so the model's
-``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views without a
-copy; it needs a unit stride on D and raises otherwise. The library is
-built at the first launch (``kernels/_cuda.py``) and also holds the flash
-decode kernel. ``LAUNCHES`` counts the kernel's launches.
+On a CUDA tensor it launches a kernel or raises; on a CPU tensor it runs
+the plain version, ``kernels/ref.flash_attention_ref``. The kernel is
+chosen by dtype, and both are launched and counted:
+
+* bf16: the tensor-core kernel (``fa_wgmma_kernel``: wgmma products, TMA
+  loads). It takes a head_dim in ``BF16_HEAD_DIMS`` (multiples of 8 up to
+  256: tiles of 64, 128, 192 or 256 columns, zero-padded past D) and reads
+  q, k and v through TMA tensor maps, so every base address and every
+  batch, head and sequence stride must be a multiple of 16 bytes. It rounds
+  P to bf16 before P . V, as the JAX model's XLA path does (ROADMAP §3
+  item 7): :func:`ref.flash_attention_bf16p_ref` is that arithmetic.
+* float32: the CUDA-core kernel (``fa_f32_kernel``), any head_dim up to
+  ``MAX_HEAD_DIM``.
+
+Both read q, k and v through their batch, head and sequence strides, so
+the model's ``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views
+without a copy; both need a unit stride on D and raise otherwise. The
+library is built at the first launch (``kernels/_cuda.py``) and also holds
+the flash decode kernels. ``LAUNCHES`` counts the wrapper's launches.
 """
 from __future__ import annotations
 
@@ -27,9 +39,12 @@ from . import _cuda
 from . import ref
 
 __all__ = ["flash_attention", "build", "LAUNCHES", "reset_launches",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "BF16_HEAD_DIMS"]
 
-MAX_HEAD_DIM = 128   # the kernel's accumulator columns (csrc MAX_D)
+MAX_HEAD_DIM = 256   # both kernels' widest tile
+# head dims of the bf16 kernel's instances: tiles of 64, 128, 192 and 256
+# columns, each taking the multiples of 8 up to its width
+BF16_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
 
 # kernel launches since the last reset_launches()
 LAUNCHES = {"flash_attention": 0}
@@ -46,14 +61,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                                            + [ci] * 6 + [cll] * 9
                                            + [ci, ci, cf, vp])
     lib.flash_attention_launch.restype = ci
-    lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci,
-                                        ci, ci, cf, vp]
+    lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci,
+                                        ci, ci, ci, ci, ci, cf, vp]
     lib.flash_decode_launch.restype = ci
 
 
 def build() -> ctypes.CDLL:
     """The library of ``csrc/attention.cu``, built on first use."""
-    return _cuda.build("attention", ("dtype.cuh",), bind=_bind)
+    return _cuda.build("attention", ("dtype.cuh", "wgmma.cuh"), bind=_bind)
 
 
 def _check_args(q, k, v, causal, window):
@@ -78,6 +93,17 @@ def _check_args(q, k, v, causal, window):
         raise ValueError("q, k and v must lie on one device")
 
 
+def _strides(t):
+    """The B, H and S strides of a (B, H, S, D) tensor. An axis of extent
+    1 is never stepped along, so its stride, whatever torch reports, is
+    passed as that of a contiguous tensor (a valid TMA stride)."""
+    out, span = [], t.shape[3]
+    for ax in (2, 1, 0):
+        out.append(t.stride(ax) if t.shape[ax] > 1 else span)
+        span *= t.shape[ax]
+    return out[::-1]
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     sm_scale: Optional[float] = None):
@@ -91,12 +117,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"unsupported device {q.device}")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if D > MAX_HEAD_DIM:
+    if q.dtype == torch.bfloat16:
+        if D not in BF16_HEAD_DIMS:
+            raise ValueError(f"the bf16 kernel takes head_dim in 8, 16, ..., "
+                             f"{MAX_HEAD_DIM} (multiples of 8: tiles of 64, "
+                             f"128, 192 and 256), got {D}")
+    elif D > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, "
                          f"got {D}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the kernel takes q, k and v with unit stride on "
                          "D (any strides on B, H and S)")
+    strides = [_strides(t) for t in (q, k, v)]
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in sts)
+            for t, sts in zip((q, k, v), strides)):
+        raise ValueError("the bf16 kernel reads q, k and v with TMA: their "
+                         "base addresses and their B, H and S strides must "
+                         "be multiples of 16 bytes")
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     # a window of Sq or more masks nothing beyond causal: pass it as none
     win = -1 if window is None or window >= Sq else int(window)
@@ -107,7 +145,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     err = build().flash_attention_launch(
         _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *strides[0], *strides[1], *strides[2],
         int(causal), win, float(scale), stream)
     _cuda.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1

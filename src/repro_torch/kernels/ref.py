@@ -45,7 +45,8 @@ from ..core import distributions as dists
 
 __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
-           "rmsnorm_ref", "decode_attention_ref"]
+           "rmsnorm_ref", "decode_attention_ref",
+           "flash_attention_bf16p_ref", "decode_attention_split_ref"]
 
 # log-CDF clamp floor; a normal float32 so no subnormal reaches the log
 CDF_FLOOR = 1e-37
@@ -271,6 +272,100 @@ def decode_attention_ref(q, k_cache, v_cache, valid, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return o.to(q.dtype)
+
+
+# the attention kernels' masked logit and dead-row threshold
+NEG_INF = -1e30
+
+
+def flash_attention_bf16p_ref(q, k, v, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              sm_scale: Optional[float] = None):
+    """The bf16 flash-attention kernel's arithmetic (test-only): online
+    softmax over key blocks of the kernel's tile (128 keys for D <= 128,
+    else 64), P = exp(s - m) rounded to bf16 before P . V, and l
+    summed from the rounded P; masked logits at -1e30, a row with no live
+    key gives 0. Same shapes and rules as :func:`flash_attention_ref`
+    (causal and window need Sq == Sk)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    bk = 128 if D <= 128 else 64
+    kx = torch.repeat_interleave(k, group, dim=1).float()
+    vx = torch.repeat_interleave(v, group, dim=1).float()
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hq, Sq, 1), device=q.device)
+    acc = torch.zeros((B, Hq, Sq, D), device=q.device)
+    for k0 in range(0, Sk, bk):
+        kpos = torch.arange(k0, min(k0 + bk, Sk), device=q.device)[None, :]
+        live = torch.ones((Sq, kpos.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            live &= qpos >= kpos
+        if window is not None:
+            live &= (qpos - kpos) < window
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         kx[:, :, k0:k0 + bk]) * scale
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        sub = torch.where(m_new <= NEG_INF / 2, torch.zeros_like(m_new),
+                          m_new)
+        alpha = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                            torch.exp(m - sub))
+        p = torch.where(live, torch.exp(s - sub), torch.zeros_like(s))
+        p = p.to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
+                                         vx[:, :, k0:k0 + bk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, valid, splits: int,
+                               sm_scale=None, return_partials: bool = False):
+    """The split flash-decode kernels' arithmetic (test-only). The cache is
+    cut into ``splits`` ranges of ``ceil(S / splits)`` slots (trailing
+    ranges may be empty); each range gives a float32 partial (m, l, acc):
+    the max of its valid logits (-1e30 if it has none), the sum of
+    exp(s - m) and the weighted sum of V rows (0 and 0 if none). The
+    partials combine in split order with weights exp(m_s - M), 0 for a
+    range without a valid slot; o = acc / max(l, 1e-30), so a row with no
+    valid slot anywhere gives 0. ``return_partials`` also returns
+    (m, l, acc) with a leading split axis."""
+    D, S = q.shape[-1], k_cache.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    split_len = -(-S // splits)
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * split_len, min(S, (sp + 1) * split_len)
+        kk = k_cache[:, :, lo:hi].float()
+        s = torch.einsum("bkgd,bksd->bkgs", q.float(), kk) * scale
+        ok = valid[lo:hi][None, None, None, :]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m = (s.amax(-1, keepdim=True) if hi > lo else
+             torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device))
+        sub = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+        p = torch.where(ok, torch.exp(s - sub), torch.zeros_like(s))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bkgs,bksd->bkgd", p,
+                                 v_cache[:, :, lo:hi].float()))
+    M = ms[0]
+    for m in ms[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(accs[0])
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                        torch.exp(m - M))
+        L = L + w * l
+        A = A + w * acc
+    out = (A / torch.clamp(L, min=1e-30)).to(q.dtype)
+    if return_partials:
+        return out, (torch.stack(ms), torch.stack(ls), torch.stack(accs))
+    return out
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, D_skip=None):

@@ -8,7 +8,9 @@ port's dependencies:
 
 Tolerances: atol = rtol = 2e-4 in float32, 1e-2 in bf16 (one bf16 ulp is
 about 0.4% of the value); the SSD scan 5e-4 in float32 (y and the final
-state) and 1e-2 for bf16 y.
+state) and 1e-2 for bf16 y. The bf16 attention kernel is also held against
+``ref.flash_attention_bf16p_ref`` (its own arithmetic: P rounded to bf16)
+and the split decode against ``ref.decode_attention_split_ref``.
 """
 import pytest
 import torch
@@ -58,6 +60,61 @@ def test_flash_attention_matches_plain(card, dtype, causal, window, Sq, Sk):
     qs = q.transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(fa.flash_attention(qs, k, v, causal=causal,
                                           window=window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [64, 80, 128, 192])
+@pytest.mark.parametrize("Hq,Hkv,Sq", [
+    (8, 2, 333),    # ragged Sq against the 128-row query tile
+    (32, 8, 16),    # a short prompt: the heads of a kv group packed
+    (15, 5, 16),    # packed, a group of 3 (48 of 64 rows)
+    (24, 2, 16)])   # packed, a group of 12 across two blocks
+def test_flash_attention_head_dims(card, dtype, D, Hq, Hkv, Sq):
+    g = torch.Generator(device=card).manual_seed(6)
+    q = _randn(g, (2, Sq, Hq, D), dtype, card).transpose(1, 2)
+    k = _randn(g, (2, Sq, Hkv, D), dtype, card).transpose(1, 2)
+    v = _randn(g, (2, Sq, Hkv, D), dtype, card).transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True))
+    assert torch.equal(fa.flash_attention(q, k, v, causal=True), got)
+    if dtype == torch.bfloat16:
+        _close(got, ref.flash_attention_bf16p_ref(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_cannot_read(card):
+    q = torch.zeros((1, 2, 16, 72), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention(q[..., :68], q[..., :68], q[..., :68])
+    with pytest.raises(ValueError, match="16 bytes"):
+        w = q[..., 1:65]   # unit stride on D, base off by 2 bytes
+        fa.flash_attention(w, w, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hkv,G,S,D,dead", [
+    (1, 2, 4, 4096, 128, 600),    # 16 splits, the first two invalid
+    (2, 8, 4, 777, 80, 259),      # 3 splits, the first invalid
+    (2, 8, 12, 1000, 192, 0),     # Nemotron-4-340B's group of 12
+    (1, 2, 16, 600, 256, 0)])     # G * D = 16 x 256
+def test_flash_decode_splits(card, dtype, B, Hkv, G, S, D, dead):
+    g = torch.Generator(device=card).manual_seed(7)
+    q = _randn(g, (B, Hkv, G, D), dtype, card)
+    k = _randn(g, (B, Hkv, S, D), dtype, card)
+    v = _randn(g, (B, Hkv, S, D), dtype, card)
+    valid = torch.rand(S, generator=g, device=card) < 0.7
+    valid[:dead] = False
+    splits, split_len = fd.decode_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(card).multi_processor_count)
+    assert splits > 1 and (dead == 0 or dead >= split_len)
+    n = fd.LAUNCHES["flash_decode"]
+    got = fd.flash_decode(q, k, v, valid)
+    assert fd.LAUNCHES["flash_decode"] == n + 1
+    _close(got, ref.decode_attention_ref(q, k, v, valid))
+    _close(got, ref.decode_attention_split_ref(q, k, v, valid, splits))
+    assert torch.equal(fd.flash_decode(q, k, v, valid), got)
 
 
 @pytest.mark.cuda
