@@ -302,18 +302,37 @@ def phase_check(ctx):
             if not ok:
                 fails.append(tag)
             if len(modes) == 1:
-                # a main-path launch: its time on the card at that shape
+                # a main-path launch: its time on the card at that shape,
+                # and the blocks of each kernel launch one call makes
                 ms = _time_cuda(kern, reps=9)
+                dev_ms, host_ms = _device_ms(kern), _host_ms(kern, reps=50)
                 bound_ms, by = _bound(mode, F, K, T, ex.shape[0], per_row)
+                blocks = _call_blocks(mode, F, K, T, fam)
                 main_ms.append({"mode": mode, "F": F, "K": K, "T": T,
-                                "ms": ms, "bound_ms": bound_ms,
-                                "bound_by": by})
-                log(f"[check] {tag} kernel {ms:.3f} ms  bound "
-                    f"{bound_ms:.4f} ms ({by})")
+                                "ms": ms, "device_ms": dev_ms,
+                                "host_ms": host_ms, "bound_ms": bound_ms,
+                                "bound_by": by, "blocks": blocks,
+                                "launches_per_call": len(blocks)})
+                log(f"[check] {tag} kernel {ms:.4f} ms (device "
+                    + (f"{dev_ms:.4f}" if dev_ms is not None else "n/a")
+                    + f", host {host_ms:.4f} ms per call)  bound "
+                    f"{bound_ms:.4f} ms ({by})  blocks {blocks} in "
+                    f"{len(blocks)} launch(es) per call")
     ctx["max_abs_err"] = worst
     ctx["main_path_ms"] = main_ms
     if fails:
         raise AssertionError(f"kernel/plain disagreement: {fails}")
+
+
+def _call_blocks(mode, F, K, T, fam):
+    """Blocks of each kernel launch of one wrapper call: the forward kernel
+    one per row; the fused adjoint pass 1, pass 2 and the epilogue in the
+    split of ``autotune.lookup_split``."""
+    from repro_torch.kernels import autotune
+    if mode == "fwd":
+        return [F]
+    return list(autotune.split_blocks(
+        F, K, T, autotune.lookup_split(F, K, T, mode=mode, dist_id=fam)))
 
 
 def _time_cuda(fn, reps=7, warm=2):
@@ -545,6 +564,7 @@ def phase_profile(ctx):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import frontier_grid as fg
     from repro_torch.sched import UncertaintyAwareBalancer
     from repro_torch.sim import ClusterSim
     K = 1024
@@ -562,11 +582,13 @@ def phase_profile(ctx):
     t0 = time.perf_counter()
     refresh()
     wall_ms = 1e3 * (time.perf_counter() - t0)
+    grads = fg.LAUNCHES["grad"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         refresh()
         traced_ms = 1e3 * (time.perf_counter() - t0)
+    grads = fg.LAUNCHES["grad"] - grads
     by_name = {}
     for e in prof.key_averages():
         # device events only: a host op's self device time repeats its
@@ -575,17 +597,24 @@ def phase_profile(ctx):
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3)
     dev_ms = sum(by_name.values())
+    # the fused adjoint's three kernels (pass 1, pass 2, epilogue)
+    grad_ms = sum(ms for n, ms in by_name.items() if "frontier_grad" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     prof.export_chrome_trace(os.path.join(OUT_DIR, "refresh_trace.json"))
     busy = dev_ms / wall_ms if dev_ms > 0 else None
+    per_grad = grad_ms / grads if grads and grad_ms > 0 else None
     ctx["profile"] = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
                       "device_ms": dev_ms if dev_ms > 0 else None,
-                      "busy_share": busy,
+                      "busy_share": busy, "grad_calls": grads,
+                      "grad_device_ms_per_call": per_grad,
                       "top": [{"name": n, "ms": ms} for n, ms in top]}
     log(f"[profile] one refresh at K={K}: wall {wall_ms:.2f} ms (traced "
         f"{traced_ms:.2f} ms), device "
         + (f"{dev_ms:.2f} ms, busy share {busy:.3f}" if busy is not None
            else "time not measured (the profiler saw no device time)"))
+    log(f"[profile] fused adjoint: {grads} grad calls, device "
+        + (f"{grad_ms:.3f} ms, {per_grad:.4f} ms per call"
+           if per_grad is not None else "time not measured"))
     for n, ms in top:
         log(f"[profile]   {ms:8.3f} ms  {n[:90]}")
 
@@ -618,9 +647,10 @@ LM_KERNELS = {
                  "src/repro/kernels/ssd_scan.py:80", "ssmserve"),
 }
 
-# the CUDA functions of each attention kernel, as the profiler names them
-ATTN_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
-                "flash_decode": ("fd_split_kernel", "fd_combine_kernel")}
+# the CUDA functions of each model kernel, as the profiler names them
+LM_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
+              "flash_decode": ("fd_split_kernel", "fd_combine_kernel"),
+              "rmsnorm": ("rmsnorm_",), "ssd_scan": ("ssd_scan_kernel",)}
 
 # kernel against plain version on the card, per output dtype (atol = rtol)
 LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -687,6 +717,23 @@ SSD_CASES = (
 NORM_CASES = (("ln prefill", 512, 4096), ("q_norm prefill", 16384, 128),
               ("k_norm prefill", 4096, 128), ("ln decode", 32, 4096),
               ("ragged", 21, 4096), ("tiny", 7, 16))
+# (tag, rows, D) of lmtick's rmsnorm rows: every norm of the two serving
+# paths (one group: 32 prompts of 16 tokens, then decode steps of 32
+# tokens) -- Qwen3-8B's ln1/ln2/final_norm, q_norm over 32 heads and
+# k_norm over 8; Mamba2-2.7B's ln1/final_norm (d_model 2560) and gated
+# ssm_norm (ssm_inner 5120) -- then a long prefill's 32768 rows of 4096
+NORM_TICKS = (
+    ("path qwen3-8b prefill ln", 512, 4096),
+    ("path qwen3-8b prefill q_norm", 16384, 128),
+    ("path qwen3-8b prefill k_norm", 4096, 128),
+    ("path qwen3-8b decode ln", 32, 4096),
+    ("path qwen3-8b decode q_norm", 1024, 128),
+    ("path qwen3-8b decode k_norm", 256, 128),
+    ("path mamba2-2.7b decode ln", 32, 2560),
+    ("path mamba2-2.7b decode ssm_norm", 32, 5120),
+    ("path mamba2-2.7b prefill ln", 512, 2560),
+    ("path mamba2-2.7b prefill ssm_norm", 512, 5120),
+    ("serving 32768 x 4096", 32768, 4096))
 
 
 def _lm_modules():
@@ -1228,9 +1275,9 @@ def _profile_generate(tag, engine, prompts):
                               + e.self_device_time_total / 1e3)
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    attn = {k: sum(ms for n, ms in by_name.items()
-                   if any(sym in n for sym in syms))
-            for k, syms in ATTN_SYMBOLS.items()}
+    per_kernel = {k: sum(ms for n, ms in by_name.items()
+                         if any(sym in n for sym in syms))
+                  for k, syms in LM_SYMBOLS.items()}
     busy = dev_ms / wall_ms if dev_ms > 0 else None
     log(f"[{tag}] one group's generate ({len(prompts)} prompts, {SERVE_NEW} "
         f"tokens): wall {wall_ms:.2f} ms, device "
@@ -1238,10 +1285,10 @@ def _profile_generate(tag, engine, prompts):
            else "time not measured (the profiler saw no device time)"))
     for n, ms in top:
         log(f"[{tag}]   {ms:8.3f} ms  {n[:90]}")
-    log(f"[{tag}] attention kernels' device time: "
-        + ", ".join(f"{k} {ms:.3f} ms" for k, ms in attn.items()))
+    log(f"[{tag}] model kernels' device time: "
+        + ", ".join(f"{k} {ms:.3f} ms" for k, ms in per_kernel.items()))
     return {"wall_ms": wall_ms, "device_ms": dev_ms if dev_ms > 0 else None,
-            "busy_share": busy, "attention_ms": attn,
+            "busy_share": busy, "kernel_ms": per_kernel,
             "top": [{"name": n, "ms": ms} for n, ms in top]}
 
 
@@ -1355,18 +1402,17 @@ def phase_lmtick(ctx):
            lambda: ref.decode_attention_ref(q, k, v, valid), fails)
     del q, k, v, valid
     torch.cuda.empty_cache()
-    # rmsnorm: the path's residual-stream and per-head norms, then 32768
-    # rows of 4096
-    for tag, R, D in (("path ln (32 x 16 tokens)", 512, 4096),
-                      ("path q_norm (32 x 16 x 32 heads)", 16384, 128),
-                      ("serving 32768 x 4096", 32768, 4096)):
+    # rmsnorm: every norm shape of the two serving paths (device and host
+    # time per call beside F.rms_norm's), then 32768 rows of 4096
+    for tag, R, D in NORM_TICKS:
         x, w = _norm_inputs(R, D, bf, 92)
         tick("rmsnorm", f"{tag} ({R}, {D})",
              lambda: ops.rmsnorm(x, w, eps=1e-6),
              lambda: ref.rmsnorm_ref(x, w, eps=1e-6),
              lambda: F.rms_norm(x, (D,), w, 1e-6),
              _roof(2 * (2 * R * D + D), 4 * R * D / FP32_OPS_PER_S),
-             plain_bytes=4 * 3 * R * D)
+             plain_bytes=4 * 3 * R * D, check=True,
+             device_time=tag.startswith("path"))
     # ssd_scan at Mamba2-2.7B's H, P, G, N and chunk: the path (one group's
     # prefill, 32 prompts of 16 tokens: one chunk of 16), prefill_32k's
     # S = 32768 with B cut from 32 to 8, and long_500k's S = 524288 at its

@@ -21,25 +21,40 @@
 // sums leave only the terms' own rounding. The Pv accumulators sum
 // a * (t - mu) per grid point, never P1 - mu P0.
 //
-// Design (simple first):
-// * One thread block per candidate row; nothing crosses blocks, so there
-//   are no atomics and every sum is taken in a fixed order: a run is
-//   bitwise repeatable, as the kill/restore contract needs.
-// * Pass 1: a block reduction of reach_k = mean_k + z std_k gives tmax;
-//   each thread owns grid points j = tid, tid + blockDim, ... (at most 8)
-//   and streams the channels through shared-memory tiles of per-channel
-//   constants, summing log clamp(C_k(t_j), 1e-37, 1) in registers; block
-//   reductions give mu and m2 (trapezoid weights 1/2 at the ends).
-// * Pass 2 (adjoints): t_j, log t_j, w_j F(t_j) and t_j - mu go to shared
-//   memory (mu must be final first). Threads own channels and loop over the
-//   grid in order, keeping up to six accumulators in registers. The
-//   epilogue needs two block-wide sums over channels and the argmax tie
-//   count before any per-channel output, so the accumulators and reaches go
-//   to a float64 scratch (F, n_acc + 1, K) buffer and each thread reads its
-//   own channels back after the reductions.
-// * Known weakness: a balancer solve launches only a few rows, so one block
-//   per row leaves most of the 132 SMs idle; splitting K or T across blocks
-//   is later work.
+// Forward kernel (simple first): one thread block per candidate row. A
+// block reduction of reach_k = mean_k + z std_k gives tmax; each thread owns
+// grid points j = tid, tid + blockDim, ... (at most 8) and streams the
+// channels through shared-memory tiles of per-channel constants, summing
+// log clamp(C_k(t_j), 1e-37, 1) in registers; block reductions give mu and
+// m2 (trapezoid weights 1/2 at the ends). A balancer refresh launches it at
+// F = 3, so it uses 3 of the 132 SMs; the split below is its next step.
+//
+// Fused adjoint, split across the card: a balancer refresh launches it at
+// F = 1 or 3 rows, so one block per row would leave 129 of 132 SMs idle.
+// Each row is spread over many blocks, in three launches from one call
+// (fg_grad), each a function of (F, K, T, mode, family) alone
+// (kernels/autotune.py pick_split aims at 132 blocks per launch):
+// * Pass 1, blocks of (row, tile of `points` grid points): every block takes
+//   the row's reach maximum (exact, so the same in all of them; tile 0 also
+//   counts the argmax ties), then sums log C_k(t_j) for its points with
+//   blockDim / points channel slices per point, the slices added in order.
+//   It writes w_j F(t_j) and the tile's trapezoid sums.
+// * Pass 2, blocks of (row, chunk of grid points, chunk of channels): each
+//   block sums the row's tile sums in tile order (the same mu in every
+//   block: pass 2 needs mu final, as the Pv accumulators sum a (t - mu)),
+//   stages its chunk's t_j, log t_j, w_j F(t_j) and t_j - mu in shared
+//   memory, and each thread walks the chunk in grid order for its channel,
+//   keeping up to six accumulators in registers. It writes them per chunk,
+//   and the block's sums of g . P and g . Pv over its channels.
+// * Epilogue, blocks of (row, chunk of channels): the row-wide S_mu and
+//   S_var from pass 2's partials, each channel's accumulators summed over
+//   the grid chunks in order, then the outputs.
+// Nothing is added atomically and every sum has a fixed order (within a
+// block, a fixed butterfly; across blocks, a scratch buffer read in index
+// order), so two launches give the same bits, as the kill/restore contract
+// needs; the split, carried by autotune.cache_state(), fixes that order.
+// When F alone fills the card (the fleet tick, F = 4096) the split is one
+// tile and one chunk per row.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -117,21 +132,16 @@ struct Args {
   float z;
 };
 
-// Maximum over channels of reach_k for row f (every thread gets it). With
-// reach_out, each thread also stores the reaches of its own channels k =
-// tid, tid + blockDim, ...: the argmax tie test then compares the very
-// values the maximum was taken over.
+// Maximum over channels of reach_k for row f (every thread gets it). A
+// maximum is exact, so every block of a row gets the same value, and the
+// argmax tie test, which recomputes reach_k, compares the very values the
+// maximum was taken over.
 template <int FAM>
-__device__ float row_amax(const Args& a, int f, acc_t* red,
-                          acc_t* reach_out) {
+__device__ float row_amax(const Args& a, int f, acc_t* red) {
   float m = -INFINITY;
-  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
-    const float rk = reach<FAM>(
-        load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, a.K, a.per_row),
-        a.z);
-    if (reach_out != nullptr) reach_out[k] = rk;
-    m = fmaxf(m, rk);
-  }
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x)
+    m = fmaxf(m, reach<FAM>(load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F,
+                                          a.K, a.per_row), a.z));
   return block_max(m, red);
 }
 
@@ -181,22 +191,18 @@ __device__ void log_joint_cdf(const Args& a, int f, Chan<FAM>* tile,
 
 // The moments of row f from this thread's grid points: F_j = exp(logF_j)
 // and the trapezoid sums of surv and t surv, all float64. Returns mu and
-// m2 (every thread gets them) and leaves w_j F_j in Fw.
+// m2 (every thread gets them).
 __device__ __forceinline__ void moments(const Args& a, float tmax,
                                         const float* t, const acc_t* logF,
-                                        acc_t* Fw, acc_t* red, acc_t& mu,
-                                        acc_t& m2) {
+                                        acc_t* red, acc_t& mu, acc_t& m2) {
   const int nth = blockDim.x, tid = threadIdx.x;
   acc_t s1 = 0.0, s2 = 0.0;
 #pragma unroll
   for (int i = 0; i < MAX_NPT; ++i) {
     const int j = tid + i * nth;
-    Fw[i] = 0.0;
     if (j < a.T) {
       const acc_t wq = (j == 0 || j == a.T - 1) ? 0.5 : 1.0;
-      const acc_t Fj = exp(logF[i]);
-      const acc_t surv = 1.0 - Fj;
-      Fw[i] = wq * Fj;
+      const acc_t surv = 1.0 - exp(logF[i]);
       s1 += wq * surv;
       s2 += wq * (acc_t)t[i] * surv;
     }
@@ -215,14 +221,14 @@ frontier_fwd_kernel(Args a, float* __restrict__ mu_out,
   __shared__ acc_t red[33];
   const int f = blockIdx.x;
 
-  const float amax = row_amax<FAM>(a, f, red, nullptr);
+  const float amax = row_amax<FAM>(a, f, red);
   const float tmax = fmaxf(amax, 1e-12f);
   float t[MAX_NPT], lt[MAX_NPT];
-  acc_t logF[MAX_NPT], Fw[MAX_NPT];
+  acc_t logF[MAX_NPT];
   grid_points<FAM>(a, tmax, t, lt);
   log_joint_cdf<FAM>(a, f, tile, t, lt, logF);
   acc_t mu, m2;
-  moments(a, tmax, t, logF, Fw, red, mu, m2);
+  moments(a, tmax, t, logF, red, mu, m2);
   if (threadIdx.x == 0) {
     mu_out[f] = (float)mu;
     var_out[f] = (float)fmax(m2 - mu * mu, (acc_t)0);
@@ -236,156 +242,330 @@ struct GradOut {
   acc_t* scratch;
 };
 
+// Launch shape of the split adjoint, chosen by kernels/autotune.py
+// (pick_split) from (F, K, T, mode, family) alone.
+struct Split {
+  int points;    // pass 1: grid points per block, a power of two dividing
+                 // blockDim; blockDim / points channel slices per point
+  int t_chunk;   // pass 2: grid points per block
+  int k_chunk;   // pass 2: channels per block
+  int ep_chunk;  // epilogue: channels per block
+};
+
+// Threads per block of pass 2 and of the epilogue: one per channel up to
+// CHUNK_THREADS, each thread walking channels k, k + blockDim, ... of its
+// block's chunk beyond that.
+constexpr int CHUNK_THREADS = 256;
+
+__host__ __device__ __forceinline__ int chunk_threads(int chunk) {
+  return ((chunk < CHUNK_THREADS ? chunk : CHUNK_THREADS) + 31) / 32 * 32;
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+template <int FAM, bool P>
+__host__ __device__ constexpr int n_acc() {
+  return 2 * ((int)Feat<FAM, P>::u1 + (int)Feat<FAM, P>::ut
+              + (int)Feat<FAM, P>::uz);
+}
+
+// Scratch of the split adjoint, in accumulators (acc_t), row-major:
+//   row   (F, 4)                amax, argmax ties, mu, m2 - mu^2
+//   tiles (F, n_tt, 2)          pass 1's trapezoid sums of surv and t surv
+//   wF    (F, T)                w_j F(t_j)
+//   part  (F, n_tc, n_kc, 2)    pass 2's sums of g . P and g . Pv
+//   acc   (F, n_tc, n_acc, K)   pass 2's accumulators per grid chunk
+// kernels/autotune.py (grad_scratch_elems) sizes it the same way.
+struct Layout {
+  int n_tt, n_tc, n_kc, n_ep;
+  long long row, tiles, wF, part, acc, total;
+  __host__ __device__ Layout(const Split& s, int F, int K, int T, int nacc) {
+    n_tt = cdiv(T, s.points);
+    n_tc = cdiv(T, s.t_chunk);
+    n_kc = cdiv(K, s.k_chunk);
+    n_ep = cdiv(K, s.ep_chunk);
+    row = 0;
+    tiles = row + 4LL * F;
+    wF = tiles + 2LL * F * n_tt;
+    part = wF + (long long)F * T;
+    acc = part + 2LL * F * n_tc * n_kc;
+    total = acc + (long long)F * n_tc * nacc * K;
+  }
+};
+
+// Pass 1, one block per (row f, tile of s.points grid points): the row's
+// reach maximum (and, in tile 0, its argmax ties), then log F(t_j) for the
+// tile's points. Thread (p, q) sums log clamp(C_k(t_p)) over the channels
+// k = q, q + slices, ... of each shared tile of channel constants; the
+// slices' sums are added in slice order. Writes w_j F(t_j) and the tile's
+// trapezoid sums.
+template <int FAM>
+__global__ void __launch_bounds__(MAX_THREADS)
+frontier_grad_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nth = blockDim.x, tid = threadIdx.x;
+  Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
+  acc_t* s_log = reinterpret_cast<acc_t*>(
+      smem + align16((size_t)nth * sizeof(Chan<FAM>)));
+  __shared__ acc_t red[33];
+  const int K = a.K, T = a.T;
+  const Layout L(s, a.F, K, T, 0);
+  const int f = blockIdx.x / L.n_tt, tt = blockIdx.x % L.n_tt;
+
+  const float amax = row_amax<FAM>(a, f, red);
+  if (tt == 0) {
+    acc_t ties = 0.0;
+    for (int k = tid; k < K; k += nth)
+      ties += reach<FAM>(load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
+                                       a.per_row), a.z) == amax ? 1.0 : 0.0;
+    ties = block_sum(ties, red);
+    if (tid == 0) {
+      scratch[L.row + 4LL * f] = (acc_t)amax;
+      scratch[L.row + 4LL * f + 1] = ties;
+    }
+  }
+  const float tmax = fmaxf(amax, 1e-12f);
+  const int slices = nth / s.points;
+  const int p = tid % s.points, q = tid / s.points;
+  const int j = tt * s.points + p;
+  const float t = tmax * ((float)j / (float)(T - 1));
+  const float lt = (FAM == LOGNORMAL) ? logf(fmaxf(t, TINY)) : 0.0f;
+  acc_t logF = 0.0;
+  for (int k0 = 0; k0 < K; k0 += nth) {
+    const int k = k0 + tid;
+    if (k < K)
+      tile[tid] = make_chan<FAM>(
+          load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K, a.per_row));
+    __syncthreads();
+    const int n = min(nth, K - k0);
+    if (j < T) {
+      for (int c = q; c < n; c += slices) {
+        const float cv = cdf<FAM>(tile[c], t, lt);
+        logF += (acc_t)logf(fminf(fmaxf(cv, CDF_FLOOR), 1.0f));
+      }
+    }
+    __syncthreads();
+  }
+  s_log[tid] = logF;  // tid == q * points + p
+  __syncthreads();
+  acc_t s1 = 0.0, s2 = 0.0;
+  if (q == 0 && j < T) {
+    acc_t lf = 0.0;
+    for (int i = 0; i < slices; ++i) lf += s_log[i * s.points + p];
+    const acc_t wq = (j == 0 || j == T - 1) ? 0.5 : 1.0;
+    const acc_t Fj = exp(lf);
+    const acc_t surv = 1.0 - Fj;
+    scratch[L.wF + (long long)f * T + j] = wq * Fj;
+    s1 = wq * surv;
+    s2 = wq * (acc_t)t * surv;
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  if (tid == 0) {
+    acc_t* out = scratch + L.tiles + 2LL * ((long long)f * L.n_tt + tt);
+    out[0] = s1;
+    out[1] = s2;
+  }
+}
+
+// Pass 2, one block per (row f, chunk of s.t_chunk grid points, chunk of
+// s.k_chunk channels): the row's mu from pass 1's tile sums (in tile order,
+// the same in every block), the chunk's grid to shared memory, then for
+// each of the thread's channels its accumulators over the chunk in grid
+// order. Writes the accumulators and the block's sums of g . P and g . Pv
+// over its channels.
 template <int FAM, bool P>
 __global__ void __launch_bounds__(MAX_THREADS)
-frontier_grad_kernel(Args a, GradOut o) {
+frontier_grad_pass2(Args a, Split s, GradOut o) {
   using Fe = Feat<FAM, P>;
-  constexpr int NACC = 2 * ((int)Fe::u1 + (int)Fe::ut + (int)Fe::uz);
+  constexpr int NACC = n_acc<FAM, P>();
   constexpr int S0 = 0;
   constexpr int S1 = S0 + (Fe::u1 ? 2 : 0);
   constexpr int SZ = S1 + (Fe::ut ? 2 : 0);
-
-  // shared: the grid (t, log t) for both passes, then a region holding the
-  // channel tile in pass 1 and (t - mu, w F) in pass 2
   extern __shared__ __align__(16) unsigned char smem[];
-  acc_t* s_tmu = reinterpret_cast<acc_t*>(smem);
-  float* s_wF = reinterpret_cast<float*>(s_tmu + a.T);
-  float* s_t = s_wF + a.T;
-  float* s_lt = s_t + a.T;
-  Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
-  __shared__ acc_t red[33];
-  const int f = blockIdx.x, nth = blockDim.x, tid = threadIdx.x;
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int K = a.K, T = a.T;
+  const int cap = min(s.t_chunk, T);
+  acc_t* s_tmu = reinterpret_cast<acc_t*>(smem);
+  float* s_wF = reinterpret_cast<float*>(s_tmu + cap);
+  float* s_t = s_wF + cap;
+  float* s_lt = s_t + cap;
+  __shared__ acc_t red[33];
+  acc_t* scratch = o.scratch;
+  const Layout L(s, a.F, K, T, NACC);
+  const int per_row = L.n_tc * L.n_kc;
+  const int f = blockIdx.x / per_row, r = blockIdx.x % per_row;
+  const int tc = r / L.n_kc, kc = r % L.n_kc;
 
-  // ---- pass 1: the forward moments
-  acc_t* acc_row = o.scratch + (long long)f * (NACC + 1) * K;
-  acc_t* reach_row = acc_row + (long long)NACC * K;
-  const float amax = row_amax<FAM>(a, f, red, reach_row);
+  // the row's moments
+  const acc_t* tiles = scratch + L.tiles + 2LL * f * L.n_tt;
+  acc_t s1 = 0.0, s2 = 0.0;
+  for (int i = tid; i < L.n_tt; i += nth) {
+    s1 += tiles[2 * i];
+    s2 += tiles[2 * i + 1];
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  const float amax = (float)scratch[L.row + 4LL * f];
   const float tmax = fmaxf(amax, 1e-12f);
-  float t[MAX_NPT], lt[MAX_NPT];
-  acc_t logF[MAX_NPT], Fw[MAX_NPT];
-  grid_points<FAM>(a, tmax, t, lt);
-  log_joint_cdf<FAM>(a, f, tile, t, lt, logF);
-  acc_t mu, m2;
-  moments(a, tmax, t, logF, Fw, red, mu, m2);
+  const acc_t dt = (acc_t)tmax / (acc_t)(T - 1);
+  const acc_t mu = s1 * dt;
+  const acc_t m2 = 2.0 * s2 * dt;
   const acc_t var_raw = m2 - mu * mu;
-  if (tid == 0) {
+  if (r == 0 && tid == 0) {
     o.mu[f] = (float)mu;
     o.var[f] = (float)fmax(var_raw, (acc_t)0);
+    scratch[L.row + 4LL * f + 2] = mu;
+    scratch[L.row + 4LL * f + 3] = var_raw;
   }
-  // the reductions in moments() ended on a barrier: the tile is free
-#pragma unroll
-  for (int i = 0; i < MAX_NPT; ++i) {
-    const int j = tid + i * nth;
-    if (j < T) {
-      s_tmu[j] = (acc_t)t[i] - mu;
-      s_wF[j] = (float)Fw[i];
-      s_t[j] = t[i];
-      s_lt[j] = lt[i];
-    }
+
+  // the chunk's grid: t_j, log t_j, w_j F(t_j) and t_j - mu
+  const int j0 = tc * s.t_chunk;
+  const int nj = min(s.t_chunk, T - j0);
+  for (int i = tid; i < nj; i += nth) {
+    const int j = j0 + i;
+    const float t = tmax * ((float)j / (float)(T - 1));
+    s_t[i] = t;
+    s_lt[i] = (FAM == LOGNORMAL) ? logf(fmaxf(t, TINY)) : 0.0f;
+    s_tmu[i] = (acc_t)t - mu;
+    s_wF[i] = (float)scratch[L.wF + (long long)f * T + j];
   }
   __syncthreads();
 
-  // ---- pass 2: per-channel accumulators over the grid, in grid order
-  acc_t part_mu = 0.0, part_var = 0.0, ties = 0.0;
-  for (int k = tid; k < K; k += nth) {
-    const Raw r = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
-                                a.per_row);
-    const Chan<FAM> ch = make_chan<FAM>(r);
+  const int k_end = min(K, (kc + 1) * s.k_chunk);
+  acc_t* acc = scratch + L.acc + ((long long)f * L.n_tc + tc) * NACC * K;
+  acc_t g_mu = 0.0, g_var = 0.0;
+  for (int k = kc * s.k_chunk + tid; k < k_end; k += nth) {
+    const Raw rw = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
+                                 a.per_row);
+    const Chan<FAM> ch = make_chan<FAM>(rw);
     acc_t P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
     if (ch.ok != 0.0f) {
-      for (int j = 0; j < T; ++j) {
-        const float tj = s_t[j];
-        const acc_t tmu = s_tmu[j];
+      for (int i = 0; i < nj; ++i) {
+        const float tj = s_t[i];
+        const acc_t tmu = s_tmu[i];
         float craw, D, zj;
-        adjoint_parts<FAM>(ch, tj, s_lt[j], craw, D, zj);
+        adjoint_parts<FAM>(ch, tj, s_lt[i], craw, D, zj);
         const float Cc = fminf(fmaxf(craw, CDF_FLOOR), 1.0f);
         const float gate = (craw >= 1.0f ? 0.5f : 1.0f)
                            * (craw > CDF_FLOOR ? 1.0f : 0.0f);
-        const acc_t av = (acc_t)(s_wF[j] * (gate * D / Cc));
+        const acc_t av = (acc_t)(s_wF[i] * (gate * D / Cc));
         if (Fe::u1) { P0 += av; Pv0 += av * tmu; }
         if (Fe::ut) { const acc_t at = av * (acc_t)tj; P1 += at; Pv1 += at * tmu; }
         if (Fe::uz) { const acc_t az = av * (acc_t)zj; Pz += az; Pvz += az * tmu; }
       }
     }
-    if (Fe::u1) { acc_row[(S0 + 0) * K + k] = P0; acc_row[(S0 + 1) * K + k] = Pv0; }
-    if (Fe::ut) { acc_row[(S1 + 0) * K + k] = P1; acc_row[(S1 + 1) * K + k] = Pv1; }
-    if (Fe::uz) { acc_row[(SZ + 0) * K + k] = Pz; acc_row[(SZ + 1) * K + k] = Pvz; }
+    if (Fe::u1) { acc[(S0 + 0) * K + k] = P0; acc[(S0 + 1) * K + k] = Pv0; }
+    if (Fe::ut) { acc[(S1 + 0) * K + k] = P1; acc[(S1 + 1) * K + k] = Pv1; }
+    if (Fe::uz) { acc[(SZ + 0) * K + k] = Pz; acc[(SZ + 1) * K + k] = Pvz; }
     float al, be, g0, g1;
-    coeffs<FAM>(r, al, be, g0, g1);
-    part_mu += (acc_t)g0 * P0 + (acc_t)g1 * P1;
-    part_var += (acc_t)g0 * Pv0 + (acc_t)g1 * Pv1;
-    ties += reach_row[k] == (acc_t)amax ? 1.0 : 0.0;
+    coeffs<FAM>(rw, al, be, g0, g1);
+    g_mu += (acc_t)g0 * P0 + (acc_t)g1 * P1;
+    g_var += (acc_t)g0 * Pv0 + (acc_t)g1 * Pv1;
   }
-  const acc_t S_mu = block_sum(part_mu, red);
-  const acc_t S_var = block_sum(part_var, red);
-  const acc_t n_tie = block_sum(ties, red);
+  g_mu = block_sum(g_mu, red);
+  g_var = block_sum(g_var, red);
+  if (tid == 0) {
+    acc_t* part = scratch + L.part
+                  + 2LL * (((long long)f * L.n_tc + tc) * L.n_kc + kc);
+    part[0] = g_mu;
+    part[1] = g_var;
+  }
+}
 
-  // ---- epilogue: fixed-grid plus moving-grid (tmax) terms per channel
+// The outputs of channel k of row f: its accumulators summed over the grid
+// chunks in chunk order, then the fixed-grid plus moving-grid (tmax) terms.
+template <int FAM, bool P>
+__device__ void epilogue_channel(const Args& a, const GradOut& o,
+                                 const Layout& L, int f, int k, float amax,
+                                 acc_t n_tie, acc_t dt, acc_t b_mu,
+                                 acc_t b_var, acc_t live, bool var_pos) {
+  using Fe = Feat<FAM, P>;
+  constexpr int NACC = n_acc<FAM, P>();
+  constexpr int S0 = 0;
+  constexpr int S1 = S0 + (Fe::u1 ? 2 : 0);
+  constexpr int SZ = S1 + (Fe::ut ? 2 : 0);
+  const int K = a.K;
+  const Raw r = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
+                              a.per_row);
+  acc_t P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
+  const acc_t* acc = o.scratch + L.acc + (long long)f * L.n_tc * NACC * K;
+  for (int c = 0; c < L.n_tc; ++c, acc += (long long)NACC * K) {
+    if (Fe::u1) { P0 += acc[(S0 + 0) * K + k]; Pv0 += acc[(S0 + 1) * K + k]; }
+    if (Fe::ut) { P1 += acc[(S1 + 0) * K + k]; Pv1 += acc[(S1 + 1) * K + k]; }
+    if (Fe::uz) { Pz += acc[(SZ + 0) * K + k]; Pvz += acc[(SZ + 1) * K + k]; }
+  }
+  const acc_t ind = reach<FAM>(r, a.z) == amax ? 1.0 : 0.0;
+  const acc_t tie = ind / n_tie * live;
+  const long long fk = (long long)f * K + k;
+
+  auto contract = [&](float c1, float ct, float cz, float dre, float* dmu,
+                      float* dvar) {
+    const acc_t gvec = (acc_t)dre * tie;
+    const acc_t fix = (acc_t)c1 * P0 + (acc_t)ct * P1 + (acc_t)cz * Pz;
+    const acc_t fixv = (acc_t)c1 * Pv0 + (acc_t)ct * Pv1 + (acc_t)cz * Pvz;
+    dmu[fk] = (float)(-dt * fix + b_mu * gvec);
+    dvar[fk] = var_pos ? (float)(-2.0 * dt * fixv + b_var * gvec) : 0.0f;
+  };
+  float al, be, g0, g1;
+  coeffs<FAM>(r, al, be, g0, g1);
+  contract(al, be, 0.0f, dreach_w<FAM>(r, a.z), o.d[0], o.d[1]);
+  if (P) {
+    float cm[3], cs[3], ce[3], dm, ds, de;
+    param_coeffs<FAM>(r, cm, cs, ce);
+    dreach_params<FAM>(r, a.z, dm, ds, de);
+    contract(cm[0], cm[1], cm[2], dm, o.d[2], o.d[3]);
+    contract(cs[0], cs[1], cs[2], ds, o.d[4], o.d[5]);
+    if (FAM == DRIFT || FAM == DEFECTIVE) {
+      contract(ce[0], ce[1], ce[2], de, o.d[6], o.d[7]);
+    } else {
+      o.d[6][fk] = 0.0f;
+      o.d[7][fk] = 0.0f;
+    }
+  }
+}
+
+// Epilogue, one block per (row f, chunk of s.ep_chunk channels): the
+// row-wide sums S_mu and S_var from pass 2's partials (in a fixed order,
+// the same in every block), then the outputs of each of the block's
+// channels.
+template <int FAM, bool P>
+__global__ void __launch_bounds__(MAX_THREADS)
+frontier_grad_epilogue(Args a, Split s, GradOut o) {
+  __shared__ acc_t red[33];
+  const int nth = blockDim.x, tid = threadIdx.x;
+  const int K = a.K, T = a.T;
+  const Layout L(s, a.F, K, T, n_acc<FAM, P>());
+  const int f = blockIdx.x / L.n_ep, e = blockIdx.x % L.n_ep;
+
+  const acc_t* part = o.scratch + L.part + 2LL * f * L.n_tc * L.n_kc;
+  acc_t sm = 0.0, sv = 0.0;
+  for (int i = tid; i < L.n_tc * L.n_kc; i += nth) {
+    sm += part[2 * i];
+    sv += part[2 * i + 1];
+  }
+  const acc_t S_mu = block_sum(sm, red);
+  const acc_t S_var = block_sum(sv, red);
+  const acc_t* row = o.scratch + L.row + 4LL * f;
+  const float amax = (float)row[0];
+  const acc_t n_tie = row[1], mu = row[2], var_raw = row[3];
+  const float tmax = fmaxf(amax, 1e-12f);
   const acc_t dt = (acc_t)tmax / (acc_t)(T - 1);
   const acc_t tmx = (acc_t)tmax;
   const acc_t b_mu = (mu - dt * S_mu) / tmx;
   const acc_t b_var = 2.0 * (var_raw - dt * S_var) / tmx;
   const acc_t live = amax > 1e-12f ? 1.0 : 0.0;
   const bool var_pos = var_raw > 0.0;
-  for (int k = tid; k < K; k += nth) {
-    const Raw r = load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
-                                a.per_row);
-    acc_t P0 = 0.0, Pv0 = 0.0, P1 = 0.0, Pv1 = 0.0, Pz = 0.0, Pvz = 0.0;
-    if (Fe::u1) { P0 = acc_row[(S0 + 0) * K + k]; Pv0 = acc_row[(S0 + 1) * K + k]; }
-    if (Fe::ut) { P1 = acc_row[(S1 + 0) * K + k]; Pv1 = acc_row[(S1 + 1) * K + k]; }
-    if (Fe::uz) { Pz = acc_row[(SZ + 0) * K + k]; Pvz = acc_row[(SZ + 1) * K + k]; }
-    const acc_t ind = reach_row[k] == (acc_t)amax ? 1.0 : 0.0;
-    const acc_t tie = ind / n_tie * live;
-    const long long fk = (long long)f * K + k;
-
-    auto contract = [&](float c1, float ct, float cz, float dre, float* dmu,
-                        float* dvar) {
-      const acc_t gvec = (acc_t)dre * tie;
-      const acc_t fix = (acc_t)c1 * P0 + (acc_t)ct * P1 + (acc_t)cz * Pz;
-      const acc_t fixv =
-          (acc_t)c1 * Pv0 + (acc_t)ct * Pv1 + (acc_t)cz * Pvz;
-      dmu[fk] = (float)(-dt * fix + b_mu * gvec);
-      dvar[fk] = var_pos ? (float)(-2.0 * dt * fixv + b_var * gvec) : 0.0f;
-    };
-    float al, be, g0, g1;
-    coeffs<FAM>(r, al, be, g0, g1);
-    contract(al, be, 0.0f, dreach_w<FAM>(r, a.z), o.d[0], o.d[1]);
-    if (P) {
-      float cm[3], cs[3], ce[3], dm, ds, de;
-      param_coeffs<FAM>(r, cm, cs, ce);
-      dreach_params<FAM>(r, a.z, dm, ds, de);
-      contract(cm[0], cm[1], cm[2], dm, o.d[2], o.d[3]);
-      contract(cs[0], cs[1], cs[2], ds, o.d[4], o.d[5]);
-      if (FAM == DRIFT || FAM == DEFECTIVE) {
-        contract(ce[0], ce[1], ce[2], de, o.d[6], o.d[7]);
-      } else {
-        o.d[6][fk] = 0.0f;
-        o.d[7][fk] = 0.0f;
-      }
-    }
-  }
-}
-
-template <int FAM>
-size_t chan_bytes() { return sizeof(Chan<FAM>); }
-
-size_t chan_bytes_of(int fam) {
-  switch (fam) {
-    case NORMAL: return chan_bytes<NORMAL>();
-    case LOGNORMAL: return chan_bytes<LOGNORMAL>();
-    case DRIFT: return chan_bytes<DRIFT>();
-    case EMPIRICAL: return chan_bytes<EMPIRICAL>();
-    default: return chan_bytes<DEFECTIVE>();
-  }
-}
-
-// Dynamic shared memory of the fused kernel: the larger of the channel
-// tile (pass 1) and the per-grid-point arrays (8 + 4 + 4 + 4 bytes).
-size_t grad_smem(int fam, int threads, int T) {
-  const size_t tile = (size_t)threads * chan_bytes_of(fam);
-  const size_t pts = 20 * (size_t)T;
-  return tile > pts ? tile : pts;
+  const int k_end = min(K, (e + 1) * s.ep_chunk);
+  for (int k = e * s.ep_chunk + tid; k < k_end; k += nth)
+    epilogue_channel<FAM, P>(a, o, L, f, k, amax, n_tie, dt, b_mu, b_var,
+                             live, var_pos);
 }
 
 template <int FAM>
@@ -400,14 +580,43 @@ cudaError_t fwd_launch(Args a, int threads, float* mu_out, float* var_out,
   return cudaGetLastError();
 }
 
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename Kernel>
+cudaError_t fit_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The split adjoint: three launches on one stream (pass 1, pass 2,
+// epilogue), each reading what the one before it wrote.
 template <int FAM, bool P>
-cudaError_t grad_launch(Args a, int threads, GradOut o, cudaStream_t stream) {
-  const size_t smem = grad_smem(FAM, threads, a.T);
-  cudaError_t err = cudaFuncSetAttribute(
-      frontier_grad_kernel<FAM, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t grad_launch(Args a, int threads, Split s, GradOut o,
+                        long long scratch_elems, cudaStream_t stream) {
+  const bool shape_ok =
+      threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0
+      && s.points >= 1 && (s.points & (s.points - 1)) == 0
+      && threads % s.points == 0 && s.t_chunk >= 1 && s.k_chunk >= 1
+      && s.ep_chunk >= 1 && a.T >= 2;
+  if (!shape_ok) return cudaErrorInvalidValue;
+  const Layout L(s, a.F, a.K, a.T, n_acc<FAM, P>());
+  if (scratch_elems < L.total) return cudaErrorInvalidValue;
+  const size_t smem1 = align16((size_t)threads * sizeof(Chan<FAM>))
+                       + (size_t)threads * sizeof(acc_t);
+  const size_t smem2 =
+      (size_t)min(s.t_chunk, a.T) * (sizeof(acc_t) + 3 * sizeof(float));
+  cudaError_t err = fit_smem(frontier_grad_pass1<FAM>, smem1);
+  if (err == cudaSuccess) err = fit_smem(frontier_grad_pass2<FAM, P>, smem2);
   if (err != cudaSuccess) return err;
-  frontier_grad_kernel<FAM, P><<<a.F, threads, smem, stream>>>(a, o);
+  frontier_grad_pass1<FAM><<<a.F * L.n_tt, threads, smem1, stream>>>(
+      a, s, o.scratch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  frontier_grad_pass2<FAM, P><<<a.F * L.n_tc * L.n_kc,
+                                chunk_threads(s.k_chunk), smem2, stream>>>(
+      a, s, o);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  frontier_grad_epilogue<FAM, P><<<a.F * L.n_ep, chunk_threads(s.ep_chunk),
+                                   0, stream>>>(a, s, o);
   return cudaGetLastError();
 }
 
@@ -437,36 +646,42 @@ int fg_forward(int fam, const float* W, const float* mus, const float* sgs,
   }
 }
 
-// Fused moments and adjoints. outs holds 2 (param_grads == 0) or 8 (F, K)
-// output pointers; scratch holds F * (n_acc + 1) * K doubles (the
-// per-channel accumulators and reaches).
+// Fused moments and adjoints in three launches. stats holds mu then var
+// (2 F floats); outs the 2 (param_grads == 0) or 8 (F, K) adjoints one
+// after the other; (points, t_chunk, k_chunk, ep_chunk) is the split and
+// threads pass 1's block; scratch holds scratch_elems accumulators, at
+// least the split's Layout (else cudaErrorInvalidValue).
 int fg_grad(int fam, int param_grads, const float* W, const float* mus,
             const float* sgs, const float* ex, int per_row, int F, int K,
-            int T, float z, int threads, float* mu_out, float* var_out,
-            float** outs, acc_t* scratch, void* stream) {
+            int T, float z, int threads, int points, int t_chunk,
+            int k_chunk, int ep_chunk, float* stats, float* outs,
+            acc_t* scratch, long long scratch_elems, void* stream) {
   Args a{W, mus, sgs, ex, per_row, F, K, T, z};
+  Split sp{points, t_chunk, k_chunk, ep_chunk};
   GradOut o;
-  o.mu = mu_out;
-  o.var = var_out;
-  for (int i = 0; i < 8; ++i) o.d[i] = (i < 2 || param_grads) ? outs[i] : nullptr;
+  o.mu = stats;
+  o.var = stats + F;
+  for (int i = 0; i < 8; ++i)
+    o.d[i] = (i < 2 || param_grads) ? outs + (long long)i * F * K : nullptr;
   o.scratch = scratch;
+  const long long n = scratch_elems;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (param_grads) {
     switch (fam) {
-      case NORMAL: return grad_launch<NORMAL, true>(a, threads, o, s);
-      case LOGNORMAL: return grad_launch<LOGNORMAL, true>(a, threads, o, s);
-      case DRIFT: return grad_launch<DRIFT, true>(a, threads, o, s);
-      case EMPIRICAL: return grad_launch<EMPIRICAL, true>(a, threads, o, s);
-      case DEFECTIVE: return grad_launch<DEFECTIVE, true>(a, threads, o, s);
+      case NORMAL: return grad_launch<NORMAL, true>(a, threads, sp, o, n, s);
+      case LOGNORMAL: return grad_launch<LOGNORMAL, true>(a, threads, sp, o, n, s);
+      case DRIFT: return grad_launch<DRIFT, true>(a, threads, sp, o, n, s);
+      case EMPIRICAL: return grad_launch<EMPIRICAL, true>(a, threads, sp, o, n, s);
+      case DEFECTIVE: return grad_launch<DEFECTIVE, true>(a, threads, sp, o, n, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (fam) {
-    case NORMAL: return grad_launch<NORMAL, false>(a, threads, o, s);
-    case LOGNORMAL: return grad_launch<LOGNORMAL, false>(a, threads, o, s);
-    case DRIFT: return grad_launch<DRIFT, false>(a, threads, o, s);
-    case EMPIRICAL: return grad_launch<EMPIRICAL, false>(a, threads, o, s);
-    case DEFECTIVE: return grad_launch<DEFECTIVE, false>(a, threads, o, s);
+    case NORMAL: return grad_launch<NORMAL, false>(a, threads, sp, o, n, s);
+    case LOGNORMAL: return grad_launch<LOGNORMAL, false>(a, threads, sp, o, n, s);
+    case DRIFT: return grad_launch<DRIFT, false>(a, threads, sp, o, n, s);
+    case EMPIRICAL: return grad_launch<EMPIRICAL, false>(a, threads, sp, o, n, s);
+    case DEFECTIVE: return grad_launch<DEFECTIVE, false>(a, threads, sp, o, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

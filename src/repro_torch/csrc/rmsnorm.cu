@@ -5,23 +5,158 @@
 // whatever the storage type, and y has x's dtype.
 //
 // What bounds it on the H100: bytes. Each element is read, squared and
-// summed, then read again, scaled and written: ~4 operations per element
-// against 4 bytes moved in bf16 (8 in float32), far below the card's ~20
-// FP32 operations per byte of device memory. So the kernel's job is to
-// touch x once from device memory and w from cache. The design: one warp
-// per row for D <= 256 (the per-head q/k norms, D = 128), one 256-thread
-// block per row above that (the residual-stream norms, D = 4096); the
-// second read of the row hits L1/L2. The sum of squares is a per-thread
-// sum followed by a fixed-order butterfly (and, for a block, a fixed-order
-// sum of the warps' partials), so two runs give the same bits. Loads are
-// one element per thread per step, coalesced across the warp; vector loads
-// are later work.
+// summed, then scaled and written: ~4 operations per element against 4
+// bytes moved in bf16 (8 in float32), far below the card's ~20 FP32
+// operations per byte of device memory. So the kernel reads x once from
+// device memory, in 16-byte vectors (8 bf16 or 4 float32 a load), keeps the
+// row in registers between the sum of squares and the scaling, reads w
+// through the read-only path and writes y in 16-byte vectors. At the
+// serving path's shapes (a few dozen to a few thousand rows) a call is one
+// or two microseconds of device time, and launch latency, not bandwidth,
+// sets it; at 32768 rows of 4096 it is bandwidth.
+//
+// Forms, chosen per call from D and the pointers (a shape rule, every one
+// computing the same function):
+// * rows of at most 32 vectors (D <= 256 in bf16, 128 in float32: the
+//   per-head q/k norms): a group of G lanes per row, G the power of two
+//   covering the row's vectors, several rows per warp (a 128-wide bf16 row
+//   is 16 lanes of 16 bytes, two rows a warp);
+// * longer rows, up to 4096 vectors (D = 32768 in bf16): one block per row
+//   whose size fits D, each thread holding NV whole vectors (D = 2560, 4096,
+//   5120 in bf16: 160, 256, 160 threads of 2, 2, 4 vectors);
+// * a row whose length is not a whole number of vectors, a pointer not on
+//   16 bytes (a view with a storage offset), or a longer row: the scalar
+//   form, one element per thread per step with a second read of the row
+//   from cache.
+// Sums of squares are float32: a per-thread sum in element order, a
+// fixed-order butterfly over the lanes of a row and, for a block, a
+// fixed-order sum of the warps' partials, so two runs give the same bits.
 #include "dtype.cuh"
 
 namespace {
 
-constexpr int WARP_ROWS_PER_BLOCK = 4;  // rows of the one-warp-per-row form
-constexpr int BLOCK_THREADS = 256;      // threads of the one-block-per-row form
+constexpr int GROUP_BLOCK = 256;        // threads of the lane-group form
+constexpr int MAX_ROW_THREADS = 512;    // threads of the vector block form
+constexpr int MAX_NV = 8;               // vectors per thread, block form
+constexpr int WARP_ROWS_PER_BLOCK = 4;  // rows of the scalar one-warp form
+constexpr int BLOCK_THREADS = 256;      // threads of the scalar block form
+
+// 16 bytes of T, widened to float and back
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const uint4& u, float* v) {
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 store(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // the element at the lower address is the low half; widening is exact
+  static __device__ __forceinline__ float2 pair(unsigned int u) {
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xffff0000u));
+  }
+  static __device__ __forceinline__ unsigned int pack(float a, float b) {
+    return (unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+           | ((unsigned int)__bfloat16_as_ushort(__float2bfloat16_rn(b))
+              << 16);
+  }
+  static __device__ __forceinline__ void load(const uint4& u, float* v) {
+    const float2 a = pair(u.x), b = pair(u.y), c = pair(u.z), d = pair(u.w);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    v[4] = c.x; v[5] = c.y; v[6] = d.x; v[7] = d.y;
+  }
+  static __device__ __forceinline__ uint4 store(const float* v) {
+    return make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]),
+                      pack(v[6], v[7]));
+  }
+};
+
+// y = (x * r) * w for one vector, rounded to T
+template <typename T>
+__device__ __forceinline__ uint4 scale(const float* v, float r,
+                                       const uint4& wv) {
+  constexpr int N = Vec<T>::N;
+  float wf[N], o[N];
+  Vec<T>::load(wv, wf);
+#pragma unroll
+  for (int e = 0; e < N; ++e) o[e] = (v[e] * r) * wf[e];
+  return Vec<T>::store(o);
+}
+
+// Lane-group form: G lanes per row, one vector each (G covers nvec <= 32).
+template <typename T, int G>
+__global__ void __launch_bounds__(GROUP_BLOCK)
+rmsnorm_group_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
+                     uint4* __restrict__ y, long long rows, int nvec,
+                     float d, float eps) {
+  constexpr int N = Vec<T>::N;
+  const int lane = threadIdx.x % G;
+  const long long row = (long long)blockIdx.x * (GROUP_BLOCK / G)
+                        + threadIdx.x / G;
+  const bool live = row < rows && lane < nvec;
+  float v[N];
+  float ss = 0.f;
+  if (live) {
+    Vec<T>::load(x[row * nvec + lane], v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) ss += v[e] * v[e];
+  }
+  // butterfly within the group of G lanes (all lanes of the warp take part)
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if (!live) return;
+  const float r = rsqrtf(ss / d + eps);
+  y[row * nvec + lane] = scale<T>(v, r, __ldg(w + lane));
+}
+
+// Vector block form: one row per block, each thread NV whole vectors
+// (vector i * blockDim + tid), masked past nvec.
+template <typename T, int NV>
+__global__ void __launch_bounds__(MAX_ROW_THREADS)
+rmsnorm_row_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
+                   uint4* __restrict__ y, int nvec, float d, float eps) {
+  constexpr int N = Vec<T>::N;
+  __shared__ float partial[MAX_ROW_THREADS / 32];
+  __shared__ float total;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * nvec;
+  float v[NV][N];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = i * nth + tid;
+    if (c < nvec) {
+      Vec<T>::load(x[base + c], v[i]);
+#pragma unroll
+      for (int e = 0; e < N; ++e) ss += v[i][e] * v[i][e];
+    }
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) partial[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < (nth >> 5) ? partial[lane] : 0.f;
+    t = warp_sum(t);
+    if (lane == 0) total = t;
+  }
+  __syncthreads();
+  const float r = rsqrtf(total / d + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = i * nth + tid;
+    if (c < nvec) y[base + c] = scale<T>(v[i], r, __ldg(w + c));
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(32 * WARP_ROWS_PER_BLOCK)
@@ -73,20 +208,76 @@ rmsnorm_block_kernel(const T* __restrict__ x, const T* __restrict__ w,
     yr[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
 }
 
+template <typename T, int G>
+void launch_group(const uint4* x, const uint4* w, uint4* y, long long rows,
+                  int nvec, float d, float eps, cudaStream_t stream) {
+  const long long blocks = (rows + GROUP_BLOCK / G - 1) / (GROUP_BLOCK / G);
+  rmsnorm_group_kernel<T, G><<<(unsigned)blocks, GROUP_BLOCK, 0, stream>>>(
+      x, w, y, rows, nvec, d, eps);
+}
+
+template <typename T, int NV>
+void launch_row(const uint4* x, const uint4* w, uint4* y, long long rows,
+                int nvec, float d, float eps, cudaStream_t stream) {
+  const int threads = ((nvec + NV - 1) / NV + 31) / 32 * 32;
+  rmsnorm_row_kernel<T, NV><<<(unsigned)rows, threads, 0, stream>>>(
+      x, w, y, nvec, d, eps);
+}
+
+// Vectors per thread of the block form: the fewest that give a whole
+// number of vectors per thread in whole warps of at most 256 threads, else
+// of at most 512, else the fewest that cover the row in 512 threads.
+int pick_nv(int nvec) {
+  for (int cap = 256; cap <= MAX_ROW_THREADS; cap *= 2)
+    for (int nv = 1; nv <= MAX_NV; nv *= 2)
+      if (nvec % nv == 0 && (nvec / nv) % 32 == 0 && nvec / nv <= cap)
+        return nv;
+  for (int nv = 1; nv <= MAX_NV; nv *= 2)
+    if (nvec <= nv * MAX_ROW_THREADS) return nv;
+  return 0;
+}
+
 template <typename T>
 int launch(const void* x, const void* w, void* y, long long rows, int D,
            float eps, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* yp = static_cast<T*>(y);
-  if (D <= 256) {
-    const long long blocks =
-        (rows + WARP_ROWS_PER_BLOCK - 1) / WARP_ROWS_PER_BLOCK;
-    rmsnorm_warp_kernel<T><<<(unsigned)blocks, 32 * WARP_ROWS_PER_BLOCK, 0,
-                             stream>>>(xp, wp, yp, rows, D, eps);
+  constexpr int N = Vec<T>::N;
+  const unsigned long long addr = reinterpret_cast<unsigned long long>(x)
+                                  | reinterpret_cast<unsigned long long>(w)
+                                  | reinterpret_cast<unsigned long long>(y);
+  const int nvec = D / N;
+  const int nv = (addr % 16 == 0 && D % N == 0) ? pick_nv(nvec) : 0;
+  const uint4* xv = static_cast<const uint4*>(x);
+  const uint4* wv = static_cast<const uint4*>(w);
+  uint4* yv = static_cast<uint4*>(y);
+  const float d = (float)D;
+  if (nv != 0 && nvec <= 32) {
+    if (nvec <= 1) launch_group<T, 1>(xv, wv, yv, rows, nvec, d, eps, stream);
+    else if (nvec <= 2) launch_group<T, 2>(xv, wv, yv, rows, nvec, d, eps, stream);
+    else if (nvec <= 4) launch_group<T, 4>(xv, wv, yv, rows, nvec, d, eps, stream);
+    else if (nvec <= 8) launch_group<T, 8>(xv, wv, yv, rows, nvec, d, eps, stream);
+    else if (nvec <= 16) launch_group<T, 16>(xv, wv, yv, rows, nvec, d, eps, stream);
+    else launch_group<T, 32>(xv, wv, yv, rows, nvec, d, eps, stream);
+  } else if (nv == 1) {
+    launch_row<T, 1>(xv, wv, yv, rows, nvec, d, eps, stream);
+  } else if (nv == 2) {
+    launch_row<T, 2>(xv, wv, yv, rows, nvec, d, eps, stream);
+  } else if (nv == 4) {
+    launch_row<T, 4>(xv, wv, yv, rows, nvec, d, eps, stream);
+  } else if (nv == 8) {
+    launch_row<T, 8>(xv, wv, yv, rows, nvec, d, eps, stream);
   } else {
-    rmsnorm_block_kernel<T><<<(unsigned)rows, BLOCK_THREADS, 0, stream>>>(
-        xp, wp, yp, D, eps);
+    const T* xp = static_cast<const T*>(x);
+    const T* wp = static_cast<const T*>(w);
+    T* yp = static_cast<T*>(y);
+    if (D <= 256) {
+      const long long blocks =
+          (rows + WARP_ROWS_PER_BLOCK - 1) / WARP_ROWS_PER_BLOCK;
+      rmsnorm_warp_kernel<T><<<(unsigned)blocks, 32 * WARP_ROWS_PER_BLOCK, 0,
+                               stream>>>(xp, wp, yp, rows, D, eps);
+    } else {
+      rmsnorm_block_kernel<T><<<(unsigned)rows, BLOCK_THREADS, 0, stream>>>(
+          xp, wp, yp, D, eps);
+    }
   }
   return (int)cudaGetLastError();
 }

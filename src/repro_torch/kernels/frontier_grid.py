@@ -14,7 +14,9 @@ each kernel: normal, lognormal, drift, empirical and defective (5 forward,
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the kernel's plain version from ``kernels/ref.py``. Nothing else
-selects the path. The shared library is built with ``nvcc`` for ``sm_90a``
+selects the path. The fused kernel is three launches per call, spread over
+the card by ``autotune.lookup_split`` (``csrc/frontier_grid.cu`` says how).
+The shared library is built with ``nvcc`` for ``sm_90a``
 at the first launch by ``kernels/_cuda.py`` (importing this module needs
 neither ``nvcc`` nor a card), and bound with ``ctypes``. ``LAUNCHES``
 counts the wrappers' kernel launches per mode; :func:`launch_fwd` and
@@ -63,7 +65,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                vp, vp, vp]
     lib.fg_forward.restype = ci
     lib.fg_grad.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci,
-                            vp, vp, vp, vp, vp]
+                            ci, ci, ci, ci, vp, vp, vp, ctypes.c_longlong,
+                            vp]
     lib.fg_grad.restype = ci
     lib.fg_acc_bytes.argtypes = []
     lib.fg_acc_bytes.restype = ci
@@ -165,29 +168,28 @@ def frontier_grid_with_grads(W, mus, sigmas, extra, *, num_t: int = 1024,
 
 def launch_grad(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                 z: float, dist_id: str, param_grads: bool):
-    """One launch of the fused kernel of ``lib`` (a :func:`build` library)
-    on checked CUDA inputs; not counted in ``LAUNCHES``."""
+    """One call of the fused kernel of ``lib`` (a :func:`build` library) on
+    checked CUDA inputs: three launches (pass 1, pass 2, epilogue) in the
+    split of ``autotune.lookup_split``; not counted in ``LAUNCHES``."""
     mode = "pgrad" if param_grads else "grad"
     F, K = W.shape
     th = autotune.lookup(F, K, num_t, mode=mode, dist_id=dist_id)
-    autotune.check_launch(th, num_t, mode, dist_id)
+    split = autotune.lookup_split(F, K, num_t, mode=mode, dist_id=dist_id)
+    autotune.check_launch(th, num_t, mode, dist_id, split)
     dev = W.device
-    mu = torch.empty((F,), dtype=torch.float32, device=dev)
-    var = torch.empty_like(mu)
-    n_out = 8 if param_grads else 2
-    outs = [torch.empty((F, K), dtype=torch.float32, device=dev)
-            for _ in range(n_out)]
-    n_acc = autotune.accumulators(dist_id, param_grads)
+    # three allocations: mu and var, the adjoints, the scratch
+    stats = torch.empty((2, F), dtype=torch.float32, device=dev)
+    outs = torch.empty((8 if param_grads else 2, F, K), dtype=torch.float32,
+                       device=dev)
+    n_scratch = autotune.grad_scratch_elems(F, K, num_t, dist_id,
+                                            param_grads, split)
     acc = torch.float64 if lib.fg_acc_bytes() == 8 else torch.float32
-    scratch = torch.empty((F, n_acc + 1, K), dtype=acc, device=dev)
-    ptrs = (ctypes.c_void_p * 8)(*([o.data_ptr() for o in outs]
-                                   + [0] * (8 - n_out)))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = torch.empty((n_scratch,), dtype=acc, device=dev)
     err = lib.fg_grad(dists.DIST_IDS[dist_id], int(param_grads),
                       W.data_ptr(), mus.data_ptr(), sigmas.data_ptr(),
                       extra.data_ptr(), int(per_row), F, K, num_t, float(z),
-                      th, mu.data_ptr(), var.data_ptr(),
-                      ctypes.cast(ptrs, ctypes.c_void_p), scratch.data_ptr(),
-                      stream)
+                      th, *split, stats.data_ptr(), outs.data_ptr(),
+                      scratch.data_ptr(), n_scratch,
+                      torch._C._cuda_getCurrentRawStream(dev.index))
     _cuda.check(err, f"frontier {mode}")
-    return (mu, var, *outs)
+    return (*stats.unbind(0), *outs.unbind(0))

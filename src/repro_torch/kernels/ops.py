@@ -209,9 +209,10 @@ def decode_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
     return _fd.flash_decode(q, k_cache, v_cache, valid, sm_scale=sm_scale)
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6):
-    """RMSNorm of x (..., D) over its last axis, scaled by w (D,)."""
-    return _rn.rmsnorm(x, w, eps=eps)
+# RMSNorm of x (..., D) over its last axis, scaled by w (D,): the wrapper
+# itself, one Python frame less on a path the model takes ~140 times a
+# forward
+rmsnorm = _rn.rmsnorm
 
 
 def ssd(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,

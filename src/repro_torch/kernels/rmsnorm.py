@@ -6,6 +6,11 @@ of the JAX package's ``kernels/rmsnorm.py``. On a CUDA tensor it launches
 the kernel or raises; on a CPU tensor it runs the plain version,
 ``kernels/ref.rmsnorm_ref``. The library is built at the first launch
 (``kernels/_cuda.py``). ``LAUNCHES`` counts the kernel's launches.
+
+The model calls it ~130-145 times a forward on a few kilobytes to a few
+megabytes each, so the host's path per call counts as much as the
+kernel's: the checks that raise stay, the launcher is looked up once, and
+the current stream is read without building a ``torch.cuda.Stream``.
 """
 from __future__ import annotations
 
@@ -38,35 +43,45 @@ def build() -> ctypes.CDLL:
     return _cuda.build("rmsnorm", ("dtype.cuh",), bind=_bind)
 
 
-def _check_args(x, w):
-    if w.ndim != 1 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
-        raise ValueError(f"rmsnorm takes x (..., D) and w (D,), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _cuda.DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"rmsnorm takes x and w of one dtype in "
-                        f"{list(_cuda.DTYPES)}, got {x.dtype} and {w.dtype}")
-    if w.device != x.device:
-        raise ValueError(f"w is on {w.device}, x on {x.device}")
+# the bound C launcher, looked up at the first launch
+_launch = None
+
+
+def _bound_launcher():
+    global _launch
+    _launch = build().rmsnorm_launch
+    return _launch
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """``(x * rsqrt(mean(x^2, -1) + eps)) * w`` over the last axis."""
-    _check_args(x, w)
-    if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, w, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if w.ndim != 1 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"rmsnorm takes x (..., D) and w (D,), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    code = _cuda.DTYPES.get(x.dtype)
+    if code is None or w.dtype != x.dtype:
+        raise TypeError(f"rmsnorm takes x and w of one dtype in "
+                        f"{list(_cuda.DTYPES)}, got {x.dtype} and {w.dtype}")
+    dev = x.device
+    if w.device != dev:
+        raise ValueError(f"w is on {w.device}, x on {dev}")
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return ref.rmsnorm_ref(x, w, eps=eps)
+        raise ValueError(f"unsupported device {dev}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm's kernel takes contiguous x and w")
     out = torch.empty_like(x)
-    D = x.shape[-1]
+    D = w.shape[0]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = build().rmsnorm_launch(_cuda.DTYPES[x.dtype], x.data_ptr(),
-                                 w.data_ptr(), out.data_ptr(), rows, D,
-                                 float(eps), stream)
-    _cuda.check(err, "rmsnorm")
+    # the current stream's handle, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = (_launch or _bound_launcher())(code, x.data_ptr(), w.data_ptr(),
+                                         out.data_ptr(), rows, D, float(eps),
+                                         stream)
+    if err:
+        raise RuntimeError(f"CUDA rmsnorm launch failed: cudaError {err}")
     LAUNCHES["rmsnorm"] += 1
     return out

@@ -1,4 +1,5 @@
-"""The model kernels on the card against their plain versions.
+"""The model kernels and the split frontier adjoint on the card against
+their plain versions.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU. This file imports
 neither jax nor the JAX package, so it runs on a machine with only the
@@ -195,3 +196,121 @@ def test_ssd_scan_reads_strided_b_c(card):
     got = ssd.ssd_scan(x, dt, A, Bm, Cm, D, chunk=16)
     assert torch.equal(got, ssd.ssd_scan(x, dt, A, Bm.contiguous(),
                                          Cm.contiguous(), D, chunk=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [16, 21, 128, 2560, 4096, 5120, 18432])
+def test_rmsnorm_forms_match_plain(card, dtype, D):
+    # 16-byte vectors in lane groups (D = 16, 128) or in a block fitted to D
+    # (2560 ... 18432, Nemotron-4-340B's d_model), the scalar form for a
+    # row that is no whole number of vectors (D = 21)
+    g = torch.Generator(device=card).manual_seed(8)
+    w = (1.0 + 0.1 * _randn(g, (D,), torch.float32, card)).to(dtype)
+    for rows in (1, 21, 1024):
+        x = 3.0 * _randn(g, (rows, D), dtype, card)
+        n = rn.LAUNCHES["rmsnorm"]
+        got = rn.rmsnorm(x, w)
+        assert rn.LAUNCHES["rmsnorm"] == n + 1
+        _close(got, ref.rmsnorm_ref(x, w))
+        assert torch.equal(rn.rmsnorm(x, w), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_reads_a_view_off_16_bytes(card, dtype):
+    # contiguous views whose storage offset is not a multiple of 16 bytes
+    # take the scalar form and agree with the aligned copy's vector form
+    g = torch.Generator(device=card).manual_seed(9)
+    rows, D = 33, 4096
+    buf = 3.0 * _randn(g, (rows * D + 1,), dtype, card)
+    x = buf[1:].view(rows, D)
+    wbuf = (1.0 + 0.1 * _randn(g, (D + 1,), torch.float32, card)).to(dtype)
+    w = wbuf[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = rn.rmsnorm(x, w)
+    _close(got, ref.rmsnorm_ref(x, w))
+    assert torch.equal(rn.rmsnorm(x, w), got)
+    _close(got, rn.rmsnorm(x.clone(), w.clone()))
+
+
+def _frontier_case(fam, F, K, per_row, seed, dev):
+    """Seeded inputs with edge rows: a zero weight, a zero sigma (channel
+    3), p = 0 (defective, channel 5), argmax ties between channels 0 and 1
+    (rows 2 and 3 where F > 3, the last row where F is 2 or 3)."""
+    import numpy as np
+    from repro_torch.core.distributions import extra_rows
+    rng = np.random.default_rng(seed)
+    W = rng.dirichlet(np.ones(K), F)
+    W[0, 7] = 0.0
+    shape = (F, K) if per_row else (K,)
+    mus = rng.uniform(10.0, 40.0, shape)
+    sgs = mus * rng.uniform(0.02, 0.3, shape)
+    sgs[..., 3] = 0.0
+    mus[..., 1] = mus[..., 0]
+    sgs[..., 1] = sgs[..., 0]
+    if F > 1:
+        tie = slice(2, 4) if F > 3 else slice(F - 1, F)
+        W[tie, 0] = W[tie, 1] = 0.5
+        W[tie, 2:] = 0.0
+    W = W / W.sum(1, keepdims=True)
+    if fam == "drift":
+        ex = rng.uniform(0.0, 0.8, (1,) + shape)
+        ex[:, ..., 1] = ex[:, ..., 0]
+    elif fam == "defective":
+        ex = np.stack([rng.uniform(0.02, 0.3, shape), np.full(shape, 1.0)])
+        ex[0, ..., 5] = 0.0
+        ex[0, ..., 1] = ex[0, ..., 0]
+    elif fam == "empirical":
+        pis = np.moveaxis(rng.dirichlet(np.ones(3), shape), -1, 0)
+        ms = mus[None] * rng.uniform(0.7, 1.3, (3,) + shape)
+        ss = np.maximum(sgs[None], 0.5) * rng.uniform(0.3, 1.0, (3,) + shape)
+        ss[2, ..., 6] = 0.0
+        ex = np.concatenate([pis, ms, ss])
+        ex[:, ..., 1] = ex[:, ..., 0]
+    else:
+        ex = np.zeros((extra_rows(fam),) + shape)
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=dev)
+                 for a in (W, mus, sgs, ex))
+
+
+def _rel_l2(a, b):
+    den = torch.linalg.norm(b.double())
+    num = torch.linalg.norm((a - b).double())
+    return float(num / den) if float(den) > 0 else float(num)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,T", [(1, 1024, 1024), (3, 1024, 1024),
+                                   (256, 128, 256)])
+@pytest.mark.parametrize("fam", ["normal", "lognormal", "drift", "empirical",
+                                 "defective"])
+def test_split_adjoint_matches_plain(card, fam, F, K, T):
+    # the split fused adjoint (grad and pgrad, both statistics layouts)
+    # against its plain version at chip_smoke.py's tolerances: mu rtol =
+    # atol = 1e-4, var rtol 1e-2 / atol 1e-3, adjoints relative L2 1e-4;
+    # a second call repeats the bits
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import frontier_grid as fg
+    for per_row in (False, True):
+        W, mus, sgs, ex = _frontier_case(fam, F, K, per_row, F + K, card)
+        for pg in (False, True):
+            mode = "pgrad" if pg else "grad"
+            split = autotune.lookup_split(F, K, T, mode=mode, dist_id=fam)
+            if F < 4:
+                assert min(autotune.split_blocks(F, K, T, split)) >= 132
+            n = fg.LAUNCHES[mode]
+            got = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                              dist_id=fam, param_grads=pg)
+            assert fg.LAUNCHES[mode] == n + 1
+            want = ref.frontier_grid_with_grads_ref(
+                W, mus, sgs, num_t=T, dist_id=fam, extra=ex, param_grads=pg)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+            for i, (g, w) in enumerate(zip(got[2:], want[2:])):
+                assert bool(torch.isfinite(g).all())
+                assert _rel_l2(g, w) <= 1e-4, (per_row, mode, i,
+                                               _rel_l2(g, w))
+            again = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                                dist_id=fam, param_grads=pg)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -350,6 +350,215 @@ def test_autotune_buckets_modes_and_launch_model():
                            dist_id="defective") == th
     rows = autotune.lookup(4096, 1024, 256, backend="plain", mode="grad")
     assert 1 <= rows < 4096
+    for mode in ("grad", "pgrad"):
+        for fam in td.FAMILIES:
+            split = autotune.pick_split(24, 8, 2048, mode, fam)
+            th = autotune.pick_threads(2048, mode, fam)
+            autotune.check_launch(th, 2048, mode, fam, split)
+            assert autotune.smem_bytes(th, 2048, mode, fam, split) \
+                <= autotune.smem_bytes(th, 2048, mode, fam)
+    with pytest.raises(ValueError):
+        autotune.pick_split(8, 4, 256, "fwd", "normal")
+
+
+# the launch shapes of one balancer refresh at K=1024 (PGD steps, and
+# sensitivity at F=3 and F=1) and of the fleet tick
+REFRESH_SHAPES = ((3, 1024, 1024), (1, 1024, 1024))
+FLEET_TICK = (4096, 1024, 256)
+
+
+@pytest.mark.parametrize("mode", ["grad", "pgrad"])
+@pytest.mark.parametrize("fam", td.FAMILIES)
+def test_split_spreads_a_refresh_over_the_card(fam, mode):
+    for F, K, T in REFRESH_SHAPES:
+        split = autotune.pick_split(F, K, T, mode, fam)
+        blocks = autotune.split_blocks(F, K, T, split)
+        assert min(blocks) >= autotune.TARGET_BLOCKS == 132, (F, blocks)
+        autotune.check_launch(autotune.pick_threads(T, mode, fam), T, mode,
+                              fam, split)
+    # where F alone fills the card, one block per row in every launch
+    F, K, T = FLEET_TICK
+    split = autotune.pick_split(F, K, T, mode, fam)
+    assert autotune.split_blocks(F, K, T, split) == (F, F, F)
+    assert split == (T, T, K, K)
+
+
+def test_split_depends_on_the_shape_alone():
+    # a pure function of (F, K, T, mode, family): every row count from 1 to
+    # 300 gives the same split twice, and more rows never a narrower one
+    last = None
+    for F in range(1, 301):
+        a = autotune.pick_split(F, 1024, 1024, "grad", "normal")
+        assert a == autotune.pick_split(F, 1024, 1024, "grad", "normal")
+        if last is not None:
+            assert all(x >= y for x, y in zip(a, last))
+        last = a
+    n = autotune.grad_scratch_elems(3, 1024, 1024, "defective", True,
+                                    autotune.pick_split(3, 1024, 1024,
+                                                        "pgrad", "defective"))
+    # rows (4), tiles (2 x 64), w F (1024), parts (2 x 16 x 4), accumulators
+    # (16 chunks x 6 x 1024) per row
+    assert n == 3 * (4 + 128 + 1024 + 128 + 16 * 6 * 1024)
+
+
+def test_autotune_key_version_is_v3():
+    autotune.clear_cache()
+    autotune.lookup(3, 1024, 1024, mode="grad")
+    autotune.lookup_split(3, 1024, 1024, mode="grad")
+    keys = sorted(autotune.cache_state())
+    assert autotune._KEY_VERSION == "v3"
+    assert keys == ["v3:cuda:T1024:modegrad:famnormal",
+                    "v3:split:F3:K1024:T1024:modegrad:famnormal"]
+    autotune.clear_cache()
+
+
+def test_cache_state_round_trip_restores_the_split():
+    autotune.clear_cache()
+    split = autotune.lookup_split(3, 1024, 1024, mode="pgrad",
+                                  dist_id="lognormal")
+    state = autotune.cache_state()
+    (key,) = [k for k in state if ":split:" in k]
+    assert state[key]["value"] == list(split)
+    # a checkpoint written with another split restores that split, so the
+    # restored process sums in the checkpointed order
+    state[key]["value"] = [8, 32, 512, 64]
+    autotune.clear_cache()
+    autotune.load_cache_state(state)
+    assert autotune.lookup_split(3, 1024, 1024, mode="pgrad",
+                                 dist_id="lognormal") == (8, 32, 512, 64)
+    assert autotune.cache_state() == state
+    autotune.clear_cache()
+    assert autotune.lookup_split(3, 1024, 1024, mode="pgrad",
+                                 dist_id="lognormal") == split
+    autotune.clear_cache()
+
+
+def test_check_launch_refuses_a_split_over_the_smem_limit():
+    split = autotune.pick_split(3, 1024, 4096, "grad", "empirical")
+    th = autotune.pick_threads(4096, "grad", "empirical")
+    autotune.check_launch(th, 4096, "grad", "empirical", split)
+    # pass 2 stages 20 bytes per grid point of its chunk: 16384 points are
+    # 327680 bytes, over the 232448 a block may use
+    wide = split._replace(t_chunk=16384)
+    with pytest.raises(ValueError, match="shared memory"):
+        autotune.check_launch(512, 16384, "grad", "empirical", wide)
+    with pytest.raises(ValueError, match="power of two"):
+        autotune.check_launch(th, 4096, "grad", "empirical",
+                              split._replace(points=24))
+    with pytest.raises(ValueError, match="chunks"):
+        autotune.check_launch(th, 4096, "grad", "empirical",
+                              split._replace(k_chunk=0))
+
+
+def _split_adjoint_f64(W, mus, sgs, ex, T, fam, params, split):
+    """A float64 model in plain torch of the split adjoint's summation
+    order (``csrc/frontier_grid.cu``): per-channel terms as
+    ``ref.frontier_grid_with_grads_ref`` forms them, every sum cut into the
+    pieces the split cuts it into and the pieces added in index order (log
+    F by channel slice, the trapezoid sums by pass-1 tile, the accumulators
+    by pass-2 grid chunk, S_mu and S_var by (grid chunk, channel chunk)).
+    Returns mu, m2 - mu^2 and the adjoints of the ref's order, all float64
+    and unrounded."""
+    points, t_chunk, k_chunk, _ = split
+    mode = "pgrad" if params else "grad"
+    slices = autotune.pick_threads(T, mode, fam) // points
+    K = W.shape[1]
+    means, stds = td.family_effective_moments(fam, W, mus, sgs, ex)
+    reach = means + 10.0 * stds
+    amax = torch.amax(reach, -1)
+    tmax = torch.clamp_min(amax, 1e-12)
+    ts = tmax[:, None] * ref.time_fractions(T, W.device)[None, :]
+    mus_b, sgs_b, ex_b = ref._stat_bcast(mus, sgs, ex)
+    cdf_raw, D, ok, zsc = td.family_adjoint_parts(
+        fam, ts[:, :, None], W[:, None, :], mus_b, sgs_b, ex_b)
+    cdf = torch.where(ok, cdf_raw,
+                      td.point_mass_cdf(ts[:, :, None], means[:, None, :]))
+    Cc = torch.clamp(cdf, ref.CDF_FLOOR, 1.0)
+    logc = torch.log(Cc).double()
+    logF = sum(logc[..., q::slices].sum(-1) for q in range(slices))
+    wq = ref._trapezoid_weights(T, W.device)
+    Fj = torch.exp(logF)
+    t64 = ts.double()
+    tiles = range(0, T, points)
+    s1 = sum((wq * (1.0 - Fj))[:, j:j + points].sum(-1) for j in tiles)
+    s2 = sum((wq * t64 * (1.0 - Fj))[:, j:j + points].sum(-1) for j in tiles)
+    dt = tmax.double() / (T - 1)
+    mu = s1 * dt
+    var_raw = 2.0 * s2 * dt - mu * mu
+    gate = (torch.where(cdf_raw >= 1.0, 0.5, 1.0)
+            * (cdf_raw > ref.CDF_FLOOR) * ok)
+    a = ((wq * Fj).float()[:, :, None] * (gate * D / Cc)).double()
+    tmu = (t64 - mu[:, None])[:, :, None]
+    use_1, use_t, use_z = td.family_features(fam, params=params)
+    zero = torch.zeros_like(a)
+    basis = (a if use_1 else zero, a * t64[:, :, None] if use_t else zero,
+             a * zsc.double() if use_z else zero)
+    chunks = [slice(j, j + t_chunk) for j in range(0, T, t_chunk)]
+    P_c = [[x[:, c].sum(1) for x in basis] for c in chunks]
+    Pv_c = [[(x[:, c] * tmu[:, c]).sum(1) for x in basis] for c in chunks]
+    _, _, g0, g1 = (c.double() for c in td.family_coeffs(fam, W, mus, sgs,
+                                                         ex))
+    kcs = [slice(k, k + k_chunk) for k in range(0, K, k_chunk)]
+    S_mu = sum((g0 * P[0] + g1 * P[1])[:, kc].sum(-1)
+               for P in P_c for kc in kcs)
+    S_var = sum((g0 * Pv[0] + g1 * Pv[1])[:, kc].sum(-1)
+                for Pv in Pv_c for kc in kcs)
+    P = [sum(Pc[i] for Pc in P_c) for i in range(3)]
+    Pv = [sum(Pc[i] for Pc in Pv_c) for i in range(3)]
+    tmx = tmax.double()
+    b_mu = (mu - dt * S_mu) / tmx
+    b_var = 2.0 * (var_raw - dt * S_var) / tmx
+    ind = (reach == amax[:, None]).double()
+    tie = ind / ind.sum(-1, keepdim=True) * (amax > 1e-12)[:, None]
+
+    def contract(coeffs, dreach):
+        c = [torch.as_tensor(x).double() for x in coeffs]
+        gvec = dreach.double() * tie
+        dmu = (-dt[:, None] * sum(ci * Pi for ci, Pi in zip(c, P))
+               + b_mu[:, None] * gvec)
+        dvar = torch.where(
+            (var_raw > 0.0)[:, None],
+            -2.0 * dt[:, None] * sum(ci * Pi for ci, Pi in zip(c, Pv))
+            + b_var[:, None] * gvec, 0.0)
+        return dmu, dvar
+
+    al, be, _, _ = td.family_coeffs(fam, W, mus, sgs, ex)
+    out = [mu, var_raw,
+           *contract((al, be, 0.0), td.family_dreach(fam, W, mus, sgs, ex,
+                                                     10.0))]
+    if params:
+        cm, cs, ce = td.family_param_coeffs(fam, W, mus, sgs, ex)
+        dm, ds, de = td.family_dreach_params(fam, W, mus, sgs, ex, 10.0)
+        out += [*contract(cm, dm), *contract(cs, ds)]
+        out += (contract(ce, de) if td.family_has_extra_grads(fam)
+                else [torch.zeros_like(mu[:, None] * W)] * 2)
+    return out
+
+
+@pytest.mark.parametrize("params", [False, True], ids=["grad", "pgrad"])
+@pytest.mark.parametrize("fam", ["normal", "defective"])
+def test_split_summation_order_matches_the_unsplit_sums(fam, params):
+    # at a refresh's shape (F=3, K=1024, T=1024) the split's order of every
+    # float64 sum agrees with one tile, one chunk and one slice to 1e-12
+    # relative (L2 per output), and that unsplit model, rounded to float32,
+    # is the plain version
+    W, mus, sgs, ex = _t(*_case(fam, False, seed=5, F=3, K=1024))
+    T = 1024
+    mode = "pgrad" if params else "grad"
+    split = autotune.pick_split(3, 1024, T, mode, fam)
+    assert split.points < T and split.t_chunk < T
+    got = _split_adjoint_f64(W, mus, sgs, ex, T, fam, params, split)
+    threads = autotune.pick_threads(T, mode, fam)
+    whole = autotune.GradSplit(threads, T, 1024, 1024)
+    want = _split_adjoint_f64(W, mus, sgs, ex, T, fam, params, whole)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _rel_l2(g.numpy(), w.numpy()) <= 1e-12, (i, _rel_l2(g, w))
+    plain = ref.frontier_grid_with_grads_ref(W, mus, sgs, num_t=T,
+                                             dist_id=fam, extra=ex,
+                                             param_grads=params)
+    want[1] = torch.clamp_min(want[1], 0.0)
+    for i, (w, p) in enumerate(zip(want, plain)):
+        assert _rel_l2(w.float().numpy(), p.numpy()) <= 1e-6, i
 
 
 @pytest.mark.cuda
