@@ -16,7 +16,8 @@ Phases, in order:
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
    argmax tie), one case at T=2048, and the launch shapes of one balancer
-   refresh at K=1024 (``MAIN_PATH``), each also timed.
+   refresh at K=1024 (``MAIN_PATH``), each also timed (event pair, device
+   and host time per call) with the blocks of each launch of one call.
 4. ``tick``   — the fleet tick, K=1024 channels, F=4096 candidates, T=256:
    kernel against plain, and their times, for fwd, grad and pgrad, three
    families.
@@ -30,8 +31,9 @@ Phases, in order:
    3x at tick 20, with policy "frontier", "equal", and "frontier" with
    adaptive refresh and risk_lam=0.5. Launch counters are zeroed before and
    read after; every mode must have launched.
-7. ``profile`` — one warm balancer refresh at K=1024 on the host clock and
-   under torch.profiler: device time by kernel and the busy share.
+7. ``profile`` — warm balancer refreshes at K=1024 on the host clock (the
+   median of five) and one under torch.profiler: device time by kernel,
+   the busy share, and the fused adjoint's device time per call.
 8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
 9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
@@ -52,7 +54,7 @@ Phases, in order:
    versions. Launch counters are zeroed before the batches and read after;
    every model kernel and the frontier grad kernel must have launched; two
    generate calls on one batch must agree. One group's generate is
-   profiled, with the device time of flash_attention and flash_decode.
+   profiled, with the device time of each model kernel.
 11. ``ssmserve`` — the same serving path with full-width Mamba2-2.7B (64
    mamba layers, bf16, seeded weights on the card). On 2 x 300 tokens
    (three chunks, the last ragged) and 4 more: every layer on its own input
@@ -72,7 +74,11 @@ Phases, in order:
    B=8, decode S=2048 at B=32), beside its bound, its plain version (where
    it fits) and the yardstick PyTorch call (scaled_dot_product_attention,
    rms_norm; none computes the SSD scan), which the port never calls, with
-   kernel over bound and kernel over library. The attention kernels are
+   kernel over bound and kernel over library (kernel and library timed
+   in turns: kernel, library, library, kernel). rmsnorm runs at every norm
+   shape of both serving paths (Qwen3-8B prefill and decode, Mamba2-2.7B),
+   held against its plain version, with device and host time per call
+   beside ``F.rms_norm``'s. The attention kernels are
    held against their plain versions at LM_TOL at the middle shapes and at
    decode_32k (once more there with its first split invalid), and at the
    path's shapes their device time per call under torch.profiler (no
@@ -335,8 +341,11 @@ def _call_blocks(mode, F, K, T, fam):
         F, K, T, autotune.lookup_split(F, K, T, mode=mode, dist_id=fam)))
 
 
-def _time_cuda(fn, reps=7, warm=2):
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+def _time_cuda(fn, reps=7, warm=2, per_pair=1):
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events; with
+    ``per_pair`` > 1 each pair of events brackets that many back-to-back
+    calls and the time is per call (the host's launch path then overlaps
+    the device's work instead of adding to it)."""
     import torch
     for _ in range(warm):
         fn()
@@ -346,10 +355,11 @@ def _time_cuda(fn, reps=7, warm=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per_pair):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per_pair)
     times.sort()
     return times[len(times) // 2]
 
@@ -556,11 +566,15 @@ def phase_loop(ctx):
         raise AssertionError("the frontier policy did not beat equal split")
 
 
+# warm refreshes timed on the host clock in phase_profile
+PROFILE_REFRESHES = 5
+
+
 def phase_profile(ctx):
-    """Where one balancer refresh at K=1024 spends its time: a warm-started
-    solve timed on the host clock, then the same solve under torch.profiler
-    for the device time by kernel; busy share = device time / untraced
-    wall time."""
+    """Where one balancer refresh at K=1024 spends its time: warm-started
+    solves timed on the host clock (the median of PROFILE_REFRESHES), then
+    one under torch.profiler for the device time by kernel; busy share =
+    device time / the median untraced wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -579,9 +593,13 @@ def phase_profile(ctx):
         bal.observe(d, w)
 
     refresh()   # cold solve: no warm start yet
-    t0 = time.perf_counter()
-    refresh()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
+    walls = []
+    for _ in range(PROFILE_REFRESHES):
+        t0 = time.perf_counter()
+        refresh()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    walls.sort()
+    wall_ms = walls[len(walls) // 2]
     grads = fg.LAUNCHES["grad"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -603,13 +621,15 @@ def phase_profile(ctx):
     prof.export_chrome_trace(os.path.join(OUT_DIR, "refresh_trace.json"))
     busy = dev_ms / wall_ms if dev_ms > 0 else None
     per_grad = grad_ms / grads if grads and grad_ms > 0 else None
-    ctx["profile"] = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+    ctx["profile"] = {"wall_ms": wall_ms, "wall_ms_each": walls,
+                      "traced_wall_ms": traced_ms,
                       "device_ms": dev_ms if dev_ms > 0 else None,
                       "busy_share": busy, "grad_calls": grads,
                       "grad_device_ms_per_call": per_grad,
                       "top": [{"name": n, "ms": ms} for n, ms in top]}
-    log(f"[profile] one refresh at K={K}: wall {wall_ms:.2f} ms (traced "
-        f"{traced_ms:.2f} ms), device "
+    log(f"[profile] one refresh at K={K}: wall {wall_ms:.2f} ms (median of "
+        f"{len(walls)}: " + " ".join(f"{w:.2f}" for w in walls)
+        + f"; traced {traced_ms:.2f} ms), device "
         + (f"{dev_ms:.2f} ms, busy share {busy:.3f}" if busy is not None
            else "time not measured (the profiler saw no device time)"))
     log(f"[profile] fused adjoint: {grads} grad calls, device "
@@ -1318,17 +1338,27 @@ def phase_lmtick(ctx):
     rows, fails = [], []
 
     def tick(kernel, shape, run, plain, library, bound, plain_bytes,
-             reps=7, plain_reps=5, check=False, device_time=False):
+             reps=7, plain_reps=5, check=False, device_time=False,
+             per_pair=1):
         """``library`` None: no PyTorch call computes the function.
         ``check``: hold the kernel's output against the plain version's at
         LM_TOL first. ``device_time``: also the device time per call under
         torch.profiler, without the launch path, and the host time per
-        call, the launch path alone, for kernel and library."""
+        call, the launch path alone, for kernel and library. ``per_pair``:
+        calls between the events of each pair, for kernel and library."""
         err = _agree(kernel, shape, run, plain, fails) if check else None
-        ms = _time_cuda(run, reps=reps)
+        if library is not None:
+            # in turns (kernel, library, library, kernel), each the mean of
+            # its two medians, so a drift of the card's or host's state
+            # between the two weighs on both
+            t = [_time_cuda(f, reps=reps, per_pair=per_pair)
+                 for f in (run, library, library, run)]
+            ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        else:
+            ms = _time_cuda(run, reps=reps, per_pair=per_pair)
+            lib_ms = None
         plain_ms = (_time_cuda(plain, reps=plain_reps, warm=1)
                     if _fits(plain_bytes) else None)
-        lib_ms = _time_cuda(library, reps=7) if library is not None else None
         dev_ms = _device_ms(run) if device_time else None
         lib_dev_ms = (_device_ms(library) if device_time and library
                       is not None else None)
@@ -1402,8 +1432,12 @@ def phase_lmtick(ctx):
            lambda: ref.decode_attention_ref(q, k, v, valid), fails)
     del q, k, v, valid
     torch.cuda.empty_cache()
-    # rmsnorm: every norm shape of the two serving paths (device and host
-    # time per call beside F.rms_norm's), then 32768 rows of 4096
+    # rmsnorm: every norm shape of the two serving paths, then 32768 rows
+    # of 4096, each with device and host time per call beside F.rms_norm's.
+    # At the path's shapes an event pair around one call reads the host's
+    # launch path (a few microseconds of device work): 21 pairs each. At
+    # 32768 x 4096 (~0.2 ms) one call's launch path would add ~10% to it:
+    # each pair there brackets 10 calls.
     for tag, R, D in NORM_TICKS:
         x, w = _norm_inputs(R, D, bf, 92)
         tick("rmsnorm", f"{tag} ({R}, {D})",
@@ -1411,8 +1445,9 @@ def phase_lmtick(ctx):
              lambda: ref.rmsnorm_ref(x, w, eps=1e-6),
              lambda: F.rms_norm(x, (D,), w, 1e-6),
              _roof(2 * (2 * R * D + D), 4 * R * D / FP32_OPS_PER_S),
-             plain_bytes=4 * 3 * R * D, check=True,
-             device_time=tag.startswith("path"))
+             plain_bytes=4 * 3 * R * D, check=True, device_time=True,
+             reps=21 if tag.startswith("path") else 7,
+             per_pair=1 if tag.startswith("path") else 10)
     # ssd_scan at Mamba2-2.7B's H, P, G, N and chunk: the path (one group's
     # prefill, 32 prompts of 16 tokens: one chunk of 16), prefill_32k's
     # S = 32768 with B cut from 32 to 8, and long_500k's S = 524288 at its

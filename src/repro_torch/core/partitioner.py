@@ -75,18 +75,37 @@ def optimize_2ch(mu_i, sigma_i, mu_j, sigma_j, lam: float = 0.0,
                              method="grid-2ch")
 
 
+# (1..k as v's dtype, 0..k-1) per (k, dtype, device): the projection runs
+# once per PGD step, and on the card each arange is a launch
+_RANKS: dict = {}
+
+
+def _ranks(k: int, dtype, device):
+    key = (k, dtype, device)
+    if key not in _RANKS:
+        _RANKS[key] = (torch.arange(1, k + 1, dtype=dtype, device=device),
+                       torch.arange(k, device=device))
+    return _RANKS[key]
+
+
 def _project_simplex(v: torch.Tensor) -> torch.Tensor:
     """Euclidean projection of each row of v onto the probability simplex
-    (Held et al.)."""
+    (Held et al.): theta = (sum of the rho + 1 largest - 1) / (rho + 1) for
+    the last rank rho where the sorted value exceeds its running term.
+    Written in ten tensor operations (the projection runs once per PGD
+    step, and on the card the host's launch path sets a step's pace): the
+    running terms q_j = (cumsum_j - 1) / j are formed once, u > q stands for
+    u - q > 0 (a float difference is zero only for equal operands) and theta
+    is gathered from q."""
     k = v.shape[-1]
     u = torch.sort(v, dim=-1, descending=True).values
-    css = torch.cumsum(u, dim=-1) - 1.0
-    idx = torch.arange(1, k + 1, dtype=v.dtype, device=v.device)
-    cond = u - css / idx > 0
-    pos = torch.arange(k, device=v.device).expand_as(cond)
-    rho = torch.amax(torch.where(cond, pos, -1), dim=-1, keepdim=True)
-    theta = torch.gather(css, -1, rho) / (rho + 1.0)
-    return torch.clamp_min(v - theta, 0.0)
+    idx, pos = _ranks(k, v.dtype, v.device)
+    q = torch.cumsum(u, dim=-1).sub_(1.0).div_(idx)
+    cond = u > q
+    rho = torch.amax(torch.where(cond, pos.expand_as(cond), -1), dim=-1,
+                     keepdim=True)
+    theta = torch.gather(q, -1, rho)
+    return (v - theta).clamp_min_(0.0)
 
 
 def _pgd_multi(W0, mus, sigmas, extra, lam: float, steps: int, num_t: int,
@@ -100,12 +119,14 @@ def _pgd_multi(W0, mus, sigmas, extra, lam: float, steps: int, num_t: int,
         _, _, dmu, dvar = ops.frontier_moments_with_grads(
             W, mus, sigmas, num_t=num_t, device=device,
             family=(dist_id, extra))
-        g = dmu + lam32 * dvar
-        g = g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-12)
+        # in place on the step's own outputs: the same operations, fewer
+        # allocations on the host's path
+        g = dmu.add_(dvar.mul_(lam32))
+        g = g.div_(torch.linalg.norm(g, dim=-1, keepdim=True).add_(1e-12))
         ang = np.float32(math.pi) * np.float32(i) / np.float32(steps)
         step = np.float32(lr) * np.float32(0.5) * (np.float32(1.0)
                                                     + np.cos(ang))
-        W = _project_simplex(W - float(step) * g)
+        W = _project_simplex(W - g.mul_(float(step)))
     return W
 
 

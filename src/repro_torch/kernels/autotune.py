@@ -40,7 +40,7 @@ later work.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 from ..core.distributions import EMP_COMPONENTS, extra_rows, family_features
 
@@ -49,7 +49,7 @@ __all__ = ["ROW_BUCKETS", "MODES", "MAX_THREADS", "MAX_POINTS_PER_THREAD",
            "bucket_rows", "accumulators", "smem_bytes", "pick_threads",
            "pick_split", "split_blocks", "grad_scratch_elems",
            "pick_block_rows", "check_launch", "lookup", "lookup_split",
-           "clear_cache", "cache_state", "load_cache_state"]
+           "grad_plan", "clear_cache", "cache_state", "load_cache_state"]
 
 # serving row-count buckets: a stacked launch pads its row axis up to one
 ROW_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048,
@@ -79,6 +79,9 @@ PLAIN_CHUNK_BYTES = 1 << 30
 
 _KEY_VERSION = "v3"
 _CACHE: Dict[str, dict] = {}
+# checked launch plans of the fused adjoint (grad_plan), derived from
+# _CACHE and dropped whenever it is cleared or restored
+_PLANS: Dict[tuple, tuple] = {}
 
 
 def _check_mode(mode: str) -> None:
@@ -141,7 +144,7 @@ def _widest(n: int, units: int, top: int, bottom: int) -> int:
 
 
 def smem_bytes(threads: int, num_t: int, mode: str, dist_id: str,
-               split: GradSplit = None) -> int:
+               split: Optional[GradSplit] = None) -> int:
     """Dynamic shared memory of one block: the forward kernel's tile of
     per-channel constants; for the fused adjoint the larger of pass 1's
     (the tile and one float64 per thread) and pass 2's (t - mu in float64,
@@ -159,7 +162,7 @@ def smem_bytes(threads: int, num_t: int, mode: str, dist_id: str,
 
 
 def check_launch(threads: int, num_t: int, mode: str, dist_id: str,
-                 split: GradSplit = None) -> None:
+                 split: Optional[GradSplit] = None) -> None:
     """Raise unless ``threads`` (and, for the fused adjoint, ``split``) is a
     launch the kernels accept for ``num_t`` grid points."""
     if threads % 32 or not 32 <= threads <= MAX_THREADS:
@@ -289,9 +292,27 @@ def lookup_split(F: int, K: int, num_t: int, mode: str = "grad",
     return split
 
 
+def grad_plan(F: int, K: int, num_t: int, mode: str,
+              dist_id: str) -> Tuple[int, GradSplit, int]:
+    """``(threads, split, scratch accumulators)`` of one fused-adjoint call
+    from :func:`lookup` and :func:`lookup_split`, held to the card's limits
+    by :func:`check_launch`; kept until the cache is cleared or restored,
+    so a PGD step pays a dictionary lookup for it."""
+    key = (F, K, num_t, mode, dist_id)
+    plan = _PLANS.get(key)
+    if plan is None:
+        threads = lookup(F, K, num_t, mode=mode, dist_id=dist_id)
+        split = lookup_split(F, K, num_t, mode=mode, dist_id=dist_id)
+        check_launch(threads, num_t, mode, dist_id, split)
+        plan = _PLANS[key] = (threads, split, grad_scratch_elems(
+            F, K, num_t, dist_id, mode == "pgrad", split))
+    return plan
+
+
 def clear_cache() -> None:
     """Drop the in-process cache."""
     _CACHE.clear()
+    _PLANS.clear()
 
 
 def cache_state() -> dict:
@@ -303,3 +324,4 @@ def load_cache_state(state: dict) -> None:
     """Restore a :func:`cache_state` snapshot."""
     for k, v in state.items():
         _CACHE[k] = dict(v)
+    _PLANS.clear()

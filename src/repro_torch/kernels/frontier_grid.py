@@ -70,6 +70,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fg_grad.restype = ci
     lib.fg_acc_bytes.argtypes = []
     lib.fg_acc_bytes.restype = ci
+    # the scratch's element type: float64, or float32 in a -DFG_ACC=float
+    # build
+    lib.acc_dtype = (torch.float64 if lib.fg_acc_bytes() == 8
+                     else torch.float32)
 
 
 def _prepare(W, mus, sigmas, extra, dist_id: str, num_t: int):
@@ -170,21 +174,16 @@ def launch_grad(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                 z: float, dist_id: str, param_grads: bool):
     """One call of the fused kernel of ``lib`` (a :func:`build` library) on
     checked CUDA inputs: three launches (pass 1, pass 2, epilogue) in the
-    split of ``autotune.lookup_split``; not counted in ``LAUNCHES``."""
+    split of ``autotune.grad_plan``; not counted in ``LAUNCHES``."""
     mode = "pgrad" if param_grads else "grad"
     F, K = W.shape
-    th = autotune.lookup(F, K, num_t, mode=mode, dist_id=dist_id)
-    split = autotune.lookup_split(F, K, num_t, mode=mode, dist_id=dist_id)
-    autotune.check_launch(th, num_t, mode, dist_id, split)
+    th, split, n_scratch = autotune.grad_plan(F, K, num_t, mode, dist_id)
     dev = W.device
     # three allocations: mu and var, the adjoints, the scratch
     stats = torch.empty((2, F), dtype=torch.float32, device=dev)
     outs = torch.empty((8 if param_grads else 2, F, K), dtype=torch.float32,
                        device=dev)
-    n_scratch = autotune.grad_scratch_elems(F, K, num_t, dist_id,
-                                            param_grads, split)
-    acc = torch.float64 if lib.fg_acc_bytes() == 8 else torch.float32
-    scratch = torch.empty((n_scratch,), dtype=acc, device=dev)
+    scratch = torch.empty((n_scratch,), dtype=lib.acc_dtype, device=dev)
     err = lib.fg_grad(dists.DIST_IDS[dist_id], int(param_grads),
                       W.data_ptr(), mus.data_ptr(), sigmas.data_ptr(),
                       extra.data_ptr(), int(per_row), F, K, num_t, float(z),

@@ -50,11 +50,24 @@ __all__ = ["frontier_moments", "frontier_moments_with_grads",
            "ssd"]
 
 
+def _as_f32(x, device: torch.device):
+    """``x`` as a float32 tensor on ``device``. A tensor already there is
+    returned as it is, without a dispatch: the PGD loop passes the same
+    tensors every step, and on the card each ``as_tensor`` costs the host
+    several microseconds."""
+    if isinstance(x, torch.Tensor) and x.dtype is torch.float32:
+        here = x.device
+        if here == device or (here.type == device.type == "cuda"
+                              and device.index is None
+                              and here.index == torch.cuda.current_device()):
+            return x
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
 def _resolve_family(family, K: int, device):
     """Lower a family spec to (dist_id, float32 extra tensor on device)."""
     dist_id, extra = resolve_family(family, K)
-    return dist_id, torch.as_tensor(extra, dtype=torch.float32,
-                                    device=device)
+    return dist_id, _as_f32(extra, torch.device(device))
 
 
 def _stack_extra(extra, F: int):
@@ -157,9 +170,7 @@ class _FrontierMoments(torch.autograd.Function):
 
 def _inputs(W, mus, sigmas, family, device):
     dev = resolve_device(device)
-    W = torch.as_tensor(W, dtype=torch.float32, device=dev)
-    mus = torch.as_tensor(mus, dtype=torch.float32, device=dev)
-    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=dev)
+    W, mus, sigmas = (_as_f32(x, dev) for x in (W, mus, sigmas))
     dist_id, extra = _resolve_family(family, W.shape[1], dev)
     if mus.ndim == 2:
         extra = _stack_extra(extra, W.shape[0])
@@ -209,10 +220,9 @@ def decode_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
     return _fd.flash_decode(q, k_cache, v_cache, valid, sm_scale=sm_scale)
 
 
-# RMSNorm of x (..., D) over its last axis, scaled by w (D,): the wrapper
-# itself, one Python frame less on a path the model takes ~140 times a
-# forward
-rmsnorm = _rn.rmsnorm
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """RMSNorm of x (..., D) over its last axis, scaled by w (D,)."""
+    return _rn.rmsnorm(x, w, eps=eps)
 
 
 def ssd(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,

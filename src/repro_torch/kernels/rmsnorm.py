@@ -53,35 +53,45 @@ def _bound_launcher():
     return _launch
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6):
-    """``(x * rsqrt(mean(x^2, -1) + eps)) * w`` over the last axis."""
+def _check_args(x, w):
     if w.ndim != 1 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"rmsnorm takes x (..., D) and w (D,), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    code = _cuda.DTYPES.get(x.dtype)
-    if code is None or w.dtype != x.dtype:
+    if x.dtype not in _cuda.DTYPES or w.dtype != x.dtype:
         raise TypeError(f"rmsnorm takes x and w of one dtype in "
                         f"{list(_cuda.DTYPES)}, got {x.dtype} and {w.dtype}")
-    dev = x.device
-    if w.device != dev:
-        raise ValueError(f"w is on {w.device}, x on {dev}")
-    if dev.type != "cuda":
-        if dev.type == "cpu":
-            return ref.rmsnorm_ref(x, w, eps=eps)
-        raise ValueError(f"unsupported device {dev}")
-    if not (x.is_contiguous() and w.is_contiguous()):
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if x.device.type == "cuda" and not (x.is_contiguous()
+                                        and w.is_contiguous()):
         raise ValueError("rmsnorm's kernel takes contiguous x and w")
-    out = torch.empty_like(x)
-    D = w.shape[0]
-    rows = x.numel() // D if D else 0
-    if rows == 0:
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """``(x * rsqrt(mean(x^2, -1) + eps)) * w`` over the last axis."""
+    # the card's path first: the same checks as _check_args, each a cheap
+    # test that sends any failure to _check_args for its message
+    if x.is_cuda:
+        code = _cuda.DTYPES.get(x.dtype)
+        dev = x.get_device()
+        if (x.shape[-1:] != w.shape or code is None or w.dtype is not x.dtype
+                or w.get_device() != dev
+                or not (x.is_contiguous() and w.is_contiguous())):
+            _check_args(x, w)
+        out = torch.empty_like(x)
+        D = w.shape[0]
+        rows = x.numel() // D if D else 0
+        if rows == 0:
+            return out
+        # the current stream's handle, without building a torch.cuda.Stream
+        err = (_launch or _bound_launcher())(
+            code, x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D,
+            float(eps), torch._C._cuda_getCurrentRawStream(dev))
+        if err:
+            raise RuntimeError(f"CUDA rmsnorm launch failed: cudaError {err}")
+        LAUNCHES["rmsnorm"] += 1
         return out
-    # the current stream's handle, without building a torch.cuda.Stream
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    err = (_launch or _bound_launcher())(code, x.data_ptr(), w.data_ptr(),
-                                         out.data_ptr(), rows, D, float(eps),
-                                         stream)
-    if err:
-        raise RuntimeError(f"CUDA rmsnorm launch failed: cudaError {err}")
-    LAUNCHES["rmsnorm"] += 1
-    return out
+    _check_args(x, w)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return ref.rmsnorm_ref(x, w, eps=eps)
