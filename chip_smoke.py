@@ -15,9 +15,13 @@ Phases, in order:
 3. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
-   argmax tie), one case at T=2048, and the launch shapes of one balancer
-   refresh at K=1024 (``MAIN_PATH``), each also timed (event pair, device
-   and host time per call) with the blocks of each launch of one call.
+   argmax tie), one case at T=2048, grids past 4096 points (F=3, K=1024,
+   T=8192 and 16384, normal and lognormal, all three modes), and the
+   launch shapes of one balancer refresh at K=1024 (``MAIN_PATH``), each
+   also timed (event pair, device and host time per call) with the blocks
+   of each launch of one call (the forward split: pass 1 and an epilogue;
+   the adjoint: pass 1, pass 2, epilogue). Every case runs twice and must
+   repeat its bits.
 4. ``tick``   — the fleet tick, K=1024 channels, F=4096 candidates, T=256:
    kernel against plain, and their times, for fwd, grad and pgrad, three
    families.
@@ -33,7 +37,8 @@ Phases, in order:
    read after; every mode must have launched.
 7. ``profile`` — warm balancer refreshes at K=1024 on the host clock (the
    median of five) and one under torch.profiler: device time by kernel,
-   the busy share, and the fused adjoint's device time per call.
+   the busy share, and the device time per call of the fused adjoint and
+   of the forward split.
 8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
 9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
@@ -41,9 +46,11 @@ Phases, in order:
    run twice (bitwise-equal): causal, window, GQA, rectangular, ragged and
    Qwen3-8B's own shapes; attention at D = 64, 80, 128 and 192, Nemotron-4-
    340B's layer (Hq 96, Hkv 8, D 192) cut in B and S, short prompts packed
-   by kv group (groups of 3, 4 and 12); decode with one and several splits,
-   whole splits invalid, S = 4096; for ssd_scan y and the final state at ragged S,
-   S >= 1024, G = 2, chunks of 16/64/128 and Mamba2-2.7B's own shapes; dead
+   by kv group (groups of 3, 4 and 12), DeepSeek-V2-Lite's MLA prefill
+   (16 heads, q and k of 192, v of 128); decode with one and several
+   splits, whole splits invalid, S = 4096; for ssd_scan y and the final
+   state at ragged S, S >= 1024, G = 2, chunks of 16/64/128 and
+   Mamba2-2.7B's own shapes in one, two and many groups of chunks; dead
    rows give 0; the tiny Qwen3 and Mamba2 configs on the card against the
    same weights on the CPU (prefill logits and greedy tokens).
 10. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
@@ -70,8 +77,10 @@ Phases, in order:
 12. ``lmtick`` — each model kernel's time at the path's shapes and at the
    serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
    32768 x 4096 norms; ssd_scan at prefill_32k with B=8 and long_500k at
-   B=1), and the attention kernels at a middle shape (prefill S=4096 at
-   B=8, decode S=2048 at B=32), beside its bound, its plain version (where
+   B=1, each with its group split, blocks, launches per call and device
+   time per call), and the attention kernels at a middle shape (prefill
+   S=4096 at B=8, decode S=2048 at B=32), beside its bound, its plain
+   version (where
    it fits) and the yardstick PyTorch call (scaled_dot_product_attention,
    rms_norm; none computes the SSD scan), which the port never calls, with
    kernel over bound and kernel over library (kernel and library timed
@@ -266,6 +275,10 @@ def _report(phase, tag, errs, rel, ok):
 # and under risk_lam / adaptive_refresh the sensitivity launches (pgrad).
 MAIN_PATH = (("grad", 3, 1024, 1024), ("fwd", 3, 1024, 2048),
              ("pgrad", 3, 1024, 1024), ("pgrad", 1, 1024, 1024))
+# grids past the 4096 points one block per row once allowed: the splits
+# tile them (family, F, K, T)
+LONG_GRIDS = tuple((fam, 3, 1024, T) for T in (8192, 16384)
+                   for fam in ("normal", "lognormal"))
 
 
 def phase_check(ctx):
@@ -278,6 +291,7 @@ def phase_check(ctx):
     cases = [(fam, per_row, 256, 128, 256, MODES) for fam in FAMILIES
              for per_row in (False, True)]
     cases.append(("normal", False, 64, 128, 2048, MODES))
+    cases += [(fam, False, F, K, T, MODES) for fam, F, K, T in LONG_GRIDS]
     cases += [("normal", False, F, K, T, (mode,))
               for mode, F, K, T in MAIN_PATH]
     main_ms = []
@@ -298,9 +312,11 @@ def phase_check(ctx):
                 want = ref.frontier_grid_with_grads_ref(
                     W, mus, sgs, num_t=T, dist_id=fam, extra=ex,
                     param_grads=(mode == "pgrad"))
-            got = kern()
+            got, again = kern(), kern()
             torch.cuda.synchronize()
             errs, rel, ok = _compare(got, want)
+            # two launches give the same bits
+            ok &= all(torch.equal(a, b) for a, b in zip(got, again))
             worst[mode] = max(worst[mode], max(errs))
             tag = f"{fam:9s} {'per-row' if per_row else 'shared ':7s} " \
                   f"F={F} K={K} T={T} {mode:5s}"
@@ -331,12 +347,10 @@ def phase_check(ctx):
 
 
 def _call_blocks(mode, F, K, T, fam):
-    """Blocks of each kernel launch of one wrapper call: the forward kernel
-    one per row; the fused adjoint pass 1, pass 2 and the epilogue in the
-    split of ``autotune.lookup_split``."""
+    """Blocks of each kernel launch of one wrapper call in the split of
+    ``autotune.lookup_split``: the forward moments pass 1 and the epilogue;
+    the fused adjoint pass 1, pass 2 and the epilogue."""
     from repro_torch.kernels import autotune
-    if mode == "fwd":
-        return [F]
     return list(autotune.split_blocks(
         F, K, T, autotune.lookup_split(F, K, T, mode=mode, dist_id=fam)))
 
@@ -426,12 +440,14 @@ def phase_tick(ctx):
             ms = _time_cuda(kern, reps=7)
             plain_ms = _time_cuda(plain, reps=3, warm=1)
             bound_ms, by = _bound(mode, F, K, T, extra_rows(dist_id), False)
+            blocks = _call_blocks(mode, F, K, T, dist_id)
             rows.append({"family": name, "mode": mode, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": by, "max_abs_err": max(errs)})
+                         "bound_by": by, "max_abs_err": max(errs),
+                         "blocks": blocks, "launches_per_call": len(blocks)})
             log(f"[tick] {tag} kernel {ms:.3f} ms  plain {plain_ms:.1f} ms  "
                 f"bound {bound_ms:.3f} ms ({by})  kernel/bound "
-                f"{ms / bound_ms:.1f}x")
+                f"{ms / bound_ms:.1f}x  blocks {blocks}")
             torch.cuda.empty_cache()
     ctx["tick"] = rows
     if fails:
@@ -600,13 +616,14 @@ def phase_profile(ctx):
         walls.append(1e3 * (time.perf_counter() - t0))
     walls.sort()
     wall_ms = walls[len(walls) // 2]
-    grads = fg.LAUNCHES["grad"]
+    grads, fwds = fg.LAUNCHES["grad"], fg.LAUNCHES["fwd"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         refresh()
         traced_ms = 1e3 * (time.perf_counter() - t0)
     grads = fg.LAUNCHES["grad"] - grads
+    fwds = fg.LAUNCHES["fwd"] - fwds
     by_name = {}
     for e in prof.key_averages():
         # device events only: a host op's self device time repeats its
@@ -617,15 +634,19 @@ def phase_profile(ctx):
     dev_ms = sum(by_name.values())
     # the fused adjoint's three kernels (pass 1, pass 2, epilogue)
     grad_ms = sum(ms for n, ms in by_name.items() if "frontier_grad" in n)
+    # the forward split's two kernels (pass 1, epilogue)
+    fwd_ms = sum(ms for n, ms in by_name.items() if "frontier_fwd" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     prof.export_chrome_trace(os.path.join(OUT_DIR, "refresh_trace.json"))
     busy = dev_ms / wall_ms if dev_ms > 0 else None
     per_grad = grad_ms / grads if grads and grad_ms > 0 else None
+    per_fwd = fwd_ms / fwds if fwds and fwd_ms > 0 else None
     ctx["profile"] = {"wall_ms": wall_ms, "wall_ms_each": walls,
                       "traced_wall_ms": traced_ms,
                       "device_ms": dev_ms if dev_ms > 0 else None,
                       "busy_share": busy, "grad_calls": grads,
                       "grad_device_ms_per_call": per_grad,
+                      "fwd_calls": fwds, "fwd_device_ms_per_call": per_fwd,
                       "top": [{"name": n, "ms": ms} for n, ms in top]}
     log(f"[profile] one refresh at K={K}: wall {wall_ms:.2f} ms (median of "
         f"{len(walls)}: " + " ".join(f"{w:.2f}" for w in walls)
@@ -635,6 +656,9 @@ def phase_profile(ctx):
     log(f"[profile] fused adjoint: {grads} grad calls, device "
         + (f"{grad_ms:.3f} ms, {per_grad:.4f} ms per call"
            if per_grad is not None else "time not measured"))
+    log(f"[profile] forward split: {fwds} fwd calls, device "
+        + (f"{fwd_ms:.3f} ms, {per_fwd:.4f} ms per call"
+           if per_fwd is not None else "time not measured"))
     for n, ms in top:
         log(f"[profile]   {ms:8.3f} ms  {n[:90]}")
 
@@ -670,7 +694,7 @@ LM_KERNELS = {
 # the CUDA functions of each model kernel, as the profiler names them
 LM_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
               "flash_decode": ("fd_split_kernel", "fd_combine_kernel"),
-              "rmsnorm": ("rmsnorm_",), "ssd_scan": ("ssd_scan_kernel",)}
+              "rmsnorm": ("rmsnorm_",), "ssd_scan": ("ssd_pass",)}
 
 # kernel against plain version on the card, per output dtype (atol = rtol)
 LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
@@ -705,6 +729,11 @@ ATTN_CASES = (
     ("smollm-360m packed group 3", 4, 15, 5, 16, 16, 64, True, None),
     ("tiny prefill", 2, 4, 2, 16, 16, 16, True, None),
 )
+# (name, B, H, S, D, Dv): DeepSeek-V2-Lite's MLA prefill, 16 heads with q
+# and k of 192 and v of 128 (the bf16 kernel's (192, 128) instance), at a
+# ragged S and at the serving path's 32 prompts of 16 tokens
+MLA_CASES = (("deepseek-v2-lite mla prefill S=300", 1, 16, 300, 192, 128),
+             ("deepseek-v2-lite mla prefill B=32 S=16", 32, 16, 16, 192, 128))
 # (name, B, Hkv, G, S, D, valid slots[, leading slots cleared]): one split
 # at short S, several splits (flash_decode.decode_splits) with a whole
 # split invalid, S = 4096, Nemotron's group of 12 at D = 192
@@ -721,12 +750,17 @@ DECODE_CASES = (
 )
 # (name, B, S, H, P, G, N, chunk): ragged S, S >= 1024, G = 2, chunks of
 # 16/64/128, Mamba2-2.7B's own shapes (the full-width prefill check and one
-# group's serving prefill) and the tiny config
+# group's serving prefill) in one group of chunks (8 x 300), two (4 x 300),
+# a group per chunk (2 x 300) and eight groups of eight (S = 8192), and the
+# tiny config (autotune.ssd_groups sets the groups from the shape)
 SSD_CASES = (
     ("ragged g2 chunk64", 2, 200, 4, 32, 2, 64, 64),
     ("many chunks chunk128", 1, 1100, 4, 64, 1, 128, 128),
     ("many chunks g2 chunk16", 2, 1030, 4, 16, 2, 32, 16),
     ("mamba2-2.7b prefill 2x300", 2, 300, 80, 64, 1, 128, 128),
+    ("mamba2-2.7b one group 8x300", 8, 300, 80, 64, 1, 128, 128),
+    ("mamba2-2.7b two groups 4x300", 4, 300, 80, 64, 1, 128, 128),
+    ("mamba2-2.7b eight groups S=8192", 1, 8192, 80, 64, 1, 128, 128),
     ("mamba2-2.7b path", 32, 16, 80, 64, 1, 128, 128),
     ("short prompt", 3, 13, 8, 64, 1, 128, 128),
     ("tiny", 2, 24, 16, 8, 1, 16, 16),
@@ -841,6 +875,7 @@ def phase_lmcheck(ctx):
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
     fails, worst = [], {k: 0.0 for k in LM_KERNELS}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -875,6 +910,15 @@ def phase_lmcheck(ctx):
                  lambda: ops.attention(q, k, v, causal=causal, window=window),
                  lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                  window=window))
+        for i, (name, B, H, S, D, Dv) in enumerate(MLA_CASES):
+            g = _gen(80 + i)
+            q, k = (_randn(g, (B, H, S, D), dtype) for _ in range(2))
+            v = _randn(g, (B, H, S, Dv), dtype)
+            hold("flash_attention", f"{name} {dn} v {tuple(v.shape)}",
+                 lambda: ops.attention(q, k, v, causal=True,
+                                       sm_scale=D ** -0.5),
+                 lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                 sm_scale=D ** -0.5))
         for i, case in enumerate(DECODE_CASES):
             q, k, v, valid = _decode_inputs(case, dtype, 30 + i)
             splits = fd.decode_splits(case[1], case[2], case[4], sms)[0]
@@ -889,8 +933,10 @@ def phase_lmcheck(ctx):
                  lambda: ref.rmsnorm_ref(x, w, eps=1e-6))
         for i, case in enumerate(SSD_CASES):
             args, chunk = _ssd_inputs(case, dtype, 60 + i), case[-1]
+            split = ssd.kernel_split(case[1], case[3], case[2], chunk, dtype)
             # y and the final state
-            hold("ssd_scan", f"{case[0]} {dn} S={case[2]}",
+            hold("ssd_scan", f"{case[0]} {dn} S={case[2]} groups "
+                 f"{split.groups}x{split.per_group}",
                  lambda: ops.ssd(*args, chunk=chunk, return_final_state=True),
                  lambda: ref.ssd_chunked_ref(*args, chunk=chunk,
                                              return_final_state=True),
@@ -1451,22 +1497,31 @@ def phase_lmtick(ctx):
     # ssd_scan at Mamba2-2.7B's H, P, G, N and chunk: the path (one group's
     # prefill, 32 prompts of 16 tokens: one chunk of 16), prefill_32k's
     # S = 32768 with B cut from 32 to 8, and long_500k's S = 524288 at its
-    # own B = 1 (80 blocks, one per (b, h), on the card's SMs). No PyTorch
-    # call computes the scan.
+    # own B = 1, each in the group split of autotune.ssd_groups (one group:
+    # one launch of B H blocks; more: pass 1, pass 2 where there are more
+    # than two groups, and pass 3). No PyTorch call computes the scan.
+    from repro_torch.kernels import ssd_scan as ssd
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, B, S in (("path", 32, 16), ("serving prefill_32k B=8", 8, 32768),
                       ("serving long_500k B=1", 1, 524288)):
         H, P, G, N, chunk = 80, 64, 1, 128, 128
         args = _ssd_inputs(("", B, S, H, P, G, N, chunk), bf, 93)
         long_s = S > 100000
-        log(f"[lmtick] ssd_scan {tag}: {B * H} blocks on {sms} SMs")
+        split = ssd.kernel_split(B, H, S, chunk, bf)
+        blocks = _ssd_blocks(B, H, P, N, split.groups)
+        log(f"[lmtick] ssd_scan {tag}: {split.groups} group(s) of "
+            f"{split.per_group} of {split.chunks} chunks; {len(blocks)} "
+            f"launch(es) per call of {blocks} blocks on {sms} SMs")
         tick("ssd_scan", f"{tag} (B={B}, H={H}, S={S})",
              lambda: ops.ssd(*args, chunk=chunk, return_final_state=True),
              lambda: ref.ssd_chunked_ref(*args, chunk=chunk,
                                          return_final_state=True),
              None, _roof(*_ssd_work(B, S, H, P, G, N, chunk)),
              plain_bytes=3 * 2 * B * S * H * P,
-             reps=3 if long_s else 7, plain_reps=2 if long_s else 5)
+             reps=3 if long_s else 7, plain_reps=2 if long_s else 5,
+             device_time=True)
+        rows[-1].update(groups=split.groups, per_group=split.per_group,
+                        blocks=blocks, launches_per_call=len(blocks))
         del args
     ctx["lmtick"] = rows
     worst = ctx.setdefault("lm_max_abs_err", {})
@@ -1533,6 +1588,19 @@ def _device_ms(fn, reps=20):
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA)
     return total / 1e3 / reps if total > 0 else None
+
+
+def _ssd_blocks(B, H, P, N, groups):
+    """Blocks of each launch of one SSD scan call (csrc/ssd_scan.cu): pass 1
+    (one per (b, h) and group but the last) and pass 2 (one thread per
+    state element, 256 a block) where there are more groups than one and
+    two, and pass 3 (one per (b, h) and group)."""
+    out = []
+    if groups > 1:
+        out.append(B * H * (groups - 1))
+    if groups > 2:
+        out.append(-(-B * H * P * N // 256))
+    return out + [B * H * groups]
 
 
 def _ssd_work(B, S, H, P, G, N, chunk):

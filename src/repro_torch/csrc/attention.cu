@@ -41,14 +41,18 @@
 // Head dims up to 256 in steps of 8: the tile is DP = 64, 128, 192 or 256
 // columns, and TMA fills the columns past D with zeros (D = 80 runs as 128),
 // which add nothing to q . k and give columns of O that are not stored.
+// V and O have a width of their own, DV (the value head dim Dv in its
+// tile): DV = DP, or DP = 192 with DV = 128, the MLA prefill of
+// DeepSeek-V2-Lite (q, k of 192, v of 128); the K and V stages of the
+// ring are sized apart.
 // Unlike the Pallas kernel (P in float32), P is rounded to bf16 before
 // P . V, as the JAX model's own XLA path does, and l sums the rounded P.
 //
 // flash_attention, float32 (fa_f32_kernel): the CUDA-core kernel of the
 // first port (TF32 would not meet the float32 tolerance): one 128-thread
 // block per (query tile of 64, q head, batch), Q, K and V tiles in shared
-// memory, a 4 x 8 block of scores and a 4 x D/8 block of the accumulator
-// per thread.
+// memory, a 4 x 8 block of scores and a 4 x Dv/8 block of the accumulator
+// per thread (Dv, the value head dim, at run time).
 //
 // flash_decode (fd_split_kernel, fd_combine_kernel), float32 and bf16.
 // Bound by bytes: the whole K/V cache is read once per step for G <= 16
@@ -116,19 +120,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
-// COLS: accumulator columns per thread (D <= 8 COLS)
+// COLS: accumulator columns per thread (Dv <= 8 COLS)
 template <typename T, int COLS>
 __global__ void __launch_bounds__(FA_THREADS)
 fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int Hq, int group,
-              int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
-              int causal, int window, float scale) {
+              int Sq, int Sk, int D, int Dv, Strides qs, Strides ks,
+              Strides vs, int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = pad_ld<T>(D);
+  const int ld = pad_ld<T>(D), ldv = pad_ld<T>(Dv);
   float* Ps = reinterpret_cast<float*>(smem);        // BQ x (BK32 + 1)
   T* Qs = reinterpret_cast<T*>(Ps + BQ * (BK32 + 1));  // BQ x ld
   T* Ks = Qs + BQ * ld;                                 // BK32 x ld
-  T* Vs = Ks + BK32 * ld;                               // BK32 x ld
+  T* Vs = Ks + BK32 * ld;                               // BK32 x ldv
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3, cg = tid & 7;  // row group, column group
@@ -160,7 +164,7 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = k_begin; kt < k_end; kt += BK32) {
     __syncthreads();  // the previous tile's readers are done
     load_tile(Ks, kb, ks.s, kt, BK32, Sk, D, ld, tid, FA_THREADS);
-    load_tile(Vs, vb, vs.s, kt, BK32, Sk, D, ld, tid, FA_THREADS);
+    load_tile(Vs, vb, vs.s, kt, BK32, Sk, Dv, ldv, tid, FA_THREADS);
     __syncthreads();
 
     float s[4][8];
@@ -227,8 +231,8 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
         const int col = cg + 8 * c;
-        if (col < D) {
-          const float vv = to_f32(Vs[j * ld + col]);
+        if (col < Dv) {
+          const float vv = to_f32(Vs[j * ldv + col]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] += p[i] * vv;
         }
@@ -236,7 +240,7 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + ((long long)b * Hq + h) * (long long)Sq * D;
+  T* ob = o + ((long long)b * Hq + h) * (long long)Sq * Dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg * 4 + i;
@@ -245,19 +249,20 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
       const int col = cg + 8 * c;
-      if (col < D) ob[(long long)row * D + col] = from_f32<T>(acc[i][c] / denom);
+      if (col < Dv)
+        ob[(long long)row * Dv + col] = from_f32<T>(acc[i][c] / denom);
     }
   }
 }
 
 template <int COLS>
 int attention_f32(const void* q, const void* k, const void* v, void* o,
-                  int B, int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
-                  Strides ks, Strides vs, int causal, int window, float scale,
-                  cudaStream_t stream) {
-  const int ld = pad_ld<float>(D);
+                  int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                  Strides qs, Strides ks, Strides vs, int causal, int window,
+                  float scale, cudaStream_t stream) {
+  const int ld = pad_ld<float>(D), ldv = pad_ld<float>(Dv);
   const size_t smem = sizeof(float) * BQ * (BK32 + 1) +
-                      sizeof(float) * (size_t)(BQ + 2 * BK32) * ld;
+                      sizeof(float) * ((size_t)(BQ + BK32) * ld + BK32 * ldv);
   cudaError_t err = cudaFuncSetAttribute(
       fa_f32_kernel<float, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -266,7 +271,7 @@ int attention_f32(const void* q, const void* k, const void* v, void* o,
   fa_f32_kernel<float, COLS><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
-      Sk, D, qs, ks, vs, causal, window, scale);
+      Sk, D, Dv, qs, ks, vs, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -278,8 +283,8 @@ constexpr int STAGES = 2;                      // depth of the K/V ring
 constexpr int PANEL_ROW = 128;                 // bytes: 64 bf16 columns
 
 struct FaArgs {
-  __nv_bfloat16* o;      // (B, Hq, Sq, D) contiguous
-  int Hq, group, Sq, Sk, D;
+  __nv_bfloat16* o;      // (B, Hq, Sq, Dv) contiguous
+  int Hq, group, Sq, Sk, D, Dv;
   int causal, window;
   float scale_log2;      // sm_scale * log2(e): p = 2^(s' - m') = e^(s - m)
   int packed;            // rows are (head, position) pairs of one kv group
@@ -287,13 +292,16 @@ struct FaArgs {
   int blocks_per_kv;     // packed: blocks per kv head
 };
 
-// DP: the tile's padded head dim; BK: keys per tile
-template <int DP> struct FaTile {
-  static constexpr int NP = DP / 64;  // 64-column panels
+// DP: the tile's padded q/k head dim; DV: that of v and o; BK: keys per
+// tile
+template <int DP, int DV = DP> struct FaTile {
+  static constexpr int NP = DP / 64;   // 64-column panels of q and k
+  static constexpr int NPV = DV / 64;  // of v
   static constexpr int BK = DP <= 128 ? 128 : 64;
   static constexpr int Q_BYTES = NP * BQW * PANEL_ROW;
-  static constexpr int KV_BYTES = NP * BK * PANEL_ROW;  // one stage of K or V
-  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int K_BYTES = NP * BK * PANEL_ROW;   // one stage of K
+  static constexpr int V_BYTES = NPV * BK * PANEL_ROW;  // one stage of V
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   // + up to 1023 bytes to align the base, + the barriers
   static constexpr int SMEM = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
 };
@@ -317,20 +325,20 @@ __device__ __forceinline__ void issue_qk(float (&sc)[FaTile<DP>::BK / 2],
     }
 }
 
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(FA3_THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, FaArgs a) {
-  using Tile = FaTile<DP>;
-  constexpr int NP = Tile::NP, BK = Tile::BK;
+  using Tile = FaTile<DP, DV>;
+  constexpr int NP = Tile::NP, NPV = Tile::NPV, BK = Tile::BK;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled panels start on 1024-byte boundaries
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t sQ = smem_u32(smem);
-  const uint32_t sK = sQ + Tile::Q_BYTES;             // STAGES x KV_BYTES
-  const uint32_t sV = sK + STAGES * Tile::KV_BYTES;   // STAGES x KV_BYTES
+  const uint32_t sK = sQ + Tile::Q_BYTES;            // STAGES x K_BYTES
+  const uint32_t sV = sK + STAGES * Tile::K_BYTES;   // STAGES x V_BYTES
   const uint32_t bar = sQ + Tile::BAR_OFF;
   // barriers: Q full; K and V full [STAGES]; stage released [STAGES]
   const uint32_t barQ = bar;
@@ -386,13 +394,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const int s = t % STAGES;
         const int kt = k_begin + t * BK;
         if (t >= STAGES) mbar_wait(barE(s), ((t / STAGES) - 1) & 1);
-        mbar_expect_tx(barK(s), Tile::KV_BYTES);
+        mbar_expect_tx(barK(s), Tile::K_BYTES);
         for (int p = 0; p < NP; ++p)
-          tma_load_4d(sK + s * Tile::KV_BYTES + p * BK * PANEL_ROW, &kmap,
+          tma_load_4d(sK + s * Tile::K_BYTES + p * BK * PANEL_ROW, &kmap,
                       barK(s), 64 * p, kt, hk, b);
-        mbar_expect_tx(barV(s), Tile::KV_BYTES);
-        for (int p = 0; p < NP; ++p)
-          tma_load_4d(sV + s * Tile::KV_BYTES + p * BK * PANEL_ROW, &vmap,
+        mbar_expect_tx(barV(s), Tile::V_BYTES);
+        for (int p = 0; p < NPV; ++p)
+          tma_load_4d(sV + s * Tile::V_BYTES + p * BK * PANEL_ROW, &vmap,
                       barV(s), 64 * p, kt, hk, b);
       }
     }
@@ -422,9 +430,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wpos_lo = a.packed ? 0 : q0 + 64 * wg;
   const int wpos_hi = a.packed ? a.Sq - 1 : q0 + 64 * wg + 63;
 
-  float o[DP / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const int col0 = 2 * (lane & 3);
 
@@ -449,7 +457,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // S = Q . K^T
     mbar_wait(barK(s), phase);
     wgmma_fence();
-    issue_qk<DP>(sc, sQw, sK + s * Tile::KV_BYTES);
+    issue_qk<DP>(sc, sQw, sK + s * Tile::K_BYTES);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -498,7 +506,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
     // O += P . V; then the stage goes back to the producer
     mbar_wait(barV(s), phase);
@@ -509,7 +517,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t af[4] = {pa[4 * ks], pa[4 * ks + 1], pa[4 * ks + 2],
                               pa[4 * ks + 3]};
       const uint64_t db =
-          sw128_desc(sV + s * Tile::KV_BYTES + ks * 16 * PANEL_ROW,
+          sw128_desc(sV + s * Tile::V_BYTES + ks * 16 * PANEL_ROW,
                      BK * PANEL_ROW, 1024);
       wgmma_rs_tb(o, af, db);
     }
@@ -530,11 +538,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (!live[hh]) continue;
     const float den = fmaxf(l[hh], 1e-30f);
     __nv_bfloat16* orow =
-        a.o + (((long long)b * a.Hq + head[hh]) * a.Sq + pos[hh]) * a.D;
+        a.o + (((long long)b * a.Hq + head[hh]) * a.Sq + pos[hh]) * a.Dv;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + col0;
-      if (col < a.D)
+      if (col < a.Dv)
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             o[4 * j + 2 * hh] / den, o[4 * j + 2 * hh + 1] / den);
     }
@@ -585,12 +593,12 @@ bool make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, int DV>
 int attention_bf16(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
-                   Strides ks, Strides vs, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  using Tile = FaTile<DP>;
+                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                   Strides qs, Strides ks, Strides vs, int causal, int window,
+                   float scale, cudaStream_t stream) {
+  using Tile = FaTile<DP, DV>;
   FaArgs a;
   a.o = static_cast<__nv_bfloat16*>(o);
   a.Hq = Hq;
@@ -598,6 +606,7 @@ int attention_bf16(const void* q, const void* k, const void* v, void* o,
   a.Sq = Sq;
   a.Sk = Sk;
   a.D = D;
+  a.Dv = Dv;
   a.causal = causal;
   a.window = window;
   a.scale_log2 = scale * LOG2E;
@@ -611,16 +620,16 @@ int attention_bf16(const void* q, const void* k, const void* v, void* o,
       make_map(&qm, q, D, Sq, Hq, B, qs, a.packed ? Sq : BQW,
                a.heads_per_block) &&
       make_map(&km, k, D, Sk, Hkv, B, ks, Tile::BK, 1) &&
-      make_map(&vm, v, D, Sk, Hkv, B, vs, Tile::BK, 1);
+      make_map(&vm, v, Dv, Sk, Hkv, B, vs, Tile::BK, 1);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_wgmma_kernel<DP, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Tile::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.packed ? 1 : (Sq + BQW - 1) / BQW,
                   a.packed ? Hkv * a.blocks_per_kv : Hq, B);
-  fa_wgmma_kernel<DP><<<grid, FA3_THREADS, Tile::SMEM, stream>>>(qm, km, vm,
-                                                                   a);
+  fa_wgmma_kernel<DP, DV><<<grid, FA3_THREADS, Tile::SMEM, stream>>>(
+      qm, km, vm, a);
   return (int)cudaGetLastError();
 }
 
@@ -995,47 +1004,46 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 
 }  // namespace
 
-// q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D), each with unit stride on D and
-// the given element strides on its other axes; o: (B, Hq, Sq, D)
-// contiguous. window < 0 means no window. float32: D <= 256; bf16: D a
-// multiple of 8 up to 256, 16-byte aligned bases and strides. Returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+// The bf16 tile of a head dim: 64, 128, 192 or 256 columns (a head dim
+// between two runs in the wider tile with its columns past D zero, D = 80
+// in the 128 tile).
+int bf16_tile(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+
+// q, k: (B, Hq|Hkv, Sq|Sk, D), v: (B, Hkv, Sk, Dv), each with unit stride
+// on its last axis and the given element strides on its other axes; o:
+// (B, Hq, Sq, Dv) contiguous. window < 0 means no window. float32: D, Dv
+// <= 256; bf16: D, Dv multiples of 8 up to 256 whose tiles are equal or
+// (192, 128), 16-byte aligned bases and strides. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int Hq, int Hkv, int Sq, int Sk, int D, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kss,
+    int Hq, int Hkv, int Sq, int Sk, int D, int Dv, long long qsb,
+    long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int causal, int window,
     float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      D <= 0 || D > 256 || B > 65535 || Hq > 65535)
+      D <= 0 || D > 256 || Dv <= 0 || Dv > 256 || B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FA_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, qs, ks, vs, causal, \
+                window, scale, s
   if (dtype == DT_F32) {
-    if (D <= 64)
-      return attention_f32<8>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
-                              causal, window, scale, s);
-    if (D <= 128)
-      return attention_f32<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
-                               causal, window, scale, s);
-    return attention_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
-                             causal, window, scale, s);
+    if (Dv <= 64) return attention_f32<8>(FA_ARGS);
+    if (Dv <= 128) return attention_f32<16>(FA_ARGS);
+    return attention_f32<32>(FA_ARGS);
   }
-  // bf16 tiles are whole 64-column panels: a head dim between two runs in
-  // the wider tile with its columns past D zero (D = 80 in the 128 tile)
-  if (dtype == DT_BF16 && D % 8 == 0) {
-    if (D <= 64)
-      return attention_bf16<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
-                                vs, causal, window, scale, s);
-    if (D <= 128)
-      return attention_bf16<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
-                                 vs, causal, window, scale, s);
-    if (D <= 192)
-      return attention_bf16<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks,
-                                 vs, causal, window, scale, s);
-    return attention_bf16<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, qs, ks, vs,
-                               causal, window, scale, s);
+  if (dtype == DT_BF16 && D % 8 == 0 && Dv % 8 == 0) {
+    const int dp = bf16_tile(D), dv = bf16_tile(Dv);
+    if (dp == 64 && dv == 64) return attention_bf16<64, 64>(FA_ARGS);
+    if (dp == 128 && dv == 128) return attention_bf16<128, 128>(FA_ARGS);
+    if (dp == 192 && dv == 192) return attention_bf16<192, 192>(FA_ARGS);
+    if (dp == 192 && dv == 128) return attention_bf16<192, 128>(FA_ARGS);
+    if (dp == 256 && dv == 256) return attention_bf16<256, 256>(FA_ARGS);
   }
+#undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,19 +21,25 @@
 // sums leave only the terms' own rounding. The Pv accumulators sum
 // a * (t - mu) per grid point, never P1 - mu P0.
 //
-// Forward kernel (simple first): one thread block per candidate row. A
-// block reduction of reach_k = mean_k + z std_k gives tmax; each thread owns
-// grid points j = tid, tid + blockDim, ... (at most 8) and streams the
-// channels through shared-memory tiles of per-channel constants, summing
-// log clamp(C_k(t_j), 1e-37, 1) in registers; block reductions give mu and
-// m2 (trapezoid weights 1/2 at the ends). A balancer refresh launches it at
-// F = 3, so it uses 3 of the 132 SMs; the split below is its next step.
+// Both kernels are split across the card: a balancer refresh launches them
+// at F = 1 or 3 rows (its PGD steps and sensitivity at T = 1024, its
+// finalists at T = 2048), so one block per row would leave 129 of 132 SMs
+// idle. Each row is spread over many blocks, each launch's shape a function
+// of (F, K, T, mode, family) alone (kernels/autotune.py pick_split aims at
+// 132 blocks per launch), and a block's threads do not depend on T, which
+// the tiles cover at any length.
 //
-// Fused adjoint, split across the card: a balancer refresh launches it at
-// F = 1 or 3 rows, so one block per row would leave 129 of 132 SMs idle.
-// Each row is spread over many blocks, in three launches from one call
-// (fg_grad), each a function of (F, K, T, mode, family) alone
-// (kernels/autotune.py pick_split aims at 132 blocks per launch):
+// Forward moments, two launches from one call (fg_forward):
+// * Pass 1 (frontier_fwd_pass1), blocks of (row, tile of `points` grid
+//   points), the adjoint's pass 1 below without its argmax ties and w F:
+//   the row's reach maximum reach_k = mean_k + z std_k (tile 0 stores it),
+//   log F(t_j) = sum_k log clamp(C_k(t_j), 1e-37, 1) for the tile's points
+//   and the tile's trapezoid sums of surv and t surv (weights 1/2 at the
+//   ends).
+// * Epilogue (frontier_fwd_epilogue), one warp per row: the tile sums in
+//   tile order, mu and var = max(m2 - mu^2, 0).
+//
+// Fused adjoint, three launches from one call (fg_grad):
 // * Pass 1, blocks of (row, tile of `points` grid points): every block takes
 //   the row's reach maximum (exact, so the same in all of them; tile 0 also
 //   counts the argmax ties), then sums log C_k(t_j) for its points with
@@ -71,7 +77,6 @@ using acc_t = FG_ACC;
 
 
 constexpr int MAX_THREADS = 512;
-constexpr int MAX_NPT = 8;  // grid points per thread: T <= 8 * blockDim
 
 __device__ __forceinline__ acc_t warp_sum(acc_t v) {
 #pragma unroll
@@ -145,96 +150,6 @@ __device__ float row_amax(const Args& a, int f, acc_t* red) {
   return block_max(m, red);
 }
 
-// Grid points of this thread: t_j = tmax * (j / (T - 1)) and log t_j.
-template <int FAM>
-__device__ void grid_points(const Args& a, float tmax, float* t, float* lt) {
-  const int nth = blockDim.x, tid = threadIdx.x;
-  const float denom = (float)(a.T - 1);
-#pragma unroll
-  for (int i = 0; i < MAX_NPT; ++i) {
-    const float frac = (float)(tid + i * nth) / denom;
-    t[i] = tmax * frac;
-    lt[i] = (FAM == LOGNORMAL) ? logf(fmaxf(t[i], TINY)) : 0.0f;
-  }
-}
-
-// Pass 1: logF(t_j) = sum_k log clamp(C_k(t_j)) in float64 for this
-// thread's grid points, channels streamed through a shared tile of
-// blockDim entries.
-template <int FAM>
-__device__ void log_joint_cdf(const Args& a, int f, Chan<FAM>* tile,
-                              const float* t, const float* lt,
-                              acc_t* logF) {
-  const int nth = blockDim.x, tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < MAX_NPT; ++i) logF[i] = 0.0;
-  for (int k0 = 0; k0 < a.K; k0 += nth) {
-    const int k = k0 + tid;
-    if (k < a.K)
-      tile[tid] = make_chan<FAM>(
-          load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, a.K, a.per_row));
-    __syncthreads();
-    const int n = min(nth, a.K - k0);
-    for (int c = 0; c < n; ++c) {
-      const Chan<FAM> ch = tile[c];
-#pragma unroll
-      for (int i = 0; i < MAX_NPT; ++i) {
-        if (tid + i * nth < a.T) {
-          const float cv = cdf<FAM>(ch, t[i], lt[i]);
-          logF[i] += (acc_t)logf(fminf(fmaxf(cv, CDF_FLOOR), 1.0f));
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The moments of row f from this thread's grid points: F_j = exp(logF_j)
-// and the trapezoid sums of surv and t surv, all float64. Returns mu and
-// m2 (every thread gets them).
-__device__ __forceinline__ void moments(const Args& a, float tmax,
-                                        const float* t, const acc_t* logF,
-                                        acc_t* red, acc_t& mu, acc_t& m2) {
-  const int nth = blockDim.x, tid = threadIdx.x;
-  acc_t s1 = 0.0, s2 = 0.0;
-#pragma unroll
-  for (int i = 0; i < MAX_NPT; ++i) {
-    const int j = tid + i * nth;
-    if (j < a.T) {
-      const acc_t wq = (j == 0 || j == a.T - 1) ? 0.5 : 1.0;
-      const acc_t surv = 1.0 - exp(logF[i]);
-      s1 += wq * surv;
-      s2 += wq * (acc_t)t[i] * surv;
-    }
-  }
-  const acc_t dt = (acc_t)tmax / (acc_t)(a.T - 1);
-  mu = block_sum(s1, red) * dt;
-  m2 = 2.0 * block_sum(s2, red) * dt;
-}
-
-template <int FAM>
-__global__ void __launch_bounds__(MAX_THREADS)
-frontier_fwd_kernel(Args a, float* __restrict__ mu_out,
-                    float* __restrict__ var_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
-  __shared__ acc_t red[33];
-  const int f = blockIdx.x;
-
-  const float amax = row_amax<FAM>(a, f, red);
-  const float tmax = fmaxf(amax, 1e-12f);
-  float t[MAX_NPT], lt[MAX_NPT];
-  acc_t logF[MAX_NPT];
-  grid_points<FAM>(a, tmax, t, lt);
-  log_joint_cdf<FAM>(a, f, tile, t, lt, logF);
-  acc_t mu, m2;
-  moments(a, tmax, t, logF, red, mu, m2);
-  if (threadIdx.x == 0) {
-    mu_out[f] = (float)mu;
-    var_out[f] = (float)fmax(m2 - mu * mu, (acc_t)0);
-  }
-}
-
 struct GradOut {
   float* mu;
   float* var;
@@ -242,14 +157,15 @@ struct GradOut {
   acc_t* scratch;
 };
 
-// Launch shape of the split adjoint, chosen by kernels/autotune.py
-// (pick_split) from (F, K, T, mode, family) alone.
+// Launch shape of a split call, chosen by kernels/autotune.py (pick_split)
+// from (F, K, T, mode, family) alone.
+// The forward call reads `points` alone.
 struct Split {
   int points;    // pass 1: grid points per block, a power of two dividing
                  // blockDim; blockDim / points channel slices per point
-  int t_chunk;   // pass 2: grid points per block
-  int k_chunk;   // pass 2: channels per block
-  int ep_chunk;  // epilogue: channels per block
+  int t_chunk;   // adjoint pass 2: grid points per block
+  int k_chunk;   // adjoint pass 2: channels per block
+  int ep_chunk;  // adjoint epilogue: channels per block
 };
 
 // Threads per block of pass 2 and of the epilogue: one per channel up to
@@ -299,15 +215,17 @@ struct Layout {
   }
 };
 
-// Pass 1, one block per (row f, tile of s.points grid points): the row's
-// reach maximum (and, in tile 0, its argmax ties), then log F(t_j) for the
-// tile's points. Thread (p, q) sums log clamp(C_k(t_p)) over the channels
-// k = q, q + slices, ... of each shared tile of channel constants; the
-// slices' sums are added in slice order. Writes w_j F(t_j) and the tile's
-// trapezoid sums.
-template <int FAM>
-__global__ void __launch_bounds__(MAX_THREADS)
-frontier_grad_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
+// Pass 1 of both calls for one block (row f, tile tt of s.points grid
+// points): the row's reach maximum (stored by tile 0 at row[0]; with GRAD
+// its argmax ties too, at row[1]), then log F(t_j) for the tile's points.
+// Thread (p, q) sums log clamp(C_k(t_p)) over the channels k = q,
+// q + slices, ... of each shared tile of channel constants; the slices'
+// sums are added in slice order. Writes the tile's trapezoid sums of surv
+// and t surv to tile[0..1] and, with GRAD, w_j F(t_j) to wF[j].
+template <int FAM, bool GRAD>
+__device__ void pass1_tile(const Args& a, const Split& s, int f, int tt,
+                           acc_t* __restrict__ row, acc_t* __restrict__ tile2,
+                           acc_t* __restrict__ wF) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nth = blockDim.x, tid = threadIdx.x;
   Chan<FAM>* tile = reinterpret_cast<Chan<FAM>*>(smem);
@@ -315,20 +233,19 @@ frontier_grad_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
       smem + align16((size_t)nth * sizeof(Chan<FAM>)));
   __shared__ acc_t red[33];
   const int K = a.K, T = a.T;
-  const Layout L(s, a.F, K, T, 0);
-  const int f = blockIdx.x / L.n_tt, tt = blockIdx.x % L.n_tt;
 
   const float amax = row_amax<FAM>(a, f, red);
   if (tt == 0) {
-    acc_t ties = 0.0;
-    for (int k = tid; k < K; k += nth)
-      ties += reach<FAM>(load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F, K,
-                                       a.per_row), a.z) == amax ? 1.0 : 0.0;
-    ties = block_sum(ties, red);
-    if (tid == 0) {
-      scratch[L.row + 4LL * f] = (acc_t)amax;
-      scratch[L.row + 4LL * f + 1] = ties;
+    if (GRAD) {
+      acc_t ties = 0.0;
+      for (int k = tid; k < K; k += nth)
+        ties += reach<FAM>(load_raw<FAM>(a.W, a.mus, a.sgs, a.ex, f, k, a.F,
+                                         K, a.per_row), a.z) == amax
+                    ? 1.0 : 0.0;
+      ties = block_sum(ties, red);
+      if (tid == 0) row[1] = ties;
     }
+    if (tid == 0) row[0] = (acc_t)amax;
   }
   const float tmax = fmaxf(amax, 1e-12f);
   const int slices = nth / s.points;
@@ -361,17 +278,78 @@ frontier_grad_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
     const acc_t wq = (j == 0 || j == T - 1) ? 0.5 : 1.0;
     const acc_t Fj = exp(lf);
     const acc_t surv = 1.0 - Fj;
-    scratch[L.wF + (long long)f * T + j] = wq * Fj;
+    if (GRAD) wF[j] = wq * Fj;
     s1 = wq * surv;
     s2 = wq * (acc_t)t * surv;
   }
   s1 = block_sum(s1, red);
   s2 = block_sum(s2, red);
   if (tid == 0) {
-    acc_t* out = scratch + L.tiles + 2LL * ((long long)f * L.n_tt + tt);
-    out[0] = s1;
-    out[1] = s2;
+    tile2[0] = s1;
+    tile2[1] = s2;
   }
+}
+
+// Scratch of the forward call, in accumulators (acc_t), row-major:
+//   row   (F)          the reach maximum
+//   tiles (F, n_tt, 2) pass 1's trapezoid sums of surv and t surv
+// kernels/autotune.py (fwd_scratch_elems) sizes it the same way.
+struct FwdLayout {
+  int n_tt;
+  long long tiles, total;
+  __host__ __device__ FwdLayout(const Split& s, int F, int T) {
+    n_tt = cdiv(T, s.points);
+    tiles = F;
+    total = tiles + 2LL * F * n_tt;
+  }
+};
+
+// Forward pass 1, one block per (row f, tile of s.points grid points).
+template <int FAM>
+__global__ void __launch_bounds__(MAX_THREADS)
+frontier_fwd_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
+  const FwdLayout L(s, a.F, a.T);
+  const int f = blockIdx.x / L.n_tt, tt = blockIdx.x % L.n_tt;
+  pass1_tile<FAM, false>(a, s, f, tt, scratch + f,
+                         scratch + L.tiles + 2LL * ((long long)f * L.n_tt + tt),
+                         nullptr);
+}
+
+// Forward epilogue, one warp per row: the tile sums in tile order (lane
+// strided, then a fixed butterfly), then mu and var.
+__global__ void __launch_bounds__(32)
+frontier_fwd_epilogue(Args a, Split s, const acc_t* __restrict__ scratch,
+                      float* __restrict__ mu_out,
+                      float* __restrict__ var_out) {
+  const FwdLayout L(s, a.F, a.T);
+  const int f = blockIdx.x, lane = threadIdx.x;
+  const acc_t* tiles = scratch + L.tiles + 2LL * f * L.n_tt;
+  acc_t s1 = 0.0, s2 = 0.0;
+  for (int i = lane; i < L.n_tt; i += 32) {
+    s1 += tiles[2 * i];
+    s2 += tiles[2 * i + 1];
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    const float tmax = fmaxf((float)scratch[f], 1e-12f);
+    const acc_t dt = (acc_t)tmax / (acc_t)(a.T - 1);
+    const acc_t mu = s1 * dt;
+    const acc_t m2 = 2.0 * s2 * dt;
+    mu_out[f] = (float)mu;
+    var_out[f] = (float)fmax(m2 - mu * mu, (acc_t)0);
+  }
+}
+
+// Adjoint pass 1, one block per (row f, tile of s.points grid points).
+template <int FAM>
+__global__ void __launch_bounds__(MAX_THREADS)
+frontier_grad_pass1(Args a, Split s, acc_t* __restrict__ scratch) {
+  const Layout L(s, a.F, a.K, a.T, 0);
+  const int f = blockIdx.x / L.n_tt, tt = blockIdx.x % L.n_tt;
+  pass1_tile<FAM, true>(a, s, f, tt, scratch + L.row + 4LL * f,
+                        scratch + L.tiles + 2LL * ((long long)f * L.n_tt + tt),
+                        scratch + L.wF + (long long)f * a.T);
 }
 
 // Pass 2, one block per (row f, chunk of s.t_chunk grid points, chunk of
@@ -568,18 +546,6 @@ frontier_grad_epilogue(Args a, Split s, GradOut o) {
                              live, var_pos);
 }
 
-template <int FAM>
-cudaError_t fwd_launch(Args a, int threads, float* mu_out, float* var_out,
-                       cudaStream_t stream) {
-  const size_t smem = (size_t)threads * sizeof(Chan<FAM>);
-  cudaError_t err = cudaFuncSetAttribute(
-      frontier_fwd_kernel<FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  frontier_fwd_kernel<FAM><<<a.F, threads, smem, stream>>>(a, mu_out, var_out);
-  return cudaGetLastError();
-}
-
 // Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
 template <typename Kernel>
 cudaError_t fit_smem(Kernel* kernel, size_t bytes) {
@@ -588,21 +554,51 @@ cudaError_t fit_smem(Kernel* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Pass 1's block shape: threads a multiple of 32 up to MAX_THREADS, tiles
+// of a power of two of grid points dividing them.
+__host__ bool pass1_ok(const Args& a, int threads, const Split& s) {
+  return threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0
+         && s.points >= 1 && (s.points & (s.points - 1)) == 0
+         && threads % s.points == 0 && a.T >= 2;
+}
+
+template <int FAM>
+size_t pass1_smem(int threads) {
+  return align16((size_t)threads * sizeof(Chan<FAM>))
+         + (size_t)threads * sizeof(acc_t);
+}
+
+// The split forward moments: two launches on one stream (pass 1, then the
+// epilogue reading its tile sums).
+template <int FAM>
+cudaError_t fwd_launch(Args a, int threads, Split s, float* mu_out,
+                       float* var_out, acc_t* scratch,
+                       long long scratch_elems, cudaStream_t stream) {
+  if (!pass1_ok(a, threads, s)) return cudaErrorInvalidValue;
+  const FwdLayout L(s, a.F, a.T);
+  if (scratch_elems < L.total) return cudaErrorInvalidValue;
+  const size_t smem1 = pass1_smem<FAM>(threads);
+  cudaError_t err = fit_smem(frontier_fwd_pass1<FAM>, smem1);
+  if (err != cudaSuccess) return err;
+  frontier_fwd_pass1<FAM><<<a.F * L.n_tt, threads, smem1, stream>>>(
+      a, s, scratch);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  frontier_fwd_epilogue<<<a.F, 32, 0, stream>>>(a, s, scratch, mu_out,
+                                                 var_out);
+  return cudaGetLastError();
+}
+
 // The split adjoint: three launches on one stream (pass 1, pass 2,
 // epilogue), each reading what the one before it wrote.
 template <int FAM, bool P>
 cudaError_t grad_launch(Args a, int threads, Split s, GradOut o,
                         long long scratch_elems, cudaStream_t stream) {
-  const bool shape_ok =
-      threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0
-      && s.points >= 1 && (s.points & (s.points - 1)) == 0
-      && threads % s.points == 0 && s.t_chunk >= 1 && s.k_chunk >= 1
-      && s.ep_chunk >= 1 && a.T >= 2;
-  if (!shape_ok) return cudaErrorInvalidValue;
+  if (!pass1_ok(a, threads, s) || s.t_chunk < 1 || s.k_chunk < 1
+      || s.ep_chunk < 1)
+    return cudaErrorInvalidValue;
   const Layout L(s, a.F, a.K, a.T, n_acc<FAM, P>());
   if (scratch_elems < L.total) return cudaErrorInvalidValue;
-  const size_t smem1 = align16((size_t)threads * sizeof(Chan<FAM>))
-                       + (size_t)threads * sizeof(acc_t);
+  const size_t smem1 = pass1_smem<FAM>(threads);
   const size_t smem2 =
       (size_t)min(s.t_chunk, a.T) * (sizeof(acc_t) + 3 * sizeof(float));
   cudaError_t err = fit_smem(frontier_grad_pass1<FAM>, smem1);
@@ -630,18 +626,27 @@ extern "C" {
 // sizes the fused kernel's scratch with it.
 int fg_acc_bytes() { return (int)sizeof(acc_t); }
 
-// Forward moments. Returns a cudaError_t value (0 on success).
+// Forward moments in two launches. stats holds mu then var (2 F floats);
+// pass 1 runs blocks of `threads` over tiles of `points` grid points;
+// scratch holds scratch_elems accumulators, at least the split's FwdLayout
+// (else cudaErrorInvalidValue). Returns a cudaError_t value (0 on
+// success).
 int fg_forward(int fam, const float* W, const float* mus, const float* sgs,
                const float* ex, int per_row, int F, int K, int T, float z,
-               int threads, float* mu_out, float* var_out, void* stream) {
+               int threads, int points, float* stats, acc_t* scratch,
+               long long scratch_elems, void* stream) {
   Args a{W, mus, sgs, ex, per_row, F, K, T, z};
+  const Split sp{points, 0, 0, 0};
+  float* mu = stats;
+  float* var = stats + F;
+  const long long n = scratch_elems;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fam) {
-    case NORMAL: return fwd_launch<NORMAL>(a, threads, mu_out, var_out, s);
-    case LOGNORMAL: return fwd_launch<LOGNORMAL>(a, threads, mu_out, var_out, s);
-    case DRIFT: return fwd_launch<DRIFT>(a, threads, mu_out, var_out, s);
-    case EMPIRICAL: return fwd_launch<EMPIRICAL>(a, threads, mu_out, var_out, s);
-    case DEFECTIVE: return fwd_launch<DEFECTIVE>(a, threads, mu_out, var_out, s);
+    case NORMAL: return fwd_launch<NORMAL>(a, threads, sp, mu, var, scratch, n, s);
+    case LOGNORMAL: return fwd_launch<LOGNORMAL>(a, threads, sp, mu, var, scratch, n, s);
+    case DRIFT: return fwd_launch<DRIFT>(a, threads, sp, mu, var, scratch, n, s);
+    case EMPIRICAL: return fwd_launch<EMPIRICAL>(a, threads, sp, mu, var, scratch, n, s);
+    case DEFECTIVE: return fwd_launch<DEFECTIVE>(a, threads, sp, mu, var, scratch, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,5 @@
-// Mamba2 SSD (state-space duality) chunked scan.
+// Mamba2 SSD (state-space duality) chunked scan, split across the card, with
+// its products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` of the JAX package's
 // src/repro/kernels/ssd_scan.py (`ssd_scan`). For each (batch b, head h)
@@ -9,43 +10,98 @@
 //            exp(min(cum_t - cum_s, 0)) dt_s x_s + D_h x_t
 //   state' = exp(cum_L) state + sum_s exp(cum_L - cum_s) dt_s x_s (x) B_s
 //
-// Head h reads B/C group h / (H / G). Every product and sum is float32;
-// y is stored in x's dtype. Unlike the Pallas kernel, this one
-//   * writes the (B, H, P, N) float32 state after the last token when the
-//     caller passes a buffer for it (the prefill path needs it: the JAX
-//     package falls back to its XLA scan there);
-//   * takes any S: rows of the ragged last chunk past S load as dt = 0,
-//     x = 0, B = C = 0, which leaves the state unchanged (the meaning of
-//     the XLA path's padding), and their y is not stored;
-//   * reads x, B and C through their batch, sequence and head/group
-//     strides (unit stride on the last axis), so the model's B and C,
-//     views of one (B, S, 2 G N) projection, pass without a copy.
+// Head h reads B/C group h / (H / G). y is stored in x's dtype. Unlike the
+// Pallas kernel, this one writes the (B, H, P, N) float32 state after the
+// last token when the caller passes a buffer for it, takes any S (rows of
+// the ragged last chunk past S load as dt = x = B = C = 0, which leaves the
+// state unchanged, and their y is not stored), and reads x, B and C through
+// their batch, sequence and head/group strides (unit stride on the last
+// axis), so the model's B and C, views of one projection, pass as they are.
 //
 // What bounds it on the H100: at the serving path's short prompts, bytes,
-// and most of them the final state (32 KB per (b, h) against ~2 KB of
-// inputs); at long S, operations: per chunk and head ~L(L+1)/2 (N + P) +
-// 2 L N P multiply-adds, which a tensor-core (wgmma) design would run at the
-// bf16 rate. This first kernel is simple and right instead: one block of
-// 256 threads per (b, h) walks its chunks in order with the (P, N) state in
-// shared memory, and runs the three products on CUDA cores in float32 with
-// a register block of TB rows per thread. The chunk's B, C (L x N) and x
-// (L x P) tiles are widened to float32 in shared memory, rows of B, C and
-// the state padded to N + 1 words so that neighbouring threads hit
-// neighbouring banks; the L x L score tile g is built RB rows at a time
-// (L = 128, P = 64, N = 128 take 211 KB of the 227 KB a block may have).
-// There are B * H blocks: at B = 1 and H = 80 most SMs are idle; splitting
-// the chunk walk across blocks is later work.
+// most of them the final state (32 KB per (b, h) against ~4 KB of inputs);
+// at long S, operations: per chunk and head about L^2 N / 2 + L^2 P / 2 +
+// 2 L N P multiply-adds, which want the tensor cores. The design:
 //
-// Repeatability: no atomics; every output is summed by one thread in a
-// fixed order, and the cumsum is one thread's sequential sum with its
-// products and adds rounded separately, so two runs give the same bits.
+// * The chunk walk is split across the card. Each (b, h) sequence is cut
+//   into groups of consecutive chunks (kernels/autotune.py ssd_groups, a
+//   function of the shape alone, so the order of every float sum is too):
+//     pass 1 (ssd_pass1_kernel): each group but the last walks its chunks
+//       from a zero state, keeping only the state update, and writes its end
+//       state and its total decay (the product of its chunks' exp(cum_L));
+//     pass 2 (ssd_pass2_kernel): per state element, the incoming state of
+//       each group, in group order: in_{g+1} = decay_g in_g + end_g;
+//     pass 3 (ssd_pass3_kernel): each group walks its chunks again from its
+//       incoming state, writing y, and the last group the final state.
+//   With one group passes 1 and 2 are skipped. Scratch is groups x P x N
+//   float32 per sequence, not a state per chunk.
+// * The serving path (many sequences, each one chunk from a zero state)
+//   takes its own kernel (ssd_one_kernel): 264 blocks, two an SM, each
+//   walking ~B H / 264 sequences in turn, so that one sequence's state
+//   stores (its bound: 32 KB against ~4 KB of inputs) overlap the next
+//   one's loads and products; C and B are staged once for the heads of a
+//   batch row that share them.
+// * One block of 8 warps per (b, group, h), heads fastest, so the blocks of
+//   one (b, group) read the same B and C rows from L2. A chunk's C, B, x and
+//   dt are staged in shared memory as bf16 (rows padded by 16 bytes so the
+//   ldmatrix loads hit distinct banks) by cp.async into two buffers: the
+//   next chunk's copies fly while this one is computed. The (P, N) state
+//   lives in the warps' registers as float32, one strip of 16 x 64 per
+//   warp, with a bf16 copy in shared memory for the product that reads all
+//   of it. At L = 128 shared memory holds one such block an SM, so pass 3
+//   may use 255 registers a thread, and spills none.
+// * Every product is an mma.sync.m16n8k16 with bf16 operands and float32
+//   accumulation: C . B^T (the scores), the decayed scores times x, C .
+//   state^T and (x o w)^T . B. An operand that is float32 is split into
+//   bf16 planes, v = p0 + p1 (+ p2), each plane the bf16 of what the ones
+//   before it left, and a product takes the plane pairs (i, j) with
+//   i + j <= ORDER (ROADMAP section 3 item 12):
+//     bf16 instance: x, B, C are bf16 (one plane); the decayed scores, the
+//       state and x o w take two planes (about 16 bits, a relative error
+//       near 2^-17, where one bf16 rounding, 2^-9, would break the 5e-4
+//       tolerance of the final state), ORDER 1: p0.q0 + p0.q1;
+//     float32 instance: every operand takes three planes (24 bits, as
+//       float32), ORDER 2: six products (p2.q2, p1.q2, p2.q1 dropped, each
+//       under 2^-24). Its three planes would not fit a block's shared memory
+//       at L = 128: the wrapper walks float32 in chunks of at most 64 rows
+//       (the same sums, rounded apart).
+// * The scores are built 64 columns at a time in registers (16 in the
+//   one-chunk kernel), decayed and masked there, and fed as the A operand
+//   of the next product without a trip through shared memory; the causal
+//   half is skipped tile by tile. The state update scales x's rows by w in
+//   its A fragment, which all n-tiles of a k-step share. Each k-step loads
+//   all its fragments before its products, so their latencies overlap.
+// * The chunk's cumsum is a warp scan: each lane sums a run of rows in
+//   order, a fixed shuffle scan adds the runs' totals, each term rounded on
+//   its own (no fused multiply-add), so two runs give the same bits.
+// * At the first chunk from a zero state (every chunk of the serving path)
+//   no product with the state is taken and nothing is decayed; the
+//   one-chunk kernel has no code for a carried state and no room for its
+//   bf16 copy. The final state goes from registers to memory in 16-byte
+//   stores (lane pairs swap halves so that each lane holds four
+//   neighbouring columns).
+//
+// Repeatability: no atomics; every sum has a fixed order (the mma's own,
+// the chunk order, the group order), so two runs give the same bits.
+#include <cstdint>
+
 #include "dtype.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int RB = 32;  // rows of the score tile g built at a time
-constexpr int TB = 4;   // rows (t or p) of a thread's register block
+constexpr int MAX_PLANES = 3;
+constexpr int WARPS = THREADS / 32;
+constexpr int PAD = 8;  // bf16 elements of padding per shared tile row
+// columns (s) of the causal scores a warp holds in registers at a time:
+// 64 where a block walks chunks with a state to carry (one block an SM at
+// L = 128: shared memory holds no more), 16 in the one-chunk kernel (the
+// serving path), whose smaller registers let two blocks share an SM
+constexpr int SB_LONG = 64, SB_SHORT = 16;
+// blocks of the one-chunk kernel: two on each of 132 SMs (the H100's; a
+// constant, though here it fixes no sum's order: each sequence is one
+// block's alone)
+constexpr int ONE_BLOCKS = 2 * 132;
 
 struct Args {
   const void* x;
@@ -56,235 +112,998 @@ struct Args {
   const float* D;
   void* y;
   float* state_out;  // nullptr: the caller does not want the final state
+  float* ends;       // (B, H, groups - 1, P, N): end states, then incoming
+  float* decays;     // (B, H, groups - 1)
   int B, S, H, P, G, N, L;
+  int per_group, groups;
+  int vec;  // 16-byte loads of x, B and C are aligned
   long long xs_b, xs_s, xs_h;  // strides of x, in elements (P: 1)
   long long ds_b, ds_s;        // strides of dt (H: 1)
   long long bs_b, bs_s, bs_g;  // strides of Bm (N: 1)
   long long cs_b, cs_s, cs_g;  // strides of Cm (N: 1)
 };
 
-__host__ __device__ inline int g_rows(int L) {
-  const int r = L < RB ? L : RB;
-  return (r + TB - 1) / TB * TB;
+__host__ __device__ inline int up16(int n) { return (n + 15) / 16 * 16; }
+
+// bf16 planes of the inputs and of the operands formed in the kernel
+template <typename T> struct Prec {
+  static constexpr int IN = sizeof(T) == 4 ? 3 : 1;
+  static constexpr int CMP = sizeof(T) == 4 ? 3 : 2;
+  static constexpr int ORDER = sizeof(T) == 4 ? 2 : 1;
+};
+
+// Shared memory of one block, in bytes: `nbuf` buffers of the chunk's
+// tiles (the bf16 planes of C (pass 3), B and x, `in` planes each, and dt
+// per row), the state's `cmp` planes (pass 3 with a state to carry), and
+// cum and w per row.
+__host__ __device__ inline long long smem_bytes(bool pass3, int in, int cmp,
+                                                bool carry, int nbuf, int L,
+                                                int P, int N) {
+  const long long LP = up16(L), ldn = up16(N) + PAD, ldp = up16(P) + PAD;
+  // B, x, and dt with A_h and D_h after it
+  long long b = 2LL * in * LP * (ldn + ldp) + 4 * (LP + 4);
+  if (pass3) b += 2LL * in * LP * ldn;                 // C
+  b *= nbuf;
+  if (pass3 && carry) b += 2LL * cmp * up16(P) * ldn;
+  return b + 2 * 4 * LP;
 }
 
-// floats of dynamic shared memory for one block
-__host__ __device__ inline long long smem_floats(int L, int P, int N) {
-  const long long ns = N + 1;
-  return (long long)P * ns + 2LL * L * ns + (long long)L * P +
-         (long long)g_rows(L) * L + 3LL * L;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// D (16 x 8, float32) += A (16 x 16, bf16, row) . B (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; the bytes
+// past src_bytes (0 or the size) are zero
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest `N` groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+// (x0, x1) as NP bf16x2 planes, each the bf16 of what the ones before it
+// left, low half first
+template <int NP>
+__device__ __forceinline__ void split(float x0, float x1,
+                                      uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    out[i] = pack(h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
+}
+
+// d0 (n-tile 0) and d1 (n-tile 1) += A . B over the plane pairs (i, j) with
+// i + j <= ORDER; b[j] holds plane j of both n-tiles (r[0], r[1] and r[2],
+// r[3] of an x4 load)
+template <int NA, int NB, int ORDER>
+__device__ __forceinline__ void mma_planes(float (&d0)[4], float (&d1)[4],
+                                           const uint32_t (&a)[NA][4],
+                                           const uint32_t (&b)[NB][4]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (i + j <= ORDER) {
+        mma(d0, a[i], b[j][0], b[j][1]);
+        mma(d1, a[i], b[j][2], b[j][3]);
+      }
+}
+
+// Fragment addresses (shared, bytes) of a bf16 tile with rows of `ld`
+// elements. A operand (16 x 16) of a row-major tile at (m0, k0):
+__device__ __forceinline__ uint32_t a_addr(uint32_t base, int ld, int m0,
+                                           int k0, int lane) {
+  return base + 2u * ((m0 + (lane & 15)) * ld + k0 + 8 * (lane >> 4));
+}
+// A operand (16 x 16) at (m0, k0) of a tile stored k-major (row k, m
+// contiguous), read with .trans:
+__device__ __forceinline__ uint32_t at_addr(uint32_t base, int ld, int m0,
+                                            int k0, int lane) {
+  const int mi = lane >> 3;
+  return base + 2u * ((k0 + (lane & 7) + 8 * (mi >> 1)) * ld + m0 +
+                      8 * (mi & 1));
+}
+// B operands of two n-tiles (n0 and n0 + 8, k 16) of a tile stored n-major
+// (row n, k contiguous): r[0], r[1] for n0 and r[2], r[3] for n0 + 8
+__device__ __forceinline__ uint32_t bn_addr(uint32_t base, int ld, int n0,
+                                            int k0, int lane) {
+  const int mi = lane >> 3;
+  return base + 2u * ((n0 + (lane & 7) + 8 * (mi >> 1)) * ld + k0 +
+                      8 * (mi & 1));
+}
+// the same from a tile stored k-major (row k, n contiguous), with .trans
+__device__ __forceinline__ uint32_t bk_addr(uint32_t base, int ld, int n0,
+                                            int k0, int lane) {
+  const int mi = lane >> 3;
+  return base + 2u * ((k0 + (lane & 7) + 8 * (mi & 1)) * ld + n0 +
+                      8 * (mi >> 1));
+}
+
+// The bf16 planes of one staged tile, `ld` elements a row
+struct Planes {
+  __nv_bfloat16* p[MAX_PLANES];
+  int ld;
+  __device__ uint32_t at(int i) const { return smem_u32(p[i]); }
+};
+
+// The planes' sum at (r, c) and (r, c + 1) (c even)
+template <int NP>
+__device__ __forceinline__ float2 sum_at(const Planes& t, int r, int c) {
+  float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float2 u = unpack(*reinterpret_cast<const uint32_t*>(
+        t.p[i] + r * t.ld + c));
+    v.x += u.x;
+    v.y += u.y;
+  }
+  return v;
+}
+
+// Rows [0, LP) x columns [0, up16(cols)) of a (rows, cols) input with row
+// stride `rs` into the NP planes of `t`, zero past `rows` and `cols`.
+template <typename T, int NP>
+__device__ void stage(const Planes& t, const T* __restrict__ g,
+                      long long rs, int rows, int LP, int cols, bool vec) {
+  const int c8 = up16(cols) / 8;  // 8-column groups
+  for (int i = threadIdx.x; i < LP * c8; i += THREADS) {
+    const int r = i / c8, c = 8 * (i - r * c8);
+    float v[8];
+    const T* src = g + r * rs + c;
+    if (r < rows && vec && c + 8 <= cols) {
+      if constexpr (sizeof(T) == 2) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack(w[e]);
+          v[2 * e] = f.x;
+          v[2 * e + 1] = f.y;
+        }
+      } else {
+        const float4 a = *reinterpret_cast<const float4*>(src);
+        const float4 b = *reinterpret_cast<const float4*>(src + 4);
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (r < rows && c + e < cols) ? to_f32(src[e]) : 0.f;
+    }
+    uint32_t pl[4][NP];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<NP>(v[2 * e], v[2 * e + 1], pl[e]);
+#pragma unroll
+    for (int i2 = 0; i2 < NP; ++i2)
+      *reinterpret_cast<uint4*>(t.p[i2] + r * t.ld + c) =
+          make_uint4(pl[0][i2], pl[1][i2], pl[2][i2], pl[3][i2]);
+  }
+}
+
+// Everything one block knows about its sequence.
+template <typename T>
+struct Seq {
+  const T* x;
+  const float* dt;
+  const T* Bg;
+  const T* Cg;
+  int h;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ssd_scan_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int L = a.L, P = a.P, N = a.N, NS = N + 1;
-  float* s_state = smem;           // P x NS
-  float* s_C = s_state + P * NS;   // L x NS
-  float* s_B = s_C + L * NS;       // L x NS
-  float* s_x = s_B + L * NS;       // L x P
-  float* s_g = s_x + L * P;        // g_rows(L) x L
-  float* s_dt = s_g + g_rows(L) * L;
-  float* s_cum = s_dt + L;
-  float* s_w = s_cum + L;          // exp(cum_L - cum_s) dt_s
-
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+__device__ Seq<T> seq_of(const Args& a, int b, int h) {
   const int grp = h / (a.H / a.G);
-  const float Ah = a.A[h], Dh = a.D[h];
-  const T* xg = static_cast<const T*>(a.x) + b * a.xs_b + h * a.xs_h;
-  const float* dtg = a.dt + b * a.ds_b + h;
-  const T* Bg = static_cast<const T*>(a.Bm) + b * a.bs_b + grp * a.bs_g;
-  const T* Cg = static_cast<const T*>(a.Cm) + b * a.cs_b + grp * a.cs_g;
-  const long long y_row = (long long)a.H * P;  // y is (B, S, H, P) dense
-  T* yg = static_cast<T*>(a.y) + (long long)b * a.S * y_row +
-          (long long)h * P;
+  Seq<T> s;
+  s.x = static_cast<const T*>(a.x) + b * a.xs_b + h * a.xs_h;
+  s.dt = a.dt + b * a.ds_b + h;
+  s.Bg = static_cast<const T*>(a.Bm) + b * a.bs_b + grp * a.bs_g;
+  s.Cg = static_cast<const T*>(a.Cm) + b * a.cs_b + grp * a.cs_g;
+  s.h = h;
+  return s;
+}
 
-  for (int i = threadIdx.x; i < P * NS; i += THREADS) s_state[i] = 0.f;
-
-  const int nc = (a.S + L - 1) / L;
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * L;
-    const int nv = min(L, a.S - t0);  // rows of this chunk inside S
-    for (int i = threadIdx.x; i < L * N; i += THREADS) {
-      const int t = i / N, n = i - t * N;
-      float bv = 0.f, cv = 0.f;
-      if (t < nv) {
-        bv = to_f32(Bg[(t0 + t) * a.bs_s + n]);
-        cv = to_f32(Cg[(t0 + t) * a.cs_s + n]);
-      }
-      s_B[t * NS + n] = bv;
-      s_C[t * NS + n] = cv;
+// From the staged dt of the chunk's rows (0 past S): its inclusive cumsum
+// of dt * A as a warp scan (warp 0), and w_s = exp(cum_L - cum_s) dt_s.
+// Starts and ends synced.
+__device__ void chunk_decay(int LP, float Ah, const float* s_dt,
+                            float* s_cum, float* s_w) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int run = (LP + 31) / 32;  // rows of each lane, in order
+    const int r0 = lane * run, r1 = min(LP, r0 + run);
+    float tot = 0.f;
+    for (int t = r0; t < r1; ++t) tot = __fadd_rn(tot, __fmul_rn(s_dt[t], Ah));
+    // inclusive scan of the lanes' totals, a fixed shuffle ladder
+    float inc = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc = __fadd_rn(inc, o);
     }
-    for (int i = threadIdx.x; i < L * P; i += THREADS) {
-      const int t = i / P, p = i - t * P;
-      s_x[i] = t < nv ? to_f32(xg[(t0 + t) * a.xs_s + p]) : 0.f;
+    // the runs before this lane's, then its own rows in order
+    float acc = __shfl_up_sync(0xffffffffu, inc, 1);
+    if (lane == 0) acc = 0.f;
+    for (int t = r0; t < r1; ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(s_dt[t], Ah));
+      s_cum[t] = acc;
     }
-    for (int t = threadIdx.x; t < L; t += THREADS)
-      s_dt[t] = t < nv ? dtg[(t0 + t) * a.ds_s] : 0.f;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      // a = dt * A, then its running sum, each rounded on its own (no FMA)
-      float run = 0.f;
-      for (int t = 0; t < L; ++t) {
-        run = __fadd_rn(run, __fmul_rn(s_dt[t], Ah));
-        s_cum[t] = run;
-      }
-    }
-    __syncthreads();
-    const float cum_last = s_cum[L - 1];
-    for (int s = threadIdx.x; s < L; s += THREADS)
-      s_w[s] = expf(cum_last - s_cum[s]) * s_dt[s];
-
-    // y, RB rows of g at a time; rows past S are neither built nor stored
-    for (int r0 = 0; r0 < nv; r0 += RB) {
-      const int rn = min(RB, nv - r0);
-      const int groups = (rn + TB - 1) / TB;
-      const int cols = r0 + rn;  // g[t, s] is 0 for s > t
-      for (int i = threadIdx.x; i < groups * cols; i += THREADS) {
-        const int tg = i / cols, s = i - tg * cols;
-        const int t1 = r0 + tg * TB;  // first row of the register block
-        float acc[TB];
-#pragma unroll
-        for (int j = 0; j < TB; ++j) acc[j] = 0.f;
-        if (s < t1 + TB) {
-          const float* bs = s_B + s * NS;
-          const float* cr[TB];
-#pragma unroll
-          for (int j = 0; j < TB; ++j) cr[j] = s_C + min(t1 + j, L - 1) * NS;
-          for (int n = 0; n < N; ++n) {
-            const float bv = bs[n];
-#pragma unroll
-            for (int j = 0; j < TB; ++j) acc[j] = fmaf(cr[j][n], bv, acc[j]);
-          }
-        }
-        const float dts = s_dt[s], cs = s_cum[s];
-#pragma unroll
-        for (int j = 0; j < TB; ++j) {
-          const int t = t1 + j;
-          if (t < cols)
-            s_g[(t - r0) * L + s] =
-                s <= t ? acc[j] * expf(fminf(s_cum[t] - cs, 0.f)) * dts : 0.f;
-        }
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < groups * P; i += THREADS) {
-        const int tg = i / P, p = i - tg * P;
-        const int tl = tg * TB, t1 = r0 + tl;
-        float intra[TB], inter[TB];
-#pragma unroll
-        for (int j = 0; j < TB; ++j) intra[j] = inter[j] = 0.f;
-        const int s_end = min(t1 + TB, cols);
-        for (int s = 0; s < s_end; ++s) {
-          const float xv = s_x[s * P + p];
-#pragma unroll
-          for (int j = 0; j < TB; ++j)
-            intra[j] = fmaf(s_g[(tl + j) * L + s], xv, intra[j]);
-        }
-        const float* cr[TB];
-#pragma unroll
-        for (int j = 0; j < TB; ++j) cr[j] = s_C + min(t1 + j, L - 1) * NS;
-        const float* st = s_state + p * NS;
-        for (int n = 0; n < N; ++n) {
-          const float sv = st[n];
-#pragma unroll
-          for (int j = 0; j < TB; ++j) inter[j] = fmaf(cr[j][n], sv, inter[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < TB; ++j) {
-          const int t = t1 + j;
-          if (t < cols) {
-            const float v = expf(s_cum[t]) * inter[j] + intra[j] +
-                            Dh * s_x[t * P + p];
-            yg[(long long)(t0 + t) * y_row + p] = from_f32<T>(v);
-          }
-        }
-      }
-      __syncthreads();  // s_g is rebuilt for the next rows
-    }
-
-    // state' = exp(cum_L) state + sum_s x_s (x) B_s w_s; rows past S have
-    // w = 0 and are skipped
-    const float decay = expf(cum_last);
-    const int pgroups = (P + TB - 1) / TB;
-    for (int i = threadIdx.x; i < pgroups * N; i += THREADS) {
-      const int pg = i / N, n = i - pg * N;
-      const int p1 = pg * TB;
-      float acc[TB];
-#pragma unroll
-      for (int j = 0; j < TB; ++j) acc[j] = 0.f;
-      for (int s = 0; s < nv; ++s) {
-        const float bw = s_B[s * NS + n] * s_w[s];
-        const float* xr = s_x + s * P;
-#pragma unroll
-        for (int j = 0; j < TB; ++j)
-          acc[j] = fmaf(xr[min(p1 + j, P - 1)], bw, acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < TB; ++j) {
-        const int p = p1 + j;
-        if (p < P) s_state[p * NS + n] = decay * s_state[p * NS + n] + acc[j];
-      }
-    }
-    __syncthreads();  // the next chunk overwrites the tiles
   }
+  __syncthreads();
+  const float last = s_cum[LP - 1];
+  for (int t = threadIdx.x; t < LP; t += THREADS)
+    s_w[t] = expf(last - s_cum[t]) * s_dt[t];
+  __syncthreads();
+}
 
-  if (a.state_out != nullptr) {
-    float* so = a.state_out + ((long long)b * a.H + h) * P * N;
-    for (int i = threadIdx.x; i < P * N; i += THREADS) {
-      const int p = i / N, n = i - p * N;
-      so[i] = s_state[p * NS + n];
+// The warp's strip of the state: rows p0 .. p0 + 15, columns n0 .. n0 + 63
+// (8 tiles of 8), float32 accumulator fragments.
+struct Strip {
+  int p0, n0;
+  bool own;  // this warp owns a strip
+};
+
+__device__ __forceinline__ Strip strip_of(int warp, int P, int N) {
+  const int nb = (up16(N) + 63) / 64;
+  Strip s;
+  s.p0 = 16 * (warp / nb);
+  s.n0 = 64 * (warp % nb);
+  s.own = s.p0 < up16(P);
+  return s;
+}
+
+// state (strip) = decay * state + (x o w)^T . B over the chunk's rows;
+// `fresh`: the state is zero, nothing to decay. sX, sB: staged tiles. The
+// rows of x are scaled by w (and split) in the A fragment, which every
+// n-tile of the k-step shares; B stays as staged.
+template <typename T>
+__device__ void update_state(float (&st)[8][4], const Strip& sp, bool fresh,
+                             float decay, const Planes& sX, const Planes& sB,
+                             const float* s_w, int LP, int NP, int lane) {
+  using Pr = Prec<T>;
+  if (!sp.own) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = fresh ? 0.f : st[j][e] * decay;
+  const int c = lane & 3;
+  for (int k0 = 0; k0 < LP; k0 += 16) {
+    // every fragment of this k-step first, then the products
+    uint32_t ax[Pr::IN][4], r[4][Pr::IN][4];
+#pragma unroll
+    for (int i = 0; i < Pr::IN; ++i)
+      ldsm4t(ax[i], at_addr(sX.at(i), sX.ld, sp.p0, k0, lane));
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (sp.n0 + 16 * jj < NP)
+#pragma unroll
+        for (int i = 0; i < Pr::IN; ++i)
+          ldsm4t(r[jj][i], bk_addr(sB.at(i), sB.ld, sp.n0 + 16 * jj, k0,
+                                   lane));
+    // A fragment rows p, columns k: a0, a1 at k0 + 2c, +1; a2, a3 at
+    // k0 + 8 + 2c, +1
+    const float w0 = s_w[k0 + 2 * c], w1 = s_w[k0 + 2 * c + 1];
+    const float w8 = s_w[k0 + 8 + 2 * c], w9 = s_w[k0 + 9 + 2 * c];
+    uint32_t a[Pr::CMP][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < Pr::IN; ++i) {
+        const float2 u = unpack(ax[i][e]);
+        v.x += u.x;
+        v.y += u.y;
+      }
+      uint32_t pl[Pr::CMP];
+      split<Pr::CMP>(v.x * (e < 2 ? w0 : w8), v.y * (e < 2 ? w1 : w9), pl);
+#pragma unroll
+      for (int i = 0; i < Pr::CMP; ++i) a[i][e] = pl[i];
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (sp.n0 + 16 * jj < NP)
+        mma_planes<Pr::CMP, Pr::IN, Pr::ORDER>(st[2 * jj], st[2 * jj + 1], a,
+                                               r[jj]);
+  }
+}
+
+// The strip to or from a dense (P, N) float32 array in 16-byte accesses:
+// lane pairs swap halves so each lane holds four neighbouring columns of
+// one row (the even lane of row g, the odd one of row g + 8).
+template <bool STORE>
+__device__ void strip_io(float (&st)[8][4], const Strip& sp,
+                         float* __restrict__ g, int P, int N, int lane) {
+  if (!sp.own) return;
+  if (!STORE) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = 0.f;  // columns past N stay 0
+  }
+  const int gr = lane >> 2, c = lane & 3;
+  const bool odd = c & 1;
+  const int row = sp.p0 + gr + (odd ? 8 : 0);
+  const bool vec = (N & 3) == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = sp.n0 + 8 * j + 2 * (c & ~1);
+    if (sp.n0 + 8 * j >= N) break;
+    float q[4];
+    if (STORE) {
+      // even lanes send their row-g+8 pair, odd lanes their row-g pair
+      const float s0 =
+          __shfl_xor_sync(0xffffffffu, odd ? st[j][0] : st[j][2], 1);
+      const float s1 =
+          __shfl_xor_sync(0xffffffffu, odd ? st[j][1] : st[j][3], 1);
+      q[0] = odd ? s0 : st[j][0];
+      q[1] = odd ? s1 : st[j][1];
+      q[2] = odd ? st[j][2] : s0;
+      q[3] = odd ? st[j][3] : s1;
+      if (row < P) {
+        if (vec && col + 4 <= N) {
+          *reinterpret_cast<float4*>(g + (long long)row * N + col) =
+              make_float4(q[0], q[1], q[2], q[3]);
+        } else {
+          for (int e = 0; e < 4; ++e)
+            if (col + e < N) g[(long long)row * N + col + e] = q[e];
+        }
+      }
+    } else {
+      for (int e = 0; e < 4; ++e) q[e] = 0.f;
+      if (row < P) {
+        if (vec && col + 4 <= N) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(g + (long long)row * N + col);
+          q[0] = v.x; q[1] = v.y; q[2] = v.z; q[3] = v.w;
+        } else {
+          for (int e = 0; e < 4; ++e)
+            if (col + e < N) q[e] = g[(long long)row * N + col + e];
+        }
+      }
+      // back to the fragment: the even lane keeps row g, the odd row g + 8
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? q[0] : q[2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? q[1] : q[3], 1);
+      if (odd) {
+        st[j][0] = s0; st[j][1] = s1; st[j][2] = q[2]; st[j][3] = q[3];
+      } else {
+        st[j][0] = q[0]; st[j][1] = q[1]; st[j][2] = s0; st[j][3] = s1;
+      }
     }
   }
 }
 
-template <typename T>
-int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  static bool configured = false;  // the opt-in limit, set once per type
-  if (!configured) {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        optin);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+// The strip's bf16 planes for C . state^T (rows p, columns n).
+template <int NP>
+__device__ void strip_planes(const float (&st)[8][4], const Strip& sp,
+                             const Planes& sS, int NPad, int lane) {
+  if (!sp.own) return;
+  const int gr = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (sp.n0 + 8 * j >= NPad) break;
+    const int col = sp.n0 + 8 * j + 2 * c;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      uint32_t pl[NP];
+      split<NP>(st[j][2 * hh], st[j][2 * hh + 1], pl);
+      const int r = sp.p0 + gr + 8 * hh;
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        *reinterpret_cast<uint32_t*>(sS.p[i] + r * sS.ld + col) = pl[i];
+    }
   }
-  ssd_scan_kernel<T><<<(unsigned)(a.B * a.H), THREADS, smem, stream>>>(a);
+}
+
+// y of one strip (rows t0 .. t0 + 15, columns p0 .. p0 + 8 PT - 1) of the
+// chunk:
+// C . state^T decayed by exp(cum_t) (carry), the causal scores SBW columns
+// at a time, decayed, masked and split in registers, times x, and D x.
+template <typename T, int SBW, int PT, bool CARRY>
+__device__ void y_strip(const Args& a, T* __restrict__ yc, int nv, int t0,
+                        int p0, bool carry, const Planes& sC,
+                        const Planes& sB, const Planes& sX, const Planes& sS,
+                        const float* s_dt, const float* s_cum, float Dh,
+                        int LP, int PP, int NP, int lane) {
+  using Pr = Prec<T>;
+  const int gr = lane >> 2, c = lane & 3;
+  float acc[PT][4];
+#pragma unroll
+  for (int j = 0; j < PT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const float cum0 = s_cum[t0 + gr], cum8 = s_cum[t0 + gr + 8];
+
+  if (CARRY && carry) {
+    // C . state^T over k = n; each k-step's fragments first
+    for (int k0 = 0; k0 < NP; k0 += 16) {
+      uint32_t ca[Pr::IN][4], r[PT / 2][Pr::CMP][4];
+#pragma unroll
+      for (int i = 0; i < Pr::IN; ++i)
+        ldsm4(ca[i], a_addr(sC.at(i), sC.ld, t0, k0, lane));
+#pragma unroll
+      for (int jj = 0; jj < PT / 2; ++jj)
+        if (p0 + 16 * jj < PP)
+#pragma unroll
+          for (int i = 0; i < Pr::CMP; ++i)
+            ldsm4(r[jj][i], bn_addr(sS.at(i), sS.ld, p0 + 16 * jj, k0, lane));
+#pragma unroll
+      for (int jj = 0; jj < PT / 2; ++jj)
+        if (p0 + 16 * jj < PP)
+          mma_planes<Pr::IN, Pr::CMP, Pr::ORDER>(acc[2 * jj],
+                                                 acc[2 * jj + 1], ca, r[jj]);
+    }
+    const float e0 = expf(cum0), e8 = expf(cum8);
+#pragma unroll
+    for (int j = 0; j < PT; ++j) {
+      acc[j][0] *= e0;
+      acc[j][1] *= e0;
+      acc[j][2] *= e8;
+      acc[j][3] *= e8;
+    }
+  }
+
+  // the causal scores, SBW columns (s) at a time
+  constexpr int NS = SBW / 8;
+  for (int sb = 0; sb < t0 + 16; sb += SBW) {
+    const int ns = min(NS, (t0 + 16 - sb) / 8);  // n-tiles, s <= t0 + 15
+    float sc[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    for (int k0 = 0; k0 < NP; k0 += 16) {
+      uint32_t ca[Pr::IN][4], r[NS / 2][Pr::IN][4];
+#pragma unroll
+      for (int i = 0; i < Pr::IN; ++i)
+        ldsm4(ca[i], a_addr(sC.at(i), sC.ld, t0, k0, lane));
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj)
+        if (2 * jj < ns)
+#pragma unroll
+          for (int i = 0; i < Pr::IN; ++i)
+            ldsm4(r[jj][i], bn_addr(sB.at(i), sB.ld, sb + 16 * jj, k0, lane));
+#pragma unroll
+      for (int jj = 0; jj < NS / 2; ++jj)
+        if (2 * jj < ns)
+          mma_planes<Pr::IN, Pr::IN, Pr::ORDER>(sc[2 * jj], sc[2 * jj + 1],
+                                                ca, r[jj]);
+    }
+    // g[t, s] = (C_t . B_s) exp(min(cum_t - cum_s, 0)) dt_s for s <= t,
+    // split into A fragments; then y += g . x over k = s
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      if (2 * kk >= ns) break;
+      const int k0 = sb + 16 * kk;
+      // x's fragments first: their loads overlap the scores' decay
+      uint32_t rx[PT / 2][Pr::IN][4];
+#pragma unroll
+      for (int jj = 0; jj < PT / 2; ++jj)
+        if (p0 + 16 * jj < PP)
+#pragma unroll
+          for (int i = 0; i < Pr::IN; ++i)
+            ldsm4t(rx[jj][i], bk_addr(sX.at(i), sX.ld, p0 + 16 * jj, k0,
+                                      lane));
+      uint32_t ga[Pr::CMP][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 2 * kk + half;
+        const int s = sb + 8 * j + 2 * c;
+        const float cs0 = s_cum[s], cs1 = s_cum[s + 1];
+        const float d0 = s_dt[s], d1 = s_dt[s + 1];
+        float g4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + gr + 8 * (e >> 1);
+          const int ss = s + (e & 1);
+          const float ct = (e >> 1) ? cum8 : cum0;
+          const float cs = (e & 1) ? cs1 : cs0;
+          const float dts = (e & 1) ? d1 : d0;
+          g4[e] = ss <= t ? sc[j][e] * expf(fminf(ct - cs, 0.f)) * dts : 0.f;
+        }
+        // a0/a1: k 0-7 (n-tile 2kk), a2/a3: k 8-15 (n-tile 2kk + 1)
+        uint32_t lo[Pr::CMP], hi[Pr::CMP];
+        split<Pr::CMP>(g4[0], g4[1], lo);
+        split<Pr::CMP>(g4[2], g4[3], hi);
+#pragma unroll
+        for (int i = 0; i < Pr::CMP; ++i) {
+          ga[i][2 * half] = lo[i];
+          ga[i][2 * half + 1] = hi[i];
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < PT / 2; ++jj)
+        if (p0 + 16 * jj < PP)
+          mma_planes<Pr::CMP, Pr::IN, Pr::ORDER>(acc[2 * jj],
+                                                 acc[2 * jj + 1], ga, rx[jj]);
+    }
+  }
+
+  // + D x; store the rows inside S
+  const long long y_row = (long long)a.H * a.P;
+#pragma unroll
+  for (int j = 0; j < PT; ++j) {
+    const int p = p0 + 8 * j + 2 * c;
+    if (p0 + 8 * j >= PP) break;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = t0 + gr + 8 * hh;
+      if (t >= nv || p >= a.P) continue;
+      const float2 xv = sum_at<Pr::IN>(sX, t, p);
+      const float v0 = acc[j][2 * hh] + Dh * xv.x;
+      const float v1 = acc[j][2 * hh + 1] + Dh * xv.y;
+      T* out = yc + t * y_row + p;
+      if ((a.P & 1) == 0) {
+        if constexpr (sizeof(T) == 2) {
+          *reinterpret_cast<__nv_bfloat162*>(out) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        }
+      } else {
+        out[0] = from_f32<T>(v0);
+        if (p + 1 < a.P) out[1] = from_f32<T>(v1);
+      }
+    }
+  }
+}
+
+// One buffer of a chunk's staged tiles; dt[LP] and dt[LP + 1] hold the
+// sequence's A_h and D_h.
+struct Buf {
+  Planes C, B, X;
+  float* dt;
+};
+
+// The shared tiles of a block, carved from dynamic shared memory in the
+// order of smem_bytes: `nbuf` buffers, the state's planes, cum and w.
+struct Tiles {
+  Buf buf[2];
+  Planes S;
+  float *cum, *w;
+};
+
+template <typename T>
+__device__ Tiles carve(unsigned char* smem, bool pass3, bool carry, int nbuf,
+                       int L, int P, int N) {
+  using Pr = Prec<T>;
+  const int LP = up16(L), ldn = up16(N) + PAD, ldp = up16(P) + PAD;
+  unsigned char* p = smem;
+  auto take = [&](bool on, int rows, int ld, int planes) {
+    Planes t;
+    t.ld = ld;
+    for (int i = 0; i < MAX_PLANES; ++i) {
+      t.p[i] = (on && i < planes) ? reinterpret_cast<__nv_bfloat16*>(p)
+                                  : nullptr;
+      if (on && i < planes) p += 2 * rows * ld;
+    }
+    return t;
+  };
+  Tiles t;
+  for (int b = 0; b < 2; ++b) {
+    const bool on = b < nbuf;
+    t.buf[b].B = take(on, LP, ldn, Pr::IN);
+    t.buf[b].X = take(on, LP, ldp, Pr::IN);
+    t.buf[b].C = take(on && pass3, LP, ldn, Pr::IN);
+    t.buf[b].dt = reinterpret_cast<float*>(p);
+    if (on) p += 4 * (LP + 4);
+  }
+  t.S = take(pass3 && carry, up16(P), ldn, Pr::CMP);
+  t.cum = reinterpret_cast<float*>(p);
+  t.w = t.cum + LP;
+  return t;
+}
+
+// Asynchronous copies of a (rows, cols) bf16 input with row stride `rs`
+// into rows [0, LP) x columns [0, up16(cols)) of a one-plane tile, zero
+// past `rows` and `cols` (cols a multiple of 8, 16-byte aligned rows).
+__device__ void stage_async(const Planes& t, const __nv_bfloat16* g,
+                            long long rs, int rows, int LP, int cols) {
+  const int c8 = up16(cols) / 8;
+  const uint32_t base = t.at(0);
+  for (int i = threadIdx.x; i < LP * c8; i += THREADS) {
+    const int r = i / c8, c = 8 * (i - r * c8);
+    const bool in = r < rows && c < cols;
+    cp_async16(base + 2u * (r * t.ld + c), in ? g + r * rs + c : g,
+               in ? 16 : 0);
+  }
+}
+
+// Stage rows t0 .. t0 + nv - 1 of a sequence into `bf` (C and B where
+// asked: a buffer that holds them for the same batch row and group is not
+// staged again), with dt, A_h and D_h: with `async` (bf16 inputs read in
+// 16-byte vectors) as copies the caller commits and waits for, else now,
+// split into planes.
+template <typename T>
+__device__ void stage_chunk(const Args& a, const Seq<T>& sq, const Buf& bf,
+                            int t0, int nv, bool with_c, bool with_b,
+                            bool async) {
+  const int LP = up16(a.L);
+  if constexpr (sizeof(T) == 2) {
+    if (async) {
+      if (with_c)
+        stage_async(bf.C, sq.Cg + t0 * a.cs_s, a.cs_s, nv, LP, a.N);
+      if (with_b)
+        stage_async(bf.B, sq.Bg + t0 * a.bs_s, a.bs_s, nv, LP, a.N);
+      stage_async(bf.X, sq.x + t0 * a.xs_s, a.xs_s, nv, LP, a.P);
+      const uint32_t d = smem_u32(bf.dt);
+      const float* dt = sq.dt + t0 * a.ds_s;
+      for (int t = threadIdx.x; t < LP; t += THREADS)
+        cp_async4(d + 4u * t, t < nv ? dt + t * a.ds_s : dt, t < nv ? 4 : 0);
+      if (threadIdx.x == 0) {
+        cp_async4(d + 4u * LP, a.A + sq.h, 4);
+        cp_async4(d + 4u * (LP + 1), a.D + sq.h, 4);
+      }
+      return;
+    }
+  }
+  constexpr int IN = Prec<T>::IN;
+  if (with_c)
+    stage<T, IN>(bf.C, sq.Cg + t0 * a.cs_s, a.cs_s, nv, LP, a.N, a.vec);
+  if (with_b)
+    stage<T, IN>(bf.B, sq.Bg + t0 * a.bs_s, a.bs_s, nv, LP, a.N, a.vec);
+  stage<T, IN>(bf.X, sq.x + t0 * a.xs_s, a.xs_s, nv, LP, a.P, a.vec);
+  for (int t = threadIdx.x; t < LP; t += THREADS)
+    bf.dt[t] = t < nv ? sq.dt[(t0 + t) * a.ds_s] : 0.f;
+  if (threadIdx.x == 0) {
+    bf.dt[LP] = a.A[sq.h];
+    bf.dt[LP + 1] = a.D[sq.h];
+  }
+}
+
+// Buffers of a block: two (the next chunk's copies in flight while this
+// one is computed) where the staging is asynchronous, else one.
+template <typename T>
+__host__ __device__ inline int n_bufs(bool vec) {
+  return sizeof(T) == 2 && vec ? 2 : 1;
+}
+
+// The walk of a block over n items (chunks of one sequence, or one-chunk
+// sequences): item i's tiles staged by stage(i, buffer, async) (the next
+// item's copies issued first where there are two buffers), synced, then
+// body(i, buffer), then synced again.
+template <typename T, typename Stage, typename Body>
+__device__ void walk(const Args& a, const Tiles& tl, int n, Stage stage,
+                     Body body) {
+  const bool async = n_bufs<T>(a.vec) == 2;
+  if (async) {
+    stage(0, tl.buf[0], true);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    // (a select, not an index, keeps the tiles' pointers in registers)
+    const Buf bf = async && (i & 1) ? tl.buf[1] : tl.buf[0];
+    if (async) {
+      if (i + 1 < n) stage(i + 1, i & 1 ? tl.buf[0] : tl.buf[1], true);
+      cp_async_commit();
+      cp_async_wait<1>();  // item i's copies, not the next item's
+    } else {
+      stage(i, bf, false);
+    }
+    __syncthreads();
+    body(i, bf);
+    __syncthreads();  // every warp is done with the buffer and the planes
+  }
+}
+
+// Pass 1, one block per (b, group g < groups - 1, h): the group's chunks
+// from a zero state, the state update alone; its end state and its total
+// decay to scratch.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2) ssd_pass1_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ng1 = a.groups - 1;
+  const int h = blockIdx.x % a.H;
+  const int g = (blockIdx.x / a.H) % ng1;
+  const int b = blockIdx.x / (a.H * ng1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Seq<T> sq = seq_of<T>(a, b, h);
+  const Tiles tl = carve<T>(smem, false, false, n_bufs<T>(a.vec), a.L, a.P,
+                            a.N);
+  const int LP = up16(a.L), NP = up16(a.N);
+  const Strip sp = strip_of(warp, a.P, a.N);
+  float* const cum = tl.cum;
+  float* const w = tl.w;
+  float st[8][4];
+  float decay = 1.f;
+  const int c0 = g * a.per_group, c1 = c0 + a.per_group;  // all inside S
+  auto stage = [&](int i, const Buf& bf, bool async) {
+    const int t0 = (c0 + i) * a.L;
+    stage_chunk<T>(a, sq, bf, t0, min(a.L, a.S - t0), false, true, async);
+  };
+  walk<T>(a, tl, c1 - c0, stage, [&](int i, const Buf& bf) {
+    chunk_decay(LP, bf.dt[LP], bf.dt, cum, w);
+    const float dc = expf(cum[LP - 1]);
+    update_state<T>(st, sp, i == 0, dc, bf.X, bf.B, w, LP, NP, lane);
+    decay = i == 0 ? dc : decay * dc;
+  });
+  const long long slot = ((long long)b * a.H + h) * ng1 + g;
+  strip_io<true>(st, sp, a.ends + slot * a.P * a.N, a.P, a.N, lane);
+  if (threadIdx.x == 0) a.decays[slot] = decay;
+}
+
+// Pass 2: the incoming state of groups 1 .. groups - 1, per element, in
+// group order, over the end states in place (slot g becomes the incoming
+// state of group g + 1).
+__global__ void __launch_bounds__(THREADS) ssd_pass2_kernel(Args a) {
+  const long long PN = (long long)a.P * a.N;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (long long)a.B * a.H * PN) return;
+  const long long bh = i / PN, e = i - bh * PN;
+  const int ng1 = a.groups - 1;
+  float* ends = a.ends + bh * ng1 * PN + e;
+  const float* dec = a.decays + bh * ng1;
+  float run = ends[0];
+  for (int g = 1; g < ng1; ++g) {
+    run = fmaf(dec[g], run, ends[g * PN]);
+    ends[g * PN] = run;
+  }
+}
+
+// Pass 3, one block per (b, group, h): the group's chunks from its incoming
+// state (zero for group 0), y of every row, and after the last group's last
+// chunk the final state. Its strips of y are 64 columns wide.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) ssd_pass3_kernel(Args a) {
+  using Pr = Prec<T>;
+  constexpr int PT = 8;  // 8-column tiles of a y strip
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x % a.H;
+  const int g = (blockIdx.x / a.H) % a.groups;
+  const int b = blockIdx.x / (a.H * a.groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Seq<T> sq = seq_of<T>(a, b, h);
+  const int nc = (a.S + a.L - 1) / a.L;
+  const int c0 = g * a.per_group, c1 = min(nc, c0 + a.per_group);
+  const bool last = g == a.groups - 1;
+  // a state to carry: an incoming one, or more than one chunk
+  const bool carry = g > 0 || c1 - c0 > 1;
+  const Tiles tl = carve<T>(smem, true, carry, n_bufs<T>(a.vec), a.L, a.P,
+                            a.N);
+  const int LP = up16(a.L), PP = up16(a.P), NP = up16(a.N);
+  const Strip sp = strip_of(warp, a.P, a.N);
+  float* const cum = tl.cum;
+  float* const w = tl.w;
+  float st[8][4];
+  bool zero = g == 0;  // the state is still zero
+  if (!zero) {
+    const int ng1 = a.groups - 1;
+    const long long slot = ((long long)b * a.H + h) * ng1 + g - 1;
+    strip_io<false>(st, sp, a.ends + slot * a.P * a.N, a.P, a.N, lane);
+    strip_planes<Pr::CMP>(st, sp, tl.S, NP, lane);
+  }
+  T* yb = static_cast<T*>(a.y) + (long long)b * a.S * a.H * a.P +
+          (long long)h * a.P;
+  const int nyb = (PP + 8 * PT - 1) / (8 * PT);  // column blocks of y
+  bool planes = false;  // the state's planes are to be written
+  auto stage = [&](int i, const Buf& bf, bool async) {
+    const int t0 = (c0 + i) * a.L;
+    stage_chunk<T>(a, sq, bf, t0, min(a.L, a.S - t0), true, true, async);
+  };
+  walk<T>(a, tl, c1 - c0, stage, [&](int i, const Buf& bf) {
+    const int c = c0 + i, nv = min(a.L, a.S - c * a.L);
+    chunk_decay(LP, bf.dt[LP], bf.dt, cum, w);
+    if (planes) {
+      // the previous chunk's state, for this one's C . state^T (its
+      // readers of the old planes passed the walk's last sync)
+      strip_planes<Pr::CMP>(st, sp, tl.S, NP, lane);
+      __syncthreads();
+    }
+    T* yc = yb + (long long)c * a.L * a.H * a.P;
+    for (int s = warp; s < (LP / 16) * nyb; s += WARPS)
+      y_strip<T, SB_LONG, PT, true>(a, yc, nv, 16 * (s / nyb),
+                                    8 * PT * (s % nyb), !zero, bf.C, bf.B,
+                                    bf.X, tl.S, bf.dt, cum, bf.dt[LP + 1],
+                                    LP, PP, NP, lane);
+    planes = c + 1 < c1;
+    if (planes || (last && a.state_out != nullptr)) {
+      update_state<T>(st, sp, zero, expf(cum[LP - 1]), bf.X, bf.B, w,
+                      LP, NP, lane);
+      zero = false;
+    }
+  });
+  if (last && a.state_out != nullptr)
+    strip_io<true>(st, sp, a.state_out + ((long long)b * a.H + h) * a.P * a.N,
+                   a.P, a.N, lane);
+}
+
+// The serving path: every sequence one chunk from a zero state (one group).
+// Each block walks `per_block` of the B H sequences in turn (heads
+// fastest), the next one's copies in flight while this one is computed,
+// its y and final state stored as it goes, so that the stores of one
+// overlap the loads and products of the next. No state is carried, so the
+// kernel has no code for it; its strips of y are 16 columns wide (PT = 2
+// tiles): a short chunk's y spreads over four warps, each holding a
+// quarter of the accumulator.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2) ssd_one_kernel(Args a) {
+  constexpr int PT = 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * a.per_group;
+  const int n = min(a.B * a.H - q0, a.per_group);
+  const Tiles tl = carve<T>(smem, true, false, n_bufs<T>(a.vec), a.L, a.P,
+                            a.N);
+  const int LP = up16(a.L), PP = up16(a.P), NP = up16(a.N);
+  const Strip sp = strip_of(warp, a.P, a.N);
+  float* const cum = tl.cum;
+  float* const w = tl.w;
+  const int nyb = PP / (8 * PT);  // column blocks of y
+  // (batch row, group) whose C and B each buffer holds, -1 for none
+  int held[2] = {-1, -1};
+  auto stage = [&](int i, const Buf& bf, bool async) {
+    const int q = q0 + i, b = q / a.H, h = q % a.H;
+    const int key = b * a.G + h / (a.H / a.G);
+    int& hk = async && (i & 1) ? held[1] : held[0];
+    stage_chunk<T>(a, seq_of<T>(a, b, h), bf, 0, a.S, hk != key, hk != key,
+                   async);
+    hk = key;
+  };
+  walk<T>(a, tl, n, stage, [&](int i, const Buf& bf) {
+    const int q = q0 + i, b = q / a.H, h = q % a.H;
+    const float Dh = bf.dt[LP + 1];
+    chunk_decay(LP, bf.dt[LP], bf.dt, cum, w);
+    T* yc = static_cast<T*>(a.y) + (long long)b * a.S * a.H * a.P +
+            (long long)h * a.P;
+    for (int s = warp; s < (LP / 16) * nyb; s += WARPS)
+      y_strip<T, SB_SHORT, PT, false>(a, yc, a.S, 16 * (s / nyb),
+                                      8 * PT * (s % nyb), false, bf.C, bf.B,
+                                      bf.X, tl.S, bf.dt, cum, Dh, LP, PP,
+                                      NP, lane);
+    if (a.state_out != nullptr) {
+      float st[8][4];
+      update_state<T>(st, sp, true, 1.f, bf.X, bf.B, w, LP, NP, lane);
+      strip_io<true>(st, sp, a.state_out + (long long)q * a.P * a.N, a.P,
+                     a.N, lane);
+    }
+  });
+}
+
+template <typename Kernel>
+cudaError_t fit_smem(Kernel* kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+int launch(const Args& a, cudaStream_t stream) {
+  using Pr = Prec<T>;
+  const int nc = (a.S + a.L - 1) / a.L;
+  const bool carry = a.groups > 1 || nc > 1;
+  cudaError_t err;
+  if (a.groups > 1) {
+    const long long s1 = smem_bytes(false, Pr::IN, Pr::CMP, false,
+                                    n_bufs<T>(a.vec), a.L, a.P, a.N);
+    if ((err = fit_smem(ssd_pass1_kernel<T>, s1)) != cudaSuccess)
+      return (int)err;
+    ssd_pass1_kernel<T><<<(unsigned)(a.B * (a.groups - 1) * a.H), THREADS,
+                          s1, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const long long n = (long long)a.B * a.H * a.P * a.N;
+    if (a.groups > 2) {
+      ssd_pass2_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                         stream>>>(a);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  const long long s3 = smem_bytes(true, Pr::IN, Pr::CMP, carry,
+                                  n_bufs<T>(a.vec), a.L, a.P, a.N);
+  if (!carry) {
+    // one chunk per sequence: ONE_BLOCKS blocks (two an SM), each walking
+    // its share of the sequences
+    Args o = a;
+    o.per_group = (a.B * a.H + ONE_BLOCKS - 1) / ONE_BLOCKS;
+    const unsigned blocks = (unsigned)((a.B * a.H + o.per_group - 1) /
+                                       o.per_group);
+    if ((err = fit_smem(ssd_one_kernel<T>, s3)) != cudaSuccess) return (int)err;
+    ssd_one_kernel<T><<<blocks, THREADS, s3, stream>>>(o);
+  } else {
+    if ((err = fit_smem(ssd_pass3_kernel<T>, s3)) != cudaSuccess)
+      return (int)err;
+    ssd_pass3_kernel<T><<<(unsigned)(a.B * a.groups * a.H), THREADS, s3,
+                          stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory one block needs, in bytes (the wrapper checks it against
-// the card's limit before a launch).
-extern "C" long long ssd_scan_smem_bytes(int L, int P, int N) {
-  return 4LL * smem_floats(L, P, N);
+// Shared memory of the largest block of a call, in bytes (the wrapper
+// checks it against the card's limit before a launch).
+extern "C" long long ssd_scan_smem_bytes(int dtype, int L, int P, int N,
+                                         int carry, int vec) {
+  if (dtype == DT_F32)
+    return smem_bytes(true, Prec<float>::IN, Prec<float>::CMP, carry != 0,
+                      n_bufs<float>(vec != 0), L, P, N);
+  return smem_bytes(true, Prec<__nv_bfloat16>::IN, Prec<__nv_bfloat16>::CMP,
+                    carry != 0, n_bufs<__nv_bfloat16>(vec != 0), L, P, N);
 }
 
 // x: (B, S, H, P) and Bm, Cm: (B, S, G, N), one dtype (DT_F32 / DT_BF16),
 // strided with a unit last stride; dt: (B, S, H) float32 with unit H
 // stride; A, D: (H,) float32; y: (B, S, H, P) dense, x's dtype; state:
-// (B, H, P, N) float32 dense, or null. L = min(chunk, S). Returns
-// cudaGetLastError() after the launch.
+// (B, H, P, N) float32 dense, or null. L = min(chunk, S); the chunks are
+// cut into `groups` groups of `per_group` (kernels/autotune.py
+// ssd_groups); with groups > 1, scratch holds B H (groups - 1) (P N + 1)
+// floats. The state's strips need ceil(P / 16) ceil(N / 64) <= 8. `vec`:
+// x, B and C may be read in 16-byte vectors (aligned bases and strides, P
+// and N multiples of 8). Returns cudaGetLastError() after the launches.
 extern "C" int ssd_scan_launch(
     int dtype, const void* x, const void* dt, const void* A, const void* Bm,
-    const void* Cm, const void* D, void* y, void* state, int B, int S, int H,
-    int P, int G, int N, int L, long long xs_b, long long xs_s,
-    long long xs_h, long long ds_b, long long ds_s, long long bs_b,
-    long long bs_s, long long bs_g, long long cs_b, long long cs_s,
-    long long cs_g, void* stream) {
+    const void* Cm, const void* D, void* y, void* state, void* scratch,
+    int B, int S, int H, int P, int G, int N, int L, int per_group,
+    int groups, int vec, long long xs_b, long long xs_s, long long xs_h,
+    long long ds_b, long long ds_s, long long bs_b, long long bs_s,
+    long long bs_g, long long cs_b, long long cs_s, long long cs_g,
+    void* stream) {
+  const int nc = (S > 0 && L > 0) ? (S + L - 1) / L : 0;
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || G <= 0 || L <= 0 ||
-      H % G != 0 || (long long)B * H > 0x7fffffffLL)
+      H % G != 0 || per_group <= 0 || groups <= 0 ||
+      (long long)(groups - 1) * per_group >= nc ||
+      (long long)groups * per_group < nc ||
+      (long long)B * H * groups > 0x7fffffffLL ||
+      ((up16(P) / 16) * ((up16(N) + 63) / 64)) > WARPS ||
+      (groups > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
+  const long long ends = (long long)B * H * (groups - 1) * P * N;
+  float* sc = static_cast<float*>(scratch);
   Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm,
          Cm, static_cast<const float*>(D), y, static_cast<float*>(state),
-         B, S, H, P, G, N, L, xs_b, xs_s, xs_h, ds_b, ds_s, bs_b, bs_s, bs_g,
-         cs_b, cs_s, cs_g};
-  const size_t smem = 4 * (size_t)smem_floats(L, P, N);
+         sc, sc == nullptr ? nullptr : sc + ends,
+         B, S, H, P, G, N, L, per_group, groups, vec,
+         xs_b, xs_s, xs_h, ds_b, ds_s, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(a, smem, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(a, smem, s);
+  if (dtype == DT_F32) return launch<float>(a, s);
+  if (dtype == DT_BF16) return launch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,13 +14,15 @@ chosen by dtype, and both are launched and counted:
 
 * bf16: the tensor-core kernel (``fa_wgmma_kernel``: wgmma products, TMA
   loads). It takes a head_dim in ``BF16_HEAD_DIMS`` (multiples of 8 up to
-  256: tiles of 64, 128, 192 or 256 columns, zero-padded past D) and reads
+  256: tiles of 64, 128, 192 or 256 columns, zero-padded past D), a value
+  head dim whose tile pairs with it in ``BF16_TILE_PAIRS`` (the same tile,
+  or 192 with 128: MLA's q, k of 192 and v of 128), and reads
   q, k and v through TMA tensor maps, so every base address and every
   batch, head and sequence stride must be a multiple of 16 bytes. It rounds
   P to bf16 before P . V, as the JAX model's XLA path does (ROADMAP §3
   item 7): :func:`ref.flash_attention_bf16p_ref` is that arithmetic.
-* float32: the CUDA-core kernel (``fa_f32_kernel``), any head_dim up to
-  ``MAX_HEAD_DIM``.
+* float32: the CUDA-core kernel (``fa_f32_kernel``), any head_dim and
+  value head dim up to ``MAX_HEAD_DIM``.
 
 Both read q, k and v through their batch, head and sequence strides, so
 the model's ``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views
@@ -39,12 +41,14 @@ from . import _cuda
 from . import ref
 
 __all__ = ["flash_attention", "build", "LAUNCHES", "reset_launches",
-           "MAX_HEAD_DIM", "BF16_HEAD_DIMS"]
+           "MAX_HEAD_DIM", "BF16_HEAD_DIMS", "BF16_TILE_PAIRS"]
 
 MAX_HEAD_DIM = 256   # both kernels' widest tile
 # head dims of the bf16 kernel's instances: tiles of 64, 128, 192 and 256
 # columns, each taking the multiples of 8 up to its width
 BF16_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
+# (q/k tile, v tile) of the bf16 kernel's instances (csrc/attention.cu)
+BF16_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128), (256, 256))
 
 # kernel launches since the last reset_launches()
 LAUNCHES = {"flash_attention": 0}
@@ -58,7 +62,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, cll, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
     lib.flash_attention_launch.argtypes = ([ci, vp, vp, vp, vp]
-                                           + [ci] * 6 + [cll] * 9
+                                           + [ci] * 7 + [cll] * 9
                                            + [ci, ci, cf, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci,
@@ -71,11 +75,17 @@ def build() -> ctypes.CDLL:
     return _cuda.build("attention", ("dtype.cuh", "wgmma.cuh"), bind=_bind)
 
 
+def _bf16_tile(d: int) -> int:
+    return next(t for t in (64, 128, 192, MAX_HEAD_DIM) if d <= t)
+
+
 def _check_args(q, k, v, causal, window):
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D) and k, v "
-                         f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if (q.ndim != 4 or k.ndim != 4 or v.ndim != 4
+            or v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D), k "
+                         f"(B, Hkv, Sk, D) and v (B, Hkv, Sk, Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} need "
@@ -107,8 +117,8 @@ def _strides(t):
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     sm_scale: Optional[float] = None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's
-    dtype. ``sm_scale`` defaults to ``D ** -0.5``."""
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv) ->
+    (B, Hq, Sq, Dv) in q's dtype. ``sm_scale`` defaults to ``D ** -0.5``."""
     _check_args(q, k, v, causal, window)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -116,15 +126,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype == torch.bfloat16:
-        if D not in BF16_HEAD_DIMS:
-            raise ValueError(f"the bf16 kernel takes head_dim in 8, 16, ..., "
+        if D not in BF16_HEAD_DIMS or Dv not in BF16_HEAD_DIMS:
+            raise ValueError(f"the bf16 kernel takes head dims in 8, 16, ..., "
                              f"{MAX_HEAD_DIM} (multiples of 8: tiles of 64, "
-                             f"128, 192 and 256), got {D}")
-    elif D > MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, "
-                         f"got {D}")
+                             f"128, 192 and 256), got D={D}, Dv={Dv}")
+        pair = (_bf16_tile(D), _bf16_tile(Dv))
+        if pair not in BF16_TILE_PAIRS:
+            raise ValueError(f"the bf16 kernel has no instance for D={D} "
+                             f"with Dv={Dv} (tiles {pair}); its (q/k, v) "
+                             f"tiles are {BF16_TILE_PAIRS}")
+    elif max(D, Dv) > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims <= {MAX_HEAD_DIM}, "
+                         f"got D={D}, Dv={Dv}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the kernel takes q, k and v with unit stride on "
                          "D (any strides on B, H and S)")
@@ -138,13 +153,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     # a window of Sq or more masks nothing beyond causal: pass it as none
     win = -1 if window is None or window >= Sq else int(window)
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build().flash_attention_launch(
         _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+        out.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv,
         *strides[0], *strides[1], *strides[2],
         int(causal), win, float(scale), stream)
     _cuda.check(err, "flash_attention")

@@ -14,12 +14,16 @@ each kernel: normal, lognormal, drift, empirical and defective (5 forward,
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the kernel's plain version from ``kernels/ref.py``. Nothing else
-selects the path. The fused kernel is three launches per call, spread over
-the card by ``autotune.lookup_split`` (``csrc/frontier_grid.cu`` says how).
+selects the path. Both are split across the card by
+``autotune.lookup_split`` (``csrc/frontier_grid.cu`` says how): the forward
+moments in two launches per call (pass 1 over tiles of grid points, an
+epilogue), the fused kernel in three. On the card num_t may be up to
+``autotune.MAX_NUM_T``; the plain path takes any num_t >= 2.
 The shared library is built with ``nvcc`` for ``sm_90a``
 at the first launch by ``kernels/_cuda.py`` (importing this module needs
 neither ``nvcc`` nor a card), and bound with ``ctypes``. ``LAUNCHES``
-counts the wrappers' kernel launches per mode; :func:`launch_fwd` and
+counts the wrappers' calls per mode (each call is two or three kernel
+launches, ``autotune.split_blocks``); :func:`launch_fwd` and
 :func:`launch_grad` launch a given library uncounted (``chip_smoke.py``
 times a float32-sum build with them).
 """
@@ -41,7 +45,7 @@ __all__ = ["frontier_grid", "frontier_grid_with_grads", "launch_fwd",
 # float32 operation as the plain version's tensor operations do
 NVCC_FLAGS = _cuda.ARCH_FLAGS + ("--fmad=false",)
 
-# launches of each kernel mode since the last reset_launches()
+# calls of each kernel mode since the last reset_launches()
 LAUNCHES = {"fwd": 0, "grad": 0, "pgrad": 0}
 
 
@@ -62,7 +66,7 @@ def build(defines: tuple = ()) -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fg_forward.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci,
-                               vp, vp, vp]
+                               ci, vp, vp, ctypes.c_longlong, vp]
     lib.fg_forward.restype = ci
     lib.fg_grad.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci,
                             ci, ci, ci, ci, vp, vp, vp, ctypes.c_longlong,
@@ -85,9 +89,8 @@ def _prepare(W, mus, sigmas, extra, dist_id: str, num_t: int):
     F, K = W.shape
     if F < 1 or K < 1:
         raise ValueError(f"W must have rows and channels, got {(F, K)}")
-    if not 2 <= num_t <= autotune.MAX_NUM_T:
-        raise ValueError(f"num_t must lie in [2, {autotune.MAX_NUM_T}], "
-                         f"got {num_t}")
+    if num_t < 2:
+        raise ValueError(f"num_t must be >= 2, got {num_t}")
     per_row = mus.ndim == 2
     want_stat = (F, K) if per_row else (K,)
     E = dists.extra_rows(dist_id)
@@ -115,7 +118,7 @@ def frontier_grid(W, mus, sigmas, extra, *, num_t: int = 1024,
     """(mu, var), each (F,), for candidate splits W (F, K).
 
     ``mus``/``sigmas`` (K,) shared or (F, K) per-row; ``extra`` (E, K) or
-    (E, F, K). Threads per block come from ``kernels.autotune``.
+    (E, F, K). The launch shapes come from ``kernels.autotune``.
     """
     W, mus, sigmas, extra, per_row = _prepare(W, mus, sigmas, extra, dist_id,
                                               num_t)
@@ -132,20 +135,22 @@ def frontier_grid(W, mus, sigmas, extra, *, num_t: int = 1024,
 
 def launch_fwd(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                z: float, dist_id: str):
-    """One launch of the forward kernel of ``lib`` (a :func:`build`
-    library) on checked CUDA inputs; not counted in ``LAUNCHES``."""
+    """One call of the forward kernel of ``lib`` (a :func:`build` library)
+    on checked CUDA inputs: two launches (pass 1, epilogue) in the split of
+    ``autotune.launch_plan``; not counted in ``LAUNCHES``."""
     F, K = W.shape
-    th = autotune.lookup(F, K, num_t, mode="fwd", dist_id=dist_id)
-    autotune.check_launch(th, num_t, "fwd", dist_id)
-    mu = torch.empty((F,), dtype=torch.float32, device=W.device)
-    var = torch.empty_like(mu)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
+    th, split, n_scratch = autotune.launch_plan(F, K, num_t, "fwd", dist_id)
+    dev = W.device
+    stats = torch.empty((2, F), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_scratch,), dtype=lib.acc_dtype, device=dev)
     err = lib.fg_forward(dists.DIST_IDS[dist_id], W.data_ptr(),
                          mus.data_ptr(), sigmas.data_ptr(), extra.data_ptr(),
                          int(per_row), F, K, num_t, float(z), th,
-                         mu.data_ptr(), var.data_ptr(), stream)
+                         split.points, stats.data_ptr(), scratch.data_ptr(),
+                         n_scratch,
+                         torch._C._cuda_getCurrentRawStream(dev.index))
     _cuda.check(err, "frontier forward")
-    return mu, var
+    return stats[0], stats[1]
 
 
 def frontier_grid_with_grads(W, mus, sigmas, extra, *, num_t: int = 1024,
@@ -174,10 +179,10 @@ def launch_grad(lib, W, mus, sigmas, extra, per_row: bool, *, num_t: int,
                 z: float, dist_id: str, param_grads: bool):
     """One call of the fused kernel of ``lib`` (a :func:`build` library) on
     checked CUDA inputs: three launches (pass 1, pass 2, epilogue) in the
-    split of ``autotune.grad_plan``; not counted in ``LAUNCHES``."""
+    split of ``autotune.launch_plan``; not counted in ``LAUNCHES``."""
     mode = "pgrad" if param_grads else "grad"
     F, K = W.shape
-    th, split, n_scratch = autotune.grad_plan(F, K, num_t, mode, dist_id)
+    th, split, n_scratch = autotune.launch_plan(F, K, num_t, mode, dist_id)
     dev = W.device
     # three allocations: mu and var, the adjoints, the scratch
     stats = torch.empty((2, F), dtype=torch.float32, device=dev)

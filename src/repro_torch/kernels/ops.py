@@ -209,7 +209,8 @@ def frontier_moments_with_grads(W, mus, sigmas, *, num_t: int = 1024,
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               sm_scale: Optional[float] = None):
-    """GQA flash attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D)."""
+    """GQA flash attention. q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v:
+    (B, Hkv, Sk, Dv) -> (B, Hq, Sq, Dv)."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                sm_scale=sm_scale)
 

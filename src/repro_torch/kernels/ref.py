@@ -228,8 +228,9 @@ def frontier_grid_with_grads_ref(W, mus, sigmas, num_t: int = 1024,
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         sm_scale: Optional[float] = None):
-    """GQA attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); query head
-    h reads kv head ``h // (Hq // Hkv)``.
+    """GQA attention. q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv,
+    Sk, Dv) with its own head dim (MLA); query head h reads kv head
+    ``h // (Hq // Hkv)``. Returns (B, Hq, Sq, Dv).
 
     Rectangular Sq != Sk is allowed here; causal then aligns the last query
     with the last key (standard self-attention when Sq == Sk).
@@ -286,7 +287,7 @@ def flash_attention_bf16p_ref(q, k, v, *, causal: bool = True,
     else 64), P = exp(s - m) rounded to bf16 before P . V, and l
     summed from the rounded P; masked logits at -1e30, a row with no live
     key gives 0. Same shapes and rules as :func:`flash_attention_ref`
-    (causal and window need Sq == Sk)."""
+    (causal and window need Sq == Sk; v may have its own head dim)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -297,7 +298,7 @@ def flash_attention_bf16p_ref(q, k, v, *, causal: bool = True,
     qpos = torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
     l = torch.zeros((B, Hq, Sq, 1), device=q.device)
-    acc = torch.zeros((B, Hq, Sq, D), device=q.device)
+    acc = torch.zeros((B, Hq, Sq, v.shape[3]), device=q.device)
     for k0 in range(0, Sk, bk):
         kpos = torch.arange(k0, min(k0 + bk, Sk), device=q.device)[None, :]
         live = torch.ones((Sq, kpos.shape[1]), dtype=torch.bool,
@@ -400,7 +401,8 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, D_skip=None):
 
 
 def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
-                    return_final_state: bool = False):
+                    return_final_state: bool = False,
+                    groups: Optional[int] = None):
     """The chunked SSD scan: the plain version of ``csrc/ssd_scan.cu``.
 
     Shapes as in :func:`ssd_scan_ref`. The sequence is cut into chunks of
@@ -413,46 +415,92 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
                  exp(min(cum_t - cum_s, 0)) dt_s x_s + D_h x_t
         state' = exp(cum_L) state + sum_s exp(cum_L - cum_s) dt_s x_s ⊗ B_s
 
+    The chunks are walked as the kernel walks them, in groups of
+    consecutive chunks (``autotune.ssd_groups`` unless ``groups`` is
+    given): each group's end state from a zero start and its total decay,
+    the product of its chunks' exp(cum_L); then each group's incoming state,
+    summed in group order; then y, each group restarted from its incoming
+    state. All groups advance together, one chunk a step. One group is the
+    plain sequential chunk walk.
+
     Returns y (B, S, H, P) in x's dtype and, with ``return_final_state``,
     the (B, H, P, N) float32 state after the last token.
     """
+    from .autotune import ssd_groups
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
-    L = min(chunk, S)
+    L, nc, per, ng = ssd_groups(Bsz, H, S, chunk)
+    if groups is not None:
+        per = -(-nc // max(1, min(int(groups), nc)))
+        ng = -(-nc // per)
     f32 = torch.float32
     Af = A.to(f32)
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    causal = causal[None, :, :, None]                       # (1, L, L, 1)
-    state = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    causal = causal[None, None, :, :, None]                 # (1, 1, L, L, 1)
+    pad = ng * per * L - S
+    # padded steps (dt = 0, x = 0, B = C = 0) leave the state unchanged
+
+    def grouped(t):
+        t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], 1) \
+            if pad else t
+        return t.reshape((Bsz, ng, per, L) + t.shape[2:])
+
+    xg, dtg, bg, cg = (grouped(t) for t in (x, dt, Bm, Cm))
+
+    def step(c):
+        """Chunk c of every group, widened to float32 (B, C repeated over
+        heads): x (B, ng, L, H, P), dt, cum (B, ng, L, H), B and C
+        (B, ng, L, H, N), and w = exp(cum_L - cum) dt."""
+        xc, dtc = xg[:, :, c].to(f32), dtg[:, :, c].to(f32)
+        bc = torch.repeat_interleave(bg[:, :, c].to(f32), rep, dim=3)
+        cc = torch.repeat_interleave(cg[:, :, c].to(f32), rep, dim=3)
+        cum = torch.cumsum(dtc * Af, dim=2)
+        w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+        return xc, dtc, cum, bc, cc, w
+
+    def advance(state, c, xc, cum, bc, w):
+        """state' of every group after its chunk c (state None: zero)."""
+        new = torch.einsum("bglhp,bglhn->bghpn", xc * w[..., None], bc)
+        if state is None:
+            return new
+        return torch.exp(cum[:, :, -1, :])[..., None, None] * state + new
+
+    # each group's end state from a zero start, and its total decay
+    incoming = torch.zeros((Bsz, ng, H, P, N), dtype=f32, device=x.device)
+    if ng > 1:
+        end, decay = None, None
+        for c in range(per):
+            xc, _, cum, bc, _, w = step(c)
+            end = advance(end, c, xc, cum, bc, w)
+            d = torch.exp(cum[:, :, -1, :])
+            decay = d if decay is None else decay * d
+        # the incoming state of group g + 1, summed in group order
+        run = end[:, 0]
+        incoming[:, 1] = run
+        for g in range(1, ng - 1):
+            run = decay[:, g][..., None, None] * run + end[:, g]
+            incoming[:, g + 1] = run
+    state = incoming
     ys = []
-    # each chunk is widened (and B, C repeated over heads) on its own, so
-    # that no float32 copy of the whole sequence is made
-    for c0 in range(0, S, L):
-        n = min(L, S - c0)
-        xc, dtc = x[:, c0:c0 + L].to(f32), dt[:, c0:c0 + L].to(f32)
-        bc = torch.repeat_interleave(Bm[:, c0:c0 + L].to(f32), rep, dim=2)
-        cc = torch.repeat_interleave(Cm[:, c0:c0 + L].to(f32), rep, dim=2)
-        if n < L:   # exact: padded steps leave the state unchanged
-            xc, dtc, bc, cc = (torch.cat([t, t.new_zeros((Bsz, L - n)
-                                                         + t.shape[2:])], 1)
-                               for t in (xc, dtc, bc, cc))
-        cum = torch.cumsum(dtc * Af, dim=1)                 # (B, L, H)
+    for c in range(per):
+        xc, dtc, cum, bc, cc, w = step(c)
         y_inter = torch.exp(cum)[..., None] * torch.einsum(
-            "blhn,bhpn->blhp", cc, state)
-        cb = torch.einsum("blhn,bshn->blsh", cc, bc)       # (B, L, L, H)
+            "bglhn,bghpn->bglhp", cc, state)
+        cb = torch.einsum("bglhn,bgshn->bglsh", cc, bc)     # (B, ng, L, L, H)
         # the exponent is clamped at 0: exact on the causal region, and
         # the masked entries cannot overflow
-        decay = torch.exp(torch.clamp_max(cum[:, :, None, :]
-                                          - cum[:, None, :, :], 0.0))
-        g = torch.where(causal, cb * decay * dtc[:, None, :, :], 0.0)
-        y_intra = torch.einsum("blsh,bshp->blhp", g, xc)
-        w = torch.exp(cum[:, -1:, :] - cum) * dtc           # (B, L, H)
-        state = (torch.exp(cum[:, -1, :])[..., None, None] * state
-                 + torch.einsum("blhp,blhn->bhpn", xc * w[..., None], bc))
-        y = y_inter + y_intra + D_skip.to(f32)[None, None, :, None] * xc
-        ys.append(y[:, :n].to(x.dtype))
-    y = torch.cat(ys, 1)
+        decay = torch.exp(torch.clamp_max(cum[:, :, :, None, :]
+                                          - cum[:, :, None, :, :], 0.0))
+        g = torch.where(causal, cb * decay * dtc[:, :, None, :, :], 0.0)
+        y_intra = torch.einsum("bglsh,bgshp->bglhp", g, xc)
+        state = advance(state, c, xc, cum, bc, w)
+        ys.append((y_inter + y_intra
+                   + D_skip.to(f32)[None, None, None, :, None] * xc
+                   ).to(x.dtype))
+    y = torch.stack(ys, 2).reshape((Bsz, ng * per * L, H, P))[:, :S]
     if return_final_state:
-        return y, state
+        # the last group's state after its last chunk (padding after S
+        # leaves it unchanged)
+        return y, state[:, -1]
     return y

@@ -10,12 +10,26 @@ takes any S (the kernel masks the ragged last chunk as the JAX XLA path
 pads it: dt = 0, x = 0) and returns the final state itself, which the JAX
 package gets from its XLA scan.
 
+The chunk walk is split across the card in groups of consecutive chunks
+(``autotune.ssd_groups``, a function of the shape alone): with one group a
+call is one launch, with more it is three (each group's end state, the
+groups' incoming states, then y), over a float32 scratch of one state per
+group (``csrc/ssd_scan.cu`` says how). The products run on the tensor cores
+with operands split into bf16 planes (ROADMAP section 3 item 12): two for
+the float32 operands of the bf16 instance, three for every operand of the
+float32 one, which walks chunks of at most ``F32_MAX_CHUNK`` rows so that
+its planes fit a block's shared memory (a chunk of 128 is walked as two of
+64: the same sums, rounded apart).
+
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-the plain version, ``kernels/ref.ssd_chunked_ref``. x, Bm and Cm share one
-dtype (float32 or bf16) and may be strided views with a unit stride on
-their last axis (the model's B and C are column slices of one projection);
-dt, A and D are float32. The library is built at the first launch
-(``kernels/_cuda.py``). ``LAUNCHES`` counts the kernel's launches.
+the plain version, ``kernels/ref.ssd_chunked_ref``, in the same groups. x,
+Bm and Cm share one dtype (float32 or bf16) and may be strided views with a
+unit stride on their last axis (the model's B and C are column slices of
+one projection); dt, A and D are float32. The kernel keeps the (P, N)
+state in its 8 warps' registers as strips of 16 x 64:
+ceil(P / 16) * ceil(N / 64) <= 8 (Mamba2's 64 x 128 fills them). The
+library is built at the first launch (``kernels/_cuda.py``). ``LAUNCHES``
+counts the wrapper's calls.
 """
 from __future__ import annotations
 
@@ -24,11 +38,13 @@ import ctypes
 import torch
 
 from . import _cuda
+from . import autotune
 from . import ref
 
-__all__ = ["ssd_scan", "build", "LAUNCHES", "reset_launches"]
+__all__ = ["ssd_scan", "kernel_split", "build", "LAUNCHES",
+           "reset_launches"]
 
-# kernel launches since the last reset_launches()
+# calls that launched the kernel since the last reset_launches()
 LAUNCHES = {"ssd_scan": 0}
 
 
@@ -38,11 +54,72 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [ci] + [vp] * 8 + [ci] * 7 + [cll] * 11 \
-        + [vp]
+    lib.ssd_scan_launch.argtypes = [ci] + [vp] * 9 + [ci] * 10 \
+        + [cll] * 11 + [vp]
     lib.ssd_scan_launch.restype = ci
-    lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
+    lib.ssd_scan_smem_bytes.argtypes = [ci] * 6
     lib.ssd_scan_smem_bytes.restype = cll
+
+
+# the kernel's state strips: 8 warps of 16 x 64
+STATE_STRIPS = 8
+# rows of the float32 instance's chunks, at most
+F32_MAX_CHUNK = 64
+
+# checked launch plans by everything _check_args reads (shapes, strides,
+# dtypes, devices) and the chunk: the C launcher's shape and stride
+# arguments, whether the shapes and strides allow 16-byte loads, and the
+# shared memory a block needs without and with them beside what the card
+# gives one
+_PLANS: dict = {}
+
+
+def kernel_split(B: int, H: int, S: int, chunk: int,
+                 dtype) -> autotune.SsdSplit:
+    """The chunks and groups the kernel walks for this shape and dtype."""
+    if dtype == torch.float32:
+        chunk = min(chunk, F32_MAX_CHUNK)
+    return autotune.ssd_groups(B, H, S, chunk)
+
+
+def _plan(lib, x, dt, A, Bm, Cm, D_skip, chunk: int):
+    """The launch plan of :data:`_PLANS`, made and checked once a layout."""
+    key = (x.shape, x.stride(), dt.shape, dt.stride(), A.shape, A.stride(),
+           Bm.shape, Bm.stride(), Cm.shape, Cm.stride(), D_skip.shape,
+           D_skip.stride(), x.dtype, dt.dtype, A.dtype, Bm.dtype, Cm.dtype,
+           D_skip.dtype, x.device, dt.device, A.device, Bm.device,
+           Cm.device, D_skip.device, chunk)
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check_args(x, dt, A, Bm, Cm, D_skip)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        B, S, H, P = x.shape
+        G, N = Bm.shape[2], Bm.shape[3]
+        strips = -(-P // 16) * -(-N // 64)
+        if strips > STATE_STRIPS:
+            raise ValueError(f"the kernel keeps the (P, N) state in "
+                             f"{STATE_STRIPS} strips of 16 x 64: P={P}, "
+                             f"N={N} needs {strips}")
+        L, nc, per, ng = kernel_split(B, H, S, chunk, x.dtype)
+        code = _cuda.DTYPES[x.dtype]
+        carry = int(ng > 1 or nc > 1)
+        smem = tuple(lib.ssd_scan_smem_bytes(code, L, P, N, carry, vec)
+                     for vec in (0, 1))
+        optin = torch.cuda.get_device_properties(
+            x.device).shared_memory_per_block_optin
+        # 16-byte loads of x, B and C rows: whole vectors in the last extent
+        # and in every batch, sequence and head stride (the base addresses
+        # are checked at each call)
+        per_vec = 16 // x.element_size()
+        vec_layout = all(t.shape[-1] % per_vec == 0
+                         and all(st % per_vec == 0 for st in t.stride()[:3])
+                         for t in (x, Bm, Cm))
+        dims = (B, S, H, P, G, N, L, per, ng)
+        strides = (*x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3],
+                   *Cm.stride()[:3])
+        plan = _PLANS[key] = (code, dims, strides, vec_layout, smem, optin)
+    return plan
 
 
 def build() -> ctypes.CDLL:
@@ -84,36 +161,38 @@ def ssd_scan(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
              return_final_state: bool = False):
     """Chunked SSD scan; shapes as in ``ref.ssd_scan_ref``. Returns y, or
     ``(y, final_state)`` with ``return_final_state``."""
-    _check_args(x, dt, A, Bm, Cm, D_skip)
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        _check_args(x, dt, A, Bm, Cm, D_skip)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, chunk=chunk,
                                    return_final_state=return_final_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    L = min(chunk, S)
     lib = build()
-    smem = lib.ssd_scan_smem_bytes(L, P, N)
-    optin = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    if smem > optin:
-        raise ValueError(f"a chunk of {L} rows at P={P}, N={N} needs {smem} "
-                         f"bytes of shared memory, the card gives a block "
-                         f"{optin}")
-    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    state = (torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    code, dims, strides, vec_layout, smem, optin = _plan(
+        lib, x, dt, A, Bm, Cm, D_skip, chunk)
+    B, S, H, P, G, N, L, per, ng = dims
+    vec = int(vec_layout and not (x.data_ptr() % 16 or Bm.data_ptr() % 16
+                                  or Cm.data_ptr() % 16))
+    if smem[vec] > optin:
+        raise ValueError(f"a chunk of {L} rows at P={P}, N={N} in {x.dtype} "
+                         f"needs {smem[vec]} bytes of shared memory, the "
+                         f"card gives a block {optin}")
+    dev = x.device
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    state = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
              if return_final_state else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # one end state and one decay per (b, h) and group but the last
+    scratch = (torch.empty((B * H * (ng - 1) * (P * N + 1),),
+                           dtype=torch.float32, device=dev)
+               if ng > 1 else None)
     err = lib.ssd_scan_launch(
-        _cuda.DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), D_skip.data_ptr(), y.data_ptr(),
+        code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), D_skip.data_ptr(), y.data_ptr(),
         state.data_ptr() if state is not None else None,
-        B, S, H, P, G, N, L,
-        *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3],
-        *Cm.stride()[:3], stream)
+        scratch.data_ptr() if scratch is not None else None, *dims, vec,
+        *strides, torch._C._cuda_getCurrentRawStream(dev.index))
     _cuda.check(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return (y, state) if return_final_state else y

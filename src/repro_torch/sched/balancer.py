@@ -364,10 +364,13 @@ class UncertaintyAwareBalancer:
 
     # ------------------------------------------------------------ persistence
     def state_dict(self) -> dict:
-        """The whole estimation state, under the JAX balancer's keys."""
+        """The whole estimation state, under the JAX balancer's keys.
+        ``"impl"`` is ``"xla"``, the role of the port's plain path there, so
+        the JAX balancer restores the state and solves; the port's own
+        restore ignores it (the device is the caller's)."""
         return {
             "num_channels": self.num_channels, "lam": self.lam,
-            "policy": self.policy, "impl": self.device.type,
+            "policy": self.policy, "impl": "xla",
             "num_t": self.num_t,
             "min_weight": self.min_weight,
             "refresh_every": self.refresh_every,

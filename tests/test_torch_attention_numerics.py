@@ -151,6 +151,22 @@ def test_bf16p_attention_matches_pallas(case):
                                **BF16_TOL)
 
 
+def test_bf16p_attention_value_head_dim_of_its_own():
+    """MLA's prefill tiles (q, k of 192, v of 128) against the reference's
+    model path, ``ref.flash_attention_ref`` on the same bf16 inputs."""
+    (tq, jq), (tk, jk) = (_bf16(_normal(40 + i, 1, 4, 130, 192))
+                          for i in range(2))
+    tv, jv = _bf16(_normal(42, 1, 4, 130, 128))
+    got = ref.flash_attention_bf16p_ref(tq, tk, tv, causal=True,
+                                        sm_scale=192 ** -0.5)
+    assert got.shape == (1, 4, 130, 128) and got.dtype == torch.bfloat16
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True,
+                                    sm_scale=192 ** -0.5)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
 def test_bf16p_attention_dead_rows_give_zero():
     """window = 0 leaves no live key: every row gives 0, as from the
     Pallas kernel."""

@@ -143,3 +143,48 @@ def test_integerize_matches_reference():
     for _ in range(5):
         w = rng.dirichlet(np.ones(7))
         assert np.array_equal(integerize(w, 97), jint(w, 97))
+
+
+def _jax_starts(monkeypatch, K):
+    """The reference draws its two PGD restarts from PRNGKey(0) every solve;
+    the port's solver takes the same rows."""
+    starts = np.asarray(jax.random.dirichlet(jax.random.PRNGKey(0),
+                                             jnp.ones((K,)), (2,)))
+    monkeypatch.setattr(partitioner, "_dirichlet_starts",
+                        lambda k, restarts, rng: starts)
+
+
+@pytest.mark.parametrize("via", ["balancer", "batcher"])
+def test_port_state_restores_and_solves_in_the_reference(via, monkeypatch):
+    # a port checkpoint must load in the reference and solve there: its
+    # "impl" names the reference's plain path, never the port's device
+    from repro.serve import PartitionedBatcher as JBatcher
+    from repro.serve import ReplicaGroup as JGroup
+    from repro_torch.serve import PartitionedBatcher, ReplicaGroup
+    K = 4
+    _jax_starts(monkeypatch, K)
+    if via == "balancer":
+        bal = UncertaintyAwareBalancer(K, lam=0.02, pgd_steps=30, num_t=256,
+                                       prior_mean=20.0, device=DEV)
+        sim = ClusterSim.heterogeneous(K, seed=6)
+        for _ in range(5):
+            w = bal.weights()
+            _, d = sim.run_step(w)
+            bal.observe(d, w)
+        sd = bal.state_dict()
+        ref = JBalancer.from_state_dict(sd)
+    else:
+        port = PartitionedBatcher([ReplicaGroup(f"g{i}", None)
+                                   for i in range(K)], num_t=256, seed=6,
+                                  device=DEV)
+        prompts = np.zeros((40, 4), np.int32)
+        for _ in range(5):
+            port.run_batch(prompts)
+        sd = port.state_dict()
+        jb = JBatcher([JGroup(f"g{i}", None, None) for i in range(K)],
+                      num_t=256, seed=6)
+        jb.load_state_dict(sd)
+        bal, ref = port.balancer, jb.balancer
+        sd = sd["balancer"]
+    assert sd["impl"] == ref.impl == "xla"
+    np.testing.assert_allclose(ref.weights(), bal.weights(), atol=1e-3)

@@ -12,8 +12,9 @@ about 0.4% of the value); the SSD scan 5e-4 in float32 (y and the final
 state) and 1e-2 for bf16 y. The bf16 attention kernel is also held against
 ``ref.flash_attention_bf16p_ref`` (its own arithmetic: P rounded to bf16)
 and the split decode against ``ref.decode_attention_split_ref``. The split
-frontier adjoint is held at ``chip_smoke.py``'s tolerances: mu rtol = atol
-= 1e-4, var rtol 1e-2 / atol 1e-3, every adjoint relative L2 <= 1e-4.
+frontier adjoint and the split forward moments are held at
+``chip_smoke.py``'s tolerances: mu rtol = atol = 1e-4, var rtol 1e-2 / atol
+1e-3, every adjoint relative L2 <= 1e-4.
 """
 import pytest
 import torch
@@ -93,6 +94,30 @@ def test_flash_attention_refuses_what_it_cannot_read(card):
     with pytest.raises(ValueError, match="16 bytes"):
         w = q[..., 1:65]   # unit stride on D, base off by 2 bytes
         fa.flash_attention(w, w, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [16, 333])
+def test_flash_attention_value_head_dim_of_its_own(card, dtype, S):
+    # MLA's prefill: q, k of head dim 192, v of 128 (the bf16 kernel's
+    # (192, 128) instance), against the plain version; bf16 also against
+    # its own arithmetic (P rounded to bf16)
+    g = torch.Generator(device=card).manual_seed(12)
+    q = _randn(g, (2, 8, S, 192), dtype, card)
+    k = _randn(g, (2, 8, S, 192), dtype, card)
+    v = _randn(g, (2, 8, S, 128), dtype, card)
+    got = fa.flash_attention(q, k, v, causal=True, sm_scale=192 ** -0.5)
+    assert got.shape == (2, 8, S, 128)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True,
+                                        sm_scale=192 ** -0.5))
+    if dtype == torch.bfloat16:
+        _close(got, ref.flash_attention_bf16p_ref(q, k, v, causal=True,
+                                                  sm_scale=192 ** -0.5))
+        with pytest.raises(ValueError, match="no instance"):
+            fa.flash_attention(q, k, v[..., :64], causal=True)
+    assert torch.equal(fa.flash_attention(q, k, v, causal=True,
+                                          sm_scale=192 ** -0.5), got)
 
 
 @pytest.mark.cuda
@@ -185,6 +210,42 @@ def test_ssd_scan_matches_plain(card, dtype, B, S, H, P, G, N, chunk):
     again = ssd.ssd_scan(*args, chunk=chunk, return_final_state=True)
     assert torch.equal(again[0], y) and torch.equal(again[1], state)
     assert torch.equal(ssd.ssd_scan(*args, chunk=chunk), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,chunk,groups", [
+    (8, 300, 80, 128, 1),    # one group of three chunks, the last ragged
+    (4, 300, 80, 128, 2),    # groups of two chunks and one
+    (1, 1100, 4, 64, 18),    # a group per chunk, the last ragged
+    (2, 1030, 8, 16, 33)])   # groups of two chunks at the tiny chunk
+def test_ssd_scan_groups_match_plain(card, dtype, B, S, H, chunk, groups):
+    # the group split (pass 1, pass 2, pass 3) against the plain version in
+    # the same groups and in one sequential walk; y and the final state; a
+    # second call repeats the bits
+    from repro_torch.kernels import autotune
+    assert autotune.ssd_groups(B, H, S, chunk).groups == groups
+    g = torch.Generator(device=card).manual_seed(10)
+    P, N = (64, 128) if chunk > 16 else (16, 32)
+    args = _ssd_inputs(g, B, S, H, P, 1, N, dtype, card)
+    y, state = ssd.ssd_scan(*args, chunk=chunk, return_final_state=True)
+    tol = 5e-4 if dtype == torch.float32 else 1e-2
+    for n_groups in (None, 1):
+        want_y, want_state = ref.ssd_chunked_ref(
+            *args, chunk=chunk, return_final_state=True, groups=n_groups)
+        torch.testing.assert_close(y.float(), want_y.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(state, want_state, atol=5e-4, rtol=5e-4)
+    again = ssd.ssd_scan(*args, chunk=chunk, return_final_state=True)
+    assert torch.equal(again[0], y) and torch.equal(again[1], state)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_a_state_past_its_strips(card):
+    g = torch.Generator(device=card).manual_seed(11)
+    args = _ssd_inputs(g, 1, 32, 2, 128, 1, 128, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="strips"):
+        ssd.ssd_scan(*args, chunk=16)
 
 
 @pytest.mark.cuda
@@ -316,3 +377,54 @@ def test_split_adjoint_matches_plain(card, fam, F, K, T):
             again = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
                                                 dist_id=fam, param_grads=pg)
             assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,K,T", [(1, 1024, 2048), (3, 1024, 2048),
+                                   (256, 128, 256), (3, 1024, 8192)])
+@pytest.mark.parametrize("fam", ["normal", "lognormal", "drift", "empirical",
+                                 "defective"])
+def test_split_forward_matches_plain(card, fam, F, K, T):
+    # the forward moments split across the card (pass 1 over tiles of grid
+    # points, then one warp per row) against the plain version, both
+    # statistics layouts; a second call repeats the bits
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import frontier_grid as fg
+    for per_row in (False, True):
+        W, mus, sgs, ex = _frontier_case(fam, F, K, per_row, F + K + 1, card)
+        split = autotune.lookup_split(F, K, T, mode="fwd", dist_id=fam)
+        blocks = autotune.split_blocks(F, K, T, split)
+        assert len(blocks) == 2 and blocks[1] == F
+        if F < 4:
+            assert blocks[0] >= 132
+        n = fg.LAUNCHES["fwd"]
+        got = fg.frontier_grid(W, mus, sgs, ex, num_t=T, dist_id=fam)
+        assert fg.LAUNCHES["fwd"] == n + 1
+        want = ref.frontier_grid_ref(W, mus, sgs, num_t=T, dist_id=fam,
+                                     extra=ex)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+        again = fg.frontier_grid(W, mus, sgs, ex, num_t=T, dist_id=fam)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8192, 16384])
+@pytest.mark.parametrize("fam", ["normal", "lognormal"])
+def test_long_grids_match_plain(card, fam, T):
+    # num_t above 4096: the split tiles the grid in every mode
+    from repro_torch.kernels import frontier_grid as fg
+    W, mus, sgs, ex = _frontier_case(fam, 3, 1024, False, T, card)
+    for pg in (False, True):
+        got = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                          dist_id=fam, param_grads=pg)
+        want = ref.frontier_grid_with_grads_ref(
+            W, mus, sgs, num_t=T, dist_id=fam, extra=ex, param_grads=pg)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+        for g, w in zip(got[2:], want[2:]):
+            assert _rel_l2(g, w) <= 1e-4
+    mu, var = fg.frontier_grid(W, mus, sgs, ex, num_t=T, dist_id=fam)
+    want = ref.frontier_grid_ref(W, mus, sgs, num_t=T, dist_id=fam, extra=ex)
+    torch.testing.assert_close(mu, want[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(var, want[1], rtol=1e-2, atol=1e-3)

@@ -219,8 +219,11 @@ def test_wrappers_reject_bad_launches():
         fg.frontier_grid(W, mus, sgs, ex[:, :-1], num_t=T)
     with pytest.raises(TypeError):
         fg.frontier_grid(W.double(), mus, sgs, ex, num_t=T)
-    with pytest.raises(ValueError):
-        fg.frontier_grid(W, mus, sgs, ex, num_t=autotune.MAX_NUM_T + 1)
+    with pytest.raises(ValueError, match="num_t"):
+        fg.frontier_grid(W, mus, sgs, ex, num_t=1)
+    # the card's grid limit names itself (the plain path has none)
+    with pytest.raises(ValueError, match=str(autotune.MAX_NUM_T)):
+        autotune.pick_split(3, 1024, autotune.MAX_NUM_T + 1, "fwd", "normal")
     with pytest.raises(ValueError):
         fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
                                     dist_id="weibull")
@@ -332,8 +335,9 @@ def test_autotune_buckets_modes_and_launch_model():
     assert autotune.accumulators("normal", False) == 2
     for mode in autotune.MODES:
         for fam in td.FAMILIES:
+            # the split's tiles cover the grid: T sets no thread count
             th = autotune.pick_threads(2048, mode, fam)
-            assert th % 32 == 0 and th * autotune.MAX_POINTS_PER_THREAD >= 2048
+            assert th == autotune.pick_threads(16384, mode, fam) == 256
             assert autotune.smem_bytes(th, 2048, mode, fam) \
                 <= autotune.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError):
@@ -358,7 +362,7 @@ def test_autotune_buckets_modes_and_launch_model():
             assert autotune.smem_bytes(th, 2048, mode, fam, split) \
                 <= autotune.smem_bytes(th, 2048, mode, fam)
     with pytest.raises(ValueError):
-        autotune.pick_split(8, 4, 256, "fwd", "normal")
+        autotune.pick_split(8, 4, 256, "bwd", "normal")
 
 
 # the launch shapes of one balancer refresh at K=1024 (PGD steps, and
@@ -402,13 +406,17 @@ def test_split_depends_on_the_shape_alone():
 
 
 def test_autotune_key_version_is_v3():
+    # the version went from v3 to v4 when forward keys gained a split; the
+    # test keeps its name and checks the current keys
     autotune.clear_cache()
     autotune.lookup(3, 1024, 1024, mode="grad")
     autotune.lookup_split(3, 1024, 1024, mode="grad")
+    autotune.lookup_split(3, 1024, 2048, mode="fwd")
     keys = sorted(autotune.cache_state())
-    assert autotune._KEY_VERSION == "v3"
-    assert keys == ["v3:cuda:T1024:modegrad:famnormal",
-                    "v3:split:F3:K1024:T1024:modegrad:famnormal"]
+    assert autotune._KEY_VERSION == "v4"
+    assert keys == ["v4:cuda:T1024:modegrad:famnormal",
+                    "v4:split:F3:K1024:T1024:modegrad:famnormal",
+                    "v4:split:F3:K1024:T2048:modefwd:famnormal"]
     autotune.clear_cache()
 
 
@@ -431,6 +439,84 @@ def test_cache_state_round_trip_restores_the_split():
     assert autotune.lookup_split(3, 1024, 1024, mode="pgrad",
                                  dist_id="lognormal") == split
     autotune.clear_cache()
+
+
+@pytest.mark.parametrize("fam", td.FAMILIES)
+def test_forward_split_spreads_the_finalists_over_the_card(fam):
+    # a refresh's finalists (F=3, K=1024, T=2048): pass 1 in 192-256 blocks,
+    # then one epilogue block per row; the fleet tick degenerates to one
+    # tile per row; T = 8192 and 16384 tile the grid with the same threads
+    F, K, T = 3, 1024, 2048
+    split = autotune.pick_split(F, K, T, "fwd", fam)
+    blocks = autotune.split_blocks(F, K, T, split)
+    assert 192 <= blocks[0] <= 256 and blocks[1] == F, blocks
+    assert split == (32, 0, 0, 0)
+    F, K, T = FLEET_TICK
+    split = autotune.pick_split(F, K, T, "fwd", fam)
+    assert autotune.split_blocks(F, K, T, split) == (F, F)
+    for T in (8192, 16384):
+        split = autotune.pick_split(3, 1024, T, "fwd", fam)
+        th, plan_split, n = autotune.launch_plan(3, 1024, T, "fwd", fam)
+        assert plan_split == split and th == 256
+        assert autotune.split_blocks(3, 1024, T, split)[0] >= 132
+        assert n == autotune.fwd_scratch_elems(3, T, split) \
+            == 3 * (1 + 2 * (T // split.points))
+
+
+def test_forward_split_depends_on_the_shape_alone():
+    last = None
+    for F in range(1, 301):
+        a = autotune.pick_split(F, 1024, 2048, "fwd", "lognormal")
+        assert a == autotune.pick_split(F, 1024, 2048, "fwd", "lognormal")
+        assert a.points >= autotune.MIN_POINTS
+        if last is not None:
+            assert a.points >= last.points
+        last = a
+    assert last.points == 256
+
+
+def test_split_caps_pass_two_chunk_at_long_grids():
+    # one chunk per row at the fleet tick's F would stage 20 bytes a grid
+    # point: at T = 16384 that is 327680 bytes, so the chunk is capped at
+    # the widest power of two that fits (8192) instead of raising
+    for mode in ("grad", "pgrad"):
+        split = autotune.pick_split(4096, 1024, 16384, mode, "empirical")
+        assert split.t_chunk == 8192
+        th, _, _ = autotune.launch_plan(4096, 1024, 16384, mode,
+                                        "empirical")
+        autotune.check_launch(th, 16384, mode, "empirical", split)
+        assert autotune.smem_bytes(th, 16384, mode, "empirical", split) \
+            <= autotune.SMEM_LIMIT_BYTES
+        # a refresh's row count still gets 132 blocks a launch at long T
+        split = autotune.pick_split(3, 1024, 16384, mode, "normal")
+        assert min(autotune.split_blocks(3, 1024, 16384, split)) >= 132
+    autotune.clear_cache()
+
+
+@pytest.mark.parametrize("T", [8192, 16384])
+def test_long_grids_match_the_reference(T):
+    # num_t above 4096: the reference computes at any T; at T = 8192 it
+    # gives mu 15.0768, var 1.06548 for W = (0.5, 0.5), mus (30, 20),
+    # sigmas (2, 6)
+    W = np.array([[0.5, 0.5], [0.3, 0.7]], np.float32)
+    mus = np.array([30.0, 20.0], np.float32)
+    sgs = np.array([2.0, 6.0], np.float32)
+    jmu, jvar = jops.frontier_moments(jnp.asarray(W), jnp.asarray(mus),
+                                      jnp.asarray(sgs), num_t=T, impl="xla")
+    if T == 8192:
+        np.testing.assert_allclose(float(jmu[0]), 15.0768, rtol=1e-5)
+        np.testing.assert_allclose(float(jvar[0]), 1.06548, rtol=1e-4)
+    tW, tm, ts = (torch.from_numpy(a) for a in (W, mus, sgs))
+    ex = torch.zeros((1, 2))
+    mu, var = fg.frontier_grid(tW, tm, ts, ex, num_t=T)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(jmu), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), rtol=1e-2,
+                               atol=1e-3)
+    out = fg.frontier_grid_with_grads(tW, tm, ts, ex, num_t=T,
+                                      param_grads=True)
+    assert torch.equal(out[0], mu) and torch.equal(out[1], var)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
 
 
 def test_check_launch_refuses_a_split_over_the_smem_limit():

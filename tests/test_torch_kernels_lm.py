@@ -82,6 +82,21 @@ def test_flash_attention_rectangular_and_strided_views():
            jref.flash_attention_ref(jq, jk, jv, causal=False))
 
 
+@pytest.mark.parametrize("entry", ["ops.attention", "flash_attention"])
+def test_flash_attention_value_head_dim_of_its_own(entry):
+    """MLA's prefill (DeepSeek-V2-Lite): q, k of head dim 192, v of 128,
+    against the reference's model path (``impl="xla"``)."""
+    q, k = _normal(20, 1, 4, 16, 192), _normal(21, 1, 4, 16, 192)
+    v = _normal(22, 1, 4, 16, 128)
+    fn = ops.attention if entry == "ops.attention" else flash_attention
+    got = fn(*(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+             sm_scale=192 ** -0.5)
+    assert got.shape == (1, 4, 16, 128)
+    _close(got, jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), causal=True,
+                                         sm_scale=192 ** -0.5))
+
+
 def test_flash_attention_rules():
     q = torch.zeros(1, 2, 8, 16)
     k = torch.zeros(1, 2, 16, 16)
@@ -95,6 +110,8 @@ def test_flash_attention_rules():
         flash_attention(torch.zeros(1, 3, 16, 16), k, k)
     with pytest.raises(TypeError):
         flash_attention(k.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="Dv"):
+        flash_attention(k, k, torch.zeros(1, 2, 15, 8))
 
 
 def test_dead_rows_pallas_zero_plain_nan():

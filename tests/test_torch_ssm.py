@@ -1,12 +1,14 @@
 """The port's Mamba2 slice against the JAX package, on the CPU.
 
-* The scan: ``ops.ssd`` (the plain chunked version on CPU tensors) against
-  the JAX Pallas ``ssd_scan`` in interpret mode on the shapes of
-  ``tests/test_kernels.py`` (atol = rtol = 5e-4 in float32, 0.05 in bf16),
-  against the JAX XLA chunked path with its final state, at S = 256 and a
-  ragged S = 200 with chunk 64 (atol 5e-5 / rtol 5e-4), and against the
-  sequential oracles of both packages. The wrapper's rules raise on the
-  CPU as on the card.
+* The scan: ``ops.ssd`` (the plain chunked version on CPU tensors, walked
+  in the kernel's groups of chunks) against the JAX Pallas ``ssd_scan`` in
+  interpret mode on the shapes of ``tests/test_kernels.py`` and a
+  six-group shape (atol = rtol = 5e-4 in float32, 0.05 in bf16), against
+  the JAX XLA chunked path with its final state, at S = 256 and a ragged
+  S = 200 with chunk 64 and at a ragged S = 300 in 1, 2, 3, 5 and 10 groups
+  (atol 5e-5 / rtol 5e-4), and against the sequential oracles of both
+  packages. The group split (``autotune.ssd_groups``) is a function of the
+  shape alone. The wrapper's rules raise on the CPU as on the card.
 * The mixer: ``mamba_apply`` (with and without its prefill states) and
   ``mamba_decode`` on carried weights, at S = 2 (shorter than the conv
   width - 1) and S = 24 (ragged against the tiny chunk of 16).
@@ -38,7 +40,7 @@ from repro.sim import Channel as JChannel
 from repro.sim import ClusterSim as JSim
 from repro_torch import convert
 from repro_torch.core import partitioner
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.models import ssm
 from repro_torch.serve import PartitionedBatcher, ReplicaGroup, ServeEngine
 
@@ -87,9 +89,11 @@ def _f32(a):
                       else jnp.asarray(a, jnp.float32))
 
 
-# (B, S, H, P, G, N, chunk): tests/test_kernels.py::test_ssd_scan_sweep
+# (B, S, H, P, G, N, chunk): tests/test_kernels.py::test_ssd_scan_sweep,
+# then six chunks in six groups
 PALLAS_SHAPES = [(1, 128, 2, 16, 1, 32, 64), (2, 256, 4, 32, 2, 64, 128),
-                 (1, 64, 2, 16, 1, 32, 64), (1, 128, 4, 8, 1, 16, 32)]
+                 (1, 64, 2, 16, 1, 32, 64), (1, 128, 4, 8, 1, 16, 32),
+                 (1, 192, 2, 16, 1, 32, 32)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -133,6 +137,45 @@ def test_ssd_matches_the_sequential_oracles(shape):
     _, whole = ref.ssd_chunked_ref(*t, chunk=dims[1],
                                    return_final_state=True)
     np.testing.assert_allclose(state.numpy(), whole.numpy(), **XLA_TOL)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 5, 10])
+def test_ssd_group_split_matches_the_xla_path(groups):
+    # ten chunks of 32, the last ragged (S = 300), cut into 1, 2, 3 (of 4,
+    # 4 and 2), 5 and 10 groups: each group's end state from zero, the
+    # incoming states in group order, y restarted from them
+    j, t = _both(_inputs(5, 2, 300, 2, 16, 1, 32), "float32")
+    jy, jstate = jops.ssd(*j, impl="xla", chunk=32, return_final_state=True)
+    y, state = ref.ssd_chunked_ref(*t, chunk=32, return_final_state=True,
+                                   groups=groups)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **XLA_TOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), **XLA_TOL)
+    # the wrapper walks the shape's own split: at B * H = 4 every chunk is
+    # its own group
+    assert autotune.ssd_groups(2, 2, 300, 32).groups == 10
+    got = ops.ssd(*t, chunk=32, return_final_state=True)
+    assert torch.equal(got[0], ref.ssd_chunked_ref(*t, chunk=32,
+                                                   groups=10))
+    np.testing.assert_allclose(got[1].numpy(), state.numpy(), **XLA_TOL)
+
+
+def test_ssd_group_split_depends_on_the_shape_alone():
+    # Mamba2-2.7B (H = 80, chunk 128): the serving path's prompts are one
+    # group of one chunk, prefill_32k at B = 8 one group (640 sequences
+    # fill the card), long_500k at B = 1 eight groups of 512 chunks
+    assert autotune.ssd_groups(32, 80, 16, 128) == (16, 1, 1, 1)
+    assert autotune.ssd_groups(8, 80, 32768, 128) == (128, 256, 256, 1)
+    assert autotune.ssd_groups(1, 80, 524288, 128) == (128, 4096, 512, 8)
+    for B in range(1, 40):
+        for S in (1, 100, 1000, 5000):
+            a = autotune.ssd_groups(B, 80, S, 128)
+            assert a == autotune.ssd_groups(B, 80, S, 128)
+            L, nc, per, ng = a
+            # every chunk in one group, no group empty, enough blocks
+            assert (ng - 1) * per < nc <= ng * per and L == min(128, S)
+            assert B * 80 * ng >= min(autotune.SSD_MIN_BLOCKS, B * 80 * nc)
+    # the last group may hold fewer chunks: 65 chunks in 33 groups of 2
+    assert autotune.ssd_groups(2, 8, 1030, 16) == (16, 65, 2, 33)
 
 
 def _rule_cases():
