@@ -694,7 +694,8 @@ LM_KERNELS = {
 # the CUDA functions of each model kernel, as the profiler names them
 LM_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
               "flash_decode": ("fd_split_kernel", "fd_combine_kernel"),
-              "rmsnorm": ("rmsnorm_",), "ssd_scan": ("ssd_pass",)}
+              "rmsnorm": ("rmsnorm_",),
+              "ssd_scan": ("ssd_pass", "ssd_one_kernel")}
 
 # kernel against plain version on the card, per output dtype (atol = rtol)
 LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}

@@ -56,8 +56,7 @@ __all__ = ["ROW_BUCKETS", "MODES", "MAX_THREADS", "MAX_NUM_T",
            "split_blocks", "fwd_scratch_elems", "grad_scratch_elems",
            "pick_block_rows", "check_launch", "lookup", "lookup_split",
            "launch_plan", "SsdSplit", "ssd_groups", "SSD_MIN_BLOCKS",
-           "clear_cache", "cache_state",
-           "load_cache_state"]
+           "clear_cache", "cache_state", "load_cache_state"]
 
 # serving row-count buckets: a stacked launch pads its row axis up to one
 ROW_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048,

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import distributions as dists
+from .autotune import ssd_groups
 
 __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
@@ -426,7 +427,6 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
     Returns y (B, S, H, P) in x's dtype and, with ``return_final_state``,
     the (B, H, P, N) float32 state after the last token.
     """
-    from .autotune import ssd_groups
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
