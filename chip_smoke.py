@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,check
     python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
     python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
+    python3 chip_smoke.py --phases card,build,dag,wfloop
 
 Phases, in order:
 
@@ -93,6 +94,32 @@ Phases, in order:
    path's shapes their device time per call under torch.profiler (no
    launch path) and their host time per call (the launch path) stand
    beside SDPA's.
+13. ``dag``   — the workflow DAG's joint solve (``repro_torch.bench.dag_scale``
+   at full scale: 32 stages, a source, 10 branches of 3 and a sink, K=256,
+   T=256, 60 steps, one restart, eval_num_t 2048, 200 paired WorkflowSim
+   trials; DAG_REPEATS warm solves each of joint and greedy; the 512-stage
+   scale point once), launch counters zeroed before and read after. It
+   prints the predicted and realized makespans, the improvement, wall
+   median and p90, phase_us, survivors and steps run, launches per solve
+   by mode, the solver's host reads per PGD step. Asserted: joint <= greedy
+   on the predicted makespan; both splits re-evaluated by the plain path on
+   the CPU agree with the card's evaluate_dag (mu 1e-4, var 1e-3
+   relative); every rung's stacked launch (presolve grad, triage fwd,
+   refine grad, final fwd, fragility pgrad, at 32 and 512 stages) agrees
+   with its plain version at the frontier tolerances and repeats its bits,
+   with its time, bound and blocks; family_groups == 1. Then host and
+   device ms of a refine step with its torch operations and the
+   composition's share, one warm joint solve under torch.profiler (device
+   time by kernel, busy share), a mixed-family 8-stage DAG (3 family
+   groups, one launch per group per step, the CPU's decision) and an empty
+   dirty set (the warm split, no PGD launch).
+14. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
+   ``WorkflowSim.from_dag`` for WF_TICKS ticks, refresh_every=5, then
+   adaptive refresh with risk_lam=0.5, then that with dirty_tol=1 (the
+   incremental path; WF_CONFIGS says why), one stage slowed 3x at
+   WF_SLOW_AT: tick mean, solves per tick, dirty-set sizes, the solves'
+   relative fragility, launches. Every mode must have launched, and a
+   refresh with an empty dirty set launches no PGD step.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -101,12 +128,18 @@ y and every final state, 1e-2 for bf16 y); the tiny models on the card
 against the CPU at atol 2e-4 / rtol 2e-3; the full-width bf16 prefills
 through the kernels against the plain versions, and Mamba2's decode
 continuation against its forward, at relative L2 < 0.1 (Mamba2: every
-layer at full depth, and end to end up to SSM_E2E_LAYERS layers).
+layer at full depth, and end to end up to SSM_E2E_LAYERS layers). The
+workflow DAG: the card's composed makespan against the plain path's on the
+CPU, mu 1e-4 and var 1e-3 relative.
 
 Any failure exits non-zero. Without a card, or without the repository's
 ``src/`` beside this script, it fails before printing a result. The line
 before the last is a JSON object of per-kernel numbers; the last line is
-``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
+``{"ok": true, "device": {...}}``. A frontier kernel's ``launches`` in the
+per-kernel line is the sum over the paths that drive it, each counted from
+zero just before it runs (``loop``, ``dag``, ``wfloop``), and its
+``launches_by_path`` gives each path's count; a model kernel's is its
+serving phase's. Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -121,7 +154,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
-          "twoch", "lmcheck", "serve", "ssmserve", "lmtick")
+          "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -1619,6 +1652,482 @@ def _ssd_work(B, S, H, P, G, N, chunk):
     return nbytes, 2 * B * H * mads / BF16_OPS_PER_S
 
 
+# ------------------------------------------------------------- workflow DAG
+# the dag phase's timed warm solves per method (the repository's
+# benchmarks/dag_scale.py takes 5)
+DAG_REPEATS = 3
+# the stage slowed 3x at WF_SLOW_AT in the wfloop phase, and its ticks
+WF_TICKS, WF_SLOW_AT, WF_SLOW_STAGE = 30, 15, "b0_1"
+# the wfloop balancers: the plain cadence, adaptive refresh with risk, and
+# the same with dirty_tol=1.0. A stage's drift is the largest relative move
+# of its 256 channels' posterior estimates; in the first 30 ticks that is
+# 0.26-6.2 at every stage, so at the default dirty_tol=0.05 every refresh
+# dirties all 32 stages (a full solve), and only the loose tolerance lets
+# the incremental path run
+WF_CONFIGS = (("refresh_every=5", {}),
+              ("adaptive+risk", {"adaptive_refresh": True, "risk_lam": 0.5}),
+              ("adaptive+risk dirty_tol=1", {"adaptive_refresh": True,
+                                             "risk_lam": 0.5,
+                                             "dirty_tol": 1.0}))
+# the composed objective and the shared evaluator, card against the plain
+# path on the CPU (tests/test_torch_workflow.py)
+DAG_TOL_MU, DAG_TOL_VAR = 1e-4, 1e-3
+
+
+class _OpCount:
+    """Counts the aten operations dispatched inside a ``with`` block
+    (forward and autograd's backward alike)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _dag_rungs(res):
+    """(phase, mode, R starts, num_t) of each rung of one joint solve, from
+    its profile: presolve, triage, refine, final score, and the
+    fragility's pgrad (as adaptive refresh and risk run it)."""
+    p = res["profile"]
+    surv, pool = p["survivors"], p["pool"]
+    return (("presolve", "grad", p["starts"], p["presolve_num_t"]),
+            ("triage", "fwd", 2 * p["starts"], p["presolve_num_t"]),
+            ("refine", "grad", surv, res["num_t"]),
+            ("final", "fwd", pool, p["eval_num_t"]),
+            ("fragility", "pgrad", pool, res["num_t"]))
+
+
+def _dag_rung_check(tag, dag, phase, mode, R, T, fails):
+    """One rung's stacked launch on the card against its plain version
+    (weights: seeded simplex rows on every stage, tiled like the solver's
+    stack), twice (the bits repeat), with its time, bound and blocks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import frontier_grid as fg, ops
+    from repro_torch.workflow import solve as wsolve
+    dev = torch.device("cuda")
+    groups, mask, kmax = wsolve._stage_groups(dag)
+    stacks = wsolve._Stacks(groups, dev)
+    rng = np.random.default_rng(R * T)
+    e = rng.exponential(size=(R, len(dag.stages), kmax)) * mask
+    W = torch.tensor((e / e.sum(-1, keepdims=True)).astype(np.float32),
+                     device=dev)
+    fam = groups[0].dist_id
+    rows = stacks.rows(W, 0).contiguous()
+    mus, sgs, ex = stacks.tiled(0, R)
+    F = rows.shape[0]
+    if mode == "fwd":
+        def kern():
+            return fg.frontier_grid(rows, mus, sgs, ex, num_t=T, dist_id=fam)
+    else:
+        def kern(pg=(mode == "pgrad")):
+            return fg.frontier_grid_with_grads(rows, mus, sgs, ex, num_t=T,
+                                               dist_id=fam, param_grads=pg)
+
+    def plain():
+        return ops.plain_moments(rows, mus, sgs, ex, num_t=T, dist_id=fam,
+                                 mode=mode)
+
+    got, again = kern(), kern()
+    want = plain()
+    torch.cuda.synchronize()
+    errs, rel, ok = _compare(got, want)
+    ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+    label = f"{tag} {phase:9s} {mode:5s} F={F} K={kmax} T={T}"
+    _report("dag", label, errs, rel, ok)
+    if not ok:
+        fails.append(label)
+    ms = _time_cuda(kern, reps=7)
+    plain_ms = _time_cuda(plain, reps=3, warm=1)
+    dev_ms = _device_ms(kern, reps=10)
+    bound_ms, by = _bound(mode, F, kmax, T, ex.shape[0], True)
+    blocks = _call_blocks(mode, F, kmax, T, fam)
+    log(f"[dag] {label} kernel {ms:.4f} ms (device "
+        + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
+        + f")  plain {plain_ms:.3f} ms  bound {bound_ms:.4f} ms ({by})  "
+        f"blocks {blocks}")
+    del got, again, want
+    torch.cuda.empty_cache()
+    return {"tag": tag, "phase": phase, "mode": mode, "F": F, "K": kmax,
+            "T": T, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "blocks": blocks,
+            "max_abs_err": max(errs), "ok": ok}
+
+
+def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
+    """Host and device milliseconds of one composed refine step at the
+    solver's refine shape (``survivors`` starts, ``steps`` steps on the host
+    clock, ``prof_steps`` under torch.profiler), the composition's own host
+    time, and the torch operations of a step."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.workflow import solve as wsolve
+    dev = torch.device("cuda")
+    groups, mask, kmax = wsolve._stage_groups(dag)
+    S = len(dag.stages)
+    stacks = wsolve._Stacks(groups, dev)
+    masks = torch.tensor(mask, device=dev)
+    W0 = torch.tensor(wsolve._starts(dag, mask, kmax, survivors, None,
+                                     0)[2:2 + survivors], device=dev)
+    upd = np.ones(S, np.float32)
+
+    def run(n):
+        return wsolve._pgd_phase(dag.structure, stacks, masks, W0, upd, 0.0,
+                                 1e-6, n, n, num_t, True, lr=0.005,
+                                 warmup=n // 2)
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(prof_steps)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_total = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA)
+    kern_total = sum(e.self_device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and "frontier_grad" in e.key)
+    with _OpCount() as ops_all:
+        run(1)
+    smu = torch.rand((survivors, S), device=dev) * 10 + 5
+    svar = torch.rand((survivors, S), device=dev) + 0.1
+    wsolve._compose_grads(dag.structure, smu, svar, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        wsolve._compose_grads(dag.structure, smu, svar, 0.0)
+    torch.cuda.synchronize()
+    compose_ms = 1e3 * (time.perf_counter() - t0) / 5
+    with _OpCount() as ops_compose:
+        wsolve._compose_grads(dag.structure, smu, svar, 0.0)
+    out = {"tag": tag, "stages": S, "survivors": survivors,
+           "host_ms_per_step": host_ms,
+           "device_ms_per_step": (dev_total / 1e3 / prof_steps
+                                  if dev_total else None),
+           "kernel_device_ms_per_step": (kern_total / 1e3 / prof_steps
+                                         if kern_total else None),
+           "compose_host_ms": compose_ms,
+           "ops_per_step": ops_all.n, "compose_ops": ops_compose.n}
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.3f} ms"
+
+    log(f"[dag] {tag} refine step ({survivors} starts x {S} stages, T="
+        f"{num_t}): host {host_ms:.2f} ms, device "
+        f"{fmt(out['device_ms_per_step'])} (adjoint "
+        f"{fmt(out['kernel_device_ms_per_step'])})"
+        + f"; {ops_all.n} torch ops a step, of which the composition and "
+        f"its gradient {ops_compose.n} ({compose_ms:.2f} ms host)")
+    return out
+
+
+def _profile_solve(tag, fn):
+    """One warm call of ``fn`` on the host clock and under torch.profiler:
+    device time by kernel and the busy share (device time / wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = (by_name.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3)
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kern_ms = sum(ms for n, ms in by_name.items() if "frontier_" in n)
+    busy = dev_ms / wall_ms if dev_ms > 0 else None
+    log(f"[dag] {tag} warm joint solve: wall {wall_ms:.1f} ms, device "
+        + (f"{dev_ms:.2f} ms (frontier kernels {kern_ms:.2f}), busy share "
+           f"{busy:.3f}" if busy is not None else "not measured"))
+    for n, ms in top:
+        log(f"[dag]   {ms:9.3f} ms  {n[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms or None,
+            "frontier_kernel_ms": kern_ms or None, "busy_share": busy,
+            "top": [{"name": n, "ms": ms} for n, ms in top]}
+
+
+def _mixed_dag():
+    """8 stages of three families (normal, lognormal, drift) with K of
+    256, 200 and 131 (zero-padded): a fork into three branches, one
+    joined back."""
+    import numpy as np
+    from repro_torch.core.distributions import Drift
+    from repro_torch.workflow import Stage, StageDAG
+    rng = np.random.default_rng(11)
+    ks = (256, 200, 131)
+    stages = []
+    for i in range(8):
+        k = ks[i % 3]
+        mus = rng.uniform(10.0, 40.0, k)
+        fam = ("normal", "lognormal",
+               Drift(rng.uniform(0.1, 0.8, k).astype(np.float32)))[i % 3]
+        stages.append(Stage(f"m{i}", mus, mus * rng.uniform(0.05, 0.5, k),
+                            family=fam))
+    edges = [("m0", "m1"), ("m0", "m2"), ("m0", "m3"), ("m1", "m4"),
+             ("m2", "m5"), ("m3", "m6"), ("m4", "m7"), ("m5", "m7"),
+             ("m6", "m7")]
+    return StageDAG(stages, edges)
+
+
+def phase_dag(ctx):
+    """The dag_scale experiment at full scale on the card, then its checks
+    and costs (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import dag_scale as bench
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.workflow import evaluate_dag, solve_dag
+    from repro_torch.workflow import solve as wsolve
+    fails = []
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    wsolve.reset_syncs()
+    t0 = time.perf_counter()
+    res = bench.run(smoke=False, device="cuda", repeats=DAG_REPEATS,
+                    scale_repeats=1, scale_warmup=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(fg.LAUNCHES)
+    syncs = dict(wsolve.SYNCS)
+    ctx["dag_launches"] = counts
+    j, g, sc = res["joint"], res["greedy"], res["scale_point"]
+    log(f"[dag] main path: {res['stages']} stages, K={res['channels']}, "
+        f"T={res['num_t']}, {res['steps']} steps, {res['trials']} trials, "
+        f"{DAG_REPEATS} warm solves a method and the {sc['stages']}-stage "
+        f"scale point, {run_s:.1f} s; launches {counts}, plateau reads "
+        f"{syncs['plateau']} over {syncs['steps']} PGD steps")
+    for name, d in (("joint", j), ("greedy", g)):
+        log(f"[dag] {name:6s} predicted makespan mu {d['makespan_mu']:.6f} "
+            f"var {d['makespan_var']:.6f}; realized mean "
+            f"{d['mc_makespan_mu']:.6f} var {d['mc_makespan_var']:.6f}; "
+            f"wall median {d['median_us'] / 1e3:.1f} ms p90 "
+            f"{d['p90_us'] / 1e3:.1f} ms; launches a solve "
+            f"{d['launches_per_solve']}; phase_us {d['phase_us']}")
+    log(f"[dag] improvement {res['improvement_pct']:.4f}% predicted, "
+        f"{res['realized_improvement_pct']:.4f}% realized; wall ratio "
+        f"joint/greedy {res['joint_vs_greedy_wallclock_ratio']:.3f}")
+    log(f"[dag] joint: {j['profile']}; host reads {j['plateau_reads']} over "
+        f"{j['pgd_steps']} steps "
+        f"({j['plateau_reads'] / max(j['pgd_steps'], 1):.3f} a step)")
+    log(f"[dag] scale point {sc['stages']} stages K={sc['channels']} "
+        f"T={sc['num_t']}: wall {sc['median_us'] / 1e6:.2f} s, makespan mu "
+        f"{sc['makespan_mu']:.4f}, launches {sc['launches_per_solve']}, "
+        f"{sc['profile']}, host reads {sc['plateau_reads']} over "
+        f"{sc['pgd_steps']} steps; phase_us {sc['phase_us']}")
+    if j["makespan_mu"] > g["makespan_mu"]:
+        fails.append("joint above greedy on the predicted makespan")
+    if res["family_groups"] != 1 or sc["family_groups"] != 1:
+        fails.append(f"family_groups {res['family_groups']}")
+
+    # the card's splits re-evaluated by the plain path on the CPU
+    dag = bench.make_dag()
+    evals = {}
+    for name in ("joint", "greedy"):
+        w = res["weights"][name]
+        card = evaluate_dag(dag, w, num_t=2048, device="cuda")
+        cpu = evaluate_dag(dag, w, num_t=2048, device="cpu")
+        d_mu = abs(card.makespan_mu - cpu.makespan_mu) / abs(cpu.makespan_mu)
+        d_var = abs(card.makespan_var - cpu.makespan_var) / abs(
+            cpu.makespan_var)
+        ok = d_mu <= DAG_TOL_MU and d_var <= DAG_TOL_VAR and abs(
+            card.makespan_mu - res[name]["makespan_mu"]) <= DAG_TOL_MU * abs(
+            cpu.makespan_mu)
+        evals[name] = {"card_mu": card.makespan_mu, "cpu_mu": cpu.makespan_mu,
+                       "card_var": card.makespan_var,
+                       "cpu_var": cpu.makespan_var, "rel_mu": d_mu,
+                       "rel_var": d_var, "ok": ok}
+        log(f"[dag] {name} split, evaluate_dag card against CPU plain: mu "
+            f"{card.makespan_mu:.6f} / {cpu.makespan_mu:.6f} (rel {d_mu:.1e}"
+            f"), var {card.makespan_var:.6f} / {cpu.makespan_var:.6f} (rel "
+            f"{d_var:.1e})" + ("  ok" if ok else "  FAIL"))
+        if not ok:
+            fails.append(f"{name} evaluation card/CPU")
+
+    # every rung's launch against its plain version, at the shapes of the
+    # 32-stage solve and of the scale point
+    rungs = []
+    big = bench.make_dag(bench.SCALE_BRANCHES, bench.BRANCH_LEN,
+                         bench.TICK_K, seed=1)
+    for tag, d, r in (("S=32", dag, {**j, "num_t": res["num_t"]}),
+                      ("S=512", big, {**sc, "num_t": sc["num_t"]})):
+        for phase, mode, R, T in _dag_rungs(r):
+            rungs.append(_dag_rung_check(tag, d, phase, mode, R, T, fails))
+
+    # where a refine step's time goes, and one profiled warm solve
+    t_sub = time.perf_counter()
+    log(f"[dag] rung checks in {t_sub - t0 - run_s:.1f} s")
+    steps = [_refine_step_cost("S=32", dag, j["profile"]["survivors"],
+                               res["num_t"]),
+             _refine_step_cost("S=512", big, sc["profile"]["survivors"],
+                               sc["num_t"], steps=4, prof_steps=1)]
+    prof = _profile_solve("dag_joint", lambda: solve_dag(
+        dag, steps=res["steps"], restarts=1, num_t=res["num_t"],
+        device="cuda"))
+    log(f"[dag] step costs and the profile in "
+        f"{time.perf_counter() - t_sub:.1f} s")
+
+    # a mixed-family DAG: one call per family group per evaluation, the
+    # same decision as the CPU's plain path
+    mixed = _mixed_dag()
+    kw = dict(steps=20, restarts=1, num_t=128, plateau_patience=None)
+    fg.reset_launches()
+    dm = solve_dag(mixed, device="cuda", **kw)
+    m_counts = dict(fg.LAUNCHES)
+    dm_cpu = solve_dag(mixed, device="cpu", **kw)
+    m_rel = abs(dm.makespan_mu - dm_cpu.makespan_mu) / dm_cpu.makespan_mu
+    want = {"fwd": 3 * 2, "grad": 3 * 40, "pgrad": 0}
+    ok = (dm.family_groups == 3 and m_counts == want
+          and m_rel <= DAG_TOL_MU)
+    log(f"[dag] mixed 8-stage DAG: family_groups {dm.family_groups}, "
+        f"launches {m_counts} (want {want}), makespan card "
+        f"{dm.makespan_mu:.6f} CPU {dm_cpu.makespan_mu:.6f} (rel "
+        f"{m_rel:.1e})" + ("  ok" if ok else "  FAIL"))
+    if not ok:
+        fails.append("mixed-family DAG")
+    # an empty dirty set: the warm split, one forward call per group, no
+    # PGD launch
+    fg.reset_launches()
+    noop = solve_dag(mixed, device="cuda", warm_start=dm.weights, dirty=(),
+                     **kw)
+    n_counts = dict(fg.LAUNCHES)
+    same = all(np.array_equal(noop.weights[n], w)
+               for n, w in dm.weights.items())
+    ok = same and n_counts == {"fwd": 3, "grad": 0, "pgrad": 0}
+    log(f"[dag] empty dirty set: launches {n_counts}, warm split "
+        + ("verbatim" if same else "moved") + ("  ok" if ok else "  FAIL"))
+    if not ok:
+        fails.append("empty dirty set")
+    ctx["dag"] = {"result": {k: v for k, v in res.items() if k != "weights"},
+                  "run_s": run_s, "launches": counts, "syncs": syncs,
+                  "evaluations": evals, "rungs": rungs,
+                  "refine_steps": steps, "profile": prof,
+                  "mixed": {"launches": m_counts,
+                            "family_groups": dm.family_groups,
+                            "rel_mu": m_rel},
+                  "noop_launches": n_counts}
+    if fails:
+        raise AssertionError(f"dag phase failed: {fails}")
+
+
+def phase_wfloop(ctx):
+    """WorkflowBalancer on the 32-stage DAG against WorkflowSim.from_dag:
+    WF_TICKS ticks for each of WF_CONFIGS, stage WF_SLOW_STAGE slowed 3x
+    at tick WF_SLOW_AT."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import dag_scale as bench
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.sched import WorkflowBalancer
+    from repro_torch.sim import WorkflowSim
+    dag = bench.make_dag()
+    stats, total = {}, {m: 0 for m in fg.LAUNCHES}
+    empty_ticks, fails = 0, []
+    for name, kw in WF_CONFIGS:
+        bal = WorkflowBalancer(dag, family="normal", refresh_every=5,
+                               pgd_steps=bench.PGD_STEPS,
+                               num_t=bench.TICK_T, restarts=1,
+                               device="cuda", **kw)
+        sim = WorkflowSim.from_dag(dag, seed=0)
+        dirty_log = []
+        spy_of = bal._dirty_stages
+
+        def spy(live, spy_of=spy_of, dirty_log=dirty_log):
+            d = spy_of(live)
+            dirty_log.append(-1 if d is None else len(d))
+            return d
+
+        bal._dirty_stages = spy
+        torch.cuda.synchronize()
+        fg.reset_launches()
+        tick_s, spans, solves, sizes, frags = [], [], 0, [], []
+        for t in range(WF_TICKS):
+            if t == WF_SLOW_AT:
+                for idx in range(dag.stages[0].k):
+                    sim.stage_sims[WF_SLOW_STAGE].inject_slowdown(idx, 3.0)
+            before = dict(fg.LAUNCHES)
+            n_dirty = len(dirty_log)
+            prev = bal.last_decision
+            t0 = time.perf_counter()
+            w = bal.weights()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+            if bal.last_decision is not prev:
+                solves += 1
+                frags.append(bal.last_decision.relative_fragility)
+            if len(dirty_log) > n_dirty:
+                sizes.append(dirty_log[-1])
+                if dirty_log[-1] == 0:
+                    empty_ticks += 1
+                    if fg.LAUNCHES["grad"] != before["grad"]:
+                        fails.append(f"{name} tick {t}: PGD launched on an "
+                                     f"empty dirty set")
+            mk, _, durs = sim.run_dag_step(dag, w)
+            bal.observe(durs, w)
+            spans.append(mk)
+            if not all(np.isfinite(x).all() and abs(x.sum() - 1) < 1e-4
+                       for x in w.values()):
+                fails.append(f"{name} tick {t}: bad split")
+        torch.cuda.synchronize()
+        counts = dict(fg.LAUNCHES)
+        for m in total:
+            total[m] += counts[m]
+        tick_s = np.asarray(tick_s)
+        stats[name] = {"tick_mean_s": float(tick_s.mean()),
+                       "tick_max_s": float(tick_s.max()),
+                       "solves": solves, "solves_per_tick": solves / WF_TICKS,
+                       "dirty_sizes": sizes, "launches": counts,
+                       "relative_fragility": frags,
+                       "makespan_mean": float(np.mean(spans)),
+                       "makespan_after_slowdown": float(
+                           np.mean(spans[WF_SLOW_AT:])),
+                       "effective_refresh": bal.effective_refresh}
+        log(f"[wfloop] {name:15s} tick mean {1e3 * tick_s.mean():.1f} ms max "
+            f"{1e3 * tick_s.max():.1f} ms; {solves} solves in {WF_TICKS} "
+            f"ticks; dirty-set sizes at refreshes {sizes} (-1: full "
+            f"solve); relative fragility of the solves "
+            + " ".join("-" if f is None else f"{f:.4f}" for f in frags)
+            + f"; launches {counts}; makespan mean "
+            f"{np.mean(spans):.3f} (after the slowdown "
+            f"{np.mean(spans[WF_SLOW_AT:]):.3f})")
+    ctx["wfloop"] = stats
+    ctx["wfloop_launches"] = total
+    log(f"[wfloop] launches {total}; {empty_ticks} refresh(es) with an "
+        f"empty dirty set")
+    if min(total.values()) <= 0:
+        fails.append(f"a kernel mode never launched: {total}")
+    if fails:
+        raise AssertionError(f"wfloop phase failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1650,7 +2159,8 @@ def main(argv=None):
            "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
            "profile": phase_profile, "twoch": phase_twoch,
            "lmcheck": phase_lmcheck, "serve": phase_serve,
-           "ssmserve": phase_ssmserve, "lmtick": phase_lmtick}
+           "ssmserve": phase_ssmserve, "lmtick": phase_lmtick,
+           "dag": phase_dag, "wfloop": phase_wfloop}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -1659,12 +2169,21 @@ def main(argv=None):
 
     kernels = []
     tick = {(r["family"], r["mode"]): r for r in ctx.get("tick", [])}
+    # the frontier kernels' main paths: the closed loop, the workflow
+    # experiment and the workflow loop, each counted from zero; "launches"
+    # is their sum and "launches_by_path" the split
+    paths = {path: ctx[k] for path, k in (("loop", "launches"),
+                                          ("dag", "dag_launches"),
+                                          ("wfloop", "wfloop_launches"))
+             if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
+        by_path = {path: c[mode] for path, c in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces,
-            "launches": ctx.get("launches", {}).get(mode),
+            "launches": sum(by_path.values()) if by_path else None,
+            "launches_by_path": by_path,
             "max_abs_err": ctx.get("max_abs_err", {}).get(mode),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
@@ -1698,6 +2217,9 @@ def main(argv=None):
                    "ssmserve": ctx.get("ssmserve"),
                    "ssmserve_launches": ctx.get("ssmserve_launches"),
                    "lmtick": ctx.get("lmtick"),
+                   "dag": ctx.get("dag"), "wfloop": ctx.get("wfloop"),
+                   "dag_launches": ctx.get("dag_launches"),
+                   "wfloop_launches": ctx.get("wfloop_launches"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

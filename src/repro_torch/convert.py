@@ -7,7 +7,11 @@ the generator state). Both packages serialize them as plain lists, numbers
 and numpy arrays, so a JAX
 ``UncertaintyAwareBalancer.state_dict()`` or ``ClusterSim.state_dict()``
 turns into the port's objects here without importing the JAX package.
-Families cross through ``ChannelFamily.state_dict`` dictionaries.
+Families cross through ``ChannelFamily.state_dict`` dictionaries. A
+workflow crosses the same way: a JAX ``StageDAG`` (its stages' numpy
+statistics, families and edges), a ``WorkflowBalancer.state_dict()`` (one
+balancer state per stage head) and a ``WorkflowSim.state_dict()`` (one
+simulator state per stage fleet).
 
 The model zoo's configurations and weights cross too:
 :func:`config_from_reference` takes ``dataclasses.asdict`` of a JAX
@@ -26,11 +30,14 @@ import torch
 
 from .configs.base import LayerSpec, ModelConfig
 from .models.transformer import LM
-from .sched.balancer import UncertaintyAwareBalancer
-from .sim.cluster import ClusterSim
+from .sched.balancer import UncertaintyAwareBalancer, WorkflowBalancer
+from .sim.cluster import ClusterSim, WorkflowSim
+from .workflow.dag import MAX_DEPTH_DEFAULT, Stage, StageDAG
 
 __all__ = ["balancer_from_reference", "sim_from_reference",
-           "config_from_reference", "lm_from_reference"]
+           "dag_from_reference", "workflow_balancer_from_reference",
+           "workflow_sim_from_reference", "config_from_reference",
+           "lm_from_reference"]
 
 # the JAX ModelConfig's execution switches; the port selects by device
 _JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
@@ -67,6 +74,48 @@ def sim_from_reference(state_dict: dict) -> ClusterSim:
     sim = ClusterSim.from_state_dict(_plain(d))
     if rng_state is not None:
         sim.rng.bit_generator.state = rng_state
+    return sim
+
+
+def _family_spec(family):
+    """A JAX family (a name or a ``ChannelFamily``) as the port reads it:
+    the name, or the instance's ``state_dict``."""
+    if isinstance(family, str):
+        return family
+    return _plain(family.state_dict())
+
+
+def dag_from_reference(dag) -> StageDAG:
+    """The port's :class:`StageDAG` from a JAX ``StageDAG``: the same
+    stages (numpy statistics, families), edges and order."""
+    if isinstance(dag, StageDAG):
+        return dag
+    stages = [Stage(s.name, np.asarray(s.mus, np.float64),
+                    np.asarray(s.sigmas, np.float64),
+                    family=_family_spec(s.family)) for s in dag.stages]
+    return StageDAG(stages, [tuple(e) for e in dag.edges],
+                    max_depth=max(MAX_DEPTH_DEFAULT, dag.depth))
+
+
+def workflow_balancer_from_reference(state_dict: dict, dag,
+                                     device="cuda") -> WorkflowBalancer:
+    """The port's :class:`WorkflowBalancer` from a JAX one's
+    ``state_dict`` against ``dag`` (a JAX or a port ``StageDAG``), solving
+    on ``device``; each stage head crosses as
+    :func:`balancer_from_reference` does."""
+    d = _plain(copy.deepcopy(state_dict))
+    return WorkflowBalancer.from_state_dict(d, dag_from_reference(dag),
+                                            device=device)
+
+
+def workflow_sim_from_reference(state_dict: dict) -> WorkflowSim:
+    """The port's :class:`WorkflowSim` from a JAX one's ``state_dict``,
+    every stage fleet's generator state included."""
+    d = copy.deepcopy(state_dict)
+    stages = d.pop("stages")
+    sim = WorkflowSim.from_state_dict(_plain({**d, "stages": {}}))
+    sim.stage_sims = {name: sim_from_reference(sd)
+                      for name, sd in stages.items()}
     return sim
 
 

@@ -1,4 +1,4 @@
 """Scheduler layer: the paper's partitioner wired into the runtime."""
-from .balancer import UncertaintyAwareBalancer, integerize
+from .balancer import UncertaintyAwareBalancer, WorkflowBalancer, integerize
 
-__all__ = ["UncertaintyAwareBalancer", "integerize"]
+__all__ = ["UncertaintyAwareBalancer", "WorkflowBalancer", "integerize"]

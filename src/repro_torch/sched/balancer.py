@@ -16,9 +16,13 @@ completion time, turns their point estimates into frontier weights through
 
 The solves run on ``device`` (the CUDA kernels on ``"cuda"``, their plain
 versions on ``"cpu"``); the posteriors live there too. ``state_dict`` has
-the keys of the JAX package's balancer (``"impl"`` holds the device type)
-and round-trips the whole estimation state, so a restored balancer resumes
-identical ticks.
+the keys of the JAX package's balancer and round-trips the whole estimation
+state, so a restored balancer resumes identical ticks. Its ``"impl"`` is
+written as ``"xla"``, the JAX package's plain path, so that the JAX
+balancer restores the state and solves; the port's own restore ignores it.
+
+:class:`WorkflowBalancer` lifts the loop to a stage DAG: one estimation
+head per stage and joint re-solves through ``workflow.solve.solve_dag``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..core.partitioner import (equal_split, inverse_mu_split, optimize_2ch,
                                 optimize_weights, predict_moments)
 from ..device import resolve_device
 
-__all__ = ["integerize", "UncertaintyAwareBalancer"]
+__all__ = ["integerize", "UncertaintyAwareBalancer", "WorkflowBalancer"]
 
 
 def _cadence_from_fragility(rel_fragility: float, cap: int,
@@ -447,4 +451,385 @@ class UncertaintyAwareBalancer:
                              for r in hist["rates"]]
             b._hist_work = [np.asarray(r, np.float32) for r in hist["work"]]
             b._hist_mask = [np.asarray(r, np.float32) for r in hist["mask"]]
+        return b
+
+
+@dataclass
+class WorkflowBalancer:
+    """Joint DAG partitioner: the paper's loop lifted to a stage graph.
+
+    One estimation head per stage (a policy-less
+    :class:`UncertaintyAwareBalancer` used for its NIG posteriors and, with
+    ``family="auto"``, its online family selection); every refresh re-solves
+    all stage splits jointly with ``workflow.solve.solve_dag`` on the
+    posterior point estimates, warm from the previous solve, one stacked
+    kernel call per family group per evaluation. ``dag`` gives the
+    structure and fleet sizes; its statistics are only priors.
+
+    The cache is invalidated by a family switch on any stage, a failure or
+    recovery, or the refresh cadence (``adaptive_refresh`` sizes it by the
+    composed makespan fragility). With ``incremental`` on and the last
+    solve's relative fragility at or under ``refresh_target_rel``, a refresh
+    re-solves only the stages whose posterior estimates drifted more than
+    ``dirty_tol`` (relative) from the statistics their last solve ran on, or
+    whose family changed; an empty dirty set keeps the cached split without
+    a solver call. Snapshots update only for the stages a solve moved. The
+    ladder's knobs (``presolve_num_t``, ``prune_margin``,
+    ``plateau_tol``/``plateau_patience``) ride every solve.
+
+    ``state_dict`` has the JAX package's keys and writes ``"impl": "xla"``
+    (and ``block_rows`` as ``"block_f"``), so the JAX package's
+    ``WorkflowBalancer.from_state_dict`` restores it and solves.
+    """
+
+    dag: object                      # workflow.StageDAG
+    lam_var: float = 0.0             # makespan variance weight
+    family: object = "auto"          # per-stage family mode
+    refresh_every: int = 1
+    pgd_steps: int = 60
+    restarts: int = 1
+    device: object = "cuda"
+    num_t: int = 512
+    block_rows: Optional[int] = None   # plain-path rows per chunk (CPU)
+    risk_lam: float = 0.0
+    adaptive_refresh: bool = False
+    refresh_target_rel: float = 0.02
+    prior_mean: float = 1.0
+    min_weight: float = 0.0
+    presolve_num_t: Optional[int] = None
+    prune_margin: Optional[float] = 5e-3
+    plateau_tol: float = 1e-6
+    plateau_patience: Optional[int] = 8
+    incremental: bool = True
+    dirty_tol: float = 0.05          # relative drift that dirties a stage
+    _est: dict = field(default=None, repr=False)
+    _cached: object = field(default=None, repr=False)
+    _cached_key: object = field(default=None, repr=False)
+    _obs_count: int = 0
+    _effective_refresh: Optional[int] = field(default=None, repr=False)
+    _last_decision: object = field(default=None, repr=False)
+    _last_rel_frag: Optional[float] = field(default=None, repr=False)
+    _failed: dict = field(default_factory=dict, repr=False)
+    _solve_stats: dict = field(default_factory=dict, repr=False)
+    _solve_fams: dict = field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self._est is None:
+            # estimation heads only: their own solve path is never used,
+            # so the exploration probe is off
+            self._est = {
+                s.name: UncertaintyAwareBalancer(
+                    num_channels=s.k, family=self.family,
+                    prior_mean=self.prior_mean, explore=0.0,
+                    device=self.device)
+                for s in self.dag.stages}
+        if self._effective_refresh is None:
+            self._effective_refresh = max(self.refresh_every, 1)
+
+    @property
+    def effective_refresh(self) -> int:
+        return int(self._effective_refresh or max(self.refresh_every, 1))
+
+    @property
+    def last_decision(self):
+        """The DAGDecision of the most recent solve (None before)."""
+        return self._last_decision
+
+    def selected_families(self) -> dict:
+        """dist_id per stage the next joint solve runs under."""
+        return {n: e.selected_family.dist_id for n, e in self._est.items()}
+
+    # ------------------------------------------------------------ feedback
+    def observe(self, durations: dict, work: dict):
+        """Per-stage feedback {stage: per-channel durations / work shares};
+        absent stages are skipped."""
+        for name, durs in durations.items():
+            self._est[name].observe(durs, work[name])
+        self._obs_count += 1
+
+    # ------------------------------------------------------------- failures
+    def handle_failure(self, stage: str, idx: int):
+        """Channel ``idx`` of ``stage`` is dead: it gets zero share until
+        :meth:`handle_recovery`, and the cached solve is dropped."""
+        if not any(s.name == stage for s in self.dag.stages):
+            raise KeyError(f"unknown stage {stage!r}")
+        self._failed.setdefault(stage, set()).add(int(idx))
+        self._cached = None
+
+    def handle_recovery(self, stage: str, idx: int):
+        """Re-admit a recovered channel (a no-op if it never failed)."""
+        bad = self._failed.get(stage)
+        if bad is not None:
+            bad.discard(int(idx))
+            if not bad:
+                self._failed.pop(stage)
+        self._cached = None
+
+    def failed_channels(self) -> dict:
+        """{stage: sorted failed channel indices}."""
+        return {n: sorted(v) for n, v in self._failed.items() if v}
+
+    def _mask_failed(self, name: str, w: np.ndarray) -> np.ndarray:
+        """Zero dead channels and renormalize the survivors' shares."""
+        bad = self._failed.get(name)
+        if not bad:
+            return w
+        w = w.copy()
+        w[sorted(bad)] = 0.0
+        s = w.sum()
+        if s > 0:
+            return w / s
+        alive = np.ones(len(w))
+        alive[sorted(bad)] = 0.0
+        return alive / max(alive.sum(), 1.0)
+
+    # ------------------------------------------------------------ decisions
+    def _live_dag(self):
+        mus, sigmas, fams = {}, {}, {}
+        for s in self.dag.stages:
+            est = self._est[s.name]
+            mus[s.name], sigmas[s.name] = est.estimates()
+            fams[s.name] = est.selected_family
+        return self.dag.with_stats(mus, sigmas, fams)
+
+    def _solve_key(self) -> str:
+        fams = [UncertaintyAwareBalancer._family_key(
+            self._est[s.name].selected_family) for s in self.dag.stages]
+        key = "|".join(fams)
+        if self._failed:
+            bad = ";".join(f"{n}:{sorted(v)}"
+                           for n, v in sorted(self._failed.items()) if v)
+            key += f"|failed[{bad}]"
+        return key
+
+    def _dirty_stages(self, live):
+        """None for a full solve, else the (possibly empty) set of stages
+        whose estimation state moved past ``dirty_tol``; incremental solves
+        are trusted only after a firm solve (relative fragility at or under
+        ``refresh_target_rel``)."""
+        if not self.incremental or self._cached is None \
+                or not self._solve_stats:
+            return None
+        rel = self._last_rel_frag
+        if rel is None or rel > self.refresh_target_rel:
+            return None
+        dirty = set()
+        for s in live.stages:
+            snap = self._solve_stats.get(s.name)
+            fkey = UncertaintyAwareBalancer._family_key(
+                self._est[s.name].selected_family)
+            if snap is None or self._solve_fams.get(s.name) != fkey:
+                dirty.add(s.name)
+                continue
+            mu0, sg0 = snap
+            mu = np.asarray(s.mus, np.float64)
+            sg = np.asarray(s.sigmas, np.float64)
+            drift = max(
+                float(np.max(np.abs(mu - mu0)
+                             / np.maximum(np.abs(mu0), 1e-9))),
+                float(np.max(np.abs(sg - sg0)
+                             / np.maximum(np.abs(sg0), 1e-9))))
+            if drift > self.dirty_tol:
+                dirty.add(s.name)
+        if len(dirty) == len(live.stages):
+            return None      # everything moved: a plain full solve
+        return dirty
+
+    def _snapshot(self, live, dirty):
+        """Record the statistics this solve ran on, for the stages it
+        moved."""
+        for s in live.stages:
+            if dirty is not None and s.name not in dirty:
+                continue
+            self._solve_stats[s.name] = (
+                np.asarray(s.mus, np.float64).copy(),
+                np.asarray(s.sigmas, np.float64).copy())
+            self._solve_fams[s.name] = UncertaintyAwareBalancer._family_key(
+                self._est[s.name].selected_family)
+
+    def _solve(self, live, **kw):
+        from ..workflow.solve import solve_dag  # lazy: layering
+
+        return solve_dag(live, lam_var=self.lam_var, steps=self.pgd_steps,
+                         num_t=self.num_t, device=self.device,
+                         block_rows=self.block_rows,
+                         presolve_num_t=self.presolve_num_t,
+                         prune_margin=self.prune_margin,
+                         plateau_tol=self.plateau_tol,
+                         plateau_patience=self.plateau_patience, **kw)
+
+    def weights(self) -> dict:
+        """Current per-stage splits; re-solves jointly when stale, and only
+        over the dirty stages when the fragility gate allows it."""
+        key = self._solve_key()
+        cadence = (self.effective_refresh if self.adaptive_refresh
+                   else max(self.refresh_every, 1))
+        stale = (self._cached is None or key != self._cached_key
+                 or self._obs_count % cadence == 0)
+        if stale:
+            live = self._live_dag()
+            dirty = self._dirty_stages(live)
+            if dirty is not None and not dirty:
+                # nothing drifted after a firm solve: the cached split
+                # stands, no solver call
+                self._cached_key = key
+            else:
+                posteriors = None
+                if self.risk_lam > 0 or self.adaptive_refresh:
+                    posteriors = {s.name: self._est[s.name]._nig
+                                  for s in self.dag.stages}
+                dec = self._solve(live, restarts=self.restarts,
+                                  warm_start=self._cached,
+                                  risk_lam=self.risk_lam,
+                                  posteriors=posteriors, dirty=dirty)
+                self._last_decision = dec
+                self._last_rel_frag = dec.relative_fragility
+                if (self.adaptive_refresh
+                        and dec.relative_fragility is not None):
+                    self._effective_refresh = _cadence_from_fragility(
+                        dec.relative_fragility, self.refresh_every,
+                        self.refresh_target_rel)
+                self._cached = {n: np.asarray(w, np.float64)
+                                for n, w in dec.weights.items()}
+                self._cached_key = key
+                self._snapshot(live, dirty)
+        out = {}
+        for n, w in self._cached.items():
+            w = self._mask_failed(n, w.copy())
+            if self.min_weight > 0:
+                # floor only live channels: a dead channel's zero share is
+                # a constraint
+                bad = self._failed.get(n)
+                live_ch = np.ones(len(w), bool)
+                if bad:
+                    live_ch[sorted(bad)] = False
+                w = np.where(live_ch, np.maximum(w, self.min_weight), 0.0)
+                w = w / w.sum()
+            out[n] = w
+        return out
+
+    def assign(self, total_units) -> dict:
+        """Integer work per stage; ``total_units`` an int (the same batch
+        for every stage) or {stage: int}."""
+        ws = self.weights()
+        if not isinstance(total_units, dict):
+            total_units = {n: int(total_units) for n in ws}
+        return {n: integerize(w, total_units[n]) for n, w in ws.items()}
+
+    def predicted_moments(self):
+        """Composed (makespan mu, var) at the current splits."""
+        from ..workflow.solve import evaluate_dag  # lazy: layering
+
+        dec = evaluate_dag(self._live_dag(), self.weights(),
+                           num_t=max(self.num_t, 2048), device=self.device,
+                           block_rows=self.block_rows)
+        return dec.makespan_mu, dec.makespan_var
+
+    def resolve_inflight(self, done: dict) -> dict:
+        """Sunk-work joint re-solve of a partly executed pipeline: ``done``
+        maps stage to per-channel completed fractions. Returns {stage:
+        shares of its remaining work}, warm from the cached solve, dead
+        channels at zero; the cache is untouched. When the fragility gate
+        admits it, only the stages with sunk work or drift re-solve."""
+        warm = (None if self._cached is None
+                else {n: self._mask_failed(n, w.copy())
+                      for n, w in self._cached.items()})
+        live = self._live_dag()
+        dirty = self._dirty_stages(live)
+        if dirty is not None:
+            dirty = dirty | set(done)
+            if len(dirty) >= len(live.stages):
+                dirty = None
+        dec = self._solve(live, restarts=0, warm_start=warm, done=done,
+                          dirty=dirty)
+        return {n: self._mask_failed(n, np.asarray(w, np.float64))
+                for n, w in dec.weights.items()}
+
+    # ------------------------------------------------------------ persistence
+    def state_dict(self) -> dict:
+        """Everything but the DAG (the caller passes it back to
+        :meth:`from_state_dict`), under the JAX package's keys."""
+        return {
+            "kind": "workflow",
+            "lam_var": self.lam_var,
+            "family": ("auto" if (isinstance(self.family, str)
+                                  and self.family == "auto")
+                       else get_family(self.family).state_dict()),
+            "refresh_every": self.refresh_every,
+            "pgd_steps": self.pgd_steps,
+            "restarts": self.restarts,
+            "impl": "xla", "num_t": self.num_t,
+            "block_f": self.block_rows,
+            "risk_lam": self.risk_lam,
+            "adaptive_refresh": self.adaptive_refresh,
+            "refresh_target_rel": self.refresh_target_rel,
+            "prior_mean": self.prior_mean,
+            "min_weight": self.min_weight,
+            "presolve_num_t": self.presolve_num_t,
+            "prune_margin": self.prune_margin,
+            "plateau_tol": self.plateau_tol,
+            "plateau_patience": self.plateau_patience,
+            "incremental": self.incremental,
+            "dirty_tol": self.dirty_tol,
+            "obs_count": self._obs_count,
+            "effective_refresh": self._effective_refresh,
+            "last_rel_fragility": self._last_rel_frag,
+            "cached": (None if self._cached is None
+                       else {n: np.asarray(w).tolist()
+                             for n, w in self._cached.items()}),
+            "cached_key": self._cached_key,
+            "failed": {n: sorted(v) for n, v in self._failed.items() if v},
+            "solve_stats": {n: [m.tolist(), sg.tolist()]
+                            for n, (m, sg) in self._solve_stats.items()},
+            "solve_fams": dict(self._solve_fams),
+            "est": {n: e.state_dict() for n, e in self._est.items()},
+        }
+
+    @classmethod
+    def from_state_dict(cls, d: dict, dag,
+                        device="cuda") -> "WorkflowBalancer":
+        """Restore against ``dag`` on ``device``; the saved ``"impl"`` does
+        not choose it."""
+        fam_spec = d.get("family", "auto")
+        fam = "auto" if fam_spec == "auto" else get_family(fam_spec)
+        b = cls(dag=dag, lam_var=d.get("lam_var", 0.0), family=fam,
+                refresh_every=d.get("refresh_every", 1),
+                pgd_steps=d.get("pgd_steps", 60),
+                restarts=d.get("restarts", 1), device=device,
+                num_t=d.get("num_t", 512),
+                block_rows=d.get("block_f"),
+                risk_lam=d.get("risk_lam", 0.0),
+                adaptive_refresh=d.get("adaptive_refresh", False),
+                refresh_target_rel=d.get("refresh_target_rel", 0.02),
+                prior_mean=d.get("prior_mean", 1.0),
+                min_weight=d.get("min_weight", 0.0),
+                presolve_num_t=d.get("presolve_num_t"),
+                prune_margin=d.get("prune_margin", 5e-3),
+                plateau_tol=d.get("plateau_tol", 1e-6),
+                plateau_patience=d.get("plateau_patience", 8),
+                incremental=d.get("incremental", True),
+                dirty_tol=d.get("dirty_tol", 0.05))
+        for name, sd in d.get("est", {}).items():
+            if name not in b._est:
+                raise ValueError(
+                    f"state_dict stage {name!r} not in the supplied DAG "
+                    f"(stages: {[s.name for s in dag.stages]})")
+            b._est[name] = UncertaintyAwareBalancer.from_state_dict(
+                sd, device=b.device)
+        b._obs_count = d.get("obs_count", 0)
+        b._effective_refresh = d.get("effective_refresh",
+                                     max(b.refresh_every, 1))
+        if d.get("cached") is not None:
+            b._cached = {n: np.asarray(w, np.float64)
+                         for n, w in d["cached"].items()}
+            b._cached_key = d.get("cached_key")
+        b._failed = {n: set(int(i) for i in v)
+                     for n, v in d.get("failed", {}).items() if v}
+        b._last_rel_frag = d.get("last_rel_fragility")
+        b._solve_stats = {n: (np.asarray(m, np.float64),
+                              np.asarray(sg, np.float64))
+                          for n, (m, sg) in d.get("solve_stats",
+                                                  {}).items()}
+        b._solve_fams = dict(d.get("solve_fams", {}))
         return b

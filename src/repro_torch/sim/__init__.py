@@ -1,5 +1,5 @@
 """Cluster simulator: stochastic channels, draw for draw with the JAX
 package's simulator."""
-from .cluster import Channel, ClusterSim
+from .cluster import Channel, ClusterSim, WorkflowSim
 
-__all__ = ["Channel", "ClusterSim"]
+__all__ = ["Channel", "ClusterSim", "WorkflowSim"]

@@ -15,7 +15,8 @@ here matches one made there draw for draw under the same seed:
 The ``empirical`` family has no generating regime: it is a mixture the
 estimator fits to whatever the channels produce. Per-step multiplicative mu
 drift, a fleet-wide load factor and scheduled churn (fail, recover,
-throttle, set_load) complete the physics.
+throttle, set_load) complete the physics. :class:`WorkflowSim` runs one
+such fleet per stage of a workflow DAG.
 """
 from __future__ import annotations
 
@@ -24,9 +25,9 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from ..core.distributions import lognormal_shape_np
+from ..core.distributions import lognormal_shape_np, resolve_family
 
-__all__ = ["Channel", "ClusterSim"]
+__all__ = ["Channel", "ClusterSim", "WorkflowSim"]
 
 _DISTS = ("normal", "lognormal", "drift", "defective")
 
@@ -250,3 +251,137 @@ class ClusterSim:
             c.mu = mu
         if sigma is not None:
             c.sigma = sigma
+
+
+@dataclass
+class WorkflowSim:
+    """Workflow traces: one :class:`ClusterSim` fleet per DAG stage.
+
+    A stage is released when its last predecessor completes, runs on its
+    own stochastic fleet, and the makespan is the latest sink completion:
+    the discrete-event twin of ``StageDAG.compose_moments``, with no
+    Gaussian approximation. ``stage_sims`` maps stage name to fleet.
+    Stages run in topological order; a passed ``rng`` is one stream shared
+    by every stage of the step. The draws are the JAX package's
+    ``WorkflowSim``'s in the same order, so traces agree draw for draw.
+    """
+
+    stage_sims: dict
+    seed: int = 0
+    step_count: int = 0
+    # step -> [(action, stage, idx, value)]
+    churn: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_dag(cls, dag, seed: int = 0) -> "WorkflowSim":
+        """Fleets with each stage's (mus, sigmas) under its family's regime
+        (an empirical stage runs the normal regime; the mixture is the
+        estimator's, not a generator); stage i draws from seed + 1 + i."""
+        sims = {}
+        for i, s in enumerate(dag.stages):
+            dist = s.dist_id if s.dist_id in _DISTS else "normal"
+            rho = np.zeros(s.k)
+            fail_p, resume = np.zeros(s.k), np.ones(s.k)
+            if dist in ("drift", "defective"):
+                ex = np.asarray(resolve_family(s.family, s.k)[1], np.float64)
+                if dist == "drift":
+                    rho = ex[0]
+                else:
+                    fail_p, resume = ex[0], ex[1]
+            chans = [Channel(mu=float(s.mus[j]), sigma=float(s.sigmas[j]),
+                             dist=dist, rho=float(rho[j]),
+                             fail_p=float(fail_p[j]),
+                             resume_frac=float(resume[j]))
+                     for j in range(s.k)]
+            sims[s.name] = ClusterSim(channels=chans, seed=seed + 1 + i)
+        return cls(stage_sims=sims, seed=seed)
+
+    # ------------------------------------------------------------- churn
+    def schedule_churn(self, step: int, action: str,
+                       stage: Optional[str] = None, idx: Optional[int] = None,
+                       value: Optional[float] = None):
+        """Queue a churn event for the ``step``-th :meth:`tick` (1-based):
+        fail, recover or throttle channel ``idx`` of ``stage``, or
+        set_load on ``stage`` (every stage when None). It fires before
+        that step's draws."""
+        if action not in _CHURN_ACTIONS:
+            raise ValueError(f"churn action must be one of {_CHURN_ACTIONS}, "
+                             f"got {action!r}")
+        if stage is not None and stage not in self.stage_sims:
+            raise ValueError(f"unknown stage {stage!r} "
+                             f"(stages: {sorted(self.stage_sims)})")
+        if action in ("fail", "recover", "throttle"):
+            if stage is None:
+                raise ValueError(f"churn action {action!r} needs a stage")
+            if idx is None:
+                raise ValueError(f"churn action {action!r} needs a "
+                                 f"channel idx")
+        if action in ("throttle", "set_load") and value is None:
+            raise ValueError(f"churn action {action!r} needs a value")
+        self.churn.setdefault(int(step), []).append((action, stage, idx,
+                                                     value))
+
+    def tick(self):
+        """Advance the workflow clock one step and fire its churn events."""
+        self.step_count += 1
+        for action, stage, idx, value in self.churn.pop(self.step_count, ()):
+            targets = ([self.stage_sims[stage]] if stage is not None
+                       else list(self.stage_sims.values()))
+            for sim in targets:
+                if action == "fail":
+                    sim.inject_failure(idx)
+                elif action == "recover":
+                    sim.recover(idx)
+                elif action == "throttle":
+                    sim.inject_slowdown(idx, value)
+                else:
+                    sim.set_load(value)
+
+    def set_load(self, factor: float, stage: Optional[str] = None):
+        """Switch the congestion regime of one stage fleet, or of every
+        stage fleet when ``stage`` is None."""
+        targets = ([self.stage_sims[stage]] if stage is not None
+                   else self.stage_sims.values())
+        for sim in targets:
+            sim.set_load(factor)
+
+    def run_dag_step(self, dag, weights: dict,
+                     rng: Union[None, int, np.random.Generator] = None):
+        """One workflow instance under per-stage splits ``weights``
+        ({name: (K_s,)}). Returns ``(makespan, completions, durations)``:
+        each stage's absolute finish time and its per-channel busy times."""
+        self.tick()
+        r = (np.random.default_rng(rng) if isinstance(rng, int) else rng)
+        completions, durations = {}, {}
+        for name in dag.topo_order:
+            release = max((completions[u] for u in dag.predecessors(name)),
+                          default=0.0)
+            join_t, durs = self.stage_sims[name].run_step(weights[name],
+                                                          rng=r)
+            completions[name] = release + join_t
+            durations[name] = durs
+        makespan = max(completions[n] for n in dag.sinks)
+        return makespan, completions, durations
+
+    # ------------------------------------------------------------ persistence
+    def state_dict(self) -> dict:
+        """Every stage fleet's state (generators included), the clock and
+        the pending churn, under the JAX package's keys."""
+        return {
+            "seed": self.seed,
+            "step_count": self.step_count,
+            "churn": {str(k): [list(e) for e in v]
+                      for k, v in self.churn.items()},
+            "stages": {name: sim.state_dict()
+                       for name, sim in self.stage_sims.items()},
+        }
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "WorkflowSim":
+        return cls(
+            stage_sims={name: ClusterSim.from_state_dict(sd)
+                        for name, sd in d["stages"].items()},
+            seed=d.get("seed", 0),
+            step_count=d.get("step_count", 0),
+            churn={int(k): [tuple(e) for e in v]
+                   for k, v in d.get("churn", {}).items()})

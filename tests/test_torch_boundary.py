@@ -42,7 +42,8 @@ def test_port_imports_without_jax_or_a_build():
     code = ("import sys, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.sched, repro_torch.sim, repro_torch.convert, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
-            "repro_torch.launch.serve;"
+            "repro_torch.launch.serve, repro_torch.workflow, "
+            "repro_torch.bench.dag_scale;"
             "from repro_torch.kernels import _cuda;"
             "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

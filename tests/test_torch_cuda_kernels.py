@@ -14,7 +14,9 @@ state) and 1e-2 for bf16 y. The bf16 attention kernel is also held against
 and the split decode against ``ref.decode_attention_split_ref``. The split
 frontier adjoint and the split forward moments are held at
 ``chip_smoke.py``'s tolerances: mu rtol = atol = 1e-4, var rtol 1e-2 / atol
-1e-3, every adjoint relative L2 <= 1e-4.
+1e-3, every adjoint relative L2 <= 1e-4; so are the workflow solver's
+stacked per-row launches at the rung shapes of a joint solve (``-k dag``),
+with a mixed-family DAG solved on the card against the plain path.
 """
 import pytest
 import torch
@@ -428,3 +430,105 @@ def test_long_grids_match_plain(card, fam, T):
     want = ref.frontier_grid_ref(W, mus, sgs, num_t=T, dist_id=fam, extra=ex)
     torch.testing.assert_close(mu, want[0], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(var, want[1], rtol=1e-2, atol=1e-3)
+
+
+def _dag_groups(R, dev, seed=0):
+    """The stacked per-row launch inputs of ``workflow.solve`` for a
+    mixed-family DAG: three stages each of normal, lognormal and drift
+    with K of 256, 200 and 131 (zero-padded to 256), every group's
+    statistics tiled over R starts and weights on the active channels."""
+    import numpy as np
+    from repro_torch.core.distributions import Drift
+    from repro_torch.workflow import solve as wsolve
+    rng = np.random.default_rng(seed)
+    rows = []
+    for fam in ("normal", "lognormal", "drift"):
+        for k in (256, 200, 131):
+            mus = rng.uniform(10.0, 40.0, k)
+            sgs = mus * rng.uniform(0.05, 0.5, k)
+            f = Drift(rng.uniform(0.1, 0.8, k).astype(np.float32)) \
+                if fam == "drift" else fam
+            rows.append((mus, sgs, f))
+    groups, mask, kmax = wsolve.stack_rows(rows)
+    stacks = wsolve._Stacks(groups, dev)
+    e = rng.exponential(size=(R, len(rows), kmax)) * mask
+    W = torch.tensor((e / e.sum(-1, keepdims=True)).astype(np.float32),
+                     device=dev)
+    for g, grp in enumerate(groups):
+        yield (grp.dist_id, stacks.rows(W, g).contiguous(),
+               *stacks.tiled(g, R))
+
+
+# (mode, starts R, num_t): the rungs of one joint solve at the dag_scale
+# configuration: presolve (grad, R starts, T = 128), triage (fwd, 2 R),
+# refine (grad, survivors), final score (fwd, 3 survivors, T = 2048),
+# fragility (pgrad)
+DAG_RUNGS = [("grad", 3, 128), ("fwd", 6, 128), ("grad", 1, 256),
+             ("grad", 3, 256), ("fwd", 9, 2048), ("pgrad", 3, 256),
+             ("pgrad", 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,R,T", DAG_RUNGS)
+def test_dag_stacked_launches_match_plain(card, mode, R, T):
+    # per-row statistics with zero-padded channels (w = mu = sigma = 0),
+    # one family group a call, against the plain version; a second call
+    # repeats the bits
+    from repro_torch.kernels import frontier_grid as fg
+    for fam, W, mus, sgs, ex in _dag_groups(R, card, seed=R * T):
+        if mode == "fwd":
+            def run():
+                return fg.frontier_grid(W, mus, sgs, ex, num_t=T,
+                                        dist_id=fam)
+            want = ref.frontier_grid_ref(W, mus, sgs, num_t=T, dist_id=fam,
+                                         extra=ex)
+        else:
+            def run(pg=(mode == "pgrad")):
+                return fg.frontier_grid_with_grads(
+                    W, mus, sgs, ex, num_t=T, dist_id=fam, param_grads=pg)
+            want = ref.frontier_grid_with_grads_ref(
+                W, mus, sgs, num_t=T, dist_id=fam, extra=ex,
+                param_grads=(mode == "pgrad"))
+        got = run()
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+        for g, w in zip(got[2:], want[2:]):
+            assert bool(torch.isfinite(g).all())
+            assert _rel_l2(g, w) <= 1e-4, (fam, mode, _rel_l2(g, w))
+        again = run()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_dag_solve_on_the_card_matches_the_plain_path(card):
+    # a mixed-family DAG: one call per family group per evaluation, the
+    # same decision as on the CPU, and an empty dirty set launches no PGD
+    import numpy as np
+    from repro_torch.core.distributions import Drift
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.workflow import Stage, StageDAG, solve_dag
+    rng = np.random.default_rng(3)
+    fams = ("normal", "lognormal", Drift(np.full(20, 0.3, np.float32)))
+    # stage i: family i % 3 with K = 24, 22, 20 (zero-padded to 24)
+    stages = [Stage(f"s{i}", rng.uniform(10, 40, 24 - 2 * (i % 3)),
+                    np.full(24 - 2 * (i % 3), 2.0), family=fams[i % 3])
+              for i in range(6)]
+    dag = StageDAG(stages, [("s0", "s1"), ("s0", "s2"), ("s1", "s3"),
+                            ("s2", "s3"), ("s0", "s4"), ("s3", "s5"),
+                            ("s4", "s5")])
+    kw = dict(steps=12, restarts=1, num_t=128, plateau_patience=None)
+    fg.reset_launches()
+    got = solve_dag(dag, device=card, **kw)
+    counts = dict(fg.LAUNCHES)
+    want = solve_dag(dag, device="cpu", **kw)
+    assert got.family_groups == want.family_groups == 3
+    assert counts == {"fwd": 3 * 2, "grad": 3 * 24, "pgrad": 0}
+    assert got.makespan_mu == pytest.approx(want.makespan_mu, rel=1e-4)
+    for n, w in got.weights.items():
+        np.testing.assert_allclose(w, want.weights[n], atol=1e-3)
+    fg.reset_launches()
+    noop = solve_dag(dag, device=card, warm_start=got.weights, dirty=(),
+                     **kw)
+    assert dict(fg.LAUNCHES) == {"fwd": 3, "grad": 0, "pgrad": 0}
+    assert all(np.array_equal(noop.weights[n], w)
+               for n, w in got.weights.items())
