@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
     python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
     python3 chip_smoke.py --phases card,build,dag,wfloop
+    python3 chip_smoke.py --phases card,build,engine,chaos
 
 Phases, in order:
 
@@ -120,6 +121,35 @@ Phases, in order:
    WF_SLOW_AT: tick mean, solves per tick, dirty-set sizes, the solves'
    relative fragility, launches. Every mode must have launched, and a
    refresh with an empty dirty set launches no PGD step.
+15. ``engine`` — the serving path: ``repro_torch.bench.serve_trace`` at
+   full scale on the card (the continuous-batching ``WorkflowEngine``, 3
+   templates in 3 families, 120 ticks, up to 320 live, T=128, bursty
+   arrivals, stage churn), launch counters zeroed before and read after.
+   It prints the counters, join latency per template, solver-tick us,
+   rows per launch, occupancy, the live high-water mark (at least 256
+   asserted), the SLO miss rate, ``batched_vs_looped_ratio``, each
+   tick's host ms by stage (admission, stack_rows, launch, commit, each
+   between device synchronizations) and its device synchronizations
+   (torch's sync debug mode), and the device's busy share over five ticks
+   under torch.profiler. Asserted: every tick makes one frontier call per
+   family group with rows; every ENGINE_CHECK_EVERY-th tick's stacked
+   calls, and each (family, F) the first time it appears, rebuilt from the
+   engine's rows, agree with the plain version on the card at the
+   frontier tolerances, repeat their bits and reproduce the engine's
+   priced moments bit for bit. Then each engine shape seen
+   (family, F) timed with its bound and blocks; ``launch.serve --engine``
+   for ENGINE_CLI_TICKS ticks in-process; and the smoke trace on the card
+   and on the CPU, whose per-tick admissions, retirements, rows and
+   launches must agree and join latencies to 1e-4 relative (a dirty_tol
+   decision that flips between the two is printed with its tick, instance
+   and drift; only ticks before the first flip are then held).
+16. ``chaos`` — kill/restore parity on the card: ``sim.chaos`` on a
+   6-channel fleet with churn, on a defective fleet, on the dag_scale smoke
+   DAG (8 stages, K=32) with stage churn, and a ``WorkflowEngine`` killed
+   every ENGINE_KILL_EVERY ticks through ``save_pipeline`` /
+   ``restore_pipeline``; every restored decision must equal the
+   survivor's bit for bit. Then the full ``bench.fault_trace`` (12
+   channels, 300 ticks): the failure-aware solve must beat the blind one.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -137,7 +167,8 @@ Any failure exits non-zero. Without a card, or without the repository's
 before the last is a JSON object of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. A frontier kernel's ``launches`` in the
 per-kernel line is the sum over the paths that drive it, each counted from
-zero just before it runs (``loop``, ``dag``, ``wfloop``), and its
+zero just before it runs (``loop``, ``dag``, ``wfloop``, ``engine``: the
+ticks' own calls, ``chaos``), and its
 ``launches_by_path`` gives each path's count; a model kernel's is its
 serving phase's. Details go to ``chiprun_out/``.
 """
@@ -154,7 +185,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
-          "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop")
+          "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop",
+          "engine", "chaos")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -2128,6 +2160,477 @@ def phase_wfloop(ctx):
         raise AssertionError(f"wfloop phase failed: {fails}")
 
 
+# ------------------------------------------------------------- serving engine
+# the engine's host stages, as the JAX engine's trace spans name them, and
+# the WorkflowEngine method each times
+ENGINE_STAGES = (("admission", "_admit"), ("stack_rows", "_gather_rows"),
+                 ("launch", "_solve_tick"), ("commit", "_execute"))
+# every ENGINE_CHECK_EVERY-th tick's stacked launches are held against the
+# plain version on the card
+ENGINE_CHECK_EVERY = 10
+# the full trace's ticks after the first and through the second of these
+# run under torch.profiler (whole ticks, no ratio sample among them)
+ENGINE_PROFILE = (60, 65)
+ENGINE_CLI_TICKS = 40
+# the smoke trace on the card against the CPU: join latencies to this
+# relative tolerance
+ENGINE_TOL_JOIN = 1e-4
+
+
+def _sync_quiet():
+    """A device synchronization the sync counter does not count."""
+    import torch
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+
+
+class _EngineProbe:
+    """Instruments ``WorkflowEngine`` while it is active: the host time of
+    each stage of a tick on a synchronized clock, the device syncs of each
+    tick (torch's sync debug mode, its own synchronizations excluded), the
+    frontier calls each tick made, and each settled instance's posterior
+    drift at its re-dirty check. It patches the class and restores it on
+    exit."""
+
+    def __init__(self, count_syncs=True, track_drift=False):
+        self.count_syncs = count_syncs
+        self.track_drift = track_drift   # re-reads the heads: off when timed
+        self.ticks = []        # one dict per tick
+        self.redirty = []      # (tick, iid, drift, dirtied)
+
+    def __enter__(self):
+        import warnings
+        import torch
+        from repro_torch.kernels import frontier_grid as fg
+        from repro_torch.serve.engine import WorkflowEngine
+        self._orig = {m: getattr(WorkflowEngine, m)
+                      for m in ["tick", "_maybe_redirty"]
+                      + [m for _, m in ENGINE_STAGES]}
+        probe, orig = self, self._orig
+        on_card = torch.cuda.is_available()
+
+        def stage(name, meth):
+            def run(eng, *a, **k):
+                if eng.device.type == "cuda":
+                    _sync_quiet()
+                t0 = time.perf_counter()
+                out = orig[meth](eng, *a, **k)
+                if eng.device.type == "cuda":
+                    _sync_quiet()
+                probe._cur[name] += 1e3 * (time.perf_counter() - t0)
+                return out
+            return run
+
+        def tick(eng, arrivals=()):
+            probe._cur = {name: 0.0 for name, _ in ENGINE_STAGES}
+            before = dict(fg.LAUNCHES)
+            count = probe.count_syncs and eng.device.type == "cuda"
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if count:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = orig["tick"](eng, arrivals)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(0)
+            wall = 1e3 * (time.perf_counter() - t0)
+            probe.ticks.append({
+                "tick": out["tick"], "admitted": out["admitted"],
+                "retired": [(r["iid"], r["join_latency_s"])
+                            for r in out["retired"]],
+                "rows": out["rows"], "launches": out["launches"],
+                "groups": len({r.family.dist_id for r in eng.last_rows}),
+                "calls": {m: fg.LAUNCHES[m] - before[m] for m in before},
+                "syncs": (sum("synchroniz" in str(w.message)
+                              for w in caught) if count else None),
+                "wall_ms": wall, **probe._cur})
+            return out
+
+        def redirty(eng, inst):
+            drift = eng._posterior_drift(inst)
+            orig["_maybe_redirty"](eng, inst)
+            probe.redirty.append((eng.tick_count, inst.iid, drift,
+                                  inst.steps_left > 0))
+
+        WorkflowEngine.tick = tick
+        if self.track_drift:
+            WorkflowEngine._maybe_redirty = redirty
+        for name, meth in ENGINE_STAGES:
+            setattr(WorkflowEngine, meth, stage(name, meth))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import WorkflowEngine
+        for m, fn in self._orig.items():
+            setattr(WorkflowEngine, m, fn)
+
+
+def _engine_launch_check(eng, fails, shapes, every_group):
+    """The tick's stacked launches again, from ``eng.last_rows``: each
+    family group's inputs (``serve.engine.stack_group``) through the kernel
+    on the card against its plain version there, twice (the bits repeat);
+    the kernel's mu must be the engine's priced row moment, bit for bit.
+    Every group with ``every_group``, else only a (family, F) not seen
+    before; the first inputs of each go to ``shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune, frontier_grid as fg, ops
+    from repro_torch.serve.engine import stack_group
+    from repro_torch.workflow.solve import stack_rows
+    rows = eng.last_rows
+    groups, mask, kmax = stack_rows([(r.mus, r.sigmas, r.family)
+                                     for r in rows], kmax=eng.kmax)
+    for g in groups:
+        if not every_group and (g.dist_id, autotune.bucket_rows(
+                len(g.idx))) in shapes:
+            continue
+        W, mus, sgs, ex, _, _ = stack_group(rows, g, mask, kmax)
+        W, mus, sgs, ex = (torch.tensor(a, device="cuda")
+                           for a in (W, mus, sgs, ex))
+        F, T = W.shape[0], eng.num_t
+        got = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                          dist_id=g.dist_id)
+        again = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                            dist_id=g.dist_id)
+        want = ops.plain_moments(W, mus, sgs, ex, num_t=T,
+                                 dist_id=g.dist_id, mode="grad")
+        errs, rel, ok = _compare(got, want)
+        ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+        priced = np.asarray([rows[i].mu for i in g.idx], np.float64)
+        same = np.array_equal(
+            got[0][:len(g.idx)].cpu().numpy().astype(np.float64), priced)
+        ok &= same
+        tag = (f"tick {eng.tick_count} {g.dist_id:9s} rows {len(g.idx)} "
+               f"F={F} K={kmax} T={T}")
+        _report("engine", tag + (" (= the engine's mu)" if same else
+                                 " (NOT the engine's mu)"), errs, rel, ok)
+        if not ok:
+            fails.append(tag)
+        shapes.setdefault((g.dist_id, F), (W, mus, sgs, ex, T,
+                                           max(max(errs), 0.0)))
+
+
+def _engine_shape_times(shapes):
+    """Event-pair and device ms, bound and blocks of the grad call at each
+    engine shape seen, and the plain version's ms."""
+    from repro_torch.kernels import frontier_grid as fg, ops
+    out = []
+    for (fam, F), (W, mus, sgs, ex, T, err) in sorted(shapes.items()):
+        K = W.shape[1]
+
+        def kern():
+            return fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                               dist_id=fam)
+
+        def plain():
+            return ops.plain_moments(W, mus, sgs, ex, num_t=T, dist_id=fam,
+                                     mode="grad")
+
+        ms = _time_cuda(kern, reps=9)
+        plain_ms = _time_cuda(plain, reps=3, warm=1)
+        dev_ms = _device_ms(kern)
+        bound_ms, by = _bound("grad", F, K, T, ex.shape[0], True)
+        blocks = _call_blocks("grad", F, K, T, fam)
+        rec = {"family": fam, "F": F, "K": K, "T": T, "ms": ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": by, "blocks": blocks,
+               "max_abs_err": err}
+        out.append(rec)
+        log(f"[engine] grad {fam:9s} F={F:4d} K={K} T={T}: kernel {ms:.4f} "
+            f"ms (device " + (f"{dev_ms:.4f}" if dev_ms else "not measured")
+            + f"), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({by}), "
+            f"device/bound "
+            + (f"{dev_ms / bound_ms:.1f}x" if dev_ms else "n/a")
+            + f", blocks {blocks}")
+    return out
+
+
+def _percentiles(xs):
+    import numpy as np
+    xs = np.asarray(xs, np.float64)
+    return {"mean": float(xs.mean()), "p50": float(np.percentile(xs, 50)),
+            "p90": float(np.percentile(xs, 90)), "max": float(xs.max())}
+
+
+def phase_engine(ctx):
+    """The serve_trace experiment at full scale on the card through the
+    continuous-batching WorkflowEngine, then its checks (see the module
+    docstring)."""
+    import warnings
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench import serve_trace as bench
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.launch import serve as cli
+    fails, shapes = [], {}
+
+    # the sync counter counts: one known synchronization under it
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.ones(1, device="cuda").cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if not any("synchroniz" in str(w.message) for w in caught):
+        fails.append("the sync counter saw no synchronization")
+
+    prof = {}
+
+    def on_tick(eng, t, out):
+        if eng.last_rows:
+            _engine_launch_check(eng, fails, shapes,
+                                 (t + 1) % ENGINE_CHECK_EVERY == 0)
+        # the device's busy share over a window of whole ticks
+        if t == ENGINE_PROFILE[0]:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["t0"] = time.perf_counter()
+        elif t == ENGINE_PROFILE[1]:
+            torch.cuda.synchronize()
+            prof["wall_ms"] = 1e3 * (time.perf_counter() - prof["t0"])
+            prof["p"].stop()
+
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    with _EngineProbe() as probe:
+        res = bench.run(smoke=False, device="cuda", on_tick=on_tick)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ticks = probe.ticks
+    calls = {m: sum(t["calls"][m] for t in ticks) for m in fg.LAUNCHES}
+    ctx["engine_launches"] = calls
+    c = res["counters"]
+    log(f"[engine] main path: serve_trace {res['ticks']} ticks, max_live "
+        f"{res['max_live']}, T={bench.NUM_T}, {run_s:.1f} s; counters {c}; "
+        f"frontier calls in the ticks {calls}")
+    for e in res["entries"]:
+        log(f"[engine] {e['name']:18s} ({e['family']:9s}) join latency "
+            f"mean {e['mean_s']:.4f} p50 {e['p50_s']:.4f} p99 "
+            f"{e['p99_s']:.4f} s")
+    st, rp, oc, lv = (res["solver_tick_us"], res["rows_per_launch"],
+                      res["row_occupancy"], res["live_instances"])
+    log(f"[engine] solver tick p50 {st['p50']:.0f} us p90 {st['p90']:.0f} us"
+        f" (max {st['max']:.0f}); rows per launch mean {rp['mean']:.1f} p50 "
+        f"{rp['p50']:.0f} max {rp['max']:.0f}; occupancy mean "
+        f"{oc['mean']:.3f}; live max {lv['max']:.0f} mean {lv['mean']:.1f}; "
+        f"SLO miss rate {res['slo']['miss_rate']:.4f} "
+        f"({res['slo']['misses']}/{res['slo']['retired']}); "
+        f"batched_vs_looped_ratio {res['batched_vs_looped_ratio']:.3f}")
+    if lv["max"] < 256:
+        fails.append(f"live high-water {lv['max']} < 256")
+    bad = [t["tick"] for t in ticks
+           if not (t["launches"] == t["groups"] == t["calls"]["grad"])
+           or t["calls"]["fwd"] or t["calls"]["pgrad"]]
+    if bad:
+        fails.append(f"ticks without one launch per family group: {bad}")
+    host = {name: _percentiles([t[name] for t in ticks])
+            for name, _ in ENGINE_STAGES + (("wall_ms", None),)}
+    syncs = [t["syncs"] for t in ticks]
+    launch_ticks = [t for t in ticks if t["launches"]]
+    share = (sum(t["launch"] for t in ticks)
+             / max(sum(t["wall_ms"] for t in ticks), 1e-9))
+    log("[engine] host ms a tick (synchronized): " + "; ".join(
+        f"{n} mean {h['mean']:.3f} p50 {h['p50']:.3f} p90 {h['p90']:.3f}"
+        for n, h in host.items()) + f"; launch share of the tick "
+        f"{share:.3f}")
+    n_prof = ENGINE_PROFILE[1] - ENGINE_PROFILE[0]
+    prof_ticks = ticks[ENGINE_PROFILE[0] + 1:ENGINE_PROFILE[1] + 1]
+    dev_ms = sum(e.self_device_time_total for e in prof["p"].key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    busy = dev_ms / prof["wall_ms"] if dev_ms > 0 else None
+    log(f"[engine] ticks {prof_ticks[0]['tick']}-{prof_ticks[-1]['tick']} "
+        f"under torch.profiler: wall {prof['wall_ms']:.1f} ms, device "
+        + (f"{dev_ms:.3f} ms, busy share {busy:.4f}, host share "
+           f"{1 - busy:.4f}" if busy is not None else "not measured")
+        + f" ({sum(t['launches'] for t in prof_ticks)} launches in "
+        f"{n_prof} ticks)")
+    log(f"[engine] device syncs a tick: mean {np.mean(syncs):.2f} max "
+        f"{max(syncs)}; per launch "
+        f"{sum(syncs) / max(sum(t['launches'] for t in ticks), 1):.2f} "
+        f"({len(launch_ticks)} ticks launched)")
+    times = _engine_shape_times(shapes)
+
+    # the serving CLI's engine mode, in-process on the card
+    fg.reset_launches()
+    t1 = time.perf_counter()
+    eng = cli.main(["--engine", "--batches", str(ENGINE_CLI_TICKS),
+                    "--device", "cuda", "--deadline", "4.0"])
+    cli_calls = dict(fg.LAUNCHES)
+    cli_c = eng.telemetry.counters
+    log(f"[engine] launch.serve --engine: {ENGINE_CLI_TICKS} ticks in "
+        f"{time.perf_counter() - t1:.1f} s, counters {cli_c}, frontier "
+        f"calls {cli_calls}")
+    if cli_c["ticks"] != ENGINE_CLI_TICKS or cli_calls["grad"] != \
+            cli_c["launches"]:
+        fails.append("launch.serve --engine")
+
+    # the smoke trace on the card and on the CPU
+    smoke = {}
+    for dev in ("cuda", "cpu"):
+        with _EngineProbe(count_syncs=False, track_drift=True) as p:
+            bench.run(smoke=True, device=dev)
+        smoke[dev] = p
+    flips = [(a[0], a[1], a[2], b[2]) for a, b in
+             zip(smoke["cuda"].redirty, smoke["cpu"].redirty)
+             if a[:2] == b[:2] and a[3] != b[3]]
+    first_flip = flips[0][0] if flips else None
+    diverged = []
+    for a, b in zip(smoke["cuda"].ticks, smoke["cpu"].ticks):
+        same = all(a[k] == b[k] for k in ("admitted", "rows", "launches"))
+        same &= [r[0] for r in a["retired"]] == [r[0] for r in b["retired"]]
+        same &= all(abs(x[1] - y[1]) <= ENGINE_TOL_JOIN * abs(y[1])
+                    for x, y in zip(a["retired"], b["retired"]))
+        if not same:
+            diverged.append(a["tick"])
+    worst = max((abs(x[1] - y[1]) / abs(y[1])
+                 for a, b in zip(smoke["cuda"].ticks, smoke["cpu"].ticks)
+                 for x, y in zip(a["retired"], b["retired"])), default=0.0)
+    log(f"[engine] smoke trace card against CPU: "
+        f"{len(smoke['cuda'].ticks)} ticks, per-tick admitted/retired/"
+        f"rows/launches " + ("equal" if not diverged else
+                             f"differ at ticks {diverged}")
+        + f"; join latency worst relative difference {worst:.2e}; "
+        f"{len(smoke['cuda'].redirty)} re-dirty checks, dirty_tol flips "
+        + (", ".join(f"tick {t} instance {i} drift card {dc:.6f} CPU "
+                     f"{dp:.6f}" for t, i, dc, dp in flips)
+           if flips else "none"))
+    if diverged and (first_flip is None or min(diverged) < first_flip):
+        fails.append(f"smoke trace card/CPU diverged at {diverged}")
+    ctx["engine"] = {
+        "result": res, "run_s": run_s, "calls": calls, "host_ms": host,
+        "launch_share": share, "syncs_per_tick": float(np.mean(syncs)),
+        "profile": {"ticks": n_prof, "wall_ms": prof["wall_ms"],
+                    "device_ms": dev_ms or None, "busy_share": busy},
+        "syncs_max": max(syncs), "shapes": times,
+        "ticks": [{k: v for k, v in t.items() if k != "retired"}
+                  for t in ticks],
+        "cli": {"counters": cli_c, "calls": cli_calls},
+        "smoke_card_vs_cpu": {"diverged": diverged, "flips": flips,
+                              "worst_join_rel": worst}}
+    if fails:
+        raise AssertionError(f"engine phase failed: {fails}")
+
+
+# the chaos phase's churn: (step, action, idx, value) on the fleet, and
+# (step, action, stage, idx, value) on the workflow
+CHAOS_CHURN = [(5, "fail", 2), (9, "throttle", 0, 2.0), (13, "recover", 2)]
+CHAOS_WF_CHURN = [(3, "fail", "b0_1", 4, None),
+                  (6, "set_load", None, None, 1.4),
+                  (9, "recover", "b0_1", 4, None)]
+ENGINE_KILL_TICKS, ENGINE_KILL_EVERY = 16, 4
+
+
+def _engine_chaos(ckpt_dir):
+    """An engine on the serve_trace templates killed every
+    ENGINE_KILL_EVERY ticks: each kill saves a manifest, lets the
+    survivor tick, restores a replica from the manifest and ticks it on the
+    same arrivals; the replica's tick dict and every live split must be
+    the survivor's bit for bit, and the replica runs on."""
+    import numpy as np
+    from repro_torch.bench import serve_trace as bench
+    from repro_torch.ckpt import restore_pipeline, save_pipeline
+    from repro_torch.serve import WorkflowEngine
+    tpls = bench.templates()
+    eng = WorkflowEngine(tpls, max_live=96, lam_var=0.02, settle_steps=4,
+                         dirty_tol=0.08, num_t=bench.NUM_T, seed=5,
+                         prior_obs=4, device="cuda")
+    rng = np.random.default_rng(5)
+    names = list(tpls)
+    kills = parity = 0
+    for t in range(1, ENGINE_KILL_TICKS + 1):
+        arrivals = [(names[int(rng.integers(3))], 6.0)
+                    for _ in range(int(rng.poisson(24)))]
+        if t % ENGINE_KILL_EVERY:
+            eng.tick(arrivals)
+            continue
+        save_pipeline(ckpt_dir, t, eng)
+        survivor = eng.tick(arrivals)
+        replica_eng, _, _ = restore_pipeline(ckpt_dir, templates=tpls,
+                                             device="cuda")
+        replica = replica_eng.tick(arrivals)
+        same = survivor == replica and sorted(eng._live) == sorted(
+            replica_eng._live) and all(
+            np.array_equal(w, replica_eng._live[iid].weights[n])
+            for iid, inst in eng._live.items()
+            for n, w in inst.weights.items())
+        if not same:
+            raise AssertionError(f"engine kill/restore parity broken at "
+                                 f"tick {t}")
+        parity += 1
+        kills += 1
+        eng = replica_eng
+    return {"ticks": ENGINE_KILL_TICKS, "kills": kills,
+            "parity_checks": parity, "live": eng.live_count,
+            "counters": dict(eng.telemetry.counters)}
+
+
+def phase_chaos(ctx):
+    """Kill/restore parity on the card (balancer, defective fleet,
+    workflow, engine) and the full fault_trace (see the module
+    docstring)."""
+    import tempfile
+    import torch
+    from repro_torch.bench import dag_scale, fault_trace
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.sim.chaos import (run_chaos_trace,
+                                       run_workflow_chaos_trace)
+    fails, out = [], {}
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as d:
+        runs = (("balancer", lambda: run_chaos_trace(
+                    churn=CHAOS_CHURN, seed=0, device="cuda").summary()),
+                ("defective", lambda: run_chaos_trace(
+                    dist="defective", seed=3, device="cuda").summary()),
+                ("workflow", lambda: run_workflow_chaos_trace(
+                    dag_scale.make_dag(2, 3, 32), churn=CHAOS_WF_CHURN,
+                    seed=0, device="cuda").summary()),
+                ("engine", lambda: _engine_chaos(os.path.join(d, "eng"))))
+        for name, fn in runs:
+            t1 = time.perf_counter()
+            r = fn()
+            out[name] = r
+            log(f"[chaos] {name:9s} {r['ticks']} ticks, {r['kills']} kills, "
+                f"{r['parity_checks']} parity checks bitwise equal on the "
+                f"card ({time.perf_counter() - t1:.1f} s); {r}")
+            if r["kills"] < 1 or r["parity_checks"] != r["kills"]:
+                fails.append(name)
+        t1 = time.perf_counter()
+        ft = fault_trace.run(device="cuda")
+        ft_cpu = fault_trace.run(device="cpu")
+    torch.cuda.synchronize()
+    calls = dict(fg.LAUNCHES)
+    ctx["chaos_launches"] = calls
+    mk = ft["makespan"]
+    log(f"[chaos] fault_trace {ft['ticks']} ticks, {ft['channels']} "
+        f"channels, mean fail_p {ft['mean_fail_p']:.4f}: blind mean "
+        f"{mk['blind']['mean']:.6f} p99 {mk['blind']['p99']:.6f}, aware mean "
+        f"{mk['aware']['mean']:.6f} p99 {mk['aware']['p99']:.6f}; aware "
+        f"beats blind by {ft['improvement_pct']:.4f}% (CPU plain path "
+        f"{ft_cpu['improvement_pct']:.4f}%) "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if not ft["improvement_pct"] > 0:
+        fails.append("fault_trace: aware did not beat blind")
+    log(f"[chaos] frontier calls {calls}, {time.perf_counter() - t0:.1f} s")
+    ctx["chaos"] = {**out, "fault_trace": {k: ft[k] for k in (
+        "ticks", "channels", "mean_fail_p", "makespan", "improvement_pct")},
+        "fault_trace_cpu_improvement_pct": ft_cpu["improvement_pct"],
+        "launches": calls}
+    if fails:
+        raise AssertionError(f"chaos phase failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2160,7 +2663,8 @@ def main(argv=None):
            "profile": phase_profile, "twoch": phase_twoch,
            "lmcheck": phase_lmcheck, "serve": phase_serve,
            "ssmserve": phase_ssmserve, "lmtick": phase_lmtick,
-           "dag": phase_dag, "wfloop": phase_wfloop}
+           "dag": phase_dag, "wfloop": phase_wfloop,
+           "engine": phase_engine, "chaos": phase_chaos}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -2170,11 +2674,14 @@ def main(argv=None):
     kernels = []
     tick = {(r["family"], r["mode"]): r for r in ctx.get("tick", [])}
     # the frontier kernels' main paths: the closed loop, the workflow
-    # experiment and the workflow loop, each counted from zero; "launches"
-    # is their sum and "launches_by_path" the split
+    # experiment, the workflow loop, the serving engine (its ticks' own
+    # calls) and the chaos runs, each counted from zero; "launches" is
+    # their sum and "launches_by_path" the split
     paths = {path: ctx[k] for path, k in (("loop", "launches"),
                                           ("dag", "dag_launches"),
-                                          ("wfloop", "wfloop_launches"))
+                                          ("wfloop", "wfloop_launches"),
+                                          ("engine", "engine_launches"),
+                                          ("chaos", "chaos_launches"))
              if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
@@ -2218,6 +2725,7 @@ def main(argv=None):
                    "ssmserve_launches": ctx.get("ssmserve_launches"),
                    "lmtick": ctx.get("lmtick"),
                    "dag": ctx.get("dag"), "wfloop": ctx.get("wfloop"),
+                   "engine": ctx.get("engine"), "chaos": ctx.get("chaos"),
                    "dag_launches": ctx.get("dag_launches"),
                    "wfloop_launches": ctx.get("wfloop_launches"),
                    "build_s": ctx.get("build_s"),

@@ -11,7 +11,9 @@ Families cross through ``ChannelFamily.state_dict`` dictionaries. A
 workflow crosses the same way: a JAX ``StageDAG`` (its stages' numpy
 statistics, families and edges), a ``WorkflowBalancer.state_dict()`` (one
 balancer state per stage head) and a ``WorkflowSim.state_dict()`` (one
-simulator state per stage fleet).
+simulator state per stage fleet). A serving ``WorkflowEngine`` crosses
+whole (:func:`workflow_engine_from_reference`): its templates, admission
+queue, live instances, estimation heads, simulated worlds and telemetry.
 
 The model zoo's configurations and weights cross too:
 :func:`config_from_reference` takes ``dataclasses.asdict`` of a JAX
@@ -31,13 +33,14 @@ import torch
 from .configs.base import LayerSpec, ModelConfig
 from .models.transformer import LM
 from .sched.balancer import UncertaintyAwareBalancer, WorkflowBalancer
+from .serve.engine import WorkflowEngine
 from .sim.cluster import ClusterSim, WorkflowSim
 from .workflow.dag import MAX_DEPTH_DEFAULT, Stage, StageDAG
 
 __all__ = ["balancer_from_reference", "sim_from_reference",
            "dag_from_reference", "workflow_balancer_from_reference",
-           "workflow_sim_from_reference", "config_from_reference",
-           "lm_from_reference"]
+           "workflow_sim_from_reference", "workflow_engine_from_reference",
+           "config_from_reference", "lm_from_reference"]
 
 # the JAX ModelConfig's execution switches; the port selects by device
 _JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
@@ -117,6 +120,18 @@ def workflow_sim_from_reference(state_dict: dict) -> WorkflowSim:
     sim.stage_sims = {name: sim_from_reference(sd)
                       for name, sd in stages.items()}
     return sim
+
+
+def workflow_engine_from_reference(eng, device="cuda") -> WorkflowEngine:
+    """The port's :class:`WorkflowEngine` from a JAX one, solving on
+    ``device``: its templates through :func:`dag_from_reference` and its
+    ``state_dict`` (queue, instances, heads, simulators with their
+    generator states, telemetry with its samplers), so the engine's trace
+    runs on in the port."""
+    templates = {name: dag_from_reference(dag)
+                 for name, dag in eng.templates.items()}
+    d = _plain(copy.deepcopy(eng.state_dict()))
+    return WorkflowEngine.from_state_dict(d, templates, device=device)
 
 
 def config_from_reference(d: dict) -> ModelConfig:

@@ -42,7 +42,9 @@ import numpy as np
 import torch
 
 from ..core import distributions as dists
-from .autotune import ssd_groups
+# the module, not the name: importing autotune first reaches this module
+# through core before autotune has defined anything
+from . import autotune
 
 __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
@@ -430,7 +432,7 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
-    L, nc, per, ng = ssd_groups(Bsz, H, S, chunk)
+    L, nc, per, ng = autotune.ssd_groups(Bsz, H, S, chunk)
     if groups is not None:
         per = -(-nc // max(1, min(int(groups), nc)))
         ng = -(-nc // per)

@@ -11,6 +11,17 @@ prompts between them on the simulated channels ``Channel(20, 2)`` and
 generation on its share. Any dense attention or Mamba2 arch serves
 (``models/transformer.py``). ``--tiny`` serves the arch's reduced config;
 ``--tiny --device cpu`` runs it on the plain path without a card.
+
+``--engine`` serves workflow instances through the continuous-batching
+:class:`WorkflowEngine` instead: every tick admits queued instances of two
+templates (a normal prefill/decode chain and a lognormal diamond), prices
+all their stage splits through one stacked call per family group on
+``--device``, and runs them on the simulated fleets:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine --batches 40 \
+        --arrival-rate 8 --deadline 4.0
+
+The JAX package's ``--trace`` export is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,11 +34,62 @@ import torch
 from ..configs import ARCHS, get_config
 from ..device import resolve_device
 from ..models import build_model
-from ..serve import PartitionedBatcher, ReplicaGroup, ServeEngine
+from ..serve import (PartitionedBatcher, ReplicaGroup, ServeEngine,
+                     WorkflowEngine)
 from ..sim.cluster import Channel, ClusterSim
+from ..workflow import Stage, StageDAG, linear_edges
 
 
-def main(argv=None) -> None:
+def _engine_templates() -> dict:
+    pipeline = StageDAG([
+        Stage("prefill", mus=[1.0, 1.4, 1.9], sigmas=[0.2, 0.25, 0.35]),
+        Stage("decode", mus=[2.0, 2.6, 3.3, 4.0],
+              sigmas=[0.3, 0.4, 0.5, 0.6]),
+    ], edges=linear_edges(["prefill", "decode"]))
+    diamond = StageDAG([
+        Stage("shard", mus=[1.2, 1.6, 2.1], sigmas=[0.25, 0.3, 0.4],
+              family="lognormal"),
+        Stage("rank_a", mus=[2.4, 3.0, 3.7], sigmas=[0.5, 0.6, 0.7],
+              family="lognormal"),
+        Stage("rank_b", mus=[2.1, 2.7, 3.4], sigmas=[0.45, 0.55, 0.65],
+              family="lognormal"),
+        Stage("blend", mus=[1.1, 1.5], sigmas=[0.2, 0.3],
+              family="lognormal"),
+    ], edges=[("shard", "rank_a"), ("shard", "rank_b"),
+              ("rank_a", "blend"), ("rank_b", "blend")])
+    return {"pipeline": pipeline, "diamond": diamond}
+
+
+def _run_engine(args, dev) -> WorkflowEngine:
+    templates = _engine_templates()
+    eng = WorkflowEngine(templates, max_live=args.max_live, lam_var=0.02,
+                         num_t=256, prior_obs=4, device=dev)
+    rng = np.random.default_rng(0)
+    names = list(templates)
+    for t in range(args.batches):
+        arrivals = []
+        for _ in range(int(rng.poisson(args.arrival_rate))):
+            tpl = names[int(rng.integers(len(names)))]
+            arrivals.append((tpl, args.deadline) if args.deadline else tpl)
+        out = eng.tick(arrivals)
+        if t % 10 == 0:
+            print(f"tick {t:3d} live={out['live']} queue={out['queue']} "
+                  f"rows={out['rows']} launches={out['launches']} "
+                  f"retired={len(out['retired'])}")
+    s = eng.telemetry.summary()
+    c = s["counters"]
+    print(f"engine: {c['ticks']} ticks, {c['retired']}/{c['admitted']} "
+          f"retired, {c['slo_misses']} SLO misses, "
+          f"{c['launches']} launches "
+          f"(rows/launch p50 {s['rows_per_launch']['p50']:.0f})")
+    print(f"join latency p50 {s['join_latency_s']['p50']:.3f}s "
+          f"p99 {s['join_latency_s']['p99']:.3f}s; "
+          f"solver tick p50 {s['solver_tick_us']['p50']:.0f}us on "
+          f"{dev.type}")
+    return eng
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="smollm-360m")
     ap.add_argument("--tiny", action="store_true")
@@ -53,8 +115,21 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where the models run and the balancer solves "
                          "(cuda, or cpu for the plain path)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve workflow instances through the "
+                         "continuous-batching WorkflowEngine instead of "
+                         "the per-batch PartitionedBatcher")
+    ap.add_argument("--max-live", type=int, default=64,
+                    help="engine mode: live-instance capacity")
+    ap.add_argument("--arrival-rate", type=float, default=6.0,
+                    help="engine mode: mean Poisson arrivals per tick")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="engine mode: SLO deadline (sim seconds) attached "
+                         "to every request")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.engine:
+        return _run_engine(args, dev)
 
     cfg = get_config(args.arch)
     if args.tiny:

@@ -1,4 +1,6 @@
 """Scheduler layer: the paper's partitioner wired into the runtime."""
-from .balancer import UncertaintyAwareBalancer, WorkflowBalancer, integerize
+from .balancer import (InstanceHeads, UncertaintyAwareBalancer,
+                       WorkflowBalancer, integerize)
 
-__all__ = ["UncertaintyAwareBalancer", "WorkflowBalancer", "integerize"]
+__all__ = ["InstanceHeads", "UncertaintyAwareBalancer", "WorkflowBalancer",
+           "integerize"]

@@ -23,6 +23,7 @@ balancer restores the state and solves; the port's own restore ignores it.
 
 :class:`WorkflowBalancer` lifts the loop to a stage DAG: one estimation
 head per stage and joint re-solves through ``workflow.solve.solve_dag``.
+:class:`InstanceHeads` keeps the serving engine's per-instance heads.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ from ..core.partitioner import (equal_split, inverse_mu_split, optimize_2ch,
                                 optimize_weights, predict_moments)
 from ..device import resolve_device
 
-__all__ = ["integerize", "UncertaintyAwareBalancer", "WorkflowBalancer"]
+__all__ = ["integerize", "UncertaintyAwareBalancer", "WorkflowBalancer",
+           "InstanceHeads"]
 
 
 def _cadence_from_fragility(rel_fragility: float, cap: int,
@@ -833,3 +835,84 @@ class WorkflowBalancer:
                                                   {}).items()}
         b._solve_fams = dict(d.get("solve_fams", {}))
         return b
+
+
+class InstanceHeads:
+    """Per-instance estimation heads for the continuous-batching engine.
+
+    Two instances of one template admitted at different times have seen
+    different service, so each prices its rows of the shared stacked
+    launch from its own posterior. The bank keeps one PROTOTYPE head per
+    ``"template/stage"`` key (the fleet-wide posterior, learning from all
+    traffic) and forks it at admission into a private per-instance copy (a
+    ``state_dict`` round trip, an exact snapshot). Observations feed both
+    the instance's head and the prototype.
+
+    Heads are policy-less :class:`UncertaintyAwareBalancer` instances
+    (``explore=0``) read only for their posteriors and family: they never
+    solve, the engine's stacked launch does. So they live on the host: a
+    fork is made on its prototype's device (the engine builds its
+    prototypes on the CPU) and :meth:`from_state_dict` restores them on the
+    CPU. At hundreds of live instances a tick observes and reads a thousand
+    heads or more; on the card each would be several launches and a
+    device synchronization. This places host-side state; it is not a
+    fallback, the engine's launch still runs on its device.
+    """
+
+    def __init__(self, prototypes: dict):
+        self.prototypes = dict(prototypes)
+        self._bank: dict = {}
+
+    # ------------------------------------------------------------ lifecycle
+    def admit(self, iid: int, keys) -> None:
+        """Fork the prototype of every ``key`` for instance ``iid``."""
+        iid = int(iid)
+        if iid in self._bank:
+            raise ValueError(f"instance {iid} already admitted")
+        bank = {}
+        for key in keys:
+            proto = self.prototypes[key]
+            bank[key] = UncertaintyAwareBalancer.from_state_dict(
+                proto.state_dict(), device=proto.device)
+        self._bank[iid] = bank
+
+    def retire(self, iid: int) -> None:
+        self._bank.pop(int(iid), None)
+
+    @property
+    def live(self):
+        return tuple(sorted(self._bank))
+
+    # ------------------------------------------------------------ accessors
+    def observe(self, iid: int, key: str, durations, work) -> None:
+        """One stage execution's feedback: instance head AND prototype."""
+        self._bank[int(iid)][key].observe(durations, work)
+        self.prototypes[key].observe(durations, work)
+
+    def estimates(self, iid: int, key: str):
+        return self._bank[int(iid)][key].estimates()
+
+    def family(self, iid: int, key: str):
+        return self._bank[int(iid)][key].selected_family
+
+    # ------------------------------------------------------------ state
+    def state_dict(self) -> dict:
+        """The JAX package's keys: every prototype's and every live head's
+        balancer state."""
+        return {
+            "prototypes": {k: p.state_dict()
+                           for k, p in self.prototypes.items()},
+            "bank": {str(iid): {k: h.state_dict() for k, h in heads.items()}
+                     for iid, heads in self._bank.items()},
+        }
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "InstanceHeads":
+        """Restore every head on the CPU."""
+        def head(sd):
+            return UncertaintyAwareBalancer.from_state_dict(sd, device="cpu")
+
+        obj = cls({k: head(sd) for k, sd in d["prototypes"].items()})
+        obj._bank = {int(iid): {k: head(sd) for k, sd in heads.items()}
+                     for iid, heads in d.get("bank", {}).items()}
+        return obj

@@ -1,4 +1,7 @@
-"""Serving: the greedy engine and the paper-partitioned request batcher."""
-from .engine import PartitionedBatcher, ReplicaGroup, ServeEngine
+"""Serving: the greedy engine, the paper-partitioned request batcher and
+the continuous-batching workflow engine."""
+from .engine import (PartitionedBatcher, ReplicaGroup, ServeEngine,
+                     WorkflowEngine, row_pgd_step)
 
-__all__ = ["PartitionedBatcher", "ReplicaGroup", "ServeEngine"]
+__all__ = ["PartitionedBatcher", "ReplicaGroup", "ServeEngine",
+           "WorkflowEngine", "row_pgd_step"]

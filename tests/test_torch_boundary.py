@@ -43,7 +43,9 @@ def test_port_imports_without_jax_or_a_build():
             "repro_torch.sched, repro_torch.sim, repro_torch.convert, "
             "repro_torch.configs, repro_torch.models, repro_torch.serve, "
             "repro_torch.launch.serve, repro_torch.workflow, "
-            "repro_torch.bench.dag_scale;"
+            "repro_torch.bench.dag_scale, repro_torch.bench.serve_trace, "
+            "repro_torch.bench.fault_trace, repro_torch.ckpt, "
+            "repro_torch.sim.chaos, repro_torch.serve.telemetry;"
             "from repro_torch.kernels import _cuda;"
             "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -64,3 +66,14 @@ def test_kernel_sources_name_every_family():
         assert not re.search(r"atomic[A-Z]", path.read_text()), path
     for path in (PORT / "kernels").glob("*.py"):
         assert "use_fast_math" not in path.read_text(), path
+
+
+def test_autotune_imports_first():
+    # kernels.autotune imports core, whose package imports kernels.ops,
+    # which reaches kernels.ref: ref must not take names from the
+    # half-imported autotune
+    subprocess.run([sys.executable, "-c",
+                    "import repro_torch.kernels.autotune as a; "
+                    "assert a.ssd_groups(1, 1, 16, 16).groups == 1"],
+                   check=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                    "PATH": "/usr/bin:/bin"})

@@ -16,7 +16,10 @@ frontier adjoint and the split forward moments are held at
 ``chip_smoke.py``'s tolerances: mu rtol = atol = 1e-4, var rtol 1e-2 / atol
 1e-3, every adjoint relative L2 <= 1e-4; so are the workflow solver's
 stacked per-row launches at the rung shapes of a joint solve (``-k dag``),
-with a mixed-family DAG solved on the card against the plain path.
+with a mixed-family DAG solved on the card against the plain path, and
+the serving engine's stacked launches (K <= 6 zero-padded, row buckets of
+8 to 512, T = 128 and 256, four families) with an engine run on the card
+against the CPU (``-k engine``).
 """
 import pytest
 import torch
@@ -532,3 +535,101 @@ def test_dag_solve_on_the_card_matches_the_plain_path(card):
     assert dict(fg.LAUNCHES) == {"fwd": 3, "grad": 0, "pgrad": 0}
     assert all(np.array_equal(noop.weights[n], w)
                for n, w in got.weights.items())
+
+
+def _engine_rows(fam, F, dev, seed):
+    """A serving engine's stacked launch (``serve.engine.launch_group``):
+    3/4 of the F rows real, each with K in {2, 3, 4, 6} channels
+    zero-padded to 6, per-row statistics and parameters; the pad rows
+    repeat row 0."""
+    import numpy as np
+    from repro_torch.core.distributions import extra_rows
+    rng = np.random.default_rng(seed)
+    kmax, n = 6, max(1, 3 * F // 4)
+    W, mus, sgs = (np.zeros((F, kmax), np.float32) for _ in range(3))
+    ex = np.zeros((extra_rows(fam), F, kmax), np.float32)
+    for j in range(n):
+        k = int(rng.choice((2, 3, 4, 6)))
+        W[j, :k] = rng.dirichlet(np.ones(k))
+        mus[j, :k] = rng.uniform(1.0, 5.0, k)
+        sgs[j, :k] = mus[j, :k] * rng.uniform(0.1, 0.3, k)
+        if fam == "drift":
+            ex[0, j, :k] = rng.uniform(0.1, 0.8, k)
+        elif fam == "defective":
+            ex[0, j, :k] = rng.uniform(0.02, 0.15, k)
+            ex[1, j, :k] = 1.0
+    W[n:], mus[n:], sgs[n:], ex[:, n:] = W[0], mus[0], sgs[0], ex[:, :1]
+    return tuple(torch.tensor(a, device=dev) for a in (W, mus, sgs, ex))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,T", [(8, 128), (64, 128), (512, 128),
+                                 (8, 256), (64, 256), (512, 256)])
+@pytest.mark.parametrize("fam", ["normal", "lognormal", "drift",
+                                 "defective"])
+def test_engine_stacked_launches_match_plain(card, fam, F, T):
+    # the serving engine's shapes: a tiny channel axis (K = 6, most rows
+    # fewer), row buckets, per-row statistics; grad (every engine tick) and
+    # fwd against the plain versions, and a second call repeats the bits
+    from repro_torch.kernels import frontier_grid as fg
+    W, mus, sgs, ex = _engine_rows(fam, F, card, seed=F + T)
+    got = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T, dist_id=fam)
+    want = ref.frontier_grid_with_grads_ref(W, mus, sgs, num_t=T,
+                                            dist_id=fam, extra=ex)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+    for g, w in zip(got[2:], want[2:]):
+        assert bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= 1e-4, (fam, _rel_l2(g, w))
+    again = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=T,
+                                        dist_id=fam)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    mu, var = fg.frontier_grid(W, mus, sgs, ex, num_t=T, dist_id=fam)
+    want = ref.frontier_grid_ref(W, mus, sgs, num_t=T, dist_id=fam, extra=ex)
+    torch.testing.assert_close(mu, want[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(var, want[1], rtol=1e-2, atol=1e-3)
+    again = fg.frontier_grid(W, mus, sgs, ex, num_t=T, dist_id=fam)
+    assert torch.equal(mu, again[0]) and torch.equal(var, again[1])
+
+
+@pytest.mark.cuda
+def test_engine_tick_on_the_card_matches_the_cpu(card):
+    # the serve_trace templates (three families) for 8 ticks on the card
+    # and on the CPU: the same admissions, rows, launches and retirements,
+    # join latencies to 1e-4 relative, splits to 1e-4; one grad call per
+    # family group with rows
+    import numpy as np
+    from repro_torch.bench import serve_trace
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.serve import WorkflowEngine
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        eng = WorkflowEngine(serve_trace.templates(), max_live=24,
+                             lam_var=0.02, settle_steps=4, dirty_tol=0.08,
+                             num_t=128, seed=0, prior_obs=4, device=dev)
+        rng = np.random.default_rng(0)
+        names = list(eng.templates)
+        fg.reset_launches()
+        ticks, groups = [], []
+        for _ in range(8):
+            arrivals = [(names[int(rng.integers(3))], 4.0)
+                        for _ in range(int(rng.poisson(6)))]
+            ticks.append(eng.tick(arrivals))
+            groups.append(len({r.family.dist_id for r in eng.last_rows}))
+        runs[dev.type] = (ticks, groups, eng, dict(fg.LAUNCHES))
+    (tc, gc, ec, lc), (tp, gp, ep, _) = runs["cuda"], runs["cpu"]
+    assert lc["grad"] == sum(t["launches"] for t in tc) == sum(gc)
+    assert lc["fwd"] == lc["pgrad"] == 0
+    for a, b in zip(tc, tp):
+        for key in ("admitted", "live", "queue", "rows", "launches"):
+            assert a[key] == b[key], (key, a, b)
+        assert [r["iid"] for r in a["retired"]] == \
+            [r["iid"] for r in b["retired"]]
+        for x, y in zip(a["retired"], b["retired"]):
+            assert x["join_latency_s"] == pytest.approx(y["join_latency_s"],
+                                                        rel=1e-4)
+    assert ec._live
+    for iid, inst in ec._live.items():
+        for name, w in inst.weights.items():
+            np.testing.assert_allclose(w, ep._live[iid].weights[name],
+                                       rtol=0, atol=1e-4)
