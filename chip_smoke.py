@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
     python3 chip_smoke.py --phases card,build,dag,wfloop
     python3 chip_smoke.py --phases card,build,engine,chaos
+    python3 chip_smoke.py --phases card,build,group,straggler,paper,cluster
 
 Phases, in order:
 
@@ -150,6 +151,39 @@ Phases, in order:
    ``restore_pipeline``; every restored decision must equal the
    survivor's bit for bit. Then the full ``bench.fault_trace`` (12
    channels, 300 ticks): the failure-aware solve must beat the blind one.
+17. ``group`` — the channel-count selection: the forward and adjoint
+   kernels at K = 1 (F = 1 and 8, T = 2048), all five families, against
+   their plain versions (off the path: a one-channel subset takes the
+   plain quadrature); then ``select_channels`` on
+   ``ClusterSim.heterogeneous(64, seed=0)``'s statistics under the normal
+   and the defective family (join cost 0.5, lam 0.02, 120 PGD steps: 63
+   solves each) and the exhaustive oracle against greedy on 6 channels,
+   each choice held against the CPU plain path's (the same indices,
+   objective 1e-4 relative); launch counters zeroed before and read after.
+   Then the first call of each (mode, family, F, K, T) the path made, its
+   inputs kept as it ran, again through the kernel (twice: the bits
+   repeat) against its plain version at the frontier tolerances.
+18. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
+   drift modes (16 channels, a 4x straggler at step 60, a hard failure at
+   120, two joins at 160, 240 steps): the straggler flagged and quarantined
+   or priced as drift, the failure removed, the joins admitted, every split
+   a simplex; join statistics before and after, tick times; then each
+   shape the scenario launched held as in ``group`` (K = 16, 15 after the
+   failure, 17 after the joins; normal and drift).
+19. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
+   ``fig2_frontier``, ``fig34_convex_opt``, ``fig56_file_transfer``) on the
+   card with their own assertions, held against the CPU plain path (Figs 1
+   and 2 mu 1e-4 and var 1e-3 relative, the same efficient mask; the
+   simulated columns bit for bit; the joined MSE 1e-4 relative), and the
+   201-row Fig 1 call timed (event pair, device, host) beside its bound.
+20. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
+   policy comparison at 64 / 256 / 1024 channels (frontier beats equal on
+   mean and p99), the fleet ticks at K=1024, F=4096, T=256 against the
+   plain foil and autograd (gradient parity 1e-4), the family ticks and the
+   auto-family tick; prints ``pgd_speedup_vs_autodiff`` and
+   ``auto_family_tick_overhead``. Then each shape of up to
+   RECORD_MAX_POINTS grid points that the run launched (the policy loops'
+   solves) held as in ``group``.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -168,7 +202,8 @@ before the last is a JSON object of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. A frontier kernel's ``launches`` in the
 per-kernel line is the sum over the paths that drive it, each counted from
 zero just before it runs (``loop``, ``dag``, ``wfloop``, ``engine``: the
-ticks' own calls, ``chaos``), and its
+ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
+``cluster``), and its
 ``launches_by_path`` gives each path's count; a model kernel's is its
 serving phase's. Details go to ``chiprun_out/``.
 """
@@ -186,7 +221,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop",
-          "engine", "chaos")
+          "engine", "chaos", "group", "straggler", "paper", "cluster")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -2631,6 +2666,486 @@ def phase_chaos(ctx):
         raise AssertionError(f"chaos phase failed: {fails}")
 
 
+# the group phase: the fleet, its join cost and scalarization, the PGD
+# budget of select_channels, and the exhaustive oracle's fleet size
+GROUP_N, GROUP_JOIN, GROUP_LAM, GROUP_STEPS = 64, 0.5, 0.02, 120
+GROUP_ORACLE_N, GROUP_ORACLE_STEPS = 6, 80
+# the forward kernel at K = 1 (a one-channel subset): rows and grid points
+K1_ROWS, K1_T = (1, 8), 2048
+
+
+def _k1_case(fam, F, seed, device):
+    """F rows of one channel (shares from 1/F to 1) with the family's
+    extra, as float32 tensors on ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributions import extra_rows
+    rng = np.random.default_rng(seed)
+    W = np.linspace(1.0 / F, 1.0, F)[:, None]
+    mus = rng.uniform(10.0, 40.0, (1,))
+    sgs = mus * rng.uniform(0.02, 0.3, (1,))
+    if fam == "drift":
+        ex = rng.uniform(0.1, 0.8, (1, 1))
+    elif fam == "defective":
+        ex = np.array([[rng.uniform(0.02, 0.3)], [1.0]])
+    elif fam == "empirical":
+        ex = np.concatenate([rng.dirichlet(np.ones(3))[:, None],
+                             mus[None] * rng.uniform(0.7, 1.3, (3, 1)),
+                             sgs[None] * rng.uniform(0.3, 1.0, (3, 1))])
+    else:
+        ex = np.zeros((extra_rows(fam), 1))
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=device)
+                 for a in (W, mus, sgs, ex))
+
+
+def _group_fleet(dist):
+    """(mus, sigmas, family) of the 64-channel heterogeneous fleet
+    (``ClusterSim.heterogeneous(64, seed=0, dist=dist)``; the defective
+    fleet with its own failure probabilities)."""
+    import numpy as np
+    from repro_torch.core import Defective
+    from repro_torch.sim import ClusterSim
+    sim = ClusterSim.heterogeneous(GROUP_N, seed=0, dist=dist)
+    mus, sgs = sim.true_params
+    if dist == "defective":
+        return mus, sgs, Defective(p=np.asarray(
+            [c.fail_p for c in sim.channels], np.float32))
+    return mus, sgs, "normal"
+
+
+def _same_choice(tag, card, cpu, fails):
+    same = (card.indices.tolist() == cpu.indices.tolist()
+            and abs(card.objective - cpu.objective)
+            <= 1e-4 * abs(cpu.objective))
+    log(f"[group] {tag}: card K={len(card.indices)} "
+        f"{card.indices.tolist()} objective {card.objective:.6f}; cpu plain "
+        f"K={len(cpu.indices)} objective {cpu.objective:.6f} "
+        + ("same" if same else "DIFFERENT"))
+    if not same:
+        fails.append(tag)
+
+
+# the largest call (F * K * T grid points) a path recorder keeps: the fleet
+# ticks of ``cluster`` (F=4096, K=1024, T=256) hold themselves against the
+# plain forward and autograd inside ``bench.cluster_scale``
+RECORD_MAX_POINTS = 1 << 24
+
+
+class _LaunchRecorder:
+    """While active, keeps a copy of the inputs of the first frontier
+    kernel call of each (mode, family, F, K, T, per-row statistics) that a
+    path makes, up to RECORD_MAX_POINTS grid points a call, so that
+    ``_hold_recorded`` can hold the kernels at the path's own shapes once
+    the path's launch counts are read. It patches
+    ``kernels.frontier_grid`` (``ops`` calls through the module) and
+    restores it on exit; the calls themselves and their counts are
+    unchanged."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _keep(self, mode, W, mus, sigmas, extra, kw):
+        F, K = W.shape
+        T = kw.get("num_t", 1024)
+        key = (mode, kw.get("dist_id", "normal"), F, K, T, mus.dim() == 2)
+        if key not in self.calls and F * K * T <= RECORD_MAX_POINTS:
+            self.calls[key] = (tuple(x.detach().clone()
+                                     for x in (W, mus, sigmas, extra)),
+                               dict(kw))
+
+    def __enter__(self):
+        from repro_torch.kernels import frontier_grid as fg
+        self._orig = fwd, grad = fg.frontier_grid, fg.frontier_grid_with_grads
+
+        def fwd_rec(W, mus, sigmas, extra, **kw):
+            self._keep("fwd", W, mus, sigmas, extra, kw)
+            return fwd(W, mus, sigmas, extra, **kw)
+
+        def grad_rec(W, mus, sigmas, extra, **kw):
+            self._keep("pgrad" if kw.get("param_grads") else "grad",
+                       W, mus, sigmas, extra, kw)
+            return grad(W, mus, sigmas, extra, **kw)
+
+        fg.frontier_grid, fg.frontier_grid_with_grads = fwd_rec, grad_rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import frontier_grid as fg
+        fg.frontier_grid, fg.frontier_grid_with_grads = self._orig
+
+
+def _hold_recorded(phase, rec, fails):
+    """Each call a ``_LaunchRecorder`` kept, again on its copied inputs:
+    the kernel twice (the bits must repeat) against its plain version on
+    the card (``ops.plain_moments``) at the frontier tolerances. Logs one
+    line per (mode, family) and every failing shape; returns one row per
+    shape."""
+    import torch
+    from repro_torch.kernels import frontier_grid as fg, ops
+    rows = []
+    for key in sorted(rec.calls):
+        mode, fam, F, K, T, per_row = key
+        (W, mus, sgs, ex), kw = rec.calls[key]
+        kern = (fg.frontier_grid if mode == "fwd"
+                else fg.frontier_grid_with_grads)
+        got = kern(W, mus, sgs, ex, **kw)
+        again = kern(W, mus, sgs, ex, **kw)
+        want = ops.plain_moments(W, mus, sgs, ex, num_t=T,
+                                 z=kw.get("z", 10.0), dist_id=fam, mode=mode)
+        errs, rel, ok = _compare(got, want)
+        ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+        rows.append({"mode": mode, "family": fam, "F": F, "K": K, "T": T,
+                     "per_row": per_row, "max_abs_err": errs,
+                     "adj_rel_l2": rel, "ok": ok})
+        if not ok:
+            tag = f"{mode} {fam} F={F} K={K} T={T}"
+            _report(phase, "path shape " + tag, errs, rel, ok)
+            fails.append(tag)
+    groups = {}
+    for r in rows:
+        groups.setdefault((r["mode"], r["family"]), []).append(r)
+    for (mode, fam), rs in sorted(groups.items()):
+        ks = sorted({r["K"] for r in rs})
+        fs = sorted({r["F"] for r in rs})
+        ts = sorted({r["T"] for r in rs})
+        worst = [max(r["max_abs_err"][i] for r in rs)
+                 for i in range(len(rs[0]["max_abs_err"]))]
+        rel = [max(r["adj_rel_l2"][i] for r in rs)
+               for i in range(len(rs[0]["adj_rel_l2"]))]
+        n_ok = sum(r["ok"] for r in rs)
+        _report(phase, f"path shapes {mode:4s} {fam:9s} {len(rs)} "
+                f"(K {ks[0]}-{ks[-1]}, F {fs}, T {ts}), {n_ok} ok; worst",
+                worst, rel, n_ok == len(rs))
+    if not rows:
+        fails.append("no frontier call recorded on the path")
+    return rows
+
+
+def phase_group(ctx):
+    """The channel-count selection on the card: the forward (and adjoint)
+    kernel at K = 1 for every family against its plain version (off the
+    path: a one-channel subset takes ``predict_moments``' plain
+    quadrature), then the main path, ``select_channels`` over the
+    64-channel heterogeneous fleet under the normal and the defective
+    family (join cost 0.5) and the exhaustive oracle against greedy on 6
+    channels, each choice held against the CPU plain path's, and the
+    kernels held against their plain versions at every shape the path
+    launched (``_hold_recorded``). Every prefix's objective is at least
+    join_cost * K, so the CPU's greedy run stops at the K where that floor
+    passes the card's best objective: a longer prefix cannot win."""
+    import torch
+    from repro_torch.core import select_channels, select_channels_exhaustive
+    from repro_torch.core.distributions import FAMILIES
+    from repro_torch.kernels import frontier_grid as fg, ref
+    dev = torch.device("cuda")
+    fails, k1 = [], []
+    for i, fam in enumerate(FAMILIES):
+        for F in K1_ROWS:
+            W, mus, sgs, ex = _k1_case(fam, F, 400 + i, dev)
+            for mode in ("fwd", "grad"):
+                if mode == "fwd":
+                    def kern():
+                        return fg.frontier_grid(W, mus, sgs, ex, num_t=K1_T,
+                                                dist_id=fam)
+                    want = ref.frontier_grid_ref(W, mus, sgs, num_t=K1_T,
+                                                 dist_id=fam, extra=ex)
+                else:
+                    def kern():
+                        return fg.frontier_grid_with_grads(
+                            W, mus, sgs, ex, num_t=K1_T, dist_id=fam)
+                    want = ref.frontier_grid_with_grads_ref(
+                        W, mus, sgs, num_t=K1_T, dist_id=fam, extra=ex)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                errs, rel, ok = _compare(got, want)
+                ok &= all(torch.equal(a, b) for a, b in zip(got, again))
+                tag = f"K=1 (off the path) {fam:9s} F={F} T={K1_T} {mode:4s}"
+                _report("group", tag, errs, rel, ok)
+                k1.append({"family": fam, "F": F, "mode": mode,
+                           "max_abs_err": max(errs), "ok": ok,
+                           "on_path": False})
+                if not ok:
+                    fails.append(tag)
+
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    runs, card = {}, {}
+    with _LaunchRecorder() as rec:
+        for dist in ("normal", "defective"):
+            mus, sgs, fam = _group_fleet(dist)
+            t0 = time.perf_counter()
+            card[dist] = select_channels(mus, sgs, lam=GROUP_LAM,
+                                         join_cost=GROUP_JOIN,
+                                         pgd_steps=GROUP_STEPS, family=fam,
+                                         device="cuda")
+            # a prefix of K >= 2 is one optimize_weights solve
+            runs[dist] = {"wall_s": time.perf_counter() - t0,
+                          "solves": GROUP_N - 1}
+        mus6, sgs6, _ = _group_fleet("normal")
+        mus6, sgs6 = mus6[:GROUP_ORACLE_N], sgs6[:GROUP_ORACLE_N]
+        t0 = time.perf_counter()
+        greedy6 = select_channels(mus6, sgs6, lam=GROUP_LAM,
+                                  join_cost=GROUP_JOIN,
+                                  pgd_steps=GROUP_ORACLE_STEPS, device="cuda")
+        oracle6 = select_channels_exhaustive(mus6, sgs6, lam=GROUP_LAM,
+                                             join_cost=GROUP_JOIN,
+                                             pgd_steps=GROUP_ORACLE_STEPS,
+                                             device="cuda")
+        oracle_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    calls = dict(fg.LAUNCHES)
+    ctx["group_launches"] = calls
+
+    out = {"k1": k1, "launches": calls,
+           "path_shapes": _hold_recorded("group", rec, fails)}
+    for dist in ("normal", "defective"):
+        mus, sgs, fam = _group_fleet(dist)
+        ch = card[dist]
+        max_k = min(GROUP_N, int(ch.objective * (1 + 1e-3) / GROUP_JOIN) + 1)
+        t0 = time.perf_counter()
+        cpu = select_channels(mus, sgs, lam=GROUP_LAM, join_cost=GROUP_JOIN,
+                              max_k=max_k, pgd_steps=GROUP_STEPS, family=fam,
+                              device="cpu")
+        _same_choice(f"{dist} fleet of {GROUP_N}", ch, cpu, fails)
+        out[dist] = {**runs[dist], "k": len(ch.indices),
+                     "indices": ch.indices.tolist(),
+                     "objective": ch.objective, "mu": ch.decision.mu,
+                     "var": ch.decision.var, "cpu_objective": cpu.objective,
+                     "cpu_max_k": max_k,
+                     "cpu_wall_s": time.perf_counter() - t0}
+        log(f"[group] {dist}: {runs[dist]['solves']} solves in "
+            f"{runs[dist]['wall_s']:.2f} s on the card "
+            f"({1e3 * runs[dist]['wall_s'] / runs[dist]['solves']:.1f} ms a "
+            f"solve); the CPU's prefixes up to K={max_k}")
+    cpu6 = select_channels_exhaustive(mus6, sgs6, lam=GROUP_LAM,
+                                      join_cost=GROUP_JOIN,
+                                      pgd_steps=GROUP_ORACLE_STEPS,
+                                      device="cpu")
+    _same_choice(f"exhaustive on {GROUP_ORACLE_N}", oracle6, cpu6, fails)
+    within = greedy6.objective <= oracle6.objective * 1.1
+    log(f"[group] greedy on {GROUP_ORACLE_N}: objective "
+        f"{greedy6.objective:.6f} against the oracle's "
+        f"{oracle6.objective:.6f} ({2 ** GROUP_ORACLE_N - 1} solves; both "
+        f"{oracle_s:.2f} s) " + ("ok" if within else "FAIL"))
+    if not within:
+        fails.append("greedy beyond 1.1x the oracle")
+    out["oracle6"] = {"greedy": greedy6.objective,
+                      "exhaustive": oracle6.objective,
+                      "indices": oracle6.indices.tolist(), "wall_s": oracle_s}
+    log(f"[group] frontier calls {calls}")
+    ctx["group"] = out
+    if calls["grad"] <= 0 or calls["fwd"] <= 0:
+        fails.append(f"a frontier kernel never launched: {calls}")
+    if fails:
+        raise AssertionError(f"group phase failed: {fails}")
+
+
+def phase_straggler(ctx):
+    """``bench.elastic_fleet`` on the card in quarantine and drift modes:
+    the straggler flagged (and quarantined, or priced as drift), the failed
+    channel removed, both joins admitted, every split a simplex (checked
+    inside the run); join statistics before and after the chaos, tick
+    times."""
+    import torch
+    from repro_torch.bench import elastic_fleet as ef
+    from repro_torch.kernels import frontier_grid as fg
+    fails, out = [], {}
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    rec = _LaunchRecorder()
+    for mode in ("quarantine", "drift"):
+        t0 = time.perf_counter()
+        with rec:
+            r = ef.run(device="cuda", mitigation=mode)
+        r["wall_s"] = time.perf_counter() - t0
+        out[mode] = r
+        caught = (ef.SLOW_IDX in r["quarantined_ever"] if mode == "quarantine"
+                  else r["drift_rho_max"].get(ef.SLOW_IDX, 0.0) > 0.0)
+        ok = (ef.SLOW_IDX in r["flagged_after_slow"] and caught
+              and r["fleet_at"] == {"start": ef.N, "after_fail": ef.N - 1,
+                                    "after_join": ef.N - 1 + ef.JOINS,
+                                    "end": ef.N - 1 + ef.JOINS})
+        b, a, tk = r["before"], r["after"], r["tick_ms"]
+        log(f"[straggler] {mode:10s} flagged {r['flagged_after_slow']} "
+            f"quarantined {r['quarantined_ever']} drift rho max "
+            f"{ {i: round(v, 4) for i, v in r['drift_rho_max'].items()} } "
+            f"fleet {r['fleet_at']}; join before mean {b['mean']:.4f} var "
+            f"{b['var']:.5f} p99 {b['p99']:.4f}, after mean {a['mean']:.4f} "
+            f"var {a['var']:.5f} p99 {a['p99']:.4f}; tick mean "
+            f"{tk['mean']:.2f} ms p50 {tk['p50']:.2f} max {tk['max']:.1f} "
+            f"({r['wall_s']:.1f} s) " + ("ok" if ok else "FAIL"))
+        if not ok:
+            fails.append(mode)
+    torch.cuda.synchronize()
+    calls = dict(fg.LAUNCHES)
+    ctx["straggler_launches"] = calls
+    ctx["straggler"] = {**out, "launches": calls,
+                        "path_shapes": _hold_recorded("straggler", rec,
+                                                      fails)}
+    log(f"[straggler] frontier calls {calls}")
+    if calls["grad"] <= 0 or calls["fwd"] <= 0:
+        fails.append(f"a frontier kernel never launched: {calls}")
+    if fails:
+        raise AssertionError(f"straggler phase failed: {fails}")
+
+
+def phase_paper(ctx):
+    """The paper's figures on the card with their own assertions (Figs 1,
+    2, 3-4 and 5-6), held against the CPU plain path: Figs 1 and 2 mu 1e-4
+    and var 1e-3 relative with the same efficient mask; the simulated
+    columns of Figs 3-6 bit for bit, Fig 3-4's joined MSE 1e-4 relative;
+    then the 201-row Fig 1 call's time (event pair, device, host) beside
+    its bound and its plain version's."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import (common, fig1_theory, fig2_frontier,
+                                   fig34_convex_opt, fig56_file_transfer)
+    from repro_torch.core.distributions import extra_rows
+    from repro_torch.kernels import frontier_grid as fg, ops
+    common.RESULTS_DIR = os.path.join(OUT_DIR, "paper")
+    figs = (("fig1", fig1_theory), ("fig2", fig2_frontier),
+            ("fig34", fig34_convex_opt), ("fig56", fig56_file_transfer))
+    fails, card, walls = [], {}, {}
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    for name, mod in figs:
+        t0 = time.perf_counter()
+        card[name] = mod.run(device="cuda")
+        walls[name] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    calls = dict(fg.LAUNCHES)
+    ctx["paper_launches"] = calls
+    cpu = {name: mod.run(device="cpu") for name, mod in figs}
+
+    out = {"launches": calls, "wall_s": walls}
+    for name in ("fig1", "fig2"):
+        a, b = card[name]["table"], cpu[name]["table"]
+        mu_rel = float(np.max(np.abs(a.mu - b.mu) / np.abs(b.mu)))
+        var_rel = float(np.max(np.abs(a.var - b.var) / np.abs(b.var)))
+        same = bool(np.array_equal(a.efficient, b.efficient))
+        ok = mu_rel <= 1e-4 and var_rel <= 1e-3 and same
+        i_mu, i_var = int(np.argmin(a.mu)), int(np.argmin(a.var))
+        out[name] = {"f_mu": float(a.f[i_mu]), "mu_min": float(a.mu[i_mu]),
+                     "f_var": float(a.f[i_var]),
+                     "var_min": float(a.var[i_var]),
+                     "n_efficient": int(a.efficient.sum()),
+                     "mu_max_rel": mu_rel, "var_max_rel": var_rel}
+        log(f"[paper] {name}: {len(a.f)} rows, f*mu {a.f[i_mu]:.3f} mu_min "
+            f"{a.mu[i_mu]:.6f}, f*var {a.f[i_var]:.3f} var_min "
+            f"{a.var[i_var]:.6f}, {int(a.efficient.sum())} efficient; "
+            f"against the CPU plain path mu {mu_rel:.1e} var {var_rel:.1e} "
+            f"relative, mask " + ("same" if same else "DIFFERENT")
+            + ("  ok" if ok else "  FAIL"))
+        if not ok:
+            fails.append(name)
+    rows_a, rows_b = card["fig34"]["rows"], cpu["fig34"]["rows"]
+    sim_same = all(x[1] == y[1] and x[2] == y[2]
+                   for x, y in zip(rows_a, rows_b))
+    mse_rel = max(abs(x[3] - y[3]) / y[3] for x, y in zip(rows_a, rows_b))
+    ok = sim_same and mse_rel <= 1e-4
+    out["fig34"] = {"mu_min_f": card["fig34"]["mu_min_f"],
+                    "var_min_f": card["fig34"]["var_min_f"],
+                    "joined_mse": [float(x[3]) for x in rows_a],
+                    "mse_max_rel": mse_rel,
+                    "halfsolve_us": card["fig34"]["halfsolve_us"]}
+    log(f"[paper] fig34: mu/var columns "
+        + ("bitwise the CPU's" if sim_same else "DIFFERENT")
+        + f", joined MSE {min(x[3] for x in rows_a):.6f}-"
+        f"{max(x[3] for x in rows_a):.6f} (max rel {mse_rel:.1e}); mu min "
+        f"at f={card['fig34']['mu_min_f']}, var min at "
+        f"f={card['fig34']['var_min_f']}; a 50-step half solve "
+        f"{card['fig34']['halfsolve_us']:.0f} us" + ("  ok" if ok else
+                                                     "  FAIL"))
+    if not ok:
+        fails.append("fig34")
+    a, b = card["fig56"], cpu["fig56"]
+    emp_same = (np.array_equal(a["hist_f05"], b["hist_f05"])
+                and all(x[:3] == y[:3] and x[5] == y[5]
+                        for x, y in zip(a["rows"], b["rows"])))
+    th_rel = max(abs(x[3] - y[3]) / y[3] for x, y in zip(a["rows"], b["rows"])
+                 if y[3] > 0)
+    ok = emp_same and th_rel <= 1e-4
+    out["fig56"] = {k: a[k] for k in ("skew", "kurt", "max_rel_mu_err")}
+    out["fig56"]["theory_mu_max_rel"] = th_rel
+    log(f"[paper] fig56: skew {a['skew']:.6f} kurt {a['kurt']:.6f}, "
+        f"max rel mu err {a['max_rel_mu_err']:.6f}; empirical columns "
+        + ("bitwise the CPU's" if emp_same else "DIFFERENT")
+        + f", theory mu {th_rel:.1e}" + ("  ok" if ok else "  FAIL"))
+    if not ok:
+        fails.append("fig56")
+
+    call = fig1_theory.curve_call("cuda")
+    W, mus, sgs = fig1_theory.curve_inputs("cuda")
+    _, ex = ops._resolve_family("normal", 2, torch.device("cuda"))
+    ms, dev_ms = _time_cuda(call, reps=9), _device_ms(call)
+    host_ms = _host_ms(call, reps=50)
+    plain_ms = _time_cuda(lambda: ops.plain_moments(
+        W, mus, sgs, ex, num_t=fig1_theory.NUM_T, mode="fwd"), reps=5)
+    bound_ms, by = _bound("fwd", fig1_theory.NUM_F, 2, fig1_theory.NUM_T,
+                          extra_rows("normal"), False)
+    out["fig1_curve"] = {"F": fig1_theory.NUM_F, "K": 2,
+                         "T": fig1_theory.NUM_T, "ms": ms,
+                         "device_ms": dev_ms, "host_ms": host_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": by,
+                         "blocks": _call_blocks("fwd", fig1_theory.NUM_F, 2,
+                                                fig1_theory.NUM_T, "normal")}
+    log(f"[paper] fig1 curve F={fig1_theory.NUM_F} K=2 T={fig1_theory.NUM_T}:"
+        f" {ms:.4f} ms (device "
+        + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
+        + f", host {host_ms:.4f} ms per call), plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.5f} ms ({by}); frontier calls {calls}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    ctx["paper"] = out
+    if calls["fwd"] <= 0:
+        fails.append(f"the forward kernel never launched: {calls}")
+    if fails:
+        raise AssertionError(f"paper phase failed: {fails}")
+
+
+def phase_cluster(ctx):
+    """``bench.cluster_scale.run(smoke=False)`` on the card: the policy
+    comparison at 64 / 256 / 1024 channels with the hotspot (frontier beats
+    equal on mean and p99, asserted inside), and the fleet ticks at K=1024,
+    F=4096, T=256 against their plain and autograd foils (gradient parity
+    asserted inside). The auto-family ratio is printed, not gated here."""
+    import torch
+    from repro_torch.bench import cluster_scale, common
+    from repro_torch.kernels import frontier_grid as fg
+    common.RESULTS_DIR = os.path.join(OUT_DIR, "cluster_scale")
+    torch.cuda.synchronize()
+    fg.reset_launches()
+    t0 = time.perf_counter()
+    with _LaunchRecorder() as rec:
+        res = cluster_scale.run(smoke=False, device="cuda")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    calls = dict(fg.LAUNCHES)
+    ctx["cluster_launches"] = calls
+    fails = []
+    shapes = _hold_recorded("cluster", rec, fails)
+    with open(os.path.join(OUT_DIR, "cluster_scale.json"), "w") as fh:
+        json.dump({"bench": "cluster_scale", "smoke": False, **res}, fh,
+                  indent=1, sort_keys=True)
+    for key, (mu, var, p99) in sorted(res["policies"].items()):
+        log(f"[cluster] {key:22s} join mean {mu:.4f} var {var:.5f} p99 "
+            f"{p99:.4f}")
+    for e in res["entries"]:
+        log(f"[cluster] {e['name']:34s} {e['family']:9s} median "
+            f"{e['median_us'] / 1e3:9.3f} ms p90 {e['p90_us'] / 1e3:9.3f} ms")
+    log(f"[cluster] pgd_speedup_vs_autodiff {res['pgd_speedup_vs_autodiff']:.3f}"
+        f" (grad rel L2 {res['grad_rel_l2']:.1e}); auto_family_tick_overhead "
+        f"{res['auto_family_tick_overhead']:.3f} (family "
+        f"{res['auto_family']}; the benchmark's main() gates it at 1.2); "
+        f"frontier calls {calls}; {wall:.1f} s")
+    ctx["cluster"] = {k: v for k, v in res.items() if k != "skipped"}
+    ctx["cluster"].update(wall_s=wall, path_shapes=shapes)
+    if calls["grad"] <= 0 or calls["fwd"] <= 0:
+        fails.append(f"a frontier kernel never launched: {calls}")
+    if fails:
+        raise AssertionError(f"cluster phase failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2664,7 +3179,9 @@ def main(argv=None):
            "lmcheck": phase_lmcheck, "serve": phase_serve,
            "ssmserve": phase_ssmserve, "lmtick": phase_lmtick,
            "dag": phase_dag, "wfloop": phase_wfloop,
-           "engine": phase_engine, "chaos": phase_chaos}
+           "engine": phase_engine, "chaos": phase_chaos,
+           "group": phase_group, "straggler": phase_straggler,
+           "paper": phase_paper, "cluster": phase_cluster}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -2675,13 +3192,18 @@ def main(argv=None):
     tick = {(r["family"], r["mode"]): r for r in ctx.get("tick", [])}
     # the frontier kernels' main paths: the closed loop, the workflow
     # experiment, the workflow loop, the serving engine (its ticks' own
-    # calls) and the chaos runs, each counted from zero; "launches" is
-    # their sum and "launches_by_path" the split
+    # calls), the chaos runs, the channel-count selection, the straggler
+    # scenario, the paper's figures and the fleet experiment, each counted
+    # from zero; "launches" is their sum and "launches_by_path" the split
     paths = {path: ctx[k] for path, k in (("loop", "launches"),
                                           ("dag", "dag_launches"),
                                           ("wfloop", "wfloop_launches"),
                                           ("engine", "engine_launches"),
-                                          ("chaos", "chaos_launches"))
+                                          ("chaos", "chaos_launches"),
+                                          ("group", "group_launches"),
+                                          ("straggler", "straggler_launches"),
+                                          ("paper", "paper_launches"),
+                                          ("cluster", "cluster_launches"))
              if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
@@ -2727,6 +3249,9 @@ def main(argv=None):
                    "dag": ctx.get("dag"), "wfloop": ctx.get("wfloop"),
                    "engine": ctx.get("engine"), "chaos": ctx.get("chaos"),
                    "dag_launches": ctx.get("dag_launches"),
+                   "group": ctx.get("group"),
+                   "straggler": ctx.get("straggler"),
+                   "paper": ctx.get("paper"), "cluster": ctx.get("cluster"),
                    "wfloop_launches": ctx.get("wfloop_launches"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)

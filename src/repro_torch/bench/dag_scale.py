@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -42,6 +41,7 @@ from ..kernels import frontier_grid as fg
 from ..sim.cluster import WorkflowSim
 from ..workflow import Stage, StageDAG, solve_dag, solve_dag_greedy
 from ..workflow import solve as wsolve
+from .common import RESULTS_DIR, timeit_stats
 
 STAGES_BRANCHES = 10   # parallel branches between source and sink
 BRANCH_LEN = 3         # stages per branch: S = 2 + 10 * 3 = 32
@@ -53,10 +53,6 @@ FULL_REPEATS = 5       # timed warm solves per method
 SMOKE_REPEATS = 3
 SCALE_BRANCHES = 170   # the scale point: S = 2 + 170 * 3 = 512 stages
 SCALE_REPEATS = 3
-
-# experiments/torch/ of the checkout this package lies in
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                       "..", "..", "experiments", "torch")
 
 
 def make_dag(branches=STAGES_BRANCHES, branch_len=BRANCH_LEN, k=TICK_K,
@@ -92,21 +88,6 @@ def mc_makespan(dag, weights, trials, seed=0):
     ts = [sim.run_dag_step(dag, weights, rng=10_000 + t)[0]
           for t in range(trials)]
     return float(np.mean(ts)), float(np.var(ts))
-
-
-def timeit_stats(fn, repeats: int = 5, warmup: int = 2):
-    """(median_us, p90_us) of ``fn``'s wall time per call on the host
-    clock; ``fn`` returns host values, so each call has finished."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e6)
-    times.sort()
-    p90 = times[min(len(times) - 1, int(round(0.9 * (len(times) - 1))))]
-    return times[len(times) // 2], p90
 
 
 def counted(fn):
@@ -242,7 +223,7 @@ def main(argv=None):
     res = run(smoke=args.smoke, device=args.device)
     if args.json:
         path = args.out or os.path.normpath(os.path.join(
-            OUT_DIR, "dag_scale_smoke.json" if args.smoke
+            RESULTS_DIR, "dag_scale_smoke.json" if args.smoke
             else "dag_scale.json"))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as fh:

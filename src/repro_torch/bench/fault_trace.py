@@ -34,16 +34,13 @@ from ..core.distributions import Defective
 from ..core.partitioner import optimize_weights
 from ..device import resolve_device
 from ..sim.cluster import ClusterSim
+from .common import RESULTS_DIR
 
 CHANNELS = 12
 TICKS = 300
 SMOKE_TICKS = 80
 FAIL_RANGE = (0.02, 0.15)   # per-channel attempt-failure probabilities
 LAM = 0.05                  # frontier risk weight (both policies)
-
-# experiments/torch/ of the checkout this package lies in
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                       "..", "..", "experiments", "torch")
 
 
 def run(ticks: int = TICKS, channels: int = CHANNELS, seed: int = 0,
@@ -113,7 +110,7 @@ def main(argv=None):
               device=args.device)
     if args.json:
         path = args.out or os.path.normpath(os.path.join(
-            OUT_DIR, "fault_trace_smoke.json" if args.smoke
+            RESULTS_DIR, "fault_trace_smoke.json" if args.smoke
             else "fault_trace.json"))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as fh:

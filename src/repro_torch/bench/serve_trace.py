@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ from ..device import resolve_device
 from ..serve.engine import WorkflowEngine, launch_group
 from ..workflow import Stage, StageDAG, linear_edges
 from ..workflow.solve import stack_rows
+from .common import RESULTS_DIR, timeit
 
 TICKS = 120
 SMOKE_TICKS = 24
@@ -54,10 +54,6 @@ P_EXIT_BURST = 0.15     # per-tick burst -> calm probability
 BURST_LOAD = 1.6        # fleet-wide congestion factor while bursting
 RATIO_SAMPLES = 3       # ticks whose row set is re-timed batched vs looped
 NUM_T = 128
-
-# experiments/torch/ of the checkout this package lies in
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                       "..", "..", "experiments", "torch")
 
 
 def templates() -> dict:
@@ -121,25 +117,13 @@ def _solve_looped(rows, kmax: int, num_t: int, device) -> None:
         _launch_rows(inst_rows, kmax, num_t, device)
 
 
-def _timeit(fn, *args, repeats: int = 3, warmup: int = 1) -> float:
-    """Median wall microseconds of ``fn`` (which ends in a host read of its
-    results, so the device has finished)."""
-    for _ in range(warmup):
-        fn(*args)
-    times = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        fn(*args)
-        times.append((time.perf_counter() - t0) * 1e6)
-    times.sort()
-    return times[len(times) // 2]
-
-
 def _measure_ratio(rows, kmax: int, num_t: int, device):
     """(batched_us, looped_us) on one captured row set, each path warmed
     first."""
-    return (_timeit(_launch_rows, rows, kmax, num_t, device),
-            _timeit(_solve_looped, rows, kmax, num_t, device))
+    return (timeit(_launch_rows, rows, kmax, num_t, device, repeats=3,
+                   warmup=1),
+            timeit(_solve_looped, rows, kmax, num_t, device, repeats=3,
+                   warmup=1))
 
 
 def run(ticks: int = TICKS, seed: int = 0, smoke: bool = False,
@@ -286,7 +270,7 @@ def main(argv=None):
     res = run(ticks=ticks, smoke=args.smoke, device=args.device)
     if args.json:
         path = args.out or os.path.normpath(os.path.join(
-            OUT_DIR, "serve_trace_smoke.json" if args.smoke
+            RESULTS_DIR, "serve_trace_smoke.json" if args.smoke
             else "serve_trace.json"))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as fh:

@@ -50,6 +50,7 @@ from .partitioner import (
     optimize_weights,
     predict_moments,
 )
+from .group import GroupChoice, select_channels, select_channels_exhaustive
 from .bayes import (
     AUTO_FAMILIES,
     FamilyScores,

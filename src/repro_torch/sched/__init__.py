@@ -1,6 +1,7 @@
 """Scheduler layer: the paper's partitioner wired into the runtime."""
 from .balancer import (InstanceHeads, UncertaintyAwareBalancer,
                        WorkflowBalancer, integerize)
+from .straggler import StragglerPolicy
 
-__all__ = ["InstanceHeads", "UncertaintyAwareBalancer", "WorkflowBalancer",
-           "integerize"]
+__all__ = ["InstanceHeads", "StragglerPolicy", "UncertaintyAwareBalancer",
+           "WorkflowBalancer", "integerize"]

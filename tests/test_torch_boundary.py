@@ -45,7 +45,14 @@ def test_port_imports_without_jax_or_a_build():
             "repro_torch.launch.serve, repro_torch.workflow, "
             "repro_torch.bench.dag_scale, repro_torch.bench.serve_trace, "
             "repro_torch.bench.fault_trace, repro_torch.ckpt, "
-            "repro_torch.sim.chaos, repro_torch.serve.telemetry;"
+            "repro_torch.sim.chaos, repro_torch.serve.telemetry, "
+            "repro_torch.core.group, repro_torch.sched.straggler, "
+            "repro_torch.bench.common, repro_torch.bench.fig1_theory, "
+            "repro_torch.bench.fig2_frontier, "
+            "repro_torch.bench.fig34_convex_opt, "
+            "repro_torch.bench.fig56_file_transfer, "
+            "repro_torch.bench.cluster_scale, "
+            "repro_torch.bench.elastic_fleet;"
             "from repro_torch.kernels import _cuda;"
             "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

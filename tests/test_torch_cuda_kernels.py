@@ -19,7 +19,9 @@ stacked per-row launches at the rung shapes of a joint solve (``-k dag``),
 with a mixed-family DAG solved on the card against the plain path, and
 the serving engine's stacked launches (K <= 6 zero-padded, row buckets of
 8 to 512, T = 128 and 256, four families) with an engine run on the card
-against the CPU (``-k engine``).
+against the CPU (``-k engine``), and the channel-count selection's small
+subsets (K = 1, 2, 3, all five families) with a ``select_channels`` on the
+card against the CPU (``-k group``).
 """
 import pytest
 import torch
@@ -633,3 +635,86 @@ def test_engine_tick_on_the_card_matches_the_cpu(card):
         for name, w in inst.weights.items():
             np.testing.assert_allclose(w, ep._live[iid].weights[name],
                                        rtol=0, atol=1e-4)
+
+
+def _small_k_case(fam, F, K, seed, dev):
+    """F Dirichlet rows over K (1-3) channels with the family's extra, as
+    float32 tensors on ``dev``: the shapes of select_channels' small
+    subsets (K = 1 is a one-channel subset)."""
+    import numpy as np
+    from repro_torch.core.distributions import extra_rows
+    rng = np.random.default_rng(seed)
+    W = rng.dirichlet(np.ones(K), F) if K > 1 else \
+        np.linspace(1.0 / F, 1.0, F)[:, None]
+    mus = rng.uniform(10.0, 40.0, K)
+    sgs = mus * rng.uniform(0.02, 0.3, K)
+    if fam == "drift":
+        ex = rng.uniform(0.1, 0.8, (1, K))
+    elif fam == "defective":
+        ex = np.stack([rng.uniform(0.02, 0.3, K), np.ones(K)])
+    elif fam == "empirical":
+        ex = np.concatenate([np.moveaxis(rng.dirichlet(np.ones(3), K), -1, 0),
+                             mus[None] * rng.uniform(0.7, 1.3, (3, K)),
+                             sgs[None] * rng.uniform(0.3, 1.0, (3, K))])
+    else:
+        ex = np.zeros((extra_rows(fam), K))
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=dev)
+                 for a in (W, mus, sgs, ex))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("fam", ["normal", "lognormal", "drift", "empirical",
+                                 "defective"])
+def test_group_small_k_kernels_match_plain(card, fam, K):
+    # select_channels' subsets: the forward kernel at T=2048 (finalists and
+    # one-channel subsets) and the adjoint at T=1024 (PGD steps), F = 1 and
+    # 5, against the plain versions at chip_smoke.py's tolerances; a second
+    # call repeats the bits
+    from repro_torch.kernels import frontier_grid as fg
+    for F in (1, 5):
+        W, mus, sgs, ex = _small_k_case(fam, F, K, 10 * K + F, card)
+        got = fg.frontier_grid(W, mus, sgs, ex, num_t=2048, dist_id=fam)
+        want = ref.frontier_grid_ref(W, mus, sgs, num_t=2048, dist_id=fam,
+                                     extra=ex)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+        again = fg.frontier_grid(W, mus, sgs, ex, num_t=2048, dist_id=fam)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        got = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=1024,
+                                          dist_id=fam)
+        want = ref.frontier_grid_with_grads_ref(W, mus, sgs, num_t=1024,
+                                                dist_id=fam, extra=ex)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-2, atol=1e-3)
+        for g, w in zip(got[2:], want[2:]):
+            assert bool(torch.isfinite(g).all())
+            assert _rel_l2(g, w) <= 1e-4, (fam, K, F, _rel_l2(g, w))
+        again = fg.frontier_grid_with_grads(W, mus, sgs, ex, num_t=1024,
+                                            dist_id=fam)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_group_select_channels_on_the_card_matches_the_cpu(card):
+    # a 10-channel heterogeneous fleet, normal and defective: the same
+    # indices, objective 1e-4 relative, the split to 1e-3
+    import numpy as np
+    from repro_torch.core import Defective, select_channels
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.sim import ClusterSim
+    for dist in ("normal", "defective"):
+        sim = ClusterSim.heterogeneous(10, seed=0, dist=dist)
+        mus, sgs = sim.true_params
+        fam = (Defective(p=[c.fail_p for c in sim.channels])
+               if dist == "defective" else "normal")
+        n = fg.LAUNCHES["grad"]
+        a = select_channels(mus, sgs, lam=0.02, join_cost=0.5, pgd_steps=60,
+                            family=fam, device=card)
+        assert fg.LAUNCHES["grad"] > n
+        b = select_channels(mus, sgs, lam=0.02, join_cost=0.5, pgd_steps=60,
+                            family=fam, device="cpu")
+        assert a.indices.tolist() == b.indices.tolist()
+        assert a.objective == pytest.approx(b.objective, rel=1e-4)
+        np.testing.assert_allclose(a.decision.weights, b.decision.weights,
+                                   atol=1e-3)
