@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases card,build,dag,wfloop
     python3 chip_smoke.py --phases card,build,engine,chaos
     python3 chip_smoke.py --phases card,build,group,straggler,paper,cluster
+    python3 chip_smoke.py --phases card,build,engine,chaos,trace,sweep
 
 Phases, in order:
 
@@ -151,7 +152,25 @@ Phases, in order:
    ``restore_pipeline``; every restored decision must equal the
    survivor's bit for bit. Then the full ``bench.fault_trace`` (12
    channels, 300 ticks): the failure-aware solve must beat the blind one.
-17. ``group`` — the channel-count selection: the forward and adjoint
+17. ``trace`` — the port's tracing and sanitizer on the card: the full
+   serve_trace traced (``obs``, a tracer of TRACE_CAPACITY records) against
+   the ``engine`` phase's untraced run (run untraced here when that phase
+   did not run): every tick's admissions, retirements (iids and join
+   latencies), rows, launches, frontier calls and device syncs bitwise
+   equal; the records valid; the span kinds and event types of the engine;
+   the kernel.launch spans inside each tick span equal to the tick's
+   counted calls; the median of TRACE_OVERHEAD_READINGS readings of
+   ``overhead_pct`` (the run's and more on its last rows) under
+   TRACE_OVERHEAD_MAX_PCT. Then the
+   ``chaos`` runs traced (every kill bitwise, an ``audit.ckpt_restore`` at
+   each manifest step, results equal to the ``chaos`` phase's), the K=1024
+   loop traced (refresh spans; decisions bitwise the ``loop`` phase's),
+   the dag_scale joint solve's ``phase_us`` against its spans, and the
+   sanitizer switched on in-process: the K=1024 loop bitwise with at most
+   SANITIZE_MAX_READS added device syncs a solve, a NaN in mus raising
+   before any launch, a NaN gradient planted at step SANITIZE_NAN_STEP (by
+   wrapping ``ops.frontier_moments_with_grads`` here) raising named.
+18. ``group`` — the channel-count selection: the forward and adjoint
    kernels at K = 1 (F = 1 and 8, T = 2048), all five families, against
    their plain versions (off the path: a one-channel subset takes the
    plain quadrature); then ``select_channels`` on
@@ -163,27 +182,39 @@ Phases, in order:
    Then the first call of each (mode, family, F, K, T) the path made, its
    inputs kept as it ran, again through the kernel (twice: the bits
    repeat) against its plain version at the frontier tolerances.
-18. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
+19. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
    drift modes (16 channels, a 4x straggler at step 60, a hard failure at
    120, two joins at 160, 240 steps): the straggler flagged and quarantined
    or priced as drift, the failure removed, the joins admitted, every split
    a simplex; join statistics before and after, tick times; then each
    shape the scenario launched held as in ``group`` (K = 16, 15 after the
    failure, 17 after the joins; normal and drift).
-19. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
+20. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
    ``fig2_frontier``, ``fig34_convex_opt``, ``fig56_file_transfer``) on the
    card with their own assertions, held against the CPU plain path (Figs 1
    and 2 mu 1e-4 and var 1e-3 relative, the same efficient mask; the
    simulated columns bit for bit; the joined MSE 1e-4 relative), and the
    201-row Fig 1 call timed (event pair, device, host) beside its bound.
-20. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
+21. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
    policy comparison at 64 / 256 / 1024 channels (frontier beats equal on
    mean and p99), the fleet ticks at K=1024, F=4096, T=256 against the
    plain foil and autograd (gradient parity 1e-4), the family ticks and the
    auto-family tick; prints ``pgd_speedup_vs_autodiff`` and
    ``auto_family_tick_overhead``. Then each shape of up to
    RECORD_MAX_POINTS grid points that the run launched (the policy loops'
-   solves) held as in ``group``.
+   solves) held as in ``group``; its sweep section runs in ``sweep``.
+22. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
+   (K=1024, F=4096, T=256; fwd, grad through
+   ``bench.cluster_scale.tick_sweep``, pgrad) and a refresh's shapes (fwd
+   F=3 T=2048, grad F=3 T=1024, pgrad F=1 T=1024), normal family, into a
+   temporary cache file: every candidate (the model's split and its
+   neighbours) held against its plain version with its bits repeated
+   (inside the sweep), the model's and the winner's time and every
+   candidate's beside the bound; then the winners reloaded from the file
+   through a cleared cache (source sweep), a K=1024 balancer checkpointed
+   with them and restored (its next decision bitwise the survivor's), and
+   the in-process cache restored, so no other phase launches a swept
+   split.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -203,7 +234,7 @@ before the last is a JSON object of per-kernel numbers; the last line is
 per-kernel line is the sum over the paths that drive it, each counted from
 zero just before it runs (``loop``, ``dag``, ``wfloop``, ``engine``: the
 ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
-``cluster``), and its
+``cluster``, ``trace``: its traced and sanitized runs, ``sweep``), and its
 ``launches_by_path`` gives each path's count; a model kernel's is its
 serving phase's. Details go to ``chiprun_out/``.
 """
@@ -215,13 +246,15 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop",
-          "engine", "chaos", "group", "straggler", "paper", "cluster")
+          "engine", "chaos", "trace", "group", "straggler", "paper",
+          "cluster", "sweep")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -663,7 +696,9 @@ def phase_loop(ctx):
                              ("equal", "equal", {}),
                              ("frontier+adaptive+risk", "frontier",
                               {"adaptive_refresh": True, "risk_lam": 0.5})):
-        joins, tick_s, _ = _closed_loop(policy, "cuda", **kw)
+        joins, tick_s, ws = _closed_loop(policy, "cuda", **kw)
+        if name == "frontier":
+            ctx["loop_ws"] = ws   # the trace phase's untraced decisions
         stats[name] = {"join_mean": float(joins.mean()),
                        "join_p99": float(np.percentile(joins, 99)),
                        "tick_mean_s": float(tick_s.mean()),
@@ -2442,6 +2477,7 @@ def phase_engine(ctx):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     ticks = probe.ticks
+    ctx["engine_ticks"] = ticks   # the trace phase's untraced run
     calls = {m: sum(t["calls"][m] for t in ticks) for m in fg.LAUNCHES}
     ctx["engine_launches"] = calls
     c = res["counters"]
@@ -3108,7 +3144,9 @@ def phase_cluster(ctx):
     comparison at 64 / 256 / 1024 channels with the hotspot (frontier beats
     equal on mean and p99, asserted inside), and the fleet ticks at K=1024,
     F=4096, T=256 against their plain and autograd foils (gradient parity
-    asserted inside). The auto-family ratio is printed, not gated here."""
+    asserted inside). The auto-family ratio is printed, not gated here; the
+    benchmark's sweep section runs in phase ``sweep``, so no launch here
+    takes a swept split."""
     import torch
     from repro_torch.bench import cluster_scale, common
     from repro_torch.kernels import frontier_grid as fg
@@ -3117,7 +3155,8 @@ def phase_cluster(ctx):
     fg.reset_launches()
     t0 = time.perf_counter()
     with _LaunchRecorder() as rec:
-        res = cluster_scale.run(smoke=False, device="cuda")
+        # its sweep section runs in the sweep phase, into a file of its own
+        res = cluster_scale.run(smoke=False, device="cuda", sweep=False)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
     calls = dict(fg.LAUNCHES)
@@ -3144,6 +3183,494 @@ def phase_cluster(ctx):
         fails.append(f"a frontier kernel never launched: {calls}")
     if fails:
         raise AssertionError(f"cluster phase failed: {fails}")
+
+
+# ------------------------------------------------------------------- tracing
+# records the trace phase's tracer keeps: the full serve_trace traced makes
+# a few hundred thousand (a sim step per executed stage of 320 live)
+TRACE_CAPACITY = 1 << 21
+# the serving engine's traced solve over its untraced one, percent (the JAX
+# package's zero-perturbation bound), held on the median of its readings
+TRACE_OVERHEAD_MAX_PCT = 5.0
+TRACE_OVERHEAD_READINGS = 5
+# the engine probe's per-tick fields that tracing must leave bitwise alone
+ENGINE_TICK_KEYS = ("tick", "admitted", "retired", "rows", "launches",
+                    "groups", "calls", "syncs")
+# the sanitizer: host reads a PGD solve may add, and the step a planted
+# NaN gradient must be named at
+SANITIZE_MAX_READS = 2
+SANITIZE_NAN_STEP = 17
+
+
+def _syncs_of(fn):
+    """``(fn(), device synchronizations during it)``, by torch's sync debug
+    mode."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+@contextmanager
+def _counting_solves():
+    """Counts the balancer's PGD solves (``sched.balancer.optimize_weights``)
+    into the dict it yields."""
+    from repro_torch.sched import balancer
+    orig, n = balancer.optimize_weights, {"solves": 0}
+
+    def counted(*a, **kw):
+        n["solves"] += 1
+        return orig(*a, **kw)
+
+    balancer.optimize_weights = counted
+    try:
+        yield n
+    finally:
+        balancer.optimize_weights = orig
+
+
+def phase_trace(ctx):
+    """The port's tracing and sanitizer on the card (see the module
+    docstring): the full serve_trace traced against the engine phase's
+    untraced run, chaos traced, the K=1024 loop traced, the dag_scale joint
+    solve's phase spans, and the sanitizer switched on in-process."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.analysis import sanitize as san
+    from repro_torch.bench import dag_scale, serve_trace as bench
+    from repro_torch.core import partitioner
+    from repro_torch.kernels import frontier_grid as fg, ops
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import names as obs_names
+    from repro_torch.obs import trace as obs
+    from repro_torch.sim import ClusterSim
+    from repro_torch.sim.chaos import (run_chaos_trace,
+                                       run_workflow_chaos_trace)
+    from repro_torch.workflow import solve_dag
+    fails, out = [], {}
+    total = {m: 0 for m in fg.LAUNCHES}
+
+    def counted(fn):
+        """``fn()`` as a path run: its launches, counted from zero, join
+        the phase's total."""
+        torch.cuda.synchronize()
+        fg.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        for m in total:
+            total[m] += fg.LAUNCHES[m]
+        return r
+
+    def spans_by_mode(recs, within=None):
+        """kernel.launch spans by mode; with ``within`` (spans) only those
+        that start inside one of them."""
+        import bisect
+        if within is not None:
+            starts = [w["ts_us"] for w in within]
+            ends = [w["ts_us"] + w["dur_us"] for w in within]
+        n = {m: 0 for m in fg.LAUNCHES}
+        for r in recs:
+            if r["name"] != obs_names.SPAN_KERNEL_LAUNCH:
+                continue
+            if within is not None:
+                i = bisect.bisect_right(starts, r["ts_us"]) - 1
+                if i < 0 or r["ts_us"] > ends[i]:
+                    continue
+            n[r["attrs"]["mode"]] += 1
+        return n
+
+    tracer = obs.TRACER
+    obs.TRACER = obs.Tracer(capacity=TRACE_CAPACITY)
+    env = os.environ.pop(san.ENV_VAR, None)
+    try:
+        # 1. the serving engine: the full serve_trace traced
+        plain = ctx.get("engine_ticks")
+        if plain is None:
+            with _EngineProbe() as p:
+                bench.run(smoke=False, device="cuda")
+            plain = p.ticks
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+            obs.set_enabled(True)
+            mark = obs.mark()
+            t0 = time.perf_counter()
+
+            held = {}
+
+            def engine():
+                with _EngineProbe() as p:
+                    return bench.run(smoke=False, device="cuda", out_dir=d,
+                                     on_tick=lambda e, t, o: held.update(
+                                         eng=e)), p
+            res, probe = counted(engine)
+            run_s = time.perf_counter() - t0
+            # the overhead again on the same rows: its spread between
+            # readings, and the median is what the bound holds
+            eng = held["eng"]
+            overheads = [res["trace"]["overhead_pct"]] + [
+                bench._trace_overhead_pct(eng.last_rows, eng.kmax,
+                                          bench.NUM_T, "cuda")[0]
+                for _ in range(TRACE_OVERHEAD_READINGS - 1)]
+            overhead = float(np.median(overheads))
+            obs.set_enabled(False)
+            recs = obs.records(mark)
+            sizes = {k: os.path.getsize(res["trace"][k])
+                     for k in ("jsonl", "perfetto")}
+        tr = res["trace"]
+        n_valid = obs_export.validate_records(recs)
+        same = (len(plain) == len(probe.ticks) and all(
+            all(a[k] == b[k] for k in ENGINE_TICK_KEYS)
+            for a, b in zip(plain, probe.ticks)))
+        syncs = [t["syncs"] for t in probe.ticks]
+        # the ticks' own launches: spans inside each engine.tick span against
+        # the launch counters' per-tick deltas (the ratio samples and the
+        # overhead measurement launch between ticks, the latter half
+        # untraced)
+        ticks = sorted((r for r in recs
+                        if r["name"] == obs_names.SPAN_ENGINE_TICK),
+                       key=lambda r: r["ts_us"])
+        spans = spans_by_mode(recs, within=ticks)
+        calls = {m: sum(t["calls"][m] for t in probe.ticks)
+                 for m in fg.LAUNCHES}
+        kinds = obs_export.span_kinds(recs)
+        types = obs_export.event_types(recs)
+        dropped = obs.dropped()
+        log(f"[trace] serve_trace traced: {len(probe.ticks)} ticks in "
+            f"{run_s:.1f} s, {len(recs)} records ({n_valid} valid, dropped "
+            f"{dropped}; JSONL {sizes['jsonl'] / 1e6:.1f} MB, Perfetto "
+            f"{sizes['perfetto'] / 1e6:.1f} MB), span kinds {sorted(kinds)}, "
+            f"event types {sorted(types)}")
+        log(f"[trace] ticks traced against untraced (admitted, retired "
+            f"iids and join latencies, rows, launches, groups, frontier "
+            f"calls, device syncs): " + ("bitwise equal" if same else
+                                          "DIFFER") + f"; syncs a tick "
+            f"mean {np.mean(syncs):.2f} max {max(syncs)}")
+        log(f"[trace] kernel.launch spans inside the {len(ticks)} tick spans "
+            f"by mode {spans} against the ticks' launch counts {calls} (all "
+            f"launch spans {spans_by_mode(recs)}); overhead_pct "
+            f"{tr['overhead_pct']:.3f}, over {len(overheads)} readings "
+            + ", ".join(f"{o:.3f}" for o in overheads) + f": median "
+            f"{overhead:.3f} (bound {TRACE_OVERHEAD_MAX_PCT}; the stacked "
+            f"solve of the last tick's {tr['rows']} rows {tr['solve_us']:.1f}"
+            f" us untraced, {tr['solve_us_traced']:.1f} us traced)")
+        if not same:
+            fails.append("engine ticks traced differ from untraced")
+        want_kinds = {obs_names.SPAN_ENGINE_TICK, obs_names.SPAN_ENGINE_STAGE,
+                      obs_names.SPAN_SOLVER_PGD, obs_names.SPAN_KERNEL_LAUNCH,
+                      obs_names.SPAN_SIM_STEP}
+        if not want_kinds <= kinds:
+            fails.append(f"span kinds missing: {want_kinds - kinds}")
+        if not {obs_names.EV_DIRTY, obs_names.EV_SLO_LAM} <= types:
+            fails.append(f"event types missing: {types}")
+        if dropped == 0 and spans != calls:
+            fails.append(f"launch spans {spans} != counters {calls}")
+        if not overhead < TRACE_OVERHEAD_MAX_PCT:
+            fails.append(f"overhead_pct {overheads}")
+        out["engine"] = {"ticks": len(probe.ticks), "run_s": run_s,
+                         "records": len(recs), "dropped": dropped,
+                         "bitwise": same, "syncs_mean": float(np.mean(syncs)),
+                         "spans": spans, "calls": calls,
+                         "overhead_pct": overheads,
+                         "solve_us": [tr["solve_us"], tr["solve_us_traced"]],
+                         "span_kinds": sorted(kinds),
+                         "event_types": sorted(types), "bytes": sizes}
+
+        # 2. chaos traced: every kill bitwise, restores at the manifest steps
+        obs.set_enabled(True)
+        mark = obs.mark()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+            runs = {
+                "balancer": counted(lambda: run_chaos_trace(
+                    churn=CHAOS_CHURN, seed=0, device="cuda")),
+                "defective": counted(lambda: run_chaos_trace(
+                    dist="defective", seed=3, device="cuda")),
+                "workflow": counted(lambda: run_workflow_chaos_trace(
+                    dag_scale.make_dag(2, 3, 32), churn=CHAOS_WF_CHURN,
+                    seed=0, device="cuda")),
+                "engine": counted(lambda: _engine_chaos(
+                    os.path.join(d, "eng")))}
+        obs.set_enabled(False)
+        recs = obs.records(mark)
+        restores = [(r["attrs"]["kind"], r["attrs"]["step"]) for r in recs
+                    if r["name"] == obs_names.EV_CKPT_RESTORE]
+        want = []
+        for name, r in runs.items():
+            kind = {"defective": "balancer"}.get(name, name)
+            if name == "engine":
+                steps = list(range(ENGINE_KILL_EVERY, ENGINE_KILL_TICKS + 1,
+                                   ENGINE_KILL_EVERY))
+            else:
+                steps = [t for t, what, _ in r.events
+                         if what == "kill_restore"]
+            want += [(kind, t) for t in steps]
+        kills = {n: (r["kills"] if isinstance(r, dict) else r.kills)
+                 for n, r in runs.items()}
+        untraced = {n: ctx.get("chaos", {}).get(n) for n in runs}
+        same_summary = all(
+            u is None or u == (r if isinstance(r, dict) else r.summary())
+            for u, r in zip(untraced.values(), runs.values()))
+        log(f"[trace] chaos traced: kills {kills}, every restored decision "
+            f"bitwise the survivor's; {len(restores)} ckpt_restore events at "
+            f"{restores == want and 'the manifest steps' or restores} "
+            f"({obs_export.validate_records(recs)} records, "
+            f"{time.perf_counter() - t0:.1f} s); results "
+            + ("equal to the chaos phase's" if same_summary else "DIFFER"))
+        if restores != want:
+            fails.append(f"restore events {restores} != manifest steps "
+                         f"{want}")
+        if not same_summary:
+            fails.append("chaos traced differs from untraced")
+        out["chaos"] = {"kills": kills, "restores": restores}
+
+        # 3. the K=1024 closed loop traced
+        ws_plain = ctx.get("loop_ws")
+        if ws_plain is None:
+            ws_plain = _closed_loop("frontier", "cuda")[2]
+        obs.set_enabled(True)
+        mark = obs.mark()
+        _, tick_s, ws = counted(lambda: _closed_loop("frontier", "cuda"))
+        obs.set_enabled(False)
+        recs = obs.records(mark)
+        refresh = [r for r in recs
+                   if r["name"] == obs_names.SPAN_SCHED_REFRESH]
+        plain_mean = ctx.get("loop", {}).get("frontier", {}).get(
+            "tick_mean_s")
+        same = np.array_equal(ws, ws_plain)
+        log(f"[trace] K=1024 loop traced: {len(refresh)} sched.refresh spans "
+            f"({sum(r['attrs']['warm'] for r in refresh)} warm re-solves), "
+            f"{len(recs)} records; tick mean traced {1e3 * tick_s.mean():.2f}"
+            f" ms, untraced " + (f"{1e3 * plain_mean:.2f} ms" if plain_mean
+                                 else "not run") + "; decisions "
+            + ("bitwise equal" if same else "DIFFER"))
+        if not refresh or not same:
+            fails.append("K=1024 loop traced")
+        out["loop"] = {"refreshes": len(refresh),
+                       "tick_mean_ms": 1e3 * float(tick_s.mean()),
+                       "untraced_tick_mean_ms": (1e3 * plain_mean
+                                                 if plain_mean else None)}
+
+        # 4. the dag_scale joint solve: phase_us is its phase spans
+        dag = dag_scale.make_dag()
+        with obs.capture() as cap:
+            dec = counted(lambda: solve_dag(
+                dag, steps=dag_scale.PGD_STEPS, restarts=1,
+                num_t=dag_scale.TICK_T, device="cuda"))
+        phases = {r["attrs"]["phase"]: r["dur_us"] for r in cap
+                  if r["name"] == obs_names.SPAN_SOLVER_PHASE}
+        totals = obs_export.phase_totals(cap)
+        pu = dec.profile["phase_us"]
+        same = (pu == {p: round(d, 1) for p, d in phases.items()}
+                and all(abs(totals[p] - pu[p]) <= 0.55 for p in pu))
+        log(f"[trace] dag_scale joint solve: phase_us {pu}; phase_totals of "
+            f"its spans {totals}: " + ("the same measurement" if same
+                                       else "DIFFER")
+            + f"; {spans_by_mode(cap)} kernel.launch spans inside phases")
+        if not same:
+            fails.append("dag phase_us differs from its spans")
+        out["dag"] = {"phase_us": pu, "phase_totals": totals}
+
+        # 5. the sanitizer, switched on in this process
+        def loop_run():
+            with _counting_solves() as n:
+                (_, _, w), syncs = _syncs_of(
+                    lambda: _closed_loop("frontier", "cuda"))
+            return w, syncs, n["solves"]
+
+        ws_off, syncs_off, solves = loop_run()
+        os.environ[san.ENV_VAR] = "1"
+        ws_on, syncs_on, solves_on = counted(loop_run)
+        added = (syncs_on - syncs_off) / max(solves, 1)
+        same = np.array_equal(ws_on, ws_off) and np.array_equal(ws_on,
+                                                                 ws_plain)
+        log(f"[trace] sanitizer on: K=1024 loop decisions " + (
+            "bitwise the unsanitized ones" if same else "DIFFER")
+            + f"; device syncs {syncs_on} against {syncs_off} over {solves} "
+            f"PGD solves of 60 steps: {added:.2f} added a solve (at most "
+            f"{SANITIZE_MAX_READS}), {added / 60:.3f} a step")
+        if not same or solves_on != solves or added > SANITIZE_MAX_READS:
+            fails.append("sanitized loop")
+        sim = ClusterSim.heterogeneous(1024, seed=0)
+        mus, sgs = (np.asarray(a, np.float32) for a in sim.true_params)
+        bad = mus.copy()
+        bad[5] = np.nan
+        before = dict(fg.LAUNCHES)
+        try:
+            partitioner.optimize_weights(bad, sgs, lam=0.02, steps=60,
+                                         restarts=0, device="cuda")
+            nan_in = "no raise"
+        except san.SanitizeError as e:
+            nan_in = str(e)
+        torch.cuda.synchronize()
+        launched = {m: fg.LAUNCHES[m] - before[m] for m in before}
+        log(f"[trace] sanitizer on, a NaN in mus: {nan_in!r}; launches "
+            f"{launched}")
+        if nan_in == "no raise" or any(launched.values()):
+            fails.append("NaN mus")
+        orig, seen = ops.frontier_moments_with_grads, {"n": 0}
+
+        def planted(*a, **kw):
+            outs = orig(*a, **kw)
+            if seen["n"] == SANITIZE_NAN_STEP:
+                outs[2][0, 0] = float("nan")
+            seen["n"] += 1
+            return outs
+
+        ops.frontier_moments_with_grads = planted
+        try:
+            partitioner.optimize_weights(mus, sgs, lam=0.02, steps=60,
+                                         restarts=0, device="cuda")
+            nan_step = "no raise"
+        except san.SanitizeError as e:
+            nan_step = str(e)
+        finally:
+            ops.frontier_moments_with_grads = orig
+        log(f"[trace] sanitizer on, a NaN gradient planted at step "
+            f"{SANITIZE_NAN_STEP}: {nan_step!r} after {seen['n']} steps")
+        if f"step {SANITIZE_NAN_STEP})" not in nan_step or seen["n"] != 60:
+            fails.append("planted NaN gradient")
+        out["sanitize"] = {"bitwise": same, "syncs_on": syncs_on,
+                           "syncs_off": syncs_off, "solves": solves,
+                           "added_per_solve": added, "nan_mus": nan_in,
+                           "nan_step": nan_step}
+    finally:
+        obs.TRACER = tracer
+        os.environ.pop(san.ENV_VAR, None)
+        if env is not None:
+            os.environ[san.ENV_VAR] = env
+    ctx["trace_launches"] = total
+    ctx["trace"] = out
+    log(f"[trace] frontier calls {total}")
+    if fails:
+        raise AssertionError(f"trace phase failed: {fails}")
+
+
+# ------------------------------------------------------------- the sweep
+# (mode, F, K, T), normal family: the fleet tick, then a refresh's finalists
+# (fwd), PGD steps (grad) and sensitivity (pgrad) at K=1024
+SWEEP_SHAPES = (("fwd", 4096, 1024, 256), ("grad", 4096, 1024, 256),
+                ("pgrad", 4096, 1024, 256), ("fwd", 3, 1024, 2048),
+                ("grad", 3, 1024, 1024), ("pgrad", 1, 1024, 1024))
+SWEEP_REPEATS = 7
+
+
+def phase_sweep(ctx):
+    """``kernels.autotune.sweep`` on the card at SWEEP_SHAPES into a
+    temporary cache file (the fleet-tick grad through
+    ``bench.cluster_scale.tick_sweep``), every candidate held against its
+    plain version with its bits repeated; then the winners reloaded from
+    the file through a cleared cache, a K=1024 balancer checkpointed with
+    them and restored (the next decision bitwise the survivor's), and the
+    in-process cache restored."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.bench import cluster_scale
+    from repro_torch.ckpt import restore_pipeline, save_pipeline
+    from repro_torch.core.distributions import extra_rows
+    from repro_torch.kernels import autotune, frontier_grid as fg
+    from repro_torch.sched import UncertaintyAwareBalancer
+    from repro_torch.sim import ClusterSim
+    saved = autotune.cache_state()
+    fails, rows = [], []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
+            path = os.path.join(d, "autotune_cache.json")
+            torch.cuda.synchronize()
+            fg.reset_launches()
+            for mode, F, K, T in SWEEP_SHAPES:
+                t0 = time.perf_counter()
+                if (mode, F) == ("grad", 4096):
+                    entry = cluster_scale.tick_sweep(
+                        [], K, F, T, "cuda", cache_path=path,
+                        repeats=SWEEP_REPEATS)
+                else:
+                    entry = autotune.sweep(F, K, T, mode=mode,
+                                           dist_id="normal",
+                                           repeats=SWEEP_REPEATS,
+                                           cache_path=path, device="cuda")
+                bound_ms, by = _bound(mode, F, K, T, extra_rows("normal"),
+                                      False)
+                tm = entry["timings"]
+                win = min(tm, key=tm.get)
+                row = {"mode": mode, "F": F, "K": K, "T": T,
+                       "model": entry["model"],
+                       "model_ms": tm[entry["model"]] / 1e3,
+                       "winner": win, "winner_ms": entry["us"] / 1e3,
+                       "split": entry["value"],
+                       "threads": entry.get("threads"),
+                       "timings_ms": {k: v / 1e3 for k, v in tm.items()},
+                       "bound_ms": bound_ms, "bound_by": by,
+                       "seconds": time.perf_counter() - t0}
+                rows.append(row)
+                log(f"[sweep] {mode:5s} F={F} K={K} T={T}: model "
+                    f"{row['model']} {row['model_ms']:.4f} ms, winner "
+                    f"{win} {row['winner_ms']:.4f} ms (model/winner "
+                    f"{row['model_ms'] / row['winner_ms']:.3f}), bound "
+                    f"{bound_ms:.4f} ms ({by}), winner/bound "
+                    f"{row['winner_ms'] / bound_ms:.1f}x; {len(tm)} "
+                    f"candidates (threads/points,t_chunk,k_chunk,ep_chunk) "
+                    f"within tolerance, bits repeated: "
+                    + ", ".join(f"{k} {v / 1e3:.4f}" for k, v in tm.items())
+                    + f" ({row['seconds']:.1f} s)")
+            torch.cuda.synchronize()
+            ctx["sweep_launches"] = dict(fg.LAUNCHES)
+
+            # the winners come back from the file, as sweep entries
+            autotune.clear_cache()
+            for r in rows:
+                split = autotune.lookup_split(r["F"], r["K"], r["T"],
+                                              r["mode"], "normal",
+                                              cache_path=path)
+                if list(split) != r["split"] or \
+                        autotune.last_outcome() != "sweep":
+                    fails.append(f"reload {r['mode']} F={r['F']}")
+            log(f"[sweep] {len(rows)} winners reloaded from the file "
+                f"through a cleared cache with source sweep"
+                + ("" if not fails else f": FAILED {fails}"))
+
+            # a K=1024 balancer checkpointed with the swept cache
+            K = 1024
+            bal = UncertaintyAwareBalancer(K, lam=0.02, refresh_every=1,
+                                           pgd_steps=60,
+                                           adaptive_refresh=True,
+                                           risk_lam=0.5, device="cuda")
+            sim = ClusterSim.heterogeneous(K, seed=0)
+            for _ in range(3):
+                w = bal.weights()
+                _, durs = sim.run_step(w)
+                bal.observe(durs, w)
+            ckpt = os.path.join(d, "ckpt")
+            save_pipeline(ckpt, 3, bal)
+            survivor = UncertaintyAwareBalancer.from_state_dict(
+                bal.state_dict(), device="cuda")
+            w_expect = survivor.weights()
+            autotune.clear_cache()
+            replica, _, _ = restore_pipeline(ckpt, device="cuda")
+            outcomes = {f"{m} F={F}": autotune.plan_outcome(
+                F, K_, T, m, "normal")[2]
+                for m, F, K_, T in SWEEP_SHAPES if F < 4096}
+            w_got = replica.weights()
+            same = np.array_equal(w_expect, w_got)
+            log(f"[sweep] K=1024 balancer checkpointed with the swept cache "
+                f"and restored: launch plans {outcomes}; next decision "
+                + ("bitwise the survivor's" if same else "DIFFERS"))
+            if not same or set(outcomes.values()) != {"sweep"}:
+                fails.append("checkpoint with the swept cache")
+    finally:
+        autotune.clear_cache()
+        autotune.load_cache_state(saved)
+    ctx["sweep"] = rows
+    log(f"[sweep] in-process cache restored; frontier calls "
+        f"{ctx.get('sweep_launches')}")
+    if fails:
+        raise AssertionError(f"sweep phase failed: {fails}")
 
 
 def main(argv=None):
@@ -3180,8 +3707,9 @@ def main(argv=None):
            "ssmserve": phase_ssmserve, "lmtick": phase_lmtick,
            "dag": phase_dag, "wfloop": phase_wfloop,
            "engine": phase_engine, "chaos": phase_chaos,
-           "group": phase_group, "straggler": phase_straggler,
-           "paper": phase_paper, "cluster": phase_cluster}
+           "trace": phase_trace, "group": phase_group,
+           "straggler": phase_straggler, "paper": phase_paper,
+           "cluster": phase_cluster, "sweep": phase_sweep}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -3193,8 +3721,9 @@ def main(argv=None):
     # the frontier kernels' main paths: the closed loop, the workflow
     # experiment, the workflow loop, the serving engine (its ticks' own
     # calls), the chaos runs, the channel-count selection, the straggler
-    # scenario, the paper's figures and the fleet experiment, each counted
-    # from zero; "launches" is their sum and "launches_by_path" the split
+    # scenario, the paper's figures, the fleet experiment, the traced and
+    # sanitized runs and the autotune sweep, each counted from zero;
+    # "launches" is their sum and "launches_by_path" the split
     paths = {path: ctx[k] for path, k in (("loop", "launches"),
                                           ("dag", "dag_launches"),
                                           ("wfloop", "wfloop_launches"),
@@ -3203,7 +3732,9 @@ def main(argv=None):
                                           ("group", "group_launches"),
                                           ("straggler", "straggler_launches"),
                                           ("paper", "paper_launches"),
-                                          ("cluster", "cluster_launches"))
+                                          ("cluster", "cluster_launches"),
+                                          ("trace", "trace_launches"),
+                                          ("sweep", "sweep_launches"))
              if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
@@ -3252,6 +3783,7 @@ def main(argv=None):
                    "group": ctx.get("group"),
                    "straggler": ctx.get("straggler"),
                    "paper": ctx.get("paper"), "cluster": ctx.get("cluster"),
+                   "trace": ctx.get("trace"), "sweep": ctx.get("sweep"),
                    "wfloop_launches": ctx.get("wfloop_launches"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)

@@ -30,11 +30,15 @@ ticks, on the port: the experiment of the repository's
    the winner, run the fused launch under it, against the same launch with
    the family fixed up front (``auto_family_tick_overhead``; ``main`` holds
    it to 1.2x at full scale, last).
+6. The timed autotune sweep of the fused tick (``autotune.sweep``, last,
+   so no tick above runs a swept launch): on the card the model's split and
+   its neighbours, on the CPU the plain path's rows per chunk, each held
+   against the plain version before it is timed; the winner goes to the
+   cache file and the in-process cache (``autotune_fused_<impl>_F..``).
 
 Not ported: the JAX package's interpreted-kernel entries (the Pallas
-interpreter has no torch twin) and its timed ``autotune.sweep`` (the port
-has only the shape model); the JSON lists both under ``skipped`` with the
-reason.
+interpreter has no torch twin); the JSON lists them under ``skipped`` with
+the reason.
 
     PYTHONPATH=src python -m repro_torch.bench.cluster_scale --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.bench.cluster_scale --json   # the card
@@ -56,7 +60,7 @@ from ..core import Drift
 from ..core.bayes import fit_selected_family, score_families
 from ..core.distributions import lognormal_shape_np, resolve_family
 from ..device import resolve_device
-from ..kernels import ops, ref
+from ..kernels import autotune, ops, ref
 from ..sched import UncertaintyAwareBalancer
 from ..sim import ClusterSim
 from .common import RESULTS_DIR, emit, save_table, timeit_stats
@@ -81,9 +85,6 @@ SKIPPED = (
                "runs the CUDA kernel, the CPU its plain version"},
     {"name": "pgd_tick_fused_pallas_interpret",
      "reason": "the Pallas interpreter has no torch counterpart"},
-    {"name": "autotune_sweep_fused",
-     "reason": "the timed autotune.sweep is not ported; the port's launch "
-               "shapes come from the shape model in kernels/autotune.py"},
 )
 
 
@@ -340,9 +341,32 @@ def tick_auto_family_compare(entries, num_k=TICK_K, num_f=TICK_F,
     return rows, ratio, dist_id
 
 
-def run(smoke=False, ticks_only=False, device="cuda") -> dict:
+def tick_sweep(entries, num_k, num_f, num_t, device, cache_path=None,
+               repeats: int = 3) -> dict:
+    """The timed autotune sweep of the fused (grad) tick at (num_k, num_f,
+    num_t) on ``device`` (``kernels.autotune.sweep``): emits and records
+    the winner and returns its cache entry."""
+    impl = "cuda" if torch.device(device).type == "cuda" else "plain"
+    entry = autotune.sweep(num_f, num_k, num_t, mode="grad",
+                           dist_id="normal", repeats=repeats,
+                           cache_path=cache_path, device=device)
+    name = f"autotune_fused_{impl}_F{num_f}_K{num_k}_T{num_t}"
+    plan = (f"threads={entry['threads']};split={entry['value']}"
+            if impl == "cuda" else f"block_rows={entry['value']}")
+    emit(name, entry["us"], f"{plan};model={entry['model']}")
+    entries.append({"name": name, "impl": impl, "K": num_k, "F": num_f,
+                    "num_t": num_t, "family": "normal",
+                    "median_us": entry["us"], "p90_us": None,
+                    "repeats": repeats, "plan": entry["value"],
+                    "timings": entry["timings"], "model": entry["model"]})
+    return entry
+
+
+def run(smoke=False, ticks_only=False, device="cuda", sweep=True) -> dict:
     """The experiment on ``device``; asserts the policy checks and the
-    gradient parities, returns the results (``entries`` for the JSON)."""
+    gradient parities, returns the results (``entries`` for the JSON).
+    ``sweep`` runs the timed autotune sweep last, into
+    ``autotune.default_cache_path()``."""
     dev = resolve_device(device)
     out = {}
     if not ticks_only:
@@ -366,6 +390,8 @@ def run(smoke=False, ticks_only=False, device="cuda") -> dict:
                                             device=dev)
     auto_rows, auto_ratio, auto_family = tick_auto_family_compare(
         entries, num_k, num_f, num_t, device=dev)
+    if sweep:
+        tick_sweep(entries, num_k, num_f, num_t, dev)
     # smoke rows go to their own table
     save_table("cluster_tick_kernel_smoke.csv" if smoke
                else "cluster_tick_kernel.csv", "K,F,num_t,path,us_per_tick",

@@ -22,8 +22,14 @@ with 48 live and a quarter of the traffic.
     PYTHONPATH=src python -m repro_torch.bench.serve_trace --json   # the card
 
 ``--json`` writes ``experiments/torch/serve_trace.json`` (``_smoke`` for
-the smoke run), never a repository-root ``BENCH_*.json``. The JAX
-package's trace section (``REPRO_TRACE``) is not ported yet.
+the smoke run), never a repository-root ``BENCH_*.json``.
+
+A traced run (``REPRO_TRACE=1``, or ``obs.set_enabled(True)`` in-process)
+adds the trace section: the run's records, validated, are written to
+``experiments/torch/TRACE_serve_trace[_smoke].jsonl`` and
+``.perfetto.json``, and ``overhead_pct`` compares the engine's own stacked
+solve of the last tick's rows traced against untraced (the median of
+paired rounds); the JAX package bounds it below 5%.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 
 from ..core.distributions import Drift
 from ..device import resolve_device
+from ..obs import trace as obs
 from ..serve.engine import WorkflowEngine, launch_group
 from ..workflow import Stage, StageDAG, linear_edges
 from ..workflow.solve import stack_rows
@@ -53,6 +60,7 @@ P_ENTER_BURST = 0.05    # per-tick calm -> burst probability
 P_EXIT_BURST = 0.15     # per-tick burst -> calm probability
 BURST_LOAD = 1.6        # fleet-wide congestion factor while bursting
 RATIO_SAMPLES = 3       # ticks whose row set is re-timed batched vs looped
+OVERHEAD_ROUNDS = 15    # traced/untraced timing rounds of overhead_pct
 NUM_T = 128
 
 
@@ -126,11 +134,60 @@ def _measure_ratio(rows, kmax: int, num_t: int, device):
                    warmup=1))
 
 
+def _trace_overhead_pct(rows, kmax: int, num_t: int, device):
+    """``(overhead_pct, untraced_us, traced_us)`` of the engine's stacked
+    solve of ``rows`` (the work every tick pays). Each round times both
+    sides back to back, in alternating order, each the median of three
+    calls; the overhead is the median of the rounds' traced/untraced
+    ratios, so neither host noise nor a drift of the host's speed passes
+    for tracing cost. The two times are the medians of each side."""
+    was = obs.enabled()
+    times = {False: [], True: []}
+    try:
+        for r in range(OVERHEAD_ROUNDS):
+            for flag in ((False, True) if r % 2 == 0 else (True, False)):
+                obs.set_enabled(flag)
+                times[flag].append(timeit(_launch_rows, rows, kmax, num_t,
+                                          device, repeats=3, warmup=1))
+    finally:
+        obs.set_enabled(was)
+    ratio = float(np.median(np.asarray(times[True])
+                            / np.asarray(times[False])))
+    return (100.0 * (ratio - 1.0), float(np.median(times[False])),
+            float(np.median(times[True])))
+
+
+def _trace_section(eng, since: int, smoke: bool, out_dir: str,
+                   device) -> dict:
+    """The run's records (after ``since``) validated and written as JSONL
+    and Perfetto under ``out_dir``, with the overhead of tracing."""
+    from ..obs import export as obs_export
+    recs = obs.records(since)
+    obs_export.validate_records(recs)
+    suffix = "_smoke" if smoke else ""
+    os.makedirs(out_dir, exist_ok=True)
+    jsonl = os.path.join(out_dir, f"TRACE_serve_trace{suffix}.jsonl")
+    perfetto = os.path.join(out_dir,
+                            f"TRACE_serve_trace{suffix}.perfetto.json")
+    obs_export.write_jsonl(recs, jsonl)
+    obs_export.write_perfetto(recs, perfetto)
+    pct, off_us, on_us = _trace_overhead_pct(eng.last_rows, eng.kmax,
+                                             NUM_T, device)
+    return {"records": len(recs), "dropped": obs.dropped(),
+            "span_kinds": sorted(obs_export.span_kinds(recs)),
+            "event_types": sorted(obs_export.event_types(recs)),
+            "overhead_pct": float(round(pct, 3)), "solve_us": off_us,
+            "solve_us_traced": on_us, "rows": len(eng.last_rows),
+            "jsonl": jsonl, "perfetto": perfetto}
+
+
 def run(ticks: int = TICKS, seed: int = 0, smoke: bool = False,
-        device="cuda", on_tick=None) -> dict:
+        device="cuda", on_tick=None, out_dir: str = RESULTS_DIR) -> dict:
     """The trace; ``on_tick(engine, t, out)``, when given, is called after
-    every tick (before any ratio sample is timed)."""
+    every tick (before any ratio sample is timed). A traced run writes its
+    trace files under ``out_dir``."""
     dev = resolve_device(device)
+    since = obs.mark()
     tpls = templates()
     max_live = SMOKE_MAX_LIVE if smoke else MAX_LIVE
     prefill = SMOKE_PREFILL if smoke else PREFILL
@@ -213,7 +270,7 @@ def run(ticks: int = TICKS, seed: int = 0, smoke: bool = False,
     reg = {name: {"ticks": int(sum(1 for r in trace_rows if r[1] == name)),
                   "latency_mean": (float(np.mean(js)) if js else None)}
            for name, js in reg_joins.items()}
-    return {
+    out = {
         "bench": "serve_trace",
         "smoke": smoke,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -253,6 +310,9 @@ def run(ticks: int = TICKS, seed: int = 0, smoke: bool = False,
             for n, d in tpls.items()
         ],
     }
+    if obs.enabled():
+        out["trace"] = _trace_section(eng, since, smoke, out_dir, dev)
+    return out
 
 
 def main(argv=None):

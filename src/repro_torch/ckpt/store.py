@@ -25,8 +25,10 @@ Kill/restore tick parity: a replica killed after its step-t checkpoint and
 restored from it makes a bitwise-identical step t+1 (the same splits,
 family selection and posterior update), because every input of the next
 tick is in the manifest or is deterministic code. ``sim/chaos.py`` holds
-it continuously. The JAX package's audit events of a save and a restore are
-not ported yet.
+it continuously. A pipeline save and a restore are ``audit.ckpt_save`` and
+``audit.ckpt_restore`` events (``obs``); no trace state goes into any
+manifest, so a restored replica starts a fresh trace whose first record is
+its restore.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..obs import events as obs_events
 
 __all__ = ["save", "restore", "latest_step", "save_pipeline",
            "restore_pipeline", "CheckpointManager"]
@@ -229,8 +233,10 @@ def save_pipeline(directory: str, step: int, balancer, *,
     optionally an array ``tree`` beside it. Restore with
     :func:`restore_pipeline`."""
     manifest = _manifest(balancer, inflight, autotune)
-    return save(directory, step, tree if tree is not None else {},
+    path = save(directory, step, tree if tree is not None else {},
                 meta={**(meta or {}), "pipeline": manifest})
+    obs_events.ckpt_save(step, manifest["kind"], path)
+    return path
 
 
 def restore_pipeline(directory: str, *, dag=None, template=None,
@@ -273,6 +279,8 @@ def restore_pipeline(directory: str, *, dag=None, template=None,
     if autotune and manifest.get("autotune"):
         from ..kernels import autotune as _autotune  # lazy: layering
         _autotune.load_cache_state(manifest["autotune"])
+    obs_events.ckpt_restore(int(meta.get("step", -1)), manifest["kind"],
+                             directory)
     if template is not None:
         meta = dict(meta)
         meta["tree"] = tree

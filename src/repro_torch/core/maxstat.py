@@ -9,6 +9,9 @@ with ``F(t) = prod_i CDF_i(t)``. :func:`max_moments_quad` /
 :func:`clark_max_moments_2` is Clark's closed form for two Gaussians,
 :func:`clark_max_moments_seq` folds it over K channels (a Python loop over
 channels), and :func:`max_moments_mc` samples with an explicit generator.
+Under ``REPRO_SANITIZE=1`` the quadrature and the fold check their inputs
+(finite, stds nonnegative) and the quadrature its grid
+(``analysis/sanitize.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis import sanitize as _san
 from ..device import resolve_device
 from . import distributions as dists
 from .distributions import Phi, phi, safe_cdf
@@ -61,7 +65,9 @@ def max_moments_quad(means, stds, num: int = 2048, device="cuda"
     dev = resolve_device(device)
     means = _f32(means, dev)
     stds = _f32(stds, dev)
+    _san.check_fold_inputs(means, stds)
     ts = time_grid(means, stds, num=num)
+    _san.assert_monotone_grid("max_moments_quad", ts)
     surv = 1.0 - joint_cdf(ts, means, stds, device=dev)
     mu = torch.trapezoid(surv, ts)
     m2 = 2.0 * torch.trapezoid(ts * surv, ts)
@@ -77,9 +83,11 @@ def max_moments_quad_w(w, mus, sigmas, num: int = 2048, family="normal",
     mus = _f32(mus, dev)
     sigmas = _f32(sigmas, dev)
     extra = _f32(extra, dev)
+    _san.check_fold_inputs(mus, sigmas)
     m_eff, s_eff = dists.family_effective_moments(dist_id, w, mus, sigmas,
                                                   extra)
     ts = time_grid(m_eff, s_eff, num=num)
+    _san.assert_monotone_grid("max_moments_quad_w", ts)
     cdf = dists.family_cdf(dist_id, ts[:, None], w, mus, sigmas, extra)
     surv = 1.0 - torch.prod(cdf, dim=-1)
     mu = torch.trapezoid(surv, ts)
@@ -111,6 +119,7 @@ def clark_max_moments_seq(means, stds, device="cuda"):
     dev = resolve_device(device)
     means = _f32(means, dev)
     stds = _f32(stds, dev)
+    _san.check_fold_inputs(means, stds)
     m, v = means[0], stds[0] ** 2
     for i in range(1, means.shape[0]):
         m, v = clark_max_moments_2(m, torch.sqrt(v), means[i], stds[i],

@@ -6,6 +6,11 @@
   ``mu(w) + lam var(w)``; every step is one fused moments-and-gradient
   launch (``ops.frontier_moments_with_grads``) over all starts at once.
 * Baselines: :func:`equal_split` and :func:`inverse_mu_split`.
+
+Under ``REPRO_SANITIZE=1`` a solve checks its inputs once before the PGD
+loop and the loop's gradients and iterates on the device at every step,
+read once after the loop (``analysis/sanitize.py``): two host reads a
+solve, none a step.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import sanitize as _san
 from ..device import resolve_device
 from ..kernels import ops
 from .distributions import remaining_work_stats, resolve_family
@@ -96,37 +102,48 @@ def _project_simplex(v: torch.Tensor) -> torch.Tensor:
     step, and on the card the host's launch path sets a step's pace): the
     running terms q_j = (cumsum_j - 1) / j are formed once, u > q stands for
     u - q > 0 (a float difference is zero only for equal operands) and theta
-    is gathered from q."""
+    is gathered from q. Rank 0 always qualifies for a finite row, so ranks
+    that do not are filled with 0: a row holding a NaN (all ranks fail)
+    then projects to NaN, which the sanitizer's in-loop check reports,
+    instead of gathering at -1 (a device-side assert on the card)."""
     k = v.shape[-1]
     u = torch.sort(v, dim=-1, descending=True).values
     idx, pos = _ranks(k, v.dtype, v.device)
     q = torch.cumsum(u, dim=-1).sub_(1.0).div_(idx)
     cond = u > q
-    rho = torch.amax(torch.where(cond, pos.expand_as(cond), -1), dim=-1,
+    rho = torch.amax(torch.where(cond, pos.expand_as(cond), 0), dim=-1,
                      keepdim=True)
     theta = torch.gather(q, -1, rho)
     return (v - theta).clamp_min_(0.0)
 
 
 def _pgd_multi(W0, mus, sigmas, extra, lam: float, steps: int, num_t: int,
-               lr: float = 0.05, dist_id: str = "normal", device="cuda"):
+               lr: float = 0.05, dist_id: str = "normal", device="cuda",
+               checks: Optional[_san.LoopChecks] = None):
     """All starts as one batched PGD: each step is one fused
     moments-and-gradient launch over the (S, K) iterate stack, the gradient
-    row-normalized, a cosine step size, a simplex projection."""
+    row-normalized, a cosine step size, a simplex projection. The caller
+    checked the inputs; ``checks`` (the sanitizer's) records the
+    gradient's finiteness and the iterate's simplex invariant at every
+    step, on the device."""
     lam32 = float(np.float32(lam))
     W = W0
     for i in range(steps):
         _, _, dmu, dvar = ops.frontier_moments_with_grads(
             W, mus, sigmas, num_t=num_t, device=device,
-            family=(dist_id, extra))
+            family=(dist_id, extra), _check=False)
         # in place on the step's own outputs: the same operations, fewer
         # allocations on the host's path
         g = dmu.add_(dvar.mul_(lam32))
+        if checks is not None:
+            checks.check_finite(g, "PGD gradient", i)
         g = g.div_(torch.linalg.norm(g, dim=-1, keepdim=True).add_(1e-12))
         ang = np.float32(math.pi) * np.float32(i) / np.float32(steps)
         step = np.float32(lr) * np.float32(0.5) * (np.float32(1.0)
                                                     + np.cos(ang))
         W = _project_simplex(W - g.mul_(float(step)))
+        if checks is not None:
+            checks.check_weight_rows(W, "PGD iterate", i)
     return W
 
 
@@ -188,11 +205,20 @@ def optimize_weights(mus, sigmas, lam: float = 0.0, steps: int = 200,
                           device=dev)
         starts += list(rs)
     W0 = torch.stack(starts)
+    checks = None
+    if _san.enabled():
+        # the sanitizer: the inputs once here, the loop's steps on the
+        # device, read once after it
+        _san.check_frontier_inputs(W0, mus, sigmas, extra, dist_id=dist_id)
+        checks = _san.LoopChecks(dev)
     Wf = _pgd_multi(W0, mus, sigmas, extra, lam, steps=steps, num_t=num_t,
-                    dist_id=dist_id, device=dev)
+                    dist_id=dist_id, device=dev, checks=checks)
+    if checks is not None:
+        checks.raise_first()
     et = eval_num_t if eval_num_t is not None else max(num_t, 2048)
     mu_c, var_c = ops.frontier_moments(Wf, mus, sigmas, num_t=et,
-                                       device=dev, family=(dist_id, extra))
+                                       device=dev, family=(dist_id, extra),
+                                       _check=False)
     mu_c, var_c = mu_c.cpu().numpy(), var_c.cpu().numpy()
     score = mu_c + lam * var_c
     method = "pgd-simplex"

@@ -38,25 +38,44 @@ lognormal, drift and defective families keep 5 floats of per-channel
 constants, the empirical mixture 17; the fused adjoint keeps 2 to 6
 accumulators per channel (drift 4 in grad mode, defective 6 in pgrad mode).
 
-The in-process cache is filled by the model and keyed on what the model
-reads; :func:`cache_state` snapshots it, splits included, so a restored
-process launches the same shapes (the launch shape fixes the float
-reduction order). A timed sweep, and a cache file for its results, are
-later work.
+A launch shape is found in order: the in-process cache (or a restored
+snapshot), then the cache file (:func:`default_cache_path`, or the
+``cache_path`` a caller names), then the model. :func:`lookup` never
+times anything. :func:`sweep` times the real kernels at one shape (on the
+card the model's threads and split and their neighbours, on the CPU the
+plain path's rows per chunk), holds every candidate against the plain
+version first, and writes the winner to the in-process cache and the
+file; a sweep entry outranks a model entry wherever the two meet. The
+file keeps one section per card (``torch.cuda.get_device_name()``, or
+``"cpu"`` for the plain path), so a time taken on one card never sizes a
+launch on another. :func:`cache_state` snapshots the in-process cache,
+splits included, so a restored process launches the same shapes: a split
+fixes the order of the float sums, so a swept split gives other bits than
+the model's, within the kernels' tolerances.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+import json
+import os
+import threading
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
-from ..core.distributions import EMP_COMPONENTS, extra_rows, family_features
+import numpy as np
+import torch
+
+from ..core.distributions import (EMP_COMPONENTS, Defective, Drift,
+                                  Empirical, extra_rows, family_features)
 
 __all__ = ["ROW_BUCKETS", "MODES", "MAX_THREADS", "MAX_NUM_T",
            "SMEM_LIMIT_BYTES", "TARGET_BLOCKS", "GradSplit", "bucket_rows",
            "accumulators", "smem_bytes", "pick_threads", "pick_split",
            "split_blocks", "fwd_scratch_elems", "grad_scratch_elems",
            "pick_block_rows", "check_launch", "lookup", "lookup_split",
-           "launch_plan", "SsdSplit", "ssd_groups", "SSD_MIN_BLOCKS",
-           "clear_cache", "cache_state", "load_cache_state"]
+           "launch_plan", "plan_outcome", "last_outcome", "sweep",
+           "sweep_candidates", "default_cache_path", "SsdSplit",
+           "ssd_groups", "SSD_MIN_BLOCKS", "clear_cache", "cache_state",
+           "load_cache_state"]
 
 # serving row-count buckets: a stacked launch pads its row axis up to one
 ROW_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024, 2048,
@@ -96,8 +115,24 @@ PLAIN_CHUNK_BYTES = 1 << 30
 _KEY_VERSION = "v4"
 _CACHE: Dict[str, dict] = {}
 # checked launch plans (launch_plan), derived from _CACHE and dropped
-# whenever it is cleared or restored
+# whenever it is cleared or restored; beside each, how it was resolved
 _PLANS: Dict[tuple, tuple] = {}
+_PLAN_SOURCE: Dict[tuple, str] = {}
+# (cache file, section) pairs already read into _CACHE
+_JSON_LOADED: set = set()
+# the card's name, the cache file's section for the cuda backend
+_CARD: Dict[str, Optional[str]] = {}
+# how this thread's latest lookup resolved (last_outcome)
+_LOCAL = threading.local()
+
+_DEFAULT_CACHE_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "experiments", "torch",
+    "autotune_cache.json")
+
+# the kernels' tolerances against their plain versions (chip_smoke.py):
+# mu (rtol, atol), var (rtol, atol), each adjoint's relative L2
+SWEEP_TOL = {"mu": (1e-4, 1e-4), "var": (1e-2, 1e-3), "adj": 1e-4}
 
 
 def _check_mode(mode: str) -> None:
@@ -309,71 +344,384 @@ def pick_block_rows(F: int, K: int, num_t: int, mode: str,
     return max(1, min(F, PLAIN_CHUNK_BYTES // max(per_row, 1)))
 
 
+def default_cache_path() -> str:
+    """The cache file: ``experiments/torch/autotune_cache.json`` in the
+    checkout (ignored by git: its times belong to one machine)."""
+    return _DEFAULT_CACHE_PATH
+
+
+def _section(backend: str) -> Optional[str]:
+    """The cache file's section for ``backend``: the card's name (None
+    without a card), or ``"cpu"`` for the plain path."""
+    if backend == "plain":
+        return "cpu"
+    if "name" not in _CARD:
+        _CARD["name"] = (torch.cuda.get_device_name()
+                         if torch.cuda.is_available() else None)
+    return _CARD["name"]
+
+
+def _merge(k: str, v: dict) -> bool:
+    """Put entry ``v`` under ``k`` unless a sweep entry holds it already;
+    True when it went in."""
+    held = _CACHE.get(k)
+    if held is not None and held.get("source") == "sweep":
+        return False
+    _CACHE[k] = dict(v)
+    return True
+
+
+def _load_json(cache_path: Optional[str], backend: str) -> None:
+    """Read the file's section for ``backend`` into the cache, once per
+    (file, section)."""
+    path = cache_path or _DEFAULT_CACHE_PATH
+    section = _section(backend)
+    if section is None or (path, section) in _JSON_LOADED:
+        return
+    _JSON_LOADED.add((path, section))
+    try:
+        with open(path) as fh:
+            disk = json.load(fh)
+    except (OSError, ValueError):
+        return
+    if any([_merge(k, v) for k, v in disk.get(section, {}).items()]):
+        _PLANS.clear()
+        _PLAN_SOURCE.clear()
+
+
+def last_outcome() -> str:
+    """How this thread's latest :func:`lookup`, :func:`lookup_split` or
+    :func:`plan_outcome` resolved: ``"sweep"`` (a timed sweep's entry),
+    ``"hit"`` (a cached model entry) or ``"model"`` (the model, just
+    now); ``"none"`` before any."""
+    return getattr(_LOCAL, "outcome", "none")
+
+
+def _resolved(entry: dict) -> None:
+    _LOCAL.outcome = "sweep" if entry.get("source") == "sweep" else "hit"
+
+
 def lookup(F: int, K: int, num_t: int, backend: str = "cuda",
-           mode: str = "fwd", dist_id: str = "normal") -> int:
+           mode: str = "fwd", dist_id: str = "normal",
+           cache_path: Optional[str] = None) -> int:
     """Threads per block (``cuda``) or rows per chunk (``plain``) for a
-    launch: the in-process cache (or a restored snapshot), else the
-    model."""
+    launch: the in-process cache, else the cache file, else the model."""
     _check_mode(mode)
     if backend not in ("cuda", "plain"):
         raise ValueError(f"backend must be 'cuda' or 'plain', got {backend!r}")
+    _load_json(cache_path, backend)
     key = _key(F, K, num_t, backend, mode, dist_id)
     hit = _CACHE.get(key)
     if hit is not None:
+        _resolved(hit)
         return int(hit["value"])
     if backend == "cuda":
         value = pick_threads(num_t, mode, dist_id)
     else:
         value = pick_block_rows(F, K, num_t, mode, dist_id)
     _CACHE[key] = {"value": value, "source": "model"}
+    _LOCAL.outcome = "model"
     return value
 
 
-def lookup_split(F: int, K: int, num_t: int, mode: str = "grad",
-                 dist_id: str = "normal") -> GradSplit:
-    """The split of a launch: the in-process cache (or a restored
-    snapshot), else :func:`pick_split`."""
+def _split_entry(F: int, K: int, num_t: int, mode: str, dist_id: str,
+                 cache_path: Optional[str] = None) -> dict:
+    """The cache entry of a launch's split (a sweep's also names its
+    pass-1 threads): the in-process cache, else the file, else the
+    model."""
+    _load_json(cache_path, "cuda")
     key = _key(F, K, num_t, "split", mode, dist_id)
     hit = _CACHE.get(key)
     if hit is not None:
-        return GradSplit(*hit["value"])
-    split = pick_split(F, K, num_t, mode, dist_id)
-    _CACHE[key] = {"value": list(split), "source": "model"}
-    return split
+        _resolved(hit)
+        return hit
+    hit = _CACHE[key] = {"value": list(pick_split(F, K, num_t, mode,
+                                                  dist_id)),
+                         "source": "model"}
+    _LOCAL.outcome = "model"
+    return hit
+
+
+def lookup_split(F: int, K: int, num_t: int, mode: str = "grad",
+                 dist_id: str = "normal",
+                 cache_path: Optional[str] = None) -> GradSplit:
+    """The split of a launch: the in-process cache, else the cache file,
+    else :func:`pick_split`."""
+    return GradSplit(*_split_entry(F, K, num_t, mode, dist_id,
+                                   cache_path)["value"])
 
 
 def launch_plan(F: int, K: int, num_t: int, mode: str,
                 dist_id: str) -> Tuple[int, GradSplit, int]:
     """``(threads, split, scratch accumulators)`` of one split call from
-    :func:`lookup` and :func:`lookup_split`, held to the card's limits by
-    :func:`check_launch`; kept until the cache is cleared or restored, so a
-    PGD step pays a dictionary lookup for it."""
+    the split's entry (a sweep's carries its threads) and :func:`lookup`,
+    held to the card's limits by :func:`check_launch`; kept until the
+    cache is cleared or restored, so a PGD step pays a dictionary lookup
+    for it."""
     key = (F, K, num_t, mode, dist_id)
     plan = _PLANS.get(key)
     if plan is None:
-        threads = lookup(F, K, num_t, mode=mode, dist_id=dist_id)
-        split = lookup_split(F, K, num_t, mode=mode, dist_id=dist_id)
+        entry = _split_entry(F, K, num_t, mode, dist_id)
+        source = last_outcome()
+        split = GradSplit(*entry["value"])
+        threads = entry.get("threads")
+        if threads is None:
+            threads = lookup(F, K, num_t, mode=mode, dist_id=dist_id)
+            if last_outcome() == "model" and source != "sweep":
+                source = "model"
         check_launch(threads, num_t, mode, dist_id, split)
         n = (fwd_scratch_elems(F, num_t, split) if mode == "fwd" else
              grad_scratch_elems(F, K, num_t, dist_id, mode == "pgrad",
                                 split))
-        plan = _PLANS[key] = (threads, split, n)
+        plan = _PLANS[key] = (int(threads), split, n)
+        _PLAN_SOURCE[key] = source
     return plan
 
 
+def plan_outcome(F: int, K: int, num_t: int, mode: str,
+                 dist_id: str) -> Tuple[int, GradSplit, str]:
+    """``(threads, split, outcome)`` of a call's launch plan, for its
+    trace span: ``"sweep"`` for a swept plan, ``"model"`` when the model
+    made it just now, else ``"hit"``."""
+    key = (F, K, num_t, mode, dist_id)
+    fresh = key not in _PLANS
+    threads, split, _ = launch_plan(F, K, num_t, mode, dist_id)
+    source = _PLAN_SOURCE[key]
+    _LOCAL.outcome = source if fresh or source == "sweep" else "hit"
+    return threads, split, _LOCAL.outcome
+
+
+# ----------------------------------------------------------------- sweep
+def _sweep_inputs(F: int, K: int, seed: int, dist_id: str):
+    """The JAX package's sweep inputs: exponential rows normalized, mus
+    U(10, 40), sigmas mus U(0.02, 0.3), the family's parameters drawn
+    after them."""
+    rng = np.random.default_rng(seed)
+    e = rng.exponential(size=(F, K))
+    W = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    mus = rng.uniform(10, 40, K).astype(np.float32)
+    sgs = (mus * rng.uniform(0.02, 0.3, K)).astype(np.float32)
+    if dist_id == "drift":
+        family = Drift(rng.uniform(0.0, 0.5, K).astype(np.float32))
+    elif dist_id == "empirical":
+        family = Empirical.from_samples(
+            rng.normal(mus[None, :], sgs[None, :], size=(256, K)))
+    elif dist_id == "defective":
+        family = Defective(rng.uniform(0.0, 0.3, K).astype(np.float32))
+    else:
+        family = dist_id
+    return W, mus, sgs, family
+
+
+def sweep_candidates(F: int, K: int, num_t: int, mode: str, dist_id: str,
+                     backend: str = "cuda") -> List[tuple]:
+    """The model's launch shape and its neighbours, the model's first.
+
+    ``cuda``: ``(threads, split)`` pairs varying one field at a time:
+    each of the split's fields (``points`` alone for ``fwd``) halved and
+    doubled, and threads 128, 256 or 512; only shapes that
+    :func:`check_launch` accepts. ``plain``: ``(rows,)``, the model's rows
+    per chunk halved and doubled within [1, F]."""
+    if backend == "plain":
+        r = pick_block_rows(F, K, num_t, mode, dist_id)
+        out = [(r,)] + [(v,) for v in (max(1, r // 2), min(F, 2 * r))]
+    else:
+        th = pick_threads(num_t, mode, dist_id)
+        s0 = pick_split(F, K, num_t, mode, dist_id)
+        fields = ("points",) if mode == "fwd" else GradSplit._fields
+        out = [(th, s0)]
+        for f in fields:
+            for v in (getattr(s0, f) // 2, getattr(s0, f) * 2):
+                out.append((th, s0._replace(**{f: v})))
+        out += [(t, s0) for t in (128, 256, 512) if t != th]
+
+        def ok(c):
+            try:
+                check_launch(c[0], num_t, mode, dist_id, c[1])
+            except ValueError:
+                return False
+            return True
+        out = [c for c in out if ok(c)]
+    seen, uniq = set(), []
+    for c in out:
+        if c not in seen:
+            seen.add(c)
+            uniq.append(c)
+    return uniq
+
+
+def _label(c: tuple) -> str:
+    if len(c) == 1:
+        return str(c[0])
+    return f"{c[0]}/" + ",".join(str(v) for v in c[1])
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    den = float(torch.linalg.norm(b.double()))
+    num = float(torch.linalg.norm((a - b).double()))
+    return num / den if den > 0 else num
+
+
+def _agrees(got, want) -> Tuple[bool, str]:
+    """Kernel against plain at SWEEP_TOL; (ok, what missed)."""
+    (mr, ma), (vr, va) = SWEEP_TOL["mu"], SWEEP_TOL["var"]
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        return False, "non-finite output"
+    if not torch.allclose(got[0], want[0], rtol=mr, atol=ma):
+        return False, f"mu max |err| {float((got[0] - want[0]).abs().max())}"
+    if not torch.allclose(got[1], want[1], rtol=vr, atol=va):
+        return False, f"var max |err| {float((got[1] - want[1]).abs().max())}"
+    rel = [_rel_l2(g, w) for g, w in zip(got[2:], want[2:])]
+    if rel and max(rel) > SWEEP_TOL["adj"]:
+        return False, f"adjoint relative L2 {max(rel):.2e}"
+    return True, ""
+
+
+def _time_us(fn, on_card: bool, repeats: int, warm: int = 2) -> float:
+    """Median microseconds of one call of ``fn`` after ``warm`` calls:
+    CUDA event pairs on the card, the host clock on the CPU."""
+    for _ in range(warm):
+        fn()
+    samples = []
+    for _ in range(max(repeats, 1)):
+        if on_card:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            samples.append(1e3 * a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            samples.append(1e6 * (time.perf_counter() - t0))
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def sweep(F: int, K: int, num_t: int, mode: str = "grad",
+          dist_id: str = "normal", repeats: int = 5, seed: int = 0,
+          candidates: Optional[Sequence[tuple]] = None,
+          cache_path: Optional[str] = None, device="cuda") -> dict:
+    """Time the frontier call at (F, K, num_t, mode, family) across launch
+    shapes; cache and file the fastest.
+
+    ``device="cuda"`` times the kernels at each of ``candidates``
+    (default :func:`sweep_candidates`: ``(threads, split)`` pairs) by CUDA
+    event pairs; ``device="cpu"`` times the plain path at each rows per
+    chunk (``(rows,)``) on the host clock. Each candidate runs twice (the
+    bits must repeat) and is held against the plain version at SWEEP_TOL
+    before its time counts; one that misses raises (a kernel fault, never
+    skipped). The winner's entry ``{"value", "source": "sweep", "us",
+    "timings", "model"}`` (``value`` the split, ``threads`` beside it, or
+    the rows) goes into the in-process cache and the file's section for
+    this card, and is returned; the launch plans the sweep touched are
+    dropped. The calls go through ``ops`` (counted in
+    ``frontier_grid.LAUNCHES`` on the card) with the inputs of
+    :func:`_sweep_inputs`."""
+    from . import ops  # lazy: ops imports this module
+
+    _check_mode(mode)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    backend = "cuda" if on_card else "plain"
+    Wn, mus_n, sgs_n, family = _sweep_inputs(F, K, seed, dist_id)
+    W, mus, sgs = (torch.tensor(a, device=dev) for a in (Wn, mus_n, sgs_n))
+    fam_id, extra = ops._resolve_family(family, K, dev)
+    cands = list(candidates if candidates is not None else
+                 sweep_candidates(F, K, num_t, mode, dist_id, backend))
+    split_key = _key(F, K, num_t, "split", mode, dist_id)
+    rows_key = _key(F, K, num_t, "plain", mode, dist_id)
+    plan_key = (F, K, num_t, mode, dist_id)
+    held = {k: _CACHE.get(k) for k in (split_key, rows_key)}
+
+    def install(c):
+        _PLANS.pop(plan_key, None)
+        _PLAN_SOURCE.pop(plan_key, None)
+        if on_card:
+            _CACHE[split_key] = {"value": list(c[1]), "threads": int(c[0]),
+                                 "source": "candidate"}
+
+    def run(c):
+        rows = None if on_card else int(c[0])
+        if mode == "fwd":
+            return ops.frontier_moments(W, mus, sgs, num_t=num_t, device=dev,
+                                        block_rows=rows, family=family,
+                                        _check=False)
+        return ops.frontier_moments_with_grads(
+            W, mus, sgs, num_t=num_t, device=dev, block_rows=rows,
+            family=family, param_grads=(mode == "pgrad"), _check=False)
+
+    want = ops.plain_moments(W, mus, sgs, extra, num_t=num_t,
+                             dist_id=fam_id, mode=mode)
+    timings = {}
+    try:
+        for c in cands:
+            install(c)
+            got, again = run(c), run(c)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(
+                    f"sweep candidate {_label(c)} at F={F} K={K} "
+                    f"T={num_t} {mode} {dist_id}: the bits did not repeat")
+            ok, why = _agrees(got, want)
+            if not ok:
+                raise RuntimeError(
+                    f"sweep candidate {_label(c)} at F={F} K={K} "
+                    f"T={num_t} {mode} {dist_id} misses its plain "
+                    f"version: {why}")
+            timings[_label(c)] = _time_us(lambda c=c: run(c), on_card,
+                                          repeats)
+    finally:
+        for k, v in held.items():
+            if v is None:
+                _CACHE.pop(k, None)
+            else:
+                _CACHE[k] = v
+        _PLANS.pop(plan_key, None)
+        _PLAN_SOURCE.pop(plan_key, None)
+    best = min(cands, key=lambda c: timings[_label(c)])
+    entry = {"value": list(best[1]) if on_card else int(best[0]),
+             "source": "sweep", "us": float(timings[_label(best)]),
+             "timings": timings, "model": _label(cands[0])}
+    if on_card:
+        entry["threads"] = int(best[0])
+    key = split_key if on_card else rows_key
+    _CACHE[key] = dict(entry)
+    path = cache_path or _DEFAULT_CACHE_PATH
+    section = _section(backend)
+    disk = {}
+    try:
+        with open(path) as fh:
+            disk = json.load(fh)
+    except (OSError, ValueError):
+        pass
+    disk.setdefault(section, {})[key] = entry
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(disk, fh, indent=1, sort_keys=True)
+    return entry
+
+
 def clear_cache() -> None:
-    """Drop the in-process cache."""
+    """Drop the in-process cache (the file is read again at the next
+    lookup)."""
     _CACHE.clear()
     _PLANS.clear()
+    _PLAN_SOURCE.clear()
+    _JSON_LOADED.clear()
 
 
 def cache_state() -> dict:
-    """Snapshot of the in-process cache, for a checkpoint."""
+    """Snapshot of the in-process cache, sweep entries included, for a
+    checkpoint."""
     return {k: dict(v) for k, v in _CACHE.items()}
 
 
 def load_cache_state(state: dict) -> None:
-    """Restore a :func:`cache_state` snapshot."""
+    """Restore a :func:`cache_state` snapshot; a sweep entry held in this
+    process outranks the snapshot's model entry."""
     for k, v in state.items():
-        _CACHE[k] = dict(v)
+        _merge(k, v)
     _PLANS.clear()
+    _PLAN_SOURCE.clear()

@@ -28,6 +28,15 @@ get per-row cotangents; shared ones are summed over rows. Only ``extra``
 row 0 (drift's rho, the defective family's p) gets a cotangent: the
 empirical mixture's parameters and the defective pricing lam are solve
 constants whose cotangent is zero by contract.
+
+Both frontier entry points run the sanitizer's boundary check of their
+inputs under ``REPRO_SANITIZE=1`` (``analysis/sanitize.py``; a PGD loop
+checks its inputs once before its first step and passes ``_check=False``
+on every step) and, when tracing is on, record one ``kernel.launch`` span
+(``obs``) per call with the JAX package's attributes; the launch plan
+(``threads`` and ``split`` on the card, ``block_rows`` on the plain path)
+stands where that package records its ``block_f``. The span times the
+host's launch path; it never waits for the card.
 """
 from __future__ import annotations
 
@@ -35,8 +44,11 @@ from typing import Optional
 
 import torch
 
+from ..analysis import sanitize as _san
 from ..core.distributions import resolve_family
 from ..device import resolve_device
+from ..obs import names as _obs_names
+from ..obs import trace as _obs
 from . import autotune as _at
 from . import flash_attention as _fa
 from . import flash_decode as _fd
@@ -177,9 +189,33 @@ def _inputs(W, mus, sigmas, family, device):
     return W, mus, sigmas, dist_id, extra
 
 
+def _launch_span(mode: str, W, stacked: bool, num_t: int, dist_id: str,
+                 block_rows: Optional[int]):
+    """The ``kernel.launch`` span of one call (tracing on): the launch
+    plan and how ``kernels.autotune`` resolved it (``hit``, ``model``,
+    ``sweep``, or ``explicit`` for a caller's ``block_rows``)."""
+    F, K = W.shape
+    if W.is_cuda:
+        threads, split, outcome = _at.plan_outcome(F, K, num_t, mode,
+                                                   dist_id)
+        plan = {"threads": threads, "split": list(split)}
+    else:
+        if block_rows is None:
+            block_rows = _at.lookup(F, K, num_t, backend="plain", mode=mode,
+                                    dist_id=dist_id)
+            outcome = _at.last_outcome()
+        else:
+            outcome = "explicit"
+        plan = {"block_rows": int(block_rows)}
+    return _obs.span(_obs_names.SPAN_KERNEL_LAUNCH, family=dist_id,
+                     mode=mode, F=int(F), K=int(K), num_t=int(num_t),
+                     impl="cuda" if W.is_cuda else "plain", stacked=stacked,
+                     autotune=outcome, **plan)
+
+
 def frontier_moments(W, mus, sigmas, *, num_t: int = 1024,
                      device="cuda", block_rows: Optional[int] = None,
-                     z: float = 10.0, family="normal"):
+                     z: float = 10.0, family="normal", _check: bool = True):
     """Batched (mu, var), each (F,), over candidate splits W (F, K).
 
     ``mus``/``sigmas`` (K,) shared or (F, K) per-row (then ``extra`` may be
@@ -188,6 +224,16 @@ def frontier_moments(W, mus, sigmas, *, num_t: int = 1024,
     of the plain (CPU) path; None asks ``kernels.autotune``.
     """
     W, mus, sigmas, dist_id, extra = _inputs(W, mus, sigmas, family, device)
+    if _check:
+        _san.check_frontier_inputs(W, mus, sigmas, extra, dist_id=dist_id)
+    if _obs.enabled():
+        # the forward runs the full-parameter kernel when a gradient is due
+        grads = torch.is_grad_enabled() and any(
+            x.requires_grad for x in (W, mus, sigmas, extra))
+        with _launch_span("pgrad" if grads else "fwd", W, mus.ndim == 2,
+                          num_t, dist_id, block_rows):
+            return _FrontierMoments.apply(W, mus, sigmas, extra, num_t, z,  # repro: allow[RPA002] autograd.Function.apply takes positional arguments only; dist_id is the seventh
+                                          dist_id, block_rows)
     return _FrontierMoments.apply(W, mus, sigmas, extra, num_t, z,  # repro: allow[RPA002] autograd.Function.apply takes positional arguments only; dist_id is the seventh
                                   dist_id, block_rows)
 
@@ -196,12 +242,22 @@ def frontier_moments_with_grads(W, mus, sigmas, *, num_t: int = 1024,
                                 device="cuda",
                                 block_rows: Optional[int] = None,
                                 z: float = 10.0, family="normal",
-                                param_grads: bool = False):
+                                param_grads: bool = False,
+                                _check: bool = True):
     """Fused ``(mu, var, dmu_dW, dvar_dW)`` in one launch; with
     ``param_grads=True`` the 10-tuple that adds ``(dmu_dmus, dvar_dmus,
     dmu_dsigmas, dvar_dsigmas, dmu_dex, dvar_dex)``, all (F, K)."""
     W, mus, sigmas, dist_id, extra = _inputs(W, mus, sigmas, family, device)
+    if _check:
+        _san.check_frontier_inputs(W, mus, sigmas, extra, dist_id=dist_id)
     with torch.no_grad():
+        if _obs.enabled():
+            with _launch_span("pgrad" if param_grads else "grad", W,
+                              mus.ndim == 2, num_t, dist_id, block_rows):
+                return _moments_grads(W, mus, sigmas, extra, num_t=num_t,
+                                      z=z, dist_id=dist_id,
+                                      block_rows=block_rows,
+                                      param_grads=param_grads)
         return _moments_grads(W, mus, sigmas, extra, num_t=num_t, z=z,
                               dist_id=dist_id, block_rows=block_rows,
                               param_grads=param_grads)

@@ -21,7 +21,9 @@ all their stage splits through one stacked call per family group on
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --batches 40 \
         --arrival-rate 8 --deadline 4.0
 
-The JAX package's ``--trace`` export is not ported yet.
+``--trace PREFIX`` records the run's trace (``obs``, as ``REPRO_TRACE=1``
+does) and writes ``PREFIX.jsonl`` and ``PREFIX.perfetto.json`` (load the
+latter in ui.perfetto.dev) after it, validated first.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..device import resolve_device
 from ..models import build_model
+from ..obs import trace as obs
 from ..serve import (PartitionedBatcher, ReplicaGroup, ServeEngine,
                      WorkflowEngine)
 from ..sim.cluster import Channel, ClusterSim
@@ -89,6 +92,25 @@ def _run_engine(args, dev) -> WorkflowEngine:
     return eng
 
 
+def _export_trace(prefix: str) -> None:
+    """Write the tracer's records as ``<prefix>.jsonl`` and
+    ``<prefix>.perfetto.json`` (a message instead when there are none)."""
+    from ..obs import export as obs_export
+    recs = obs.records()
+    if not recs:
+        print("trace: no records captured — run with REPRO_TRACE=1")
+        return
+    jsonl = f"{prefix}.jsonl"
+    perfetto = f"{prefix}.perfetto.json"
+    obs_export.validate_records(recs)
+    obs_export.write_jsonl(recs, jsonl)
+    obs_export.write_perfetto(recs, perfetto)
+    print(f"trace: {len(recs)} records "
+          f"({len(obs_export.span_kinds(recs))} span kinds, "
+          f"{len(obs_export.event_types(recs))} event types, "
+          f"{obs.dropped()} dropped) -> {jsonl}, {perfetto}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="smollm-360m")
@@ -126,8 +148,25 @@ def main(argv=None):
     ap.add_argument("--deadline", type=float, default=None,
                     help="engine mode: SLO deadline (sim seconds) attached "
                          "to every request")
+    ap.add_argument("--trace", default=None, metavar="PREFIX",
+                    help="record the run's trace and write it to "
+                         "PREFIX.jsonl and PREFIX.perfetto.json")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    was = obs.enabled()
+    if args.trace:
+        obs.set_enabled(True)
+    try:
+        out = _run(args, dev)
+    finally:
+        obs.set_enabled(was)
+    if args.trace:
+        _export_trace(args.trace)
+    return out
+
+
+def _run(args, dev):
+    """The run main() asked for: the engine, or the batcher."""
     if args.engine:
         return _run_engine(args, dev)
 

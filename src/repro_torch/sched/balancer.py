@@ -24,6 +24,11 @@ balancer restores the state and solves; the port's own restore ignores it.
 :class:`WorkflowBalancer` lifts the loop to a stage DAG: one estimation
 head per stage and joint re-solves through ``workflow.solve.solve_dag``.
 :class:`InstanceHeads` keeps the serving engine's per-instance heads.
+
+Tracing (``obs``): a refresh that re-solves is a ``sched.refresh`` span;
+a family switch, the workflow balancer's fragility gate, its dirty stages
+and the failures and recoveries it is told of are audit events. Every
+attribute is a number the balancer already holds on the host.
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ from ..core.distributions import (get_family, remaining_work_stats,
 from ..core.partitioner import (equal_split, inverse_mu_split, optimize_2ch,
                                 optimize_weights, predict_moments)
 from ..device import resolve_device
+from ..obs import events as obs_events
+from ..obs import names as obs_names
+from ..obs import trace as obs
 
 __all__ = ["integerize", "UncertaintyAwareBalancer", "WorkflowBalancer",
            "InstanceHeads"]
@@ -192,6 +200,8 @@ class UncertaintyAwareBalancer:
         else:
             self._challenger_count += 1
         if self._challenger_count >= max(self.hysteresis, 1):
+            obs_events.family_switch(current, scores.winner, scores.bics,
+                                     streak=self._challenger_count)
             self._selected_family = fit_selected_family(scores)
             self._challenger, self._challenger_count = None, 0
             self._cached_w = None
@@ -247,15 +257,17 @@ class UncertaintyAwareBalancer:
                 warm = (self._cached_w
                         if self._cached_w is not None
                         and len(self._cached_w) == k else None)
-                out = optimize_weights(
-                    mus, sigmas, lam=self.lam, steps=self.pgd_steps,
-                    restarts=restarts,
-                    num_t=self.num_t, warm_start=warm, family=fam,
-                    risk_lam=self.risk_lam,
-                    posterior=(self._nig if self.risk_lam > 0
-                               or self.adaptive_refresh else None),
-                    return_sensitivity=self.adaptive_refresh,
-                    device=self.device)
+                with obs.span(obs_names.SPAN_SCHED_REFRESH, kind="fleet",
+                              k=k, warm=warm is not None):
+                    out = optimize_weights(
+                        mus, sigmas, lam=self.lam, steps=self.pgd_steps,
+                        restarts=restarts,
+                        num_t=self.num_t, warm_start=warm, family=fam,
+                        risk_lam=self.risk_lam,
+                        posterior=(self._nig if self.risk_lam > 0
+                                   or self.adaptive_refresh else None),
+                        return_sensitivity=self.adaptive_refresh,
+                        device=self.device)
                 if self.adaptive_refresh:
                     dec, report = out
                     self._last_fragility = report.fragility
@@ -558,6 +570,7 @@ class WorkflowBalancer:
             raise KeyError(f"unknown stage {stage!r}")
         self._failed.setdefault(stage, set()).add(int(idx))
         self._cached = None
+        obs_events.churn("fail", idx, "balancer", detail=stage)
 
     def handle_recovery(self, stage: str, idx: int):
         """Re-admit a recovered channel (a no-op if it never failed)."""
@@ -567,6 +580,7 @@ class WorkflowBalancer:
             if not bad:
                 self._failed.pop(stage)
         self._cached = None
+        obs_events.churn("recover", idx, "balancer", detail=stage)
 
     def failed_channels(self) -> dict:
         """{stage: sorted failed channel indices}."""
@@ -615,7 +629,9 @@ class WorkflowBalancer:
             return None
         rel = self._last_rel_frag
         if rel is None or rel > self.refresh_target_rel:
+            obs_events.fragility_gate(False, rel, self.refresh_target_rel)
             return None
+        obs_events.fragility_gate(True, rel, self.refresh_target_rel)
         dirty = set()
         for s in live.stages:
             snap = self._solve_stats.get(s.name)
@@ -623,6 +639,7 @@ class WorkflowBalancer:
                 self._est[s.name].selected_family)
             if snap is None or self._solve_fams.get(s.name) != fkey:
                 dirty.add(s.name)
+                obs_events.dirty("workflow", s.name, "family")
                 continue
             mu0, sg0 = snap
             mu = np.asarray(s.mus, np.float64)
@@ -634,6 +651,7 @@ class WorkflowBalancer:
                              / np.maximum(np.abs(sg0), 1e-9))))
             if drift > self.dirty_tol:
                 dirty.add(s.name)
+                obs_events.dirty("workflow", s.name, "drift", drift)
         if len(dirty) == len(live.stages):
             return None      # everything moved: a plain full solve
         return dirty
@@ -681,10 +699,14 @@ class WorkflowBalancer:
                 if self.risk_lam > 0 or self.adaptive_refresh:
                     posteriors = {s.name: self._est[s.name]._nig
                                   for s in self.dag.stages}
-                dec = self._solve(live, restarts=self.restarts,
-                                  warm_start=self._cached,
-                                  risk_lam=self.risk_lam,
-                                  posteriors=posteriors, dirty=dirty)
+                with obs.span(obs_names.SPAN_SCHED_REFRESH, kind="workflow",
+                              stages=len(live.stages),
+                              dirty=(-1 if dirty is None else len(dirty)),
+                              warm=self._cached is not None):
+                    dec = self._solve(live, restarts=self.restarts,
+                                      warm_start=self._cached,
+                                      risk_lam=self.risk_lam,
+                                      posteriors=posteriors, dirty=dirty)
                 self._last_decision = dec
                 self._last_rel_frag = dec.relative_fragility
                 if (self.adaptive_refresh

@@ -16,9 +16,13 @@ tick (``workflow.solve.stack_rows`` groups them), so the solver's cost is
 paid per tick, not per workflow. A per-instance loop around that call is a
 lint error under ``serve/`` (RPA080). Its estimation heads live on the host
 (``sched.balancer.InstanceHeads``); the engine's ``device`` governs the
-stacked call alone. The JAX package's trace spans and audit events of the
-engine are not ported yet; the tick's returned dict and the telemetry are
-the reference's.
+stacked call alone. The tick's returned dict and the telemetry are the
+reference's, and so is its trace (``obs``): an ``engine.tick`` span with
+its ``live``, ``queue``, ``rows`` and ``launches``, the four
+``engine.stage`` spans (admission, stack_rows, launch, commit), a
+``solver.pgd`` span around each family group's call, and ``audit.dirty``
+(admit, drift, slo) and ``audit.slo_lam`` events, each from values the
+host holds.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import autotune, ops
+from ..obs import events as obs_events
+from ..obs import names as obs_names
+from ..obs import trace as obs
 from ..sched.balancer import (InstanceHeads, UncertaintyAwareBalancer,
                               integerize)
 from ..sim.cluster import ClusterSim, WorkflowSim
@@ -246,12 +253,14 @@ def stack_group(rows, group, mask, kmax: int):
 def launch_group(rows, group, mask, kmax: int, *, num_t, device="cuda",
                  lr: float = 0.02):
     """One family group through :func:`row_pgd_step` on the inputs of
-    :func:`stack_group`. Returns ``(mu, var, W_next, F)``: the group's
-    real rows and the padded row count."""
+    :func:`stack_group`, as one ``solver.pgd`` span. Returns ``(mu, var,
+    W_next, F)``: the group's real rows and the padded row count."""
     W, mus, sgs, ex, msk, lam = stack_group(rows, group, mask, kmax)
-    m, v, W2 = row_pgd_step(W, mus, sgs, group.dist_id, ex, lam, msk,
-                            num_t=num_t, device=device, lr=lr)
     n = len(group.idx)
+    with obs.span(obs_names.SPAN_SOLVER_PGD, family=group.dist_id, rows=n,
+                  F=int(W.shape[0]), K=int(kmax), num_t=int(num_t)):
+        m, v, W2 = row_pgd_step(W, mus, sgs, group.dist_id, ex, lam, msk,
+                                num_t=num_t, device=device, lr=lr)
     return m[:n], v[:n], W2[:n], W.shape[0]
 
 
@@ -423,6 +432,9 @@ class WorkflowEngine:
             for s in dag.stages:
                 inst.weights[s.name] = np.full(s.k, 1.0 / s.k)
             self._live[iid] = inst
+            # dirty-set membership is auditable from birth: admission is
+            # the first dirty interval (steps_left = settle_steps)
+            obs_events.dirty("engine", str(iid), "admit")
             self.telemetry.bump("admitted")
             self.telemetry.add("queue_wait_ticks",
                                self.tick_count - req["queued_tick"])
@@ -459,31 +471,40 @@ class WorkflowEngine:
         urgency = self._predicted_remaining(inst) / slack
         return self.lam_var + self.slo_gain * min(urgency, self.slo_lam_cap)
 
-    def _posterior_drift(self, inst: _Instance) -> float:
-        """The largest relative move of a remaining stage's posterior
-        estimates since the solve that priced it (0 with none priced)."""
+    def _stage_drifts(self, inst: _Instance):
+        """``(stage, drift)`` of each remaining priced stage, in template
+        order: the largest relative move of its posterior estimates since
+        the solve that priced it."""
         tpl = inst.template
-        worst = 0.0
         for name in self.templates[tpl].names:
             if name in inst.completions or name not in inst.stat_snap:
                 continue
             mus, sigmas = self.heads.estimates(inst.iid, f"{tpl}/{name}")
             mu0, sg0 = inst.stat_snap[name]
-            worst = max(worst,
-                        float(np.max(np.abs(mus - mu0) / np.abs(mu0))),
-                        float(np.max(np.abs(sigmas - sg0)
-                                     / np.maximum(np.abs(mu0), 1e-12))))
-        return worst
+            yield name, max(float(np.max(np.abs(mus - mu0) / np.abs(mu0))),
+                            float(np.max(np.abs(sigmas - sg0)
+                                         / np.maximum(np.abs(mu0), 1e-12))))
+
+    def _posterior_drift(self, inst: _Instance) -> float:
+        """The largest relative move of a remaining stage's posterior
+        estimates since the solve that priced it (0 with none priced)."""
+        return max((d for _, d in self._stage_drifts(inst)), default=0.0)
 
     def _maybe_redirty(self, inst: _Instance) -> None:
-        """Posterior or urgency drift check for a settled instance."""
-        if self._posterior_drift(inst) > self.dirty_tol:
-            inst.steps_left = self.settle_steps
-            return
+        """Posterior or urgency drift check for a settled instance; the
+        first stage past ``dirty_tol`` is the one audited."""
+        for name, drift in self._stage_drifts(inst):
+            if drift > self.dirty_tol:
+                inst.steps_left = self.settle_steps
+                obs_events.dirty("engine", f"{inst.iid}/{name}", "drift",
+                                 drift)
+                return
         lam_now = self._row_lam(inst)
         if abs(lam_now - inst.lam) > self.dirty_tol * max(abs(inst.lam),
                                                           1.0):
             inst.steps_left = self.settle_steps
+            obs_events.dirty("engine", str(inst.iid), "slo",
+                             abs(lam_now - inst.lam))
 
     def _gather_rows(self) -> List[_EngineRow]:
         rows: List[_EngineRow] = []
@@ -493,6 +514,9 @@ class WorkflowEngine:
             if inst.steps_left <= 0:
                 continue
             lam_i = self._row_lam(inst)
+            if obs.enabled() and lam_i > self.lam_var:
+                obs_events.slo_lam(inst.iid, lam_i, self.lam_var,
+                                   headroom=inst.deadline - inst.elapsed)
             tpl = inst.template
             for s in self.templates[tpl].stages:
                 if s.name in inst.completions:
@@ -582,29 +606,39 @@ class WorkflowEngine:
         submit before admission.
         """
         self.tick_count += 1
-        for sim in self.sims.values():
-            sim.tick()  # scheduled churn fires before this tick's draws
-        for a in arrivals:
-            if isinstance(a, (tuple, list)):
-                self.submit(a[0], a[1])
-            else:
-                self.submit(a)
-        admitted = self._admit()
-        rows = self._gather_rows()
-        launches = self._solve_tick(rows) if rows else 0
-        self.last_rows = rows
-        retired = self._execute()
-        self.telemetry.bump("ticks")
-        self.telemetry.add("live_instances", len(self._live))
-        self.last_tick = {
-            "tick": self.tick_count,
-            "admitted": admitted,
-            "retired": retired,
-            "live": len(self._live),
-            "queue": len(self._queue),
-            "rows": len(rows),
-            "launches": launches,
-        }
+        obs.set_tick(self.tick_count)
+        with obs.span(obs_names.SPAN_ENGINE_TICK) as sp_tick:
+            for sim in self.sims.values():
+                sim.tick()  # scheduled churn fires before this tick's draws
+            for a in arrivals:
+                if isinstance(a, (tuple, list)):
+                    self.submit(a[0], a[1])
+                else:
+                    self.submit(a)
+            with obs.span(obs_names.SPAN_ENGINE_STAGE, stage="admission"):
+                admitted = self._admit()
+            with obs.span(obs_names.SPAN_ENGINE_STAGE, stage="stack_rows"):
+                rows = self._gather_rows()
+            with obs.span(obs_names.SPAN_ENGINE_STAGE, stage="launch"):
+                launches = self._solve_tick(rows) if rows else 0
+            self.last_rows = rows
+            with obs.span(obs_names.SPAN_ENGINE_STAGE, stage="commit"):
+                retired = self._execute()
+            self.telemetry.bump("ticks")
+            self.telemetry.add("live_instances", len(self._live))
+            self.last_tick = {
+                "tick": self.tick_count,
+                "admitted": admitted,
+                "retired": retired,
+                "live": len(self._live),
+                "queue": len(self._queue),
+                "rows": len(rows),
+                "launches": launches,
+            }
+            if obs.enabled():
+                sp_tick.attrs.update(live=len(self._live),
+                                     queue=len(self._queue),
+                                     rows=len(rows), launches=launches)
         return self.last_tick
 
     # ------------------------------------------------------------ state

@@ -17,7 +17,8 @@ in one trace:
   (the card by default), so on the card the contract covers the kernels'
   launches too.
 
-The JAX package's trace spans around a kill are not ported yet.
+Each kill and restore is one ``chaos.cycle`` span (``obs``), and the
+restore's ``audit.ckpt_restore`` event lands inside it.
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..ckpt.store import restore_pipeline, save_pipeline
+from ..obs import names as obs_names
+from ..obs import trace as obs
 from ..sched.balancer import UncertaintyAwareBalancer, WorkflowBalancer
 from .cluster import ClusterSim, WorkflowSim
 
@@ -105,29 +108,34 @@ def run_chaos_trace(num_channels: int = 6, ticks: int = 24,
             save_pipeline(ckpt_dir, t, bal,
                           inflight={"sim": sim.state_dict(), "tick": t})
             if kill_every and t % kill_every == 0 and t < ticks:
-                if verify_parity:
-                    # the survivor's next decision, on an isolated clone so
-                    # the live balancer's caches stay untouched
-                    survivor = UncertaintyAwareBalancer.from_state_dict(
-                        bal.state_dict(), device=device)
-                    sim_sv = ClusterSim.from_state_dict(sim.state_dict())
-                    w_expect = _decide(survivor, sim_sv)
-                # the crash: drop the live objects, restore the manifest
-                bal2, inflight, _ = restore_pipeline(ckpt_dir, device=device)
-                sim2 = ClusterSim.from_state_dict(inflight["sim"])
-                if verify_parity:
-                    w_got = _decide(
-                        UncertaintyAwareBalancer.from_state_dict(
-                            bal2.state_dict(), device=device),
-                        ClusterSim.from_state_dict(sim2.state_dict()))
-                    if not np.array_equal(np.asarray(w_expect),
-                                          np.asarray(w_got)):
-                        raise AssertionError(
-                            f"kill/restore parity broken at tick {t}: "
-                            f"survivor {w_expect} vs replica {w_got}")
-                    parity += 1
-                bal, sim = bal2, sim2
-                kills += 1
+                with obs.span(obs_names.SPAN_CHAOS_CYCLE, step=t,
+                              kind="balancer", parity=verify_parity):
+                    if verify_parity:
+                        # the survivor's next decision, on an isolated
+                        # clone so the live balancer's caches stay
+                        # untouched
+                        survivor = UncertaintyAwareBalancer.from_state_dict(
+                            bal.state_dict(), device=device)
+                        sim_sv = ClusterSim.from_state_dict(
+                            sim.state_dict())
+                        w_expect = _decide(survivor, sim_sv)
+                    # the crash: drop the live objects, restore the manifest
+                    bal2, inflight, _ = restore_pipeline(ckpt_dir,
+                                                         device=device)
+                    sim2 = ClusterSim.from_state_dict(inflight["sim"])
+                    if verify_parity:
+                        w_got = _decide(
+                            UncertaintyAwareBalancer.from_state_dict(
+                                bal2.state_dict(), device=device),
+                            ClusterSim.from_state_dict(sim2.state_dict()))
+                        if not np.array_equal(np.asarray(w_expect),
+                                              np.asarray(w_got)):
+                            raise AssertionError(
+                                f"kill/restore parity broken at tick {t}: "
+                                f"survivor {w_expect} vs replica {w_got}")
+                        parity += 1
+                    bal, sim = bal2, sim2
+                    kills += 1
                 events.append((t, "kill_restore",
                                f"restored step {t} from {ckpt_dir}"))
     finally:
@@ -196,30 +204,34 @@ def run_workflow_chaos_trace(dag, ticks: int = 12, kill_every: int = 4,
             save_pipeline(ckpt_dir, t, bal,
                           inflight={"sim": sim.state_dict(), "tick": t})
             if kill_every and t % kill_every == 0 and t < ticks:
-                if verify_parity:
-                    survivor = WorkflowBalancer.from_state_dict(
-                        bal.state_dict(), dag, device=device)
-                    sim_sv = WorkflowSim.from_state_dict(sim.state_dict())
-                    w_expect = _decide_wf(survivor, sim_sv)
-                bal2, inflight, _ = restore_pipeline(ckpt_dir, dag=dag,
-                                                     device=device)
-                sim2 = WorkflowSim.from_state_dict(inflight["sim"])
-                if verify_parity:
-                    w_got = _decide_wf(
-                        WorkflowBalancer.from_state_dict(
-                            bal2.state_dict(), dag, device=device),
-                        WorkflowSim.from_state_dict(sim2.state_dict()))
-                    for name in dag.names:
-                        if not np.array_equal(np.asarray(w_expect[name]),
-                                              np.asarray(w_got[name])):
-                            raise AssertionError(
-                                f"workflow kill/restore parity broken at "
-                                f"tick {t}, stage {name!r}: survivor "
-                                f"{w_expect[name]} vs replica "
-                                f"{w_got[name]}")
-                    parity += 1
-                bal, sim = bal2, sim2
-                kills += 1
+                with obs.span(obs_names.SPAN_CHAOS_CYCLE, step=t,
+                              kind="workflow", parity=verify_parity):
+                    if verify_parity:
+                        survivor = WorkflowBalancer.from_state_dict(
+                            bal.state_dict(), dag, device=device)
+                        sim_sv = WorkflowSim.from_state_dict(
+                            sim.state_dict())
+                        w_expect = _decide_wf(survivor, sim_sv)
+                    bal2, inflight, _ = restore_pipeline(ckpt_dir, dag=dag,
+                                                         device=device)
+                    sim2 = WorkflowSim.from_state_dict(inflight["sim"])
+                    if verify_parity:
+                        w_got = _decide_wf(
+                            WorkflowBalancer.from_state_dict(
+                                bal2.state_dict(), dag, device=device),
+                            WorkflowSim.from_state_dict(sim2.state_dict()))
+                        for name in dag.names:
+                            if not np.array_equal(
+                                    np.asarray(w_expect[name]),
+                                    np.asarray(w_got[name])):
+                                raise AssertionError(
+                                    f"workflow kill/restore parity broken "
+                                    f"at tick {t}, stage {name!r}: "
+                                    f"survivor {w_expect[name]} vs replica "
+                                    f"{w_got[name]}")
+                        parity += 1
+                    bal, sim = bal2, sim2
+                    kills += 1
                 events.append((t, "kill_restore",
                                f"restored step {t} from {ckpt_dir}"))
     finally:

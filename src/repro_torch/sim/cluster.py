@@ -17,6 +17,10 @@ estimator fits to whatever the channels produce. Per-step multiplicative mu
 drift, a fleet-wide load factor and scheduled churn (fail, recover,
 throttle, set_load) complete the physics. :class:`WorkflowSim` runs one
 such fleet per stage of a workflow DAG.
+
+Tracing (``obs``): each :meth:`ClusterSim.run_step` and
+:meth:`WorkflowSim.tick` is a ``sim.step`` span, and each churn event that
+fires is an ``audit.churn`` event, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ from typing import Optional, Tuple, Union
 import numpy as np
 
 from ..core.distributions import lognormal_shape_np, resolve_family
+from ..obs import events as obs_events
+from ..obs import names as obs_names
+from ..obs import trace as obs
 
 __all__ = ["Channel", "ClusterSim", "WorkflowSim"]
 
@@ -130,6 +137,8 @@ class ClusterSim:
 
     def _apply_churn(self):
         for action, idx, value in self.churn.pop(self.step_count, ()):
+            obs_events.churn(action, -1 if idx is None else idx, "sim",
+                             detail=value)
             if action == "fail":
                 self.inject_failure(idx)
             elif action == "recover":
@@ -151,6 +160,7 @@ class ClusterSim:
             return rng
         return np.random.default_rng(rng)
 
+    @obs.traced(obs_names.SPAN_SIM_STEP, sim="cluster")
     def run_step(self, weights,
                  rng: Union[None, int, np.random.Generator] = None
                  ) -> Tuple[float, np.ndarray]:
@@ -321,10 +331,13 @@ class WorkflowSim:
         self.churn.setdefault(int(step), []).append((action, stage, idx,
                                                      value))
 
+    @obs.traced(obs_names.SPAN_SIM_STEP, sim="workflow")
     def tick(self):
         """Advance the workflow clock one step and fire its churn events."""
         self.step_count += 1
         for action, stage, idx, value in self.churn.pop(self.step_count, ()):
+            obs_events.churn(action, -1 if idx is None else idx, "sim",
+                             detail=(stage if stage is not None else value))
             targets = ([self.stage_sims[stage]] if stage is not None
                        else list(self.stage_sims.values()))
             for sim in targets:

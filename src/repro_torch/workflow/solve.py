@@ -27,26 +27,35 @@ reasoning. Differences: the device chooses the path (``device="cuda"``
 launches the CUDA kernels, ``"cpu"`` runs their plain versions); the PGD
 phase is a Python loop, whose plateau test reads the stall count on the
 host only at the steps where it could have reached the patience (each read
-is one device synchronization, counted in ``SYNCS``); phases are timed by
-``time.perf_counter`` after a device synchronization; there are no
-sanitizer checks and no trace spans.
+is one device synchronization, counted in ``SYNCS``); each phase is a
+``solver.phase`` span (``obs.timed_span``) opened and closed after a device
+synchronization, and ``profile["phase_us"]`` reads those spans, so the
+profile and the trace are one measurement. The solve runs eagerly, so a
+trace also shows each frontier call as a ``kernel.launch`` span inside its
+phase (the JAX package's jitted solve shows phases alone). Under
+``REPRO_SANITIZE=1`` the solve checks its starts and stage statistics once
+on the host, and each PGD phase records its stage means, gradients and
+iterates on the device at every step, read once after the phase
+(``analysis/sanitize.py``).
 """
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
+from ..analysis import sanitize as _san
 from ..core.bayes import nig_estimate_ses
 from ..core.distributions import (family_from_extra, remaining_work_stats,
                                   resolve_family)
 from ..core.partitioner import optimize_weights
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs import names as obs_names
 from .dag import StageDAG, compose_structure
 
 __all__ = ["DAGDecision", "solve_dag", "solve_dag_greedy", "evaluate_dag",
@@ -193,7 +202,10 @@ def _project_simplex_masked(v: torch.Tensor, mask: torch.Tensor
     idx = torch.arange(1, k + 1, dtype=v.dtype, device=v.device)
     cond = u - css / idx > 0
     pos = torch.arange(k, device=v.device).expand_as(cond)
-    rho = torch.amax(torch.where(cond, pos, -1), dim=-1, keepdim=True)
+    # ranks that fail are filled with 0, not -1: rank 0 qualifies in any
+    # finite row with an active channel, and a NaN row (all fail) then
+    # projects to NaN for the sanitizer instead of gathering at -1
+    rho = torch.amax(torch.where(cond, pos, 0), dim=-1, keepdim=True)
     theta = torch.gather(css, -1, rho) / (rho + 1.0)
     return torch.clamp_min(vm - theta, 0.0)
 
@@ -210,7 +222,7 @@ def _stage_moments_grads(W, stacks: _Stacks, num_t: int,
         got = ops.frontier_moments_with_grads(
             stacks.rows(W, g), mus, sgs, num_t=num_t, device=stacks.device,
             block_rows=block_rows, family=(grp.dist_id, ex),
-            param_grads=param_grads)
+            param_grads=param_grads, _check=False)
         n = len(grp.idx)
         got = [o.reshape(R, n) if o.ndim == 1 else o.reshape(R, n, kmax)
                for o in got]
@@ -235,7 +247,7 @@ def _stage_moments(W, stacks: _Stacks, num_t: int,
             m, v = ops.frontier_moments(
                 stacks.rows(W, g), mus, sgs, num_t=num_t,
                 device=stacks.device, block_rows=block_rows,
-                family=(grp.dist_id, ex))
+                family=(grp.dist_id, ex), _check=False)
         n = len(grp.idx)
         smu[:, stacks.idx[g]] = m.reshape(R, n)
         svar[:, stacks.idx[g]] = v.reshape(R, n)
@@ -258,7 +270,8 @@ def _compose_grads(structure, smu, svar, lam32: float):
 def _pgd_phase(structure, stacks: _Stacks, masks, W0, upd_np, lam_var: float,
                plateau_tol: float, steps: int, patience: int, num_t: int,
                composed: bool, lr: float = _PRESOLVE_LR, warmup: int = 0,
-               block_rows: Optional[int] = None):
+               block_rows: Optional[int] = None,
+               checks: Optional[_san.LoopChecks] = None):
     """One masked-PGD phase over the stacked stage simplices.
 
     ``composed=False`` descends each stage's own expected join time (the
@@ -270,6 +283,8 @@ def _pgd_phase(structure, stacks: _Stacks, masks, W0, upd_np, lam_var: float,
     lives on the device and is read only at steps where it could have
     reached ``patience`` (it grows by at most one a step past the warmup),
     so the steps run are those of the JAX package's ``lax.while_loop``.
+    ``checks`` (the sanitizer's) records at every step that the stage
+    means and the gradient are finite and the iterate on its simplices.
 
     Returns ``(W_final, W_best, best_loss, steps_run)``.
     """
@@ -300,6 +315,9 @@ def _pgd_phase(structure, stacks: _Stacks, masks, W0, upd_np, lam_var: float,
         else:
             losses = torch.sum(smu, dim=1)
             G = dmu
+        if checks is not None:
+            checks.check_finite(smu, "DAG stage means", i)
+            checks.check_finite(G, "DAG PGD gradient", i)
         better = losses < row_best
         Wb = torch.where(better[:, None, None], W, Wb)
         row_best = torch.minimum(row_best, losses)
@@ -315,6 +333,8 @@ def _pgd_phase(structure, stacks: _Stacks, masks, W0, upd_np, lam_var: float,
         step = lr32 * np.float32(0.5) * (np.float32(1.0) + np.cos(ang))
         W = torch.where(upd_b, _project_simplex_masked(W - float(step) * G,
                                                        masks_b), W)
+        if checks is not None:
+            checks.check_weight_rows(W, "DAG PGD iterate", i)
         SYNCS["steps"] += 1
         i += 1
     return W, Wb, row_best, i
@@ -442,27 +462,46 @@ def _starts(dag: StageDAG, mask: np.ndarray, kmax: int, restarts: int,
 
 
 class _PhaseClock:
-    """Sequential phase wall times in microseconds: ``lap(next)`` closes the
-    open phase and opens the next; each mark waits for the device first."""
+    """Sequential ``solver.phase`` spans: ``lap(next)`` closes the open
+    phase's span, books its duration into ``phase_us`` and opens the next.
+    Each mark waits for the device first, so a phase's span holds its own
+    device work; ``obs.timed_span`` always measures and records only when
+    tracing is on, so ``phase_us`` and the trace are one measurement."""
 
     def __init__(self, phase_us: Dict[str, float], device: torch.device):
         self.phase_us = phase_us
         self.device = device
         self._open = None
 
-    def _now(self) -> float:
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()
+
+    def _enter(self, phase: str) -> None:
+        self._open = obs.timed_span(obs_names.SPAN_SOLVER_PHASE,
+                                    phase=phase).__enter__()
 
     def start(self, phase: str) -> None:
-        self._open = (phase, self._now())
+        self._sync()
+        self._enter(phase)
 
     def lap(self, next_phase: Optional[str] = None) -> None:
-        phase, t0 = self._open
-        t1 = self._now()
-        self.phase_us[phase] = round(1e6 * (t1 - t0), 1)
-        self._open = (next_phase, t1) if next_phase is not None else None
+        self._sync()
+        sp = self._open
+        sp.__exit__(None, None, None)
+        self.phase_us[sp.attrs["phase"]] = round(sp.dur_us, 1)
+        self._open = None
+        if next_phase is not None:
+            self._enter(next_phase)
+
+
+def _check_inputs(W0: np.ndarray, groups) -> None:
+    """The sanitizer's checks of a solve's inputs, on the host: the start
+    stack's simplex rows and each family group's statistics."""
+    _san.check_stacked_inputs(
+        torch.from_numpy(W0),
+        [(torch.from_numpy(g.mus), torch.from_numpy(g.sigmas))
+         for g in groups])
 
 
 def _check_dirty(dag: StageDAG, dirty, warm_start):
@@ -554,8 +593,11 @@ def solve_dag(dag: StageDAG, lam_var: float = 0.0, steps: int = 120,
     groups, mask, kmax = _stage_groups(dag)
     stacks = _Stacks(groups, dev)
     masks = torch.tensor(mask, device=dev)
-    W0 = torch.tensor(_starts(dag, mask, kmax, restarts, warm_start, seed,
-                              upd=upd_np), device=dev)
+    W0_np = _starts(dag, mask, kmax, restarts, warm_start, seed, upd=upd_np)
+    sanitize = _san.enabled()
+    if sanitize:
+        _check_inputs(W0_np, groups)
+    W0 = torch.tensor(W0_np, device=dev)
     R = int(W0.shape[0])
     upd = upd_np if upd_np is not None else np.ones(S, np.float32)
     pre = presolve_steps if presolve_steps is not None else steps
@@ -566,10 +608,13 @@ def solve_dag(dag: StageDAG, lam_var: float = 0.0, steps: int = 120,
 
     # --- stage-local presolve at the coarse rung; stalls count from the
     # middle of the cosine schedule
+    checks = _san.LoopChecks(dev) if sanitize else None
     W1, _, _, n_pre = _pgd_phase(structure, stacks, masks, W0, upd, lam_var,
                                  plateau_tol, pre, patience, pnt, False,
                                  lr=_PRESOLVE_LR, warmup=pre // 2,
-                                 block_rows=block_rows)
+                                 block_rows=block_rows, checks=checks)
+    if checks is not None:
+        checks.raise_first()
     clock.lap("triage")
 
     # --- coarse triage of {starts, presolve} on the composed objective
@@ -602,10 +647,14 @@ def solve_dag(dag: StageDAG, lam_var: float = 0.0, steps: int = 120,
     clock.lap("refine")
 
     # --- composed refine of the survivors at the solve fidelity
+    checks = _san.LoopChecks(dev) if sanitize else None
     Wf, Wb, _, n_ref = _pgd_phase(structure, stacks, masks, Wr0, upd,
                                   lam_var, plateau_tol, steps, patience,
                                   num_t, True, lr=_REFINE_LR,
-                                  warmup=steps // 2, block_rows=block_rows)
+                                  warmup=steps // 2, block_rows=block_rows,
+                                  checks=checks)
+    if checks is not None:
+        checks.raise_first()
     clock.lap("final_score")
 
     # --- final pick at evaluation fidelity
@@ -670,6 +719,8 @@ def evaluate_dag(dag: StageDAG, weights: Dict[str, np.ndarray],
     for i, s in enumerate(dag.stages):
         w = np.maximum(np.asarray(weights[s.name], np.float64), 0.0)
         W[0, i, :s.k] = w / max(w.sum(), 1e-12)
+    if _san.enabled():
+        _check_inputs(W, groups)
     mk_mu, mk_var, smu, svar = _score_dag(
         dag.structure, stacks, torch.tensor(W, device=dev), num_t,
         block_rows)

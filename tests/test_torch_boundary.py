@@ -52,7 +52,8 @@ def test_port_imports_without_jax_or_a_build():
             "repro_torch.bench.fig34_convex_opt, "
             "repro_torch.bench.fig56_file_transfer, "
             "repro_torch.bench.cluster_scale, "
-            "repro_torch.bench.elastic_fleet;"
+            "repro_torch.bench.elastic_fleet, repro_torch.obs, "
+            "repro_torch.obs.export, repro_torch.analysis.sanitize;"
             "from repro_torch.kernels import _cuda;"
             "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -51,9 +51,19 @@ def test_run_policy_matches_reference(policy):
 
 
 def test_tick_sections_at_smoke_shape(monkeypatch, tmp_path):
+    from repro_torch.kernels import autotune
+
     monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
     monkeypatch.setattr(tcs, "RESULTS_DIR", str(tmp_path))
-    res = tcs.main(["--smoke", "--ticks-only", "--json", "--device", DEV])
+    cache = tmp_path / "autotune_cache.json"
+    monkeypatch.setattr(autotune, "_DEFAULT_CACHE_PATH", str(cache))
+    saved = autotune.cache_state()
+    try:
+        res = tcs.main(["--smoke", "--ticks-only", "--json", "--device",
+                        DEV])
+    finally:
+        autotune.clear_cache()
+        autotune.load_cache_state(saved)
     assert res["grad_rel_l2"] <= 1e-4
     assert all(r <= 1e-4 for r in res["family_grad_rel_l2"].values())
     assert res["pgd_speedup_vs_autodiff"] > 0
@@ -64,13 +74,18 @@ def test_tick_sections_at_smoke_shape(monkeypatch, tmp_path):
     names = [e["name"] for e in doc["entries"]]
     for name in ("fwd_tick_kernel", "pgd_tick_fused",
                  "pgd_tick_autodiff_plain", "lognormal_tick_fused",
-                 "drift_tick_fwd", "auto_tick_score_plus_fused"):
+                 "drift_tick_fwd", "auto_tick_score_plus_fused",
+                 "autotune_fused_plain_F256_K64_T128"):
         assert name in names
     for e in doc["entries"]:
         assert set(tcs.ENTRY_KEYS) <= set(e) and e["impl"] == "plain"
     assert {s["name"] for s in doc["skipped"]} == {
-        "fwd_tick_pallas_interpret", "pgd_tick_fused_pallas_interpret",
-        "autotune_sweep_fused"}
+        "fwd_tick_pallas_interpret", "pgd_tick_fused_pallas_interpret"}
+    # the sweep section filed its winner (rows per chunk, on the CPU)
+    (sweep,) = [e for e in doc["entries"] if e["name"].startswith(
+        "autotune_fused")]
+    disk = json.loads(cache.read_text())["cpu"]
+    assert [v["value"] for v in disk.values()] == [sweep["plan"]]
 
     # the reference's auto tick on the same history picks the same family
     rows, _ = rcs.tick_auto_family_compare(64, 256, 128)

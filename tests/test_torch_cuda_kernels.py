@@ -21,7 +21,8 @@ the serving engine's stacked launches (K <= 6 zero-padded, row buckets of
 8 to 512, T = 128 and 256, four families) with an engine run on the card
 against the CPU (``-k engine``), and the channel-count selection's small
 subsets (K = 1, 2, 3, all five families) with a ``select_channels`` on the
-card against the CPU (``-k group``).
+card against the CPU (``-k group``), and every candidate of the timed
+autotune sweep at a small shape, all families and modes (``-k sweep``).
 """
 import pytest
 import torch
@@ -718,3 +719,33 @@ def test_group_select_channels_on_the_card_matches_the_cpu(card):
         assert a.objective == pytest.approx(b.objective, rel=1e-4)
         np.testing.assert_allclose(a.decision.weights, b.decision.weights,
                                    atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fwd", "grad", "pgrad"])
+@pytest.mark.parametrize("fam", ["normal", "lognormal", "drift", "empirical",
+                                 "defective"])
+def test_sweep_candidates_match_plain_and_repeat(card, tmp_path, fam, mode):
+    """``autotune.sweep`` on the card at a small shape: every candidate
+    (the model's split and its neighbours) runs twice with its bits
+    repeated and within the frontier tolerances of the plain version, or
+    the sweep raises; the winner is filed under this card's name."""
+    import json
+
+    from repro_torch.kernels import autotune
+    F, K, T = 64, 32, 256
+    saved = autotune.cache_state()
+    path = tmp_path / "autotune_cache.json"
+    try:
+        entry = autotune.sweep(F, K, T, mode=mode, dist_id=fam, repeats=1,
+                               cache_path=str(path), device=card)
+        cands = autotune.sweep_candidates(F, K, T, mode, fam)
+        assert set(entry["timings"]) == {autotune._label(c) for c in cands}
+        assert entry["model"] == autotune._label(cands[0])
+        key = autotune._key(F, K, T, "split", mode, fam)
+        disk = json.loads(path.read_text())
+        assert disk[torch.cuda.get_device_name()][key] == entry
+        assert autotune.plan_outcome(F, K, T, mode, fam)[2] == "sweep"
+    finally:
+        autotune.clear_cache()
+        autotune.load_cache_state(saved)
