@@ -9,13 +9,15 @@
     python3 chip_smoke.py --phases card,build,engine,chaos
     python3 chip_smoke.py --phases card,build,group,straggler,paper,cluster
     python3 chip_smoke.py --phases card,build,engine,chaos,trace,sweep
+    python3 chip_smoke.py --phases card,build,examples
 
 Phases, in order:
 
 1. ``card``   — the card's name and power limit (nvidia-smi), torch and CUDA.
 2. ``build``  — nvcc builds each library of ``csrc/`` into
    ``build/repro_torch/`` (frontier_grid, its float32-sum variant
-   ``-DFG_ACC=float``, rmsnorm, attention, ssd_scan), all five at once.
+   ``-DFG_ACC=float``, rmsnorm, attention, ssd_scan, compose and
+   family_score), all seven at once.
 3. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
@@ -52,7 +54,9 @@ Phases, in order:
    340B's layer (Hq 96, Hkv 8, D 192) cut in B and S, short prompts packed
    by kv group (groups of 3, 4 and 12), DeepSeek-V2-Lite's MLA prefill
    (16 heads, q and k of 192, v of 128); decode with one and several
-   splits, whole splits invalid, S = 4096; for ssd_scan y and the final
+   splits, whole splits invalid, S = 4096; SmolLM-360M's attention, decode
+   (Hkv 5, G 3, D 64, a cache of 20) and norms (d_model 960) at the
+   ``examples`` batcher's shapes; for ssd_scan y and the final
    state at ragged S, S >= 1024, G = 2, chunks of 16/64/128 and
    Mamba2-2.7B's own shapes in one, two and many groups of chunks; dead
    rows give 0; the tiny Qwen3 and Mamba2 configs on the card against the
@@ -115,7 +119,17 @@ Phases, in order:
    composition's share, one warm joint solve under torch.profiler (device
    time by kernel, busy share), a mixed-family 8-stage DAG (3 family
    groups, one launch per group per step, the CPU's decision) and an empty
-   dirty set (the warm split, no PGD launch).
+   dirty set (the warm split, no PGD launch). The composed makespan's
+   reverse pass, ``compose_grads`` (``csrc/compose.cu``, launched once per
+   composed refine step; its launches counted with the path's), is held
+   against its plain version (``compose_structure`` and autograd, on the
+   card) at the refine shape of both solves (their survivors, the stage
+   moments of their starts at T=256) and on a 24-way join with three sinks,
+   each timed beside its bound; the refine step's host and device cost is
+   measured with the kernel and with the plain composition (before and
+   after). Last, ``dag_scale.check_gates``: the reference's four gates
+   (one batched path, improvement >= 0.088%, joint/greedy wall clock
+   <= 1.0, a 512-stage scale point); the phase fails if any fails.
 14. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
    ``WorkflowSim.from_dag`` for WF_TICKS ticks, refresh_every=5, then
    adaptive refresh with risk_lam=0.5, then that with dirty_tol=1 (the
@@ -202,7 +216,16 @@ Phases, in order:
    auto-family tick; prints ``pgd_speedup_vs_autodiff`` and
    ``auto_family_tick_overhead``. Then each shape of up to
    RECORD_MAX_POINTS grid points that the run launched (the policy loops'
-   solves) held as in ``group``; its sweep section runs in ``sweep``.
+   solves) held as in ``group``; its sweep section runs in ``sweep``. The
+   auto-family tick scores on the card (``family_score``,
+   ``csrc/family_score.cu``, counted); the kernel is held against the
+   numpy at the tick's K=1024, N=96 history and on windows with every edge
+   case (below min_obs, all masked, nonpositive rates, zero variance, a
+   singular drift regression, a negative slope; N = 12, 96, 128), with the
+   relative BIC margin of each winner over its runner-up, and timed beside
+   its bound and the numpy's host time. Then
+   ``cluster_scale.check_gates``: the phase fails if the auto-family tick
+   costs more than 1.2x the fixed one.
 22. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
    (K=1024, F=4096, T=256; fwd, grad through
    ``bench.cluster_scale.tick_sweep``, pgrad) and a refresh's shapes (fwd
@@ -215,6 +238,20 @@ Phases, in order:
    with them and restored (its next decision bitwise the survivor's), and
    the in-process cache restored, so no other phase launches a swept
    split.
+23. ``examples`` — the ported examples and harness on the card, counters
+   zeroed before and read after: ``bench.quickstart``,
+   ``bench.file_transfer`` (its two asserts), ``bench.partitioned_training``
+   (its two asserts), ``bench.serve_partitioned`` ``--engine`` (the
+   WorkflowEngine demo, killed and restored at mid-trace) and
+   ``--execute`` at full SmolLM-360M width (32 layers, d_model 960, 15
+   query heads over 5 KV heads, bf16, seeded weights; 60 batches of 64
+   prompts, the first two frontier batches generating), and ``bench.run
+   --only fig1,parttrain``. Every frontier mode the path uses, the
+   composed makespan's kernel and the three model kernels must have
+   launched. Then the engine demo again unkilled (every tick bitwise the
+   killed run's), and the full-width SmolLM-360M at the batcher's shapes
+   (a prefill of 32 x 12 into a cache of 20, then 7 decode steps) through
+   the kernels held against the plain ops at relative L2 < 0.1.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -225,7 +262,11 @@ through the kernels against the plain versions, and Mamba2's decode
 continuation against its forward, at relative L2 < 0.1 (Mamba2: every
 layer at full depth, and end to end up to SSM_E2E_LAYERS layers). The
 workflow DAG: the card's composed makespan against the plain path's on the
-CPU, mu 1e-4 and var 1e-3 relative.
+CPU, mu 1e-4 and var 1e-3 relative; ``compose_grads`` against its plain
+version on the card, losses 1e-6 relative and each gradient 1e-5 relative
+L2. ``family_score`` against the numpy: the winner and the channel count
+equal, the BICs 1e-6, rho 1e-9 and the mixture's parameters 1e-5
+relative.
 
 Any failure exits non-zero. Without a card, or without the repository's
 ``src/`` beside this script, it fails before printing a result. The line
@@ -234,9 +275,11 @@ before the last is a JSON object of per-kernel numbers; the last line is
 per-kernel line is the sum over the paths that drive it, each counted from
 zero just before it runs (``loop``, ``dag``, ``wfloop``, ``engine``: the
 ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
-``cluster``, ``trace``: its traced and sanitized runs, ``sweep``), and its
-``launches_by_path`` gives each path's count; a model kernel's is its
-serving phase's. Details go to ``chiprun_out/``.
+``cluster``, ``trace``: its traced and sanitized runs, ``sweep``,
+``examples``), and its ``launches_by_path`` gives each path's count; a
+model kernel's sums its serving phase's and ``examples``'; ``compose_grads``
+sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
+``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -246,7 +289,7 @@ import os
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -254,7 +297,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop",
           "engine", "chaos", "trace", "group", "straggler", "paper",
-          "cluster", "sweep")
+          "cluster", "sweep", "examples")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -287,6 +330,32 @@ KERNELS = {
 SOURCE = "src/repro_torch/csrc/frontier_grid.cu"
 MODES = tuple(KERNELS)
 
+# The port's two kernels with no Pallas counterpart: the source, and the
+# JAX package's function each one computes (under jit there, numpy on the
+# host there).
+PORT_KERNELS = {
+    "compose_grads": ("src/repro_torch/csrc/compose.cu",
+                      "src/repro/workflow/dag.py:342"),
+    "family_score": ("src/repro_torch/csrc/family_score.cu",
+                     "src/repro/core/bayes.py:247"),
+}
+# compose_grads against its plain version on the card: the losses
+# (relative) and each gradient (relative L2)
+COMPOSE_TOL = (1e-6, 1e-5)
+# family_score against the numpy: relative, per output
+FAMILY_TOL = {"bics": 1e-6, "rho": 1e-9, "gmm": 1e-5}
+# H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+FP64_OPS_PER_S = 34e12
+# Work of one Clark fold step of compose_grads, forward and reverse,
+# counted from csrc/compose.cu: square roots, divisions, erf and exp on
+# the special function units, and float32 operations.
+COMPOSE_FOLD = {"special": 13, "fp32": 95}
+# Work of family_score per (sample, channel), from csrc/family_score.cu:
+# per EM iteration and component an exp and a division plus ~12 float32
+# operations; once, ~30 float64 operations and two logs.
+FAMILY_EM = {"special": 2, "fp32": 12}
+FAMILY_ONCE = {"special": 2, "fp64": 30}
+
 
 def log(*a):
     print(*a, flush=True)
@@ -305,17 +374,18 @@ def phase_card(ctx):
 
 def phase_build(ctx):
     """Every library at once, one nvcc each: the frontier kernels, their
-    float32-sum variant, RMSNorm, attention (prefill and decode) and the
-    SSD scan."""
+    float32-sum variant, RMSNorm, attention (prefill and decode), the SSD
+    scan, the composed makespan's reverse pass and the family scoring."""
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import _cuda, compose
+    from repro_torch.kernels import family_score as fs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import frontier_grid as fg
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     t0 = time.perf_counter()
     jobs = (lambda: fg.build(), lambda: fg.build(ACC32), rn.build, fa.build,
-            ssd.build)
+            ssd.build, compose.build, fs.build)
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(job) for job in jobs]:
             f.result()
@@ -863,6 +933,7 @@ ATTN_CASES = (
     ("nemotron-4-340b packed S=16", 2, 96, 8, 16, 16, 192, True, None),
     ("qwen3-8b prefill", 32, 32, 8, 16, 16, 128, True, None),
     ("smollm-360m packed group 3", 4, 15, 5, 16, 16, 64, True, None),
+    ("smollm-360m batcher prefill", 32, 15, 5, 12, 12, 64, True, None),
     ("tiny prefill", 2, 4, 2, 16, 16, 16, True, None),
 )
 # (name, B, H, S, D, Dv): DeepSeek-V2-Lite's MLA prefill, 16 heads with q
@@ -872,10 +943,14 @@ MLA_CASES = (("deepseek-v2-lite mla prefill S=300", 1, 16, 300, 192, 128),
              ("deepseek-v2-lite mla prefill B=32 S=16", 32, 16, 16, 192, 128))
 # (name, B, Hkv, G, S, D, valid slots[, leading slots cleared]): one split
 # at short S, several splits (flash_decode.decode_splits) with a whole
-# split invalid, S = 4096, Nemotron's group of 12 at D = 192
+# split invalid, S = 4096, Nemotron's group of 12 at D = 192, and the
+# examples' SmolLM-360M batcher (12-token prompts, 8 new tokens: a cache of
+# 20 with 13 to 19 valid slots, up to 40 requests a group)
 DECODE_CASES = (
     ("qwen3-8b decode", 32, 8, 4, 24, 128, 17),
     ("qwen3-8b last step", 32, 8, 4, 24, 128, 24),
+    ("smollm-360m batcher decode", 32, 5, 3, 20, 64, 13),
+    ("smollm-360m batcher last step", 40, 5, 3, 20, 64, 19),
     ("g1-ragged", 2, 2, 1, 200, 64, 150),
     ("g8", 1, 1, 8, 256, 128, 256),
     ("tiny decode", 2, 2, 2, 20, 16, 17),
@@ -903,9 +978,12 @@ SSD_CASES = (
 )
 # (name, rows, D): Qwen3-8B's norms at the serving path's prefill (32 x 16
 # tokens: ln1/ln2/final_norm, q_norm over 32 heads, k_norm over 8) and
-# decode shapes, a ragged count and the tiny config
+# decode shapes, SmolLM-360M's (d_model 960) at the examples' batcher
+# prefill (40 x 12 tokens) and decode, a ragged count and the tiny config
 NORM_CASES = (("ln prefill", 512, 4096), ("q_norm prefill", 16384, 128),
               ("k_norm prefill", 4096, 128), ("ln decode", 32, 4096),
+              ("smollm-360m batcher prefill", 480, 960),
+              ("smollm-360m batcher decode", 32, 960),
               ("ragged", 21, 4096), ("tiny", 7, 16))
 # (tag, rows, D) of lmtick's rmsnorm rows: every norm of the two serving
 # paths (one group: 32 prompts of 16 tokens, then decode steps of 32
@@ -1869,20 +1947,40 @@ def _dag_rung_check(tag, dag, phase, mode, R, T, fails):
             "max_abs_err": max(errs), "ok": ok}
 
 
+@contextmanager
+def _plain_composition():
+    """The joint solver's composition and its gradient on the plain path
+    (``compose_structure`` and autograd on the card) in place of the
+    ``compose_grads`` kernel: the cost before the kernel, for comparison."""
+    from repro_torch.workflow import solve as wsolve
+    saved = wsolve._compose_grads
+
+    def plain(structure, smu, svar, lam32, enc=None):
+        return wsolve._compose_grads_plain(structure, smu, svar, lam32)
+
+    wsolve._compose_grads = plain
+    try:
+        yield
+    finally:
+        wsolve._compose_grads = saved
+
+
 def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
     """Host and device milliseconds of one composed refine step at the
     solver's refine shape (``survivors`` starts, ``steps`` steps on the host
     clock, ``prof_steps`` under torch.profiler), the composition's own host
-    time, and the torch operations of a step."""
+    time, and the torch operations of a step; under
+    ``_plain_composition`` the step before the kernel."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import compose
     from repro_torch.workflow import solve as wsolve
     dev = torch.device("cuda")
     groups, mask, kmax = wsolve._stage_groups(dag)
     S = len(dag.stages)
-    stacks = wsolve._Stacks(groups, dev)
+    stacks = wsolve._Stacks(groups, dev, dag.structure)
     masks = torch.tensor(mask, device=dev)
     W0 = torch.tensor(wsolve._starts(dag, mask, kmax, survivors, None,
                                      0)[2:2 + survivors], device=dev)
@@ -1913,17 +2011,20 @@ def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
         run(1)
     smu = torch.rand((survivors, S), device=dev) * 10 + 5
     svar = torch.rand((survivors, S), device=dev) + 0.1
-    wsolve._compose_grads(dag.structure, smu, svar, 0.0)
+    enc = stacks.compose
+    wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        wsolve._compose_grads(dag.structure, smu, svar, 0.0)
+        wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
     torch.cuda.synchronize()
     compose_ms = 1e3 * (time.perf_counter() - t0) / 5
+    n = compose.LAUNCHES["compose_grads"]
     with _OpCount() as ops_compose:
-        wsolve._compose_grads(dag.structure, smu, svar, 0.0)
-    out = {"tag": tag, "stages": S, "survivors": survivors,
-           "host_ms_per_step": host_ms,
+        wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
+    path = "kernel" if compose.LAUNCHES["compose_grads"] > n else "plain"
+    out = {"tag": tag, "composition": path, "stages": S,
+           "survivors": survivors, "host_ms_per_step": host_ms,
            "device_ms_per_step": (dev_total / 1e3 / prof_steps
                                   if dev_total else None),
            "kernel_device_ms_per_step": (kern_total / 1e3 / prof_steps
@@ -1933,8 +2034,8 @@ def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
     def fmt(x):
         return "not measured" if x is None else f"{x:.3f} ms"
 
-    log(f"[dag] {tag} refine step ({survivors} starts x {S} stages, T="
-        f"{num_t}): host {host_ms:.2f} ms, device "
+    log(f"[dag] {tag} refine step, {path} composition ({survivors} starts x "
+        f"{S} stages, T={num_t}): host {host_ms:.2f} ms, device "
         f"{fmt(out['device_ms_per_step'])} (adjoint "
         f"{fmt(out['kernel_device_ms_per_step'])})"
         + f"; {ops_all.n} torch ops a step, of which the composition and "
@@ -2000,6 +2101,125 @@ def _mixed_dag():
     return StageDAG(stages, edges)
 
 
+def _wide_structure():
+    """A ``StageDAG.structure`` with a 24-way join of branches 1-3 stages
+    long, a tail and two more sinks off branch stages (three sinks)."""
+    import numpy as np
+    from repro_torch.workflow import StageDAG
+    rng = np.random.default_rng(24)
+    names, edges, ends, inner = ["src"], [], [], []
+    for b in range(24):
+        prev = "src"
+        for j in range(int(rng.integers(1, 4))):
+            n = f"b{b}_{j}"
+            names.append(n)
+            edges.append((prev, n))
+            inner.append(n)
+            prev = n
+        ends.append(prev)
+    names += ["join", "tail", "side0", "side1"]
+    edges += [(e, "join") for e in ends] + [("join", "tail")]
+    edges += [(inner[int(rng.integers(len(inner)))], f"side{i}")
+              for i in range(2)]
+    return StageDAG.from_names(names, edges).structure
+
+
+def _refine_inputs(dag, R, num_t):
+    """The stage moments (R, S) of ``R`` random starts of ``dag`` at
+    ``num_t`` on the card: what a refine step hands the composition."""
+    import torch
+    from repro_torch.workflow import solve as wsolve
+    dev = torch.device("cuda")
+    groups, mask, kmax = wsolve._stage_groups(dag)
+    stacks = wsolve._Stacks(groups, dev)
+    W = torch.tensor(wsolve._starts(dag, mask, kmax, R, None, 0)[2:2 + R],
+                     device=dev)
+    return wsolve._stage_moments(W, stacks, num_t, None)
+
+
+def _compose_bound(structure, R):
+    """(bound_ms, bound_by) of one compose_grads call: the moments read and
+    the losses and gradients written once, the structure read once; the
+    fold steps' operations."""
+    from repro_torch.kernels import compose
+    topo, preds, sinks = structure
+    S = len(topo)
+    steps = compose.encode_arrays(structure)[4]
+    nbytes = 4 * (4 * R * S + R) + 4 * (2 * S + 1 + sum(map(len, preds))
+                                         + len(sinks))
+    special = R * steps * COMPOSE_FOLD["special"]
+    fp32 = R * (steps * COMPOSE_FOLD["fp32"] + 4 * S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(special / SFU_OPS_PER_S, fp32 / FP32_OPS_PER_S)
+    return (1e3 * t_bytes, "bytes") if t_bytes > t_ops else \
+        (1e3 * t_ops, "operations")
+
+
+def _compose_hold(tag, structure, smu, svar, lam, fails):
+    """``compose_grads`` on the card against its plain version on the
+    card, twice (the bits repeat), with its event-pair, device and host
+    time, the plain version's time and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import compose
+    from repro_torch.workflow import solve as wsolve
+    R, S = smu.shape
+    lam32 = float(np.float32(lam))
+    enc = compose.encode(structure, smu.device)
+
+    def kern():
+        return compose.compose_grads(enc, smu, svar, lam32)
+
+    def plain():
+        return wsolve._compose_grads_plain(structure, smu, svar, lam32)
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+    g_rel = [_rel_l2(g, w) for g, w in zip(got[1:], want[1:])]
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    ok = (all(bool(torch.isfinite(t).all()) for t in got)
+          and all(torch.equal(a, b) for a, b in zip(got, again))
+          and loss_rel <= COMPOSE_TOL[0] and max(g_rel) <= COMPOSE_TOL[1])
+    ms = _time_cuda(kern, reps=7)
+    dev_ms = _device_ms(kern, reps=10)
+    host_ms = _host_ms(kern, reps=50)
+    plain_ms = _time_cuda(plain, reps=3, warm=1)
+    bound_ms, by = _compose_bound(structure, R)
+    label = (f"{tag} R={R} S={S} fold steps "
+             f"{compose.encode_arrays(structure)[4]} lam={lam}")
+    log(f"[dag] compose_grads {label}: losses rel {loss_rel:.1e}, gradients "
+        f"rel L2 {g_rel[0]:.1e} / {g_rel[1]:.1e}, max|err| {max_abs:.2e}"
+        + (" (bitwise)" if bitwise else "") + ("  ok" if ok else "  FAIL")
+        + f"; kernel {ms:.4f} ms (device "
+        + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
+        + f", host {host_ms:.4f}) plain {plain_ms:.3f} ms bound "
+        f"{bound_ms:.3e} ms ({by})")
+    if not ok:
+        fails.append(f"compose_grads {label}")
+    return {"tag": tag, "R": R, "S": S, "lam": lam, "loss_rel": loss_rel,
+            "grad_rel_l2": g_rel, "max_abs_err": max_abs, "bitwise": bitwise,
+            "ok": ok, "ms": ms,
+            "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def _port_launches():
+    """The launch counts of the port's two kernels with no Pallas
+    counterpart."""
+    from repro_torch.kernels import compose
+    from repro_torch.kernels import family_score as fs
+    return {**compose.LAUNCHES, **fs.LAUNCHES}
+
+
+def _reset_port():
+    from repro_torch.kernels import compose
+    from repro_torch.kernels import family_score as fs
+    compose.reset_launches()
+    fs.reset_launches()
+
+
 def phase_dag(ctx):
     """The dag_scale experiment at full scale on the card, then its checks
     and costs (see the module docstring)."""
@@ -2012,6 +2232,7 @@ def phase_dag(ctx):
     fails = []
     torch.cuda.synchronize()
     fg.reset_launches()
+    _reset_port()
     wsolve.reset_syncs()
     t0 = time.perf_counter()
     res = bench.run(smoke=False, device="cuda", repeats=DAG_REPEATS,
@@ -2019,13 +2240,18 @@ def phase_dag(ctx):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = dict(fg.LAUNCHES)
+    port = _port_launches()
     syncs = dict(wsolve.SYNCS)
     ctx["dag_launches"] = counts
+    ctx["dag_port_launches"] = port
+    if port["compose_grads"] <= 0:
+        fails.append(f"the composition's kernel never launched: {port}")
     j, g, sc = res["joint"], res["greedy"], res["scale_point"]
     log(f"[dag] main path: {res['stages']} stages, K={res['channels']}, "
         f"T={res['num_t']}, {res['steps']} steps, {res['trials']} trials, "
         f"{DAG_REPEATS} warm solves a method and the {sc['stages']}-stage "
-        f"scale point, {run_s:.1f} s; launches {counts}, plateau reads "
+        f"scale point, {run_s:.1f} s; launches {counts}, {port}, plateau "
+        f"reads "
         f"{syncs['plateau']} over {syncs['steps']} PGD steps")
     for name, d in (("joint", j), ("greedy", g)):
         log(f"[dag] {name:6s} predicted makespan mu {d['makespan_mu']:.6f} "
@@ -2084,13 +2310,45 @@ def phase_dag(ctx):
         for phase, mode, R, T in _dag_rungs(r):
             rungs.append(_dag_rung_check(tag, d, phase, mode, R, T, fails))
 
-    # where a refine step's time goes, and one profiled warm solve
+    # the composition's kernel against its plain version at the refine
+    # shapes of both solves and on a wide join with several sinks
+    composes = []
+    for tag, d, R, T in (("S=32", dag, j["profile"]["survivors"],
+                          res["num_t"]),
+                         ("S=512", big, sc["profile"]["survivors"],
+                          sc["num_t"])):
+        smu, svar = _refine_inputs(d, R, T)
+        for lam in (0.0, 0.05):
+            composes.append(_compose_hold(tag, d.structure, smu, svar, lam,
+                                          fails))
+    wide = _wide_structure()
+    rng = np.random.default_rng(5)
+    shape = (6, len(wide[0]))
+    smu = torch.tensor(rng.uniform(2.0, 12.0, shape).astype(np.float32),
+                       device="cuda")
+    var = rng.uniform(0.05, 3.0, shape).astype(np.float32)
+    var[0, 1] = 0.0
+    svar = torch.tensor(var, device="cuda")
+    for lam in (0.0, 0.05):
+        composes.append(_compose_hold("wide join, 3 sinks", wide, smu, svar,
+                                      lam, fails))
+    ctx.setdefault("port_kernels", {})["compose_grads"] = {
+        **composes[0], "max_abs_err": max(c["max_abs_err"]
+                                          for c in composes)}
+
+    # where a refine step's time goes, before and after the kernel, and one
+    # profiled warm solve
     t_sub = time.perf_counter()
-    log(f"[dag] rung checks in {t_sub - t0 - run_s:.1f} s")
-    steps = [_refine_step_cost("S=32", dag, j["profile"]["survivors"],
-                               res["num_t"]),
-             _refine_step_cost("S=512", big, sc["profile"]["survivors"],
-                               sc["num_t"], steps=4, prof_steps=1)]
+    log(f"[dag] rung and composition checks in {t_sub - t0 - run_s:.1f} s")
+    steps = []
+    for plain in (True, False):
+        with _plain_composition() if plain else nullcontext():
+            steps += [_refine_step_cost("S=32", dag,
+                                        j["profile"]["survivors"],
+                                        res["num_t"]),
+                      _refine_step_cost("S=512", big,
+                                        sc["profile"]["survivors"],
+                                        sc["num_t"], steps=4, prof_steps=1)]
     prof = _profile_solve("dag_joint", lambda: solve_dag(
         dag, steps=res["steps"], restarts=1, num_t=res["num_t"],
         device="cuda"))
@@ -2128,8 +2386,17 @@ def phase_dag(ctx):
         + ("verbatim" if same else "moved") + ("  ok" if ok else "  FAIL"))
     if not ok:
         fails.append("empty dirty set")
+    # the reference's acceptance gates, last
+    try:
+        bench.check_gates(res)
+        log(f"[dag] check_gates: the reference's four gates hold (wall ratio "
+            f"{res['joint_vs_greedy_wallclock_ratio']:.3f} <= 1.0)")
+    except AssertionError as e:
+        log(f"[dag] check_gates FAILED: {e!r}")
+        fails.append(f"dag_scale.check_gates: {e!r}")
     ctx["dag"] = {"result": {k: v for k, v in res.items() if k != "weights"},
                   "run_s": run_s, "launches": counts, "syncs": syncs,
+                  "port_launches": port, "compose_checks": composes,
                   "evaluations": evals, "rungs": rungs,
                   "refine_steps": steps, "profile": prof,
                   "mixed": {"launches": m_counts,
@@ -2153,6 +2420,8 @@ def phase_wfloop(ctx):
     dag = bench.make_dag()
     stats, total = {}, {m: 0 for m in fg.LAUNCHES}
     empty_ticks, fails = 0, []
+    torch.cuda.synchronize()
+    _reset_port()
     for name, kw in WF_CONFIGS:
         bal = WorkflowBalancer(dag, family="normal", refresh_every=5,
                                pgd_steps=bench.PGD_STEPS,
@@ -2222,8 +2491,9 @@ def phase_wfloop(ctx):
             f"{np.mean(spans[WF_SLOW_AT:]):.3f})")
     ctx["wfloop"] = stats
     ctx["wfloop_launches"] = total
-    log(f"[wfloop] launches {total}; {empty_ticks} refresh(es) with an "
-        f"empty dirty set")
+    ctx["wfloop_port_launches"] = _port_launches()
+    log(f"[wfloop] launches {total}, {ctx['wfloop_port_launches']}; "
+        f"{empty_ticks} refresh(es) with an empty dirty set")
     if min(total.values()) <= 0:
         fails.append(f"a kernel mode never launched: {total}")
     if fails:
@@ -2658,6 +2928,7 @@ def phase_chaos(ctx):
     fails, out = [], {}
     torch.cuda.synchronize()
     fg.reset_launches()
+    _reset_port()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as d:
         runs = (("balancer", lambda: run_chaos_trace(
@@ -2683,6 +2954,7 @@ def phase_chaos(ctx):
     torch.cuda.synchronize()
     calls = dict(fg.LAUNCHES)
     ctx["chaos_launches"] = calls
+    ctx["chaos_port_launches"] = _port_launches()
     mk = ft["makespan"]
     log(f"[chaos] fault_trace {ft['ticks']} ticks, {ft['channels']} "
         f"channels, mean fail_p {ft['mean_fail_p']:.4f}: blind mean "
@@ -2693,11 +2965,16 @@ def phase_chaos(ctx):
         f"({time.perf_counter() - t1:.1f} s)")
     if not ft["improvement_pct"] > 0:
         fails.append("fault_trace: aware did not beat blind")
-    log(f"[chaos] frontier calls {calls}, {time.perf_counter() - t0:.1f} s")
+    port = ctx["chaos_port_launches"]
+    log(f"[chaos] frontier calls {calls}, {port}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if port["compose_grads"] <= 0:
+        fails.append(f"the workflow chaos run never launched the "
+                     f"composition's kernel: {port}")
     ctx["chaos"] = {**out, "fault_trace": {k: ft[k] for k in (
         "ticks", "channels", "mean_fail_p", "makespan", "improvement_pct")},
         "fault_trace_cpu_improvement_pct": ft_cpu["improvement_pct"],
-        "launches": calls}
+        "launches": calls, "port_launches": port}
     if fails:
         raise AssertionError(f"chaos phase failed: {fails}")
 
@@ -3139,20 +3416,134 @@ def phase_paper(ctx):
         raise AssertionError(f"paper phase failed: {fails}")
 
 
+def _edge_window(N, K, seed):
+    """(rates, works, mask) (N, K) with every edge case of the scoring
+    pass: channel 0 below min_obs, 1 all masked, 2 with nonpositive rates,
+    3 of zero variance, 4 with a singular drift regression, 5 with a
+    negative slope, the last drifting (tests/test_torch_family_score.py)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(0.5, 2.0, K)
+    works = rng.uniform(0.5 / K, 2.0 / K, (N, K))
+    rates = rng.lognormal(np.log(mu), 0.3, (N, K))
+    mask = (rng.random((N, K)) < 0.9).astype(np.float64)
+    rates[:, K - 1] = mu[K - 1] * (1.0 + works[:, K - 1] * K) \
+        + rng.normal(0.0, 0.01, N)
+    mask[:, 0] = 0.0
+    mask[:3, 0] = 1.0
+    mask[:, 1] = 0.0
+    rates[2, 2], rates[5, 2] = -0.5, 0.0
+    rates[:, 3] = 1.25
+    works[:, 4] = 0.01
+    rates[:, 5] = 3.0 - 50.0 * works[:, 5]
+    return rates, works, mask
+
+
+def _family_windows():
+    """(tag, (rates, works, mask)) of family_score's card checks: the fleet
+    tick's own history, then windows with every edge case."""
+    from repro_torch.bench import cluster_scale as cs
+    _, mus, _ = cs._tick_problem(cs.TICK_K, 1, device="cpu")
+    yield "tick K=1024 N=96", cs.auto_history(mus.numpy(), 96)
+    for N, K in ((12, 8), (96, 64), (128, 256)):
+        yield f"edges K={K} N={N}", _edge_window(N, K, seed=N + K)
+
+
+def _family_bound(N, K):
+    """(bound_ms, bound_by) of one family_score call: the window read once
+    and the output written once; the EM's and the float64 pass's
+    operations."""
+    nbytes = 8 * (3 * N * K + 8 + 10 * K)
+    em = 16 * 3 * N * K
+    special = em * FAMILY_EM["special"] + N * K * FAMILY_ONCE["special"]
+    t_ops = max(special / SFU_OPS_PER_S,
+                em * FAMILY_EM["fp32"] / FP32_OPS_PER_S
+                + N * K * FAMILY_ONCE["fp64"] / FP64_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * t_bytes, "bytes") if t_bytes > t_ops else \
+        (1e3 * t_ops, "operations")
+
+
+def _family_hold(tag, window, fails):
+    """``score_families`` on the card (the family_score kernel) against the
+    numpy on the host, twice (the bits repeat), with the winner's relative
+    BIC margin, the kernel's time, the numpy's host time and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import cluster_scale as cs
+    from repro_torch.core import bayes
+    from repro_torch.kernels import family_score as fs
+    rates, works, mask = window
+    N, K = rates.shape
+    hist = [torch.as_tensor(a, dtype=torch.float64, device="cuda")
+            for a in window]
+    want = bayes.score_families(rates, works, mask)
+    got = bayes.score_families(*hist)
+    again = bayes.score_families(*hist)
+    rel = {f: abs(got.bics[f] - b) / abs(b) for f, b in want.bics.items()}
+    nz = want.rho != 0
+    rho_rel = float(np.max(np.abs(got.rho - want.rho)[nz]
+                           / np.abs(want.rho[nz]), initial=0.0))
+    gmm_rel = max(float(np.max(np.abs(g.astype(np.float64) - w)
+                               / np.maximum(np.abs(w), 1e-30)))
+                  for g, w in zip(got.gmm, want.gmm))
+    max_abs = max([abs(got.bics[f] - b) for f, b in want.bics.items()]
+                  + [float(np.max(np.abs(got.rho - want.rho)))]
+                  + [float(np.max(np.abs(g - w)))
+                     for g, w in zip(got.gmm, want.gmm)])
+    ok = (got.winner == want.winner and got.n_channels == want.n_channels
+          and max(rel.values()) <= FAMILY_TOL["bics"]
+          and np.array_equal(got.rho == 0, want.rho == 0)
+          and rho_rel <= FAMILY_TOL["rho"] and gmm_rel <= FAMILY_TOL["gmm"]
+          and again.bics == got.bics
+          and all(np.array_equal(a, b) for a, b in zip(again.gmm, got.gmm)))
+    margin = cs.bic_margin(want.bics)
+
+    def kern():
+        return fs.family_score(*hist, min_obs=8, max_rho=8.0)
+
+    ms = _time_cuda(kern, reps=7)
+    dev_ms = _device_ms(kern, reps=10)
+    t_plain = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        bayes.score_families(rates, works, mask)
+        t_plain.append(1e3 * (time.perf_counter() - t1))
+    plain_ms = sorted(t_plain)[2]
+    bound_ms, by = _family_bound(N, K)
+    log(f"[cluster] family_score {tag}: winner {got.winner} (numpy "
+        f"{want.winner}), channels {got.n_channels}/{want.n_channels}, BIC "
+        f"rel " + " ".join(f"{f} {r:.1e}" for f, r in rel.items())
+        + f", rho rel {rho_rel:.1e}, mixture rel {gmm_rel:.1e}; margin "
+        f"{margin:.3e}" + ("  ok" if ok else "  FAIL")
+        + f"; kernel {ms:.4f} ms (device "
+        + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
+        + f") numpy (host) {plain_ms:.3f} ms bound {bound_ms:.3e} ms ({by})")
+    if not ok:
+        fails.append(f"family_score {tag}")
+    return {"tag": tag, "N": N, "K": K, "winner": got.winner,
+            "bic_rel": rel, "rho_rel": rho_rel, "gmm_rel": gmm_rel,
+            "bic_margin": margin, "max_abs_err": max_abs, "ok": ok,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
 def phase_cluster(ctx):
     """``bench.cluster_scale.run(smoke=False)`` on the card: the policy
     comparison at 64 / 256 / 1024 channels with the hotspot (frontier beats
     equal on mean and p99, asserted inside), and the fleet ticks at K=1024,
     F=4096, T=256 against their plain and autograd foils (gradient parity
-    asserted inside). The auto-family ratio is printed, not gated here; the
-    benchmark's sweep section runs in phase ``sweep``, so no launch here
-    takes a swept split."""
+    asserted inside), then family_score against the numpy and the
+    benchmark's gate (``check_gates``: the auto-family tick at most 1.2x the
+    fixed one); the benchmark's sweep section runs in phase ``sweep``, so no
+    launch here takes a swept split."""
     import torch
     from repro_torch.bench import cluster_scale, common
     from repro_torch.kernels import frontier_grid as fg
     common.RESULTS_DIR = os.path.join(OUT_DIR, "cluster_scale")
     torch.cuda.synchronize()
     fg.reset_launches()
+    _reset_port()
     t0 = time.perf_counter()
     with _LaunchRecorder() as rec:
         # its sweep section runs in the sweep phase, into a file of its own
@@ -3160,7 +3551,9 @@ def phase_cluster(ctx):
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
     calls = dict(fg.LAUNCHES)
+    port = _port_launches()
     ctx["cluster_launches"] = calls
+    ctx["cluster_port_launches"] = port
     fails = []
     shapes = _hold_recorded("cluster", rec, fails)
     with open(os.path.join(OUT_DIR, "cluster_scale.json"), "w") as fh:
@@ -3175,12 +3568,28 @@ def phase_cluster(ctx):
     log(f"[cluster] pgd_speedup_vs_autodiff {res['pgd_speedup_vs_autodiff']:.3f}"
         f" (grad rel L2 {res['grad_rel_l2']:.1e}); auto_family_tick_overhead "
         f"{res['auto_family_tick_overhead']:.3f} (family "
-        f"{res['auto_family']}; the benchmark's main() gates it at 1.2); "
-        f"frontier calls {calls}; {wall:.1f} s")
-    ctx["cluster"] = {k: v for k, v in res.items() if k != "skipped"}
-    ctx["cluster"].update(wall_s=wall, path_shapes=shapes)
+        f"{res['auto_family']}, relative BIC margin over the runner-up "
+        f"{res['auto_bic_margin']:.3e}); frontier calls {calls}, {port}; "
+        f"{wall:.1f} s")
     if calls["grad"] <= 0 or calls["fwd"] <= 0:
         fails.append(f"a frontier kernel never launched: {calls}")
+    if port["family_score"] <= 0:
+        fails.append(f"the auto-family tick never scored on the card: {port}")
+    families = [_family_hold(tag, win, fails)
+                for tag, win in _family_windows()]
+    ctx.setdefault("port_kernels", {})["family_score"] = {
+        **families[0], "max_abs_err": max(f["max_abs_err"]
+                                          for f in families)}
+    try:
+        cluster_scale.check_gates(res)
+        log(f"[cluster] check_gates: auto_family_tick_overhead "
+            f"{res['auto_family_tick_overhead']:.3f} <= 1.2")
+    except AssertionError as e:
+        log(f"[cluster] check_gates FAILED: {e}")
+        fails.append(f"cluster_scale.check_gates: {e}")
+    ctx["cluster"] = {k: v for k, v in res.items() if k != "skipped"}
+    ctx["cluster"].update(wall_s=wall, path_shapes=shapes,
+                          port_launches=port, family_checks=families)
     if fails:
         raise AssertionError(f"cluster phase failed: {fails}")
 
@@ -3256,16 +3665,21 @@ def phase_trace(ctx):
     from repro_torch.workflow import solve_dag
     fails, out = [], {}
     total = {m: 0 for m in fg.LAUNCHES}
+    port = {m: 0 for m in _port_launches()}
 
     def counted(fn):
         """``fn()`` as a path run: its launches, counted from zero, join
-        the phase's total."""
+        the phase's totals."""
         torch.cuda.synchronize()
         fg.reset_launches()
+        _reset_port()
         r = fn()
         torch.cuda.synchronize()
         for m in total:
             total[m] += fg.LAUNCHES[m]
+        got = _port_launches()
+        for m in port:
+            port[m] += got[m]
         return r
 
     def spans_by_mode(recs, within=None):
@@ -3545,8 +3959,12 @@ def phase_trace(ctx):
         if env is not None:
             os.environ[san.ENV_VAR] = env
     ctx["trace_launches"] = total
+    ctx["trace_port_launches"] = port
     ctx["trace"] = out
-    log(f"[trace] frontier calls {total}")
+    log(f"[trace] frontier calls {total}, {port}")
+    if port["compose_grads"] <= 0:
+        fails.append(f"the traced runs never launched the composition's "
+                     f"kernel: {port}")
     if fails:
         raise AssertionError(f"trace phase failed: {fails}")
 
@@ -3673,6 +4091,141 @@ def phase_sweep(ctx):
         raise AssertionError(f"sweep phase failed: {fails}")
 
 
+# the model of the examples phase's full-width batcher (the path's arch)
+EXAMPLES_ARCH = "smollm-360m"
+
+
+def phase_examples(ctx):
+    """The ported examples and the suite harness on the card (see the
+    module docstring), then the engine demo's kill/restore against an
+    unkilled run and the full-width model at the batcher's shapes against
+    the plain ops."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import common, file_transfer, quickstart
+    from repro_torch.bench import partitioned_training as parttrain
+    from repro_torch.bench import run as harness
+    from repro_torch.bench import serve_partitioned as sp
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import frontier_grid as fg
+    out_dir = os.path.join(OUT_DIR, "examples")
+    common.RESULTS_DIR = out_dir
+    fails, secs = [], {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[examples] {name}: {secs[name]:.1f} s")
+        return r
+
+    cfg = get_config(EXAMPLES_ARCH)
+    torch.cuda.synchronize()
+    _reset_all()
+    _reset_port()
+    qs = timed("quickstart", lambda: quickstart.run(device="cuda"))
+    ft = timed("file_transfer", lambda: file_transfer.run(device="cuda"))
+    pt = timed("partitioned_training",
+               lambda: parttrain.run(device="cuda"))
+    eng = timed("serve_partitioned --engine", lambda: sp.run_engine_demo(
+        device="cuda", ckpt_dir=os.path.join(out_dir, "engine_killed")))
+    bat = timed("serve_partitioned --execute (full width)",
+                lambda: sp.run_batcher(cfg, execute=True, device="cuda"))
+    timed("run --only fig1,parttrain", lambda: harness.main(
+        ["--only", "fig1,parttrain", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    counts = {**fg.LAUNCHES, **_lm_launches(), **_port_launches()}
+    ctx["examples_launches"] = counts
+    log(f"[examples] launches {counts}")
+    need = ("fwd", "grad", "compose_grads", "rmsnorm", "flash_attention",
+            "flash_decode")
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        fails.append(f"the examples never launched {missing}")
+
+    for policy, r in qs["policies"].items():
+        log(f"[examples] quickstart {policy}: split "
+            f"{np.round(r['weights'], 3).tolist()} join mean {r['mean']:.4f} "
+            f"var {r['var']:.4f} p99 {r['p99']:.4f}")
+    log(f"[examples] file_transfer: E[T] {ft['decision'].makespan_mu:.4f} "
+        f"(single path {ft['single'].makespan_mu:.4f}, equal "
+        f"{ft['equal'].makespan_mu:.4f}), MC {ft['mc_mean']:.4f} (rel "
+        f"{ft['mc_rel_mu_err']:.2%}), speedup {ft['speedup']:.3f}x")
+    log(f"[examples] partitioned_training: " + "; ".join(
+        f"{p} join {m:.4f} var {v:.4f} {t:.3f} microbatches/s"
+        for p, (m, v, t) in pt.items()))
+    lat = bat["latencies"]
+    log(f"[examples] serve_partitioned full width: equal mean "
+        f"{lat['equal'].mean():.4f} s, frontier {lat['frontier'].mean():.4f}"
+        f" s (-{bat['imp_mu']:.1%}); {bat['tokens']} tokens generated in "
+        f"{bat['generate_s']:.2f} s ({bat['tokens'] / bat['generate_s']:.1f} "
+        f"tokens/s, {len(bat['generated'])} batches)")
+
+    # the demo's kill/restore against the same trace unkilled
+    whole = sp.run_engine_demo(device="cuda", kill=False, ckpt_dir=os.path.join(
+        out_dir, "engine_whole"))
+    clock = "solver_tick_us"
+    same = (eng["ticks"] == whole["ticks"]
+            and {k: v for k, v in eng["summary"].items() if k != clock}
+            == {k: v for k, v in whole["summary"].items() if k != clock})
+    log(f"[examples] engine demo killed and restored at tick "
+        f"{len(eng['ticks']) // 2 + 1} against the unkilled run: "
+        + ("bitwise" if same else "DIFFERENT"))
+    if not same:
+        fails.append("engine demo kill/restore")
+
+    # the full-width model through the kernels against the plain ops at
+    # the batcher's shapes: a prefill of 32 prompts of 12 tokens into a
+    # cache of 20, then 7 decode steps on the same tokens
+    model, init_s, n_params = _build_full(cfg, "examples")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (32, 19)),
+                           device="cuda")
+
+    def generate():
+        lpre, cache = model.prefill(toks[:, :12], cache_len=20)
+        ldec = torch.cat([model.decode_step(cache, toks[:, t:t + 1])[0]
+                          for t in range(12, 19)], 1)
+        return lpre, ldec
+
+    with torch.inference_mode():
+        pk, dk = generate()
+        with _plain_ops():
+            pp, dp = generate()
+    rel, agree = _hold_logits(
+        "examples", f"full-width {cfg.name} prefill (32 x 12), kernels vs "
+        f"plain on the card", pk, pp, cfg)
+    drel, dagree = _hold_logits(
+        "examples", f"full-width {cfg.name} 7 decode steps (32 x 1, cache "
+        f"20), kernels vs plain on the card", dk, dp, cfg)
+    del model, pk, dk, pp, dp
+    torch.cuda.empty_cache()
+    ctx["examples"] = {
+        "seconds": secs, "launches": counts,
+        "quickstart": {p: {**r, "weights": np.asarray(r["weights"]).tolist()}
+                       for p, r in qs["policies"].items()},
+        "file_transfer": {"makespan_mu": ft["decision"].makespan_mu,
+                          "single_mu": ft["single"].makespan_mu,
+                          "equal_mu": ft["equal"].makespan_mu,
+                          "mc_mean": ft["mc_mean"],
+                          "mc_rel_mu_err": ft["mc_rel_mu_err"]},
+        "partitioned_training": {p: list(map(float, v))
+                                 for p, v in pt.items()},
+        "engine_summary": {k: v for k, v in eng["summary"].items()
+                           if k != clock},
+        "engine_restore_bitwise": same,
+        "batcher": {"equal_mean": float(lat["equal"].mean()),
+                    "frontier_mean": float(lat["frontier"].mean()),
+                    "tokens": bat["tokens"], "generate_s": bat["generate_s"]},
+        "full_width": {"arch": cfg.name, "params": n_params,
+                       "rel_l2": rel, "argmax_agreement": agree,
+                       "decode_rel_l2": drel,
+                       "decode_argmax_agreement": dagree}}
+    if fails:
+        raise AssertionError(f"examples phase failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3709,7 +4262,8 @@ def main(argv=None):
            "engine": phase_engine, "chaos": phase_chaos,
            "trace": phase_trace, "group": phase_group,
            "straggler": phase_straggler, "paper": phase_paper,
-           "cluster": phase_cluster, "sweep": phase_sweep}
+           "cluster": phase_cluster, "sweep": phase_sweep,
+           "examples": phase_examples}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -3734,7 +4288,8 @@ def main(argv=None):
                                           ("paper", "paper_launches"),
                                           ("cluster", "cluster_launches"),
                                           ("trace", "trace_launches"),
-                                          ("sweep", "sweep_launches"))
+                                          ("sweep", "sweep_launches"),
+                                          ("examples", "examples_launches"))
              if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
@@ -3755,14 +4310,35 @@ def main(argv=None):
             path.setdefault(r["kernel"], r)
     for key, (name, source, replaces, phase) in LM_KERNELS.items():
         r = path.get(key, {})
+        by_path = {p: ctx[f"{p}_launches"][key] for p in (phase, "examples")
+                   if f"{p}_launches" in ctx}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": ctx.get(f"{phase}_launches", {}).get(key),
+            "launches": sum(by_path.values()) if by_path else None,
+            "launches_by_path": by_path,
             "max_abs_err": ctx.get("lm_max_abs_err", {}).get(key),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms")})
+    # the port's kernels with no Pallas counterpart: compose_grads at the
+    # 32-stage refine shape, family_score at the fleet tick's history
+    port_paths = {p: ctx[k] for p, k in (
+        ("dag", "dag_port_launches"), ("wfloop", "wfloop_port_launches"),
+        ("chaos", "chaos_port_launches"), ("trace", "trace_port_launches"),
+        ("cluster", "cluster_port_launches"),
+        ("examples", "examples_launches")) if k in ctx}
+    for name, (source, replaces) in PORT_KERNELS.items():
+        r = ctx.get("port_kernels", {}).get(name, {})
+        by_path = {p: c[name] for p, c in port_paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(by_path.values()) if by_path else None,
+            "launches_by_path": by_path,
+            "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+            "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+            "bound_by": r.get("bound_by"), "library_ms": None})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"smi": ctx.get("smi"), "kernels": kernels,
                    "main_path_ms": ctx.get("main_path_ms"),
@@ -3785,6 +4361,8 @@ def main(argv=None):
                    "paper": ctx.get("paper"), "cluster": ctx.get("cluster"),
                    "trace": ctx.get("trace"), "sweep": ctx.get("sweep"),
                    "wfloop_launches": ctx.get("wfloop_launches"),
+                   "examples": ctx.get("examples"),
+                   "port_kernels": ctx.get("port_kernels"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -25,7 +25,8 @@ T and steps cut.
     PYTHONPATH=src python -m repro_torch.bench.dag_scale --json   # the card
 
 ``--json`` writes ``experiments/torch/dag_scale.json`` (``_smoke`` for the
-smoke run), never a repository-root ``BENCH_*.json``.
+smoke run), never a repository-root ``BENCH_*.json``. At full scale
+``main`` then asserts the reference's four gates (:func:`check_gates`).
 """
 from __future__ import annotations
 
@@ -203,6 +204,18 @@ def run(smoke: bool = False, device="cuda", repeats=None,
     }
 
 
+def check_gates(res: dict) -> None:
+    """The reference's acceptance gates, in its order: one batched stage
+    path, joint beats greedy on the expected makespan by at least 0.088%
+    and on wall clock, and the scale point has 512 stages. Raises
+    AssertionError on the first that fails."""
+    assert res["single_batched_path"], res["family_groups"]
+    assert res["improvement_pct"] >= 0.088, res["improvement_pct"]
+    assert res["joint_vs_greedy_wallclock_ratio"] <= 1.0, \
+        res["joint_vs_greedy_wallclock_ratio"]
+    assert res["scale_point"]["stages"] == 512, res["scale_point"]
+
+
 def _jsonable(res: dict) -> dict:
     out = dict(res)
     out["weights"] = {m: {n: np.asarray(w).tolist() for n, w in ws.items()}
@@ -232,6 +245,10 @@ def main(argv=None):
     print(json.dumps({k: res[k] for k in (
         "improvement_pct", "realized_improvement_pct",
         "joint_vs_greedy_wallclock_ratio", "family_groups")}))
+    if not args.smoke:
+        # the gates last, after the JSON is on disk, at full scale only (the
+        # smoke scale is solve-starved: its margins mean nothing)
+        check_gates(res)
     return res
 
 

@@ -10,7 +10,9 @@ the updates are elementwise tensor arithmetic over the whole fleet.
 :func:`nig_estimate_ses` gives the standard errors of the point estimates
 the solver consumes (what ``core.sensitivity`` prices), and
 :func:`score_families` selects the completion-time family online by BIC over
-the observed (rate, work) history, in float64 numpy on the host.
+the observed (rate, work) history: on the card in one call of the
+``family_score`` kernel (``kernels/family_score.py``), on the CPU in float64
+numpy on the host, the kernel's plain version (bitwise the JAX package's).
 """
 from __future__ import annotations
 
@@ -196,9 +198,21 @@ def _em_batch(x: np.ndarray, mask: np.ndarray, C: int = 3, iters: int = 16,
     return take(pis), take(mus), np.sqrt(take(vars_)), ll
 
 
-def score_families(rates: np.ndarray, works: np.ndarray, mask: np.ndarray,
-                   min_obs: int = 8, max_rho: float = 8.0,
-                   families=AUTO_FAMILIES) -> Optional[FamilyScores]:
+def _on_card(device, arrays) -> Optional[torch.device]:
+    """The CUDA device a scoring pass runs on, or None for the host:
+    ``device`` when given, else the device of any tensor input."""
+    if device is not None:
+        dev = resolve_device(device)
+        return dev if dev.type == "cuda" else None
+    for a in arrays:
+        if isinstance(a, torch.Tensor) and a.is_cuda:
+            return a.device
+    return None
+
+
+def score_families(rates, works, mask, min_obs: int = 8,
+                   max_rho: float = 8.0, families=AUTO_FAMILIES,
+                   device=None) -> Optional[FamilyScores]:
     """BIC-score the candidate families on (N, K) windows of rates, the
     work shares they were observed under, and validity masks.
 
@@ -207,7 +221,44 @@ def score_families(rates: np.ndarray, works: np.ndarray, mask: np.ndarray,
     (k = 3), and a 3-component mixture (k = 8); BIC = k ln n - 2 ln L
     summed over channels with at least ``min_obs`` observations. None when
     no channel has enough history yet.
+
+    The windows are numpy arrays or tensors. On a CUDA ``device`` (or, with
+    ``device=None``, when an input is a CUDA tensor) the ``family_score``
+    kernel scores all four families in one call and one host read, and
+    raises rather than fall back; otherwise the numpy below runs on the
+    host (:func:`_score_families_np`). ``rho`` and ``gmm`` come back as
+    numpy arrays either way.
     """
+    dev = _on_card(device, (rates, works, mask))
+    if dev is None:
+        return _score_families_np(
+            *(a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+              for a in (rates, works, mask)),
+            min_obs=min_obs, max_rho=max_rho, families=families)
+    from ..kernels import family_score as fs
+    from .distributions import EMP_COMPONENTS
+    assert EMP_COMPONENTS == fs.COMPONENTS
+    got = fs.family_score(*(torch.as_tensor(a, dtype=torch.float64,
+                                            device=dev)
+                            for a in (rates, works, mask)),
+                          min_obs=min_obs, max_rho=max_rho)
+    if got.n_channels == 0:
+        return None
+    bics = {f: float(b) for f, b in zip(fs.FAMILY_ORDER, got.bics)
+            if f in families}
+    winner = min(bics, key=bics.get)
+    rho = got.rho if "drift" in families else np.zeros(got.rho.shape)
+    gmm = got.gmm if "empirical" in families else None
+    return FamilyScores(bics=bics, winner=winner, n_channels=got.n_channels,
+                        rho=rho, gmm=gmm)
+
+
+def _score_families_np(rates: np.ndarray, works: np.ndarray,
+                       mask: np.ndarray, min_obs: int = 8,
+                       max_rho: float = 8.0,
+                       families=AUTO_FAMILIES) -> Optional[FamilyScores]:
+    """:func:`score_families` in float64 numpy on the host: the
+    ``family_score`` kernel's plain version."""
     rates = np.asarray(rates, np.float64)
     works = np.asarray(works, np.float64)
     mask = np.asarray(mask, np.float64)

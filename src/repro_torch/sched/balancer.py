@@ -6,7 +6,8 @@ completion time, turns their point estimates into frontier weights through
 
 * ``family="auto"`` selects the completion-time family online: a bounded
   (rate, work) history is BIC-scored every ``auto_every`` observations
-  (``core.bayes.score_families``) and a challenger must win ``hysteresis``
+  (``core.bayes.score_families`` on ``device``: the ``family_score``
+  kernel on the card) and a challenger must win ``hysteresis``
   passes in a row before the balancer switches; a switch invalidates the
   cached solve.
 * ``adaptive_refresh=True`` sizes the refresh cadence by the delta-method
@@ -183,7 +184,8 @@ class UncertaintyAwareBalancer:
         scores = score_families(np.stack(self._hist_rates),
                                 np.stack(self._hist_work),
                                 np.stack(self._hist_mask),
-                                min_obs=self.auto_min_obs)
+                                min_obs=self.auto_min_obs,
+                                device=self.device)
         if scores is None:
             return
         self._last_scores = scores

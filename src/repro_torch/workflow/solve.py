@@ -13,9 +13,13 @@ feeds a join can trade a little expected time for less spread.
    call per family group (two or three kernel launches on the card), never
    one per stage.
 2. **Compose.** The per-stage ``(mu, var)`` flow through
-   ``dag.compose_structure`` to the makespan; autograd runs over those
-   O(S) series adds and Clark folds only, and the kernel adjoints chain by
-   hand: ``dL/dW_s = dL/dmu_s dmu_s/dW_s + dL/dvar_s dvar_s/dW_s``.
+   ``dag.compose_structure`` to the makespan; the refine step needs that
+   composition's cotangents in the stage moments, which on the card one
+   launch of the ``compose_grads`` kernel computes (``kernels/compose.py``:
+   the O(S) series adds and Clark folds and their reverse pass, bit for bit
+   the plain version's) and on the CPU autograd over the same folds
+   (:func:`_compose_grads_plain`); the kernel adjoints chain by hand:
+   ``dL/dW_s = dL/dmu_s dmu_s/dW_s + dL/dvar_s dvar_s/dW_s``.
 3. **Descend.** Projected gradient on all stage simplices at once (masked
    Held projection), cosine step decay, multi-start, warm-startable.
 
@@ -54,7 +58,7 @@ from ..core.distributions import (family_from_extra, remaining_work_stats,
                                   resolve_family)
 from ..core.partitioner import optimize_weights
 from ..device import resolve_device
-from ..kernels import ops
+from ..kernels import compose, ops
 from ..obs import names as obs_names
 from .dag import StageDAG, compose_structure
 
@@ -163,11 +167,17 @@ def _stage_groups(dag: StageDAG) -> Tuple[List[_Group], np.ndarray, int]:
 class _Stacks:
     """The groups' statistics on the device, tiled over R starts on demand
     in the JAX package's ``(r, j)`` row order (row ``r n + j`` is start r,
-    stage j of the group)."""
+    stage j of the group). Given the DAG's ``structure`` on a CUDA device,
+    ``compose`` holds its arrays for the ``compose_grads`` kernel, uploaded
+    once for the solve (else None)."""
 
-    def __init__(self, groups: List[_Group], device: torch.device):
+    def __init__(self, groups: List[_Group], device: torch.device,
+                 structure=None):
         self.groups = groups
         self.device = device
+        self.compose = (compose.encode(structure, device)
+                        if structure is not None and device.type == "cuda"
+                        else None)
         self.stats = [tuple(torch.tensor(a, dtype=torch.float32,
                                          device=device)
                             for a in (g.mus, g.sigmas, g.extra))
@@ -254,10 +264,24 @@ def _stage_moments(W, stacks: _Stacks, num_t: int,
     return smu, svar
 
 
-def _compose_grads(structure, smu, svar, lam32: float):
+def _compose_grads(structure, smu, svar, lam32: float,
+                   enc: Optional[compose.Encoded] = None):
     """``(losses (R,), d/dsmu, d/dsvar)`` of ``mk_mu + lam mk_var`` through
-    the composition: autograd over the folds, one scalar (the sum over
-    starts, which are independent) differentiated once."""
+    the composition. On the card one launch of the ``compose_grads``
+    kernel (``kernels/compose.py``) over ``enc``, the structure's uploaded
+    arrays (encoded here when not given), which raises rather than fall
+    back; on the CPU its plain version, :func:`_compose_grads_plain`."""
+    if smu.is_cuda:
+        if enc is None:
+            enc = compose.encode(structure, smu.device)
+        return compose.compose_grads(enc, smu, svar, lam32)
+    return _compose_grads_plain(structure, smu, svar, lam32)
+
+
+def _compose_grads_plain(structure, smu, svar, lam32: float):
+    """The kernel's plain version: autograd over the folds of
+    ``compose_structure``, one scalar (the sum over starts, which are
+    independent) differentiated once."""
     with torch.enable_grad():
         m = smu.detach().requires_grad_(True)
         v = svar.detach().requires_grad_(True)
@@ -310,7 +334,8 @@ def _pgd_phase(structure, stacks: _Stacks, masks, W0, upd_np, lam_var: float,
         smu, svar, dmu, dvar = _stage_moments_grads(W, stacks, num_t,
                                                     block_rows)
         if composed:
-            losses, g_mu, g_var = _compose_grads(structure, smu, svar, lam32)
+            losses, g_mu, g_var = _compose_grads(structure, smu, svar, lam32,
+                                                 stacks.compose)
             G = g_mu[..., None] * dmu + g_var[..., None] * dvar
         else:
             losses = torch.sum(smu, dim=1)
@@ -591,7 +616,7 @@ def solve_dag(dag: StageDAG, lam_var: float = 0.0, steps: int = 120,
                            for s in dag.stages], np.float32)
 
     groups, mask, kmax = _stage_groups(dag)
-    stacks = _Stacks(groups, dev)
+    stacks = _Stacks(groups, dev, dag.structure)
     masks = torch.tensor(mask, device=dev)
     W0_np = _starts(dag, mask, kmax, restarts, warm_start, seed, upd=upd_np)
     sanitize = _san.enabled()
