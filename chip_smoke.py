@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases card,build,check
     python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
     python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
+    python3 chip_smoke.py --phases card,build,lmcheck,moeserve,zoo
     python3 chip_smoke.py --phases card,build,dag,wfloop
     python3 chip_smoke.py --phases card,build,engine,chaos
     python3 chip_smoke.py --phases card,build,group,straggler,paper,cluster
@@ -56,11 +57,17 @@ Phases, in order:
    (16 heads, q and k of 192, v of 128); decode with one and several
    splits, whole splits invalid, S = 4096; SmolLM-360M's attention, decode
    (Hkv 5, G 3, D 64, a cache of 20) and norms (d_model 960) at the
-   ``examples`` batcher's shapes; for ssd_scan y and the final
+   ``examples`` batcher's shapes; the zoo's: Whisper-large-v3's encoder
+   (1500 x 1500, non-causal, D 64), cross-attention (16 x 1500) and
+   decodes (G 1, self S 23 and cross S 1500), Qwen3-MoE's G = 16 decode,
+   InternVL2's prefill of 256 + 16 and G = 8 decode, DeepSeek-V2-Lite's
+   norms (512, 2048); for ssd_scan y and the final
    state at ragged S, S >= 1024, G = 2, chunks of 16/64/128 and
    Mamba2-2.7B's own shapes in one, two and many groups of chunks; dead
-   rows give 0; the tiny Qwen3 and Mamba2 configs on the card against the
-   same weights on the CPU (prefill logits and greedy tokens).
+   rows give 0; the tiny Qwen3, Mamba2, DeepSeek-V2-Lite, Qwen3-MoE and
+   Jamba configs on the card against the same weights on the CPU (prefill
+   logits and greedy tokens), and the tiny Whisper and InternVL2 with
+   their frames and patches (prefill and 4 decode steps' logits).
 10. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
    bf16, seeded weights drawn on the card) shared by two ReplicaGroups
    behind a PartitionedBatcher (policy frontier) on ClusterSim([Channel(20,
@@ -82,7 +89,29 @@ Phases, in order:
    through the batcher, with ssd_scan (64 per prefill), rmsnorm (129 per
    forward) and the frontier forward kernel counted; two generate calls
    must agree; one group's generate profiled.
-12. ``lmtick`` — each model kernel's time at the path's shapes and at the
+12. ``moeserve`` — the same serving path with DeepSeek-V2-Lite-16B at full
+   size, not cut (27 layers: a dense first layer, then MLA with 64 routed
+   and 2 shared experts, top-6; bf16, ~15.7 B seeded weights on the card).
+   On 2 x 16 tokens: every layer on the kernel path's own input, its
+   update through the kernels against the plain versions (held at
+   relative L2 < 0.1), then ``prefill`` at 4, 9, 14 and 27 layers (held at
+   full depth, reported at the others), each with the share of routing
+   choices that differ between the two paths, layer by layer. Then 5
+   batches of 64 prompts of 16 tokens, max_new 8, through the batcher:
+   flash_attention (27 a prefill, the (192, 128) instance: its profiler
+   name is checked) and rmsnorm (82 a forward) counted exactly, no
+   flash_decode (the absorbed MLA decode is plain matmuls); two generate
+   calls must agree; one group's generate profiled, and once more with
+   each MoE block in a profiler range (the blocks' share of device time).
+13. ``zoo`` — Whisper-large-v3 at full size (32 + 32 layers, d_model 1280,
+   1500 bf16 stub frames), Qwen3-MoE-235B-A22B (d_model 4096, 128 experts
+   top-8, GQA 64/4 with qk_norm) and InternVL2-76B (d_model 8192, 256
+   prepended patch embeddings) at full width cut to 8 layers, one after
+   the other, each freed before the next: a prefill of 2 x 16 tokens and 7
+   decode steps through the kernels against the plain versions (relative
+   L2 < 0.1), every model kernel's launches counted and held to the count
+   the model's code makes.
+14. ``lmtick`` — each model kernel's time at the path's shapes and at the
    serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
    32768 x 4096 norms; ssd_scan at prefill_32k with B=8 and long_500k at
    B=1, each with its group split, blocks, launches per call and device
@@ -100,8 +129,12 @@ Phases, in order:
    decode_32k (once more there with its first split invalid), and at the
    path's shapes their device time per call under torch.profiler (no
    launch path) and their host time per call (the launch path) stand
-   beside SDPA's.
-13. ``dag``   — the workflow DAG's joint solve (``repro_torch.bench.dag_scale``
+   beside SDPA's. The zoo's shapes too: DeepSeek-V2-Lite's MLA prefill
+   (D 192, Dv 128) at a group's serving shape, Whisper's encoder, cross
+   prefill and decodes, Qwen3-MoE's G = 16 decode and InternVL2's prefill
+   and G = 8 decode, each held against its plain version, with SDPA
+   where it takes the shape, and DeepSeek-V2-Lite's and Whisper's norms.
+15. ``dag``   — the workflow DAG's joint solve (``repro_torch.bench.dag_scale``
    at full scale: 32 stages, a source, 10 branches of 3 and a sink, K=256,
    T=256, 60 steps, one restart, eval_num_t 2048, 200 paired WorkflowSim
    trials; DAG_REPEATS warm solves each of joint and greedy; the 512-stage
@@ -130,14 +163,14 @@ Phases, in order:
    after). Last, ``dag_scale.check_gates``: the reference's four gates
    (one batched path, improvement >= 0.088%, joint/greedy wall clock
    <= 1.0, a 512-stage scale point); the phase fails if any fails.
-14. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
+16. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
    ``WorkflowSim.from_dag`` for WF_TICKS ticks, refresh_every=5, then
    adaptive refresh with risk_lam=0.5, then that with dirty_tol=1 (the
    incremental path; WF_CONFIGS says why), one stage slowed 3x at
    WF_SLOW_AT: tick mean, solves per tick, dirty-set sizes, the solves'
    relative fragility, launches. Every mode must have launched, and a
    refresh with an empty dirty set launches no PGD step.
-15. ``engine`` — the serving path: ``repro_torch.bench.serve_trace`` at
+17. ``engine`` — the serving path: ``repro_torch.bench.serve_trace`` at
    full scale on the card (the continuous-batching ``WorkflowEngine``, 3
    templates in 3 families, 120 ticks, up to 320 live, T=128, bursty
    arrivals, stage churn), launch counters zeroed before and read after.
@@ -159,14 +192,14 @@ Phases, in order:
    launches must agree and join latencies to 1e-4 relative (a dirty_tol
    decision that flips between the two is printed with its tick, instance
    and drift; only ticks before the first flip are then held).
-16. ``chaos`` — kill/restore parity on the card: ``sim.chaos`` on a
+18. ``chaos`` — kill/restore parity on the card: ``sim.chaos`` on a
    6-channel fleet with churn, on a defective fleet, on the dag_scale smoke
    DAG (8 stages, K=32) with stage churn, and a ``WorkflowEngine`` killed
    every ENGINE_KILL_EVERY ticks through ``save_pipeline`` /
    ``restore_pipeline``; every restored decision must equal the
    survivor's bit for bit. Then the full ``bench.fault_trace`` (12
    channels, 300 ticks): the failure-aware solve must beat the blind one.
-17. ``trace`` — the port's tracing and sanitizer on the card: the full
+19. ``trace`` — the port's tracing and sanitizer on the card: the full
    serve_trace traced (``obs``, a tracer of TRACE_CAPACITY records) against
    the ``engine`` phase's untraced run (run untraced here when that phase
    did not run): every tick's admissions, retirements (iids and join
@@ -184,7 +217,7 @@ Phases, in order:
    SANITIZE_MAX_READS added device syncs a solve, a NaN in mus raising
    before any launch, a NaN gradient planted at step SANITIZE_NAN_STEP (by
    wrapping ``ops.frontier_moments_with_grads`` here) raising named.
-18. ``group`` — the channel-count selection: the forward and adjoint
+20. ``group`` — the channel-count selection: the forward and adjoint
    kernels at K = 1 (F = 1 and 8, T = 2048), all five families, against
    their plain versions (off the path: a one-channel subset takes the
    plain quadrature); then ``select_channels`` on
@@ -196,20 +229,20 @@ Phases, in order:
    Then the first call of each (mode, family, F, K, T) the path made, its
    inputs kept as it ran, again through the kernel (twice: the bits
    repeat) against its plain version at the frontier tolerances.
-19. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
+21. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
    drift modes (16 channels, a 4x straggler at step 60, a hard failure at
    120, two joins at 160, 240 steps): the straggler flagged and quarantined
    or priced as drift, the failure removed, the joins admitted, every split
    a simplex; join statistics before and after, tick times; then each
    shape the scenario launched held as in ``group`` (K = 16, 15 after the
    failure, 17 after the joins; normal and drift).
-20. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
+22. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
    ``fig2_frontier``, ``fig34_convex_opt``, ``fig56_file_transfer``) on the
    card with their own assertions, held against the CPU plain path (Figs 1
    and 2 mu 1e-4 and var 1e-3 relative, the same efficient mask; the
    simulated columns bit for bit; the joined MSE 1e-4 relative), and the
    201-row Fig 1 call timed (event pair, device, host) beside its bound.
-21. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
+23. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
    policy comparison at 64 / 256 / 1024 channels (frontier beats equal on
    mean and p99), the fleet ticks at K=1024, F=4096, T=256 against the
    plain foil and autograd (gradient parity 1e-4), the family ticks and the
@@ -226,7 +259,7 @@ Phases, in order:
    its bound and the numpy's host time. Then
    ``cluster_scale.check_gates``: the phase fails if the auto-family tick
    costs more than 1.2x the fixed one.
-22. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
+24. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
    (K=1024, F=4096, T=256; fwd, grad through
    ``bench.cluster_scale.tick_sweep``, pgrad) and a refresh's shapes (fwd
    F=3 T=2048, grad F=3 T=1024, pgrad F=1 T=1024), normal family, into a
@@ -238,7 +271,7 @@ Phases, in order:
    with them and restored (its next decision bitwise the survivor's), and
    the in-process cache restored, so no other phase launches a swept
    split.
-23. ``examples`` — the ported examples and harness on the card, counters
+25. ``examples`` — the ported examples and harness on the card, counters
    zeroed before and read after: ``bench.quickstart``,
    ``bench.file_transfer`` (its two asserts), ``bench.partitioned_training``
    (its two asserts), ``bench.serve_partitioned`` ``--engine`` (the
@@ -260,7 +293,9 @@ y and every final state, 1e-2 for bf16 y); the tiny models on the card
 against the CPU at atol 2e-4 / rtol 2e-3; the full-width bf16 prefills
 through the kernels against the plain versions, and Mamba2's decode
 continuation against its forward, at relative L2 < 0.1 (Mamba2: every
-layer at full depth, and end to end up to SSM_E2E_LAYERS layers). The
+layer at full depth, and end to end up to SSM_E2E_LAYERS layers;
+DeepSeek-V2-Lite: every layer's update and end to end at full depth; the
+zoo's prefills and decode steps end to end). The
 workflow DAG: the card's composed makespan against the plain path's on the
 CPU, mu 1e-4 and var 1e-3 relative; ``compose_grads`` against its plain
 version on the card, losses 1e-6 relative and each gradient 1e-5 relative
@@ -277,7 +312,8 @@ zero just before it runs (``loop``, ``dag``, ``wfloop``, ``engine``: the
 ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
 ``cluster``, ``trace``: its traced and sanitized runs, ``sweep``,
 ``examples``), and its ``launches_by_path`` gives each path's count; a
-model kernel's sums its serving phase's and ``examples``'; ``compose_grads``
+model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
+``moeserve``, ``zoo``: its kernel paths, ``examples``); ``compose_grads``
 sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
@@ -295,7 +331,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
-          "twoch", "lmcheck", "serve", "ssmserve", "lmtick", "dag", "wfloop",
+          "twoch", "lmcheck", "serve", "ssmserve", "moeserve", "zoo",
+          "lmtick", "dag", "wfloop",
           "engine", "chaos", "trace", "group", "straggler", "paper",
           "cluster", "sweep", "examples")
 
@@ -883,18 +920,23 @@ def phase_twoch(ctx):
 
 
 # ---------------------------------------------------------------- model zoo
-# Model kernels: JSON name, source, the Pallas kernel each replaces, and the
-# serving phase whose launch counts the JSON line reports.
+# Model kernels: JSON name, source, and the Pallas kernel each replaces.
 LM_KERNELS = {
     "rmsnorm": ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-                "src/repro/kernels/rmsnorm.py:21", "serve"),
+                "src/repro/kernels/rmsnorm.py:21"),
     "flash_attention": ("flash_attention", "src/repro_torch/csrc/attention.cu",
-                        "src/repro/kernels/flash_attention.py:83", "serve"),
+                        "src/repro/kernels/flash_attention.py:83"),
     "flash_decode": ("flash_decode", "src/repro_torch/csrc/attention.cu",
-                     "src/repro/kernels/flash_decode.py:68", "serve"),
+                     "src/repro/kernels/flash_decode.py:68"),
     "ssd_scan": ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan.py:80", "ssmserve"),
+                 "src/repro/kernels/ssd_scan.py:80"),
 }
+# the model-serving paths whose launch counts (each from zero) the JSON
+# line's model kernels sum
+LM_PATHS = ("serve", "ssmserve", "moeserve", "zoo", "examples")
+# the attention-path kernels (every model but Mamba2 launches all three,
+# DeepSeek-V2-Lite all but flash_decode: its MLA decode is plain matmuls)
+ATTN_PATH = ("rmsnorm", "flash_attention", "flash_decode")
 
 # the CUDA functions of each model kernel, as the profiler names them
 LM_SYMBOLS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
@@ -909,6 +951,12 @@ LM_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 SSD_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
 # the tiny model on the card against the same model on the CPU
 MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
+# Mamba layers beyond which a tiny model's logits are reported, not held:
+# ssd_scan's float32 instance (split bf16 planes, ROADMAP §3 item 12) is
+# ~1e-4 from its plain version a layer, and a random-weight stack grows
+# that ~1.25x a layer (item 5): Jamba's 14 tiny mamba layers reach 5e-3
+# (item 23); each of its layers is held on its own input
+TINY_E2E_MAMBA = 2
 
 BF16_OPS_PER_S = 989e12
 
@@ -935,6 +983,10 @@ ATTN_CASES = (
     ("smollm-360m packed group 3", 4, 15, 5, 16, 16, 64, True, None),
     ("smollm-360m batcher prefill", 32, 15, 5, 12, 12, 64, True, None),
     ("tiny prefill", 2, 4, 2, 16, 16, 16, True, None),
+    ("whisper-large-v3 encoder", 2, 20, 20, 1500, 1500, 64, False, None),
+    ("whisper-large-v3 cross", 2, 20, 20, 16, 1500, 64, False, None),
+    ("internvl2-76b prefill 256+16", 2, 64, 8, 272, 272, 128, True, None),
+    ("qwen3-moe prefill", 2, 64, 4, 16, 16, 128, True, None),
 )
 # (name, B, H, S, D, Dv): DeepSeek-V2-Lite's MLA prefill, 16 heads with q
 # and k of 192 and v of 128 (the bf16 kernel's (192, 128) instance), at a
@@ -958,6 +1010,10 @@ DECODE_CASES = (
     ("splits B=32 S=2048", 32, 8, 4, 2048, 128, 1500),
     ("nemotron-4-340b decode splits", 2, 8, 12, 1000, 192, 700),
     ("splits d80 ragged", 2, 8, 4, 777, 80, 500, 259),
+    ("whisper-large-v3 cross decode", 2, 20, 1, 1500, 64, 1500),
+    ("whisper-large-v3 self decode", 2, 20, 1, 23, 64, 17),
+    ("qwen3-moe decode g16", 2, 4, 16, 23, 128, 17),
+    ("internvl2-76b decode g8", 2, 8, 8, 279, 128, 273),
 )
 # (name, B, S, H, P, G, N, chunk): ragged S, S >= 1024, G = 2, chunks of
 # 16/64/128, Mamba2-2.7B's own shapes (the full-width prefill check and one
@@ -984,12 +1040,19 @@ NORM_CASES = (("ln prefill", 512, 4096), ("q_norm prefill", 16384, 128),
               ("k_norm prefill", 4096, 128), ("ln decode", 32, 4096),
               ("smollm-360m batcher prefill", 480, 960),
               ("smollm-360m batcher decode", 32, 960),
-              ("ragged", 21, 4096), ("tiny", 7, 16))
+              ("ragged", 21, 4096), ("tiny", 7, 16),
+              ("deepseek-v2-lite kv_norm", 512, 512),
+              ("deepseek-v2-lite ln", 512, 2048),
+              ("whisper-large-v3 encoder ln", 3000, 1280),
+              ("qwen3-moe q_norm", 2048, 128))
 # (tag, rows, D) of lmtick's rmsnorm rows: every norm of the two serving
 # paths (one group: 32 prompts of 16 tokens, then decode steps of 32
 # tokens) -- Qwen3-8B's ln1/ln2/final_norm, q_norm over 32 heads and
 # k_norm over 8; Mamba2-2.7B's ln1/final_norm (d_model 2560) and gated
-# ssm_norm (ssm_inner 5120) -- then a long prefill's 32768 rows of 4096
+# ssm_norm (ssm_inner 5120) -- then a long prefill's 32768 rows of 4096;
+# DeepSeek-V2-Lite's (d_model 2048, the latent's kv_norm over 512) at the
+# same serving shapes, and Whisper-large-v3's encoder norm over 2 x 1500
+# frames (d_model 1280)
 NORM_TICKS = (
     ("path qwen3-8b prefill ln", 512, 4096),
     ("path qwen3-8b prefill q_norm", 16384, 128),
@@ -1001,7 +1064,12 @@ NORM_TICKS = (
     ("path mamba2-2.7b decode ssm_norm", 32, 5120),
     ("path mamba2-2.7b prefill ln", 512, 2560),
     ("path mamba2-2.7b prefill ssm_norm", 512, 5120),
-    ("serving 32768 x 4096", 32768, 4096))
+    ("serving 32768 x 4096", 32768, 4096),
+    ("moe path deepseek-v2-lite prefill ln", 512, 2048),
+    ("moe path deepseek-v2-lite prefill kv_norm", 512, 512),
+    ("moe path deepseek-v2-lite decode ln", 32, 2048),
+    ("moe path deepseek-v2-lite decode kv_norm", 32, 512),
+    ("zoo whisper-large-v3 encoder ln", 3000, 1280))
 
 
 def _lm_modules():
@@ -1169,9 +1237,15 @@ def phase_lmcheck(ctx):
         fails.append("dead rows")
     ctx["lm_max_abs_err"] = worst
     # Mamba2's tiny chunk is 16: a prompt of 20 carries a state across two
+    # (Jamba's mamba layers too); the wrappers take frames and patches
     ctx["lmcheck_model"] = {arch: _tiny_model_check(arch, S)
                             for arch, S in (("qwen3-8b", 16),
-                                            ("mamba2-2.7b", 20))}
+                                            ("mamba2-2.7b", 20),
+                                            ("deepseek-v2-lite-16b", 16),
+                                            ("qwen3-moe-235b-a22b", 16),
+                                            ("jamba-1.5-large-398b", 20))}
+    for arch in ("whisper-large-v3", "internvl2-76b"):
+        ctx["lmcheck_model"][arch] = _tiny_wrapper_check(arch)
     for arch, r in ctx["lmcheck_model"].items():
         if not r["ok"]:
             fails.append(f"tiny {arch} cuda vs cpu")
@@ -1179,7 +1253,34 @@ def phase_lmcheck(ctx):
         raise AssertionError(f"model kernel/plain disagreement: {fails}")
 
 
+def _tiny_layerwise(cpu, gpu, toks):
+    """Each layer of the tiny model on the CPU path's own input (its
+    residual stream on ``toks``), card against CPU: the worst max |err| of
+    a layer's update over the layers, and whether every layer holds at
+    MODEL_TOL."""
+    import torch
+    from repro_torch.models.layers import embed_lookup
+    pos_c = cpu._positions(*toks.shape)
+    pos_g = gpu._positions(*toks.shape)
+    worst, ok = 0.0, True
+    with torch.inference_mode():
+        x = embed_lookup(cpu.embed, toks, cpu.cfg)
+        for bc, bg in zip(cpu.layers, gpu.layers):
+            yc, _ = cpu._block_apply(bc, x, pos_c)
+            yg, _ = gpu._block_apply(bg, x.cuda(), pos_g)
+            uc, ug = yc - x, yg.cpu() - x
+            worst = max(worst, float((ug - uc).abs().max()))
+            ok &= bool(torch.allclose(ug, uc, **MODEL_TOL))
+            x = yc
+    return worst, ok
+
+
 def _tiny_model_check(arch, S):
+    """The tiny model on the card against the same weights on the CPU: the
+    prefill logits at MODEL_TOL and 8 greedy tokens equal. A stack with
+    more than TINY_E2E_MAMBA mamba layers (Jamba's 14) holds every layer
+    on its own input at MODEL_TOL instead and reports the logits (ROADMAP
+    §3 item 23)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1199,11 +1300,71 @@ def _tiny_model_check(arch, S):
     tc = ServeEngine(cpu, cfg, device="cpu").generate(prompts, 8)
     tg = ServeEngine(gpu, cfg, device="cuda").generate(prompts, 8).cpu()
     same = bool(torch.equal(tc, tg))
+    out = {"prefill_max_abs_err": err, "tokens_equal": same}
+    mamba = sum(b.spec.mixer == "mamba" for b in cpu.layers)
+    if mamba > TINY_E2E_MAMBA:
+        worst, held = _tiny_layerwise(cpu, gpu, torch.as_tensor(prompts))
+        log(f"[lmcheck] tiny {arch} f32 every layer on its own input cuda vs "
+            f"cpu max|err| {worst:.2e} ({'ok' if held else 'FAIL'}); "
+            f"prefill logits over {mamba} mamba layers max|err| {err:.2e} "
+            f"(reported, not held); greedy tokens equal: {same}")
+        return {**out, "layerwise_max_abs_err": worst, "ok": held and same}
     log(f"[lmcheck] tiny {arch} f32 prefill logits cuda vs cpu max|err| "
         f"{err:.2e} ({'ok' if close else 'FAIL'}); greedy tokens equal: "
         f"{same}")
-    return {"prefill_max_abs_err": err, "tokens_equal": same,
-            "ok": close and same}
+    return {**out, "ok": close and same}
+
+
+def _wrapper_extra(cfg, B, gen_device="cpu", dtype=None, seed=0):
+    """The frames (Whisper) or patch embeddings (VLM) of a batch of B:
+    seeded normal numbers, (B, encoder_seq or num_patches, d_model)."""
+    import numpy as np
+    import torch
+    n = cfg.encoder_seq or cfg.num_patches
+    x = np.random.default_rng(seed).standard_normal((B, n, cfg.d_model))
+    return torch.as_tensor(x.astype(np.float32), device=gen_device).to(
+        dtype or torch.float32)
+
+
+def _wrapper_generate(model, toks, extra, prompt, cache_len):
+    """The wrapper's prefill of ``toks[:, :prompt]`` with its frames or
+    patches, then one decode step per remaining token of ``toks``: the
+    prefill logits and the decode steps' logits."""
+    import torch
+    lpre, cache = model.prefill(toks[:, :prompt], extra, cache_len=cache_len)
+    ldec = torch.cat([model.decode_step(cache, toks[:, t:t + 1])[0]
+                      for t in range(prompt, toks.shape[1])], 1)
+    return lpre, ldec
+
+
+def _tiny_wrapper_check(arch):
+    """The tiny Whisper or VLM on the card against the same weights on the
+    CPU: the prefill and 4 teacher-forced decode steps' logits, float32,
+    at MODEL_TOL, with their frames or patches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).tiny()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    gpu = build_model(cfg, device="cuda", seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 20))
+    extra = _wrapper_extra(cfg, 4)
+    cache_len = 20 + cfg.num_patches
+    with torch.inference_mode():
+        pc, dc = _wrapper_generate(cpu, torch.as_tensor(toks), extra, 16,
+                                   cache_len)
+        pg, dg = _wrapper_generate(gpu, torch.as_tensor(toks, device="cuda"),
+                                   extra.cuda(), 16, cache_len)
+    errs = [float((g.cpu() - c).abs().max()) for g, c in ((pg, pc), (dg, dc))]
+    close = all(bool(torch.allclose(g.cpu(), c, **MODEL_TOL))
+                for g, c in ((pg, pc), (dg, dc)))
+    log(f"[lmcheck] tiny {arch} f32 prefill / 4 decode steps logits cuda vs "
+        f"cpu max|err| {errs[0]:.2e} / {errs[1]:.2e} "
+        f"({'ok' if close else 'FAIL'})")
+    return {"prefill_max_abs_err": errs[0], "decode_max_abs_err": errs[1],
+            "ok": close}
 
 
 class _TimedEngine:
@@ -1383,8 +1544,7 @@ def phase_serve(ctx):
     engine, batches, counts, prompts, _ = _serve_batches("serve", model, cfg,
                                                          rng)
     ctx["serve_launches"] = counts
-    missing = [k for k, v in LM_KERNELS.items()
-               if v[3] == "serve" and counts[k] <= 0]
+    missing = [k for k in ATTN_PATH if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
     same, prof = _repeat_and_profile("serve", engine, prompts)
@@ -1531,6 +1691,300 @@ def phase_ssmserve(ctx):
         layerwise_rel_l2=layerwise, end_to_end=end_to_end)
     del model, engine
     torch.cuda.empty_cache()
+
+
+# DeepSeek-V2-Lite's end-to-end comparisons: the full-width prefill through
+# the kernels against the plain versions at each depth (the model's first
+# layers), held at relative L2 < 0.1 at full depth and reported at the
+# others, with the routing choices that differ layer by layer
+MOE_DEPTHS = (4, 9, 14, 27)
+
+
+class _RouteRecorder:
+    """While active, keeps the experts (T, k) of each ``moe.route`` call,
+    in call order (one per MoE layer of each forward)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route, self.picks = moe, moe.route, []
+
+        def route(probs, k, cap):
+            r = self._route(probs, k, cap)
+            self.picks.append(r.top_e)
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+
+def _choice_flips(a, b, E):
+    """Share of the (token, expert) choices in ``a`` that ``b`` does not
+    make; both (T, k) expert indices."""
+    import torch
+    oa = torch.zeros(a.shape[0], E, device=a.device).scatter_(1, a, 1.0)
+    ob = torch.zeros(b.shape[0], E, device=b.device).scatter_(1, b, 1.0)
+    return float((oa * (1.0 - ob)).sum() / a.numel())
+
+
+def _flips(rk, rp, cfg):
+    return [_choice_flips(a, b, cfg.num_experts)
+            for a, b in zip(rk.picks, rp.picks)]
+
+
+def _moe_layerwise(model, cfg, toks):
+    """Each layer of ``model`` on the kernel path's own input (the residual
+    stream of the kernels' forward on ``toks``): its update (mixer and
+    MLP) through the kernels against the plain versions, held at relative
+    L2 < 0.1, and the share of its routing choices that differ."""
+    import torch
+    from repro_torch.models.layers import embed_lookup
+    positions = model._positions(*toks.shape)
+    worst, flips = (0.0, -1), []
+    with torch.inference_mode():
+        x = embed_lookup(model.embed, toks, cfg)
+        for i, blk in enumerate(model.layers):
+            with _RouteRecorder() as rk:
+                yk, _ = model._block_apply(blk, x, positions)
+            with _plain_ops(), _RouteRecorder() as rp:
+                yp, _ = model._block_apply(blk, x, positions)
+            rel = _rel_l2(yk.float() - x.float(), yp.float() - x.float())
+            if rel >= worst[0]:
+                worst = (rel, i)
+            flips += _flips(rk, rp, cfg)
+            x = yk
+    log(f"[moeserve] every layer on its own input: worst relative L2 of its "
+        f"update {worst[0]:.2e} (layer {worst[1]}); routing choices that "
+        f"differ by layer: " + " ".join(f"{f:.3f}" for f in flips))
+    if not worst[0] < 0.1:
+        raise AssertionError(f"layer {worst[1]} disagrees: {worst[0]}")
+    return {"worst_rel_l2": worst[0], "worst_layer": worst[1],
+            "route_flips": flips}
+
+
+def _moe_end_to_end(model, cfg, toks):
+    """Through ``prefill`` at each depth of MOE_DEPTHS: the kernels against
+    the plain versions, held at full depth, with the routing choices that
+    differ layer by layer."""
+    import torch
+    layers, out = model.layers, {}
+    try:
+        for depth in MOE_DEPTHS:
+            model.layers = layers[:depth]
+            limit = 0.1 if depth == len(layers) else None
+            with torch.inference_mode():
+                with _RouteRecorder() as rk:
+                    lk, _ = model.prefill(toks, cache_len=24)
+                with _plain_ops(), _RouteRecorder() as rp:
+                    lp, _ = model.prefill(toks, cache_len=24)
+            rel, agree = _hold_logits(
+                "moeserve", f"{depth} layers: full-width prefill "
+                f"({toks.shape[0]} x {toks.shape[1]}), kernels vs plain on "
+                f"the card", lk, lp, cfg, limit)
+            flips = _flips(rk, rp, cfg)
+            log(f"[moeserve] {depth} layers: routing choices that differ by "
+                f"layer: " + " ".join(f"{f:.3f}" for f in flips))
+            out[depth] = {"rel_l2": rel, "argmax": agree,
+                          "route_flips": flips}
+            del lk, lp
+    finally:
+        model.layers = layers
+    return out
+
+
+def _moe_share(engine, prompts):
+    """One group's generate under torch.profiler with each MoE block in a
+    ``record_function`` range: the device time of the kernels the blocks
+    launched against the generate's, and the bf16 attention kernel
+    instances (their names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    apply = moe.moe_apply
+
+    def ranged(p, x, cfg):
+        with record_function("moe_block"):
+            return apply(p, x, cfg)
+    moe.moe_apply = ranged
+    try:
+        engine.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.generate(prompts, SERVE_NEW)
+            torch.cuda.synchronize()
+    finally:
+        moe.moe_apply = apply
+    dev_ms, moe_ms, names = 0.0, 0.0, set()
+    for e in prof.key_averages():
+        if e.key == "moe_block":
+            if e.device_type != DeviceType.CUDA:
+                moe_ms += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            dev_ms += e.self_device_time_total / 1e3
+            names.add(e.key)
+    wgmma = sorted(n for n in names if "fa_wgmma" in n)
+    share = moe_ms / dev_ms if dev_ms > 0 else None
+    log(f"[moeserve] one group's generate ({len(prompts)} prompts): device "
+        f"{dev_ms:.2f} ms, the MoE blocks' kernels {moe_ms:.2f} ms"
+        + (f" (share {share:.3f})" if share is not None else
+           " (the profiler saw no device time: share not measured)"))
+    log(f"[moeserve] attention kernel instances: {wgmma}")
+    return {"device_ms": dev_ms or None, "moe_ms": moe_ms or None,
+            "moe_share": share, "attention_instances": wgmma}
+
+
+def phase_moeserve(ctx):
+    """The serving path with DeepSeek-V2-Lite-16B at full size (27 layers:
+    a dense first layer, then MLA with 64 routed and 2 shared experts,
+    top-6; bf16, weights from a seeded generator on the card) behind the
+    batcher: the MLA prefill runs the bf16 attention kernel's (192, 128)
+    instance, the absorbed decode plain matmuls, the MoE plain gathers and
+    batched matmuls."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    gc.collect()     # the earlier serving phases' models, if still held
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s, n_params = _build_full(cfg, "moeserve")
+    rng = np.random.default_rng(2)
+    small = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
+                            device="cuda")
+    layerwise = _moe_layerwise(model, cfg, small)
+    end_to_end = _moe_end_to_end(model, cfg, small)
+
+    engine, batches, counts, prompts, calls = _serve_batches(
+        "moeserve", model, cfg, rng)
+    ctx["moeserve_launches"] = counts
+    # per forward: ln1, the latent's kv_norm and ln2 in every layer, and
+    # the final norm; one attention a layer per prefill; the absorbed
+    # decode launches no flash_decode
+    want = {"rmsnorm": (3 * cfg.num_layers + 1) * SERVE_NEW * calls,
+            "flash_attention": cfg.num_layers * calls, "flash_decode": 0}
+    got = {k: counts[k] for k in want}
+    log(f"[moeserve] launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"the DeepSeek path launched {got}, not {want}")
+    same, prof = _repeat_and_profile("moeserve", engine, prompts)
+    share = _moe_share(engine, prompts[:SERVE_REQUESTS // 2])
+    if not any("192" in n and "128" in n
+               for n in share["attention_instances"]):
+        raise AssertionError(f"no (192, 128) attention instance ran: "
+                             f"{share['attention_instances']}")
+    ctx["moeserve"] = _serve_record(
+        cfg, n_params, init_s, batches, same, prof, layerwise=layerwise,
+        end_to_end=end_to_end, moe_share=share)
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# zoo: (arch, depth; None keeps the config's); each model runs a prefill of
+# ZOO_BATCH prompts of ZOO_PROMPT tokens (after Whisper's 1500 frames or
+# InternVL2's 256 patches, bf16) and ZOO_STEPS teacher-forced decode steps
+ZOO = (("whisper-large-v3", None), ("qwen3-moe-235b-a22b", 8),
+       ("internvl2-76b", 8))
+ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS = 2, 16, 7
+
+
+def _zoo_launches(cfg, steps):
+    """Model kernel launches of one prefill and ``steps`` decode steps,
+    counted from the code: every norm, attention and cached attention."""
+    if cfg.is_encoder_decoder:
+        enc, dec = cfg.num_encoder_layers, cfg.num_layers
+        return {"rmsnorm": 2 * enc + 1 + (3 * dec + 1) * (1 + steps),
+                "flash_attention": enc + 2 * dec,
+                "flash_decode": 2 * dec * steps}
+    if any(s != cfg.pattern[0] or s.mixer != "attn" for s in cfg.pattern):
+        raise ValueError(f"{cfg.name}: the zoo counts attention stacks")
+    norms = 1 + cfg.num_layers * (2 + (2 if cfg.qk_norm else 0))
+    return {"rmsnorm": norms * (1 + steps),
+            "flash_attention": cfg.num_layers,
+            "flash_decode": cfg.num_layers * steps}
+
+
+def phase_zoo(ctx):
+    """Whisper-large-v3 at full size, Qwen3-MoE-235B-A22B and InternVL2-76B
+    at full width cut to 8 layers: each one's prefill and decode steps
+    through the kernels against the plain versions on the card."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    out, total = {}, {k: 0 for k in LM_KERNELS}
+    for arch, depth in ZOO:
+        cfg = get_config(arch)
+        if depth:
+            cfg = cfg.replace(num_layers=depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, init_s, n_params = _build_full(cfg, "zoo")
+        rng = np.random.default_rng(3)
+        toks = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT + ZOO_STEPS)),
+            device="cuda")
+        extra = ()
+        if cfg.encoder_seq or cfg.num_patches:
+            extra = (_wrapper_extra(cfg, ZOO_BATCH, "cuda", torch.bfloat16,
+                                    seed=3),)
+        cache_len = cfg.num_patches + ZOO_PROMPT + ZOO_STEPS
+
+        def generate():
+            lpre, cache = model.prefill(toks[:, :ZOO_PROMPT], *extra,
+                                        cache_len=cache_len)
+            ldec = torch.cat([model.decode_step(cache, toks[:, t:t + 1])[0]
+                              for t in range(ZOO_PROMPT, toks.shape[1])], 1)
+            return lpre, ldec
+
+        torch.cuda.synchronize()
+        _reset_all()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), _RouteRecorder() as rk:
+            pk, dk = generate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _lm_launches()
+        with torch.inference_mode(), _plain_ops(), _RouteRecorder() as rp:
+            pp, dp = generate()
+        want = _zoo_launches(cfg, ZOO_STEPS)
+        got = {k: counts[k] for k in want}
+        log(f"[zoo] {cfg.name}: launches {counts}, expected {want}; the "
+            f"kernels' prefill and {ZOO_STEPS} decode steps {wall:.3f} s")
+        if got != want:
+            raise AssertionError(f"{cfg.name} launched {got}, not {want}")
+        rel, agree = _hold_logits(
+            "zoo", f"{cfg.name} ({cfg.num_layers} layers) prefill "
+            f"({ZOO_BATCH} x {ZOO_PROMPT}"
+            + (f" after {extra[0].shape[1]} embeddings" if extra else "")
+            + "), kernels vs plain on the card", pk, pp, cfg)
+        drel, dagree = _hold_logits(
+            "zoo", f"{cfg.name} {ZOO_STEPS} decode steps (cache "
+            f"{cache_len}), kernels vs plain on the card", dk, dp, cfg)
+        flips = _flips(rk, rp, cfg) if cfg.num_experts else []
+        if flips:
+            log(f"[zoo] {cfg.name}: routing choices that differ by call "
+                f"(layers of the prefill, then of each step): "
+                + " ".join(f"{f:.3f}" for f in flips))
+        for k in total:
+            total[k] += counts[k]
+        out[cfg.name] = {
+            "layers": cfg.num_layers, "params": n_params, "init_s": init_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got, "kernel_path_s": wall, "prefill_rel_l2": rel,
+            "prefill_argmax": agree, "decode_rel_l2": drel,
+            "decode_argmax": dagree, "route_flips": flips}
+        del model, pk, dk, pp, dp, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    ctx["zoo_launches"] = total
+    ctx["zoo"] = out
 
 
 def _profile_generate(tag, engine, prompts):
@@ -1683,6 +2137,60 @@ def phase_lmtick(ctx):
              plain_bytes=4 * 2 * B * Hkv * S * D, check=tag != "path",
              device_time=tag == "path")
         del q, k, v
+    # the zoo's attention shapes: DeepSeek-V2-Lite's MLA prefill at one
+    # group's serving shape (q and k of 192, v of 128: the (192, 128)
+    # instance; its scale passed), Whisper-large-v3's bidirectional encoder
+    # over 1500 frames and its decoder's cross-attention of 16 tokens over
+    # them, and InternVL2-76B's prefill of 256 patches and 16 tokens, at
+    # the zoo's B; SDPA where it takes the shape
+    for tag, B, Hq, Hkv, Sq, Sk, D, Dv, causal in (
+            ("moe path deepseek-v2-lite mla", 32, 16, 16, 16, 16, 192, 128,
+             True),
+            ("zoo whisper-large-v3 encoder", 2, 20, 20, 1500, 1500, 64, 64,
+             False),
+            ("zoo whisper-large-v3 cross", 2, 20, 20, 16, 1500, 64, 64,
+             False),
+            ("zoo internvl2-76b prefill", 2, 64, 8, 272, 272, 128, 128,
+             True)):
+        g = _gen(95)
+        q = _randn(g, (B, Hq, Sq, D), bf)
+        k = _randn(g, (B, Hkv, Sk, D), bf)
+        v = _randn(g, (B, Hkv, Sk, Dv), bf)
+        scale = D ** -0.5
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        nbytes = 2 * (B * Hq * Sq * (D + Dv) + B * Hkv * Sk * (D + Dv))
+        flops = 2 * B * Hq * pairs * (D + Dv)
+        tick("flash_attention", f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, "
+             f"Sq={Sq}, Sk={Sk}, D={D}, Dv={Dv})",
+             lambda: ops.attention(q, k, v, causal=causal, sm_scale=scale),
+             lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                             sm_scale=scale),
+             _sdpa(q, k, v, causal, scale), _roof(nbytes,
+                                                   flops / BF16_OPS_PER_S),
+             plain_bytes=4 * 3 * B * Hq * Sq * Sk, check=True,
+             device_time=True)
+        del q, k, v
+    # the zoo's cached attention: Whisper's cross decode over 1500 frames
+    # and self decode (G = 1, D = 64), Qwen3-MoE's G = 16 and InternVL2's
+    # G = 8 (D = 128), each at its decode's cache length
+    for tag, B, Hkv, G, S, D in (
+            ("zoo whisper-large-v3 cross decode", 2, 20, 1, 1500, 64),
+            ("zoo whisper-large-v3 self decode", 2, 20, 1, 23, 64),
+            ("zoo qwen3-moe decode", 2, 4, 16, 23, 128),
+            ("zoo internvl2-76b decode", 2, 8, 8, 279, 128)):
+        q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S), bf, 96)
+        nbytes = 2 * (2 * B * Hkv * G * D + 2 * B * Hkv * S * D) + S
+        tick("flash_decode", f"{tag} (B={B}, Hkv={Hkv}, G={G}, S={S}, "
+             f"D={D})",
+             lambda: ops.decode_attention(q, k, v, valid),
+             lambda: ref.decode_attention_ref(q, k, v, valid),
+             lambda: F.scaled_dot_product_attention(
+                 q.reshape(B, Hkv * G, 1, D), k, v,
+                 attn_mask=valid[None, None, None, :], enable_gqa=True),
+             _roof(nbytes, 4 * B * Hkv * G * S * D / BF16_OPS_PER_S),
+             plain_bytes=4 * 2 * B * Hkv * S * D, check=True,
+             device_time=True)
+        del q, k, v
     # decode_32k's shape once more with a ragged mask whose first split (of
     # three) has no valid slot, held against the plain version
     case = ("", 32, 8, 4, 32768, 128, 20000, 10923)
@@ -1746,6 +2254,25 @@ def phase_lmtick(ctx):
     if fails:
         raise AssertionError(f"kernel/plain disagreement at lmtick shapes: "
                              f"{fails}")
+
+
+def _sdpa(q, k, v, causal, scale):
+    """One SDPA call computing ``ops.attention(q, k, v, causal=causal,
+    sm_scale=scale)`` as a function, or None (logged) where SDPA refuses
+    the shape."""
+    import torch.nn.functional as F
+
+    def call():
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale,
+            enable_gqa=q.shape[1] != k.shape[1])
+    try:
+        call()
+    except RuntimeError as e:
+        log(f"[lmtick] SDPA refuses q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}: {str(e).splitlines()[0][:160]}")
+        return None
+    return call
 
 
 def _agree(kernel, tag, run, plain, fails):
@@ -4257,7 +4784,8 @@ def main(argv=None):
            "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
            "profile": phase_profile, "twoch": phase_twoch,
            "lmcheck": phase_lmcheck, "serve": phase_serve,
-           "ssmserve": phase_ssmserve, "lmtick": phase_lmtick,
+           "ssmserve": phase_ssmserve, "moeserve": phase_moeserve,
+           "zoo": phase_zoo, "lmtick": phase_lmtick,
            "dag": phase_dag, "wfloop": phase_wfloop,
            "engine": phase_engine, "chaos": phase_chaos,
            "trace": phase_trace, "group": phase_group,
@@ -4308,9 +4836,9 @@ def main(argv=None):
     for r in ctx.get("lmtick", []):
         if r["shape"].startswith("path"):
             path.setdefault(r["kernel"], r)
-    for key, (name, source, replaces, phase) in LM_KERNELS.items():
+    for key, (name, source, replaces) in LM_KERNELS.items():
         r = path.get(key, {})
-        by_path = {p: ctx[f"{p}_launches"][key] for p in (phase, "examples")
+        by_path = {p: ctx[f"{p}_launches"][key] for p in LM_PATHS
                    if f"{p}_launches" in ctx}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -4352,6 +4880,10 @@ def main(argv=None):
                    "serve_launches": ctx.get("serve_launches"),
                    "ssmserve": ctx.get("ssmserve"),
                    "ssmserve_launches": ctx.get("ssmserve_launches"),
+                   "moeserve": ctx.get("moeserve"),
+                   "moeserve_launches": ctx.get("moeserve_launches"),
+                   "zoo": ctx.get("zoo"),
+                   "zoo_launches": ctx.get("zoo_launches"),
                    "lmtick": ctx.get("lmtick"),
                    "dag": ctx.get("dag"), "wfloop": ctx.get("wfloop"),
                    "engine": ctx.get("engine"), "chaos": ctx.get("chaos"),

@@ -17,11 +17,13 @@ queue, live instances, estimation heads, simulated worlds and telemetry.
 
 The model zoo's configurations and weights cross too:
 :func:`config_from_reference` takes ``dataclasses.asdict`` of a JAX
-``ModelConfig``, and :func:`lm_from_reference` the JAX ``LM.init`` pytree
-as numpy arrays (its per-pattern-position weights stacked over repeats are
-unstacked into the port's per-layer submodules; each leaf lands in its
-parameter's dtype, so a mamba mixer's float32 ``A_log``, ``dt_bias`` and
-``D`` stay float32, bit for bit, inside a bf16 model).
+``ModelConfig``, and :func:`lm_from_reference`, :func:`encdec_from_reference`
+and :func:`vlm_from_reference` the JAX ``LM``, ``EncDec`` and ``VLM``
+``init`` pytrees as numpy arrays. Weights stacked over repeats or layers
+are unstacked into the port's per-layer submodules; each leaf lands in
+its parameter's dtype, so a mamba mixer's float32 ``A_log``, ``dt_bias``
+and ``D`` and a MoE router stay float32, bit for bit, inside a bf16
+model. Every load is ``strict``: a leaf missing on either side raises.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from .configs.base import LayerSpec, ModelConfig
-from .models.transformer import LM
+from .models import LM, VLM, EncDec
 from .sched.balancer import UncertaintyAwareBalancer, WorkflowBalancer
 from .serve.engine import WorkflowEngine
 from .sim.cluster import ClusterSim, WorkflowSim
@@ -40,7 +42,8 @@ from .workflow.dag import MAX_DEPTH_DEFAULT, Stage, StageDAG
 __all__ = ["balancer_from_reference", "sim_from_reference",
            "dag_from_reference", "workflow_balancer_from_reference",
            "workflow_sim_from_reference", "workflow_engine_from_reference",
-           "config_from_reference", "lm_from_reference"]
+           "config_from_reference", "lm_from_reference",
+           "encdec_from_reference", "vlm_from_reference"]
 
 # the JAX ModelConfig's execution switches; the port selects by device
 _JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
@@ -158,18 +161,58 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))   # a writable copy
 
 
-def lm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> LM:
-    """The port's :class:`LM` on ``device`` holding the weights of a JAX
-    ``LM.init`` pytree (numpy leaves): repeat r of pattern position i, the
-    r-th slice of ``blocks/pos{i}/*``, becomes ``layers[r * P + i]``."""
-    lm = LM(cfg, device=device)
+def _lm_state(params: dict, cfg: ModelConfig, prefix: str = "") -> dict:
+    """The port's LM state (numpy leaves) of a JAX ``LM.init`` pytree:
+    ``params["first"]`` (a first dense layer) becomes ``layers[0]``, and
+    repeat r of pattern position i, the r-th slice of ``blocks/pos{i}/*``,
+    ``layers[off + r * P + i]``."""
     state = {"embed.embedding": params["embed"]["embedding"],
              "embed.head": params["embed"]["head"],
              "final_norm": params["final_norm"]}
+    off = 0
+    if cfg.first_layer_dense:
+        for name, leaf in _leaves(params["first"]):
+            state[f"layers.0.{name}"] = leaf
+        off = 1
     P = cfg.pattern_len
     for i in range(P):
         for name, stacked in _leaves(params["blocks"][f"pos{i}"]):
             for r in range(cfg.num_repeats):
-                state[f"layers.{r * P + i}.{name}"] = np.asarray(stacked)[r]
-    lm.load_state_dict({k: _tensor(v) for k, v in state.items()}, strict=True)
-    return lm
+                state[f"layers.{off + r * P + i}.{name}"] = (
+                    np.asarray(stacked)[r])
+    return {prefix + k: v for k, v in state.items()}
+
+
+def _load(model, state: dict):
+    model.load_state_dict({k: _tensor(v) for k, v in state.items()},
+                          strict=True)
+    return model
+
+
+def lm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> LM:
+    """The port's :class:`LM` on ``device`` holding the weights of a JAX
+    ``LM.init`` pytree (numpy leaves)."""
+    return _load(LM(cfg, device=device), _lm_state(params, cfg))
+
+
+def vlm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> VLM:
+    """The port's :class:`VLM` on ``device`` holding the weights of a JAX
+    ``VLM.init`` pytree (its LM backbone's)."""
+    return _load(VLM(cfg, device=device), _lm_state(params, cfg, "lm."))
+
+
+def encdec_from_reference(params: dict, cfg: ModelConfig,
+                          device="cuda") -> EncDec:
+    """The port's :class:`EncDec` on ``device`` holding the weights of a
+    JAX ``EncDec.init`` pytree: layer l of the stacked ``enc_blocks`` and
+    ``dec_blocks`` becomes ``enc_blocks[l]`` and ``dec_blocks[l]``."""
+    state = {"embed.embedding": params["embed"]["embedding"],
+             "embed.head": params["embed"]["head"],
+             "enc_norm": params["enc_norm"],
+             "final_norm": params["final_norm"]}
+    for stack, n in (("enc_blocks", cfg.num_encoder_layers),
+                     ("dec_blocks", cfg.num_layers)):
+        for name, stacked in _leaves(params[stack]):
+            for layer in range(n):
+                state[f"{stack}.{layer}.{name}"] = np.asarray(stacked)[layer]
+    return _load(EncDec(cfg, device=device), state)

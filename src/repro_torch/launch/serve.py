@@ -2,15 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --execute
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --execute
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --execute
 
 Two replica groups ("fast", "slow") share one model whose weights are drawn
 from seed 0 on ``--device`` (the card by default); a
 :class:`PartitionedBatcher` splits each batch of ``--requests`` 16-token
 prompts between them on the simulated channels ``Channel(20, 2)`` and
 ``Channel(14, 5)``, and with ``--execute`` each group runs greedy
-generation on its share. Any dense attention or Mamba2 arch serves
-(``models/transformer.py``). ``--tiny`` serves the arch's reduced config;
-``--tiny --device cpu`` runs it on the plain path without a card.
+generation on its share. Every decoder-only arch serves: dense
+attention, MLA, MoE, Mamba2 and the hybrid (``models/transformer.py``).
+Whisper and InternVL2 take frames or patches that a batch of token prompts
+does not carry: with ``--execute`` they raise, as the JAX package's
+``ServeEngine`` cannot serve them either. ``--tiny`` serves the arch's
+reduced config; ``--tiny --device cpu`` runs it on the plain path without
+a card.
 
 ``--engine`` serves workflow instances through the continuous-batching
 :class:`WorkflowEngine` instead: every tick admits queued instances of two
@@ -173,6 +179,11 @@ def _run(args, dev):
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
+    if args.execute and (cfg.is_encoder_decoder or cfg.num_patches):
+        raise ValueError(f"{cfg.name} takes precomputed "
+                         f"{'frames' if cfg.is_encoder_decoder else 'patches'}"
+                         f" beside its tokens; the batcher serves token "
+                         f"prompts to decoder-only archs")
     groups = [ReplicaGroup("fast"), ReplicaGroup("slow")]
     if args.execute:
         model = build_model(cfg, device=dev)

@@ -1,22 +1,27 @@
-"""Config-driven decoder LM: dense attention and Mamba2 (SSD) stacks.
+"""Config-driven decoder LM: dense attention, MLA, Mamba2 (SSD) and hybrid
+stacks with dense or MoE MLPs.
 
 The layer stack is ``num_repeats`` copies of ``cfg.pattern``. The JAX
 package stacks each pattern position's weights over the repeats and runs
-``lax.scan``; here each layer is its own submodule (``layers[r * P + i]``
-holds repeat r of pattern position i) and the stack is a Python loop.
-
-This slice carries ``LayerSpec("attn", "dense")``, ``LayerSpec("mamba",
-"none")`` and ``"none"`` MLPs. The mla mixer and the moe MLP raise
-``NotImplementedError`` naming the ROADMAP item that ports them; the
-reference's ``ShardCtx`` sharding waits for ``torch.distributed``.
+``lax.scan``; here each layer is its own submodule and the stack is a
+Python loop. With ``cfg.first_layer_dense`` (DeepSeek) ``layers[0]`` is
+the reference's ``params["first"]``: the pattern's mixer with a dense MLP.
+The repeats follow it: ``layers[off + r * P + i]`` holds repeat r of
+pattern position i, ``off`` being 1 with a first dense layer and 0
+without. The reference's ``ShardCtx`` sharding waits for
+``torch.distributed`` (ROADMAP §1 item 12).
 
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
-for attention layers and ``{"ssm", "conv"}`` states ((B, H, P, N) float32,
-(B, width - 1, ssm_inner)) for mamba layers, ``slot_pos`` (S,) int32 on
-the device and ``pos`` a Python int. Unlike the reference,
-:meth:`LM.decode_step` writes the new token's K/V and slot into the cache
-and advances the mamba states in place (no copy of the cache per step) and
-returns the same dict.
+for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
+(B, S, rd)) for MLA layers and ``{"ssm", "conv"}`` states ((B, H, P, N)
+float32, (B, width - 1, ssm_inner)) for mamba layers, ``slot_pos`` (S,)
+int32 on the device and ``pos`` a Python int. Unlike the reference,
+:meth:`LM.decode_step` writes the new token's K/V, latent and slot into
+the cache and advances the mamba states in place (no copy of the cache per
+step) and returns the same dict.
+
+``apply`` and ``prefill`` take ``extra_embeds`` (B, Np, d), embeddings
+prepended to the tokens' (the VLM's patches).
 """
 from __future__ import annotations
 
@@ -28,16 +33,13 @@ from torch import nn
 from ..configs.base import LayerSpec, ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import mla
+from . import moe
 from . import ssm
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
-                     mlp_init, param, rms_norm, rmsnorm_init, rope)
+                     mlp_init, param, rms_norm, rmsnorm_init)
 
 __all__ = ["LM", "Block"]
-
-_WAITS = {
-    "mla": "the MLA mixer waits for its slice (ROADMAP §1 item 11)",
-    "moe": "the MoE MLP waits for its slice (ROADMAP §1 item 11)",
-}
 
 
 def _place_seq(entry, cache_len: int, seq_axis: int):
@@ -66,29 +68,27 @@ def _prefill_slot_pos(S: int, cache_len: int, device):
     return torch.where(ar < S, ar, -1).to(torch.int32)
 
 
+_MIXERS = {"attn": attn.attn_init, "mla": mla.mla_init,
+           "mamba": ssm.mamba_init}
+_MLPS = {"dense": mlp_init, "moe": moe.moe_init}
+
+
 class Block(nn.Module):
-    """One layer: a pre-norm mixer (attention or Mamba2) and, for a dense
-    MLP, a pre-norm MLP."""
+    """One layer: a pre-norm mixer (attention, MLA or Mamba2) and, for a
+    dense or MoE MLP, a pre-norm MLP."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  generator: torch.Generator, device):
         super().__init__()
-        for kind in (spec.mixer, spec.mlp):
-            if kind in _WAITS:
-                raise NotImplementedError(_WAITS[kind])
-        if (spec.mixer not in ("attn", "mamba")
-                or spec.mlp not in ("dense", "none")):
+        if spec.mixer not in _MIXERS or spec.mlp not in (*_MLPS, "none"):
             raise ValueError(f"unknown layer {spec}")
         self.spec = spec
         dt = dtype_of(cfg.param_dtype)
         self.ln1 = param(rmsnorm_init(cfg.d_model, dt, device))
-        if spec.mixer == "attn":
-            self.mixer = attn.attn_init(cfg, generator, device)
-        else:
-            self.mixer = ssm.mamba_init(cfg, generator, device)
-        if spec.mlp == "dense":
+        self.mixer = _MIXERS[spec.mixer](cfg, generator, device)
+        if spec.mlp != "none":
             self.ln2 = param(rmsnorm_init(cfg.d_model, dt, device))
-            self.mlp = mlp_init(cfg, generator, device)
+            self.mlp = _MLPS[spec.mlp](cfg, generator, device)
 
 
 class LM(nn.Module):
@@ -100,8 +100,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.first_layer_dense:
-            raise NotImplementedError(_WAITS["mla"])
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -109,9 +107,12 @@ class LM(nn.Module):
         self.embed = embed_init(cfg, gen, dev)
         self.final_norm = param(rmsnorm_init(cfg.d_model,
                                              dtype_of(cfg.param_dtype), dev))
-        self.layers = nn.ModuleList(
-            Block(cfg, cfg.pattern[i % cfg.pattern_len], gen, dev)
-            for i in range(cfg.num_repeats * cfg.pattern_len))
+        specs = [cfg.pattern[i % cfg.pattern_len]
+                 for i in range(cfg.num_repeats * cfg.pattern_len)]
+        if cfg.first_layer_dense:
+            specs.insert(0, LayerSpec(cfg.pattern[0].mixer, "dense"))
+        self.layers = nn.ModuleList(Block(cfg, spec, gen, dev)
+                                    for spec in specs)
 
     @property
     def device(self) -> torch.device:
@@ -122,6 +123,8 @@ class LM(nn.Module):
         if blk.spec.mlp == "none":
             return x
         h2 = rms_norm(x, blk.ln2, self.cfg.norm_eps)
+        if blk.spec.mlp == "moe":
+            return x + moe.moe_apply(blk.mlp, h2, self.cfg)
         return x + mlp_apply(blk.mlp, h2, self.cfg.mlp_act)
 
     def _block_apply(self, blk: Block, x, positions, collect: bool = False):
@@ -135,6 +138,9 @@ class LM(nn.Module):
                 entry = {"ssm": ssm_s, "conv": conv_s}
             else:
                 m = ssm.mamba_apply(blk.mixer, h, cfg)
+        elif blk.spec.mixer == "mla":
+            m, (c, kr) = mla.mla_apply(blk.mixer, h, cfg, positions)
+            entry = {"c": c, "rope": kr} if collect else None
         elif collect:
             m, (k, v) = attn.attn_apply(blk.mixer, h, cfg, positions,
                                         return_kv=True)
@@ -147,10 +153,17 @@ class LM(nn.Module):
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def apply(self, tokens):
-        """tokens: (B, S) -> logits (B, S, padded_vocab)."""
+    def _embed(self, tokens, extra_embeds):
         x = embed_lookup(self.embed, tokens, self.cfg)
-        positions = self._positions(*tokens.shape)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
+
+    def apply(self, tokens, *, extra_embeds=None):
+        """tokens: (B, S_text) -> logits (B, S, padded_vocab); S counts the
+        ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings."""
+        x = self._embed(tokens, extra_embeds)
+        positions = self._positions(*x.shape[:2])
         for blk in self.layers:
             x, _ = self._block_apply(blk, x, positions)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -163,12 +176,17 @@ class LM(nn.Module):
         dt = dtype or dtype_of(cfg.activation_dtype)
         kv = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
 
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
         def one(blk: Block) -> dict:
             if blk.spec.mixer == "mamba":
                 s, c = ssm.mamba_state_init(cfg, batch, dt, self.device)
                 return {"ssm": s, "conv": c}
-            return {"k": torch.zeros(kv, dtype=dt, device=self.device),
-                    "v": torch.zeros(kv, dtype=dt, device=self.device)}
+            if blk.spec.mixer == "mla":
+                return {"c": zeros(batch, cache_len, cfg.kv_lora_rank),
+                        "rope": zeros(batch, cache_len, cfg.qk_rope_head_dim)}
+            return {"k": zeros(*kv), "v": zeros(*kv)}
 
         return {"layers": [one(blk) for blk in self.layers],
                 "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
@@ -181,18 +199,17 @@ class LM(nn.Module):
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
         if blk.spec.mixer == "mamba":
             m, _ = ssm.mamba_decode(blk.mixer, h, cfg, c["ssm"], c["conv"])
-            return self._mlp_part(blk, x + m)
-        B = x.shape[0]
-        hkv, hd = cfg.num_kv_heads, cfg.head_dim
-        k_new = (h @ blk.mixer["wk"]).reshape(B, 1, hkv, hd)
-        v_new = (h @ blk.mixer["wv"]).reshape(B, 1, hkv, hd)
-        if cfg.qk_norm:
-            k_new = rms_norm(k_new, blk.mixer["k_norm"], cfg.norm_eps)
-        k_new = rope(k_new, torch.full((B, 1), pos, device=x.device),
-                     cfg.rope_theta)
-        c["k"][:, :, slot] = k_new[:, 0].to(c["k"].dtype)
-        c["v"][:, :, slot] = v_new[:, 0].to(c["v"].dtype)
-        m = attn.attn_decode(blk.mixer, h, cfg, c["k"], c["v"], slot_pos, pos)
+        elif blk.spec.mixer == "mla":
+            cl, kr = mla.latent(blk.mixer, h, cfg,
+                                torch.full((x.shape[0], 1), pos,
+                                           device=x.device))
+            c["c"][:, slot] = cl[:, 0].to(c["c"].dtype)
+            c["rope"][:, slot] = kr[:, 0, 0].to(c["rope"].dtype)
+            m = mla.mla_decode(blk.mixer, h, cfg, c["c"], c["rope"],
+                               slot_pos, pos)
+        else:
+            m = attn.attn_decode_step(blk.mixer, h, cfg, c, slot_pos, pos,
+                                      slot)
         return self._mlp_part(blk, x + m)
 
     def decode_step(self, cache: dict, tokens):
@@ -216,19 +233,24 @@ class LM(nn.Module):
         cache["pos"] = pos + 1
         return logits, cache
 
-    def prefill(self, tokens, cache_len: Optional[int] = None):
-        """Forward pass that also builds a decode-ready cache in one pass."""
-        B, S = tokens.shape
+    def prefill(self, tokens, cache_len: Optional[int] = None, *,
+                extra_embeds=None):
+        """Forward pass that also builds a decode-ready cache in one pass;
+        ``extra_embeds`` as in :meth:`apply`."""
+        x = self._embed(tokens, extra_embeds)
+        B, S = x.shape[:2]
         cache_len = cache_len or S
-        x = embed_lookup(self.embed, tokens, self.cfg)
         positions = self._positions(B, S)
         layers = []
+        # the sequence axis of each cache entry (mamba states have none)
+        seq_axis = {"attn": 2, "mla": 1}
         for blk in self.layers:
             x, entry = self._block_apply(blk, x, positions, collect=True)
-            if blk.spec.mixer == "attn":
-                entry = {k: _place_seq(v, cache_len, 2)
+            axis = seq_axis.get(blk.spec.mixer)
+            if axis is not None:
+                entry = {k: _place_seq(v, cache_len, axis)
                          for k, v in entry.items()}
-            layers.append(entry)   # mamba states need no seq placement
+            layers.append(entry)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         logits = lm_head(self.embed, x, self.cfg)
         cache = {"layers": layers,

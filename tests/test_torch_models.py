@@ -4,12 +4,15 @@
   ``LM.init(PRNGKey(0))`` of a tiny config (float32). ``apply`` logits agree
   at atol 2e-4 / rtol 2e-3 (``tests/test_models.py``); a prefill followed by
   decode steps agrees step by step at atol 5e-4 / rtol 5e-3 (Qwen3's append
-  rule, and h2o-danube's window-32 ring buffer, wrapped and rotated).
+  rule, h2o-danube's window-32 ring buffer, wrapped and rotated, and the
+  MoE and MLA stacks: DeepSeek-V2-Lite, Qwen3-MoE, Jamba's hybrid).
 * The slice as a whole: two JAX ``ReplicaGroup``s and two port groups on the
   same weights, each ``PartitionedBatcher`` on ``ClusterSim([Channel(20, 2),
   Channel(14, 5)])`` with one seed (the port's balancer and sim carried
   across by ``convert``), run 5 batches of 8 prompts with ``execute=True``:
-  equal counts, join latencies and greedy tokens, batch by batch.
+  equal counts, join latencies and greedy tokens, batch by batch (Qwen3-8B,
+  and DeepSeek-V2-Lite for the MoE and MLA slice).
+* Every one of the ten archs builds on the CPU and runs a prefill.
 """
 import dataclasses
 
@@ -92,9 +95,28 @@ def test_apply_logits_match_the_reference():
 
 # (arch, prompt length, decode steps, cache length): Qwen3's append rule,
 # and h2o-danube's window-32 ring buffer, filled from a short prompt and
-# wrapped by 40 steps, or rotated from a prompt longer than the window
+# wrapped by 40 steps, or rotated from a prompt longer than the window;
+# DeepSeek-V2-Lite (a first dense layer, MLA, MoE with a shared expert),
+# Qwen3-MoE (GQA with qk_norm, MoE) and Jamba (mamba, attention, MoE)
 DECODE_CASES = [("qwen3-8b", 16, 4, 20), ("h2o-danube-1.8b", 16, 40, 32),
-                ("h2o-danube-1.8b", 40, 8, 32)]
+                ("h2o-danube-1.8b", 40, 8, 32),
+                ("deepseek-v2-lite-16b", 16, 4, 20),
+                ("qwen3-moe-235b-a22b", 16, 4, 20),
+                ("jamba-1.5-large-398b", 16, 4, 20)]
+
+
+# Jamba's 14 tiny mamba layers compound the chunked scan's float32 rounding
+# against XLA's (ROADMAP §3 items 5 and 12): the hybrid's prefill is held
+# at the decode tolerance (relative L2 2.3e-5, its worst logit 3.1e-4 from
+# the reference's on the CPU)
+PREFILL_TOL = {"jamba-1.5-large-398b": DECODE_TOL}
+
+
+def _repeat_one(cache, jcache, cfg):
+    """(port, reference) cache entries of repeat 1 of pattern position 0."""
+    off = 1 if cfg.first_layer_dense else 0
+    return (cache["layers"][off + cfg.pattern_len],
+            jax.tree.map(lambda a: a[1], jcache["blocks"]["pos0"]))
 
 
 @pytest.mark.parametrize("arch,S,steps,cache_len", DECODE_CASES)
@@ -105,12 +127,15 @@ def test_prefill_then_decode_matches_the_reference(arch, S, steps, cache_len):
                            )(params, jnp.asarray(toks[:, :S]))
     log, cache = lm.prefill(torch.from_numpy(toks[:, :S]).long(),
                             cache_len=cache_len)
-    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **APPLY_TOL)
+    tol = PREFILL_TOL.get(arch, APPLY_TOL)
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **tol)
     np.testing.assert_array_equal(cache["slot_pos"].numpy(),
                                   np.asarray(jcache["slot_pos"]))
-    np.testing.assert_allclose(
-        cache["layers"][1]["k"].numpy(),
-        np.asarray(jcache["blocks"]["pos0"]["k"][1]), **APPLY_TOL)
+    got, want = _repeat_one(cache, jcache, lm.cfg)
+    assert got.keys() == want.keys()
+    for key in got:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   **tol)
     jstep = jax.jit(jm.decode_step)
     for t in range(S, S + steps):
         jlog, jcache = jstep(params, jcache, jnp.asarray(toks[:, t:t + 1]))
@@ -124,7 +149,16 @@ def test_prefill_then_decode_matches_the_reference(arch, S, steps, cache_len):
 
 
 def test_partitioned_batcher_matches_the_reference(monkeypatch):
-    jm, params, lm = _pair("qwen3-8b")
+    _batcher_against_the_reference(monkeypatch, "qwen3-8b")
+
+
+def test_partitioned_batcher_serves_moe_and_mla_as_the_reference(
+        monkeypatch):
+    _batcher_against_the_reference(monkeypatch, "deepseek-v2-lite-16b")
+
+
+def _batcher_against_the_reference(monkeypatch, arch):
+    jm, params, lm = _pair(arch)
     jeng = JEngine(jm, jm.cfg)
     jgroups = [JGroup("fast", jeng, params), JGroup("slow", jeng, params)]
     jsim = JSim([JChannel(mu=20.0, sigma=2.0), JChannel(mu=14.0, sigma=5.0)],
@@ -179,14 +213,37 @@ def test_generate_is_deterministic_and_matches_its_steps():
     assert torch.equal(logits.argmax(-1), a)
 
 
-def test_unported_mixers_and_wrappers_raise():
-    for arch in ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b",
-                 "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch).tiny(), device=DEV)
-    for arch in ("whisper-large-v3", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(arch).tiny(), device=DEV)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_builds_and_prefills(arch):
+    cfg = get_config(arch).tiny()
+    model = build_model(cfg, device=DEV, seed=0)
+    tokens = torch.from_numpy(_tokens(cfg, 2, 8)).long()
+    rng = np.random.default_rng(0)
+    extra = ()
+    n = cfg.encoder_seq or cfg.num_patches
+    if n:
+        extra = (torch.from_numpy(rng.standard_normal(
+            (2, n, cfg.d_model)).astype(np.float32)),)
+    S = 8 + cfg.num_patches
+    logits, cache = model.prefill(tokens, *extra, cache_len=S + 2)
+    assert logits.shape == (2, S, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert cache["pos"] == S
+    logits, cache = model.decode_step(cache, tokens[:, :1])
+    assert logits.shape == (2, 1, cfg.padded_vocab) and cache["pos"] == S + 1
+
+
+def test_serve_cli_serves_moe_and_mla_and_refuses_the_wrappers(capsys):
+    from repro_torch.launch import serve as cli
+    cli.main(["--arch", "deepseek-v2-lite-16b", "--tiny", "--device", "cpu",
+              "--execute", "--batches", "3"])
+    out = capsys.readouterr().out
+    assert "tokens/s" in out and "batch   0 split=" in out
+    for arch, what in (("whisper-large-v3", "frames"),
+                       ("internvl2-76b", "patches")):
+        with pytest.raises(ValueError, match=what):
+            cli.main(["--arch", arch, "--tiny", "--device", "cpu",
+                      "--execute", "--batches", "1"])
 
 
 @pytest.mark.parametrize("act", ["swiglu", "relu2", "gelu"])
