@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases card,build,group,straggler,paper,cluster
     python3 chip_smoke.py --phases card,build,engine,chaos,trace,sweep
     python3 chip_smoke.py --phases card,build,examples
+    python3 chip_smoke.py --phases card,build,train
 
 Phases, in order:
 
@@ -285,6 +286,39 @@ Phases, in order:
    killed run's), and the full-width SmolLM-360M at the batcher's shapes
    (a prefill of 32 x 12 into a cache of 20, then 7 decode steps) through
    the kernels held against the plain ops at relative L2 < 0.1.
+26. ``train`` — the training path. First the two backward kernels
+   (``rmsnorm_bwd``: dx, dw; ``flash_attention_bwd``: dq, dk, dv) against
+   autograd of their plain forwards on the card (``ref.rmsnorm_ref``,
+   ``ref.flash_attention_bf16p_ref`` in bf16 and ``flash_attention_ref``
+   in float32) at relative L2 2e-4 in float32 and 1e-2 in bf16, each run
+   twice (bitwise-equal): attention at SmolLM-360M's training shape (B 8,
+   15 query and 5 KV heads of 64, S 2048, causal), Qwen3-8B's (B 2, 32/8
+   heads of 128), a window of 512, a non-causal 16 x 1500, a ragged S of
+   1000 and float32 at a small shape; norms at 16384 x 960 and 4096 x 4096
+   in both dtypes; each with its event-pair and device time beside its
+   bound (bytes for the norm; for attention the five products' operations
+   at the dense peak of their type), the plain version's time and the
+   yardstick PyTorch call's (``scaled_dot_product_attention``,
+   ``F.rms_norm``: forward + backward, and backward alone), which the port
+   never calls. Then SmolLM-360M at full width in bf16 (seeded weights,
+   B = 8 x 2048 tokens from ``SyntheticStream``): its first step through
+   the kernels against the plain ops on the same weights and batch (loss
+   1e-2 relative, every gradient leaf relative L2 < 0.1, the worst leaf
+   named; the plain run recomputes each layer in its backward to fit the
+   card); 20 steps through ``launch.train`` (``Trainer``) with the model
+   kernels' launches counted from zero and held to the count the code
+   makes (step ms,
+   tokens/s, peak memory, then one step under torch.profiler: device time
+   by part, busy share, the AdamW update alone); a Trainer killed after
+   step 10 and restored from its checkpoint, whose step 11 must be bitwise
+   the uninterrupted run's (loss and every parameter); and
+   ``bench.train_partitioned --full-360m`` for 100 steps (the example's
+   assertion that the loss falls; the simulated join's mean, variance and
+   p99, the final split; every kernel's launches held to the count worked
+   out from the code and the run's recorded splits: one ``frontier_grid``
+   call a step, for two pods' ``optimize_2ch``, and no
+   ``frontier_grid_with_grads``, whose PGD refresh runs for three pods or
+   more).
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -313,8 +347,10 @@ ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
 ``cluster``, ``trace``: its traced and sanitized runs, ``sweep``,
 ``examples``), and its ``launches_by_path`` gives each path's count; a
 model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
-``moeserve``, ``zoo``: its kernel paths, ``examples``); ``compose_grads``
-sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
+``moeserve``, ``zoo``: its kernel paths, ``examples``, ``train``: the
+Trainer's 20 steps and the partitioned trainer's 100, which also count in
+the frontier kernels' ``train`` path and alone in the two backward
+kernels' lines); ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -334,7 +370,7 @@ PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "moeserve", "zoo",
           "lmtick", "dag", "wfloop",
           "engine", "chaos", "trace", "group", "straggler", "paper",
-          "cluster", "sweep", "examples")
+          "cluster", "sweep", "examples", "train")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -933,7 +969,7 @@ LM_KERNELS = {
 }
 # the model-serving paths whose launch counts (each from zero) the JSON
 # line's model kernels sum
-LM_PATHS = ("serve", "ssmserve", "moeserve", "zoo", "examples")
+LM_PATHS = ("serve", "ssmserve", "moeserve", "zoo", "examples", "train")
 # the attention-path kernels (every model but Mamba2 launches all three,
 # DeepSeek-V2-Lite all but flash_decode: its MLA decode is plain matmuls)
 ATTN_PATH = ("rmsnorm", "flash_attention", "flash_decode")
@@ -4753,6 +4789,508 @@ def phase_examples(ctx):
         raise AssertionError(f"examples phase failed: {fails}")
 
 
+# ---------------------------------------------------------------- training
+# The training path's arch and its batch: SmolLM-360M at full width, bf16,
+# B = 8 sequences of 2048 tokens from SyntheticStream (seed 0)
+TRAIN_ARCH = "smollm-360m"
+TRAIN_B, TRAIN_S = 8, 2048
+TRAIN_STEPS = 20            # the Trainer's timed run
+TRAIN_KILL_AT = 10          # the checkpoint the restored Trainer resumes from
+PART_STEPS = 100            # bench.train_partitioned --full-360m
+# the full-width first step through the kernels against the plain ops:
+# the loss (relative) and every gradient leaf (relative L2)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 0.1
+# the backward kernels against autograd of their plain forwards, relative
+# L2 of every output, per dtype (the model kernels' tolerances)
+BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# (name, B, Hq, Hkv, Sq, Sk, D, causal, window, dtype): SmolLM-360M's and
+# Qwen3-8B's training shapes, a window, Whisper's non-causal cross shape,
+# a ragged S and float32 at a small shape
+BWD_ATTN_CASES = (
+    ("smollm-360m train", 8, 15, 5, 2048, 2048, 64, True, None, "bfloat16"),
+    ("qwen3-8b train", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16"),
+    ("window 512", 2, 8, 2, 2048, 2048, 64, True, 512, "bfloat16"),
+    ("noncausal 16 x 1500", 2, 20, 20, 16, 1500, 64, False, None, "bfloat16"),
+    ("ragged S=1000", 2, 15, 5, 1000, 1000, 64, True, None, "bfloat16"),
+    ("float32 small", 2, 4, 2, 256, 256, 64, True, None, "float32"),
+)
+# (rows, D, dtype): SmolLM-360M's norms at the training batch (16384 x
+# 960) and a 4096-wide model's
+BWD_NORM_CASES = ((16384, 960, "bfloat16"), (16384, 960, "float32"),
+                  (4096, 4096, "bfloat16"), (4096, 4096, "float32"))
+TRAIN_REPLACES = {
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/ops.py:190"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/attention.cu",
+                            "src/repro/kernels/ops.py:43"),
+}
+# kernel names by their part of a training step (torch.profiler names)
+STEP_PARTS = (("backward kernels", ("fa_bwd_", "rmsnorm_bwd", "rmsnorm_dw")),
+              ("forward kernels", ("fa_wgmma_kernel", "fa_f32_kernel",
+                                   "rmsnorm_")),
+              ("cuBLAS", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+
+
+def _plain_train_ops():
+    """The model's ops swapped for the plain versions whose autograd is the
+    backward kernels' plain version: ``ref.flash_attention_bf16p_ref`` (bf16;
+    ``flash_attention_ref`` in float32) and ``ref.rmsnorm_ref``."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def attention(q, k, v, **kw):
+        fn = (ref.flash_attention_bf16p_ref if q.dtype == torch.bfloat16
+              else ref.flash_attention_ref)
+        return fn(q, k, v, **kw)
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = ops.attention, ops.rmsnorm
+        ops.attention, ops.rmsnorm = attention, ref.rmsnorm_ref
+        try:
+            yield
+        finally:
+            ops.attention, ops.rmsnorm = saved
+    return swapped()
+
+
+def _attn_pairs(Sq, Sk, causal, window):
+    """Live (query, key) pairs of one head under the masks."""
+    if not causal:
+        return Sq * Sk
+    w = window if window is not None else Sk
+    return sum(min(q + 1, w) for q in range(Sq))
+
+
+def _bwd_attn_case(case, fails):
+    """One attention shape: the backward kernels against autograd of the
+    plain forward (every gradient), timed beside their bound, the plain
+    version and SDPA (forward + backward, backward alone)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    name, B, Hq, Hkv, Sq, Sk, D, causal, window, dts = case
+    dt = getattr(torch, dts)
+    g = _gen(7)
+
+    def view(H, S):   # the model's (B, S, H, D) projection, as a view
+        return _randn(g, (B, S, H, D), dt).transpose(1, 2)
+    q, k, v = view(Hq, Sq), view(Hkv, Sk), view(Hkv, Sk)
+    dout = _randn(g, (B, Hq, Sq, D), dt)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = (ref.flash_attention_bf16p_ref if dt == torch.bfloat16
+             else ref.flash_attention_ref)
+    pl = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(plain(*pl, causal=causal, window=window), pl,
+                               dout)
+    tol = BWD_TOL[dts]
+    rel = [_rel_l2(a.float(), b.float()) for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    ok = all(r < tol for r in rel) and all(
+        bool(torch.isfinite(a).all()) for a in got)
+    again = torch.autograd.grad(
+        fa.flash_attention(*leaves, causal=causal, window=window), leaves,
+        dout)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not ok or not same:
+        fails.append(f"flash_attention_bwd {name}")
+    del want, again, pl
+    torch.cuda.empty_cache()
+    _, lse = fa._forward(q, k, v, causal, window, None, with_lse=True)
+    o = out.detach()
+
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal,
+                                      window=window)
+
+    def fwd_bwd():
+        y = fa.flash_attention(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(y, leaves, dout)
+
+    ms = _time_cuda(bwd, reps=7)
+    fb_ms = _time_cuda(fwd_bwd, reps=5)
+    dev = _device_ms(bwd, reps=5)
+
+    plain_ms = _time_cuda(lambda: torch.autograd.grad(
+        plain(*leaves, causal=causal, window=window), leaves, dout),
+        reps=3, warm=1)
+    mask = None
+    if window is not None:
+        mask = ref.attention_mask(Sq, Sk, causal, window, q.device)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=Hq != Hkv)
+    lib_fb = lib_bwd = None
+    try:
+        y = sdpa()
+        lib_fb = _time_cuda(lambda: torch.autograd.grad(sdpa(), leaves,
+                                                        dout), reps=5)
+        lib_bwd = _time_cuda(lambda: torch.autograd.grad(
+            y, leaves, dout, retain_graph=True), reps=5)
+        del y
+    except RuntimeError as e:
+        log(f"[train] SDPA refuses {name}: {str(e).splitlines()[0][:120]}")
+    pairs = B * Hq * _attn_pairs(Sq, Sk, causal, window)
+    ops_ = 2 * pairs * (3 * D + 2 * D)
+    esize = 2 if dt == torch.bfloat16 else 4
+    nbytes = (esize * (2 * (B * Hq * Sq * D) + 2 * B * Hkv * Sk * D)  # q dO
+              + esize * 2 * B * Hkv * Sk * D                         # k v
+              + esize * B * Hq * Sq * D + 4 * B * Hq * Sq           # o lse
+              + esize * (B * Hq * Sq * D + 2 * B * Hkv * Sk * D))   # grads
+    peak = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+    bound_ms, by = _roof(nbytes, ops_ / peak)
+    log(f"[train] flash_attention_bwd {name:22s} {dts}: rel L2 dq "
+        f"{rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} (tol {tol:g}), "
+        f"max|err| {err:.2e}, bits repeat {same}; bwd {ms:.3f} ms (device "
+        + (f"{dev:.3f}" if dev is not None else "not measured")
+        + f"), fwd+bwd {fb_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}, "
+        f"{ops_ / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s), bwd/bound "
+        f"{ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.2f} ms; SDPA "
+        f"fwd+bwd " + (f"{lib_fb:.3f}" if lib_fb else "n/a") + " ms, bwd "
+        + (f"{lib_bwd:.3f}" if lib_bwd else "n/a") + " ms"
+        + ("" if ok and same else "  FAIL"))
+    row = {"name": name, "dtype": dts, "rel_l2": rel, "max_abs_err": err,
+           "bits_repeat": same, "ms": ms, "device_ms": dev,
+           "fwd_bwd_ms": fb_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": lib_bwd,
+           "library_fwd_bwd_ms": lib_fb}
+    del q, k, v, dout, leaves, out, got, lse, o
+    torch.cuda.empty_cache()
+    return row
+
+
+def _bwd_norm_case(case, fails):
+    """One norm shape: rmsnorm_bwd against autograd of the plain forward
+    (dx, dw), timed beside its bound, the plain version and F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    rows, D, dts = case
+    dt = getattr(torch, dts)
+    g = _gen(8)
+    x = _randn(g, (rows, D), dt)
+    w = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(dt)
+    dy = _randn(g, (rows, D), dt)
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    got = torch.autograd.grad(rn.rmsnorm(xl, wl), (xl, wl), dy)
+    want = torch.autograd.grad(ref.rmsnorm_ref(xl, wl), (xl, wl), dy)
+    tol = BWD_TOL[dts]
+    rel = [_rel_l2(a.float(), b.float()) for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(
+        got, torch.autograd.grad(rn.rmsnorm(xl, wl), (xl, wl), dy)))
+    ok = all(r < tol for r in rel) and same
+    if not ok:
+        fails.append(f"rmsnorm_bwd {rows}x{D} {dts}")
+    ms = _time_cuda(lambda: rn.rmsnorm_bwd(x, w, dy), reps=7, per_pair=10)
+    dev = _device_ms(lambda: rn.rmsnorm_bwd(x, w, dy), reps=10)
+    plain_ms = _time_cuda(lambda: torch.autograd.grad(
+        ref.rmsnorm_ref(xl, wl), (xl, wl), dy), reps=5)
+    lib_fb = _time_cuda(lambda: torch.autograd.grad(
+        F.rms_norm(xl, (D,), wl, 1e-6), (xl, wl), dy), reps=5, per_pair=10)
+    y = F.rms_norm(xl, (D,), wl, 1e-6)
+    lib_bwd = _time_cuda(lambda: torch.autograd.grad(
+        y, (xl, wl), dy, retain_graph=True), reps=5, per_pair=10)
+    esize = x.element_size()
+    nbytes = esize * (3 * rows * D + 2 * D)
+    bound_ms, by = _roof(nbytes, 10 * rows * D / FP32_OPS_PER_S)
+    log(f"[train] rmsnorm_bwd {rows} x {D} {dts}: rel L2 dx {rel[0]:.2e} dw "
+        f"{rel[1]:.2e} (tol {tol:g}), max|err| {err:.2e}, bits repeat "
+        f"{same}; {ms:.4f} ms (device "
+        + (f"{dev:.4f}" if dev is not None else "not measured")
+        + f"), bound {bound_ms:.4f} ms ({by}), kernel/bound "
+        f"{ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.3f} ms; F.rms_norm "
+        f"fwd+bwd {lib_fb:.4f} ms, bwd {lib_bwd:.4f} ms"
+        + ("" if ok else "  FAIL"))
+    return {"rows": rows, "D": D, "dtype": dts, "rel_l2": rel,
+            "max_abs_err": err, "bits_repeat": same, "ms": ms,
+            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_bwd,
+            "library_fwd_bwd_ms": lib_fb}
+
+
+def _full_width_grads(model, cfg, tokens, labels, plain):
+    """(loss, {name: grad}) of the model's first step on its own weights:
+    through the kernels, or through the plain ops with each layer
+    recomputed in its backward (``torch.utils.checkpoint``: the plain
+    attention's per-block probabilities of 32 layers would not fit the
+    card; recomputation changes no value)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.train.loss import softmax_xent
+    params = dict(model.named_parameters())
+    if plain:
+        orig = model._block_apply
+
+        def ck(blk, x, positions, collect=False):
+            return checkpoint(lambda h: orig(blk, h, positions)[0], x,
+                              use_reentrant=False), None
+        model._block_apply = ck
+    try:
+        with _plain_train_ops() if plain else nullcontext():
+            loss, _ = softmax_xent(model.apply(tokens), labels,
+                                   cfg.vocab_size)
+            grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        if plain:
+            del model._block_apply
+    return float(loss), dict(zip(params, grads))
+
+
+def _step_profile(step_fn, state, tokens, labels, steps=2):
+    """Steps of the Trainer's step function on the host clock and under
+    torch.profiler: device time by part of the step and the busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = step_fn(state, tokens, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step_fn(state, tokens, labels)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            by_name[e.key] = (by_name.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3 / steps)
+    parts = {p: 0.0 for p, _ in STEP_PARTS}
+    parts["other (elementwise, loss, optimizer)"] = 0.0
+    for n, ms in by_name.items():
+        part = next((p for p, syms in STEP_PARTS
+                     if any(s in n for s in syms)), None)
+        parts[part or "other (elementwise, loss, optimizer)"] += ms
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return state, {"wall_ms": wall_ms,
+                   "device_ms": dev_ms if dev_ms > 0 else None,
+                   "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
+                   "parts_ms": parts,
+                   "top": [{"name": n, "ms": ms} for n, ms in top]}
+
+
+def _optimizer_device_ms(state):
+    """Device ms of one AdamW update of the full-width state (the step's
+    optimizer), under torch.profiler."""
+    import torch
+    from repro_torch.optim import adamw
+    grads = {k: torch.ones_like(p) for k, p in state.params.items()}
+    lr = adamw.cosine_schedule(3e-4, 20, 100)
+    ms = _device_ms(lambda: adamw.adamw_update(state.params, grads,
+                                               state.opt, lr), reps=3)
+    del grads
+    return ms
+
+
+def _train_launches(cfg, steps):
+    """Model-kernel launches of ``steps`` standard steps, counted from the
+    code: per layer ln1, ln2 (and q/k norms with qk_norm), the final norm,
+    one attention per layer, each once forward and once backward."""
+    norms = 1 + cfg.num_layers * (2 + (2 if cfg.qk_norm else 0))
+    return {"rmsnorm": norms * steps, "rmsnorm_bwd": norms * steps,
+            "flash_attention": cfg.num_layers * steps,
+            "flash_attention_bwd": cfg.num_layers * steps}
+
+
+def _part_launches(cfg, history):
+    """Launches of the partitioned trainer's run, counted from the code and
+    the splits the run recorded: each step one balancer solve, which for
+    two pods is ``optimize_2ch`` (one ``frontier_grid`` call; the PGD
+    refresh, ``frontier_grid_with_grads``, runs for three pods or more, or
+    with risk or adaptive refresh, as in the reference), and, on a one-pod
+    mesh, k[0] microsteps (the recorded split is already clipped to
+    ``max_micro``), each a standard step's model kernels. Nothing
+    decodes or scans."""
+    micro = sum(json.loads(h["k_pods"])[0] for h in history)
+    return {"fwd": len(history), "grad": 0, "pgrad": 0,
+            **_train_launches(cfg, micro), "flash_decode": 0,
+            "ssd_scan": 0}
+
+
+def phase_train(ctx):
+    """The training path on the card (see the module docstring): the
+    backward kernels against their plain versions, the full-width first
+    step against the plain ops, the Trainer's timed run with its launches,
+    kill and restore, then the partitioned trainer."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.bench import train_partitioned as tp
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer, TrainerConfig
+    fails = []
+    out = {}
+    smi = ctx.get("smi")
+
+    # 1. the backward kernels against autograd of their plain forwards
+    out["attention"] = [_bwd_attn_case(c, fails) for c in BWD_ATTN_CASES]
+    out["rmsnorm"] = [_bwd_norm_case(c, fails) for c in BWD_NORM_CASES]
+    if fails:
+        raise AssertionError(f"train phase: backward kernels failed {fails}")
+
+    # 2. the full-width first step: kernels against the plain ops
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = SyntheticStream(cfg, TRAIN_S, TRAIN_B, seed=0).batch_at(0)
+    tokens = torch.as_tensor(batch.tokens, device="cuda")
+    labels = torch.as_tensor(batch.labels, device="cuda")
+    t0 = time.perf_counter()
+    loss_k, grads_k = _full_width_grads(model, cfg, tokens, labels, False)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    peak_k = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    loss_p, grads_p = _full_width_grads(model, cfg, tokens, labels, True)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    rels = {n: _rel_l2(grads_k[n].float(), grads_p[n].float())
+            for n in grads_k}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    log(f"[train] {cfg.name} full width ({n_params / 1e6:.1f} M parameters, "
+        f"bf16) first step on B={TRAIN_B} x S={TRAIN_S}: loss kernels "
+        f"{loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.2e}, tol "
+        f"{TRAIN_LOSS_TOL:g}); gradient rel L2 worst {rels[worst]:.3e} "
+        f"({worst}), median {np.median(list(rels.values())):.3e} (tol "
+        f"{TRAIN_GRAD_TOL:g}), finite {finite}; kernels {k_s:.2f} s (peak "
+        f"{peak_k / 1e9:.2f} GB), plain with per-layer recompute {p_s:.2f} s")
+    if not (loss_rel < TRAIN_LOSS_TOL and rels[worst] < TRAIN_GRAD_TOL
+            and finite):
+        raise AssertionError(f"full-width step disagrees: loss {loss_rel}, "
+                             f"{worst} {rels[worst]}")
+    out["full_width"] = {"arch": cfg.name, "params": n_params,
+                         "loss_kernels": loss_k, "loss_plain": loss_p,
+                         "loss_rel": loss_rel, "worst_leaf": worst,
+                         "worst_rel_l2": rels[worst],
+                         "median_rel_l2": float(np.median(
+                             list(rels.values()))),
+                         "first_step_s": k_s, "plain_step_s": p_s}
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # 3. 20 steps through the training CLI (Trainer, seed 0: the same
+    # weights), launches counted from zero
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    state, hist = train_cli.main([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", "3e-4"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {**dict(fg.LAUNCHES), **_lm_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    want = _train_launches(cfg, TRAIN_STEPS)
+    got = {k: counts[k] for k in want}
+    walls = [h["wall_s"] for h in hist]
+    step_ms = 1e3 * float(np.median(walls[-10:]))
+    losses = [h["loss"] for h in hist]
+    log(f"[train] launch.train --arch {TRAIN_ARCH} --steps {TRAIN_STEPS} "
+        f"--batch {TRAIN_B} --seq {TRAIN_S} in {run_s:.1f} s: step "
+        f"{step_ms:.1f} ms (median of the last 10, host clock, synchronized"
+        f"), {TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"launches {got}, expected {want} ({smi})")
+    if got != want:
+        fails.append(f"Trainer launches {got}, not {want}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fails.append("the Trainer's loss did not fall")
+    ctx["train_launches"] = dict(counts)
+    trainer = Trainer(model, cfg, TrainerConfig(steps=TRAIN_STEPS))
+    state, prof = _step_profile(trainer._step_fn, state, tokens, labels)
+    opt_ms = _optimizer_device_ms(state)
+    log(f"[train] one step under torch.profiler: wall {prof['wall_ms']:.1f} "
+        f"ms, device " + (f"{prof['device_ms']:.1f} ms, busy share "
+                          f"{prof['busy_share']:.3f}" if prof['device_ms']
+                          else "time not measured")
+        + "; by part: " + ", ".join(f"{p} {ms:.2f} ms"
+                                    for p, ms in prof["parts_ms"].items())
+        + "; the AdamW update alone "
+        + (f"{opt_ms:.2f} ms" if opt_ms else "not measured"))
+    for t in prof["top"]:
+        log(f"[train]   {t['ms']:8.3f} ms  {t['name'][:90]}")
+    out["trainer"] = {"steps": TRAIN_STEPS, "step_ms": step_ms,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
+                      "peak_gb": peak / 1e9, "losses": losses,
+                      "walls_s": walls, "launches": got,
+                      "profile": prof, "optimizer_device_ms": opt_ms}
+    del state, trainer
+    torch.cuda.empty_cache()
+
+    # 4. kill after step 10, restore, step 11 bitwise the uninterrupted run
+    with tempfile.TemporaryDirectory() as d:
+        kcfg = TrainerConfig(steps=TRAIN_KILL_AT + 1, batch=TRAIN_B,
+                             seq=TRAIN_S, lr=3e-4, warmup=5, log_every=100,
+                             seed=0, ckpt_dir=d, ckpt_interval=TRAIN_KILL_AT)
+        t0 = time.perf_counter()
+        whole, wh = Trainer(model, cfg, kcfg).run()
+        restored, rh = Trainer(model, cfg, kcfg).run()
+        torch.cuda.synchronize()
+        kill_s = time.perf_counter() - t0
+    same_loss = rh[0]["step"] == TRAIN_KILL_AT and \
+        rh[0]["loss"] == wh[TRAIN_KILL_AT]["loss"]
+    same_params = all(torch.equal(whole.params[k], restored.params[k])
+                      for k in whole.params)
+    log(f"[train] killed after step {TRAIN_KILL_AT} and restored from its "
+        f"checkpoint: step {TRAIN_KILL_AT + 1} loss {rh[0]['loss']:.6f} vs "
+        f"{wh[TRAIN_KILL_AT]['loss']:.6f} uninterrupted, loss "
+        + ("bitwise" if same_loss else "DIFFERENT") + ", params "
+        + ("bitwise" if same_params else "DIFFERENT") + f" ({kill_s:.1f} s "
+        f"with the checkpoint's write and read)")
+    if not (same_loss and same_params):
+        fails.append("kill/restore")
+    out["restore_bitwise"] = bool(same_loss and same_params)
+    del whole, restored, model
+    torch.cuda.empty_cache()
+
+    # 5. the partitioned trainer at full width, launches counted from zero
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    res = tp.run(steps=PART_STEPS, full_360m=True, device="cuda")
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    pcounts = {**dict(fg.LAUNCHES), **_lm_launches()}
+    pwant = _part_launches(cfg, res["history"])
+    s = res["summary"]
+    log(f"[train] bench.train_partitioned --full-360m, {PART_STEPS} steps in "
+        f"{part_s:.1f} s: loss first10 {s['first10']:.4f} last10 "
+        f"{s['last10']:.4f} (falls: asserted); simulated join mean "
+        f"{s['join_mean']:.4f} s var {s['join_var']:.5f} p99 "
+        f"{s['join_p99']:.4f} s; final split {s['k_last']}; launches "
+        f"{pcounts}, expected {pwant} ({smi})")
+    if pcounts != pwant:
+        fails.append(f"the partitioned trainer's launches {pcounts}, not "
+                     f"{pwant}")
+    for k, n in pcounts.items():
+        ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
+    out["partitioned"] = {**s, "steps": PART_STEPS, "seconds": part_s,
+                          "launches": pcounts}
+    ctx["train"] = out
+    if fails:
+        raise AssertionError(f"train phase failed: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4791,7 +5329,7 @@ def main(argv=None):
            "trace": phase_trace, "group": phase_group,
            "straggler": phase_straggler, "paper": phase_paper,
            "cluster": phase_cluster, "sweep": phase_sweep,
-           "examples": phase_examples}
+           "examples": phase_examples, "train": phase_train}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -4817,7 +5355,8 @@ def main(argv=None):
                                           ("cluster", "cluster_launches"),
                                           ("trace", "trace_launches"),
                                           ("sweep", "sweep_launches"),
-                                          ("examples", "examples_launches"))
+                                          ("examples", "examples_launches"),
+                                          ("train", "train_launches"))
              if k in ctx}
     for mode, (name, replaces) in KERNELS.items():
         r = tick.get(("normal", mode), {})
@@ -4847,6 +5386,24 @@ def main(argv=None):
             "launches_by_path": by_path,
             "max_abs_err": ctx.get("lm_max_abs_err", {}).get(key),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+            "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+            "library_ms": r.get("library_ms")})
+    # the backward kernels of the training path, at SmolLM-360M's training
+    # shapes (attention B=8, S=2048; norms 16384 x 960, bf16)
+    train = ctx.get("train", {})
+    first = {"flash_attention_bwd": (train.get("attention") or [{}])[0],
+             "rmsnorm_bwd": (train.get("rmsnorm") or [{}])[0]}
+    for name, (source, replaces) in TRAIN_REPLACES.items():
+        r = first[name]
+        by_path = ({"train": ctx["train_launches"][name]}
+                   if "train_launches" in ctx else {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(by_path.values()) if by_path else None,
+            "launches_by_path": by_path,
+            "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+            "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms")})
     # the port's kernels with no Pallas counterpart: compose_grads at the
@@ -4895,6 +5452,8 @@ def main(argv=None):
                    "wfloop_launches": ctx.get("wfloop_launches"),
                    "examples": ctx.get("examples"),
                    "port_kernels": ctx.get("port_kernels"),
+                   "train": ctx.get("train"),
+                   "train_launches": ctx.get("train_launches"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -9,7 +9,8 @@ Layout (the JAX package's ``ckpt/store.py``, file for file):
 
 A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
 arrays or numbers; dict keys walk in sorted order, as a JAX pytree's do,
-and a ``None`` is an empty subtree. Restore rebuilds the structure of a
+and a ``None`` is an empty subtree (a NamedTuple, such as a
+``TrainState``, walks as a tuple and comes back as its own type). Restore rebuilds the structure of a
 template and gives every leaf its template's dtype (a tensor leaf comes
 back as a tensor on its template's device; bf16 tensors travel as their
 16-bit patterns), so a restored tree is the saved one bit for bit.
@@ -106,6 +107,13 @@ def _like(arr: np.ndarray, leaf):
     return arr.astype(np.asarray(leaf).dtype)
 
 
+def _remake(template, items):
+    """A tuple or list like ``template`` (a NamedTuple by its fields)."""
+    if hasattr(template, "_fields"):
+        return type(template)(*items)
+    return type(template)(items)
+
+
 def _rebuild(template, flat: dict, path=()):
     if template is None:
         return None
@@ -129,7 +137,7 @@ def _rebuild(template, flat: dict, path=()):
     out = {k: _rebuild(c, flat, path + (str(k),)) for k, c in kids}
     if isinstance(template, dict):
         return {k: out[k] for k in template}
-    return type(template)(out[i] for i in range(len(template)))
+    return _remake(template, [out[i] for i in range(len(template))])
 
 
 def _to_host(tree):
@@ -140,7 +148,7 @@ def _to_host(tree):
         return _host(tree) if isinstance(tree, torch.Tensor) else tree
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
-    return type(tree)(_to_host(v) for v in tree)
+    return _remake(tree, [_to_host(v) for v in tree])
 
 
 def save(directory: str, step: int, tree, meta: Optional[dict] = None) -> str:

@@ -24,6 +24,9 @@ are unstacked into the port's per-layer submodules; each leaf lands in
 its parameter's dtype, so a mamba mixer's float32 ``A_log``, ``dt_bias``
 and ``D`` and a MoE router stay float32, bit for bit, inside a bf16
 model. Every load is ``strict``: a leaf missing on either side raises.
+A training state crosses too (:func:`train_state_from_reference`): the
+parameters as above, and AdamW's step and float32 moments under the same
+names, so a run trained in the JAX package continues in the port.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ __all__ = ["balancer_from_reference", "sim_from_reference",
            "dag_from_reference", "workflow_balancer_from_reference",
            "workflow_sim_from_reference", "workflow_engine_from_reference",
            "config_from_reference", "lm_from_reference",
-           "encdec_from_reference", "vlm_from_reference"]
+           "encdec_from_reference", "vlm_from_reference",
+           "model_from_reference", "train_state_from_reference"]
 
 # the JAX ModelConfig's execution switches; the port selects by device
 _JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
@@ -201,11 +205,10 @@ def vlm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> VLM:
     return _load(VLM(cfg, device=device), _lm_state(params, cfg, "lm."))
 
 
-def encdec_from_reference(params: dict, cfg: ModelConfig,
-                          device="cuda") -> EncDec:
-    """The port's :class:`EncDec` on ``device`` holding the weights of a
-    JAX ``EncDec.init`` pytree: layer l of the stacked ``enc_blocks`` and
-    ``dec_blocks`` becomes ``enc_blocks[l]`` and ``dec_blocks[l]``."""
+def _encdec_state(params: dict, cfg: ModelConfig) -> dict:
+    """The port's EncDec state (numpy leaves) of a JAX ``EncDec.init``
+    pytree: layer l of the stacked ``enc_blocks`` and ``dec_blocks``
+    becomes ``enc_blocks[l]`` and ``dec_blocks[l]``."""
     state = {"embed.embedding": params["embed"]["embedding"],
              "embed.head": params["embed"]["head"],
              "enc_norm": params["enc_norm"],
@@ -215,4 +218,55 @@ def encdec_from_reference(params: dict, cfg: ModelConfig,
         for name, stacked in _leaves(params[stack]):
             for layer in range(n):
                 state[f"{stack}.{layer}.{name}"] = np.asarray(stacked)[layer]
-    return _load(EncDec(cfg, device=device), state)
+    return state
+
+
+def encdec_from_reference(params: dict, cfg: ModelConfig,
+                          device="cuda") -> EncDec:
+    """The port's :class:`EncDec` on ``device`` holding the weights of a
+    JAX ``EncDec.init`` pytree (:func:`_encdec_state`)."""
+    return _load(EncDec(cfg, device=device), _encdec_state(params, cfg))
+
+
+def _model_state(tree: dict, cfg: ModelConfig) -> dict:
+    """Names of the port's parameters to the leaves of a pytree shaped like
+    the JAX model's parameters (its weights, or AdamW moments)."""
+    if cfg.is_encoder_decoder:
+        return _encdec_state(tree, cfg)
+    return _lm_state(tree, cfg, "lm." if cfg.num_patches else "")
+
+
+def model_from_reference(params: dict, cfg: ModelConfig, device="cuda"):
+    """The port's model (LM, EncDec or VLM, by ``cfg``) on ``device``
+    holding a JAX model's weights (numpy leaves)."""
+    if cfg.is_encoder_decoder:
+        return encdec_from_reference(params, cfg, device=device)
+    if cfg.num_patches:
+        return vlm_from_reference(params, cfg, device=device)
+    return lm_from_reference(params, cfg, device=device)
+
+
+def train_state_from_reference(state, cfg: ModelConfig, device="cuda"):
+    """The port's ``train.step.TrainState`` on ``device`` from a JAX
+    ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray, state)``):
+    the parameters under the port's names, each in its parameter's dtype
+    and requiring a gradient, and AdamW's ``step`` (int32) and float32
+    moments ``m`` and ``v`` under the same names."""
+    from .optim.adamw import AdamWState
+    from .train.step import TrainState
+    params, (step, m, v) = state
+    model = model_from_reference(params, cfg, device=device)
+    dev = model.device
+    names = dict(model.named_parameters())
+    mm, vv = _model_state(m, cfg), _model_state(v, cfg)
+    if set(mm) != set(names) or set(vv) != set(names):
+        raise ValueError("the AdamW moments do not match the parameters")
+
+    def moment(tree):
+        return {k: _tensor(tree[k]).to(dev, torch.float32) for k in names}
+
+    return TrainState(
+        params={k: p.detach().requires_grad_(True) for k, p in names.items()},
+        opt=AdamWState(step=torch.as_tensor(np.array(step), dtype=torch.int32,
+                                            device=dev),
+                       m=moment(mm), v=moment(vv)))

@@ -84,6 +84,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;  // element strides of the batch, head and sequence axes
@@ -124,7 +125,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
 template <typename T, int COLS>
 __global__ void __launch_bounds__(FA_THREADS)
 fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Hq, int group,
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int Hq, int group,
               int Sq, int Sk, int D, int Dv, Strides qs, Strides ks,
               Strides vs, int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -246,6 +248,9 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rg * 4 + i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * Hq + h) * Sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
       const int col = cg + 8 * c;
@@ -257,7 +262,8 @@ fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int COLS>
 int attention_f32(const void* q, const void* k, const void* v, void* o,
-                  int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                  int Dv,
                   Strides qs, Strides ks, Strides vs, int causal, int window,
                   float scale, cudaStream_t stream) {
   const int ld = pad_ld<float>(D), ldv = pad_ld<float>(Dv);
@@ -270,7 +276,8 @@ int attention_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   fa_f32_kernel<float, COLS><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hq / Hkv,
+      Sq,
       Sk, D, Dv, qs, ks, vs, causal, window, scale);
   return (int)cudaGetLastError();
 }
@@ -284,6 +291,7 @@ constexpr int PANEL_ROW = 128;                 // bytes: 64 bf16 columns
 
 struct FaArgs {
   __nv_bfloat16* o;      // (B, Hq, Sq, Dv) contiguous
+  float* lse;            // (B, Hq, Sq) natural-log LSE, or null (serving)
   int Hq, group, Sq, Sk, D, Dv;
   int causal, window;
   float scale_log2;      // sm_scale * log2(e): p = 2^(s' - m') = e^(s - m)
@@ -536,6 +544,11 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (!live[hh]) continue;
+    // the row's LSE where it is normalized: m is in log2 units
+    if (a.lse != nullptr && (lane & 3) == 0)
+      a.lse[((long long)b * a.Hq + head[hh]) * a.Sq + pos[hh]] =
+          l[hh] > 0.f ? (m[hh] + log2f(l[hh])) * LN2
+                      : __int_as_float(0x7f800000);  // +inf
     const float den = fmaxf(l[hh], 1e-30f);
     __nv_bfloat16* orow =
         a.o + (((long long)b * a.Hq + head[hh]) * a.Sq + pos[hh]) * a.Dv;
@@ -595,12 +608,14 @@ bool make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B,
 
 template <int DP, int DV>
 int attention_bf16(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   int Dv,
                    Strides qs, Strides ks, Strides vs, int causal, int window,
                    float scale, cudaStream_t stream) {
   using Tile = FaTile<DP, DV>;
   FaArgs a;
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
   a.Hq = Hq;
   a.group = Hq / Hkv;
   a.Sq = Sq;
@@ -1002,6 +1017,612 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------ flash_attention backward
+//
+// The gradient that jax.grad takes of the JAX package's XLA attention (its
+// Pallas kernel has no backward), in the FlashAttention-2 shape: three
+// launches, each a pure function of the shape, no atomics.
+//   1. fa_bwd_delta_kernel: D_i = rowsum(dO . O) in float32, a warp a row.
+//   2. dK and dV: one block per (key tile, kv head, batch) walks the G query
+//      heads of its kv head and their query tiles in a fixed order, so the
+//      GQA sum stays in the block's registers.
+//   3. dQ: one block per (query tile, q head, batch) walks the key tiles.
+// Each block recomputes S = scale Q K^T under the forward's masks (causal,
+// window, the ragged ends of Sq and Sk) and P = exp(S - lse) from the
+// forward's LSE (+inf on a dead row, whose P is 0: its gradients are 0, as
+// its output is); then dV = P^T dO, dP = dO V^T, dS = P (dP - D_i),
+// dQ = scale dS K and dK = scale dS^T Q, float32 sums, outputs in the
+// input dtype, written through their strides.
+// bf16 (fa_bwd_*_bf16_kernel<DP>): the products are mma.sync m16n8k16 with
+// bf16 operands and float32 accumulators, tiles in shared memory padded by
+// 16 bytes a row (the fragment reads of a warp hit 32 banks), the operands
+// that a product reads down its K axis stored transposed beside them. P is
+// rounded to bf16 for P^T dO, as the forward's P . V rounds it, and dS for
+// its two products; D, Dv <= 128 run in tiles of DP = 64 or 128 columns,
+// zero past D. Four warps a block: in dK/dV each owns 16 keys of a 64-key
+// tile, in dQ 16 queries of a 64-query tile.
+// float32 (fa_bwd_*_f32_kernel): CUDA-core FMAs (TF32 would miss the
+// float32 tolerance), 32 x 32 tiles, 256 threads.
+// What bounds it: operations, as the forward (five products of 2 Sq Sk D
+// flops, halved when causal, against ~4 B H S D bytes read); the dQ launch
+// recomputes two of them, the price of writing dQ without atomics.
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *g;  // g: dO
+  const float* lse;                // (B, Hq, Sq)
+  float* delta;                    // (B, Hq, Sq) D_i
+  void *dq, *dk, *dv;
+  Strides qs, ks, vs, os, gs, dqs, dks, dvs;
+  int B, Hq, Hkv, group, Sq, Sk, D, Dv, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool bwd_live(const BwdArgs& a, int qpos,
+                                         int kpos) {
+  bool ok = qpos < a.Sq && kpos < a.Sk;
+  if (a.causal) ok = ok && qpos >= kpos;
+  if (a.window >= 0) ok = ok && (qpos - kpos) < a.window;
+  return ok;
+}
+
+// the key tiles a query tile [q0, q0 + rows) can see: [begin, end)
+__device__ __forceinline__ void bwd_key_range(const BwdArgs& a, int q0,
+                                              int rows, int bk, int& begin,
+                                              int& end) {
+  const int q_last = min(q0 + rows, a.Sq) - 1;
+  begin = 0;
+  end = a.Sk;
+  if (a.causal) end = min(a.Sk, q_last + 1);
+  if (a.window >= 0) begin = max(0, q0 - a.window + 1);
+  begin = (begin / bk) * bk;
+}
+
+// the query tiles that can see a key tile [k0, k0 + rows): [begin, end)
+__device__ __forceinline__ void bwd_query_range(const BwdArgs& a, int k0,
+                                                int rows, int bq,
+                                                int& begin, int& end) {
+  const int k_last = min(k0 + rows, a.Sk) - 1;
+  begin = a.causal ? (k0 / bq) * bq : 0;
+  end = a.Sq;
+  if (a.window >= 0) end = min(a.Sq, k_last + a.window);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) fa_bwd_delta_kernel(BwdArgs a) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)a.B * a.Hq * a.Sq) return;
+  const int s = (int)(row % a.Sq);
+  const long long bh = row / a.Sq;
+  const int h = (int)(bh % a.Hq), b = (int)(bh / a.Hq);
+  const T* o = static_cast<const T*>(a.o) + b * a.os.b + h * a.os.h +
+               s * a.os.s;
+  const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h +
+               s * a.gs.s;
+  float acc = 0.f;
+  for (int c = lane; c < a.Dv; c += 32) acc += to_f32(o[c]) * to_f32(g[c]);
+  acc = warp_sum(acc);
+  if (lane == 0) a.delta[row] = acc;
+}
+
+// ---- float32: CUDA cores
+constexpr int BT32 = 32;           // keys and queries per tile
+constexpr int BWD32_THREADS = 256;
+
+// rows [r0, r0 + BT32) of a (B, H, S, D) view into a BT32 x ld tile, zero
+// past S
+__device__ __forceinline__ void bwd_load32(float* dst, const float* src,
+                                           long long s_stride, int r0, int S,
+                                           int D, int ld) {
+  for (int idx = threadIdx.x; idx < BT32 * D; idx += BWD32_THREADS) {
+    const int r = idx / D, c = idx - r * D;
+    dst[r * ld + c] = r0 + r < S ? src[(r0 + r) * s_stride + c] : 0.f;
+  }
+}
+
+// COLS: accumulator columns per thread (D, Dv <= 8 COLS)
+template <int COLS>
+__global__ void __launch_bounds__(BWD32_THREADS)
+fa_bwd_dkdv_f32_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
+  float* Ks = reinterpret_cast<float*>(smem_b);
+  float* Vs = Ks + BT32 * ld;
+  float* Qs = Vs + BT32 * ldv;
+  float* Gs = Qs + BT32 * ld;
+  float* Ps = Gs + BT32 * ldv;    // P^T [key][query]
+  float* Ss = Ps + BT32 * ldp;    // dS^T [key][query]
+  float* Ls = Ss + BT32 * ldp;    // lse
+  float* Ds = Ls + BT32;          // D_i
+  const int tid = threadIdx.x, kr = tid >> 3, cg = tid & 7;
+  const int k0 = blockIdx.x * BT32, hk = blockIdx.y, b = blockIdx.z;
+  bwd_load32(Ks, static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h,
+             a.ks.s, k0, a.Sk, a.D, ld);
+  bwd_load32(Vs, static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h,
+             a.vs.s, k0, a.Sk, a.Dv, ldv);
+  float dk[COLS], dv[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) dk[j] = dv[j] = 0.f;
+  int q_begin, q_end;
+  bwd_query_range(a, k0, BT32, BT32, q_begin, q_end);
+  const int kpos = k0 + kr;
+  for (int hh = 0; hh < a.group; ++hh) {
+    const int h = hk * a.group + hh;
+    const float* qb = static_cast<const float*>(a.q) + b * a.qs.b +
+                      h * a.qs.h;
+    const float* gb = static_cast<const float*>(a.g) + b * a.gs.b +
+                      h * a.gs.h;
+    const long long rowbase = ((long long)b * a.Hq + h) * a.Sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += BT32) {
+      __syncthreads();  // the previous tile's readers are done
+      bwd_load32(Qs, qb, a.qs.s, q0, a.Sq, a.D, ld);
+      bwd_load32(Gs, gb, a.gs.s, q0, a.Sq, a.Dv, ldv);
+      if (tid < BT32) {
+        const bool in = q0 + tid < a.Sq;
+        Ls[tid] = in ? a.lse[rowbase + q0 + tid] : 0.f;
+        Ds[tid] = in ? a.delta[rowbase + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float sc[4], dp[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i] = dp[i] = 0.f;
+      for (int d = 0; d < a.D; ++d) {
+        const float kv = Ks[kr * ld + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[i] += kv * Qs[(cg + 8 * i) * ld + d];
+      }
+      for (int d = 0; d < a.Dv; ++d) {
+        const float vv = Vs[kr * ldv + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dp[i] += vv * Gs[(cg + 8 * i) * ldv + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = cg + 8 * i;
+        const float p = bwd_live(a, q0 + qi, kpos)
+                            ? expf(sc[i] * a.scale - Ls[qi]) : 0.f;
+        Ps[kr * ldp + qi] = p;
+        Ss[kr * ldp + qi] = p * (dp[i] - Ds[qi]);
+      }
+      __syncthreads();
+      for (int qi = 0; qi < BT32; ++qi) {
+        const float p = Ps[kr * ldp + qi], ds = Ss[kr * ldp + qi];
+#pragma unroll
+        for (int j = 0; j < COLS; ++j) {
+          const int c = cg + 8 * j;
+          if (c < a.Dv) dv[j] += p * Gs[qi * ldv + c];
+          if (c < a.D) dk[j] += ds * Qs[qi * ld + c];
+        }
+      }
+    }
+  }
+  if (kpos >= a.Sk) return;
+  float* dkr = static_cast<float*>(a.dk) + b * a.dks.b + hk * a.dks.h +
+               kpos * a.dks.s;
+  float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + hk * a.dvs.h +
+               kpos * a.dvs.s;
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    const int c = cg + 8 * j;
+    if (c < a.D) dkr[c] = dk[j] * a.scale;
+    if (c < a.Dv) dvr[c] = dv[j];
+  }
+}
+
+template <int COLS>
+__global__ void __launch_bounds__(BWD32_THREADS)
+fa_bwd_dq_f32_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
+  float* Qs = reinterpret_cast<float*>(smem_b);
+  float* Gs = Qs + BT32 * ld;
+  float* Ks = Gs + BT32 * ldv;
+  float* Vs = Ks + BT32 * ld;
+  float* Ss = Vs + BT32 * ldv;   // dS [query][key]
+  const int tid = threadIdx.x, qr = tid >> 3, cg = tid & 7;
+  const int q0 = blockIdx.x * BT32, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / a.group;
+  bwd_load32(Qs, static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h,
+             a.qs.s, q0, a.Sq, a.D, ld);
+  bwd_load32(Gs, static_cast<const float*>(a.g) + b * a.gs.b + h * a.gs.h,
+             a.gs.s, q0, a.Sq, a.Dv, ldv);
+  const int qpos = q0 + qr;
+  const long long row = ((long long)b * a.Hq + h) * a.Sq + qpos;
+  const float L = qpos < a.Sq ? a.lse[row] : 0.f;
+  const float Di = qpos < a.Sq ? a.delta[row] : 0.f;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b +
+                    hk * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b +
+                    hk * a.vs.h;
+  float dq[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) dq[j] = 0.f;
+  int k_begin, k_end;
+  bwd_key_range(a, q0, BT32, BT32, k_begin, k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += BT32) {
+    __syncthreads();
+    bwd_load32(Ks, kb, a.ks.s, k0, a.Sk, a.D, ld);
+    bwd_load32(Vs, vb, a.vs.s, k0, a.Sk, a.Dv, ldv);
+    __syncthreads();
+    float sc[4], dp[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = dp[i] = 0.f;
+    for (int d = 0; d < a.D; ++d) {
+      const float qv = Qs[qr * ld + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i] += qv * Ks[(cg + 8 * i) * ld + d];
+    }
+    for (int d = 0; d < a.Dv; ++d) {
+      const float gv = Gs[qr * ldv + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dp[i] += gv * Vs[(cg + 8 * i) * ldv + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ki = cg + 8 * i;
+      const float p = bwd_live(a, qpos, k0 + ki)
+                          ? expf(sc[i] * a.scale - L) : 0.f;
+      Ss[qr * ldp + ki] = p * (dp[i] - Di);
+    }
+    __syncthreads();
+    for (int ki = 0; ki < BT32; ++ki) {
+      const float ds = Ss[qr * ldp + ki];
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) {
+        const int c = cg + 8 * j;
+        if (c < a.D) dq[j] += ds * Ks[ki * ld + c];
+      }
+    }
+  }
+  if (qpos >= a.Sq) return;
+  float* dqr = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h +
+               qpos * a.dqs.s;
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    const int c = cg + 8 * j;
+    if (c < a.D) dqr[c] = dq[j] * a.scale;
+  }
+}
+
+// ---- bf16: mma.sync on the tensor cores
+typedef __nv_bfloat16 bf16;
+constexpr int BWD_THREADS = 128;   // four warps
+constexpr int BWD_BK = 64;         // keys per tile
+
+// D (16 x 8, float32) += A (16 x 16, row-major fragment) . B (16 x 8, the
+// column-major fragment: b0 holds k = 2t, 2t + 1 of column g, b1 k + 8)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 of shared memory (the lower column in the low half)
+__device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// the A fragment of rows r, r + 8 and columns c0 .. c0 + 15 of a row-major
+// tile with row stride ld
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* tile,
+                                       int ld, int r, int c0, int t) {
+  f[0] = ld2(tile + r * ld + c0 + 2 * t);
+  f[1] = ld2(tile + (r + 8) * ld + c0 + 2 * t);
+  f[2] = ld2(tile + r * ld + c0 + 8 + 2 * t);
+  f[3] = ld2(tile + (r + 8) * ld + c0 + 8 + 2 * t);
+}
+
+// the A fragment of an accumulator pair: columns 16 kk .. 16 kk + 15 of a
+// 16-row float32 product held as n-tiles of 8 columns, rounded to bf16
+__device__ __forceinline__ void frag_acc(uint32_t (&f)[4],
+                                         const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  f[0] = pack2(lo[0], lo[1]);
+  f[1] = pack2(lo[2], lo[3]);
+  f[2] = pack2(hi[0], hi[1]);
+  f[3] = pack2(hi[2], hi[3]);
+}
+
+// rows [r0, r0 + rows) of a (B, H, S, D) bf16 view into a rows x ld tile
+// (columns past D and rows past S zero), and its transpose into a DP x ldt
+// tile when tr is not null
+template <int DP>
+__device__ __forceinline__ void bwd_load16(bf16* dst, bf16* tr, int ldt,
+                                           const bf16* src, long long s_stride,
+                                           int r0, int rows, int S, int D,
+                                           int ld) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int idx = threadIdx.x; idx < rows * DP; idx += BWD_THREADS) {
+    const int r = idx / DP, c = idx - r * DP;
+    const bf16 v = (r0 + r < S && c < D) ? src[(r0 + r) * s_stride + c]
+                                         : zero;
+    dst[r * ld + c] = v;
+    if (tr != nullptr) tr[c * ldt + r] = v;
+  }
+}
+
+template <int DP> struct BwdTile {
+  static constexpr int LDS = DP + 8;         // row stride of a tile
+  static constexpr int KS = DP / 16;         // k-steps over the head dim
+  static constexpr int ND = DP / 8;          // n-tiles over the head dim
+  static constexpr int BQ = DP <= 64 ? 64 : 32;  // queries per dK/dV step
+  static constexpr int LDQ = BQ + 8;         // of the transposed Q, dO
+  static constexpr int LDK = BWD_BK + 8;     // of the transposed K
+  static constexpr int DKDV_SMEM =
+      (2 * BWD_BK * LDS + 2 * BQ * LDS + 2 * DP * LDQ) * 2 + 2 * BQ * 4;
+  static constexpr int DQ_SMEM = (2 * 64 * LDS + 2 * BWD_BK * LDS +
+                                  DP * LDK) * 2;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS)
+fa_bwd_dkdv_bf16_kernel(BwdArgs a) {
+  using Tl = BwdTile<DP>;
+  constexpr int LDS = Tl::LDS, LDQ = Tl::LDQ, BQ = Tl::BQ;
+  constexpr int NQ = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_b);
+  bf16* Vs = Ks + BWD_BK * LDS;
+  bf16* Qs = Vs + BWD_BK * LDS;
+  bf16* Gs = Qs + BQ * LDS;
+  bf16* Qt = Gs + BQ * LDS;       // DP x LDQ
+  bf16* Gt = Qt + DP * LDQ;
+  float* Ls = reinterpret_cast<float*>(Gt + DP * LDQ);  // lse, log2 units
+  float* Ds = Ls + BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BWD_BK, hk = blockIdx.y, b = blockIdx.z;
+  bwd_load16<DP>(Ks, nullptr, 0,
+                 static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h,
+                 a.ks.s, k0, BWD_BK, a.Sk, a.D, LDS);
+  bwd_load16<DP>(Vs, nullptr, 0,
+                 static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h,
+                 a.vs.s, k0, BWD_BK, a.Sk, a.Dv, LDS);
+  float dk[Tl::ND][4], dv[Tl::ND][4];
+#pragma unroll
+  for (int n = 0; n < Tl::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float sl2 = a.scale * LOG2E;
+  const int wr = 16 * warp;              // this warp's first key row
+  const int kpos[2] = {k0 + wr + g, k0 + wr + g + 8};
+  int q_begin, q_end;
+  bwd_query_range(a, k0, BWD_BK, BQ, q_begin, q_end);
+  for (int hh = 0; hh < a.group; ++hh) {
+    const int h = hk * a.group + hh;
+    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
+    const bf16* gb = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
+    const long long rowbase = ((long long)b * a.Hq + h) * a.Sq;
+    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done
+      bwd_load16<DP>(Qs, Qt, LDQ, qb, a.qs.s, q0, BQ, a.Sq, a.D, LDS);
+      bwd_load16<DP>(Gs, Gt, LDQ, gb, a.gs.s, q0, BQ, a.Sq, a.Dv, LDS);
+      if (tid < BQ) {
+        const bool in = q0 + tid < a.Sq;
+        Ls[tid] = in ? a.lse[rowbase + q0 + tid] * LOG2E : 0.f;
+        Ds[tid] = in ? a.delta[rowbase + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < Tl::KS; ++ks) {
+        uint32_t ak[4], av[4];
+        frag_a(ak, Ks, LDS, wr + g, 16 * ks, t);
+        frag_a(av, Vs, LDS, wr + g, 16 * ks, t);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const bf16* qr = Qs + (8 * n + g) * LDS + 16 * ks + 2 * t;
+          mma16816(st[n], ak, ld2(qr), ld2(qr + 8));
+          const bf16* gr = Gs + (8 * n + g) * LDS + 16 * ks + 2 * t;
+          mma16816(dpt[n], av, ld2(gr), ld2(gr + 8));
+        }
+      }
+      // P^T (float32) and dS^T = P^T (dP^T - D_i), in place
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * n + 2 * t + (e & 1);
+          const float p = bwd_live(a, q0 + qi, kpos[e >> 1])
+                              ? ex2(st[n][e] * sl2 - Ls[qi]) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - Ds[qi]);
+        }
+      // dV += P^T dO and dK += dS^T Q over the tile's queries
+#pragma unroll
+      for (int kq = 0; kq < BQ / 16; ++kq) {
+        uint32_t ap[4], as[4];
+        frag_acc(ap, st[2 * kq], st[2 * kq + 1]);
+        frag_acc(as, dpt[2 * kq], dpt[2 * kq + 1]);
+#pragma unroll
+        for (int n = 0; n < Tl::ND; ++n) {
+          const bf16* gr = Gt + (8 * n + g) * LDQ + 16 * kq + 2 * t;
+          mma16816(dv[n], ap, ld2(gr), ld2(gr + 8));
+          const bf16* qr = Qt + (8 * n + g) * LDQ + 16 * kq + 2 * t;
+          mma16816(dk[n], as, ld2(qr), ld2(qr + 8));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kp = kpos[hf];
+    if (kp >= a.Sk) continue;
+    bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h +
+                kp * a.dks.s;
+    bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h +
+                kp * a.dvs.s;
+#pragma unroll
+    for (int n = 0; n < Tl::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < a.D) dkr[c] = __float2bfloat16(dk[n][2 * hf + e] * a.scale);
+        if (c < a.Dv) dvr[c] = __float2bfloat16(dv[n][2 * hf + e]);
+      }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BWD_THREADS)
+fa_bwd_dq_bf16_kernel(BwdArgs a) {
+  using Tl = BwdTile<DP>;
+  constexpr int LDS = Tl::LDS, LDK = Tl::LDK, BQ = 64;
+  constexpr int NK = BWD_BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_b);
+  bf16* Gs = Qs + BQ * LDS;
+  bf16* Ks = Gs + BQ * LDS;
+  bf16* Vs = Ks + BWD_BK * LDS;
+  bf16* Kt = Vs + BWD_BK * LDS;   // DP x LDK
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / a.group;
+  bwd_load16<DP>(Qs, nullptr, 0,
+                 static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h,
+                 a.qs.s, q0, BQ, a.Sq, a.D, LDS);
+  bwd_load16<DP>(Gs, nullptr, 0,
+                 static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h,
+                 a.gs.s, q0, BQ, a.Sq, a.Dv, LDS);
+  const int wr = 16 * warp;
+  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float L[2], Di[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool in = qpos[hf] < a.Sq;
+    const long long row = ((long long)b * a.Hq + h) * a.Sq + qpos[hf];
+    L[hf] = in ? a.lse[row] * LOG2E : 0.f;
+    Di[hf] = in ? a.delta[row] : 0.f;
+  }
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const float sl2 = a.scale * LOG2E;
+  float dq[Tl::ND][4];
+#pragma unroll
+  for (int n = 0; n < Tl::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  int k_begin, k_end;
+  bwd_key_range(a, q0, BQ, BWD_BK, k_begin, k_end);
+  for (int k0 = k_begin; k0 < k_end; k0 += BWD_BK) {
+    __syncthreads();
+    bwd_load16<DP>(Ks, Kt, LDK, kb, a.ks.s, k0, BWD_BK, a.Sk, a.D, LDS);
+    bwd_load16<DP>(Vs, nullptr, 0, vb, a.vs.s, k0, BWD_BK, a.Sk, a.Dv, LDS);
+    __syncthreads();
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < Tl::KS; ++ks) {
+      uint32_t aq[4], ag[4];
+      frag_a(aq, Qs, LDS, wr + g, 16 * ks, t);
+      frag_a(ag, Gs, LDS, wr + g, 16 * ks, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const bf16* kr = Ks + (8 * n + g) * LDS + 16 * ks + 2 * t;
+        mma16816(sc[n], aq, ld2(kr), ld2(kr + 8));
+        const bf16* vr = Vs + (8 * n + g) * LDS + 16 * ks + 2 * t;
+        mma16816(dp[n], ag, ld2(vr), ld2(vr + 8));
+      }
+    }
+    // dS = P (dP - D_i), in place of S
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const int kp = k0 + 8 * n + 2 * t + (e & 1);
+        const float p = bwd_live(a, qpos[hf], kp)
+                            ? ex2(sc[n][e] * sl2 - L[hf]) : 0.f;
+        sc[n][e] = p * (dp[n][e] - Di[hf]);
+      }
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < BWD_BK / 16; ++kk) {
+      uint32_t as[4];
+      frag_acc(as, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < Tl::ND; ++n) {
+        const bf16* kr = Kt + (8 * n + g) * LDK + 16 * kk + 2 * t;
+        mma16816(dq[n], as, ld2(kr), ld2(kr + 8));
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (qpos[hf] >= a.Sq) continue;
+    bf16* dqr = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h +
+                qpos[hf] * a.dqs.s;
+#pragma unroll
+    for (int n = 0; n < Tl::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < a.D) dqr[c] = __float2bfloat16(dq[n][2 * hf + e] * a.scale);
+      }
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int COLS>
+int backward_f32(const BwdArgs& a, cudaStream_t stream) {
+  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
+  const size_t kv = sizeof(float) * (size_t)BT32 * (2 * ld + 2 * ldv);
+  const size_t dkdv = kv + sizeof(float) * (2 * BT32 * ldp + 2 * BT32);
+  const size_t dq = kv + sizeof(float) * BT32 * ldp;
+  int err = set_smem(fa_bwd_dkdv_f32_kernel<COLS>, dkdv);
+  if (err == 0) err = set_smem(fa_bwd_dq_f32_kernel<COLS>, dq);
+  if (err != 0) return err;
+  fa_bwd_dkdv_f32_kernel<COLS>
+      <<<dim3((a.Sk + BT32 - 1) / BT32, a.Hkv, a.B), BWD32_THREADS, dkdv,
+         stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  fa_bwd_dq_f32_kernel<COLS>
+      <<<dim3((a.Sq + BT32 - 1) / BT32, a.Hq, a.B), BWD32_THREADS, dq,
+         stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int backward_bf16(const BwdArgs& a, cudaStream_t stream) {
+  using Tl = BwdTile<DP>;
+  int err = set_smem(fa_bwd_dkdv_bf16_kernel<DP>, Tl::DKDV_SMEM);
+  if (err == 0) err = set_smem(fa_bwd_dq_bf16_kernel<DP>, Tl::DQ_SMEM);
+  if (err != 0) return err;
+  fa_bwd_dkdv_bf16_kernel<DP>
+      <<<dim3((a.Sk + BWD_BK - 1) / BWD_BK, a.Hkv, a.B), BWD_THREADS,
+         Tl::DKDV_SMEM, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  fa_bwd_dq_bf16_kernel<DP>
+      <<<dim3((a.Sq + 63) / 64, a.Hq, a.B), BWD_THREADS, Tl::DQ_SMEM,
+         stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The bf16 tile of a head dim: 64, 128, 192 or 256 columns (a head dim
@@ -1015,20 +1636,24 @@ int bf16_tile(int d) {
 // on its last axis and the given element strides on its other axes; o:
 // (B, Hq, Sq, Dv) contiguous. window < 0 means no window. float32: D, Dv
 // <= 256; bf16: D, Dv multiples of 8 up to 256 whose tiles are equal or
-// (192, 128), 16-byte aligned bases and strides. Returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape it does not take).
+// (192, 128), 16-byte aligned bases and strides. lse_out: null, or a
+// (B, Hq, Sq) float32 buffer that takes each row's natural-log sum of
+// exponentials of the scaled logits (+inf for a row with no live key), which
+// the backward pass reads. Returns cudaGetLastError() (cudaErrorInvalidValue
+// for a shape it does not take).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int Hq, int Hkv, int Sq, int Sk, int D, int Dv, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int causal, int window,
-    float scale, void* stream) {
+    float scale, void* lse_out, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
       D <= 0 || D > 256 || Dv <= 0 || Dv > 256 || B > 65535 || Hq > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, qs, ks, vs, causal, \
+  float* lse = static_cast<float*>(lse_out);
+#define FA_ARGS q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, Dv, qs, ks, vs, causal, \
                 window, scale, s
   if (dtype == DT_F32) {
     if (Dv <= 64) return attention_f32<8>(FA_ARGS);
@@ -1082,5 +1707,68 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) return decode<float>(q, k, v, a, B, s);
   if (dtype == DT_BF16) return decode<__nv_bfloat16>(q, k, v, a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of flash_attention_launch's call on (q, k, v) that wrote o
+// and lse: dq, dk and dv in the input dtype. strides: 24 element strides,
+// the (B, H, S) strides of q, k, v, o, dO, dq, dk, dv in that order, each
+// with a unit stride on its last axis; delta: (B, Hq, Sq) float32 scratch.
+// float32: D, Dv <= 128; bf16: D, Dv <= 128 in one tile (both <= 64, or
+// both in 65 .. 128). Three launches; returns cudaGetLastError().
+extern "C" int flash_attention_bwd_launch(
+    int dtype, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+    const long long* strides, int causal, int window, float scale,
+    void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
+      D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || B > 65535 || Hq > 65535 ||
+      strides == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.g = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  Strides* st[8] = {&a.qs, &a.ks, &a.vs, &a.os, &a.gs, &a.dqs, &a.dks,
+                    &a.dvs};
+  for (int i = 0; i < 8; ++i)
+    *st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.B = B;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.group = Hq / Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.D = D;
+  a.Dv = Dv;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)B * Hq * Sq;
+  if (dtype == DT_F32) {
+    fa_bwd_delta_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const int cols = D > Dv ? D : Dv;
+    if (cols <= 64) return backward_f32<8>(a, s);
+    return backward_f32<16>(a, s);
+  }
+  if (dtype == DT_BF16) {
+    const bool small = D <= 64 && Dv <= 64, large = D > 64 && Dv > 64;
+    if (!small && !large) return (int)cudaErrorInvalidValue;
+    fa_bwd_delta_kernel<bf16><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
+    int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    return small ? backward_bf16<64>(a, s) : backward_bf16<128>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

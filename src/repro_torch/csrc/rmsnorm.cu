@@ -282,6 +282,120 @@ int launch(const void* x, const void* w, void* y, long long rows, int D,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// rmsnorm_bwd: the gradient of y = (x * r) * w, r = rsqrt(mean(x^2) + eps),
+// that autograd takes through the JAX package's XLA rms_norm (which
+// jax.grad differentiates there; its Pallas kernel has no backward):
+//   dx = r (w dy) - x r^3 mean(x w dy),   dw = sum over rows of dy x r,
+// float32 sums, dx in x's dtype and dw in w's. Bound by bytes like the
+// forward (x and dy read, dx written, ~10 operations an element), so one
+// pass reads each row once per use from device memory (the second read of
+// a row hits L1), with the row's two sums (x^2 and x w dy) reduced together
+// in one fixed-order block sum. dw is two launches with no atomics: each
+// block of rmsnorm_bwd_kernel walks a fixed run of rows and keeps its
+// columns' partial dw in shared memory (a column belongs to one thread),
+// then writes them as one row of a (blocks, D) float32 scratch; and
+// rmsnorm_dw_kernel sums that scratch's rows in block order, one thread a
+// column. The blocks and their runs of rows follow from (rows, D) alone.
+
+constexpr int BWD_BLOCKS = 528;   // 4 blocks for each of the H100's 132 SMs
+constexpr int BWD_MAX_THREADS = 256;
+
+// threads of a backward block: D rounded up to whole warps, at most 256
+int bwd_threads(int D) {
+  const int t = (D + 31) / 32 * 32;
+  return t < BWD_MAX_THREADS ? t : BWD_MAX_THREADS;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ dw_part, long long rows,
+                   long long rows_per_block, int D, float eps) {
+  extern __shared__ float sdw[];                 // D partial dw columns
+  __shared__ float2 partial[BWD_MAX_THREADS / 32];
+  __shared__ float2 total;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int c = tid; c < D; c += nth) sdw[c] = 0.f;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block
+                                                   : rows;
+  const float d = (float)D;
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + row * D;
+    const T* gr = dy + row * D;
+    float ss = 0.f, dot = 0.f;
+    for (int c = tid; c < D; c += nth) {
+      const float xv = to_f32(xr[c]);
+      ss += xv * xv;
+      dot += xv * to_f32(w[c]) * to_f32(gr[c]);
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) partial[warp] = make_float2(ss, dot);
+    __syncthreads();
+    if (warp == 0) {
+      const float2 p = lane < (nth >> 5) ? partial[lane]
+                                         : make_float2(0.f, 0.f);
+      const float a = warp_sum(p.x), b = warp_sum(p.y);
+      if (lane == 0) total = make_float2(a, b);
+    }
+    __syncthreads();
+    const float r = rsqrtf(total.x / d + eps);
+    const float coef = r * r * r * (total.y / d);
+    T* dxr = dx + row * D;
+    for (int c = tid; c < D; c += nth) {
+      const float xv = to_f32(xr[c]), gv = to_f32(gr[c]);
+      dxr[c] = from_f32<T>(r * (to_f32(w[c]) * gv) - xv * coef);
+      sdw[c] += gv * xv * r;
+    }
+    // `partial` and `total` are rewritten by the next row
+    __syncthreads();
+  }
+  for (int c = tid; c < D; c += nth)
+    dw_part[(long long)blockIdx.x * D + c] = sdw[c];
+}
+
+// dw[c] = sum over the blocks' partials in block order
+template <typename T>
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ dw_part,
+                                  T* __restrict__ dw, int blocks, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += dw_part[(long long)b * D + c];
+  dw[c] = from_f32<T>(s);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+               void* dw, float* part, long long rows, int D, float eps,
+               cudaStream_t stream) {
+  const long long blocks = rows < BWD_BLOCKS ? rows : BWD_BLOCKS;
+  const long long per = (rows + blocks - 1) / blocks;
+  const int used = (int)((rows + per - 1) / per);
+  const int threads = bwd_threads(D);
+  const size_t smem = sizeof(float) * (size_t)D;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  rmsnorm_bwd_kernel<T><<<used, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, per, D,
+      eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rmsnorm_dw_kernel<T><<<(D + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<T*>(dw), used, D);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: (rows, D) contiguous; w: (D,); all of one dtype (DT_F32 / DT_BF16).
@@ -294,5 +408,32 @@ extern "C" int rmsnorm_launch(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) return launch<float>(x, w, y, rows, D, eps, s);
   if (dtype == DT_BF16) return launch<__nv_bfloat16>(x, w, y, rows, D, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Rows of the (blocks, D) float32 scratch that rmsnorm_bwd_launch needs.
+extern "C" long long rmsnorm_bwd_blocks(long long rows) {
+  if (rows <= 0) return 0;
+  const long long blocks = rows < BWD_BLOCKS ? rows : BWD_BLOCKS;
+  const long long per = (rows + blocks - 1) / blocks;
+  return (rows + per - 1) / per;
+}
+
+// x, dy, dx: (rows, D) contiguous; w, dw: (D,); all of one dtype; part:
+// rmsnorm_bwd_blocks(rows) x D floats of scratch. Two launches (dx and the
+// partial dw, then dw). Returns cudaGetLastError() after the launches.
+extern "C" int rmsnorm_bwd_launch(int dtype, const void* x, const void* w,
+                                  const void* dy, void* dx, void* dw,
+                                  void* part, long long rows, int D,
+                                  float eps, void* stream) {
+  if (rows <= 0 || D <= 0 || part == nullptr ||
+      (size_t)D * sizeof(float) > 200 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (dtype == DT_F32)
+    return launch_bwd<float>(x, w, dy, dx, dw, p, rows, D, eps, s);
+  if (dtype == DT_BF16)
+    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, D, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,8 +21,8 @@ from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["build", "build_dir", "check", "BUILD_INFO", "ARCH_FLAGS",
-           "DTYPES"]
+__all__ = ["build", "build_dir", "check", "forbid_grad", "takes",
+           "BUILD_INFO", "ARCH_FLAGS", "DTYPES"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -32,6 +32,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # storage types of the model kernels, by their C code (csrc/dtype.cuh)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def takes(dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether a model kernel's wrapper takes ``dtype`` on ``device``: the
+    kernels' storage types, and on the CPU float64 besides (the plain
+    route, which then computes in float64 throughout)."""
+    return dtype in DTYPES or (dtype == torch.float64
+                               and device.type == "cpu")
 
 # what the build of each default library did: path, seconds, compiler output
 BUILD_INFO: dict = {}
@@ -100,3 +108,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error (``cudaGetLastError``)."""
     if err != 0:
         raise RuntimeError(f"CUDA {what} launch failed: cudaError {err}")
+
+
+def forbid_grad(kernel: str, *tensors, why: str) -> None:
+    """Raise when grad mode is on and one of ``tensors`` needs a gradient:
+    ``kernel``'s CUDA launch returns an output with no autograd node, so a
+    gradient through it would be cut silently. ``why`` says where its
+    backward stands (ROADMAP.md)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}'s CUDA kernel has no backward ({why}); call it under "
+            f"torch.no_grad() or inference_mode, or on tensors that need no "
+            f"gradient")

@@ -29,6 +29,18 @@ the model's ``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views
 without a copy; both need a unit stride on D and raise otherwise. The
 library is built at the first launch (``kernels/_cuda.py``) and also holds
 the flash decode kernels. ``LAUNCHES`` counts the wrapper's launches.
+
+Gradients: on a CUDA tensor that needs one (grad mode on), the call is a
+``torch.autograd.Function`` whose forward also writes each row's float32
+log-sum-exp (B, Hq, Sq) and whose backward is :func:`flash_attention_bwd`,
+the CUDA backward kernels of the same library (the gradient ``jax.grad``
+takes of the JAX package's XLA attention; its Pallas kernel has none).
+Without a gradient (serving, ``inference_mode``) no LSE is written and no
+graph is recorded. The backward takes D and Dv up to 128 in one tile class
+(both <= 64 or both above), in bf16 and float32, and raises on wider heads
+(ROADMAP.md section 1, item 12c). ``LAUNCHES["flash_attention_bwd"]``
+counts its calls (three kernel launches each: D_i, dK/dV, dQ). On a CPU
+tensor the plain version's own autograd gives the gradient.
 """
 from __future__ import annotations
 
@@ -40,8 +52,9 @@ import torch
 from . import _cuda
 from . import ref
 
-__all__ = ["flash_attention", "build", "LAUNCHES", "reset_launches",
-           "MAX_HEAD_DIM", "BF16_HEAD_DIMS", "BF16_TILE_PAIRS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "build", "LAUNCHES",
+           "reset_launches", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM",
+           "BF16_HEAD_DIMS", "BF16_TILE_PAIRS"]
 
 MAX_HEAD_DIM = 256   # both kernels' widest tile
 # head dims of the bf16 kernel's instances: tiles of 64, 128, 192 and 256
@@ -49,13 +62,16 @@ MAX_HEAD_DIM = 256   # both kernels' widest tile
 BF16_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
 # (q/k tile, v tile) of the bf16 kernel's instances (csrc/attention.cu)
 BF16_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128), (256, 256))
+# the backward kernels' widest head dim (D and Dv)
+MAX_BWD_HEAD_DIM = 128
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -63,11 +79,14 @@ def _bind(lib: ctypes.CDLL) -> None:
                        ctypes.c_float)
     lib.flash_attention_launch.argtypes = ([ci, vp, vp, vp, vp]
                                            + [ci] * 7 + [cll] * 9
-                                           + [ci, ci, cf, vp])
+                                           + [ci, ci, cf, vp, vp])
     lib.flash_attention_launch.restype = ci
     lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci,
                                         ci, ci, ci, ci, ci, cf, vp]
     lib.flash_decode_launch.restype = ci
+    lib.flash_attention_bwd_launch.argtypes = ([ci] + [vp] * 10 + [ci] * 7
+                                               + [vp, ci, ci, cf, vp])
+    lib.flash_attention_bwd_launch.restype = ci
 
 
 def build() -> ctypes.CDLL:
@@ -95,10 +114,11 @@ def _check_args(q, k, v, causal, window):
                          "and without a window")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0 or None, got {window}")
-    if q.dtype not in _cuda.DTYPES or not q.dtype == k.dtype == v.dtype:
+    if (not _cuda.takes(q.dtype, q.device)
+            or not q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k and v must share one dtype in "
-                        f"{list(_cuda.DTYPES)}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+                        f"{list(_cuda.DTYPES)} (or float64 on the CPU), got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
 
@@ -125,6 +145,54 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                        sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
+    return _forward(q, k, v, causal, window, sm_scale, with_lse=False)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with the CUDA backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        if q.is_cuda:
+            _check_bwd(q, k, v)
+            out, lse = _forward(q, k, v, causal, window, sm_scale,
+                                with_lse=True)
+        else:   # the plain route (the gradient checks, in float64)
+            out, lse = ref.flash_attention_lse_ref(
+                q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, sm_scale = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def _check_bwd(q, k, v):
+    D, Dv = q.shape[3], v.shape[3]
+    if max(D, Dv) > MAX_BWD_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention's backward kernels take head dims up to "
+            f"{MAX_BWD_HEAD_DIM}, got D={D}, Dv={Dv} (wider heads wait for "
+            f"ROADMAP.md section 1, item 12c)")
+    if q.dtype == torch.bfloat16 and (D <= 64) != (Dv <= 64):
+        raise ValueError(f"the bf16 backward takes D and Dv in one tile "
+                         f"(both <= 64 or both in 65..128), got D={D}, "
+                         f"Dv={Dv}")
+
+
+def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
+    """The forward launch: (out, lse), lse (B, Hq, Sq) float32 when
+    ``with_lse`` and None otherwise."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype == torch.bfloat16:
@@ -150,18 +218,80 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("the bf16 kernel reads q, k and v with TMA: their "
                          "base addresses and their B, H and S strides must "
                          "be multiples of 16 bytes")
-    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    # a window of Sq or more masks nothing beyond causal: pass it as none
-    win = -1 if window is None or window >= Sq else int(window)
+    scale = _scale(D, sm_scale)
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = build().flash_attention_launch(
         _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv,
         *strides[0], *strides[1], *strides[2],
-        int(causal), win, float(scale), stream)
+        int(causal), _window(window, Sq), float(scale),
+        lse.data_ptr() if lse is not None else None, stream)
     _cuda.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def _scale(D: int, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+
+
+def _window(window: Optional[int], Sq: int) -> int:
+    """A window of Sq or more masks nothing beyond causal: passed as none
+    (-1)."""
+    return -1 if window is None or window >= Sq else int(window)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` given its ``out``, the
+    forward's ``lse`` (B, Hq, Sq) float32 and the output cotangent ``dout``
+    (B, Hq, Sq, Dv), on the card: three launches (D_i = rowsum(dout . out),
+    dK/dV by key tile, dQ by query tile). Each gradient is in its input's
+    dtype and, for a dense view, its strides (the model's strided q, k and
+    v get gradients in the same layout). On the CPU it runs the kernels'
+    plain version, ``ref.flash_attention_bwd_ref`` (any float dtype: the
+    gradient checks run it in float64)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window,
+                                           sm_scale=sm_scale)
+    _check_args(q, k, v, causal, window)
+    _check_bwd(q, k, v)
+    if not q.is_cuda:
+        raise ValueError(f"unsupported device {q.device}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (out.shape != (B, Hq, Sq, Dv) or dout.shape != out.shape
+            or lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32
+            or out.dtype != q.dtype):
+        raise ValueError(f"flash_attention_bwd takes out and dout "
+                         f"{(B, Hq, Sq, Dv)} in q's dtype and lse "
+                         f"{(B, Hq, Sq)} float32, got {tuple(out.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    dout = dout.to(q.dtype)
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        st for t in (q, k, v, out, dout, dq, dk, dv) for st in _strides(t)])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = build().flash_attention_bwd_launch(
+        _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+        Dv, strides, int(causal), _window(window, Sq),
+        float(_scale(D, sm_scale)), stream)
+    _cuda.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -21,7 +21,9 @@ element size a multiple of 16), G <= ``MAX_GROUP`` and D <= ``MAX_HEAD_DIM``,
 and live in the library of ``kernels/flash_attention.py``. ``LAUNCHES``
 counts calls of the wrapper that launched (one per call, whether it ran
 one kernel or the split kernel and its combine), so a decode step counts
-one launch per layer.
+one launch per layer. The kernels have no backward: on a CUDA tensor
+that needs a gradient (grad mode on) the call raises rather than return an
+output with no autograd node.
 """
 from __future__ import annotations
 
@@ -88,6 +90,9 @@ def flash_decode(q, k, v, valid, *, sm_scale=None):
         return ref.decode_attention_ref(q, k, v, valid, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _cuda.forbid_grad("flash_decode", q, k, v,
+                      why="training never decodes; ROADMAP.md section 3, "
+                          "item 27")
     B, Hkv, G, D = q.shape
     S = k.shape[2]
     if G > MAX_GROUP or D > MAX_HEAD_DIM:

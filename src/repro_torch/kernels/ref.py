@@ -49,7 +49,9 @@ from . import autotune
 __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
            "rmsnorm_ref", "decode_attention_ref",
-           "flash_attention_bf16p_ref", "decode_attention_split_ref"]
+           "flash_attention_bf16p_ref", "decode_attention_split_ref",
+           "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
+           "flash_attention_bwd_ref"]
 
 # log-CDF clamp floor; a normal float32 so no subnormal reaches the log
 CDF_FLOOR = 1e-37
@@ -236,7 +238,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     ``h // (Hq // Hkv)``. Returns (B, Hq, Sq, Dv).
 
     Rectangular Sq != Sk is allowed here; causal then aligns the last query
-    with the last key (standard self-attention when Sq == Sk).
+    with the last key (standard self-attention when Sq == Sk). Float32 math
+    (float64 for float64 inputs).
     """
     Hq, Sq, D = q.shape[1], q.shape[2], q.shape[3]
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -244,26 +247,105 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     kx = torch.repeat_interleave(k, group, dim=1)
     vx = torch.repeat_interleave(v, group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kx.to(ct)) * scale
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vx.to(ct))
     return out.to(q.dtype)
 
 
 def rmsnorm_ref(x, w, eps: float = 1e-6):
     """RMSNorm over the last axis: ``(x * rsqrt(mean(x^2) + eps)) * w`` in
-    float32, cast to x's dtype."""
-    xf = x.float()
+    float32 (float64 for float64 inputs), cast to x's dtype."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct)
     rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (xf * rms * w.float()).to(x.dtype)
+    return (xf * rms * w.to(ct)).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-6):
+    """(dx, dw) of :func:`rmsnorm_ref` for the output cotangent ``dy``, the
+    backward kernel's formulas: with r = rsqrt(mean(x^2) + eps),
+    dx = r (w dy) - x r^3 mean(x w dy) and dw = sum over rows of dy x r,
+    in float32 (float64 for float64 inputs), cast to x's and w's dtypes."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, wf, gf = x.to(ct), w.to(ct), dy.to(ct)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    wg = wf * gf
+    dx = r * wg - xf * r ** 3 * torch.mean(xf * wg, dim=-1, keepdim=True)
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                   device):
+    """(Sq, Sk) bool: key j is live for query i (the kernels' masks; causal
+    aligns the last query with the last key)."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _scaled_logits(q, k, group, scale, mask, ct):
+    kx = torch.repeat_interleave(k, group, dim=1).to(ct)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kx) * scale
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            sm_scale: Optional[float] = None):
+    """(out, lse): :func:`flash_attention_ref`'s output and each row's
+    natural-log sum of exponentials of its scaled live logits (B, Hq, Sq)
+    (+inf for a row with no live key, whose output is 0), as the forward
+    kernels write them for the backward; float64 inputs stay float64."""
+    Hq, Sq, D = q.shape[1], q.shape[2], q.shape[3]
+    Hkv, Sk = k.shape[1], k.shape[2]
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    s = _scaled_logits(q, k, Hq // Hkv, scale, mask, ct)
+    lse = torch.logsumexp(s, dim=-1)
+    dead = torch.isneginf(lse)
+    p = torch.exp(s - torch.where(dead, 0.0, lse)[..., None])
+    vx = torch.repeat_interleave(v, Hq // Hkv, dim=1).to(ct)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vx)
+    return out.to(q.dtype), torch.where(dead, float("inf"), lse)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of attention from its ``out`` and ``lse``, the backward
+    kernels' formulas: P = exp(S - lse) under the masks, D_i = rowsum(dO O),
+    dV = P^T dO, dS = P (dO V^T - D_i), dQ = scale dS K, dK = scale dS^T Q,
+    the GQA groups summed into their kv head; float32 (float64 for float64
+    inputs), cast to the inputs' dtypes."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    mask = attention_mask(Sq, Sk, causal, window, q.device)
+    s = _scaled_logits(q, k, group, scale, mask, ct)
+    p = torch.exp(s - lse.to(ct)[..., None])          # masked: exp(-inf) = 0
+    g, o = dout.to(ct), out.to(ct)
+    delta = (g * o).sum(-1, keepdim=True)
+    kx = torch.repeat_interleave(k, group, dim=1).to(ct)
+    vx = torch.repeat_interleave(v, group, dim=1).to(ct)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, vx) - delta)
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kx)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct))
+    fold = (lambda t: t.reshape(B, Hkv, group, Sk, t.shape[-1]).sum(2))
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid, sm_scale=None):
@@ -427,7 +509,8 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
     plain sequential chunk walk.
 
     Returns y (B, S, H, P) in x's dtype and, with ``return_final_state``,
-    the (B, H, P, N) float32 state after the last token.
+    the (B, H, P, N) state after the last token; the math and the state
+    are float32 (float64 for float64 inputs).
     """
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -436,8 +519,8 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
     if groups is not None:
         per = -(-nc // max(1, min(int(groups), nc)))
         ng = -(-nc // per)
-    f32 = torch.float32
-    Af = A.to(f32)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    Af = A.to(ct)
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     causal = causal[None, None, :, :, None]                 # (1, 1, L, L, 1)
     pad = ng * per * L - S
@@ -451,12 +534,12 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
     xg, dtg, bg, cg = (grouped(t) for t in (x, dt, Bm, Cm))
 
     def step(c):
-        """Chunk c of every group, widened to float32 (B, C repeated over
+        """Chunk c of every group, widened to ct (B, C repeated over
         heads): x (B, ng, L, H, P), dt, cum (B, ng, L, H), B and C
         (B, ng, L, H, N), and w = exp(cum_L - cum) dt."""
-        xc, dtc = xg[:, :, c].to(f32), dtg[:, :, c].to(f32)
-        bc = torch.repeat_interleave(bg[:, :, c].to(f32), rep, dim=3)
-        cc = torch.repeat_interleave(cg[:, :, c].to(f32), rep, dim=3)
+        xc, dtc = xg[:, :, c].to(ct), dtg[:, :, c].to(ct)
+        bc = torch.repeat_interleave(bg[:, :, c].to(ct), rep, dim=3)
+        cc = torch.repeat_interleave(cg[:, :, c].to(ct), rep, dim=3)
         cum = torch.cumsum(dtc * Af, dim=2)
         w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
         return xc, dtc, cum, bc, cc, w
@@ -469,7 +552,7 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
         return torch.exp(cum[:, :, -1, :])[..., None, None] * state + new
 
     # each group's end state from a zero start, and its total decay
-    incoming = torch.zeros((Bsz, ng, H, P, N), dtype=f32, device=x.device)
+    incoming = torch.zeros((Bsz, ng, H, P, N), dtype=ct, device=x.device)
     if ng > 1:
         end, decay = None, None
         for c in range(per):
@@ -498,7 +581,7 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
         y_intra = torch.einsum("bglsh,bgshp->bglhp", g, xc)
         state = advance(state, c, xc, cum, bc, w)
         ys.append((y_inter + y_intra
-                   + D_skip.to(f32)[None, None, None, :, None] * xc
+                   + D_skip.to(ct)[None, None, None, :, None] * xc
                    ).to(x.dtype))
     y = torch.stack(ys, 2).reshape((Bsz, ng * per * L, H, P))[:, :S]
     if return_final_state:

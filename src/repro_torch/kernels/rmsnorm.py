@@ -11,6 +11,14 @@ The model calls it ~130-145 times a forward on a few kilobytes to a few
 megabytes each, so the host's path per call counts as much as the
 kernel's: the checks that raise stay, the launcher is looked up once, and
 the current stream is read without building a ``torch.cuda.Stream``.
+
+Gradients: on a CUDA tensor that needs one (grad mode on), the call is a
+``torch.autograd.Function`` whose backward is :func:`rmsnorm_bwd`, the CUDA
+backward kernel of the same library (dx, and dw in two launches with no
+atomics: per-block partial sums, then their sum in block order). It is the
+gradient ``jax.grad`` takes of the JAX package's XLA ``rms_norm``; the
+Pallas kernel has no backward. ``LAUNCHES["rmsnorm_bwd"]`` counts its
+calls. On a CPU tensor the plain version's own autograd gives it.
 """
 from __future__ import annotations
 
@@ -21,14 +29,15 @@ import torch
 from . import _cuda
 from . import ref
 
-__all__ = ["rmsnorm", "build", "LAUNCHES", "reset_launches"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "build", "LAUNCHES", "reset_launches"]
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"rmsnorm": 0}
+LAUNCHES = {"rmsnorm": 0, "rmsnorm_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["rmsnorm"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -36,6 +45,10 @@ def _bind(lib: ctypes.CDLL) -> None:
                        ctypes.c_float)
     lib.rmsnorm_launch.argtypes = [ci, vp, vp, vp, cll, ci, cf, vp]
     lib.rmsnorm_launch.restype = ci
+    lib.rmsnorm_bwd_launch.argtypes = [ci] + [vp] * 6 + [cll, ci, cf, vp]
+    lib.rmsnorm_bwd_launch.restype = ci
+    lib.rmsnorm_bwd_blocks.argtypes = [cll]
+    lib.rmsnorm_bwd_blocks.restype = cll
 
 
 def build() -> ctypes.CDLL:
@@ -57,9 +70,10 @@ def _check_args(x, w):
     if w.ndim != 1 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"rmsnorm takes x (..., D) and w (D,), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _cuda.DTYPES or w.dtype != x.dtype:
+    if not _cuda.takes(x.dtype, x.device) or w.dtype != x.dtype:
         raise TypeError(f"rmsnorm takes x and w of one dtype in "
-                        f"{list(_cuda.DTYPES)}, got {x.dtype} and {w.dtype}")
+                        f"{list(_cuda.DTYPES)} (or float64 on the CPU), got "
+                        f"{x.dtype} and {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
     if x.device.type == "cuda" and not (x.is_contiguous()
@@ -78,6 +92,8 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
                 or w.get_device() != dev
                 or not (x.is_contiguous() and w.is_contiguous())):
             _check_args(x, w)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _RMSNorm.apply(x, w, eps)
         out = torch.empty_like(x)
         D = w.shape[0]
         rows = x.numel() // D if D else 0
@@ -95,3 +111,55 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return ref.rmsnorm_ref(x, w, eps=eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The kernel with the CUDA backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        with torch.no_grad():
+            out = (rmsnorm(x, w, eps=eps) if x.is_cuda
+                   else ref.rmsnorm_ref(x, w, eps=eps))
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, eps=ctx.eps)
+        return dx, dw, None
+
+
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
+    """(dx, dw) of ``rmsnorm(x, w)`` for the output cotangent ``dy``: dx in
+    x's dtype, dw (D,) in w's, float32 sums. On the card the backward
+    kernel; on the CPU its plain version, ``ref.rmsnorm_bwd_ref`` (any
+    float dtype: the gradient checks run it in float64). An x with no rows
+    gives a zero dw: no row contributes to the sum."""
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd_ref(x, w, dy, eps=eps)
+    _check_args(x, w)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dy = dy.to(x.dtype).contiguous()
+    D = w.shape[0]
+    rows = x.numel() // D if D else 0
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    lib = build()
+    part = torch.empty((lib.rmsnorm_bwd_blocks(rows), D),
+                       dtype=torch.float32, device=x.device)
+    err = lib.rmsnorm_bwd_launch(
+        _cuda.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), part.data_ptr(), rows, D, float(eps),
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
+    _cuda.check(err, "rmsnorm_bwd")
+    LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dw

@@ -21,7 +21,9 @@ float32 one, which walks chunks of at most ``F32_MAX_CHUNK`` rows so that
 its planes fit a block's shared memory (a chunk of 128 is walked as two of
 64: the same sums, rounded apart).
 
-On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+On a CUDA tensor it launches the kernel or raises (also when grad mode is
+on and an input needs a gradient: the kernel has no backward yet, and its
+output would carry no autograd node); on a CPU tensor it runs
 the plain version, ``kernels/ref.ssd_chunked_ref``, in the same groups. x,
 Bm and Cm share one dtype (float32 or bf16) and may be strided views with a
 unit stride on their last axis (the model's B and C are column slices of
@@ -142,13 +144,16 @@ def _check_args(x, dt, A, Bm, Cm, D_skip):
                          f"{tuple(A.shape)}, D {tuple(D_skip.shape)}")
     if G == 0 or H % G:
         raise ValueError(f"ssd_scan needs H % G == 0, got H={H}, G={G}")
-    if x.dtype not in _cuda.DTYPES or not x.dtype == Bm.dtype == Cm.dtype:
+    if (not _cuda.takes(x.dtype, x.device)
+            or not x.dtype == Bm.dtype == Cm.dtype):
         raise TypeError(f"x, Bm and Cm must share one dtype in "
-                        f"{list(_cuda.DTYPES)}, got {x.dtype}, {Bm.dtype}, "
-                        f"{Cm.dtype}")
-    if not dt.dtype == A.dtype == D_skip.dtype == torch.float32:
-        raise TypeError(f"dt, A and D must be float32, got {dt.dtype}, "
-                        f"{A.dtype}, {D_skip.dtype}")
+                        f"{list(_cuda.DTYPES)} (or float64 on the CPU), got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if not dt.dtype == A.dtype == D_skip.dtype == wide:
+        raise TypeError(f"dt, A and D must be {wide} (float64 only with a "
+                        f"float64 x), got {dt.dtype}, {A.dtype}, "
+                        f"{D_skip.dtype}")
     if any(t.device != x.device for t in (dt, A, Bm, Cm, D_skip)):
         raise ValueError("x, dt, A, Bm, Cm and D must lie on one device")
     if any(t.shape[-1] > 1 and t.stride(-1) != 1
@@ -169,6 +174,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
             raise ValueError(f"unsupported device {x.device}")
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, chunk=chunk,
                                    return_final_state=return_final_state)
+    _cuda.forbid_grad("ssd_scan", x, dt, A, Bm, Cm, D_skip,
+                      why="Mamba2 and Jamba training wait for it: "
+                          "ROADMAP.md section 1, item 12c")
     lib = build()
     code, dims, strides, vec_layout, smem, optin = _plan(
         lib, x, dt, A, Bm, Cm, D_skip, chunk)

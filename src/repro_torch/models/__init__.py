@@ -1,8 +1,11 @@
 """Model zoo: config-driven families sharing one substrate (the port's copy
 of ``models/``).
 
-``build_model(cfg, device=..., seed=...)`` returns the right wrapper with
-its weights drawn from a seeded ``torch.Generator`` on the device:
+``build_model(cfg, device=..., seed=..., ctx=None, trainable=False)``
+returns the right wrapper with its weights drawn from a seeded
+``torch.Generator`` on the device; with ``trainable`` every parameter
+requires a gradient (the training path), without it none does (serving,
+the default):
 
 * :class:`LM` — decoder-only (dense, MoE, MLA, SSM, hybrid);
 * :class:`EncDec` — the Whisper-style encoder-decoder (audio);
@@ -11,16 +14,23 @@ its weights drawn from a seeded ``torch.Generator`` on the device:
 All three have ``apply``, ``prefill``, ``decode_step`` and ``cache_init``.
 """
 from ..configs.base import ModelConfig
-from .transformer import LM
+from .transformer import LM, ShardCtx
 from .vlm import VLM
 from .whisper import EncDec
 
-__all__ = ["LM", "EncDec", "VLM", "build_model"]
+__all__ = ["LM", "EncDec", "VLM", "ShardCtx", "build_model"]
 
 
-def build_model(cfg: ModelConfig, device="cuda", seed: int = 0):
+def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
+                ctx: ShardCtx = None, trainable: bool = False):
+    if ctx is not None:
+        ctx.check_local()
     if cfg.is_encoder_decoder:
-        return EncDec(cfg, device=device, seed=seed)
-    if cfg.num_patches:
-        return VLM(cfg, device=device, seed=seed)
-    return LM(cfg, device=device, seed=seed)
+        model = EncDec(cfg, device=device, seed=seed)
+    elif cfg.num_patches:
+        model = VLM(cfg, device=device, seed=seed)
+    else:
+        model = LM(cfg, device=device, seed=seed)
+    if trainable:
+        model.requires_grad_(True)
+    return model

@@ -3,8 +3,9 @@
 Parameters live in ``nn.ParameterDict``s under the JAX package's leaf names
 (``wq``, ``w_up``, ``embedding``, ...), with its ``(in, out)`` layout, so a
 block applies ``x @ p["wq"]`` as the reference does and weights cross over
-by name (``convert.lm_from_reference``). The port serves and never trains:
-parameters do not require gradients. Initializers take an explicit
+by name (``convert.lm_from_reference``). A model is built for serving:
+parameters do not require gradients until ``build_model(...,
+trainable=True)`` (the training path) asks for them. Initializers take an explicit
 ``torch.Generator``; its numbers differ from ``jax.random``'s, so tests
 carry the reference's weights across instead of re-drawing them.
 """
@@ -31,11 +32,19 @@ _TRUNC = 3.0
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
+            "float16": torch.float16, "float64": torch.float64}[name]
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type of the math the reference keeps in float32 whatever the
+    model's dtype: float32, or float64 in a float64 model (the CPU's plain
+    route, which then holds the reference in float64 throughout)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference parameter: no gradient."""
+    """A parameter built without a gradient (``build_model`` turns them on
+    for training)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -65,16 +74,18 @@ def rms_norm(x, w, eps: float = 1e-6):
 
 def rope(x, positions, theta: float):
     """Rotary embedding. x: (..., S, H, D) or (..., S, D); positions: (..., S).
-    Computed in float32 and cast back to x's dtype, as in the reference."""
+    Computed in float32 (``wide``) and cast back to x's dtype, as in the
+    reference."""
     d = x.shape[-1]
     half = d // 2
-    freq = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+    ct = wide(x.dtype)
+    freq = torch.pow(theta, -torch.arange(0, half, dtype=ct,
                                           device=x.device) / half)
-    ang = positions[..., None].to(torch.float32) * freq  # (..., S, half)
+    ang = positions[..., None].to(ct) * freq  # (..., S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     if x.ndim == cos.ndim + 1:  # head axis present: (..., S, H, D)
         cos, sin = cos[..., None, :], sin[..., None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    xf1, xf2 = x[..., :half].to(ct), x[..., half:].to(ct)
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
 

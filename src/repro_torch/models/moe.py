@@ -3,7 +3,7 @@ combine.
 
 This is the JAX package's one-shard body (``_local_moe`` with ``tp=1``):
 its expert-parallel ``shard_map`` and the FSDP gather of the expert banks
-wait for ``torch.distributed`` (ROADMAP §1 item 12). Every decision matches
+wait for ``torch.distributed`` (ROADMAP §1 item 12b). Every decision matches
 the reference's:
 
 * the router stays float32 and the logits are ``x.float() @ router``;
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import dense_init, dtype_of, param
+from .layers import dense_init, dtype_of, param, wide
 
 __all__ = ["moe_init", "moe_apply", "route", "Routing"]
 
@@ -43,7 +43,7 @@ def moe_init(cfg: ModelConfig, generator: torch.Generator,
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     p = {
-        "router": dense_init((d, e), torch.float32, generator, device),
+        "router": dense_init((d, e), wide(dt), generator, device),
         "moe_up": dense_init((e, d, ff), dt, generator, device),
         "moe_gate": dense_init((e, d, ff), dt, generator, device),
         "moe_down": dense_init((e, ff, d), dt, generator, device),
@@ -107,7 +107,7 @@ def _local_moe(p, x, cfg: ModelConfig):
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     cap = capacity(cfg, T)
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    probs = torch.softmax(x.to(p["router"].dtype) @ p["router"], dim=-1)
     r = route(probs, k, cap)
     nslots = E * cap
     flat_t = torch.arange(T, device=x.device).repeat_interleave(k)

@@ -21,7 +21,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import dense_init, dtype_of, param, rms_norm, rmsnorm_init
+from .layers import (dense_init, dtype_of, param, rms_norm, rmsnorm_init,
+                     wide)
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init"]
 
@@ -32,18 +33,18 @@ def mamba_init(cfg: ModelConfig, generator: torch.Generator,
     H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     cw = cfg.ssm_conv_width
     dt = dtype_of(cfg.param_dtype)
-    f32 = torch.float32
-    conv = torch.randn((cw, di), generator=generator, dtype=f32,
+    wt = wide(dt)
+    conv = torch.randn((cw, di), generator=generator, dtype=wt,
                        device=device) * (cw ** -0.5)
     p = {
         "w_in_x": dense_init((d, di), dt, generator, device),
         "w_in_z": dense_init((d, di), dt, generator, device),
         "w_bc": dense_init((d, 2 * G * N), dt, generator, device),
         "w_dt": dense_init((d, H), dt, generator, device),
-        "dt_bias": torch.zeros((H,), dtype=f32, device=device),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=f32,
+        "dt_bias": torch.zeros((H,), dtype=wt, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=wt,
                                           device=device)),
-        "D": torch.ones((H,), dtype=f32, device=device),
+        "D": torch.ones((H,), dtype=wt, device=device),
         "conv": conv.to(dt),
         "ssm_norm": rmsnorm_init(di, dt, device),
         "w_out": dense_init((di, d), dt, generator, device),
@@ -59,8 +60,9 @@ def _depthwise_conv(x, w):
 
 
 def _dt(p, x):
-    """softplus(x W_dt + dt_bias) in float32."""
-    return F.softplus(x.float() @ p["w_dt"].float() + p["dt_bias"])
+    """softplus(x W_dt + dt_bias) in float32 (``wide``)."""
+    ct = wide(x.dtype)
+    return F.softplus(x.to(ct) @ p["w_dt"].to(ct) + p["dt_bias"])
 
 
 def mamba_apply(p, x, cfg: ModelConfig, *, return_state: bool = False):

@@ -8,8 +8,9 @@ Python loop. With ``cfg.first_layer_dense`` (DeepSeek) ``layers[0]`` is
 the reference's ``params["first"]``: the pattern's mixer with a dense MLP.
 The repeats follow it: ``layers[off + r * P + i]`` holds repeat r of
 pattern position i, ``off`` being 1 with a first dense layer and 0
-without. The reference's ``ShardCtx`` sharding waits for
-``torch.distributed`` (ROADMAP §1 item 12).
+without. :class:`ShardCtx` carries the reference's sharding context (the
+mesh and the batch axes); on a world of size 1 it changes no computation,
+and a model that would shard over it waits for ROADMAP §1 item 12b.
 
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
 for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
@@ -25,7 +26,8 @@ prepended to the tokens' (the VLM's patches).
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,7 +41,33 @@ from . import ssm
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
                      mlp_init, param, rms_norm, rmsnorm_init)
 
-__all__ = ["LM", "Block"]
+__all__ = ["LM", "Block", "ShardCtx"]
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """The sharding context of the JAX package's models (None = local):
+    a mesh (``launch.mesh``) and its batch axes. The port runs the model
+    on one device: the batch axes and the reference's model-parallel axes
+    (``"model"`` for TP, ``"data"`` for FSDP) must have size 1, so the
+    context changes no computation; a larger one raises (ROADMAP §1 item
+    12b). The pod axis belongs to the partitioned train step, not the
+    model."""
+
+    mesh: Any = None
+    batch_axes: Tuple[str, ...] = ()
+
+    def check_local(self) -> None:
+        if self.mesh is None:
+            return
+        names = tuple(self.mesh.mesh_dim_names)
+        for axis in (*self.batch_axes, "model", "data"):
+            if axis in names and self.mesh.shape[names.index(axis)] > 1:
+                raise ValueError(
+                    f"mesh axis {axis!r} has size "
+                    f"{self.mesh.shape[names.index(axis)]}: the port's model "
+                    f"runs on one device per pod; sharded placements wait "
+                    f"for ROADMAP.md section 1, item 12b")
 
 
 def _place_seq(entry, cache_len: int, seq_axis: int):
@@ -158,6 +186,10 @@ class LM(nn.Module):
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return x
+
+    def forward(self, tokens, extra_embeds=None):
+        """:meth:`apply` (the call ``torch.func.functional_call`` makes)."""
+        return self.apply(tokens, extra_embeds=extra_embeds)
 
     def apply(self, tokens, *, extra_embeds=None):
         """tokens: (B, S_text) -> logits (B, S, padded_vocab); S counts the

@@ -32,6 +32,9 @@ class VLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm.device
 
+    def forward(self, tokens, patch_embeds):
+        return self.apply(tokens, patch_embeds)
+
     def apply(self, tokens, patch_embeds):
         """tokens: (B, S - num_patches); patch_embeds: (B, num_patches, d)."""
         return self.lm.apply(tokens, extra_embeds=patch_embeds)

@@ -155,6 +155,9 @@ class EncDec(nn.Module):
         return x + sinusoid(tokens.shape[1], self.cfg.d_model, x.dtype,
                             x.device)
 
+    def forward(self, tokens, frames):
+        return self.apply(tokens, frames)
+
     def apply(self, tokens, frames):
         """Teacher-forced decode over the whole target: tokens (B, S),
         frames (B, F, d) -> logits (B, S, padded_vocab)."""

@@ -58,7 +58,10 @@ def test_port_imports_without_jax_or_a_build():
             "repro_torch.bench.serve_partitioned, repro_torch.bench.run, "
             "repro_torch.kernels.compose, repro_torch.kernels.family_score, "
             "repro_torch.obs, "
-            "repro_torch.obs.export, repro_torch.analysis.sanitize;"
+            "repro_torch.obs.export, repro_torch.analysis.sanitize, "
+            "repro_torch.optim, repro_torch.data, repro_torch.train, "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.bench.train_partitioned;"
             "from repro_torch.kernels import _cuda;"
             "assert not _cuda._LIBS and not _cuda.BUILD_INFO;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

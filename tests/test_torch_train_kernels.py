@@ -1,0 +1,279 @@
+"""The training path's kernels: the backward kernels of ``rmsnorm`` and
+``flash_attention`` and the rule that no CUDA wrapper cuts a gradient.
+
+Tests marked ``cuda`` skip without an NVIDIA GPU; this file imports neither
+jax nor the JAX package, so they run on a machine with only the port's
+dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_kernels.py
+
+On the card each backward kernel is held against autograd of its plain
+forward (``ref.rmsnorm_ref``; ``ref.flash_attention_bf16p_ref`` in bf16,
+``ref.flash_attention_ref`` in float32) at relative L2 2e-4 in float32 and
+1e-2 in bf16 on every output (dx, dw; dq, dk, dv), at cut-down versions of
+``chip_smoke.py``'s training shapes, and repeats its bits. On the CPU the
+two ``autograd.Function``s pass ``torch.autograd.gradcheck`` in float64
+through their plain route (``ref.rmsnorm_bwd_ref``,
+``ref.flash_attention_bwd_ref``: the kernels' formulas), and those formulas
+agree with autograd of the plain forwards.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import _cuda
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
+
+REL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the float64 gradchecks run thousands of tiny forwards: one thread a
+    # worker keeps them from fighting the other test workers for cores
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py's train phase runs "
+                    "these checks on the card")
+    return torch.device("cuda")
+
+
+def _rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+# (name, B, Hq, Hkv, Sq, Sk, D, causal, window): SmolLM-360M's training
+# shape and Qwen3-8B's cut in B and S, a window, Whisper's non-causal
+# cross shape (Sq != Sk), a ragged S, D = 80, dead rows (window 0)
+ATTN_CASES = (
+    ("smollm-360m", 2, 15, 5, 256, 256, 64, True, None),
+    ("qwen3-8b", 1, 32, 8, 192, 192, 128, True, None),
+    ("window", 2, 4, 2, 300, 300, 64, True, 64),
+    ("noncausal-16x300", 2, 4, 4, 16, 300, 64, False, None),
+    ("ragged", 1, 6, 2, 200, 200, 64, True, None),
+    ("d80", 1, 4, 1, 130, 130, 80, True, None),
+    ("tiny", 2, 4, 2, 16, 16, 16, True, None),
+)
+
+
+def _attn_grads(q, k, v, g, fn, **kw):
+    q, k, v = (_leaf(t) for t in (q, k, v))
+    # the model's (B, S, H, D) projections reach the kernel as views
+    qv, kv, vv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    out = fn(qv, kv, vv, **kw)
+    out.backward(g)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: c[0])
+def test_flash_attention_bwd_matches_plain(card, case, dtype):
+    _, B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(0)
+    q = _randn(gen, (B, Hq, Sq, D), dtype, card)
+    k = _randn(gen, (B, Hkv, Sk, D), dtype, card)
+    v = _randn(gen, (B, Hkv, Sk, D), dtype, card)
+    g = _randn(gen, (B, Hq, Sq, D), dtype, card)
+    plain = (ref.flash_attention_bf16p_ref if dtype == torch.bfloat16
+             else ref.flash_attention_ref)
+    n = fa.LAUNCHES["flash_attention_bwd"]
+    got = _attn_grads(q, k, v, g, fa.flash_attention, causal=causal,
+                      window=window)
+    assert fa.LAUNCHES["flash_attention_bwd"] == n + 1
+    want = _attn_grads(q, k, v, g, plain, causal=causal, window=window)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) < REL[dtype], (name, _rel_l2(a, b))
+    again = _attn_grads(q, k, v, g, fa.flash_attention, causal=causal,
+                        window=window)
+    for a, b in zip(got, again):   # no atomics: the bits repeat
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_dead_rows_give_zero_gradients(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v, g = (_randn(gen, (1, 2, 70, 64), dtype, card) for _ in range(4))
+    out, dq, dk, dv = _attn_grads(q, k, v, g, fa.flash_attention,
+                                  causal=True, window=0)
+    for t in (out, dq, dk, dv):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,D", [(2048, 960), (512, 4096), (37, 64),
+                                    (5, 13), (1, 960)])
+def test_rmsnorm_bwd_matches_plain(card, rows, D, dtype):
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = _randn(gen, (rows, D), dtype, card)
+    w = (1.0 + 0.1 * torch.randn(D, generator=gen, device=card)).to(dtype)
+    g = _randn(gen, (rows, D), dtype, card)
+
+    def grads(fn):
+        xl, wl = _leaf(x), _leaf(w)
+        y = fn(xl, wl, eps=1e-6)
+        y.backward(g)
+        return y.detach(), xl.grad, wl.grad
+
+    n = rn.LAUNCHES["rmsnorm_bwd"]
+    got = grads(rn.rmsnorm)
+    assert rn.LAUNCHES["rmsnorm_bwd"] == n + 1
+    want = grads(ref.rmsnorm_ref)
+    for name, a, b in zip(("y", "dx", "dw"), got, want):
+        assert a.dtype == b.dtype, name
+        assert _rel_l2(a, b) < REL[dtype], (name, _rel_l2(a, b))
+    for a, b in zip(got, grads(rn.rmsnorm)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_no_wrapper_cuts_a_gradient(card):
+    """A CUDA tensor that needs a gradient: rmsnorm and flash_attention
+    return outputs with a grad_fn; flash_decode and ssd_scan raise."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    bf = torch.bfloat16
+    x = _randn(gen, (4, 64), bf, card).requires_grad_(True)
+    w = torch.ones(64, dtype=bf, device=card)
+    assert rn.rmsnorm(x, w).grad_fn is not None
+    q = _randn(gen, (1, 2, 16, 64), bf, card).requires_grad_(True)
+    k = _randn(gen, (1, 2, 16, 64), bf, card)
+    assert fa.flash_attention(q, k, k).grad_fn is not None
+    with pytest.raises(RuntimeError, match="flash_decode.*ROADMAP"):
+        fd.flash_decode(_randn(gen, (1, 2, 2, 64), bf, card).requires_grad_(),
+                        k, k, torch.ones(16, dtype=torch.bool, device=card))
+    f32 = torch.float32
+    xs = _randn(gen, (1, 16, 2, 16), bf, card).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="ssd_scan.*ROADMAP"):
+        ssd.ssd_scan(xs, torch.rand((1, 16, 2), device=card),
+                     -torch.ones(2, device=card),
+                     _randn(gen, (1, 16, 1, 16), bf, card),
+                     _randn(gen, (1, 16, 1, 16), bf, card),
+                     torch.ones(2, dtype=f32, device=card), chunk=16)
+    # without grad mode the serving path is unchanged, and no graph
+    with torch.inference_mode():
+        assert rn.rmsnorm(x, w).grad_fn is None
+        assert fa.flash_attention(q, k, k).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lse_leaves_the_forward_bitwise(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(2)
+    q = _randn(gen, (2, 15, 200, 64), dtype, card)
+    k = _randn(gen, (2, 5, 200, 64), dtype, card)
+    with torch.inference_mode():
+        serve = fa.flash_attention(q, k, k)
+    train = fa.flash_attention(_leaf(q), k, k)
+    assert torch.equal(serve, train.detach())
+    _, lse = ref.flash_attention_lse_ref(q, k, k)
+    out, got = fa._forward(q, k, k, True, None, None, with_lse=True)
+    assert torch.equal(out, serve)
+    torch.testing.assert_close(got, lse, atol=REL[dtype], rtol=REL[dtype])
+
+
+# ------------------------------------------------------------ on the CPU
+def test_rmsnorm_function_gradcheck_float64():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 5, 24), generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    w = torch.randn((24,), generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda x, w: rn._RMSNorm.apply(x, w, 1e-6), (x, w))
+
+
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, None, 9, 9), (True, 4, 9, 9), (False, None, 5, 7),
+    (True, 0, 4, 4)], ids=["causal", "window", "rect", "dead"])
+def test_flash_attention_function_gradcheck_float64(causal, window, Sq, Sk):
+    gen = torch.Generator().manual_seed(0)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+    q, k, v = leaf(1, 6, Sq, 4), leaf(1, 2, Sk, 4), leaf(1, 2, Sk, 3)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: fa._FlashAttention.apply(q, k, v, causal, window,
+                                                 None), (q, k, v))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[2:], ids=lambda c: c[0])
+def test_attention_bwd_formulas_match_autograd(case):
+    """The backward kernels' formulas (``ref.flash_attention_bwd_ref`` from
+    the forward's out and LSE) against autograd of the plain forward."""
+    _, B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=gen) for s in (
+        (B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    g = torch.randn((B, Hq, Sq, D), generator=gen)
+    _, dq, dk, dv = _attn_grads(q, k, v, g, ref.flash_attention_ref,
+                                causal=causal, window=window)
+    out, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                 window=window)
+    for a, b in zip(got, (dq, dk, dv)):
+        assert _rel_l2(a, b) < 1e-5
+
+
+def test_rmsnorm_bwd_formula_matches_autograd():
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((9, 40), generator=gen)
+    w = torch.randn((40,), generator=gen)
+    g = torch.randn((9, 40), generator=gen)
+    xl, wl = _leaf(x), _leaf(w)
+    ref.rmsnorm_ref(xl, wl).backward(g)
+    dx, dw = rn.rmsnorm_bwd(x, w, g)
+    assert _rel_l2(dx, xl.grad) < 1e-6 and _rel_l2(dw, wl.grad) < 1e-6
+
+
+def test_forbid_grad_raises_only_when_a_gradient_is_due():
+    t = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="kern's CUDA kernel has no "
+                                           "backward.*ROADMAP"):
+        _cuda.forbid_grad("kern", None, t, why="see ROADMAP.md")
+    _cuda.forbid_grad("kern", t.detach(), why="see ROADMAP.md")
+    with torch.no_grad():
+        _cuda.forbid_grad("kern", t, why="see ROADMAP.md")
+
+
+def test_cpu_wrappers_keep_the_plain_gradient():
+    """On the CPU the wrappers run the plain versions, whose own autograd
+    gives the gradient (no Function, no kernel)."""
+    x = torch.randn(4, 8, requires_grad=True)
+    w = torch.ones(8, requires_grad=True)
+    y = rn.rmsnorm(x, w)
+    y.sum().backward()
+    assert x.grad is not None and w.grad is not None
+    q = torch.randn(1, 2, 5, 8, requires_grad=True)
+    out = fa.flash_attention(q, q.detach(), q.detach())
+    out.sum().backward()
+    assert q.grad is not None
