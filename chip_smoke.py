@@ -299,9 +299,12 @@ Phases, in order:
    bound (bytes for the norm; for attention the five products' operations
    at the dense peak of their type), the plain version's time and the
    yardstick PyTorch call's (``scaled_dot_product_attention``,
-   ``F.rms_norm``: forward + backward, and backward alone), which the port
-   never calls. Then SmolLM-360M at full width in bf16 (seeded weights,
-   B = 8 x 2048 tokens from ``SyntheticStream``): its first step through
+   ``F.rms_norm``: forward + backward, and backward alone with its device
+   time), which the port never calls; the phase fails where a kernel's or
+   its library call's device time is not measured (``_device_ms`` checks
+   that its profiled window holds every launch's device record). Then SmolLM-360M at full width in bf16
+   (seeded weights, B = 8 x 2048 tokens from ``SyntheticStream``): its
+   first step through
    the kernels against the plain ops on the same weights and batch (loss
    1e-2 relative, every gradient leaf relative L2 < 0.1, the worst leaf
    named; the plain run recomputes each layer in its backward to fit the
@@ -309,7 +312,9 @@ Phases, in order:
    kernels' launches counted from zero and held to the count the code
    makes (step ms,
    tokens/s, peak memory, then one step under torch.profiler: device time
-   by part, busy share, the AdamW update alone); a Trainer killed after
+   by part, busy share, each backward kernel's device time a step and a
+   launch (dK/dV, dQ, D_i, the norm's dx pass and dw sum), the AdamW
+   update alone); a Trainer killed after
    step 10 and restored from its checkpoint, whose step 11 must be bitwise
    the uninterrupted run's (loss and every parameter); and
    ``bench.train_partitioned --full-360m`` for 100 steps (the example's
@@ -2347,24 +2352,85 @@ def _host_ms(fn, reps=200):
     return 1e3 * (t1 - t0) / reps
 
 
-def _device_ms(fn, reps=20):
+# the CUDA API calls each of whose device activities (a kernel, a copy, a
+# fill) the profiler records: a profiled window is complete when it saw as
+# many device activities as these calls
+DEVICE_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+# empty kernels launched, and waited for, at the start of every profiled
+# window, before the measured calls: once a run has profiled a while, a
+# window loses the device records of its first launches, and these take
+# the loss
+DEVICE_FILL = 256
+# windows a measurement may take: a rare one loses every record
+DEVICE_WINDOWS = 3
+
+
+def _device_diag(prof):
+    """What an incomplete window held: the device records in kineto's raw
+    result, and where they start against the measured launch calls (ms,
+    the first and the last)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    dev = sorted(e.start_ns() for e in events
+                 if e.device_type() == DeviceType.CUDA
+                 and "spin_kernel" not in e.name())
+    api = sorted(e.start_ns() for e in events if e.name() in DEVICE_APIS)
+    out = {"raw_device": len(dev), "launch_calls": len(api) - DEVICE_FILL}
+    if dev and len(api) > DEVICE_FILL:
+        out["first_lag_ms"] = (dev[0] - api[DEVICE_FILL]) / 1e6
+        out["last_lag_ms"] = (dev[-1] - api[-1]) / 1e6
+    return out
+
+
+def _device_ms(fn, reps=20, expect=None):
     """Device milliseconds per call of ``fn`` under torch.profiler: the sum
     of the device time of every kernel it launches over ``reps`` calls,
-    divided by ``reps``; the host's launch path is not in it. None when the
-    profiler sees no device time."""
+    divided by ``reps``; the host's launch path is not in it. The window
+    counts only when it holds a device activity for every launch call the
+    profiler saw on the host (and, with ``expect`` = (name part, launches a
+    call), that kernel's launches exactly). Once a run has profiled a
+    while, a window loses the device records of its first launches
+    (kineto's raw result holds fewer than the launch calls, the last one
+    always present: in a whole run 1 to 27 a window from the serving phases
+    on, and all of some short windows), so ``DEVICE_FILL`` empty kernels
+    (``torch.cuda._sleep(0)``, not counted) are launched and waited for at
+    the window's start. A window that is short all the same (a rare one
+    holds no record at all) is logged with what kineto held and taken again,
+    up to ``DEVICE_WINDOWS`` windows; None when none was complete."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps if total > 0 else None
+    for window in range(1, DEVICE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(DEVICE_FILL):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        dev = [e for e in ka if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and "spin_kernel" not in e.key]
+        total = sum(e.self_device_time_total for e in dev)
+        seen = sum(e.count for e in dev)
+        calls = (sum(e.count for e in ka if e.key in DEVICE_APIS)
+                 - DEVICE_FILL)
+        ok = total > 0 and seen >= calls
+        if expect is not None:
+            part, per_call = expect
+            ok = ok and sum(e.count for e in dev
+                            if part in e.key) == per_call * reps
+        if ok:
+            return total / 1e3 / reps
+        log(f"[device] incomplete window {window} of {DEVICE_WINDOWS}: "
+            f"{seen} device activities for {calls} launch calls; "
+            f"{_device_diag(prof)}")
+    return None
 
 
 def _ssd_blocks(B, H, P, N, groups):
@@ -4914,7 +4980,7 @@ def _bwd_attn_case(case, fails):
 
     ms = _time_cuda(bwd, reps=7)
     fb_ms = _time_cuda(fwd_bwd, reps=5)
-    dev = _device_ms(bwd, reps=5)
+    dev = _device_ms(bwd, reps=5, expect=("fa_bwd_", 3))
 
     plain_ms = _time_cuda(lambda: torch.autograd.grad(
         plain(*leaves, causal=causal, window=window), leaves, dout),
@@ -4927,13 +4993,16 @@ def _bwd_attn_case(case, fails):
         return F.scaled_dot_product_attention(
             *leaves, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=Hq != Hkv)
-    lib_fb = lib_bwd = None
+    lib_fb = lib_bwd = lib_dev = None
     try:
         y = sdpa()
         lib_fb = _time_cuda(lambda: torch.autograd.grad(sdpa(), leaves,
                                                         dout), reps=5)
-        lib_bwd = _time_cuda(lambda: torch.autograd.grad(
-            y, leaves, dout, retain_graph=True), reps=5)
+
+        def lib_call():
+            return torch.autograd.grad(y, leaves, dout, retain_graph=True)
+        lib_bwd = _time_cuda(lib_call, reps=5)
+        lib_dev = _device_ms(lib_call, reps=5)
         del y
     except RuntimeError as e:
         log(f"[train] SDPA refuses {name}: {str(e).splitlines()[0][:120]}")
@@ -4954,12 +5023,14 @@ def _bwd_attn_case(case, fails):
         f"{ops_ / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s), bwd/bound "
         f"{ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.2f} ms; SDPA "
         f"fwd+bwd " + (f"{lib_fb:.3f}" if lib_fb else "n/a") + " ms, bwd "
-        + (f"{lib_bwd:.3f}" if lib_bwd else "n/a") + " ms"
-        + ("" if ok and same else "  FAIL"))
+        + (f"{lib_bwd:.3f}" if lib_bwd else "n/a") + " ms (device "
+        + (f"{lib_dev:.3f}" if lib_dev else "not measured") + ")"
+        + (f", kernel/SDPA device {dev / lib_dev:.2f}x" if dev and lib_dev
+           else "") + ("" if ok and same else "  FAIL"))
     row = {"name": name, "dtype": dts, "rel_l2": rel, "max_abs_err": err,
            "bits_repeat": same, "ms": ms, "device_ms": dev,
            "fwd_bwd_ms": fb_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": by, "library_ms": lib_bwd,
+           "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
            "library_fwd_bwd_ms": lib_fb}
     del q, k, v, dout, leaves, out, got, lse, o
     torch.cuda.empty_cache()
@@ -4992,14 +5063,18 @@ def _bwd_norm_case(case, fails):
     if not ok:
         fails.append(f"rmsnorm_bwd {rows}x{D} {dts}")
     ms = _time_cuda(lambda: rn.rmsnorm_bwd(x, w, dy), reps=7, per_pair=10)
-    dev = _device_ms(lambda: rn.rmsnorm_bwd(x, w, dy), reps=10)
+    dev = _device_ms(lambda: rn.rmsnorm_bwd(x, w, dy), reps=10,
+                     expect=("rmsnorm_", 2))
     plain_ms = _time_cuda(lambda: torch.autograd.grad(
         ref.rmsnorm_ref(xl, wl), (xl, wl), dy), reps=5)
     lib_fb = _time_cuda(lambda: torch.autograd.grad(
         F.rms_norm(xl, (D,), wl, 1e-6), (xl, wl), dy), reps=5, per_pair=10)
     y = F.rms_norm(xl, (D,), wl, 1e-6)
-    lib_bwd = _time_cuda(lambda: torch.autograd.grad(
-        y, (xl, wl), dy, retain_graph=True), reps=5, per_pair=10)
+
+    def lib_call():
+        return torch.autograd.grad(y, (xl, wl), dy, retain_graph=True)
+    lib_bwd = _time_cuda(lib_call, reps=5, per_pair=10)
+    lib_dev = _device_ms(lib_call, reps=10)
     esize = x.element_size()
     nbytes = esize * (3 * rows * D + 2 * D)
     bound_ms, by = _roof(nbytes, 10 * rows * D / FP32_OPS_PER_S)
@@ -5009,12 +5084,14 @@ def _bwd_norm_case(case, fails):
         + (f"{dev:.4f}" if dev is not None else "not measured")
         + f"), bound {bound_ms:.4f} ms ({by}), kernel/bound "
         f"{ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.3f} ms; F.rms_norm "
-        f"fwd+bwd {lib_fb:.4f} ms, bwd {lib_bwd:.4f} ms"
+        f"fwd+bwd {lib_fb:.4f} ms, bwd {lib_bwd:.4f} ms (device "
+        + (f"{lib_dev:.4f}" if lib_dev else "not measured") + ")"
+        + (f", kernel/bound device {dev / bound_ms:.2f}x" if dev else "")
         + ("" if ok else "  FAIL"))
     return {"rows": rows, "D": D, "dtype": dts, "rel_l2": rel,
             "max_abs_err": err, "bits_repeat": same, "ms": ms,
             "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_bwd,
+            "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
             "library_fwd_bwd_ms": lib_fb}
 
 
@@ -5061,11 +5138,12 @@ def _step_profile(step_fn, state, tokens, labels, steps=2):
             state, m = step_fn(state, tokens, labels)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    by_name = {}
+    by_name, launches = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3 / steps)
+            launches[e.key] = launches.get(e.key, 0) + e.count / steps
     parts = {p: 0.0 for p, _ in STEP_PARTS}
     parts["other (elementwise, loss, optimizer)"] = 0.0
     for n, ms in by_name.items():
@@ -5074,10 +5152,15 @@ def _step_profile(step_fn, state, tokens, labels, steps=2):
         parts[part or "other (elementwise, loss, optimizer)"] += ms
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # each backward launch: dK/dV, dQ, D_i, the norm's dx pass, its dw sum
+    bwd = [{"name": n, "ms": ms, "launches": launches[n],
+            "ms_per_launch": ms / launches[n]}
+           for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])
+           if any(p in n for p in STEP_PARTS[0][1])]
     return state, {"wall_ms": wall_ms,
                    "device_ms": dev_ms if dev_ms > 0 else None,
                    "busy_share": dev_ms / wall_ms if dev_ms > 0 else None,
-                   "parts_ms": parts,
+                   "parts_ms": parts, "backward": bwd,
                    "top": [{"name": n, "ms": ms} for n, ms in top]}
 
 
@@ -5141,6 +5224,12 @@ def phase_train(ctx):
     # 1. the backward kernels against autograd of their plain forwards
     out["attention"] = [_bwd_attn_case(c, fails) for c in BWD_ATTN_CASES]
     out["rmsnorm"] = [_bwd_norm_case(c, fails) for c in BWD_NORM_CASES]
+    for r in out["attention"] + out["rmsnorm"]:
+        tag = r.get("name") or f"{r['rows']}x{r['D']} {r['dtype']}"
+        if r["device_ms"] is None:
+            fails.append(f"{tag}: the kernel's device time not measured")
+        if r["library_ms"] is not None and r["library_dev_ms"] is None:
+            fails.append(f"{tag}: the library's device time not measured")
     if fails:
         raise AssertionError(f"train phase: backward kernels failed {fails}")
 
@@ -5229,6 +5318,10 @@ def phase_train(ctx):
         + (f"{opt_ms:.2f} ms" if opt_ms else "not measured"))
     for t in prof["top"]:
         log(f"[train]   {t['ms']:8.3f} ms  {t['name'][:90]}")
+    for t in prof["backward"]:
+        log(f"[train]   backward launch {t['ms']:8.3f} ms a step, "
+            f"{t['launches']:.0f} launches, {t['ms_per_launch']:.4f} ms a "
+            f"launch  {t['name'][:80]}")
     out["trainer"] = {"steps": TRAIN_STEPS, "step_ms": step_ms,
                       "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
                       "peak_gb": peak / 1e9, "losses": losses,
@@ -5405,7 +5498,8 @@ def main(argv=None):
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-            "library_ms": r.get("library_ms")})
+            "library_ms": r.get("library_ms"),
+            "library_dev_ms": r.get("library_dev_ms")})
     # the port's kernels with no Pallas counterpart: compose_grads at the
     # 32-stage refine shape, family_score at the fleet tick's history
     port_paths = {p: ctx[k] for p, k in (

@@ -1022,7 +1022,8 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 // The gradient that jax.grad takes of the JAX package's XLA attention (its
 // Pallas kernel has no backward), in the FlashAttention-2 shape: three
 // launches, each a pure function of the shape, no atomics.
-//   1. fa_bwd_delta_kernel: D_i = rowsum(dO . O) in float32, a warp a row.
+//   1. D_i = rowsum(dO . O) in float32 (bf16: fa_bwd_prep_kernel, which
+//      also writes the LSE in log2 units into rows padded for the tiles).
 //   2. dK and dV: one block per (key tile, kv head, batch) walks the G query
 //      heads of its kv head and their query tiles in a fixed order, so the
 //      GQA sum stays in the block's registers.
@@ -1032,25 +1033,44 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 // forward's LSE (+inf on a dead row, whose P is 0: its gradients are 0, as
 // its output is); then dV = P^T dO, dP = dO V^T, dS = P (dP - D_i),
 // dQ = scale dS K and dK = scale dS^T Q, float32 sums, outputs in the
-// input dtype, written through their strides.
-// bf16 (fa_bwd_*_bf16_kernel<DP>): the products are mma.sync m16n8k16 with
-// bf16 operands and float32 accumulators, tiles in shared memory padded by
-// 16 bytes a row (the fragment reads of a warp hit 32 banks), the operands
-// that a product reads down its K axis stored transposed beside them. P is
-// rounded to bf16 for P^T dO, as the forward's P . V rounds it, and dS for
-// its two products; D, Dv <= 128 run in tiles of DP = 64 or 128 columns,
-// zero past D. Four warps a block: in dK/dV each owns 16 keys of a 64-key
-// tile, in dQ 16 queries of a 64-query tile.
+// input dtype, written through their strides. dQ is a second pass that
+// recomputes S and dP: the price of writing dQ without atomics (writing dS
+// out for a later pass would move more bytes than the two products cost).
+// bf16 (fa_bwd_dkdv_kernel<DP>, fa_bwd_dq_kernel<DP>): bound by operations
+// (seven products of 2 Sq Sk D flops a head, halved when causal), so every
+// product is wgmma, in the shape of fa_wgmma_kernel (FlashAttention-3):
+//   * a producer warpgroup (one thread issuing TMA loads, registers handed
+//     over with setmaxnreg) and two consumer warpgroups of 64 rows each;
+//   * dK/dV: the block's 128 keys of K and V are loaded once; a two-stage
+//     ring carries the (Q, dO) tiles of 64 queries with their LSE and D_i
+//     rows (bulk copies). S^T = K Q^T and dP^T = V dO^T are wgmma with both
+//     operands K-major in shared memory; P^T and dS^T stay in registers and
+//     are the bf16 A operands of dV += P^T dO and dK += dS^T Q, which read
+//     dO and Q MN-major through the transpose bit, so no operand is copied
+//     transposed. dP^T runs while P^T is exponentiated, dV's products while
+//     dS^T is formed;
+//   * dQ: the block's 128 queries of Q and dO are loaded once; the ring
+//     carries (K, V) tiles of BK keys (128 at DP = 64, 64 at DP = 128, for
+//     registers). S = Q K^T and dP = dO V^T are wgmma from shared memory,
+//     dQ += dS K reads K MN-major;
+//   * masks are evaluated only on tiles that cross the causal diagonal, a
+//     window's edge or (dQ) the ragged end of Sk; tiles that the masks
+//     exclude are skipped; TMA's zero fill covers rows past S and columns
+//     past D (D <= 64 runs in DP = 64, 64 < D <= 128 in DP = 128), and
+//     padded query rows have an LSE of +inf, so P = 0 there;
+//   * the heaviest causal tiles are launched first (key tile 0 for dK/dV,
+//     the last query tile for dQ: the tile index is the grid's slowest
+//     axis).
+// P is rounded to bf16 for P^T dO, as the forward's P . V rounds it, and dS
+// for its two products.
 // float32 (fa_bwd_*_f32_kernel): CUDA-core FMAs (TF32 would miss the
 // float32 tolerance), 32 x 32 tiles, 256 threads.
-// What bounds it: operations, as the forward (five products of 2 Sq Sk D
-// flops, halved when causal, against ~4 B H S D bytes read); the dQ launch
-// recomputes two of them, the price of writing dQ without atomics.
 
 struct BwdArgs {
   const void *q, *k, *v, *o, *g;  // g: dO
   const float* lse;                // (B, Hq, Sq)
-  float* delta;                    // (B, Hq, Sq) D_i
+  float* delta;  // float32: D_i (B, Hq, Sq); bf16: the scratch of the
+                 // LSE and D_i rows (flash_attention_bwd_scratch)
   void *dq, *dk, *dv;
   Strides qs, ks, vs, os, gs, dqs, dks, dvs;
   int B, Hq, Hkv, group, Sq, Sk, D, Dv, causal, window;
@@ -1087,6 +1107,7 @@ __device__ __forceinline__ void bwd_query_range(const BwdArgs& a, int k0,
   if (a.window >= 0) end = min(a.Sq, k_last + a.window);
 }
 
+// float32: a warp a row
 template <typename T>
 __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(BwdArgs a) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -1284,300 +1305,457 @@ fa_bwd_dq_f32_kernel(BwdArgs a) {
   }
 }
 
-// ---- bf16: mma.sync on the tensor cores
+// ---- bf16: wgmma and TMA
 typedef __nv_bfloat16 bf16;
-constexpr int BWD_THREADS = 128;   // four warps
-constexpr int BWD_BK = 64;         // keys per tile
-
-// D (16 x 8, float32) += A (16 x 16, row-major fragment) . B (16 x 8, the
-// column-major fragment: b0 holds k = 2t, 2t + 1 of column g, b1 k + 8)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 of shared memory (the lower column in the low half)
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int BWD_BQ = 64;      // queries per dK/dV step (the wgmma N of S^T)
+constexpr int BWD_BKV = BQW;    // keys per dK/dV block: 64 per consumer WG
+constexpr int BWD_BQD = BQW;    // queries per dQ block: 64 per consumer WG
+constexpr int BWD_STAGES = 2;   // depth of both kernels' rings
+constexpr int BWD_PAD = BQW;    // the LSE and D_i rows are padded to this
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// the A fragment of rows r, r + 8 and columns c0 .. c0 + 15 of a row-major
-// tile with row stride ld
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* tile,
-                                       int ld, int r, int c0, int t) {
-  f[0] = ld2(tile + r * ld + c0 + 2 * t);
-  f[1] = ld2(tile + (r + 8) * ld + c0 + 2 * t);
-  f[2] = ld2(tile + r * ld + c0 + 8 + 2 * t);
-  f[3] = ld2(tile + (r + 8) * ld + c0 + 8 + 2 * t);
+// D (64 x N) = A . B^T over DP columns: A (64 rows) and B (N rows) K-major
+// panels whose panel strides are a_rows and b_rows rows; asynchronous
+template <int DP, int N>
+__device__ __forceinline__ void issue_ss(float (&d)[N / 2], uint32_t a,
+                                         int a_rows, uint32_t b, int b_rows) {
+#pragma unroll
+  for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(d, sw128_desc(a + p * a_rows * PANEL_ROW + 32 * kk, 16, 1024),
+               sw128_desc(b + p * b_rows * PANEL_ROW + 32 * kk, 16, 1024),
+               (p | kk) != 0);
 }
 
-// the A fragment of an accumulator pair: columns 16 kk .. 16 kk + 15 of a
-// 16-row float32 product held as n-tiles of 8 columns, rounded to bf16
-__device__ __forceinline__ void frag_acc(uint32_t (&f)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  f[0] = pack2(lo[0], lo[1]);
-  f[1] = pack2(lo[2], lo[3]);
-  f[2] = pack2(hi[0], hi[1]);
-  f[3] = pack2(hi[2], hi[3]);
-}
-
-// rows [r0, r0 + rows) of a (B, H, S, D) bf16 view into a rows x ld tile
-// (columns past D and rows past S zero), and its transpose into a DP x ldt
-// tile when tr is not null
-template <int DP>
-__device__ __forceinline__ void bwd_load16(bf16* dst, bf16* tr, int ldt,
-                                           const bf16* src, long long s_stride,
-                                           int r0, int rows, int S, int D,
-                                           int ld) {
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int idx = threadIdx.x; idx < rows * DP; idx += BWD_THREADS) {
-    const int r = idx / DP, c = idx - r * DP;
-    const bf16 v = (r0 + r < S && c < D) ? src[(r0 + r) * s_stride + c]
-                                         : zero;
-    dst[r * ld + c] = v;
-    if (tr != nullptr) tr[c * ldt + r] = v;
+// D (64 x N) += A (64 x K: the bf16 A fragments a) . B (K x N), B read
+// MN-major from panels of b_rows rows; asynchronous
+template <int K, int N>
+__device__ __forceinline__ void issue_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[K / 4],
+                                         uint32_t b, int b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    const uint32_t af[4] = {a[4 * ks], a[4 * ks + 1], a[4 * ks + 2],
+                            a[4 * ks + 3]};
+    wgmma_rs_tb(d, af, sw128_desc(b + ks * 16 * PANEL_ROW,
+                                  b_rows * PANEL_ROW, 1024));
   }
+}
+
+struct BwdWgArgs {
+  const float* lse2;   // (B, Hq, Sq_pad): the LSE in log2 units, +inf past Sq
+  const float* delta;  // (B, Hq, Sq_pad): D_i, 0 past Sq
+  bf16 *dq, *dk, *dv;
+  Strides dqs, dks, dvs;
+  int Hq, group, Sq, Sk, Sq_pad, D, Dv, causal, window;
+  float scale, scale_log2;
+};
+
+// the causal and window masks of a (query, key) pair
+__device__ __forceinline__ bool bwd_pair_live(const BwdWgArgs& a, int qpos,
+                                              int kpos) {
+  return (!a.causal || qpos >= kpos) &&
+         (a.window < 0 || qpos - kpos < a.window);
 }
 
 template <int DP> struct BwdTile {
-  static constexpr int LDS = DP + 8;         // row stride of a tile
-  static constexpr int KS = DP / 16;         // k-steps over the head dim
-  static constexpr int ND = DP / 8;          // n-tiles over the head dim
-  static constexpr int BQ = DP <= 64 ? 64 : 32;  // queries per dK/dV step
-  static constexpr int LDQ = BQ + 8;         // of the transposed Q, dO
-  static constexpr int LDK = BWD_BK + 8;     // of the transposed K
-  static constexpr int DKDV_SMEM =
-      (2 * BWD_BK * LDS + 2 * BQ * LDS + 2 * DP * LDQ) * 2 + 2 * BQ * 4;
-  static constexpr int DQ_SMEM = (2 * 64 * LDS + 2 * BWD_BK * LDS +
-                                  DP * LDK) * 2;
+  static constexpr int NP = DP / 64;
+  // dK/dV: K and V of the block's keys, then the ring of (Q, dO) tiles,
+  // then each stage's LSE and D_i rows
+  static constexpr int KV_BYTES = NP * BWD_BKV * PANEL_ROW;
+  static constexpr int QT_BYTES = NP * BWD_BQ * PANEL_ROW;
+  static constexpr int DKDV_ROWS = 2 * KV_BYTES + 2 * BWD_STAGES * QT_BYTES;
+  static constexpr int DKDV_BAR = DKDV_ROWS + 2 * BWD_STAGES * BWD_BQ * 4;
+  static constexpr int DKDV_SMEM = DKDV_BAR + (1 + 2 * BWD_STAGES) * 8 + 1024;
+  // dQ: Q and dO of the block's queries, then the ring of (K, V) tiles of
+  // BK keys
+  static constexpr int BK = DP <= 64 ? 128 : 64;
+  static constexpr int Q_BYTES = NP * BWD_BQD * PANEL_ROW;
+  static constexpr int KT_BYTES = NP * BK * PANEL_ROW;
+  static constexpr int DQ_BAR = 2 * Q_BYTES + 2 * BWD_STAGES * KT_BYTES;
+  static constexpr int DQ_SMEM = DQ_BAR + (1 + 3 * BWD_STAGES) * 8 + 1024;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS)
-fa_bwd_dkdv_bf16_kernel(BwdArgs a) {
-  using Tl = BwdTile<DP>;
-  constexpr int LDS = Tl::LDS, LDQ = Tl::LDQ, BQ = Tl::BQ;
-  constexpr int NQ = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_b);
-  bf16* Vs = Ks + BWD_BK * LDS;
-  bf16* Qs = Vs + BWD_BK * LDS;
-  bf16* Gs = Qs + BQ * LDS;
-  bf16* Qt = Gs + BQ * LDS;       // DP x LDQ
-  bf16* Gt = Qt + DP * LDQ;
-  float* Ls = reinterpret_cast<float*>(Gt + DP * LDQ);  // lse, log2 units
-  float* Ds = Ls + BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BWD_BK, hk = blockIdx.y, b = blockIdx.z;
-  bwd_load16<DP>(Ks, nullptr, 0,
-                 static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h,
-                 a.ks.s, k0, BWD_BK, a.Sk, a.D, LDS);
-  bwd_load16<DP>(Vs, nullptr, 0,
-                 static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h,
-                 a.vs.s, k0, BWD_BK, a.Sk, a.Dv, LDS);
-  float dk[Tl::ND][4], dv[Tl::ND][4];
+// D_i = rowsum(dO . O) and the LSE in log2 units, into (B, Hq, Sq_pad) rows
+// (0 and +inf past Sq): G lanes a row, one 16-byte vector of O and of dO
+// each, a fixed-order butterfly over the G lanes
+template <int G>
+__global__ void __launch_bounds__(256)
+fa_bwd_prep_kernel(BwdArgs a, int Sq_pad, float* lse2, float* delta) {
+  const long long row = (long long)blockIdx.x * (256 / G) + threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const bool in = row < (long long)a.B * a.Hq * Sq_pad;
+  const int s = (int)(row % Sq_pad);
+  const long long bh = row / Sq_pad;
+  const int h = (int)(bh % a.Hq), b = (int)(bh / a.Hq);
+  const bool live = in && s < a.Sq;
+  float acc = 0.f;
+  if (live && lane < a.Dv / 8) {
+    const bf16* o = static_cast<const bf16*>(a.o) + b * a.os.b + h * a.os.h +
+                    s * a.os.s + 8 * lane;
+    const bf16* g = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h +
+                    s * a.gs.s + 8 * lane;
+    float ov[8], gv[8];
+    widen<bf16>(*reinterpret_cast<const uint4*>(o), ov);
+    widen<bf16>(*reinterpret_cast<const uint4*>(g), gv);
 #pragma unroll
-  for (int n = 0; n < Tl::ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const float sl2 = a.scale * LOG2E;
-  const int wr = 16 * warp;              // this warp's first key row
-  const int kpos[2] = {k0 + wr + g, k0 + wr + g + 8};
-  int q_begin, q_end;
-  bwd_query_range(a, k0, BWD_BK, BQ, q_begin, q_end);
-  for (int hh = 0; hh < a.group; ++hh) {
-    const int h = hk * a.group + hh;
-    const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-    const bf16* gb = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
-    const long long rowbase = ((long long)b * a.Hq + h) * a.Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done
-      bwd_load16<DP>(Qs, Qt, LDQ, qb, a.qs.s, q0, BQ, a.Sq, a.D, LDS);
-      bwd_load16<DP>(Gs, Gt, LDQ, gb, a.gs.s, q0, BQ, a.Sq, a.Dv, LDS);
-      if (tid < BQ) {
-        const bool in = q0 + tid < a.Sq;
-        Ls[tid] = in ? a.lse[rowbase + q0 + tid] * LOG2E : 0.f;
-        Ds[tid] = in ? a.delta[rowbase + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys
-      float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < Tl::KS; ++ks) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, Ks, LDS, wr + g, 16 * ks, t);
-        frag_a(av, Vs, LDS, wr + g, 16 * ks, t);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const bf16* qr = Qs + (8 * n + g) * LDS + 16 * ks + 2 * t;
-          mma16816(st[n], ak, ld2(qr), ld2(qr + 8));
-          const bf16* gr = Gs + (8 * n + g) * LDS + 16 * ks + 2 * t;
-          mma16816(dpt[n], av, ld2(gr), ld2(gr + 8));
-        }
-      }
-      // P^T (float32) and dS^T = P^T (dP^T - D_i), in place
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * n + 2 * t + (e & 1);
-          const float p = bwd_live(a, q0 + qi, kpos[e >> 1])
-                              ? ex2(st[n][e] * sl2 - Ls[qi]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - Ds[qi]);
-        }
-      // dV += P^T dO and dK += dS^T Q over the tile's queries
-#pragma unroll
-      for (int kq = 0; kq < BQ / 16; ++kq) {
-        uint32_t ap[4], as[4];
-        frag_acc(ap, st[2 * kq], st[2 * kq + 1]);
-        frag_acc(as, dpt[2 * kq], dpt[2 * kq + 1]);
-#pragma unroll
-        for (int n = 0; n < Tl::ND; ++n) {
-          const bf16* gr = Gt + (8 * n + g) * LDQ + 16 * kq + 2 * t;
-          mma16816(dv[n], ap, ld2(gr), ld2(gr + 8));
-          const bf16* qr = Qt + (8 * n + g) * LDQ + 16 * kq + 2 * t;
-          mma16816(dk[n], as, ld2(qr), ld2(qr + 8));
-        }
-      }
-    }
+    for (int e = 0; e < 8; ++e) acc += ov[e] * gv[e];
   }
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kp = kpos[hf];
-    if (kp >= a.Sk) continue;
-    bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h +
-                kp * a.dks.s;
-    bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h +
-                kp * a.dvs.s;
-#pragma unroll
-    for (int n = 0; n < Tl::ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * t + e;
-        if (c < a.D) dkr[c] = __float2bfloat16(dk[n][2 * hf + e] * a.scale);
-        if (c < a.Dv) dvr[c] = __float2bfloat16(dv[n][2 * hf + e]);
-      }
+  for (int off = G / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && lane == 0) {
+    delta[row] = live ? acc : 0.f;
+    lse2[row] = live ? a.lse[bh * a.Sq + s] * LOG2E
+                     : __int_as_float(0x7f800000);  // +inf: P = 0
   }
 }
 
+// dK and dV: one block per (kv head, batch, key tile of 128 keys; key tile
+// 0, the heaviest under a causal mask, first). Consumer warpgroup wg owns
+// keys k0 + 64 wg .. + 63; the producer streams the (Q, dO, LSE, D_i) tiles
+// of the kv head's query heads, head by head, in query order.
 template <int DP>
-__global__ void __launch_bounds__(BWD_THREADS)
-fa_bwd_dq_bf16_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(FA3_THREADS, 1)
+fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap gmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, BwdWgArgs a) {
   using Tl = BwdTile<DP>;
-  constexpr int LDS = Tl::LDS, LDK = Tl::LDK, BQ = 64;
-  constexpr int NK = BWD_BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_b);
-  bf16* Gs = Qs + BQ * LDS;
-  bf16* Ks = Gs + BQ * LDS;
-  bf16* Vs = Ks + BWD_BK * LDS;
-  bf16* Kt = Vs + BWD_BK * LDS;   // DP x LDK
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.group;
-  bwd_load16<DP>(Qs, nullptr, 0,
-                 static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h,
-                 a.qs.s, q0, BQ, a.Sq, a.D, LDS);
-  bwd_load16<DP>(Gs, nullptr, 0,
-                 static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h,
-                 a.gs.s, q0, BQ, a.Sq, a.Dv, LDS);
-  const int wr = 16 * warp;
-  const int qpos[2] = {q0 + wr + g, q0 + wr + g + 8};
+  constexpr int NP = Tl::NP;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + Tl::KV_BYTES;
+  const uint32_t sQ = sV + Tl::KV_BYTES;                 // [BWD_STAGES]
+  const uint32_t sG = sQ + BWD_STAGES * Tl::QT_BYTES;   // [BWD_STAGES]
+  float* sL = reinterpret_cast<float*>(smem + Tl::DKDV_ROWS);
+  float* sD = sL + BWD_STAGES * BWD_BQ;
+  const uint32_t bar = sK + Tl::DKDV_BAR;
+  // barriers: K and V full; stage full [BWD_STAGES]; stage released
+  const uint32_t barKV = bar;
+  auto barF = [&](int s) { return bar + 8 * (1 + s); };
+  auto barE = [&](int s) { return bar + 8 * (1 + BWD_STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BWD_BKV;
+  // the query tiles that some key of the block sees
+  const int k_last = min(k0 + BWD_BKV, a.Sk) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window >= 0 ? min(a.Sq, k_last + a.window) : a.Sq;
+  const int nq = q_end > q_begin ? (q_end - q_begin + BWD_BQ - 1) / BWD_BQ
+                                 : 0;
+  const int n_tiles = a.group * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(barKV, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(barF(s), 1);
+      mbar_init(barE(s), 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 4 * NWG && lane == 0) {
+      mbar_expect_tx(barKV, 2 * Tl::KV_BYTES);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_4d(sK + p * BWD_BKV * PANEL_ROW, &kmap, barKV, 64 * p, k0,
+                    hk, b);
+        tma_load_4d(sV + p * BWD_BKV * PANEL_ROW, &vmap, barKV, 64 * p, k0,
+                    hk, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % BWD_STAGES;
+        const int h = hk * a.group + t / nq;
+        const int q0 = q_begin + (t % nq) * BWD_BQ;
+        if (t >= BWD_STAGES) mbar_wait(barE(s), ((t / BWD_STAGES) - 1) & 1);
+        mbar_expect_tx(barF(s), 2 * Tl::QT_BYTES + 2 * BWD_BQ * 4);
+        for (int p = 0; p < NP; ++p) {
+          const uint32_t off = s * Tl::QT_BYTES + p * BWD_BQ * PANEL_ROW;
+          tma_load_4d(sQ + off, &qmap, barF(s), 64 * p, q0, h, b);
+          tma_load_4d(sG + off, &gmap, barF(s), 64 * p, q0, h, b);
+        }
+        const long long row = ((long long)b * a.Hq + h) * a.Sq_pad + q0;
+        bulk_load(smem_u32(sL + s * BWD_BQ), a.lse2 + row, BWD_BQ * 4,
+                  barF(s));
+        bulk_load(smem_u32(sD + s * BWD_BQ), a.delta + row, BWD_BQ * 4,
+                  barF(s));
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp >> 2, t4 = lane & 3;
+  const int kw = k0 + 64 * wg;  // this warpgroup's first key
+  const int krow = kw + 16 * (warp & 3) + (lane >> 2);  // and krow + 8
+  const uint32_t sKw = sK + wg * 64 * PANEL_ROW;
+  const uint32_t sVw = sV + wg * 64 * PANEL_ROW;
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(barKV, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % BWD_STAGES, phase = (t / BWD_STAGES) & 1;
+    const int q0 = q_begin + (t % nq) * BWD_BQ;
+    // the tile's queries [q0, q0 + 63] against this warpgroup's keys
+    // [kw, kw + 63]: skipped where every pair is masked, masked only where
+    // the tile crosses the causal diagonal or the window's edge (queries
+    // past Sq have P = 0 from their +inf LSE; keys past Sk are not stored)
+    const bool skip = kw >= a.Sk || (a.causal && q0 + 63 < kw) ||
+                      (a.window >= 0 && q0 - (kw + 63) >= a.window);
+    const bool edge = (a.causal && q0 < kw + 63) ||
+                      (a.window >= 0 && q0 + 63 - kw >= a.window);
+    mbar_wait(barF(s), phase);
+    if (!skip) {
+      const uint32_t sQs = sQ + s * Tl::QT_BYTES;
+      const uint32_t sGs = sG + s * Tl::QT_BYTES;
+      const float* Ls = sL + s * BWD_BQ;
+      const float* Ds = sD + s * BWD_BQ;
+      // S^T = K Q^T and dP^T = V dO^T: two groups, S^T's first
+      float st[BWD_BQ / 2], dpt[BWD_BQ / 2];
+      wgmma_fence();
+      issue_ss<DP, BWD_BQ>(st, sKw, BWD_BKV, sQs, BWD_BQ);
+      wgmma_commit();
+      issue_ss<DP, BWD_BQ>(dpt, sVw, BWD_BKV, sGs, BWD_BQ);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+      // P^T in place (float32), and rounded to bf16 as dV's A fragments
+      uint32_t pa[BWD_BQ / 4];
+#pragma unroll
+      for (int i = 0; i < BWD_BQ / 2; i += 2) {
+        const int col = 8 * (i >> 2) + 2 * t4;  // query offset of st[i]
+        const float2 L = *reinterpret_cast<const float2*>(Ls + col);
+        float p0 = ex2(st[i] * a.scale_log2 - L.x);
+        float p1 = ex2(st[i + 1] * a.scale_log2 - L.y);
+        if (edge) {
+          const int kp = krow + 8 * ((i >> 1) & 1), qp = q0 + col;
+          p0 = bwd_pair_live(a, qp, kp) ? p0 : 0.f;
+          p1 = bwd_pair_live(a, qp + 1, kp) ? p1 : 0.f;
+        }
+        st[i] = p0;
+        st[i + 1] = p1;
+        pa[i >> 1] = pack2(p0, p1);
+      }
+      // dV += P^T dO, dO read MN-major
+      wgmma_fence();
+      issue_rs<BWD_BQ, DP>(dv, pa, sGs, BWD_BQ);
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is done; dV's products may still run
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - D_i), rounded to bf16 as dK's A fragments
+      uint32_t da[BWD_BQ / 4];
+#pragma unroll
+      for (int i = 0; i < BWD_BQ / 2; i += 2) {
+        const int col = 8 * (i >> 2) + 2 * t4;
+        const float2 Di = *reinterpret_cast<const float2*>(Ds + col);
+        da[i >> 1] = pack2(st[i] * (dpt[i] - Di.x),
+                           st[i + 1] * (dpt[i + 1] - Di.y));
+      }
+      // dK += dS^T Q, Q read MN-major
+      wgmma_fence();
+      issue_rs<BWD_BQ, DP>(dk, da, sQs, BWD_BQ);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pa);  // the products read pa and da until here
+      fence_regs(da);
+      fence_regs(dv);
+      fence_regs(dk);
+    }
+    // the stage goes back to the producer
+    if (lane == 0) mbar_arrive(barE(s));
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kp = krow + 8 * hf;
+    if (kp >= a.Sk) continue;
+    bf16* dkr = a.dk + b * a.dks.b + hk * a.dks.h + kp * a.dks.s;
+    bf16* dvr = a.dv + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < a.D)
+        *reinterpret_cast<__nv_bfloat162*>(dkr + col) = __floats2bfloat162_rn(
+            dk[4 * j + 2 * hf] * a.scale, dk[4 * j + 2 * hf + 1] * a.scale);
+      if (col < a.Dv)
+        *reinterpret_cast<__nv_bfloat162*>(dvr + col) = __floats2bfloat162_rn(
+            dv[4 * j + 2 * hf], dv[4 * j + 2 * hf + 1]);
+    }
+  }
+}
+
+// dQ: one block per (q head, batch, query tile of 128 queries; the last
+// query tile, the heaviest under a causal mask, first). Consumer warpgroup
+// wg owns queries q0 + 64 wg .. + 63; the producer streams the (K, V)
+// tiles of BK keys that the block's queries see.
+template <int DP>
+__global__ void __launch_bounds__(FA3_THREADS, 1)
+fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap gmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, BwdWgArgs a) {
+  using Tl = BwdTile<DP>;
+  constexpr int NP = Tl::NP, BK = Tl::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sG = sQ + Tl::Q_BYTES;
+  const uint32_t sK = sG + Tl::Q_BYTES;                  // [BWD_STAGES]
+  const uint32_t sV = sK + BWD_STAGES * Tl::KT_BYTES;   // [BWD_STAGES]
+  const uint32_t bar = sQ + Tl::DQ_BAR;
+  // barriers: Q and dO full; K full, V full and stage released [BWD_STAGES]
+  const uint32_t barQ = bar;
+  auto barK = [&](int s) { return bar + 8 * (1 + s); };
+  auto barV = [&](int s) { return bar + 8 * (1 + BWD_STAGES + s); };
+  auto barE = [&](int s) { return bar + 8 * (1 + 2 * BWD_STAGES + s); };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.group;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BWD_BQD;
+  const int pos_hi = min(q0 + BWD_BQD, a.Sq) - 1;
+  int k_begin = 0, k_end = a.Sk;
+  if (a.causal) k_end = min(a.Sk, pos_hi + 1);
+  if (a.window >= 0) k_begin = max(0, q0 - a.window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(barK(s), 1);
+      mbar_init(barV(s), 1);
+      mbar_init(barE(s), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 4 * NWG && lane == 0) {
+      mbar_expect_tx(barQ, 2 * Tl::Q_BYTES);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_4d(sQ + p * BWD_BQD * PANEL_ROW, &qmap, barQ, 64 * p, q0, h,
+                    b);
+        tma_load_4d(sG + p * BWD_BQD * PANEL_ROW, &gmap, barQ, 64 * p, q0, h,
+                    b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % BWD_STAGES;
+        const int kt = k_begin + t * BK;
+        if (t >= BWD_STAGES) mbar_wait(barE(s), ((t / BWD_STAGES) - 1) & 1);
+        mbar_expect_tx(barK(s), Tl::KT_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sK + s * Tl::KT_BYTES + p * BK * PANEL_ROW, &kmap,
+                      barK(s), 64 * p, kt, hk, b);
+        mbar_expect_tx(barV(s), Tl::KT_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sV + s * Tl::KT_BYTES + p * BK * PANEL_ROW, &vmap,
+                      barV(s), 64 * p, kt, hk, b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp >> 2, t4 = lane & 3;
+  const int wpos_lo = q0 + 64 * wg, wpos_hi = wpos_lo + 63;
+  const int qrow = wpos_lo + 16 * (warp & 3) + (lane >> 2);  // and qrow + 8
   float L[2], Di[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const bool in = qpos[hf] < a.Sq;
-    const long long row = ((long long)b * a.Hq + h) * a.Sq + qpos[hf];
-    L[hf] = in ? a.lse[row] * LOG2E : 0.f;
-    Di[hf] = in ? a.delta[row] : 0.f;
+    const long long row =
+        ((long long)b * a.Hq + h) * a.Sq_pad + qrow + 8 * hf;
+    L[hf] = a.lse2[row];
+    Di[hf] = a.delta[row];
   }
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
-  const float sl2 = a.scale * LOG2E;
-  float dq[Tl::ND][4];
+  const uint32_t sQw = sQ + wg * 64 * PANEL_ROW;
+  const uint32_t sGw = sG + wg * 64 * PANEL_ROW;
+  float dq[DP / 2];
 #pragma unroll
-  for (int n = 0; n < Tl::ND; ++n)
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  mbar_wait(barQ, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % BWD_STAGES, phase = (t / BWD_STAGES) & 1;
+    const int kt = k_begin + t * BK;
+    // skipped where every pair is masked (or every query is past Sq),
+    // masked only on tiles that cross a bound or the ragged end of Sk
+    const bool skip = wpos_lo >= a.Sq || (a.causal && kt > wpos_hi) ||
+                      (a.window >= 0 && wpos_lo - (kt + BK - 1) >= a.window);
+    const bool edge = kt + BK > a.Sk || (a.causal && kt + BK - 1 > wpos_lo) ||
+                      (a.window >= 0 && wpos_hi - kt >= a.window);
+    mbar_wait(barK(s), phase);
+    mbar_wait(barV(s), phase);
+    if (!skip) {
+      const uint32_t sKs = sK + s * Tl::KT_BYTES;
+      const uint32_t sVs = sV + s * Tl::KT_BYTES;
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+      issue_ss<DP, BK>(sc, sQw, BWD_BQD, sKs, BK);
+      wgmma_commit();
+      issue_ss<DP, BK>(dp, sGw, BWD_BQD, sVs, BK);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      // P (float32) in place
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  int k_begin, k_end;
-  bwd_key_range(a, q0, BQ, BWD_BK, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BWD_BK) {
-    __syncthreads();
-    bwd_load16<DP>(Ks, Kt, LDK, kb, a.ks.s, k0, BWD_BK, a.Sk, a.D, LDS);
-    bwd_load16<DP>(Vs, nullptr, 0, vb, a.vs.s, k0, BWD_BK, a.Sk, a.Dv, LDS);
-    __syncthreads();
-    float sc[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < Tl::KS; ++ks) {
-      uint32_t aq[4], ag[4];
-      frag_a(aq, Qs, LDS, wr + g, 16 * ks, t);
-      frag_a(ag, Gs, LDS, wr + g, 16 * ks, t);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const bf16* kr = Ks + (8 * n + g) * LDS + 16 * ks + 2 * t;
-        mma16816(sc[n], aq, ld2(kr), ld2(kr + 8));
-        const bf16* vr = Vs + (8 * n + g) * LDS + 16 * ks + 2 * t;
-        mma16816(dp[n], ag, ld2(vr), ld2(vr + 8));
+      for (int i = 0; i < BK / 2; ++i) {
+        const int hf = (i >> 1) & 1;
+        float p = ex2(sc[i] * a.scale_log2 - L[hf]);
+        if (edge) {
+          const int kp = kt + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          p = kp < a.Sk && bwd_pair_live(a, qrow + 8 * hf, kp) ? p : 0.f;
+        }
+        sc[i] = p;
       }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P (dP - D_i), rounded to bf16 as the A fragments of dQ += dS K
+      uint32_t da[BK / 4];
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        const int hf = i & 1;
+        da[i] = pack2(sc[2 * i] * (dp[2 * i] - Di[hf]),
+                      sc[2 * i + 1] * (dp[2 * i + 1] - Di[hf]));
+      }
+      wgmma_fence();
+      issue_rs<BK, DP>(dq, da, sKs, BK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(da);
+      fence_regs(dq);
     }
-    // dS = P (dP - D_i), in place of S
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const int kp = k0 + 8 * n + 2 * t + (e & 1);
-        const float p = bwd_live(a, qpos[hf], kp)
-                            ? ex2(sc[n][e] * sl2 - L[hf]) : 0.f;
-        sc[n][e] = p * (dp[n][e] - Di[hf]);
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < BWD_BK / 16; ++kk) {
-      uint32_t as[4];
-      frag_acc(as, sc[2 * kk], sc[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < Tl::ND; ++n) {
-        const bf16* kr = Kt + (8 * n + g) * LDK + 16 * kk + 2 * t;
-        mma16816(dq[n], as, ld2(kr), ld2(kr + 8));
-      }
-    }
+    if (lane == 0) mbar_arrive(barE(s));
   }
+
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    if (qpos[hf] >= a.Sq) continue;
-    bf16* dqr = static_cast<bf16*>(a.dq) + b * a.dqs.b + h * a.dqs.h +
-                qpos[hf] * a.dqs.s;
+    const int qp = qrow + 8 * hf;
+    if (qp >= a.Sq) continue;
+    bf16* dqr = a.dq + b * a.dqs.b + h * a.dqs.h + qp * a.dqs.s;
 #pragma unroll
-    for (int n = 0; n < Tl::ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * t + e;
-        if (c < a.D) dqr[c] = __float2bfloat16(dq[n][2 * hf + e] * a.scale);
-      }
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < a.D)
+        *reinterpret_cast<__nv_bfloat162*>(dqr + col) = __floats2bfloat162_rn(
+            dq[4 * j + 2 * hf] * a.scale, dq[4 * j + 2 * hf + 1] * a.scale);
+    }
   }
 }
+
 
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
@@ -1606,20 +1784,75 @@ int backward_f32(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// rows of the LSE and D_i scratch of one (batch, q head): Sq rounded up to
+// whole query tiles of both passes
+int bwd_rows(int Sq) { return (Sq + BWD_PAD - 1) / BWD_PAD * BWD_PAD; }
+
+template <int G>
+void launch_prep(const BwdArgs& a, int Sq_pad, float* lse2, float* delta,
+                 cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.Hq * Sq_pad;
+  const long long blocks = (rows + 256 / G - 1) / (256 / G);
+  fa_bwd_prep_kernel<G><<<(unsigned)blocks, 256, 0, stream>>>(a, Sq_pad,
+                                                              lse2, delta);
+}
+
 template <int DP>
-int backward_bf16(const BwdArgs& a, cudaStream_t stream) {
+int backward_bf16(const BwdArgs& a, float* scratch, cudaStream_t stream) {
   using Tl = BwdTile<DP>;
-  int err = set_smem(fa_bwd_dkdv_bf16_kernel<DP>, Tl::DKDV_SMEM);
-  if (err == 0) err = set_smem(fa_bwd_dq_bf16_kernel<DP>, Tl::DQ_SMEM);
+  const int Sq_pad = bwd_rows(a.Sq);
+  float* lse2 = scratch;
+  float* delta = scratch + (long long)a.B * a.Hq * Sq_pad;
+  const int nvec = a.Dv / 8;  // 16-byte vectors of a row of O and dO
+  if (nvec <= 2) launch_prep<2>(a, Sq_pad, lse2, delta, stream);
+  else if (nvec <= 4) launch_prep<4>(a, Sq_pad, lse2, delta, stream);
+  else if (nvec <= 8) launch_prep<8>(a, Sq_pad, lse2, delta, stream);
+  else launch_prep<16>(a, Sq_pad, lse2, delta, stream);
+  int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  fa_bwd_dkdv_bf16_kernel<DP>
-      <<<dim3((a.Sk + BWD_BK - 1) / BWD_BK, a.Hkv, a.B), BWD_THREADS,
-         Tl::DKDV_SMEM, stream>>>(a);
+  // q and dO by 64-row tiles (dK/dV) and 128-row tiles (dQ); k and v by
+  // the dK/dV block's 128 keys and the dQ pass's BK
+  CUtensorMap qt, gt, kb, vb, qb, gb, kt, vt;
+  const bool ok =
+      make_map(&qt, a.q, a.D, a.Sq, a.Hq, a.B, a.qs, BWD_BQ, 1) &&
+      make_map(&gt, a.g, a.Dv, a.Sq, a.Hq, a.B, a.gs, BWD_BQ, 1) &&
+      make_map(&kb, a.k, a.D, a.Sk, a.Hkv, a.B, a.ks, BWD_BKV, 1) &&
+      make_map(&vb, a.v, a.Dv, a.Sk, a.Hkv, a.B, a.vs, BWD_BKV, 1) &&
+      make_map(&qb, a.q, a.D, a.Sq, a.Hq, a.B, a.qs, BWD_BQD, 1) &&
+      make_map(&gb, a.g, a.Dv, a.Sq, a.Hq, a.B, a.gs, BWD_BQD, 1) &&
+      make_map(&kt, a.k, a.D, a.Sk, a.Hkv, a.B, a.ks, Tl::BK, 1) &&
+      make_map(&vt, a.v, a.Dv, a.Sk, a.Hkv, a.B, a.vs, Tl::BK, 1);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  BwdWgArgs w;
+  w.lse2 = lse2;
+  w.delta = delta;
+  w.dq = static_cast<bf16*>(a.dq);
+  w.dk = static_cast<bf16*>(a.dk);
+  w.dv = static_cast<bf16*>(a.dv);
+  w.dqs = a.dqs;
+  w.dks = a.dks;
+  w.dvs = a.dvs;
+  w.Hq = a.Hq;
+  w.group = a.group;
+  w.Sq = a.Sq;
+  w.Sk = a.Sk;
+  w.Sq_pad = Sq_pad;
+  w.D = a.D;
+  w.Dv = a.Dv;
+  w.causal = a.causal;
+  w.window = a.window;
+  w.scale = a.scale;
+  w.scale_log2 = a.scale * LOG2E;
+  err = set_smem(fa_bwd_dkdv_kernel<DP>, Tl::DKDV_SMEM);
+  if (err == 0) err = set_smem(fa_bwd_dq_kernel<DP>, Tl::DQ_SMEM);
+  if (err != 0) return err;
+  fa_bwd_dkdv_kernel<DP>
+      <<<dim3(a.Hkv, a.B, (a.Sk + BWD_BKV - 1) / BWD_BKV), FA3_THREADS,
+         Tl::DKDV_SMEM, stream>>>(qt, gt, kb, vb, w);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  fa_bwd_dq_bf16_kernel<DP>
-      <<<dim3((a.Sq + 63) / 64, a.Hq, a.B), BWD_THREADS, Tl::DQ_SMEM,
-         stream>>>(a);
+  fa_bwd_dq_kernel<DP><<<dim3(a.Hq, a.B, Sq_pad / BWD_BQD), FA3_THREADS,
+                         Tl::DQ_SMEM, stream>>>(qb, gb, kt, vt, w);
   return (int)cudaGetLastError();
 }
 
@@ -1710,12 +1943,24 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// Floats of the scratch that flash_attention_bwd_launch takes as `delta`:
+// float32, D_i (B, Hq, Sq); bf16, the LSE in log2 units and D_i, each
+// (B, Hq, Sq rounded up to 128), the rows both passes' tiles read.
+extern "C" long long flash_attention_bwd_scratch(int dtype, int B, int Hq,
+                                                 int Sq) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (dtype == DT_BF16) return 2LL * B * Hq * bwd_rows(Sq);
+  return (long long)B * Hq * Sq;
+}
+
 // The backward of flash_attention_launch's call on (q, k, v) that wrote o
 // and lse: dq, dk and dv in the input dtype. strides: 24 element strides,
 // the (B, H, S) strides of q, k, v, o, dO, dq, dk, dv in that order, each
-// with a unit stride on its last axis; delta: (B, Hq, Sq) float32 scratch.
-// float32: D, Dv <= 128; bf16: D, Dv <= 128 in one tile (both <= 64, or
-// both in 65 .. 128). Three launches; returns cudaGetLastError().
+// with a unit stride on its last axis; delta: flash_attention_bwd_scratch
+// floats. float32: D, Dv <= 128. bf16: D, Dv multiples of 8 up to 128 in
+// one tile (both <= 64, or both in 65 .. 128); q, k, v and dO are read by
+// TMA and o with 16-byte loads, so their bases and B, H and S strides must
+// be multiples of 16 bytes. Three launches; returns cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1724,7 +1969,7 @@ extern "C" int flash_attention_bwd_launch(
     void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
       D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || B > 65535 || Hq > 65535 ||
-      strides == nullptr)
+      strides == nullptr || Sq > 65535 * BWD_PAD || Sk > 65535 * BWD_BKV)
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.q = q;
@@ -1753,8 +1998,8 @@ extern "C" int flash_attention_bwd_launch(
   a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)B * Hq * Sq;
   if (dtype == DT_F32) {
+    const long long rows = (long long)B * Hq * Sq;
     fa_bwd_delta_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
@@ -1762,13 +2007,12 @@ extern "C" int flash_attention_bwd_launch(
     if (cols <= 64) return backward_f32<8>(a, s);
     return backward_f32<16>(a, s);
   }
-  if (dtype == DT_BF16) {
+  if (dtype == DT_BF16 && D % 8 == 0 && Dv % 8 == 0) {
     const bool small = D <= 64 && Dv <= 64, large = D > 64 && Dv > 64;
     if (!small && !large) return (int)cudaErrorInvalidValue;
-    fa_bwd_delta_kernel<bf16><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
-    int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    return small ? backward_bf16<64>(a, s) : backward_bf16<128>(a, s);
+    float* scratch = static_cast<float*>(delta);
+    return small ? backward_bf16<64>(a, scratch, s)
+                 : backward_bf16<128>(a, scratch, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -289,40 +289,241 @@ int launch(const void* x, const void* w, void* y, long long rows, int D,
 // jax.grad differentiates there; its Pallas kernel has no backward):
 //   dx = r (w dy) - x r^3 mean(x w dy),   dw = sum over rows of dy x r,
 // float32 sums, dx in x's dtype and dw in w's. Bound by bytes like the
-// forward (x and dy read, dx written, ~10 operations an element), so one
-// pass reads each row once per use from device memory (the second read of
-// a row hits L1), with the row's two sums (x^2 and x w dy) reduced together
-// in one fixed-order block sum. dw is two launches with no atomics: each
-// block of rmsnorm_bwd_kernel walks a fixed run of rows and keeps its
-// columns' partial dw in shared memory (a column belongs to one thread),
-// then writes them as one row of a (blocks, D) float32 scratch; and
-// rmsnorm_dw_kernel sums that scratch's rows in block order, one thread a
-// column. The blocks and their runs of rows follow from (rows, D) alone.
+// forward (x and dy read, dx written, ~10 operations an element). Forms,
+// chosen per call from D and the pointers as the forward's are:
+// * rows of at most 32 vectors: lane groups of G lanes a row, one 16-byte
+//   vector each, several rows a warp (rmsnorm_bwd_group_kernel);
+// * rows of up to 2048 vectors: a row group of W warps a row (W = 1, 2, 4,
+//   8 or 16, the fewest that give a thread at most BWD_NV vectors), 8 warps
+//   a block, 16 for W = 16 (rmsnorm_bwd_rows_kernel);
+// * a row that is not a whole number of vectors, a pointer off 16 bytes, or
+//   a longer row: the scalar form, one row at a time a block, the block's
+//   dw columns in shared memory (rmsnorm_bwd_scalar_kernel).
+// In the vector forms each thread reads its vectors of x and dy once and
+// keeps them in registers; the row's two sums (x^2 and x w dy) come from
+// one fixed-order butterfly (for W > 1 then a fixed-order sum of the
+// group's warps through shared memory, double-buffered, one named barrier
+// a row); dx is written from the registers; w is read once; each thread
+// keeps its columns' dw partial in registers across the rows it walks, and
+// the block's row groups (and a warp's lane groups) add theirs in a fixed
+// order into one partial row a block. The blocks, each a fixed run of rows,
+// follow from the row count alone. rmsnorm_dw_kernel then sums the (blocks,
+// D) float32 partials: each block 8 columns, 32 threads a column, each
+// adding every 32nd partial row in order, then the 32 sums in order. No
+// atomics: two runs give the same bits.
 
-constexpr int BWD_BLOCKS = 528;   // 4 blocks for each of the H100's 132 SMs
-constexpr int BWD_MAX_THREADS = 256;
+constexpr int BWD_BLOCKS = 264;   // 2 blocks for each of the H100's 132 SMs
+constexpr int BWD_NV = 4;         // vectors per thread, row-group form
+constexpr int BWD_THREADS = 256;  // threads of a backward block (W <= 8)
 
-// threads of a backward block: D rounded up to whole warps, at most 256
-int bwd_threads(int D) {
-  const int t = (D + 31) / 32 * 32;
-  return t < BWD_MAX_THREADS ? t : BWD_MAX_THREADS;
+// x^2 and x w dy summed over one vector, and its slice of dx and dw
+template <typename T>
+__device__ __forceinline__ void bwd_sums(const uint4& xv, const uint4& gv,
+                                         const uint4& wv, float& ss,
+                                         float& dot) {
+  constexpr int N = Vec<T>::N;
+  float x[N], g[N], w[N];
+  Vec<T>::load(xv, x);
+  Vec<T>::load(gv, g);
+  Vec<T>::load(wv, w);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    ss += x[e] * x[e];
+    dot += x[e] * w[e] * g[e];
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BWD_MAX_THREADS)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ dy, T* __restrict__ dx,
-                   float* __restrict__ dw_part, long long rows,
-                   long long rows_per_block, int D, float eps) {
+__device__ __forceinline__ uint4 bwd_dx(const uint4& xv, const uint4& gv,
+                                        const uint4& wv, float r, float coef,
+                                        float* dw) {
+  constexpr int N = Vec<T>::N;
+  float x[N], g[N], w[N], o[N];
+  Vec<T>::load(xv, x);
+  Vec<T>::load(gv, g);
+  Vec<T>::load(wv, w);
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    o[e] = r * (w[e] * g[e]) - x[e] * coef;
+    dw[e] += g[e] * x[e] * r;
+  }
+  return Vec<T>::store(o);
+}
+
+// Lane-group form: G lanes a row (G covers nvec <= 32), BWD_THREADS / G
+// rows in flight a block; every thread takes the same number of steps so
+// that whole warps meet at each butterfly.
+template <typename T, int G>
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_bwd_group_kernel(const uint4* __restrict__ x,
+                         const uint4* __restrict__ w,
+                         const uint4* __restrict__ dy, uint4* __restrict__ dx,
+                         float* __restrict__ dw_part, long long rows,
+                         long long rows_per_block, int nvec, float d,
+                         float eps) {
+  constexpr int N = Vec<T>::N, SLOTS = BWD_THREADS / G;
+  __shared__ float sdw[BWD_THREADS / 32][32 * 8];  // [warp][column]
+  const int lane = threadIdx.x % G, slot = threadIdx.x / G;
+  const int warp = threadIdx.x >> 5;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, rows);
+  const bool col = lane < nvec;
+  const uint4 wv = col ? __ldg(w + lane) : make_uint4(0, 0, 0, 0);
+  float dwp[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) dwp[e] = 0.f;
+  for (long long base = r0; base < r1; base += SLOTS) {
+    const long long row = base + slot;
+    const bool live = row < r1 && col;
+    uint4 xv = make_uint4(0, 0, 0, 0), gv = xv;
+    float ss = 0.f, dot = 0.f;
+    if (live) {
+      xv = x[row * nvec + lane];
+      gv = dy[row * nvec + lane];
+      bwd_sums<T>(xv, gv, wv, ss, dot);
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    if (live) {
+      const float r = rsqrtf(ss / d + eps);
+      dx[row * nvec + lane] =
+          bwd_dx<T>(xv, gv, wv, r, r * r * r * (dot / d), dwp);
+    }
+  }
+  // the warp's rows, then the block's warps, each in a fixed order
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      dwp[e] += __shfl_xor_sync(0xffffffffu, dwp[e], off);
+  if ((threadIdx.x & 31) < G && col)
+#pragma unroll
+    for (int e = 0; e < N; ++e) sdw[warp][lane * N + e] = dwp[e];
+  __syncthreads();
+  const int D = nvec * N;
+  for (int c = threadIdx.x; c < D; c += BWD_THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < BWD_THREADS / 32; ++k) s += sdw[k][c];
+    dw_part[(long long)blockIdx.x * D + c] = s;
+  }
+}
+
+// Row-group form: W warps a row, each thread vectors i * 32 W + its index
+// in the group (i < BWD_NV), R = 8 / W groups a block (1 for W = 16);
+// group g walks rows r0 + g, r0 + g + R, ... of the block's run.
+template <typename T, int W>
+__global__ void __launch_bounds__(W == 16 ? 512 : BWD_THREADS,
+                                  W == 16 ? 1 : 2)
+rmsnorm_bwd_rows_kernel(const uint4* __restrict__ x,
+                        const uint4* __restrict__ w,
+                        const uint4* __restrict__ dy, uint4* __restrict__ dx,
+                        float* __restrict__ dw_part, long long rows,
+                        long long rows_per_block, int nvec, float d,
+                        float eps) {
+  constexpr int N = Vec<T>::N, R = W == 16 ? 1 : 8 / W, GT = 32 * W;
+  extern __shared__ float sdw[];                 // R > 1: [group][D]
+  __shared__ float2 red[2][R][W];                // W > 1: the warps' sums
+  const int g = threadIdx.x / GT, t = threadIdx.x % GT;
+  const int wig = t >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, rows);
+  uint4 wv[BWD_NV];
+  float dwp[BWD_NV][N];
+#pragma unroll
+  for (int i = 0; i < BWD_NV; ++i) {
+    const int c = i * GT + t;
+    wv[i] = c < nvec ? __ldg(w + c) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int e = 0; e < N; ++e) dwp[i][e] = 0.f;
+  }
+  int buf = 0;
+  for (long long row = r0 + g; row < r1; row += R) {
+    uint4 xv[BWD_NV], gv[BWD_NV];
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < BWD_NV; ++i) {
+      const int c = i * GT + t;
+      if (c < nvec) {
+        xv[i] = x[row * nvec + c];
+        gv[i] = dy[row * nvec + c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BWD_NV; ++i)
+      if (i * GT + t < nvec) bwd_sums<T>(xv[i], gv[i], wv[i], ss, dot);
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (W > 1) {
+      if (lane == 0) red[buf][g][wig] = make_float2(ss, dot);
+      // the group's warps; the other buffer takes the next row's sums, so
+      // one barrier a row keeps a fast warp from overwriting these
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(GT) : "memory");
+      ss = dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const float2 p = red[buf][g][k];
+        ss += p.x;
+        dot += p.y;
+      }
+      buf ^= 1;
+    }
+    const float r = rsqrtf(ss / d + eps);
+    const float coef = r * r * r * (dot / d);
+#pragma unroll
+    for (int i = 0; i < BWD_NV; ++i) {
+      const int c = i * GT + t;
+      if (c < nvec)
+        dx[row * nvec + c] = bwd_dx<T>(xv[i], gv[i], wv[i], r, coef, dwp[i]);
+    }
+  }
+  const int D = nvec * N;
+  float* out = dw_part + (long long)blockIdx.x * D;
+  if (R == 1) {
+#pragma unroll
+    for (int i = 0; i < BWD_NV; ++i) {
+      const int c = i * GT + t;
+      if (c < nvec)
+#pragma unroll
+        for (int e = 0; e < N; ++e) out[c * N + e] = dwp[i][e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < BWD_NV; ++i) {
+    const int c = i * GT + t;
+    if (c < nvec)
+#pragma unroll
+      for (int e = 0; e < N; ++e) sdw[g * D + c * N + e] = dwp[i][e];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += R * GT) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) s += sdw[k * D + c];
+    out[c] = s;
+  }
+}
+
+// Scalar form: one row at a time a block, an element a thread a step; the
+// block's dw columns in shared memory (a column belongs to one thread).
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ dw_part, long long rows,
+                          long long rows_per_block, int D, float eps) {
   extern __shared__ float sdw[];                 // D partial dw columns
-  __shared__ float2 partial[BWD_MAX_THREADS / 32];
+  __shared__ float2 partial[BWD_THREADS / 32];
   __shared__ float2 total;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   for (int c = tid; c < D; c += nth) sdw[c] = 0.f;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block
-                                                   : rows;
+  const long long r1 = min(r0 + rows_per_block, rows);
   const float d = (float)D;
   for (long long row = r0; row < r1; ++row) {
     const T* xr = x + row * D;
@@ -359,39 +560,104 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     dw_part[(long long)blockIdx.x * D + c] = sdw[c];
 }
 
-// dw[c] = sum over the blocks' partials in block order
+// dw[c] = the sum of the blocks' partial rows: 8 columns a block, 32
+// threads a column (thread k adds rows k, k + 32, ... in order), then the
+// 32 sums in order
 template <typename T>
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ dw_part,
-                                  T* __restrict__ dw, int blocks, int D) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
+__global__ void __launch_bounds__(256)
+rmsnorm_dw_kernel(const float* __restrict__ dw_part, T* __restrict__ dw,
+                  int blocks, int D) {
+  __shared__ float sums[32][8];
+  const int cl = threadIdx.x & 7, k = threadIdx.x >> 3;
+  const int c = blockIdx.x * 8 + cl;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += dw_part[(long long)b * D + c];
-  dw[c] = from_f32<T>(s);
+  if (c < D)
+    for (int b = k; b < blocks; b += 32) s += dw_part[(long long)b * D + c];
+  sums[k][cl] = s;
+  __syncthreads();
+  if (threadIdx.x < 8 && c < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) t += sums[j][cl];
+    dw[c] = from_f32<T>(t);
+  }
+}
+
+// blocks of a backward call and the rows each walks: a shape rule on the
+// row count alone
+void bwd_grid(long long rows, long long& per, int& used) {
+  const long long blocks = rows < BWD_BLOCKS ? rows : BWD_BLOCKS;
+  per = (rows + blocks - 1) / blocks;
+  used = (int)((rows + per - 1) / per);
+}
+
+template <typename T, int G>
+void launch_bwd_group(const void* x, const void* w, const void* dy, void* dx,
+                      float* part, long long rows, long long per, int used,
+                      int nvec, float eps, cudaStream_t stream) {
+  rmsnorm_bwd_group_kernel<T, G><<<used, BWD_THREADS, 0, stream>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(w),
+      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, rows,
+      per, nvec, (float)(nvec * Vec<T>::N), eps);
+}
+
+template <typename T, int W>
+void launch_bwd_rows(const void* x, const void* w, const void* dy, void* dx,
+                     float* part, long long rows, long long per, int used,
+                     int nvec, float eps, cudaStream_t stream) {
+  constexpr int R = W == 16 ? 1 : 8 / W;
+  const int D = nvec * Vec<T>::N;
+  const size_t smem = R > 1 ? sizeof(float) * (size_t)R * D : 0;
+  rmsnorm_bwd_rows_kernel<T, W><<<used, 32 * W * R, smem, stream>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(w),
+      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, rows,
+      per, nvec, (float)D, eps);
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
                void* dw, float* part, long long rows, int D, float eps,
                cudaStream_t stream) {
-  const long long blocks = rows < BWD_BLOCKS ? rows : BWD_BLOCKS;
-  const long long per = (rows + blocks - 1) / blocks;
-  const int used = (int)((rows + per - 1) / per);
-  const int threads = bwd_threads(D);
-  const size_t smem = sizeof(float) * (size_t)D;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  constexpr int N = Vec<T>::N;
+  long long per;
+  int used;
+  bwd_grid(rows, per, used);
+  const unsigned long long addr = reinterpret_cast<unsigned long long>(x)
+                                  | reinterpret_cast<unsigned long long>(w)
+                                  | reinterpret_cast<unsigned long long>(dy)
+                                  | reinterpret_cast<unsigned long long>(dx);
+  const int nvec = D / N;
+  const bool vec = addr % 16 == 0 && D % N == 0;
+#define RN_BWD_ARGS x, w, dy, dx, part, rows, per, used, nvec, eps, stream
+  if (vec && nvec <= 1) launch_bwd_group<T, 1>(RN_BWD_ARGS);
+  else if (vec && nvec <= 2) launch_bwd_group<T, 2>(RN_BWD_ARGS);
+  else if (vec && nvec <= 4) launch_bwd_group<T, 4>(RN_BWD_ARGS);
+  else if (vec && nvec <= 8) launch_bwd_group<T, 8>(RN_BWD_ARGS);
+  else if (vec && nvec <= 16) launch_bwd_group<T, 16>(RN_BWD_ARGS);
+  else if (vec && nvec <= 32) launch_bwd_group<T, 32>(RN_BWD_ARGS);
+  else if (vec && nvec <= 32 * BWD_NV) launch_bwd_rows<T, 1>(RN_BWD_ARGS);
+  else if (vec && nvec <= 64 * BWD_NV) launch_bwd_rows<T, 2>(RN_BWD_ARGS);
+  else if (vec && nvec <= 128 * BWD_NV) launch_bwd_rows<T, 4>(RN_BWD_ARGS);
+  else if (vec && nvec <= 256 * BWD_NV) launch_bwd_rows<T, 8>(RN_BWD_ARGS);
+  else if (vec && nvec <= 512 * BWD_NV) launch_bwd_rows<T, 16>(RN_BWD_ARGS);
+  else {
+    const size_t smem = sizeof(float) * (size_t)D;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          rmsnorm_bwd_scalar_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int threads = D < BWD_THREADS ? (D + 31) / 32 * 32 : BWD_THREADS;
+    rmsnorm_bwd_scalar_kernel<T><<<used, threads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, per, D,
+        eps);
   }
-  rmsnorm_bwd_kernel<T><<<used, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, per, D,
-      eps);
+#undef RN_BWD_ARGS
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rmsnorm_dw_kernel<T><<<(D + 255) / 256, 256, 0, stream>>>(
+  rmsnorm_dw_kernel<T><<<(D + 7) / 8, 256, 0, stream>>>(
       part, static_cast<T*>(dw), used, D);
   return (int)cudaGetLastError();
 }
@@ -414,9 +680,10 @@ extern "C" int rmsnorm_launch(int dtype, const void* x, const void* w,
 // Rows of the (blocks, D) float32 scratch that rmsnorm_bwd_launch needs.
 extern "C" long long rmsnorm_bwd_blocks(long long rows) {
   if (rows <= 0) return 0;
-  const long long blocks = rows < BWD_BLOCKS ? rows : BWD_BLOCKS;
-  const long long per = (rows + blocks - 1) / blocks;
-  return (rows + per - 1) / per;
+  long long per;
+  int used;
+  bwd_grid(rows, per, used);
+  return used;
 }
 
 // x, dy, dx: (rows, D) contiguous; w, dw: (D,); all of one dtype; part:

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) primitives of the bf16 attention kernel (attention.cu):
-// shared-memory descriptors, mbarriers, TMA tensor loads and the wgmma
-// products it issues.
+// Hopper (sm_90a) primitives of the bf16 attention kernels (attention.cu:
+// the forward and the two backward passes): shared-memory descriptors,
+// mbarriers, TMA tensor and bulk loads and the wgmma products they issue.
 //
 // Layout: every tile is stored as 64-column panels of 128-byte rows with
 // the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
@@ -43,12 +43,24 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// waits until at most N committed groups of products are pending (groups
+// complete in the order they were committed)
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// and of A fragments in registers, which an issued product reads until it
+// completes
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -90,6 +102,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one bulk copy of `bytes` contiguous bytes (16-byte aligned, a multiple
+// of 16) from device memory, completing on the barrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -38,9 +38,14 @@ takes of the JAX package's XLA attention; its Pallas kernel has none).
 Without a gradient (serving, ``inference_mode``) no LSE is written and no
 graph is recorded. The backward takes D and Dv up to 128 in one tile class
 (both <= 64 or both above), in bf16 and float32, and raises on wider heads
-(ROADMAP.md section 1, item 12c). ``LAUNCHES["flash_attention_bwd"]``
-counts its calls (three kernel launches each: D_i, dK/dV, dQ). On a CPU
-tensor the plain version's own autograd gives the gradient.
+(ROADMAP.md section 1, item 12c). In bf16 its two passes are wgmma kernels
+fed by TMA (``fa_bwd_dkdv_kernel``, ``fa_bwd_dq_kernel``), so D and Dv are
+multiples of 8 and q, k, v follow the forward's 16-byte rule; a dO or an
+out that does not (a view off 16 bytes, or without a unit stride on its
+last axis) is copied to a contiguous tensor first.
+``LAUNCHES["flash_attention_bwd"]`` counts its calls (three kernel
+launches each: D_i, dK/dV, dQ). On a CPU tensor the plain version's own
+autograd gives the gradient.
 """
 from __future__ import annotations
 
@@ -87,6 +92,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_launch.argtypes = ([ci] + [vp] * 10 + [ci] * 7
                                                + [vp, ci, ci, cf, vp])
     lib.flash_attention_bwd_launch.restype = ci
+    lib.flash_attention_bwd_scratch.argtypes = [ci, ci, ci, ci]
+    lib.flash_attention_bwd_scratch.restype = cll
 
 
 def build() -> ctypes.CDLL:
@@ -184,10 +191,11 @@ def _check_bwd(q, k, v):
             f"flash_attention's backward kernels take head dims up to "
             f"{MAX_BWD_HEAD_DIM}, got D={D}, Dv={Dv} (wider heads wait for "
             f"ROADMAP.md section 1, item 12c)")
-    if q.dtype == torch.bfloat16 and (D <= 64) != (Dv <= 64):
-        raise ValueError(f"the bf16 backward takes D and Dv in one tile "
-                         f"(both <= 64 or both in 65..128), got D={D}, "
-                         f"Dv={Dv}")
+    if q.dtype == torch.bfloat16 and ((D <= 64) != (Dv <= 64)
+                                      or D % 8 or Dv % 8):
+        raise ValueError(f"the bf16 backward takes D and Dv in multiples "
+                         f"of 8 in one tile (both <= 64 or both in "
+                         f"65..128), got D={D}, Dv={Dv}")
 
 
 def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
@@ -211,13 +219,10 @@ def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the kernel takes q, k and v with unit stride on "
                          "D (any strides on B, H and S)")
+    if q.dtype == torch.bfloat16 and not all(_tma_ready(t)
+                                             for t in (q, k, v)):
+        raise ValueError(_TMA_RULE)
     strides = [_strides(t) for t in (q, k, v)]
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in sts)
-            for t, sts in zip((q, k, v), strides)):
-        raise ValueError("the bf16 kernel reads q, k and v with TMA: their "
-                         "base addresses and their B, H and S strides must "
-                         "be multiples of 16 bytes")
     scale = _scale(D, sm_scale)
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -234,6 +239,26 @@ def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
     _cuda.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out, lse
+
+
+_TMA_RULE = ("the bf16 kernels read q, k and v with TMA: their base "
+             "addresses and their B, H and S strides must be multiples of "
+             "16 bytes")
+
+
+def _tma_ready(t) -> bool:
+    """Whether a bf16 (B, H, S, D) tensor can be read by TMA and 16-byte
+    loads as it lies: unit stride on D, base and B, H, S strides on 16
+    bytes."""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in _strides(t)))
+
+
+def _tma_operand(t):
+    """``t`` itself where the bf16 backward reads it as it lies, else a
+    contiguous copy (the backward's dO and out)."""
+    return t if _tma_ready(t) else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _scale(D: int, sm_scale: Optional[float]) -> float:
@@ -254,9 +279,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     (B, Hq, Sq, Dv), on the card: three launches (D_i = rowsum(dout . out),
     dK/dV by key tile, dQ by query tile). Each gradient is in its input's
     dtype and, for a dense view, its strides (the model's strided q, k and
-    v get gradients in the same layout). On the CPU it runs the kernels'
-    plain version, ``ref.flash_attention_bwd_ref`` (any float dtype: the
-    gradient checks run it in float64)."""
+    v get gradients in the same layout). In bf16, q, k and v must meet the
+    forward's 16-byte rule (it raises otherwise), and a ``dout`` or ``out``
+    that does not is copied to a contiguous tensor first (TMA and the D_i
+    pass read them; autograd's dO is the model's strided view and is read
+    as it lies). On the CPU it runs the kernels' plain version,
+    ``ref.flash_attention_bwd_ref`` (any float dtype: the gradient checks
+    run it in float64)."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window,
@@ -276,18 +305,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                          f"{tuple(dout.shape)}, {tuple(lse.shape)} "
                          f"{lse.dtype}")
     dout = dout.to(q.dtype)
-    if dout.stride(3) != 1:
+    if q.dtype == torch.bfloat16:
+        if not all(_tma_ready(t) for t in (q, k, v)):
+            raise ValueError(_TMA_RULE)
+        out, dout = _tma_operand(out), _tma_operand(dout)
+    elif dout.stride(3) != 1:
         dout = dout.contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = build()
+    code = _cuda.DTYPES[q.dtype]
+    delta = torch.empty(lib.flash_attention_bwd_scratch(code, B, Hq, Sq),
+                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         st for t in (q, k, v, out, dout, dq, dk, dv) for st in _strides(t)])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build().flash_attention_bwd_launch(
-        _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = lib.flash_attention_bwd_launch(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
         Dv, strides, int(causal), _window(window, Sq),

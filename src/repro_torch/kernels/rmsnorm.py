@@ -14,11 +14,13 @@ the current stream is read without building a ``torch.cuda.Stream``.
 
 Gradients: on a CUDA tensor that needs one (grad mode on), the call is a
 ``torch.autograd.Function`` whose backward is :func:`rmsnorm_bwd`, the CUDA
-backward kernel of the same library (dx, and dw in two launches with no
-atomics: per-block partial sums, then their sum in block order). It is the
-gradient ``jax.grad`` takes of the JAX package's XLA ``rms_norm``; the
-Pallas kernel has no backward. ``LAUNCHES["rmsnorm_bwd"]`` counts its
-calls. On a CPU tensor the plain version's own autograd gives it.
+backward kernels of the same library: dx and a partial dw row a block in
+one launch, in the forward's 16-byte vector forms (a scalar form for a
+ragged D or a pointer off 16 bytes), then the partial rows' fixed-order
+sum; no atomics. It is the gradient ``jax.grad`` takes of the JAX
+package's XLA ``rms_norm``; the Pallas kernel has no backward.
+``LAUNCHES["rmsnorm_bwd"]`` counts its calls. On a CPU tensor the plain
+version's own autograd gives it.
 """
 from __future__ import annotations
 

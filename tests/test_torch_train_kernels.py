@@ -11,7 +11,10 @@ On the card each backward kernel is held against autograd of its plain
 forward (``ref.rmsnorm_ref``; ``ref.flash_attention_bf16p_ref`` in bf16,
 ``ref.flash_attention_ref`` in float32) at relative L2 2e-4 in float32 and
 1e-2 in bf16 on every output (dx, dw; dq, dk, dv), at cut-down versions of
-``chip_smoke.py``'s training shapes, and repeats its bits. On the CPU the
+``chip_smoke.py``'s training shapes and at the edges of the kernels' tiles
+and forms (ragged S and rows, GQA groups of 1 and 8, windows at D = 128,
+dO views, every rmsnorm form's D, views with a storage offset), and
+repeats its bits. On the CPU the
 two ``autograd.Function``s pass ``torch.autograd.gradcheck`` in float64
 through their plain route (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``: the kernels' formulas), and those formulas
@@ -64,7 +67,10 @@ def _leaf(t):
 
 # (name, B, Hq, Hkv, Sq, Sk, D, causal, window): SmolLM-360M's training
 # shape and Qwen3-8B's cut in B and S, a window, Whisper's non-causal
-# cross shape (Sq != Sk), a ragged S, D = 80, dead rows (window 0)
+# cross shape (Sq != Sk), a ragged S, D = 80, dead rows (window 0); then
+# the bf16 kernels' edges: S not a multiple of their 64- and 128-row tiles
+# (129, 1000), GQA groups of 1 and 8, D = 128 with a window, a
+# rectangular non-causal call at D = 128
 ATTN_CASES = (
     ("smollm-360m", 2, 15, 5, 256, 256, 64, True, None),
     ("qwen3-8b", 1, 32, 8, 192, 192, 128, True, None),
@@ -73,6 +79,11 @@ ATTN_CASES = (
     ("ragged", 1, 6, 2, 200, 200, 64, True, None),
     ("d80", 1, 4, 1, 130, 130, 80, True, None),
     ("tiny", 2, 4, 2, 16, 16, 16, True, None),
+    ("s129", 1, 4, 2, 129, 129, 64, True, None),
+    ("s1000-group8", 1, 8, 1, 1000, 1000, 64, True, None),
+    ("group1-d128", 2, 4, 4, 256, 256, 128, True, None),
+    ("d128-window", 1, 8, 2, 300, 300, 128, True, 100),
+    ("noncausal-d128", 1, 4, 2, 70, 200, 128, False, None),
 )
 
 
@@ -113,6 +124,46 @@ def test_flash_attention_bwd_matches_plain(card, case, dtype):
         assert torch.equal(a, b)
 
 
+def _off16_view(t):
+    """``t``'s values in a (B, H, S, D) view whose S stride is D + 4
+    elements: off 16 bytes in bf16."""
+    B, H, S, D = t.shape
+    wide = torch.zeros((B, H, S, D + 4), dtype=t.dtype, device=t.device)
+    wide[..., :D] = t
+    return wide[..., :D]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["transposed", "off16"])
+def test_flash_attention_bwd_dout_views(card, layout):
+    """dO as the model's transposed view (read as it lies) and with strides
+    off 16 bytes (copied first): the kernels run and match plain."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(5)
+    B, Hq, Hkv, S, D = 2, 6, 2, 200, 64
+    q = _randn(gen, (B, Hq, S, D), bf, card)
+    k = _randn(gen, (B, Hkv, S, D), bf, card)
+    v = _randn(gen, (B, Hkv, S, D), bf, card)
+    g = _randn(gen, (B, Hq, S, D), bf, card)
+    view = (g.transpose(1, 2).contiguous().transpose(1, 2)
+            if layout == "transposed" else _off16_view(g))
+    assert torch.equal(view, g)
+    assert (fa._tma_operand(view) is view) == (layout == "transposed")
+    out, lse = fa._forward(q, k, v, True, None, None, with_lse=True)
+    n = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, view)
+    assert fa.LAUNCHES["flash_attention_bwd"] == n + 1
+    want = _attn_grads(q, k, v, g, ref.flash_attention_bf16p_ref)[1:]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_l2(a, b) < REL[bf], (name, _rel_l2(a, b))
+    again = fa.flash_attention_bwd(q, k, v, out, lse, view)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    base = fa.flash_attention_bwd(q, k, v, out, lse, g.contiguous())
+    for a, b in zip(got, base):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -128,11 +179,18 @@ def test_flash_attention_dead_rows_give_zero_gradients(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("rows,D", [(2048, 960), (512, 4096), (37, 64),
-                                    (5, 13), (1, 960)])
-def test_rmsnorm_bwd_matches_plain(card, rows, D, dtype):
+@pytest.mark.parametrize("rows,D,offset", [
+    (2048, 960, 0), (512, 4096, 0), (37, 64, 0), (5, 13, 0), (1, 960, 0),
+    # each form's D (scalar 13; lane groups 64; row groups of 1, 4 and 8
+    # warps in bf16, 2, 8 and 16 in float32) at row counts that are not
+    # a multiple of the rows a block walks
+    (1001, 13, 0), (3001, 64, 0), (16385, 960, 0), (2049, 4096, 0),
+    (777, 8192, 0),
+    # a view with a storage offset (off 16 bytes: the scalar form)
+    (300, 960, 1), (300, 64, 1)])
+def test_rmsnorm_bwd_matches_plain(card, rows, D, offset, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
-    x = _randn(gen, (rows, D), dtype, card)
+    x = _randn(gen, (rows * D + offset,), dtype, card)[offset:].view(rows, D)
     w = (1.0 + 0.1 * torch.randn(D, generator=gen, device=card)).to(dtype)
     g = _randn(gen, (rows, D), dtype, card)
 
@@ -150,6 +208,12 @@ def test_rmsnorm_bwd_matches_plain(card, rows, D, dtype):
         assert a.dtype == b.dtype, name
         assert _rel_l2(a, b) < REL[dtype], (name, _rel_l2(a, b))
     for a, b in zip(got, grads(rn.rmsnorm)):
+        assert torch.equal(a, b)
+    # the wrapper on x itself (autograd's leaf is an aligned clone)
+    direct = rn.rmsnorm_bwd(x, w, g)
+    for name, a, b in zip(("dx", "dw"), direct, want[1:]):
+        assert _rel_l2(a, b) < REL[dtype], (name, _rel_l2(a, b))
+    for a, b in zip(direct, rn.rmsnorm_bwd(x, w, g)):
         assert torch.equal(a, b)
 
 
@@ -242,6 +306,25 @@ def test_attention_bwd_formulas_match_autograd(case):
                                  window=window)
     for a, b in zip(got, (dq, dk, dv)):
         assert _rel_l2(a, b) < 1e-5
+
+
+def test_tma_operand_copies_only_what_tma_cannot_read():
+    """The bf16 backward's dO and out: the model's transposed view is read
+    as it lies; strides or a base off 16 bytes, or a strided last axis, are
+    copied to a contiguous tensor."""
+    bf = torch.bfloat16
+    g = torch.randn(2, 6, 200, 64).to(bf)
+    transposed = g.transpose(1, 2).contiguous().transpose(1, 2)
+    assert fa._tma_ready(g) and fa._tma_ready(transposed)
+    assert fa._tma_operand(transposed) is transposed
+    flat = torch.empty(g.numel() + 1, dtype=bf)
+    offset = flat[1:].view(g.shape).copy_(g)
+    for t in (_off16_view(g), offset, g.transpose(2, 3).contiguous()
+              .transpose(2, 3)):
+        assert not fa._tma_ready(t)
+        c = fa._tma_operand(t)
+        assert c.is_contiguous() and c.data_ptr() != t.data_ptr()
+        assert fa._tma_ready(c) and torch.equal(c, t)
 
 
 def test_rmsnorm_bwd_formula_matches_autograd():
