@@ -156,12 +156,14 @@ Phases, in order:
    dirty set (the warm split, no PGD launch). The composed makespan's
    reverse pass, ``compose_grads`` (``csrc/compose.cu``, launched once per
    composed refine step; its launches counted with the path's), is held
-   against its plain version (``compose_structure`` and autograd, on the
-   card) at the refine shape of both solves (their survivors, the stage
-   moments of their starts at T=256) and on a 24-way join with three sinks,
-   each timed beside its bound; the refine step's host and device cost is
-   measured with the kernel and with the plain composition (before and
-   after). Last, ``dag_scale.check_gates``: the reference's four gates
+   bit for bit against its plain version (``compose_structure`` and
+   autograd, on the card) at the refine shape of both solves (their
+   survivors, the stage moments of their starts at T=256), at the scale
+   point with 20 starts and on a 24-way join with three sinks, each timed
+   beside its bound and its chain estimate; the refine step's host and
+   device cost (one complete profiled window, the device time split into
+   the adjoint, ``compose_grads`` and the rest) is measured with the
+   kernel and with the plain composition (before and after). Last, ``dag_scale.check_gates``: the reference's four gates
    (one batched path, improvement >= 0.088%, joint/greedy wall clock
    <= 1.0, a 512-stage scale point); the phase fails if any fails.
 16. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
@@ -252,12 +254,14 @@ Phases, in order:
    RECORD_MAX_POINTS grid points that the run launched (the policy loops'
    solves) held as in ``group``; its sweep section runs in ``sweep``. The
    auto-family tick scores on the card (``family_score``,
-   ``csrc/family_score.cu``, counted); the kernel is held against the
-   numpy at the tick's K=1024, N=96 history and on windows with every edge
-   case (below min_obs, all masked, nonpositive rates, zero variance, a
-   singular drift regression, a negative slope; N = 12, 96, 128), with the
-   relative BIC margin of each winner over its runner-up, and timed beside
-   its bound and the numpy's host time. Then
+   ``csrc/family_score.cu``, counted); the kernel is held bit for bit
+   against the numpy at the tick's K=1024, N=96 history and on windows
+   with every edge case (below min_obs, all masked, nonpositive rates, zero
+   variance, a singular drift regression, a negative slope; N = 12, 96,
+   128, 4096, and K = 1025 for a ragged last block), with the relative BIC
+   margin of each winner over its runner-up, and timed (its two launches
+   apart) beside its bound, its chain estimate and the numpy's host
+   time. Then
    ``cluster_scale.check_gates``: the phase fails if the auto-family tick
    costs more than 1.2x the fixed one.
 24. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
@@ -337,10 +341,9 @@ DeepSeek-V2-Lite: every layer's update and end to end at full depth; the
 zoo's prefills and decode steps end to end). The
 workflow DAG: the card's composed makespan against the plain path's on the
 CPU, mu 1e-4 and var 1e-3 relative; ``compose_grads`` against its plain
-version on the card, losses 1e-6 relative and each gradient 1e-5 relative
-L2. ``family_score`` against the numpy: the winner and the channel count
-equal, the BICs 1e-6, rho 1e-9 and the mixture's parameters 1e-5
-relative.
+version on the card bit for bit (losses and both gradients), and
+``family_score`` against the numpy bit for bit (the winner, the channel
+count, the BICs, rho and the mixture), each also against a second call.
 
 Any failure exits non-zero. Without a card, or without the repository's
 ``src/`` beside this script, it fails before printing a result. The line
@@ -417,22 +420,37 @@ PORT_KERNELS = {
     "family_score": ("src/repro_torch/csrc/family_score.cu",
                      "src/repro/core/bayes.py:247"),
 }
-# compose_grads against its plain version on the card: the losses
-# (relative) and each gradient (relative L2)
-COMPOSE_TOL = (1e-6, 1e-5)
-# family_score against the numpy: relative, per output
-FAMILY_TOL = {"bics": 1e-6, "rho": 1e-9, "gmm": 1e-5}
 # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12
 # Work of one Clark fold step of compose_grads, forward and reverse,
 # counted from csrc/compose.cu: square roots, divisions, erf and exp on
 # the special function units, and float32 operations.
-COMPOSE_FOLD = {"special": 13, "fp32": 95}
+COMPOSE_FOLD = {"special": 12, "fp32": 85}
 # Work of family_score per (sample, channel), from csrc/family_score.cu:
 # per EM iteration and component an exp and a division plus ~12 float32
 # operations; once, ~30 float64 operations and two logs.
 FAMILY_EM = {"special": 2, "fp32": 12}
 FAMILY_ONCE = {"special": 2, "fp64": 30}
+# The dependency chains of those two kernels, in SM cycles a step: an
+# estimate for the log, not a measurement, counted
+# from their sources at ~4 cycles a dependent float32 operation, ~8 a
+# float64 add, ~30 a shared-memory load, ~40 an IEEE division or square
+# root, ~70 erf and ~35 exp (latencies, not issue rates), read at the
+# card's maximum SM clock (CARD). compose_grads: the staging copy (one
+# device-memory latency); a round of a level's lanes, each way (dependent
+# shared loads and an add); a fold step forward (two square roots, a
+# division, erf, the moments) and backward (two divisions on the var
+# cotangent's path); each cotangent source summed. family_score, a warp:
+# the staging copy; its three float64 ordered sums of N; a bisection round
+# (a lane's keys, three warp reductions); an EM iteration (a lane's
+# E-step samples, the M-step's N float32 adds, the update and its logs);
+# the sort and the writes.
+CHAIN_CYCLES = {"stage": 1500, "round": 150, "fold_fwd": 280,
+                "fold_bwd": 185, "add32": 4, "add64": 8, "e_sample": 250,
+                "em_update": 250, "bisect": 120, "final": 500}
+# the card's maximum SM clock (nvidia-smi clocks.max.sm; the card phase
+# reads it; H100 SXM 1980 MHz)
+CARD = {"sm_hz": 1.98e9}
 
 
 def log(*a):
@@ -446,6 +464,16 @@ def phase_card(ctx):
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     ctx["smi"] = smi.stdout.strip().splitlines()[0]
     log(f"[card] {ctx['smi']}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    try:
+        mx, now = (float(v) for v in clk.stdout.splitlines()[0].split(","))
+        CARD["sm_hz"] = 1e6 * mx
+        log(f"[card] SM clock max {mx:.0f} MHz, now {now:.0f} MHz")
+    except (ValueError, IndexError):
+        log(f"[card] SM clock not read ({clk.stdout.strip()!r}); chain "
+            f"estimates at {CARD['sm_hz'] / 1e6:.0f} MHz")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
 
@@ -2383,13 +2411,12 @@ def _device_diag(prof):
     return out
 
 
-def _device_ms(fn, reps=20, expect=None):
-    """Device milliseconds per call of ``fn`` under torch.profiler: the sum
-    of the device time of every kernel it launches over ``reps`` calls,
-    divided by ``reps``; the host's launch path is not in it. The window
-    counts only when it holds a device activity for every launch call the
-    profiler saw on the host (and, with ``expect`` = (name part, launches a
-    call), that kernel's launches exactly). Once a run has profiled a
+def _device_window(fn, reps=20, expect=None):
+    """Device microseconds by kernel name of ``reps`` calls of ``fn`` under
+    torch.profiler, from a complete window; the host's launch path is not
+    in it. The window counts only when it holds a device activity for every
+    launch call the profiler saw on the host (and, with ``expect`` = (name
+    part, launches a call), that kernel's launches exactly). Once a run has profiled a
     while, a window loses the device records of its first launches
     (kineto's raw result holds fewer than the launch calls, the last one
     always present: in a whole run 1 to 27 a window from the serving phases
@@ -2426,11 +2453,23 @@ def _device_ms(fn, reps=20, expect=None):
             ok = ok and sum(e.count for e in dev
                             if part in e.key) == per_call * reps
         if ok:
-            return total / 1e3 / reps
+            by_name = {}
+            for e in dev:
+                by_name[e.key] = (by_name.get(e.key, 0.0)
+                                  + e.self_device_time_total)
+            return by_name
         log(f"[device] incomplete window {window} of {DEVICE_WINDOWS}: "
             f"{seen} device activities for {calls} launch calls; "
             f"{_device_diag(prof)}")
     return None
+
+
+def _device_ms(fn, reps=20, expect=None):
+    """Device milliseconds per call of ``fn``: the sum of the device time
+    of every kernel it launches over ``reps`` calls (``_device_window``),
+    divided by ``reps``; None when no window was complete."""
+    by_name = _device_window(fn, reps, expect)
+    return None if by_name is None else sum(by_name.values()) / 1e3 / reps
 
 
 def _ssd_blocks(B, H, P, N, groups):
@@ -2597,13 +2636,13 @@ def _plain_composition():
 def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
     """Host and device milliseconds of one composed refine step at the
     solver's refine shape (``survivors`` starts, ``steps`` steps on the host
-    clock, ``prof_steps`` under torch.profiler), the composition's own host
-    time, and the torch operations of a step; under
+    clock, ``prof_steps`` in one complete profiled window,
+    ``_device_window``): the device time split into the adjoint (the
+    frontier gradient kernels), ``compose_grads`` and the rest; the
+    composition's own host time, and the torch operations of a step; under
     ``_plain_composition`` the step before the kernel."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import compose
     from repro_torch.workflow import solve as wsolve
     dev = torch.device("cuda")
@@ -2620,55 +2659,58 @@ def _refine_step_cost(tag, dag, survivors, num_t, steps=20, prof_steps=4):
                                  1e-6, n, n, num_t, True, lr=0.005,
                                  warmup=n // 2)
 
-    run(2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(steps)
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(prof_steps)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_total = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA)
-    kern_total = sum(e.self_device_time_total for e in events
-                     if e.device_type == DeviceType.CUDA
-                     and "frontier_grad" in e.key)
-    with _OpCount() as ops_all:
-        run(1)
     smu = torch.rand((survivors, S), device=dev) * 10 + 5
     svar = torch.rand((survivors, S), device=dev) + 0.1
     enc = stacks.compose
-    wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
+    n = compose.LAUNCHES["compose_grads"]
+    with _OpCount() as ops_compose:
+        wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
+    path = "kernel" if compose.LAUNCHES["compose_grads"] > n else "plain"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
         wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
     torch.cuda.synchronize()
     compose_ms = 1e3 * (time.perf_counter() - t0) / 5
-    n = compose.LAUNCHES["compose_grads"]
-    with _OpCount() as ops_compose:
-        wsolve._compose_grads(dag.structure, smu, svar, 0.0, enc)
-    path = "kernel" if compose.LAUNCHES["compose_grads"] > n else "plain"
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / steps
+    by_name = _device_window(
+        lambda: run(prof_steps), reps=1,
+        expect=("compose_grads", prof_steps) if path == "kernel" else None)
+
+    def per_step(part=""):
+        if by_name is None:
+            return None
+        return sum(us for k, us in by_name.items()
+                   if part in k) / 1e3 / prof_steps
+
+    with _OpCount() as ops_all:
+        run(1)
+    total, adj, comp = (per_step(), per_step("frontier_grad"),
+                        per_step("compose_grads"))
     out = {"tag": tag, "composition": path, "stages": S,
            "survivors": survivors, "host_ms_per_step": host_ms,
-           "device_ms_per_step": (dev_total / 1e3 / prof_steps
-                                  if dev_total else None),
-           "kernel_device_ms_per_step": (kern_total / 1e3 / prof_steps
-                                         if kern_total else None),
+           "device_ms_per_step": total,
+           "kernel_device_ms_per_step": adj,
+           "compose_device_ms_per_step": comp,
+           "rest_device_ms_per_step": (None if total is None
+                                       else total - adj - comp),
            "compose_host_ms": compose_ms,
            "ops_per_step": ops_all.n, "compose_ops": ops_compose.n}
+
     def fmt(x):
-        return "not measured" if x is None else f"{x:.3f} ms"
+        return "not measured" if x is None else f"{x:.4f} ms"
 
     log(f"[dag] {tag} refine step, {path} composition ({survivors} starts x "
         f"{S} stages, T={num_t}): host {host_ms:.2f} ms, device "
-        f"{fmt(out['device_ms_per_step'])} (adjoint "
-        f"{fmt(out['kernel_device_ms_per_step'])})"
-        + f"; {ops_all.n} torch ops a step, of which the composition and "
-        f"its gradient {ops_compose.n} ({compose_ms:.2f} ms host)")
+        f"{fmt(total)} (adjoint {fmt(adj)}, compose_grads {fmt(comp)}, the "
+        f"rest {fmt(out['rest_device_ms_per_step'])}); {ops_all.n} torch ops "
+        f"a step, of which the composition and its gradient "
+        f"{ops_compose.n} ({compose_ms:.2f} ms host)")
     return out
 
 
@@ -2784,10 +2826,35 @@ def _compose_bound(structure, R):
         (1e3 * t_ops, "operations")
 
 
+def _compose_chain_ms(structure):
+    """compose_grads' dependency chain a row (CHAIN_CYCLES), ms: the
+    staging copy, each level's rounds of lanes both ways, every fold step
+    forward and back, the longest cotangent sum."""
+    import numpy as np
+    from repro_torch.kernels import compose
+    a = compose.encode_arrays(structure)
+    c = CHAIN_CYCLES
+    rounds = sum(-(-int(n) // 32) for n in np.diff(a.lvl_off))
+    refs = max(np.diff(a.mref_off).max(initial=0)
+               + np.diff(a.vref_off).max(initial=0), 0)
+    cycles = (c["stage"] + 2 * rounds * c["round"]
+              + a.n_steps * (c["fold_fwd"] + c["fold_bwd"])
+              + int(refs) * c["add32"])
+    return 1e3 * cycles / CARD["sm_hz"]
+
+
+def _bits_equal(a, b):
+    """Bit for bit (float32): the same words, signed zeros and NaNs too."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def _compose_hold(tag, structure, smu, svar, lam, fails):
     """``compose_grads`` on the card against its plain version on the
-    card, twice (the bits repeat), with its event-pair, device and host
-    time, the plain version's time and the bound."""
+    card, bit for bit, twice (the bits repeat), with its event-pair, device
+    and host time, the plain version's time, the bound, the chain estimate
+    and the plan's shared memory."""
     import numpy as np
     import torch
     from repro_torch.kernels import compose
@@ -2807,31 +2874,33 @@ def _compose_hold(tag, structure, smu, svar, lam, fails):
     loss_rel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
     g_rel = [_rel_l2(g, w) for g, w in zip(got[1:], want[1:])]
     max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
-    ok = (all(bool(torch.isfinite(t).all()) for t in got)
-          and all(torch.equal(a, b) for a, b in zip(got, again))
-          and loss_rel <= COMPOSE_TOL[0] and max(g_rel) <= COMPOSE_TOL[1])
+    bitwise = all(_bits_equal(g, w) for g, w in zip(got, want))
+    ok = (bitwise and all(bool(torch.isfinite(t).all()) for t in got)
+          and all(_bits_equal(a, b) for a, b in zip(got, again)))
     ms = _time_cuda(kern, reps=7)
-    dev_ms = _device_ms(kern, reps=10)
+    dev_ms = _device_ms(kern, reps=10, expect=("compose_grads", 1))
     host_ms = _host_ms(kern, reps=50)
     plain_ms = _time_cuda(plain, reps=3, warm=1)
     bound_ms, by = _compose_bound(structure, R)
-    label = (f"{tag} R={R} S={S} fold steps "
-             f"{compose.encode_arrays(structure)[4]} lam={lam}")
+    chain_ms = _compose_chain_ms(structure)
+    label = f"{tag} R={R} S={S} fold steps {enc.n_steps} lam={lam}"
     log(f"[dag] compose_grads {label}: losses rel {loss_rel:.1e}, gradients "
         f"rel L2 {g_rel[0]:.1e} / {g_rel[1]:.1e}, max|err| {max_abs:.2e}"
-        + (" (bitwise)" if bitwise else "") + ("  ok" if ok else "  FAIL")
+        + (" (bitwise, repeats)" if ok else "  FAIL")
         + f"; kernel {ms:.4f} ms (device "
         + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
         + f", host {host_ms:.4f}) plain {plain_ms:.3f} ms bound "
-        f"{bound_ms:.3e} ms ({by})")
+        f"{bound_ms:.3e} ms ({by}) chain estimate {chain_ms:.4f} ms; shared "
+        "memory "
+        + (f"{enc.smem} B a block" if enc.smem else
+           f"none (a {4 * enc.floats} B workspace a row)"))
     if not ok:
         fails.append(f"compose_grads {label}")
     return {"tag": tag, "R": R, "S": S, "lam": lam, "loss_rel": loss_rel,
             "grad_rel_l2": g_rel, "max_abs_err": max_abs, "bitwise": bitwise,
             "ok": ok, "ms": ms,
             "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+            "bound_ms": bound_ms, "bound_by": by, "smem": enc.smem}
 
 
 def _port_launches():
@@ -2940,12 +3009,14 @@ def phase_dag(ctx):
             rungs.append(_dag_rung_check(tag, d, phase, mode, R, T, fails))
 
     # the composition's kernel against its plain version at the refine
-    # shapes of both solves and on a wide join with several sinks
+    # shapes of both solves, the scale point at the solver's 20 starts, and
+    # on a wide join with several sinks
     composes = []
     for tag, d, R, T in (("S=32", dag, j["profile"]["survivors"],
                           res["num_t"]),
                          ("S=512", big, sc["profile"]["survivors"],
-                          sc["num_t"])):
+                          sc["num_t"]),
+                         ("S=512", big, 20, sc["num_t"])):
         smu, svar = _refine_inputs(d, R, T)
         for lam in (0.0, 0.05):
             composes.append(_compose_hold(tag, d.structure, smu, svar, lam,
@@ -4074,7 +4145,9 @@ def _family_windows():
     from repro_torch.bench import cluster_scale as cs
     _, mus, _ = cs._tick_problem(cs.TICK_K, 1, device="cpu")
     yield "tick K=1024 N=96", cs.auto_history(mus.numpy(), 96)
-    for N, K in ((12, 8), (96, 64), (128, 256)):
+    # the plan's edges besides: the longest window (one channel a block)
+    # and a ragged last block
+    for N, K in ((12, 8), (96, 64), (128, 256), (4096, 9), (96, 1025)):
         yield f"edges K={K} N={N}", _edge_window(N, K, seed=N + K)
 
 
@@ -4093,10 +4166,25 @@ def _family_bound(N, K):
         (1e3 * t_ops, "operations")
 
 
+def _family_chain_ms(N):
+    """family_score's dependency chain a warp (CHAIN_CYCLES), ms: the
+    staging copy, three float64 ordered sums of N, 32 bisection rounds, 16
+    EM iterations (a lane's E-step samples, the M-step's N adds, the
+    update), the sort and the writes."""
+    c = CHAIN_CYCLES
+    per_lane = -(-N // 32)
+    cycles = (c["stage"] + 3 * N * c["add64"] + 32 * c["bisect"]
+              + 16 * (per_lane * c["e_sample"] + N * c["add32"]
+                      + c["em_update"]) + c["final"])
+    return 1e3 * cycles / CARD["sm_hz"]
+
+
 def _family_hold(tag, window, fails):
     """``score_families`` on the card (the family_score kernel) against the
-    numpy on the host, twice (the bits repeat), with the winner's relative
-    BIC margin, the kernel's time, the numpy's host time and the bound."""
+    numpy on the host, bit for bit, twice (the bits repeat), with the
+    winner's relative BIC margin, the kernel's time (its two launches
+    apart), the numpy's host time, the bound, the chain estimate and the
+    launch plan."""
     import numpy as np
     import torch
     from repro_torch.bench import cluster_scale as cs
@@ -4120,19 +4208,27 @@ def _family_hold(tag, window, fails):
                   + [float(np.max(np.abs(got.rho - want.rho)))]
                   + [float(np.max(np.abs(g - w)))
                      for g, w in zip(got.gmm, want.gmm)])
-    ok = (got.winner == want.winner and got.n_channels == want.n_channels
-          and max(rel.values()) <= FAMILY_TOL["bics"]
-          and np.array_equal(got.rho == 0, want.rho == 0)
-          and rho_rel <= FAMILY_TOL["rho"] and gmm_rel <= FAMILY_TOL["gmm"]
-          and again.bics == got.bics
-          and all(np.array_equal(a, b) for a, b in zip(again.gmm, got.gmm)))
+
+    def same(x, y):
+        return (x.winner == y.winner and x.n_channels == y.n_channels
+                and x.bics == y.bics and np.array_equal(x.rho, y.rho)
+                and all(a.dtype == b.dtype and np.array_equal(a, b)
+                        for a, b in zip(x.gmm, y.gmm)))
+
+    ok = same(got, want) and same(again, got)
     margin = cs.bic_margin(want.bics)
 
     def kern():
         return fs.family_score(*hist, min_obs=8, max_rho=8.0)
 
     ms = _time_cuda(kern, reps=7)
-    dev_ms = _device_ms(kern, reps=10)
+    by_name = _device_window(kern, reps=10)
+    dev_ms = chan_ms = None
+    if by_name is not None:
+        dev_ms = sum(by_name.values()) / 1e3 / 10
+        chan_ms = sum(us for k, us in by_name.items()
+                      if "family_channel" in k) / 1e3 / 10
+    host_ms = _host_ms(kern, reps=20)
     t_plain = []
     for _ in range(5):
         t1 = time.perf_counter()
@@ -4140,21 +4236,33 @@ def _family_hold(tag, window, fails):
         t_plain.append(1e3 * (time.perf_counter() - t1))
     plain_ms = sorted(t_plain)[2]
     bound_ms, by = _family_bound(N, K)
+    chain_ms = _family_chain_ms(N)
+    cpb, blocks, smem = fs.launch_plan(N, K)
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
     log(f"[cluster] family_score {tag}: winner {got.winner} (numpy "
         f"{want.winner}), channels {got.n_channels}/{want.n_channels}, BIC "
         f"rel " + " ".join(f"{f} {r:.1e}" for f, r in rel.items())
         + f", rho rel {rho_rel:.1e}, mixture rel {gmm_rel:.1e}; margin "
-        f"{margin:.3e}" + ("  ok" if ok else "  FAIL")
-        + f"; kernel {ms:.4f} ms (device "
-        + (f"{dev_ms:.4f}" if dev_ms is not None else "not measured")
-        + f") numpy (host) {plain_ms:.3f} ms bound {bound_ms:.3e} ms ({by})")
+        f"{margin:.3e}" + ("  (bitwise, repeats)" if ok else "  FAIL")
+        + f"; kernel {ms:.4f} ms (device {fmt(dev_ms)}: channels "
+        f"{fmt(chan_ms)}, reduce "
+        f"{fmt(None if dev_ms is None else dev_ms - chan_ms)}; host "
+        f"{host_ms:.4f}) numpy (host) {plain_ms:.3f} ms bound "
+        f"{bound_ms:.3e} ms ({by}) chain estimate {chain_ms:.4f} ms; {cpb} "
+        f"channels "
+        f"a block, {blocks} blocks, {smem} B shared memory a block")
     if not ok:
         fails.append(f"family_score {tag}")
     return {"tag": tag, "N": N, "K": K, "winner": got.winner,
             "bic_rel": rel, "rho_rel": rho_rel, "gmm_rel": gmm_rel,
             "bic_margin": margin, "max_abs_err": max_abs, "ok": ok,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+            "ms": ms, "device_ms": dev_ms, "channel_device_ms": chan_ms,
+            "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "plan": [cpb, blocks, smem]}
 
 
 def phase_cluster(ctx):
@@ -5501,7 +5609,9 @@ def main(argv=None):
             "library_ms": r.get("library_ms"),
             "library_dev_ms": r.get("library_dev_ms")})
     # the port's kernels with no Pallas counterpart: compose_grads at the
-    # 32-stage refine shape, family_score at the fleet tick's history
+    # 32-stage refine shape, family_score at the fleet tick's history, each
+    # with its device time (the chain estimates stay in the log: they are
+    # not measured)
     port_paths = {p: ctx[k] for p, k in (
         ("dag", "dag_port_launches"), ("wfloop", "wfloop_port_launches"),
         ("chaos", "chaos_port_launches"), ("trace", "trace_port_launches"),
@@ -5516,7 +5626,8 @@ def main(argv=None):
             "launches": sum(by_path.values()) if by_path else None,
             "launches_by_path": by_path,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-            "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+            "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
+            "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": None})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"smi": ctx.get("smi"), "kernels": kernels,

@@ -29,18 +29,26 @@
 // a fixed tree order of their own (float64; numpy sums them pairwise over
 // the flattened window).
 //
-// What bounds it: operations on one SM's latency, not bytes. The window is
+// What bounds it: one warp's latency, not bytes or operations. The window is
 // 3 N K float64 (2.4 MB at N = 96, K = 1024); each channel runs 16 EM
 // iterations of 3 components over its N samples (an exp and a log a sample
 // and component, ~3 N K C 16 = 14e6 float32 operations at the tick), so
-// the card's bound is microseconds. The cost that matters is the host's:
-// the numpy pass took ~41-46 ms a tick; here it is two launches and one
-// copy back. Design: one block per channel, the channel's window in
-// shared memory (44 N bytes); the E-step spreads samples over the block,
-// each of the M-step's 3 C sums over samples is one thread walking them in
-// order (the numpy's order), the starts rank each valid sample by counting
-// in shared memory. A second launch (one block) sums the channels. No
-// atomics: the result depends on the inputs alone.
+// the card's bound is microseconds; what is left is the chains of ordered
+// sums (N dependent adds each) and the EM's 16 rounds. Design: one warp a
+// channel, several channels a block (kernels/family_score.py launch_plan:
+// as many as fit shared memory at 52 N bytes a channel, up to 8; 1 at
+// N = 4096). The block copies its channels' windows as one box with
+// cp.async, neighbouring channels of an observation in neighbouring
+// words; per-sample terms (the float64 logs, mask * (r > 0), the
+// E-step's responsibilities times 1, x and x x) are computed once across
+// lanes into shared memory; the channel's independent ordered sums run
+// side by side, one a lane (the 8 first-order sums, the 3 second-order
+// ones, the M-step's 9), each lane forming its next eight terms before
+// adding them in order; the starts' ranks by bisection on
+// order-preserving keys (32 rounds of counts, not N^2 compares); warp
+// barriers only. A second launch (one
+// block) sums the channels. No atomics: the result depends on the inputs
+// alone.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -48,7 +56,10 @@ namespace {
 
 constexpr int kC = 3;               // EMP_COMPONENTS
 constexpr int kIters = 16;          // _em_batch's iterations
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;           // channels a block at most
+constexpr int kAhead = 8;           // terms of an ordered sum formed ahead
+constexpr int kSmemMax = 232448;    // a block's opt-in maximum
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kReduceThreads = 256;
 constexpr int kHead = 8;            // bics (4), n_channels, unused (3)
 constexpr int kMaxN = 4096;
@@ -73,12 +84,12 @@ __device__ __forceinline__ double npmin(double a, double b) {
 // so the kernel computes the numpy's bits rather than CUDA's expf/logf.
 // exp: x = q ln2 + r with q = rint(x log2(e)) (Cody-Waite in two fused
 // steps), exp(r) as a rational minimax polynomial (5/2, Horner with fused
-// multiply-adds), scaled by 2^q; log: x = m 2^k with m in (sqrt(1/2),
-// sqrt(2)], log(m) as a rational polynomial (5/5) in m - 1, plus k ln2.
+// multiply-adds), scaled by 2^q as two powers of two (the first product is
+// exact, the second rounds once, as ldexpf does); the special cases are
+// selected, not branched to, so the lanes of a warp stay together. log:
+// x = m 2^k with m in (sqrt(1/2), sqrt(2)], log(m) as a rational polynomial
+// (5/5) in m - 1, plus k ln2.
 __device__ __forceinline__ float np_expf(float x) {
-  if (x != x) return x;
-  if (x >= 88.72283935546875f) return INFINITY;
-  if (x <= -103.97208404541015625f) return 0.f;
   float q = x * 1.44269502162933349609375f;      // log2(e) as float32
   q = (q + 12582912.f) - 12582912.f;            // rint, 1.5 * 2^23
   float r = fmaf(q, -6.93145752e-1f, x);
@@ -92,7 +103,16 @@ __device__ __forceinline__ float np_expf(float x) {
   float den = fmaf(2.159509375685829852307e-02f, r,
                    -2.742335390411667452936e-01f);
   den = fmaf(den, r, 1.f);
-  return ldexpf(num / den, (int)q);
+  // q is in [-150, 128] where the result is taken; both halves of it then
+  // give normal powers of two
+  const int e = (int)fminf(fmaxf(q, -150.f), 128.f);
+  const int h = e / 2;
+  const float p = ((num / den) * __int_as_float((h + 127) << 23))
+                  * __int_as_float((e - h + 127) << 23);
+  return (x != x) ? x
+                  : (x >= 88.72283935546875f
+                         ? INFINITY
+                         : (x <= -103.97208404541015625f ? 0.f : p));
 }
 
 __device__ __forceinline__ float np_logf(float x) {
@@ -152,198 +172,324 @@ __device__ double pairwise_sum(const double* x, int n) {
   return pairwise_sum(x, n2) + pairwise_sum(x + n2, n - n2);
 }
 
-struct ChannelShared {
-  double okf, n_all;
-  double s[8];        // n, sum r m, n_ln, sum logs m_ln, jac, sw, sww, swr
-  double mean, mean_ln, a, b, var, var_ln, var_d;
-  float n32, sx32, mean32, var32;
-  float nf, floor32;
-  int q[kC];
-  float qval[kC];
-  float mu[kC], var_c[kC], pi[kC], lv[kC], lp[kC];
-  float sums[kC][3];
-  double ll;
+// cp.async of one float64 from device to shared memory
+__device__ __forceinline__ void copy8(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// ones in shared memory: the factor a lane reads at a stride of 0
+__shared__ float s_one;
+__shared__ double s_one_d;
+
+// A float32's rank key: the unsigned order of the keys is the float order
+// (-0 ranks as +0, every NaN last, as np.sort puts it); key_value inverts it
+__device__ __forceinline__ unsigned rank_key(float v) {
+  v = (v != v) ? NAN : v + 0.f;
+  const unsigned b = __float_as_uint(v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// One channel's window in shared memory, in floats from its base (8-byte
+// aligned; kernels/family_score.py window_of): float64 rows D = 16
+// ceil(N / 16) + 1 float64 apart and float32 rows P = 32 ceil(N / 32) + 1
+// floats apart, so that one sample of different rows falls in different
+// banks. The rates (at 0), the mask, then mask * ok (2 D), the float64
+// logs (4 D) and mask * (rate > 0) (6 D) are read up to the second-order
+// sums; the rank keys (at 0), then the nine rows of the M-step's products
+// (L P) take their place. Then the works, later the last E-step's ln L
+// terms (float64, at W), the rates and mask * ok as float32 (X, X + P).
+struct Win {
+  int D, P, W, X, total;
 };
+__host__ __device__ __forceinline__ Win window_of(int N) {
+  Win w;
+  w.D = 16 * ((N + 15) / 16) + 1;
+  w.P = 32 * ((N + 31) / 32) + 1;
+  const int dead = 9 * w.P > 8 * w.D ? 9 * w.P : 8 * w.D;
+  w.W = (dead + 1) & ~1;
+  w.X = w.W + 2 * w.D;
+  w.total = w.X + 2 * w.P;
+  return w;
+}
+__host__ __device__ __forceinline__ size_t channel_doubles(int N) {
+  return ((size_t)window_of(N).total + 1) / 2;
+}
 
-__global__ void __launch_bounds__(kThreads)
-family_channel_kernel(int N, int K, const double* __restrict__ rates,
-                      const double* __restrict__ works,
-                      const double* __restrict__ mask, double min_obs,
-                      double max_rho, double* __restrict__ terms,
-                      double* __restrict__ okv, double* __restrict__ out) {
-  extern __shared__ double smem[];
-  double* sr = smem;            // rates (N)
-  double* sw = sr + N;          // works, then the E-step's ln L terms
-  double* sm = sw + N;          // mask * ok
-  float* x = reinterpret_cast<float*>(sm + N);  // rates as float32
-  float* m32 = x + N;                           // mask * ok as float32
-  float* rr = m32 + N;                          // (C, N) responsibilities
-  __shared__ ChannelShared cs;
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
+// One channel, one warp, over its window (Win).
+// Every sum over observations is one lane's chain in observation order;
+// where a sum is needed by all lanes, every lane walks it (the same bits);
+// where lanes walk different sums at once, every lane runs the same loop
+// and selects its own term, so the warp never diverges, and the results
+// reach the other lanes by shuffles.
+__device__ void score_channel(int N, int K, int k, int lane, double* base,
+                              double min_obs, double max_rho,
+                              double* __restrict__ terms,
+                              double* __restrict__ okv,
+                              double* __restrict__ out) {
+  const Win win = window_of(N);
+  float* const fb = reinterpret_cast<float*>(base);
+  const double* sr = base;
+  double* sm = reinterpret_cast<double*>(fb + 2 * win.D);
+  double* lg = reinterpret_cast<double*>(fb + 4 * win.D);
+  double* mp = reinterpret_cast<double*>(fb + 6 * win.D);
+  double* sw = reinterpret_cast<double*>(fb + win.W);
+  float* x = fb + win.X;
+  float* m32 = x + win.P;
+  unsigned* key = reinterpret_cast<unsigned*>(fb);
+  // row L of the M-step's products: component L / 3's responsibilities
+  // times 1, x or x x (L % 3)
+  float* const prod = fb;
+  const int P = win.P;
 
-  for (int n = tid; n < N; n += kThreads) {
-    sr[n] = rates[(size_t)n * K + k];
-    sw[n] = works[(size_t)n * K + k];
-    sm[n] = mask[(size_t)n * K + k];
+  // per-sample terms across lanes: the rates as float32, the float64 logs
+  for (int n = lane; n < N; n += 32) {
+    const double r = sr[n];
+    x[n] = (float)r;
+    lg[n] = log(r > 0.0 ? r : 1.0);
   }
-  __syncthreads();
-  if (tid == 0) {
-    double s = 0.0;
-    for (int n = 0; n < N; ++n) s += sm[n];
-    cs.n_all = s;
-    cs.okf = s >= min_obs ? 1.0 : 0.0;
+  double n_all = 0.0;
+  {
+    int n = 0;
+    for (; n + kAhead <= N; n += kAhead) {
+      double t[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) t[u] = sm[n + u];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) n_all += t[u];
+    }
+    for (; n < N; ++n) n_all += sm[n];
   }
-  __syncthreads();
-  for (int n = tid; n < N; n += kThreads) {
-    sm[n] = sm[n] * cs.okf;
-    x[n] = (float)sr[n];
-    m32[n] = (float)sm[n];
+  const double okf = n_all >= min_obs ? 1.0 : 0.0;
+  __syncwarp();
+  for (int n = lane; n < N; n += 32) {
+    const double m = sm[n] * okf;
+    sm[n] = m;
+    m32[n] = (float)m;
+    mp[n] = m * (sr[n] > 0.0 ? 1.0 : 0.0);
   }
-  __syncthreads();
+  __syncwarp();
 
-  // first-order sums, one thread each, in observation order
-  if (tid < 8) {
-    double s = 0.0;
-    for (int n = 0; n < N; ++n) {
-      const double r = sr[n], w = sw[n], m = sm[n];
-      const double pos = r > 0.0 ? 1.0 : 0.0;
-      const double logs = log(r > 0.0 ? r : 1.0);
-      switch (tid) {
-        case 0: s += m; break;
-        case 1: s += r * m; break;
-        case 2: s += m * pos; break;
-        case 3: s += logs * (m * pos); break;
-        case 4: s += (-logs) * (m * pos); break;
-        case 5: s += w * m; break;
-        case 6: s += (w * w) * m; break;
-        default: s += (w * r) * m; break;
+  // first-order sums: lanes 0-7 the float64 n, sum r m, n_ln, sum logs
+  // m_ln, the Jacobian, sum w m, sum w w m, sum w r m; lanes 8, 9 the
+  // float32 n and sum x m. Lane j's term is sgn (A B) Q, its factors read
+  // from rows it picks here (a stride of 0 reads a one), so the loop body
+  // is the same in every lane and the warp never branches apart in it
+  const double* A = &s_one_d;
+  const double* B = &s_one_d;
+  const double* Q = sm;
+  int as = 0, bs = 0;
+  double sgn = 1.0;
+  if (lane == 1) {
+    A = sr;
+    as = 1;
+  }
+  if (lane == 3 || lane == 4) {
+    A = lg;
+    as = 1;
+  }
+  if (lane >= 5 && lane <= 7) {
+    A = sw;
+    as = 1;
+  }
+  if (lane == 6 || lane == 7) {
+    B = lane == 6 ? sw : sr;
+    bs = 1;
+  }
+  if (lane >= 2 && lane <= 4) Q = mp;
+  if (lane == 4) sgn = -1.0;
+  const float* F = lane == 9 ? x : &s_one;
+  const int fstep1 = lane == 9 ? 1 : 0;
+  double s = 0.0;
+  float f = 0.f;
+  {
+    // kAhead samples' terms first, then their adds in order
+    int n = 0;
+    for (; n + kAhead <= N; n += kAhead) {
+      double t[kAhead];
+      float g[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int i = n + u;
+        t[u] = sgn * ((A[i * as] * B[i * bs]) * Q[i]);
+        g[u] = F[i * fstep1] * m32[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        s += t[u];
+        f += g[u];
       }
     }
-    cs.s[tid] = s;
-  } else if (tid == 32) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s += m32[n];
-    cs.n32 = s;
-  } else if (tid == 33) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s += x[n] * m32[n];
-    cs.sx32 = s;
+    for (; n < N; ++n) {
+      s += sgn * ((A[n * as] * B[n * bs]) * Q[n]);
+      f += F[n * fstep1] * m32[n];
+    }
   }
-  __syncthreads();
-  if (tid == 0) {
-    const double n = cs.s[0], n_ln = cs.s[2];
-    cs.mean = cs.s[1] / npmax(n, 1.0);
-    cs.mean_ln = cs.s[3] / npmax(n_ln, 1.0);
-    // least squares rate = a + b w; a negative slope refits as b = 0
-    const double nw = n, sw_ = cs.s[5], sww = cs.s[6], sr_ = cs.s[1],
-                 swr = cs.s[7];
-    const double det = nw * sww - sw_ * sw_;
-    const bool det_ok = det > 1e-12 * npmax(nw * sww, 1e-300);
-    const double safe_det = det_ok ? det : 1.0;
-    const double bq = (nw * swr - sw_ * sr_) / safe_det;
-    cs.b = npmax(det_ok ? bq : 0.0, 0.0);
-    const double aq = (sr_ - cs.b * sw_) / npmax(nw, 1.0);
-    cs.a = nw > 0.0 ? aq : 1.0;
-    cs.mean32 = cs.sx32 / npmaxf(cs.n32, 1.f);
-  }
-  __syncthreads();
+  double sums[8];
+  for (int j = 0; j < 8; ++j) sums[j] = __shfl_sync(kFull, s, j);
+  const float n32 = __shfl_sync(kFull, f, 8);
+  const float sx32 = __shfl_sync(kFull, f, 9);
+  const double n_obs = sums[0], n_ln = sums[2];
+  const double mean = sums[1] / npmax(n_obs, 1.0);
+  const double mean_ln = sums[3] / npmax(n_ln, 1.0);
+  // least squares rate = a + b w; a negative slope refits as b = 0
+  const double nw = n_obs, sw_ = sums[5], sww = sums[6], sr_ = sums[1],
+               swr = sums[7];
+  const double det = nw * sww - sw_ * sw_;
+  const bool det_ok = det > 1e-12 * npmax(nw * sww, 1e-300);
+  const double safe_det = det_ok ? det : 1.0;
+  const double bq = (nw * swr - sw_ * sr_) / safe_det;
+  const double b = npmax(det_ok ? bq : 0.0, 0.0);
+  const double aq = (sr_ - b * sw_) / npmax(nw, 1.0);
+  const double a = nw > 0.0 ? aq : 1.0;
+  const float mean32 = sx32 / npmaxf(n32, 1.f);
 
-  // second-order sums about the means
-  if (tid < 3) {
-    double s = 0.0;
-    for (int n = 0; n < N; ++n) {
-      const double r = sr[n], m = sm[n];
-      if (tid == 0) {
-        const double d = r - cs.mean;
-        s += (d * d) * m;
-      } else if (tid == 1) {
-        const double pos = r > 0.0 ? 1.0 : 0.0;
-        const double d = log(r > 0.0 ? r : 1.0) - cs.mean_ln;
-        s += (d * d) * (m * pos);
-      } else {
-        const double res = r - (cs.a + cs.b * sw[n]);
-        s += (res * res) * m;
+  // second-order sums about the means: lanes 0-2 float64 (normal,
+  // lognormal, the drift residual), lane j's d = U - (c0 + c1 W) and term
+  // (d d) Q from rows it picks (c1 = 0 where the centre is a mean: the
+  // same d d); the float32 one in every lane
+  const double* U = lane == 1 ? lg : sr;
+  const double* W = lane == 2 ? sw : &s_one_d;
+  const int ws = lane == 2 ? 1 : 0;
+  const double c0 = lane == 0 ? mean : lane == 1 ? mean_ln : a;
+  const double c1 = lane == 2 ? b : 0.0;
+  const double* Q2 = lane == 1 ? mp : sm;
+  s = 0.0;
+  f = 0.f;
+  {
+    int n = 0;
+    for (; n + kAhead <= N; n += kAhead) {
+      double t[kAhead];
+      float g[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int i = n + u;
+        const double d = U[i] - (c0 + c1 * W[i * ws]);
+        t[u] = (d * d) * Q2[i];
+        const float d32 = x[i] - mean32;
+        g[u] = (d32 * d32) * m32[i];
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        s += t[u];
+        f += g[u];
       }
     }
-    if (tid == 0) cs.var = s / npmax(cs.s[0], 1.0);
-    else if (tid == 1) cs.var_ln = s / npmax(cs.s[2], 1.0);
-    else cs.var_d = s / npmax(cs.s[0], 1.0);
-  } else if (tid == 32) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float d = x[n] - cs.mean32;
-      s += (d * d) * m32[n];
+    for (; n < N; ++n) {
+      const double d = U[n] - (c0 + c1 * W[n * ws]);
+      s += (d * d) * Q2[n];
+      const float d32 = x[n] - mean32;
+      f += (d32 * d32) * m32[n];
     }
-    cs.var32 = s / npmaxf(cs.n32, 1.f);
   }
-  __syncthreads();
+  const double var = __shfl_sync(kFull, s, 0) / npmax(n_obs, 1.0);
+  const double var_ln = __shfl_sync(kFull, s, 1) / npmax(n_ln, 1.0);
+  const double var_d = __shfl_sync(kFull, s, 2) / npmax(n_obs, 1.0);
+  const float var32 = f / npmaxf(n32, 1.f);
 
-  if (tid == 0) {
-    const double okf = cs.okf, n = cs.s[0], n_ln = cs.s[2];
-    const double am = fabs(cs.mean) * 1e-6 + 1e-12;
-    const double floor = npmax(cs.var, am * am) * 1e-8;
-    const double logn = log(npmax(n, 2.0));
-    const double ll_n = gauss_ll(n, cs.var, floor);
-    const double ll_ln = (gauss_ll(n_ln, cs.var_ln, 1e-10) + cs.s[4])
-                         - 1e3 * npmax(n - n_ln, 0.0);
-    const double ll_d = gauss_ll(n, cs.var_d, floor);
+  const double logn = log(npmax(n_obs, 2.0));
+  if (lane == 0) {
+    const double am = fabs(mean) * 1e-6 + 1e-12;
+    const double floor = npmax(var, am * am) * 1e-8;
+    const double ll_n = gauss_ll(n_obs, var, floor);
+    const double ll_ln = (gauss_ll(n_ln, var_ln, 1e-10) + sums[4])
+                         - 1e3 * npmax(n_obs - n_ln, 0.0);
+    const double ll_d = gauss_ll(n_obs, var_d, floor);
     terms[0 * K + k] = (2.0 * logn - 2.0 * ll_n) * okf;
     terms[1 * K + k] = (2.0 * logn - 2.0 * ll_ln) * okf;
     terms[2 * K + k] = (3.0 * logn - 2.0 * ll_d) * okf;
-    const double rho = cs.a > 1e-12 ? (2.0 * cs.b) / npmax(cs.a, 1e-12) : 0.0;
+    const double rho = a > 1e-12 ? (2.0 * b) / npmax(a, 1e-12) : 0.0;
     out[kHead + k] = npmin(npmax(rho, 0.0), max_rho);
     okv[k] = okf;
     terms[4 * K + k] = logn;
-    // the mixture's starts (float32, as _em_batch)
-    const float n_valid = cs.n32;
-    const bool has_data = n_valid >= 1.f;
-    const float nf = npmaxf(n_valid, 1.f);
-    const float spread = npmaxf(sqrtf(cs.var32),
-                                npmaxf(fabsf(cs.mean32) * 1e-6f, 1e-12f));
-    const float fs = kVarFloorFrac * spread;
-    cs.floor32 = has_data ? fs * fs : 1.f;
-    cs.nf = nf;
-    const long long cap = (long long)nf - 1 > 0 ? (long long)nf - 1 : 0;
-    for (int c = 0; c < kC; ++c) {
-      long long q = (long long)((((double)c + 0.5) / kC) * (double)nf);
-      q = q < cap ? q : cap;
-      cs.q[c] = q < N ? (int)q : N - 1;
-      cs.qval[c] = INFINITY;
-      cs.var_c[c] = npmaxf(cs.var32 / (float)kC, cs.floor32);
-      cs.pi[c] = 1.f / (float)kC;
-    }
   }
-  __syncthreads();
-  // the q-th smallest valid sample, by rank (ties in index order, as a
-  // stable sort); invalid samples are +inf and rank last
-  for (int i = tid; i < N; i += kThreads) {
-    const float vi = m32[i] > 0.f ? x[i] : INFINITY;
-    int rank = 0;
-    for (int j = 0; j < N; ++j) {
-      const float vj = m32[j] > 0.f ? x[j] : INFINITY;
-      rank += (vj < vi) || (vj == vi && j < i);
-    }
-    for (int c = 0; c < kC; ++c)
-      if (rank == cs.q[c]) cs.qval[c] = vi;
+  // the mixture's starts (float32, as _em_batch), in every lane
+  const bool has_data = n32 >= 1.f;
+  const float nf = npmaxf(n32, 1.f);
+  const float spread = npmaxf(sqrtf(var32),
+                              npmaxf(fabsf(mean32) * 1e-6f, 1e-12f));
+  const float fs = kVarFloorFrac * spread;
+  const float floor32 = has_data ? fs * fs : 1.f;
+  const long long cap = (long long)nf - 1 > 0 ? (long long)nf - 1 : 0;
+  int qi[kC];
+  for (int c = 0; c < kC; ++c) {
+    long long q = (long long)((((double)c + 0.5) / kC) * (double)nf);
+    q = q < cap ? q : cap;
+    qi[c] = q < N ? (int)q : N - 1;
   }
-  __syncthreads();
-  if (tid < kC) cs.mu[tid] = isfinite(cs.qval[tid]) ? cs.qval[tid] : 0.f;
-  __syncthreads();
 
+  // the q-th smallest valid sample (invalid samples are +inf and rank
+  // last): bisection on the keys, the three starts at once, each count
+  // summed across the warp (integers: any order gives the same); the value
+  // is the q-th of the sorted samples.
+  __syncwarp();   // the logs are read; the keys take their place
+  for (int n = lane; n < N; n += 32)
+    key[n] = rank_key(m32[n] > 0.f ? x[n] : INFINITY);
+  __syncwarp();
+  unsigned lo[kC], hi[kC];
+  for (int c = 0; c < kC; ++c) {
+    lo[c] = 0u;
+    hi[c] = 0xffffffffu;
+  }
+  for (int bit = 0; bit < 32; ++bit) {
+    unsigned mid[kC];
+    int cnt[kC];
+    for (int c = 0; c < kC; ++c) {
+      mid[c] = lo[c] + ((hi[c] - lo[c]) >> 1);
+      cnt[c] = 0;
+    }
+    for (int n = lane; n < N; n += 32) {
+      const unsigned kn = key[n];
+      for (int c = 0; c < kC; ++c) cnt[c] += kn <= mid[c] ? 1 : 0;
+    }
+    for (int c = 0; c < kC; ++c) {
+      if (__reduce_add_sync(kFull, cnt[c]) > qi[c]) hi[c] = mid[c];
+      else lo[c] = mid[c] + 1u;
+    }
+  }
+  float mu[kC];
+  for (int c = 0; c < kC; ++c) {
+    const float v = key_value(lo[c]);
+    mu[c] = isfinite(v) ? v : 0.f;
+  }
+
+  // EM. Component c's parameters live in lane c (< kC), which also takes
+  // their logs and their M-step update; shuffles give every lane a copy.
+  // The E-step runs across lanes (a sample each) and writes, for each
+  // component c, its responsibility r times 1, x and x x (rows 3 c + q);
+  // lane 3 c + q sums its row in observation order; the last iteration's
+  // ln L (float64) is summed by every lane.
+  const int cc = lane < kC ? lane : 0;
+  float my_mu = cc == 0 ? mu[0] : cc == 1 ? mu[1] : mu[2];
+  float my_var = npmaxf(var32 / (float)kC, floor32);
+  float my_pi = 1.f / (float)kC;
+  const int L = lane < 3 * kC ? lane : 0;
+  const float* row = prod + L * P;
+  double ll = 0.0;
   for (int it = 0; it < kIters; ++it) {
     const bool last = it == kIters - 1;
-    if (tid < kC) {
-      cs.lv[tid] = 0.5f * np_logf(kTwoPiF * cs.var_c[tid]);
-      cs.lp[tid] = np_logf(npmaxf(cs.pi[tid], 1e-30f));
+    const float my_lv = 0.5f * np_logf(kTwoPiF * my_var);
+    const float my_lp = np_logf(npmaxf(my_pi, 1e-30f));
+    float lv[kC], lp[kC], var_c[kC];
+    for (int c = 0; c < kC; ++c) {
+      mu[c] = __shfl_sync(kFull, my_mu, c);
+      var_c[c] = __shfl_sync(kFull, my_var, c);
+      lv[c] = __shfl_sync(kFull, my_lv, c);
+      lp[c] = __shfl_sync(kFull, my_lp, c);
     }
-    __syncthreads();
-    for (int n = tid; n < N; n += kThreads) {
+    __syncwarp();   // the keys, or the last M-step's reads, are done
+    for (int n = lane; n < N; n += 32) {
+      const float xn = x[n];
       float lpn[kC];
       float mx = 0.f;
       for (int c = 0; c < kC; ++c) {
-        const float d = x[n] - cs.mu[c];
-        lpn[c] = (((-0.5f) * (d * d)) / cs.var_c[c] - cs.lv[c]) + cs.lp[c];
+        const float d = xn - mu[c];
+        lpn[c] = (((-0.5f) * (d * d)) / var_c[c] - lv[c]) + lp[c];
         mx = c == 0 ? lpn[0] : npmaxf(mx, lpn[c]);
       }
       float r[kC];
@@ -354,35 +500,54 @@ family_channel_kernel(int N, int K, const double* __restrict__ rates,
       }
       tot = npmaxf(tot, 1e-30f);
       if (last) sw[n] = m32[n] > 0.f ? (double)(mx + np_logf(tot)) : 0.0;
-      for (int c = 0; c < kC; ++c) rr[c * N + n] = (r[c] / tot) * m32[n];
-    }
-    __syncthreads();
-    if (tid < 3 * kC) {
-      const int c = tid / 3, q = tid % 3;
-      const float* rc = rr + c * N;
-      float s = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float xn = x[n];
-        s += q == 0 ? rc[n] : (q == 1 ? rc[n] * xn : rc[n] * (xn * xn));
+      const float xx = xn * xn;
+      for (int c = 0; c < kC; ++c) {
+        const float rc = (r[c] / tot) * m32[n];
+        prod[(3 * c) * P + n] = rc;
+        prod[(3 * c + 1) * P + n] = rc * xn;
+        prod[(3 * c + 2) * P + n] = rc * xx;
       }
-      cs.sums[c][q] = s;
-    } else if (tid == 32 && last) {
-      double s = 0.0;
-      for (int n = 0; n < N; ++n) s += sw[n];
-      cs.ll = s;
     }
-    __syncthreads();
-    if (tid < kC) {
-      const float nk = npmaxf(cs.sums[tid][0], 1e-12f);
-      const float mu = cs.sums[tid][1] / nk;
-      cs.mu[tid] = mu;
-      cs.var_c[tid] = npmaxf(cs.sums[tid][2] / nk - mu * mu, cs.floor32);
-      cs.pi[tid] = nk / cs.nf;
+    __syncwarp();
+    float t = 0.f;
+    {
+      int n = 0;
+      for (; n + kAhead <= N; n += kAhead) {
+        float g[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) g[u] = row[n + u];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) t += g[u];
+      }
+      for (; n < N; ++n) t += row[n];
     }
-    __syncthreads();
+    if (last) {
+      int n = 0;
+      for (; n + kAhead <= N; n += kAhead) {
+        double g[kAhead];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) g[u] = sw[n + u];
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) ll += g[u];
+      }
+      for (; n < N; ++n) ll += sw[n];
+    }
+    const float s0 = __shfl_sync(kFull, t, 3 * cc);
+    const float s1 = __shfl_sync(kFull, t, 3 * cc + 1);
+    const float s2 = __shfl_sync(kFull, t, 3 * cc + 2);
+    const float nk = npmaxf(s0, 1e-12f);
+    my_mu = s1 / nk;
+    my_var = npmaxf(s2 / nk - my_mu * my_mu, floor32);
+    my_pi = nk / nf;
+  }
+  float var_c[kC], pi[kC];
+  for (int c = 0; c < kC; ++c) {
+    mu[c] = __shfl_sync(kFull, my_mu, c);
+    var_c[c] = __shfl_sync(kFull, my_var, c);
+    pi[c] = __shfl_sync(kFull, my_pi, c);
   }
 
-  if (tid == 0) {
+  if (lane == 0) {
     // the components by mean, stable, NaN last (np.argsort)
     int order[kC];
     for (int c = 0; c < kC; ++c) order[c] = c;
@@ -390,8 +555,8 @@ family_channel_kernel(int N, int K, const double* __restrict__ rates,
       const int o = order[i];
       int j = i - 1;
       while (j >= 0) {
-        const float a = cs.mu[order[j]], b = cs.mu[o];
-        const bool shift = (a != a) ? (b == b) : (b < a);
+        const float va = mu[order[j]], vb = mu[o];
+        const bool shift = (va != va) ? (vb == vb) : (vb < va);
         if (!shift) break;
         order[j + 1] = order[j];
         --j;
@@ -402,13 +567,48 @@ family_channel_kernel(int N, int K, const double* __restrict__ rates,
     double* M = W + kC * K;
     double* S = M + kC * K;
     for (int c = 0; c < kC; ++c) {
-      W[c * K + k] = cs.pi[order[c]];
-      M[c * K + k] = cs.mu[order[c]];
-      S[c * K + k] = sqrtf(cs.var_c[order[c]]);
+      W[c * K + k] = pi[order[c]];
+      M[c * K + k] = mu[order[c]];
+      S[c * K + k] = sqrtf(var_c[order[c]]);
     }
-    terms[3 * K + k] = ((3.0 * kC - 1.0) * terms[4 * K + k]
-                        - 2.0 * cs.ll) * cs.okf;
+    terms[3 * K + k] = ((3.0 * kC - 1.0) * logn - 2.0 * ll) * okf;
   }
+}
+
+// cpb channels a block (blockDim.x = 32 cpb), channels blockIdx.x * cpb ..
+__global__ void __launch_bounds__(kWarps * 32)
+family_channel_kernel(int N, int K, const double* __restrict__ rates,
+                      const double* __restrict__ works,
+                      const double* __restrict__ mask, double min_obs,
+                      double max_rho, double* __restrict__ terms,
+                      double* __restrict__ okv, double* __restrict__ out) {
+  extern __shared__ double smem[];
+  const int cpb = blockDim.x >> 5;
+  const int k0 = blockIdx.x * cpb;
+  const int nc = K - k0 < cpb ? K - k0 : cpb;
+  const Win win = window_of(N);
+  const size_t stride = channel_doubles(N);
+  // the block's windows as one box: observation n's nc channels are
+  // neighbours in each (N, K) array, so consecutive threads copy
+  // consecutive words; each lands in its channel's rows
+  for (int e = threadIdx.x; e < N * nc; e += blockDim.x) {
+    const int n = e / nc, c = e - n * nc;
+    const size_t g = (size_t)n * K + k0 + c;
+    double* base = smem + c * stride;
+    copy8(base + n, rates + g);
+    copy8(base + win.D + n, mask + g);
+    copy8(base + win.W / 2 + n, works + g);
+  }
+  if (threadIdx.x == 0) {
+    s_one = 1.f;
+    s_one_d = 1.0;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  if (w >= nc) return;
+  score_channel(N, K, k0 + w, threadIdx.x & 31, smem + w * stride, min_obs,
+                max_rho, terms, okv, out);
 }
 
 // The fleet's sums: BICs (pairwise over channels), the channels scored and
@@ -485,28 +685,35 @@ family_reduce_kernel(int N, int K, const double* __restrict__ rates,
 
 }  // namespace
 
-// rates, works, mask: (N, K) float64, row-major, N <= 4096. scratch holds
-// 6 K doubles; out holds 8 + 10 K doubles: the BICs of normal, lognormal,
-// drift and empirical, the channel count, then rho (K) and the mixture's
-// weights, means and stds (C, K) each. Returns cudaGetLastError().
-extern "C" int family_score_launch(int N, int K, const double* rates,
-                                   const double* works, const double* mask,
-                                   double min_obs, double max_rho,
-                                   double* scratch, double* out,
-                                   cudaStream_t stream) {
+// rates, works, mask: (N, K) float64, row-major, N <= 4096; cpb channels
+// a block (1-8, kernels/family_score.py launch_plan: cpb windows of
+// channel_doubles(N) float64 must fit 227 KB of shared memory). scratch
+// holds 6 K doubles; out holds
+// 8 + 10 K doubles: the BICs of normal, lognormal, drift and empirical, the
+// channel count, then rho (K) and the mixture's weights, means and stds
+// (C, K) each. Returns cudaGetLastError().
+extern "C" int family_score_launch(int N, int K, int cpb,
+                                   const double* rates, const double* works,
+                                   const double* mask, double min_obs,
+                                   double max_rho, double* scratch,
+                                   double* out, cudaStream_t stream) {
   if (N <= 0 || K <= 0) return 0;
-  if (N > kMaxN) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)N * (3 * sizeof(double) +
-                                   (2 + kC) * sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+  if (N > kMaxN || cpb < 1 || cpb > kWarps) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)cpb * channel_doubles(N) * sizeof(double);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  // the dynamic shared memory allowed so far (the default 48 KB holds the
+  // static s_one too, so any size is opted into once)
+  static size_t opted = 0;
+  if (smem > opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
         family_channel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
+    opted = smem;
   }
   double* terms = scratch;          // (4, K) BIC terms, then ln n (K)
   double* okv = scratch + 5 * (size_t)K;  // 1.0 where a channel is scored
-  family_channel_kernel<<<K, kThreads, smem, stream>>>(
+  family_channel_kernel<<<(K + cpb - 1) / cpb, 32 * cpb, smem, stream>>>(
       N, K, rates, works, mask, min_obs, max_rho, terms, okv, out);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
