@@ -290,21 +290,30 @@ Phases, in order:
    killed run's), and the full-width SmolLM-360M at the batcher's shapes
    (a prefill of 32 x 12 into a cache of 20, then 7 decode steps) through
    the kernels held against the plain ops at relative L2 < 0.1.
-26. ``train`` — the training path. First the two backward kernels
-   (``rmsnorm_bwd``: dx, dw; ``flash_attention_bwd``: dq, dk, dv) against
-   autograd of their plain forwards on the card (``ref.rmsnorm_ref``,
+26. ``train`` — the training path. First the three backward kernels
+   (``rmsnorm_bwd``: dx, dw; ``flash_attention_bwd``: dq, dk, dv;
+   ``ssd_scan_bwd``: dx, ddt, dA, dB, dC, dD) against autograd of their
+   plain forwards on the card (``ref.rmsnorm_ref``,
    ``ref.flash_attention_bf16p_ref`` in bf16 and ``flash_attention_ref``
-   in float32) at relative L2 2e-4 in float32 and 1e-2 in bf16, each run
-   twice (bitwise-equal): attention at SmolLM-360M's training shape (B 8,
-   15 query and 5 KV heads of 64, S 2048, causal), Qwen3-8B's (B 2, 32/8
-   heads of 128), a window of 512, a non-causal 16 x 1500, a ragged S of
-   1000 and float32 at a small shape; norms at 16384 x 960 and 4096 x 4096
-   in both dtypes; each with its event-pair and device time beside its
-   bound (bytes for the norm; for attention the five products' operations
-   at the dense peak of their type), the plain version's time and the
-   yardstick PyTorch call's (``scaled_dot_product_attention``,
-   ``F.rms_norm``: forward + backward, and backward alone with its device
-   time), which the port never calls; the phase fails where a kernel's or
+   in float32, ``ref.ssd_chunked_ref``; the scan also against
+   ``ref.ssd_chunked_bwd_ref``, its formulas) at relative L2 2e-4 in
+   float32 and 1e-2 in bf16, each run twice (bitwise-equal): attention at
+   SmolLM-360M's training shape (B 8, 15 query and 5 KV heads of 64, S
+   2048, causal), Qwen3-8B's (B 2, 32/8 heads of 128), a window of 512, a
+   non-causal 16 x 1500, a ragged S of 1000, float32 at a small shape, and
+   the 192 tile: DeepSeek-V2-Lite's MLA (B 2, 16 heads, q and k of 192, v
+   of 128), Nemotron-4-340B's layer (B 1, 96/8 heads of 192) and float32
+   at 192; norms at 16384 x 960 and 4096 x 4096 in both dtypes; the scan
+   at Mamba2-2.7B's layer (B 2 x S 2048, 80 heads of 64, N 128) in both
+   dtypes, a ragged S, eight groups, S 16384 at B 1, and runs of dt = 0
+   that tie decays across the backward's chunks inside forward chunks;
+   each with its event-pair and device time beside its bound (bytes for
+   the norm; for attention and the scan their operations at the dense
+   peak of their inputs' type), the plain
+   version's time and the yardstick PyTorch call's
+   (``scaled_dot_product_attention``, ``F.rms_norm``: forward + backward,
+   and backward alone with its device time; none computes the scan's),
+   which the port never calls; the phase fails where a kernel's or
    its library call's device time is not measured (``_device_ms`` checks
    that its profiled window holds every launch's device record). Then SmolLM-360M at full width in bf16
    (seeded weights, B = 8 x 2048 tokens from ``SyntheticStream``): its
@@ -327,7 +336,23 @@ Phases, in order:
    out from the code and the run's recorded splits: one ``frontier_grid``
    call a step, for two pods' ``optimize_2ch``, and no
    ``frontier_grid_with_grads``, whose PGD refresh runs for three pods or
-   more).
+   more). Then (``TRAIN_ARCHS``) Mamba2-2.7B at full width, all 64 layers,
+   and DeepSeek-V2-Lite at full width cut to its dense first layer and
+   ``DS_MOE_LAYERS`` MoE layers (the AdamW update's peak sets the cut),
+   both bf16 on B = 2 x 2048: the first step end to end against the plain
+   ops (Mamba2: bf16 at 2 layers and float32 at 8 at those tolerances,
+   bf16 at 8 against the plain path's own distance from float32: the
+   kernels' at most 1.25 times it, at the worst leaf and the median;
+   DeepSeek: bf16 at 2 layers), every layer's gradients on its own input
+   and a seeded
+   cotangent (its input's and its parameters', relative L2 < 0.1), then
+   12 steps through ``launch.train`` with every model kernel's launches
+   counted from zero and held to the count the code makes (64 ``ssd_scan``
+   and 64 ``ssd_scan_bwd`` a Mamba2 step), the loss falling, step ms,
+   tokens/s and peak memory. Last the tiny Jamba (float32) one step on the
+   card against the same weights on the CPU: loss 1e-3 relative and every
+   gradient leaf at relative L2 5e-2 (a miss is reported with each layer's
+   reading, ROADMAP.md section 3), launches counted.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -356,9 +381,10 @@ ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
 ``examples``), and its ``launches_by_path`` gives each path's count; a
 model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
 ``moeserve``, ``zoo``: its kernel paths, ``examples``, ``train``: the
-Trainer's 20 steps and the partitioned trainer's 100, which also count in
-the frontier kernels' ``train`` path and alone in the two backward
-kernels' lines); ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
+SmolLM Trainer's 20 steps and the partitioned trainer's 100, which also
+count in the frontier kernels' ``train`` path, the Mamba2 and DeepSeek
+Trainers' 12 steps each and the tiny Jamba's step; alone in the three
+backward kernels' lines, each with its timed shapes as ``instances``); ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -4977,17 +5003,79 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 0.1
 # the backward kernels against autograd of their plain forwards, relative
 # L2 of every output, per dtype (the model kernels' tolerances)
 BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
-# (name, B, Hq, Hkv, Sq, Sk, D, causal, window, dtype): SmolLM-360M's and
-# Qwen3-8B's training shapes, a window, Whisper's non-causal cross shape,
-# a ragged S and float32 at a small shape
+# (name, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype): SmolLM-360M's
+# and Qwen3-8B's training shapes, a window, Whisper's non-causal cross
+# shape, a ragged S and float32 at a small shape; then the 192 tile:
+# DeepSeek-V2-Lite's MLA at its training batch (q, k of 192, v of 128),
+# Nemotron-4-340B's layer (96 query and 8 KV heads of 192) at B 1, and the
+# float32 kernel's widest columns
 BWD_ATTN_CASES = (
-    ("smollm-360m train", 8, 15, 5, 2048, 2048, 64, True, None, "bfloat16"),
-    ("qwen3-8b train", 2, 32, 8, 2048, 2048, 128, True, None, "bfloat16"),
-    ("window 512", 2, 8, 2, 2048, 2048, 64, True, 512, "bfloat16"),
-    ("noncausal 16 x 1500", 2, 20, 20, 16, 1500, 64, False, None, "bfloat16"),
-    ("ragged S=1000", 2, 15, 5, 1000, 1000, 64, True, None, "bfloat16"),
-    ("float32 small", 2, 4, 2, 256, 256, 64, True, None, "float32"),
+    ("smollm-360m train", 8, 15, 5, 2048, 2048, 64, 64, True, None,
+     "bfloat16"),
+    ("qwen3-8b train", 2, 32, 8, 2048, 2048, 128, 128, True, None,
+     "bfloat16"),
+    ("window 512", 2, 8, 2, 2048, 2048, 64, 64, True, 512, "bfloat16"),
+    ("noncausal 16 x 1500", 2, 20, 20, 16, 1500, 64, 64, False, None,
+     "bfloat16"),
+    ("ragged S=1000", 2, 15, 5, 1000, 1000, 64, 64, True, None, "bfloat16"),
+    ("float32 small", 2, 4, 2, 256, 256, 64, 64, True, None, "float32"),
+    ("deepseek-v2-lite mla train", 2, 16, 16, 2048, 2048, 192, 128, True,
+     None, "bfloat16"),
+    ("nemotron-4 layer", 1, 96, 8, 2048, 2048, 192, 192, True, None,
+     "bfloat16"),
+    ("float32 d192", 2, 4, 2, 512, 512, 192, 192, True, None, "float32"),
 )
+# (name, B, S, H, P, G, N, chunk, dtype, rows where dt = 0): Mamba2-2.7B's
+# layer at its training batch (B 2 x S 2048; 80 heads of 64, one group, a
+# state of 128) in both dtypes, a ragged S, eight B/C groups, a long S at
+# B 1, and the layer with runs of dt = 0 that tie decays across the
+# backward's chunk boundaries (64) inside forward chunks (128): rows 60-67,
+# and 1000-1100, which spans the backward chunk [1024, 1088)
+SSD_TIE_ROWS = tuple(range(60, 68)) + tuple(range(1000, 1101))
+BWD_SSD_CASES = (
+    ("mamba2-2.7b layer", 2, 2048, 80, 64, 1, 128, 128, "bfloat16", ()),
+    ("mamba2-2.7b layer", 2, 2048, 80, 64, 1, 128, 128, "float32", ()),
+    ("ragged S=1000", 2, 1000, 80, 64, 1, 128, 128, "bfloat16", ()),
+    ("G=8", 2, 2048, 80, 64, 8, 128, 128, "bfloat16", ()),
+    ("long S=16384", 1, 16384, 80, 64, 1, 128, 128, "bfloat16", ()),
+    ("ties across chunks", 2, 2048, 80, 64, 1, 128, 128, "float32",
+     SSD_TIE_ROWS),
+)
+# the further archs the training path trains at full width, after
+# SmolLM-360M: (arch, layers kept (None: all), B, S, the end-to-end
+# first-step checks as (depth, dtype, hold), Trainer steps, lr).
+# Mamba2-2.7B whole (64 layers). DeepSeek-V2-Lite cut to its dense first
+# layer and DS_MOE_LAYERS MoE layers: a step's peak is the AdamW update,
+# ~26 bytes a parameter (bf16 weights and gradients, float32 moments old
+# and new, the clip's float32 gradients), and 1 + 4 and 1 + 6 layers run
+# out of the card's 80 GB there. In bf16 a random-weight Mamba2 stack's
+# gradients are ill-conditioned: at 8 layers the plain path in bf16 reads
+# ~0.9 relative L2 from the same weights in float32 (ROADMAP.md section 3
+# item 30), so its 8-layer step is held in float32 at TRAIN_LOSS_TOL /
+# TRAIN_GRAD_TOL ("plain"), and in bf16 against that witness ("witness":
+# the kernels' distance from the float32 plain path at most
+# TRAIN_WITNESS_RATIO times the bf16 plain path's own, at the worst leaf
+# and at the median), and at 2 layers in bf16 at the tolerances. The
+# Trainer runs keep
+# the first step and 11 more, at a learning rate under which the loss
+# falls in 12 steps from a random start.
+DS_MOE_LAYERS = 3
+TRAIN_ARCHS = (
+    ("mamba2-2.7b", None, 2, 2048,
+     ((2, "bfloat16", "plain"), (8, "float32", "plain"),
+      (8, "bfloat16", "witness")), 12, 3e-3),
+    ("deepseek-v2-lite-16b", 1 + DS_MOE_LAYERS, 2, 2048,
+     ((2, "bfloat16", "plain"),), 12, 1e-3))
+# a "witness" hold's bound on (kernels from float32) / (plain from float32):
+# Mamba2-2.7B's 8-layer bf16 step read 0.815 at the worst leaf and 0.835 at
+# the median (PR 26 runs T and G, NVIDIA H100 80GB HBM3, 700 W); a kernel
+# that drifted at depth would put the kernels past the plain path
+TRAIN_WITNESS_RATIO = 1.25
+# the tiny Jamba (float32) one step on the card against the CPU: the loss
+# (relative) and every gradient leaf (relative L2); a miss is reported
+# with each layer's reading (ROADMAP.md section 3), not failed
+TINY_TRAIN_ARCH, TINY_TRAIN_B, TINY_TRAIN_S = "jamba-1.5-large-398b", 2, 64
+TINY_LOSS_TOL, TINY_GRAD_TOL = 1e-3, 5e-2
 # (rows, D, dtype): SmolLM-360M's norms at the training batch (16384 x
 # 960) and a 4096-wide model's
 BWD_NORM_CASES = ((16384, 960, "bfloat16"), (16384, 960, "float32"),
@@ -4997,9 +5085,12 @@ TRAIN_REPLACES = {
                     "src/repro/kernels/ops.py:190"),
     "flash_attention_bwd": ("src/repro_torch/csrc/attention.cu",
                             "src/repro/kernels/ops.py:43"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ops.py:130"),
 }
 # kernel names by their part of a training step (torch.profiler names)
-STEP_PARTS = (("backward kernels", ("fa_bwd_", "rmsnorm_bwd", "rmsnorm_dw")),
+STEP_PARTS = (("backward kernels", ("fa_bwd_", "rmsnorm_bwd", "rmsnorm_dw",
+                                    "ssd_bwd")),
               ("forward kernels", ("fa_wgmma_kernel", "fa_f32_kernel",
                                    "rmsnorm_")),
               ("cuBLAS", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
@@ -5008,7 +5099,8 @@ STEP_PARTS = (("backward kernels", ("fa_bwd_", "rmsnorm_bwd", "rmsnorm_dw")),
 def _plain_train_ops():
     """The model's ops swapped for the plain versions whose autograd is the
     backward kernels' plain version: ``ref.flash_attention_bf16p_ref`` (bf16;
-    ``flash_attention_ref`` in float32) and ``ref.rmsnorm_ref``."""
+    ``flash_attention_ref`` in float32), ``ref.rmsnorm_ref`` and
+    ``ref.ssd_chunked_ref``."""
     import contextlib
     import torch
     from repro_torch.kernels import ops, ref
@@ -5020,12 +5112,13 @@ def _plain_train_ops():
 
     @contextlib.contextmanager
     def swapped():
-        saved = ops.attention, ops.rmsnorm
-        ops.attention, ops.rmsnorm = attention, ref.rmsnorm_ref
+        saved = ops.attention, ops.rmsnorm, ops.ssd
+        ops.attention, ops.rmsnorm, ops.ssd = (attention, ref.rmsnorm_ref,
+                                               ref.ssd_chunked_ref)
         try:
             yield
         finally:
-            ops.attention, ops.rmsnorm = saved
+            ops.attention, ops.rmsnorm, ops.ssd = saved
     return swapped()
 
 
@@ -5045,14 +5138,14 @@ def _bwd_attn_case(case, fails):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    name, B, Hq, Hkv, Sq, Sk, D, causal, window, dts = case
+    name, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dts = case
     dt = getattr(torch, dts)
     g = _gen(7)
 
-    def view(H, S):   # the model's (B, S, H, D) projection, as a view
-        return _randn(g, (B, S, H, D), dt).transpose(1, 2)
-    q, k, v = view(Hq, Sq), view(Hkv, Sk), view(Hkv, Sk)
-    dout = _randn(g, (B, Hq, Sq, D), dt)
+    def view(H, S, d):   # the model's (B, S, H, d) projection, as a view
+        return _randn(g, (B, S, H, d), dt).transpose(1, 2)
+    q, k, v = view(Hq, Sq, D), view(Hkv, Sk, D), view(Hkv, Sk, Dv)
+    dout = _randn(g, (B, Hq, Sq, Dv), dt)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal, window=window)
     got = torch.autograd.grad(out, leaves, dout)
@@ -5088,7 +5181,9 @@ def _bwd_attn_case(case, fails):
 
     ms = _time_cuda(bwd, reps=7)
     fb_ms = _time_cuda(fwd_bwd, reps=5)
-    dev = _device_ms(bwd, reps=5, expect=("fa_bwd_", 3))
+    # D_i, dK/dV, dQ; dK and dV a launch each at the bf16 192 tile
+    per_call = 4 if dt == torch.bfloat16 and D > 128 else 3
+    dev = _device_ms(bwd, reps=5, expect=("fa_bwd_", per_call))
 
     plain_ms = _time_cuda(lambda: torch.autograd.grad(
         plain(*leaves, causal=causal, window=window), leaves, dout),
@@ -5115,15 +5210,18 @@ def _bwd_attn_case(case, fails):
     except RuntimeError as e:
         log(f"[train] SDPA refuses {name}: {str(e).splitlines()[0][:120]}")
     pairs = B * Hq * _attn_pairs(Sq, Sk, causal, window)
-    ops_ = 2 * pairs * (3 * D + 2 * D)
+    # the five products: S and dK, dQ over D; dP and dV over Dv
+    ops_ = 2 * pairs * (3 * D + 2 * Dv)
     esize = 2 if dt == torch.bfloat16 else 4
-    nbytes = (esize * (2 * (B * Hq * Sq * D) + 2 * B * Hkv * Sk * D)  # q dO
-              + esize * 2 * B * Hkv * Sk * D                         # k v
-              + esize * B * Hq * Sq * D + 4 * B * Hq * Sq           # o lse
-              + esize * (B * Hq * Sq * D + 2 * B * Hkv * Sk * D))   # grads
+    nbytes = esize * (B * Hq * Sq * (D + 2 * Dv)          # q, dO, o
+                      + B * Hkv * Sk * (D + Dv)           # k, v
+                      + B * Hq * Sq * D                   # dq
+                      + B * Hkv * Sk * (D + Dv)) \
+        + 4 * B * Hq * Sq                                 # lse
     peak = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
     bound_ms, by = _roof(nbytes, ops_ / peak)
-    log(f"[train] flash_attention_bwd {name:22s} {dts}: rel L2 dq "
+    log(f"[train] flash_attention_bwd {name:26s} {dts} D={D} Dv={Dv}: "
+        f"rel L2 dq "
         f"{rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} (tol {tol:g}), "
         f"max|err| {err:.2e}, bits repeat {same}; bwd {ms:.3f} ms (device "
         + (f"{dev:.3f}" if dev is not None else "not measured")
@@ -5135,7 +5233,8 @@ def _bwd_attn_case(case, fails):
         + (f"{lib_dev:.3f}" if lib_dev else "not measured") + ")"
         + (f", kernel/SDPA device {dev / lib_dev:.2f}x" if dev and lib_dev
            else "") + ("" if ok and same else "  FAIL"))
-    row = {"name": name, "dtype": dts, "rel_l2": rel, "max_abs_err": err,
+    row = {"name": name, "dtype": dts, "D": D, "Dv": Dv, "rel_l2": rel,
+           "max_abs_err": err,
            "bits_repeat": same, "ms": ms, "device_ms": dev,
            "fwd_bwd_ms": fb_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
@@ -5201,6 +5300,383 @@ def _bwd_norm_case(case, fails):
             "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
             "library_fwd_bwd_ms": lib_fb}
+
+def _ssd_bwd_work(B, S, H, P, G, N, L, esize):
+    """(bytes, seconds of operations) of one SSD backward call in chunks of
+    L rows: each input read once (x, B, C, dy in the storage type; dt, A,
+    D float32) and each gradient written once; per chunk and head, over the
+    causal half of the L x L products, L^2 (3 N / 2 + P) multiply-adds (the
+    scores C.B and dy.x, the intra-chunk dx, dB and dC) and 5 L P N (the
+    recomputed state, dx's and dB's terms from dS, C's from S, the dS
+    update), at the card's peak for the inputs' type: the bf16 tensor-core
+    rate for bf16 inputs (float32 sums; that the kernel takes float32 FMAs
+    on the CUDA cores does not lower it), the float32 CUDA-core rate for
+    float32 ones."""
+    nbytes = (esize * (3 * B * S * H * P + 4 * B * S * G * N)
+              + 2 * 4 * B * S * H + 4 * 4 * H)
+    full, tail = divmod(S, L)
+    mads = sum(n * (l * l * (3 * N + 2 * P) // 2 + 5 * l * P * N)
+               for n, l in ((full, L), (1 if tail else 0, tail)))
+    peak = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
+    return nbytes, 2 * B * H * mads / peak
+
+
+def _ssd_bwd_case(case, fails):
+    """One SSD shape: ssd_scan_bwd against its plain version
+    (``ref.ssd_chunked_bwd_ref``, the kernel's formulas in the kernel's
+    chunks) and against autograd of the plain forward
+    (``ref.ssd_chunked_ref`` at the forward's chunk) on every gradient,
+    bits repeated, timed beside its bound and the plain version. No PyTorch
+    call computes it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    name, B, S, H, P, G, N, chunk, dts, zeros = case
+    dt_ = getattr(torch, dts)
+    g = _gen(9)
+    x = _randn(g, (B, S, H, P), dt_)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda") - 2.0)
+    dt[:, list(zeros)] = 0.0
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    # B and C as the model's strided column views of one projection
+    bc = (0.3 * torch.randn((B, S, 2 * G * N), generator=g,
+                            device="cuda")).to(dt_)
+    Bm = bc[..., :G * N].reshape(B, S, G, N)
+    Cm = bc[..., G * N:].reshape(B, S, G, N)
+    D = torch.ones((H,), device="cuda")
+    dy = _randn(g, (B, S, H, P), dt_)
+    arrs = (x, dt, A, Bm, Cm, D)
+    leaves = [t.detach().requires_grad_(True) for t in arrs]
+    got = torch.autograd.grad(ssd.ssd_scan(*leaves, chunk=chunk), leaves, dy)
+    L = ssd.bwd_chunk(S, chunk)
+    formulas = ref.ssd_chunked_bwd_ref(*arrs, dy, chunk=L, fwd_chunk=chunk)
+    pl = [t.detach().requires_grad_(True) for t in arrs]
+    auto = torch.autograd.grad(ref.ssd_chunked_ref(*pl, chunk=chunk), pl, dy)
+    tol = BWD_TOL[dts]
+    rel_f = [_rel_l2(a.float(), b.float()) for a, b in zip(got, formulas)]
+    rel_a = [_rel_l2(a.float(), b.float()) for a, b in zip(got, auto)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, formulas))
+    again = torch.autograd.grad(ssd.ssd_scan(*leaves, chunk=chunk), leaves,
+                                dy)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (all(r < tol for r in rel_f + rel_a) and same
+          and all(bool(torch.isfinite(a.float()).all()) for a in got))
+    if not ok:
+        fails.append(f"ssd_scan_bwd {name} {dts}")
+    del formulas, auto, again, pl
+    torch.cuda.empty_cache()
+
+    def bwd():
+        return ssd.ssd_scan_bwd(*arrs, dy, chunk=chunk)
+    ms = _time_cuda(bwd, reps=5)
+    nc = -(-S // L)
+    # states (two), walk, ties across its chunks, sums
+    per_call = 2 + (nc > 1) + (nc > 2) + (min(chunk, S) > L)
+    dev = _device_ms(bwd, reps=3, expect=("ssd_", per_call))
+    plain_ms = _time_cuda(lambda: ref.ssd_chunked_bwd_ref(
+        *arrs, dy, chunk=L, fwd_chunk=chunk),
+                          reps=3, warm=1)
+    nbytes, t_ops = _ssd_bwd_work(B, S, H, P, G, N, L, x.element_size())
+    bound_ms, by = _roof(nbytes, t_ops)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    log(f"[train] ssd_scan_bwd {name:18s} {dts} (B {B}, S {S}, H {H}, P {P}, "
+        f"G {G}, N {N}; chunks of {L}"
+        + (f"; dt = 0 on {len(zeros)} rows" if zeros else "")
+        + "): rel L2 against its plain version "
+        + " ".join(f"{n} {r:.1e}" for n, r in zip(names, rel_f))
+        + "; against autograd of the plain forward "
+        + " ".join(f"{n} {r:.1e}" for n, r in zip(names, rel_a))
+        + f" (tol {tol:g}), max|err| {err:.2e}, bits repeat {same}; "
+        f"{ms:.3f} ms (device "
+        + (f"{dev:.3f}" if dev is not None else "not measured")
+        + f", {per_call} launches), bound {bound_ms:.3f} ms ({by}), "
+        f"kernel/bound {ms / bound_ms:.1f}x; plain {plain_ms:.2f} ms"
+        + ("" if ok else "  FAIL"))
+    row = {"name": name, "dtype": dts, "shape": [B, S, H, P, G, N],
+           "chunk": L, "zero_rows": len(zeros), "rel_l2": rel_f, "rel_l2_autograd": rel_a,
+           "max_abs_err": err, "bits_repeat": same, "ms": ms,
+           "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "library_ms": None, "library_dev_ms": None}
+    del x, dt, Bm, Cm, bc, dy, leaves, got, arrs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _train_layerwise(model, cfg, tokens, tag):
+    """Each layer of ``model`` on the kernel path's own input (the residual
+    stream of the kernels' forward on ``tokens``, without a graph) and a
+    seeded cotangent: the gradients of its output in its input and in each
+    of its parameters, through the kernels against the plain ops
+    (``_plain_train_ops``), relative L2 each. Returns each layer's worst
+    leaf and the overall worst."""
+    import torch
+    from repro_torch.models.layers import embed_lookup
+    positions = model._positions(*tokens.shape)
+    g = _gen(11)
+    with torch.no_grad():
+        x = embed_lookup(model.embed, tokens, cfg)
+    by_layer = []
+    for i, blk in enumerate(model.layers):
+        names = ["input"] + [n for n, _ in blk.named_parameters()]
+        params = list(blk.parameters())
+        dy = _randn(g, tuple(x.shape), x.dtype)
+
+        def grads(plain):
+            xl = x.detach().requires_grad_(True)
+            with _plain_train_ops() if plain else nullcontext():
+                y, _ = model._block_apply(blk, xl, positions)
+            return torch.autograd.grad(y, [xl] + params, dy)
+        gk, gp = grads(False), grads(True)
+        rels = [_rel_l2(a.float(), b.float()) for a, b in zip(gk, gp)]
+        j = max(range(len(rels)), key=rels.__getitem__)
+        finite = all(bool(torch.isfinite(a).all()) for a in gk)
+        by_layer.append((rels[j], names[j], finite))
+        del gk, gp
+        with torch.no_grad():
+            x, _ = model._block_apply(blk, x, positions)
+    i = max(range(len(by_layer)), key=lambda k: by_layer[k][0])
+    log(f"[train] {tag} every layer's gradients on its own input (input and "
+        f"parameters, kernels against plain ops): worst relative L2 "
+        f"{by_layer[i][0]:.3e} (layer {i}, {by_layer[i][1]}), by layer "
+        + " ".join(f"{r:.1e}" for r, _, _ in by_layer)
+        + f" (tol {TRAIN_GRAD_TOL:g})")
+    return {"worst_rel_l2": by_layer[i][0], "worst_layer": i,
+            "worst_leaf": by_layer[i][1],
+            "by_layer": [r for r, _, _ in by_layer],
+            "finite": all(f for _, _, f in by_layer)}
+
+
+def _grad_gap(a, b):
+    """(loss relative, worst leaf, its relative L2, the median) of two
+    (loss, {name: grad}) results."""
+    import numpy as np
+    rels = {n: _rel_l2(a[1][n].float(), b[1][n].float()) for n in a[1]}
+    worst = max(rels, key=rels.get)
+    return (abs(a[0] - b[0]) / abs(b[0]), worst, rels[worst],
+            float(np.median(list(rels.values()))))
+
+
+def _hold_step(tag, cfg, B, S, dtype, hold, fails):
+    """The first step of ``cfg``'s model (seed 0, full width; in float32
+    the bf16 draw widened) on B x S tokens from SyntheticStream, through
+    the kernels against the plain ops: the loss relative at
+    TRAIN_LOSS_TOL, and with ``hold`` "plain" every gradient leaf's
+    relative L2 at TRAIN_GRAD_TOL; with "witness" both paths' gradients
+    against the plain path on the same weights in float32, the kernels'
+    distance at most TRAIN_WITNESS_RATIO times the plain path's, at the
+    worst leaf and at the median."""
+    import torch
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cuda", seed=0, trainable=True)
+    if dtype == "float32":
+        m32 = build_model(cfg.replace(param_dtype="float32",
+                                      activation_dtype="float32"),
+                          device="cuda", seed=0, trainable=True)
+        m32.load_state_dict(model.state_dict())
+        model, cfg = m32, m32.cfg
+    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
+    tokens = torch.as_tensor(batch.tokens, device="cuda")
+    labels = torch.as_tensor(batch.labels, device="cuda")
+    gk = _full_width_grads(model, cfg, tokens, labels, False)
+    gp = _full_width_grads(model, cfg, tokens, labels, True)
+    loss_rel, worst, worst_rel, median = _grad_gap(gk, gp)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk[1].values())
+    out = {"layers": cfg.num_layers, "dtype": dtype, "hold": hold,
+           "loss_kernels": gk[0], "loss_plain": gp[0], "loss_rel": loss_rel,
+           "worst_leaf": worst, "worst_rel_l2": worst_rel,
+           "median_rel_l2": median}
+    if hold == "plain":
+        ok = worst_rel < TRAIN_GRAD_TOL
+        held = f"tol {TRAIN_GRAD_TOL:g}"
+    else:
+        c32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+        m32 = build_model(c32, device="cuda", seed=0, trainable=True)
+        m32.load_state_dict(model.state_dict())
+        g32 = _full_width_grads(m32, c32, tokens, labels, True)
+        _, _, p_worst, p_med = _grad_gap(gp, g32)
+        _, _, k_worst, k_med = _grad_gap(gk, g32)
+        r_worst, r_med = k_worst / p_worst, k_med / p_med
+        ok = max(r_worst, r_med) <= TRAIN_WITNESS_RATIO
+        out.update(plain_vs_float32_median=p_med,
+                   plain_vs_float32_worst=p_worst,
+                   kernels_vs_float32_median=k_med,
+                   kernels_vs_float32_worst=k_worst,
+                   witness_ratio_worst=r_worst, witness_ratio_median=r_med)
+        held = (f"held against the plain path on the same weights in "
+                f"float32: the plain path reads median {p_med:.3e} (worst "
+                f"{p_worst:.3e}), the kernels median {k_med:.3e} (worst "
+                f"{k_worst:.3e}), kernels/plain {r_med:.3f} (worst "
+                f"{r_worst:.3f}, at most {TRAIN_WITNESS_RATIO:g})")
+        del m32, g32
+    ok = ok and loss_rel < TRAIN_LOSS_TOL and finite
+    log(f"[train] {tag} first step end to end at {cfg.num_layers} layers "
+        f"in {dtype}, B={B} x S={S}: loss kernels {gk[0]:.6f} plain "
+        f"{gp[0]:.6f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_TOL:g}); gradient "
+        f"rel L2 worst {worst_rel:.3e} ({worst}), median {median:.3e} "
+        f"({held}), finite {finite}" + ("" if ok else "  FAIL"))
+    if not ok:
+        fails.append(f"{tag} first step at {cfg.num_layers} layers {dtype}")
+    del model, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _trainer_run(cfg, argv, B, S, steps, fails, smi):
+    """``steps`` steps through ``launch.train`` (``argv``) with the model
+    kernels' launches counted from zero and held to the count the code
+    makes, the loss falling: (state, record, counts). The step time is the
+    median of the last 10 steps on the host clock, synchronized."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import frontier_grid as fg
+    from repro_torch.launch import train as train_cli
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    t0 = time.perf_counter()
+    state, hist = train_cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {**dict(fg.LAUNCHES), **_lm_launches()}
+    peak = torch.cuda.max_memory_allocated()
+    want = _train_launches(cfg, steps)
+    got = {k: counts[k] for k in want}
+    walls = [h["wall_s"] for h in hist]
+    step_ms = 1e3 * float(np.median(walls[-10:]))
+    losses = [h["loss"] for h in hist]
+    log(f"[train] launch.train {' '.join(argv)} ({cfg.num_layers} layers) in "
+        f"{run_s:.1f} s: step {step_ms:.1f} ms (median of the last 10, host "
+        f"clock, synchronized), {B * S / step_ms * 1e3:.0f} tokens/s, peak "
+        f"memory {peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {got}, expected {want} ({smi})")
+    if got != want:
+        fails.append(f"{cfg.name} Trainer launches {got}, not {want}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fails.append(f"{cfg.name}: the Trainer's loss did not fall")
+    return state, {"steps": steps, "step_ms": step_ms,
+                   "tokens_per_s": B * S / step_ms * 1e3,
+                   "peak_gb": peak / 1e9, "losses": losses, "walls_s": walls,
+                   "launches": got, "seconds": run_s}, counts
+
+
+def _train_arch(arch, layers, B, S, holds, steps, lr, fails, smi):
+    """One arch of TRAIN_ARCHS at full width: its first step end to end at
+    each of ``holds`` (depth, dtype, hold), every layer's gradients on its
+    own input at the trained depth (``layers``, None for all), then
+    ``steps`` steps through ``launch.train`` at learning rate ``lr`` with
+    the model kernels' launches counted from zero and held to the count the
+    code makes, the loss falling."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "seq": S}
+    out["end_to_end"] = [_hold_step(arch, cfg.replace(num_layers=depth), B,
+                                    S, dtype, hold, fails)
+                         for depth, dtype, hold in holds]
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
+    tokens = torch.as_tensor(batch.tokens, device="cuda")
+    lw = _train_layerwise(model, cfg, tokens, arch)
+    if not (lw["worst_rel_l2"] < TRAIN_GRAD_TOL and lw["finite"]):
+        fails.append(f"{arch} layer {lw['worst_layer']}'s gradients")
+    out["layerwise"] = lw
+    del model, tokens
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--lr", str(lr)]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
+    state, out["trainer"], counts = _trainer_run(cfg, argv, B, S, steps,
+                                                 fails, smi)
+    out["trainer"].update(lr=lr, params=n_params)
+    del state
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _tiny_card_step(arch, B, S, fails):
+    """The tiny ``arch`` (float32) one step on the card against the same
+    weights and batch on the CPU: the loss within TINY_LOSS_TOL relative,
+    every gradient leaf's relative L2 reported and held at TINY_GRAD_TOL.
+    A miss is reported with each layer's reading on the CPU path's own
+    input (its gradients in its input and parameters, card against CPU),
+    not failed: ROADMAP.md section 3 logs it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.train.loss import softmax_xent
+    cfg = get_config(arch).tiny()
+    cpu = build_model(cfg, device="cpu", seed=0, trainable=True)
+    gpu = build_model(cfg, device="cuda", seed=1, trainable=True)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
+
+    def step(model, dev):
+        tokens = torch.as_tensor(batch.tokens, device=dev)
+        labels = torch.as_tensor(batch.labels, device=dev)
+        params = dict(model.named_parameters())
+        loss, _ = softmax_xent(model.apply(tokens), labels, cfg.vocab_size)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), {n: g.cpu()
+                                      for n, g in zip(params, grads)}
+    _reset_all()
+    loss_g, grads_g = step(gpu, "cuda")
+    counts = _lm_launches()
+    loss_c, grads_c = step(cpu, "cpu")
+    rels = {n: _rel_l2(grads_g[n], grads_c[n]) for n in grads_c}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    held = loss_rel < TINY_LOSS_TOL and rels[worst] < TINY_GRAD_TOL
+    want = {k: v for k, v in _train_launches(cfg, 1).items()}
+    log(f"[train] tiny {arch} float32 one step card against CPU (B {B} x S "
+        f"{S}): loss {loss_g:.7f} vs {loss_c:.7f} (rel {loss_rel:.2e}, tol "
+        f"{TINY_LOSS_TOL:g}); gradient rel L2 worst {rels[worst]:.3e} "
+        f"({worst}, tol {TINY_GRAD_TOL:g}); every leaf: "
+        + " ".join(f"{n}={r:.1e}" for n, r in sorted(rels.items()))
+        + f"; launches {({k: counts[k] for k in want})}, expected {want}"
+        + ("" if held else "  MISS (reported: ROADMAP.md section 3)"))
+    if {k: counts[k] for k in want} != want:
+        fails.append(f"tiny {arch} launches")
+    out = {"arch": arch, "loss_card": loss_g, "loss_cpu": loss_c,
+           "loss_rel": loss_rel, "worst_leaf": worst,
+           "worst_rel_l2": rels[worst], "rel_l2": rels, "held": held}
+    if not held:
+        by_layer = []
+        pos_c, pos_g = (m._positions(B, S) for m in (cpu, gpu))
+        g = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            x = embed_lookup(cpu.embed, torch.as_tensor(batch.tokens), cfg)
+        for i, (bc, bg) in enumerate(zip(cpu.layers, gpu.layers)):
+            dy = torch.randn(tuple(x.shape), generator=g)
+
+            def grads(model, blk, pos, dev):
+                xl = x.to(dev).requires_grad_(True)
+                y, _ = model._block_apply(blk, xl, pos)
+                return [t.cpu() for t in torch.autograd.grad(
+                    y, [xl] + list(blk.parameters()), dy.to(dev))]
+            r = max(_rel_l2(a, b) for a, b in zip(
+                grads(gpu, bg, pos_g, "cuda"), grads(cpu, bc, pos_c, "cpu")))
+            by_layer.append(r)
+            with torch.no_grad():
+                x, _ = cpu._block_apply(bc, x, pos_c)
+        log(f"[train] tiny {arch} each layer on the CPU path's own input, "
+            f"card against CPU, worst gradient rel L2 by layer ("
+            + ", ".join(f"{b.spec.mixer}/{b.spec.mlp}" for b in cpu.layers)
+            + "): " + " ".join(f"{r:.1e}" for r in by_layer))
+        out["by_layer"] = by_layer
+    return out, counts
 
 
 def _full_width_grads(model, cfg, tokens, labels, plain):
@@ -5285,14 +5761,36 @@ def _optimizer_device_ms(state):
     return ms
 
 
+def _layer_specs(cfg):
+    """The layers ``models.LM`` builds for ``cfg``, in order."""
+    from repro_torch.configs.base import LayerSpec
+    specs = [cfg.pattern[i % cfg.pattern_len]
+             for i in range(cfg.num_repeats * cfg.pattern_len)]
+    if cfg.first_layer_dense:
+        specs.insert(0, LayerSpec(cfg.pattern[0].mixer, "dense"))
+    return specs
+
+
 def _train_launches(cfg, steps):
     """Model-kernel launches of ``steps`` standard steps, counted from the
-    code: per layer ln1, ln2 (and q/k norms with qk_norm), the final norm,
-    one attention per layer, each once forward and once backward."""
-    norms = 1 + cfg.num_layers * (2 + (2 if cfg.qk_norm else 0))
+    code (``models/transformer.py``, ``attention.py``, ``mla.py``,
+    ``ssm.py``): per layer ln1, ln2 where it has an MLP, and its mixer's:
+    attention one flash_attention (and the q/k norms with qk_norm), MLA one
+    flash_attention and its kv_norm, mamba one ssd_scan and its gated norm;
+    then the final norm. Each once forward and once backward."""
+    norms, attn, scans = 1, 0, 0
+    for spec in _layer_specs(cfg):
+        norms += 1 + (spec.mlp != "none")
+        if spec.mixer == "mamba":
+            norms, scans = norms + 1, scans + 1
+        elif spec.mixer == "mla":
+            norms, attn = norms + 1, attn + 1
+        else:
+            norms, attn = norms + (2 if cfg.qk_norm else 0), attn + 1
     return {"rmsnorm": norms * steps, "rmsnorm_bwd": norms * steps,
-            "flash_attention": cfg.num_layers * steps,
-            "flash_attention_bwd": cfg.num_layers * steps}
+            "flash_attention": attn * steps,
+            "flash_attention_bwd": attn * steps,
+            "ssd_scan": scans * steps, "ssd_scan_bwd": scans * steps}
 
 
 def _part_launches(cfg, history):
@@ -5306,15 +5804,15 @@ def _part_launches(cfg, history):
     decodes or scans."""
     micro = sum(json.loads(h["k_pods"])[0] for h in history)
     return {"fwd": len(history), "grad": 0, "pgrad": 0,
-            **_train_launches(cfg, micro), "flash_decode": 0,
-            "ssd_scan": 0}
+            **_train_launches(cfg, micro), "flash_decode": 0}
 
 
 def phase_train(ctx):
     """The training path on the card (see the module docstring): the
     backward kernels against their plain versions, the full-width first
     step against the plain ops, the Trainer's timed run with its launches,
-    kill and restore, then the partitioned trainer."""
+    kill and restore, the partitioned trainer, then TRAIN_ARCHS at full
+    width and the tiny Jamba card against CPU."""
     import tempfile
     import numpy as np
     import torch
@@ -5322,7 +5820,6 @@ def phase_train(ctx):
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticStream
     from repro_torch.kernels import frontier_grid as fg
-    from repro_torch.launch import train as train_cli
     from repro_torch.models import build_model
     from repro_torch.train import Trainer, TrainerConfig
     fails = []
@@ -5332,7 +5829,8 @@ def phase_train(ctx):
     # 1. the backward kernels against autograd of their plain forwards
     out["attention"] = [_bwd_attn_case(c, fails) for c in BWD_ATTN_CASES]
     out["rmsnorm"] = [_bwd_norm_case(c, fails) for c in BWD_NORM_CASES]
-    for r in out["attention"] + out["rmsnorm"]:
+    out["ssd"] = [_ssd_bwd_case(c, fails) for c in BWD_SSD_CASES]
+    for r in out["attention"] + out["rmsnorm"] + out["ssd"]:
         tag = r.get("name") or f"{r['rows']}x{r['D']} {r['dtype']}"
         if r["device_ms"] is None:
             fails.append(f"{tag}: the kernel's device time not measured")
@@ -5386,32 +5884,10 @@ def phase_train(ctx):
 
     # 3. 20 steps through the training CLI (Trainer, seed 0: the same
     # weights), launches counted from zero
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_all()
-    t0 = time.perf_counter()
-    state, hist = train_cli.main([
-        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-        str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", "3e-4"])
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = {**dict(fg.LAUNCHES), **_lm_launches()}
-    peak = torch.cuda.max_memory_allocated()
-    want = _train_launches(cfg, TRAIN_STEPS)
-    got = {k: counts[k] for k in want}
-    walls = [h["wall_s"] for h in hist]
-    step_ms = 1e3 * float(np.median(walls[-10:]))
-    losses = [h["loss"] for h in hist]
-    log(f"[train] launch.train --arch {TRAIN_ARCH} --steps {TRAIN_STEPS} "
-        f"--batch {TRAIN_B} --seq {TRAIN_S} in {run_s:.1f} s: step "
-        f"{step_ms:.1f} ms (median of the last 10, host clock, synchronized"
-        f"), {TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s, peak memory "
-        f"{peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-        f"launches {got}, expected {want} ({smi})")
-    if got != want:
-        fails.append(f"Trainer launches {got}, not {want}")
-    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
-        fails.append("the Trainer's loss did not fall")
+    state, rec, counts = _trainer_run(
+        cfg, ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", "3e-4"],
+        TRAIN_B, TRAIN_S, TRAIN_STEPS, fails, smi)
     ctx["train_launches"] = dict(counts)
     trainer = Trainer(model, cfg, TrainerConfig(steps=TRAIN_STEPS))
     state, prof = _step_profile(trainer._step_fn, state, tokens, labels)
@@ -5430,11 +5906,7 @@ def phase_train(ctx):
         log(f"[train]   backward launch {t['ms']:8.3f} ms a step, "
             f"{t['launches']:.0f} launches, {t['ms_per_launch']:.4f} ms a "
             f"launch  {t['name'][:80]}")
-    out["trainer"] = {"steps": TRAIN_STEPS, "step_ms": step_ms,
-                      "tokens_per_s": TRAIN_B * TRAIN_S / step_ms * 1e3,
-                      "peak_gb": peak / 1e9, "losses": losses,
-                      "walls_s": walls, "launches": got,
-                      "profile": prof, "optimizer_device_ms": opt_ms}
+    out["trainer"] = {**rec, "profile": prof, "optimizer_device_ms": opt_ms}
     del state, trainer
     torch.cuda.empty_cache()
 
@@ -5487,6 +5959,24 @@ def phase_train(ctx):
         ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
     out["partitioned"] = {**s, "steps": PART_STEPS, "seconds": part_s,
                           "launches": pcounts}
+
+    # 6. Mamba2-2.7B and DeepSeek-V2-Lite at full width: every layer held,
+    # the first step end to end at a cut depth, the Trainer's steps counted
+    out["archs"] = []
+    for arch, layers, B, S, holds, steps, lr in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        res, counts = _train_arch(arch, layers, B, S, holds, steps, lr,
+                                  fails, smi)
+        res["seconds"] = time.perf_counter() - t0
+        out["archs"].append(res)
+        for k, n in counts.items():
+            ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
+
+    # 7. the tiny Jamba, card against CPU, launches counted from zero
+    out["tiny"], counts = _tiny_card_step(TINY_TRAIN_ARCH, TINY_TRAIN_B,
+                                          TINY_TRAIN_S, fails)
+    for k, n in counts.items():
+        ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
     ctx["train"] = out
     if fails:
         raise AssertionError(f"train phase failed: {fails}")
@@ -5590,12 +6080,18 @@ def main(argv=None):
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms")})
     # the backward kernels of the training path, at SmolLM-360M's training
-    # shapes (attention B=8, S=2048; norms 16384 x 960, bf16)
+    # shapes (attention B=8, S=2048; norms 16384 x 960, bf16) and Mamba2-
+    # 2.7B's layer (B=2, S=2048, bf16), each with every shape it was timed
+    # at (the attention backward's 192 tiles among them) as "instances"
     train = ctx.get("train", {})
-    first = {"flash_attention_bwd": (train.get("attention") or [{}])[0],
-             "rmsnorm_bwd": (train.get("rmsnorm") or [{}])[0]}
+    rows = {"flash_attention_bwd": train.get("attention") or [{}],
+            "rmsnorm_bwd": train.get("rmsnorm") or [{}],
+            "ssd_scan_bwd": train.get("ssd") or [{}]}
+    keep = ("name", "rows", "D", "Dv", "shape", "dtype", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_dev_ms")
     for name, (source, replaces) in TRAIN_REPLACES.items():
-        r = first[name]
+        r = rows[name][0]
         by_path = ({"train": ctx["train_launches"][name]}
                    if "train_launches" in ctx else {})
         kernels.append({
@@ -5607,7 +6103,9 @@ def main(argv=None):
             "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"),
-            "library_dev_ms": r.get("library_dev_ms")})
+            "library_dev_ms": r.get("library_dev_ms"),
+            "instances": [{k: i[k] for k in keep if k in i}
+                          for i in rows[name]]})
     # the port's kernels with no Pallas counterpart: compose_grads at the
     # 32-stage refine shape, family_score at the fleet tick's history, each
     # with its device time (the chain estimates stay in the log: they are

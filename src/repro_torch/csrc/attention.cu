@@ -1036,7 +1036,9 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 // input dtype, written through their strides. dQ is a second pass that
 // recomputes S and dP: the price of writing dQ without atomics (writing dS
 // out for a later pass would move more bytes than the two products cost).
-// bf16 (fa_bwd_dkdv_kernel<DP>, fa_bwd_dq_kernel<DP>): bound by operations
+// bf16 (fa_bwd_dkdv_kernel<DP, DV, PART>, fa_bwd_dq_kernel<DP, DV>): q/k
+// tiles of DP = 64, 128 or 192 columns, v and dO tiles of DV = DP or MLA's
+// (192, 128), each operand sized on its own; bound by operations
 // (seven products of 2 Sq Sk D flops a head, halved when causal), so every
 // product is wgmma, in the shape of fa_wgmma_kernel (FlashAttention-3):
 //   * a producer warpgroup (one thread issuing TMA loads, registers handed
@@ -1050,14 +1052,19 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 //     transposed. dP^T runs while P^T is exponentiated, dV's products while
 //     dS^T is formed;
 //   * dQ: the block's 128 queries of Q and dO are loaded once; the ring
-//     carries (K, V) tiles of BK keys (128 at DP = 64, 64 at DP = 128, for
+//     carries (K, V) tiles of BK keys (128 at DP = 64, 64 above, for
 //     registers). S = Q K^T and dP = dO V^T are wgmma from shared memory,
 //     dQ += dS K reads K MN-major;
 //   * masks are evaluated only on tiles that cross the causal diagonal, a
 //     window's edge or (dQ) the ragged end of Sk; tiles that the masks
 //     exclude are skipped; TMA's zero fill covers rows past S and columns
-//     past D (D <= 64 runs in DP = 64, 64 < D <= 128 in DP = 128), and
+//     past D (D <= 64 runs in DP = 64, 64 < D <= 128 in DP = 128, up to
+//     192 in DP = 192), and
 //     padded query rows have an LSE of +inf, so P = 0 there;
+//   * at DP = 192 a dK/dV block cannot hold both accumulators (192
+//     registers a thread beside S^T and dP^T, over setmaxnreg's 240), so
+//     dK (BWD_DK) and dV (BWD_DV) are two launches over the same tiles,
+//     each recomputing S^T: four launches a call in place of three;
 //   * the heaviest causal tiles are launched first (key tile 0 for dK/dV,
 //     the last query tile for dQ: the tile index is the grid's slowest
 //     axis).
@@ -1363,23 +1370,39 @@ __device__ __forceinline__ bool bwd_pair_live(const BwdWgArgs& a, int qpos,
          (a.window < 0 || qpos - kpos < a.window);
 }
 
-template <int DP> struct BwdTile {
-  static constexpr int NP = DP / 64;
+// The tiles of the bf16 backward: q/k tile DP and v tile DV (equal, or
+// MLA's (192, 128)), each a run of 64-column panels; q, k in NP panels,
+// v and dO in NPV
+template <int DP, int DV> struct BwdTile {
+  static constexpr int NP = DP / 64, NPV = DV / 64;
   // dK/dV: K and V of the block's keys, then the ring of (Q, dO) tiles,
   // then each stage's LSE and D_i rows
-  static constexpr int KV_BYTES = NP * BWD_BKV * PANEL_ROW;
+  static constexpr int K_BYTES = NP * BWD_BKV * PANEL_ROW;
+  static constexpr int V_BYTES = NPV * BWD_BKV * PANEL_ROW;
   static constexpr int QT_BYTES = NP * BWD_BQ * PANEL_ROW;
-  static constexpr int DKDV_ROWS = 2 * KV_BYTES + 2 * BWD_STAGES * QT_BYTES;
+  static constexpr int GT_BYTES = NPV * BWD_BQ * PANEL_ROW;
+  static constexpr int DKDV_ROWS =
+      K_BYTES + V_BYTES + BWD_STAGES * (QT_BYTES + GT_BYTES);
   static constexpr int DKDV_BAR = DKDV_ROWS + 2 * BWD_STAGES * BWD_BQ * 4;
   static constexpr int DKDV_SMEM = DKDV_BAR + (1 + 2 * BWD_STAGES) * 8 + 1024;
   // dQ: Q and dO of the block's queries, then the ring of (K, V) tiles of
   // BK keys
   static constexpr int BK = DP <= 64 ? 128 : 64;
   static constexpr int Q_BYTES = NP * BWD_BQD * PANEL_ROW;
+  static constexpr int G_BYTES = NPV * BWD_BQD * PANEL_ROW;
   static constexpr int KT_BYTES = NP * BK * PANEL_ROW;
-  static constexpr int DQ_BAR = 2 * Q_BYTES + 2 * BWD_STAGES * KT_BYTES;
+  static constexpr int VT_BYTES = NPV * BK * PANEL_ROW;
+  static constexpr int DQ_BAR =
+      Q_BYTES + G_BYTES + BWD_STAGES * (KT_BYTES + VT_BYTES);
   static constexpr int DQ_SMEM = DQ_BAR + (1 + 3 * BWD_STAGES) * 8 + 1024;
 };
+
+// What a dK/dV launch accumulates. Up to DP = 128 one pass holds both
+// (dk[DP / 2] and dv[DV / 2] a consumer thread, 128 registers at DP 128);
+// at DP = 192 the two would take 192 beside S^T and dP^T, over the 240 of
+// setmaxnreg, so dK and dV take a pass each over the same tiles (S^T is
+// computed twice): 96 accumulators a thread.
+enum { BWD_BOTH = 0, BWD_DK = 1, BWD_DV = 2 };
 
 // D_i = rowsum(dO . O) and the LSE in log2 units, into (B, Hq, Sq_pad) rows
 // (0 and +inf past Sq): G lanes a row, one 16-byte vector of O and of dO
@@ -1416,24 +1439,26 @@ fa_bwd_prep_kernel(BwdArgs a, int Sq_pad, float* lse2, float* delta) {
   }
 }
 
-// dK and dV: one block per (kv head, batch, key tile of 128 keys; key tile
-// 0, the heaviest under a causal mask, first). Consumer warpgroup wg owns
-// keys k0 + 64 wg .. + 63; the producer streams the (Q, dO, LSE, D_i) tiles
-// of the kv head's query heads, head by head, in query order.
-template <int DP>
+// dK and dV (PART: both, or one of them): one block per (kv head, batch,
+// key tile of 128 keys; key tile 0, the heaviest under a causal mask,
+// first). Consumer warpgroup wg owns keys k0 + 64 wg .. + 63; the producer
+// streams the (Q, dO, LSE, D_i) tiles of the kv head's query heads, head by
+// head, in query order.
+template <int DP, int DV, int PART>
 __global__ void __launch_bounds__(FA3_THREADS, 1)
 fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap gmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, BwdWgArgs a) {
-  using Tl = BwdTile<DP>;
-  constexpr int NP = Tl::NP;
+  using Tl = BwdTile<DP, DV>;
+  constexpr int NP = Tl::NP, NPV = Tl::NPV;
+  constexpr bool WANT_DK = PART != BWD_DV, WANT_DV = PART != BWD_DK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t sK = smem_u32(smem);
-  const uint32_t sV = sK + Tl::KV_BYTES;
-  const uint32_t sQ = sV + Tl::KV_BYTES;                 // [BWD_STAGES]
+  const uint32_t sV = sK + Tl::K_BYTES;
+  const uint32_t sQ = sV + Tl::V_BYTES;                  // [BWD_STAGES]
   const uint32_t sG = sQ + BWD_STAGES * Tl::QT_BYTES;   // [BWD_STAGES]
   float* sL = reinterpret_cast<float*>(smem + Tl::DKDV_ROWS);
   float* sD = sL + BWD_STAGES * BWD_BQ;
@@ -1467,24 +1492,26 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   if (warp >= 4 * NWG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == 4 * NWG && lane == 0) {
-      mbar_expect_tx(barKV, 2 * Tl::KV_BYTES);
-      for (int p = 0; p < NP; ++p) {
+      mbar_expect_tx(barKV, Tl::K_BYTES + Tl::V_BYTES);
+      for (int p = 0; p < NP; ++p)
         tma_load_4d(sK + p * BWD_BKV * PANEL_ROW, &kmap, barKV, 64 * p, k0,
                     hk, b);
+      for (int p = 0; p < NPV; ++p)
         tma_load_4d(sV + p * BWD_BKV * PANEL_ROW, &vmap, barKV, 64 * p, k0,
                     hk, b);
-      }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % BWD_STAGES;
         const int h = hk * a.group + t / nq;
         const int q0 = q_begin + (t % nq) * BWD_BQ;
         if (t >= BWD_STAGES) mbar_wait(barE(s), ((t / BWD_STAGES) - 1) & 1);
-        mbar_expect_tx(barF(s), 2 * Tl::QT_BYTES + 2 * BWD_BQ * 4);
-        for (int p = 0; p < NP; ++p) {
-          const uint32_t off = s * Tl::QT_BYTES + p * BWD_BQ * PANEL_ROW;
-          tma_load_4d(sQ + off, &qmap, barF(s), 64 * p, q0, h, b);
-          tma_load_4d(sG + off, &gmap, barF(s), 64 * p, q0, h, b);
-        }
+        mbar_expect_tx(barF(s),
+                       Tl::QT_BYTES + Tl::GT_BYTES + 2 * BWD_BQ * 4);
+        for (int p = 0; p < NP; ++p)
+          tma_load_4d(sQ + s * Tl::QT_BYTES + p * BWD_BQ * PANEL_ROW, &qmap,
+                      barF(s), 64 * p, q0, h, b);
+        for (int p = 0; p < NPV; ++p)
+          tma_load_4d(sG + s * Tl::GT_BYTES + p * BWD_BQ * PANEL_ROW, &gmap,
+                      barF(s), 64 * p, q0, h, b);
         const long long row = ((long long)b * a.Hq + h) * a.Sq_pad + q0;
         bulk_load(smem_u32(sL + s * BWD_BQ), a.lse2 + row, BWD_BQ * 4,
                   barF(s));
@@ -1501,9 +1528,12 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   const int krow = kw + 16 * (warp & 3) + (lane >> 2);  // and krow + 8
   const uint32_t sKw = sK + wg * 64 * PANEL_ROW;
   const uint32_t sVw = sV + wg * 64 * PANEL_ROW;
-  float dk[DP / 2], dv[DP / 2];
+  // the accumulators of the pass (one word where the pass has none)
+  float dk[WANT_DK ? DP / 2 : 1], dv[WANT_DV ? DV / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < (WANT_DK ? DP / 2 : 1); ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (WANT_DV ? DV / 2 : 1); ++i) dv[i] = 0.f;
   mbar_wait(barKV, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % BWD_STAGES, phase = (t / BWD_STAGES) & 1;
@@ -1519,20 +1549,25 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(barF(s), phase);
     if (!skip) {
       const uint32_t sQs = sQ + s * Tl::QT_BYTES;
-      const uint32_t sGs = sG + s * Tl::QT_BYTES;
+      const uint32_t sGs = sG + s * Tl::GT_BYTES;
       const float* Ls = sL + s * BWD_BQ;
       const float* Ds = sD + s * BWD_BQ;
-      // S^T = K Q^T and dP^T = V dO^T: two groups, S^T's first
-      float st[BWD_BQ / 2], dpt[BWD_BQ / 2];
+      // S^T = K Q^T and dP^T = V dO^T: two groups, S^T's first (no dP^T
+      // in a dV pass)
+      float st[BWD_BQ / 2], dpt[WANT_DK ? BWD_BQ / 2 : 1];
       wgmma_fence();
       issue_ss<DP, BWD_BQ>(st, sKw, BWD_BKV, sQs, BWD_BQ);
       wgmma_commit();
-      issue_ss<DP, BWD_BQ>(dpt, sVw, BWD_BKV, sGs, BWD_BQ);
-      wgmma_commit();
-      wgmma_wait<1>();
+      if constexpr (WANT_DK) {
+        issue_ss<DV, BWD_BQ>(dpt, sVw, BWD_BKV, sGs, BWD_BQ);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
       fence_regs(st);
       // P^T in place (float32), and rounded to bf16 as dV's A fragments
-      uint32_t pa[BWD_BQ / 4];
+      uint32_t pa[WANT_DV ? BWD_BQ / 4 : 1];
 #pragma unroll
       for (int i = 0; i < BWD_BQ / 2; i += 2) {
         const int col = 8 * (i >> 2) + 2 * t4;  // query offset of st[i]
@@ -1546,32 +1581,42 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         st[i] = p0;
         st[i + 1] = p1;
-        pa[i >> 1] = pack2(p0, p1);
+        if constexpr (WANT_DV) pa[i >> 1] = pack2(p0, p1);
       }
-      // dV += P^T dO, dO read MN-major
-      wgmma_fence();
-      issue_rs<BWD_BQ, DP>(dv, pa, sGs, BWD_BQ);
-      wgmma_commit();
-      wgmma_wait<1>();  // dP^T is done; dV's products may still run
-      fence_regs(dpt);
-      // dS^T = P^T (dP^T - D_i), rounded to bf16 as dK's A fragments
-      uint32_t da[BWD_BQ / 4];
+      if constexpr (WANT_DV) {
+        // dV += P^T dO, dO read MN-major
+        wgmma_fence();
+        issue_rs<BWD_BQ, DV>(dv, pa, sGs, BWD_BQ);
+        wgmma_commit();
+      }
+      if constexpr (WANT_DK) {
+        // dP^T is done; dV's products may still run
+        if constexpr (WANT_DV) wgmma_wait<1>();
+        else wgmma_wait<0>();
+        fence_regs(dpt);
+        // dS^T = P^T (dP^T - D_i), rounded to bf16 as dK's A fragments
+        uint32_t da[BWD_BQ / 4];
 #pragma unroll
-      for (int i = 0; i < BWD_BQ / 2; i += 2) {
-        const int col = 8 * (i >> 2) + 2 * t4;
-        const float2 Di = *reinterpret_cast<const float2*>(Ds + col);
-        da[i >> 1] = pack2(st[i] * (dpt[i] - Di.x),
-                           st[i + 1] * (dpt[i + 1] - Di.y));
+        for (int i = 0; i < BWD_BQ / 2; i += 2) {
+          const int col = 8 * (i >> 2) + 2 * t4;
+          const float2 Di = *reinterpret_cast<const float2*>(Ds + col);
+          da[i >> 1] = pack2(st[i] * (dpt[i] - Di.x),
+                             st[i + 1] * (dpt[i + 1] - Di.y));
+        }
+        // dK += dS^T Q, Q read MN-major
+        wgmma_fence();
+        issue_rs<BWD_BQ, DP>(dk, da, sQs, BWD_BQ);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(da);  // the product reads da until here
+        fence_regs(dk);
+      } else {
+        wgmma_wait<0>();
       }
-      // dK += dS^T Q, Q read MN-major
-      wgmma_fence();
-      issue_rs<BWD_BQ, DP>(dk, da, sQs, BWD_BQ);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pa);  // the products read pa and da until here
-      fence_regs(da);
-      fence_regs(dv);
-      fence_regs(dk);
+      if constexpr (WANT_DV) {
+        fence_regs(pa);  // the product reads pa until here
+        fence_regs(dv);
+      }
     }
     // the stage goes back to the producer
     if (lane == 0) mbar_arrive(barE(s));
@@ -1581,17 +1626,27 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int hf = 0; hf < 2; ++hf) {
     const int kp = krow + 8 * hf;
     if (kp >= a.Sk) continue;
-    bf16* dkr = a.dk + b * a.dks.b + hk * a.dks.h + kp * a.dks.s;
-    bf16* dvr = a.dv + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s;
+    if constexpr (WANT_DK) {
+      bf16* dkr = a.dk + b * a.dks.b + hk * a.dks.h + kp * a.dks.s;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * t4;
-      if (col < a.D)
-        *reinterpret_cast<__nv_bfloat162*>(dkr + col) = __floats2bfloat162_rn(
-            dk[4 * j + 2 * hf] * a.scale, dk[4 * j + 2 * hf + 1] * a.scale);
-      if (col < a.Dv)
-        *reinterpret_cast<__nv_bfloat162*>(dvr + col) = __floats2bfloat162_rn(
-            dv[4 * j + 2 * hf], dv[4 * j + 2 * hf + 1]);
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(dkr + col) =
+              __floats2bfloat162_rn(dk[4 * j + 2 * hf] * a.scale,
+                                    dk[4 * j + 2 * hf + 1] * a.scale);
+      }
+    }
+    if constexpr (WANT_DV) {
+      bf16* dvr = a.dv + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col < a.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(dvr + col) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * hf],
+                                    dv[4 * j + 2 * hf + 1]);
+      }
     }
   }
 }
@@ -1600,20 +1655,20 @@ fa_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
 // query tile, the heaviest under a causal mask, first). Consumer warpgroup
 // wg owns queries q0 + 64 wg .. + 63; the producer streams the (K, V)
 // tiles of BK keys that the block's queries see.
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(FA3_THREADS, 1)
 fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap gmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, BwdWgArgs a) {
-  using Tl = BwdTile<DP>;
-  constexpr int NP = Tl::NP, BK = Tl::BK;
+  using Tl = BwdTile<DP, DV>;
+  constexpr int NP = Tl::NP, NPV = Tl::NPV, BK = Tl::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t sQ = smem_u32(smem);
   const uint32_t sG = sQ + Tl::Q_BYTES;
-  const uint32_t sK = sG + Tl::Q_BYTES;                  // [BWD_STAGES]
+  const uint32_t sK = sG + Tl::G_BYTES;                  // [BWD_STAGES]
   const uint32_t sV = sK + BWD_STAGES * Tl::KT_BYTES;   // [BWD_STAGES]
   const uint32_t bar = sQ + Tl::DQ_BAR;
   // barriers: Q and dO full; K full, V full and stage released [BWD_STAGES]
@@ -1646,13 +1701,13 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   if (warp >= 4 * NWG) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (warp == 4 * NWG && lane == 0) {
-      mbar_expect_tx(barQ, 2 * Tl::Q_BYTES);
-      for (int p = 0; p < NP; ++p) {
+      mbar_expect_tx(barQ, Tl::Q_BYTES + Tl::G_BYTES);
+      for (int p = 0; p < NP; ++p)
         tma_load_4d(sQ + p * BWD_BQD * PANEL_ROW, &qmap, barQ, 64 * p, q0, h,
                     b);
+      for (int p = 0; p < NPV; ++p)
         tma_load_4d(sG + p * BWD_BQD * PANEL_ROW, &gmap, barQ, 64 * p, q0, h,
                     b);
-      }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % BWD_STAGES;
         const int kt = k_begin + t * BK;
@@ -1661,9 +1716,9 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int p = 0; p < NP; ++p)
           tma_load_4d(sK + s * Tl::KT_BYTES + p * BK * PANEL_ROW, &kmap,
                       barK(s), 64 * p, kt, hk, b);
-        mbar_expect_tx(barV(s), Tl::KT_BYTES);
-        for (int p = 0; p < NP; ++p)
-          tma_load_4d(sV + s * Tl::KT_BYTES + p * BK * PANEL_ROW, &vmap,
+        mbar_expect_tx(barV(s), Tl::VT_BYTES);
+        for (int p = 0; p < NPV; ++p)
+          tma_load_4d(sV + s * Tl::VT_BYTES + p * BK * PANEL_ROW, &vmap,
                       barV(s), 64 * p, kt, hk, b);
       }
     }
@@ -1701,12 +1756,12 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(barV(s), phase);
     if (!skip) {
       const uint32_t sKs = sK + s * Tl::KT_BYTES;
-      const uint32_t sVs = sV + s * Tl::KT_BYTES;
+      const uint32_t sVs = sV + s * Tl::VT_BYTES;
       float sc[BK / 2], dp[BK / 2];
       wgmma_fence();
       issue_ss<DP, BK>(sc, sQw, BWD_BQD, sKs, BK);
       wgmma_commit();
-      issue_ss<DP, BK>(dp, sGw, BWD_BQD, sVs, BK);
+      issue_ss<DV, BK>(dp, sGw, BWD_BQD, sVs, BK);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(sc);
@@ -1797,9 +1852,23 @@ void launch_prep(const BwdArgs& a, int Sq_pad, float* lse2, float* delta,
                                                               lse2, delta);
 }
 
-template <int DP>
+template <int DP, int DV, int PART>
+int launch_dkdv(const CUtensorMap& qt, const CUtensorMap& gt,
+                const CUtensorMap& kb, const CUtensorMap& vb,
+                const BwdWgArgs& w, int B, int Hkv, int Sk,
+                cudaStream_t stream) {
+  using Tl = BwdTile<DP, DV>;
+  const int err = set_smem(fa_bwd_dkdv_kernel<DP, DV, PART>, Tl::DKDV_SMEM);
+  if (err != 0) return err;
+  fa_bwd_dkdv_kernel<DP, DV, PART>
+      <<<dim3(Hkv, B, (Sk + BWD_BKV - 1) / BWD_BKV), FA3_THREADS,
+         Tl::DKDV_SMEM, stream>>>(qt, gt, kb, vb, w);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int DV>
 int backward_bf16(const BwdArgs& a, float* scratch, cudaStream_t stream) {
-  using Tl = BwdTile<DP>;
+  using Tl = BwdTile<DP, DV>;
   const int Sq_pad = bwd_rows(a.Sq);
   float* lse2 = scratch;
   float* delta = scratch + (long long)a.B * a.Hq * Sq_pad;
@@ -1807,7 +1876,8 @@ int backward_bf16(const BwdArgs& a, float* scratch, cudaStream_t stream) {
   if (nvec <= 2) launch_prep<2>(a, Sq_pad, lse2, delta, stream);
   else if (nvec <= 4) launch_prep<4>(a, Sq_pad, lse2, delta, stream);
   else if (nvec <= 8) launch_prep<8>(a, Sq_pad, lse2, delta, stream);
-  else launch_prep<16>(a, Sq_pad, lse2, delta, stream);
+  else if (nvec <= 16) launch_prep<16>(a, Sq_pad, lse2, delta, stream);
+  else launch_prep<32>(a, Sq_pad, lse2, delta, stream);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   // q and dO by 64-row tiles (dK/dV) and 128-row tiles (dQ); k and v by
@@ -1843,16 +1913,20 @@ int backward_bf16(const BwdArgs& a, float* scratch, cudaStream_t stream) {
   w.window = a.window;
   w.scale = a.scale;
   w.scale_log2 = a.scale * LOG2E;
-  err = set_smem(fa_bwd_dkdv_kernel<DP>, Tl::DKDV_SMEM);
-  if (err == 0) err = set_smem(fa_bwd_dq_kernel<DP>, Tl::DQ_SMEM);
+  if constexpr (DP <= 128) {
+    err = launch_dkdv<DP, DV, BWD_BOTH>(qt, gt, kb, vb, w, a.B, a.Hkv, a.Sk,
+                                        stream);
+  } else {  // dK and dV a pass each (registers: see BWD_BOTH)
+    err = launch_dkdv<DP, DV, BWD_DK>(qt, gt, kb, vb, w, a.B, a.Hkv, a.Sk,
+                                      stream);
+    if (err == 0)
+      err = launch_dkdv<DP, DV, BWD_DV>(qt, gt, kb, vb, w, a.B, a.Hkv, a.Sk,
+                                        stream);
+  }
+  if (err == 0) err = set_smem(fa_bwd_dq_kernel<DP, DV>, Tl::DQ_SMEM);
   if (err != 0) return err;
-  fa_bwd_dkdv_kernel<DP>
-      <<<dim3(a.Hkv, a.B, (a.Sk + BWD_BKV - 1) / BWD_BKV), FA3_THREADS,
-         Tl::DKDV_SMEM, stream>>>(qt, gt, kb, vb, w);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  fa_bwd_dq_kernel<DP><<<dim3(a.Hq, a.B, Sq_pad / BWD_BQD), FA3_THREADS,
-                         Tl::DQ_SMEM, stream>>>(qb, gb, kt, vt, w);
+  fa_bwd_dq_kernel<DP, DV><<<dim3(a.Hq, a.B, Sq_pad / BWD_BQD), FA3_THREADS,
+                             Tl::DQ_SMEM, stream>>>(qb, gb, kt, vt, w);
   return (int)cudaGetLastError();
 }
 
@@ -1957,10 +2031,11 @@ extern "C" long long flash_attention_bwd_scratch(int dtype, int B, int Hq,
 // and lse: dq, dk and dv in the input dtype. strides: 24 element strides,
 // the (B, H, S) strides of q, k, v, o, dO, dq, dk, dv in that order, each
 // with a unit stride on its last axis; delta: flash_attention_bwd_scratch
-// floats. float32: D, Dv <= 128. bf16: D, Dv multiples of 8 up to 128 in
-// one tile (both <= 64, or both in 65 .. 128); q, k, v and dO are read by
+// floats. float32: D, Dv <= 192. bf16: D, Dv multiples of 8 up to 192 whose
+// tiles are equal (64, 128, 192) or (192, 128); q, k, v and dO are read by
 // TMA and o with 16-byte loads, so their bases and B, H and S strides must
-// be multiples of 16 bytes. Three launches; returns cudaGetLastError().
+// be multiples of 16 bytes. Three launches (four at the 192 tile: dK and dV
+// a pass each); returns cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1968,7 +2043,7 @@ extern "C" int flash_attention_bwd_launch(
     const long long* strides, int causal, int window, float scale,
     void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Sk <= 0 ||
-      D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || B > 65535 || Hq > 65535 ||
+      D <= 0 || D > 192 || Dv <= 0 || Dv > 192 || B > 65535 || Hq > 65535 ||
       strides == nullptr || Sq > 65535 * BWD_PAD || Sk > 65535 * BWD_BKV)
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
@@ -2005,14 +2080,16 @@ extern "C" int flash_attention_bwd_launch(
     if (err != 0) return err;
     const int cols = D > Dv ? D : Dv;
     if (cols <= 64) return backward_f32<8>(a, s);
-    return backward_f32<16>(a, s);
+    if (cols <= 128) return backward_f32<16>(a, s);
+    return backward_f32<24>(a, s);
   }
   if (dtype == DT_BF16 && D % 8 == 0 && Dv % 8 == 0) {
-    const bool small = D <= 64 && Dv <= 64, large = D > 64 && Dv > 64;
-    if (!small && !large) return (int)cudaErrorInvalidValue;
+    const int dp = bf16_tile(D), dv = bf16_tile(Dv);
     float* scratch = static_cast<float*>(delta);
-    return small ? backward_bf16<64>(a, scratch, s)
-                 : backward_bf16<128>(a, scratch, s);
+    if (dp == 64 && dv == 64) return backward_bf16<64, 64>(a, scratch, s);
+    if (dp == 128 && dv == 128) return backward_bf16<128, 128>(a, scratch, s);
+    if (dp == 192 && dv == 192) return backward_bf16<192, 192>(a, scratch, s);
+    if (dp == 192 && dv == 128) return backward_bf16<192, 128>(a, scratch, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -83,6 +83,9 @@
 //
 // Repeatability: no atomics; every sum has a fixed order (the mma's own,
 // the chunk order, the group order), so two runs give the same bits.
+//
+// The file also holds the scan's backward (ssd_bwd_kernel and its
+// launcher, ssd_scan_bwd_launch, at the end), which reuses passes 1 and 2.
 #include <cstdint>
 
 #include "dtype.cuh"
@@ -1056,6 +1059,566 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- Backward
+//
+// The gradient jax.grad takes of the JAX package's XLA scan
+// (src/repro/kernels/ops.py:130 _ssd_xla_chunked; the reference trains
+// through it, its Pallas kernel has no VJP) for a cotangent dy of y (the
+// final state has none): dx, ddt, dA, dB, dC, dD. The sequence is cut into
+// chunks of L rows (the wrapper's choice, at most 64: a chunk's tiles and
+// two L x L score matrices live in shared memory as float32). With S_c the
+// state entering chunk c, cum the inclusive cumsum of a = dt A_h in it,
+// e_ts = exp(min(cum_t - cum_s, 0)) and w_s = exp(cum_L - cum_s) dt_s, the
+// chunks are walked in reverse carrying dS, the cotangent of the state
+// leaving the chunk (zero after the last):
+//
+//   dS_c  = exp(cum_L) dS + sum_t exp(cum_t) dy_t (x) C_t
+//   dx_s  = D dy_s + dt_s sum_{t>=s} (C_t.B_s) e_ts dy_t + w_s dS B_s
+//   dB_s  = sum_{t>=s} e_ts dt_s (dy_t.x_s) C_t + w_s dS^T x_s
+//   dC_t  = exp(cum_t) S_c^T dy_t + sum_{s<=t} e_ts dt_s (dy_t.x_s) B_s
+//   dcum  gathers exp(cum_t) C_t.(S_c^T dy_t) at t; +G_ts f_ts at t and
+//         -G_ts f_ts at s, G_ts = (C_t.B_s) e_ts dt_s (dy_t.x_s) on t >= s,
+//         f_ts the clamp's gradient: 1 below 0, 0.5 at a tie (JAX's
+//         jnp.minimum; the diagonal cancels), 0 above; exp(cum_L) <dS, S_c>
+//         + sum_s w_s q_s at L and -w_s q_s at s, q_s = B_s.(dS^T x_s)
+//   da_t  = sum_{u>=t} dcum_u within the chunk;
+//   ddt_t = da_t A + sum_{u>=t} (C_u.B_t) e_ut (dy_u.x_t)
+//           + exp(cum_L - cum_t) q_t,  dA = sum da_t dt_t,  dD = sum dy.x
+//
+// The reference clamps within its own chunks of Lf rows (the forward's),
+// and L may be shorter. A pair of one backward chunk that lies in two
+// forward chunks reaches y through the reference's state: its f_ts is 1,
+// tie or not. A tied pair of one forward chunk that lies in two backward
+// chunks reaches dcum through the kernel's state, with 1 in place of the
+// clamp's 0.5: step 4 takes the other half back.
+//
+// dB and dC sum the H / G heads of each group, dA and dD batch and
+// sequence. Four steps:
+//   1. every chunk's incoming state S_c into a float32 scratch of
+//      (B, H, nc - 1, P, N): the forward's ssd_pass1_kernel and
+//      ssd_pass2_kernel with groups of one chunk (the state is recomputed,
+//      not saved by the forward: 64 Mamba2 layers would hold 5.4 GB);
+//   2. ssd_bwd_kernel, one block per (b, h) walking its chunks in reverse
+//      with dS in shared memory: dx and ddt of its head, and its head's
+//      share of dB and dC (per row) and of dA and dD;
+//   3. with Lf > L, ssd_bwd_tie_kernel: the ties across a backward chunk
+//      boundary inside a forward chunk, one block per (b, h);
+//   4. ssd_bwd_reduce_kernel: the heads of each group and the batch, in
+//      a fixed order.
+// Products: float32 FMAs on the CUDA cores, not the forward's split bf16
+// planes: a simple kernel first, with float32 sums that hold the plain
+// version at 2e-4 in float32 with no plane bookkeeping; what bounds it is
+// operations (per chunk about L^2 (N + P) + 2 L N (L + P) + L P (L + N) +
+// L P N multiply-adds, ~4 M at L = 64, P = 64, N = 128), each read from
+// shared memory. Step 1's states follow the forward's planes (~2^-17
+// relative in bf16, float32 in float32). No atomics: every sum has a fixed
+// order, so two runs give the same bits.
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_TI = 8;  // rows a thread holds in a product (one per warp)
+constexpr int BWD_MAX_L = 64;  // the chunk, at most, where Lf > L
+
+// float32 words of the backward block's shared memory (row strides padded
+// by one word so that a warp walking rows hits distinct banks)
+__host__ __device__ inline long long bwd_smem_floats(int L, int P, int N) {
+  return 2LL * P * (N + 1) + 2LL * L * (P + 1) + 2LL * L * (N + 1) +
+         2LL * L * (L + 1) + 10LL * L + BWD_WARPS;
+}
+
+struct BwdArgs {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* Bm;
+  const void* Cm;
+  const float* D;
+  const void* dy;       // (B, S, H, P) dense, x's dtype
+  const float* states;  // (B, H, nc - 1, P, N): S_c at c - 1
+  void* dx;             // (B, S, H, P) dense, x's dtype
+  float* ddt;           // (B, S, H) dense
+  float* dbp;           // (B, S, H, N): each head's share of dB
+  float* dcp;           // (B, S, H, N): and of dC
+  float* part;          // (B, H, 2): each sequence's share of dA and dD
+  int B, S, H, P, G, N, L;
+  int Lf;               // the forward's chunk, min(chunk, S)
+  long long xs_b, xs_s, xs_h, ds_b, ds_s, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g;
+};
+
+// one operand pair of a product in shared memory: a(i, k) = a[i ai + k ak]
+// (times ks[k] where ks is set), b(k, j) = b[k bk + j bj], k < K
+struct Op {
+  const float* a;
+  int ai, ak;
+  const float* b;
+  int bk, bj;
+  const float* ks;
+  int K;
+};
+
+// out(i, j) = sum_k a(i, k) b(k, j) of two operand pairs at once (K = 0
+// for none), i < M, j < Nc, each sum in k order. Rows go to warps (i =
+// i0 + warp + 8 ii, so a warp's lanes share the a values), columns to
+// lanes (j = j0 + lane + 32 jj, neighbouring lanes on neighbouring or
+// odd-strided words). epi(i, j, v0, v1) stores and returns a term of row
+// i's dot; with rowdot set, each row's terms are summed over its lanes in
+// a fixed butterfly and added to rowdot[i].
+template <int TJ, typename Epi>
+__device__ __forceinline__ void mm(int M, int Nc, const Op& o0,
+                                   const Op& o1, float* rowdot, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < M; i0 += BWD_WARPS * BWD_TI)
+    for (int j0 = 0; j0 < Nc; j0 += 32 * TJ) {
+      int ir[BWD_TI], jc[TJ];
+#pragma unroll
+      for (int ii = 0; ii < BWD_TI; ++ii)
+        ir[ii] = min(i0 + warp + BWD_WARPS * ii, M - 1);
+#pragma unroll
+      for (int jj = 0; jj < TJ; ++jj) jc[jj] = min(j0 + lane + 32 * jj, Nc - 1);
+      float acc[2][BWD_TI][TJ];
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const Op& p = o == 0 ? o0 : o1;
+#pragma unroll
+        for (int ii = 0; ii < BWD_TI; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < TJ; ++jj) acc[o][ii][jj] = 0.f;
+        for (int k = 0; k < p.K; ++k) {
+          const float sc = p.ks != nullptr ? p.ks[k] : 1.f;
+          float av[BWD_TI], bv[TJ];
+#pragma unroll
+          for (int ii = 0; ii < BWD_TI; ++ii)
+            av[ii] = p.a[ir[ii] * p.ai + k * p.ak] * sc;
+#pragma unroll
+          for (int jj = 0; jj < TJ; ++jj) bv[jj] = p.b[k * p.bk + jc[jj] * p.bj];
+#pragma unroll
+          for (int ii = 0; ii < BWD_TI; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < TJ; ++jj)
+              acc[o][ii][jj] = fmaf(av[ii], bv[jj], acc[o][ii][jj]);
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < BWD_TI; ++ii) {
+        const int i = i0 + warp + BWD_WARPS * ii;
+        float dot = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < TJ; ++jj) {
+          const int j = j0 + lane + 32 * jj;
+          if (i < M && j < Nc) dot += epi(i, j, acc[0][ii][jj], acc[1][ii][jj]);
+        }
+        if (rowdot != nullptr) {
+          dot = warp_sum(dot);
+          if (lane == 0 && i < M) rowdot[i] += dot;
+        }
+      }
+    }
+}
+
+// mm with the column tile fitted to Nc
+template <typename Epi>
+__device__ __forceinline__ void mm_fit(int M, int Nc, const Op& o0,
+                                       const Op& o1, float* rowdot, Epi epi) {
+  if (Nc <= 32) mm<1>(M, Nc, o0, o1, rowdot, epi);
+  else if (Nc <= 64) mm<2>(M, Nc, o0, o1, rowdot, epi);
+  else mm<4>(M, Nc, o0, o1, rowdot, epi);
+}
+
+// the clamp's gradient at d = cum_t - cum_s of rows t, s: jnp.minimum's
+// (a tie halves) within one forward chunk, the state's 1 across two
+__device__ __forceinline__ float clamp_grad(float d, int t, int s, int Lf) {
+  if (t / Lf != s / Lf) return 1.f;
+  return d < 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
+}
+
+// One block per (b, h): the chunks in reverse order, dS carried in shared
+// memory. Writes dx and ddt of the head, its share of dB and dC per row,
+// and its share of dA and dD.
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS, 1) ssd_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = a.L, P = a.P, N = a.N;
+  const int ldN = N + 1, ldP = P + 1, ldL = L + 1;
+  float* sS = reinterpret_cast<float*>(smem);  // P x ldN: S_c
+  float* sdS = sS + P * ldN;   // P x ldN: dS of the state leaving the chunk
+  float* sx = sdS + P * ldN;   // L x ldP
+  float* sdy = sx + L * ldP;   // L x ldP
+  float* sB = sdy + L * ldP;   // L x ldN
+  float* sC = sB + L * ldN;    // L x ldN
+  float* sM1 = sC + L * ldN;   // L x ldL: C_t.B_s, then (C_t.B_s) e_ts
+  float* sM2 = sM1 + L * ldL;  // L x ldL: dy_t.x_s, then e_ts dt_s dy_t.x_s
+  float* vdt = sM2 + L * ldL;  // per row: dt
+  float* vcum = vdt + L;       // cum
+  float* vec = vcum + L;       // exp(cum)
+  float* vw = vec + L;         // w = exp(cum_L - cum) dt
+  float* vrow = vw + L;        // sum_s G_ts f_ts
+  float* vcol = vrow + L;      // sum_t G_ts f_ts
+  float* vdir = vcol + L;      // sum_t (C_t.B_s) e_ts dy_t.x_s
+  float* vzc = vdir + L;       // C_t.(S_c^T dy_t)
+  float* vq = vzc + L;         // B_s.(dS^T x_s)
+  float* vdd = vq + L;         // dy_t.x_t
+  float* red = vdd + L;        // [BWD_WARPS]: <dS, S_c> by warp
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x % a.H, b = blockIdx.x / a.H;
+  const int grp = h / (a.H / a.G);
+  const int nc = (a.S + L - 1) / L;
+  const float Ah = a.A[h], Dh = a.D[h];
+  const T* xb = static_cast<const T*>(a.x) + b * a.xs_b + h * a.xs_h;
+  const T* bb = static_cast<const T*>(a.Bm) + b * a.bs_b + grp * a.bs_g;
+  const T* cb = static_cast<const T*>(a.Cm) + b * a.cs_b + grp * a.cs_g;
+  const float* dtb = a.dt + b * a.ds_b + h;
+  const long long row0 = (long long)b * a.S * a.H + h;  // (b, 0, h)
+  const long long ps = (long long)a.H * P, ns = (long long)a.H * N;
+  const T* dyb = static_cast<const T*>(a.dy) + row0 * P;
+  T* dxb = static_cast<T*>(a.dx) + row0 * P;
+  float* ddtb = a.ddt + row0;
+  float* dbp = a.dbp + row0 * N;
+  float* dcp = a.dcp + row0 * N;
+  // the block's incoming states (none with one chunk)
+  const float* st0 =
+      nc > 1 ? a.states + ((long long)b * a.H + h) * (nc - 1) * P * N
+             : nullptr;
+  for (int i = tid; i < P * ldN; i += BWD_THREADS) sdS[i] = 0.f;
+  float sumA = 0.f, sumD = 0.f;  // thread 0's, in reverse chunk order
+  const Op none{nullptr, 0, 0, nullptr, 0, 0, nullptr, 0};
+
+  for (int c = nc - 1; c >= 0; --c) {
+    const int t0 = c * L, nv = min(L, a.S - t0);
+    // the chunk's rows (past S: zeros) and its incoming state
+    for (int i = tid; i < L * P; i += BWD_THREADS) {
+      const int r = i / P, col = i - r * P;
+      const bool in = r < nv;
+      sx[r * ldP + col] = in ? to_f32(xb[(t0 + r) * a.xs_s + col]) : 0.f;
+      sdy[r * ldP + col] = in ? to_f32(dyb[(t0 + r) * ps + col]) : 0.f;
+    }
+    for (int i = tid; i < L * N; i += BWD_THREADS) {
+      const int r = i / N, col = i - r * N;
+      const bool in = r < nv;
+      sB[r * ldN + col] = in ? to_f32(bb[(t0 + r) * a.bs_s + col]) : 0.f;
+      sC[r * ldN + col] = in ? to_f32(cb[(t0 + r) * a.cs_s + col]) : 0.f;
+    }
+    if (c > 0) {
+      const float* stc = st0 + (long long)(c - 1) * P * N;
+      for (int i = tid; i < P * N; i += BWD_THREADS) {
+        const int r = i / N, col = i - r * N;
+        sS[r * ldN + col] = stc[i];
+      }
+    } else {
+      for (int i = tid; i < P * ldN; i += BWD_THREADS) sS[i] = 0.f;
+    }
+    for (int i = tid; i < L; i += BWD_THREADS) {
+      vdt[i] = i < nv ? dtb[(t0 + i) * a.ds_s] : 0.f;
+      vzc[i] = vq[i] = 0.f;
+    }
+    __syncthreads();
+    // the chunk's cumsum in row order, each product rounded on its own
+    if (tid == 0) {
+      float run = 0.f;
+      for (int r = 0; r < L; ++r) {
+        run = __fadd_rn(run, __fmul_rn(vdt[r], Ah));
+        vcum[r] = run;
+      }
+    }
+    // <dS, S_c>: each thread's words in order, then its warp, by warp
+    float sd = 0.f;
+    for (int i = tid; i < P * N; i += BWD_THREADS) {
+      const int r = i / N, col = i - r * N;
+      sd = fmaf(sdS[r * ldN + col], sS[r * ldN + col], sd);
+    }
+    sd = warp_sum(sd);
+    if (lane == 0) red[warp] = sd;
+    // the scores C_t.B_s and dy_t.x_s (rows t, columns s)
+    mm_fit(L, L, Op{sC, ldN, 1, sB, 1, ldN, nullptr, N},
+           Op{sdy, ldP, 1, sx, 1, ldP, nullptr, P}, nullptr,
+           [&](int i, int j, float v0, float v1) {
+             sM1[i * ldL + j] = v0;
+             sM2[i * ldL + j] = v1;
+             return 0.f;
+           });
+    __syncthreads();
+    const float cumL = vcum[L - 1], eL = expf(cumL);
+    for (int i = tid; i < L; i += BWD_THREADS) {
+      vec[i] = expf(vcum[i]);
+      vw[i] = expf(cumL - vcum[i]) * vdt[i];
+    }
+    // the clamp's cotangent G_ts f_ts, summed by row (warps over rows,
+    // lanes over columns) and by column (warps over columns, lanes over
+    // rows), and the direct dt term by column
+    for (int t = warp; t < L; t += BWD_WARPS) {
+      float rs = 0.f;
+      for (int s = lane; s <= t; s += 32) {
+        const float d = vcum[t] - vcum[s];
+        const float e = expf(fminf(d, 0.f));
+        rs += sM1[t * ldL + s] * e * vdt[s] * sM2[t * ldL + s] *
+              clamp_grad(d, t0 + t, t0 + s, a.Lf);
+      }
+      rs = warp_sum(rs);
+      if (lane == 0) {
+        vrow[t] = rs;
+        vdd[t] = sM2[t * ldL + t];
+      }
+    }
+    for (int s = warp; s < L; s += BWD_WARPS) {
+      float cs = 0.f, ds = 0.f;
+      for (int t = s + lane; t < L; t += 32) {
+        const float d = vcum[t] - vcum[s];
+        const float e = expf(fminf(d, 0.f));
+        const float m = sM1[t * ldL + s] * e, g = sM2[t * ldL + s];
+        cs += m * vdt[s] * g * clamp_grad(d, t0 + t, t0 + s, a.Lf);
+        ds += m * g;
+      }
+      cs = warp_sum(cs);
+      ds = warp_sum(ds);
+      if (lane == 0) {
+        vcol[s] = cs;
+        vdir[s] = ds;
+      }
+    }
+    __syncthreads();
+    // M1 = (C_t.B_s) e_ts and M2 = e_ts dt_s dy_t.x_s on t >= s, 0 above
+    for (int i = tid; i < L * L; i += BWD_THREADS) {
+      const int t = i / L, s = i - t * L;
+      const float e = s <= t ? expf(fminf(vcum[t] - vcum[s], 0.f)) : 0.f;
+      sM1[t * ldL + s] *= e;
+      sM2[t * ldL + s] *= e * vdt[s];
+    }
+    __syncthreads();
+    // dx (rows s, columns p): D dy_s + dt_s sum_t M1_ts dy_t + w_s dS B_s
+    mm_fit(L, P, Op{sM1, 1, ldL, sdy, ldP, 1, nullptr, L},
+           Op{sB, ldN, 1, sdS, 1, ldN, nullptr, N}, nullptr,
+           [&](int i, int j, float v0, float v1) {
+             if (i < nv)
+               dxb[(t0 + i) * ps + j] = from_f32<T>(
+                   Dh * sdy[i * ldP + j] + vdt[i] * v0 + vw[i] * v1);
+             return 0.f;
+           });
+    // dC (rows t, columns n): sum_s M2_ts B_s + exp(cum_t) S_c^T dy_t, and
+    // C_t.(S_c^T dy_t) by row
+    mm_fit(L, N, Op{sM2, ldL, 1, sB, ldN, 1, nullptr, L},
+           Op{sdy, ldP, 1, sS, ldN, 1, nullptr, P}, vzc,
+           [&](int i, int j, float v0, float v1) {
+             if (i < nv) dcp[(t0 + i) * ns + j] = v0 + vec[i] * v1;
+             return sC[i * ldN + j] * v1;
+           });
+    // dB (rows s, columns n): sum_t M2_ts C_t + w_s dS^T x_s, and
+    // q_s = B_s.(dS^T x_s) by row
+    mm_fit(L, N, Op{sM2, 1, ldL, sC, ldN, 1, nullptr, L},
+           Op{sx, ldP, 1, sdS, ldN, 1, nullptr, P}, vq,
+           [&](int i, int j, float v0, float v1) {
+             if (i < nv) dbp[(t0 + i) * ns + j] = v0 + vw[i] * v1;
+             return sB[i * ldN + j] * v1;
+           });
+    __syncthreads();
+    // dcum, da, ddt, and the chunk's dA and dD terms, in row order
+    if (tid == 0) {
+      float sdot = 0.f, wq = 0.f;
+      for (int k = 0; k < BWD_WARPS; ++k) sdot += red[k];
+      for (int s = 0; s < L; ++s) wq = fmaf(vw[s], vq[s], wq);
+      float da = 0.f;
+      for (int t = L - 1; t >= 0; --t) {
+        float dcum = vec[t] * vzc[t] + vrow[t] - vcol[t] - vw[t] * vq[t];
+        if (t == L - 1) dcum += eL * sdot + wq;
+        da += dcum;
+        if (t < nv)
+          ddtb[(long long)(t0 + t) * a.H] =
+              da * Ah + vdir[t] + expf(cumL - vcum[t]) * vq[t];
+        sumA = fmaf(da, vdt[t], sumA);
+        sumD += vdd[t];
+      }
+    }
+    // dS of the state entering the chunk, in place: exp(cum_L) dS +
+    // sum_t exp(cum_t) dy_t (x) C_t (rows p, columns n)
+    mm_fit(P, N, Op{sdy, 1, ldP, sC, ldN, 1, vec, L}, none, nullptr,
+           [&](int i, int j, float v0, float) {
+             sdS[i * ldN + j] = eL * sdS[i * ldN + j] + v0;
+             return 0.f;
+           });
+    __syncthreads();
+  }
+  if (tid == 0) {
+    a.part[2 * ((long long)b * a.H + h)] = sumA;
+    a.part[2 * ((long long)b * a.H + h) + 1] = sumD;
+  }
+}
+
+// Ties across a backward chunk boundary bd inside one forward chunk
+// [f0, f1): a pair s < bd <= t with cum_t == cum_s took the state's
+// gradient, G_ts at t and -G_ts at s (so G_ts on da_u for s < u <= t),
+// where the reference's clamp passes half. With G_ts = (C_t.B_s) dt_s
+// (dy_t.x_s) this takes back da_u -= 0.5 sum_{s < u <= t} G_ts: ddt_u
+// gains that times A and the sequence's dA share that times dt_u. A pair
+// ties when s's chunk-local cumsum (ssd_bwd_kernel's, row by row) is flat
+// after s, cum_{bd-1} == cum_s, and a = dt A is 0 on every row from bd to
+// t; it is taken at the first boundary after s, so s lies in
+// [max(f0, bd - L), bd) and t in [bd, q), q the first row from bd with
+// a != 0 (or f1). With R_s = sum_t G_ts and K_t = sum_s G_ts, rows u < bd
+// take -0.5 sum_{s<u} R_s and rows u >= bd -0.5 sum_{t>=u} K_t. One block
+// per (b, h), after ssd_bwd_kernel; a boundary whose first row has
+// a != 0 costs one read.
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS) ssd_bwd_tie_kernel(
+    BwdArgs a) {
+  __shared__ float vcum[BWD_MAX_L];  // the chunk before bd, as ssd_bwd_kernel
+  __shared__ float vr[BWD_MAX_L];    // R_s, or K_t of a tile of rows
+  __shared__ int lim;                // q
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x % a.H, b = blockIdx.x / a.H;
+  const int grp = h / (a.H / a.G);
+  const int L = a.L, Lf = a.Lf, P = a.P, N = a.N;
+  const float Ah = a.A[h];
+  const T* xb = static_cast<const T*>(a.x) + b * a.xs_b + h * a.xs_h;
+  const T* bb = static_cast<const T*>(a.Bm) + b * a.bs_b + grp * a.bs_g;
+  const T* cb = static_cast<const T*>(a.Cm) + b * a.cs_b + grp * a.cs_g;
+  const float* dtb = a.dt + b * a.ds_b + h;
+  const long long row0 = (long long)b * a.S * a.H + h;  // (b, 0, h)
+  const long long ps = (long long)a.H * P;
+  const T* dyb = static_cast<const T*>(a.dy) + row0 * P;
+  float* ddtb = a.ddt + row0;
+  float sumA = 0.f;  // thread 0's, in boundary order
+  // G_ts of one pair: a warp's lanes over n and p, a fixed butterfly
+  auto pair = [&](int t, int s) {
+    float cbd = 0.f, dxy = 0.f;
+    for (int n = lane; n < N; n += 32)
+      cbd = fmaf(to_f32(cb[t * a.cs_s + n]), to_f32(bb[s * a.bs_s + n]), cbd);
+    for (int p = lane; p < P; p += 32)
+      dxy = fmaf(to_f32(dyb[t * ps + p]), to_f32(xb[s * a.xs_s + p]), dxy);
+    return warp_sum(cbd) * dtb[s * a.ds_s] * warp_sum(dxy);
+  };
+  for (int bd = L; bd < a.S; bd += L) {
+    if (bd % Lf == 0) continue;
+    const int f0 = bd - bd % Lf, f1 = min(f0 + Lf, a.S);
+    const int c0 = max(f0, bd - L), r0 = bd - L;
+    if (tid == 0) {
+      int q = bd;
+      while (q < f1 && __fmul_rn(dtb[q * a.ds_s], Ah) == 0.f) ++q;
+      if (q > bd) {
+        float run = 0.f;
+        for (int r = 0; r < L; ++r) {
+          run = __fadd_rn(run, __fmul_rn(dtb[(r0 + r) * a.ds_s], Ah));
+          vcum[r] = run;
+        }
+      }
+      lim = q;
+    }
+    __syncthreads();
+    const int q = lim;
+    if (q > bd) {
+      const float last = vcum[L - 1];
+      // rows u >= bd, in tiles of BWD_MAX_L from the last: K_t, then the
+      // suffix sums by thread 0
+      float run = 0.f;
+      for (int hi = q; hi > bd; hi -= BWD_MAX_L) {
+        const int lo = max(bd, hi - BWD_MAX_L);
+        for (int t = lo + warp; t < hi; t += BWD_WARPS) {
+          float k = 0.f;
+          for (int s = c0; s < bd; ++s)
+            if (vcum[s - r0] == last && dtb[s * a.ds_s] != 0.f)
+              k += pair(t, s);
+          if (lane == 0) vr[t - lo] = k;
+        }
+        __syncthreads();
+        if (tid == 0)
+          for (int u = hi - 1; u >= lo; --u) {
+            run += vr[u - lo];
+            const float corr = -0.5f * run;
+            ddtb[(long long)u * a.H] += corr * Ah;
+            sumA = fmaf(corr, dtb[u * a.ds_s], sumA);
+          }
+        __syncthreads();
+      }
+      // rows u < bd: R_s, then the prefix sums by thread 0
+      for (int s = c0 + warp; s < bd; s += BWD_WARPS) {
+        float r = 0.f;
+        if (vcum[s - r0] == last && dtb[s * a.ds_s] != 0.f)
+          for (int t = bd; t < q; ++t) r += pair(t, s);
+        if (lane == 0) vr[s - r0] = r;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float pre = 0.f;
+        for (int u = c0; u < bd; ++u) {
+          const float corr = -0.5f * pre;
+          ddtb[(long long)u * a.H] += corr * Ah;
+          sumA = fmaf(corr, dtb[u * a.ds_s], sumA);
+          pre += vr[u - r0];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) a.part[2 * ((long long)b * a.H + h)] += sumA;
+}
+
+// dB and dC (B, S, G, N) in x's dtype: the heads of each group summed in
+// head order; then dA and dD (H,): the batch summed in order
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS) ssd_bwd_reduce_kernel(
+    BwdArgs a, T* dB, T* dC, float* dA, float* dD) {
+  const long long i = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  const long long per = (long long)a.B * a.S * a.G * a.N;
+  const int rep = a.H / a.G;
+  if (i < 2 * per) {
+    const bool isc = i >= per;
+    const long long e = isc ? i - per : i;
+    const long long r = e / a.N;  // (b, s, g)
+    const int n = (int)(e - r * a.N), g = (int)(r % a.G);
+    const long long bs = r / a.G;
+    const float* src =
+        (isc ? a.dcp : a.dbp) + (bs * a.H + (long long)g * rep) * a.N + n;
+    float acc = 0.f;
+    for (int k = 0; k < rep; ++k) acc += src[(long long)k * a.N];
+    (isc ? dC : dB)[e] = from_f32<T>(acc);
+  } else if (i < 2 * per + a.H) {
+    const int h = (int)(i - 2 * per);
+    float sa = 0.f, sd = 0.f;
+    for (int b = 0; b < a.B; ++b) {
+      sa += a.part[2 * ((long long)b * a.H + h)];
+      sd += a.part[2 * ((long long)b * a.H + h) + 1];
+    }
+    dA[h] = sa;
+    dD[h] = sd;
+  }
+}
+
+template <typename T>
+int launch_bwd(const Args& f, const BwdArgs& a, void* dB, void* dC,
+               float* dA, float* dD, cudaStream_t stream) {
+  using Pr = Prec<T>;
+  const int nc = (a.S + a.L - 1) / a.L;
+  cudaError_t err;
+  if (nc > 1) {
+    // step 1: each chunk's end state from zero, then the incoming states
+    const long long s1 = smem_bytes(false, Pr::IN, Pr::CMP, false,
+                                    n_bufs<T>(f.vec), a.L, a.P, a.N);
+    if ((err = fit_smem(ssd_pass1_kernel<T>, s1)) != cudaSuccess)
+      return (int)err;
+    ssd_pass1_kernel<T><<<(unsigned)(a.B * (nc - 1) * a.H), THREADS, s1,
+                          stream>>>(f);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (nc > 2) {
+      const long long n = (long long)a.B * a.H * a.P * a.N;
+      ssd_pass2_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                         stream>>>(f);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  const long long s2 = 4 * bwd_smem_floats(a.L, a.P, a.N);
+  if ((err = fit_smem(ssd_bwd_kernel<T>, s2)) != cudaSuccess) return (int)err;
+  ssd_bwd_kernel<T><<<(unsigned)(a.B * a.H), BWD_THREADS, s2, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (a.Lf > a.L) {
+    ssd_bwd_tie_kernel<T><<<(unsigned)(a.B * a.H), BWD_THREADS, 0, stream>>>(
+        a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const long long n = 2LL * a.B * a.S * a.G * a.N + a.H;
+  ssd_bwd_reduce_kernel<T><<<(unsigned)((n + BWD_THREADS - 1) / BWD_THREADS),
+                             BWD_THREADS, 0, stream>>>(
+      a, static_cast<T*>(dB), static_cast<T*>(dC), dA, dD);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory of the largest block of a call, in bytes (the wrapper
@@ -1105,5 +1668,59 @@ extern "C" int ssd_scan_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) return launch<float>(a, s);
   if (dtype == DT_BF16) return launch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of ssd_scan_bwd_launch's main block at chunk L, in bytes.
+extern "C" long long ssd_scan_bwd_smem_bytes(int L, int P, int N) {
+  return 4 * bwd_smem_floats(L, P, N);
+}
+
+// The backward of ssd_scan_launch's y for the cotangent dy (B, S, H, P),
+// dense in x's dtype. x, dt, A, Bm, Cm, D, the strides and `vec` as for
+// ssd_scan_launch; L: the chunk (<= S; its block must fit the card's
+// shared memory: ssd_scan_bwd_smem_bytes); Lf: the forward's chunk
+// (>= L, <= S; with Lf > L, L <= 64). Writes dx (B, S, H, P) dense in
+// x's dtype, ddt (B, S, H) dense float32, dB and dC (B, S, G, N) dense in
+// x's dtype, dA and dD (H,) float32. Scratch: states, B H (nc - 1) (P N +
+// 1) floats (nc = ceil(S / L); null when nc = 1); partial, 2 B S H N + 2 B
+// H floats. Returns cudaGetLastError() after the launches.
+extern "C" int ssd_scan_bwd_launch(
+    int dtype, const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* D, const void* dy, void* dx, void* ddt,
+    void* dB, void* dC, void* dA, void* dD, void* states, void* partial,
+    int B, int S, int H, int P, int G, int N, int L, int Lf, int vec,
+    long long xs_b,
+    long long xs_s, long long xs_h, long long ds_b, long long ds_s,
+    long long bs_b, long long bs_s, long long bs_g, long long cs_b,
+    long long cs_s, long long cs_g, void* stream) {
+  const int nc = (S > 0 && L > 0) ? (S + L - 1) / L : 0;
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || N <= 0 || G <= 0 || L <= 0 ||
+      L > S || Lf < L || Lf > S || (Lf > L && L > BWD_MAX_L) ||
+      H % G != 0 || (long long)B * H > 0x7fffffffLL ||
+      (long long)B * H * nc > 0x7fffffffLL ||
+      ((up16(P) / 16) * ((up16(N) + 63) / 64)) > WARPS ||
+      (nc > 1 && states == nullptr) || partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  float* sc = static_cast<float*>(states);
+  const long long ends = (long long)B * H * (nc - 1) * P * N;
+  Args f{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm,
+         Cm, static_cast<const float*>(D), nullptr, nullptr,
+         sc, sc == nullptr ? nullptr : sc + ends,
+         B, S, H, P, G, N, L, 1, nc, vec,
+         xs_b, xs_s, xs_h, ds_b, ds_s, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g};
+  float* pt = static_cast<float*>(partial);
+  const long long bshn = (long long)B * S * H * N;
+  BwdArgs a{x, static_cast<const float*>(dt), static_cast<const float*>(A),
+            Bm, Cm, static_cast<const float*>(D), dy, sc, dx,
+            static_cast<float*>(ddt), pt, pt + bshn, pt + 2 * bshn,
+            B, S, H, P, G, N, L, Lf,
+            xs_b, xs_s, xs_h, ds_b, ds_s, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fa = static_cast<float*>(dA);
+  float* fd = static_cast<float*>(dD);
+  if (dtype == DT_F32) return launch_bwd<float>(f, a, dB, dC, fa, fd, s);
+  if (dtype == DT_BF16)
+    return launch_bwd<__nv_bfloat16>(f, a, dB, dC, fa, fd, s);
   return (int)cudaErrorInvalidValue;
 }

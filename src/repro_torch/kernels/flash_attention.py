@@ -36,16 +36,18 @@ log-sum-exp (B, Hq, Sq) and whose backward is :func:`flash_attention_bwd`,
 the CUDA backward kernels of the same library (the gradient ``jax.grad``
 takes of the JAX package's XLA attention; its Pallas kernel has none).
 Without a gradient (serving, ``inference_mode``) no LSE is written and no
-graph is recorded. The backward takes D and Dv up to 128 in one tile class
-(both <= 64 or both above), in bf16 and float32, and raises on wider heads
-(ROADMAP.md section 1, item 12c). In bf16 its two passes are wgmma kernels
-fed by TMA (``fa_bwd_dkdv_kernel``, ``fa_bwd_dq_kernel``), so D and Dv are
-multiples of 8 and q, k, v follow the forward's 16-byte rule; a dO or an
-out that does not (a view off 16 bytes, or without a unit stride on its
-last axis) is copied to a contiguous tensor first.
-``LAUNCHES["flash_attention_bwd"]`` counts its calls (three kernel
-launches each: D_i, dK/dV, dQ). On a CPU tensor the plain version's own
-autograd gives the gradient.
+graph is recorded. The backward takes D and Dv up to ``MAX_BWD_HEAD_DIM``
+(192: MLA's q, k of 192 with v of 128, Nemotron's 192), in float32 any
+pair, in bf16 a pair whose tiles are in ``BWD_TILE_PAIRS``; a head dim of
+256 has no architecture in the zoo and raises (ROADMAP.md section 2). In
+bf16 its passes are wgmma kernels fed by TMA (``fa_bwd_dkdv_kernel``,
+``fa_bwd_dq_kernel``), so D and Dv are multiples of 8 and q, k, v follow
+the forward's 16-byte rule; a dO or an out that does not (a view off 16
+bytes, or without a unit stride on its last axis) is copied to a
+contiguous tensor first. ``LAUNCHES["flash_attention_bwd"]`` counts its
+calls (three kernel launches each: D_i, dK/dV, dQ; four at the 192 tile,
+where dK and dV take a launch each). On a CPU tensor the plain version's
+own autograd gives the gradient.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ from . import ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "build", "LAUNCHES",
            "reset_launches", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM",
-           "BF16_HEAD_DIMS", "BF16_TILE_PAIRS"]
+           "BF16_HEAD_DIMS", "BF16_TILE_PAIRS", "BWD_TILE_PAIRS"]
 
 MAX_HEAD_DIM = 256   # both kernels' widest tile
 # head dims of the bf16 kernel's instances: tiles of 64, 128, 192 and 256
@@ -67,8 +69,10 @@ MAX_HEAD_DIM = 256   # both kernels' widest tile
 BF16_HEAD_DIMS = tuple(range(8, MAX_HEAD_DIM + 1, 8))
 # (q/k tile, v tile) of the bf16 kernel's instances (csrc/attention.cu)
 BF16_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128), (256, 256))
-# the backward kernels' widest head dim (D and Dv)
-MAX_BWD_HEAD_DIM = 128
+# the backward kernels' widest head dim (D and Dv), and the (q/k, v) tiles
+# of the bf16 backward's instances
+MAX_BWD_HEAD_DIM = 192
+BWD_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128))
 
 # kernel launches since the last reset_launches()
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -189,13 +193,14 @@ def _check_bwd(q, k, v):
     if max(D, Dv) > MAX_BWD_HEAD_DIM:
         raise ValueError(
             f"flash_attention's backward kernels take head dims up to "
-            f"{MAX_BWD_HEAD_DIM}, got D={D}, Dv={Dv} (wider heads wait for "
-            f"ROADMAP.md section 1, item 12c)")
-    if q.dtype == torch.bfloat16 and ((D <= 64) != (Dv <= 64)
-                                      or D % 8 or Dv % 8):
+            f"{MAX_BWD_HEAD_DIM}, got D={D}, Dv={Dv}: no architecture of the "
+            f"zoo trains a wider head (ROADMAP.md section 2)")
+    if q.dtype == torch.bfloat16 and (
+            D % 8 or Dv % 8
+            or (_bf16_tile(D), _bf16_tile(Dv)) not in BWD_TILE_PAIRS):
         raise ValueError(f"the bf16 backward takes D and Dv in multiples "
-                         f"of 8 in one tile (both <= 64 or both in "
-                         f"65..128), got D={D}, Dv={Dv}")
+                         f"of 8 whose (q/k, v) tiles are in {BWD_TILE_PAIRS}, "
+                         f"got D={D}, Dv={Dv}")
 
 
 def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):

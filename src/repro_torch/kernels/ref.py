@@ -51,7 +51,7 @@ __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "rmsnorm_ref", "decode_attention_ref",
            "flash_attention_bf16p_ref", "decode_attention_split_ref",
            "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
-           "flash_attention_bwd_ref"]
+           "flash_attention_bwd_ref", "ssd_chunked_bwd_ref"]
 
 # log-CDF clamp floor; a normal float32 so no subnormal reaches the log
 CDF_FLOOR = 1e-37
@@ -574,9 +574,11 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
             "bglhn,bghpn->bglhp", cc, state)
         cb = torch.einsum("bglhn,bgshn->bglsh", cc, bc)     # (B, ng, L, L, H)
         # the exponent is clamped at 0: exact on the causal region, and
-        # the masked entries cannot overflow
-        decay = torch.exp(torch.clamp_max(cum[:, :, :, None, :]
-                                          - cum[:, :, None, :, :], 0.0))
+        # the masked entries cannot overflow. torch.minimum, as JAX's
+        # jnp.minimum, passes half the gradient to each side at a tie
+        # (clamp_max would pass all of it)
+        d = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+        decay = torch.exp(torch.minimum(d, torch.zeros_like(d)))
         g = torch.where(causal, cb * decay * dtc[:, :, None, :, :], 0.0)
         y_intra = torch.einsum("bglsh,bgshp->bglhp", g, xc)
         state = advance(state, c, xc, cum, bc, w)
@@ -589,3 +591,175 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
         # leaves it unchanged)
         return y, state[:, -1]
     return y
+
+
+def ssd_chunked_bwd_ref(x, dt, A, Bm, Cm, D_skip, dy, *, chunk: int = 64,
+                        fwd_chunk: int | None = None):
+    """The gradient of :func:`ssd_chunked_ref`'s y for the cotangent ``dy``
+    (B, S, H, P): ``(dx, ddt, dA, dB, dC, dD)``, each in its input's dtype.
+    The plain version of ``csrc/ssd_scan.cu``'s backward, in its formulas
+    and the order of its sums (the gradient ``jax.grad`` takes of the JAX
+    package's ``ops._ssd_xla_chunked``; the final state has no cotangent).
+
+    The sequence is cut into chunks of ``L = min(chunk, S)`` rows (a ragged
+    tail padded with zeros, as in the forward). ``S_c`` is the state
+    entering chunk c, ``cum`` the inclusive cumsum of ``dt * A`` in it,
+    ``e_ts = exp(min(cum_t - cum_s, 0))`` and ``w_s = exp(cum_L - cum_s)
+    dt_s``. The chunks are walked in reverse, carrying ``dS`` (the
+    cotangent of the state leaving the chunk, zero after the last)::
+
+        dx_s  = D dy_s + dt_s sum_{t>=s} (C_t.B_s) e_ts dy_t + w_s dS B_s
+        dB_s  = sum_{t>=s} e_ts dt_s (dy_t.x_s) C_t + w_s dS^T x_s
+        dC_t  = exp(cum_t) S_c^T dy_t + sum_{s<=t} e_ts dt_s (dy_t.x_s) B_s
+        dcum_t = exp(cum_t) C_t.(S_c^T dy_t) + sum_s G_ts f_ts
+                 - sum_u G_ut f_ut - w_t q_t,  q_s = B_s.(dS^T x_s)
+        dcum_L += exp(cum_L) <dS, S_c> + sum_s w_s q_s
+        dS    <- exp(cum_L) dS + sum_t exp(cum_t) dy_t (x) C_t
+
+    with ``G_ts = (C_t.B_s) e_ts dt_s (dy_t.x_s)`` on ``t >= s`` and the
+    clamp's gradient ``f_ts`` 1 below 0, 0.5 at a tie (JAX's) and 0 above.
+    Then ``da_t = sum_{u>=t} dcum_u`` in the chunk, ``ddt_t = da_t A +
+    sum_{u>=t} (C_u.B_t) e_ut (dy_u.x_t) + exp(cum_L - cum_t) q_t``, ``dA =
+    sum da_t dt_t`` and ``dD = sum dy.x``. dB and dC sum the heads of each
+    group in head order. The math is float32 (float64 for float64 inputs).
+
+    The gradient is that of the forward in chunks of ``fwd_chunk`` rows
+    (``chunk`` when None), whose clamp acts within them: a pair of one
+    chunk here that lies in two forward chunks takes ``f_ts = 1``, and a
+    tied pair of one forward chunk across a boundary ``bd`` here, which
+    the walk gives the state's 1, gives half back: ``da_u -= 0.5
+    sum_{s<u<=t} G_ts``, so ``ddt_u`` gains that times A and dA that
+    times ``dt_u``. Such a pair ties where s's chunk-local ``cum`` is flat
+    after s and ``dt A`` is 0 on the rows from bd to t.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    Lf = min(fwd_chunk or L, S)
+    if Lf < L:
+        raise ValueError(f"the forward's chunk {Lf} is under the backward's "
+                         f"{L}")
+    nc = -(-S // L)
+    pad = nc * L - S
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+
+    def chunks(t):
+        t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], 1) \
+            if pad else t
+        return t.reshape((Bsz, nc, L) + t.shape[2:]).to(ct)
+
+    xc, dtc, dyc = chunks(x), chunks(dt), chunks(dy)
+    bc = torch.repeat_interleave(chunks(Bm), rep, dim=3)   # (B, nc, L, H, N)
+    cc = torch.repeat_interleave(chunks(Cm), rep, dim=3)
+    Af = A.to(ct)
+    cum = torch.cumsum(dtc * Af, dim=2)                   # (B, nc, L, H)
+    # the state entering each chunk
+    states = [torch.zeros((Bsz, H, P, N), dtype=ct, device=x.device)]
+    for c in range(nc - 1):
+        w = torch.exp(cum[:, c, -1:] - cum[:, c]) * dtc[:, c]
+        states.append(torch.exp(cum[:, c, -1])[..., None, None] * states[-1]
+                      + torch.einsum("blhp,blhn->bhpn",
+                                     xc[:, c] * w[..., None], bc[:, c]))
+    tri = torch.ones((L, L), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]   # (t, s)
+    rows = torch.arange(nc * L, device=x.device).reshape(nc, L) // Lf
+    # (t, s) of one forward chunk, by chunk
+    same = (rows[:, :, None] == rows[:, None, :])[:, None, :, :, None]
+    dS = torch.zeros_like(states[0])
+    dx, ddt, dBh, dCh = [], [], [], []
+    dA = torch.zeros((Bsz, H), dtype=ct, device=x.device)
+    dD = torch.zeros((Bsz, H), dtype=ct, device=x.device)
+    for c in reversed(range(nc)):
+        xs, dts, dys, bs, cs, cm = (xc[:, c], dtc[:, c], dyc[:, c], bc[:, c],
+                                    cc[:, c], cum[:, c])
+        Sc = states[c]
+        ecum = torch.exp(cm)                               # (B, L, H)
+        cumL = cm[:, -1]                                   # (B, H)
+        eL = torch.exp(cumL)
+        back = torch.exp(cumL[:, None] - cm)               # exp(cum_L - cum)
+        w = back * dts
+        d = cm[:, :, None, :] - cm[:, None, :, :]          # (B, t, s, H)
+        e = torch.exp(torch.minimum(d, torch.zeros_like(d)))
+        f = torch.where(same[c], torch.where(d < 0, 1.0, torch.where(
+            d == 0, 0.5, 0.0)), 1.0).to(ct)
+        cb = torch.einsum("bthn,bshn->btsh", cs, bs)       # C_t.B_s
+        dxy = torch.einsum("bthp,bshp->btsh", dys, xs)     # dy_t.x_s
+        dt_s = dts[:, None, :, :]
+        m1 = torch.where(tri, cb * e, 0.0)                 # (C_t.B_s) e_ts
+        m2 = torch.where(tri, e * dt_s * dxy, 0.0)         # e_ts dt_s dy_t.x_s
+        gf = torch.where(tri, cb * e * dt_s * dxy * f, 0.0)
+        direct = (m1 * dxy).sum(1)                         # (B, s, H)
+        r = torch.einsum("btsh,bthp->bshp", m1, dys)
+        v = torch.einsum("bhpn,bshn->bshp", dS, bs)
+        dx.append(D_skip.to(ct)[None, None, :, None] * dys
+                  + dts[..., None] * r + w[..., None] * v)
+        z = torch.einsum("bthp,bhpn->bthn", dys, Sc)       # S_c^T dy_t
+        dCh.append(torch.einsum("btsh,bshn->bthn", m2, bs)
+                   + ecum[..., None] * z)
+        u = torch.einsum("bhpn,bshp->bshn", dS, xs)        # dS^T x_s
+        dBh.append(torch.einsum("btsh,bthn->bshn", m2, cs) + w[..., None] * u)
+        q = (bs * u).sum(-1)                               # (B, s, H)
+        dcum = ecum * (cs * z).sum(-1) + gf.sum(2) - gf.sum(1) - w * q
+        dcum[:, -1] = dcum[:, -1] + eL * (dS * Sc).sum((-2, -1)) + (w * q).sum(1)
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddt.append(da * Af + direct + back * q)
+        dA = dA + (da * dts).sum(1)
+        dD = dD + (dys * xs).sum((1, 3))
+        dS = eL[..., None, None] * dS + torch.einsum(
+            "bth,bthp,bthn->bhpn", ecum, dys, cs)
+
+    def whole(parts):
+        t = torch.stack(parts[::-1], 1)
+        return t.reshape((Bsz, nc * L) + t.shape[3:])[:, :S]
+
+    dBh, dCh = whole(dBh), whole(dCh)                       # (B, S, H, N)
+    ddt = whole(ddt)
+    if Lf > L:
+        dA = dA + _ssd_tie_halves(x.to(ct), dt.to(ct), Af, bc, cc, dy.to(ct),
+                                  cum, ddt, L, Lf)
+
+    def by_group(t):   # the heads of each group, summed in head order
+        t = t.reshape(Bsz, S, G, rep, N)
+        out = t[:, :, :, 0]
+        for k in range(1, rep):
+            out = out + t[:, :, :, k]
+        return out.to(Bm.dtype)
+
+    return (whole(dx).to(x.dtype), ddt.to(dt.dtype),
+            dA.sum(0).to(A.dtype), by_group(dBh), by_group(dCh).to(Cm.dtype),
+            dD.sum(0).to(D_skip.dtype))
+
+
+def _ssd_tie_halves(x, dt, A, bc, cc, dy, cum, ddt, L, Lf):
+    """:func:`ssd_chunked_bwd_ref`'s ties across its chunk boundaries inside
+    a forward chunk: ``ddt`` (B, S, H) takes its share in place; returns
+    dA's (B, H). ``bc``, ``cc`` are the chunked B and C by head, ``cum``
+    the chunked cumsum."""
+    Bsz, S, H, _ = x.shape
+    a = dt * A
+    bh = bc.reshape((Bsz, -1) + bc.shape[3:])[:, :S]       # (B, S, H, N)
+    ch = cc.reshape((Bsz, -1) + cc.shape[3:])[:, :S]
+    dA = torch.zeros((Bsz, H), dtype=x.dtype, device=x.device)
+    for bd in range(L, S, L):
+        if bd % Lf == 0:
+            continue
+        f0 = bd - bd % Lf
+        f1, c0 = min(f0 + Lf, S), max(f0, bd - L)
+        # t in [bd, q): a = 0 from bd; s in [c0, bd): cum flat after s
+        tz = torch.cumprod((a[:, bd:f1] == 0).to(x.dtype), 1)
+        if not bool(tz[:, 0].any()):
+            continue
+        cm = cum[:, bd // L - 1]
+        sok = (cm[:, c0 - (bd - L):] == cm[:, -1:]).to(x.dtype)
+        g = (torch.einsum("bthn,bshn->btsh", ch[:, bd:f1], bh[:, c0:bd])
+             * torch.einsum("bthp,bshp->btsh", dy[:, bd:f1], x[:, c0:bd])
+             * (dt[:, c0:bd] * sok)[:, None] * tz[:, :, None])
+        R, K = g.sum(1), g.sum(2)                    # (B, s, H), (B, t, H)
+        corr_s = -0.5 * (torch.cumsum(R, 1) - R)      # -0.5 sum_{s<u} R_s
+        corr_t = -0.5 * torch.flip(torch.cumsum(torch.flip(K, [1]), 1), [1])
+        ddt[:, c0:bd] += corr_s * A
+        ddt[:, bd:f1] += corr_t * A
+        dA = dA + (corr_s * dt[:, c0:bd]).sum(1) \
+            + (corr_t * dt[:, bd:f1]).sum(1)
+    return dA

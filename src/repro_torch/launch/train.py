@@ -7,7 +7,9 @@
 
 The model's weights are drawn from seed 0 on ``--device`` (the card by
 default; ``--device cpu`` runs the plain PyTorch path), then ``Trainer``
-runs ``--steps`` steps, printing the loss every 10. A
+runs ``--steps`` steps, printing the loss every 10.
+``--layers N`` keeps the arch's first N layers at full width (DeepSeek-V2-
+Lite's training state does not fit one card at full depth). A
 checkpoint in ``--ckpt-dir`` resumes at its step (its weights, moments and
 balancer replace the drawn ones). ``--partitioned`` runs the paper's
 partitioned step on a one-device mesh with a "pod" axis: every step the
@@ -30,6 +32,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default="smollm-360m")
     ap.add_argument("--tiny", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the arch's first LAYERS layers at full width "
+                         "(a depth cut to fit one card)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -48,6 +53,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     mesh = ctx = None
     if args.partitioned:
         mesh = make_local_mesh(("pod", "data", "model"))

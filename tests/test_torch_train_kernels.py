@@ -1,5 +1,6 @@
 """The training path's kernels: the backward kernels of ``rmsnorm`` and
-``flash_attention`` and the rule that no CUDA wrapper cuts a gradient.
+``flash_attention`` and the rule that no CUDA wrapper cuts a gradient
+(``ssd_scan``'s backward has its own file, ``test_torch_ssd_grad.py``).
 
 Tests marked ``cuda`` skip without an NVIDIA GPU; this file imports neither
 jax nor the JAX package, so they run on a machine with only the port's
@@ -13,8 +14,8 @@ forward (``ref.rmsnorm_ref``; ``ref.flash_attention_bf16p_ref`` in bf16,
 1e-2 in bf16 on every output (dx, dw; dq, dk, dv), at cut-down versions of
 ``chip_smoke.py``'s training shapes and at the edges of the kernels' tiles
 and forms (ragged S and rows, GQA groups of 1 and 8, windows at D = 128,
-dO views, every rmsnorm form's D, views with a storage offset), and
-repeats its bits. On the CPU the
+dO views, every rmsnorm form's D, views with a storage offset; the head
+dim of 192 with v of 192 and of 128), and repeats its bits. On the CPU the
 two ``autograd.Function``s pass ``torch.autograd.gradcheck`` in float64
 through their plain route (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``: the kernels' formulas), and those formulas
@@ -97,17 +98,24 @@ def _attn_grads(q, k, v, g, fn, **kw):
     return out.detach(), q.grad, k.grad, v.grad
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: c[0])
-def test_flash_attention_bwd_matches_plain(card, case, dtype):
-    _, B, Hq, Hkv, Sq, Sk, D, causal, window = case
+# (name, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window): the 192 tile of the
+# bf16 backward (dK and dV a pass each) and the float32 kernel's widest
+# columns: Nemotron's head (192, 192) cut in heads and S, MLA's (192, 128),
+# a ragged S with a window, a rectangular non-causal call
+WIDE_CASES = (
+    ("nemotron-192", 1, 12, 1, 256, 256, 192, 192, True, None),
+    ("mla-192x128", 2, 4, 4, 200, 200, 192, 128, True, None),
+    ("d192-window", 1, 4, 2, 300, 300, 192, 192, True, 100),
+    ("noncausal-192x128", 1, 4, 2, 70, 200, 192, 128, False, None),
+)
+
+
+def _attn_case_check(card, dtype, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window):
     gen = torch.Generator(device=card).manual_seed(0)
     q = _randn(gen, (B, Hq, Sq, D), dtype, card)
     k = _randn(gen, (B, Hkv, Sk, D), dtype, card)
-    v = _randn(gen, (B, Hkv, Sk, D), dtype, card)
-    g = _randn(gen, (B, Hq, Sq, D), dtype, card)
+    v = _randn(gen, (B, Hkv, Sk, Dv), dtype, card)
+    g = _randn(gen, (B, Hq, Sq, Dv), dtype, card)
     plain = (ref.flash_attention_bf16p_ref if dtype == torch.bfloat16
              else ref.flash_attention_ref)
     n = fa.LAUNCHES["flash_attention_bwd"]
@@ -122,6 +130,47 @@ def test_flash_attention_bwd_matches_plain(card, case, dtype):
                         window=window)
     for a, b in zip(got, again):   # no atomics: the bits repeat
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: c[0])
+def test_flash_attention_bwd_matches_plain(card, case, dtype):
+    _, B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    _attn_case_check(card, dtype, B, Hq, Hkv, Sq, Sk, D, D, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: c[0])
+def test_flash_attention_bwd_wide_heads_match_plain(card, case, dtype):
+    _attn_case_check(card, dtype, *case[1:])
+
+
+@pytest.mark.cuda
+def test_a_cuda_tensor_never_reaches_the_plain_attention(card, monkeypatch):
+    """Under grad mode on the card at D <= 192, the forward and the
+    backward launch the kernels: no plain version is called."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain attention was reached")
+    for name in ("flash_attention_ref", "flash_attention_lse_ref",
+                 "flash_attention_bwd_ref", "flash_attention_bf16p_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    gen = torch.Generator(device=card).manual_seed(6)
+    for dtype, D, Dv in ((torch.bfloat16, 192, 128), (torch.bfloat16, 64, 64),
+                         (torch.float32, 192, 192)):
+        q = _randn(gen, (1, 4, 130, D), dtype, card).requires_grad_(True)
+        k = _randn(gen, (1, 2, 130, D), dtype, card).requires_grad_(True)
+        v = _randn(gen, (1, 2, 130, Dv), dtype, card).requires_grad_(True)
+        n = dict(fa.LAUNCHES)
+        out = fa.flash_attention(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+        assert all(torch.isfinite(t.float()).all() for t in grads)
+        assert fa.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
+        assert (fa.LAUNCHES["flash_attention_bwd"]
+                == n["flash_attention_bwd"] + 1)
 
 
 def _off16_view(t):
@@ -219,8 +268,9 @@ def test_rmsnorm_bwd_matches_plain(card, rows, D, offset, dtype):
 
 @pytest.mark.cuda
 def test_no_wrapper_cuts_a_gradient(card):
-    """A CUDA tensor that needs a gradient: rmsnorm and flash_attention
-    return outputs with a grad_fn; flash_decode and ssd_scan raise."""
+    """A CUDA tensor that needs a gradient: rmsnorm, flash_attention and
+    ssd_scan return outputs with a grad_fn (their backward kernels);
+    flash_decode, which no training path calls, raises."""
     gen = torch.Generator(device=card).manual_seed(0)
     bf = torch.bfloat16
     x = _randn(gen, (4, 64), bf, card).requires_grad_(True)
@@ -234,16 +284,17 @@ def test_no_wrapper_cuts_a_gradient(card):
                         k, k, torch.ones(16, dtype=torch.bool, device=card))
     f32 = torch.float32
     xs = _randn(gen, (1, 16, 2, 16), bf, card).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="ssd_scan.*ROADMAP"):
-        ssd.ssd_scan(xs, torch.rand((1, 16, 2), device=card),
-                     -torch.ones(2, device=card),
-                     _randn(gen, (1, 16, 1, 16), bf, card),
-                     _randn(gen, (1, 16, 1, 16), bf, card),
-                     torch.ones(2, dtype=f32, device=card), chunk=16)
+    ssd_args = (torch.rand((1, 16, 2), device=card),
+                -torch.ones(2, device=card),
+                _randn(gen, (1, 16, 1, 16), bf, card),
+                _randn(gen, (1, 16, 1, 16), bf, card),
+                torch.ones(2, dtype=f32, device=card))
+    assert ssd.ssd_scan(xs, *ssd_args, chunk=16).grad_fn is not None
     # without grad mode the serving path is unchanged, and no graph
     with torch.inference_mode():
         assert rn.rmsnorm(x, w).grad_fn is None
         assert fa.flash_attention(q, k, k).grad_fn is None
+        assert ssd.ssd_scan(xs, *ssd_args, chunk=16).grad_fn is None
 
 
 @pytest.mark.cuda
@@ -287,6 +338,42 @@ def test_flash_attention_function_gradcheck_float64(causal, window, Sq, Sk):
     assert torch.autograd.gradcheck(
         lambda q, k, v: fa._FlashAttention.apply(q, k, v, causal, window,
                                                  None), (q, k, v))
+
+
+@pytest.mark.parametrize("Dv", [192, 128])
+def test_flash_attention_function_gradcheck_float64_d192(Dv):
+    """The head dims of Nemotron (192) and MLA (q, k of 192, v of 128)
+    through the Function's plain route."""
+    gen = torch.Generator().manual_seed(1)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+    q, k, v = leaf(1, 2, 3, 192), leaf(1, 1, 3, 192), leaf(1, 1, 3, Dv)
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: fa._FlashAttention.apply(q, k, v, True, None, None),
+        (q, k, v))
+
+
+@pytest.mark.parametrize("D,Dv,dtype,ok", [
+    (192, 192, torch.bfloat16, True), (192, 128, torch.bfloat16, True),
+    (64, 64, torch.bfloat16, True), (128, 128, torch.bfloat16, True),
+    (192, 192, torch.float32, True), (100, 40, torch.float32, True),
+    (256, 256, torch.bfloat16, False), (256, 256, torch.float32, False),
+    (64, 128, torch.bfloat16, False), (128, 192, torch.bfloat16, False)],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_backward_head_dims(D, Dv, dtype, ok):
+    """The backward's head dims: up to 192 in both dtypes (bf16: the (q/k,
+    v) tile pairs of its instances); 256, which no architecture of the zoo
+    trains, raises with its own message."""
+    q = torch.zeros((1, 2, 4, D), dtype=dtype)
+    v = torch.zeros((1, 2, 4, Dv), dtype=dtype)
+    if ok:
+        fa._check_bwd(q, q, v)
+    else:
+        with pytest.raises(ValueError, match="no architecture" if D == 256
+                           else "tiles are in"):
+            fa._check_bwd(q, q, v)
 
 
 @pytest.mark.parametrize("case", ATTN_CASES[2:], ids=lambda c: c[0])
