@@ -12,6 +12,13 @@
     python3 chip_smoke.py --phases card,build,engine,chaos,trace,sweep
     python3 chip_smoke.py --phases card,build,examples
     python3 chip_smoke.py --phases card,build,train
+    python3 chip_smoke.py --phases card,build,lmcheck --f32-terms 1
+
+``--f32-terms 1`` builds the float32 attention kernels with one TF32
+product (``FA_F32_TERMS=1``), a lower-precision control: each phase holds
+them as usual (``train`` runs only its float32 attention cases and the
+tiny Jamba's step), the holds are expected to fail, and no result line is
+printed.
 
 Phases, in order:
 
@@ -130,7 +137,11 @@ Phases, in order:
    decode_32k (once more there with its first split invalid), and at the
    path's shapes their device time per call under torch.profiler (no
    launch path) and their host time per call (the launch path) stand
-   beside SDPA's. The zoo's shapes too: DeepSeek-V2-Lite's MLA prefill
+   beside SDPA's. The float32 attention kernel too (split TF32): at
+   SmolLM-360M's training shape, the tiny Jamba's and D 192 with a window
+   and a ragged S, held against plain (also at relative L2), with device
+   and host time per call beside SDPA's float32 forward, GQA and with k
+   and v expanded, each with the SDPA backend that served it. The zoo's shapes too: DeepSeek-V2-Lite's MLA prefill
    (D 192, Dv 128) at a group's serving shape, Whisper's encoder, cross
    prefill and decodes, Qwen3-MoE's G = 16 decode and InternVL2's prefill
    and G = 8 decode, each held against its plain version, with SDPA
@@ -303,17 +314,23 @@ Phases, in order:
    non-causal 16 x 1500, a ragged S of 1000, float32 at a small shape, and
    the 192 tile: DeepSeek-V2-Lite's MLA (B 2, 16 heads, q and k of 192, v
    of 128), Nemotron-4-340B's layer (B 1, 96/8 heads of 192) and float32
-   at 192; norms at 16384 x 960 and 4096 x 4096 in both dtypes; the scan
+   at 192, and float32 at SmolLM-360M's training shape; norms at 16384 x
+   960 and 4096 x 4096 in both dtypes; the scan
    at Mamba2-2.7B's layer (B 2 x S 2048, 80 heads of 64, N 128) in both
    dtypes, a ragged S, eight groups, S 16384 at B 1, and runs of dt = 0
    that tie decays across the float32 instance's chunks inside forward
    chunks;
    each with its event-pair and device time beside its bound (bytes for
    the norm; for attention and the scan their operations at the dense
-   peak of their inputs' type), the plain
-   version's time and the yardstick PyTorch call's
+   peak of their inputs' type, for float32 attention a third of the bf16
+   rate, three products of split operands, with the split-TF32 and
+   CUDA-core figures beside it), attention's device busy time (the union
+   of a call's launches: the float32 dQ pass overlaps the dK/dV pass), the
+   plain version's time and the yardstick PyTorch call's
    (``scaled_dot_product_attention``, ``F.rms_norm``: forward + backward,
-   and backward alone with its device time; none computes the scan's),
+   and backward alone with its device time; for float32 GQA SDPA's
+   backward also with k and v expanded to the query heads, each with the
+   SDPA backend that served it; none computes the scan's),
    which the port never calls; the phase fails where a kernel's or
    its library call's device time is not measured (``_device_ms`` checks
    that its profiled window holds every launch's device record). Then SmolLM-360M at full width in bf16
@@ -1056,6 +1073,17 @@ MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 TINY_E2E_MAMBA = 2
 
 BF16_OPS_PER_S = 989e12
+# the H100 SXM's dense TF32 tensor-core rate (NVIDIA data sheet). Float32
+# attention on the tensor cores takes each float32 product as three
+# products of split operands: the kernels split into TF32 (a third of this
+# rate), but two bf16 planes meet the float32 tolerance too
+# (tests/test_torch_attention_numerics.py::
+# test_split_bf16_attention_holds_float32) at a third of the bf16 rate,
+# the fastest split that does. So the float32 attention bound takes the
+# operations at BF16_OPS_PER_S / 3; the split-TF32 figure and the CUDA-core
+# one (FP32_OPS_PER_S) are logged beside it
+TF32_OPS_PER_S = 494.7e12
+F32_SPLIT_OPS_PER_S = BF16_OPS_PER_S / 3
 
 # Qwen3-8B's serving path: 5 batches of 64 prompts of 16 tokens, max_new 8,
 # split across two replica groups (about 32 prompts each)
@@ -1260,21 +1288,27 @@ def phase_lmcheck(ctx):
 
     def hold(kernel, tag, run, plain, tols=LM_TOL):
         """Every output of ``run`` against ``plain``'s, each at the
-        tolerance of its own dtype; a second run must repeat the bits."""
+        tolerance of its own dtype (float32 attention at relative L2 as
+        well, ``_f32_attn_rel``); a second run must repeat the bits."""
         got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
         if isinstance(got, torch.Tensor):
             got, again, want = (got,), (again,), (want,)
-        errs, ok = [], True
+        errs, rels, ok = [], [], True
         for g, a, w in zip(got, again, want):
             tol = tols[str(g.dtype).split(".")[-1]]
             errs.append(float((g.float() - w.float()).abs().max()))
             ok &= bool(torch.allclose(g.float(), w.float(), atol=tol,
                                       rtol=tol))
             ok &= bool(torch.isfinite(g).all()) and torch.equal(g, a)
+            rel = _f32_attn_rel(kernel, g, w)
+            if rel is not None:
+                rels.append(rel)
+                ok &= rel < tol
         worst[kernel] = max(worst[kernel], *errs)
         log(f"[lmcheck] {kernel:15s} {tag:40s} max|err| "
             + " ".join(f"{e:.2e}" for e in errs)
+            + "".join(f" rel L2 {r:.2e}" for r in rels)
             + f" (tol {tols[str(got[0].dtype).split('.')[-1]]:g}) "
             + ("ok" if ok else "FAIL"))
         if not ok:
@@ -2267,6 +2301,66 @@ def phase_lmtick(ctx):
              plain_bytes=4 * 3 * B * Hq * Sq * Sk, check=True,
              device_time=True)
         del q, k, v
+    # the float32 kernel (split TF32 on the tensor cores) at SmolLM-360M's
+    # training shape, the tiny Jamba's (its float32 config: 4 query and 2
+    # kv heads of 16, B 2 x S 64) and the 192 tile with a window and a
+    # ragged S, beside SDPA's float32 forward, GQA as the model calls it
+    # and with k and v expanded to the query heads (which the memory-
+    # efficient backend takes), each with the backend that served it; the
+    # bound takes the operations at F32_SPLIT_OPS_PER_S, its figures at a
+    # third of the TF32 rate and on the CUDA cores logged beside it
+    for tag, B, Hq, Hkv, S, D, window in (
+            ("float32 smollm-360m train", 8, 15, 5, 2048, 64, None),
+            ("float32 tiny jamba", 2, 4, 2, 64, 16, None),
+            ("float32 d192 window 256 ragged", 2, 8, 2, 1000, 192, 256)):
+        q, k, v = _attn_inputs(("", B, Hq, Hkv, S, S, D, True, window),
+                               torch.float32, 97)
+        nbytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+        flops = 4 * B * Hq * _attn_pairs(S, S, True, window) * D
+        mask = (None if window is None
+                else ref.attention_mask(S, S, True, window, q.device))
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=q.shape[1] != k.shape[1])
+        tick("flash_attention", f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S}, "
+             f"D={D}" + (f", window={window}" if window else "") + ")",
+             lambda: ops.attention(q, k, v, causal=True, window=window),
+             lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                             window=window),
+             sdpa, _roof(nbytes, flops / F32_SPLIT_OPS_PER_S),
+             plain_bytes=4 * 3 * B * Hq * S * S, check=True,
+             device_time=True)
+        row = rows[-1]
+        row["bound_tf32_ms"] = _roof(nbytes, flops / TF32_OPS_PER_S * 3)[0]
+        row["bound_cuda_core_ms"] = _roof(nbytes, flops / FP32_OPS_PER_S)[0]
+        kx, vx = (t.repeat_interleave(Hq // Hkv, 1) for t in (k, v))
+
+        def sdpa_mha(q=q, k=kx, v=vx, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=mask is None)
+        row["library_backend"] = _sdpa_backend(sdpa)
+        row["library_mha_ms"] = _time_cuda(sdpa_mha, reps=7)
+        row["library_mha_device_ms"] = _device_ms(sdpa_mha)
+        row["library_mha_backend"] = _sdpa_backend(sdpa_mha)
+        dev, lib, mha = (row["device_ms"], row["library_device_ms"],
+                         row["library_mha_device_ms"])
+        log(f"[lmtick] flash_attention   {tag}: bound "
+            f"{row['bound_ms']:.4f} ms at {F32_SPLIT_OPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s (split bf16), {row['bound_tf32_ms']:.4f} at "
+            f"{TF32_OPS_PER_S / 3e12:.0f} (split TF32), "
+            f"{row['bound_cuda_core_ms']:.4f} on the CUDA cores at "
+            f"{FP32_OPS_PER_S / 1e12:.0f}; SDPA GQA device "
+            + (f"{lib:.4f}" if lib else "not measured")
+            + f" ms ({row['library_backend']}), SDPA with k, v expanded "
+            f"{row['library_mha_ms']:.4f} ms, device "
+            + (f"{mha:.4f}" if mha else "not measured")
+            + f" ({row['library_mha_backend']})"
+            + (f"; kernel/SDPA device {dev / lib:.2f}x GQA" if dev and lib
+               else "")
+            + (f", {dev / mha:.2f}x expanded" if dev and mha else ""))
+        del q, k, v, kx, vx, mask
     # the zoo's cached attention: Whisper's cross decode over 1500 frames
     # and self decode (G = 1, D = 64), Qwen3-MoE's G = 16 and InternVL2's
     # G = 8 (D = 128), each at its decode's cache length
@@ -2372,6 +2466,18 @@ def _sdpa(q, k, v, causal, scale):
     return call
 
 
+def _f32_attn_rel(kernel, got, want):
+    """A float32 attention output's relative L2 error, held at LM_TOL
+    beside the elementwise tolerance: at long rows the outputs are small
+    (an average over ~1000 keys) and an absolute 2e-4 alone would pass one
+    TF32 product, whose error is near 2^-11 of them; None for any other
+    kernel or dtype."""
+    import torch
+    if kernel != "flash_attention" or got.dtype != torch.float32:
+        return None
+    return _rel_l2(got.float(), want.float())
+
+
 def _agree(kernel, tag, run, plain, fails):
     """Max |err| of ``run``'s output against ``plain``'s, held at LM_TOL of
     the output's dtype; the output must be finite. A failure is logged and
@@ -2384,8 +2490,11 @@ def _agree(kernel, tag, run, plain, fails):
     ok = (bool(torch.isfinite(got).all())
           and bool(torch.allclose(got.float(), want.float(), atol=tol,
                                   rtol=tol)))
+    rel = _f32_attn_rel(kernel, got, want)
+    ok &= rel is None or rel < tol
     log(f"[lmtick] {kernel:15s} {tag:46s} against plain: max|err| "
-        f"{err:.2e} (tol {tol:g}) " + ("ok" if ok else "FAIL"))
+        f"{err:.2e}" + (f" rel L2 {rel:.2e}" if rel is not None else "")
+        + f" (tol {tol:g}) " + ("ok" if ok else "FAIL"))
     if not ok:
         fails.append(f"{kernel} {tag}")
     del got, want
@@ -2439,6 +2548,22 @@ def _device_diag(prof):
     return out
 
 
+def _profiled(fn, reps):
+    """torch.profiler over ``DEVICE_FILL`` empty kernels, waited for, then
+    ``reps`` calls of ``fn``, synchronized (see ``_device_window``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DEVICE_FILL):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def _device_window(fn, reps=20, expect=None):
     """Device microseconds by kernel name of ``reps`` calls of ``fn`` under
     torch.profiler, from a complete window; the host's launch path is not
@@ -2455,18 +2580,10 @@ def _device_window(fn, reps=20, expect=None):
     up to ``DEVICE_WINDOWS`` windows; None when none was complete."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for window in range(1, DEVICE_WINDOWS + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(DEVICE_FILL):
-                torch.cuda._sleep(0)
-            torch.cuda.synchronize()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        prof = _profiled(fn, reps)
         ka = prof.key_averages()
         dev = [e for e in ka if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0
@@ -2501,12 +2618,61 @@ def _kernel_name(name):
     return name.split("(")[0]
 
 
+def _sdpa_backend(fn):
+    """The SDPA backend that served ``fn``, from the names of the kernels
+    it launched (``_device_window``): "efficient" (the memory-efficient
+    CUTLASS kernel), "flash", "cudnn" or "math" (matrix products and a
+    softmax), with its longest kernel's name; None when no window was
+    complete."""
+    by_name = _device_window(fn, reps=2)
+    if not by_name:
+        return None
+    names = " ".join(by_name).lower()
+    kind = ("efficient" if "fmha" in names or "efficient" in names
+            else "flash" if "flash" in names
+            else "cudnn" if "cudnn" in names else "math")
+    return f"{kind}: {_kernel_name(max(by_name, key=by_name.get))[:72]}"
+
+
 def _device_ms(fn, reps=20, expect=None):
     """Device milliseconds per call of ``fn``: the sum of the device time
     of every kernel it launches over ``reps`` calls (``_device_window``),
     divided by ``reps``; None when no window was complete."""
     by_name = _device_window(fn, reps, expect)
     return None if by_name is None else sum(by_name.values()) / 1e3 / reps
+
+
+def _device_busy_ms(fn, reps=5, expect=None):
+    """Device milliseconds per call of ``fn`` during which one of its
+    kernels ran: the union of their intervals over ``reps`` calls under
+    torch.profiler, divided by ``reps``. Less than ``_device_ms``'s sum
+    where a call's kernels overlap (the float32 attention backward's dQ
+    pass, a programmatic dependent launch beside the dK/dV pass). A window
+    counts when it holds ``expect`` = (name part, launches a call) such
+    launches exactly, as in ``_device_window``; None when none did."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(DEVICE_WINDOWS):
+        prof = _profiled(fn, reps)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and "spin_kernel" not in e.name() and e.duration_ns() > 0]
+        if expect is not None and sum(
+                expect[0] in e.name() for e in events) != expect[1] * reps:
+            continue
+        busy, end = 0, None
+        for start, stop in sorted((e.start_ns(),
+                                   e.start_ns() + e.duration_ns())
+                                  for e in events):
+            if end is None or start > end:
+                busy, end = busy + stop - start, stop
+            elif stop > end:
+                busy, end = busy + stop - end, stop
+        if busy > 0:
+            return busy / 1e6 / reps
+    return None
 
 
 def _ssd_blocks(B, H, P, N, groups):
@@ -5018,8 +5184,9 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 # and Qwen3-8B's training shapes, a window, Whisper's non-causal cross
 # shape, a ragged S and float32 at a small shape; then the 192 tile:
 # DeepSeek-V2-Lite's MLA at its training batch (q, k of 192, v of 128),
-# Nemotron-4-340B's layer (96 query and 8 KV heads of 192) at B 1, and the
-# float32 kernel's widest columns
+# Nemotron-4-340B's layer (96 query and 8 KV heads of 192) at B 1, the
+# float32 kernels' widest columns, and float32 at SmolLM-360M's training
+# shape (q, k and v ~63 MB; the plain reference's scores ~2 GB)
 BWD_ATTN_CASES = (
     ("smollm-360m train", 8, 15, 5, 2048, 2048, 64, 64, True, None,
      "bfloat16"),
@@ -5035,6 +5202,8 @@ BWD_ATTN_CASES = (
     ("nemotron-4 layer", 1, 96, 8, 2048, 2048, 192, 192, True, None,
      "bfloat16"),
     ("float32 d192", 2, 4, 2, 512, 512, 192, 192, True, None, "float32"),
+    ("float32 smollm-360m train", 8, 15, 5, 2048, 2048, 64, 64, True, None,
+     "float32"),
 )
 # (name, B, S, H, P, G, N, chunk, dtype, rows where dt = 0): Mamba2-2.7B's
 # layer at its training batch (B 2 x S 2048; 80 heads of 64, one group, a
@@ -5201,6 +5370,7 @@ def _bwd_attn_case(case, fails):
     by_kernel = _device_window(bwd, reps=5, expect=("fa_bwd_", per_call))
     dev = (None if by_kernel is None
            else sum(by_kernel.values()) / 1e3 / 5)
+    busy = _device_busy_ms(bwd, reps=5, expect=("fa_bwd_", per_call))
     by_kernel = {_kernel_name(n): us / 1e3 / 5
                  for n, us in (by_kernel or {}).items()}
 
@@ -5215,7 +5385,7 @@ def _bwd_attn_case(case, fails):
         return F.scaled_dot_product_attention(
             *leaves, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=Hq != Hkv)
-    lib_fb = lib_bwd = lib_dev = None
+    lib_fb = lib_bwd = lib_dev = lib_busy = backend = None
     try:
         y = sdpa()
         lib_fb = _time_cuda(lambda: torch.autograd.grad(sdpa(), leaves,
@@ -5225,9 +5395,36 @@ def _bwd_attn_case(case, fails):
             return torch.autograd.grad(y, leaves, dout, retain_graph=True)
         lib_bwd = _time_cuda(lib_call, reps=5)
         lib_dev = _device_ms(lib_call, reps=5)
+        lib_busy = _device_busy_ms(lib_call, reps=5)
+        if dt == torch.float32:
+            backend = _sdpa_backend(lib_call)
         del y
     except RuntimeError as e:
         log(f"[train] SDPA refuses {name}: {str(e).splitlines()[0][:120]}")
+    # float32 GQA: SDPA's backward also with k and v expanded to the query
+    # heads as its leaves (the memory-efficient backend takes that)
+    mha = mha_dev = mha_backend = None
+    if dt == torch.float32 and Hq != Hkv:
+        xl = [leaves[0].detach().requires_grad_(True)] + [
+            t.detach().repeat_interleave(Hq // Hkv, 1).requires_grad_(True)
+            for t in leaves[1:]]
+        ym = F.scaled_dot_product_attention(
+            *xl, attn_mask=mask, is_causal=causal and mask is None)
+
+        def mha_call():
+            return torch.autograd.grad(ym, xl, dout, retain_graph=True)
+        mha = _time_cuda(mha_call, reps=5)
+        mha_dev = _device_ms(mha_call, reps=5)
+        mha_backend = _sdpa_backend(mha_call)
+        log(f"[train] flash_attention_bwd {name:26s} SDPA bwd device "
+            + (f"{lib_dev:.3f}" if lib_dev else "not measured")
+            + f" ({backend}); with k, v expanded {mha:.3f} ms, device "
+            + (f"{mha_dev:.3f}" if mha_dev else "not measured")
+            + f" ({mha_backend})"
+            + (f"; kernel busy/SDPA device {busy / lib_dev:.2f}x GQA, "
+               f"{busy / mha_dev:.2f}x expanded"
+               if busy and lib_dev and mha_dev else ""))
+        del ym, xl
     pairs = B * Hq * _attn_pairs(Sq, Sk, causal, window)
     # the five products: S and dK, dQ over D; dP and dV over Dv
     ops_ = 2 * pairs * (3 * D + 2 * Dv)
@@ -5237,21 +5434,33 @@ def _bwd_attn_case(case, fails):
                       + B * Hq * Sq * D                   # dq
                       + B * Hkv * Sk * (D + Dv)) \
         + 4 * B * Hq * Sq                                 # lse
-    peak = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_SPLIT_OPS_PER_S
     bound_ms, by = _roof(nbytes, ops_ / peak)
+    cuda_core_ms = (None if dt == torch.bfloat16
+                    else _roof(nbytes, ops_ / FP32_OPS_PER_S)[0])
+    tf32_ms = (None if dt == torch.bfloat16
+               else _roof(nbytes, ops_ / TF32_OPS_PER_S * 3)[0])
     log(f"[train] flash_attention_bwd {name:26s} {dts} D={D} Dv={Dv}: "
         f"rel L2 dq "
         f"{rel[0]:.2e} dk {rel[1]:.2e} dv {rel[2]:.2e} (tol {tol:g}), "
         f"max|err| {err:.2e}, bits repeat {same}; bwd {ms:.3f} ms (device "
         + (f"{dev:.3f}" if dev is not None else "not measured")
+        + ", busy " + (f"{busy:.3f}" if busy is not None else "not measured")
         + f"), fwd+bwd {fb_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}, "
-        f"{ops_ / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s), bwd/bound "
-        f"{ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.2f} ms; SDPA "
+        f"{ops_ / 1e9:.1f} GFLOP at {peak / 1e12:.0f} TFLOP/s"
+        + (f"; {tf32_ms:.3f} ms in split TF32 at "
+           f"{TF32_OPS_PER_S / 3e12:.0f}, {cuda_core_ms:.3f} ms on the CUDA "
+           f"cores at {FP32_OPS_PER_S / 1e12:.0f}" if cuda_core_ms else "")
+        + f"), bwd/bound {ms / bound_ms:.2f}x; plain fwd+bwd {plain_ms:.2f} "
+        f"ms; SDPA "
         f"fwd+bwd " + (f"{lib_fb:.3f}" if lib_fb else "n/a") + " ms, bwd "
         + (f"{lib_bwd:.3f}" if lib_bwd else "n/a") + " ms (device "
-        + (f"{lib_dev:.3f}" if lib_dev else "not measured") + ")"
+        + (f"{lib_dev:.3f}" if lib_dev else "not measured") + ", busy "
+        + (f"{lib_busy:.3f}" if lib_busy else "not measured") + ")"
         + (f", kernel/SDPA device {dev / lib_dev:.2f}x" if dev and lib_dev
-           else "") + ("" if ok and same else "  FAIL"))
+           else "")
+        + (f", busy {busy / lib_busy:.2f}x" if busy and lib_busy else "")
+        + ("" if ok and same else "  FAIL"))
     log(f"[train]   by launch (device ms a call): " + ", ".join(
         f"{n} {ms:.4f}" for n, ms in by_kernel.items()))
     row = {"name": name, "dtype": dts, "D": D, "Dv": Dv, "rel_l2": rel,
@@ -5259,7 +5468,12 @@ def _bwd_attn_case(case, fails):
            "bits_repeat": same, "ms": ms, "device_ms": dev,
            "fwd_bwd_ms": fb_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
-           "library_fwd_bwd_ms": lib_fb, "by_kernel_ms": by_kernel}
+           "library_fwd_bwd_ms": lib_fb, "by_kernel_ms": by_kernel,
+           "device_busy_ms": busy, "library_busy_ms": lib_busy,
+           "bound_cuda_core_ms": cuda_core_ms, "bound_tf32_ms": tf32_ms,
+           "library_backend": backend, "library_mha_ms": mha,
+           "library_mha_dev_ms": mha_dev,
+           "library_mha_backend": mha_backend}
     del q, k, v, dout, leaves, out, got, lse, o
     torch.cuda.empty_cache()
     return row
@@ -5866,7 +6080,8 @@ def _train_launches(cfg, steps):
     ``ssm.py``): per layer ln1, ln2 where it has an MLP, and its mixer's:
     attention one flash_attention (and the q/k norms with qk_norm), MLA one
     flash_attention and its kv_norm, mamba one ssd_scan and its gated norm;
-    then the final norm. Each once forward and once backward."""
+    then the final norm. Each once forward and once backward; attention's
+    float32 calls (a float32 config's) counted apart as well."""
     norms, attn, scans = 1, 0, 0
     for spec in _layer_specs(cfg):
         norms += 1 + (spec.mlp != "none")
@@ -5876,9 +6091,11 @@ def _train_launches(cfg, steps):
             norms, attn = norms + 1, attn + 1
         else:
             norms, attn = norms + (2 if cfg.qk_norm else 0), attn + 1
+    f32 = attn * steps if cfg.activation_dtype == "float32" else 0
     return {"rmsnorm": norms * steps, "rmsnorm_bwd": norms * steps,
             "flash_attention": attn * steps,
             "flash_attention_bwd": attn * steps,
+            "flash_attention_f32": f32, "flash_attention_bwd_f32": f32,
             "ssd_scan": scans * steps, "ssd_scan_bwd": scans * steps}
 
 
@@ -5914,6 +6131,16 @@ def phase_train(ctx):
     fails = []
     out = {}
     smi = ctx.get("smi")
+    if ctx.get("f32_terms", 3) != 3:
+        # the --f32-terms control: float32 attention's holds alone, the
+        # backward cases and the tiny Jamba's step card against CPU
+        out["attention"] = [_bwd_attn_case(c, fails) for c in BWD_ATTN_CASES
+                            if c[-1] == "float32"]
+        out["tiny"], _ = _tiny_card_step(TINY_TRAIN_ARCH, TINY_TRAIN_B,
+                                         TINY_TRAIN_S, fails)
+        if fails:
+            raise AssertionError(f"train phase failed: {fails}")
+        return
 
     # 1. the backward kernels against autograd of their plain forwards
     out["attention"] = [_bwd_attn_case(c, fails) for c in BWD_ATTN_CASES]
@@ -6064,6 +6291,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
+    ap.add_argument("--f32-terms", type=int, choices=(1, 3), default=3,
+                    help="products a float32 attention product takes: 3 "
+                    "(split TF32, the kernels as built) or 1 (one TF32 "
+                    "product: a lower-precision control, which the float32 "
+                    "attention holds should fail)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -6081,10 +6313,17 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    if args.f32_terms != 3:
+        import functools
+        from repro_torch.kernels import flash_attention as fa
+        fa.build = functools.partial(
+            fa.build, defines=(f"FA_F32_TERMS={args.f32_terms}",))
+        log(f"[main] float32 attention built with FA_F32_TERMS="
+            f"{args.f32_terms}: a control, not the kernels as built")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    ctx = {}
+    ctx = {"f32_terms": args.f32_terms}
     t_start = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     fns = {"card": phase_card, "build": phase_build, "check": phase_check,
@@ -6104,6 +6343,10 @@ def main(argv=None):
             t0 = time.perf_counter()
             fns[p](ctx)
             log(f"[{p}] done in {time.perf_counter() - t0:.1f} s")
+    if args.f32_terms != 3:
+        log(f"[main] the FA_F32_TERMS={args.f32_terms} control passed every "
+            f"hold of {phases}: no result line")
+        return 3
 
     kernels = []
     tick = {(r["family"], r["mode"]): r for r in ctx.get("tick", [])}
@@ -6148,6 +6391,9 @@ def main(argv=None):
         r = path.get(key, {})
         by_path = {p: ctx[f"{p}_launches"][key] for p in LM_PATHS
                    if f"{p}_launches" in ctx}
+        f32 = ({p: ctx[f"{p}_launches"].get(f"{key}_f32", 0)
+                for p in LM_PATHS if f"{p}_launches" in ctx}
+               if key == "flash_attention" else None)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -6156,7 +6402,8 @@ def main(argv=None):
             "max_abs_err": ctx.get("lm_max_abs_err", {}).get(key),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-            "library_ms": r.get("library_ms")})
+            "library_ms": r.get("library_ms"),
+            **({"launches_f32_by_path": f32} if f32 is not None else {})})
     # the backward kernels of the training path, at SmolLM-360M's training
     # shapes (attention B=8, S=2048; norms 16384 x 960, bf16) and Mamba2-
     # 2.7B's layer (B=2, S=2048, bf16), each with every shape it was timed
@@ -6167,11 +6414,17 @@ def main(argv=None):
             "ssd_scan_bwd": train.get("ssd") or [{}]}
     keep = ("name", "rows", "D", "Dv", "shape", "dtype", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_dev_ms", "by_kernel_ms")
+            "library_dev_ms", "by_kernel_ms", "device_busy_ms",
+            "library_busy_ms", "bound_cuda_core_ms", "bound_tf32_ms",
+            "library_backend", "library_mha_ms", "library_mha_dev_ms",
+            "library_mha_backend")
     for name, (source, replaces) in TRAIN_REPLACES.items():
         r = rows[name][0]
         by_path = ({"train": ctx["train_launches"][name]}
                    if "train_launches" in ctx else {})
+        f32 = ({"train": ctx["train_launches"].get(f"{name}_f32", 0)}
+               if name == "flash_attention_bwd" and "train_launches" in ctx
+               else None)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -6182,6 +6435,7 @@ def main(argv=None):
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"),
             "library_dev_ms": r.get("library_dev_ms"),
+            **({"launches_f32_by_path": f32} if f32 is not None else {}),
             "instances": [{k: i[k] for k in keep if k in i}
                           for i in rows[name]]})
     # the port's kernels with no Pallas counterpart: compose_grads at the

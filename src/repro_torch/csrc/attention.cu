@@ -48,11 +48,36 @@
 // Unlike the Pallas kernel (P in float32), P is rounded to bf16 before
 // P . V, as the JAX model's own XLA path does, and l sums the rounded P.
 //
-// flash_attention, float32 (fa_f32_kernel): the CUDA-core kernel of the
-// first port (TF32 would not meet the float32 tolerance): one 128-thread
-// block per (query tile of 64, q head, batch), Q, K and V tiles in shared
-// memory, a 4 x 8 block of scores and a 4 x Dv/8 block of the accumulator
-// per thread (Dv, the value head dim, at run time).
+// flash_attention, float32 (fa_f32_kernel). Bound by operations as the
+// bf16 kernel is, so the products run on the tensor cores, in split TF32.
+// One TF32 product keeps 11 bits of each operand: its relative error near
+// 2^-11 per term passes into the logits and again into P . V, past the
+// float32 tolerance (2e-4). So each operand is split once per load into
+// hi = TF32(x) (cvt.rna's rounding) and lo = x - hi (the mma reads its
+// high 19 bits), and every product is lo.hi + hi.lo + hi.hi in that order
+// (lo.lo, under 2^-21, is dropped): about 21 bits, three mma.sync.m16n8k8
+// for each float32 product (the route of the CUTLASS kernel behind SDPA's
+// float32 backend). A NaN or an infinity in an operand makes its lo a
+// NaN, so the products keep it. No TMA or wgmma: they take no split
+// operand. Measured on the
+// H100, the kernels are bound by the mma.sync issue rate and by the
+// instructions around it, so the design keeps those few:
+//   * one block of four warps per (query tile of 64, q head, batch), the
+//     heaviest causal tiles first; a warp takes 16 query rows;
+//   * q, k and v in a tile of DP = 64, 128, 192 or 256 columns (the larger
+//     head dim's, zero past D and Dv), so that every stride and loop bound
+//     is known at compile time and the k-steps unroll;
+//   * K and V tiles of 64 keys (32 past DP = 64: shared memory) in two
+//     stages of cp.async copies (16 bytes where the strides allow, 4
+//     otherwise, zero past S and D), so the next tile flies while this
+//     one is computed; rows are padded to 4 times an odd number of words,
+//     so that the fragment reads of both layouts (a row's columns t, t + 4;
+//     a column's rows 2t, 2t + 1) hit 32 banks;
+//   * the online softmax runs on the accumulator fragment with quad
+//     shuffles, masks only on tiles that cross a bound; P stays float32
+//     (as the Pallas kernel keeps it) and is the A operand of P . V from
+//     the registers it was formed in, its k index permuted (t -> 2t,
+//     t + 4 -> 2t + 1) with V's rows to match; expf, not ex2.approx.
 //
 // flash_decode (fd_split_kernel, fd_combine_kernel), float32 and bf16.
 // Bound by bytes: the whole K/V cache is read once per step for G <= 16
@@ -98,187 +123,410 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// ------------------------------------------------ flash_attention, float32
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK32 = 64;         // keys per tile
-constexpr int FA_THREADS = 128;  // 16 row groups of 4 rows x 8 column groups
+// ------------------------------ float32 on the tensor cores: split TF32
+// Shared by the float32 forward and backward kernels.
 
-// Row stride, in elements, of a shared tile of D columns: an odd number of
-// 32-bit words for D % 4 == 0.
-template <typename T> __host__ __device__ constexpr int pad_ld(int D) {
-  return sizeof(T) == 4 ? D + 1 : D + 2;
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          long long s_stride, int row0,
-                                          int rows, int S, int D, int ld,
-                                          int tid, int nthreads) {
-  for (int idx = tid; idx < rows * D; idx += nthreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int pos = row0 + r;
-    dst[r * ld + c] = pos < S ? src[pos * s_stride + c] : from_f32<T>(0.f);
-  }
-}
+// Row stride, in floats, of a shared tile of d columns (d a multiple of
+// 8; the columns past the operand's own width are zero): d + 4. A stride of 4 times an odd number
+// puts the 32 words of both fragment reads on 32 banks: the row read of
+// lanes (g, t) at (row g, column t) and the column read at (row 2t,
+// column g).
+__host__ __device__ constexpr int f32_ld(int d) { return (d + 7) / 8 * 8 + 4; }
 
-// COLS: accumulator columns per thread (Dv <= 8 COLS)
-template <typename T, int COLS>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int Hq, int group,
-              int Sq, int Sk, int D, int Dv, Strides qs, Strides ks,
-              Strides vs, int causal, int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = pad_ld<T>(D), ldv = pad_ld<T>(Dv);
-  float* Ps = reinterpret_cast<float*>(smem);        // BQ x (BK32 + 1)
-  T* Qs = reinterpret_cast<T*>(Ps + BQ * (BK32 + 1));  // BQ x ld
-  T* Ks = Qs + BQ * ld;                                 // BK32 x ld
-  T* Vs = Ks + BK32 * ld;                               // BK32 x ldv
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3, cg = tid & 7;  // row group, column group
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  load_tile(Qs, qb, qs.s, q0, BQ, Sq, D, ld, tid, FA_THREADS);
-
-  float m[4], l[4], acc[4][COLS];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
-  }
-
-  // key range that can hold a live key for some row of this tile
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int k_begin = 0, k_end = Sk;
-  if (causal) k_end = min(Sk, q_last + 1);
-  if (window >= 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK32) * BK32;
-
-  for (int kt = k_begin; kt < k_end; kt += BK32) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, kb, ks.s, kt, BK32, Sk, D, ld, tid, FA_THREADS);
-    load_tile(Vs, vb, vs.s, kt, BK32, Sk, Dv, ldv, tid, FA_THREADS);
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_f32(Qs[(rg * 4 + i) * ld + d]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = to_f32(Ks[(cg + 8 * j) * ld + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] += qv[i] * kv[j];
+// Rows [r0, r0 + rows) of an (S, D) matrix (row stride rs elements, unit
+// column stride) into a shared tile of DP columns (D <= DP, a multiple of
+// 8; row stride f32_ld(DP)) by cp.async: 16-byte copies where `vec`
+// (D % 4 == 0, base and stride on 16 bytes), 4-byte ones otherwise; zero
+// past D and past S.
+__device__ __forceinline__ void f32_tile(float* dst, int DP,
+                                         const float* src, long long rs,
+                                         int r0, int rows, int S, int D,
+                                         bool vec, int tid, int nthreads) {
+  const int ld = f32_ld(DP);
+  const uint32_t base = smem_u32(dst);
+  // the thread's copies walk the tile in steps of nthreads chunks: row r,
+  // chunk c, advanced by (dr, dc) without a division a copy
+  const int w = vec ? 4 : 1, cpr = DP / w;
+  int r = tid / cpr, c = tid - r * cpr;
+  const int dr = nthreads / cpr, dc = nthreads - dr * cpr;
+  for (; r < rows; r += dr) {
+    const int col = c * w;
+    const bool ok = r0 + r < S && col < D;
+    const float* from = ok ? src + (long long)(r0 + r) * rs + col : src;
+    if (vec)
+      cp_async16(base + 4 * (r * ld + col), from, ok ? 16 : 0);
+    else
+      cp_async4(base + 4 * (r * ld + col), from, ok ? 4 : 0);
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
     }
+  }
+}
 
+// `rows` floats of a row vector (the LSE, D_i) from src[r0 ...], zero past S
+__device__ __forceinline__ void f32_row(float* dst, const float* src, int r0,
+                                        int rows, int S, int tid,
+                                        int nthreads) {
+  const uint32_t base = smem_u32(dst);
+  for (int r = tid; r < rows; r += nthreads) {
+    const bool ok = r0 + r < S;
+    cp_async4(base + 4 * r, ok ? src + r0 + r : src, ok ? 4 : 0);
+  }
+}
+
+// The float32 products' terms: 3 (lo.hi + hi.lo + hi.hi, the kernels as
+// built), or 1 (hi.hi alone: one TF32 product, a lower-precision control
+// that chip_smoke.py --f32-terms 1 builds to show the holds fail it).
+#ifndef FA_F32_TERMS
+#define FA_F32_TERMS 3
+#endif
+static_assert(FA_F32_TERMS == 1 || FA_F32_TERMS == 3, "FA_F32_TERMS: 1 or 3");
+
+// x = hi + lo: hi = TF32(x) rounded to nearest, ties away from zero (the
+// bits of cvt.rna.tf32.f32 for every x but a NaN, as two integer
+// operations: the conversion instruction made the kernels slower on the
+// H100; ptxas drops the mask where an mma reads hi, as it ignores the 13
+// low bits), and lo = x - hi in float32, exact, of which the mma reads the
+// high 19 bits (truncation, as CUTLASS's fast float32 takes its small
+// part): about 21 bits of x's 24. A NaN's hi may be any value (the carry
+// out of its mantissa), but x - hi is then the card's canonical NaN, whose
+// high bits are a NaN too, and so is lo for an infinite x; every product
+// with such an x takes its lo and is a NaN (float32's is a NaN or, for an
+// infinite x, an infinity).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// an m16n8k8 A fragment (a[0..3]: rows g, g + 8, g, g + 8; columns t, t,
+// t + 4, t + 4) and B fragment (b[0..1]: rows t, t + 4; column g), each
+// split in two
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+struct SplitB {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a . b: one TF32 product with float32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows g, g + 8 and columns k0 + t, k0 + t + 4 of a
+// shared tile (the row read): p = the tile + g ld + t.
+__device__ __forceinline__ void load_a(SplitA& a, const float* p, int ld,
+                                       int k0) {
+  split_tf32(p[k0], a.hi[0], a.lo[0]);
+  split_tf32(p[8 * ld + k0], a.hi[1], a.lo[1]);
+  split_tf32(p[k0 + 4], a.hi[2], a.lo[2]);
+  split_tf32(p[8 * ld + k0 + 4], a.hi[3], a.lo[3]);
+}
+
+// The A fragment of an accumulator block c (rows g, g + 8; columns 2t,
+// 2t + 1): its k index taken as t -> 2t and t + 4 -> 2t + 1, so that
+// P and dS feed the next product from the registers they were formed in.
+__device__ __forceinline__ void a_of_c(SplitA& a, const float (&c)[4]) {
+  split_tf32(c[0], a.hi[0], a.lo[0]);
+  split_tf32(c[2], a.hi[1], a.lo[1]);
+  split_tf32(c[1], a.hi[2], a.lo[2]);
+  split_tf32(c[3], a.hi[3], a.lo[3]);
+}
+
+// c (16 x 8 NT) = A . B^T over K columns (a multiple of 64, known at
+// compile time, as are the strides, so the k-steps unroll), A's rows and
+// B's rows read from shared tiles (a = A's tile + g lda + t for the warp's
+// 16 rows; b = B's tile + g ldb + t, n-tile j at rows 8 j + g). Each
+// product is lo.hi + hi.lo + hi.hi in that order. With one or two n-tiles
+// the three go to accumulators of their own, so that more chains of
+// dependent products are in flight, added at the end as
+// (lo.hi + hi.lo) + hi.hi.
+template <int NT>
+__device__ __forceinline__ void mm_rows(float (&c)[NT][4], const float* a,
+                                        int lda, const float* b, int ldb,
+                                        int K) {
+  constexpr int TS = NT <= 2 ? 3 : 1, MID = TS > 1 ? 1 : 0;
+  float acc[TS][NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + rg * 4 + i;
-      bool ok[8];
-      float mc = NEG_INF;
+  for (int u = 0; u < TS; ++u)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = kt + cg + 8 * j;
-        bool live = kpos < Sk;
-        if (causal) live = live && qpos >= kpos;
-        if (window >= 0) live = live && (qpos - kpos) < window;
-        ok[j] = live;
-        s[i][j] = live ? s[i][j] * scale : NEG_INF;
-        mc = fmaxf(mc, s[i][j]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    SplitA fa;
+    load_a(fa, a, lda, k0);
+    SplitB fb[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* p = b + j * 8 * ldb + k0;
+      split_tf32(p[0], fb[j].hi[0], fb[j].lo[0]);
+      split_tf32(p[4], fb[j].hi[1], fb[j].lo[1]);
+    }
+    if (FA_F32_TERMS == 3) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(acc[0][j], fa.lo, fb[j].hi);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_tf32(acc[MID][j], fa.hi, fb[j].lo);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_tf32(acc[TS - 1][j], fa.hi, fb[j].hi);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[j][e] = TS > 1 ? (acc[0][j][e] + acc[MID][j][e]) + acc[TS - 1][j][e]
+                       : acc[0][j][e];
+}
+
+// c (16 x 8 NT) += A . B, A from KS accumulator blocks (a_of_c: its
+// k-step kk is a[kk]), B read down the columns of a shared tile: b = B's
+// tile + 2t ldb + g (k-step kk at rows 8 kk + 2t and 8 kk + 2t + 1,
+// n-tile j at column 8 j + g). Eight n-tiles' fragments are loaded before
+// their products.
+template <int NT, int KS>
+__device__ __forceinline__ void mm_cols(float (&c)[NT][4],
+                                        const float (&a)[KS][4],
+                                        const float* b, int ldb) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    SplitA fa;
+    a_of_c(fa, a[kk]);
+    const float* bk = b + kk * 8 * ldb;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += 8) {
+      SplitB fb[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float* p = bk + (j0 + u) * 8;
+        split_tf32(p[0], fb[u].hi[0], fb[u].lo[0]);
+        split_tf32(p[ldb], fb[u].hi[1], fb[u].lo[1]);
       }
-      // the 8 column groups of a row are lanes cg = 0..7 of one warp
+      if (FA_F32_TERMS == 3) {
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-      const float m_new = fmaxf(m[i], mc);
-      const bool dead = m_new <= NEG_INF * 0.5f;
-      const float sub = dead ? 0.f : m_new;
-      const float alpha = m[i] <= NEG_INF * 0.5f ? 0.f : expf(m[i] - sub);
-      float rs = 0.f;
+        for (int u = 0; u < 8; ++u) mma_tf32(c[j0 + u], fa.lo, fb[u].hi);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - sub) : 0.f;
-        Ps[(rg * 4 + i) * (BK32 + 1) + cg + 8 * j] = p;
+        for (int u = 0; u < 8; ++u) mma_tf32(c[j0 + u], fa.hi, fb[u].lo);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) mma_tf32(c[j0 + u], fa.hi, fb[u].hi);
+    }
+  }
+}
+
+// --------------------------------------- flash_attention, float32 (TF32)
+constexpr int F32_WARPS = 4;                  // 16 query rows a warp
+constexpr int F32_THREADS = 32 * F32_WARPS;
+constexpr int F32_BQ = 16 * F32_WARPS;        // query rows a block
+
+struct F32Args {
+  const float *q, *k, *v;
+  float* o;       // (B, Hq, Sq, Dv) contiguous
+  float* lse;     // (B, Hq, Sq) natural-log LSE, or null (serving)
+  Strides qs, ks, vs;
+  int Hq, group, Sq, Sk, D, Dv, causal, window;
+  int vq, vk, vv;  // q, k, v take 16-byte copies
+  float scale;
+};
+
+// The online softmax of a tile of scores s (the thread's rows r0 and
+// r0 + 8, its keys kt + 8 j + e of n-tile j) against the state m, l, o of
+// those rows: P written over s. MASK: evaluate the masks (a tile that
+// crosses a bound for some row of the warp).
+template <bool MASK, int NT, int NV>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4],
+                                               float (&o)[NV][4],
+                                               float (&m)[2], float (&l)[2],
+                                               const F32Args& a, int r0,
+                                               int kt) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = r0 + 8 * r;
+    float mc = NEG_INF;
+    uint32_t live = 0;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = kt + 8 * j + e;
+        bool ok = true;
+        if (MASK) {
+          ok = kpos < a.Sk;
+          if (a.causal) ok = ok && qpos >= kpos;
+          if (a.window >= 0) ok = ok && (qpos - kpos) < a.window;
+        }
+        const float x = ok ? s[j][2 * r + e] * a.scale : NEG_INF;
+        s[j][2 * r + e] = x;
+        live |= (uint32_t)ok << (2 * j + e);
+        mc = fmaxf(mc, x);
+      }
+    // a row's columns are the four lanes of a quad
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+    const float m_new = fmaxf(m[r], mc);
+    const float sub = m_new <= NEG_INF * 0.5f ? 0.f : m_new;
+    const float alpha = m[r] <= NEG_INF * 0.5f ? 0.f : expf(m[r] - sub);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = !MASK || (live >> (2 * j + e)) & 1u
+                            ? expf(s[j][2 * r + e] - sub) : 0.f;
+        s[j][2 * r + e] = p;
         rs += p;
       }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[r] = l[r] * alpha + rs;
+    m[r] = m_new;
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < BK32; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(rg * 4 + i) * (BK32 + 1) + j];
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int col = cg + 8 * c;
-        if (col < Dv) {
-          const float vv = to_f32(Vs[j * ldv + col]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] += p[i] * vv;
-        }
-      }
-    }
-  }
-
-  T* ob = o + ((long long)b * Hq + h) * (long long)Sq * Dv;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && cg == 0)
-      lse[((long long)b * Hq + h) * Sq + row] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int col = cg + 8 * c;
-      if (col < Dv)
-        ob[(long long)row * Dv + col] = from_f32<T>(acc[i][c] / denom);
+    for (int j = 0; j < NV; ++j) {
+      o[j][2 * r] *= alpha;
+      o[j][2 * r + 1] *= alpha;
     }
   }
 }
 
-template <int COLS>
-int attention_f32(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
-                  int Dv,
-                  Strides qs, Strides ks, Strides vs, int causal, int window,
-                  float scale, cudaStream_t stream) {
-  const int ld = pad_ld<float>(D), ldv = pad_ld<float>(Dv);
-  const size_t smem = sizeof(float) * BQ * (BK32 + 1) +
-                      sizeof(float) * ((size_t)(BQ + BK32) * ld + BK32 * ldv);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_f32_kernel<float, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  fa_f32_kernel<float, COLS><<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hq / Hkv,
-      Sq,
-      Sk, D, Dv, qs, ks, vs, causal, window, scale);
+// The float32 forward's tile: DP columns of q, k and v (D and Dv <=
+// DP, zero past them), BKT keys a step: 64 at DP = 64, else 32 (shared
+// memory).
+template <int DP> struct F32Tile {
+  static constexpr int LD = f32_ld(DP);
+  static constexpr int BKT = DP <= 64 ? 64 : 32;
+  static constexpr int SMEM = 4 * (F32_BQ + 4 * BKT) * LD;   // bytes
+};
+
+template <int DP>
+__global__ void __launch_bounds__(F32_THREADS)
+fa_f32_kernel(F32Args a) {
+  constexpr int LD = F32Tile<DP>::LD, BKT = F32Tile<DP>::BKT;
+  constexpr int NT = BKT / 8, NV = DP / 8;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                    // F32_BQ x LD
+  float* Ks = Qs + F32_BQ * LD;       // two stages of BKT x LD
+  float* Vs = Ks + 2 * BKT * LD;      // two stages of BKT x LD
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the heaviest causal tiles launch first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F32_BQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.group;
+  const float* qb = a.q + b * a.qs.b + h * a.qs.h;
+  const float* kb = a.k + b * a.ks.b + hk * a.ks.h;
+  const float* vb = a.v + b * a.vs.b + hk * a.vs.h;
+
+  // the key tiles that can hold a live key for some row of this tile
+  const int q_last = min(q0 + F32_BQ, a.Sq) - 1;
+  int k_begin = 0, k_end = a.Sk;
+  if (a.causal) k_end = min(a.Sk, q_last + 1);
+  if (a.window >= 0) k_begin = max(0, q0 - a.window + 1);
+  k_begin = k_begin / BKT * BKT;
+  const int n = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
+
+  auto load_kv = [&](int k0, int st) {
+    f32_tile(Ks + st * BKT * LD, DP, kb, a.ks.s, k0, BKT, a.Sk, a.D, a.vk,
+             tid, F32_THREADS);
+    f32_tile(Vs + st * BKT * LD, DP, vb, a.vs.s, k0, BKT, a.Sk, a.Dv, a.vv,
+             tid, F32_THREADS);
+  };
+  if (n > 0) {
+    f32_tile(Qs, DP, qb, a.qs.s, q0, F32_BQ, a.Sq, a.D, a.vq, tid,
+             F32_THREADS);
+    load_kv(k_begin, 0);
+  }
+  cp_async_commit();
+
+  float o[NV][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  const int w0 = q0 + 16 * warp;     // the warp's first row
+  const int r0 = w0 + g;             // the thread's rows r0, r0 + 8
+  const float* qw = Qs + (16 * warp + g) * LD + t;
+
+  for (int i = 0; i < n; ++i) {
+    const int k0 = k_begin + i * BKT, st = i & 1;
+    if (i + 1 < n) {   // the next tile flies meanwhile
+      load_kv(k0 + BKT, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    float s[NT][4];
+    mm_rows<NT>(s, qw, LD, Ks + st * BKT * LD + g * LD + t, LD, DP);
+    // masks only where the tile crosses a bound for some row of the warp
+    const bool whole = k0 + BKT <= a.Sk &&
+                       (!a.causal || w0 >= k0 + BKT - 1) &&
+                       (a.window < 0 || w0 + 15 - k0 < a.window);
+    if (whole)
+      online_softmax<false>(s, o, m, l, a, r0, k0 + 2 * t);
+    else
+      online_softmax<true>(s, o, m, l, a, r0, k0 + 2 * t);
+    // O += P . V, P float32 from the registers it was formed in
+    mm_cols<NV, NT>(o, s, Vs + st * BKT * LD + 2 * t * LD + g, LD);
+    __syncthreads();   // the stage is refilled by the next iteration
+  }
+
+  float* ob = a.o + ((long long)b * a.Hq + h) * (long long)a.Sq * a.Dv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= a.Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    if (a.lse != nullptr && t == 0)
+      a.lse[((long long)b * a.Hq + h) * a.Sq + row] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : __int_as_float(0x7f800000);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < a.Dv)
+          ob[(long long)row * a.Dv + col] = o[j][2 * r + e] / denom;
+      }
+  }
+}
+
+// The float32 kernels' tile of head dims up to d: 64, 128, 192 or 256
+// columns (D = 80 runs in the 128 tile, its columns past 80 zero).
+int f32_tile_of(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+
+// whether a float32 (B, H, S, d) operand takes 16-byte copies
+bool f32_vec(const void* p, const Strides& s, int d) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 &&
+         s.h % 4 == 0 && s.s % 4 == 0 && d % 4 == 0;
+}
+
+template <int DP>
+int attention_f32(const F32Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = F32Tile<DP>::SMEM;
+  const int err = set_smem(fa_f32_kernel<DP>, smem);
+  if (err != 0) return err;
+  const dim3 grid((a.Sq + F32_BQ - 1) / F32_BQ, a.Hq, B);
+  fa_f32_kernel<DP><<<grid, F32_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -665,19 +913,6 @@ struct FdArgs {
   int splits, split_len;
   float scale_log2;  // sm_scale * log2(e): m and the logits in log2 units
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // the E = 16 / sizeof(T) values of a 16-byte chunk, widened to float
 template <typename T>
@@ -1072,8 +1307,30 @@ int decode(const void* q, const void* k, const void* v, FdArgs a, int B,
 //     axis).
 // P is rounded to bf16 for P^T dO, as the forward's P . V rounds it, and dS
 // for its two products.
-// float32 (fa_bwd_*_f32_kernel): CUDA-core FMAs (TF32 would miss the
-// float32 tolerance), 32 x 32 tiles, 256 threads.
+// float32 (fa_bwd_delta_kernel, fa_bwd_dkdv_f32_kernel,
+// fa_bwd_dq_f32_kernel): the forward's split TF32 for all five products
+// (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q; dQ += dS K),
+// P^T and dS^T float32 on the fragments, tiles of DP = 64, 128 or 192
+// columns, eight warps a block:
+//   * dK/dV: a block takes 16 NS keys of a kv head (NS = 4, 2 or 1 strips
+//     of 16: four while the grid then holds 132 blocks, fewer for the small
+//     grids, so that the longest block's walk shrinks); its four pairs of
+//     warps take a strip each, or with fewer strips a share of each step's
+//     queries. A pair's first warp forms P^T and adds P^T dO into dV, the
+//     second dP^T and dS^T and adds dS^T Q into dK: one accumulator a warp
+//     (96 registers at 192 columns), P^T handed over in shared memory under
+//     a named barrier of the pair;
+//   * dQ: a block takes 16 NS queries (NS = 4 or 2), a warp a strip and a
+//     share of each step's keys, and forms S, dP, dS and dQ on its own.
+//     It reads nothing the dK/dV pass writes, so it is a programmatic
+//     dependent launch: under a causal mask the dK/dV blocks of the last
+//     keys end early, and dQ blocks take their SMs (at the small grids the
+//     two passes then take about the time of the longer); each dQ block
+//     waits for the dK/dV grid before it ends, so the work after the call
+//     sees both;
+//   * (Q, dO) and (K, V) tiles fly in two cp.async stages as in the
+//     forward; the shares' partial sums are added in a fixed order at the
+//     end.
 
 struct BwdArgs {
   const void *q, *k, *v, *o, *g;  // g: dO
@@ -1083,6 +1340,7 @@ struct BwdArgs {
   void *dq, *dk, *dv;
   Strides qs, ks, vs, os, gs, dqs, dks, dvs;
   int B, Hq, Hkv, group, Sq, Sk, D, Dv, causal, window;
+  int vq, vk, vv, vg;  // float32: q, k, v, dO take 16-byte copies
   float scale;
 };
 
@@ -1135,182 +1393,374 @@ __global__ void __launch_bounds__(256) fa_bwd_delta_kernel(BwdArgs a) {
   if (lane == 0) a.delta[row] = acc;
 }
 
-// ---- float32: CUDA cores
-constexpr int BT32 = 32;           // keys and queries per tile
-constexpr int BWD32_THREADS = 256;
+// ---- float32: split TF32 on the tensor cores
+constexpr int BWD32_THREADS = 256;   // 8 warps
 
-// rows [r0, r0 + BT32) of a (B, H, S, D) view into a BT32 x ld tile, zero
-// past S
-__device__ __forceinline__ void bwd_load32(float* dst, const float* src,
-                                           long long s_stride, int r0, int S,
-                                           int D, int ld) {
-  for (int idx = threadIdx.x; idx < BT32 * D; idx += BWD32_THREADS) {
-    const int r = idx / D, c = idx - r * D;
-    dst[r * ld + c] = r0 + r < S ? src[(r0 + r) * s_stride + c] : 0.f;
-  }
+// The float32 backward's tile: DP columns of q, k, v and dO (D and Dv <=
+// DP, zero past them, f32_tile_of), NS strips of 16 keys (dK/dV) or
+// queries (dQ) a block; the dK/dV pass's queries a step (BQ) and the dQ
+// pass's keys a step (BK): 64, but 32 at DP = 192 for dQ and for a dK/dV
+// block of more than one strip (shared memory). Shared bytes:
+// dK/dV, the block's K and V rows, the P^T exchange and two stages of
+// (Q, dO, LSE, D_i), which the splits' partial sums reuse after the walk;
+// dQ, the block's Q and dO rows with their LSE and D_i, then two stages of
+// (K, V), reused likewise.
+template <int DP, int NS> struct Bwd32 {
+  static constexpr int LD = f32_ld(DP), NA = DP / 8;
+  static constexpr int BQ = DP <= 128 || NS == 1 ? 64 : 32;
+  static constexpr int BK = DP <= 128 ? 64 : 32;
+  static constexpr int NQ = BQ * NS / 32;   // a dK/dV split's query n-tiles
+  static constexpr int NK = BK * NS / 64;   // a dQ split's key n-tiles
+  static constexpr int KV_STAGES = 2 * BQ * (2 * LD + 2);
+  static constexpr int KV_RED = (4 / NS - 1) * 2 * NS * NA * 128;
+  static constexpr int DKDV_SMEM =
+      4 * (32 * NS * LD + 4 * NQ * 128 +
+           (KV_STAGES > KV_RED ? KV_STAGES : KV_RED));
+  static constexpr int Q_STAGES = 4 * BK * LD;
+  static constexpr int Q_RED = (8 / NS - 1) * NS * NA * 128;
+  static constexpr int DQ_SMEM =
+      4 * (16 * NS * (2 * LD + 2) + (Q_STAGES > Q_RED ? Q_STAGES : Q_RED));
+};
+
+// whether no (query, key) pair of queries [q_lo, q_lo + nq) and keys
+// [k_lo, k_lo + nk) is live (dead), and whether all are (whole)
+__device__ __forceinline__ void bwd_block_live(const BwdArgs& a, int q_lo,
+                                               int nq, int k_lo, int nk,
+                                               bool& dead, bool& whole) {
+  const int q_hi = min(q_lo + nq, a.Sq) - 1, k_hi = min(k_lo + nk, a.Sk) - 1;
+  dead = q_lo >= a.Sq || k_lo >= a.Sk || (a.causal && q_hi < k_lo) ||
+         (a.window >= 0 && q_lo - k_hi >= a.window);
+  whole = q_lo + nq <= a.Sq && k_lo + nk <= a.Sk &&
+          (!a.causal || q_lo >= k_lo + nk - 1) &&
+          (a.window < 0 || q_lo + nq - 1 - k_lo < a.window);
 }
 
-// COLS: accumulator columns per thread (D, Dv <= 8 COLS)
-template <int COLS>
+// P^T = exp(S^T scale - LSE) on a dK/dV warp's block of S^T (its keys
+// key0 and key0 + 8, its queries q0 + 8 j + e of n-tile j; lse at the
+// block's query q0), written over x and to the exchange px. MASK: evaluate
+// the masks.
+template <bool MASK, int NQ>
+__device__ __forceinline__ void f32_p_tile(float (&x)[NQ][4],
+                                           const BwdArgs& a,
+                                           const float* lse, int q0,
+                                           int key0, float* px) {
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = 8 * j + (e & 1);
+      const bool ok = !MASK || bwd_live(a, q0 + qi, key0 + 8 * (e >> 1));
+      x[j][e] = ok ? expf(x[j][e] * a.scale - lse[qi]) : 0.f;
+      px[(4 * j + e) * 32] = x[j][e];
+    }
+}
+
+// dS = P (dP - D_i) on a dQ warp's blocks of S and dP (its queries q0 and
+// q0 + 8 with their LSE and D_i, its keys k0 + 8 j + e of n-tile j),
+// written over s. MASK: evaluate the masks.
+template <bool MASK, int NK>
+__device__ __forceinline__ void f32_ds_tile(float (&s)[NK][4],
+                                            const float (&dp)[NK][4],
+                                            const BwdArgs& a,
+                                            const float (&L)[2],
+                                            const float (&Di)[2], int q0,
+                                            int k0) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const bool ok = !MASK || bwd_live(a, q0 + 8 * r, k0 + 8 * j + (e & 1));
+      const float p = ok ? expf(s[j][e] * a.scale - L[r]) : 0.f;
+      s[j][e] = p * (dp[j][e] - Di[r]);
+    }
+}
+
+// dK and dV of 16 NS keys of one kv head. Eight warps in four pairs: pair
+// p takes key strip p % NS (16 keys) and, of each step's BQ queries, the
+// split p / NS (BQ NS / 4 of them). Its first warp forms S^T = K Q^T and
+// P^T, hands P^T to the second through shared memory and adds P^T dO into
+// dV; the second forms dP^T = V dO^T and dS^T = P^T (dP^T - D_i) and adds
+// dS^T Q into dK. The walk goes over the group's query heads and the query
+// tiles that see the block's keys; the splits' partial sums are added in
+// split order at the end.
+template <int DP, int NS>
 __global__ void __launch_bounds__(BWD32_THREADS)
 fa_bwd_dkdv_f32_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
-  float* Ks = reinterpret_cast<float*>(smem_b);
-  float* Vs = Ks + BT32 * ld;
-  float* Qs = Vs + BT32 * ldv;
-  float* Gs = Qs + BT32 * ld;
-  float* Ps = Gs + BT32 * ldv;    // P^T [key][query]
-  float* Ss = Ps + BT32 * ldp;    // dS^T [key][query]
-  float* Ls = Ss + BT32 * ldp;    // lse
-  float* Ds = Ls + BT32;          // D_i
-  const int tid = threadIdx.x, kr = tid >> 3, cg = tid & 7;
-  const int k0 = blockIdx.x * BT32, hk = blockIdx.y, b = blockIdx.z;
-  bwd_load32(Ks, static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h,
-             a.ks.s, k0, a.Sk, a.D, ld);
-  bwd_load32(Vs, static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h,
-             a.vs.s, k0, a.Sk, a.Dv, ldv);
-  float dk[COLS], dv[COLS];
-#pragma unroll
-  for (int j = 0; j < COLS; ++j) dk[j] = dv[j] = 0.f;
+  using T = Bwd32<DP, NS>;
+  constexpr int BQ = T::BQ, SPLITS = 4 / NS, NQ = T::NQ, NA = T::NA;
+  constexpr int LD = T::LD, STAGE = BQ * (2 * LD + 2);
+  extern __shared__ __align__(16) float bsm[];
+  float* Ks = bsm;                        // 16 NS x LD
+  float* Vs = Ks + 16 * NS * LD;          // 16 NS x LD
+  float* Px = Vs + 16 * NS * LD;          // P^T: 4 pairs x NQ x 4 x 32
+  float* St = Px + 4 * NQ * 128;          // the stages
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int role = warp >> 2, pair = warp & 3;
+  const int strip = pair % NS, split = pair / NS;
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * 16 * NS;
+  // the dQ pass reads nothing this pass writes: its blocks may take the
+  // SMs that this pass's short (causal) blocks leave
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const float* q = static_cast<const float*>(a.q);
+  const float* gr = static_cast<const float*>(a.g);
+  f32_tile(Ks, DP, static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h,
+           a.ks.s, k0, 16 * NS, a.Sk, a.D, a.vk, tid, BWD32_THREADS);
+  f32_tile(Vs, DP,
+           static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h, a.vs.s,
+           k0, 16 * NS, a.Sk, a.Dv, a.vv, tid, BWD32_THREADS);
   int q_begin, q_end;
-  bwd_query_range(a, k0, BT32, BT32, q_begin, q_end);
-  const int kpos = k0 + kr;
-  for (int hh = 0; hh < a.group; ++hh) {
+  bwd_query_range(a, k0, 16 * NS, BQ, q_begin, q_end);
+  const int nqt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+  const int n = a.group * nqt;
+  // step i: query head hk group + i / nqt, query tile i % nqt
+  auto load = [&](int i) {
+    float* s = St + (i & 1) * STAGE;
+    const int hh = i / nqt, q0 = q_begin + (i - hh * nqt) * BQ;
     const int h = hk * a.group + hh;
-    const float* qb = static_cast<const float*>(a.q) + b * a.qs.b +
-                      h * a.qs.h;
-    const float* gb = static_cast<const float*>(a.g) + b * a.gs.b +
-                      h * a.gs.h;
-    const long long rowbase = ((long long)b * a.Hq + h) * a.Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += BT32) {
-      __syncthreads();  // the previous tile's readers are done
-      bwd_load32(Qs, qb, a.qs.s, q0, a.Sq, a.D, ld);
-      bwd_load32(Gs, gb, a.gs.s, q0, a.Sq, a.Dv, ldv);
-      if (tid < BT32) {
-        const bool in = q0 + tid < a.Sq;
-        Ls[tid] = in ? a.lse[rowbase + q0 + tid] : 0.f;
-        Ds[tid] = in ? a.delta[rowbase + q0 + tid] : 0.f;
+    const long long row = ((long long)b * a.Hq + h) * a.Sq;
+    f32_tile(s, DP, q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, BQ, a.Sq, a.D,
+             a.vq, tid, BWD32_THREADS);
+    f32_tile(s + BQ * LD, DP, gr + b * a.gs.b + h * a.gs.h, a.gs.s, q0, BQ,
+             a.Sq, a.Dv, a.vg, tid, BWD32_THREADS);
+    f32_row(s + 2 * BQ * LD, a.lse + row, q0, BQ, a.Sq, tid,
+            BWD32_THREADS);
+    f32_row(s + BQ * (2 * LD + 1), a.delta + row, q0, BQ, a.Sq, tid,
+            BWD32_THREADS);
+  };
+  if (n > 0) load(0);
+  cp_async_commit();
+
+  // dV (role 0) or dK (role 1) of the strip's keys
+  float acc[NA][4];
+#pragma unroll
+  for (int j = 0; j < NA; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int kw = k0 + 16 * strip;         // the strip's first key
+  const int qw = split * NQ * 8;          // the split's first query of a tile
+  float* px = Px + pair * NQ * 128 + lane;
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      load(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Qt = St + (i & 1) * STAGE;
+    const float* Gt = Qt + BQ * LD;
+    const float* Lt = Gt + BQ * LD;
+    const float* Dt = Lt + BQ;
+    const int hh = i / nqt, q0 = q_begin + (i - hh * nqt) * BQ;
+    bool dead, whole;
+    bwd_block_live(a, q0 + qw, NQ * 8, kw, 16, dead, whole);
+    float x[NQ][4];
+    if (role == 0) {
+      if (!dead) {
+        mm_rows<NQ>(x, Ks + (16 * strip + g) * LD + t, LD,
+                    Qt + (qw + g) * LD + t, LD, DP);
+        if (whole)
+          f32_p_tile<false>(x, a, Lt + qw + 2 * t, q0 + qw + 2 * t, kw + g,
+                            px);
+        else
+          f32_p_tile<true>(x, a, Lt + qw + 2 * t, q0 + qw + 2 * t, kw + g,
+                           px);
       }
-      __syncthreads();
-      float sc[4], dp[4];
+      named_arrive(1 + pair, 64);
+      if (!dead)
+        mm_cols<NA, NQ>(acc, x, Gt + (qw + 2 * t) * LD + g, LD);
+    } else {
+      if (!dead)
+        mm_rows<NQ>(x, Vs + (16 * strip + g) * LD + t, LD,
+                    Gt + (qw + g) * LD + t, LD, DP);
+      named_sync(1 + pair, 64);
+      if (!dead) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sc[i] = dp[i] = 0.f;
-      for (int d = 0; d < a.D; ++d) {
-        const float kv = Ks[kr * ld + d];
+        for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sc[i] += kv * Qs[(cg + 8 * i) * ld + d];
-      }
-      for (int d = 0; d < a.Dv; ++d) {
-        const float vv = Vs[kr * ldv + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dp[i] += vv * Gs[(cg + 8 * i) * ldv + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = cg + 8 * i;
-        const float p = bwd_live(a, q0 + qi, kpos)
-                            ? expf(sc[i] * a.scale - Ls[qi]) : 0.f;
-        Ps[kr * ldp + qi] = p;
-        Ss[kr * ldp + qi] = p * (dp[i] - Ds[qi]);
-      }
-      __syncthreads();
-      for (int qi = 0; qi < BT32; ++qi) {
-        const float p = Ps[kr * ldp + qi], ds = Ss[kr * ldp + qi];
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          const int c = cg + 8 * j;
-          if (c < a.Dv) dv[j] += p * Gs[qi * ldv + c];
-          if (c < a.D) dk[j] += ds * Qs[qi * ld + c];
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qw + 8 * j + 2 * t + (e & 1);
+            x[j][e] = px[(4 * j + e) * 32] * (x[j][e] - Dt[qi]);
+          }
+        mm_cols<NA, NQ>(acc, x, Qt + (qw + 2 * t) * LD + g, LD);
       }
     }
+    __syncthreads();   // the stage is refilled by the next iteration
   }
-  if (kpos >= a.Sk) return;
-  float* dkr = static_cast<float*>(a.dk) + b * a.dks.b + hk * a.dks.h +
-               kpos * a.dks.s;
-  float* dvr = static_cast<float*>(a.dv) + b * a.dvs.b + hk * a.dvs.h +
-               kpos * a.dvs.s;
+  cp_async_wait<0>();
+  if (SPLITS > 1) {   // the splits' partial sums, added in split order
+    float* red = St;
+    const int slot = (role * NS + strip) * NA * 128 + lane;
+    if (split > 0) {
+      float* w = red + (split - 1) * 2 * NS * NA * 128 + slot;
 #pragma unroll
-  for (int j = 0; j < COLS; ++j) {
-    const int c = cg + 8 * j;
-    if (c < a.D) dkr[c] = dk[j] * a.scale;
-    if (c < a.Dv) dvr[c] = dv[j];
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[(4 * j + e) * 32] = acc[j][e];
+    }
+    __syncthreads();
+    if (split > 0) return;
+#pragma unroll
+    for (int s = 1; s < SPLITS; ++s) {
+      const float* r = red + (s - 1) * 2 * NS * NA * 128 + slot;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] += r[(4 * j + e) * 32];
+    }
+  }
+  float* dst = static_cast<float*>(role ? a.dk : a.dv);
+  const Strides& ds = role ? a.dks : a.dvs;
+  dst += b * ds.b + hk * ds.h;
+  const int width = role ? a.D : a.Dv;
+  const float mul = role ? a.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < width) dst[key * ds.s + col] = acc[j][2 * r + e] * mul;
+      }
   }
 }
 
-template <int COLS>
+// dQ of 16 NS queries of one query head. Eight warps: warp w takes query
+// strip w % NS (16 rows) and, of each step's BK keys, the split w / NS
+// (BK NS / 8 of them): S = Q K^T, dP = dO V^T, dS = P (dP - D_i) and
+// dQ += dS K. The splits' partial sums are added in split order at the
+// end.
+template <int DP, int NS>
 __global__ void __launch_bounds__(BWD32_THREADS)
 fa_bwd_dq_f32_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
-  float* Qs = reinterpret_cast<float*>(smem_b);
-  float* Gs = Qs + BT32 * ld;
-  float* Ks = Gs + BT32 * ldv;
-  float* Vs = Ks + BT32 * ld;
-  float* Ss = Vs + BT32 * ldv;   // dS [query][key]
-  const int tid = threadIdx.x, qr = tid >> 3, cg = tid & 7;
-  const int q0 = blockIdx.x * BT32, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.group;
-  bwd_load32(Qs, static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h,
-             a.qs.s, q0, a.Sq, a.D, ld);
-  bwd_load32(Gs, static_cast<const float*>(a.g) + b * a.gs.b + h * a.gs.h,
-             a.gs.s, q0, a.Sq, a.Dv, ldv);
-  const int qpos = q0 + qr;
-  const long long row = ((long long)b * a.Hq + h) * a.Sq + qpos;
-  const float L = qpos < a.Sq ? a.lse[row] : 0.f;
-  const float Di = qpos < a.Sq ? a.delta[row] : 0.f;
-  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b +
-                    hk * a.ks.h;
-  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b +
-                    hk * a.vs.h;
-  float dq[COLS];
-#pragma unroll
-  for (int j = 0; j < COLS; ++j) dq[j] = 0.f;
+  using T = Bwd32<DP, NS>;
+  constexpr int BK = T::BK, SPLITS = 8 / NS, NK = T::NK, NA = T::NA;
+  constexpr int LD = T::LD, STAGE = 2 * BK * LD;
+  extern __shared__ __align__(16) float bsm[];
+  float* Qs = bsm;                        // 16 NS x LD
+  float* Gs = Qs + 16 * NS * LD;          // 16 NS x LD
+  float* Ls = Gs + 16 * NS * LD;          // 16 NS
+  float* Ds = Ls + 16 * NS;               // 16 NS
+  float* St = Ds + 16 * NS;               // the stages
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = warp % NS, split = warp / NS;
+  // the heaviest causal tiles (the last) launch first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 16 * NS;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.group;
+  const long long row = ((long long)b * a.Hq + h) * a.Sq;
+  f32_tile(Qs, DP, static_cast<const float*>(a.q) + b * a.qs.b + h * a.qs.h,
+           a.qs.s, q0, 16 * NS, a.Sq, a.D, a.vq, tid, BWD32_THREADS);
+  f32_tile(Gs, DP, static_cast<const float*>(a.g) + b * a.gs.b + h * a.gs.h,
+           a.gs.s, q0, 16 * NS, a.Sq, a.Dv, a.vg, tid, BWD32_THREADS);
+  f32_row(Ls, a.lse + row, q0, 16 * NS, a.Sq, tid, BWD32_THREADS);
+  f32_row(Ds, a.delta + row, q0, 16 * NS, a.Sq, tid, BWD32_THREADS);
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h;
   int k_begin, k_end;
-  bwd_key_range(a, q0, BT32, BT32, k_begin, k_end);
-  for (int k0 = k_begin; k0 < k_end; k0 += BT32) {
-    __syncthreads();
-    bwd_load32(Ks, kb, a.ks.s, k0, a.Sk, a.D, ld);
-    bwd_load32(Vs, vb, a.vs.s, k0, a.Sk, a.Dv, ldv);
-    __syncthreads();
-    float sc[4], dp[4];
+  bwd_key_range(a, q0, 16 * NS, BK, k_begin, k_end);
+  const int n = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  auto load = [&](int i) {
+    float* s = St + (i & 1) * STAGE;
+    const int kt = k_begin + i * BK;
+    f32_tile(s, DP, kb, a.ks.s, kt, BK, a.Sk, a.D, a.vk, tid,
+             BWD32_THREADS);
+    f32_tile(s + BK * LD, DP, vb, a.vs.s, kt, BK, a.Sk, a.Dv, a.vv, tid,
+             BWD32_THREADS);
+  };
+  if (n > 0) load(0);
+  cp_async_commit();
+
+  float acc[NA][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i] = dp[i] = 0.f;
-    for (int d = 0; d < a.D; ++d) {
-      const float qv = Qs[qr * ld + d];
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sc[i] += qv * Ks[(cg + 8 * i) * ld + d];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int qw = q0 + 16 * strip;         // the strip's first query
+  const int kw = split * NK * 8;          // the split's first key of a tile
+  float L[2] = {0.f, 0.f}, Di[2] = {0.f, 0.f};
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      load(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int d = 0; d < a.Dv; ++d) {
-      const float gv = Gs[qr * ldv + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dp[i] += gv * Vs[(cg + 8 * i) * ldv + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ki = cg + 8 * i;
-      const float p = bwd_live(a, qpos, k0 + ki)
-                          ? expf(sc[i] * a.scale - L) : 0.f;
-      Ss[qr * ldp + ki] = p * (dp[i] - Di);
-    }
     __syncthreads();
-    for (int ki = 0; ki < BT32; ++ki) {
-      const float ds = Ss[qr * ldp + ki];
+    if (i == 0)
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int c = cg + 8 * j;
-        if (c < a.D) dq[j] += ds * Ks[ki * ld + c];
+      for (int r = 0; r < 2; ++r) {
+        L[r] = Ls[16 * strip + g + 8 * r];
+        Di[r] = Ds[16 * strip + g + 8 * r];
       }
+    const float* Kt = St + (i & 1) * STAGE;
+    const float* Vt = Kt + BK * LD;
+    const int kt = k_begin + i * BK;
+    bool dead, whole;
+    bwd_block_live(a, qw, 16, kt + kw, NK * 8, dead, whole);
+    if (!dead) {
+      float s[NK][4], dp[NK][4];
+      mm_rows<NK>(s, Qs + (16 * strip + g) * LD + t, LD,
+                  Kt + (kw + g) * LD + t, LD, DP);
+      mm_rows<NK>(dp, Gs + (16 * strip + g) * LD + t, LD,
+                  Vt + (kw + g) * LD + t, LD, DP);
+      if (whole)
+        f32_ds_tile<false>(s, dp, a, L, Di, qw + g, kt + kw + 2 * t);
+      else
+        f32_ds_tile<true>(s, dp, a, L, Di, qw + g, kt + kw + 2 * t);
+      mm_cols<NA, NK>(acc, s, Kt + (kw + 2 * t) * LD + g, LD);
+    }
+    __syncthreads();   // the stage is refilled by the next iteration
+  }
+  cp_async_wait<0>();
+  // launched beside the dK/dV pass (programmatic dependent launch): this
+  // block ends after that grid, so the work after the call sees both
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (SPLITS > 1) {   // the splits' partial sums, added in split order
+    float* red = St;
+    const int slot = strip * NA * 128 + lane;
+    if (split > 0) {
+      float* w = red + (split - 1) * NS * NA * 128 + slot;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[(4 * j + e) * 32] = acc[j][e];
+    }
+    __syncthreads();
+    if (split > 0) return;
+#pragma unroll
+    for (int s = 1; s < SPLITS; ++s) {
+      const float* r = red + (s - 1) * NS * NA * 128 + slot;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] += r[(4 * j + e) * 32];
     }
   }
-  if (qpos >= a.Sq) return;
-  float* dqr = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h +
-               qpos * a.dqs.s;
+  float* dq = static_cast<float*>(a.dq) + b * a.dqs.b + h * a.dqs.h;
 #pragma unroll
-  for (int j = 0; j < COLS; ++j) {
-    const int c = cg + 8 * j;
-    if (c < a.D) dqr[c] = dq[j] * a.scale;
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw + g + 8 * r;
+    if (qpos >= a.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < a.D)
+          dq[qpos * a.dqs.s + col] = acc[j][2 * r + e] * a.scale;
+      }
   }
 }
 
@@ -1421,12 +1871,6 @@ template <int DP, int DV> struct BwdTile {
 // named barriers of a SPLIT block's P^T hand-over (0 is __syncthreads):
 // buffer i full (warpgroup 0 arrives, 1 waits), empty (the other way)
 constexpr int BAR_XFULL = 1, BAR_XEMPTY = 3;
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // D_i = rowsum(dO . O) and the LSE in log2 units, into (B, Hq, Sq_pad) rows
 // (0 and +inf past Sq): G lanes a row, one 16-byte vector of O and of dO
@@ -1833,7 +2277,7 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = warp >> 2, t4 = lane & 3;
   const int wpos_lo = q0 + 64 * wg, wpos_hi = wpos_lo + 63;
   const int qrow = wpos_lo + 16 * (warp & 3) + (lane >> 2);  // and qrow + 8
-  float L[2], Di[2];
+  float L[2] = {0.f, 0.f}, Di[2] = {0.f, 0.f};
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const long long row =
@@ -1916,31 +2360,66 @@ fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+
+// Blocks that fill the card's SMs once: a float32 pass takes four strips
+// (64 keys or queries) a block where the grid then has at least this many
+// blocks, else fewer. A fixed count, not the card's: the choice, and with
+// it each sum's order, follows from the shape alone.
+constexpr long long F32_FILL = 132;
+
+template <int DP, int NS>
+int dkdv_f32(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int smem = Bwd32<DP, NS>::DKDV_SMEM;
+  const int tiles = (a.Sk + 16 * NS - 1) / (16 * NS);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int err = set_smem(fa_bwd_dkdv_f32_kernel<DP, NS>, smem);
+  if (err != 0) return err;
+  fa_bwd_dkdv_f32_kernel<DP, NS>
+      <<<dim3(a.Hkv, a.B, tiles), BWD32_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-template <int COLS>
+template <int DP, int NS>
+int dq_f32(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int smem = Bwd32<DP, NS>::DQ_SMEM;
+  const int tiles = (a.Sq + 16 * NS - 1) / (16 * NS);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int err = set_smem(fa_bwd_dq_f32_kernel<DP, NS>, smem);
+  if (err != 0) return err;
+  // a programmatic dependent launch: its blocks may start on SMs the dK/dV
+  // pass leaves before that pass ends
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hq, a.B, tiles);
+  cfg.blockDim = dim3(BWD32_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, fa_bwd_dq_f32_kernel<DP, NS>, a);
+}
+
+// blocks of `rows` rows per head, `per` rows a block
+long long f32_blocks(const BwdArgs& a, int rows, int heads, int per) {
+  return (long long)a.B * heads * ((rows + per - 1) / per);
+}
+
+// The dK/dV pass takes four strips a block where the grid then holds
+// F32_FILL blocks, else two, else one; the dQ pass four, else two.
+template <int DP>
 int backward_f32(const BwdArgs& a, cudaStream_t stream) {
-  const int ld = a.D + 1, ldv = a.Dv + 1, ldp = BT32 + 1;
-  const size_t kv = sizeof(float) * (size_t)BT32 * (2 * ld + 2 * ldv);
-  const size_t dkdv = kv + sizeof(float) * (2 * BT32 * ldp + 2 * BT32);
-  const size_t dq = kv + sizeof(float) * BT32 * ldp;
-  int err = set_smem(fa_bwd_dkdv_f32_kernel<COLS>, dkdv);
-  if (err == 0) err = set_smem(fa_bwd_dq_f32_kernel<COLS>, dq);
+  int err;
+  if (f32_blocks(a, a.Sk, a.Hkv, 64) >= F32_FILL)
+    err = dkdv_f32<DP, 4>(a, stream);
+  else if (f32_blocks(a, a.Sk, a.Hkv, 32) >= F32_FILL)
+    err = dkdv_f32<DP, 2>(a, stream);
+  else
+    err = dkdv_f32<DP, 1>(a, stream);
   if (err != 0) return err;
-  fa_bwd_dkdv_f32_kernel<COLS>
-      <<<dim3((a.Sk + BT32 - 1) / BT32, a.Hkv, a.B), BWD32_THREADS, dkdv,
-         stream>>>(a);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  fa_bwd_dq_f32_kernel<COLS>
-      <<<dim3((a.Sq + BT32 - 1) / BT32, a.Hq, a.B), BWD32_THREADS, dq,
-         stream>>>(a);
-  return (int)cudaGetLastError();
+  if (f32_blocks(a, a.Sq, a.Hq, 64) >= F32_FILL) return dq_f32<DP, 4>(a, stream);
+  return dq_f32<DP, 2>(a, stream);
 }
 
 // rows of the LSE and D_i scratch of one (batch, q head): Sq rounded up to
@@ -2058,9 +2537,33 @@ extern "C" int flash_attention_launch(
 #define FA_ARGS q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, Dv, qs, ks, vs, causal, \
                 window, scale, s
   if (dtype == DT_F32) {
-    if (Dv <= 64) return attention_f32<8>(FA_ARGS);
-    if (Dv <= 128) return attention_f32<16>(FA_ARGS);
-    return attention_f32<32>(FA_ARGS);
+    F32Args f;
+    f.q = static_cast<const float*>(q);
+    f.k = static_cast<const float*>(k);
+    f.v = static_cast<const float*>(v);
+    f.o = static_cast<float*>(o);
+    f.lse = lse;
+    f.qs = qs;
+    f.ks = ks;
+    f.vs = vs;
+    f.Hq = Hq;
+    f.group = Hq / Hkv;
+    f.Sq = Sq;
+    f.Sk = Sk;
+    f.D = D;
+    f.Dv = Dv;
+    f.causal = causal;
+    f.window = window;
+    f.vq = f32_vec(q, qs, D);
+    f.vk = f32_vec(k, ks, D);
+    f.vv = f32_vec(v, vs, Dv);
+    f.scale = scale;
+    switch (f32_tile_of(D > Dv ? D : Dv)) {
+      case 64: return attention_f32<64>(f, B, s);
+      case 128: return attention_f32<128>(f, B, s);
+      case 192: return attention_f32<192>(f, B, s);
+      default: return attention_f32<256>(f, B, s);
+    }
   }
   if (dtype == DT_BF16 && D % 8 == 0 && Dv % 8 == 0) {
     const int dp = bf16_tile(D), dv = bf16_tile(Dv);
@@ -2169,14 +2672,19 @@ extern "C" int flash_attention_bwd_launch(
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) {
+    a.vq = f32_vec(q, a.qs, D);
+    a.vk = f32_vec(k, a.ks, D);
+    a.vv = f32_vec(v, a.vs, Dv);
+    a.vg = f32_vec(dout, a.gs, Dv);
     const long long rows = (long long)B * Hq * Sq;
     fa_bwd_delta_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(a);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    const int cols = D > Dv ? D : Dv;
-    if (cols <= 64) return backward_f32<8>(a, s);
-    if (cols <= 128) return backward_f32<16>(a, s);
-    return backward_f32<24>(a, s);
+    switch (f32_tile_of(D > Dv ? D : Dv)) {
+      case 64: return backward_f32<64>(a, s);
+      case 128: return backward_f32<128>(a, s);
+      default: return backward_f32<192>(a, s);
+    }
   }
   if (dtype == DT_BF16 && D % 8 == 0 && Dv % 8 == 0) {
     const int dp = bf16_tile(D), dv = bf16_tile(Dv);

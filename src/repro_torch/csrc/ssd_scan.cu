@@ -90,6 +90,7 @@
 #include <cstdint>
 
 #include "dtype.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -152,10 +153,6 @@ __host__ __device__ inline long long smem_bytes(bool pass3, int in, int cmp,
   return b + 2 * 4 * LP;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // D (16 x 8, float32) += A (16 x 16, bf16, row) . B (16 x 8, bf16, col)
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -180,29 +177,6 @@ __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// 16 (or 4) bytes from global to shared memory, asynchronously; the bytes
-// past src_bytes (0 or the size) are zero
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// all but the newest `N` groups of this thread's copies have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
@@ -1012,13 +986,6 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_one_kernel(Args a) {
   });
 }
 
-template <typename Kernel>
-cudaError_t fit_smem(Kernel* kernel, long long bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T>
 int launch(const Args& a, cudaStream_t stream) {
   using Pr = Prec<T>;
@@ -1028,7 +995,7 @@ int launch(const Args& a, cudaStream_t stream) {
   if (a.groups > 1) {
     const long long s1 = smem_bytes(false, Pr::IN, Pr::CMP, false,
                                     n_bufs<T>(a.vec), a.L, a.P, a.N);
-    if ((err = fit_smem(ssd_pass1_kernel<T>, s1)) != cudaSuccess)
+    if ((err = set_smem(ssd_pass1_kernel<T>, s1)) != cudaSuccess)
       return (int)err;
     ssd_pass1_kernel<T><<<(unsigned)(a.B * (a.groups - 1) * a.H), THREADS,
                           s1, stream>>>(a);
@@ -1049,10 +1016,10 @@ int launch(const Args& a, cudaStream_t stream) {
     o.per_group = (a.B * a.H + ONE_BLOCKS - 1) / ONE_BLOCKS;
     const unsigned blocks = (unsigned)((a.B * a.H + o.per_group - 1) /
                                        o.per_group);
-    if ((err = fit_smem(ssd_one_kernel<T>, s3)) != cudaSuccess) return (int)err;
+    if ((err = set_smem(ssd_one_kernel<T>, s3)) != cudaSuccess) return (int)err;
     ssd_one_kernel<T><<<blocks, THREADS, s3, stream>>>(o);
   } else {
-    if ((err = fit_smem(ssd_pass3_kernel<T>, s3)) != cudaSuccess)
+    if ((err = set_smem(ssd_pass3_kernel<T>, s3)) != cudaSuccess)
       return (int)err;
     ssd_pass3_kernel<T><<<(unsigned)(a.B * a.groups * a.H), THREADS, s3,
                           stream>>>(a);
@@ -1973,7 +1940,7 @@ int launch_bwd(const BwdArgs& a, void* dB, void* dC, float* dA, float* dD,
   cudaError_t err;
   if (a.nc > 1) {
     const long long s1 = bwd_smem_bytes(Pr::IN, Pr::CMP, 0, f.L, f.P, f.N);
-    if ((err = fit_smem(ssd_bwd_incr_kernel<T>, s1)) != cudaSuccess)
+    if ((err = set_smem(ssd_bwd_incr_kernel<T>, s1)) != cudaSuccess)
       return (int)err;
     ssd_bwd_incr_kernel<T><<<blocks, THREADS, s1, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1984,7 +1951,7 @@ int launch_bwd(const BwdArgs& a, void* dB, void* dC, float* dA, float* dD,
   }
   const long long s3 = bwd_smem_bytes(Pr::IN, Pr::CMP, sizeof(T) == 2 ? 2 : 1,
                                       f.L, f.P, f.N);
-  if ((err = fit_smem(ssd_bwd_chunk_kernel<T>, s3)) != cudaSuccess)
+  if ((err = set_smem(ssd_bwd_chunk_kernel<T>, s3)) != cudaSuccess)
     return (int)err;
   ssd_bwd_chunk_kernel<T><<<blocks, THREADS, s3, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) primitives of the bf16 attention kernels (attention.cu:
 // the forward and the two backward passes): shared-memory descriptors,
-// mbarriers, TMA tensor and bulk loads and the wgmma products they issue.
+// mbarriers, TMA tensor and bulk loads and the wgmma products they issue;
+// and those that attention.cu's float32 kernels and ssd_scan.cu share:
+// cp.async copies and the launchers' dynamic shared-memory opt-in.
 //
 // Layout: every tile is stored as 64-column panels of 128-byte rows with
 // the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
@@ -22,6 +24,37 @@
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; the bytes
+// past src_bytes (0 or the size) are zero
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest `N` groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a kernel's opt-in to `bytes` of dynamic shared memory (past 48 KB)
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // Matrix descriptor of a 128-byte-swizzled operand at shared address

@@ -21,8 +21,16 @@ chosen by dtype, and both are launched and counted:
   batch, head and sequence stride must be a multiple of 16 bytes. It rounds
   P to bf16 before P . V, as the JAX model's XLA path does (ROADMAP §3
   item 7): :func:`ref.flash_attention_bf16p_ref` is that arithmetic.
-* float32: the CUDA-core kernel (``fa_f32_kernel``), any head_dim and
-  value head dim up to ``MAX_HEAD_DIM``.
+* float32: ``fa_f32_kernel``, on the tensor cores in split TF32: each
+  operand split into hi = TF32(x) and lo = x - hi (read as TF32 toward
+  zero), every product lo.hi + hi.lo + hi.hi (``mma.sync`` m16n8k8),
+  about 21 bits; a NaN or an infinity in an operand gives a NaN. One TF32
+  product keeps 11 bits of an operand, an error near 2^-11 a term that
+  misses the float32 tolerance (2e-4); :func:`ref.split_einsum` is the
+  arithmetic on the CPU. Any head_dim and value head dim up to
+  ``MAX_HEAD_DIM``, in a tile of 64, 128, 192 or 256 columns (zero past
+  them), q, k and v read through 16-byte copies where their strides allow
+  and 4-byte ones otherwise.
 
 Both read q, k and v through their batch, head and sequence strides, so
 the model's ``(B, S, H, D)`` projections pass as ``swapaxes(1, 2)`` views
@@ -44,10 +52,15 @@ bf16 its passes are wgmma kernels fed by TMA (``fa_bwd_dkdv_kernel``,
 ``fa_bwd_dq_kernel``), so D and Dv are multiples of 8 and q, k, v follow
 the forward's 16-byte rule; a dO or an out that does not (a view off 16
 bytes, or without a unit stride on its last axis) is copied to a
-contiguous tensor first. ``LAUNCHES["flash_attention_bwd"]`` counts its
-calls (three kernel launches each: D_i, dK/dV, dQ; at the 192 tile the
-dK/dV block's two warpgroups take one accumulator each). On a CPU tensor
-the plain version's own autograd gives the gradient.
+contiguous tensor first. In float32 they are the forward's split TF32
+(``fa_bwd_dkdv_f32_kernel``, ``fa_bwd_dq_f32_kernel``, the dQ pass a
+programmatic dependent launch beside the dK/dV pass).
+``LAUNCHES["flash_attention_bwd"]`` counts its calls (three kernel
+launches each: D_i, dK/dV, dQ; at the 192 tile the bf16 dK/dV block's two
+warpgroups take one accumulator each). ``LAUNCHES`` also counts each
+kernel's float32 calls apart (``flash_attention_f32``,
+``flash_attention_bwd_f32``), within the totals. On a CPU tensor the plain
+version's own autograd gives the gradient.
 """
 from __future__ import annotations
 
@@ -74,8 +87,10 @@ BF16_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128), (256, 256))
 MAX_BWD_HEAD_DIM = 192
 BWD_TILE_PAIRS = ((64, 64), (128, 128), (192, 192), (192, 128))
 
-# kernel launches since the last reset_launches()
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+# kernel launches since the last reset_launches(); the *_f32 keys count the
+# float32 calls among them
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_attention_f32": 0, "flash_attention_bwd_f32": 0}
 
 
 def reset_launches() -> None:
@@ -100,9 +115,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd_scratch.restype = cll
 
 
-def build() -> ctypes.CDLL:
-    """The library of ``csrc/attention.cu``, built on first use."""
-    return _cuda.build("attention", ("dtype.cuh", "wgmma.cuh"), bind=_bind)
+def build(defines: tuple = ()) -> ctypes.CDLL:
+    """The library of ``csrc/attention.cu``, built on first use;
+    ``defines`` (``"NAME=value"``) builds a variant beside it (chip_smoke.py's
+    ``--f32-terms`` control)."""
+    return _cuda.build("attention", ("dtype.cuh", "wgmma.cuh"),
+                       defines=defines, bind=_bind)
 
 
 def _bf16_tile(d: int) -> int:
@@ -243,6 +261,8 @@ def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
         lse.data_ptr() if lse is not None else None, stream)
     _cuda.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if q.dtype == torch.float32:
+        LAUNCHES["flash_attention_f32"] += 1
     return out, lse
 
 
@@ -335,4 +355,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         float(_scale(D, sm_scale)), stream)
     _cuda.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    if q.dtype == torch.float32:
+        LAUNCHES["flash_attention_bwd_f32"] += 1
     return dq, dk, dv

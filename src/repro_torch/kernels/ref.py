@@ -51,7 +51,8 @@ __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "rmsnorm_ref", "decode_attention_ref",
            "flash_attention_bf16p_ref", "decode_attention_split_ref",
            "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
-           "flash_attention_bwd_ref", "ssd_chunked_bwd_ref",
+           "flash_attention_bwd_ref", "ssd_chunked_bwd_ref", "tf32_round",
+           "tf32_trunc", "split_einsum",
            "ssd_bwd_increments_ref", "ssd_bwd_scan_ref",
            "ssd_bwd_chunk_grads_ref"]
 
@@ -295,57 +296,62 @@ def attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
     return mask
 
 
-def _scaled_logits(q, k, group, scale, mask, ct):
+def _scaled_logits(q, k, group, scale, mask, ct, einsum=torch.einsum):
     kx = torch.repeat_interleave(k, group, dim=1).to(ct)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kx) * scale
+    s = einsum("bhqd,bhkd->bhqk", q.to(ct), kx) * scale
     return s.masked_fill(~mask, float("-inf"))
 
 
 def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
                             window: Optional[int] = None,
-                            sm_scale: Optional[float] = None):
+                            sm_scale: Optional[float] = None,
+                            einsum=torch.einsum):
     """(out, lse): :func:`flash_attention_ref`'s output and each row's
     natural-log sum of exponentials of its scaled live logits (B, Hq, Sq)
     (+inf for a row with no live key, whose output is 0), as the forward
-    kernels write them for the backward; float64 inputs stay float64."""
+    kernels write them for the backward; float64 inputs stay float64.
+    ``einsum`` takes the two products (the tests pass
+    :func:`split_einsum`'s)."""
     Hq, Sq, D = q.shape[1], q.shape[2], q.shape[3]
     Hkv, Sk = k.shape[1], k.shape[2]
     ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     mask = attention_mask(Sq, Sk, causal, window, q.device)
-    s = _scaled_logits(q, k, Hq // Hkv, scale, mask, ct)
+    s = _scaled_logits(q, k, Hq // Hkv, scale, mask, ct, einsum)
     lse = torch.logsumexp(s, dim=-1)
     dead = torch.isneginf(lse)
     p = torch.exp(s - torch.where(dead, 0.0, lse)[..., None])
     vx = torch.repeat_interleave(v, Hq // Hkv, dim=1).to(ct)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, vx)
+    out = einsum("bhqk,bhkd->bhqd", p, vx)
     return out.to(q.dtype), torch.where(dead, float("inf"), lse)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             window: Optional[int] = None,
-                            sm_scale: Optional[float] = None):
+                            sm_scale: Optional[float] = None,
+                            einsum=torch.einsum):
     """(dq, dk, dv) of attention from its ``out`` and ``lse``, the backward
     kernels' formulas: P = exp(S - lse) under the masks, D_i = rowsum(dO O),
     dV = P^T dO, dS = P (dO V^T - D_i), dQ = scale dS K, dK = scale dS^T Q,
     the GQA groups summed into their kv head; float32 (float64 for float64
-    inputs), cast to the inputs' dtypes."""
+    inputs), cast to the inputs' dtypes. ``einsum`` takes the five
+    products (the tests pass :func:`split_einsum`'s)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     mask = attention_mask(Sq, Sk, causal, window, q.device)
-    s = _scaled_logits(q, k, group, scale, mask, ct)
+    s = _scaled_logits(q, k, group, scale, mask, ct, einsum)
     p = torch.exp(s - lse.to(ct)[..., None])          # masked: exp(-inf) = 0
     g, o = dout.to(ct), out.to(ct)
     delta = (g * o).sum(-1, keepdim=True)
     kx = torch.repeat_interleave(k, group, dim=1).to(ct)
     vx = torch.repeat_interleave(v, group, dim=1).to(ct)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, vx) - delta)
-    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kx)
-    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct))
+    dv = einsum("bhqk,bhqd->bhkd", p, g)
+    ds = p * (einsum("bhqd,bhkd->bhqk", g, vx) - delta)
+    dq = scale * einsum("bhqk,bhkd->bhqd", ds, kx)
+    dk = scale * einsum("bhqk,bhqd->bhkd", ds, q.to(ct))
     fold = (lambda t: t.reshape(B, Hkv, group, Sk, t.shape[-1]).sum(2))
     return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
@@ -360,6 +366,54 @@ def decode_attention_ref(q, k_cache, v_cache, valid, sm_scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return o.to(q.dtype)
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero: the bits of ``cvt.rna.tf32.f32``, which the float32
+    attention kernels compute as ``(bits + 0x1000) & 0xffffe000``; a NaN
+    stays a NaN (test-only)."""
+    x = x.to(torch.float32).contiguous()
+    bits = x.view(torch.int32)
+    return torch.where(torch.isnan(x), x,
+                       ((bits + 0x1000) & -0x2000).view(torch.float32))
+
+
+def tf32_trunc(x):
+    """float32 ``x`` cut to TF32 toward zero: the bits an ``mma.sync``
+    reads of a float32 operand (test-only)."""
+    x = x.to(torch.float32).contiguous()
+    return torch.where(torch.isnan(x), x,
+                       (x.view(torch.int32) & -0x2000).view(torch.float32))
+
+
+def split_einsum(planes: str = "tf32", terms: int = 3):
+    """An einsum of two operands as a tensor core would take them in float32
+    (test-only). ``"tf32"``: the float32 attention kernels' split, each
+    operand x as hi = TF32(x) (:func:`tf32_round`) and lo = x - hi, of which
+    the product reads TF32 toward zero (:func:`tf32_trunc`). ``"bf16"``:
+    two bf16 planes, hi = bf16(x) and lo = bf16(x - hi), each rounded to
+    nearest even. The product is (lo.hi + hi.lo) + hi.hi, each term exact
+    in float32 and summed in float32; ``terms=1`` takes hi.hi alone."""
+    if planes not in ("tf32", "bf16") or terms not in (1, 3):
+        raise ValueError(f"planes is tf32 or bf16 and terms 1 or 3, got "
+                         f"{planes!r}, {terms}")
+
+    def split(x):
+        x = x.to(torch.float32)
+        if planes == "tf32":
+            hi = tf32_round(x)
+            return hi, tf32_trunc(x - hi)
+        hi = x.to(torch.bfloat16).float()
+        return hi, (x - hi).to(torch.bfloat16).float()
+
+    def einsum(eq, a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        if terms == 1:
+            return torch.einsum(eq, ah, bh)
+        return ((torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
+                + torch.einsum(eq, ah, bh))
+    return einsum
 
 
 # the attention kernels' masked logit and dead-row threshold

@@ -182,7 +182,7 @@ def bwd_launches(S: int, chunk: int = 128, dtype=torch.bfloat16) -> int:
 
 def build() -> ctypes.CDLL:
     """The library of ``csrc/ssd_scan.cu``, built on first use."""
-    return _cuda.build("ssd_scan", ("dtype.cuh",), bind=_bind)
+    return _cuda.build("ssd_scan", ("dtype.cuh", "wgmma.cuh"), bind=_bind)
 
 
 def _check_args(x, dt, A, Bm, Cm, D_skip):

@@ -17,6 +17,21 @@ package on the same numpy-seeded inputs:
   float32, at atol = rtol = 1e-2, the bf16 kernel tolerance: the rounding
   of P moves each weight by at most 2^-9 of itself.
 
+* ``split_einsum`` in TF32 (the float32 kernels' products on the tensor
+  cores: each operand split into hi = TF32(x) and lo = x - hi, read
+  toward zero, the product lo.hi + hi.lo + hi.hi) through
+  ``flash_attention_lse_ref``'s arithmetic and the backward formulas of
+  ``flash_attention_bwd_ref``: within 2e-4 relative L2 of the same
+  formulas in float64 (the float32 tolerance of ``chip_smoke.py``'s
+  ``BWD_TOL`` and ``LM_TOL``) at head dims 16, 64, 80 and 192 with ragged
+  S, for the output and dq, dk, dv, and against the JAX package's
+  ``ref.flash_attention_ref`` on the same float32 inputs at atol = rtol =
+  2e-4 (the Pallas kernel takes no ragged S). One TF32 product (hi.hi)
+  misses the same shapes: that is why the kernels take three. Two bf16
+  planes with three products hold them as well, which is why
+  ``chip_smoke.py`` reckons the float32 attention bound at a third of the
+  bf16 rate.
+
 Head dims include 80 and 192 (h2o-danube, Nemotron-4). The wrapper's choice
 of splits (``flash_decode.decode_splits``) is checked here too.
 """
@@ -193,3 +208,91 @@ def test_decode_splits_cover_the_cache(B, Hkv, S):
         assert B * Hkv * splits >= 4 * sms
     if S < 2 * fd.MIN_SPLIT:
         assert splits == 1
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``ref.tf32_round`` keeps 10 mantissa bits, rounds a half away from
+    zero (cvt.rna) and keeps a NaN (the largest mantissa too) and an
+    infinity; x - TF32(x) is exact and, read toward zero, the low part of
+    the split, within 2^-21 of x."""
+    half = 2.0 ** -11
+    x = torch.tensor([1.0, 1.0 + half, 1.0 + half / 2, -(1.0 + half),
+                      1.0 + 3 * half, 0.0, 1e-30], dtype=torch.float32)
+    got = ref.tf32_round(x)
+    want = torch.tensor([1.0, 1.0 + 2 * half, 1.0, -(1.0 + 2 * half),
+                         1.0 + 4 * half, 0.0, float(ref.tf32_round(
+                             torch.tensor([1e-30]))[0])])
+    assert torch.equal(got, want)
+    assert torch.equal(ref.tf32_round(got), got)
+    bits = got.view(torch.int32) & 0x1FFF
+    assert (bits == 0).all()
+    special = torch.tensor([0x7FFFFFFF, -1, 0x7FC00000, 0x7F800000,
+                            -0x800000], dtype=torch.int32).view(torch.float32)
+    for f in (ref.tf32_round, ref.tf32_trunc):
+        out = f(special)
+        assert torch.isnan(out[:3]).all() and torch.equal(out[3:],
+                                                          special[3:])
+    r = torch.tensor(_normal(9, 1000))
+    hi = ref.tf32_round(r)
+    lo = ref.tf32_trunc(r - hi)
+    assert ((r.double() - hi.double() - lo.double()).abs()
+            <= 2.0 ** -21 * r.double().abs()).all()
+
+
+# (B, Hq, Hkv, S, D, window): the tiny configs' head dim 16, SmolLM's 64,
+# h2o-danube's 80 (not a multiple of the 64-column tile) and the 192 tile,
+# each at a ragged S, causal, one with a window
+SPLIT_CASES = {
+    "d16": (2, 4, 2, 37, 16, None),
+    "d64": (2, 4, 2, 77, 64, None),
+    "d80": (2, 4, 1, 61, 80, None),
+    "d192-window16": (2, 2, 2, 45, 192, 16),
+}
+SPLIT_REL = 2e-4
+
+
+def _split_case(case, planes, terms):
+    """rel L2 of (out, dq, dk, dv) in the split arithmetic from float64,
+    and the split forward's output with the inputs."""
+    B, Hq, Hkv, S, D, window = SPLIT_CASES[case]
+    q, k, v, do = (torch.tensor(_normal(50 + i, B, h, S, D))
+                   for i, h in enumerate((Hq, Hkv, Hkv, Hq)))
+    ein = ref.split_einsum(planes, terms)
+    out, lse = ref.flash_attention_lse_ref(q, k, v, causal=True,
+                                           window=window, einsum=ein)
+    grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
+                                        window=window, einsum=ein)
+    d = [t.double() for t in (q, k, v, do)]
+    o64, l64 = ref.flash_attention_lse_ref(*d[:3], causal=True,
+                                           window=window)
+    g64 = ref.flash_attention_bwd_ref(*d[:3], o64, l64, d[3], causal=True,
+                                      window=window)
+    rel = [float(torch.linalg.vector_norm(a.double() - b)
+                 / torch.linalg.vector_norm(b))
+           for a, b in zip((out, *grads), (o64, *g64))]
+    return rel, out, (q, k, v, window)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_tf32_attention_holds_float32(case):
+    rel, out, (q, k, v, window) = _split_case(case, "tf32", 3)
+    assert max(rel) < SPLIT_REL, rel
+    want = jref.flash_attention_ref(*(jnp.asarray(t.numpy())
+                                      for t in (q, k, v)),
+                                    causal=True, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_one_tf32_product_misses_float32(case):
+    rel, _, _ = _split_case(case, "tf32", 1)
+    assert max(rel) > SPLIT_REL, rel
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_bf16_attention_holds_float32(case):
+    """Two bf16 planes, three products: the route of chip_smoke.py's
+    float32 attention bound (a third of the bf16 rate) meets the float32
+    tolerance too."""
+    rel, _, _ = _split_case(case, "bf16", 3)
+    assert max(rel) < SPLIT_REL, rel

@@ -23,6 +23,10 @@ against the CPU (``-k engine``), and the channel-count selection's small
 subsets (K = 1, 2, 3, all five families) with a ``select_channels`` on the
 card against the CPU (``-k group``), and every candidate of the timed
 autotune sweep at a small shape, all families and modes (``-k sweep``).
+The float32 attention kernel (split TF32) is also held at its forms: head
+dims not a multiple of 8, v of its own head dim, GQA groups of 1 to 8, a
+window, a rectangular call, transposed and storage-offset views, dead
+rows (``-k f32``).
 """
 import pytest
 import torch
@@ -185,6 +189,69 @@ def test_dead_rows_give_zero(card):
     assert (fa.flash_attention(q, k, v, window=0) == 0).all()
     none = torch.zeros(64, dtype=torch.bool, device=card)
     assert (fd.flash_decode(q[:, :, :4].contiguous(), k, v, none) == 0).all()
+
+
+# (name, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, layout): the float32
+# kernel's forms: head dims not a multiple of 8 (100 with v of 40, 80, 21),
+# the tiny configs' 16, v wider or narrower than q and k, GQA groups of 1,
+# 4 and 8, a window, a rectangular non-causal call, the 256 tile, the
+# model's transposed views (16-byte copies) and views at a storage offset
+# of one element (4-byte copies)
+F32_FORMS = (
+    ("d100-dv40", 2, 6, 2, 77, 77, 100, 40, True, None, "dense"),
+    ("d80-gqa4", 1, 4, 1, 130, 130, 80, 80, True, None, "dense"),
+    ("d16", 2, 4, 2, 33, 33, 16, 16, True, None, "dense"),
+    ("d21-offset", 2, 4, 2, 50, 50, 21, 21, True, None, "offset"),
+    ("gqa1-d192-dv128", 1, 4, 4, 150, 150, 192, 128, True, None, "dense"),
+    ("gqa8-window", 1, 8, 1, 300, 300, 64, 64, True, 50, "view"),
+    ("rect-d128", 2, 4, 2, 70, 200, 128, 128, False, None, "view"),
+    ("d256-dv64-offset", 1, 4, 2, 90, 90, 256, 64, True, None, "offset"),
+)
+
+
+def _f32_operand(g, B, H, S, D, layout, dev):
+    """A float32 (B, H, S, D) operand as a dense tensor, the model's
+    transposed (B, S, H, D) projection, or a view one element into a wider
+    buffer (off 16 bytes)."""
+    t = _randn(g, (B, H, S, D), torch.float32, dev)
+    if layout == "view":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    if layout == "offset":
+        wide = torch.zeros((B, H, S, D + 3), dtype=t.dtype, device=dev)
+        wide[..., 1:D + 1] = t
+        return wide[..., 1:D + 1]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_FORMS, ids=lambda c: c[0])
+def test_flash_attention_f32_forms(card, case):
+    """The split-TF32 kernel against the plain version at 2e-4, one
+    float32 launch a call, its bits repeated on a second call."""
+    _, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, layout = case
+    g = torch.Generator(device=card).manual_seed(21)
+    q = _f32_operand(g, B, Hq, Sq, D, layout, card)
+    k = _f32_operand(g, B, Hkv, Sk, D, layout, card)
+    v = _f32_operand(g, B, Hkv, Sk, Dv, layout, card)
+    n = fa.LAUNCHES["flash_attention_f32"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention_f32"] == n + 1
+    assert got.shape == (B, Hq, Sq, Dv)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window))
+    assert torch.equal(fa.flash_attention(q, k, v, causal=causal,
+                                          window=window), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(80, 80), (192, 128)])
+def test_flash_attention_f32_dead_rows(card, D, Dv):
+    """window = 0: no row has a live key, every output is 0 (the plain
+    version gives NaN there)."""
+    g = torch.Generator(device=card).manual_seed(22)
+    q, k = (_randn(g, (1, 4, 70, D), torch.float32, card) for _ in range(2))
+    v = _randn(g, (1, 4, 70, Dv), torch.float32, card)
+    assert (fa.flash_attention(q, k, v, causal=True, window=0) == 0).all()
 
 
 def _ssd_inputs(g, B, S, H, P, G, N, dtype, dev):

@@ -16,7 +16,9 @@ forward (``ref.rmsnorm_ref``; ``ref.flash_attention_bf16p_ref`` in bf16,
 and forms (ragged S and rows, GQA groups of 1 and 8, windows at D = 128,
 dO views, every rmsnorm form's D, views with a storage offset; the head
 dim of 192 with v of 192 and of 128, three launches a call there as at
-64 and 128, counted with torch.profiler), and repeats its bits. On the CPU the
+64 and 128, counted with torch.profiler; the float32 kernels' forms: head
+dims not a multiple of 8, v of its own head dim, storage-offset views,
+dead rows), and repeats its bits. On the CPU the
 two ``autograd.Function``s pass ``torch.autograd.gradcheck`` in float64
 through their plain route (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``: the kernels' formulas), and those formulas
@@ -198,6 +200,112 @@ def test_a_cuda_tensor_never_reaches_the_plain_attention(card, monkeypatch):
         assert fa.LAUNCHES["flash_attention"] == n["flash_attention"] + 1
         assert (fa.LAUNCHES["flash_attention_bwd"]
                 == n["flash_attention_bwd"] + 1)
+
+
+# (name, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, layout): the float32
+# backward's forms (split TF32): head dims not a multiple of 8 (100 with v
+# of 40, 80, 21), the tiny configs' 16, v of its own head dim, GQA groups
+# of 1, 3, 4 and 8, windows, a rectangular non-causal call, the model's
+# transposed views and views at a storage offset of one element (4-byte
+# copies)
+F32_BWD_FORMS = (
+    ("d100-dv40", 2, 6, 2, 77, 77, 100, 40, True, None, "dense"),
+    ("d80-gqa4", 1, 4, 1, 130, 130, 80, 80, True, None, "view"),
+    ("d16", 2, 4, 2, 33, 33, 16, 16, True, None, "dense"),
+    ("d21-offset", 2, 4, 2, 50, 50, 21, 21, True, None, "offset"),
+    ("gqa1-d192-dv128", 1, 4, 4, 150, 150, 192, 128, True, None, "dense"),
+    ("gqa8-window", 1, 8, 1, 300, 300, 64, 64, True, 50, "view"),
+    ("rect-d128", 2, 4, 2, 70, 200, 128, 128, False, None, "view"),
+    ("d64-offset-window", 1, 6, 2, 129, 129, 64, 64, True, 33, "offset"),
+)
+
+
+def _laid_out(t, layout):
+    """``t`` (B, H, S, D) as it is, as the model's transposed projection,
+    or one element into a wider buffer (off 16 bytes); differentiable."""
+    if layout == "view":
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+    if layout == "offset":
+        B, H, S, D = t.shape
+        pad = [torch.zeros((B, H, S, n), dtype=t.dtype, device=t.device)
+               for n in (1, 2)]
+        return torch.cat([pad[0], t, pad[1]], dim=-1)[..., 1:D + 1]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_BWD_FORMS, ids=lambda c: c[0])
+def test_flash_attention_f32_bwd_forms(card, case):
+    """The float32 backward kernels against autograd of the plain forward
+    at relative L2 2e-4 on every output, one float32 backward call, bits
+    repeated on a second call."""
+    _, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, layout = case
+    gen = torch.Generator(device=card).manual_seed(8)
+    q = _randn(gen, (B, Hq, Sq, D), torch.float32, card)
+    k = _randn(gen, (B, Hkv, Sk, D), torch.float32, card)
+    v = _randn(gen, (B, Hkv, Sk, Dv), torch.float32, card)
+    g = _randn(gen, (B, Hq, Sq, Dv), torch.float32, card)
+
+    def grads(fn):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        out = fn(*(_laid_out(t, layout) for t in leaves), causal=causal,
+                 window=window)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+    n = fa.LAUNCHES["flash_attention_bwd_f32"]
+    got = grads(fa.flash_attention)
+    assert fa.LAUNCHES["flash_attention_bwd_f32"] == n + 1
+    want = grads(ref.flash_attention_ref)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, b) < REL[torch.float32], (name, _rel_l2(a, b))
+    for a, b in zip(got, grads(fa.flash_attention)):   # the bits repeat
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_bwd_dead_rows(card):
+    """window = 0: no query sees a key, so the output and every gradient
+    is 0 (the plain version gives NaN)."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    q, k, v = (_randn(gen, (1, 4, 90, 80), torch.float32,
+                      card).requires_grad_(True) for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True, window=0)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert (out == 0).all() and all((t == 0).all() for t in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["q", "v"])
+@pytest.mark.parametrize("D,Dv", [(64, 64), (100, 40)])
+def test_flash_attention_f32_keeps_nan(card, where, D, Dv):
+    """A NaN made on the card (0 / 0) in one element of q or of v: the
+    float32 kernels' output and gradients are NaN exactly where the plain
+    version's are (non-causal, so that every query meets every key in
+    both), and finite elsewhere."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    B, Hq, Hkv, S = 1, 4, 2, 90
+    q = _randn(gen, (B, Hq, S, D), torch.float32, card)
+    k = _randn(gen, (B, Hkv, S, D), torch.float32, card)
+    v = _randn(gen, (B, Hkv, S, Dv), torch.float32, card)
+    g = _randn(gen, (B, Hq, S, Dv), torch.float32, card)
+    nan = torch.zeros((), device=card) / 0
+    if where == "q":
+        q[0, 1, 37, 5] = nan
+    else:
+        v[0, 0, 11, 3] = nan
+
+    def grads(fn):
+        leaves = [_leaf(t) for t in (q, k, v)]
+        out = fn(*leaves, causal=False)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+    n = fa.LAUNCHES["flash_attention_bwd_f32"]
+    got = grads(fa.flash_attention)
+    assert fa.LAUNCHES["flash_attention_bwd_f32"] == n + 1
+    want = grads(ref.flash_attention_ref)
+    assert torch.isnan(want[0]).any()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert not torch.isinf(a).any(), name
 
 
 def _off16_view(t):
