@@ -314,7 +314,11 @@ Phases, in order:
    non-causal 16 x 1500, a ragged S of 1000, float32 at a small shape, and
    the 192 tile: DeepSeek-V2-Lite's MLA (B 2, 16 heads, q and k of 192, v
    of 128), Nemotron-4-340B's layer (B 1, 96/8 heads of 192) and float32
-   at 192, and float32 at SmolLM-360M's training shape; norms at 16384 x
+   at 192, float32 at SmolLM-360M's training shape, h2o-danube-1.8b's
+   layer (B 2, 32/8 heads of 80, S 8192, window 4096; the plain version
+   a batch row and KV head at a time, ``_plain_attention``) and
+   Whisper-large-v3's encoder (B 8, 20 heads, 1500 x 1500) and cross
+   (448 x 1500) attention in float32, the path's type; norms at 16384 x
    960 and 4096 x 4096 in both dtypes; the scan
    at Mamba2-2.7B's layer (B 2 x S 2048, 80 heads of 64, N 128) in both
    dtypes, a ragged S, eight groups, S 16384 at B 1, and runs of dt = 0
@@ -322,10 +326,10 @@ Phases, in order:
    chunks;
    each with its event-pair and device time beside its bound (bytes for
    the norm; for attention and the scan their operations at the dense
-   peak of their inputs' type, for float32 attention a third of the bf16
-   rate, three products of split operands, with the split-TF32 and
-   CUDA-core figures beside it), attention's device busy time (the union
-   of a call's launches: the float32 dQ pass overlaps the dK/dV pass), the
+   peak of their inputs' type, for float32 attention and the float32
+   scan a third of the bf16 rate, three products of split operands, with
+   the CUDA-core figure beside it, attention's split-TF32 one too),
+   attention's device busy time (the union of a call's launches: the float32 dQ pass overlaps the dK/dV pass), the
    plain version's time and the yardstick PyTorch call's
    (``scaled_dot_product_attention``, ``F.rms_norm``: forward + backward,
    and backward alone with its device time; for float32 GQA SDPA's
@@ -338,34 +342,49 @@ Phases, in order:
    first step through
    the kernels against the plain ops on the same weights and batch (loss
    1e-2 relative, every gradient leaf relative L2 < 0.1, the worst leaf
-   named; the plain run recomputes each layer in its backward to fit the
-   card); 20 steps through ``launch.train`` (``Trainer``) with the model
-   kernels' launches counted from zero and held to the count the code
+   named; both runs recompute each layer in the backward, the config's
+   remat, which the plain run needs to fit the card); 12 steps through
+   ``launch.train`` (``Trainer``) with the model kernels' launches counted from zero and held to the count the code
    makes (step ms,
    tokens/s, peak memory, then one step under torch.profiler: device time
    by part, busy share, each backward kernel's device time a step and a
    launch (dK/dV, dQ, D_i, the norm's dx pass and dw sum), the AdamW
    update alone); a Trainer killed after
-   step 10 and restored from its checkpoint, whose step 11 must be bitwise
+   step 5 and restored from its checkpoint, whose step 6 must be bitwise
    the uninterrupted run's (loss and every parameter); and
-   ``bench.train_partitioned --full-360m`` for 100 steps (the example's
+   ``bench.train_partitioned --full-360m`` for 20 steps (the example's
    assertion that the loss falls; the simulated join's mean, variance and
    p99, the final split; every kernel's launches held to the count worked
    out from the code and the run's recorded splits: one ``frontier_grid``
    call a step, for two pods' ``optimize_2ch``, and no
    ``frontier_grid_with_grads``, whose PGD refresh runs for three pods or
-   more). Then (``TRAIN_ARCHS``) Mamba2-2.7B at full width, all 64 layers,
-   and DeepSeek-V2-Lite at full width cut to its dense first layer and
+   more). Then rematerialization (``REMAT_HOLDS``): SmolLM-360M (B 8 x
+   2048), Mamba2-2.7B (all 64 layers, B 2 x 2048), DeepSeek-V2-Lite 1 + 3
+   (its first dense layer outside remat) and the tiny Jamba (one 8-layer
+   unit a repeat), each two ``make_train_step`` steps from one state under
+   no remat (twice: its run-to-run distance), "full" and "dots", the second
+   step after the AdamW update so that the state's weights are not the
+   module's: the losses and every gradient leaf AdamW receives held
+   bitwise against no remat's, launches held to the count the code makes
+   (each forward kernel inside a unit twice a step), step ms, peak memory
+   and a profiled step by part for each policy; and h2o-danube-1.8b's step
+   tried once without remat (its peak, or the card's refusal). Then
+   (``TRAIN_ARCHS``, every one under its config's remat "full")
+   Mamba2-2.7B at full width, all 64 layers,
+   DeepSeek-V2-Lite at full width cut to its dense first layer and
    ``DS_MOE_LAYERS`` MoE layers (the AdamW update's peak sets the cut),
-   both bf16 on B = 2 x 2048: the first step end to end against the plain
-   ops (Mamba2: bf16 at 2 layers and float32 at 8 at those tolerances,
+   both bf16 on B = 2 x 2048, h2o-danube-1.8b whole on B 2 x 8192 (the
+   4096 window acting) and Whisper-large-v3 whole (32 + 32 layers) on B
+   8 x 448 tokens with 1500 stub frames: the first step end to end
+   against the plain ops (Mamba2: bf16 at 2 layers and float32 at 8 at those tolerances,
    bf16 at 8 against the plain path's own distance from float32: the
    kernels' at most 1.25 times it, at the worst leaf and the median;
-   DeepSeek: bf16 at 2 layers), every layer's gradients on its own input
+   the others bf16 at 2 layers, Whisper 2 + 2), every layer's gradients
+   on its own input
    and a seeded
    cotangent (its input's and its parameters', relative L2 < 0.1), then
    12 steps through ``launch.train`` with every model kernel's launches
-   counted from zero and held to the count the code makes (64 ``ssd_scan``
+   counted from zero and held to the count the code makes (128 ``ssd_scan``
    and 64 ``ssd_scan_bwd`` a Mamba2 step), the loss falling, step ms,
    tokens/s and peak memory, then one step under torch.profiler (device
    time by part, as SmolLM-360M's). Last the tiny Jamba (float32) one step on the
@@ -400,9 +419,10 @@ ticks' own calls, ``chaos``, ``group``, ``straggler``, ``paper``,
 ``examples``), and its ``launches_by_path`` gives each path's count; a
 model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
 ``moeserve``, ``zoo``: its kernel paths, ``examples``, ``train``: the
-SmolLM Trainer's 20 steps and the partitioned trainer's 100, which also
-count in the frontier kernels' ``train`` path, the Mamba2 and DeepSeek
-Trainers' 12 steps each and the tiny Jamba's step; alone in the three
+SmolLM Trainer's 12 steps and the partitioned trainer's 20, which also
+count in the frontier kernels' ``train`` path, the remat holds' steps, the
+Mamba2, DeepSeek, danube and Whisper Trainers' 12 steps each and the tiny
+Jamba's step; alone in the three
 backward kernels' lines, each with its timed shapes as ``instances``); ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
@@ -5171,9 +5191,9 @@ def phase_examples(ctx):
 # B = 8 sequences of 2048 tokens from SyntheticStream (seed 0)
 TRAIN_ARCH = "smollm-360m"
 TRAIN_B, TRAIN_S = 8, 2048
-TRAIN_STEPS = 20            # the Trainer's timed run
-TRAIN_KILL_AT = 10          # the checkpoint the restored Trainer resumes from
-PART_STEPS = 100            # bench.train_partitioned --full-360m
+TRAIN_STEPS = 12            # the Trainer's timed run
+TRAIN_KILL_AT = 5           # the checkpoint the restored Trainer resumes from
+PART_STEPS = 20             # bench.train_partitioned --full-360m
 # the full-width first step through the kernels against the plain ops:
 # the loss (relative) and every gradient leaf (relative L2)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 0.1
@@ -5186,7 +5206,13 @@ BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 # DeepSeek-V2-Lite's MLA at its training batch (q, k of 192, v of 128),
 # Nemotron-4-340B's layer (96 query and 8 KV heads of 192) at B 1, the
 # float32 kernels' widest columns, and float32 at SmolLM-360M's training
-# shape (q, k and v ~63 MB; the plain reference's scores ~2 GB)
+# shape (q, k and v ~63 MB; the plain reference's scores ~2 GB); then the
+# two archs trained since PR 29: h2o-danube-1.8b's layer at its training
+# batch (B 2 x S 8192, 32/8 heads of 80, the 4096 window acting; the
+# (128, 128) tile), and Whisper-large-v3's encoder self-attention and
+# cross-attention at its (B 8, 20 heads, 1500 frames, 448 target tokens),
+# in float32: the path's type, the float32 frames promoting the encoder
+# and its cross K/V (models/whisper.py)
 BWD_ATTN_CASES = (
     ("smollm-360m train", 8, 15, 5, 2048, 2048, 64, 64, True, None,
      "bfloat16"),
@@ -5203,6 +5229,12 @@ BWD_ATTN_CASES = (
      "bfloat16"),
     ("float32 d192", 2, 4, 2, 512, 512, 192, 192, True, None, "float32"),
     ("float32 smollm-360m train", 8, 15, 5, 2048, 2048, 64, 64, True, None,
+     "float32"),
+    ("h2o-danube-1.8b train", 2, 32, 8, 8192, 8192, 80, 80, True, 4096,
+     "bfloat16"),
+    ("whisper encoder train", 8, 20, 20, 1500, 1500, 64, 64, False, None,
+     "float32"),
+    ("whisper cross train", 8, 20, 20, 448, 1500, 64, 64, False, None,
      "float32"),
 )
 # (name, B, S, H, P, G, N, chunk, dtype, rows where dt = 0): Mamba2-2.7B's
@@ -5243,18 +5275,52 @@ BWD_SSD_CASES = (
 # Trainer runs keep
 # the first step and 11 more, at a learning rate under which the loss
 # falls in 12 steps from a random start.
+# Since PR 29 every arch trains under its config's remat ("full", the
+# reference's default), and two more archs train at full width:
+# h2o-danube-1.8b whole (24 layers) on B 2 x 8192, so its 4096 window acts
+# in forward and backward, and Whisper-large-v3 whole (32 + 32 layers) on
+# B 8 x 448 target tokens and 1500 stub frames, each held end to end at 2
+# layers (2 + 2 for Whisper) in bf16.
 DS_MOE_LAYERS = 3
 TRAIN_ARCHS = (
     ("mamba2-2.7b", None, 2, 2048,
      ((2, "bfloat16", "plain"), (8, "float32", "plain"),
       (8, "bfloat16", "witness")), 12, 3e-3),
     ("deepseek-v2-lite-16b", 1 + DS_MOE_LAYERS, 2, 2048,
-     ((2, "bfloat16", "plain"),), 12, 1e-3))
+     ((2, "bfloat16", "plain"),), 12, 1e-3),
+    ("h2o-danube-1.8b", None, 2, 8192, ((2, "bfloat16", "plain"),), 12,
+     1e-3),
+    ("whisper-large-v3", None, 8, 448, ((2, "bfloat16", "plain"),), 12,
+     1e-3))
+# the arch whose step is also tried once without remat, the measure of
+# what remat buys: (arch, B, S, lr)
+NO_REMAT_TRY = ("h2o-danube-1.8b", 2, 8192, 1e-3)
+# the remat holds: (arch, layers kept, B, S, lr, tiny); two make_train_step
+# steps under each of REMAT_RUNS, the second after the AdamW update (the
+# state's weights then differ from the module's), the losses and the
+# second step's every gradient leaf held bitwise against no remat's
+REMAT_HOLDS = (
+    ("smollm-360m", None, 8, 2048, 3e-4, False),
+    ("mamba2-2.7b", None, 2, 2048, 3e-3, False),
+    ("deepseek-v2-lite-16b", 1 + DS_MOE_LAYERS, 2, 2048, 1e-3, False),
+    ("jamba-1.5-large-398b", None, 2, 64, 1e-3, True))
+# (name, remat policy): no remat twice (its run-to-run distance, zero when
+# the step repeats bit for bit), then "full" and "dots"
+REMAT_RUNS = (("none", None), ("none again", None), ("full", "full"),
+              ("dots", "dots"))
+# where no remat's step does not repeat bit for bit, a policy is held at
+# this many times its run-to-run distance (worst leaf and median)
+REMAT_REPEAT_RATIO = 2.0
 # a "witness" hold's bound on (kernels from float32) / (plain from float32):
 # Mamba2-2.7B's 8-layer bf16 step read 0.815 at the worst leaf and 0.835 at
 # the median (PR 26 runs T and G, NVIDIA H100 80GB HBM3, 700 W); a kernel
 # that drifted at depth would put the kernels past the plain path
 TRAIN_WITNESS_RATIO = 1.25
+# the dense scores (float32 bytes) above which _plain_attention slices by
+# batch row and KV heads, and the most a slice takes: the blockwise bf16
+# reference keeps ~5 tensors of a key block's scores alive for autograd,
+# ~90 GB at h2o-danube-1.8b's B 2 x S 8192 unsliced, ~21 GB a slice
+PLAIN_ATTN_SLICE_BYTES = 4 << 30
 # the tiny Jamba (float32) one step on the card against the CPU: the loss
 # (relative) and every gradient leaf (relative L2); a miss is reported
 # with each layer's reading (ROADMAP.md section 3), not failed
@@ -5280,24 +5346,45 @@ STEP_PARTS = (("backward kernels", ("fa_bwd_", "rmsnorm_bwd", "rmsnorm_dw",
               ("cuBLAS", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
 
 
+def _plain_attention(q, k, v, **kw):
+    """The attention whose autograd is the backward kernels' plain version:
+    ``ref.flash_attention_bf16p_ref`` in bf16, ``flash_attention_ref`` in
+    float32. Above PLAIN_ATTN_SLICE_BYTES of dense scores it runs a batch
+    row and as many KV heads (with their query heads) as that many bytes
+    hold at a time, each slice recomputed in its backward: the same live
+    pairs, one slice's graph alive at a time."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import ref
+    fn = (ref.flash_attention_bf16p_ref if q.dtype == torch.bfloat16
+          else ref.flash_attention_ref)
+    B, Hq, Sq, _ = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if 4 * B * Hq * Sq * Sk <= PLAIN_ATTN_SLICE_BYTES:
+        return fn(q, k, v, **kw)
+    G = Hq // Hkv
+    n = max(1, PLAIN_ATTN_SLICE_BYTES // (4 * G * Sq * Sk))   # KV heads
+
+    def one(qs, ks, vs):
+        return fn(qs, ks, vs, **kw)
+    return torch.cat([torch.cat([
+        checkpoint(one, q[b:b + 1, h * G:(h + n) * G], k[b:b + 1, h:h + n],
+                   v[b:b + 1, h:h + n], use_reentrant=False)
+        for h in range(0, Hkv, n)], 1) for b in range(B)], 0)
+
+
 def _plain_train_ops():
     """The model's ops swapped for the plain versions whose autograd is the
-    backward kernels' plain version: ``ref.flash_attention_bf16p_ref`` (bf16;
-    ``flash_attention_ref`` in float32), ``ref.rmsnorm_ref`` and
-    ``ref.ssd_chunked_ref``."""
+    backward kernels' plain version: ``_plain_attention``,
+    ``ref.rmsnorm_ref`` and ``ref.ssd_chunked_ref``."""
     import contextlib
-    import torch
     from repro_torch.kernels import ops, ref
-
-    def attention(q, k, v, **kw):
-        fn = (ref.flash_attention_bf16p_ref if q.dtype == torch.bfloat16
-              else ref.flash_attention_ref)
-        return fn(q, k, v, **kw)
 
     @contextlib.contextmanager
     def swapped():
         saved = ops.attention, ops.rmsnorm, ops.ssd
-        ops.attention, ops.rmsnorm, ops.ssd = (attention, ref.rmsnorm_ref,
+        ops.attention, ops.rmsnorm, ops.ssd = (_plain_attention,
+                                               ref.rmsnorm_ref,
                                                ref.ssd_chunked_ref)
         try:
             yield
@@ -5333,8 +5420,7 @@ def _bwd_attn_case(case, fails):
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = fa.flash_attention(*leaves, causal=causal, window=window)
     got = torch.autograd.grad(out, leaves, dout)
-    plain = (ref.flash_attention_bf16p_ref if dt == torch.bfloat16
-             else ref.flash_attention_ref)
+    plain = _plain_attention
     pl = [t.detach().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(plain(*pl, causal=causal, window=window), pl,
                                dout)
@@ -5396,15 +5482,16 @@ def _bwd_attn_case(case, fails):
         lib_bwd = _time_cuda(lib_call, reps=5)
         lib_dev = _device_ms(lib_call, reps=5)
         lib_busy = _device_busy_ms(lib_call, reps=5)
-        if dt == torch.float32:
+        if dt == torch.float32 or mask is not None:
             backend = _sdpa_backend(lib_call)
         del y
     except RuntimeError as e:
         log(f"[train] SDPA refuses {name}: {str(e).splitlines()[0][:120]}")
-    # float32 GQA: SDPA's backward also with k and v expanded to the query
-    # heads as its leaves (the memory-efficient backend takes that)
+    # float32 GQA, or GQA under a window's mask: SDPA's backward also with
+    # k and v expanded to the query heads as its leaves (the
+    # memory-efficient backend takes that)
     mha = mha_dev = mha_backend = None
-    if dt == torch.float32 and Hq != Hkv:
+    if Hq != Hkv and (dt == torch.float32 or mask is not None):
         xl = [leaves[0].detach().requires_grad_(True)] + [
             t.detach().repeat_interleave(Hq // Hkv, 1).requires_grad_(True)
             for t in leaves[1:]]
@@ -5536,23 +5623,26 @@ def _bwd_norm_case(case, fails):
             "bound_by": by, "library_ms": lib_bwd, "library_dev_ms": lib_dev,
             "library_fwd_bwd_ms": lib_fb}
 
-def _ssd_bwd_work(B, S, H, P, G, N, L, esize):
+def _ssd_bwd_work(B, S, H, P, G, N, L, esize, peak=None):
     """(bytes, seconds of operations) of one SSD backward call computed in
     chunks of L rows: each input read once (x, B, C, dy in the storage type;
     dt, A, D float32) and each gradient written once; per chunk and head,
     over the causal half of the L x L products, L^2 (3 N / 2 + P)
     multiply-adds (the scores C.B and dy.x, the intra-chunk dx, dB and dC)
     and 5 L P N (the recomputed state, dx's and dB's terms from dS, C's from
-    S, the dS update), at the card's peak for the inputs' type: the bf16
-    tensor-core rate for bf16 inputs (float32 sums), the float32 CUDA-core
-    rate for float32 ones. The work a row grows with L, so the bound takes
+    S, the dS update), at ``peak``, by default the card's rate for the
+    route the kernels take: the bf16 tensor-core rate for bf16 inputs
+    (float32 sums), and for float32 ones the rate of their split bf16
+    planes on the same tensor cores (F32_SPLIT_OPS_PER_S, as the float32
+    attention bound). The work a row grows with L, so the bound takes
     L = min(chunk, S, SSD_BOUND_CHUNK)."""
     nbytes = (esize * (3 * B * S * H * P + 4 * B * S * G * N)
               + 2 * 4 * B * S * H + 4 * 4 * H)
     full, tail = divmod(S, L)
     mads = sum(n * (l * l * (3 * N + 2 * P) // 2 + 5 * l * P * N)
                for n, l in ((full, L), (1 if tail else 0, tail)))
-    peak = BF16_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
+    if peak is None:
+        peak = BF16_OPS_PER_S if esize == 2 else F32_SPLIT_OPS_PER_S
     return nbytes, 2 * B * H * mads / peak
 
 
@@ -5619,9 +5709,13 @@ def _ssd_bwd_case(case, fails):
     esize = x.element_size()
     bound_ms, by = _roof(*_ssd_bwd_work(
         B, S, H, P, G, N, min(chunk, S, SSD_BOUND_CHUNK), esize))
-    # the same work reckoned in the forward's chunks, for the record
+    # the same work reckoned in the forward's chunks, for the record, and
+    # a float32 call's on the CUDA cores (the bound before PR 29)
     fwd_bound_ms, fwd_by = _roof(*_ssd_bwd_work(B, S, H, P, G, N,
                                                 min(chunk, S), esize))
+    cuda_core_ms = (None if esize == 2 else _roof(*_ssd_bwd_work(
+        B, S, H, P, G, N, min(chunk, S, SSD_BOUND_CHUNK), esize,
+        FP32_OPS_PER_S))[0])
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     log(f"[train] ssd_scan_bwd {name:18s} {dts} (B {B}, S {S}, H {H}, P {P}, "
         f"G {G}, N {N}; chunks of {L}"
@@ -5634,8 +5728,10 @@ def _ssd_bwd_case(case, fails):
         f"{ms:.3f} ms (device "
         + (f"{dev:.3f}" if dev is not None else "not measured")
         + f", {per_call} launches), bound {bound_ms:.4f} ms ({by}; "
-        f"{fwd_bound_ms:.4f} ({fwd_by}) in the forward's chunks), "
-        f"kernel/bound {ms / bound_ms:.1f}x; plain {plain_ms:.2f} ms"
+        f"{fwd_bound_ms:.4f} ({fwd_by}) in the forward's chunks"
+        + (f"; {cuda_core_ms:.4f} on the CUDA cores at "
+           f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s" if cuda_core_ms else "")
+        + f"), kernel/bound {ms / bound_ms:.1f}x; plain {plain_ms:.2f} ms"
         + ("" if ok else "  FAIL"))
     by_kernel = {_kernel_name(n): us / 1e3 / 3
                  for n, us in (by_kernel or {}).items()}
@@ -5646,45 +5742,74 @@ def _ssd_bwd_case(case, fails):
            "max_abs_err": err, "bits_repeat": same, "ms": ms,
            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": by, "bound_fwd_chunk_ms": fwd_bound_ms,
-           "library_ms": None, "library_dev_ms": None,
+           "bound_cuda_core_ms": cuda_core_ms, "library_ms": None,
+           "library_dev_ms": None,
            "by_kernel_ms": by_kernel}
     del x, dt, Bm, Cm, bc, dy, leaves, got, arrs
     torch.cuda.empty_cache()
     return row
 
 
-def _train_layerwise(model, cfg, tokens, tag):
+def _train_layerwise(model, cfg, tokens, tag, extra=None):
     """Each layer of ``model`` on the kernel path's own input (the residual
-    stream of the kernels' forward on ``tokens``, without a graph) and a
-    seeded cotangent: the gradients of its output in its input and in each
-    of its parameters, through the kernels against the plain ops
-    (``_plain_train_ops``), relative L2 each. Returns each layer's worst
-    leaf and the overall worst."""
+    stream of the kernels' forward on ``tokens``, without a graph; Whisper's
+    encoder on ``extra``, its frames, and each decoder layer with the
+    encoder's output) and a seeded cotangent: the gradients of its output
+    in its input and in each of its parameters, through the kernels
+    against the plain ops (``_plain_train_ops``), relative L2 each. Returns
+    each layer's worst leaf and the overall worst."""
     import torch
-    from repro_torch.models.layers import embed_lookup
-    positions = model._positions(*tokens.shape)
+    from repro_torch.models import remat
+    from repro_torch.models.layers import embed_lookup, rms_norm
     g = _gen(11)
-    with torch.no_grad():
-        x = embed_lookup(model.embed, tokens, cfg)
-    by_layer = []
-    for i, blk in enumerate(model.layers):
-        names = ["input"] + [n for n, _ in blk.named_parameters()]
-        params = list(blk.parameters())
-        dy = _randn(g, tuple(x.shape), x.dtype)
-
-        def grads(plain):
-            xl = x.detach().requires_grad_(True)
-            with _plain_train_ops() if plain else nullcontext():
-                y, _ = model._block_apply(blk, xl, positions)
-            return torch.autograd.grad(y, [xl] + params, dy)
-        gk, gp = grads(False), grads(True)
-        rels = [_rel_l2(a.float(), b.float()) for a, b in zip(gk, gp)]
-        j = max(range(len(rels)), key=rels.__getitem__)
-        finite = all(bool(torch.isfinite(a).all()) for a in gk)
-        by_layer.append((rels[j], names[j], finite))
-        del gk, gp
+    if cfg.is_encoder_decoder:
+        positions = model._positions(*extra.shape[:2])
         with torch.no_grad():
-            x, _ = model._block_apply(blk, x, positions)
+            enc_in = model._encoder_input(extra)
+        dec_positions = model._positions(*tokens.shape)
+        stacks = [("enc", model.enc_blocks, enc_in, positions, ())]
+    else:
+        positions = model._positions(*tokens.shape)
+        with torch.no_grad():
+            x = embed_lookup(model.embed, tokens, cfg)
+        stacks = [("", model.layers, x, positions, ())]
+    by_layer = []
+
+    def run(name, blk, h, pos, extra_in):
+        if name == "enc":
+            return model._enc_layer(h, remat.unit_params(blk), pos)
+        if name == "dec":
+            return model._dec_layer(h, remat.unit_params(blk), pos,
+                                    *extra_in)
+        return model._block_apply(blk, h, pos)[0]
+    while stacks:
+        name, blocks, x, positions, extra_in = stacks.pop(0)
+        for blk in blocks:
+            names = ["input"] + [n for n, _ in blk.named_parameters()]
+            params = list(blk.parameters())
+            dy = _randn(g, tuple(x.shape), x.dtype)
+
+            def grads(plain):
+                xl = x.detach().requires_grad_(True)
+                with _plain_train_ops() if plain else nullcontext():
+                    y = run(name, blk, xl, positions, extra_in)
+                return torch.autograd.grad(y, [xl] + params, dy)
+            gk, gp = grads(False), grads(True)
+            rels = [_rel_l2(a.float(), b.float()) for a, b in zip(gk, gp)]
+            j = max(range(len(rels)), key=rels.__getitem__)
+            finite = all(bool(torch.isfinite(a).all()) for a in gk)
+            by_layer.append((rels[j], f"{name}{'.' if name else ''}"
+                             f"{names[j]}", finite))
+            del gk, gp
+            with torch.no_grad():
+                x = run(name, blk, x, positions, extra_in)
+        if name == "enc":
+            with torch.no_grad():
+                enc_out = rms_norm(x, model.enc_norm.to(x.dtype),
+                                   cfg.norm_eps)
+                x = model._decoder_input(tokens)
+            stacks.append(("dec", model.dec_blocks, x, dec_positions,
+                           (enc_out,)))
     i = max(range(len(by_layer)), key=lambda k: by_layer[k][0])
     log(f"[train] {tag} every layer's gradients on its own input (input and "
         f"parameters, kernels against plain ops): worst relative L2 "
@@ -5717,7 +5842,6 @@ def _hold_step(tag, cfg, B, S, dtype, hold, fails):
     distance at most TRAIN_WITNESS_RATIO times the plain path's, at the
     worst leaf and at the median."""
     import torch
-    from repro_torch.data import SyntheticStream
     from repro_torch.models import build_model
     model = build_model(cfg, device="cuda", seed=0, trainable=True)
     if dtype == "float32":
@@ -5726,11 +5850,9 @@ def _hold_step(tag, cfg, B, S, dtype, hold, fails):
                           device="cuda", seed=0, trainable=True)
         m32.load_state_dict(model.state_dict())
         model, cfg = m32, m32.cfg
-    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
-    tokens = torch.as_tensor(batch.tokens, device="cuda")
-    labels = torch.as_tensor(batch.labels, device="cuda")
-    gk = _full_width_grads(model, cfg, tokens, labels, False)
-    gp = _full_width_grads(model, cfg, tokens, labels, True)
+    tokens, labels, extra = _batch_tensors(cfg, B, S)
+    gk = _full_width_grads(model, cfg, tokens, labels, False, extra)
+    gp = _full_width_grads(model, cfg, tokens, labels, True, extra)
     loss_rel, worst, worst_rel, median = _grad_gap(gk, gp)
     finite = all(bool(torch.isfinite(g).all()) for g in gk[1].values())
     out = {"layers": cfg.num_layers, "dtype": dtype, "hold": hold,
@@ -5744,7 +5866,7 @@ def _hold_step(tag, cfg, B, S, dtype, hold, fails):
         c32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
         m32 = build_model(c32, device="cuda", seed=0, trainable=True)
         m32.load_state_dict(model.state_dict())
-        g32 = _full_width_grads(m32, c32, tokens, labels, True)
+        g32 = _full_width_grads(m32, c32, tokens, labels, True, extra)
         _, _, p_worst, p_med = _grad_gap(gp, g32)
         _, _, k_worst, k_med = _grad_gap(gk, g32)
         r_worst, r_med = k_worst / p_worst, k_med / p_med
@@ -5817,29 +5939,28 @@ def _train_arch(arch, layers, B, S, holds, steps, lr, fails, smi):
     own input at the trained depth (``layers``, None for all), then
     ``steps`` steps through ``launch.train`` at learning rate ``lr`` with
     the model kernels' launches counted from zero and held to the count the
-    code makes, the loss falling."""
+    code makes, the loss falling, then one step profiled."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticStream
     from repro_torch.models import build_model
     from repro_torch.train import Trainer, TrainerConfig
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
-    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "seq": S}
-    out["end_to_end"] = [_hold_step(arch, cfg.replace(num_layers=depth), B,
-                                    S, dtype, hold, fails)
+    out = {"arch": arch, "layers": cfg.num_layers, "batch": B, "seq": S,
+           "remat": cfg.remat_policy if cfg.remat else None}
+    out["end_to_end"] = [_hold_step(arch, _cut(cfg, depth), B, S, dtype,
+                                    hold, fails)
                          for depth, dtype, hold in holds]
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda", seed=0, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
-    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
-    tokens = torch.as_tensor(batch.tokens, device="cuda")
-    lw = _train_layerwise(model, cfg, tokens, arch)
+    tokens, labels, extra = _batch_tensors(cfg, B, S)
+    lw = _train_layerwise(model, cfg, tokens, arch, extra)
     if not (lw["worst_rel_l2"] < TRAIN_GRAD_TOL and lw["finite"]):
         fails.append(f"{arch} layer {lw['worst_layer']}'s gradients")
     out["layerwise"] = lw
-    del model, tokens
+    del model
     torch.cuda.empty_cache()
 
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
@@ -5858,17 +5979,200 @@ def _train_arch(arch, layers, B, S, holds, steps, lr, fails, smi):
         for p in model.parameters():
             p.data = p.data.new_empty(0)
     torch.cuda.empty_cache()
-    tokens = torch.as_tensor(batch.tokens, device="cuda")
-    labels = torch.as_tensor(batch.labels, device="cuda")
     trainer = Trainer(model, cfg, TrainerConfig(steps=steps))
     box = [state]
     del state
-    state, prof = _step_profile(trainer._step_fn, box, tokens, labels)
+    state, prof = _step_profile(trainer._step_fn, box, tokens, labels,
+                                extra=extra)
     _log_profile(f"{arch} at {cfg.num_layers} layers", prof)
     out["trainer"]["profile"] = prof
-    del state, trainer, model, tokens, labels
+    del state, trainer, model, tokens, labels, extra
     torch.cuda.empty_cache()
     return out, counts
+
+
+def _no_remat_step(arch, B, S, lr):
+    """One ``make_train_step`` step of ``arch`` at full width with remat
+    off: its peak memory (allocated, reserved), or the card's refusal. The
+    measure of what remat buys beside the Trainer's run under it."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import step as tstep
+    cfg = get_config(arch).replace(remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"arch": arch, "batch": B, "seq": S, "remat": None}
+    model = build_model(cfg, device="cuda", seed=0, trainable=True)
+    tokens, labels, extra = _batch_tensors(cfg, B, S)
+    try:
+        state = tstep.init_state(model)
+        t0 = time.perf_counter()
+        state, m = tstep.make_train_step(model, cfg, lr)(state, tokens,
+                                                         labels, extra)
+        out["loss"] = float(m["loss"])
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["result"] = "ran"
+    except torch.OutOfMemoryError as e:
+        out["result"] = "out of memory"
+        out["error"] = str(e).splitlines()[0][:160]
+    state = m = None
+    gc.collect()
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    log(f"[train] {arch} one step without remat (B {B} x S {S}): "
+        f"{out['result']}"
+        + (f", loss {out['loss']:.4f} in {out['step_s']:.2f} s"
+           if out["result"] == "ran" else f" ({out['error']})")
+        + f"; memory at its peak {out['peak_allocated_gb']:.2f} GB "
+        f"allocated, {out['peak_reserved_gb']:.2f} GB reserved")
+    del model, tokens, labels, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _with_cfg(model, cfg):
+    """Every module of ``model`` that holds a config holds ``cfg``."""
+    for m in model.modules():
+        if "cfg" in vars(m):
+            m.cfg = cfg
+
+
+def _remat_hold(arch, layers, B, S, lr, tiny, fails, smi):
+    """Two ``make_train_step`` steps of one model under each of REMAT_RUNS
+    from the same initial state (the second step after the AdamW update,
+    so the state's weights differ from the module's): the losses and the
+    second step's every gradient leaf, as the step hands them to AdamW,
+    held bitwise against no remat's (where no remat's own second run
+    differs, at REMAT_REPEAT_RATIO times that distance); each run's launches
+    held to the count the code makes, its step ms (host clock,
+    synchronized, the median of steps 3 and 4), peak memory, and a fifth
+    step profiled by part. Returns (record, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import step as tstep
+    cfg = get_config(arch)
+    cfg = cfg.tiny() if tiny else cfg
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg, device="cuda", seed=0, trainable=True)
+    tokens, labels, _ = _batch_tensors(cfg, B, S)
+    real_update, seen = tstep.adamw_update, {}
+
+    def capture(params, grads, *a, **k):
+        seen["grads"] = grads
+        return real_update(params, grads, *a, **k)
+    runs, want, total = {}, None, {}
+    try:
+        for name, policy in REMAT_RUNS:
+            c = cfg.replace(remat=policy is not None,
+                            remat_policy=policy or "full")
+            _with_cfg(model, c)
+            step = tstep.make_train_step(model, c, lr)
+            state = tstep.init_state(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all()
+            walls, losses = [], []
+            for i in range(2):
+                # the second step's gradients only: the first's would stay
+                # alive through the second step
+                tstep.adamw_update = capture if i else real_update
+                t0 = time.perf_counter()
+                state, m = step(state, tokens, labels)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            tstep.adamw_update = real_update
+            grads = seen.pop("grads")
+            counts = _lm_launches()
+            expect = _train_launches(c, 2)
+            got = {k: counts[k] for k in expect}
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            run = {"first_steps_ms": [1e3 * w for w in walls],
+                   "losses": losses,
+                   "peak_allocated_gb": torch.cuda.max_memory_allocated()
+                   / 1e9,
+                   "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                   "launches_a_step": {k: n / 2 for k, n in got.items()
+                                       if n}}
+            if got != expect:
+                fails.append(f"remat {arch} {name} launches {got}, not "
+                             f"{expect}")
+            if want is None:
+                want = (losses, {k: g.cpu() for k, g in grads.items()})
+            else:
+                # leaf by leaf on the card, no remat's copied back in turn
+                rels = {}
+                for k, g in grads.items():
+                    w = want[1][k].to(g.device)
+                    rels[k] = (0.0 if torch.equal(g, w)
+                               else _rel_l2(g.float(), w.float()))
+                    del w
+                run["bitwise"] = (losses == want[0]
+                                  and not any(rels.values()))
+                run["worst_rel_l2"] = max(rels.values())
+                run["median_rel_l2"] = float(np.median(list(rels.values())))
+            del grads
+            if name != "none again":
+                box = [state]
+                del state
+                state, run["profile"] = _step_profile(step, box, tokens,
+                                                      labels, steps=1, warm=2)
+                run["step_ms"] = run["profile"]["warm_ms"]
+            runs[name] = run
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        tstep.adamw_update = real_update
+        _with_cfg(model, cfg)
+    repeat = runs["none again"]
+    for name in ("full", "dots"):
+        r = runs[name]
+        if repeat["bitwise"]:
+            r["held"] = r["bitwise"]
+        else:
+            r["held"] = (r["worst_rel_l2"] <= REMAT_REPEAT_RATIO
+                         * repeat["worst_rel_l2"]
+                         and r["median_rel_l2"] <= REMAT_REPEAT_RATIO
+                         * repeat["median_rel_l2"])
+        if not r["held"]:
+            fails.append(f"remat {arch} {name}: gradients differ from no "
+                         f"remat's (worst rel L2 {r['worst_rel_l2']:.3e})")
+    log(f"[train] remat {arch}{' (tiny)' if tiny else ''} at "
+        f"{cfg.num_layers} layers, B {B} x S {S}, two steps each, the "
+        f"second after an update: no remat twice "
+        + ("bitwise" if repeat["bitwise"] else
+           f"NOT bitwise (worst rel L2 {repeat['worst_rel_l2']:.3e}, median "
+           f"{repeat['median_rel_l2']:.3e})")
+        + "; " + "; ".join(
+            f"{n} " + ("bitwise" if runs[n]["bitwise"] else
+                       f"worst rel L2 {runs[n]['worst_rel_l2']:.3e}")
+            + (" held" if runs[n]["held"] else " FAIL")
+            for n in ("full", "dots")) + f" ({smi})")
+    for name in ("none", "full", "dots"):
+        r, prof = runs[name], runs[name]["profile"]
+        log(f"[train]   {name:5s} step {r['step_ms']:.1f} ms (host, median "
+            f"of steps 3-4), peak {r['peak_allocated_gb']:.2f} GB allocated / "
+            f"{r['peak_reserved_gb']:.2f} reserved; profiled step wall "
+            f"{prof['wall_ms']:.1f} ms, device "
+            + (f"{prof['device_ms']:.1f}" if prof["device_ms"] else
+               "not measured") + " ms ("
+            + ", ".join(f"{p} {ms:.2f}" for p, ms in prof["parts_ms"].items())
+            + f"), peak {prof['peak_allocated_gb']:.2f} / "
+            f"{prof['peak_reserved_gb']:.2f} GB; launches a step "
+            f"{r['launches_a_step']}")
+    del model, tokens, labels
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.num_layers, "tiny": tiny,
+            "batch": B, "seq": S, "runs": runs}, total
 
 
 def _tiny_card_step(arch, B, S, fails):
@@ -5946,55 +6250,72 @@ def _tiny_card_step(arch, B, S, fails):
     return out, counts
 
 
-def _full_width_grads(model, cfg, tokens, labels, plain):
-    """(loss, {name: grad}) of the model's first step on its own weights:
-    through the kernels, or through the plain ops with each layer
-    recomputed in its backward (``torch.utils.checkpoint``: the plain
-    attention's per-block probabilities of 32 layers would not fit the
-    card; recomputation changes no value)."""
+def _full_width_grads(model, cfg, tokens, labels, plain, extra=None):
+    """(loss, {name: grad}) of the model's first step on its own weights
+    (``extra``: Whisper's frames): through the kernels, or through the
+    plain ops. Either way the config's remat (every arch's default)
+    recomputes each unit in its backward: the plain attention's per-block
+    probabilities of 32 layers would not fit the card otherwise, and
+    recomputation changes no value."""
     import torch
-    from torch.utils.checkpoint import checkpoint
     from repro_torch.train.loss import softmax_xent
+    if not cfg.remat:
+        raise ValueError("the full-width holds run with the config's remat")
     params = dict(model.named_parameters())
-    if plain:
-        orig = model._block_apply
-
-        def ck(blk, x, positions, collect=False):
-            return checkpoint(lambda h: orig(blk, h, positions)[0], x,
-                              use_reentrant=False), None
-        model._block_apply = ck
-    try:
-        with _plain_train_ops() if plain else nullcontext():
-            loss, _ = softmax_xent(model.apply(tokens), labels,
-                                   cfg.vocab_size)
-            grads = torch.autograd.grad(loss, list(params.values()))
-    finally:
-        if plain:
-            del model._block_apply
-    return float(loss), dict(zip(params, grads))
+    args = (tokens,) if extra is None else (tokens, extra)
+    with _plain_train_ops() if plain else nullcontext():
+        loss, _ = softmax_xent(model.apply(*args), labels, cfg.vocab_size)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
 
 
-def _step_profile(step_fn, box, tokens, labels, steps=2):
+def _cut(cfg, depth):
+    """``cfg`` at ``depth`` layers; an encoder-decoder's both stacks."""
+    if cfg.is_encoder_decoder:
+        return cfg.replace(num_layers=depth, num_encoder_layers=depth)
+    return cfg.replace(num_layers=depth)
+
+
+def _batch_tensors(cfg, B, S):
+    """SyntheticStream's first batch on the card: tokens, labels and the
+    frames or patches (None where the arch takes none)."""
+    import torch
+    from repro_torch.data import SyntheticStream
+    batch = SyntheticStream(cfg, S, B, seed=0).batch_at(0)
+    return tuple(None if a is None else torch.as_tensor(a, device="cuda")
+                 for a in (batch.tokens, batch.labels, batch.extra_embeds))
+
+
+def _step_profile(step_fn, box, tokens, labels, steps=2, extra=None,
+                  warm=1):
     """Steps of the Trainer's step function on the host clock and under
     torch.profiler: device time by part of the step and the busy share,
     and the memory these steps held at their peak (allocated, and reserved
     by the caching allocator) beside the card's. ``box`` is a one-element
     list holding the state, which this takes out, so that no caller keeps
     an old state alive beside two new ones (a full-width Mamba2 state is
-    ~28 GB)."""
+    ~28 GB). The ``warm`` unprofiled steps first are timed too
+    (``warm_ms``: their median, host clock, synchronized)."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     state = box.pop()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, _ = step_fn(state, tokens, labels)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, tokens, labels, extra)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    warm_ms = float(np.median(walls))
+    # the device's activity only: the host's op records would cost the
+    # step's wall time and seconds of processing, and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, m = step_fn(state, tokens, labels)
+            state, m = step_fn(state, tokens, labels, extra)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     by_name, launches = {}, {}
@@ -6017,7 +6338,7 @@ def _step_profile(step_fn, box, tokens, labels, steps=2):
            for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])
            if any(p in n for p in STEP_PARTS[0][1])]
     card = torch.cuda.get_device_properties(0).total_memory
-    return state, {"wall_ms": wall_ms,
+    return state, {"wall_ms": wall_ms, "warm_ms": warm_ms,
                    "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                    "card_gb": card / 1e9,
@@ -6076,27 +6397,51 @@ def _layer_specs(cfg):
 
 def _train_launches(cfg, steps):
     """Model-kernel launches of ``steps`` standard steps, counted from the
-    code (``models/transformer.py``, ``attention.py``, ``mla.py``,
-    ``ssm.py``): per layer ln1, ln2 where it has an MLP, and its mixer's:
-    attention one flash_attention (and the q/k norms with qk_norm), MLA one
-    flash_attention and its kv_norm, mamba one ssd_scan and its gated norm;
-    then the final norm. Each once forward and once backward; attention's
-    float32 calls (a float32 config's) counted apart as well."""
-    norms, attn, scans = 1, 0, 0
-    for spec in _layer_specs(cfg):
-        norms += 1 + (spec.mlp != "none")
-        if spec.mixer == "mamba":
-            norms, scans = norms + 1, scans + 1
-        elif spec.mixer == "mla":
-            norms, attn = norms + 1, attn + 1
-        else:
-            norms, attn = norms + (2 if cfg.qk_norm else 0), attn + 1
-    f32 = attn * steps if cfg.activation_dtype == "float32" else 0
-    return {"rmsnorm": norms * steps, "rmsnorm_bwd": norms * steps,
-            "flash_attention": attn * steps,
-            "flash_attention_bwd": attn * steps,
-            "flash_attention_f32": f32, "flash_attention_bwd_f32": f32,
-            "ssd_scan": scans * steps, "ssd_scan_bwd": scans * steps}
+    code (``models/transformer.py``, ``whisper.py``, ``attention.py``,
+    ``mla.py``, ``ssm.py``): per layer ln1, ln2 where it has an MLP, and
+    its mixer's: attention one flash_attention (and the q/k norms with
+    qk_norm), MLA one flash_attention and its kv_norm, mamba one ssd_scan
+    and its gated norm; then the final norm. Whisper: an encoder layer two
+    norms and its attention, a decoder layer three norms, its self- and
+    its cross-attention, then the encoder's norm and the final one; the
+    float32 frames make the encoder and the cross-attention float32. Each
+    backward kernel launches once; each forward kernel once, and with
+    ``cfg.remat`` once more in the backward where it lies inside a unit
+    (every layer but a first dense one; the same under "dots", which keeps
+    no kernel's output). Attention's float32 calls (a float32 config's,
+    Whisper's encoder and cross) are counted apart as well."""
+    f32 = cfg.activation_dtype == "float32"
+    # (norms, attention calls, float32 ones, scans) inside units, outside
+    inside, outside = [0, 0, 0, 0], [1, 0, 0, 0]
+
+    def add(into, norms, attn=0, attn32=0, scans=0):
+        for i, n in enumerate((norms, attn, attn32, scans)):
+            into[i] += n
+    if cfg.is_encoder_decoder:
+        if cfg.qk_norm:
+            raise ValueError("Whisper's launches are counted without qk_norm")
+        add(inside, 2 * cfg.num_encoder_layers, cfg.num_encoder_layers,
+            cfg.num_encoder_layers)
+        add(inside, 3 * cfg.num_layers, 2 * cfg.num_layers,
+            cfg.num_layers * (2 if f32 else 1))
+        add(outside, 1)
+    else:
+        for i, spec in enumerate(_layer_specs(cfg)):
+            into = outside if i == 0 and cfg.first_layer_dense else inside
+            norms = 1 + (spec.mlp != "none")
+            if spec.mixer == "mamba":
+                add(into, norms + 1, scans=1)
+            elif spec.mixer == "mla":
+                add(into, norms + 1, 1, int(f32))
+            else:
+                add(into, norms + (2 if cfg.qk_norm else 0), 1, int(f32))
+    again = 2 if cfg.remat else 1
+    fwd = [(a * again + b) * steps for a, b in zip(inside, outside)]
+    bwd = [(a + b) * steps for a, b in zip(inside, outside)]
+    return {"rmsnorm": fwd[0], "rmsnorm_bwd": bwd[0],
+            "flash_attention": fwd[1], "flash_attention_bwd": bwd[1],
+            "flash_attention_f32": fwd[2], "flash_attention_bwd_f32": bwd[2],
+            "ssd_scan": fwd[3], "ssd_scan_bwd": bwd[3]}
 
 
 def _part_launches(cfg, history):
@@ -6117,20 +6462,26 @@ def phase_train(ctx):
     """The training path on the card (see the module docstring): the
     backward kernels against their plain versions, the full-width first
     step against the plain ops, the Trainer's timed run with its launches,
-    kill and restore, the partitioned trainer, then TRAIN_ARCHS at full
-    width and the tiny Jamba card against CPU."""
+    kill and restore, the partitioned trainer, the remat holds
+    (REMAT_HOLDS), h2o-danube-1.8b's step without remat, then TRAIN_ARCHS
+    at full width and the tiny Jamba card against CPU."""
     import tempfile
     import numpy as np
     import torch
     from repro_torch.bench import train_partitioned as tp
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticStream
     from repro_torch.kernels import frontier_grid as fg
     from repro_torch.models import build_model
     from repro_torch.train import Trainer, TrainerConfig
     fails = []
     out = {}
     smi = ctx.get("smi")
+    t_part = [time.perf_counter()]
+
+    def part_done(what):
+        now = time.perf_counter()
+        log(f"[train] {what} in {now - t_part[0]:.1f} s")
+        t_part[0] = now
     if ctx.get("f32_terms", 3) != 3:
         # the --f32-terms control: float32 attention's holds alone, the
         # backward cases and the tiny Jamba's step card against CPU
@@ -6154,15 +6505,14 @@ def phase_train(ctx):
             fails.append(f"{tag}: the library's device time not measured")
     if fails:
         raise AssertionError(f"train phase: backward kernels failed {fails}")
+    part_done("1. the backward kernels' cases")
 
     # 2. the full-width first step: kernels against the plain ops
     cfg = get_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda", seed=0, trainable=True)
     n_params = sum(p.numel() for p in model.parameters())
-    batch = SyntheticStream(cfg, TRAIN_S, TRAIN_B, seed=0).batch_at(0)
-    tokens = torch.as_tensor(batch.tokens, device="cuda")
-    labels = torch.as_tensor(batch.labels, device="cuda")
+    tokens, labels, _ = _batch_tensors(cfg, TRAIN_B, TRAIN_S)
     t0 = time.perf_counter()
     loss_k, grads_k = _full_width_grads(model, cfg, tokens, labels, False)
     torch.cuda.synchronize()
@@ -6197,8 +6547,9 @@ def phase_train(ctx):
                          "first_step_s": k_s, "plain_step_s": p_s}
     del grads_k, grads_p
     torch.cuda.empty_cache()
+    part_done("2. the full-width first step, kernels and plain")
 
-    # 3. 20 steps through the training CLI (Trainer, seed 0: the same
+    # 3. 12 steps through the training CLI (Trainer, seed 0: the same
     # weights), launches counted from zero
     state, rec, counts = _trainer_run(
         cfg, ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
@@ -6214,8 +6565,10 @@ def phase_train(ctx):
     out["trainer"] = {**rec, "profile": prof, "optimizer_device_ms": opt_ms}
     del state, trainer
     torch.cuda.empty_cache()
+    part_done("3. the Trainer's run and its profiled step")
 
-    # 4. kill after step 10, restore, step 11 bitwise the uninterrupted run
+    # 4. kill after step TRAIN_KILL_AT, restore, the next step bitwise the
+    # uninterrupted run
     with tempfile.TemporaryDirectory() as d:
         kcfg = TrainerConfig(steps=TRAIN_KILL_AT + 1, batch=TRAIN_B,
                              seq=TRAIN_S, lr=3e-4, warmup=5, log_every=100,
@@ -6240,6 +6593,7 @@ def phase_train(ctx):
     out["restore_bitwise"] = bool(same_loss and same_params)
     del whole, restored, model
     torch.cuda.empty_cache()
+    part_done("4. kill and restore")
 
     # 5. the partitioned trainer at full width, launches counted from zero
     torch.cuda.synchronize()
@@ -6264,20 +6618,36 @@ def phase_train(ctx):
         ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
     out["partitioned"] = {**s, "steps": PART_STEPS, "seconds": part_s,
                           "launches": pcounts}
+    part_done("5. the partitioned trainer")
 
-    # 6. Mamba2-2.7B and DeepSeek-V2-Lite at full width: every layer held,
-    # the first step end to end at a cut depth, the Trainer's steps counted
+    # 6. remat: two steps under no remat, "full" and "dots", bitwise
+    out["remat"] = []
+    for arch, layers, B, S, lr, tiny in REMAT_HOLDS:
+        t0 = time.perf_counter()
+        res, counts = _remat_hold(arch, layers, B, S, lr, tiny, fails, smi)
+        res["seconds"] = time.perf_counter() - t0
+        part_done(f"6. the remat hold of {arch}")
+        out["remat"].append(res)
+        for k, n in counts.items():
+            ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
+
+    # 7. Mamba2-2.7B, DeepSeek-V2-Lite, h2o-danube-1.8b and Whisper-large-v3
+    # at full width: every layer held, the first step end to end at a cut
+    # depth, the Trainer's steps counted; danube's step once without remat
+    out["no_remat"] = _no_remat_step(*NO_REMAT_TRY)
+    part_done(f"7. {NO_REMAT_TRY[0]}'s step without remat")
     out["archs"] = []
     for arch, layers, B, S, holds, steps, lr in TRAIN_ARCHS:
         t0 = time.perf_counter()
         res, counts = _train_arch(arch, layers, B, S, holds, steps, lr,
                                   fails, smi)
         res["seconds"] = time.perf_counter() - t0
+        part_done(f"7. {arch}")
         out["archs"].append(res)
         for k, n in counts.items():
             ctx["train_launches"][k] = ctx["train_launches"].get(k, 0) + n
 
-    # 7. the tiny Jamba, card against CPU, launches counted from zero
+    # 8. the tiny Jamba, card against CPU, launches counted from zero
     out["tiny"], counts = _tiny_card_step(TINY_TRAIN_ARCH, TINY_TRAIN_B,
                                           TINY_TRAIN_S, fails)
     for k, n in counts.items():

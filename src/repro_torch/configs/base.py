@@ -6,10 +6,12 @@ modality stub). Layer stacks are described by a repeating ``pattern`` of
 LayerSpec entries so heterogeneous stacks (Jamba's 1:7 attn:mamba interleave)
 scan cleanly.
 
-The JAX package's four execution switches (``attention_impl``,
-``ssd_impl``, ``remat``, ``remat_policy``) are not fields here: the port
-picks the CUDA kernel or its plain version by the device a tensor lies on,
-and serves without rematerialization.
+``remat`` and ``remat_policy`` are the reference's: a differentiated
+forward recomputes each layer unit in its backward (``models/remat.py``),
+"full" keeping the unit's inputs only and "dots" also the outputs of its
+products without batch dims. The JAX package's two other execution
+switches (``attention_impl``, ``ssd_impl``) are not fields here: the port
+picks the CUDA kernel or its plain version by the device a tensor lies on.
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-__all__ = ["LayerSpec", "ModelConfig", "ShapeSpec", "SHAPES", "round_up",
-           "shape_applicable"]
+__all__ = ["LayerSpec", "ModelConfig", "ShapeSpec", "SHAPES", "REMAT_POLICIES",
+           "round_up", "shape_applicable"]
+
+# jax.checkpoint's policies the reference names: None, and
+# dots_with_no_batch_dims_saveable
+REMAT_POLICIES = ("full", "dots")
 
 
 def round_up(x: int, m: int) -> int:
@@ -76,10 +82,17 @@ class ModelConfig:
     encoder_seq: int = 0              # precomputed frame embeddings (stub frontend)
     # --- vlm ---
     num_patches: int = 0              # prepended patch embeddings (stub frontend)
-    # --- numerics ---
+    # --- numerics / rematerialization ---
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"    # full | dots (save matmul outputs)
     logical_vocab: int = 0            # unpadded vocab (0 = same as vocab_size)
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {self.remat_policy!r}")
 
     # ------------------------------------------------------------------
     @property

@@ -49,8 +49,8 @@ __all__ = ["balancer_from_reference", "sim_from_reference",
            "encdec_from_reference", "vlm_from_reference",
            "model_from_reference", "train_state_from_reference"]
 
-# the JAX ModelConfig's execution switches; the port selects by device
-_JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl", "remat", "remat_policy")
+# the JAX ModelConfig's kernel switches; the port selects by device
+_JAX_ONLY_FIELDS = ("attention_impl", "ssd_impl")
 
 
 def _plain(x):
@@ -143,7 +143,8 @@ def workflow_engine_from_reference(eng, device="cuda") -> WorkflowEngine:
 
 def config_from_reference(d: dict) -> ModelConfig:
     """The port's ``ModelConfig`` from ``dataclasses.asdict`` of a JAX one;
-    its four execution switches are dropped."""
+    ``remat`` and ``remat_policy`` carry across, its two kernel switches
+    (``attention_impl``, ``ssd_impl``) are dropped."""
     d = {k: v for k, v in d.items() if k not in _JAX_ONLY_FIELDS}
     d["pattern"] = tuple(LayerSpec(**s) if isinstance(s, dict)
                          else LayerSpec(*s) for s in d["pattern"])

@@ -15,7 +15,9 @@ balancer replace the drawn ones). ``--partitioned`` runs the paper's
 partitioned step on a one-device mesh with a "pod" axis: every step the
 balancer splits the microsteps between ``--pods`` simulated pods and the
 pod of this process takes the whole slab, as the JAX package's CLI does on
-its one-device mesh.
+its one-device mesh. As there, no flag chooses rematerialization: the
+arch's config carries it (``remat=True``, ``remat_policy="full"`` by
+default), so both trainers recompute each layer unit in the backward.
 """
 from __future__ import annotations
 

@@ -4,11 +4,15 @@ stacks with dense or MoE MLPs.
 The layer stack is ``num_repeats`` copies of ``cfg.pattern``. The JAX
 package stacks each pattern position's weights over the repeats and runs
 ``lax.scan``; here each layer is its own submodule and the stack is a
-Python loop. With ``cfg.first_layer_dense`` (DeepSeek) ``layers[0]`` is
-the reference's ``params["first"]``: the pattern's mixer with a dense MLP.
-The repeats follow it: ``layers[off + r * P + i]`` holds repeat r of
-pattern position i, ``off`` being 1 with a first dense layer and 0
-without. :class:`ShardCtx` carries the reference's sharding context (the
+Python loop over the same units. With ``cfg.first_layer_dense``
+(DeepSeek) ``layers[0]`` is the reference's ``params["first"]``: the
+pattern's mixer with a dense MLP, run alone and outside remat. The
+repeats follow it: ``layers[off + r * P + i]`` holds repeat r of pattern
+position i, ``off`` being 1 with a first dense layer and 0 without. Each
+repeat's P layers are one unit, and with ``cfg.remat`` a differentiated
+:meth:`LM.apply` recomputes each unit in its backward
+(``models/remat.py``), as the reference's ``jax.checkpoint`` around its
+scan body does. :class:`ShardCtx` carries the reference's sharding context (the
 mesh and the batch axes); on a world of size 1 it changes no computation,
 and a model that would shard over it waits for ROADMAP §1 item 12b.
 
@@ -37,6 +41,7 @@ from ..device import resolve_device
 from . import attention as attn
 from . import mla
 from . import moe
+from . import remat
 from . import ssm
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
                      mlp_init, param, rms_norm, rmsnorm_init)
@@ -147,36 +152,51 @@ class LM(nn.Module):
         return self.final_norm.device
 
     # ------------------------------------------------------------- forward
-    def _mlp_part(self, blk: Block, x):
-        if blk.spec.mlp == "none":
+    def _mlp_part(self, spec: LayerSpec, ln2, mlp, x):
+        if spec.mlp == "none":
             return x
-        h2 = rms_norm(x, blk.ln2, self.cfg.norm_eps)
-        if blk.spec.mlp == "moe":
-            return x + moe.moe_apply(blk.mlp, h2, self.cfg)
-        return x + mlp_apply(blk.mlp, h2, self.cfg.mlp_act)
+        h2 = rms_norm(x, ln2, self.cfg.norm_eps)
+        if spec.mlp == "moe":
+            return x + moe.moe_apply(mlp, h2, self.cfg)
+        return x + mlp_apply(mlp, h2, self.cfg.mlp_act)
 
-    def _block_apply(self, blk: Block, x, positions, collect: bool = False):
+    def _layer_apply(self, spec: LayerSpec, p, x, positions,
+                     collect: bool = False):
+        """One layer on its parameters ``p`` (``remat.unit_params`` of its
+        Block): (x, its cache entry with ``collect``, else None)."""
         cfg = self.cfg
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
         entry = None
-        if blk.spec.mixer == "mamba":
+        if spec.mixer == "mamba":
             if collect:
-                m, (ssm_s, conv_s) = ssm.mamba_apply(blk.mixer, h, cfg,
+                m, (ssm_s, conv_s) = ssm.mamba_apply(p["mixer"], h, cfg,
                                                      return_state=True)
                 entry = {"ssm": ssm_s, "conv": conv_s}
             else:
-                m = ssm.mamba_apply(blk.mixer, h, cfg)
-        elif blk.spec.mixer == "mla":
-            m, (c, kr) = mla.mla_apply(blk.mixer, h, cfg, positions)
+                m = ssm.mamba_apply(p["mixer"], h, cfg)
+        elif spec.mixer == "mla":
+            m, (c, kr) = mla.mla_apply(p["mixer"], h, cfg, positions)
             entry = {"c": c, "rope": kr} if collect else None
         elif collect:
-            m, (k, v) = attn.attn_apply(blk.mixer, h, cfg, positions,
+            m, (k, v) = attn.attn_apply(p["mixer"], h, cfg, positions,
                                         return_kv=True)
             entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
         else:
-            m = attn.attn_apply(blk.mixer, h, cfg, positions)
-        x = self._mlp_part(blk, x + m)
+            m = attn.attn_apply(p["mixer"], h, cfg, positions)
+        x = self._mlp_part(spec, p.get("ln2"), p.get("mlp"), x + m)
         return x, entry
+
+    def _block_apply(self, blk: Block, x, positions, collect: bool = False):
+        """One layer on the weights ``blk`` holds now."""
+        return self._layer_apply(blk.spec, remat.unit_params(blk), x,
+                                 positions, collect)
+
+    def _unit(self, x, params, positions):
+        """One repeat of the pattern (the reference's scan body) on its
+        layers' parameters ``params``."""
+        for spec, p in zip(self.cfg.pattern, params):
+            x, _ = self._layer_apply(spec, p, x, positions)
+        return x
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
@@ -193,13 +213,22 @@ class LM(nn.Module):
 
     def apply(self, tokens, *, extra_embeds=None):
         """tokens: (B, S_text) -> logits (B, S, padded_vocab); S counts the
-        ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings."""
+        ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings.
+        Each unit runs under ``remat.checkpointed`` (``cfg.remat``)."""
+        cfg = self.cfg
         x = self._embed(tokens, extra_embeds)
         positions = self._positions(*x.shape[:2])
-        for blk in self.layers:
-            x, _ = self._block_apply(blk, x, positions)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return lm_head(self.embed, x, self.cfg)
+        layers = list(self.layers)
+        if cfg.first_layer_dense:
+            x, _ = self._block_apply(layers.pop(0), x, positions)
+        P, policy = cfg.pattern_len, cfg.remat_policy if cfg.remat else None
+        for i in range(0, len(layers), P):
+            # gathered here, inside functional_call: the state's tensors
+            params = [remat.unit_params(blk) for blk in layers[i:i + P]]
+            x = remat.checkpointed(self._unit, x, params, positions,
+                                   policy=policy)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return lm_head(self.embed, x, cfg)
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, dtype=None) -> dict:
@@ -242,7 +271,8 @@ class LM(nn.Module):
         else:
             m = attn.attn_decode_step(blk.mixer, h, cfg, c, slot_pos, pos,
                                       slot)
-        return self._mlp_part(blk, x + m)
+        return self._mlp_part(blk.spec, getattr(blk, "ln2", None),
+                              getattr(blk, "mlp", None), x + m)
 
     def decode_step(self, cache: dict, tokens):
         """One decode step. tokens: (B, 1). Returns (logits (B, 1, V),

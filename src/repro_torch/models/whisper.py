@@ -11,6 +11,12 @@ float32 frames in a bf16 model make a float32 encoder, its weights
 promoted to float32, and float32 cross-attention K/V that the bf16
 decoder's queries are promoted to (``models/attention.py``).
 
+With ``cfg.remat`` a differentiated forward recomputes each encoder and
+each decoder layer in its backward (``models/remat.py``), as the
+reference's ``jax.checkpoint`` around both scan bodies does. The
+reference gives those checkpoints no policy, so "dots" is "full" here as
+there.
+
 Serving state is a dict: per-layer ``{"k", "v", "xk", "xv"}`` (self-
 attention caches (B, Hkv, S, hd) and the cross-attention K/V over the
 frames, built once at prefill), ``slot_pos`` (S,) int32 and ``pos`` a
@@ -26,6 +32,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import remat
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
                      mlp_init, param, rms_norm, rmsnorm_init)
 from .transformer import _place_seq, _prefill_slot_pos
@@ -70,6 +77,13 @@ class DecBlock(nn.Module):
         self.mlp = mlp_init(cfg, generator, device)
 
 
+def _policy(cfg: ModelConfig):
+    """The checkpoint policy of each layer: "full" with ``cfg.remat``
+    whatever ``remat_policy`` says (the reference's Whisper units take
+    ``jax.checkpoint`` with no policy), else None."""
+    return "full" if cfg.remat else None
+
+
 def _promote(p, dtype):
     """The parameters of ``p`` in ``dtype`` where narrower (as jnp
     promotes a matmul's operands); ``p`` itself when none is."""
@@ -108,19 +122,33 @@ class EncDec(nn.Module):
     def encode(self, frames):
         """frames: (B, F, d) precomputed embeddings -> (B, F, d)."""
         cfg = self.cfg
-        B, F, d = frames.shape
+        x = self._encoder_input(frames)
+        positions = self._positions(*frames.shape[:2])
+        policy = _policy(cfg)
+        for blk in self.enc_blocks:
+            x = remat.checkpointed(self._enc_layer, x,
+                                   remat.unit_params(blk), positions,
+                                   policy=policy)
+        return rms_norm(x, self.enc_norm.to(x.dtype), cfg.norm_eps)
+
+    def _encoder_input(self, frames):
+        """The frames plus their sinusoid, in the promoted dtype of frames
+        and weights (the encoder's)."""
+        cfg = self.cfg
+        _, F, d = frames.shape
         x = (frames.to(dtype_of(cfg.activation_dtype))
              + sinusoid(F, d, frames.dtype, frames.device))
-        dt = torch.promote_types(x.dtype, dtype_of(cfg.param_dtype))
-        x = x.to(dt)
-        positions = self._positions(B, F)
-        for blk in self.enc_blocks:
-            mixer, mlp = _promote(blk.mixer, dt), _promote(blk.mlp, dt)
-            h = rms_norm(x, blk.ln1.to(dt), cfg.norm_eps)
-            x = x + attn.attn_apply(mixer, h, cfg, positions, causal=False)
-            h = rms_norm(x, blk.ln2.to(dt), cfg.norm_eps)
-            x = x + mlp_apply(mlp, h, cfg.mlp_act)
-        return rms_norm(x, self.enc_norm.to(dt), cfg.norm_eps)
+        return x.to(torch.promote_types(x.dtype, dtype_of(cfg.param_dtype)))
+
+    def _enc_layer(self, x, p, positions):
+        """One encoder layer on its parameters ``p``, promoted to x's
+        dtype."""
+        cfg, dt = self.cfg, x.dtype
+        mixer, mlp = _promote(p["mixer"], dt), _promote(p["mlp"], dt)
+        h = rms_norm(x, p["ln1"].to(dt), cfg.norm_eps)
+        x = x + attn.attn_apply(mixer, h, cfg, positions, causal=False)
+        h = rms_norm(x, p["ln2"].to(dt), cfg.norm_eps)
+        return x + mlp_apply(mlp, h, cfg.mlp_act)
 
     def _cross_kv(self, p_cross, enc_out):
         """The cross-attention K/V of the frames, (B, F, Hkv, hd) each."""
@@ -131,24 +159,31 @@ class EncDec(nn.Module):
         v = (enc_out @ p_cross["wv"].to(enc_out.dtype)).reshape(B, F, hkv, hd)
         return k, v
 
-    def _dec_block(self, blk: DecBlock, x, positions, cross_kv,
-                   collect: bool = False):
+    def _dec_block(self, p, x, positions, cross_kv, collect: bool = False):
+        """One decoder layer on its parameters ``p`` (``remat.unit_params``
+        of a ``DecBlock``)."""
         cfg = self.cfg
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
         entry = None
         if collect:
-            m, (k, v) = attn.attn_apply(blk.self, h, cfg, positions,
+            m, (k, v) = attn.attn_apply(p["self"], h, cfg, positions,
                                         return_kv=True)
             entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
         else:
-            m = attn.attn_apply(blk.self, h, cfg, positions)
+            m = attn.attn_apply(p["self"], h, cfg, positions)
         x = x + m
-        h = rms_norm(x, blk.ln_x, cfg.norm_eps)
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
         # bidirectional over the frames, no rope on the cross K/V
-        x = x + attn.attn_apply(blk.cross, h, cfg, positions, causal=False,
+        x = x + attn.attn_apply(p["cross"], h, cfg, positions, causal=False,
                                 kv_override=cross_kv)
-        h = rms_norm(x, blk.ln2, cfg.norm_eps)
-        return x + mlp_apply(blk.mlp, h, cfg.mlp_act), entry
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h, cfg.mlp_act), entry
+
+    def _dec_layer(self, x, p, positions, enc_out):
+        """The reference's decoder unit: the layer's cross K/V of the
+        frames, then the layer."""
+        return self._dec_block(p, x, positions,
+                               self._cross_kv(p["cross"], enc_out))[0]
 
     def _decoder_input(self, tokens):
         x = embed_lookup(self.embed, tokens, self.cfg)
@@ -165,9 +200,11 @@ class EncDec(nn.Module):
         enc_out = self.encode(frames)
         x = self._decoder_input(tokens)
         positions = self._positions(*tokens.shape)
+        policy = _policy(cfg)
         for blk in self.dec_blocks:
-            x, _ = self._dec_block(blk, x, positions,
-                                   self._cross_kv(blk.cross, enc_out))
+            x = remat.checkpointed(self._dec_layer, x,
+                                   remat.unit_params(blk), positions,
+                                   enc_out, policy=policy)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return lm_head(self.embed, x, cfg)
 
@@ -200,8 +237,8 @@ class EncDec(nn.Module):
         layers = []
         for blk in self.dec_blocks:
             ck, cv = self._cross_kv(blk.cross, enc_out)
-            x, entry = self._dec_block(blk, x, positions, (ck, cv),
-                                       collect=True)
+            x, entry = self._dec_block(remat.unit_params(blk), x, positions,
+                                       (ck, cv), collect=True)
             layers.append({
                 **{k: _place_seq(v, cache_len, 2) for k, v in entry.items()},
                 "xk": ck.transpose(1, 2).contiguous(),

@@ -8,7 +8,9 @@ host: every device operation is inside the step. The trainer starts from
 the weights its model holds (``build_model(..., trainable=True)`` or a
 model converted from the reference's), where the reference draws them from
 a JAX key; a checkpoint in ``ckpt_dir`` resumes at its step, the balancer's
-state riding in its manifest.
+state riding in its manifest. Both the standard and the partitioned step
+train under the config's ``remat`` and ``remat_policy`` (each layer unit
+recomputed in the backward by default, as in the reference).
 """
 from __future__ import annotations
 

@@ -17,7 +17,11 @@ and the AdamW state; the model runs on them through
 ``torch.func.functional_call``, and a step returns a new state and leaves
 the old one as it was. On the card the forward launches the ``rmsnorm``
 and ``flash_attention`` kernels and the backward their backward kernels
-(``kernels/``); projections are cuBLAS matrix products.
+(``kernels/``); projections are cuBLAS matrix products. With the config's
+``remat`` (the default, as in the reference) the model recomputes each
+layer unit in the backward (``models/remat.py``), launching its forward
+kernels a second time; the unit reads the state's tensors, which the model
+gathers while ``functional_call`` has them in place.
 """
 from __future__ import annotations
 

@@ -72,8 +72,7 @@ def test_configs_match_the_reference():
         cfg = get_config(arch)
         for full, port in ((jcfg, cfg), (jcfg.tiny(), cfg.tiny())):
             d = dataclasses.asdict(full)
-            for key in ("attention_impl", "ssd_impl", "remat",
-                        "remat_policy"):
+            for key in ("attention_impl", "ssd_impl"):
                 d.pop(key)
             assert dataclasses.asdict(port) == d, arch
             assert port.padded_vocab == full.padded_vocab

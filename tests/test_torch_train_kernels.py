@@ -18,7 +18,9 @@ dO views, every rmsnorm form's D, views with a storage offset; the head
 dim of 192 with v of 192 and of 128, three launches a call there as at
 64 and 128, counted with torch.profiler; the float32 kernels' forms: head
 dims not a multiple of 8, v of its own head dim, storage-offset views,
-dead rows), and repeats its bits. On the CPU the
+dead rows), and repeats its bits. A tiny model's step with each unit
+recomputed (``cfg.remat``, "full" and "dots") is bitwise its step
+without remat after an update. On the CPU the
 two ``autograd.Function``s pass ``torch.autograd.gradcheck`` in float64
 through their plain route (``ref.rmsnorm_bwd_ref``,
 ``ref.flash_attention_bwd_ref``: the kernels' formulas), and those formulas
@@ -447,6 +449,44 @@ def test_lse_leaves_the_forward_bitwise(card, dtype):
     out, got = fa._forward(q, k, k, True, None, None, with_lse=True)
     assert torch.equal(out, serve)
     torch.testing.assert_close(got, lse, atol=REL[dtype], rtol=REL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-2.7b"])
+def test_remat_step_on_the_card_is_bitwise(card, arch, policy):
+    """A tiny model's gradients on the card after one AdamW update (the
+    state's weights no longer the module's) with each unit recomputed in
+    the backward, bitwise the same step's without remat: the recomputed
+    launches of rmsnorm, flash_attention and ssd_scan give the forward's
+    bits, and the backward kernels add no atomics. The no-remat step is
+    held against itself first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    cfg = get_config(arch).tiny().replace(remat=False)
+    gen = torch.Generator(device=card).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device=card)
+    labels = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device=card)
+    model = build_model(cfg, device=card, seed=0, trainable=True)
+    state, _ = tstep.make_train_step(
+        model, cfg, adamw.cosine_schedule(1e-3, 2, 10))(
+            tstep.init_state(model), tokens, labels)
+
+    def grads(c):
+        m = build_model(c, device=card, seed=0, trainable=True)
+        fn = tstep.value_and_grad(tstep.make_loss_fn(m, c))
+        (loss, _), g = fn(state.params, tokens, labels)
+        return loss, g
+    want = grads(cfg)
+    for got in (grads(cfg),
+                grads(cfg.replace(remat=True, remat_policy=policy))):
+        assert torch.equal(got[0], want[0])
+        for name, g in want[1].items():
+            assert torch.equal(got[1][name], g), name
 
 
 # ------------------------------------------------------------ on the CPU
