@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases card,build,engine,chaos,trace,sweep
     python3 chip_smoke.py --phases card,build,examples
     python3 chip_smoke.py --phases card,build,train
+    python3 chip_smoke.py --phases card,build,shard
     python3 chip_smoke.py --phases card,build,lmcheck --f32-terms 1
 
 ``--f32-terms 1`` builds the float32 attention kernels with one TF32
@@ -392,6 +393,38 @@ Phases, in order:
    gradient leaf at relative L2 5e-2 (a miss is reported with each layer's
    reading, ROADMAP.md section 3), launches counted.
 
+27. ``shard`` — sharded serving. (a) A world of one over NCCL
+   (``init_process_group("nccl", world_size=1)`` on a free local port, a
+   (1, 1) ``DeviceMesh`` of ("data", "model"); one ``all_reduce`` must
+   answer): DeepSeek-V2-Lite-16B at full width (27 layers, 64 experts top
+   6, 2 shared, bf16) and then Qwen3-8B at full width, each run unsharded
+   (a prefill of 2 x SHARD_PROMPT and SHARD_STEPS greedy decode steps),
+   then placed in place at ``param_specs``' DTensor placements (checked
+   against ``named``) under ``ShardCtx(mesh, decode_seq_axes=("data",))``
+   and run again on the same weights, launch counters zeroed before and
+   read after: DeepSeek's logits and tokens bit for bit (every collective
+   covers one rank), Qwen3-8B's decode through the partial route
+   (``flash_decode_partial`` a layer a step, no ``flash_decode``) with
+   every step's logits at ``_hold_logits``' hold and the greedy tokens
+   equal; launches held to the count the code makes; the process group
+   destroyed at the end. (b) Every rank's body in one process at full
+   width: DeepSeek-V2-Lite's MoE layer on 2 x 2048 tokens at (data,
+   model) = (1, 2), (1, 4) and (2, 2), the partials summed in rank order,
+   against the unsharded layer on each data shard's tokens (relative L2
+   < MOE_HOLD; the tokens share a direction, MOE_SKEW, so that capacity
+   drops copies; at data 2 the whole batch's capacity must miss that
+   hold), and Qwen3-8B's decode attention at decode_32k in
+   SHARD_SEQ sequence shards against one ``flash_decode`` and the plain
+   version (LM_TOL), each twice with its bits repeated; the decode timed
+   (event pair in turns and device time) against one ``flash_decode``
+   call, and one partial on one shard beside its bound, its plain version
+   and SDPA's memory-efficient call with its log-sum-exp. (c)
+   ``flash_decode_partial`` against its plain version in bf16 and
+   float32 (one split, several, G 16, decode_32k's shard, a shard with no
+   valid slot, one whose valid logits are all below -100), twice: m
+   absolutely, l relatively, acc relative to l and acc / l at the float32
+   tolerance.
+
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
 atol = rtol = 2e-4 in float32 and 1e-2 in bf16 (ssd_scan: 5e-4 for float32
@@ -422,8 +455,10 @@ model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
 SmolLM Trainer's 12 steps and the partitioned trainer's 20, which also
 count in the frontier kernels' ``train`` path, the remat holds' steps, the
 Mamba2, DeepSeek, danube and Whisper Trainers' 12 steps each and the tiny
-Jamba's step; alone in the three
-backward kernels' lines, each with its timed shapes as ``instances``); ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
+Jamba's step, and ``shard``: the world of one's sharded runs; ``train``
+alone in the three backward kernels' lines, each with its timed shapes as
+``instances``, and ``shard`` alone in ``flash_decode_partial``'s);
+``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -443,7 +478,7 @@ PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "moeserve", "zoo",
           "lmtick", "dag", "wfloop",
           "engine", "chaos", "trace", "group", "straggler", "paper",
-          "cluster", "sweep", "examples", "train")
+          "cluster", "sweep", "examples", "train", "shard")
 
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
@@ -1067,7 +1102,8 @@ LM_KERNELS = {
 }
 # the model-serving paths whose launch counts (each from zero) the JSON
 # line's model kernels sum
-LM_PATHS = ("serve", "ssmserve", "moeserve", "zoo", "examples", "train")
+LM_PATHS = ("serve", "ssmserve", "moeserve", "zoo", "examples", "train",
+            "shard")
 # the attention-path kernels (every model but Mamba2 launches all three,
 # DeepSeek-V2-Lite all but flash_decode: its MLA decode is plain matmuls)
 ATTN_PATH = ("rmsnorm", "flash_attention", "flash_decode")
@@ -1859,8 +1895,8 @@ class _RouteRecorder:
         from repro_torch.models import moe
         self._moe, self._route, self.picks = moe, moe.route, []
 
-        def route(probs, k, cap):
-            r = self._route(probs, k, cap)
+        def route(probs, k, cap, *rank):
+            r = self._route(probs, k, cap, *rank)
             self.picks.append(r.top_e)
             return r
         moe.route = route
@@ -1956,9 +1992,9 @@ def _moe_share(engine, prompts):
     from repro_torch.models import moe
     apply = moe.moe_apply
 
-    def ranged(p, x, cfg):
+    def ranged(p, x, cfg, ctx=None):
         with record_function("moe_block"):
-            return apply(p, x, cfg)
+            return apply(p, x, cfg, ctx)
     moe.moe_apply = ranged
     try:
         engine.generate(prompts, SERVE_NEW)
@@ -6455,7 +6491,8 @@ def _part_launches(cfg, history):
     decodes or scans."""
     micro = sum(json.loads(h["k_pods"])[0] for h in history)
     return {"fwd": len(history), "grad": 0, "pgrad": 0,
-            **_train_launches(cfg, micro), "flash_decode": 0}
+            **_train_launches(cfg, micro), "flash_decode": 0,
+            "flash_decode_partial": 0}
 
 
 def phase_train(ctx):
@@ -6657,6 +6694,428 @@ def phase_train(ctx):
         raise AssertionError(f"train phase failed: {fails}")
 
 
+# shard: Qwen3-8B's decode at decode_32k (B, Hkv, G, D, S) in SHARD_SEQ
+# sequence shards; DeepSeek-V2-Lite's MoE layer on SHARD_MOE_TOKENS (B, S)
+# at each (data, model) of SHARD_MOE_MESHES; the world of one's prefill
+# of B 2 x SHARD_PROMPT and SHARD_STEPS greedy decode steps
+SHARD_DECODE = (32, 8, 4, 128, 32768)
+SHARD_SEQ = 4
+SHARD_MOE_TOKENS = (2, 2048)
+SHARD_MOE_MESHES = ((1, 2), (1, 4), (2, 2))
+SHARD_PROMPT, SHARD_STEPS = 16, 16
+# the rank-emulated bf16 MoE layer's hold (relative L2): the sound
+# emulation reads ~2e-3 (bf16 partials summed), capacity counted over the
+# whole batch instead of each data shard's tokens reads far above it
+MOE_HOLD = 1e-2
+# the shared direction added to the MoE layer's tokens (times a standard
+# normal vector), so that the router's loads are uneven, as a trained
+# router's are, and capacity drops copies (none would drop without it)
+MOE_SKEW = 0.25
+# the partial kernel against its plain version, both float32 sums of the
+# same widened inputs: m absolutely, l relatively, acc relative to l, and
+# acc / l elementwise, at the float32 tolerance
+PARTIAL_TOL = LM_TOL["float32"]
+
+
+def _partial_inputs(B, Hkv, G, S, D, dtype, mode, seed):
+    """q, k, v, valid of a shard: ``mask`` 70% of the slots valid,
+    ``empty`` none, ``neg`` every valid logit near -119 (q about 1, k
+    about -10.5)."""
+    import torch
+    g = _gen(seed)
+    f32 = torch.float32
+    q = _randn(g, (B, Hkv, G, D), f32)
+    k = _randn(g, (B, Hkv, S, D), f32)
+    v = _randn(g, (B, Hkv, S, D), f32)
+    valid = torch.rand(S, generator=g, device="cuda") < 0.7
+    if mode == "empty":
+        valid[:] = False
+    elif mode == "neg":
+        q = 1.0 + 0.1 * q
+        k = -10.5 + 0.5 * k
+        valid[0] = True
+    return q.to(dtype), k.to(dtype), v.to(dtype), valid
+
+
+def _partial_holds(got, want):
+    """Whether a partial (m, l, acc) holds against ``want``: m absolutely,
+    l relatively and acc relative to l at PARTIAL_TOL (the rounding of a
+    float32 logit grows with its size, and l and acc with the number of
+    valid slots), and acc / l elementwise at PARTIAL_TOL."""
+    import torch
+    m, l, acc = got
+    wm, wl, wacc = want
+    out = acc / l.clamp(min=1e-30)
+    out_want = wacc / wl.clamp(min=1e-30)
+    return (bool(((m - wm).abs() <= PARTIAL_TOL).all())
+            and bool(((l - wl).abs() <= PARTIAL_TOL * wl).all())
+            and bool(((acc - wacc).abs() <= PARTIAL_TOL * wl).all())
+            and bool(torch.allclose(out, out_want, atol=PARTIAL_TOL,
+                                    rtol=PARTIAL_TOL)))
+
+
+def _shard_partial_checks(fails):
+    """(c) flash_decode_partial against its plain version, bf16 and
+    float32, twice (the bits repeat): one split, several, decode_32k's
+    shard, a shard with no valid slot (m = -1e30, l = 0, acc = 0 exactly)
+    and one whose valid logits are all below -100 (:func:`_partial_holds`
+    for each)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    cases = (("one split", 2, 8, 4, 200, 128, "mask"),
+             ("several splits", 4, 2, 4, 2048, 128, "mask"),
+             ("G 16, D 64", 2, 4, 16, 1024, 64, "mask"),
+             ("decode_32k shard", 32, 8, 4, 8192, 128, "mask"),
+             ("no valid slot", 4, 8, 4, 2048, 128, "empty"),
+             ("all valid logits below -100", 4, 8, 4, 2048, 128, "neg"))
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, (tag, B, Hkv, G, S, D, mode) in enumerate(cases):
+            q, k, v, valid = _partial_inputs(B, Hkv, G, S, D, dtype, mode,
+                                             300 + n)
+            splits = fd.decode_splits(B, Hkv, S, sm)[0]
+            a = fd.flash_decode_partial(q, k, v, valid)
+            b = fd.flash_decode_partial(q, k, v, valid)
+            want = ref.decode_attention_partial_ref(q, k, v, valid,
+                                                    splits=splits)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            errs = [float((x - y).abs().max()) for x, y in zip(a, want)]
+            ok = same and _partial_holds(a, want)
+            if mode == "empty":
+                ok &= (bool((a[0] == ref.NEG_INF).all())
+                       and not bool(a[1].any()) and not bool(a[2].any()))
+            if mode == "neg":
+                m_max = float(a[0].max())
+                ok &= m_max < -100
+            dt = str(dtype).split(".")[-1]
+            log(f"[shard] partial {dt:8s} {tag:30s} (B={B}, Hkv={Hkv}, G={G}"
+                f", S={S}, D={D}, {splits} splits): max|err| m {errs[0]:.2e}"
+                f" l {errs[1]:.2e} acc {errs[2]:.2e}, bits repeat {same} "
+                + ("ok" if ok else "FAIL"))
+            rows.append({"case": tag, "dtype": dt, "shape": [B, Hkv, G, S, D],
+                         "splits": splits, "max_abs_err": errs,
+                         "repeat": same, "ok": ok})
+            if not ok:
+                fails.append(f"partial {dt} {tag}")
+            del q, k, v, valid, a, b, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_moe_ranks(fails):
+    """(b) DeepSeek-V2-Lite's MoE layer at full width, every rank's body in
+    one process at each (data, model), the partials summed in rank order,
+    against the unsharded layer on each data shard's tokens (relative L2 <
+    MOE_HOLD); twice (the bits repeat). The tokens share a direction
+    (MOE_SKEW) so that capacity drops copies; with data > 1 the unsharded
+    layer on the whole batch, whose capacity counts every token, must
+    differ from the per-shard reference by more than MOE_HOLD."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    g = _gen(41)
+    p = {k: t.detach() for k, t in moe.moe_init(cfg, g, "cuda").items()}
+    x = (_randn(g, (*SHARD_MOE_TOKENS, cfg.d_model), torch.float32)
+         + MOE_SKEW * _randn(g, (cfg.d_model,), torch.float32)
+         ).to(torch.bfloat16)
+    rows = []
+    for data, tp in SHARD_MOE_MESHES:
+        a = moe.moe_ranks(p, x, cfg, tp=tp, data=data)
+        b = moe.moe_ranks(p, x, cfg, tp=tp, data=data)
+        rows_per = x.shape[0] // data
+        shards = x.split(rows_per)
+        want = torch.cat([moe.moe_apply(p, xs, cfg) for xs in shards])
+        # the copies each data shard's capacity drops
+        dropped = 0
+        for xs in shards:
+            xt = xs.reshape(-1, cfg.d_model)
+            probs = torch.softmax(xt.to(p["router"].dtype) @ p["router"], -1)
+            dropped += int((~moe.route(probs, cfg.top_k, moe.capacity(
+                cfg, xt.shape[0])).keep).sum())
+        torch.cuda.synchronize()
+        same = bool(torch.equal(a, b))
+        rel = _rel_l2(a.float(), want.float())
+        err = float((a.float() - want.float()).abs().max())
+        ok = (same and rel < MOE_HOLD and bool(torch.isfinite(a).all())
+              and dropped > 0)
+        row = {"data": data, "model": tp, "rel_l2": rel, "max_abs_err": err,
+               "repeat": same, "dropped_copies": dropped}
+        whole_note = ""
+        if data > 1:
+            whole = moe.moe_apply(p, x, cfg)
+            rel_whole = _rel_l2(whole.float(), want.float())
+            ok &= rel_whole > MOE_HOLD
+            row["whole_batch_rel_l2"] = rel_whole
+            whole_note = (f"; the whole batch's capacity against it: "
+                          f"relative L2 {rel_whole:.2e} (must exceed "
+                          f"{MOE_HOLD:g})")
+            del whole
+        log(f"[shard] MoE ranks (data {data}, model {tp}) on "
+            f"{SHARD_MOE_TOKENS[0]} x {SHARD_MOE_TOKENS[1]} tokens against "
+            f"the unsharded layer per data shard: relative L2 {rel:.2e} "
+            f"(hold {MOE_HOLD:g}), max|err| {err:.2e}, {dropped} of "
+            f"{x.shape[0] * x.shape[1] * cfg.top_k} copies dropped, bits "
+            f"repeat {same}{whole_note} " + ("ok" if ok else "FAIL"))
+        rows.append({**row, "ok": ok})
+        if not ok:
+            fails.append(f"moe ranks {data}x{tp}")
+    del p, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_decode_ranks(fails):
+    """(b) Qwen3-8B's decode attention at decode_32k in SHARD_SEQ sequence
+    shards (each shard's partial on the kernel, combined in rank order)
+    against one flash_decode over the whole cache and the plain version;
+    twice (the bits repeat); timed (event pair in turns, device time) with
+    one partial on one shard beside its bound, its plain version and SDPA's
+    memory-efficient call with its log-sum-exp on that shard."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    B, Hkv, G, D, S = SHARD_DECODE
+    q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S),
+                                    torch.bfloat16, 91)
+    shards = attention.seq_shards(k, v, valid, SHARD_SEQ)
+
+    def sharded():
+        return attention.lse_ranks(q, shards)
+
+    def whole():
+        return fd.flash_decode(q, k, v, valid)
+
+    a, b = sharded(), sharded()
+    want_k = whole()
+    want_p = ref.decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    tol = LM_TOL["bfloat16"]
+    err_k = float((a.float() - want_k.float()).abs().max())
+    err_p = float((a.float() - want_p.float()).abs().max())
+    ok = (same and bool(torch.isfinite(a).all())
+          and bool(torch.allclose(a.float(), want_k.float(), atol=tol,
+                                  rtol=tol))
+          and bool(torch.allclose(a.float(), want_p.float(), atol=tol,
+                                  rtol=tol)))
+    log(f"[shard] decode_32k (B={B}, Hkv={Hkv}, G={G}, D={D}, S={S}) in "
+        f"{SHARD_SEQ} shards: max|err| against flash_decode {err_k:.2e}, "
+        f"against plain {err_p:.2e} (tol {tol:g}), bits repeat {same} "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        fails.append("decode_32k shards")
+    del a, b, want_k, want_p
+    # in turns: sharded, whole, whole, sharded
+    t = [_time_cuda(f, reps=7) for f in (sharded, whole, whole, sharded)]
+    sh_ms, whole_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    sh_dev = _device_ms(sharded)
+    whole_dev = _device_ms(whole)
+    cache_bytes = 2 * 2 * B * Hkv * S * D
+    whole_bound = _roof(cache_bytes + 2 * 2 * B * Hkv * G * D + S,
+                        4 * B * Hkv * G * S * D / BF16_OPS_PER_S)
+    log(f"[shard] decode_32k: {SHARD_SEQ} partials + combine {sh_ms:.4f} ms "
+        f"(device {sh_dev}), one flash_decode {whole_ms:.4f} ms (device "
+        f"{whole_dev}); the whole cache's bound {whole_bound[0]:.4f} ms "
+        f"({whole_bound[1]})")
+    # one partial on one shard
+    k0, v0, valid0 = shards[0]
+    S0 = k0.shape[2]
+
+    def part():
+        return fd.flash_decode_partial(q, k0, v0, valid0)
+
+    def plain():
+        return ref.decode_attention_partial_ref(q, k0, v0, valid0)
+
+    def library():
+        # (B, Hkv, G, D): the G query rows of a kv head as its queries
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k0, v0, None, True)
+
+    got, want = part(), plain()
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    ok_p = _partial_holds(got, want)
+    if not ok_p:
+        fails.append("partial at decode_32k shard")
+    try:
+        lib = library()
+        torch.cuda.synchronize()
+        lse_err = float((lib[1][..., :G].float()
+                         - (got[0] + got[1].log()).squeeze(-1)).abs().max())
+        t = [_time_cuda(f, reps=7) for f in (part, library, library, part)]
+        ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        lib_note = f"SDPA efficient {lib_ms:.4f} ms (its lse vs m + log l: " \
+                   f"{lse_err:.2e})"
+    except RuntimeError as e:        # the backend refused the shape
+        ms, lib_ms = _time_cuda(part, reps=7), None
+        lib_note = f"SDPA efficient refused: {str(e).splitlines()[0]}"
+    plain_ms = _time_cuda(plain, reps=5, warm=1)
+    dev_ms = _device_ms(part)
+    nbytes = (2 * B * Hkv * G * D + 2 * 2 * B * Hkv * S0 * D + S0
+              + 4 * B * Hkv * G * (D + 2))
+    bound = _roof(nbytes, 4 * B * Hkv * G * S0 * D / BF16_OPS_PER_S)
+    log(f"[shard] flash_decode_partial on one shard (S={S0}): {ms:.4f} ms "
+        f"(device {dev_ms}), plain {plain_ms:.4f} ms, {lib_note}; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), kernel/bound {ms / bound[0]:.2f}x;"
+        f" max|err| {err:.2e} " + ("ok" if ok_p else "FAIL"))
+    del q, k, v, valid, shards, k0, v0, valid0, got, want
+    torch.cuda.empty_cache()
+    return {"shape": list(SHARD_DECODE), "shards": SHARD_SEQ,
+            "max_abs_err_vs_kernel": err_k, "max_abs_err_vs_plain": err_p,
+            "repeat": same, "sharded_ms": sh_ms, "sharded_device_ms": sh_dev,
+            "whole_ms": whole_ms, "whole_device_ms": whole_dev,
+            "whole_bound_ms": whole_bound[0],
+            "whole_bound_by": whole_bound[1],
+            "partial_row": {"shape": f"decode_32k shard (B={B}, Hkv={Hkv}, "
+                                     f"G={G}, S={S0}, D={D})",
+                            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bound[0], "bound_by": bound[1]}}
+
+
+def _greedy(model, toks):
+    """Prefill and SHARD_STEPS greedy decode steps: (every step's logits,
+    the greedy tokens)."""
+    import torch
+    with torch.no_grad():
+        logits, cache = model.prefill(toks,
+                                      cache_len=SHARD_PROMPT + SHARD_STEPS)
+        outs, nxt, picks = [logits], logits[:, -1:].argmax(-1), []
+        for _ in range(SHARD_STEPS):
+            picks.append(nxt)
+            logits, cache = model.decode_step(cache, nxt)
+            outs.append(logits)
+            nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return outs, torch.cat(picks, 1)
+
+
+def _shard_world_of_one(ctx, fails):
+    """(a) The sharded path on a world of one over NCCL: DeepSeek-V2-Lite
+    and Qwen3-8B at full width, run unsharded, then placed at
+    ``param_specs``' DTensor placements on a (1, 1) ``DeviceMesh`` under a
+    ``ShardCtx`` and run again on the same weights."""
+    import gc
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, place
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    out, launches = {}, {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        one = torch.ones(4, device="cuda")
+        dist.all_reduce(one)
+        if not bool((one == 1).all()):
+            raise AssertionError(f"the NCCL world of one summed {one}")
+        rng = np.random.default_rng(5)
+        for arch, fields in (("deepseek-v2-lite-16b",
+                              {"decode_seq_axes": ("data",)}),
+                             ("qwen3-8b", {"decode_seq_axes": ("data",)})):
+            cfg = get_config(arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model, init_s, n_params = _build_full(cfg, "shard")
+            toks = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (2, SHARD_PROMPT)), device="cuda")
+            t0 = time.perf_counter()
+            base, base_toks = _greedy(model, toks)
+            base_s = time.perf_counter() - t0
+            sctx = ShardCtx(mesh=mesh, **fields)
+            model.ctx = sctx
+            place(model, sctx)
+            names = shardings.named(mesh, shardings.param_specs(model, mesh))
+            if not all(isinstance(t, DTensor)
+                       and tuple(t.placements) == names[k]
+                       for k, t in model.named_parameters()):
+                raise AssertionError(f"{arch}: parameters not at their "
+                                     f"named placements")
+            torch.cuda.synchronize()
+            _reset_all()
+            t0 = time.perf_counter()
+            got, got_toks = _greedy(model, toks)
+            shard_s = time.perf_counter() - t0
+            counts = _lm_launches()
+            for key, n in counts.items():
+                launches[key] = launches.get(key, 0) + n
+            bitwise = (all(torch.equal(a, b) for a, b in zip(got, base))
+                       and torch.equal(got_toks, base_toks))
+            tokens_equal = bool(torch.equal(got_toks, base_toks))
+            rels = [_hold_logits("shard", f"{arch} step {i} sharded against "
+                                 f"unsharded", a, b, cfg)[0]
+                    for i, (a, b) in enumerate(zip(got, base))]
+            norms = 1 + cfg.num_layers * (2 + (2 if cfg.qk_norm else 0))
+            if cfg.kv_lora_rank:
+                norms = 3 * cfg.num_layers + 1
+            want = {"rmsnorm": norms * (1 + SHARD_STEPS),
+                    "flash_attention": cfg.num_layers, "flash_decode": 0,
+                    "flash_decode_partial": (0 if cfg.kv_lora_rank else
+                                             cfg.num_layers * SHARD_STEPS)}
+            seen = {k: counts[k] for k in want}
+            ok = tokens_equal and seen == want
+            if arch.startswith("deepseek"):
+                ok &= bitwise
+            log(f"[shard] {arch} on the NCCL world of one ({n_params / 1e9:.2f}"
+                f" B parameters, {init_s:.1f} s to draw): unsharded "
+                f"{base_s:.2f} s, sharded {shard_s:.2f} s for a prefill of "
+                f"2 x {SHARD_PROMPT} and {SHARD_STEPS} greedy steps; bit for "
+                f"bit {bitwise}, greedy tokens equal {tokens_equal}, worst "
+                f"relative L2 {max(rels):.2e}; launches {seen}, expected "
+                f"{want}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+                f" GB allocated " + ("ok" if ok else "FAIL"))
+            out[arch] = {"bitwise": bitwise, "tokens_equal": tokens_equal,
+                         "worst_rel_l2": max(rels), "launches": seen,
+                         "unsharded_s": base_s, "sharded_s": shard_s,
+                         "params": n_params,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if not ok:
+                fails.append(f"world of one {arch}")
+            del model, base, got
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["shard_launches"] = launches
+    for key in ("rmsnorm", "flash_attention", "flash_decode_partial"):
+        if launches.get(key, 0) <= 0:
+            fails.append(f"the sharded path never launched {key}")
+    return out
+
+
+def phase_shard(ctx):
+    """Sharded serving: (a) the world of one over NCCL, (b) every rank's
+    body in one process at full width, (c) the partial kernel against its
+    plain version."""
+    import torch
+    fails = []
+    with torch.no_grad():
+        world = _shard_world_of_one(ctx, fails)
+        moe_rows = _shard_moe_ranks(fails)
+        decode = _shard_decode_ranks(fails)
+        partial = _shard_partial_checks(fails)
+    ctx["shard"] = {"world_of_one": world, "moe_ranks": moe_rows,
+                    "decode": decode, "partial": partial}
+    if fails:
+        raise AssertionError(f"shard: {fails}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6707,7 +7166,8 @@ def main(argv=None):
            "trace": phase_trace, "group": phase_group,
            "straggler": phase_straggler, "paper": phase_paper,
            "cluster": phase_cluster, "sweep": phase_sweep,
-           "examples": phase_examples, "train": phase_train}
+           "examples": phase_examples, "train": phase_train,
+           "shard": phase_shard}
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
@@ -6774,6 +7234,21 @@ def main(argv=None):
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"),
             **({"launches_f32_by_path": f32} if f32 is not None else {})})
+    # the decode's partial mode, at a shard of decode_32k (S / SHARD_SEQ
+    # slots), launched by the sharded path alone
+    r = ctx.get("shard", {}).get("decode", {}).get("partial_row", {})
+    kernels.append({
+        "name": "flash_decode_partial", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention.cu",
+        "replaces": LM_KERNELS["flash_decode"][2],
+        "launches": (ctx["shard_launches"]["flash_decode_partial"]
+                     if "shard_launches" in ctx else None),
+        "launches_by_path": ({"shard": ctx["shard_launches"][
+            "flash_decode_partial"]} if "shard_launches" in ctx else {}),
+        "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+        "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
+        "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+        "library_ms": r.get("library_ms"), "shape": r.get("shape")})
     # the backward kernels of the training path, at SmolLM-360M's training
     # shapes (attention B=8, S=2048; norms 16384 x 960, bf16) and Mamba2-
     # 2.7B's layer (B=2, S=2048, bf16), each with every shape it was timed
@@ -6859,6 +7334,8 @@ def main(argv=None):
                    "port_kernels": ctx.get("port_kernels"),
                    "train": ctx.get("train"),
                    "train_launches": ctx.get("train_launches"),
+                   "shard": ctx.get("shard"),
+                   "shard_launches": ctx.get("shard_launches"),
                    "build_s": ctx.get("build_s"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

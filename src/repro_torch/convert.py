@@ -194,16 +194,31 @@ def _load(model, state: dict):
     return model
 
 
-def lm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> LM:
+def _placed(model, ctx):
+    """``model`` at ``ctx``'s placements: each rank keeps its shard of the
+    converted state (``models.place``; nothing without a context)."""
+    if ctx is None:
+        return model
+    ctx.check_local()
+    from .models import place
+    return place(model, ctx)
+
+
+def lm_from_reference(params: dict, cfg: ModelConfig, device="cuda",
+                      ctx=None) -> LM:
     """The port's :class:`LM` on ``device`` holding the weights of a JAX
-    ``LM.init`` pytree (numpy leaves)."""
-    return _load(LM(cfg, device=device), _lm_state(params, cfg))
+    ``LM.init`` pytree (numpy leaves), under the sharding context ``ctx``
+    (a ``ShardCtx``) if given."""
+    return _placed(_load(LM(cfg, device=device, ctx=ctx),
+                         _lm_state(params, cfg)), ctx)
 
 
-def vlm_from_reference(params: dict, cfg: ModelConfig, device="cuda") -> VLM:
+def vlm_from_reference(params: dict, cfg: ModelConfig, device="cuda",
+                       ctx=None) -> VLM:
     """The port's :class:`VLM` on ``device`` holding the weights of a JAX
-    ``VLM.init`` pytree (its LM backbone's)."""
-    return _load(VLM(cfg, device=device), _lm_state(params, cfg, "lm."))
+    ``VLM.init`` pytree (its LM backbone's), under ``ctx`` if given."""
+    return _placed(_load(VLM(cfg, device=device, ctx=ctx),
+                         _lm_state(params, cfg, "lm.")), ctx)
 
 
 def _encdec_state(params: dict, cfg: ModelConfig) -> dict:
@@ -237,14 +252,19 @@ def _model_state(tree: dict, cfg: ModelConfig) -> dict:
     return _lm_state(tree, cfg, "lm." if cfg.num_patches else "")
 
 
-def model_from_reference(params: dict, cfg: ModelConfig, device="cuda"):
+def model_from_reference(params: dict, cfg: ModelConfig, device="cuda",
+                         ctx=None):
     """The port's model (LM, EncDec or VLM, by ``cfg``) on ``device``
-    holding a JAX model's weights (numpy leaves)."""
+    holding a JAX model's weights (numpy leaves); ``ctx`` as in
+    :func:`lm_from_reference` (not for the encoder-decoder)."""
     if cfg.is_encoder_decoder:
+        if ctx is not None:
+            raise NotImplementedError("the encoder-decoder takes no "
+                                      "sharding context")
         return encdec_from_reference(params, cfg, device=device)
     if cfg.num_patches:
-        return vlm_from_reference(params, cfg, device=device)
-    return lm_from_reference(params, cfg, device=device)
+        return vlm_from_reference(params, cfg, device=device, ctx=ctx)
+    return lm_from_reference(params, cfg, device=device, ctx=ctx)
 
 
 def train_state_from_reference(state, cfg: ModelConfig, device="cuda"):

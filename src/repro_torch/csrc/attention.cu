@@ -100,6 +100,10 @@
 //     writes its float32 partial (m, l, acc) and fd_combine_kernel merges
 //     the splits in split order. A split with no valid slot has m = -1e30
 //     and l = 0 and weighs 0; a row with no valid slot anywhere gives 0.
+//   * the partial mode (flash_decode_partial_launch, a sequence shard's
+//     part of a sharded decode) runs the same two kernels and writes the
+//     merged float32 (m, l, acc) instead of acc / l: m in natural-log
+//     units (-1e30 where no slot was valid), l and acc unnormalized.
 #include <cuda.h>
 
 #include "dtype.cuh"
@@ -904,7 +908,9 @@ constexpr int FD_SLOTS = 4;  // slots per lane group per tile
 
 struct FdArgs {
   const unsigned char* valid;  // (S,)
-  void* o;                     // (B, Hkv, G, D), splits == 1
+  void* o;                     // (B, Hkv, G, D), the normalized output
+  float* out_acc;              // (B, Hkv, G, D), partial mode (o unused)
+  float* out_ml;               // (B, Hkv, G, 2): m (natural log), l
   float* part_acc;             // (B, Hkv, splits, G, D), splits > 1
   float* part_ml;              // (B, Hkv, splits, G, 2): m, l
   int Hkv, G, S, D;
@@ -939,6 +945,25 @@ __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& c,
 // whose max is M: 0 for a state that saw no valid slot.
 __device__ __forceinline__ float state_weight(float m, float M) {
   return m <= NEG_INF * 0.5f ? 0.f : ex2(m - M);
+}
+
+// element idx (row g = idx / D) of a (b, kv head)'s merged state (M in
+// log2 units, L, A): acc / l, or in the partial mode (m, l, acc)
+template <typename T>
+__device__ __forceinline__ void fd_store(const FdArgs& a, long long bh,
+                                         int idx, int g, float M, float L,
+                                         float A) {
+  if (a.out_acc == nullptr) {
+    static_cast<T*>(a.o)[bh * a.G * a.D + idx] =
+        from_f32<T>(A / fmaxf(L, 1e-30f));
+    return;
+  }
+  a.out_acc[bh * a.G * a.D + idx] = A;
+  if (idx == g * a.D) {
+    const long long row = bh * a.G + g;
+    a.out_ml[row * 2] = M <= NEG_INF * 0.5f ? NEG_INF : M * LN2;
+    a.out_ml[row * 2 + 1] = L;
+  }
 }
 
 // GMAX: the most query rows per group; NCH: 16-byte chunks per lane
@@ -1177,8 +1202,7 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       A += wt * red[w * a.G * a.D + idx];
     }
     if (a.splits == 1) {
-      static_cast<T*>(a.o)[bh * a.G * a.D + idx] =
-          from_f32<T>(A / fmaxf(L, 1e-30f));
+      fd_store<T>(a, bh, idx, g, M, L, A);
     } else {
       const long long row = (bh * a.splits + sp) * a.G + g;
       a.part_acc[row * a.D + (idx - g * a.D)] = A;
@@ -1207,8 +1231,7 @@ fd_combine_kernel(FdArgs a) {
       L += wt * a.part_ml[row * 2 + 1];
       A += wt * a.part_acc[row * a.D + d];
     }
-    static_cast<T*>(a.o)[bh * a.G * a.D + idx] =
-        from_f32<T>(A / fmaxf(L, 1e-30f));
+    fd_store<T>(a, bh, idx, g, M, L, A);
   }
 }
 
@@ -2577,26 +2600,30 @@ extern "C" int flash_attention_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// q: (B, Hkv, G, D), k, v: (B, Hkv, S, D), o: (B, Hkv, G, D), all
-// contiguous with 16-byte aligned bases and rows (D * element size a
-// multiple of 16); valid: (S,) bytes (torch.bool); G <= 16, D <= 256.
-// part: B * Hkv * splits * G * (D + 2) floats of scratch when splits > 1;
-// split s covers slots [s * split_len, min(S, (s + 1) * split_len)).
-// Returns cudaGetLastError().
-extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
-                                   const void* v, const void* valid, void* o,
-                                   void* part, int B, int Hkv, int G, int S,
-                                   int D, int splits, int split_len,
-                                   float scale, void* stream) {
+// q: (B, Hkv, G, D), k, v: (B, Hkv, S, D), all contiguous with 16-byte
+// aligned bases and rows (D * element size a multiple of 16); valid: (S,)
+// bytes (torch.bool); G <= 16, D <= 256. part: B * Hkv * splits * G *
+// (D + 2) floats of scratch when splits > 1; split s covers slots
+// [s * split_len, min(S, (s + 1) * split_len)). Writes o (B, Hkv, G, D) in
+// the input dtype, or, with o null, out_acc (B, Hkv, G, D) and out_ml
+// (B, Hkv, G, 2) float32 (the partial mode). Returns cudaGetLastError().
+static int flash_decode_run(int dtype, const void* q, const void* k,
+                            const void* v, const void* valid, void* o,
+                            float* out_acc, float* out_ml, void* part, int B,
+                            int Hkv, int G, int S, int D, int splits,
+                            int split_len, float scale, void* stream) {
   const int esize = dtype == DT_F32 ? 4 : 2;
   if (B <= 0 || Hkv <= 0 || G <= 0 || G > 16 || S <= 0 || D <= 0 ||
       D > 256 || (D * esize) % 16 || B > 65535 || Hkv > 65535 ||
       splits <= 0 || split_len <= 0 ||
-      (long long)splits * split_len < S || (splits > 1 && part == nullptr))
+      (long long)splits * split_len < S || (splits > 1 && part == nullptr) ||
+      (o == nullptr && (out_acc == nullptr || out_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.valid = static_cast<const unsigned char*>(valid);
   a.o = o;
+  a.out_acc = o == nullptr ? out_acc : nullptr;
+  a.out_ml = o == nullptr ? out_ml : nullptr;
   const long long rows = (long long)B * Hkv * splits * G;
   a.part_acc = static_cast<float*>(part);
   a.part_ml = a.part_acc == nullptr ? nullptr : a.part_acc + rows * D;
@@ -2613,6 +2640,30 @@ extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
   if (dtype == DT_F32) return decode<float>(q, k, v, a, B, s);
   if (dtype == DT_BF16) return decode<__nv_bfloat16>(q, k, v, a, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// flash_decode_run writing the normalized o.
+extern "C" int flash_decode_launch(int dtype, const void* q, const void* k,
+                                   const void* v, const void* valid, void* o,
+                                   void* part, int B, int Hkv, int G, int S,
+                                   int D, int splits, int split_len,
+                                   float scale, void* stream) {
+  return flash_decode_run(dtype, q, k, v, valid, o, nullptr, nullptr, part,
+                          B, Hkv, G, S, D, splits, split_len, scale, stream);
+}
+
+// The partial mode of flash_decode_launch: the same kernels over the same
+// arguments, writing out_acc (B, Hkv, G, D) and out_ml (B, Hkv, G, 2)
+// float32 (m in natural-log units, -1e30 for a row with no valid slot; l;
+// acc unnormalized) instead of o.
+extern "C" int flash_decode_partial_launch(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* valid, float* out_acc, float* out_ml, void* part, int B,
+    int Hkv, int G, int S, int D, int splits, int split_len, float scale,
+    void* stream) {
+  return flash_decode_run(dtype, q, k, v, valid, nullptr, out_acc, out_ml,
+                          part, B, Hkv, G, S, D, splits, split_len, scale,
+                          stream);
 }
 
 // Floats of the scratch that flash_attention_bwd_launch takes as `delta`:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "model_device", "seeded_generator"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -22,3 +22,19 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {str(dev)!r}")
     return dev
+
+
+def model_device(device) -> torch.device:
+    """:func:`resolve_device` for a model's weights, which may also be
+    ``"meta"``: shapes without storage (the sharding specs of a full-size
+    model)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
+def seeded_generator(dev: torch.device, seed: int) -> torch.Generator:
+    """The generator a model's weights are drawn from on ``dev`` (on the
+    CPU for ``"meta"``, whose draws are never made)."""
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
+    return gen

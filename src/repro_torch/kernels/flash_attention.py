@@ -108,6 +108,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci,
                                         ci, ci, ci, ci, ci, cf, vp]
     lib.flash_decode_launch.restype = ci
+    lib.flash_decode_partial_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp,
+                                                vp, ci, ci, ci, ci, ci, ci,
+                                                ci, cf, vp]
+    lib.flash_decode_partial_launch.restype = ci
     lib.flash_attention_bwd_launch.argtypes = ([ci] + [vp] * 10 + [ci] * 7
                                                + [vp, ci, ci, cf, vp])
     lib.flash_attention_bwd_launch.restype = ci

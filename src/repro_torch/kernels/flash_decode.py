@@ -21,7 +21,9 @@ element size a multiple of 16), G <= ``MAX_GROUP`` and D <= ``MAX_HEAD_DIM``,
 and live in the library of ``kernels/flash_attention.py``. ``LAUNCHES``
 counts calls of the wrapper that launched (one per call, whether it ran
 one kernel or the split kernel and its combine), so a decode step counts
-one launch per layer. The kernels have no backward: on a CUDA tensor
+one launch per layer; :func:`flash_decode_partial`, the partial mode of
+a sequence-sharded decode, counts under its own key. The kernels have no
+backward: on a CUDA tensor
 that needs a gradient (grad mode on) the call raises rather than return an
 output with no autograd node.
 """
@@ -33,7 +35,8 @@ from . import _cuda
 from . import flash_attention as _fa
 from . import ref
 
-__all__ = ["flash_decode", "decode_splits", "LAUNCHES", "reset_launches",
+__all__ = ["flash_decode", "flash_decode_partial", "decode_splits",
+           "LAUNCHES", "reset_launches",
            "MAX_GROUP", "MAX_HEAD_DIM", "MAX_GROUP_WIDTH", "MIN_SPLIT"]
 
 MAX_GROUP = 16           # query rows per kv head (the kernel's registers)
@@ -42,14 +45,15 @@ MAX_GROUP_WIDTH = MAX_GROUP * MAX_HEAD_DIM   # G * D
 MIN_SPLIT = 256          # the fewest cache slots worth a split of its own
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"flash_decode": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_partial": 0}
 # SM count per CUDA device index, read once: decode_splits needs it on
 # every call, and the property lookup costs more host time than the launch
 _SM_COUNT: dict = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_decode"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _check_args(q, k, v, valid):
@@ -82,17 +86,12 @@ def decode_splits(B: int, Hkv: int, S: int, sm_count: int):
     return -(-S // split_len), split_len
 
 
-def flash_decode(q, k, v, valid, *, sm_scale=None):
-    """q: (B, Hkv, G, D); k, v: (B, Hkv, S, D); valid: (S,) bool ->
-    (B, Hkv, G, D) in q's dtype. A group with no valid slot gives 0."""
-    _check_args(q, k, v, valid)
-    if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, valid, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _cuda.forbid_grad("flash_decode", q, k, v,
-                      why="training never decodes; ROADMAP.md section 3, "
-                          "item 27")
+def _launch(q, k, v, valid, sm_scale, partial: bool):
+    """Checks the kernels' terms and launches them on CUDA tensors: the
+    output, or with ``partial`` the (m, l, acc) float32 partial."""
+    _cuda.forbid_grad("flash_decode_partial" if partial else "flash_decode",
+                      q, k, v, why="training never decodes; ROADMAP.md "
+                                   "section 3, item 27")
     B, Hkv, G, D = q.shape
     S = k.shape[2]
     if G > MAX_GROUP or D > MAX_HEAD_DIM:
@@ -109,8 +108,15 @@ def flash_decode(q, k, v, valid, *, sm_scale=None):
         raise ValueError("the kernel takes q, k and v at 16-byte aligned "
                          "addresses")
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
+    if partial:
+        acc = torch.empty((B, Hkv, G, D), dtype=torch.float32,
+                          device=q.device)
+        ml = torch.empty((B, Hkv, G, 2), dtype=torch.float32,
+                         device=q.device)
+        out = (ml[..., :1], ml[..., 1:], acc)
+    else:
+        out = torch.empty_like(q)
+    if q.numel() == 0:
         return out
     dev = q.device.index
     if dev not in _SM_COUNT:
@@ -121,11 +127,51 @@ def flash_decode(q, k, v, valid, *, sm_scale=None):
     part = (torch.empty(B * Hkv * splits * G * (D + 2), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fa.build().flash_decode_launch(
-        _cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        valid.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, B, Hkv, G, S, D,
-        splits, split_len, float(scale), stream)
-    _cuda.check(err, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
+    lib = _fa.build()
+    ptrs = (_cuda.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            valid.data_ptr())
+    tail = (part.data_ptr() if part is not None else None, B, Hkv, G, S, D,
+            splits, split_len, float(scale), stream)
+    if partial:
+        err = lib.flash_decode_partial_launch(*ptrs, acc.data_ptr(),
+                                              ml.data_ptr(), *tail)
+        _cuda.check(err, "flash_decode_partial")
+        LAUNCHES["flash_decode_partial"] += 1
+    else:
+        err = lib.flash_decode_launch(*ptrs, out.data_ptr(), *tail)
+        _cuda.check(err, "flash_decode")
+        LAUNCHES["flash_decode"] += 1
     return out
+
+
+def flash_decode(q, k, v, valid, *, sm_scale=None):
+    """q: (B, Hkv, G, D); k, v: (B, Hkv, S, D); valid: (S,) bool ->
+    (B, Hkv, G, D) in q's dtype. A group with no valid slot gives 0."""
+    _check_args(q, k, v, valid)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, valid, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, k, v, valid, sm_scale, partial=False)
+
+
+def flash_decode_partial(q, k, v, valid, *, sm_scale=None):
+    """The partial mode: a sequence shard's part of a sharded decode.
+
+    Arguments as in :func:`flash_decode` (the shard's cache slots and
+    their mask) -> ``(m, l, acc)`` float32, m and l (B, Hkv, G, 1), acc
+    (B, Hkv, G, D): m the max of the valid logits in natural-log units
+    (-1e30 where no slot is valid), l the sum of exp(s - m) and acc the
+    sum of exp(s - m) v (0 and 0 where none is valid). The split kernel
+    runs over the shard's slots as in :func:`flash_decode`, and the
+    combine kernel merges its splits in split order and writes (m, l, acc)
+    instead of acc / l; the raw split partials are never returned. Its
+    plain version (a CPU tensor) is ``ref.decode_attention_partial_ref``.
+    ``LAUNCHES["flash_decode_partial"]`` counts it."""
+    _check_args(q, k, v, valid)
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial_ref(q, k, v, valid,
+                                                sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, k, v, valid, sm_scale, partial=True)

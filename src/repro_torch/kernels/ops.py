@@ -58,7 +58,8 @@ from . import rmsnorm as _rn
 from . import ssd_scan as _ssd
 
 __all__ = ["frontier_moments", "frontier_moments_with_grads",
-           "plain_moments", "attention", "decode_attention", "rmsnorm",
+           "plain_moments", "attention", "decode_attention",
+           "decode_attention_partial", "rmsnorm",
            "ssd"]
 
 
@@ -275,6 +276,13 @@ def decode_attention(q, k_cache, v_cache, valid, *, sm_scale=None):
     """Single-token attention over a KV cache. q: (B, Hkv, G, D); caches:
     (B, Hkv, S, D); valid: (S,) bool."""
     return _fd.flash_decode(q, k_cache, v_cache, valid, sm_scale=sm_scale)
+
+
+def decode_attention_partial(q, k_cache, v_cache, valid, *, sm_scale=None):
+    """A sequence shard's float32 (m, l, acc) of :func:`decode_attention`
+    (``flash_decode.flash_decode_partial``)."""
+    return _fd.flash_decode_partial(q, k_cache, v_cache, valid,
+                                    sm_scale=sm_scale)
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):

@@ -50,7 +50,7 @@ __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
            "rmsnorm_ref", "decode_attention_ref",
            "flash_attention_bf16p_ref", "decode_attention_split_ref",
-           "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
+           "decode_attention_partial_ref", "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
            "flash_attention_bwd_ref", "ssd_chunked_bwd_ref", "tf32_round",
            "tf32_trunc", "split_einsum",
            "ssd_bwd_increments_ref", "ssd_bwd_scan_ref",
@@ -508,6 +508,30 @@ def decode_attention_split_ref(q, k_cache, v_cache, valid, splits: int,
     if return_partials:
         return out, (torch.stack(ms), torch.stack(ls), torch.stack(accs))
     return out
+
+
+def decode_attention_partial_ref(q, k_cache, v_cache, valid,
+                                 splits: int = 1, sm_scale=None):
+    """The partial mode of the flash-decode kernels (plain version): the
+    float32 (m, l, acc) of :func:`decode_attention_split_ref`'s ``splits``
+    ranges merged in split order. m (B, Hkv, G, 1) is the max of the valid
+    logits (-1e30 where none is valid), l (B, Hkv, G, 1) the sum of
+    exp(s - m) and acc (B, Hkv, G, D) the sum of exp(s - m) v (0 and 0
+    where none is valid); acc / max(l, 1e-30) is the decode's output."""
+    _, (ms, ls, accs) = decode_attention_split_ref(
+        q, k_cache, v_cache, valid, splits, sm_scale=sm_scale,
+        return_partials=True)
+    M = ms[0]
+    for m in ms[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(accs[0])
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                        torch.exp(m - M))
+        L = L + w * l
+        A = A + w * acc
+    return M, L, A
 
 
 def ssd_scan_ref(x, dt, A, Bm, Cm, D_skip=None):

@@ -10,16 +10,19 @@ no device and no process group.
 device is a ``torch.distributed.device_mesh.DeviceMesh`` and needs the
 default process group (the caller's ``init_process_group``); a world of 1
 needs no launcher: :func:`make_local_mesh` returns a :class:`LocalMesh`
-with the same interface and no process group. The partitioned train step
-reads the pod axis through :func:`axis_size`, :func:`axis_rank` and
-:func:`axis_group` on either kind.
+with the same interface and no process group, and :class:`MeshShape` is a
+mesh of any shape with no devices at all (the spec rules of
+``launch/shardings.py`` read only names and sizes). The partitioned train
+step and the sharded serving path read the axes through :func:`axis_size`,
+:func:`axis_rank` and :func:`axis_group` on any kind: an axis of size 1
+has rank 0 and no group, so its collectives are skipped.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
 
-__all__ = ["LocalMesh", "make_local_mesh", "make_mesh",
+__all__ = ["LocalMesh", "MeshShape", "make_local_mesh", "make_mesh",
            "make_production_mesh", "batch_axes", "axis_size", "axis_rank",
            "axis_group"]
 
@@ -35,6 +38,15 @@ class LocalMesh:
     @property
     def shape(self) -> Tuple[int, ...]:
         return (1,) * len(self.mesh_dim_names)
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes with no devices behind them: the
+    production meshes' shapes for the spec rules, in tests and planning."""
+
+    mesh_dim_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
 
 
 def make_local_mesh(axes: Tuple[str, ...] = ("data", "model")) -> LocalMesh:
@@ -64,8 +76,10 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 
-def axis_size(mesh, axis: str) -> int:
-    return mesh.shape[tuple(mesh.mesh_dim_names).index(axis)]
+def axis_size(mesh, axis) -> int:
+    """The size of ``axis``; 1 for None or an axis the mesh lacks."""
+    names = tuple(mesh.mesh_dim_names)
+    return mesh.shape[names.index(axis)] if axis in names else 1
 
 
 def axis_rank(mesh, axis: str) -> int:

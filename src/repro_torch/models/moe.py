@@ -1,27 +1,38 @@
-"""Top-k mixture of experts on one device: route, dispatch, expert FFNs,
-combine.
+"""Top-k mixture of experts: route, dispatch, expert FFNs, combine, with
+expert parallelism folded into the tensor-parallel axis (the JAX
+package's ``models/moe.py``).
 
-This is the JAX package's one-shard body (``_local_moe`` with ``tp=1``):
-its expert-parallel ``shard_map`` and the FSDP gather of the expert banks
-wait for ``torch.distributed`` (ROADMAP §1 item 12b). Every decision matches
-the reference's:
+:func:`moe_body` is the reference's per-rank body (``_local_moe``): rank r
+of ``tp`` owns experts ``[r E / tp, (r + 1) E / tp)``, routes all its
+tokens, sends the copies bound for other ranks' experts to a trash bin and
+returns its partial. :func:`moe_apply` is the thin collective wrapper
+(the reference's ``shard_map``): it gathers the rank's expert slab over
+the FSDP axis, splits the tokens over the batch and FSDP axes where they
+divide them (otherwise every rank routes all tokens), sums the partials
+over the TP group with one ``all_reduce`` and gathers the token split
+back. Capacity is counted over the rank's own tokens, as in the
+reference, so a split over "data" changes which copies are dropped.
+:func:`moe_ranks` runs every rank's body in one process and sums the
+partials in rank order. With ``tp = 1`` and no split the body is the
+one-device MoE. Every decision matches the reference's:
 
 * the router stays float32 and the logits are ``x.float() @ router``;
   softmax, top-k, then the k weights renormalized to sum to 1;
 * top-k breaks ties toward the lower expert index, as ``jax.lax.top_k``
   does: it takes the first k of a stable descending sort; the k weights'
   sum runs in expert-rank order, as XLA sums a short axis;
-* the (token, expert) copies, token-major, are sorted stably by expert;
-  each expert keeps its first ``cap = max(int(T k capacity_factor / E),
-  1)`` copies and sends the rest to a trash slot;
-* dispatch is one gather into the ``(E, cap, d)`` buffer, the experts are
-  batched matmuls, and the combine gathers each token's k slots and takes
-  their weighted sum. No scatter-add: on the card ``index_add_`` adds with
-  atomics in no fixed order, and serving must repeat its bits
+* the (token, expert) copies, token-major, are sorted stably by the
+  rank's local expert (other ranks' experts are the trash bin ``E /
+  tp``); each expert keeps its first ``cap = max(int(T k capacity_factor
+  / E), 1)`` copies and sends the rest to a trash slot;
+* dispatch is one gather into the ``(E / tp, cap, d)`` buffer, the experts
+  are batched matmuls, and the combine gathers each token's k slots and
+  takes their weighted sum. No scatter-add: on the card ``index_add_``
+  adds with atomics in no fixed order, and serving must repeat its bits
   (ROADMAP, Determinism).
 
 The shared experts (DeepSeek) run densely on every token and are added
-last.
+last, after the partials are summed.
 """
 from __future__ import annotations
 
@@ -33,9 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..launch import shardings
 from .layers import dense_init, dtype_of, param, wide
 
-__all__ = ["moe_init", "moe_apply", "route", "Routing"]
+__all__ = ["moe_init", "moe_apply", "moe_body", "moe_ranks", "route",
+           "Routing", "capacity"]
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator,
@@ -60,10 +73,10 @@ class Routing(NamedTuple):
     """One layer's routing decisions over T tokens and E experts.
 
     ``top_e`` (T, k) experts and ``top_w`` (T, k) renormalized weights,
-    token-major; ``order`` (T k,) the stable sort of the copies by expert;
-    ``keep`` and ``slot`` (T k,) in that sorted order: a kept copy's slot
-    is ``expert * cap + rank within its expert``, a dropped copy's is the
-    trash slot ``E * cap``."""
+    token-major; ``order`` (T k,) the stable sort of the copies by the
+    rank's local expert; ``keep`` and ``slot`` (T k,) in that sorted
+    order: a kept copy's slot is ``local expert * cap + rank within its
+    expert``, a dropped copy's is the trash slot ``(E / tp) * cap``."""
     top_e: torch.Tensor
     top_w: torch.Tensor
     order: torch.Tensor
@@ -76,15 +89,22 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return max(int(T * cfg.top_k * cfg.capacity_factor / cfg.num_experts), 1)
 
 
-def route(probs, k: int, cap: int) -> Routing:
-    """The decisions of ``probs`` (T, E) float32 router probabilities."""
+def route(probs, k: int, cap: int, tp: int = 1, rank: int = 0) -> Routing:
+    """The decisions of ``probs`` (T, E) float32 router probabilities for
+    rank ``rank`` of ``tp``: its experts are ``[rank E / tp, (rank + 1) E
+    / tp)``, numbered from 0 in ``slot``; the copies bound elsewhere are
+    never kept."""
     T, E = probs.shape
+    e_loc = E // tp
     w_sorted, e_sorted = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
     top_w, top_e = w_sorted[:, :k], e_sorted[:, :k]
     # the k weights summed in order, as XLA sums a short axis
     top_w = top_w / functools.reduce(torch.add, top_w.unbind(-1))[:, None]
     flat_e = top_e.reshape(-1)
+    if tp > 1:   # other ranks' experts go to the trash bin e_loc
+        flat_e = torch.where(flat_e // e_loc == rank, flat_e - rank * e_loc,
+                             e_loc)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
     # rank of each copy within its expert: its place in the sorted list
@@ -92,7 +112,9 @@ def route(probs, k: int, cap: int) -> Routing:
     pos_in_e = (torch.arange(T * k, device=probs.device)
                 - torch.searchsorted(se, se))
     keep = pos_in_e < cap
-    slot = torch.where(keep, se * cap + pos_in_e, E * cap)
+    if tp > 1:
+        keep &= se < e_loc
+    slot = torch.where(keep, se * cap + pos_in_e, e_loc * cap)
     return Routing(top_e, top_w, order, keep, slot)
 
 
@@ -102,14 +124,18 @@ def _expert_ffn(x, up, gate, down):
     return torch.bmm(h, down)
 
 
-def _local_moe(p, x, cfg: ModelConfig):
-    """x: (T, d) -> (T, d) through the routed experts."""
+def moe_body(x, router, up, gate, down, cfg: ModelConfig, tp: int = 1,
+             rank: int = 0):
+    """Rank ``rank``'s partial: x (T, d), its local tokens; ``up``,
+    ``gate`` (E / tp, d, ff) and ``down`` (E / tp, ff, d), its whole
+    expert slab -> (T, d) in x's dtype, the sum over its experts only."""
     T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
+    e_loc = E // tp
     cap = capacity(cfg, T)
-    probs = torch.softmax(x.to(p["router"].dtype) @ p["router"], dim=-1)
-    r = route(probs, k, cap)
-    nslots = E * cap
+    probs = torch.softmax(x.to(router.dtype) @ router, dim=-1)
+    r = route(probs, k, cap, tp, rank)
+    nslots = e_loc * cap
     flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
     # dispatch: the token of each slot (the trash slot's is never read)
     slot_token = torch.zeros(nslots + 1, dtype=torch.long, device=x.device)
@@ -117,8 +143,7 @@ def _local_moe(p, x, cfg: ModelConfig):
     slot_valid = torch.zeros(nslots + 1, dtype=torch.bool, device=x.device)
     slot_valid[r.slot] = r.keep
     xbuf = x[slot_token[:-1]] * slot_valid[:-1, None].to(x.dtype)
-    h = _expert_ffn(xbuf.reshape(E, cap, d), p["moe_up"], p["moe_gate"],
-                    p["moe_down"])
+    h = _expert_ffn(xbuf.reshape(e_loc, cap, d), up, gate, down)
     h_ext = torch.cat([h.reshape(nslots, d), h.new_zeros((1, d))], 0)
     # combine: each token's k slots (dropped copies read the zero row)
     # and their weights, back in token-major order
@@ -132,13 +157,85 @@ def _local_moe(p, x, cfg: ModelConfig):
     return y.to(x.dtype)
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (B, S, d)."""
+def _local_moe(p, x, cfg: ModelConfig):
+    """x: (T, d) -> (T, d) through all the routed experts (one rank)."""
+    return moe_body(x, p["router"], p["moe_up"], p["moe_gate"],
+                    p["moe_down"], cfg)
+
+
+def _shared(p, xt, y, cfg: ModelConfig):
+    if not cfg.num_shared_experts:
+        return y
+    u = xt @ p["shared_up"]
+    g = xt @ p["shared_gate"]
+    return y + (F.silu(g) * u) @ p["shared_down"]
+
+
+def _token_split(ctx, T: int):
+    """(axis, count, rank) of the split of T local tokens over the FSDP
+    axis on top of the batch axes (the reference's ``xspec``), or None
+    when that axis has size 1, is a batch axis already, or does not
+    divide T (every rank then routes all of them)."""
+    fa = ctx.fsdp_axis
+    n = ctx.size(fa)
+    if n == 1 or fa in ctx.batch_axes or T % n:
+        return None
+    return fa, n, ctx.rank(fa)
+
+
+def moe_apply(p, x, cfg: ModelConfig, ctx=None):
+    """x: (B, S, d) -> (B, S, d). ``p``'s expert banks may be DTensors at
+    ``launch.shardings`` placements (the rest are plain tensors); ``ctx``
+    (a ``ShardCtx``, None = one device) names the TP and FSDP axes. x
+    holds this rank's rows of the batch (its shard over the batch axes)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    y = _local_moe(p, xt, cfg)
-    if cfg.num_shared_experts:
-        u = xt @ p["shared_up"]
-        g = xt @ p["shared_gate"]
-        y = y + (F.silu(g) * u) @ p["shared_down"]
-    return y.reshape(B, S, d)
+    tp_axis = ctx.tp_axis if ctx is not None else None
+    tp = ctx.size(tp_axis) if ctx is not None else 1
+    if cfg.num_experts % tp:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"{tp} ranks of {tp_axis!r}")
+    rank = ctx.rank(tp_axis) if tp > 1 else 0
+    # the rank's expert slab, gathered over FSDP (dims 1, 1 and 2)
+    ep = ((tp_axis,), None, None)
+    slab = [shardings.gather(p[k], ep)
+            for k in ("moe_up", "moe_gate", "moe_down")]
+    split = _token_split(ctx, B * S) if ctx is not None else None
+    xs = xt
+    if split is not None:
+        axis, n, r = split
+        xs = xt.narrow(0, r * (B * S // n), B * S // n)
+    y = moe_body(xs, p["router"], *slab, cfg, tp, rank)
+    if tp > 1:
+        import torch.distributed as dist
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ctx.group(tp_axis))
+    if split is not None:
+        y = shardings.gather_dim(y, 0, ctx.mesh, axis)
+    return _shared(p, xt, y, cfg).reshape(B, S, d)
+
+
+def moe_ranks(p, x, cfg: ModelConfig, *, tp: int, data: int = 1):
+    """Every rank's body of a (data, tp) mesh in one process: x (B, S, d)
+    with the batch replicated over "data" (``ShardCtx(batch_axes=())``),
+    p's expert banks whole. The tokens split over "data" where it divides
+    them (as :func:`moe_apply` splits them over FSDP); each split's tp
+    partials are summed in rank order, in x's dtype, as an ``all_reduce``
+    of two ranks sums them."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    T = B * S
+    n = data if T % data == 0 else 1
+    E = cfg.num_experts
+    e_loc = E // tp
+    ys = []
+    for dr in range(n):
+        xs = xt.narrow(0, dr * (T // n), T // n)
+        y = None
+        for r in range(tp):
+            part = moe_body(xs, p["router"],
+                            *(p[k][r * e_loc:(r + 1) * e_loc]
+                              for k in ("moe_up", "moe_gate", "moe_down")),
+                            cfg, tp, r)
+            y = part if y is None else y + part
+        ys.append(y)
+    return _shared(p, xt, torch.cat(ys, 0), cfg).reshape(B, S, d)

@@ -12,9 +12,24 @@ position i, ``off`` being 1 with a first dense layer and 0 without. Each
 repeat's P layers are one unit, and with ``cfg.remat`` a differentiated
 :meth:`LM.apply` recomputes each unit in its backward
 (``models/remat.py``), as the reference's ``jax.checkpoint`` around its
-scan body does. :class:`ShardCtx` carries the reference's sharding context (the
-mesh and the batch axes); on a world of size 1 it changes no computation,
-and a model that would shard over it waits for ROADMAP §1 item 12b.
+scan body does.
+
+:class:`ShardCtx` carries the reference's sharding context. With a
+``DeviceMesh`` ``build_model`` puts the parameters at
+``launch.shardings.param_specs``' DTensor placements, and the model serves
+as the reference's partitioned program does (``prefill``, ``apply``
+without a gradient, ``decode_step``): each rank computes its rows of the
+batch (its shard over ``batch_axes``), each layer gathers its non-expert
+weights to full before it computes and drops them after, the MoE is
+expert-parallel over the TP axis (``models/moe.py``), and a cache whose
+sequence is sharded (``decode_seq_axes``) decodes through each shard's
+partial and a log-sum-exp combine (``models/attention.py``). Cache
+entries sit at ``cache_specs``' placements: a layer gathers its entry to
+the layout it computes in before the step and keeps its own shard of the
+update. The entry points take and return global tensors (tokens, logits),
+the same on every rank. At a world of 1 every axis has size 1, no
+collective runs, and the model computes exactly what it computes without
+a context.
 
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
 for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
@@ -37,7 +52,9 @@ import torch
 from torch import nn
 
 from ..configs.base import LayerSpec, ModelConfig
-from ..device import resolve_device
+from ..device import model_device, seeded_generator
+from ..launch import mesh as mesh_lib
+from ..launch import shardings
 from . import attention as attn
 from . import mla
 from . import moe
@@ -49,30 +66,89 @@ from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
 __all__ = ["LM", "Block", "ShardCtx"]
 
 
+# the axis each field of a ShardCtx may shard over when it has more than
+# one device: the serving model shards over "data" and "model"; the pod
+# axis belongs to the partitioned train step
+_WIDE_AXES = {"batch_axes": "data", "decode_seq_axes": "data",
+              "tp_axis": "model", "fsdp_axis": "data"}
+
+
 @dataclass(frozen=True)
 class ShardCtx:
-    """The sharding context of the JAX package's models (None = local):
-    a mesh (``launch.mesh``) and its batch axes. The port runs the model
-    on one device: the batch axes and the reference's model-parallel axes
-    (``"model"`` for TP, ``"data"`` for FSDP) must have size 1, so the
-    context changes no computation; a larger one raises (ROADMAP §1 item
-    12b). The pod axis belongs to the partitioned train step, not the
-    model."""
+    """The sharding context of the JAX package's models (``mesh=None``:
+    local): a ``launch.mesh`` mesh, the axes that shard the batch, the TP
+    (``"model"``: experts) and FSDP (``"data"``: weights, expert banks)
+    axes, and ``decode_seq_axes``, the axes that shard a long cache's
+    sequence in decode. The reference's ``seq_axis`` and ``manual_extra``
+    only steer XLA's partitioner and have no counterpart here.
+
+    The reference's dry run shards the cache's sequence only when the
+    batch is too small to shard (``batch_axes=()``), and the batch over
+    "data" otherwise; a context that shards both over one axis raises
+    (ROADMAP §3 item 32). A differentiated forward on a mesh with more
+    than one device raises: training through the collectives is ROADMAP
+    §1 item 12e."""
 
     mesh: Any = None
     batch_axes: Tuple[str, ...] = ()
+    tp_axis: Optional[str] = "model"
+    fsdp_axis: Optional[str] = "data"
+    decode_seq_axes: Optional[Tuple[str, ...]] = None
+
+    def size(self, axis) -> int:
+        return 1 if self.mesh is None else mesh_lib.axis_size(self.mesh, axis)
+
+    def rank(self, axis) -> int:
+        return 0 if self.size(axis) == 1 else mesh_lib.axis_rank(self.mesh,
+                                                                 axis)
+
+    def group(self, axis):
+        """The process group of ``axis``; None at size 1 (no collective)."""
+        return None if self.size(axis) == 1 else mesh_lib.axis_group(
+            self.mesh, axis)
+
+    def wide(self, axes) -> Optional[str]:
+        """The one axis of ``axes`` with more than one device, or None."""
+        wide = [a for a in (axes or ()) if self.size(a) > 1]
+        return wide[0] if wide else None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a mesh axis the model reads has more than one device."""
+        return any(self.size(a) > 1 for a in (
+            *self.batch_axes, *(self.decode_seq_axes or ()), self.tp_axis,
+            self.fsdp_axis))
 
     def check_local(self) -> None:
+        """Raises on a context the port does not run (see the class)."""
         if self.mesh is None:
             return
-        names = tuple(self.mesh.mesh_dim_names)
-        for axis in (*self.batch_axes, "model", "data"):
-            if axis in names and self.mesh.shape[names.index(axis)] > 1:
-                raise ValueError(
-                    f"mesh axis {axis!r} has size "
-                    f"{self.mesh.shape[names.index(axis)]}: the port's model "
-                    f"runs on one device per pod; sharded placements wait "
-                    f"for ROADMAP.md section 1, item 12b")
+        fields = {"batch_axes": self.batch_axes,
+                  "decode_seq_axes": self.decode_seq_axes or (),
+                  "tp_axis": (self.tp_axis,) if self.tp_axis else (),
+                  "fsdp_axis": (self.fsdp_axis,) if self.fsdp_axis else ()}
+        for field, axes in fields.items():
+            for axis in axes:
+                if self.size(axis) > 1 and axis != _WIDE_AXES[field]:
+                    raise ValueError(
+                        f"{field} {axes}: axis {axis!r} has size "
+                        f"{self.size(axis)}; the serving model shards "
+                        f"{field} over {_WIDE_AXES[field]!r} only (the pod "
+                        f"axis belongs to the partitioned train step)")
+        shared = set(self.batch_axes) & set(self.decode_seq_axes or ())
+        if shared:
+            raise ValueError(
+                f"batch_axes and decode_seq_axes share {sorted(shared)}: the "
+                f"port shards a cache's sequence only with batch_axes=() (a "
+                f"batch too small to shard), as the reference's dry run "
+                f"does; ROADMAP.md section 3, item 32")
+
+    def check_grad(self, needs_grad: bool) -> None:
+        if needs_grad and self.sharded:
+            raise NotImplementedError(
+                "a differentiated forward on a mesh with more than one "
+                "device: training through the expert-parallel all_reduce "
+                "and the FSDP gathers is ROADMAP.md section 1, item 12e")
 
 
 def _place_seq(entry, cache_len: int, seq_axis: int):
@@ -124,19 +200,36 @@ class Block(nn.Module):
             self.mlp = _MLPS[spec.mlp](cfg, generator, device)
 
 
+# the MoE's expert banks: handed to moe_apply at their placements, which
+# gathers them over FSDP only (the rank keeps its experts)
+_BANKS = ("moe_up", "moe_gate", "moe_down")
+
+
+def _gathered(p: dict) -> dict:
+    """A layer's parameters (``remat.unit_params``) to compute with: each
+    DTensor all-gathered to full, the expert banks as they are."""
+    return {k: (_gathered(v) if isinstance(v, dict)
+                else v if k in _BANKS else shardings.gather(v))
+            for k, v in p.items()}
+
+
 class LM(nn.Module):
-    """Decoder-only LM with its weights, on one device.
+    """Decoder-only LM with its weights.
 
     ``seed`` seeds the ``torch.Generator`` (on ``device``) that draws the
-    weights; ``device`` defaults to the card and raises without one.
+    weights; ``device`` defaults to the card and raises without one
+    (``"meta"`` gives the shapes alone). ``ctx`` is the sharding context
+    (:class:`ShardCtx`); ``build_model`` puts the weights at its
+    placements.
     """
 
-    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0,
+                 ctx: Optional[ShardCtx] = None):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        dev = model_device(device)
+        gen = seeded_generator(dev, seed)
         self.cfg = cfg
+        self.ctx = ctx or ShardCtx()
         self.embed = embed_init(cfg, gen, dev)
         self.final_norm = param(rmsnorm_init(cfg.d_model,
                                              dtype_of(cfg.param_dtype), dev))
@@ -151,13 +244,84 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    @property
+    def _placed(self) -> bool:
+        """Whether the weights and caches sit at DTensor placements."""
+        return shardings.is_device_mesh(self.ctx.mesh)
+
+    # ------------------------------------------------------ sharding helpers
+    def _params(self, blk: Block) -> dict:
+        """``blk``'s parameters to compute with (:func:`_gathered`)."""
+        p = remat.unit_params(blk)
+        return _gathered(p) if self._placed else p
+
+    def _top(self):
+        """The embedding table, the head and the final norm, gathered
+        (the module's own off a ``DeviceMesh``)."""
+        if not self._placed:
+            return self.embed, self.final_norm
+        return ({k: shardings.gather(self.embed[k])
+                 for k in ("embedding", "head")},
+                shardings.gather(self.final_norm))
+
+    def _check_grad(self, *inputs) -> None:
+        if self.ctx.sharded:
+            self.ctx.check_grad(torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (*inputs, *self.parameters())))
+
+    def _rows(self, t):
+        """This rank's rows of a global batch (its block over the batch
+        axes)."""
+        if t is None or not self.ctx.batch_axes:
+            return t
+        return shardings.local_shard(t, self.ctx.mesh,
+                                     (tuple(self.ctx.batch_axes),))
+
+    def _unrows(self, t):
+        """The global batch of every rank's rows ``t``."""
+        if not self.ctx.batch_axes:
+            return t
+        return shardings.gather_dim(t, 0, self.ctx.mesh,
+                                    tuple(self.ctx.batch_axes))
+
+    def _layout(self, name: str, seq_kept: bool):
+        """The spec of the layout a layer computes a cache entry in: its
+        rows of the batch, every head, and in decode its own sequence shard
+        of an attention cache (an MLA latent is gathered whole)."""
+        b = tuple(self.ctx.batch_axes) or None
+        seq = (tuple(self.ctx.decode_seq_axes)
+               if self.ctx.decode_seq_axes and seq_kept else None)
+        return {"k": (b, None, seq, None), "v": (b, None, seq, None),
+                "c": (b, None, None), "rope": (b, None, None),
+                "ssm": (b, None, None, None), "conv": (b, None, None),
+                "slot_pos": (seq,)}[name]
+
+    def _store(self, entry: dict, seq_kept: bool) -> dict:
+        """A cache entry computed in :meth:`_layout` at its ``cache_specs``
+        placements (unchanged off a ``DeviceMesh``)."""
+        if not self._placed:
+            return entry
+        ctx, out = self.ctx, {}
+        for name, t in entry.items():
+            have = self._layout(name, seq_kept)
+            shape = list(t.shape)
+            for d, axes in enumerate(have):
+                for a in shardings.spec_axes(axes):
+                    shape[d] *= ctx.size(a)
+            spec = shardings.cache_specs(
+                {name: torch.empty(shape, device="meta")}, ctx.mesh,
+                self.cfg, seq_axes=ctx.decode_seq_axes, tp=ctx.tp_axis)[name]
+            out[name] = shardings.distribute(t, ctx.mesh, spec, have)
+        return out
+
     # ------------------------------------------------------------- forward
     def _mlp_part(self, spec: LayerSpec, ln2, mlp, x):
         if spec.mlp == "none":
             return x
         h2 = rms_norm(x, ln2, self.cfg.norm_eps)
         if spec.mlp == "moe":
-            return x + moe.moe_apply(mlp, h2, self.cfg)
+            return x + moe.moe_apply(mlp, h2, self.cfg, self.ctx)
         return x + mlp_apply(mlp, h2, self.cfg.mlp_act)
 
     def _layer_apply(self, spec: LayerSpec, p, x, positions,
@@ -188,8 +352,8 @@ class LM(nn.Module):
 
     def _block_apply(self, blk: Block, x, positions, collect: bool = False):
         """One layer on the weights ``blk`` holds now."""
-        return self._layer_apply(blk.spec, remat.unit_params(blk), x,
-                                 positions, collect)
+        return self._layer_apply(blk.spec, self._params(blk), x, positions,
+                                 collect)
 
     def _unit(self, x, params, positions):
         """One repeat of the pattern (the reference's scan body) on its
@@ -201,8 +365,11 @@ class LM(nn.Module):
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def _embed(self, tokens, extra_embeds):
-        x = embed_lookup(self.embed, tokens, self.cfg)
+    def _embed(self, tokens, extra_embeds, emb=None):
+        """Token embeddings (``emb``: the gathered table, else the
+        module's) with ``extra_embeds`` prepended."""
+        x = embed_lookup(self.embed if emb is None else emb, tokens,
+                         self.cfg)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return x
@@ -216,7 +383,9 @@ class LM(nn.Module):
         ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings.
         Each unit runs under ``remat.checkpointed`` (``cfg.remat``)."""
         cfg = self.cfg
-        x = self._embed(tokens, extra_embeds)
+        self._check_grad(extra_embeds)
+        emb, final_norm = self._top()
+        x = self._embed(self._rows(tokens), self._rows(extra_embeds), emb)
         positions = self._positions(*x.shape[:2])
         layers = list(self.layers)
         if cfg.first_layer_dense:
@@ -224,15 +393,17 @@ class LM(nn.Module):
         P, policy = cfg.pattern_len, cfg.remat_policy if cfg.remat else None
         for i in range(0, len(layers), P):
             # gathered here, inside functional_call: the state's tensors
-            params = [remat.unit_params(blk) for blk in layers[i:i + P]]
+            params = [self._params(blk) for blk in layers[i:i + P]]
             x = remat.checkpointed(self._unit, x, params, positions,
                                    policy=policy)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return lm_head(self.embed, x, cfg)
+        x = rms_norm(x, final_norm, cfg.norm_eps)
+        return self._unrows(lm_head(emb, x, cfg))
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, dtype=None) -> dict:
-        """Empty cache sized for ``cache_len`` slots (SWA archs: pass window)."""
+        """Empty cache sized for ``cache_len`` slots (SWA archs: pass
+        window), at ``cache_specs``' placements under a context on a
+        ``DeviceMesh`` (``batch`` is the global batch)."""
         cfg = self.cfg
         dt = dtype or dtype_of(cfg.activation_dtype)
         kv = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
@@ -249,30 +420,64 @@ class LM(nn.Module):
                         "rope": zeros(batch, cache_len, cfg.qk_rope_head_dim)}
             return {"k": zeros(*kv), "v": zeros(*kv)}
 
-        return {"layers": [one(blk) for blk in self.layers],
-                "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
-                                       device=self.device),
-                "pos": 0}
+        cache = {"layers": [one(blk) for blk in self.layers],
+                 "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                                        device=self.device),
+                 "pos": 0}
+        if not self._placed:
+            return cache
+        ctx = self.ctx
+        return shardings.place_cache(cache, ctx.mesh, shardings.cache_specs(
+            cache, ctx.mesh, cfg, seq_axes=ctx.decode_seq_axes,
+            tp=ctx.tp_axis))
 
-    def _block_decode(self, blk: Block, c: dict, x, slot_pos, pos: int,
-                      slot: int):
+    def _seq_route(self):
+        """(sharded, group) of the sequence-sharded decode: whether
+        attention decodes through each shard's partial, and the group
+        that combines them (None at size 1)."""
+        ctx = self.ctx
+        if not ctx.decode_seq_axes or ctx.mesh is None:
+            return False, None
+        return True, ctx.group(ctx.wide(ctx.decode_seq_axes))
+
+    def _block_decode(self, blk: Block, c: dict, x, slot_pos, local_sp,
+                      pos: int, slot: int, lslot: Optional[int], route):
+        """One layer's decode step. ``slot_pos`` is the cache's stored
+        slot table and ``local_sp`` this rank's shard of it (the table
+        itself unless ``decode_seq_axes`` shards it), ``slot`` the token's
+        slot, ``lslot`` its index in this rank's sequence shard (None where
+        another shard holds it) and ``route`` :meth:`_seq_route`'s."""
         cfg = self.cfg
-        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        if self._placed:
+            p = _gathered(remat.unit_params(blk))
+            ln1, mixer, ln2, mlp = p["ln1"], p["mixer"], p.get("ln2"), \
+                p.get("mlp")
+            keep = {k: self._layout(k, True) for k in c}
+            ce = {k: shardings.gather(v, keep[k]) for k, v in c.items()}
+        else:   # the block's own modules: no per-step gathering
+            ln1, mixer = blk.ln1, blk.mixer
+            ln2, mlp = getattr(blk, "ln2", None), getattr(blk, "mlp", None)
+            keep, ce = None, c
+        h = rms_norm(x, ln1, cfg.norm_eps)
         if blk.spec.mixer == "mamba":
-            m, _ = ssm.mamba_decode(blk.mixer, h, cfg, c["ssm"], c["conv"])
+            m, _ = ssm.mamba_decode(mixer, h, cfg, ce["ssm"], ce["conv"])
         elif blk.spec.mixer == "mla":
-            cl, kr = mla.latent(blk.mixer, h, cfg,
+            cl, kr = mla.latent(mixer, h, cfg,
                                 torch.full((x.shape[0], 1), pos,
                                            device=x.device))
-            c["c"][:, slot] = cl[:, 0].to(c["c"].dtype)
-            c["rope"][:, slot] = kr[:, 0, 0].to(c["rope"].dtype)
-            m = mla.mla_decode(blk.mixer, h, cfg, c["c"], c["rope"],
-                               slot_pos, pos)
+            # the latent is gathered over the sequence: the global slot
+            ce["c"][:, slot] = cl[:, 0].to(ce["c"].dtype)
+            ce["rope"][:, slot] = kr[:, 0, 0].to(ce["rope"].dtype)
+            m = mla.mla_decode(mixer, h, cfg, ce["c"], ce["rope"],
+                               shardings.gather(slot_pos), pos)
         else:
-            m = attn.attn_decode_step(blk.mixer, h, cfg, c, slot_pos, pos,
-                                      slot)
-        return self._mlp_part(blk.spec, getattr(blk, "ln2", None),
-                              getattr(blk, "mlp", None), x + m)
+            m = attn.attn_decode_step(mixer, h, cfg, ce, local_sp, pos, lslot,
+                                      seq_sharded=route[0],
+                                      seq_group=route[1])
+        if keep:
+            for k in c:
+                shardings.write_back(c[k], ce[k], keep[k])
+        return self._mlp_part(blk.spec, ln2, mlp, x + m)
 
     def decode_step(self, cache: dict, tokens):
         """One decode step. tokens: (B, 1). Returns (logits (B, 1, V),
@@ -286,12 +491,21 @@ class LM(nn.Module):
             # full attention: append (caller sizes the cache; clamp is a guard)
             slot = min(pos, cache_len - 1)
         slot_pos = cache["slot_pos"]
-        slot_pos[slot] = pos
-        x = embed_lookup(self.embed, tokens, cfg)
+        local_sp = _local(slot_pos)
+        # the token's index in this rank's sequence shard of the cache
+        n = local_sp.shape[0]
+        first = self.ctx.rank(self.ctx.wide(self.ctx.decode_seq_axes)) * n
+        lslot = slot - first if first <= slot < first + n else None
+        if lslot is not None:
+            local_sp[lslot] = pos
+        emb, final_norm = self._top()
+        x = embed_lookup(emb, self._rows(tokens), cfg)
+        route = self._seq_route()
         for blk, c in zip(self.layers, cache["layers"]):
-            x = self._block_decode(blk, c, x, slot_pos, pos, slot)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = lm_head(self.embed, x, cfg)
+            x = self._block_decode(blk, c, x, slot_pos, local_sp, pos, slot,
+                                   lslot, route)
+        x = rms_norm(x, final_norm, cfg.norm_eps)
+        logits = self._unrows(lm_head(emb, x, cfg))
         cache["pos"] = pos + 1
         return logits, cache
 
@@ -299,7 +513,9 @@ class LM(nn.Module):
                 extra_embeds=None):
         """Forward pass that also builds a decode-ready cache in one pass;
         ``extra_embeds`` as in :meth:`apply`."""
-        x = self._embed(tokens, extra_embeds)
+        self._check_grad(extra_embeds)
+        emb, final_norm = self._top()
+        x = self._embed(self._rows(tokens), self._rows(extra_embeds), emb)
         B, S = x.shape[:2]
         cache_len = cache_len or S
         positions = self._positions(B, S)
@@ -312,10 +528,17 @@ class LM(nn.Module):
             if axis is not None:
                 entry = {k: _place_seq(v, cache_len, axis)
                          for k, v in entry.items()}
-            layers.append(entry)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        logits = lm_head(self.embed, x, self.cfg)
+            layers.append(self._store(entry, False))
+        x = rms_norm(x, final_norm, self.cfg.norm_eps)
+        logits = self._unrows(lm_head(emb, x, self.cfg))
+        slot_pos = _prefill_slot_pos(S, cache_len, self.device)
         cache = {"layers": layers,
-                 "slot_pos": _prefill_slot_pos(S, cache_len, self.device),
+                 "slot_pos": self._store({"slot_pos": slot_pos},
+                                         False)["slot_pos"],
                  "pos": S}
         return logits, cache
+
+
+def _local(t):
+    """The tensor a DTensor holds on this rank (a plain tensor as it is)."""
+    return t.to_local() if hasattr(t, "to_local") else t

@@ -21,12 +21,13 @@ __all__ = ["VLM"]
 class VLM(nn.Module):
     """The backbone is ``self.lm`` (state-dict names ``lm.*``)."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0,
+                 ctx=None):
         super().__init__()
         if cfg.num_patches <= 0:
             raise ValueError(f"{cfg.name} has no patches: serve it as an LM")
         self.cfg = cfg
-        self.lm = LM(cfg, device=device, seed=seed)
+        self.lm = LM(cfg, device=device, seed=seed, ctx=ctx)
 
     @property
     def device(self) -> torch.device:

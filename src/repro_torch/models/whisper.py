@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..device import resolve_device
+from ..device import model_device, seeded_generator
 from . import attention as attn
 from . import remat
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
@@ -98,9 +98,8 @@ class EncDec(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        dev = model_device(device)
+        gen = seeded_generator(dev, seed)
         dt = dtype_of(cfg.param_dtype)
         self.cfg = cfg
         self.embed = embed_init(cfg, gen, dev)
