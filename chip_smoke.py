@@ -350,9 +350,14 @@ Phases, in order:
    tokens/s, peak memory, then one step under torch.profiler: device time
    by part, busy share, each backward kernel's device time a step and a
    launch (dK/dV, dQ, D_i, the norm's dx pass and dw sum), the AdamW
-   update alone); a Trainer killed after
-   step 5 and restored from its checkpoint, whose step 6 must be bitwise
-   the uninterrupted run's (loss and every parameter); and
+   update alone, and beside it the dry run's count of the same step on
+   one chip: its compute and memory terms at the datasheet rates, their
+   bound, ``model_flops``, the measured device time as a multiple of the
+   bound, and the count's peak beside ``max_memory_allocated``, as after
+   every arch's profiled step below); a Trainer killed after
+   step TRAIN_KILL_AT (3) and restored from its checkpoint, whose next
+   step must be bitwise the uninterrupted run's (loss and every
+   parameter); and
    ``bench.train_partitioned --full-360m`` for 20 steps (the example's
    assertion that the loss falls; the simulated join's mean, variance and
    p99, the final split; every kernel's launches held to the count worked
@@ -384,16 +389,16 @@ Phases, in order:
    on its own input
    and a seeded
    cotangent (its input's and its parameters', relative L2 < 0.1), then
-   12 steps through ``launch.train`` with every model kernel's launches
-   counted from zero and held to the count the code makes (128 ``ssd_scan``
-   and 64 ``ssd_scan_bwd`` a Mamba2 step), the loss falling, step ms,
+   ARCH_STEPS (10) steps through ``launch.train`` with every model
+   kernel's launches counted from zero and held to the count the code
+   makes (128 ``ssd_scan`` and 64 ``ssd_scan_bwd`` a Mamba2 step), the loss falling, step ms,
    tokens/s and peak memory, then one step under torch.profiler (device
    time by part, as SmolLM-360M's). Last the tiny Jamba (float32) one step on the
    card against the same weights on the CPU: loss 1e-3 relative and every
    gradient leaf at relative L2 5e-2 (a miss is reported with each layer's
    reading, ROADMAP.md section 3), launches counted.
 
-27. ``shard`` — sharded serving. (a) A world of one over NCCL
+27. ``shard`` — sharded serving and training. (a) A world of one over NCCL
    (``init_process_group("nccl", world_size=1)`` on a free local port, a
    (1, 1) ``DeviceMesh`` of ("data", "model"); one ``all_reduce`` must
    answer): DeepSeek-V2-Lite-16B at full width (27 layers, 64 experts top
@@ -423,7 +428,18 @@ Phases, in order:
    float32 (one split, several, G 16, decode_32k's shard, a shard with no
    valid slot, one whose valid logits are all below -100), twice: m
    absolutely, l relatively, acc relative to l and acc / l at the float32
-   tolerance.
+   tolerance. (d) Training on the NCCL world of one (``SHARD_TRAIN``):
+   SmolLM-360M at full width (B 8 x 2048) and DeepSeek-V2-Lite cut to
+   1 + 3 layers (B 2 x 2048) each take SHARD_TRAIN_STEPS ``Trainer``
+   steps unplaced, then placed on the (1, 1) ``DeviceMesh`` (``ShardCtx``
+   with ``batch_axes=("data",)``, parameters and AdamW's moments
+   DTensors) from the same seed and batches: losses, every parameter and
+   every moment bit for bit, each run's launches counted from zero and
+   held to the code's count. (e) DeepSeek-V2-Lite's MoE layer's gradient
+   (x and every weight) at full width, every rank's body in one process
+   at (data, model) = (1, 2) and (2, 2), against the unsharded layer's
+   gradient on each data shard's tokens (relative L2 < MOE_HOLD in bf16),
+   twice with its bits repeated.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -454,10 +470,11 @@ model kernel's sums the serving paths that ran (``serve``, ``ssmserve``,
 ``moeserve``, ``zoo``: its kernel paths, ``examples``, ``train``: the
 SmolLM Trainer's 12 steps and the partitioned trainer's 20, which also
 count in the frontier kernels' ``train`` path, the remat holds' steps, the
-Mamba2, DeepSeek, danube and Whisper Trainers' 12 steps each and the tiny
-Jamba's step, and ``shard``: the world of one's sharded runs; ``train``
-alone in the three backward kernels' lines, each with its timed shapes as
-``instances``, and ``shard`` alone in ``flash_decode_partial``'s);
+Mamba2, DeepSeek, danube and Whisper Trainers' 10 steps each and the tiny
+Jamba's step, and ``shard``: the world of one's sharded serving and
+training runs; ``train`` and ``shard`` in the three backward kernels'
+lines, each with its timed shapes as ``instances``, and ``shard`` alone in
+``flash_decode_partial``'s);
 ``compose_grads`` sums ``dag``, ``wfloop``, ``chaos``, ``trace`` and ``examples``,
 ``family_score`` ``cluster`` and ``examples``. Details go to ``chiprun_out/``.
 """
@@ -483,12 +500,23 @@ PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
 # nvcc defines of the float32-sum variant of csrc/frontier_grid.cu
 ACC32 = ("FG_ACC=float",)
 
-# H100 SXM peaks (NVIDIA data sheet; 1.98 GHz boost): device memory, FP32
-# outside the tensor cores, and the special function units (16 results per
-# clock per SM on compute capability 9.0, x 132 SMs).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# The card's rates, every one from src/repro_torch/launch/roofline.py's
+# table (the H100 SXM data sheet): device memory, FP32 outside the tensor
+# cores, the special function units, the tensor cores in bf16, TF32 and
+# float32 as split operands; the kernels' FLOP and byte formulas come from
+# the same module. Run without its checkout, the script has none and
+# main() refuses.
+sys.path.insert(0, os.path.join(HERE, "src"))
+try:
+    from repro_torch.launch import roofline as RL
+except ImportError:
+    RL = None
+HBM_BYTES_PER_S = getattr(RL, "HBM_BYTES_PER_S", None)
+FP32_OPS_PER_S = getattr(RL, "FP32_OPS_PER_S", None)
+SFU_OPS_PER_S = getattr(RL, "SFU_OPS_PER_S", None)
+BF16_OPS_PER_S = getattr(RL, "BF16_OPS_PER_S", None)
+TF32_OPS_PER_S = getattr(RL, "TF32_OPS_PER_S", None)
+F32_SPLIT_OPS_PER_S = getattr(RL, "F32_SPLIT_OPS_PER_S", None)
 
 # Work per CDF evaluation C_k(t_j), counted from csrc/frontier_grid.cu.
 # Pass 1 (every mode): erf and log are the special functions; the z-score,
@@ -1128,18 +1156,14 @@ MODEL_TOL = dict(atol=2e-4, rtol=2e-3)
 # (item 23); each of its layers is held on its own input
 TINY_E2E_MAMBA = 2
 
-BF16_OPS_PER_S = 989e12
-# the H100 SXM's dense TF32 tensor-core rate (NVIDIA data sheet). Float32
-# attention on the tensor cores takes each float32 product as three
-# products of split operands: the kernels split into TF32 (a third of this
-# rate), but two bf16 planes meet the float32 tolerance too
+# Float32 attention on the tensor cores takes each float32 product as
+# three products of split operands: the kernels split into TF32 (a third of
+# TF32_OPS_PER_S), but two bf16 planes meet the float32 tolerance too
 # (tests/test_torch_attention_numerics.py::
 # test_split_bf16_attention_holds_float32) at a third of the bf16 rate,
 # the fastest split that does. So the float32 attention bound takes the
-# operations at BF16_OPS_PER_S / 3; the split-TF32 figure and the CUDA-core
-# one (FP32_OPS_PER_S) are logged beside it
-TF32_OPS_PER_S = 494.7e12
-F32_SPLIT_OPS_PER_S = BF16_OPS_PER_S / 3
+# operations at F32_SPLIT_OPS_PER_S (BF16_OPS_PER_S / 3); the split-TF32
+# figure and the CUDA-core one (FP32_OPS_PER_S) are logged beside it
 
 # Qwen3-8B's serving path: 5 batches of 64 prompts of 16 tokens, max_new 8,
 # split across two replica groups (about 32 prompts each)
@@ -2296,8 +2320,8 @@ def phase_lmtick(ctx):
                       ("serving prefill_32k B=1", 1, 32768)):
         Hq, Hkv, D = 32, 8, 128
         q, k, v = _attn_inputs(("", B, Hq, Hkv, S, S, D, True, None), bf, 90)
-        nbytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
-        flops = 4 * B * Hq * S * S * D / 2       # causal
+        flops, nbytes = RL.attention_work(B, Hq, Hkv, S, S, D, D, True,
+                                          None, 2)
         tick("flash_attention", f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, S={S})",
              lambda: ops.attention(q, k, v, causal=True),
              lambda: ref.flash_attention_ref(q, k, v, causal=True),
@@ -2313,14 +2337,14 @@ def phase_lmtick(ctx):
                       ("serving decode_32k B=32", 32, 32768)):
         Hkv, G, D = 8, 4, 128
         q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S), bf, 91)
-        nbytes = 2 * (2 * B * Hkv * G * D + 2 * B * Hkv * S * D) + S
+        flops, nbytes = RL.decode_work(B, Hkv, G, S, D, 2)
         tick("flash_decode", f"{tag} (B={B}, Hkv={Hkv}, G={G}, S={S})",
              lambda: ops.decode_attention(q, k, v, valid),
              lambda: ref.decode_attention_ref(q, k, v, valid),
              lambda: F.scaled_dot_product_attention(
                  q.reshape(B, Hkv * G, 1, D), k, v,
                  attn_mask=valid[None, None, None, :], enable_gqa=True),
-             _roof(nbytes, 4 * B * Hkv * G * S * D / BF16_OPS_PER_S),
+             _roof(nbytes, flops / BF16_OPS_PER_S),
              plain_bytes=4 * 2 * B * Hkv * S * D, check=tag != "path",
              device_time=tag == "path")
         del q, k, v
@@ -2344,9 +2368,8 @@ def phase_lmtick(ctx):
         k = _randn(g, (B, Hkv, Sk, D), bf)
         v = _randn(g, (B, Hkv, Sk, Dv), bf)
         scale = D ** -0.5
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-        nbytes = 2 * (B * Hq * Sq * (D + Dv) + B * Hkv * Sk * (D + Dv))
-        flops = 2 * B * Hq * pairs * (D + Dv)
+        flops, nbytes = RL.attention_work(B, Hq, Hkv, Sq, Sk, D, Dv, causal,
+                                          None, 2)
         tick("flash_attention", f"{tag} (B={B}, Hq={Hq}, Hkv={Hkv}, "
              f"Sq={Sq}, Sk={Sk}, D={D}, Dv={Dv})",
              lambda: ops.attention(q, k, v, causal=causal, sm_scale=scale),
@@ -2371,8 +2394,8 @@ def phase_lmtick(ctx):
             ("float32 d192 window 256 ragged", 2, 8, 2, 1000, 192, 256)):
         q, k, v = _attn_inputs(("", B, Hq, Hkv, S, S, D, True, window),
                                torch.float32, 97)
-        nbytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
-        flops = 4 * B * Hq * _attn_pairs(S, S, True, window) * D
+        flops, nbytes = RL.attention_work(B, Hq, Hkv, S, S, D, D, True,
+                                          window, 4)
         mask = (None if window is None
                 else ref.attention_mask(S, S, True, window, q.device))
 
@@ -2426,7 +2449,7 @@ def phase_lmtick(ctx):
             ("zoo qwen3-moe decode", 2, 4, 16, 23, 128),
             ("zoo internvl2-76b decode", 2, 8, 8, 279, 128)):
         q, k, v, valid = _decode_inputs(("", B, Hkv, G, S, D, S), bf, 96)
-        nbytes = 2 * (2 * B * Hkv * G * D + 2 * B * Hkv * S * D) + S
+        flops, nbytes = RL.decode_work(B, Hkv, G, S, D, 2)
         tick("flash_decode", f"{tag} (B={B}, Hkv={Hkv}, G={G}, S={S}, "
              f"D={D})",
              lambda: ops.decode_attention(q, k, v, valid),
@@ -2434,7 +2457,7 @@ def phase_lmtick(ctx):
              lambda: F.scaled_dot_product_attention(
                  q.reshape(B, Hkv * G, 1, D), k, v,
                  attn_mask=valid[None, None, None, :], enable_gqa=True),
-             _roof(nbytes, 4 * B * Hkv * G * S * D / BF16_OPS_PER_S),
+             _roof(nbytes, flops / BF16_OPS_PER_S),
              plain_bytes=4 * 2 * B * Hkv * S * D, check=True,
              device_time=True)
         del q, k, v
@@ -2459,7 +2482,8 @@ def phase_lmtick(ctx):
              lambda: ops.rmsnorm(x, w, eps=1e-6),
              lambda: ref.rmsnorm_ref(x, w, eps=1e-6),
              lambda: F.rms_norm(x, (D,), w, 1e-6),
-             _roof(2 * (2 * R * D + D), 4 * R * D / FP32_OPS_PER_S),
+             _roof(RL.rmsnorm_work(R, D, 2)[1],
+                   RL.rmsnorm_work(R, D, 2)[0] / FP32_OPS_PER_S),
              plain_bytes=4 * 3 * R * D, check=True, device_time=True,
              reps=21 if tag.startswith("path") else 7,
              per_pair=1 if tag.startswith("path") else 10)
@@ -2746,17 +2770,9 @@ def _ssd_blocks(B, H, P, N, groups):
 
 def _ssd_work(B, S, H, P, G, N, chunk):
     """(bytes, seconds of operations) of one bf16 SSD scan with its final
-    state: each input read once (x, B, C bf16; dt, A, D float32), y (bf16)
-    and the state (float32) written once; per chunk of l rows and head,
-    l (l + 1) / 2 (N + P) + 2 l N P multiply-adds over the causal half, at
-    the bf16 tensor-core rate."""
-    nbytes = (2 * B * S * H * P + 4 * B * S * H + 2 * 2 * B * S * G * N
-              + 4 * 2 * H + 2 * B * S * H * P + 4 * B * H * P * N)
-    L = min(chunk, S)
-    full, tail = divmod(S, L)
-    mads = sum(n * l * (l + 1) // 2 * (N + P) + n * 2 * l * N * P
-               for n, l in ((full, L), (1 if tail else 0, tail)))
-    return nbytes, 2 * B * H * mads / BF16_OPS_PER_S
+    state (``launch.roofline.ssd_work``) at the bf16 tensor-core rate."""
+    flops, nbytes = RL.ssd_work(B, S, H, P, G, N, chunk, 2)
+    return nbytes, flops / BF16_OPS_PER_S
 
 
 # ------------------------------------------------------------- workflow DAG
@@ -5228,7 +5244,7 @@ def phase_examples(ctx):
 TRAIN_ARCH = "smollm-360m"
 TRAIN_B, TRAIN_S = 8, 2048
 TRAIN_STEPS = 12            # the Trainer's timed run
-TRAIN_KILL_AT = 5           # the checkpoint the restored Trainer resumes from
+TRAIN_KILL_AT = 3           # the checkpoint the restored Trainer resumes from
 PART_STEPS = 20             # bench.train_partitioned --full-360m
 # the full-width first step through the kernels against the plain ops:
 # the loss (relative) and every gradient leaf (relative L2)
@@ -5308,9 +5324,10 @@ BWD_SSD_CASES = (
 # the kernels' distance from the float32 plain path at most
 # TRAIN_WITNESS_RATIO times the bf16 plain path's own, at the worst leaf
 # and at the median), and at 2 layers in bf16 at the tolerances. The
-# Trainer runs keep
-# the first step and 11 more, at a learning rate under which the loss
-# falls in 12 steps from a random start.
+# Trainer runs take ARCH_STEPS steps (they took 12 before the shard
+# phase's training and the train phase's counts took their time; the
+# loss-falling check's windows of 5 stay disjoint), at a learning rate
+# under which the loss falls from a random start.
 # Since PR 29 every arch trains under its config's remat ("full", the
 # reference's default), and two more archs train at full width:
 # h2o-danube-1.8b whole (24 layers) on B 2 x 8192, so its 4096 window acts
@@ -5318,16 +5335,17 @@ BWD_SSD_CASES = (
 # B 8 x 448 target tokens and 1500 stub frames, each held end to end at 2
 # layers (2 + 2 for Whisper) in bf16.
 DS_MOE_LAYERS = 3
+ARCH_STEPS = 10
 TRAIN_ARCHS = (
     ("mamba2-2.7b", None, 2, 2048,
      ((2, "bfloat16", "plain"), (8, "float32", "plain"),
-      (8, "bfloat16", "witness")), 12, 3e-3),
+      (8, "bfloat16", "witness")), ARCH_STEPS, 3e-3),
     ("deepseek-v2-lite-16b", 1 + DS_MOE_LAYERS, 2, 2048,
-     ((2, "bfloat16", "plain"),), 12, 1e-3),
-    ("h2o-danube-1.8b", None, 2, 8192, ((2, "bfloat16", "plain"),), 12,
-     1e-3),
-    ("whisper-large-v3", None, 8, 448, ((2, "bfloat16", "plain"),), 12,
-     1e-3))
+     ((2, "bfloat16", "plain"),), ARCH_STEPS, 1e-3),
+    ("h2o-danube-1.8b", None, 2, 8192, ((2, "bfloat16", "plain"),),
+     ARCH_STEPS, 1e-3),
+    ("whisper-large-v3", None, 8, 448, ((2, "bfloat16", "plain"),),
+     ARCH_STEPS, 1e-3))
 # the arch whose step is also tried once without remat, the measure of
 # what remat buys: (arch, B, S, lr)
 NO_REMAT_TRY = ("h2o-danube-1.8b", 2, 8192, 1e-3)
@@ -5427,14 +5445,6 @@ def _plain_train_ops():
         finally:
             ops.attention, ops.rmsnorm, ops.ssd = saved
     return swapped()
-
-
-def _attn_pairs(Sq, Sk, causal, window):
-    """Live (query, key) pairs of one head under the masks."""
-    if not causal:
-        return Sq * Sk
-    w = window if window is not None else Sk
-    return sum(min(q + 1, w) for q in range(Sq))
 
 
 def _bwd_attn_case(case, fails):
@@ -5548,16 +5558,10 @@ def _bwd_attn_case(case, fails):
                f"{busy / mha_dev:.2f}x expanded"
                if busy and lib_dev and mha_dev else ""))
         del ym, xl
-    pairs = B * Hq * _attn_pairs(Sq, Sk, causal, window)
-    # the five products: S and dK, dQ over D; dP and dV over Dv
-    ops_ = 2 * pairs * (3 * D + 2 * Dv)
     esize = 2 if dt == torch.bfloat16 else 4
-    nbytes = esize * (B * Hq * Sq * (D + 2 * Dv)          # q, dO, o
-                      + B * Hkv * Sk * (D + Dv)           # k, v
-                      + B * Hq * Sq * D                   # dq
-                      + B * Hkv * Sk * (D + Dv)) \
-        + 4 * B * Hq * Sq                                 # lse
-    peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_SPLIT_OPS_PER_S
+    ops_, nbytes = RL.attention_bwd_work(B, Hq, Hkv, Sq, Sk, D, Dv, causal,
+                                         window, esize)
+    peak = RL.tensor_peak(esize)
     bound_ms, by = _roof(nbytes, ops_ / peak)
     cuda_core_ms = (None if dt == torch.bfloat16
                     else _roof(nbytes, ops_ / FP32_OPS_PER_S)[0])
@@ -5641,8 +5645,8 @@ def _bwd_norm_case(case, fails):
     lib_bwd = _time_cuda(lib_call, reps=5, per_pair=10)
     lib_dev = _device_ms(lib_call, reps=10)
     esize = x.element_size()
-    nbytes = esize * (3 * rows * D + 2 * D)
-    bound_ms, by = _roof(nbytes, 10 * rows * D / FP32_OPS_PER_S)
+    ops_, nbytes = RL.rmsnorm_bwd_work(rows, D, esize)
+    bound_ms, by = _roof(nbytes, ops_ / FP32_OPS_PER_S)
     log(f"[train] rmsnorm_bwd {rows} x {D} {dts}: rel L2 dx {rel[0]:.2e} dw "
         f"{rel[1]:.2e} (tol {tol:g}), max|err| {err:.2e}, bits repeat "
         f"{same}; {ms:.4f} ms (device "
@@ -5661,25 +5665,15 @@ def _bwd_norm_case(case, fails):
 
 def _ssd_bwd_work(B, S, H, P, G, N, L, esize, peak=None):
     """(bytes, seconds of operations) of one SSD backward call computed in
-    chunks of L rows: each input read once (x, B, C, dy in the storage type;
-    dt, A, D float32) and each gradient written once; per chunk and head,
-    over the causal half of the L x L products, L^2 (3 N / 2 + P)
-    multiply-adds (the scores C.B and dy.x, the intra-chunk dx, dB and dC)
-    and 5 L P N (the recomputed state, dx's and dB's terms from dS, C's from
-    S, the dS update), at ``peak``, by default the card's rate for the
-    route the kernels take: the bf16 tensor-core rate for bf16 inputs
-    (float32 sums), and for float32 ones the rate of their split bf16
-    planes on the same tensor cores (F32_SPLIT_OPS_PER_S, as the float32
-    attention bound). The work a row grows with L, so the bound takes
-    L = min(chunk, S, SSD_BOUND_CHUNK)."""
-    nbytes = (esize * (3 * B * S * H * P + 4 * B * S * G * N)
-              + 2 * 4 * B * S * H + 4 * 4 * H)
-    full, tail = divmod(S, L)
-    mads = sum(n * (l * l * (3 * N + 2 * P) // 2 + 5 * l * P * N)
-               for n, l in ((full, L), (1 if tail else 0, tail)))
-    if peak is None:
-        peak = BF16_OPS_PER_S if esize == 2 else F32_SPLIT_OPS_PER_S
-    return nbytes, 2 * B * H * mads / peak
+    chunks of L rows (``launch.roofline.ssd_bwd_work``) at ``peak``, by
+    default the card's rate for the route the kernels take: the bf16
+    tensor-core rate for bf16 inputs (float32 sums), and for float32 ones
+    the rate of their split bf16 planes on the same tensor cores
+    (``roofline.tensor_peak``, as the float32 attention bound). The work a
+    row grows with L, so the bound takes L = min(chunk, S,
+    SSD_BOUND_CHUNK)."""
+    flops, nbytes = RL.ssd_bwd_work(B, S, H, P, G, N, L, esize)
+    return nbytes, flops / (peak or RL.tensor_peak(esize))
 
 
 def _ssd_bwd_case(case, fails):
@@ -5935,7 +5929,9 @@ def _trainer_run(cfg, argv, B, S, steps, fails, smi):
     """``steps`` steps through ``launch.train`` (``argv``) with the model
     kernels' launches counted from zero and held to the count the code
     makes, the loss falling: (state, record, counts). The step time is the
-    median of the last 10 steps on the host clock, synchronized."""
+    median of the steps after the first two (the last 10 of SmolLM-360M's
+    12, the last 8 of the other archs' 10) on the host clock,
+    synchronized."""
     import numpy as np
     import torch
     from repro_torch.kernels import frontier_grid as fg
@@ -5952,10 +5948,11 @@ def _trainer_run(cfg, argv, B, S, steps, fails, smi):
     want = _train_launches(cfg, steps)
     got = {k: counts[k] for k in want}
     walls = [h["wall_s"] for h in hist]
-    step_ms = 1e3 * float(np.median(walls[-10:]))
+    step_ms = 1e3 * float(np.median(walls[2:]))
     losses = [h["loss"] for h in hist]
     log(f"[train] launch.train {' '.join(argv)} ({cfg.num_layers} layers) in "
-        f"{run_s:.1f} s: step {step_ms:.1f} ms (median of the last 10, host "
+        f"{run_s:.1f} s: step {step_ms:.1f} ms (median of the last "
+        f"{len(walls[2:])}, host "
         f"clock, synchronized), {B * S / step_ms * 1e3:.0f} tokens/s, peak "
         f"memory {peak / 1e9:.2f} GB; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; launches {got}, expected {want} ({smi})")
@@ -6022,6 +6019,9 @@ def _train_arch(arch, layers, B, S, holds, steps, lr, fails, smi):
                                 extra=extra)
     _log_profile(f"{arch} at {cfg.num_layers} layers", prof)
     out["trainer"]["profile"] = prof
+    out["trainer"]["count"] = _log_count(
+        f"{arch} at {cfg.num_layers} layers",
+        _step_count(cfg, tokens, labels, extra), prof, smi)
     del state, trainer, model, tokens, labels, extra
     torch.cuda.empty_cache()
     return out, counts
@@ -6384,6 +6384,62 @@ def _step_profile(step_fn, box, tokens, labels, steps=2, extra=None,
                    "top": [{"name": n, "ms": ms} for n, ms in top]}
 
 
+def _step_count(cfg, tokens, labels, extra=None):
+    """The dry run's count of one ``make_train_step`` step of ``cfg`` on
+    one chip, on meta tensors of the batch's shapes
+    (``launch.roofline.counting``): its terms at the H100's datasheet rates
+    (bounds, not measurements), ``model_flops`` and the peak of live
+    tensors, with the state counted live from the start."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train.step import init_state, make_train_step
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="meta", seed=0, trainable=True)
+    state = init_state(model)
+    step = make_train_step(model, cfg, cosine_schedule(3e-4, 20, 100))
+
+    def meta(t):
+        return None if t is None else torch.empty_like(t, device="meta")
+    with RL.counting() as cnt:
+        RL.track(state)
+        step(state, meta(tokens), meta(labels), meta(extra))
+    B, S = labels.shape
+    terms = RL.roofline_terms(cnt, 1)
+    return {"flops": cnt.flops, "hbm_bytes": cnt.hbm_bytes,
+            "compute_ms": 1e3 * terms["compute_s"],
+            "memory_ms": 1e3 * terms["memory_s"],
+            "bound_ms": 1e3 * terms["step_lower_bound_s"],
+            "dominant": terms["dominant"],
+            "model_flops": RL.model_flops(cfg, ShapeSpec("step", S, B,
+                                                         "train")),
+            "peak_gb": cnt.peak_bytes / 1e9,
+            "kernels": cnt.kernels, "count_s": time.perf_counter() - t0}
+
+
+def _log_count(tag, count, prof, smi):
+    """The dry run's count beside a measured step (``_step_profile``): the
+    measured device time as a multiple of the count's bound, and the
+    count's peak beside the measured one."""
+    dev = prof.get("device_ms")
+    count["device_over_bound"] = dev / count["bound_ms"] if dev else None
+    count["peak_gap"] = (prof["peak_allocated_gb"] / count["peak_gb"] - 1
+                         if count["peak_gb"] else None)
+    log(f"[train] {tag} dry-run count of the same step on one chip "
+        f"({count['count_s']:.1f} s on the host): compute "
+        f"{count['compute_ms']:.2f} ms, memory {count['memory_ms']:.2f} ms "
+        f"at the datasheet rates (bound {count['bound_ms']:.2f} ms, "
+        f"{count['dominant']}), {count['flops']:.4g} FLOPs counted against "
+        f"model_flops {count['model_flops']:.4g}; measured device "
+        + (f"{dev:.2f} ms = {count['device_over_bound']:.2f}x the bound"
+           if dev else "time not measured")
+        + f"; the count's peak {count['peak_gb']:.2f} GB beside "
+        f"max_memory_allocated {prof['peak_allocated_gb']:.2f} GB (measured "
+        f"{100 * count['peak_gap']:+.1f}%) ({smi})")
+    return count
+
+
 def _log_profile(tag, prof, opt_ms=None):
     """One line of a ``_step_profile``: wall and device ms, busy share, the
     parts; then the top kernels and each backward kernel a step and a
@@ -6599,7 +6655,9 @@ def phase_train(ctx):
     state, prof = _step_profile(trainer._step_fn, box, tokens, labels)
     opt_ms = _optimizer_device_ms(state)
     _log_profile(cfg.name, prof, opt_ms)
-    out["trainer"] = {**rec, "profile": prof, "optimizer_device_ms": opt_ms}
+    count = _log_count(cfg.name, _step_count(cfg, tokens, labels), prof, smi)
+    out["trainer"] = {**rec, "profile": prof, "optimizer_device_ms": opt_ms,
+                      "count": count}
     del state, trainer
     torch.cuda.empty_cache()
     part_done("3. the Trainer's run and its profiled step")
@@ -6915,9 +6973,8 @@ def _shard_decode_ranks(fails):
     sh_ms, whole_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     sh_dev = _device_ms(sharded)
     whole_dev = _device_ms(whole)
-    cache_bytes = 2 * 2 * B * Hkv * S * D
-    whole_bound = _roof(cache_bytes + 2 * 2 * B * Hkv * G * D + S,
-                        4 * B * Hkv * G * S * D / BF16_OPS_PER_S)
+    flops, nbytes = RL.decode_work(B, Hkv, G, S, D, 2)
+    whole_bound = _roof(nbytes, flops / BF16_OPS_PER_S)
     log(f"[shard] decode_32k: {SHARD_SEQ} partials + combine {sh_ms:.4f} ms "
         f"(device {sh_dev}), one flash_decode {whole_ms:.4f} ms (device "
         f"{whole_dev}); the whole cache's bound {whole_bound[0]:.4f} ms "
@@ -6957,9 +7014,8 @@ def _shard_decode_ranks(fails):
         lib_note = f"SDPA efficient refused: {str(e).splitlines()[0]}"
     plain_ms = _time_cuda(plain, reps=5, warm=1)
     dev_ms = _device_ms(part)
-    nbytes = (2 * B * Hkv * G * D + 2 * 2 * B * Hkv * S0 * D + S0
-              + 4 * B * Hkv * G * (D + 2))
-    bound = _roof(nbytes, 4 * B * Hkv * G * S0 * D / BF16_OPS_PER_S)
+    flops, nbytes = RL.decode_partial_work(B, Hkv, G, S0, D, 2)
+    bound = _roof(nbytes, flops / BF16_OPS_PER_S)
     log(f"[shard] flash_decode_partial on one shard (S={S0}): {ms:.4f} ms "
         f"(device {dev_ms}), plain {plain_ms:.4f} ms, {lib_note}; bound "
         f"{bound[0]:.4f} ms ({bound[1]}), kernel/bound {ms / bound[0]:.2f}x;"
@@ -7099,10 +7155,183 @@ def _shard_world_of_one(ctx, fails):
     return out
 
 
+# the sharded training holds: (arch, layers kept (None: all), B, S, lr),
+# each two Trainer steps on the NCCL world of one, placed and unplaced
+SHARD_TRAIN = (("smollm-360m", None, 8, 2048, 3e-4),
+               ("deepseek-v2-lite-16b", 1 + DS_MOE_LAYERS, 2, 2048, 1e-3))
+SHARD_TRAIN_STEPS = 2
+# the MoE layer's gradient: every rank's body in one process at each
+# (data, model), against the unsharded layer's on each data shard's tokens
+SHARD_MOE_GRAD_MESHES = ((1, 2), (2, 2))
+
+
+def _cpu_state(state):
+    """Every tensor of a train state copied to the host (a DTensor's
+    local shard): a state kept for a later bitwise comparison off the
+    card's memory."""
+    from repro_torch.launch import shardings
+    return {f"{kind}/{k}": shardings.local(t).detach().cpu()
+            for kind, tree in (("p", state.params), ("m", state.opt.m),
+                               ("v", state.opt.v))
+            for k, t in tree.items()}
+
+
+def _shard_train_world_of_one(fails):
+    """(d) Training on the NCCL world of one: each SHARD_TRAIN arch takes
+    SHARD_TRAIN_STEPS Trainer steps unplaced, then placed at the specs'
+    DTensor placements on a (1, 1) ``DeviceMesh`` (AdamW's moments too),
+    from the same seed and batches: losses, every parameter and every
+    moment bit for bit, and each run's launches the code's count."""
+    import gc
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, build_model
+    from repro_torch.train import Trainer, TrainerConfig
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    out, launches = [], {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for arch, layers, B, S, lr in SHARD_TRAIN:
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = cfg.replace(num_layers=layers)
+            want = _train_launches(cfg, SHARD_TRAIN_STEPS)
+            runs = {}
+            for tag, ctx in (("unsharded", None),
+                             ("sharded", ShardCtx(mesh=mesh,
+                                                  batch_axes=("data",)))):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                model = build_model(cfg, device="cuda", seed=0, ctx=ctx,
+                                    trainable=True)
+                tcfg = TrainerConfig(steps=SHARD_TRAIN_STEPS, batch=B,
+                                     seq=S, lr=lr, log_every=100)
+                torch.cuda.synchronize()
+                _reset_all()
+                t0 = time.perf_counter()
+                state, hist = Trainer(model, cfg, tcfg).run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                got = {k: _lm_launches()[k] for k in want}
+                placed = (ctx is None) or all(
+                    isinstance(t, DTensor) for tree in
+                    (state.params, state.opt.m, state.opt.v)
+                    for t in tree.values())
+                runs[tag] = {"losses": [h["loss"] for h in hist],
+                             "state": _cpu_state(state), "launches": got,
+                             "placed": placed, "seconds": secs,
+                             "peak_gb": torch.cuda.max_memory_allocated()
+                             / 1e9}
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+                del model, state
+            a, b = runs["sharded"], runs["unsharded"]
+            same_loss = a["losses"] == b["losses"]
+            diff = [k for k in b["state"]
+                    if not torch.equal(a["state"][k], b["state"][k])]
+            ok = (same_loss and not diff and a["placed"]
+                  and a["launches"] == want and b["launches"] == want)
+            log(f"[shard] {arch} ({cfg.num_layers} layers, B {B} x {S}) "
+                f"{SHARD_TRAIN_STEPS} Trainer steps on the NCCL world of one,"
+                f" placed on a (1, 1) DeviceMesh against unplaced: losses "
+                f"{a['losses']} vs {b['losses']} "
+                + ("bitwise" if same_loss else "DIFFERENT")
+                + f", {len(b['state']) - len(diff)} of {len(b['state'])} "
+                f"parameters and moments bitwise, DTensors {a['placed']}; "
+                f"launches {a['launches']} and {b['launches']}, expected "
+                f"{want}; {a['seconds']:.1f} s and {b['seconds']:.1f} s, "
+                f"peaks {a['peak_gb']:.2f} and {b['peak_gb']:.2f} GB "
+                + ("ok" if ok else "FAIL"))
+            out.append({"arch": arch, "layers": cfg.num_layers, "batch": B,
+                        "seq": S, "losses_bitwise": same_loss,
+                        "leaves_differing": diff[:8],
+                        "launches": a["launches"], "expected": want,
+                        "sharded_s": a["seconds"],
+                        "unsharded_s": b["seconds"],
+                        "peak_gb": a["peak_gb"], "ok": ok})
+            if not ok:
+                fails.append(f"sharded training {arch}")
+            del runs, a, b
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _shard_moe_grads(fails):
+    """(e) DeepSeek-V2-Lite's MoE layer's gradient at full width, every
+    rank's body in one process (``moe.moe_ranks``) at each (data, model) of
+    SHARD_MOE_GRAD_MESHES, against the unsharded layer's gradient on each
+    data shard's tokens, summed over the shards (relative L2 < MOE_HOLD in
+    bf16 for x and every weight); twice (the bits repeat)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    g = _gen(43)
+    p = {k: t.detach().requires_grad_(True)
+         for k, t in moe.moe_init(cfg, g, "cuda").items()}
+    x = (_randn(g, (*SHARD_MOE_TOKENS, cfg.d_model), torch.float32)
+         + MOE_SKEW * _randn(g, (cfg.d_model,), torch.float32)
+         ).to(torch.bfloat16).requires_grad_(True)
+    dy = _randn(g, tuple(x.shape), torch.bfloat16)
+    leaves = [x, *p.values()]
+    names = ["x", *p]
+    rows = []
+    for data, tp in SHARD_MOE_GRAD_MESHES:
+        def ranks():
+            y = moe.moe_ranks(p, x, cfg, tp=tp, data=data)
+            return torch.autograd.grad(y, leaves, dy)
+        a, b = ranks(), ranks()
+        per = x.shape[0] // data
+        want = [torch.zeros_like(t) for t in leaves]
+        for i in range(data):
+            sl = slice(i * per, (i + 1) * per)
+            xs = x[sl].detach().requires_grad_(True)
+            y = moe.moe_apply(p, xs, cfg)
+            gs = torch.autograd.grad(y, [xs, *p.values()], dy[sl])
+            want[0][sl] = gs[0]
+            for j, gj in enumerate(gs[1:], 1):
+                want[j] = want[j] + gj
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        rels = {n: _rel_l2(u.float(), w.float())
+                for n, u, w in zip(names, a, want)}
+        worst = max(rels, key=rels.get)
+        finite = all(bool(torch.isfinite(u).all()) for u in a)
+        ok = same and finite and rels[worst] < MOE_HOLD
+        log(f"[shard] MoE gradient, ranks (data {data}, model {tp}) on "
+            f"{SHARD_MOE_TOKENS[0]} x {SHARD_MOE_TOKENS[1]} tokens against "
+            f"the unsharded layer's per data shard: worst relative L2 "
+            f"{rels[worst]:.2e} ({worst}; hold {MOE_HOLD:g}), x "
+            f"{rels['x']:.2e}, router {rels['router']:.2e}, bits repeat "
+            f"{same} " + ("ok" if ok else "FAIL"))
+        rows.append({"data": data, "model": tp, "rel_l2": rels,
+                     "worst": worst, "repeat": same, "ok": ok})
+        if not ok:
+            fails.append(f"moe gradient {data}x{tp}")
+        del a, b, want
+    del p, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_shard(ctx):
-    """Sharded serving: (a) the world of one over NCCL, (b) every rank's
-    body in one process at full width, (c) the partial kernel against its
-    plain version."""
+    """Sharded serving and training: (a) the world of one over NCCL, (b)
+    every rank's body in one process at full width, (c) the partial
+    kernel against its plain version, (d) training on the world of one,
+    (e) the MoE layer's gradient by rank."""
     import torch
     fails = []
     with torch.no_grad():
@@ -7110,8 +7339,13 @@ def phase_shard(ctx):
         moe_rows = _shard_moe_ranks(fails)
         decode = _shard_decode_ranks(fails)
         partial = _shard_partial_checks(fails)
+    train, launches = _shard_train_world_of_one(fails)
+    for k, n in launches.items():
+        ctx["shard_launches"][k] = ctx["shard_launches"].get(k, 0) + n
+    moe_grads = _shard_moe_grads(fails)
     ctx["shard"] = {"world_of_one": world, "moe_ranks": moe_rows,
-                    "decode": decode, "partial": partial}
+                    "decode": decode, "partial": partial,
+                    "training": train, "moe_grads": moe_grads}
     if fails:
         raise AssertionError(f"shard: {fails}")
 
@@ -7265,8 +7499,8 @@ def main(argv=None):
             "library_mha_backend")
     for name, (source, replaces) in TRAIN_REPLACES.items():
         r = rows[name][0]
-        by_path = ({"train": ctx["train_launches"][name]}
-                   if "train_launches" in ctx else {})
+        by_path = {p: ctx[f"{p}_launches"].get(name, 0)
+                   for p in ("train", "shard") if f"{p}_launches" in ctx}
         f32 = ({"train": ctx["train_launches"].get(f"{name}_f32", 0)}
                if name == "flash_attention_bwd" and "train_launches" in ctx
                else None)

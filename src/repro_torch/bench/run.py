@@ -9,8 +9,9 @@ their plain versions with ``--device cpu``).
 
     PYTHONPATH=src python -m repro_torch.bench.run --device cpu --only fig1,parttrain
 
-The reference's ``roofline`` suite waits for ROADMAP §1 item 13 (an H100
-roofline table and a torch FLOP and byte count); asking for it raises.
+The ``roofline`` suite tabulates the records of the dry run
+(``python -m repro_torch.launch.dryrun``, ROADMAP §1 item 13a), which it
+does not run itself, as the reference's does not.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import sys
 import traceback
 
 from . import (cluster_scale, fig1_theory, fig2_frontier, fig34_convex_opt,
-               fig56_file_transfer, partitioned_training)
+               fig56_file_transfer, partitioned_training, roofline_table)
 
 SUITES = {
     "fig1": fig1_theory,
@@ -28,12 +29,7 @@ SUITES = {
     "fig56": fig56_file_transfer,
     "cluster": cluster_scale,
     "parttrain": partitioned_training,
-}
-# suites of the reference harness that the port does not have yet, and why
-NOT_PORTED = {
-    "roofline": "the roofline suite waits for ROADMAP §1 item 13 (an H100 "
-                "roofline table and a torch FLOP and byte count per arch "
-                "and shape in place of the TPU table and XLA's HLO)",
+    "roofline": roofline_table,
 }
 
 
@@ -45,9 +41,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     chosen = [s.strip() for s in args.only.split(",") if s.strip()] \
         or list(SUITES)
-    for name in chosen:
-        if name in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[name])
     print("name,us_per_call,derived")
     failures = []
     for name in chosen:

@@ -13,7 +13,11 @@ and a ``None`` is an empty subtree (a NamedTuple, such as a
 ``TrainState``, walks as a tuple and comes back as its own type). Restore rebuilds the structure of a
 template and gives every leaf its template's dtype (a tensor leaf comes
 back as a tensor on its template's device; bf16 tensors travel as their
-16-bit patterns), so a restored tree is the saved one bit for bit.
+16-bit patterns), so a restored tree is the saved one bit for bit. A
+DTensor leaf (a sharded train state, ``launch/shardings.py``) is saved as
+this rank's shard and restored at its template's placements, so each rank
+of a sharded trainer keeps a checkpoint of its own shards
+(``train/loop.py`` gives each its own directory).
 
 Whole-pipeline checkpoints (:func:`save_pipeline` /
 :func:`restore_pipeline`) bundle what a partitioning loop owns into one
@@ -42,6 +46,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ..launch.shardings import like, local
 from ..obs import events as obs_events
 
 __all__ = ["save", "restore", "latest_step", "save_pipeline",
@@ -85,7 +90,7 @@ def _walk(tree, path=()):
 def _host(leaf) -> np.ndarray:
     """A leaf as a host array (a bf16 tensor as its 16-bit patterns)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = local(leaf.detach())
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         return t.to("cpu", copy=True).numpy()
@@ -103,7 +108,7 @@ def _like(arr: np.ndarray, leaf):
             t = torch.from_numpy(arr.astype(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr.astype(_host(leaf).dtype))
-        return t.to(leaf.device)
+        return like(leaf, t.to(local(leaf).device))
     return arr.astype(np.asarray(leaf).dtype)
 
 
@@ -126,7 +131,8 @@ def _rebuild(template, flat: dict, path=()):
                 f"arrays (template and checkpoint structures diverged; "
                 f"saved keys: {sorted(flat)[:8]}...)")
         arr = flat[key]
-        want = tuple(np.shape(template))
+        want = tuple(local(template).shape if isinstance(
+            template, torch.Tensor) else np.shape(template))
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"checkpoint restore: leaf {key!r} shape mismatch — "

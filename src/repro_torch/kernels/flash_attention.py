@@ -61,6 +61,13 @@ warpgroups take one accumulator each). ``LAUNCHES`` also counts each
 kernel's float32 calls apart (``flash_attention_f32``,
 ``flash_attention_bwd_f32``), within the totals. On a CPU tensor the plain
 version's own autograd gives the gradient.
+
+On a ``meta`` tensor (the dry run) the call launches nothing: after the
+card's checks of shapes, dtypes and head dims it returns an empty output
+of the kernel's shape and dtype and records the kernel's work
+(``launch.roofline.attention_work``) in the active count, through the
+same ``autograd.Function`` under a gradient, whose backward records
+``flash_attention_bwd``'s. Only a meta tensor takes it.
 """
 from __future__ import annotations
 
@@ -71,6 +78,7 @@ import torch
 
 from . import _cuda
 from . import ref
+from ..launch import roofline
 
 __all__ = ["flash_attention", "flash_attention_bwd", "build", "LAUNCHES",
            "reset_launches", "MAX_HEAD_DIM", "MAX_BWD_HEAD_DIM",
@@ -176,6 +184,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        sm_scale=sm_scale)
+    if q.device.type == "meta":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
+        return _meta_forward(q, k, v, causal, window, with_lse=False)[0]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -193,6 +206,9 @@ class _FlashAttention(torch.autograd.Function):
             _check_bwd(q, k, v)
             out, lse = _forward(q, k, v, causal, window, sm_scale,
                                 with_lse=True)
+        elif q.device.type == "meta":
+            _check_bwd(q, k, v)
+            out, lse = _meta_forward(q, k, v, causal, window, with_lse=True)
         else:   # the plain route (the gradient checks, in float64)
             out, lse = ref.flash_attention_lse_ref(
                 q, k, v, causal=causal, window=window, sm_scale=sm_scale)
@@ -225,11 +241,9 @@ def _check_bwd(q, k, v):
                          f"got D={D}, Dv={Dv}")
 
 
-def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
-    """The forward launch: (out, lse), lse (B, Hq, Sq) float32 when
-    ``with_lse`` and None otherwise."""
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+def _check_dims(q, v):
+    """The forward kernels' head dims (the bf16 kernel's instances)."""
+    D, Dv = q.shape[3], v.shape[3]
     if q.dtype == torch.bfloat16:
         if D not in BF16_HEAD_DIMS or Dv not in BF16_HEAD_DIMS:
             raise ValueError(f"the bf16 kernel takes head dims in 8, 16, ..., "
@@ -243,6 +257,27 @@ def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
     elif max(D, Dv) > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes head dims <= {MAX_HEAD_DIM}, "
                          f"got D={D}, Dv={Dv}")
+
+
+def _meta_forward(q, k, v, causal, window, *, with_lse: bool):
+    """The forward's outputs on meta tensors, its work recorded."""
+    _check_dims(q, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    roofline.record_kernel("flash_attention", *roofline.attention_work(
+        B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q.element_size()))
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    return out, lse
+
+
+def _forward(q, k, v, causal, window, sm_scale, *, with_lse: bool):
+    """The forward launch: (out, lse), lse (B, Hq, Sq) float32 when
+    ``with_lse`` and None otherwise."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_dims(q, v)
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the kernel takes q, k and v with unit stride on "
                          "D (any strides on B, H and S)")
@@ -321,6 +356,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                                            sm_scale=sm_scale)
     _check_args(q, k, v, causal, window)
     _check_bwd(q, k, v)
+    if q.device.type == "meta":
+        B, Hq, Sq, D = q.shape
+        roofline.record_kernel("flash_attention_bwd",
+                               *roofline.attention_bwd_work(
+                                   B, Hq, k.shape[1], Sq, k.shape[2], D,
+                                   v.shape[3], causal, window,
+                                   q.element_size()))
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if not q.is_cuda:
         raise ValueError(f"unsupported device {q.device}")
     B, Hq, Sq, D = q.shape

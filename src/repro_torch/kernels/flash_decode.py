@@ -26,6 +26,11 @@ a sequence-sharded decode, counts under its own key. The kernels have no
 backward: on a CUDA tensor
 that needs a gradient (grad mode on) the call raises rather than return an
 output with no autograd node.
+
+On a ``meta`` tensor (the dry run's decode cells) either call launches
+nothing: after the card's checks it returns empty outputs of the kernels'
+shapes and dtypes and records their work (``launch.roofline.decode_work``,
+``decode_partial_work``) in the active count. Only a meta tensor takes it.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 from . import _cuda
 from . import flash_attention as _fa
 from . import ref
+from ..launch import roofline
 
 __all__ = ["flash_decode", "flash_decode_partial", "decode_splits",
            "LAUNCHES", "reset_launches",
@@ -86,14 +92,12 @@ def decode_splits(B: int, Hkv: int, S: int, sm_count: int):
     return -(-S // split_len), split_len
 
 
-def _launch(q, k, v, valid, sm_scale, partial: bool):
-    """Checks the kernels' terms and launches them on CUDA tensors: the
-    output, or with ``partial`` the (m, l, acc) float32 partial."""
+def _check_kernel(q, k, v, partial: bool):
+    """The kernels' terms that need no storage."""
     _cuda.forbid_grad("flash_decode_partial" if partial else "flash_decode",
                       q, k, v, why="training never decodes; ROADMAP.md "
                                    "section 3, item 27")
-    B, Hkv, G, D = q.shape
-    S = k.shape[2]
+    G, D = q.shape[2], q.shape[3]
     if G > MAX_GROUP or D > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes G <= {MAX_GROUP} and D <= "
                          f"{MAX_HEAD_DIM} (G * D <= {MAX_GROUP_WIDTH}), got "
@@ -102,20 +106,44 @@ def _launch(q, k, v, valid, sm_scale, partial: bool):
         raise ValueError(f"the kernel reads 16-byte rows: D * "
                          f"{q.element_size()} bytes must be a multiple of 16,"
                          f" got D={D}")
+
+
+def _outputs(q, partial: bool):
+    """The output, or the (m, l, acc) float32 partial, uninitialised."""
+    B, Hkv, G, D = q.shape
+    if partial:
+        acc = torch.empty((B, Hkv, G, D), dtype=torch.float32,
+                          device=q.device)
+        ml = torch.empty((B, Hkv, G, 2), dtype=torch.float32,
+                         device=q.device)
+        return (ml[..., :1], ml[..., 1:], acc), acc, ml
+    return torch.empty_like(q), None, None
+
+
+def _meta(q, k, v, partial: bool):
+    """The kernels' outputs on meta tensors, their work recorded."""
+    _check_kernel(q, k, v, partial)
+    B, Hkv, G, D = q.shape
+    work = roofline.decode_partial_work if partial else roofline.decode_work
+    roofline.record_kernel(
+        "flash_decode_partial" if partial else "flash_decode",
+        *work(B, Hkv, G, k.shape[2], D, q.element_size()))
+    return _outputs(q, partial)[0]
+
+
+def _launch(q, k, v, valid, sm_scale, partial: bool):
+    """Checks the kernels' terms and launches them on CUDA tensors: the
+    output, or with ``partial`` the (m, l, acc) float32 partial."""
+    _check_kernel(q, k, v, partial)
+    B, Hkv, G, D = q.shape
+    S = k.shape[2]
     if not all(t.is_contiguous() for t in (q, k, v, valid)):
         raise ValueError("the kernel takes contiguous q, k, v and valid")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel takes q, k and v at 16-byte aligned "
                          "addresses")
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    if partial:
-        acc = torch.empty((B, Hkv, G, D), dtype=torch.float32,
-                          device=q.device)
-        ml = torch.empty((B, Hkv, G, 2), dtype=torch.float32,
-                         device=q.device)
-        out = (ml[..., :1], ml[..., 1:], acc)
-    else:
-        out = torch.empty_like(q)
+    out, acc, ml = _outputs(q, partial)
     if q.numel() == 0:
         return out
     dev = q.device.index
@@ -150,6 +178,8 @@ def flash_decode(q, k, v, valid, *, sm_scale=None):
     _check_args(q, k, v, valid)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid, sm_scale=sm_scale)
+    if q.device.type == "meta":
+        return _meta(q, k, v, partial=False)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k, v, valid, sm_scale, partial=False)
@@ -172,6 +202,8 @@ def flash_decode_partial(q, k, v, valid, *, sm_scale=None):
     if q.device.type == "cpu":
         return ref.decode_attention_partial_ref(q, k, v, valid,
                                                 sm_scale=sm_scale)
+    if q.device.type == "meta":
+        return _meta(q, k, v, partial=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k, v, valid, sm_scale, partial=True)

@@ -21,6 +21,12 @@ sum; no atomics. It is the gradient ``jax.grad`` takes of the JAX
 package's XLA ``rms_norm``; the Pallas kernel has no backward.
 ``LAUNCHES["rmsnorm_bwd"]`` counts its calls. On a CPU tensor the plain
 version's own autograd gives it.
+
+On a ``meta`` tensor (the dry run: shapes without storage) the call
+launches nothing: it returns an empty output of the kernel's shape and
+dtype and records the kernel's work (``launch.roofline.rmsnorm_work``) in
+the active count, through the same ``autograd.Function`` under a gradient,
+whose backward records ``rmsnorm_bwd``'s. Only a meta tensor takes it.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from . import _cuda
 from . import ref
+from ..launch import roofline
 
 __all__ = ["rmsnorm", "rmsnorm_bwd", "build", "LAUNCHES", "reset_launches"]
 
@@ -110,9 +117,25 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
         LAUNCHES["rmsnorm"] += 1
         return out
     _check_args(x, w)
+    if x.device.type == "meta":
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _RMSNorm.apply(x, w, eps)
+        return _meta_forward(x, w)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return ref.rmsnorm_ref(x, w, eps=eps)
+
+
+def _rows(x, w) -> int:
+    D = w.shape[0]
+    return x.numel() // D if D else 0
+
+
+def _meta_forward(x, w):
+    """The kernel's output on meta tensors, its work recorded."""
+    roofline.record_kernel("rmsnorm", *roofline.rmsnorm_work(
+        _rows(x, w), w.shape[0], x.element_size()))
+    return torch.empty_like(x)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -121,8 +144,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps):
         with torch.no_grad():
-            out = (rmsnorm(x, w, eps=eps) if x.is_cuda
-                   else ref.rmsnorm_ref(x, w, eps=eps))
+            out = (ref.rmsnorm_ref(x, w, eps=eps) if x.device.type == "cpu"
+                   else rmsnorm(x, w, eps=eps))
         ctx.save_for_backward(x, w)
         ctx.eps = eps
         return out
@@ -146,6 +169,10 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, w, dy, eps=eps)
     _check_args(x, w)
+    if x.device.type == "meta":
+        roofline.record_kernel("rmsnorm_bwd", *roofline.rmsnorm_bwd_work(
+            _rows(x, w), w.shape[0], x.element_size()))
+        return torch.empty_like(x), torch.empty_like(w)
     if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     dy = dy.to(x.dtype).contiguous()

@@ -50,6 +50,12 @@ state in its 8 warps' registers as strips of 16 x 64:
 ceil(P / 16) * ceil(N / 64) <= 8 (Mamba2's 64 x 128 fills them). The
 library is built at the first launch (``kernels/_cuda.py``). ``LAUNCHES``
 counts the wrapper's calls.
+
+On a ``meta`` tensor (the dry run) the call launches nothing: it returns
+empty outputs of the kernel's shapes and dtypes and records its work
+(``launch.roofline.ssd_work``) in the active count, through the same
+``autograd.Function`` under a gradient, whose backward records
+``ssd_scan_bwd``'s (``ssd_bwd_work``). Only a meta tensor takes it.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ import ctypes
 import torch
 
 from . import _cuda
+from ..launch import roofline
 from . import autotune
 from . import ref
 
@@ -226,6 +233,12 @@ def ssd_scan(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,
         _check_args(x, dt, A, Bm, Cm, D_skip)
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if x.device.type == "meta":
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, dt, A, Bm, Cm, D_skip)):
+                return _SsdScan.apply(x, dt, A, Bm, Cm, D_skip, chunk,
+                                      return_final_state)
+            return _meta_launch(x, Bm, chunk, return_final_state)
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
         return ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, chunk=chunk,
@@ -245,6 +258,8 @@ class _SsdScan(torch.autograd.Function):
         if x.is_cuda:
             out = _launch(x, dt, A, Bm, Cm, D_skip, chunk,
                           return_final_state)
+        elif x.device.type == "meta":
+            out = _meta_launch(x, Bm, chunk, return_final_state)
         else:   # the plain route (the gradient checks, in float64)
             out = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D_skip, chunk=chunk,
                                       return_final_state=return_final_state)
@@ -264,6 +279,25 @@ class _SsdScan(torch.autograd.Function):
             return (None,) * 8
         grads = ssd_scan_bwd(*ctx.saved_tensors, dy, chunk=ctx.chunk)
         return (*grads, None, None)
+
+
+def _meta_launch(x, Bm, chunk, return_final_state):
+    """The forward's outputs on meta tensors, its work recorded."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    strips = -(-P // 16) * -(-N // 64)
+    if strips > STATE_STRIPS:
+        raise ValueError(f"the kernel keeps the (P, N) state in "
+                         f"{STATE_STRIPS} strips of 16 x 64: P={P}, N={N} "
+                         f"needs {strips}")
+    L = min(chunk, F32_MAX_CHUNK) if x.dtype == torch.float32 else chunk
+    roofline.record_kernel("ssd_scan", *roofline.ssd_work(
+        B, S, H, P, G, N, L, x.element_size()))
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    if not return_final_state:
+        return y
+    return y, torch.empty((B, H, P, N), dtype=torch.float32,
+                          device=x.device)
 
 
 def _launch(x, dt, A, Bm, Cm, D_skip, chunk, return_final_state):
@@ -310,6 +344,17 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D_skip, dy, *, chunk: int = 128):
     if tuple(dy.shape) != (B, S, H, P):
         raise ValueError(f"dy must be {(B, S, H, P)}, got {tuple(dy.shape)}")
     L = bwd_chunk(S, chunk, x.dtype)
+    if x.device.type == "meta":
+        if P > BWD_MAX_P or N > BWD_MAX_N:
+            raise ValueError(f"the SSD backward keeps strips of P <= "
+                             f"{BWD_MAX_P} and N <= {BWD_MAX_N} columns in "
+                             f"registers: P={P}, N={N}")
+        roofline.record_kernel("ssd_scan_bwd", *roofline.ssd_bwd_work(
+            B, S, H, P, G, N, L, x.element_size()))
+        return tuple(torch.empty(t.shape, dtype=dty, device=x.device)
+                     for t, dty in ((x, x.dtype), (dt, torch.float32),
+                                    (A, torch.float32), (Bm, x.dtype),
+                                    (Cm, x.dtype), (D_skip, torch.float32)))
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")

@@ -32,6 +32,12 @@ brings a DTensor back to a plain tensor, all-gathering each dim that a
 mesh axis of size > 1 shards unless the caller keeps that axis on it, and
 :func:`write_back` copies the rank's part of such a tensor into the
 DTensor's shard. An axis of size 1 issues no collective.
+
+Under a gradient the gathers go through ``launch/collectives.py``: the
+caller names the axes whose ranks compute different rows after the gather
+(``rows``), and the adjoint on such an axis is a reduce-scatter of the
+gradient (a replicated dim there all-reduces it); on any other axis the
+rank's own slice.
 """
 from __future__ import annotations
 
@@ -40,12 +46,14 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
+from . import collectives
 from .mesh import axis_group, axis_rank, axis_size, batch_axes
 
 __all__ = ["param_specs", "state_specs", "cache_specs", "batch_specs",
            "leaf_spec", "named", "placements", "local_shard", "distribute",
            "place_module", "place_cache", "gather", "gather_dim",
-           "write_back", "is_device_mesh", "spec_axes"]
+           "write_back", "is_device_mesh", "spec_axes", "local", "like",
+           "sharded_axes"]
 
 Spec = Tuple[Any, ...]
 
@@ -258,6 +266,34 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def local(t):
+    """The tensor a DTensor holds on this rank (a plain tensor as it
+    is)."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def like(t, loc: torch.Tensor):
+    """``loc``, this rank's part of a tensor at ``t``'s placements, as a
+    DTensor like ``t`` (``loc`` itself where ``t`` is plain)."""
+    if not _is_dtensor(t):
+        return loc
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(loc, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
+def sharded_axes(t) -> Tuple[str, ...]:
+    """The mesh axes of size > 1 that shard a DTensor (() for a plain
+    tensor): the axes over which its ranks' parts add up to the whole."""
+    if not _is_dtensor(t):
+        return ()
+    mesh = t.device_mesh
+    return tuple(n for i, (n, pl) in enumerate(zip(mesh.mesh_dim_names,
+                                                   t.placements))
+                 if pl.is_shard() and mesh.size(i) > 1)
+
+
 def _block(mesh, axes) -> Tuple[int, int]:
     """(rank, count) of this process's block of a dim split over ``axes``."""
     rank, count = 0, 1
@@ -352,25 +388,15 @@ def place_cache(cache, mesh, specs):
     return cache
 
 
-def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    import torch.distributed as dist
-    n = dist.get_world_size(group)
-    x = t.movedim(dim, 0).contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    gather_fn = getattr(dist, "all_gather_single", None)
-    if gather_fn is None:
-        gather_fn = dist.all_gather_into_tensor
-    gather_fn(out, x, group=group)
-    return out if dim == 0 else out.movedim(0, dim).contiguous()
-
-
-def gather_dim(t: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+def gather_dim(t: torch.Tensor, dim: int, mesh, axes, *,
+               partial_grads: bool = False) -> torch.Tensor:
     """The blocks of dim ``dim`` split over ``axes`` (major first),
-    all-gathered from every rank; axes of size 1 are skipped."""
+    all-gathered from every rank; axes of size 1 are skipped. The adjoint
+    is the rank's slice, or with ``partial_grads`` a reduce-scatter
+    (``collectives.all_gather``)."""
     for a in reversed(spec_axes(axes)):   # the minor axis first
-        group = axis_group(mesh, a)
-        if group is not None:
-            t = _all_gather(t, dim, group)
+        t = collectives.all_gather(t, dim, axis_group(mesh, a),
+                                   partial_grads=partial_grads)
     return t
 
 
@@ -378,11 +404,14 @@ def _kept(keep, d: int) -> Tuple[str, ...]:
     return spec_axes(keep[d]) if keep is not None and d < len(keep) else ()
 
 
-def gather(t, keep: Optional[Spec] = None) -> torch.Tensor:
+def gather(t, keep: Optional[Spec] = None, rows=()) -> torch.Tensor:
     """A plain tensor of ``t``: a DTensor all-gathered along every dim
     that a mesh axis of size > 1 shards, except where ``keep`` (a spec:
     the layout the caller computes in) names that axis on that dim. A
-    plain tensor comes back as it is."""
+    plain tensor comes back as it is. ``rows``: the axes whose ranks
+    compute different rows with the result; under a gradient a gather
+    over one of them reduce-scatters the gradient, and a dim replicated
+    over one of them all-reduces it (the module says why)."""
     if not _is_dtensor(t):
         return t
     mesh = t.device_mesh
@@ -390,10 +419,16 @@ def gather(t, keep: Optional[Spec] = None) -> torch.Tensor:
     out = t.to_local()
     for i in reversed(range(len(names))):   # the minor axis of a dim first
         pl = t.placements[i]
-        if (not pl.is_shard() or mesh.size(i) == 1
-                or names[i] in _kept(keep, pl.dim)):
+        if mesh.size(i) == 1:
             continue
-        out = _all_gather(out, pl.dim, mesh.get_group(names[i]))
+        if not pl.is_shard():
+            if names[i] in rows:
+                out = collectives.reduce_grad(out, mesh.get_group(names[i]))
+            continue
+        if names[i] in _kept(keep, pl.dim):
+            continue
+        out = collectives.all_gather(out, pl.dim, mesh.get_group(names[i]),
+                                     partial_grads=names[i] in rows)
     return out
 
 

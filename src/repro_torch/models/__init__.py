@@ -8,8 +8,8 @@ requires a gradient (the training path), without it none does (serving,
 the default). A ``ShardCtx`` on a ``DeviceMesh`` puts the LM's weights at
 ``launch.shardings.param_specs``' placements, each rank keeping its shard
 of the same seeded draw (:func:`place`; ``models/transformer.py`` says how
-the model then serves); such a model does not train (ROADMAP §1 item 12e),
-and the encoder-decoder takes no sharded context (item 12f):
+the model then serves and trains); the encoder-decoder takes no sharded
+context (ROADMAP §1 item 12f):
 
 * :class:`LM` — decoder-only (dense, MoE, MLA, SSM, hybrid);
 * :class:`EncDec` — the Whisper-style encoder-decoder (audio);
@@ -40,10 +40,6 @@ def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
     placed = ctx is not None and shardings.is_device_mesh(ctx.mesh)
     if ctx is not None:
         ctx.check_local()
-        if placed and trainable:
-            raise NotImplementedError(
-                "a model at DTensor placements does not train: ROADMAP.md "
-                "section 1, item 12e")
         if cfg.is_encoder_decoder and (placed or ctx.sharded):
             raise NotImplementedError(
                 "the encoder-decoder serves on one device: a sharded "

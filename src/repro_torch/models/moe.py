@@ -33,6 +33,15 @@ one-device MoE. Every decision matches the reference's:
 
 The shared experts (DeepSeek) run densely on every token and are added
 last, after the partials are summed.
+
+Under a gradient the collectives are Megatron's pair
+(``launch/collectives.py``): the partials' ``all_reduce`` passes the
+gradient through, and x and the router enter the rank's experts through
+``reduce_grad`` over the TP axis (and over the token split's axis, whose
+``narrow`` gives each rank a part of x's gradient), which sums their
+gradients there. The expert slab's gather over a token split or a batch
+axis reduce-scatters its gradient; the token split gathered back takes the
+rank's slice.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..launch import shardings
+from ..launch import collectives, shardings
 from .layers import dense_init, dtype_of, param, wide
 
 __all__ = ["moe_init", "moe_apply", "moe_body", "moe_ranks", "route",
@@ -196,19 +205,24 @@ def moe_apply(p, x, cfg: ModelConfig, ctx=None):
         raise ValueError(f"{cfg.num_experts} experts do not split over "
                          f"{tp} ranks of {tp_axis!r}")
     rank = ctx.rank(tp_axis) if tp > 1 else 0
+    split = _token_split(ctx, B * S) if ctx is not None else None
+    rows = (*ctx.row_axes, *((split[0],) if split else ())) if ctx else ()
     # the rank's expert slab, gathered over FSDP (dims 1, 1 and 2)
     ep = ((tp_axis,), None, None)
-    slab = [shardings.gather(p[k], ep)
+    slab = [shardings.gather(p[k], ep, rows=rows)
             for k in ("moe_up", "moe_gate", "moe_down")]
-    split = _token_split(ctx, B * S) if ctx is not None else None
-    xs = xt
+    tp_group = ctx.group(tp_axis) if tp > 1 else None
+    xs, router = xt, p["router"]
     if split is not None:
         axis, n, r = split
-        xs = xt.narrow(0, r * (B * S // n), B * S // n)
-    y = moe_body(xs, p["router"], *slab, cfg, tp, rank)
-    if tp > 1:
-        import torch.distributed as dist
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ctx.group(tp_axis))
+        group = ctx.group(axis)
+        xs = collectives.reduce_grad(xs, group).narrow(
+            0, r * (B * S // n), B * S // n)
+        router = collectives.reduce_grad(router, group)
+    xs = collectives.reduce_grad(xs, tp_group)
+    router = collectives.reduce_grad(router, tp_group)
+    y = collectives.all_reduce(moe_body(xs, router, *slab, cfg, tp, rank),
+                               tp_group)
     if split is not None:
         y = shardings.gather_dim(y, 0, ctx.mesh, axis)
     return _shared(p, xt, y, cfg).reshape(B, S, d)

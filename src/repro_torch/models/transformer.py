@@ -31,6 +31,17 @@ the same on every rank. At a world of 1 every axis has size 1, no
 collective runs, and the model computes exactly what it computes without
 a context.
 
+A differentiated forward on a mesh (training) runs the same program
+through ``launch/collectives.py``: a weight's gather over a batch axis
+reduce-scatters its gradient (each rank computed its own rows), a weight
+replicated over one all-reduces it, a gather over any other axis takes
+the rank's slice, and the MoE's collectives are Megatron's pair
+(``models/moe.py``). Such a forward returns the rank's rows of the logits
+(``rows=True``, the default when differentiated): the loss is reduced
+over the batch axes (``train/loss.py``), and no rank holds the global
+logits. Under remat each unit's gathers run inside its checkpoint, so the
+backward gathers the weights again and none is kept across the unit.
+
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
 for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
 (B, S, rd)) for MLA layers and ``{"ssm", "conv"}`` states ((B, H, P, N)
@@ -85,9 +96,7 @@ class ShardCtx:
     The reference's dry run shards the cache's sequence only when the
     batch is too small to shard (``batch_axes=()``), and the batch over
     "data" otherwise; a context that shards both over one axis raises
-    (ROADMAP §3 item 32). A differentiated forward on a mesh with more
-    than one device raises: training through the collectives is ROADMAP
-    §1 item 12e."""
+    (ROADMAP §3 item 32)."""
 
     mesh: Any = None
     batch_axes: Tuple[str, ...] = ()
@@ -111,6 +120,11 @@ class ShardCtx:
         """The one axis of ``axes`` with more than one device, or None."""
         wide = [a for a in (axes or ()) if self.size(a) > 1]
         return wide[0] if wide else None
+
+    @property
+    def row_axes(self) -> Tuple[str, ...]:
+        """The axes whose ranks compute different rows of the batch."""
+        return tuple(a for a in self.batch_axes if self.size(a) > 1)
 
     @property
     def sharded(self) -> bool:
@@ -142,13 +156,6 @@ class ShardCtx:
                 f"port shards a cache's sequence only with batch_axes=() (a "
                 f"batch too small to shard), as the reference's dry run "
                 f"does; ROADMAP.md section 3, item 32")
-
-    def check_grad(self, needs_grad: bool) -> None:
-        if needs_grad and self.sharded:
-            raise NotImplementedError(
-                "a differentiated forward on a mesh with more than one "
-                "device: training through the expert-parallel all_reduce "
-                "and the FSDP gathers is ROADMAP.md section 1, item 12e")
 
 
 def _place_seq(entry, cache_len: int, seq_axis: int):
@@ -205,11 +212,12 @@ class Block(nn.Module):
 _BANKS = ("moe_up", "moe_gate", "moe_down")
 
 
-def _gathered(p: dict) -> dict:
+def _gathered(p: dict, rows=()) -> dict:
     """A layer's parameters (``remat.unit_params``) to compute with: each
-    DTensor all-gathered to full, the expert banks as they are."""
-    return {k: (_gathered(v) if isinstance(v, dict)
-                else v if k in _BANKS else shardings.gather(v))
+    DTensor all-gathered to full, the expert banks as they are; ``rows``
+    as in ``shardings.gather``."""
+    return {k: (_gathered(v, rows) if isinstance(v, dict)
+                else v if k in _BANKS else shardings.gather(v, rows=rows))
             for k, v in p.items()}
 
 
@@ -250,36 +258,42 @@ class LM(nn.Module):
         return shardings.is_device_mesh(self.ctx.mesh)
 
     # ------------------------------------------------------ sharding helpers
+    def _compute(self, p: dict) -> dict:
+        """Parameters (``remat.unit_params``) to compute with
+        (:func:`_gathered` on a ``DeviceMesh``)."""
+        return _gathered(p, self.ctx.row_axes) if self._placed else p
+
     def _params(self, blk: Block) -> dict:
-        """``blk``'s parameters to compute with (:func:`_gathered`)."""
-        p = remat.unit_params(blk)
-        return _gathered(p) if self._placed else p
+        """``blk``'s parameters to compute with."""
+        return self._compute(remat.unit_params(blk))
 
     def _top(self):
         """The embedding table, the head and the final norm, gathered
         (the module's own off a ``DeviceMesh``)."""
         if not self._placed:
             return self.embed, self.final_norm
-        return ({k: shardings.gather(self.embed[k])
+        rows = self.ctx.row_axes
+        return ({k: shardings.gather(self.embed[k], rows=rows)
                  for k in ("embedding", "head")},
-                shardings.gather(self.final_norm))
+                shardings.gather(self.final_norm, rows=rows))
 
-    def _check_grad(self, *inputs) -> None:
-        if self.ctx.sharded:
-            self.ctx.check_grad(torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (*inputs, *self.parameters())))
+    def _differentiated(self, *inputs) -> bool:
+        return torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*inputs, *self.parameters()))
 
-    def _rows(self, t):
+    def rows(self, t):
         """This rank's rows of a global batch (its block over the batch
-        axes)."""
+        axes): also the labels of the logits ``apply(..., rows=True)``
+        returns."""
         if t is None or not self.ctx.batch_axes:
             return t
         return shardings.local_shard(t, self.ctx.mesh,
                                      (tuple(self.ctx.batch_axes),))
 
     def _unrows(self, t):
-        """The global batch of every rank's rows ``t``."""
+        """The global batch of every rank's rows ``t`` (the same on every
+        rank after it: the gradient's adjoint is the rank's slice)."""
         if not self.ctx.batch_axes:
             return t
         return shardings.gather_dim(t, 0, self.ctx.mesh,
@@ -357,9 +371,10 @@ class LM(nn.Module):
 
     def _unit(self, x, params, positions):
         """One repeat of the pattern (the reference's scan body) on its
-        layers' parameters ``params``."""
+        layers' parameters ``params`` (``remat.unit_params``), gathered
+        here: inside the checkpoint, so the backward gathers again."""
         for spec, p in zip(self.cfg.pattern, params):
-            x, _ = self._layer_apply(spec, p, x, positions)
+            x, _ = self._layer_apply(spec, self._compute(p), x, positions)
         return x
 
     def _positions(self, B: int, S: int):
@@ -374,30 +389,35 @@ class LM(nn.Module):
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return x
 
-    def forward(self, tokens, extra_embeds=None):
+    def forward(self, tokens, extra_embeds=None, rows=None):
         """:meth:`apply` (the call ``torch.func.functional_call`` makes)."""
-        return self.apply(tokens, extra_embeds=extra_embeds)
+        return self.apply(tokens, extra_embeds=extra_embeds, rows=rows)
 
-    def apply(self, tokens, *, extra_embeds=None):
+    def apply(self, tokens, *, extra_embeds=None, rows=None):
         """tokens: (B, S_text) -> logits (B, S, padded_vocab); S counts the
         ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings.
-        Each unit runs under ``remat.checkpointed`` (``cfg.remat``)."""
+        Each unit runs under ``remat.checkpointed`` (``cfg.remat``). With
+        ``rows`` (by default: when the forward is differentiated) the
+        logits are this rank's rows of the batch (:meth:`rows`), else the
+        global batch."""
         cfg = self.cfg
-        self._check_grad(extra_embeds)
+        if rows is None:
+            rows = self._differentiated(extra_embeds)
         emb, final_norm = self._top()
-        x = self._embed(self._rows(tokens), self._rows(extra_embeds), emb)
+        x = self._embed(self.rows(tokens), self.rows(extra_embeds), emb)
         positions = self._positions(*x.shape[:2])
         layers = list(self.layers)
         if cfg.first_layer_dense:
             x, _ = self._block_apply(layers.pop(0), x, positions)
         P, policy = cfg.pattern_len, cfg.remat_policy if cfg.remat else None
         for i in range(0, len(layers), P):
-            # gathered here, inside functional_call: the state's tensors
-            params = [self._params(blk) for blk in layers[i:i + P]]
+            # read here, inside functional_call: the state's tensors
+            params = [remat.unit_params(blk) for blk in layers[i:i + P]]
             x = remat.checkpointed(self._unit, x, params, positions,
                                    policy=policy)
         x = rms_norm(x, final_norm, cfg.norm_eps)
-        return self._unrows(lm_head(emb, x, cfg))
+        logits = lm_head(emb, x, cfg)
+        return logits if rows else self._unrows(logits)
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, dtype=None) -> dict:
@@ -449,7 +469,7 @@ class LM(nn.Module):
         another shard holds it) and ``route`` :meth:`_seq_route`'s."""
         cfg = self.cfg
         if self._placed:
-            p = _gathered(remat.unit_params(blk))
+            p = self._params(blk)
             ln1, mixer, ln2, mlp = p["ln1"], p["mixer"], p.get("ln2"), \
                 p.get("mlp")
             keep = {k: self._layout(k, True) for k in c}
@@ -499,7 +519,7 @@ class LM(nn.Module):
         if lslot is not None:
             local_sp[lslot] = pos
         emb, final_norm = self._top()
-        x = embed_lookup(emb, self._rows(tokens), cfg)
+        x = embed_lookup(emb, self.rows(tokens), cfg)
         route = self._seq_route()
         for blk, c in zip(self.layers, cache["layers"]):
             x = self._block_decode(blk, c, x, slot_pos, local_sp, pos, slot,
@@ -513,9 +533,8 @@ class LM(nn.Module):
                 extra_embeds=None):
         """Forward pass that also builds a decode-ready cache in one pass;
         ``extra_embeds`` as in :meth:`apply`."""
-        self._check_grad(extra_embeds)
         emb, final_norm = self._top()
-        x = self._embed(self._rows(tokens), self._rows(extra_embeds), emb)
+        x = self._embed(self.rows(tokens), self.rows(extra_embeds), emb)
         B, S = x.shape[:2]
         cache_len = cache_len or S
         positions = self._positions(B, S)

@@ -33,12 +33,17 @@ class VLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm.device
 
-    def forward(self, tokens, patch_embeds):
-        return self.apply(tokens, patch_embeds)
+    def forward(self, tokens, patch_embeds, rows=None):
+        return self.apply(tokens, patch_embeds, rows=rows)
 
-    def apply(self, tokens, patch_embeds):
-        """tokens: (B, S - num_patches); patch_embeds: (B, num_patches, d)."""
-        return self.lm.apply(tokens, extra_embeds=patch_embeds)
+    def apply(self, tokens, patch_embeds, *, rows=None):
+        """tokens: (B, S - num_patches); patch_embeds: (B, num_patches, d);
+        ``rows`` as in ``LM.apply``."""
+        return self.lm.apply(tokens, extra_embeds=patch_embeds, rows=rows)
+
+    def rows(self, t):
+        """This rank's rows of a global batch (``LM.rows``)."""
+        return self.lm.rows(t)
 
     def prefill(self, tokens, patch_embeds, cache_len: Optional[int] = None):
         return self.lm.prefill(tokens, cache_len=cache_len,

@@ -11,9 +11,17 @@ a JAX key; a checkpoint in ``ckpt_dir`` resumes at its step, the balancer's
 state riding in its manifest. Both the standard and the partitioned step
 train under the config's ``remat`` and ``remat_policy`` (each layer unit
 recomputed in the backward by default, as in the reference).
+
+A model placed on a ``DeviceMesh`` (``build_model(..., ctx=ShardCtx(mesh=
+...), trainable=True)``) trains as it lies: its state is at the specs'
+placements, each rank feeds the step the same global batch, and each rank
+checkpoints its own shards in ``ckpt_dir/rank<global rank>`` (one
+directory a rank where the world has more than one), so a restore is
+bitwise (``docs/INVARIANTS.md``).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -56,6 +64,15 @@ class TrainerConfig:
     sim_sigmas: tuple = (0.05, 0.4)
 
 
+def _rank_dir(ckpt_dir: str) -> str:
+    """This rank's checkpoint directory: ``ckpt_dir`` itself in a world of
+    one, else its ``rank<global rank>`` subdirectory."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return os.path.join(ckpt_dir, f"rank{dist.get_rank():05d}")
+    return ckpt_dir
+
+
 class Trainer:
     """Trains ``model`` (on its device) for ``tcfg.steps`` steps.
 
@@ -71,7 +88,8 @@ class Trainer:
         self.lr = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps)
         self.stream = SyntheticStream(cfg, tcfg.seq, tcfg.batch,
                                       seed=tcfg.seed)
-        self.ckpt = (CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_interval)
+        self.ckpt = (CheckpointManager(_rank_dir(tcfg.ckpt_dir),
+                                       tcfg.ckpt_interval)
                      if tcfg.ckpt_dir else None)
         self.balancer = None
         self.sim = None

@@ -22,26 +22,38 @@ and ``flash_attention`` kernels and the backward their backward kernels
 layer unit in the backward (``models/remat.py``), launching its forward
 kernels a second time; the unit reads the state's tensors, which the model
 gathers while ``functional_call`` has them in place.
+
+On a mesh (a model built with a ``ShardCtx`` on a ``DeviceMesh``) the
+state's parameters and moments are DTensors at ``state_specs``'
+placements. Each step takes the global batch, and the model computes this
+rank's rows of it (``LM.rows``): the logits are the rank's rows, the loss
+is summed over the batch axes (``train/loss.py``), and each gradient comes
+out at its parameter's placements, the sum over every rank's rows
+(``models/transformer.py`` says how the gathers' adjoints make it).
+Accumulation and the update run on this rank's shards. At a world of one
+every step is bitwise the unplaced model's.
 """
 from __future__ import annotations
 
 import functools
+import re
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.func import functional_call
 
 from ..configs.base import ModelConfig
+from ..launch import collectives
 from ..launch import mesh as mesh_lib
+from ..launch.shardings import like, local
 from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from ..optim.compress import dequantize_int8, quantize_int8
 from .loss import softmax_xent
 
 __all__ = ["TrainState", "init_state", "make_train_step",
            "make_partitioned_train_step", "forward", "make_loss_fn",
-           "value_and_grad", "trainable"]
+           "value_and_grad", "trainable", "decayed_leaves"]
 
 
 class TrainState(NamedTuple):
@@ -57,17 +69,58 @@ def init_state(model) -> TrainState:
     return TrainState(params=params, opt=adamw_init(params))
 
 
+_UNIT = re.compile(r"^(?:lm\.)?layers\.(\d+)\.")
+
+
+def decayed_leaves(model, cfg: ModelConfig) -> frozenset:
+    """The names of the parameters AdamW decays, as the reference does:
+    it decays every leaf of two or more dimensions, and it stores each
+    layer unit's leaves stacked over the repeats (a unit's norm scale is
+    (repeats, d) there), so every leaf of a unit is decayed; a first dense
+    layer, the embedding's and the final norm are not stacked."""
+    off = 1 if cfg.first_layer_dense else 0
+    out = set()
+    for name, p in model.named_parameters():
+        unit = _UNIT.match(name)
+        if (p.ndim >= 2 or (unit is not None and int(unit.group(1)) >= off)
+                or name.startswith(("enc_blocks.", "dec_blocks."))):
+            out.add(name)
+    return frozenset(out)
+
+
 def forward(model, cfg: ModelConfig, params, tokens, extra_embeds=None):
-    """Uniform forward dispatch across LM / EncDec / VLM, on ``params``."""
-    if cfg.is_encoder_decoder or cfg.num_patches:
+    """Uniform forward dispatch across LM / EncDec / VLM, on ``params``:
+    the logits of this rank's rows of the batch (all of them off a
+    mesh)."""
+    if cfg.is_encoder_decoder:
         return functional_call(model, params, (tokens, extra_embeds))
-    return functional_call(model, params, (tokens,))
+    if cfg.num_patches:
+        return functional_call(model, params, (tokens, extra_embeds),
+                               {"rows": True})
+    return functional_call(model, params, (tokens,), {"rows": True})
 
 
-def make_loss_fn(model, cfg: ModelConfig, *, reduce: str = "mean"):
+def _ctx(model):
+    """The model's ``ShardCtx`` (None for the encoder-decoder)."""
+    inner = getattr(model, "lm", model)
+    return getattr(inner, "ctx", None)
+
+
+def make_loss_fn(model, cfg: ModelConfig, *, reduce: str = "mean",
+                 groups=()):
+    """The loss of ``params`` on a batch; ``groups``: the process groups
+    of further axes whose ranks hold other rows (the pod axis of
+    :func:`make_train_step`), besides the model's batch axes."""
+    ctx = _ctx(model)
+    groups = ([ctx.group(a) for a in ctx.row_axes] if ctx is not None
+              else []) + list(groups)
+
     def loss_fn(params, tokens, labels, extra_embeds=None):
         logits = forward(model, cfg, params, tokens, extra_embeds)
-        loss, metrics = softmax_xent(logits, labels, cfg.vocab_size)
+        if ctx is not None:
+            labels = model.rows(labels)
+        loss, metrics = softmax_xent(logits, labels, cfg.vocab_size,
+                                     groups)
         if reduce == "sum":
             return loss * metrics["tokens"], metrics
         return loss, metrics
@@ -83,8 +136,8 @@ def value_and_grad(loss_fn: Callable) -> Callable:
             loss, metrics = loss_fn(params, *args)
             leaves = list(params.values())
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = {k: g if g is not None else torch.zeros_like(p)
-                 for (k, p), g in zip(params.items(), grads)}
+        grads = {k: g if g is not None else like(p, torch.zeros_like(
+                     local(p))) for (k, p), g in zip(params.items(), grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), grads
     return fn
@@ -92,13 +145,35 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 def make_train_step(model, cfg: ModelConfig, lr, *, accum: int = 1,
                     weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                    accum_dtype=torch.float32):
+                    accum_dtype=torch.float32, pod_axis=None):
     """The standard train step with optional fixed gradient accumulation
     (``accum`` microbatches of B / accum rows, gradients summed in
-    ``accum_dtype`` and averaged)."""
-    grad_fn = value_and_grad(make_loss_fn(model, cfg))
+    ``accum_dtype`` and averaged).
+
+    ``pod_axis``: an axis of the model's mesh that its context leaves out
+    (the pods of the multi-pod mesh, over which the reference shards the
+    batch together with "data"): each pod takes its block of the batch's
+    rows, the loss is summed over the pod group too, and one
+    ``all_reduce`` over it joins the gradients (data parallelism across
+    pods)."""
+    ctx = _ctx(model)
+    pod_group = (mesh_lib.axis_group(ctx.mesh, pod_axis)
+                 if pod_axis is not None else None)
+    npods = mesh_lib.axis_size(ctx.mesh, pod_axis) if pod_group else 1
+    pod = mesh_lib.axis_rank(ctx.mesh, pod_axis) if pod_group else 0
+    grad_fn = value_and_grad(make_loss_fn(
+        model, cfg, groups=[pod_group] if pod_group else []))
+    decayed = decayed_leaves(model, cfg)
+
+    def pod_rows(x):
+        if x is None or npods == 1:
+            return x
+        n = x.shape[0] // npods
+        return x[pod * n:(pod + 1) * n]
 
     def train_step(state: TrainState, tokens, labels, extra_embeds=None):
+        tokens, labels, extra_embeds = (pod_rows(tokens), pod_rows(labels),
+                                        pod_rows(extra_embeds))
         if accum == 1:
             (loss, metrics), grads = grad_fn(state.params, tokens, labels,
                                              extra_embeds)
@@ -108,23 +183,30 @@ def make_train_step(model, cfg: ModelConfig, lr, *, accum: int = 1,
             def rows(x, i):
                 return None if x is None else x[i * mb:(i + 1) * mb]
 
-            grads = {k: torch.zeros(p.shape, dtype=accum_dtype,
-                                    device=p.device)
-                     for k, p in state.params.items()}
+            acc = {k: torch.zeros(local(p).shape, dtype=accum_dtype,
+                                  device=local(p).device)
+                   for k, p in state.params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(accum):
                 (li, metrics), g = grad_fn(state.params, rows(tokens, i),
                                            rows(labels, i),
                                            rows(extra_embeds, i))
-                grads = {k: a + g[k].to(a.dtype) for k, a in grads.items()}
+                acc = {k: a + local(g[k]).to(a.dtype) for k, a in acc.items()}
                 loss = loss + li
-            grads = {k: g / accum for k, g in grads.items()}
+            grads = {k: like(state.params[k], a / accum)
+                     for k, a in acc.items()}
             loss = loss / accum
             metrics = dict(metrics)
             metrics["loss"] = loss
+        if pod_group is not None:
+            locs = {k: local(g) for k, g in grads.items()}
+            flat = collectives.all_reduce(_flat(locs), pod_group)
+            grads = {k: like(state.params[k], g.to(locs[k].dtype))
+                     for k, g in _unflat(flat, locs).items()}
         params, opt, om = adamw_update(state.params, grads, state.opt, lr,
                                        weight_decay=weight_decay,
-                                       max_grad_norm=max_grad_norm)
+                                       max_grad_norm=max_grad_norm,
+                                       decayed=decayed)
         return TrainState(params, opt), {**metrics, **om}
 
     return train_step
@@ -151,10 +233,10 @@ def _compressed_join(g_sum: dict, npods: int, group) -> dict:
     q_flat = torch.cat([q.reshape(-1) for q, _ in qs.values()])
     s_flat = torch.cat([s.reshape(-1) for _, s in qs.values()])
     if npods > 1:
-        q_all = [torch.empty_like(q_flat) for _ in range(npods)]
-        s_all = [torch.empty_like(s_flat) for _ in range(npods)]
-        dist.all_gather(q_all, q_flat, group=group)
-        dist.all_gather(s_all, s_flat, group=group)
+        q_all = collectives.all_gather(q_flat, 0, group,
+                                       partial_grads=False).chunk(npods)
+        s_all = collectives.all_gather(s_flat, 0, group,
+                                       partial_grads=False).chunk(npods)
     else:
         q_all, s_all = [q_flat], [s_flat]
     out = {}
@@ -194,6 +276,7 @@ def make_partitioned_train_step(model, cfg: ModelConfig, mesh, lr, *,
     by the tokens.
     """
     grad_fn = value_and_grad(make_loss_fn(model, cfg, reduce="sum"))
+    decayed = decayed_leaves(model, cfg)
     npods = mesh_lib.axis_size(mesh, pod_axis)
     pod = mesh_lib.axis_rank(mesh, pod_axis)
     group = mesh_lib.axis_group(mesh, pod_axis)
@@ -209,33 +292,35 @@ def make_partitioned_train_step(model, cfg: ModelConfig, mesh, lr, *,
         sl = slice(pod * rows, (pod + 1) * rows)
         params = state.params
         dev = tokens.device
-        g_sum = {p_: torch.zeros(t.shape, dtype=torch.float32, device=dev)
+        g_sum = {p_: torch.zeros(local(t).shape, dtype=torch.float32,
+                                 device=dev)
                  for p_, t in params.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         tok_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(min(k, max_micro)):
             (lsum, m), g = grad_fn(params, tokens[i, sl], labels[i, sl], None)
-            g_sum = {p_: a + g[p_].float() for p_, a in g_sum.items()}
+            g_sum = {p_: a + local(g[p_]).float() for p_, a in g_sum.items()}
             loss_sum = loss_sum + lsum
             tok_sum = tok_sum + m["tokens"]
         if compress_pod_reduce:
             g_tot = _compressed_join(g_sum, npods, group)
             if npods > 1:
-                lt = torch.stack([loss_sum, tok_sum])
-                dist.all_reduce(lt, group=group)
+                lt = collectives.all_reduce(torch.stack([loss_sum, tok_sum]),
+                                            group)
                 loss_sum, tok_sum = lt[0], lt[1]
         elif npods > 1:
-            flat = torch.cat([_flat(g_sum), loss_sum[None], tok_sum[None]])
-            dist.all_reduce(flat, group=group)
+            flat = collectives.all_reduce(torch.cat(
+                [_flat(g_sum), loss_sum[None], tok_sum[None]]), group)
             g_tot = _unflat(flat[:-2], g_sum)
             loss_sum, tok_sum = flat[-2], flat[-1]
         else:   # one pod: the sum over the pod axis is the pod's own
             g_tot = g_sum
         denom = torch.clamp(tok_sum, min=1.0)
-        grads = {p_: g / denom for p_, g in g_tot.items()}
+        grads = {p_: like(params[p_], g / denom) for p_, g in g_tot.items()}
         new_params, opt, om = adamw_update(params, grads, state.opt, lr,
                                            weight_decay=weight_decay,
-                                           max_grad_norm=max_grad_norm)
+                                           max_grad_norm=max_grad_norm,
+                                           decayed=decayed)
         return (TrainState(new_params, opt),
                 {"loss": loss_sum / denom, "tokens": tok_sum, **om})
 

@@ -197,9 +197,31 @@ def test_harness_reports_a_failing_suite_and_keeps_going(monkeypatch,
     assert "FAILED suites: ['a']" in capsys.readouterr().err
 
 
-def test_harness_roofline_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        harness.main(["--only", "fig1,roofline", "--device", DEV])
+def test_harness_roofline_names_its_roadmap_item(monkeypatch, tmp_path,
+                                                capsys):
+    """The roofline suite (ROADMAP 13a) tabulates the dry run's records; a
+    cell the port does not run names its item (12f) and passes the
+    gate."""
+    import json
+    from repro_torch.bench import common, roofline_table
+    rec_dir = tmp_path / "dryrun"
+    rec_dir.mkdir()
+    terms = {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.5,
+             "dominant": "memory_s", "roofline_fraction": 0.5}
+    for i, rec in enumerate((
+            {"arch": "a", "shape": "s", "mesh": "m", "status": "ok",
+             "roofline": terms, "useful_flops_ratio": 0.25},
+            {"arch": "w", "shape": "s", "mesh": "m", "status": "not_ported",
+             "reason": "ROADMAP.md section 1, item 12f"})):
+        (rec_dir / f"{i}.json").write_text(json.dumps(rec))
+    monkeypatch.setattr(roofline_table, "DRYRUN_DIR", str(rec_dir))
+    monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
+    harness.main(["--only", "roofline", "--device", DEV])
+    assert "skipped=0;not_ported=1;failed=0" in capsys.readouterr().out
+    table = (tmp_path / "roofline_table.csv").read_text().splitlines()
+    assert table[1].split(",")[3:8] == ["ok", "1.0000", "2.0000", "0.5000",
+                                        "memory"]
+    assert "NOT_PORTED" in table[2] and "item 12f" in table[2]
 
 
 # ------------------------------------------------------------- serving

@@ -98,7 +98,7 @@ def _one_process(compress):
     denom = torch.clamp(toks, min=1.0)
     params, _, _ = adamw.adamw_update(
         state.params, {n: g / denom for n, g in total.items()}, state.opt,
-        _lr())
+        _lr(), decayed=tstep.decayed_leaves(model, cfg))
     return loss / denom, toks, params
 
 
