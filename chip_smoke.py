@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, a few minutes
     python3 chip_smoke.py --phases card,build,check
+    python3 chip_smoke.py --phases card,build,lint
     python3 chip_smoke.py --phases card,build,lmcheck,serve,lmtick
     python3 chip_smoke.py --phases card,build,lmcheck,ssmserve,lmtick
     python3 chip_smoke.py --phases card,build,lmcheck,moeserve,zoo
@@ -28,7 +29,21 @@ Phases, in order:
    ``build/repro_torch/`` (frontier_grid, its float32-sum variant
    ``-DFG_ACC=float``, rmsnorm, attention, ssd_scan, compose and
    family_score), all seven at once.
-3. ``check``  — each CUDA kernel against its plain PyTorch version on the
+3. ``lint``   — the port's invariant linter (``repro_torch.analysis``) over
+   the whole ``src/`` (both packages), 0 findings; the card's limits
+   against the port's constants (``shared_memory_per_block_optin`` equal
+   to ``autotune.SMEM_LIMIT_BYTES``, ``compose.SMEM_MAX`` and
+   ``family_score.SMEM_MAX``, ``max_threads_per_block`` at least
+   ``autotune.MAX_THREADS``); then each built kernel instance's registers,
+   static shared memory, local bytes and stack frame (where spills land)
+   (``cuobjdump --dump-resource-usage``, names through ``cu++filt``; its
+   SHARED less the 1 KB the card reserves a block), one line each, held:
+   static shared memory within the opt-in limit, each
+   frontier instance's static shared memory plus the model's dynamic
+   shared memory at every combination lint rule RPA030 audits within it,
+   and pass 1's registers times ``MAX_THREADS`` within a block's 65536.
+   Spills are reported, not held.
+4. ``check``  — each CUDA kernel against its plain PyTorch version on the
    card: 5 families x {shared, per-row statistics} x {fwd, grad, pgrad} at
    F=256, K=128, T=256 with edge rows (a zero weight, a zero sigma, p=0, an
    argmax tie), one case at T=2048, grids past 4096 points (F=3, K=1024,
@@ -38,26 +53,26 @@ Phases, in order:
    of each launch of one call (the forward split: pass 1 and an epilogue;
    the adjoint: pass 1, pass 2, epilogue). Every case runs twice and must
    repeat its bits.
-4. ``tick``   — the fleet tick, K=1024 channels, F=4096 candidates, T=256:
+5. ``tick``   — the fleet tick, K=1024 channels, F=4096 candidates, T=256:
    kernel against plain, and their times, for fwd, grad and pgrad, three
    families.
-5. ``acc32``  — what the float64 sums cost: the shipped kernels against the
+6. ``acc32``  — what the float64 sums cost: the shipped kernels against the
    float32-sum build, interleaved, at the fleet tick and at a refresh's
    launch shapes, each also held against the plain version (reported, not
    asserted: the float32 sums are the reference's arithmetic).
-6. ``loop``   — the main path: ``UncertaintyAwareBalancer(1024, lam=0.02,
+7. ``loop``   — the main path: ``UncertaintyAwareBalancer(1024, lam=0.02,
    refresh_every=10, pgd_steps=60)`` against
    ``ClusterSim.heterogeneous(1024, seed=0)`` for 40 ticks, channel 0 slowed
    3x at tick 20, with policy "frontier", "equal", and "frontier" with
    adaptive refresh and risk_lam=0.5. Launch counters are zeroed before and
    read after; every mode must have launched.
-7. ``profile`` — warm balancer refreshes at K=1024 on the host clock (the
+8. ``profile`` — warm balancer refreshes at K=1024 on the host clock (the
    median of five) and one under torch.profiler: device time by kernel,
    the busy share, and the device time per call of the fused adjoint and
    of the forward split.
-8. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
+9. ``twoch``  — the two-channel quickstart through ``optimize_2ch``, on the
    card and on the CPU plain path.
-9. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
+10. ``lmcheck`` — the model kernels (rmsnorm, flash_attention, flash_decode,
    ssd_scan) against their plain versions on the card, float32 and bf16,
    run twice (bitwise-equal): causal, window, GQA, rectangular, ragged and
    Qwen3-8B's own shapes; attention at D = 64, 80, 128 and 192, Nemotron-4-
@@ -77,7 +92,7 @@ Phases, in order:
    Jamba configs on the card against the same weights on the CPU (prefill
    logits and greedy tokens), and the tiny Whisper and InternVL2 with
    their frames and patches (prefill and 4 decode steps' logits).
-10. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
+11. ``serve`` — the model-serving path: full-width Qwen3-8B (36 layers,
    bf16, seeded weights drawn on the card) shared by two ReplicaGroups
    behind a PartitionedBatcher (policy frontier) on ClusterSim([Channel(20,
    2), Channel(14, 5)]); 5 batches of 64 prompts of 16 tokens, max_new 8.
@@ -86,7 +101,7 @@ Phases, in order:
    every model kernel and the frontier grad kernel must have launched; two
    generate calls on one batch must agree. One group's generate is
    profiled, with the device time of each model kernel.
-11. ``ssmserve`` — the same serving path with full-width Mamba2-2.7B (64
+12. ``ssmserve`` — the same serving path with full-width Mamba2-2.7B (64
    mamba layers, bf16, seeded weights on the card). On 2 x 300 tokens
    (three chunks, the last ragged) and 4 more: every layer on its own input
    at full depth, its mixer through the kernels against the plain versions
@@ -98,7 +113,7 @@ Phases, in order:
    through the batcher, with ssd_scan (64 per prefill), rmsnorm (129 per
    forward) and the frontier forward kernel counted; two generate calls
    must agree; one group's generate profiled.
-12. ``moeserve`` — the same serving path with DeepSeek-V2-Lite-16B at full
+13. ``moeserve`` — the same serving path with DeepSeek-V2-Lite-16B at full
    size, not cut (27 layers: a dense first layer, then MLA with 64 routed
    and 2 shared experts, top-6; bf16, ~15.7 B seeded weights on the card).
    On 2 x 16 tokens: every layer on the kernel path's own input, its
@@ -112,7 +127,7 @@ Phases, in order:
    flash_decode (the absorbed MLA decode is plain matmuls); two generate
    calls must agree; one group's generate profiled, and once more with
    each MoE block in a profiler range (the blocks' share of device time).
-13. ``zoo`` — Whisper-large-v3 at full size (32 + 32 layers, d_model 1280,
+14. ``zoo`` — Whisper-large-v3 at full size (32 + 32 layers, d_model 1280,
    1500 bf16 stub frames), Qwen3-MoE-235B-A22B (d_model 4096, 128 experts
    top-8, GQA 64/4 with qk_norm) and InternVL2-76B (d_model 8192, 256
    prepended patch embeddings) at full width cut to 8 layers, one after
@@ -120,7 +135,7 @@ Phases, in order:
    decode steps through the kernels against the plain versions (relative
    L2 < 0.1), every model kernel's launches counted and held to the count
    the model's code makes.
-14. ``lmtick`` — each model kernel's time at the path's shapes and at the
+15. ``lmtick`` — each model kernel's time at the path's shapes and at the
    serving shapes cut to one layer (prefill_32k at B=1, decode_32k at B=32,
    32768 x 4096 norms; ssd_scan at prefill_32k with B=8 and long_500k at
    B=1, each with its group split, blocks, launches per call and device
@@ -147,7 +162,7 @@ Phases, in order:
    prefill and decodes, Qwen3-MoE's G = 16 decode and InternVL2's prefill
    and G = 8 decode, each held against its plain version, with SDPA
    where it takes the shape, and DeepSeek-V2-Lite's and Whisper's norms.
-15. ``dag``   — the workflow DAG's joint solve (``repro_torch.bench.dag_scale``
+16. ``dag``   — the workflow DAG's joint solve (``repro_torch.bench.dag_scale``
    at full scale: 32 stages, a source, 10 branches of 3 and a sink, K=256,
    T=256, 60 steps, one restart, eval_num_t 2048, 200 paired WorkflowSim
    trials; DAG_REPEATS warm solves each of joint and greedy; the 512-stage
@@ -178,14 +193,14 @@ Phases, in order:
    kernel and with the plain composition (before and after). Last, ``dag_scale.check_gates``: the reference's four gates
    (one batched path, improvement >= 0.088%, joint/greedy wall clock
    <= 1.0, a 512-stage scale point); the phase fails if any fails.
-16. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
+17. ``wfloop`` — ``WorkflowBalancer`` on the 32-stage DAG against
    ``WorkflowSim.from_dag`` for WF_TICKS ticks, refresh_every=5, then
    adaptive refresh with risk_lam=0.5, then that with dirty_tol=1 (the
    incremental path; WF_CONFIGS says why), one stage slowed 3x at
    WF_SLOW_AT: tick mean, solves per tick, dirty-set sizes, the solves'
    relative fragility, launches. Every mode must have launched, and a
    refresh with an empty dirty set launches no PGD step.
-17. ``engine`` — the serving path: ``repro_torch.bench.serve_trace`` at
+18. ``engine`` — the serving path: ``repro_torch.bench.serve_trace`` at
    full scale on the card (the continuous-batching ``WorkflowEngine``, 3
    templates in 3 families, 120 ticks, up to 320 live, T=128, bursty
    arrivals, stage churn), launch counters zeroed before and read after.
@@ -207,14 +222,14 @@ Phases, in order:
    launches must agree and join latencies to 1e-4 relative (a dirty_tol
    decision that flips between the two is printed with its tick, instance
    and drift; only ticks before the first flip are then held).
-18. ``chaos`` — kill/restore parity on the card: ``sim.chaos`` on a
+19. ``chaos`` — kill/restore parity on the card: ``sim.chaos`` on a
    6-channel fleet with churn, on a defective fleet, on the dag_scale smoke
    DAG (8 stages, K=32) with stage churn, and a ``WorkflowEngine`` killed
    every ENGINE_KILL_EVERY ticks through ``save_pipeline`` /
    ``restore_pipeline``; every restored decision must equal the
    survivor's bit for bit. Then the full ``bench.fault_trace`` (12
    channels, 300 ticks): the failure-aware solve must beat the blind one.
-19. ``trace`` — the port's tracing and sanitizer on the card: the full
+20. ``trace`` — the port's tracing and sanitizer on the card: the full
    serve_trace traced (``obs``, a tracer of TRACE_CAPACITY records) against
    the ``engine`` phase's untraced run (run untraced here when that phase
    did not run): every tick's admissions, retirements (iids and join
@@ -232,7 +247,7 @@ Phases, in order:
    SANITIZE_MAX_READS added device syncs a solve, a NaN in mus raising
    before any launch, a NaN gradient planted at step SANITIZE_NAN_STEP (by
    wrapping ``ops.frontier_moments_with_grads`` here) raising named.
-20. ``group`` — the channel-count selection: the forward and adjoint
+21. ``group`` — the channel-count selection: the forward and adjoint
    kernels at K = 1 (F = 1 and 8, T = 2048), all five families, against
    their plain versions (off the path: a one-channel subset takes the
    plain quadrature); then ``select_channels`` on
@@ -244,20 +259,20 @@ Phases, in order:
    Then the first call of each (mode, family, F, K, T) the path made, its
    inputs kept as it ran, again through the kernel (twice: the bits
    repeat) against its plain version at the frontier tolerances.
-21. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
+22. ``straggler`` — ``repro_torch.bench.elastic_fleet`` in quarantine and
    drift modes (16 channels, a 4x straggler at step 60, a hard failure at
    120, two joins at 160, 240 steps): the straggler flagged and quarantined
    or priced as drift, the failure removed, the joins admitted, every split
    a simplex; join statistics before and after, tick times; then each
    shape the scenario launched held as in ``group`` (K = 16, 15 after the
    failure, 17 after the joins; normal and drift).
-22. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
+23. ``paper`` — the paper's Figs 1, 2, 3-4 and 5-6 (``bench.fig1_theory``,
    ``fig2_frontier``, ``fig34_convex_opt``, ``fig56_file_transfer``) on the
    card with their own assertions, held against the CPU plain path (Figs 1
    and 2 mu 1e-4 and var 1e-3 relative, the same efficient mask; the
    simulated columns bit for bit; the joined MSE 1e-4 relative), and the
    201-row Fig 1 call timed (event pair, device, host) beside its bound.
-23. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
+24. ``cluster`` — ``bench.cluster_scale.run(smoke=False)`` on the card: the
    policy comparison at 64 / 256 / 1024 channels (frontier beats equal on
    mean and p99), the fleet ticks at K=1024, F=4096, T=256 against the
    plain foil and autograd (gradient parity 1e-4), the family ticks and the
@@ -276,7 +291,7 @@ Phases, in order:
    time. Then
    ``cluster_scale.check_gates``: the phase fails if the auto-family tick
    costs more than 1.2x the fixed one.
-24. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
+25. ``sweep`` — ``kernels.autotune.sweep`` on the card at the fleet tick
    (K=1024, F=4096, T=256; fwd, grad through
    ``bench.cluster_scale.tick_sweep``, pgrad) and a refresh's shapes (fwd
    F=3 T=2048, grad F=3 T=1024, pgrad F=1 T=1024), normal family, into a
@@ -288,7 +303,7 @@ Phases, in order:
    with them and restored (its next decision bitwise the survivor's), and
    the in-process cache restored, so no other phase launches a swept
    split.
-25. ``examples`` — the ported examples and harness on the card, counters
+26. ``examples`` — the ported examples and harness on the card, counters
    zeroed before and read after: ``bench.quickstart``,
    ``bench.file_transfer`` (its two asserts), ``bench.partitioned_training``
    (its two asserts), ``bench.serve_partitioned`` ``--engine`` (the
@@ -302,7 +317,7 @@ Phases, in order:
    killed run's), and the full-width SmolLM-360M at the batcher's shapes
    (a prefill of 32 x 12 into a cache of 20, then 7 decode steps) through
    the kernels held against the plain ops at relative L2 < 0.1.
-26. ``train`` — the training path. First the three backward kernels
+27. ``train`` — the training path. First the three backward kernels
    (``rmsnorm_bwd``: dx, dw; ``flash_attention_bwd``: dq, dk, dv;
    ``ssd_scan_bwd``: dx, ddt, dA, dB, dC, dD) against autograd of their
    plain forwards on the card (``ref.rmsnorm_ref``,
@@ -398,7 +413,7 @@ Phases, in order:
    gradient leaf at relative L2 5e-2 (a miss is reported with each layer's
    reading, ROADMAP.md section 3), launches counted.
 
-27. ``shard`` — sharded serving and training. (a) A world of one over NCCL
+28. ``shard`` — sharded serving and training. (a) A world of one over NCCL
    (``init_process_group("nccl", world_size=1)`` on a free local port, a
    (1, 1) ``DeviceMesh`` of ("data", "model"); one ``all_reduce`` must
    answer): DeepSeek-V2-Lite-16B at full width (27 layers, 64 experts top
@@ -483,6 +498,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -491,7 +507,7 @@ from contextlib import contextmanager, nullcontext
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-PHASES = ("card", "build", "check", "tick", "acc32", "loop", "profile",
+PHASES = ("card", "build", "lint", "check", "tick", "acc32", "loop", "profile",
           "twoch", "lmcheck", "serve", "ssmserve", "moeserve", "zoo",
           "lmtick", "dag", "wfloop",
           "engine", "chaos", "trace", "group", "straggler", "paper",
@@ -630,6 +646,189 @@ def phase_build(ctx):
         for line in info.get("log", "").splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+
+
+# a block's 32-bit registers on an H100 (64 K): pass 1's threads go up to
+# autotune.MAX_THREADS in the sweep, so its registers must fit such a block
+REGS_PER_BLOCK = 65536
+FRONTIER_PASS1 = ("frontier_fwd_pass1", "frontier_grad_pass1")
+# the frontier library's instances: each pass 1 per family (5 + 5), the
+# forward's epilogue, pass 2 and the adjoint's epilogue per family and
+# grad/pgrad (10 + 10)
+FRONTIER_INSTANCES = 31
+
+
+def _template(name):
+    """(kernel, template arguments) of a demangled kernel name:
+    ``void frontier_grad_pass2<(int)1, (bool)1>(Args, Split, GradOut)``
+    gives ``("frontier_grad_pass2", (1, 1))``; an argument that is not an
+    integer or a bool stays a string."""
+    head = re.sub(r"<unnamed>::|\(anonymous namespace\)::", "",
+                  re.sub(r"^\s*void\s+", "", name))
+    qualified = re.match(r"[\w:]*", head).group(0)
+    kernel = qualified.split("::")[-1]
+    args, rest = [], head[len(qualified):]
+    if rest.startswith("<"):
+        depth, cur = 0, ""
+        for ch in rest[1:]:
+            if ch == "<":
+                depth += 1
+            elif ch == ">" and depth == 0:
+                break
+            elif ch == ">":
+                depth -= 1
+            if ch == "," and depth == 0:
+                args.append(cur)
+                cur = ""
+            else:
+                cur += ch
+        args.append(cur)
+    out = []
+    for a in args:
+        a = re.sub(r"^\((?:unsigned |signed )?\w+\)", "", a.strip()).strip()
+        a = {"true": "1", "false": "0"}.get(a, a)
+        if a:
+            out.append(int(a.rstrip("uUlL"))
+                       if re.fullmatch(r"-?\d+[uUlL]*", a) else a)
+    return kernel, tuple(out)
+
+
+def _frontier_modes(kernel, args, families):
+    """The (family, mode) pairs a frontier kernel instance serves, None for
+    another kernel."""
+    if kernel == "frontier_fwd_epilogue":
+        return [(fam, "fwd") for fam in families]
+    if kernel == "frontier_fwd_pass1":
+        return [(families[args[0]], "fwd")]
+    if kernel == "frontier_grad_pass1":
+        return [(families[args[0]], "grad"), (families[args[0]], "pgrad")]
+    if kernel in ("frontier_grad_pass2", "frontier_grad_epilogue"):
+        return [(families[args[0]], "pgrad" if args[1] else "grad")]
+    return None
+
+
+def _card_limits():
+    """(opt-in shared memory a block, threads a block, shared memory the
+    card reserves a block, where each was read) of card 0: torch's device
+    properties where they carry them, else libcuda's device attributes
+    (CU_DEVICE_ATTRIBUTE 97 and 1); the reservation from libcuda (111),
+    which cuobjdump counts in a kernel's SHARED."""
+    import ctypes
+    import torch
+    props = torch.cuda.get_device_properties(0)
+    cu = ctypes.CDLL("libcuda.so.1")
+    dev, val = ctypes.c_int(), ctypes.c_int()
+    if cu.cuInit(0) or cu.cuDeviceGet(ctypes.byref(dev), 0):
+        raise RuntimeError("libcuda did not open device 0")
+
+    def attr(code):
+        err = cu.cuDeviceGetAttribute(ctypes.byref(val), code, dev)
+        if err:
+            raise RuntimeError(f"cuDeviceGetAttribute({code}): {err}")
+        return int(val.value)
+    out = {}
+    for key, prop, code in (("optin", "shared_memory_per_block_optin", 97),
+                            ("threads", "max_threads_per_block", 1)):
+        v = getattr(props, prop, None)
+        out[key] = (int(v), "torch") if v is not None else (attr(code),
+                                                             "libcuda")
+    out["reserved"] = (attr(111), "libcuda")
+    return out
+
+
+def phase_lint(ctx):
+    """The port's linter over src/, the card's limits against the port's
+    constants, and each built kernel instance's resources against them."""
+    from repro_torch.analysis import format_text, run_paths
+    from repro_torch.analysis.rules import launch as lint_launch
+    from repro_torch.core.distributions import FAMILIES
+    from repro_torch.kernels import _cuda, autotune, compose
+    from repro_torch.kernels import family_score as fs
+    fails = []
+    t0 = time.perf_counter()
+    findings = run_paths([os.path.join(HERE, "src")])
+    lint_s = time.perf_counter() - t0
+    log(f"[lint] repro_torch.analysis over src/: {len(findings)} findings "
+        f"in {lint_s:.2f} s")
+    if findings:
+        log(format_text(findings))
+        fails.append(f"{len(findings)} lint findings")
+
+    card = _card_limits()
+    (optin, _), (max_threads, _), (reserved, _) = (
+        card["optin"], card["threads"], card["reserved"])
+    log(f"[lint] card: shared_memory_per_block_optin {optin} "
+        f"({card['optin'][1]}), max_threads_per_block {max_threads} "
+        f"({card['threads'][1]}), reserved shared memory a block {reserved} "
+        f"({card['reserved'][1]})")
+    consts = {"autotune.SMEM_LIMIT_BYTES": autotune.SMEM_LIMIT_BYTES,
+              "compose.SMEM_MAX": compose.SMEM_MAX,
+              "family_score.SMEM_MAX": fs.SMEM_MAX}
+    for k, v in consts.items():
+        log(f"[lint] {k} = {v}" + ("" if v == optin else
+                                   f"  FAIL: the card's is {optin}"))
+        if v != optin:
+            fails.append(f"{k} = {v} != the card's {optin}")
+    if max_threads < autotune.MAX_THREADS:
+        fails.append(f"autotune.MAX_THREADS = {autotune.MAX_THREADS} over "
+                     f"the card's {max_threads}")
+
+    if not _cuda.BUILD_INFO:
+        phase_build(ctx)
+    # the model's dynamic shared memory at each combination RPA030 audits
+    plans = {(fam, mode, stk): lint_launch.model_plan(
+        autotune, lint_launch.AUDIT_F[stk], lint_launch.AUDIT_K,
+        lint_launch.AUDIT_T, mode, fam)[2]
+        for fam in FAMILIES for mode in autotune.MODES
+        for stk in (False, True)}
+    rows, n_frontier = [], 0
+    for stem, info in sorted(_cuda.BUILD_INFO.items()):
+        for r in _cuda.resource_usage(info["path"]):
+            # cuobjdump's SHARED holds the card's reservation besides the
+            # kernel's static shared memory
+            r["library"] = stem
+            r["static_shared"] = r["shared"] - reserved
+            rows.append(r)
+            log(f"[lint] {stem} {r['name']}: {r['registers']} registers, "
+                f"{r['static_shared']} B static shared (+{reserved} "
+                f"reserved), {r['local']} B local, {r['stack']} B stack")
+            tag = f"{stem} {r['name']}"
+            if not 0 <= r["static_shared"] <= optin:
+                fails.append(f"{tag}: {r['static_shared']} B static shared "
+                             f"outside [0, {optin}]")
+            kernel, args = _template(r["name"])
+            served = (_frontier_modes(kernel, args, FAMILIES)
+                      if stem == "frontier_grid" else None)
+            if served is None:
+                continue
+            n_frontier += 1
+            worst = max(plans[(fam, mode, stk)] for fam, mode in served
+                        for stk in (False, True))
+            r["frontier_smem_max"] = r["static_shared"] + worst
+            if r["static_shared"] + worst > optin:
+                fails.append(f"{tag}: {r['static_shared']} B static + "
+                             f"{worst} B dynamic over {optin}")
+            if kernel in FRONTIER_PASS1 and \
+                    r["registers"] * autotune.MAX_THREADS > REGS_PER_BLOCK:
+                fails.append(f"{tag}: {r['registers']} registers x "
+                             f"{autotune.MAX_THREADS} threads over "
+                             f"{REGS_PER_BLOCK}")
+    if n_frontier != FRONTIER_INSTANCES:
+        fails.append(f"{n_frontier} frontier instances read, expected "
+                     f"{FRONTIER_INSTANCES}")
+    # a spill lands in the stack frame (ptxas' "bytes stack frame"), as do
+    # local arrays; cuobjdump records the frame, not the spills
+    framed = [f"{r['library']} {r['name']} ({r['stack']} B stack, "
+              f"{r['local']} B local)" for r in rows
+              if r["stack"] or r["local"]]
+    log(f"[lint] {len(rows)} kernel instances in {len(_cuda.BUILD_INFO)} "
+        f"libraries; {len(framed)} with a stack frame or local bytes, where "
+        f"spills land" + (": " + "; ".join(framed) if framed else ""))
+    ctx["lint"] = {"findings": len(findings), "seconds": lint_s,
+                   "smem_optin": optin, "max_threads_per_block": max_threads,
+                   "reserved_smem": reserved, "instances": rows}
+    if fails:
+        raise AssertionError("lint phase: " + "; ".join(fails))
 
 
 def _case(fam, F, K, per_row, seed, device):
@@ -7389,7 +7588,8 @@ def main(argv=None):
     ctx = {"f32_terms": args.f32_terms}
     t_start = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
-    fns = {"card": phase_card, "build": phase_build, "check": phase_check,
+    fns = {"card": phase_card, "build": phase_build, "lint": phase_lint,
+           "check": phase_check,
            "tick": phase_tick, "acc32": phase_acc32, "loop": phase_loop,
            "profile": phase_profile, "twoch": phase_twoch,
            "lmcheck": phase_lmcheck, "serve": phase_serve,
@@ -7571,6 +7771,7 @@ def main(argv=None):
                    "shard": ctx.get("shard"),
                    "shard_launches": ctx.get("shard_launches"),
                    "build_s": ctx.get("build_s"),
+                   "lint": ctx.get("lint"),
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(ctx.get("smi", ""))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +23,8 @@ from typing import Callable, Sequence
 import torch
 
 __all__ = ["build", "build_dir", "check", "device_launches", "forbid_grad",
-           "takes", "BUILD_INFO", "ARCH_FLAGS", "DTYPES"]
+           "takes", "parse_resource_usage", "resource_usage", "BUILD_INFO",
+           "ARCH_FLAGS", "DTYPES"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -61,6 +63,63 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the port's CUDA kernels are "
                            "built with nvcc on the machine with the card")
     return path
+
+
+def _tool(name: str) -> str:
+    """A program of the CUDA toolkit beside ``nvcc`` (``cuobjdump``,
+    ``cu++filt``)."""
+    path = os.path.join(os.path.dirname(_nvcc()), name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found beside nvcc: {path}")
+    return path
+
+
+_RES_FUNCTION = re.compile(r"^\s*Function\s+(\S+?):\s*(.*)$")
+_RES_FIELD = re.compile(r"([A-Z_]+(?:\[\d+\])?):(\d+)")
+
+
+def parse_resource_usage(text: str) -> dict:
+    """Mangled kernel name -> its fields (``REG``, ``SHARED`` static shared
+    memory plus the card's per-block reservation, ``LOCAL``, ``STACK`` the
+    frame spills land in, ...) from the output of
+    ``cuobjdump --dump-resource-usage``: a ``Function <name>:`` line, its
+    ``KEY:value`` fields on that line or the next."""
+    out: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = _RES_FUNCTION.match(line)
+        if m:
+            name, line = m.group(1), m.group(2)
+            out[name] = {}
+        elif line.strip().endswith(":"):
+            name = None     # another section ("Common:", "Resource usage:")
+        if name is not None:
+            out[name].update((k, int(v)) for k, v in _RES_FIELD.findall(line))
+    return out
+
+
+def resource_usage(lib_path: str) -> list:
+    """Each kernel instance of a built library with its registers, static
+    shared memory (with the reservation), local bytes and stack frame, as
+    the compiled code records them (``cuobjdump --dump-resource-usage``;
+    names demangled with ``cu++filt``), sorted by name."""
+    dump = subprocess.run([_tool("cuobjdump"), "--dump-resource-usage",
+                           lib_path], capture_output=True, text=True,
+                          check=True)
+    usage = parse_resource_usage(dump.stdout)
+    mangled = sorted(usage)
+    names = subprocess.run([_tool("cu++filt"), *mangled], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    if len(names) != len(mangled):
+        raise RuntimeError(f"cu++filt gave {len(names)} names for "
+                           f"{len(mangled)}")
+    return sorted(({"name": n, "mangled": m,
+                    "registers": usage[m].get("REG", 0),
+                    "shared": usage[m].get("SHARED", 0),
+                    "local": usage[m].get("LOCAL", 0),
+                    "stack": usage[m].get("STACK", 0)}
+                   for n, m in zip(names, mangled)),
+                  key=lambda r: r["name"])
 
 
 def build(stem: str, headers: Sequence[str] = (), *,

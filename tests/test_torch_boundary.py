@@ -59,6 +59,8 @@ def test_port_imports_without_jax_or_a_build():
             "repro_torch.kernels.compose, repro_torch.kernels.family_score, "
             "repro_torch.obs, "
             "repro_torch.obs.export, repro_torch.analysis.sanitize, "
+            "repro_torch.analysis, repro_torch.analysis.rules, "
+            "repro_torch.analysis.__main__, "
             "repro_torch.optim, repro_torch.data, repro_torch.train, "
             "repro_torch.launch.train, repro_torch.launch.mesh, "
             "repro_torch.bench.train_partitioned;"
