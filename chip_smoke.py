@@ -359,7 +359,8 @@ Phases, in order:
    the kernels against the plain ops on the same weights and batch (loss
    1e-2 relative, every gradient leaf relative L2 < 0.1, the worst leaf
    named; both runs recompute each layer in the backward, the config's
-   remat, which the plain run needs to fit the card); 12 steps through
+   remat, which the plain run needs to fit the card); TRAIN_STEPS (10)
+   steps through
    ``launch.train`` (``Trainer``) with the model kernels' launches counted from zero and held to the count the code
    makes (step ms,
    tokens/s, peak memory, then one step under torch.profiler: device time
@@ -454,7 +455,26 @@ Phases, in order:
    (x and every weight) at full width, every rank's body in one process
    at (data, model) = (1, 2) and (2, 2), against the unsharded layer's
    gradient on each data shard's tokens (relative L2 < MOE_HOLD in bf16),
-   twice with its bits repeated.
+   twice with its bits repeated. (f) Head-parallel compute
+   (``models/tp.py``), every TP rank's body in one process at full width,
+   bf16, B 2 x 2048, the partials summed in rank order
+   (``tp.layer_ranks``, ``tp.head_ranks``, ``tp.xent_ranks``), launch
+   counters zeroed before and read after: Qwen3-8B's layer (attention and
+   MLP) at tp 2, 4 and 16 (16: each rank's KV head sliced), Mamba2-2.7B's
+   mamba layer at tp 2, 4 and 16 (40, 20 and 5 SSD heads, the split-row
+   gated norm), DeepSeek-V2-Lite's MLA layer with its dense first MLP at
+   tp 2 and 4, each layer's update against the unsharded layer's
+   (``layer_ranks`` at tp 1: every block whole), and a DeepSeek MoE block
+   (its experts and its shared experts' columns by rank) on one normed
+   input against the unsharded block, at relative L2 < MOE_HOLD, twice
+   with its bits repeated; Qwen3-8B's vocab-parallel head and loss at tp 4 against the
+   whole head and loss; the gradient (x and every weight) of Qwen3-8B's
+   and Mamba2-2.7B's layer by rank at tp 2 against the unsharded layer's.
+   Then the split-row RMSNorm kernels (``rmsnorm_stat``,
+   ``rmsnorm_split``, ``rmsnorm_split_bwd``) on each rank's shard of
+   Mamba2-2.7B's gated norm (4096 rows of 5120 / tp) in bf16 and float32
+   against their plain versions (LM_TOL), twice, and timed (event pair)
+   beside their bound and ``F.rms_norm`` on the whole row.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -5442,7 +5462,7 @@ def phase_examples(ctx):
 # B = 8 sequences of 2048 tokens from SyntheticStream (seed 0)
 TRAIN_ARCH = "smollm-360m"
 TRAIN_B, TRAIN_S = 8, 2048
-TRAIN_STEPS = 12            # the Trainer's timed run
+TRAIN_STEPS = 10            # the Trainer's timed run
 TRAIN_KILL_AT = 3           # the checkpoint the restored Trainer resumes from
 PART_STEPS = 20             # bench.train_partitioned --full-360m
 # the full-width first step through the kernels against the plain ops:
@@ -6743,11 +6763,12 @@ def _part_launches(cfg, history):
     with risk or adaptive refresh, as in the reference), and, on a one-pod
     mesh, k[0] microsteps (the recorded split is already clipped to
     ``max_micro``), each a standard step's model kernels. Nothing
-    decodes or scans."""
+    decodes or scans, and no norm runs on split rows (no TP axis)."""
     micro = sum(json.loads(h["k_pods"])[0] for h in history)
     return {"fwd": len(history), "grad": 0, "pgrad": 0,
             **_train_launches(cfg, micro), "flash_decode": 0,
-            "flash_decode_partial": 0}
+            "flash_decode_partial": 0,
+            **{k: 0 for k in SPLIT_KERNELS}}
 
 
 def phase_train(ctx):
@@ -6841,8 +6862,8 @@ def phase_train(ctx):
     torch.cuda.empty_cache()
     part_done("2. the full-width first step, kernels and plain")
 
-    # 3. 12 steps through the training CLI (Trainer, seed 0: the same
-    # weights), launches counted from zero
+    # 3. TRAIN_STEPS steps through the training CLI (Trainer, seed 0: the
+    # same weights), launches counted from zero
     state, rec, counts = _trainer_run(
         cfg, ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
               str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", "3e-4"],
@@ -7234,6 +7255,12 @@ def _shard_decode_ranks(fails):
                             "bound_ms": bound[0], "bound_by": bound[1]}}
 
 
+def _plain(t):
+    """A DTensor's global tensor (a placed model's logits); a plain tensor
+    as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _greedy(model, toks):
     """Prefill and SHARD_STEPS greedy decode steps: (every step's logits,
     the greedy tokens)."""
@@ -7241,10 +7268,12 @@ def _greedy(model, toks):
     with torch.no_grad():
         logits, cache = model.prefill(toks,
                                       cache_len=SHARD_PROMPT + SHARD_STEPS)
+        logits = _plain(logits)
         outs, nxt, picks = [logits], logits[:, -1:].argmax(-1), []
         for _ in range(SHARD_STEPS):
             picks.append(nxt)
             logits, cache = model.decode_step(cache, nxt)
+            logits = _plain(logits)
             outs.append(logits)
             nxt = logits.argmax(-1)
     torch.cuda.synchronize()
@@ -7526,11 +7555,313 @@ def _shard_moe_grads(fails):
     return rows
 
 
+# (f) head-parallel compute by rank at full width: (arch, kind, TP
+# sizes); "layer" is the pattern's first layer whole, "first" DeepSeek's
+# dense first layer (MLA and a dense MLP), "moe" the MoE block of a
+# DeepSeek layer on one normed input (its experts by rank and its shared
+# experts' columns by rank; a whole layer's update there would also carry
+# the routing choices that the attention's bf16 partial sums flip)
+SHARD_TP_TOKENS = (2, 2048)
+SHARD_TP_CASES = (("qwen3-8b", "layer", (2, 4, 16)),
+                  ("mamba2-2.7b", "layer", (2, 4, 16)),
+                  ("deepseek-v2-lite-16b", "first", (2, 4)),
+                  ("deepseek-v2-lite-16b", "moe", (2, 4)))
+SHARD_TP_HEAD = ("qwen3-8b", 4)
+SHARD_TP_GRAD = (("qwen3-8b", 2), ("mamba2-2.7b", 2))
+# the split-row norm's shapes: Mamba2-2.7B's gated norm, 4096 rows of
+# ssm_inner / tp on each rank
+SPLIT_NORM_TPS = (2, 4, 16)
+# the split-row kernels a run of (f) launches
+SPLIT_KERNELS = ("rmsnorm_stat", "rmsnorm_split", "rmsnorm_split_bwd")
+
+
+def _tp_layer(arch, kind, seed, grad=False):
+    """(cfg, spec, the layer's parameters as ``remat.unit_params`` nests
+    them, x (B, S, d), positions): a full-width layer drawn on the card,
+    bf16, and its input; with ``grad`` every leaf requires a gradient."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.models import remat
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import Block
+    cfg = get_config(arch)
+    spec = (LayerSpec(cfg.pattern[0].mixer, "dense") if kind == "first"
+            else cfg.pattern[0])
+    g = _gen(seed)
+    blk = Block(cfg, spec, g, "cuda")
+
+    def leaves(tree):
+        return {k: leaves(v) if isinstance(v, dict)
+                else v.detach().requires_grad_(grad) for k, v in tree.items()}
+    p = leaves(remat.unit_params(blk))
+    x = _randn(g, (*SHARD_TP_TOKENS, cfg.d_model),
+               dtype_of(cfg.activation_dtype)).requires_grad_(grad)
+    positions = torch.arange(SHARD_TP_TOKENS[1], device="cuda").expand(
+        *SHARD_TP_TOKENS)
+    return cfg, spec, p, x, positions
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _shard_tp_ranks(fails):
+    """(f) Every TP rank's body of a full-width layer in one process
+    against the unsharded layer (the module docstring's list); the
+    vocab-parallel head and loss; the gradient by rank."""
+    import torch
+    from repro_torch.models import tp as tp_lib
+    from repro_torch.models.layers import dense_init, lm_head
+    from repro_torch.train.loss import softmax_xent
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+    rows = []
+    with torch.no_grad():
+        for n, (arch, kind, sizes) in enumerate(SHARD_TP_CASES):
+            cfg, spec, p, x, pos = _tp_layer(arch, kind, 60 + n)
+            if kind == "moe":   # the MoE block on one normed input
+                x = rms_norm(x, p["ln2"], cfg.norm_eps)
+
+                def update(size, p=p, x=x, cfg=cfg):
+                    return moe.moe_ranks(p["mlp"], x, cfg, tp=size,
+                                         shared_tp=size > 1)
+                what = "MoE block (experts and shared experts by rank)"
+            else:
+                def update(size, p=p, x=x, cfg=cfg, spec=spec, pos=pos):
+                    return tp_lib.layer_ranks(spec, p, x, cfg, pos,
+                                              size) - x
+                what = f"layer {spec.mixer}+{spec.mlp}"
+            t0 = time.perf_counter()
+            want = update(1)
+            for size in sizes:
+                pl = tp_lib.plan(cfg, spec, size)
+                a, b = update(size), update(size)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, b))
+                rel = _rel_l2(a.float(), want.float())
+                ok = (same and rel < MOE_HOLD
+                      and bool(torch.isfinite(a).all()))
+                log(f"[shard] tp ranks {arch} {what} at tp {size} (mixer "
+                    f"{pl.mixer}, MLP by rank {pl.mlp}) on "
+                    f"{SHARD_TP_TOKENS[0]} x {SHARD_TP_TOKENS[1]}: the "
+                    f"update against the unsharded one's relative L2 "
+                    f"{rel:.2e} (hold {MOE_HOLD:g}), bits repeat {same} "
+                    + ("ok" if ok else "FAIL"))
+                rows.append({"arch": arch, "block": what, "tp": size,
+                             "mixer": pl.mixer, "mlp_by_rank": pl.mlp,
+                             "rel_l2": rel, "repeat": same, "ok": ok})
+                if not ok:
+                    fails.append(f"tp ranks {arch} {kind} {size}")
+                del a, b
+            log(f"[shard] tp ranks {arch} {kind}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            del p, x, want
+            torch.cuda.empty_cache()
+        # the vocab-parallel head and loss
+        arch, size = SHARD_TP_HEAD
+        from repro_torch.configs import get_config
+        cfg = get_config(arch)
+        g = _gen(70)
+        emb = {"head": dense_init((cfg.d_model, cfg.padded_vocab),
+                                  torch.bfloat16, g, "cuda")}
+        x = _randn(g, (*SHARD_TP_TOKENS, cfg.d_model), torch.bfloat16)
+        labels = torch.randint(0, cfg.vocab_size, SHARD_TP_TOKENS,
+                               generator=g, device="cuda")
+        labels[0, :2] = -1
+        whole = lm_head(emb, x, cfg)
+        loss_w, met_w = softmax_xent(whole, labels, cfg.vocab_size)
+        parts = tp_lib.head_ranks(emb, x, cfg, size)
+        loss_a, met_a = tp_lib.xent_ranks(parts, labels, cfg)
+        loss_b, _ = tp_lib.xent_ranks(tp_lib.head_ranks(emb, x, cfg, size),
+                                      labels, cfg)
+        torch.cuda.synchronize()
+        rel_logits = _rel_l2(torch.cat(parts, -1).float(), whole.float())
+        rel_loss = abs(float(loss_a) - float(loss_w)) / abs(float(loss_w))
+        same = bool(torch.equal(loss_a, loss_b))
+        ok = same and rel_loss < MOE_HOLD and rel_logits < MOE_HOLD
+        log(f"[shard] tp ranks {arch} vocab-parallel head and loss at tp "
+            f"{size} ({cfg.padded_vocab // size} columns a rank): loss "
+            f"{float(loss_a):.6f} vs whole {float(loss_w):.6f} (relative "
+            f"{rel_loss:.2e}), accuracy {float(met_a['accuracy']):.6f} vs "
+            f"{float(met_w['accuracy']):.6f}, logits relative L2 "
+            f"{rel_logits:.2e}, bits repeat {same} "
+            + ("ok" if ok else "FAIL"))
+        rows.append({"arch": arch, "layer": "head+loss", "tp": size,
+                     "rel_l2": rel_logits, "loss_rel": rel_loss,
+                     "repeat": same, "ok": ok})
+        if not ok:
+            fails.append("tp ranks head and loss")
+        del emb, x, whole, parts
+        torch.cuda.empty_cache()
+    # the gradient by rank
+    for n, (arch, size) in enumerate(SHARD_TP_GRAD):
+        cfg, spec, p, x, pos = _tp_layer(arch, "layer", 80 + n, grad=True)
+        leaves = {"x": x, **_flat_leaves(p)}
+        dy = _randn(_gen(90 + n), tuple(x.shape), x.dtype)
+
+        def grads(tp_size):
+            y = tp_lib.layer_ranks(spec, p, x, cfg, pos, tp_size)
+            return torch.autograd.grad(y, list(leaves.values()), dy,
+                                       allow_unused=True)
+        want, a, b = grads(1), grads(size), grads(size)
+        torch.cuda.synchronize()
+        same = all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip(a, b))
+        rels = {k: _rel_l2(u.float(), w.float())
+                for k, u, w in zip(leaves, a, want) if w is not None}
+        worst = max(rels, key=rels.get)
+        finite = all(bool(torch.isfinite(u).all()) for u in a
+                     if u is not None)
+        ok = same and finite and rels[worst] < MOE_HOLD
+        log(f"[shard] tp ranks {arch} layer gradient at tp {size} against "
+            f"the unsharded layer's: worst relative L2 {rels[worst]:.2e} "
+            f"({worst}; hold {MOE_HOLD:g}), x {rels['x']:.2e}, bits repeat "
+            f"{same} " + ("ok" if ok else "FAIL"))
+        rows.append({"arch": arch, "layer": "gradient", "tp": size,
+                     "rel_l2": rels, "worst": worst, "repeat": same,
+                     "ok": ok})
+        if not ok:
+            fails.append(f"tp ranks gradient {arch}")
+        del p, x, leaves, want, a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _split_norm_checks(fails):
+    """The split-row kernels on each rank's shard of Mamba2-2.7B's gated
+    norm against their plain versions (LM_TOL), twice; the rank's forward
+    (row sums, then the norm) and backward (row sums, then dx and dw)
+    timed beside their bound, the plain versions and ``F.rms_norm`` on
+    the whole row (forward; backward through autograd)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    cfg = get_config("mamba2-2.7b")
+    n_cols, eps = cfg.ssm_inner, cfg.norm_eps
+    rows_n = SHARD_TP_TOKENS[0] * SHARD_TP_TOKENS[1]
+    out = []
+    for dts in ("bfloat16", "float32"):
+        dt = getattr(torch, dts)
+        tol = LM_TOL[dts]
+        g = _gen(100)
+        x = _randn(g, (rows_n, n_cols), dt)
+        w = (1.0 + 0.1 * torch.randn(n_cols, generator=g,
+                                     device="cuda")).to(dt)
+        dy = _randn(g, (rows_n, n_cols), dt)
+        for size in SPLIT_NORM_TPS:
+            D = n_cols // size
+            xs = [c.contiguous() for c in x.split(D, -1)]
+            ws = [c.contiguous() for c in w.split(D)]
+            gs = [c.contiguous() for c in dy.split(D, -1)]
+
+            def fwd(r):
+                return rn.rmsnorm_rows(xs[r], ws[r], ss, n_cols, eps=eps)
+
+            def bwd(r):
+                return rn.rmsnorm_rows_bwd(xs[r], ws[r], gs[r], ss, dot,
+                                           n_cols, eps=eps)
+            stats = [rn.row_stat(xr) for xr in xs]
+            ss = stats[0]
+            for st in stats[1:]:
+                ss = ss + st
+            dots = [rn.row_stat(xr, wr, gr) for xr, wr, gr in
+                    zip(xs, ws, gs)]
+            dot = dots[0]
+            for d_ in dots[1:]:
+                dot = dot + d_
+            ok, errs, same = True, [], True
+            for r in range(size):
+                got = (stats[r], dots[r], fwd(r), *bwd(r))
+                again = (rn.row_stat(xs[r]), rn.row_stat(xs[r], ws[r], gs[r]),
+                         fwd(r), *bwd(r))
+                want = (ref.rmsnorm_stat_ref(xs[r]),
+                        ref.rmsnorm_stat_ref(xs[r], ws[r], gs[r]),
+                        ref.rmsnorm_split_ref(xs[r], ws[r], ss, n_cols, eps),
+                        *ref.rmsnorm_split_bwd_ref(xs[r], ws[r], gs[r], ss,
+                                                   dot, n_cols, eps))
+                same &= all(torch.equal(u, v) for u, v in zip(got, again))
+                for i, (u, v) in enumerate(zip(got, want)):
+                    # the row sums relative to their own size
+                    scale = (v.abs().max().clamp(min=1.0) if i < 2 else 1.0)
+                    okk = bool(torch.allclose(u.float() / scale,
+                                              v.float() / scale, atol=tol,
+                                              rtol=tol))
+                    ok &= okk
+                    errs.append(float((u.float() - v.float()).abs().max()))
+            ok &= same
+            # rank 0's launches, each timed (event pair, ten calls a pair;
+            # device time a call) beside its bound and its plain version;
+            # F.rms_norm on the whole row (forward, and its backward through
+            # autograd) beside the norm's two passes
+            xl = x.detach().requires_grad_(True)
+            wl = w.detach().requires_grad_(True)
+            yl = F.rms_norm(xl, (n_cols,), wl, eps)
+            esize = x.element_size()
+            lib = {"fwd": lambda: F.rms_norm(x, (n_cols,), w, eps),
+                   "bwd": lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                      retain_graph=True)}
+            calls = {
+                "stat": (lambda: rn.row_stat(xs[0]),
+                         lambda: ref.rmsnorm_stat_ref(xs[0]),
+                         RL.rmsnorm_stat_work(rows_n, D, esize, False),
+                         None),
+                "fwd": (lambda: fwd(0), lambda: ref.rmsnorm_split_ref(
+                    xs[0], ws[0], ss, n_cols, eps),
+                    RL.rmsnorm_split_work(rows_n, D, esize), lib["fwd"]),
+                "bwd": (lambda: bwd(0), lambda: ref.rmsnorm_split_bwd_ref(
+                    xs[0], ws[0], gs[0], ss, dot, n_cols, eps),
+                    RL.rmsnorm_split_bwd_work(rows_n, D, esize),
+                    lib["bwd"])}
+            row = {"dtype": dts, "tp": size, "rows": rows_n, "D": D,
+                   "n": n_cols, "max_abs_err": max(errs), "errs": errs,
+                   "repeat": same, "ok": ok}
+            notes = []
+            for key, (fn, plain, (ops_, nbytes), lib_fn) in calls.items():
+                ms = _time_cuda(fn, reps=7, per_pair=10)
+                dev = _device_ms(fn, reps=10)
+                plain_ms = _time_cuda(plain, reps=5)
+                lib_ms = (_time_cuda(lib_fn, reps=7, per_pair=10)
+                          if lib_fn is not None else None)
+                bound = _roof(nbytes, ops_ / FP32_OPS_PER_S)
+                row[key] = {"ms": ms, "device_ms": dev,
+                            "plain_ms": plain_ms, "bound_ms": bound[0],
+                            "bound_by": bound[1], "library_ms": lib_ms}
+                notes.append(
+                    f"{key} {ms:.4f} ms (device "
+                    + (f"{dev:.4f}" if dev is not None else "not measured")
+                    + f"; bound {bound[0]:.4f}, {bound[1]}; plain "
+                    f"{plain_ms:.4f}"
+                    + (f"; F.rms_norm whole row {lib_ms:.4f}"
+                       if lib_ms is not None else "") + ")")
+            log(f"[shard] split-row norm {dts} tp {size} ({rows_n} x {D} of "
+                f"{n_cols}): max|err| stat {errs[0]:.2e} dot {errs[1]:.2e} "
+                f"y {errs[2]:.2e} dx {errs[3]:.2e} dw {errs[4]:.2e} (tol "
+                f"{tol:g}), bits repeat {same}; rank 0: " + ", ".join(notes)
+                + (" ok" if ok else " FAIL"))
+            out.append(row)
+            if not ok:
+                fails.append(f"split-row norm {dts} tp {size}")
+            del xs, ws, gs, xl, wl, yl
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_shard(ctx):
     """Sharded serving and training: (a) the world of one over NCCL, (b)
     every rank's body in one process at full width, (c) the partial
     kernel against its plain version, (d) training on the world of one,
-    (e) the MoE layer's gradient by rank."""
+    (e) the MoE layer's gradient by rank, (f) head-parallel compute by
+    rank and the split-row norm's kernels."""
     import torch
     fails = []
     with torch.no_grad():
@@ -7542,9 +7873,26 @@ def phase_shard(ctx):
     for k, n in launches.items():
         ctx["shard_launches"][k] = ctx["shard_launches"].get(k, 0) + n
     moe_grads = _shard_moe_grads(fails)
+    # (f): launches counted from zero
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    tp_rows = _shard_tp_ranks(fails)
+    torch.cuda.synchronize()
+    tp_launches = _lm_launches()
+    log(f"[shard] (f) tp ranks in {time.perf_counter() - t0:.1f} s, "
+        f"launches {tp_launches}")
+    for k, n in tp_launches.items():
+        ctx["shard_launches"][k] = ctx["shard_launches"].get(k, 0) + n
+    ctx["tp_launches"] = {k: tp_launches.get(k, 0) for k in SPLIT_KERNELS}
+    for k in ("rmsnorm", "flash_attention", "ssd_scan", *SPLIT_KERNELS):
+        if tp_launches.get(k, 0) <= 0:
+            fails.append(f"(f) never launched {k}")
+    split = _split_norm_checks(fails)
     ctx["shard"] = {"world_of_one": world, "moe_ranks": moe_rows,
                     "decode": decode, "partial": partial,
-                    "training": train, "moe_grads": moe_grads}
+                    "training": train, "moe_grads": moe_grads,
+                    "tp_ranks": tp_rows, "split_norm": split}
     if fails:
         raise AssertionError(f"shard: {fails}")
 
@@ -7683,6 +8031,28 @@ def main(argv=None):
         "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
         "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
         "library_ms": r.get("library_ms"), "shape": r.get("shape")})
+    # the split-row norm (Mamba2-2.7B's gated norm under TP), each of its
+    # three wrappers at rank 0's shard at tp 2 in bf16 (a row's partial
+    # sum, the norm given the totals, its backward), launched by the shard
+    # phase's rank bodies (f)
+    split = {r["tp"]: r for r in ctx.get("shard", {}).get("split_norm", [])
+             if r["dtype"] == "bfloat16"}.get(2, {})
+    for name, part in (("rmsnorm_stat", "stat"), ("rmsnorm_split", "fwd"),
+                       ("rmsnorm_split_bwd", "bwd")):
+        r = split.get(part, {})
+        n = ctx["tp_launches"][name] if "tp_launches" in ctx else None
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": LM_KERNELS["rmsnorm"][2],
+            "launches": n, "launches_by_path": ({"shard": n}
+                                                 if n is not None else {}),
+            "max_abs_err": split.get("max_abs_err"), "ms": r.get("ms"),
+            "device_ms": r.get("device_ms"), "plain_ms": r.get("plain_ms"),
+            "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+            "library_ms": r.get("library_ms"),
+            "shape": (f"{split['rows']} x {split['D']} of {split['n']} "
+                      f"(tp 2), bf16" if split else None)})
     # the backward kernels of the training path, at SmolLM-360M's training
     # shapes (attention B=8, S=2048; norms 16384 x 960, bf16) and Mamba2-
     # 2.7B's layer (B=2, S=2048, bf16), each with every shape it was timed

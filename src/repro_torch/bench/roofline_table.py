@@ -8,8 +8,11 @@ the dominant one, the compute share of the bound and the useful-FLOPs
 ratio per (arch x shape x mesh). The terms are counts times the H100's
 datasheet rates (``launch.roofline.HW``): bounds, not measurements. The
 reference's gate holds unchanged: no cell may have failed. A cell the
-port does not run yet (``not_ported``: the encoder-decoder on a mesh,
-ROADMAP §1 item 12f) is counted beside the reference's ``skipped``.
+port does not run (``not_ported``, its reason naming the ROADMAP item that
+would run it, such as 12g's sequence parallelism) is counted beside the
+reference's ``skipped``; since item 12f every cell of the dry run's
+matrix runs, each TP rank computing its heads and columns where they
+divide.
 
     PYTHONPATH=src python -m repro_torch.bench.roofline_table
 """

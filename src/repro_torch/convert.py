@@ -237,11 +237,13 @@ def _encdec_state(params: dict, cfg: ModelConfig) -> dict:
     return state
 
 
-def encdec_from_reference(params: dict, cfg: ModelConfig,
-                          device="cuda") -> EncDec:
+def encdec_from_reference(params: dict, cfg: ModelConfig, device="cuda",
+                          ctx=None) -> EncDec:
     """The port's :class:`EncDec` on ``device`` holding the weights of a
-    JAX ``EncDec.init`` pytree (:func:`_encdec_state`)."""
-    return _load(EncDec(cfg, device=device), _encdec_state(params, cfg))
+    JAX ``EncDec.init`` pytree (:func:`_encdec_state`), under ``ctx`` if
+    given (each rank keeping its shard of every layer's weights)."""
+    return _placed(_load(EncDec(cfg, device=device, ctx=ctx),
+                         _encdec_state(params, cfg)), ctx)
 
 
 def _model_state(tree: dict, cfg: ModelConfig) -> dict:
@@ -256,12 +258,9 @@ def model_from_reference(params: dict, cfg: ModelConfig, device="cuda",
                          ctx=None):
     """The port's model (LM, EncDec or VLM, by ``cfg``) on ``device``
     holding a JAX model's weights (numpy leaves); ``ctx`` as in
-    :func:`lm_from_reference` (not for the encoder-decoder)."""
+    :func:`lm_from_reference`."""
     if cfg.is_encoder_decoder:
-        if ctx is not None:
-            raise NotImplementedError("the encoder-decoder takes no "
-                                      "sharding context")
-        return encdec_from_reference(params, cfg, device=device)
+        return encdec_from_reference(params, cfg, device=device, ctx=ctx)
     if cfg.num_patches:
         return vlm_from_reference(params, cfg, device=device, ctx=ctx)
     return lm_from_reference(params, cfg, device=device, ctx=ctx)

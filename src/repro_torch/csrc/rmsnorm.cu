@@ -31,6 +31,16 @@
 // Sums of squares are float32: a per-thread sum in element order, a
 // fixed-order butterfly over the lanes of a row and, for a block, a
 // fixed-order sum of the warps' partials, so two runs give the same bits.
+//
+// Split rows (a row whose columns lie on several ranks: Mamba2's gated norm
+// over the rank's SSD heads under tensor parallelism). rmsnorm_stat_kernel
+// writes each row's float32 partial, sum(x^2) of the rank's columns (or
+// sum(x w dy) for the backward), one warp a row; the caller all-reduces it
+// over the ranks; then every form above, instantiated with SPLIT, reads the
+// row's total from that array instead of summing its own columns, and
+// divides by the global width n: y = x rsqrt(ss / n + eps) w. The backward
+// forms do the same with both totals, and each rank's dw is the sum over
+// rows of its own columns, with no sum over the ranks.
 #include "dtype.cuh"
 
 namespace {
@@ -92,11 +102,11 @@ __device__ __forceinline__ uint4 scale(const float* v, float r,
 }
 
 // Lane-group form: G lanes per row, one vector each (G covers nvec <= 32).
-template <typename T, int G>
+template <typename T, int G, bool SPLIT>
 __global__ void __launch_bounds__(GROUP_BLOCK)
 rmsnorm_group_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
-                     uint4* __restrict__ y, long long rows, int nvec,
-                     float d, float eps) {
+                     uint4* __restrict__ y, const float* __restrict__ stat,
+                     long long rows, int nvec, float d, float eps) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x % G;
   const long long row = (long long)blockIdx.x * (GROUP_BLOCK / G)
@@ -106,24 +116,28 @@ rmsnorm_group_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
   float ss = 0.f;
   if (live) {
     Vec<T>::load(x[row * nvec + lane], v);
+    if (!SPLIT)
 #pragma unroll
-    for (int e = 0; e < N; ++e) ss += v[e] * v[e];
+      for (int e = 0; e < N; ++e) ss += v[e] * v[e];
   }
   // butterfly within the group of G lanes (all lanes of the warp take part)
+  if (!SPLIT)
 #pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    for (int off = G / 2; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
   if (!live) return;
+  if (SPLIT) ss = stat[row];
   const float r = rsqrtf(ss / d + eps);
   y[row * nvec + lane] = scale<T>(v, r, __ldg(w + lane));
 }
 
 // Vector block form: one row per block, each thread NV whole vectors
 // (vector i * blockDim + tid), masked past nvec.
-template <typename T, int NV>
+template <typename T, int NV, bool SPLIT>
 __global__ void __launch_bounds__(MAX_ROW_THREADS)
 rmsnorm_row_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
-                   uint4* __restrict__ y, int nvec, float d, float eps) {
+                   uint4* __restrict__ y, const float* __restrict__ stat,
+                   int nvec, float d, float eps) {
   constexpr int N = Vec<T>::N;
   __shared__ float partial[MAX_ROW_THREADS / 32];
   __shared__ float total;
@@ -137,20 +151,23 @@ rmsnorm_row_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
     const int c = i * nth + tid;
     if (c < nvec) {
       Vec<T>::load(x[base + c], v[i]);
+      if (!SPLIT)
 #pragma unroll
-      for (int e = 0; e < N; ++e) ss += v[i][e] * v[i][e];
+        for (int e = 0; e < N; ++e) ss += v[i][e] * v[i][e];
     }
   }
-  ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (nth >> 5) ? partial[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) total = t;
+  if (!SPLIT) {
+    ss = warp_sum(ss);
+    if (lane == 0) partial[warp] = ss;
+    __syncthreads();
+    if (warp == 0) {
+      float t = lane < (nth >> 5) ? partial[lane] : 0.f;
+      t = warp_sum(t);
+      if (lane == 0) total = t;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  const float r = rsqrtf(total / d + eps);
+  const float r = rsqrtf((SPLIT ? stat[blockIdx.x] : total) / d + eps);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = i * nth + tid;
@@ -158,70 +175,83 @@ rmsnorm_row_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(32 * WARP_ROWS_PER_BLOCK)
 rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ y, long long rows, int D, float eps) {
+                    T* __restrict__ y, const float* __restrict__ stat,
+                    long long rows, int D, float d, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * WARP_ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp leaves together
   const T* xr = x + row * D;
   float ss = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+  if (SPLIT) {
+    ss = stat[row];
+  } else {
+    for (int i = lane; i < D; i += 32) {
+      const float v = to_f32(xr[i]);
+      ss += v * v;
+    }
+    ss = warp_sum(ss);
   }
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / (float)D + eps);
+  const float r = rsqrtf(ss / d + eps);
   T* yr = y + row * D;
   for (int i = lane; i < D; i += 32)
     yr[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 rmsnorm_block_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     T* __restrict__ y, int D, float eps) {
+                     T* __restrict__ y, const float* __restrict__ stat, int D,
+                     float d, float eps) {
   __shared__ float partial[BLOCK_THREADS / 32];
   __shared__ float total;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row = blockIdx.x;
   const T* xr = x + row * D;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += BLOCK_THREADS) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+  if (SPLIT) {
+    if (threadIdx.x == 0) total = stat[row];
+  } else {
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < D; i += BLOCK_THREADS) {
+      const float v = to_f32(xr[i]);
+      ss += v * v;
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) partial[warp] = ss;
+    __syncthreads();
+    if (warp == 0) {
+      float t = lane < BLOCK_THREADS / 32 ? partial[lane] : 0.f;
+      t = warp_sum(t);
+      if (lane == 0) total = t;
+    }
   }
-  ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
   __syncthreads();
-  if (warp == 0) {
-    float t = lane < BLOCK_THREADS / 32 ? partial[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) total = t;
-  }
-  __syncthreads();
-  const float r = rsqrtf(total / (float)D + eps);
+  const float r = rsqrtf(total / d + eps);
   T* yr = y + row * D;
   for (int i = threadIdx.x; i < D; i += BLOCK_THREADS)
     yr[i] = from_f32<T>((to_f32(xr[i]) * r) * to_f32(w[i]));
 }
 
-template <typename T, int G>
-void launch_group(const uint4* x, const uint4* w, uint4* y, long long rows,
-                  int nvec, float d, float eps, cudaStream_t stream) {
+template <typename T, int G, bool SPLIT>
+void launch_group(const uint4* x, const uint4* w, uint4* y,
+                  const float* stat, long long rows, int nvec, float d,
+                  float eps, cudaStream_t stream) {
   const long long blocks = (rows + GROUP_BLOCK / G - 1) / (GROUP_BLOCK / G);
-  rmsnorm_group_kernel<T, G><<<(unsigned)blocks, GROUP_BLOCK, 0, stream>>>(
-      x, w, y, rows, nvec, d, eps);
+  rmsnorm_group_kernel<T, G, SPLIT>
+      <<<(unsigned)blocks, GROUP_BLOCK, 0, stream>>>(x, w, y, stat, rows,
+                                                     nvec, d, eps);
 }
 
-template <typename T, int NV>
-void launch_row(const uint4* x, const uint4* w, uint4* y, long long rows,
-                int nvec, float d, float eps, cudaStream_t stream) {
+template <typename T, int NV, bool SPLIT>
+void launch_row(const uint4* x, const uint4* w, uint4* y, const float* stat,
+                long long rows, int nvec, float d, float eps,
+                cudaStream_t stream) {
   const int threads = ((nvec + NV - 1) / NV + 31) / 32 * 32;
-  rmsnorm_row_kernel<T, NV><<<(unsigned)rows, threads, 0, stream>>>(
-      x, w, y, nvec, d, eps);
+  rmsnorm_row_kernel<T, NV, SPLIT><<<(unsigned)rows, threads, 0, stream>>>(
+      x, w, y, stat, nvec, d, eps);
 }
 
 // Vectors per thread of the block form: the fewest that give a whole
@@ -237,9 +267,11 @@ int pick_nv(int nvec) {
   return 0;
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* y, long long rows, int D,
-           float eps, cudaStream_t stream) {
+// SPLIT: the rows' sums of squares come in ``stat`` and n is the global
+// width; otherwise stat is null and n is D
+template <typename T, bool SPLIT>
+int launch(const void* x, const void* w, void* y, const float* stat,
+           long long rows, int D, float n, float eps, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
   const unsigned long long addr = reinterpret_cast<unsigned long long>(x)
                                   | reinterpret_cast<unsigned long long>(w)
@@ -249,22 +281,23 @@ int launch(const void* x, const void* w, void* y, long long rows, int D,
   const uint4* xv = static_cast<const uint4*>(x);
   const uint4* wv = static_cast<const uint4*>(w);
   uint4* yv = static_cast<uint4*>(y);
-  const float d = (float)D;
+  const float d = n;
+#define RN_FWD_ARGS xv, wv, yv, stat, rows, nvec, d, eps, stream
   if (nv != 0 && nvec <= 32) {
-    if (nvec <= 1) launch_group<T, 1>(xv, wv, yv, rows, nvec, d, eps, stream);
-    else if (nvec <= 2) launch_group<T, 2>(xv, wv, yv, rows, nvec, d, eps, stream);
-    else if (nvec <= 4) launch_group<T, 4>(xv, wv, yv, rows, nvec, d, eps, stream);
-    else if (nvec <= 8) launch_group<T, 8>(xv, wv, yv, rows, nvec, d, eps, stream);
-    else if (nvec <= 16) launch_group<T, 16>(xv, wv, yv, rows, nvec, d, eps, stream);
-    else launch_group<T, 32>(xv, wv, yv, rows, nvec, d, eps, stream);
+    if (nvec <= 1) launch_group<T, 1, SPLIT>(RN_FWD_ARGS);
+    else if (nvec <= 2) launch_group<T, 2, SPLIT>(RN_FWD_ARGS);
+    else if (nvec <= 4) launch_group<T, 4, SPLIT>(RN_FWD_ARGS);
+    else if (nvec <= 8) launch_group<T, 8, SPLIT>(RN_FWD_ARGS);
+    else if (nvec <= 16) launch_group<T, 16, SPLIT>(RN_FWD_ARGS);
+    else launch_group<T, 32, SPLIT>(RN_FWD_ARGS);
   } else if (nv == 1) {
-    launch_row<T, 1>(xv, wv, yv, rows, nvec, d, eps, stream);
+    launch_row<T, 1, SPLIT>(RN_FWD_ARGS);
   } else if (nv == 2) {
-    launch_row<T, 2>(xv, wv, yv, rows, nvec, d, eps, stream);
+    launch_row<T, 2, SPLIT>(RN_FWD_ARGS);
   } else if (nv == 4) {
-    launch_row<T, 4>(xv, wv, yv, rows, nvec, d, eps, stream);
+    launch_row<T, 4, SPLIT>(RN_FWD_ARGS);
   } else if (nv == 8) {
-    launch_row<T, 8>(xv, wv, yv, rows, nvec, d, eps, stream);
+    launch_row<T, 8, SPLIT>(RN_FWD_ARGS);
   } else {
     const T* xp = static_cast<const T*>(x);
     const T* wp = static_cast<const T*>(w);
@@ -272,13 +305,93 @@ int launch(const void* x, const void* w, void* y, long long rows, int D,
     if (D <= 256) {
       const long long blocks =
           (rows + WARP_ROWS_PER_BLOCK - 1) / WARP_ROWS_PER_BLOCK;
-      rmsnorm_warp_kernel<T><<<(unsigned)blocks, 32 * WARP_ROWS_PER_BLOCK, 0,
-                               stream>>>(xp, wp, yp, rows, D, eps);
+      rmsnorm_warp_kernel<T, SPLIT>
+          <<<(unsigned)blocks, 32 * WARP_ROWS_PER_BLOCK, 0, stream>>>(
+              xp, wp, yp, stat, rows, D, d, eps);
     } else {
-      rmsnorm_block_kernel<T><<<(unsigned)rows, BLOCK_THREADS, 0, stream>>>(
-          xp, wp, yp, D, eps);
+      rmsnorm_block_kernel<T, SPLIT>
+          <<<(unsigned)rows, BLOCK_THREADS, 0, stream>>>(xp, wp, yp, stat, D,
+                                                         d, eps);
     }
   }
+#undef RN_FWD_ARGS
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- row sums
+//
+// One row's float32 partial over this rank's D columns: sum(x^2), or with
+// DOT sum(x w dy). One warp a row, STAT_WARPS rows a block; 16-byte
+// vectors (VEC) where D is a whole number of them and the pointers are on
+// 16 bytes, else one element a lane a step. A lane sums its elements in
+// order, then a fixed-order butterfly: two runs give the same bits.
+constexpr int STAT_WARPS = 8;
+
+template <typename T, bool VEC, bool DOT>
+__global__ void __launch_bounds__(32 * STAT_WARPS)
+rmsnorm_stat_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ dy, float* __restrict__ stat,
+                    long long rows, int D) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * STAT_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  float s = 0.f;
+  if (VEC) {
+    constexpr int N = Vec<T>::N;
+    const int nvec = D / N;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + row * D);
+    const uint4* gv =
+        DOT ? reinterpret_cast<const uint4*>(dy + row * D) : nullptr;
+    const uint4* wv = reinterpret_cast<const uint4*>(w);
+    for (int c = lane; c < nvec; c += 32) {
+      float a[N];
+      Vec<T>::load(xv[c], a);
+      if (DOT) {
+        float g[N], ww[N];
+        Vec<T>::load(gv[c], g);
+        Vec<T>::load(__ldg(wv + c), ww);
+#pragma unroll
+        for (int e = 0; e < N; ++e) s += a[e] * ww[e] * g[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) s += a[e] * a[e];
+      }
+    }
+  } else {
+    const T* xr = x + row * D;
+    for (int i = lane; i < D; i += 32) {
+      const float a = to_f32(xr[i]);
+      s += DOT ? a * to_f32(w[i]) * to_f32(dy[row * D + i]) : a * a;
+    }
+  }
+  s = warp_sum(s);
+  if (lane == 0) stat[row] = s;
+}
+
+template <typename T>
+int launch_stat(const void* x, const void* w, const void* dy, float* stat,
+                long long rows, int D, cudaStream_t stream) {
+  constexpr int N = Vec<T>::N;
+  const bool dot = dy != nullptr;
+  const unsigned long long addr =
+      reinterpret_cast<unsigned long long>(x)
+      | (dot ? reinterpret_cast<unsigned long long>(w)
+                   | reinterpret_cast<unsigned long long>(dy)
+             : 0ull);
+  const bool vec = addr % 16 == 0 && D % N == 0;
+  const unsigned blocks = (unsigned)((rows + STAT_WARPS - 1) / STAT_WARPS);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const T* gp = static_cast<const T*>(dy);
+#define RN_STAT(V, DT)                                                  \
+  rmsnorm_stat_kernel<T, V, DT><<<blocks, 32 * STAT_WARPS, 0, stream>>>( \
+      xp, wp, gp, stat, rows, D)
+  if (vec && dot) RN_STAT(true, true);
+  else if (vec) RN_STAT(true, false);
+  else if (dot) RN_STAT(false, true);
+  else RN_STAT(false, false);
+#undef RN_STAT
   return (int)cudaGetLastError();
 }
 
@@ -353,12 +466,14 @@ __device__ __forceinline__ uint4 bwd_dx(const uint4& xv, const uint4& gv,
 // Lane-group form: G lanes a row (G covers nvec <= 32), BWD_THREADS / G
 // rows in flight a block; every thread takes the same number of steps so
 // that whole warps meet at each butterfly.
-template <typename T, int G>
+template <typename T, int G, bool SPLIT>
 __global__ void __launch_bounds__(BWD_THREADS)
 rmsnorm_bwd_group_kernel(const uint4* __restrict__ x,
                          const uint4* __restrict__ w,
                          const uint4* __restrict__ dy, uint4* __restrict__ dx,
-                         float* __restrict__ dw_part, long long rows,
+                         float* __restrict__ dw_part,
+                         const float* __restrict__ ss_in,
+                         const float* __restrict__ dot_in, long long rows,
                          long long rows_per_block, int nvec, float d,
                          float eps) {
   constexpr int N = Vec<T>::N, SLOTS = BWD_THREADS / G;
@@ -380,14 +495,19 @@ rmsnorm_bwd_group_kernel(const uint4* __restrict__ x,
     if (live) {
       xv = x[row * nvec + lane];
       gv = dy[row * nvec + lane];
-      bwd_sums<T>(xv, gv, wv, ss, dot);
+      if (!SPLIT) bwd_sums<T>(xv, gv, wv, ss, dot);
     }
+    if (!SPLIT)
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    }
+      for (int off = G / 2; off > 0; off >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      }
     if (live) {
+      if (SPLIT) {
+        ss = ss_in[row];
+        dot = dot_in[row];
+      }
       const float r = rsqrtf(ss / d + eps);
       dx[row * nvec + lane] =
           bwd_dx<T>(xv, gv, wv, r, r * r * r * (dot / d), dwp);
@@ -415,13 +535,15 @@ rmsnorm_bwd_group_kernel(const uint4* __restrict__ x,
 // Row-group form: W warps a row, each thread vectors i * 32 W + its index
 // in the group (i < BWD_NV), R = 8 / W groups a block (1 for W = 16);
 // group g walks rows r0 + g, r0 + g + R, ... of the block's run.
-template <typename T, int W>
+template <typename T, int W, bool SPLIT>
 __global__ void __launch_bounds__(W == 16 ? 512 : BWD_THREADS,
                                   W == 16 ? 1 : 2)
 rmsnorm_bwd_rows_kernel(const uint4* __restrict__ x,
                         const uint4* __restrict__ w,
                         const uint4* __restrict__ dy, uint4* __restrict__ dx,
-                        float* __restrict__ dw_part, long long rows,
+                        float* __restrict__ dw_part,
+                        const float* __restrict__ ss_in,
+                        const float* __restrict__ dot_in, long long rows,
                         long long rows_per_block, int nvec, float d,
                         float eps) {
   constexpr int N = Vec<T>::N, R = W == 16 ? 1 : 8 / W, GT = 32 * W;
@@ -452,12 +574,17 @@ rmsnorm_bwd_rows_kernel(const uint4* __restrict__ x,
         gv[i] = dy[row * nvec + c];
       }
     }
+    if (SPLIT) {
+      ss = ss_in[row];
+      dot = dot_in[row];
+    } else {
 #pragma unroll
-    for (int i = 0; i < BWD_NV; ++i)
-      if (i * GT + t < nvec) bwd_sums<T>(xv[i], gv[i], wv[i], ss, dot);
-    ss = warp_sum(ss);
-    dot = warp_sum(dot);
-    if (W > 1) {
+      for (int i = 0; i < BWD_NV; ++i)
+        if (i * GT + t < nvec) bwd_sums<T>(xv[i], gv[i], wv[i], ss, dot);
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+    }
+    if (!SPLIT && W > 1) {
       if (lane == 0) red[buf][g][wig] = make_float2(ss, dot);
       // the group's warps; the other buffer takes the next row's sums, so
       // one barrier a row keeps a fast warp from overwriting these
@@ -510,12 +637,15 @@ rmsnorm_bwd_rows_kernel(const uint4* __restrict__ x,
 
 // Scalar form: one row at a time a block, an element a thread a step; the
 // block's dw columns in shared memory (a column belongs to one thread).
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(BWD_THREADS)
 rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ w,
                           const T* __restrict__ dy, T* __restrict__ dx,
-                          float* __restrict__ dw_part, long long rows,
-                          long long rows_per_block, int D, float eps) {
+                          float* __restrict__ dw_part,
+                          const float* __restrict__ ss_in,
+                          const float* __restrict__ dot_in, long long rows,
+                          long long rows_per_block, int D, float d,
+                          float eps) {
   extern __shared__ float sdw[];                 // D partial dw columns
   __shared__ float2 partial[BWD_THREADS / 32];
   __shared__ float2 total;
@@ -524,29 +654,34 @@ rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int c = tid; c < D; c += nth) sdw[c] = 0.f;
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min(r0 + rows_per_block, rows);
-  const float d = (float)D;
   for (long long row = r0; row < r1; ++row) {
     const T* xr = x + row * D;
     const T* gr = dy + row * D;
-    float ss = 0.f, dot = 0.f;
-    for (int c = tid; c < D; c += nth) {
-      const float xv = to_f32(xr[c]);
-      ss += xv * xv;
-      dot += xv * to_f32(w[c]) * to_f32(gr[c]);
+    float2 tot;
+    if (SPLIT) {
+      tot = make_float2(ss_in[row], dot_in[row]);
+    } else {
+      float ss = 0.f, dot = 0.f;
+      for (int c = tid; c < D; c += nth) {
+        const float xv = to_f32(xr[c]);
+        ss += xv * xv;
+        dot += xv * to_f32(w[c]) * to_f32(gr[c]);
+      }
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      if (lane == 0) partial[warp] = make_float2(ss, dot);
+      __syncthreads();
+      if (warp == 0) {
+        const float2 p = lane < (nth >> 5) ? partial[lane]
+                                           : make_float2(0.f, 0.f);
+        const float a = warp_sum(p.x), b = warp_sum(p.y);
+        if (lane == 0) total = make_float2(a, b);
+      }
+      __syncthreads();
+      tot = total;
     }
-    ss = warp_sum(ss);
-    dot = warp_sum(dot);
-    if (lane == 0) partial[warp] = make_float2(ss, dot);
-    __syncthreads();
-    if (warp == 0) {
-      const float2 p = lane < (nth >> 5) ? partial[lane]
-                                         : make_float2(0.f, 0.f);
-      const float a = warp_sum(p.x), b = warp_sum(p.y);
-      if (lane == 0) total = make_float2(a, b);
-    }
-    __syncthreads();
-    const float r = rsqrtf(total.x / d + eps);
-    const float coef = r * r * r * (total.y / d);
+    const float r = rsqrtf(tot.x / d + eps);
+    const float coef = r * r * r * (tot.y / d);
     T* dxr = dx + row * D;
     for (int c = tid; c < D; c += nth) {
       const float xv = to_f32(xr[c]), gv = to_f32(gr[c]);
@@ -554,7 +689,7 @@ rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ w,
       sdw[c] += gv * xv * r;
     }
     // `partial` and `total` are rewritten by the next row
-    __syncthreads();
+    if (!SPLIT) __syncthreads();
   }
   for (int c = tid; c < D; c += nth)
     dw_part[(long long)blockIdx.x * D + c] = sdw[c];
@@ -591,32 +726,37 @@ void bwd_grid(long long rows, long long& per, int& used) {
   used = (int)((rows + per - 1) / per);
 }
 
-template <typename T, int G>
+template <typename T, int G, bool SPLIT>
 void launch_bwd_group(const void* x, const void* w, const void* dy, void* dx,
-                      float* part, long long rows, long long per, int used,
-                      int nvec, float eps, cudaStream_t stream) {
-  rmsnorm_bwd_group_kernel<T, G><<<used, BWD_THREADS, 0, stream>>>(
+                      float* part, const float* ss, const float* dot,
+                      long long rows, long long per, int used, int nvec,
+                      float d, float eps, cudaStream_t stream) {
+  rmsnorm_bwd_group_kernel<T, G, SPLIT><<<used, BWD_THREADS, 0, stream>>>(
       static_cast<const uint4*>(x), static_cast<const uint4*>(w),
-      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, rows,
-      per, nvec, (float)(nvec * Vec<T>::N), eps);
+      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, ss, dot,
+      rows, per, nvec, d, eps);
 }
 
-template <typename T, int W>
+template <typename T, int W, bool SPLIT>
 void launch_bwd_rows(const void* x, const void* w, const void* dy, void* dx,
-                     float* part, long long rows, long long per, int used,
-                     int nvec, float eps, cudaStream_t stream) {
+                     float* part, const float* ss, const float* dot,
+                     long long rows, long long per, int used, int nvec,
+                     float d, float eps, cudaStream_t stream) {
   constexpr int R = W == 16 ? 1 : 8 / W;
   const int D = nvec * Vec<T>::N;
   const size_t smem = R > 1 ? sizeof(float) * (size_t)R * D : 0;
-  rmsnorm_bwd_rows_kernel<T, W><<<used, 32 * W * R, smem, stream>>>(
+  rmsnorm_bwd_rows_kernel<T, W, SPLIT><<<used, 32 * W * R, smem, stream>>>(
       static_cast<const uint4*>(x), static_cast<const uint4*>(w),
-      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, rows,
-      per, nvec, (float)D, eps);
+      static_cast<const uint4*>(dy), static_cast<uint4*>(dx), part, ss, dot,
+      rows, per, nvec, d, eps);
 }
 
-template <typename T>
+// SPLIT: the rows' two sums come in ss and dot and n is the global width;
+// otherwise both are null and n is D
+template <typename T, bool SPLIT>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-               void* dw, float* part, long long rows, int D, float eps,
+               void* dw, float* part, const float* ss, const float* dot,
+               long long rows, int D, float n, float eps,
                cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
   long long per;
@@ -628,31 +768,38 @@ int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
                                   | reinterpret_cast<unsigned long long>(dx);
   const int nvec = D / N;
   const bool vec = addr % 16 == 0 && D % N == 0;
-#define RN_BWD_ARGS x, w, dy, dx, part, rows, per, used, nvec, eps, stream
-  if (vec && nvec <= 1) launch_bwd_group<T, 1>(RN_BWD_ARGS);
-  else if (vec && nvec <= 2) launch_bwd_group<T, 2>(RN_BWD_ARGS);
-  else if (vec && nvec <= 4) launch_bwd_group<T, 4>(RN_BWD_ARGS);
-  else if (vec && nvec <= 8) launch_bwd_group<T, 8>(RN_BWD_ARGS);
-  else if (vec && nvec <= 16) launch_bwd_group<T, 16>(RN_BWD_ARGS);
-  else if (vec && nvec <= 32) launch_bwd_group<T, 32>(RN_BWD_ARGS);
-  else if (vec && nvec <= 32 * BWD_NV) launch_bwd_rows<T, 1>(RN_BWD_ARGS);
-  else if (vec && nvec <= 64 * BWD_NV) launch_bwd_rows<T, 2>(RN_BWD_ARGS);
-  else if (vec && nvec <= 128 * BWD_NV) launch_bwd_rows<T, 4>(RN_BWD_ARGS);
-  else if (vec && nvec <= 256 * BWD_NV) launch_bwd_rows<T, 8>(RN_BWD_ARGS);
-  else if (vec && nvec <= 512 * BWD_NV) launch_bwd_rows<T, 16>(RN_BWD_ARGS);
+  const float d = n;
+#define RN_BWD_ARGS \
+  x, w, dy, dx, part, ss, dot, rows, per, used, nvec, d, eps, stream
+  if (vec && nvec <= 1) launch_bwd_group<T, 1, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 2) launch_bwd_group<T, 2, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 4) launch_bwd_group<T, 4, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 8) launch_bwd_group<T, 8, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 16) launch_bwd_group<T, 16, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 32) launch_bwd_group<T, 32, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 32 * BWD_NV)
+    launch_bwd_rows<T, 1, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 64 * BWD_NV)
+    launch_bwd_rows<T, 2, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 128 * BWD_NV)
+    launch_bwd_rows<T, 4, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 256 * BWD_NV)
+    launch_bwd_rows<T, 8, SPLIT>(RN_BWD_ARGS);
+  else if (vec && nvec <= 512 * BWD_NV)
+    launch_bwd_rows<T, 16, SPLIT>(RN_BWD_ARGS);
   else {
     const size_t smem = sizeof(float) * (size_t)D;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          rmsnorm_bwd_scalar_kernel<T>,
+          rmsnorm_bwd_scalar_kernel<T, SPLIT>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
     const int threads = D < BWD_THREADS ? (D + 31) / 32 * 32 : BWD_THREADS;
-    rmsnorm_bwd_scalar_kernel<T><<<used, threads, smem, stream>>>(
+    rmsnorm_bwd_scalar_kernel<T, SPLIT><<<used, threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, per, D,
-        eps);
+        static_cast<const T*>(dy), static_cast<T*>(dx), part, ss, dot, rows,
+        per, D, d, eps);
   }
 #undef RN_BWD_ARGS
   cudaError_t err = cudaGetLastError();
@@ -672,8 +819,43 @@ extern "C" int rmsnorm_launch(int dtype, const void* x, const void* w,
   if (rows <= 0 || D <= 0 || rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return launch<float>(x, w, y, rows, D, eps, s);
-  if (dtype == DT_BF16) return launch<__nv_bfloat16>(x, w, y, rows, D, eps, s);
+  const float n = (float)D;
+  if (dtype == DT_F32)
+    return launch<float, false>(x, w, y, nullptr, rows, D, n, eps, s);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16, false>(x, w, y, nullptr, rows, D, n, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The rows' float32 partials over this rank's D columns: sum(x^2) with dy
+// null, else sum(x w dy). x, dy: (rows, D) contiguous; w: (D,); stat:
+// (rows,) float32. One launch.
+extern "C" int rmsnorm_stat_launch(int dtype, const void* x, const void* w,
+                                   const void* dy, void* stat,
+                                   long long rows, int D, void* stream) {
+  if (rows <= 0 || D <= 0 || (dy != nullptr && w == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stat);
+  if (dtype == DT_F32) return launch_stat<float>(x, w, dy, st, rows, D, s);
+  if (dtype == DT_BF16)
+    return launch_stat<__nv_bfloat16>(x, w, dy, st, rows, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-row forward: y = x rsqrt(ss / n + eps) w with ss (rows,) the
+// all-reduced sums of squares and n the global width. One launch.
+extern "C" int rmsnorm_split_launch(int dtype, const void* x, const void* w,
+                                    void* y, const void* ss, long long rows,
+                                    int D, float n, float eps, void* stream) {
+  if (rows <= 0 || D <= 0 || rows > 0x7fffffffLL || ss == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* st = static_cast<const float*>(ss);
+  if (dtype == DT_F32)
+    return launch<float, true>(x, w, y, st, rows, D, n, eps, s);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16, true>(x, w, y, st, rows, D, n, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -698,9 +880,38 @@ extern "C" int rmsnorm_bwd_launch(int dtype, const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  const float n = (float)D;
   if (dtype == DT_F32)
-    return launch_bwd<float>(x, w, dy, dx, dw, p, rows, D, eps, s);
+    return launch_bwd<float, false>(x, w, dy, dx, dw, p, nullptr, nullptr,
+                                    rows, D, n, eps, s);
   if (dtype == DT_BF16)
-    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, D, eps, s);
+    return launch_bwd<__nv_bfloat16, false>(x, w, dy, dx, dw, p, nullptr,
+                                            nullptr, rows, D, n, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-row backward: dx = r (w dy) - x r^3 dot / n, r = rsqrt(ss / n
+// + eps), with ss and dot (rows,) the all-reduced sums of x^2 and x w dy,
+// and dw the sum over rows of dy x r over this rank's columns. Arguments
+// as rmsnorm_bwd_launch's; two launches.
+extern "C" int rmsnorm_split_bwd_launch(int dtype, const void* x,
+                                        const void* w, const void* dy,
+                                        void* dx, void* dw, void* part,
+                                        const void* ss, const void* dot,
+                                        long long rows, int D, float n,
+                                        float eps, void* stream) {
+  if (rows <= 0 || D <= 0 || part == nullptr || ss == nullptr ||
+      dot == nullptr || (size_t)D * sizeof(float) > 200 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  const float* a = static_cast<const float*>(ss);
+  const float* b = static_cast<const float*>(dot);
+  if (dtype == DT_F32)
+    return launch_bwd<float, true>(x, w, dy, dx, dw, p, a, b, rows, D, n,
+                                   eps, s);
+  if (dtype == DT_BF16)
+    return launch_bwd<__nv_bfloat16, true>(x, w, dy, dx, dw, p, a, b, rows,
+                                           D, n, eps, s);
   return (int)cudaErrorInvalidValue;
 }

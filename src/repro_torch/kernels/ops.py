@@ -59,7 +59,7 @@ from . import ssd_scan as _ssd
 
 __all__ = ["frontier_moments", "frontier_moments_with_grads",
            "plain_moments", "attention", "decode_attention",
-           "decode_attention_partial", "rmsnorm",
+           "decode_attention_partial", "rmsnorm", "rmsnorm_split",
            "ssd"]
 
 
@@ -288,6 +288,13 @@ def decode_attention_partial(q, k_cache, v_cache, valid, *, sm_scale=None):
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """RMSNorm of x (..., D) over its last axis, scaled by w (D,)."""
     return _rn.rmsnorm(x, w, eps=eps)
+
+
+def rmsnorm_split(x, w, group, n: int, *, eps: float = 1e-6):
+    """RMSNorm of rows split over the ranks of ``group``: this rank's
+    columns x (..., D) of rows n wide, scaled by its columns w (D,)
+    (``rmsnorm.rmsnorm_split``)."""
+    return _rn.rmsnorm_split(x, w, group, n, eps=eps)
 
 
 def ssd(x, dt, A, Bm, Cm, D_skip, *, chunk: int = 128,

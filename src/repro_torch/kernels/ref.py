@@ -50,7 +50,9 @@ __all__ = ["frontier_grid_ref", "frontier_grid_with_grads_ref",
            "CDF_FLOOR", "time_fractions", "flash_attention_ref",
            "rmsnorm_ref", "decode_attention_ref",
            "flash_attention_bf16p_ref", "decode_attention_split_ref",
-           "decode_attention_partial_ref", "rmsnorm_bwd_ref", "attention_mask", "flash_attention_lse_ref",
+           "decode_attention_partial_ref", "rmsnorm_bwd_ref",
+           "rmsnorm_stat_ref", "rmsnorm_split_ref", "rmsnorm_split_bwd_ref",
+           "attention_mask", "flash_attention_lse_ref",
            "flash_attention_bwd_ref", "ssd_chunked_bwd_ref", "tf32_round",
            "tf32_trunc", "split_einsum",
            "ssd_bwd_increments_ref", "ssd_bwd_scan_ref",
@@ -278,6 +280,40 @@ def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-6):
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     wg = wf * gf
     dx = r * wg - xf * r ** 3 * torch.mean(xf * wg, dim=-1, keepdim=True)
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def rmsnorm_stat_ref(x, w=None, dy=None):
+    """Each row's partial sum over x's columns (a rank's share of a split
+    row), float32 (float64 for float64 inputs), shape x.shape[:-1]:
+    sum(x^2) with ``dy`` None, else sum(x w dy)."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct)
+    if dy is None:
+        return torch.sum(xf * xf, dim=-1)
+    return torch.sum(xf * w.to(ct) * dy.to(ct), dim=-1)
+
+
+def rmsnorm_split_ref(x, w, ss, n: int, eps: float = 1e-6):
+    """The split-row RMSNorm of a rank's columns x (..., D) given ``ss``
+    (...,), the row's sum of squares over all n columns (every rank's
+    :func:`rmsnorm_stat_ref` summed): ``x rsqrt(ss / n + eps) w``, cast
+    to x's dtype."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    r = torch.rsqrt(ss.to(ct)[..., None] / n + eps)
+    return (x.to(ct) * r * w.to(ct)).to(x.dtype)
+
+
+def rmsnorm_split_bwd_ref(x, w, dy, ss, dot, n: int, eps: float = 1e-6):
+    """(dx, dw) of :func:`rmsnorm_split_ref` for the rank's cotangent dy,
+    given the row totals ``ss`` and ``dot`` (sum(x w dy) over all n
+    columns): with r = rsqrt(ss / n + eps), dx = r (w dy) - x r^3 dot / n
+    and dw, the rank's own columns, the sum over rows of dy x r."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, wf, gf = x.to(ct), w.to(ct), dy.to(ct)
+    r = torch.rsqrt(ss.to(ct)[..., None] / n + eps)
+    dx = r * (wf * gf) - xf * r ** 3 * (dot.to(ct)[..., None] / n)
     dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
     return dx.to(x.dtype), dw.to(w.dtype)
 

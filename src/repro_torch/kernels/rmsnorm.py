@@ -27,6 +27,21 @@ launches nothing: it returns an empty output of the kernel's shape and
 dtype and records the kernel's work (``launch.roofline.rmsnorm_work``) in
 the active count, through the same ``autograd.Function`` under a gradient,
 whose backward records ``rmsnorm_bwd``'s. Only a meta tensor takes it.
+
+Split rows (:func:`rmsnorm_split`): under tensor parallelism a rank may
+hold only its columns of each row (Mamba2's gated norm over the rank's SSD
+heads, ``models/ssm.py``). Its forward launches :func:`row_stat` (each
+row's float32 sum of squares over the rank's columns, the
+``rmsnorm_stat`` kernel), all-reduces it over the ranks'
+process group (one float a row on the wire) and launches
+:func:`rmsnorm_rows`, the forward forms above reading that total and the
+global width n; its backward does the same with the row's sum of x w dy
+and :func:`rmsnorm_rows_bwd`. The rank's dw is its own columns' and takes
+no sum over the ranks. ``LAUNCHES`` counts ``rmsnorm_stat``,
+``rmsnorm_split`` and ``rmsnorm_split_bwd``. On the CPU the same
+``autograd.Function`` runs the plain versions (``ref.rmsnorm_stat_ref``,
+``ref.rmsnorm_split_ref``, ``ref.rmsnorm_split_bwd_ref``); a meta tensor
+records each kernel's work.
 """
 from __future__ import annotations
 
@@ -36,12 +51,15 @@ import torch
 
 from . import _cuda
 from . import ref
-from ..launch import roofline
+from ..launch import collectives, roofline
 
-__all__ = ["rmsnorm", "rmsnorm_bwd", "build", "LAUNCHES", "reset_launches"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_split", "row_stat",
+           "rmsnorm_rows", "rmsnorm_rows_bwd", "build", "LAUNCHES",
+           "reset_launches"]
 
 # kernel launches since the last reset_launches()
-LAUNCHES = {"rmsnorm": 0, "rmsnorm_bwd": 0}
+LAUNCHES = {"rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_stat": 0,
+            "rmsnorm_split": 0, "rmsnorm_split_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -58,6 +76,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rmsnorm_bwd_launch.restype = ci
     lib.rmsnorm_bwd_blocks.argtypes = [cll]
     lib.rmsnorm_bwd_blocks.restype = cll
+    lib.rmsnorm_stat_launch.argtypes = [ci, vp, vp, vp, vp, cll, ci, vp]
+    lib.rmsnorm_stat_launch.restype = ci
+    lib.rmsnorm_split_launch.argtypes = [ci, vp, vp, vp, vp, cll, ci, cf,
+                                         cf, vp]
+    lib.rmsnorm_split_launch.restype = ci
+    lib.rmsnorm_split_bwd_launch.argtypes = ([ci] + [vp] * 8
+                                             + [cll, ci, cf, cf, vp])
+    lib.rmsnorm_split_bwd_launch.restype = ci
 
 
 def build() -> ctypes.CDLL:
@@ -192,3 +218,154 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     _cuda.check(err, "rmsnorm_bwd")
     LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dw
+
+
+# ------------------------------------------------------------ split rows
+def _stream(t):
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _check_split(x, w, *stats):
+    _check_args(x, w)
+    for st in stats:
+        if st.shape != x.shape[:-1] or st.device != x.device:
+            raise ValueError(f"a row total must be x's rows "
+                             f"{tuple(x.shape[:-1])} on {x.device}, got "
+                             f"{tuple(st.shape)} on {st.device}")
+        if x.is_cuda and (st.dtype != torch.float32
+                          or not st.is_contiguous()):
+            raise TypeError("the kernel takes contiguous float32 row totals")
+
+
+def row_stat(x, w=None, dy=None):
+    """Each row's float32 partial over x's columns (..., D) -> (...,):
+    sum(x^2), or with ``w`` and ``dy`` sum(x w dy). On the card the
+    ``rmsnorm_stat`` kernel; on the CPU ``ref.rmsnorm_stat_ref``."""
+    dot = dy is not None
+    if dot:
+        _check_args(x, w)
+        if dy.shape != x.shape:
+            raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
+                             f"{tuple(x.shape)}")
+    elif not _cuda.takes(x.dtype, x.device):
+        raise TypeError(f"row_stat takes x in {list(_cuda.DTYPES)}, got "
+                        f"{x.dtype}")
+    if x.device.type == "cpu":
+        return ref.rmsnorm_stat_ref(x, w, dy)
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    if x.device.type == "meta":
+        roofline.record_kernel("rmsnorm_stat", *roofline.rmsnorm_stat_work(
+            rows, D, x.element_size(), dot))
+        return torch.empty(x.shape[:-1], dtype=torch.float32, device="meta")
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("row_stat's kernel takes a contiguous x")
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return out
+    if dot:
+        dy = dy.to(x.dtype).contiguous()
+    err = build().rmsnorm_stat_launch(
+        _cuda.DTYPES[x.dtype], x.data_ptr(), w.data_ptr() if dot else None,
+        dy.data_ptr() if dot else None, out.data_ptr(), rows, D, _stream(x))
+    _cuda.check(err, "rmsnorm_stat")
+    LAUNCHES["rmsnorm_stat"] += 1
+    return out
+
+
+def rmsnorm_rows(x, w, ss, n: int, *, eps: float = 1e-6):
+    """The split-row forward of a rank's columns x (..., D) given ``ss``
+    (...,) float32, each row's sum of squares over all ``n`` columns:
+    ``x rsqrt(ss / n + eps) w`` in x's dtype. On the card the forward
+    kernel's split mode; on the CPU ``ref.rmsnorm_split_ref``."""
+    _check_split(x, w, ss)
+    if x.device.type == "cpu":
+        return ref.rmsnorm_split_ref(x, w, ss, n, eps=eps)
+    rows = _rows(x, w)
+    if x.device.type == "meta":
+        roofline.record_kernel("rmsnorm_split", *roofline.rmsnorm_split_work(
+            rows, w.shape[0], x.element_size()))
+        return torch.empty_like(x)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    err = build().rmsnorm_split_launch(
+        _cuda.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        ss.data_ptr(), rows, w.shape[0], float(n), float(eps), _stream(x))
+    _cuda.check(err, "rmsnorm_split")
+    LAUNCHES["rmsnorm_split"] += 1
+    return out
+
+
+def rmsnorm_rows_bwd(x, w, dy, ss, dot, n: int, *, eps: float = 1e-6):
+    """(dx, dw) of :func:`rmsnorm_rows` for the rank's cotangent ``dy``
+    given the row totals ``ss`` and ``dot`` (sum(x w dy) over all ``n``
+    columns); dw is the rank's own columns'. On the card the backward
+    kernels' split mode (two launches, counted once); on the CPU
+    ``ref.rmsnorm_split_bwd_ref``. An x with no rows gives a zero dw: no
+    row contributes to the sum."""
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    _check_split(x, w, ss, dot)
+    if x.device.type == "cpu":
+        return ref.rmsnorm_split_bwd_ref(x, w, dy, ss, dot, n, eps=eps)
+    rows = _rows(x, w)
+    if x.device.type == "meta":
+        roofline.record_kernel(
+            "rmsnorm_split_bwd", *roofline.rmsnorm_split_bwd_work(
+                rows, w.shape[0], x.element_size()))
+        return torch.empty_like(x), torch.empty_like(w)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dy = dy.to(x.dtype).contiguous()
+    D = w.shape[0]
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty_like(w)
+    lib = build()
+    part = torch.empty((lib.rmsnorm_bwd_blocks(rows), D),
+                       dtype=torch.float32, device=x.device)
+    err = lib.rmsnorm_split_bwd_launch(
+        _cuda.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), part.data_ptr(), ss.data_ptr(),
+        dot.data_ptr(), rows, D, float(n), float(eps), _stream(x))
+    _cuda.check(err, "rmsnorm_split_bwd")
+    LAUNCHES["rmsnorm_split_bwd"] += 1
+    return dx, dw
+
+
+class _SplitRMSNorm(torch.autograd.Function):
+    """The split-row norm: the row totals all-reduced over ``group``
+    between the two launches of each pass."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, n, eps):
+        ss = collectives.all_reduce(row_stat(x), group)
+        ctx.save_for_backward(x, w, ss)
+        ctx.group, ctx.n, ctx.eps = group, n, eps
+        return rmsnorm_rows(x, w, ss, n, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, ss = ctx.saved_tensors
+        dot = collectives.all_reduce(row_stat(x, w, dy.contiguous()),
+                                     ctx.group)
+        dx, dw = rmsnorm_rows_bwd(x, w, dy, ss, dot, ctx.n, eps=ctx.eps)
+        return dx, dw, None, None, None
+
+
+def rmsnorm_split(x, w, group, n: int, *, eps: float = 1e-6):
+    """RMSNorm of rows whose ``n`` columns lie on the ranks of ``group``,
+    this rank holding x (..., D) and its scale columns w (D,): each row's
+    sum of squares is all-reduced over ``group`` (None: one rank, whose D
+    must then be n) and ``x rsqrt(ss / n + eps) w`` comes back in x's
+    dtype. Differentiable (the module says how)."""
+    if group is None and n != w.shape[0]:
+        raise ValueError(f"one rank holds {w.shape[0]} of {n} columns")
+    return _SplitRMSNorm.apply(x, w, group, n, eps)

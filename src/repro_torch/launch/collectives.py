@@ -19,8 +19,13 @@ with the result:
   passes through unchanged.
 * :func:`reduce_grad`, the entry of a tensor that is the same on every
   rank into a computation that differs by rank (Megatron's f: x into the
-  rank's experts, a replicated weight used on the rank's rows): the
-  identity forward, and its backward all-reduces the gradient.
+  rank's experts or heads, a replicated weight used on the rank's rows or
+  heads): the identity forward, and its backward all-reduces the
+  gradient.
+* :func:`all_reduce_max` and :func:`all_reduce_min`, the vocab-parallel
+  loss's max and the argmax's lowest index over the vocab shards: no
+  gradient passes (the max is a constant of the log-sum-exp, as the
+  reference's ``stop_gradient`` makes it).
 
 Each takes ``group=None`` for an axis of size 1: no collective runs, and
 the op is the identity both ways. Without a gradient to take the
@@ -34,7 +39,8 @@ import torch.distributed as dist
 
 from . import roofline
 
-__all__ = ["all_gather", "all_reduce", "reduce_grad"]
+__all__ = ["all_gather", "all_reduce", "reduce_grad", "all_reduce_max",
+           "all_reduce_min"]
 
 
 def _record(kind: str, t: torch.Tensor, group) -> None:
@@ -152,3 +158,24 @@ def reduce_grad(t: torch.Tensor, group) -> torch.Tensor:
     if group is None or not _needs_grad(t):
         return t
     return _ReduceGrad.apply(t, group)
+
+
+def _reduce_op(t: torch.Tensor, group, op) -> torch.Tensor:
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=op, group=group)
+    _record("all-reduce", out, group)
+    return out
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every rank's ``t`` (a new tensor, no
+    gradient); ``t`` itself for ``group=None``."""
+    return _reduce_op(t, group, dist.ReduceOp.MAX)
+
+
+def all_reduce_min(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise min of every rank's ``t`` (a new tensor, no
+    gradient); ``t`` itself for ``group=None``."""
+    return _reduce_op(t, group, dist.ReduceOp.MIN)

@@ -19,17 +19,19 @@ not measurements.
 
 Where the reference shards the batch over "pod" and "data", the port's
 context shards it over "data" (a context with two axes above 1 on one dim
-is ROADMAP §1 item 12f): each pod takes its block of the batch's rows, and
+is ROADMAP §1 item 12g): each pod takes its block of the batch's rows, and
 a train step joins the pods' gradients with one ``all_reduce``
 (``make_train_step(pod_axis="pod")``); a prefill or decode cell runs on
 its pod's (data, model) mesh, which holds every weight a pod holds. The
 decode cells shard the cache's
 sequence over "data" where the batch does not split and the arch is a
-hybrid, as the reference does. The port computes every head and every
-FFN column on every TP rank (item 12f), so a cell's per-chip FLOPs are
-about 16 times the useful share: ``useful_flops_ratio`` reports it as it
-is. The encoder-decoder (Whisper) takes no sharded context: its cells are
-written with status ``not_ported``; ``skipped`` is the reference's
+hybrid, as the reference does. Each TP rank computes its heads, FFN
+columns, SSD heads and vocab shard (``models/tp.py``), and a block whose
+heads do not divide the TP size runs replicated, as the reference's rule
+replicates it: each record names those blocks (``meta.replicated``), and
+``useful_flops_ratio`` reports the count as it is. The encoder-decoder
+(Whisper) takes its frames as the reference's cells give them, (B,
+encoder_seq, d) in the activation dtype. ``skipped`` is the reference's
 ``shape_applicable`` reason. A missing ``fake_pg`` raises.
 
 Usage:
@@ -57,16 +59,15 @@ from ..models import ShardCtx, build_model
 from ..optim.adamw import cosine_schedule
 from ..train.step import (init_state, make_partitioned_train_step,
                           make_train_step)
+from ..models import tp as tp_lib
 from . import roofline
 from .mesh import axis_size, batch_axes, make_production_mesh
 from .shardings import local
 
-__all__ = ["fake_world", "run_cell", "build_cell", "NOT_PORTED", "main"]
+__all__ = ["fake_world", "run_cell", "build_cell", "main"]
 
 DEFAULT_OUT = os.path.join(RESULTS_DIR, "dryrun")
 MESH_TAGS = {"single": "pod16x16", "multi": "pod2x16x16"}
-NOT_PORTED = ("the encoder-decoder takes no sharded context: ROADMAP.md "
-              "section 1, item 12f")
 
 
 @contextlib.contextmanager
@@ -146,13 +147,18 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
             "mesh": dict(zip(names, mesh.shape)),
             "batch_shardable": shardable,
             "batch_axes": list(ctx.batch_axes), "pod_batch": Bp,
-            "cache_seq_axes": list(seq_axes) if seq_axes else None}
+            "cache_seq_axes": list(seq_axes) if seq_axes else None,
+            "replicated": tp_lib.replicated_blocks(
+                cfg, axis_size(model_mesh, "model"))}
     model = build_model(cfg, device="meta", seed=0, ctx=ctx,
                         trainable=train)
     lr = cosine_schedule(3e-4, 100, 10_000)
     n_text = S - cfg.num_patches
-    extra = (_meta((Bp, cfg.num_patches, cfg.d_model), torch.bfloat16)
-             if cfg.num_patches else None)
+    # the VLM's patches or the encoder-decoder's frames
+    n_extra = cfg.num_patches or (cfg.encoder_seq
+                                  if cfg.is_encoder_decoder else 0)
+    extra = (_meta((Bp, n_extra, cfg.d_model), torch.bfloat16)
+             if n_extra else None)
 
     if partitioned:
         if "pod" not in names:
@@ -192,7 +198,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
         return run, params, meta
     cache_len = min(S, cfg.window) if cfg.window else S
     meta["cache_len"] = cache_len
-    cache = model.cache_init(Bp, cache_len)
+    cache = (model.cache_init(Bp, cache_len, cfg.encoder_seq)
+             if cfg.is_encoder_decoder else model.cache_init(Bp, cache_len))
     tok = _meta((Bp, 1))
 
     def run():
@@ -215,10 +222,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, mesh=None,
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         record.update(status="skipped", reason=why)
-        return _dump(record, out_dir)
-    if cfg.is_encoder_decoder:
-        record.update(status="not_ported", reason=NOT_PORTED)
-        print(f"[NOT PORTED] {arch} {record['shape']} {record['mesh']}")
         return _dump(record, out_dir)
     chips = _chips(mesh)
     try:
@@ -306,8 +309,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.seq_parallel:
         raise NotImplementedError(
-            "--seq-parallel: the port has no sequence axis; head- and "
-            "sequence-parallel compute is ROADMAP.md section 1, item 12f")
+            "--seq-parallel: the port has no sequence axis; Megatron "
+            "sequence parallelism on the residual stream is ROADMAP.md "
+            "section 1, item 12g")
     if not args.all and args.arch is None:
         ap.error("give --arch (and --shape), or --all")
     meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)

@@ -44,7 +44,8 @@ __all__ = ["HW", "HBM_BYTES_PER_S", "BF16_OPS_PER_S", "TF32_OPS_PER_S",
            "counting", "active", "record_kernel", "record_collective",
            "track", "wire_bytes", "crosses_nodes", "roofline_terms",
            "count_params", "model_flops", "bound", "tensor_peak",
-           "rmsnorm_work", "rmsnorm_bwd_work", "attention_pairs",
+           "rmsnorm_work", "rmsnorm_bwd_work", "rmsnorm_stat_work",
+           "rmsnorm_split_work", "rmsnorm_split_bwd_work", "attention_pairs",
            "attention_work", "attention_bwd_work", "decode_work",
            "decode_partial_work", "ssd_work", "ssd_bwd_work"]
 
@@ -96,6 +97,10 @@ class Count:
     kernels: Dict[str, dict] = field(default_factory=dict)
     notes: List[str] = field(default_factory=list)
     peak_bytes: float = 0.0
+    # every collective in order: (kind, size, the group's global ranks);
+    # not in the record (to_dict), read by tests of what crosses an axis
+    log: List[Tuple[str, float, Tuple[int, ...]]] = field(
+        default_factory=list)
 
     def to_dict(self) -> dict:
         return {k: getattr(self, k) for k in
@@ -156,6 +161,7 @@ def record_collective(kind: str, size: float, ranks) -> None:
     ranks = list(ranks)
     wire = wire_bytes(kind, size, len(ranks))
     cnt = c.count
+    cnt.log.append((kind, float(size), tuple(ranks)))
     cnt.collective_counts[kind] = cnt.collective_counts.get(kind, 0) + 1
     cnt.collective_bytes_by_type[kind] = (
         cnt.collective_bytes_by_type.get(kind, 0.0) + wire)
@@ -417,6 +423,32 @@ def rmsnorm_bwd_work(rows: int, D: int, esize: int) -> Tuple[float, float]:
     """(operations, bytes) of the RMSNorm backward: x and dy read, dx
     written, w read and dw written; 10 float32 operations an element."""
     return 10.0 * rows * D, float(esize * (3 * rows * D + 2 * D))
+
+
+def rmsnorm_stat_work(rows: int, D: int, esize: int,
+                      dot: bool) -> Tuple[float, float]:
+    """(operations, bytes) of a split row's partial sum over a rank's D
+    columns: x read (and w and dy with ``dot``), one float32 a row
+    written; 2 (3) float32 operations an element."""
+    n_in = 2 if dot else 1
+    return (3.0 if dot else 2.0) * rows * D, float(
+        esize * (n_in * rows * D + (D if dot else 0)) + 4 * rows)
+
+
+def rmsnorm_split_work(rows: int, D: int, esize: int) -> Tuple[float, float]:
+    """(operations, bytes) of the split-row forward given the row totals:
+    :func:`rmsnorm_work`'s, with the (rows,) float32 totals read."""
+    ops, nbytes = rmsnorm_work(rows, D, esize)
+    return ops - 2.0 * rows * D, nbytes + 4.0 * rows
+
+
+def rmsnorm_split_bwd_work(rows: int, D: int,
+                           esize: int) -> Tuple[float, float]:
+    """(operations, bytes) of the split-row backward given both row
+    totals: :func:`rmsnorm_bwd_work`'s, with two (rows,) float32 totals
+    read."""
+    ops, nbytes = rmsnorm_bwd_work(rows, D, esize)
+    return ops - 4.0 * rows * D, nbytes + 8.0 * rows
 
 
 def attention_pairs(Sq: int, Sk: int, causal: bool,

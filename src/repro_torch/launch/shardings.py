@@ -38,6 +38,17 @@ caller names the axes whose ranks compute different rows after the gather
 (``rows``), and the adjoint on such an axis is a reduce-scatter of the
 gradient (a replicated dim there all-reduces it); on any other axis the
 rank's own slice.
+
+A block that runs on its TP rank (``models/tp.py``: its heads, FFN
+columns or vocab) takes its weights through :func:`gather_local`: every
+dim is gathered but the one the TP axis shards, which stays the rank's
+(:func:`tp_keep`), so the weights are gathered over FSDP only and the
+gradient of a kept dim is the rank's own shard. The TP axis counts among
+the block's ``rows``: its ranks compute different heads, so a weight the
+block holds whole (a per-head norm scale, Mamba2's ``w_bc``, MLA's
+latent projection) has a partial gradient on each rank, which the
+adjoint all-reduces, and one the block gathers over TP to slice (the KV
+heads its queries read) reduce-scatters its gradient.
 """
 from __future__ import annotations
 
@@ -53,7 +64,7 @@ __all__ = ["param_specs", "state_specs", "cache_specs", "batch_specs",
            "leaf_spec", "named", "placements", "local_shard", "distribute",
            "place_module", "place_cache", "gather", "gather_dim",
            "write_back", "is_device_mesh", "spec_axes", "local", "like",
-           "sharded_axes"]
+           "sharded_axes", "tp_keep", "gather_local"]
 
 Spec = Tuple[Any, ...]
 
@@ -430,6 +441,31 @@ def gather(t, keep: Optional[Spec] = None, rows=()) -> torch.Tensor:
         out = collectives.all_gather(out, pl.dim, mesh.get_group(names[i]),
                                      partial_grads=names[i] in rows)
     return out
+
+
+def tp_keep(t, axis: Optional[str]) -> Optional[Spec]:
+    """The spec that keeps ``axis`` on the dim that it shards a DTensor
+    ``t`` over, for :func:`gather`'s ``keep`` (None where it shards none
+    or ``t`` is plain)."""
+    if axis is None or not _is_dtensor(t):
+        return None
+    names = tuple(t.device_mesh.mesh_dim_names)
+    if axis not in names:
+        return None
+    pl = t.placements[names.index(axis)]
+    if not pl.is_shard():
+        return None
+    keep = [None] * t.ndim
+    keep[pl.dim] = axis
+    return tuple(keep)
+
+
+def gather_local(t, axis: Optional[str], rows=()) -> torch.Tensor:
+    """``t`` as a block computed on its rank of ``axis`` takes it: gathered
+    over every other axis that shards it, this rank's block of the dim
+    ``axis`` shards, ``axis`` among the ``rows`` (the module says why)."""
+    return gather(t, keep=tp_keep(t, axis),
+                  rows=(*rows, axis) if axis is not None else rows)
 
 
 def write_back(t, value: torch.Tensor, keep: Optional[Spec] = None) -> None:

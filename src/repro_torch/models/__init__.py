@@ -5,11 +5,11 @@ of ``models/``).
 returns the right wrapper with its weights drawn from a seeded
 ``torch.Generator`` on the device; with ``trainable`` every parameter
 requires a gradient (the training path), without it none does (serving,
-the default). A ``ShardCtx`` on a ``DeviceMesh`` puts the LM's weights at
+the default). A ``ShardCtx`` on a ``DeviceMesh`` puts the weights at
 ``launch.shardings.param_specs``' placements, each rank keeping its shard
-of the same seeded draw (:func:`place`; ``models/transformer.py`` says how
-the model then serves and trains); the encoder-decoder takes no sharded
-context (ROADMAP §1 item 12f):
+of the same seeded draw (:func:`place`; ``models/transformer.py`` and
+``models/tp.py`` say how the model then serves and trains, each rank on
+its rows of the batch and its heads, columns and vocab shard):
 
 * :class:`LM` — decoder-only (dense, MoE, MLA, SSM, hybrid);
 * :class:`EncDec` — the Whisper-style encoder-decoder (audio);
@@ -40,12 +40,8 @@ def build_model(cfg: ModelConfig, device="cuda", seed: int = 0,
     placed = ctx is not None and shardings.is_device_mesh(ctx.mesh)
     if ctx is not None:
         ctx.check_local()
-        if cfg.is_encoder_decoder and (placed or ctx.sharded):
-            raise NotImplementedError(
-                "the encoder-decoder serves on one device: a sharded "
-                "context for it is ROADMAP.md section 1, item 12f")
     if cfg.is_encoder_decoder:
-        model = EncDec(cfg, device=device, seed=seed)
+        model = EncDec(cfg, device=device, seed=seed, ctx=ctx)
     elif cfg.num_patches:
         model = VLM(cfg, device=device, seed=seed, ctx=ctx)
     else:

@@ -20,6 +20,14 @@ the reference's, not the unsharded decode's. :func:`lse_combine` merges
 partials in one process, in rank order, bit for bit what an
 ``all_reduce`` of two ranks gives.
 
+Head counts come from the weights' shapes, not from the config: under
+tensor parallelism a rank holds its query heads' columns of ``wq`` and the
+rows of ``wo`` (``models/tp.py``), and the output is the rank's partial
+of the layer's output, which the caller sums over the ranks. Where the
+rank's query heads read fewer KV heads than ``wk`` gives (``kv_heads``:
+the TP size a multiple of the KV heads), K and V are computed for every
+head (the cache holds them all) and the rank attends over its slice.
+
 Cross-attention (Whisper's decoder) passes the encoder's K/V as
 ``kv_override``: the queries keep their rope and the K/V get none, as in
 the reference. Where the K/V are wider than the queries (float32 frames
@@ -39,6 +47,7 @@ from ..kernels import ops, ref
 from .layers import dense_init, dtype_of, param, rms_norm, rmsnorm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_decode_step",
+           "heads",
            "sharded_lse_decode", "lse_combine", "lse_ranks", "seq_shards"]
 
 
@@ -67,10 +76,15 @@ def _promoted(q, k, v):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
+def heads(w, cfg: ModelConfig) -> int:
+    """The heads of a projection's columns (a rank's share of them)."""
+    return w.shape[-1] // cfg.head_dim
+
+
 def _queries(p, x, cfg: ModelConfig, positions):
     """(B, S, Hq, hd) queries: projected, normed with qk_norm, roped."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(B, S, heads(p["wq"], cfg), cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return rope(q, positions, cfg.rope_theta)
@@ -79,7 +93,7 @@ def _queries(p, x, cfg: ModelConfig, positions):
 def _keys_values(p, x, cfg: ModelConfig, positions):
     """(B, S, Hkv, hd) keys (normed with qk_norm, roped) and values."""
     B, S, _ = x.shape
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    hkv, hd = heads(p["wk"], cfg), cfg.head_dim
     k = (x @ p["wk"]).reshape(B, S, hkv, hd)
     v = (x @ p["wv"]).reshape(B, S, hkv, hd)
     if cfg.qk_norm:
@@ -89,19 +103,23 @@ def _keys_values(p, x, cfg: ModelConfig, positions):
 
 def attn_apply(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
                kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               return_kv: bool = False):
+               return_kv: bool = False, kv_heads: Optional[slice] = None):
     """Full-sequence attention. x: (B, S, d). ``kv_override`` supplies
     cross-attention K/V, already headed, (B, Skv, Hkv, hd); return_kv also
-    returns the (B, S, Hkv, hd) K/V for the cache."""
+    returns the (B, S, Hkv, hd) K/V for the cache; ``kv_heads``: the KV
+    heads the queries read, of those K/V (None: all)."""
     B, S, _ = x.shape
     q = _queries(p, x, cfg, positions)
     k, v = (_keys_values(p, x, cfg, positions) if kv_override is None
             else kv_override)
+    ka, va = (k, v) if kv_heads is None else (k[:, :, kv_heads],
+                                              v[:, :, kv_heads])
     # the kernel takes (B, H, S, D) views through their strides
     out = ops.attention(
-        *_promoted(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+        *_promoted(q.transpose(1, 2), ka.transpose(1, 2),
+                   va.transpose(1, 2)),
         causal=causal, window=cfg.window,
-    ).transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
+    ).transpose(1, 2).reshape(B, S, q.shape[2] * cfg.head_dim)
     y = out.to(q.dtype) @ p["wo"]
     if return_kv:
         return y, (k, v)
@@ -186,16 +204,21 @@ def lse_ranks(q, shards):
 
 
 def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, slot_pos,
-                pos: int, *, seq_sharded: bool = False, seq_group=None):
+                pos: int, *, seq_sharded: bool = False, seq_group=None,
+                kv_heads: Optional[slice] = None):
     """One-token decode. x: (B, 1, d); caches: (B, Hkv, S, hd) with the new
     token already inserted; slot_pos: (S,) absolute position per slot (< 0 =
     empty); pos: the current position. Returns (B, 1, d). With
     ``seq_sharded`` the caches and slot_pos are this rank's sequence shard
     and :func:`sharded_lse_decode` combines the shards over
-    ``seq_group``."""
+    ``seq_group``; ``kv_heads``: the cache's heads the queries read (None:
+    all)."""
     B = x.shape[0]
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _queries(p, x, cfg, torch.full((B, 1), pos, device=x.device))
+    if kv_heads is not None:   # the kernel takes contiguous caches
+        k_cache = k_cache[:, kv_heads].contiguous()
+        v_cache = v_cache[:, kv_heads].contiguous()
+    hq, hkv, hd = q.shape[2], k_cache.shape[1], cfg.head_dim
 
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if cfg.window is not None:
@@ -212,15 +235,16 @@ def attn_decode(p, x, cfg: ModelConfig, k_cache, v_cache, slot_pos,
 
 def attn_decode_step(p, x, cfg: ModelConfig, c: dict, slot_pos, pos: int,
                      slot: Optional[int], *, seq_sharded: bool = False,
-                     seq_group=None):
+                     seq_group=None, kv_heads: Optional[slice] = None):
     """Write the token's K/V (rope at ``pos``) into the cache ``c``
     (``{"k", "v"}``, (B, Hkv, S, hd)) at ``slot`` (None: another sequence
-    shard holds it), then attend over it (:func:`attn_decode`).
-    x: (B, 1, d) -> (B, 1, d)."""
+    shard holds it), then attend over it (:func:`attn_decode`, with
+    ``kv_heads``). x: (B, 1, d) -> (B, 1, d)."""
     k_new, v_new = _keys_values(
         p, x, cfg, torch.full((x.shape[0], 1), pos, device=x.device))
     if slot is not None:
         c["k"][:, :, slot] = k_new[:, 0].to(c["k"].dtype)
         c["v"][:, :, slot] = v_new[:, 0].to(c["v"].dtype)
     return attn_decode(p, x, cfg, c["k"], c["v"], slot_pos, pos,
-                       seq_sharded=seq_sharded, seq_group=seq_group)
+                       seq_sharded=seq_sharded, seq_group=seq_group,
+                       kv_heads=kv_heads)

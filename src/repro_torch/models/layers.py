@@ -8,6 +8,11 @@ parameters do not require gradients until ``build_model(...,
 trainable=True)`` (the training path) asks for them. Initializers take an explicit
 ``torch.Generator``; its numbers differ from ``jax.random``'s, so tests
 carry the reference's weights across instead of re-drawing them.
+
+Under tensor parallelism (``models/tp.py``) :func:`mlp_apply` takes a
+rank's hidden columns (``w_up``, ``w_gate``) and rows (``w_down``) as they
+are and returns its partial; :func:`embed_lookup` and :func:`lm_head`
+take a rank's vocab rows of the table and columns of the head.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..launch import collectives
 
 __all__ = [
     "dense_init", "rmsnorm_init", "rms_norm", "rope", "mlp_init", "mlp_apply",
@@ -129,11 +135,31 @@ def embed_init(cfg: ModelConfig, generator: torch.Generator,
     })
 
 
-def embed_lookup(p, tokens, cfg: ModelConfig):
+def embed_lookup(p, tokens, cfg: ModelConfig, shard=None):
     """Row lookup in the activation dtype. The reference contracts a one-hot
-    with the table, which picks each row exactly, as a gather does."""
-    return F.embedding(tokens, p["embedding"]).to(dtype_of(cfg.activation_dtype))
+    with the table, which picks each row exactly, as a gather does.
+
+    ``shard`` ``(start, group)``: ``p["embedding"]`` holds this rank's
+    vocab rows from ``start``; a token outside them gives a zero row, and
+    an ``all_reduce`` over ``group`` sums the ranks' rows, of which one
+    is the token's and the rest are zero (what the reference's one-hot
+    contraction lowers to on a vocab-sharded table): the sum is exact."""
+    adt = dtype_of(cfg.activation_dtype)
+    if shard is None:
+        return F.embedding(tokens, p["embedding"]).to(adt)
+    start, group = shard
+    table = p["embedding"]
+    loc = tokens - start
+    inside = (loc >= 0) & (loc < table.shape[0])
+    x = F.embedding(torch.where(inside, loc, 0), table).to(adt)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=adt,
+                                                      device=x.device))
+    return collectives.all_reduce(x, group)
 
 
-def lm_head(p, x, cfg: ModelConfig):
-    return x @ p["head"].to(x.dtype)
+def lm_head(p, x, cfg: ModelConfig, group=None):
+    """Logits (..., V) of x (..., d); with ``group`` ``p["head"]`` holds
+    this rank's vocab columns and so do the logits, and x (the same on
+    every rank of ``group``) enters through Megatron's f (its gradient
+    summed over the ranks)."""
+    return collectives.reduce_grad(x, group) @ p["head"].to(x.dtype)

@@ -11,6 +11,11 @@ Decode caches the latent and the rope key only and scores with the
 absorbed matmuls in float32, q_nope taken through ``W_uk`` so the cache is
 read directly: plain matrix products, as in the JAX package, where no
 Pallas kernel computes them either.
+
+Head counts come from the weights' shapes: under tensor parallelism a rank
+holds its heads' columns of ``wq``, ``w_uk`` and ``w_uv`` and the rows of
+``wo`` (``models/tp.py``), the latent's ``w_dkv`` and ``kv_norm`` whole,
+and returns its partial of the layer's output.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from .layers import dense_init, dtype_of, param, rms_norm, rmsnorm_init, rope
 
-__all__ = ["mla_init", "mla_apply", "mla_decode", "latent"]
+__all__ = ["mla_init", "mla_apply", "mla_decode", "latent", "heads"]
 
 
 def mla_init(cfg: ModelConfig, generator: torch.Generator,
@@ -53,9 +58,14 @@ def latent(p, x, cfg: ModelConfig, positions):
     return c, k_rope
 
 
+def heads(p, cfg: ModelConfig) -> int:
+    """The heads of ``p``'s query columns (a rank's share of them)."""
+    return p["wq"].shape[-1] // (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
 def _queries(p, x, cfg: ModelConfig, positions):
     B, S, _ = x.shape
-    h, nope, rd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    h, nope, rd = heads(p, cfg), cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q = (x @ p["wq"]).reshape(B, S, h, nope + rd)
     return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
 
@@ -64,7 +74,7 @@ def mla_apply(p, x, cfg: ModelConfig, positions):
     """Full-sequence MLA. x: (B, S, d) -> ((B, S, d), (c (B, S, lora),
     k_rope (B, S, rd)) for the cache)."""
     B, S, _ = x.shape
-    h, nope, rd, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
+    h, nope, rd, vd = (heads(p, cfg), cfg.qk_nope_head_dim,
                        cfg.qk_rope_head_dim, cfg.v_head_dim)
     q_nope, q_rope = _queries(p, x, cfg, positions)
     c, k_rope = latent(p, x, cfg, positions)
@@ -86,7 +96,7 @@ def mla_decode(p, x, cfg: ModelConfig, c_cache, rope_cache, slot_pos,
     x: (B, 1, d); c_cache: (B, S, lora); rope_cache: (B, S, rd); slot_pos:
     (S,). score_s = (q_nope W_uk^T) . c_s + q_rope . k_rope_s."""
     B = x.shape[0]
-    h, nope, rd, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
+    h, nope, rd, vd = (heads(p, cfg), cfg.qk_nope_head_dim,
                        cfg.qk_rope_head_dim, cfg.v_head_dim)
     lora = cfg.kv_lora_rank
     f32 = torch.float32

@@ -32,7 +32,10 @@ one-device MoE. Every decision matches the reference's:
   (ROADMAP, Determinism).
 
 The shared experts (DeepSeek) run densely on every token and are added
-last, after the partials are summed.
+last, after the partials are summed. Where the layer hands them over at
+their TP shards (``models/tp.py``: the hidden columns divide the TP
+size), each rank computes its columns, and an ``all_reduce`` of its
+partial joins them (Megatron's f and g).
 
 Under a gradient the collectives are Megatron's pair
 (``launch/collectives.py``): the partials' ``all_reduce`` passes the
@@ -57,7 +60,7 @@ from ..launch import collectives, shardings
 from .layers import dense_init, dtype_of, param, wide
 
 __all__ = ["moe_init", "moe_apply", "moe_body", "moe_ranks", "route",
-           "Routing", "capacity"]
+           "Routing", "capacity", "shared_width", "shared_ranks"]
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator,
@@ -172,12 +175,42 @@ def _local_moe(p, x, cfg: ModelConfig):
                     p["moe_down"], cfg)
 
 
-def _shared(p, xt, y, cfg: ModelConfig):
-    if not cfg.num_shared_experts:
-        return y
+def shared_width(cfg: ModelConfig) -> int:
+    """The shared experts' hidden width (0 without them)."""
+    return (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts
+
+
+def _shared_part(p, xt):
+    """The shared experts on ``p``'s hidden columns (all, or a rank's)."""
     u = xt @ p["shared_up"]
     g = xt @ p["shared_gate"]
-    return y + (F.silu(g) * u) @ p["shared_down"]
+    return (F.silu(g) * u) @ p["shared_down"]
+
+
+def _shared(p, xt, y, cfg: ModelConfig, group=None):
+    """y plus the shared experts of xt; ``group``: the TP group when ``p``
+    holds a rank's hidden columns of them."""
+    if not cfg.num_shared_experts:
+        return y
+    xs = collectives.reduce_grad(xt, group)
+    return y + collectives.all_reduce(_shared_part(p, xs), group)
+
+
+def shared_ranks(p, xt, cfg: ModelConfig, tp: int):
+    """Every TP rank's shared-expert partial of xt in one process, p's
+    weights whole: rank r's hidden columns, the partials summed in rank
+    order (as an ``all_reduce`` of two ranks sums them)."""
+    sf = shared_width(cfg)
+    n = sf // tp
+    y = None
+    for r in range(tp):
+        part = _shared_part({"shared_up": p["shared_up"][:, r * n:(r + 1) * n],
+                             "shared_gate":
+                                 p["shared_gate"][:, r * n:(r + 1) * n],
+                             "shared_down":
+                                 p["shared_down"][r * n:(r + 1) * n]}, xt)
+        y = part if y is None else y + part
+    return y
 
 
 def _token_split(ctx, T: int):
@@ -225,16 +258,22 @@ def moe_apply(p, x, cfg: ModelConfig, ctx=None):
                                tp_group)
     if split is not None:
         y = shardings.gather_dim(y, 0, ctx.mesh, axis)
-    return _shared(p, xt, y, cfg).reshape(B, S, d)
+    local = (cfg.num_shared_experts
+             and p["shared_up"].shape[-1] < shared_width(cfg))
+    return _shared(p, xt, y, cfg, tp_group if local else None).reshape(
+        B, S, d)
 
 
-def moe_ranks(p, x, cfg: ModelConfig, *, tp: int, data: int = 1):
+def moe_ranks(p, x, cfg: ModelConfig, *, tp: int, data: int = 1,
+              shared_tp: bool = False):
     """Every rank's body of a (data, tp) mesh in one process: x (B, S, d)
     with the batch replicated over "data" (``ShardCtx(batch_axes=())``),
     p's expert banks whole. The tokens split over "data" where it divides
     them (as :func:`moe_apply` splits them over FSDP); each split's tp
     partials are summed in rank order, in x's dtype, as an ``all_reduce``
-    of two ranks sums them."""
+    of two ranks sums them. With ``shared_tp`` the shared experts run by
+    rank too (:func:`shared_ranks`), as :func:`moe_apply` runs them when
+    the layer hands them over at their TP shards."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     T = B * S
@@ -252,4 +291,7 @@ def moe_ranks(p, x, cfg: ModelConfig, *, tp: int, data: int = 1):
                             cfg, tp, r)
             y = part if y is None else y + part
         ys.append(y)
-    return _shared(p, xt, torch.cat(ys, 0), cfg).reshape(B, S, d)
+    y = torch.cat(ys, 0)
+    if shared_tp and cfg.num_shared_experts:
+        return (y + shared_ranks(p, xt, cfg, tp)).reshape(B, S, d)
+    return _shared(p, xt, y, cfg).reshape(B, S, d)

@@ -10,6 +10,17 @@ kernel for it. As in the reference, ``dt_bias``, ``A_log`` and ``D`` stay
 float32 whatever the parameter dtype, the conv runs in the activation dtype
 during prefill and in float32 during decode. Unlike the reference,
 :func:`mamba_decode` updates the two states in place.
+
+Head counts come from the weights' shapes: under tensor parallelism a rank
+holds its SSD heads' columns of ``w_in_x``, ``w_in_z``, ``w_dt`` and
+``conv``, their ``A_log``, ``D``, ``dt_bias`` and ``ssm_norm`` entries and
+the rows of ``w_out`` (``models/tp.py``; ``w_bc`` stays whole: one group),
+its states hold its heads, and it returns its partial of the layer's
+output. The gated norm then runs over rows split across the ranks
+(``norm_group``): ``ops.rmsnorm_split`` all-reduces each row's sum of
+squares, one float a row, where gathering the rows would move the
+activations. :func:`gated` and :func:`out_proj` are the two halves of
+:func:`mamba_apply` on either side of that sum.
 """
 from __future__ import annotations
 
@@ -24,7 +35,8 @@ from ..kernels import ops
 from .layers import (dense_init, dtype_of, param, rms_norm, rmsnorm_init,
                      wide)
 
-__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init"]
+__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init",
+           "gated", "out_proj", "heads"]
 
 
 def mamba_init(cfg: ModelConfig, generator: torch.Generator,
@@ -65,10 +77,41 @@ def _dt(p, x):
     return F.softplus(x.to(ct) @ p["w_dt"].to(ct) + p["dt_bias"])
 
 
-def mamba_apply(p, x, cfg: ModelConfig, *, return_state: bool = False):
-    """x: (B, S, d) -> (B, S, d) [, (ssm_state, conv_state) for prefill]."""
+def heads(p) -> int:
+    """The SSD heads of ``p`` (a rank's share of them)."""
+    return p["A_log"].shape[0]
+
+
+def _norm(p, g, cfg: ModelConfig, norm_group):
+    """The gated norm of g = y silu(z): over the whole row, or over a row
+    split across ``norm_group``'s ranks (``p`` holding this rank's
+    columns)."""
+    if norm_group is None and g.shape[-1] == cfg.ssm_inner:
+        return rms_norm(g, p["ssm_norm"], cfg.norm_eps)
+    return ops.rmsnorm_split(g, p["ssm_norm"], norm_group, cfg.ssm_inner,
+                             eps=cfg.norm_eps)
+
+
+def out_proj(p, g, cfg: ModelConfig, norm_group=None):
+    """The gated norm of g (:func:`gated`) and the out-projection."""
+    return _norm(p, g, cfg, norm_group) @ p["w_out"]
+
+
+def mamba_apply(p, x, cfg: ModelConfig, *, return_state: bool = False,
+                norm_group=None):
+    """x: (B, S, d) -> (B, S, d) [, (ssm_state, conv_state) for prefill].
+    ``norm_group``: the ranks across which the gated norm's rows are split
+    (the module says when)."""
+    g, state = gated(p, x, cfg, return_state=return_state)
+    y = out_proj(p, g, cfg, norm_group)
+    return (y, state) if return_state else y
+
+
+def gated(p, x, cfg: ModelConfig, *, return_state: bool = False):
+    """The mixer up to its gated norm: (y silu(z) (B, S, H P), the states
+    of :func:`mamba_apply` with ``return_state``, else None)."""
     B, S, _ = x.shape
-    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    H, P, N, G = heads(p), cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     xi_raw = x @ p["w_in_x"]                               # (B, S, di)
     z = x @ p["w_in_z"]
     xi = F.silu(_depthwise_conv(xi_raw, p["conv"]))
@@ -81,16 +124,14 @@ def mamba_apply(p, x, cfg: ModelConfig, *, return_state: bool = False):
     out = ops.ssd(xi.reshape(B, S, H, P), _dt(p, x), A, Bm, Cm, p["D"],
                   chunk=cfg.ssd_chunk, return_final_state=return_state)
     y, final_state = out if return_state else (out, None)
-    y = y.reshape(B, S, H * P)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    y = y @ p["w_out"]
+    g = y.reshape(B, S, H * P) * F.silu(z)
     if return_state:
         w = cfg.ssm_conv_width
-        pad = xi_raw.new_zeros((B, max(w - 1 - S, 0), cfg.ssm_inner))
+        pad = xi_raw.new_zeros((B, max(w - 1 - S, 0), xi_raw.shape[-1]))
         conv_state = torch.cat([pad, xi_raw[:, max(S - (w - 1), 0):, :]],
                                dim=1)
-        return y, (final_state, conv_state)
-    return y
+        return g, (final_state, conv_state)
+    return g, None
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype,
@@ -103,11 +144,13 @@ def mamba_state_init(cfg: ModelConfig, batch: int, dtype,
     return ssm, conv
 
 
-def mamba_decode(p, x, cfg: ModelConfig, ssm_state, conv_state):
+def mamba_decode(p, x, cfg: ModelConfig, ssm_state, conv_state,
+                 norm_group=None):
     """One-token recurrence. x: (B, 1, d). Returns (y (B, 1, d),
-    (ssm_state, conv_state)), both states updated in place."""
+    (ssm_state, conv_state)), both states updated in place;
+    ``norm_group`` as in :func:`mamba_apply`."""
     B = x.shape[0]
-    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    H, P, N, G = heads(p), cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     xt = x[:, 0]
     xi = xt @ p["w_in_x"]                                  # (B, di)
     z = xt @ p["w_in_z"]
@@ -130,5 +173,5 @@ def mamba_decode(p, x, cfg: ModelConfig, ssm_state, conv_state):
     y = (torch.einsum("bhpn,bhn->bhp", ssm_state, Ch)
          + p["D"][None, :, None] * xh)
     y = y.reshape(B, H * P).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return (y @ p["w_out"])[:, None, :], (ssm_state, conv_state)
+    y = out_proj(p, y * F.silu(z), cfg, norm_group)
+    return y[:, None, :], (ssm_state, conv_state)

@@ -19,17 +19,27 @@ scan body does.
 ``launch.shardings.param_specs``' DTensor placements, and the model serves
 as the reference's partitioned program does (``prefill``, ``apply``
 without a gradient, ``decode_step``): each rank computes its rows of the
-batch (its shard over ``batch_axes``), each layer gathers its non-expert
-weights to full before it computes and drops them after, the MoE is
+batch (its shard over ``batch_axes``), and on the TP axis its heads and
+columns (``models/tp.py``): each layer's attention, MLA or Mamba2 heads,
+its dense MLP's or shared experts' hidden columns where they divide the
+TP size, and the vocab rows of the embedding and columns of the head.
+Such a block takes its weights gathered over FSDP only
+(``shardings.gather_local``), its input through Megatron's f and its
+partial output through an ``all_reduce`` over TP (g); a block whose heads
+do not divide the TP size gathers its weights to full and runs on every
+rank, as the reference's rule replicates it. The MoE's experts are
 expert-parallel over the TP axis (``models/moe.py``), and a cache whose
 sequence is sharded (``decode_seq_axes``) decodes through each shard's
 partial and a log-sum-exp combine (``models/attention.py``). Cache
 entries sit at ``cache_specs``' placements: a layer gathers its entry to
-the layout it computes in before the step and keeps its own shard of the
-update. The entry points take and return global tensors (tokens, logits),
-the same on every rank. At a world of 1 every axis has size 1, no
-collective runs, and the model computes exactly what it computes without
-a context.
+the layout it computes in before the step (its heads stay on their TP
+rank, so a decode step gathers no entry over TP) and keeps its own shard
+of the update. The entry points take global tokens and return the logits
+as a DTensor at the reference's layout, the batch over ``batch_axes`` and
+the vocab over the TP axis where it runs there (``full_tensor()`` gives
+the plain tensor). At a world of 1 every axis has size 1, no collective
+runs, and the model computes exactly what it computes without a
+context.
 
 A differentiated forward on a mesh (training) runs the same program
 through ``launch/collectives.py``: a weight's gather over a batch axis
@@ -37,10 +47,12 @@ reduce-scatters its gradient (each rank computed its own rows), a weight
 replicated over one all-reduces it, a gather over any other axis takes
 the rank's slice, and the MoE's collectives are Megatron's pair
 (``models/moe.py``). Such a forward returns the rank's rows of the logits
-(``rows=True``, the default when differentiated): the loss is reduced
-over the batch axes (``train/loss.py``), and no rank holds the global
-logits. Under remat each unit's gathers run inside its checkpoint, so the
-backward gathers the weights again and none is kept across the unit.
+(``rows=True``, the default when differentiated), and its vocab columns
+where the vocab runs by rank (:meth:`LM.logits_shard`): the loss is
+vocab-parallel and reduced over the batch axes (``train/loss.py``), and
+no rank holds the global logits. Under remat each unit's gathers run
+inside its checkpoint, so the backward gathers the weights again and none
+is kept across the unit.
 
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
 for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
@@ -64,6 +76,7 @@ from torch import nn
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..device import model_device, seeded_generator
+from ..launch import collectives
 from ..launch import mesh as mesh_lib
 from ..launch import shardings
 from . import attention as attn
@@ -71,6 +84,7 @@ from . import mla
 from . import moe
 from . import remat
 from . import ssm
+from . import tp as tp_lib
 from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
                      mlp_init, param, rms_norm, rmsnorm_init)
 
@@ -212,16 +226,218 @@ class Block(nn.Module):
 _BANKS = ("moe_up", "moe_gate", "moe_down")
 
 
-def _gathered(p: dict, rows=()) -> dict:
-    """A layer's parameters (``remat.unit_params``) to compute with: each
-    DTensor all-gathered to full, the expert banks as they are; ``rows``
-    as in ``shardings.gather``."""
-    return {k: (_gathered(v, rows) if isinstance(v, dict)
-                else v if k in _BANKS else shardings.gather(v, rows=rows))
-            for k, v in p.items()}
+def _gathered_block(p: dict, mode, axis, rows) -> dict:
+    """A mixer's or MLP's parameters to compute with: each DTensor
+    gathered to full where the block runs replicated (``mode`` None) and
+    for a MoE's router, else ("heads", "mlp") over every axis but the TP
+    axis ``axis``, with "kv_slice"'s ``wk`` and ``wv`` gathered whole for
+    the rank to slice; a MoE's expert banks as they are."""
+    out = {}
+    for k, v in p.items():
+        if k in _BANKS:
+            out[k] = v
+        elif mode is None or k == "router":
+            out[k] = shardings.gather(v, rows=rows)
+        elif mode == "kv_slice" and k in ("wk", "wv"):
+            out[k] = shardings.gather(v, rows=(*rows, axis))
+        else:
+            out[k] = shardings.gather_local(v, axis, rows)
+    return out
 
 
-class LM(nn.Module):
+class Sharded(nn.Module):
+    """What the models (:class:`LM`, ``whisper.EncDec``) share on a
+    sharding context: the rows of the batch a rank computes, the weights
+    to compute with (gathered, or kept on their TP rank by
+    ``models/tp.py``'s plan), the vocab-parallel embedding, head and
+    logits, and the layout of each cache entry. A subclass holds ``cfg``,
+    ``ctx``, ``embed`` and ``final_norm``."""
+
+    @property
+    def _placed(self) -> bool:
+        """Whether the weights and caches sit at DTensor placements."""
+        return shardings.is_device_mesh(self.ctx.mesh)
+
+    # ------------------------------------------------------ sharding helpers
+    @property
+    def _tp(self) -> int:
+        """The TP size the blocks run by rank over (1 off a
+        ``DeviceMesh``: nothing runs by rank)."""
+        return self.ctx.size(self.ctx.tp_axis) if (
+            self._placed and self.ctx.tp_axis) else 1
+
+    def _tp_group(self):
+        return self.ctx.group(self.ctx.tp_axis) if self._tp > 1 else None
+
+    def _plan(self, spec: LayerSpec) -> tp_lib.Plan:
+        """What of a layer ``spec`` runs on its TP rank."""
+        return tp_lib.plan(self.cfg, spec, self._tp)
+
+    def _compute(self, p: dict, spec: LayerSpec) -> dict:
+        """A layer's parameters (``remat.unit_params``) to compute with on
+        a ``DeviceMesh``: its norms gathered to full, its mixer and MLP by
+        :meth:`_plan` (:func:`_gathered_block`)."""
+        if not self._placed:
+            return p
+        rows, axis, pl = self.ctx.row_axes, self.ctx.tp_axis, \
+            self._plan(spec)
+        # the mixers (an encoder-decoder's self- and cross-attention) and
+        # the MLP
+        modes = {"mixer": pl.mixer, "self": pl.mixer, "cross": pl.mixer,
+                 "mlp": "mlp" if pl.mlp else None}
+        return {k: (_gathered_block(v, modes[k], axis, rows) if k in modes
+                    else shardings.gather(v, rows=rows))
+                for k, v in p.items()}
+
+    def _params(self, blk: nn.Module, spec: Optional[LayerSpec] = None
+                ) -> dict:
+        """``blk``'s parameters to compute with (``spec``: its layer's,
+        by default ``blk.spec``)."""
+        return self._compute(remat.unit_params(blk), spec or blk.spec)
+
+    def _ffn(self, mlp, h, spec: LayerSpec):
+        """A dense MLP on h, on its hidden columns' TP rank where the plan
+        runs it there (Megatron's f and g around it)."""
+        g = self._tp_group() if self._plan(spec).mlp else None
+        return collectives.all_reduce(mlp_apply(
+            mlp, collectives.reduce_grad(h, g), self.cfg.mlp_act), g)
+
+    @property
+    def _vocab_local(self) -> bool:
+        return tp_lib.vocab_local(self.cfg, self._tp)
+
+    def logits_shard(self):
+        """``(start, group)`` where the vocab runs by rank: the logits of a
+        differentiated forward are this rank's vocab columns from
+        ``start`` of the TP ``group``'s (``train/loss.py``); else None."""
+        if not self._vocab_local:
+            return None
+        return (tp_lib.vocab_start(self.cfg, self.ctx.rank(self.ctx.tp_axis),
+                                   self._tp), self._tp_group())
+
+    def _gathered(self, t):
+        """A weight outside the layers (a final norm) to compute with."""
+        return shardings.gather(t, rows=self.ctx.row_axes) if (
+            self._placed) else t
+
+    def _top(self):
+        """The embedding table, the head and the final norm to compute
+        with: gathered, the vocab kept on its TP rank where it runs there
+        (the module's own off a ``DeviceMesh``)."""
+        if not self._placed:
+            return self.embed, self.final_norm
+        rows = self.ctx.row_axes
+        if self._vocab_local:
+            emb = {k: shardings.gather_local(self.embed[k], self.ctx.tp_axis,
+                                             rows)
+                   for k in ("embedding", "head")}
+        else:
+            emb = {k: shardings.gather(self.embed[k], rows=rows)
+                   for k in ("embedding", "head")}
+        return emb, self._gathered(self.final_norm)
+
+    def _lookup(self, emb, tokens):
+        """Token embeddings from the table ``emb`` (:meth:`_top`), vocab-
+        parallel where the vocab runs by rank."""
+        shard = self.logits_shard()
+        return embed_lookup(emb, tokens, self.cfg,
+                            shard and (shard[0], shard[1]))
+
+    def _head(self, emb, x):
+        """The logits of x: this rank's vocab columns where the vocab runs
+        by rank."""
+        return lm_head(emb, x, self.cfg,
+                       self._tp_group() if self._vocab_local else None)
+
+    def _logits(self, t, rows: bool):
+        """What an entry point returns of the rank's logits ``t``: ``t``
+        itself with ``rows``; else on a ``DeviceMesh`` a DTensor at the
+        reference's layout (batch over ``batch_axes``, vocab over TP where
+        it runs by rank), and off one the global batch."""
+        if rows:
+            return t
+        if not self._placed:
+            return self._unrows(t)
+        ctx = self.ctx
+        spec = (tuple(ctx.batch_axes) or None, None,
+                ctx.tp_axis if self._vocab_local else None)
+        return shardings.distribute(t, ctx.mesh, spec, have=spec)
+
+    def _differentiated(self, *inputs) -> bool:
+        return torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*inputs, *self.parameters()))
+
+    def rows(self, t):
+        """This rank's rows of a global batch (its block over the batch
+        axes): also the labels of the logits ``apply(..., rows=True)``
+        returns."""
+        if t is None or not self.ctx.batch_axes:
+            return t
+        return shardings.local_shard(t, self.ctx.mesh,
+                                     (tuple(self.ctx.batch_axes),))
+
+    def _unrows(self, t):
+        """The global batch of every rank's rows ``t`` (the same on every
+        rank after it: the gradient's adjoint is the rank's slice)."""
+        if not self.ctx.batch_axes:
+            return t
+        return shardings.gather_dim(t, 0, self.ctx.mesh,
+                                    tuple(self.ctx.batch_axes))
+
+    def _layout(self, name: str, seq_kept: bool, heads: bool = False):
+        """The spec of the layout a layer computes a cache entry in: its
+        rows of the batch, its heads (``heads``: the mixer runs by rank,
+        its heads and a Mamba2 conv state's channels on their TP rank;
+        else every head), and in decode its own sequence shard of an
+        attention cache (an MLA latent is gathered whole)."""
+        b = tuple(self.ctx.batch_axes) or None
+        seq = (tuple(self.ctx.decode_seq_axes)
+               if self.ctx.decode_seq_axes and seq_kept else None)
+        h = self.ctx.tp_axis if heads else None
+        return {"k": (b, h, seq, None), "v": (b, h, seq, None),
+                "xk": (b, h, None, None), "xv": (b, h, None, None),
+                "c": (b, None, None), "rope": (b, None, None),
+                "ssm": (b, h, None, None), "conv": (b, None, h),
+                "slot_pos": (seq,)}[name]
+
+    def _store(self, entry: dict, seq_kept: bool,
+               heads: bool = False) -> dict:
+        """A cache entry computed in :meth:`_layout` at its ``cache_specs``
+        placements (unchanged off a ``DeviceMesh``)."""
+        if not self._placed:
+            return entry
+        ctx, out = self.ctx, {}
+        for name, t in entry.items():
+            have = self._layout(name, seq_kept, heads)
+            shape = list(t.shape)
+            for d, axes in enumerate(have):
+                for a in shardings.spec_axes(axes):
+                    shape[d] *= ctx.size(a)
+            spec = shardings.cache_specs(
+                {name: torch.empty(shape, device="meta")}, ctx.mesh,
+                self.cfg, seq_axes=ctx.decode_seq_axes, tp=ctx.tp_axis)[name]
+            out[name] = shardings.distribute(t, ctx.mesh, spec, have)
+        return out
+
+    def _kv_slice(self, mixer: dict, mode, full_kv: bool):
+        """(the attention weights, the KV heads its queries read) of a
+        mixer run as ``mode``: under "kv_slice" the rank's KV head, its
+        columns of ``wk`` and ``wv`` sliced, or with ``full_kv`` every
+        head's K/V computed (the cache's) and the slice attended over."""
+        if mode != "kv_slice":
+            return mixer, None
+        cfg = self.cfg
+        r = self.ctx.rank(self.ctx.tp_axis)
+        if full_kv:
+            return mixer, tp_lib.kv_heads(r, self._tp, cfg.num_heads,
+                                          cfg.num_kv_heads)
+        cols = tp_lib.kv_cols(r, self._tp, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim)
+        return {**mixer, "wk": mixer["wk"][:, cols],
+                "wv": mixer["wv"][:, cols]}, None
+
+class LM(Sharded):
     """Decoder-only LM with its weights.
 
     ``seed`` seeds the ``torch.Generator`` (on ``device``) that draws the
@@ -252,83 +468,6 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
-    @property
-    def _placed(self) -> bool:
-        """Whether the weights and caches sit at DTensor placements."""
-        return shardings.is_device_mesh(self.ctx.mesh)
-
-    # ------------------------------------------------------ sharding helpers
-    def _compute(self, p: dict) -> dict:
-        """Parameters (``remat.unit_params``) to compute with
-        (:func:`_gathered` on a ``DeviceMesh``)."""
-        return _gathered(p, self.ctx.row_axes) if self._placed else p
-
-    def _params(self, blk: Block) -> dict:
-        """``blk``'s parameters to compute with."""
-        return self._compute(remat.unit_params(blk))
-
-    def _top(self):
-        """The embedding table, the head and the final norm, gathered
-        (the module's own off a ``DeviceMesh``)."""
-        if not self._placed:
-            return self.embed, self.final_norm
-        rows = self.ctx.row_axes
-        return ({k: shardings.gather(self.embed[k], rows=rows)
-                 for k in ("embedding", "head")},
-                shardings.gather(self.final_norm, rows=rows))
-
-    def _differentiated(self, *inputs) -> bool:
-        return torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (*inputs, *self.parameters()))
-
-    def rows(self, t):
-        """This rank's rows of a global batch (its block over the batch
-        axes): also the labels of the logits ``apply(..., rows=True)``
-        returns."""
-        if t is None or not self.ctx.batch_axes:
-            return t
-        return shardings.local_shard(t, self.ctx.mesh,
-                                     (tuple(self.ctx.batch_axes),))
-
-    def _unrows(self, t):
-        """The global batch of every rank's rows ``t`` (the same on every
-        rank after it: the gradient's adjoint is the rank's slice)."""
-        if not self.ctx.batch_axes:
-            return t
-        return shardings.gather_dim(t, 0, self.ctx.mesh,
-                                    tuple(self.ctx.batch_axes))
-
-    def _layout(self, name: str, seq_kept: bool):
-        """The spec of the layout a layer computes a cache entry in: its
-        rows of the batch, every head, and in decode its own sequence shard
-        of an attention cache (an MLA latent is gathered whole)."""
-        b = tuple(self.ctx.batch_axes) or None
-        seq = (tuple(self.ctx.decode_seq_axes)
-               if self.ctx.decode_seq_axes and seq_kept else None)
-        return {"k": (b, None, seq, None), "v": (b, None, seq, None),
-                "c": (b, None, None), "rope": (b, None, None),
-                "ssm": (b, None, None, None), "conv": (b, None, None),
-                "slot_pos": (seq,)}[name]
-
-    def _store(self, entry: dict, seq_kept: bool) -> dict:
-        """A cache entry computed in :meth:`_layout` at its ``cache_specs``
-        placements (unchanged off a ``DeviceMesh``)."""
-        if not self._placed:
-            return entry
-        ctx, out = self.ctx, {}
-        for name, t in entry.items():
-            have = self._layout(name, seq_kept)
-            shape = list(t.shape)
-            for d, axes in enumerate(have):
-                for a in shardings.spec_axes(axes):
-                    shape[d] *= ctx.size(a)
-            spec = shardings.cache_specs(
-                {name: torch.empty(shape, device="meta")}, ctx.mesh,
-                self.cfg, seq_axes=ctx.decode_seq_axes, tp=ctx.tp_axis)[name]
-            out[name] = shardings.distribute(t, ctx.mesh, spec, have)
-        return out
-
     # ------------------------------------------------------------- forward
     def _mlp_part(self, spec: LayerSpec, ln2, mlp, x):
         if spec.mlp == "none":
@@ -336,31 +475,37 @@ class LM(nn.Module):
         h2 = rms_norm(x, ln2, self.cfg.norm_eps)
         if spec.mlp == "moe":
             return x + moe.moe_apply(mlp, h2, self.cfg, self.ctx)
-        return x + mlp_apply(mlp, h2, self.cfg.mlp_act)
+        return x + self._ffn(mlp, h2, spec)
 
     def _layer_apply(self, spec: LayerSpec, p, x, positions,
                      collect: bool = False):
         """One layer on its parameters ``p`` (``remat.unit_params`` of its
-        Block): (x, its cache entry with ``collect``, else None)."""
+        Block, to compute with: :meth:`_compute`): (x, its cache entry
+        with ``collect``, else None)."""
         cfg = self.cfg
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        mode = self._plan(spec).mixer
+        g = self._tp_group() if mode else None
+        h = collectives.reduce_grad(rms_norm(x, p["ln1"], cfg.norm_eps), g)
         entry = None
         if spec.mixer == "mamba":
             if collect:
-                m, (ssm_s, conv_s) = ssm.mamba_apply(p["mixer"], h, cfg,
-                                                     return_state=True)
+                m, (ssm_s, conv_s) = ssm.mamba_apply(
+                    p["mixer"], h, cfg, return_state=True, norm_group=g)
                 entry = {"ssm": ssm_s, "conv": conv_s}
             else:
-                m = ssm.mamba_apply(p["mixer"], h, cfg)
+                m = ssm.mamba_apply(p["mixer"], h, cfg, norm_group=g)
         elif spec.mixer == "mla":
             m, (c, kr) = mla.mla_apply(p["mixer"], h, cfg, positions)
             entry = {"c": c, "rope": kr} if collect else None
-        elif collect:
-            m, (k, v) = attn.attn_apply(p["mixer"], h, cfg, positions,
-                                        return_kv=True)
-            entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
         else:
-            m = attn.attn_apply(p["mixer"], h, cfg, positions)
+            mixer, kvh = self._kv_slice(p["mixer"], mode, collect)
+            if collect:
+                m, (k, v) = attn.attn_apply(mixer, h, cfg, positions,
+                                            return_kv=True, kv_heads=kvh)
+                entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+            else:
+                m = attn.attn_apply(mixer, h, cfg, positions, kv_heads=kvh)
+        m = collectives.all_reduce(m, g)
         x = self._mlp_part(spec, p.get("ln2"), p.get("mlp"), x + m)
         return x, entry
 
@@ -374,17 +519,17 @@ class LM(nn.Module):
         layers' parameters ``params`` (``remat.unit_params``), gathered
         here: inside the checkpoint, so the backward gathers again."""
         for spec, p in zip(self.cfg.pattern, params):
-            x, _ = self._layer_apply(spec, self._compute(p), x, positions)
+            x, _ = self._layer_apply(spec, self._compute(p, spec), x,
+                                     positions)
         return x
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
 
     def _embed(self, tokens, extra_embeds, emb=None):
-        """Token embeddings (``emb``: the gathered table, else the
+        """Token embeddings (``emb``: the table to compute with, else the
         module's) with ``extra_embeds`` prepended."""
-        x = embed_lookup(self.embed if emb is None else emb, tokens,
-                         self.cfg)
+        x = self._lookup(self.embed if emb is None else emb, tokens)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return x
@@ -398,8 +543,9 @@ class LM(nn.Module):
         ``extra_embeds`` (B, Np, d) prepended to the tokens' embeddings.
         Each unit runs under ``remat.checkpointed`` (``cfg.remat``). With
         ``rows`` (by default: when the forward is differentiated) the
-        logits are this rank's rows of the batch (:meth:`rows`), else the
-        global batch."""
+        logits are this rank's rows of the batch (:meth:`rows`) and its
+        vocab columns where the vocab runs by rank (:meth:`logits_shard`),
+        else the global logits (:meth:`_logits`)."""
         cfg = self.cfg
         if rows is None:
             rows = self._differentiated(extra_embeds)
@@ -416,8 +562,7 @@ class LM(nn.Module):
             x = remat.checkpointed(self._unit, x, params, positions,
                                    policy=policy)
         x = rms_norm(x, final_norm, cfg.norm_eps)
-        logits = lm_head(emb, x, cfg)
-        return logits if rows else self._unrows(logits)
+        return self._logits(self._head(emb, x), rows)
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, dtype=None) -> dict:
@@ -468,11 +613,13 @@ class LM(nn.Module):
         slot, ``lslot`` its index in this rank's sequence shard (None where
         another shard holds it) and ``route`` :meth:`_seq_route`'s."""
         cfg = self.cfg
+        mode = self._plan(blk.spec).mixer
+        g = self._tp_group() if mode else None
         if self._placed:
             p = self._params(blk)
             ln1, mixer, ln2, mlp = p["ln1"], p["mixer"], p.get("ln2"), \
                 p.get("mlp")
-            keep = {k: self._layout(k, True) for k in c}
+            keep = {k: self._layout(k, True, mode == "heads") for k in c}
             ce = {k: shardings.gather(v, keep[k]) for k, v in c.items()}
         else:   # the block's own modules: no per-step gathering
             ln1, mixer = blk.ln1, blk.mixer
@@ -480,7 +627,8 @@ class LM(nn.Module):
             keep, ce = None, c
         h = rms_norm(x, ln1, cfg.norm_eps)
         if blk.spec.mixer == "mamba":
-            m, _ = ssm.mamba_decode(mixer, h, cfg, ce["ssm"], ce["conv"])
+            m, _ = ssm.mamba_decode(mixer, h, cfg, ce["ssm"], ce["conv"],
+                                    norm_group=g)
         elif blk.spec.mixer == "mla":
             cl, kr = mla.latent(mixer, h, cfg,
                                 torch.full((x.shape[0], 1), pos,
@@ -491,9 +639,11 @@ class LM(nn.Module):
             m = mla.mla_decode(mixer, h, cfg, ce["c"], ce["rope"],
                                shardings.gather(slot_pos), pos)
         else:
+            mixer, kvh = self._kv_slice(mixer, mode, True)
             m = attn.attn_decode_step(mixer, h, cfg, ce, local_sp, pos, lslot,
                                       seq_sharded=route[0],
-                                      seq_group=route[1])
+                                      seq_group=route[1], kv_heads=kvh)
+        m = collectives.all_reduce(m, g)
         if keep:
             for k in c:
                 shardings.write_back(c[k], ce[k], keep[k])
@@ -501,7 +651,8 @@ class LM(nn.Module):
 
     def decode_step(self, cache: dict, tokens):
         """One decode step. tokens: (B, 1). Returns (logits (B, 1, V),
-        cache), the cache updated in place."""
+        a DTensor on a ``DeviceMesh`` (:meth:`_logits`), cache), the cache
+        updated in place."""
         cfg = self.cfg
         pos = cache["pos"]
         cache_len = cache["slot_pos"].shape[0]
@@ -519,13 +670,13 @@ class LM(nn.Module):
         if lslot is not None:
             local_sp[lslot] = pos
         emb, final_norm = self._top()
-        x = embed_lookup(emb, self.rows(tokens), cfg)
+        x = self._lookup(emb, self.rows(tokens))
         route = self._seq_route()
         for blk, c in zip(self.layers, cache["layers"]):
             x = self._block_decode(blk, c, x, slot_pos, local_sp, pos, slot,
                                    lslot, route)
         x = rms_norm(x, final_norm, cfg.norm_eps)
-        logits = self._unrows(lm_head(emb, x, cfg))
+        logits = self._logits(self._head(emb, x), False)
         cache["pos"] = pos + 1
         return logits, cache
 
@@ -547,9 +698,10 @@ class LM(nn.Module):
             if axis is not None:
                 entry = {k: _place_seq(v, cache_len, axis)
                          for k, v in entry.items()}
-            layers.append(self._store(entry, False))
+            layers.append(self._store(
+                entry, False, self._plan(blk.spec).mixer == "heads"))
         x = rms_norm(x, final_norm, self.cfg.norm_eps)
-        logits = self._unrows(lm_head(emb, x, self.cfg))
+        logits = self._logits(self._head(emb, x), False)
         slot_pos = _prefill_slot_pos(S, cache_len, self.device)
         cache = {"layers": layers,
                  "slot_pos": self._store({"slot_pos": slot_pos},

@@ -2,8 +2,10 @@
 
 The caller passes precomputed patch embeddings (B, num_patches, d_model),
 as in the JAX package; they are prepended to the tokens' embeddings and
-the backbone is the causal :class:`LM`. Decode is the LM's: the patches
-take part only through the prefilled cache.
+the backbone is the causal :class:`LM`, under the LM's sharding context:
+each rank takes its rows of the patches, and they join its heads' and
+columns' computation as the tokens' embeddings do. Decode is the LM's:
+the patches take part only through the prefilled cache.
 """
 from __future__ import annotations
 
@@ -44,6 +46,11 @@ class VLM(nn.Module):
     def rows(self, t):
         """This rank's rows of a global batch (``LM.rows``)."""
         return self.lm.rows(t)
+
+    def logits_shard(self):
+        """The rank's vocab columns of a differentiated forward's logits
+        (``LM.logits_shard``)."""
+        return self.lm.logits_shard()
 
     def prefill(self, tokens, patch_embeds, cache_len: Optional[int] = None):
         return self.lm.prefill(tokens, cache_len=cache_len,

@@ -30,8 +30,10 @@ rank's rows of it (``LM.rows``): the logits are the rank's rows, the loss
 is summed over the batch axes (``train/loss.py``), and each gradient comes
 out at its parameter's placements, the sum over every rank's rows
 (``models/transformer.py`` says how the gathers' adjoints make it).
-Accumulation and the update run on this rank's shards. At a world of one
-every step is bitwise the unplaced model's.
+Accumulation and the update run on this rank's shards. Where the vocab
+runs on its TP rank the logits are also the rank's vocab columns and the
+loss is vocab-parallel, so no rank holds the (B, S, Vp) logits. At a world
+of one every step is bitwise the unplaced model's.
 """
 from __future__ import annotations
 
@@ -101,9 +103,8 @@ def forward(model, cfg: ModelConfig, params, tokens, extra_embeds=None):
 
 
 def _ctx(model):
-    """The model's ``ShardCtx`` (None for the encoder-decoder)."""
-    inner = getattr(model, "lm", model)
-    return getattr(inner, "ctx", None)
+    """The model's ``ShardCtx``."""
+    return getattr(getattr(model, "lm", model), "ctx", None)
 
 
 def make_loss_fn(model, cfg: ModelConfig, *, reduce: str = "mean",
@@ -114,13 +115,15 @@ def make_loss_fn(model, cfg: ModelConfig, *, reduce: str = "mean",
     ctx = _ctx(model)
     groups = ([ctx.group(a) for a in ctx.row_axes] if ctx is not None
               else []) + list(groups)
+    # the rank's vocab columns of the logits (a vocab run by rank)
+    vocab = model.logits_shard() if ctx is not None else None
 
     def loss_fn(params, tokens, labels, extra_embeds=None):
         logits = forward(model, cfg, params, tokens, extra_embeds)
         if ctx is not None:
             labels = model.rows(labels)
         loss, metrics = softmax_xent(logits, labels, cfg.vocab_size,
-                                     groups)
+                                     groups, vocab)
         if reduce == "sum":
             return loss * metrics["tokens"], metrics
         return loss, metrics

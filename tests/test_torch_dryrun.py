@@ -4,10 +4,12 @@ table (``bench/roofline_table.py``), on the CPU.
 A handful of cells runs in this process on fake process groups of the
 production meshes' sizes (256 ranks on (16, 16), 512 on (2, 16, 16);
 ``launch.dryrun.fake_world`` destroys each group before the fixture
-returns, so no global group reaches another test): SmolLM-360M train_4k
-and Qwen3-8B decode_32k on one pod, DeepSeek-V2-Lite-16B train_4k,
-Mamba2-2.7B long_500k and the partitioned step on two, Whisper's
-``not_ported`` and a full-attention ``skipped`` cell. The train cells take
+returns, so no global group reaches another test): SmolLM-360M and
+Qwen3-8B train_4k and Qwen3-8B decode_32k on one pod, DeepSeek-V2-Lite-16B
+train_4k, Mamba2-2.7B long_500k and the partitioned step on two, Whisper's
+train_4k and decode_32k cells (each rank's heads, FFN columns and vocab
+shard where they divide the TP size: ``models/tp.py``) and a
+full-attention ``skipped`` cell. The train cells take
 2 accumulation microsteps instead of the CLI's 8 (the same work a
 microstep, a quarter of the time here). Each record has the reference's
 keys, its parameter and model-FLOP counts equal the reference's, and the
@@ -29,7 +31,8 @@ from repro_torch.launch import dryrun
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SINGLE = [("smollm-360m", "train_4k"), ("qwen3-8b", "decode_32k"),
-          ("whisper-large-v3", "train_4k"), ("qwen3-8b", "long_500k")]
+          ("whisper-large-v3", "train_4k"), ("qwen3-8b", "long_500k"),
+          ("qwen3-8b", "train_4k")]
 MULTI = [("deepseek-v2-lite-16b", "train_4k"), ("mamba2-2.7b", "long_500k"),
          ("whisper-large-v3", "decode_32k")]
 KEYS = {"arch", "shape", "mesh", "status", "meta", "hlo_stats", "roofline",
@@ -60,7 +63,7 @@ def _ok(recs):
 def test_cells_have_the_reference_keys(records):
     _, recs = records
     ok = _ok(recs)
-    assert len(ok) == 5, {k: r["status"] for k, r in recs.items()}
+    assert len(ok) == 8, {k: r["status"] for k, r in recs.items()}
     for key, r in ok.items():
         assert KEYS <= set(r), key
         assert {"flops", "hbm_bytes", "ici_bytes", "dcn_bytes",
@@ -97,8 +100,13 @@ def test_train_cells_count_the_backward_and_the_collectives(records):
     assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
     assert coll["all-reduce"] > 0
     assert sm["roofline"]["chips"] == 256
-    # every head on every TP rank (ROADMAP 12f): about 1/16 useful
-    assert 1 / 24 < sm["useful_flops_ratio"] < 1 / 12
+    # the MLP's columns and the vocab on their TP rank, SmolLM's 15
+    # attention heads replicated at tp 16 (ROADMAP 12f): above the 1/12
+    # of every head and column on every rank
+    assert sm["meta"]["replicated"] == ["attn"]
+    assert 1 / 12 < sm["useful_flops_ratio"] < 0.5
+    qw = recs["qwen3-8b", "train_4k", "single"]
+    assert qw["meta"]["replicated"] == [] and qw["useful_flops_ratio"] >= 0.5
     ds = recs["deepseek-v2-lite-16b", "train_4k", "multi"]
     assert ds["roofline"]["chips"] == 512 and ds["meta"]["batch_axes"] == [
         "data"]
@@ -120,10 +128,14 @@ def test_decode_cells(records):
 
 def test_not_ported_and_skipped(records):
     _, recs = records
+    # since 12f the encoder-decoder runs on a mesh: no cell is not_ported
     for key in (("whisper-large-v3", "train_4k", "single"),
                 ("whisper-large-v3", "decode_32k", "multi")):
-        assert recs[key]["status"] == "not_ported"
-        assert "12f" in recs[key]["reason"]
+        assert recs[key]["status"] == "ok"
+        # 20 heads at tp 16: attention replicated, as the reference's rule
+        assert recs[key]["meta"]["replicated"] == ["attn"]
+    assert recs["whisper-large-v3", "train_4k", "single"]["hlo_stats"][
+        "kernels"]["flash_attention_bwd"]["calls"] > 0
     sk = recs["qwen3-8b", "long_500k", "single"]
     assert sk["status"] == "skipped" and "full-attention" in sk["reason"]
 
@@ -133,7 +145,7 @@ def test_roofline_table_gate(records, tmp_path, monkeypatch):
     monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
     res = roofline_table.run(directory=out)
     assert (res["ok"], res["skipped"], res["not_ported"], res["failed"]) \
-        == (5, 1, 2, 0)
+        == (8, 1, 0, 0)
     lines = open(res["table"]).read().splitlines()
     assert lines[0].startswith("arch,shape,mesh,status,compute_s")
     bad = tmp_path / "bad"
@@ -161,7 +173,7 @@ def test_cli_one_cell_and_seq_parallel(tmp_path):
                      .read_text())
     assert rec["status"] == "ok"
     r = _cli("--arch", "qwen3-8b", "--seq-parallel", "--out", str(tmp_path))
-    assert r.returncode != 0 and "12f" in r.stderr
+    assert r.returncode != 0 and "12g" in r.stderr
 
 
 def test_missing_fake_pg_raises(monkeypatch):

@@ -200,8 +200,8 @@ def test_harness_reports_a_failing_suite_and_keeps_going(monkeypatch,
 def test_harness_roofline_names_its_roadmap_item(monkeypatch, tmp_path,
                                                 capsys):
     """The roofline suite (ROADMAP 13a) tabulates the dry run's records; a
-    cell the port does not run names its item (12f) and passes the
-    gate."""
+    cell the port does not run names its item (12g, since 12f runs every
+    cell of the matrix) and passes the gate."""
     import json
     from repro_torch.bench import common, roofline_table
     rec_dir = tmp_path / "dryrun"
@@ -212,7 +212,7 @@ def test_harness_roofline_names_its_roadmap_item(monkeypatch, tmp_path,
             {"arch": "a", "shape": "s", "mesh": "m", "status": "ok",
              "roofline": terms, "useful_flops_ratio": 0.25},
             {"arch": "w", "shape": "s", "mesh": "m", "status": "not_ported",
-             "reason": "ROADMAP.md section 1, item 12f"})):
+             "reason": "ROADMAP.md section 1, item 12g"})):
         (rec_dir / f"{i}.json").write_text(json.dumps(rec))
     monkeypatch.setattr(roofline_table, "DRYRUN_DIR", str(rec_dir))
     monkeypatch.setattr(common, "RESULTS_DIR", str(tmp_path))
@@ -221,7 +221,7 @@ def test_harness_roofline_names_its_roadmap_item(monkeypatch, tmp_path,
     table = (tmp_path / "roofline_table.csv").read_text().splitlines()
     assert table[1].split(",")[3:8] == ["ok", "1.0000", "2.0000", "0.5000",
                                         "memory"]
-    assert "NOT_PORTED" in table[2] and "item 12f" in table[2]
+    assert "NOT_PORTED" in table[2] and "item 12g" in table[2]
 
 
 # ------------------------------------------------------------- serving

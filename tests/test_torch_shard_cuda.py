@@ -106,3 +106,49 @@ def test_partial_raises_under_grad(card):
     q.requires_grad_(True)
     with pytest.raises(RuntimeError):
         fd.flash_decode_partial(q, k, v, valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [2560, 320, 40, 37], ids=lambda d: f"D{d}")
+def test_split_row_norm_kernels(card, dtype, D):
+    """The split-row RMSNorm's kernels (a rank's row sums, the norm given
+    the all-reduced totals, its backward) on two ranks' shards against
+    their plain versions, twice (the bits repeat): Mamba2-2.7B's shard at
+    tp 2 and 16, a lane-group width and a ragged one (the scalar forms)."""
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device=card)
+    g.manual_seed(D)
+    n = 2 * D
+    x = torch.randn((300, n), generator=g, device=card).to(dtype)
+    w = (1 + 0.1 * torch.randn(n, generator=g, device=card)).to(dtype)
+    dy = torch.randn((300, n), generator=g, device=card).to(dtype)
+    parts = [(x[:, r * D:(r + 1) * D].contiguous(), w[r * D:(r + 1) * D],
+              dy[:, r * D:(r + 1) * D].contiguous()) for r in range(2)]
+    tol = TOL[dtype]
+    for rep in range(2):
+        stats = [rn.row_stat(xr) for xr, _, _ in parts]
+        dots = [rn.row_stat(xr, wr, gr) for xr, wr, gr in parts]
+        for (xr, wr, gr), st, dt in zip(parts, stats, dots):
+            torch.testing.assert_close(st, ref.rmsnorm_stat_ref(xr),
+                                       atol=tol * D, rtol=tol)
+            torch.testing.assert_close(dt, ref.rmsnorm_stat_ref(xr, wr, gr),
+                                       atol=tol * D, rtol=tol)
+        ss, dot = stats[0] + stats[1], dots[0] + dots[1]
+        y = torch.cat([rn.rmsnorm_rows(xr, wr, ss, n) for xr, wr, _ in
+                       parts], -1)
+        torch.testing.assert_close(y.float(), ref.rmsnorm_ref(x, w).float(),
+                                   atol=tol, rtol=tol)
+        grads = [rn.rmsnorm_rows_bwd(xr, wr, gr, ss, dot, n)
+                 for xr, wr, gr in parts]
+        dx_w, dw_w = ref.rmsnorm_bwd_ref(x, w, dy)
+        torch.testing.assert_close(
+            torch.cat([gr[0] for gr in grads], -1).float(), dx_w.float(),
+            atol=tol, rtol=tol)
+        torch.testing.assert_close(
+            torch.cat([gr[1] for gr in grads], -1).float(), dw_w.float(),
+            atol=tol * 300, rtol=tol)
+        if rep == 0:
+            first = (y, *[t for gr in grads for t in gr])
+    again = (y, *[t for gr in grads for t in gr])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

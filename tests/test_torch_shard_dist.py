@@ -8,7 +8,12 @@ shared expert) and the tiny Qwen3-MoE on (data, model) meshes (1, 2),
 (2, 2) and (1, 4), with B x S divisible by the token split and not; its
 ``sharded_lse_decode`` over 2 and 4 shards, with an empty shard and with
 every valid logit below -100; and a prefill plus 4 greedy decode steps of
-the tiny Qwen3, DeepSeek-V2-Lite and Jamba under a sharded ``ShardCtx``.
+the tiny Qwen3, DeepSeek-V2-Lite and Jamba under a sharded ``ShardCtx``,
+and under a TP context, where the port runs each rank's heads, columns
+and vocab shard (``models/tp.py``), the tiny Qwen3 at (1, 2) (its KV heads
+on their rank) and (1, 4) (each rank's KV head sliced), Mamba2 at (1, 2)
+and (2, 2) (the split-row gated norm), DeepSeek-V2-Lite at (1, 2) (MLA,
+the shared expert), SmolLM at (1, 2) and Whisper at (1, 2) and (2, 2).
 It writes its inputs, weights and outputs to one ``.npz``.
 
 The port runs the same cases on spawned gloo worlds (one process per
@@ -21,7 +26,12 @@ Against one process: a world of 2 is bit for bit ``moe.moe_ranks`` and
 ``attention.lse_ranks`` (each rank's body in one process, the partials
 summed in rank order: a sum of two terms does not depend on their order);
 a world of 4 is held at the float32 tolerance (gloo's ring sums in no
-fixed order).
+fixed order). The same holds each layer of the tiny Qwen3, Mamba2 and
+DeepSeek-V2-Lite and the vocab-parallel head and loss against
+``models.tp``'s rank bodies in one process. On (1, 2) the worlds also
+record the shapes that reach ``ops.attention``, ``ops.decode_attention``
+and ``ops.ssd`` (the rank's heads) and the collectives of a decode step
+(no cache entry gathered over "model").
 """
 import functools
 import os
@@ -62,8 +72,22 @@ MODEL_CASES = [
     ("deepseek_seq21", "deepseek-v2-lite-16b", (2, 1),
      {"decode_seq_axes": ("data",)}),
     ("jamba_tp12", "jamba-1.5-large-398b", (1, 2), {}),
+    ("qwen3_tp12", "qwen3-8b", (1, 2), {}),
+    ("qwen3_tp14", "qwen3-8b", (1, 4), {}),
+    ("mamba2_tp12", "mamba2-2.7b", (1, 2), {}),
+    ("mamba2_tp22", "mamba2-2.7b", (2, 2), {"batch_axes": ("data",)}),
+    ("deepseek_tp12", "deepseek-v2-lite-16b", (1, 2), {}),
+    ("smollm_tp12", "smollm-360m", (1, 2), {}),
+    ("whisper_tp12", "whisper-large-v3", (1, 2), {}),
+    ("whisper_tp22", "whisper-large-v3", (2, 2), {"batch_axes": ("data",)}),
 ]
 PROMPT, STEPS, CACHE_LEN = 16, 4, 20
+# (arch, tp): every layer and the vocab-parallel head and loss on a (1, tp)
+# world against the rank bodies in one process
+RANK_CASES = [(arch, tp) for arch in ("qwen3-8b", "mamba2-2.7b",
+                                      "deepseek-v2-lite-16b")
+              for tp in (2, 4)]
+RANK_B, RANK_S = 2, 8
 
 
 def _world(mesh) -> int:
@@ -132,6 +156,25 @@ def _model_tokens(vocab):
         np.int32)
 
 
+def _frames(cfg):
+    """The encoder-decoder's frames (2, encoder_seq, d) float32."""
+    return np.random.default_rng(2).standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+
+
+def _rank_key(arch, tp):
+    return f"ranks/{arch}/{tp}"
+
+
+def _rank_inputs(cfg):
+    """x (B, S, d) float32 and labels (B, S) of the rank-body cases."""
+    rng = np.random.default_rng(cfg.d_model + cfg.num_layers)
+    x = rng.standard_normal((RANK_B, RANK_S, cfg.d_model)).astype(np.float32)
+    labels = rng.integers(0, cfg.vocab_size, (RANK_B, RANK_S))
+    labels[0, :2] = -1
+    return x, labels
+
+
 def _reference(params_path, out_path):
     """Runs the reference's sharded code on 4 fake devices. Writes the
     weights to ``params_path`` first (and says so on stdout), then every
@@ -196,8 +239,13 @@ def _reference(params_path, out_path):
 
     for name, (jm, params) in models.items():
         toks = _model_tokens(jm.cfg.vocab_size)
-        logits, cache = jax.jit(lambda p, t: jm.prefill(
-            p, t, cache_len=CACHE_LEN))(params, jnp.asarray(toks))
+        if jm.cfg.is_encoder_decoder:
+            frames = jnp.asarray(_frames(jm.cfg))
+            logits, cache = jax.jit(lambda p, t: jm.prefill(
+                p, t, frames, cache_len=CACHE_LEN))(params, jnp.asarray(toks))
+        else:
+            logits, cache = jax.jit(lambda p, t: jm.prefill(
+                p, t, cache_len=CACHE_LEN))(params, jnp.asarray(toks))
         out[f"model/{name}/logits0"] = np.asarray(logits)
         step = jax.jit(jm.decode_step)
         nxt = np.asarray(jnp.argmax(logits[:, -1:], -1)).astype(np.int32)
@@ -275,25 +323,117 @@ def _run_world(rank, world, port, weights_path, out_dir):
                     continue
                 cfg = get_config(arch).tiny()
                 ctx = ShardCtx(mesh=mesh_of(shape), **fields)
-                lm = convert.lm_from_reference(
-                    _nested(ref_out, f"model/{name}/p/"), cfg, device="cpu",
-                    ctx=ctx)
+                params = _nested(ref_out, f"model/{name}/p/")
+                lm = convert.model_from_reference(params, cfg, device="cpu",
+                                                  ctx=ctx)
+                if cfg.is_encoder_decoder:   # each shard gathers back whole
+                    from repro_torch.launch import shardings
+                    want = convert._encdec_state(params, cfg)
+                    out[f"model/{name}/round_trip"] = np.array(all(
+                        np.array_equal(shardings.gather(p).numpy(), want[k])
+                        for k, p in lm.named_parameters())
+                        and len(want) == len(dict(lm.named_parameters()))
+                        and any(shardings.local(p).numel() < p.numel()
+                                for p in lm.parameters()))
                 toks = torch.from_numpy(_model_tokens(cfg.vocab_size)).long()
-                logits, cache = lm.prefill(toks, cache_len=CACHE_LEN)
+                extra = ((torch.from_numpy(_frames(cfg)),)
+                         if cfg.is_encoder_decoder else ())
+                logits, cache = lm.prefill(toks, *extra, cache_len=CACHE_LEN)
+                logits = logits.full_tensor()
                 out[f"model/{name}/logits0"] = logits.numpy()
                 nxt = logits[:, -1:].argmax(-1)
                 greedy = []
                 for t in range(STEPS):
                     greedy.append(nxt)
                     logits, cache = lm.decode_step(cache, nxt)
+                    logits = logits.full_tensor()
                     out[f"model/{name}/logits{t + 1}"] = logits.numpy()
                     nxt = logits.argmax(-1)
                 out[f"model/{name}/greedy"] = torch.cat(greedy, 1).numpy()
+            for arch, tp in RANK_CASES:
+                if tp == world:
+                    out.update(_rank_world(arch, tp, mesh_of((1, tp))))
+            if world == 2:
+                out.update(_local_heads(mesh_of((1, 2))))
             if world == 4:
                 out.update(_cache_round_trip(mesh_of((2, 2))))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+def _rank_world(arch, tp, mesh):
+    """Each layer's output on x, the rank's vocab shard of the logits and
+    the vocab-parallel loss of the tiny ``arch`` (seed 0) on a (1, tp)
+    world."""
+    from repro_torch.train.loss import softmax_xent
+    cfg = get_config(arch).tiny()
+    lm = build_model(cfg, device="cpu", seed=0,
+                     ctx=ShardCtx(mesh=mesh))
+    x, labels = (torch.from_numpy(a) for a in _rank_inputs(cfg))
+    positions = lm._positions(RANK_B, RANK_S)
+    key = _rank_key(arch, tp)
+    out = {f"{key}/layer{i}": lm._block_apply(blk, x, positions)[0].numpy()
+           for i, blk in enumerate(lm.layers)}
+    emb, _ = lm._top()
+    logits = lm._head(emb, x)
+    loss, _ = softmax_xent(logits, labels, cfg.vocab_size,
+                           vocab=lm.logits_shard())
+    out[f"{key}/logits"] = logits.numpy()
+    out[f"{key}/loss"] = loss.numpy()
+    out[f"{key}/embed"] = lm._lookup(emb, labels.clamp(min=0)).numpy()
+    return out
+
+
+def _local_heads(mesh):
+    """On (1, 2): the shapes reaching the attention, decode and SSD
+    wrappers in a prefill and decode step of the tiny Qwen3, Mamba2,
+    DeepSeek-V2-Lite (MLA) and Whisper, and the all-gathers over "model"
+    in a decode step of each."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import axis_group
+    seen = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            seen.append((name, tuple(args[0].shape)))
+            return fn(*args, **kw)
+        return wrapped
+
+    saved = {n: getattr(ops, n) for n in ("attention", "decode_attention",
+                                          "ssd")}
+    model_ranks = tuple(dist.get_process_group_ranks(axis_group(mesh,
+                                                                "model")))
+    out = {}
+    try:
+        for n, fn in saved.items():
+            setattr(ops, n, recorder(n, fn))
+        for arch in ("qwen3-8b", "mamba2-2.7b", "deepseek-v2-lite-16b",
+                     "whisper-large-v3"):
+            cfg = get_config(arch).tiny()
+            lm = build_model(cfg, device="cpu", seed=0,
+                             ctx=ShardCtx(mesh=mesh))
+            toks = torch.from_numpy(_model_tokens(cfg.vocab_size)).long()
+            extra = ((torch.from_numpy(_frames(cfg)),)
+                     if cfg.is_encoder_decoder else ())
+            del seen[:]
+            logits, cache = lm.prefill(toks, *extra, cache_len=CACHE_LEN)
+            nxt = logits.full_tensor()[:, -1:].argmax(-1)
+            with roofline.counting() as cnt:
+                lm.decode_step(cache, nxt)
+            out[f"heads/{arch}/shapes"] = np.array(
+                [[["attention", "decode_attention", "ssd"].index(n), *shape]
+                 for n, shape in seen])
+            out[f"heads/{arch}/gathers"] = np.array(sum(
+                kind == "all-gather" and ranks == model_ranks
+                for kind, _, ranks in cnt.log))
+            out[f"heads/{arch}/collectives"] = np.array(len(cnt.log))
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    return out
 
 
 def _cache_round_trip(mesh):
@@ -446,6 +586,63 @@ def test_lse_decode_world_matches_reference(runs, n, case):
         assert np.abs(one).max() < 1e-10
 
 
+@pytest.mark.parametrize("arch,tp", RANK_CASES)
+def test_rank_bodies_match_one_process(runs, arch, tp):
+    """Every layer, the vocab shards of the logits and the loss of a
+    (1, tp) world against ``models.tp``'s rank bodies in one process: bit
+    for bit on 2 ranks, at the float32 tolerance on 4."""
+    from repro_torch.models import remat, tp as tp_lib
+    _, worlds = runs
+    cfg = get_config(arch).tiny()
+    lm = build_model(cfg, device="cpu", seed=0)
+    x, labels = (torch.from_numpy(a) for a in _rank_inputs(cfg))
+    positions = lm._positions(RANK_B, RANK_S)
+    key = _rank_key(arch, tp)
+    check = (np.testing.assert_array_equal if tp == 2 else
+             functools.partial(np.testing.assert_allclose, **MOE_TOL))
+    with torch.no_grad():
+        for i, blk in enumerate(lm.layers):
+            want = tp_lib.layer_ranks(blk.spec, remat.unit_params(blk), x,
+                                      cfg, positions, tp).numpy()
+            for rank_out in worlds[tp]:
+                check(rank_out[f"{key}/layer{i}"], want, err_msg=f"layer {i}")
+        parts = tp_lib.head_ranks(lm.embed, x, cfg, tp)
+        loss, _ = tp_lib.xent_ranks(parts, labels, cfg)
+        whole = torch.nn.functional.embedding(labels.clamp(min=0),
+                                              lm.embed["embedding"])
+    for r, rank_out in enumerate(worlds[tp]):
+        np.testing.assert_array_equal(rank_out[f"{key}/logits"],
+                                      parts[r].numpy())
+        check(rank_out[f"{key}/loss"], loss.numpy())
+        # a vocab-parallel lookup adds zeros to the token's row: exact
+        np.testing.assert_array_equal(rank_out[f"{key}/embed"],
+                                      whole.numpy())
+
+
+def test_heads_run_on_their_rank(runs):
+    """On (1, 2) each rank's attention, decode and SSD calls take its
+    heads (tiny Qwen3: 2 of 4 query heads, 1 of 2 KV heads; Mamba2: 8 of
+    16 SSD heads; DeepSeek's MLA prefill and Whisper: 2 of 4 heads), and
+    a decode step all-gathers nothing over "model"."""
+    _, worlds = runs
+    for rank_out in worlds[2]:
+        q = rank_out["heads/qwen3-8b/shapes"]
+        att = q[q[:, 0] == 0]
+        dec = q[q[:, 0] == 1]
+        assert len(att) == 2 and (att[:, 2] == 2).all()   # (B, Hq/2, S, D)
+        assert len(dec) == 2 and (dec[:, 2:4] == [1, 2]).all()
+        m = rank_out["heads/mamba2-2.7b/shapes"]
+        assert len(m) == 2 and (m[:, 3] == 8).all()        # (B, S, H/2, P)
+        for arch in ("deepseek-v2-lite-16b", "whisper-large-v3"):
+            w = rank_out[f"heads/{arch}/shapes"]
+            att = w[w[:, 0] == 0]
+            assert len(att) > 0 and (att[:, 2] == 2).all(), arch
+        for arch in ("qwen3-8b", "mamba2-2.7b", "deepseek-v2-lite-16b",
+                     "whisper-large-v3"):
+            assert int(rank_out[f"heads/{arch}/gathers"]) == 0, arch
+            assert int(rank_out[f"heads/{arch}/collectives"]) > 0, arch
+
+
 @pytest.mark.parametrize("name,arch,mesh,fields", MODEL_CASES,
                          ids=[c[0] for c in MODEL_CASES])
 def test_model_world_matches_reference(runs, name, arch, mesh, fields):
@@ -460,6 +657,18 @@ def test_model_world_matches_reference(runs, name, arch, mesh, fields):
                                        err_msg=f"step {t}", **DECODE_TOL)
         np.testing.assert_array_equal(rank_out[f"model/{name}/greedy"],
                                       ref_out[f"model/{name}/greedy"])
+
+
+@pytest.mark.parametrize("name", [c[0] for c in MODEL_CASES
+                                  if c[1] == "whisper-large-v3"])
+def test_encdec_weights_round_trip(runs, name):
+    """The reference's tiny Whisper weights placed at their shards
+    (``convert.model_from_reference`` under a context) gather back bit
+    for bit on every rank, and some rank holds only a shard."""
+    _, worlds = runs
+    shape = dict((c[0], c[2]) for c in MODEL_CASES)[name]
+    for rank_out in worlds[_world(shape)]:
+        assert bool(rank_out[f"model/{name}/round_trip"])
 
 
 def test_place_cache_round_trip(runs):
@@ -517,12 +726,17 @@ def test_sharded_ctx_refuses_grad_and_shared_axis():
         ShardCtx(mesh=MeshShape(("pod", "data", "model"), (2, 1, 1)),
                  batch_axes=("pod",)).check_local()
     ctx = ShardCtx(mesh=MeshShape(("data", "model"), (1, 2)))
-    # the encoder-decoder takes no sharded context (ROADMAP 12f); since 12e
-    # a differentiated forward under a context with an axis above 1 runs,
-    # and off a DeviceMesh it is the unsharded model's
-    with pytest.raises(NotImplementedError, match="12f"):
-        build_model(get_config("whisper-large-v3").tiny(), device="cpu",
-                    ctx=ctx)
+    # since 12f the encoder-decoder takes a sharded context too; off a
+    # DeviceMesh it is the unsharded model's
+    wcfg = get_config("whisper-large-v3").tiny()
+    frames = torch.zeros((1, wcfg.encoder_seq, wcfg.d_model))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with torch.no_grad():
+        want = build_model(wcfg, device="cpu").apply(toks, frames)
+        got = build_model(wcfg, device="cpu", ctx=ctx).apply(toks, frames)
+    assert torch.equal(got, want)
+    # since 12e a differentiated forward under a context with an axis
+    # above 1 runs, and off a DeviceMesh it is the unsharded model's
     lm = build_model(cfg, device="cpu", trainable=True)
     toks = torch.zeros((1, 4), dtype=torch.long)
     want = lm.apply(toks)

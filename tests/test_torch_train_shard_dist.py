@@ -7,11 +7,14 @@ on meshes whose axes are ``AxisType.Auto`` (``jax.make_mesh``'s default
 ``Explicit`` axes trip the model's sharding constraints), its state and
 batch ``device_put`` at ``state_specs`` and the batch spec: two steps of
 its ``make_train_step`` for the tiny SmolLM-360M and DeepSeek-V2-Lite on
-(data, model) meshes (2, 1), (1, 2) and (2, 2) and the tiny Mamba2-2.7B
-on (2, 2), and two steps of its ``make_partitioned_train_step`` for the
-tiny SmolLM on a (pod, data, model) mesh (2, 2, 1), pods taking 3 and 2
-microsteps. It writes each case's initial state first, then the losses
-and the updated parameters and moments.
+(data, model) meshes (2, 1), (1, 2), (2, 2) and (1, 4), the tiny Qwen3-8B
+and Mamba2-2.7B on (1, 2), (2, 2) and (1, 4) and the tiny Whisper on
+(1, 2) (where the port runs each rank's heads, FFN columns, SSD heads and
+vocab shard: ``models/tp.py``), and two steps of its
+``make_partitioned_train_step`` for the tiny SmolLM on a (pod, data,
+model) mesh (2, 2, 1), pods taking 3 and 2 microsteps. It writes each
+case's initial state first, then the losses and the updated parameters
+and moments.
 
 The port runs the same cases on spawned gloo worlds (one process per
 device, ``tcp://127.0.0.1:<free port>``, one torch thread, 60 s
@@ -21,8 +24,11 @@ placements, the global batch on every rank. Held, on the same mesh as the
 reference (the MoE's capacity is counted per token shard, so a split
 changes DeepSeek's loss): the loss at 1e-5 relative and every parameter
 and moment at 1e-4 relative L2 (``tests/test_torch_train_archs.py``'s
-tolerances). A sharded ``Trainer`` killed after its step-2 checkpoint and
-restored from it steps on bitwise, on every rank.
+tolerances). Each world also records the shape of the logits its
+differentiated forward gives a rank: its rows of the batch and its vocab
+columns (B / data, S, Vp / tp), never the (B, S, Vp) logits. A sharded
+``Trainer`` killed after its step-2 checkpoint and restored from it steps
+on bitwise, on every rank.
 """
 import os
 import socket
@@ -44,8 +50,11 @@ STEPS, B, S = 2, 4, 16
 # model)
 CASES = [(f"{arch.split('-')[0]}_{m[0]}{m[1]}", arch, m)
          for arch in ("smollm-360m", "deepseek-v2-lite-16b")
-         for m in ((2, 1), (1, 2), (2, 2))] + [
-    ("mamba2_22", "mamba2-2.7b", (2, 2))]
+         for m in ((2, 1), (1, 2), (2, 2), (1, 4))] + [
+    (f"{arch.split('-')[0]}_{m[0]}{m[1]}", arch, m)
+    for arch in ("qwen3-8b", "mamba2-2.7b")
+    for m in ((1, 2), (2, 2), (1, 4))] + [
+    ("whisper_12", "whisper-large-v3", (1, 2))]
 PART = ("part_221", "smollm-360m", (2, 2, 1))
 MAX_MICRO, K_PODS, MB = 4, (3, 2), 4
 ALL = CASES + [PART]
@@ -70,6 +79,16 @@ def _batch(name, vocab):
     labels = rng.integers(0, vocab, shape).astype(np.int32)
     labels[..., 0, :2] = -1
     return tokens, labels
+
+
+def _frames(name, cfg):
+    """The encoder-decoder's frames (B, encoder_seq, d) float32, or
+    None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(zlib.crc32(name.encode()) + 1)
+    return rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
 
 
 def _flat(tree, prefix=""):
@@ -149,6 +168,10 @@ def _reference(init_path, out_path):
             bspec = NamedSharding(mesh, P("data", None))
             args = (jax.device_put(jnp.asarray(tokens), bspec),
                     jax.device_put(jnp.asarray(labels), bspec))
+            frames = _frames(name, cfg)
+            if frames is not None:
+                args += (jax.device_put(jnp.asarray(frames), NamedSharding(
+                    mesh, P("data", None, None))),)
         with jax.set_mesh(mesh):
             for i in range(STEPS):
                 state, m = step(state, *args)
@@ -185,7 +208,12 @@ def _port_case(name, arch, shape, init, make_mesh_of):
         args = (tokens, labels, list(K_PODS))
     else:
         step = tstep.make_train_step(model, cfg, lr)
-        args = (tokens, labels)
+        frames = _frames(name, cfg)
+        args = (tokens, labels) + (
+            () if frames is None else (torch.from_numpy(frames),))
+        # the logits a rank's differentiated forward gives
+        shape = np.array(tstep.forward(model, cfg, state.params, *args[:1],
+                                       *args[2:]).shape)
     losses = []
     for _ in range(STEPS):
         state, m = step(state, *args)
@@ -194,6 +222,8 @@ def _port_case(name, arch, shape, init, make_mesh_of):
             for kind, tree in (("p", state.params), ("m", state.opt.m),
                                ("v", state.opt.v))
             for k, v in tree.items()}
+    if name != PART[0]:
+        full["logits_shape"] = shape
     return losses, full
 
 
@@ -335,6 +365,11 @@ def test_sharded_steps_match_the_reference(runs, name, arch, shape):
             errs[f"{kind}/{k}"] = _rel(got[f"{name}/{kind}/{k}"], w)
     worst = max(errs, key=errs.get)
     assert errs[worst] < LEAF_TOL, (worst, errs[worst])
+    if name != PART[0]:   # the rank's rows and vocab columns of the logits
+        tp = shape[1] if cfg.padded_vocab % shape[1] == 0 else 1
+        np.testing.assert_array_equal(
+            got[f"{name}/logits_shape"],
+            [B // shape[0], S, cfg.padded_vocab // tp])
 
 
 def test_sharded_trainer_restores_bitwise(runs):
