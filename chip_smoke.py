@@ -371,7 +371,7 @@ Phases, in order:
    bound, ``model_flops``, the measured device time as a multiple of the
    bound, and the count's peak beside ``max_memory_allocated``, as after
    every arch's profiled step below); a Trainer killed after
-   step TRAIN_KILL_AT (3) and restored from its checkpoint, whose next
+   step TRAIN_KILL_AT (2) and restored from its checkpoint, whose next
    step must be bitwise the uninterrupted run's (loss and every
    parameter); and
    ``bench.train_partitioned --full-360m`` for 20 steps (the example's
@@ -474,7 +474,25 @@ Phases, in order:
    ``rmsnorm_split``, ``rmsnorm_split_bwd``) on each rank's shard of
    Mamba2-2.7B's gated norm (4096 rows of 5120 / tp) in bf16 and float32
    against their plain versions (LM_TOL), twice, and timed (event pair)
-   beside their bound and ``F.rms_norm`` on the whole row.
+   beside their bound and ``F.rms_norm`` on the whole row. (g) Megatron
+   sequence parallelism (``ShardCtx(seq_axis="model")``), every TP rank's
+   body in one process at (f)'s width and shape
+   (``tp.layer_ranks(..., seq=True)``: each rank's block of the sequence
+   through the norms, the blocks joined, the partials summed in rank order
+   and cut back into blocks), launch counters zeroed before and read
+   after: Qwen3-8B's and Mamba2-2.7B's layers at tp 2, 4 and 16,
+   DeepSeek-V2-Lite's dense first layer (MLA) at tp 2 and 4 and
+   SmolLM-360M's layer at tp 16 (its 15 heads replicated: the whole
+   sequence gathered, the rank's block kept), each forward against (f)'s
+   ``layer_ranks`` at the same size (bit for bit, else at LM_TOL with the
+   reason logged) and against the unsharded layer (MOE_HOLD), twice with
+   its bits repeated; the gradient of Qwen3-8B's and Mamba2-2.7B's layer
+   at tp 2 against ``layer_ranks``' at every leaf (MOE_HOLD), twice; it
+   fails if ``rmsnorm``, ``flash_attention``, ``ssd_scan`` or a backward
+   kernel of theirs was never launched. Inside (a), Qwen3-8B's prefill and
+   greedy steps again under ``ShardCtx(seq_axis="model")`` on the (1, 1)
+   mesh and, placed anew, under ``batch_axes=("pod", "data")`` on a (1, 1,
+   1) ("pod", "data", "model") mesh: each bit for bit the unsharded run.
 
 Tolerances (kernel against plain, both on the card): mu rtol = atol = 1e-4;
 var rtol 1e-2, atol 1e-3; every adjoint relative L2 <= 1e-4. Model kernels:
@@ -2235,9 +2253,9 @@ def _moe_share(engine, prompts):
     from repro_torch.models import moe
     apply = moe.moe_apply
 
-    def ranged(p, x, cfg, ctx=None):
+    def ranged(p, x, cfg, ctx=None, **kw):
         with record_function("moe_block"):
-            return apply(p, x, cfg, ctx)
+            return apply(p, x, cfg, ctx, **kw)
     moe.moe_apply = ranged
     try:
         engine.generate(prompts, SERVE_NEW)
@@ -5463,7 +5481,7 @@ def phase_examples(ctx):
 TRAIN_ARCH = "smollm-360m"
 TRAIN_B, TRAIN_S = 8, 2048
 TRAIN_STEPS = 10            # the Trainer's timed run
-TRAIN_KILL_AT = 3           # the checkpoint the restored Trainer resumes from
+TRAIN_KILL_AT = 2           # the checkpoint the restored Trainer resumes from
 PART_STEPS = 20             # bench.train_partitioned --full-360m
 # the full-width first step through the kernels against the plain ops:
 # the loss (relative) and every gradient leaf (relative L2)
@@ -7371,7 +7389,13 @@ def _shard_world_of_one(ctx, fails):
                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             if not ok:
                 fails.append(f"world of one {arch}")
-            del model, base, got
+            del got
+            if arch == "qwen3-8b":   # (g)'s two contexts
+                counts, out["qwen3-8b (g)"] = _seq_world_of_one(
+                    model, mesh, toks, base, base_toks, fails)
+                for key, n in counts.items():
+                    launches[key] = launches.get(key, 0) + n
+            del model, base
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -7856,12 +7880,169 @@ def _split_norm_checks(fails):
     return out
 
 
+# (g) sequence parallelism (ShardCtx.seq_axis): every TP rank's body in
+# one process at full width, B 2 x 2048 (SHARD_TP_TOKENS), as (f) draws
+# it: (arch, kind, TP sizes); SmolLM-360M's 15 heads run replicated at tp
+# 16 (the whole sequence gathered, the rank's block kept)
+SHARD_SEQ_CASES = (("qwen3-8b", "layer", (2, 4, 16)),
+                   ("mamba2-2.7b", "layer", (2, 4, 16)),
+                   ("deepseek-v2-lite-16b", "first", (2, 4)),
+                   ("smollm-360m", "layer", (16,)))
+SHARD_SEQ_GRAD = (("qwen3-8b", 2), ("mamba2-2.7b", 2))
+# the kernels (g) must launch
+SEQ_KERNELS = ("rmsnorm", "flash_attention", "ssd_scan", "rmsnorm_bwd",
+               "flash_attention_bwd", "ssd_scan_bwd")
+
+
+def _shard_seq_ranks(fails):
+    """(g) The sequence mode of every TP rank's body of a full-width layer
+    (``tp.layer_ranks(..., seq=True)``: each rank's block of the sequence
+    through the norms, the blocks joined, the partials summed in rank
+    order and cut into blocks) against (f)'s ``layer_ranks`` at the same
+    size (bit for bit, else at LM_TOL with the reason logged) and against
+    the unsharded layer (MOE_HOLD), its bits repeated; the gradient at tp 2
+    against ``layer_ranks``' at every leaf (MOE_HOLD: the norms' scale
+    gradients are summed by block)."""
+    import torch
+    from repro_torch.models import tp as tp_lib
+    rows = []
+    with torch.no_grad():
+        for n, (arch, kind, sizes) in enumerate(SHARD_SEQ_CASES):
+            cfg, spec, p, x, pos = _tp_layer(arch, kind, 110 + n)
+            t0 = time.perf_counter()
+            want = tp_lib.layer_ranks(spec, p, x, cfg, pos, 1) - x
+            for size in sizes:
+                pl = tp_lib.plan(cfg, spec, size)
+                a = tp_lib.layer_ranks(spec, p, x, cfg, pos, size, seq=True)
+                b = tp_lib.layer_ranks(spec, p, x, cfg, pos, size, seq=True)
+                f = tp_lib.layer_ranks(spec, p, x, cfg, pos, size)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, b))
+                bitwise = bool(torch.equal(a, f))
+                rel_f = _rel_l2(a.float(), f.float())
+                rel = _rel_l2((a - x).float(), want.float())
+                ok = (same and rel < MOE_HOLD
+                      and (bitwise or rel_f < LM_TOL["bfloat16"])
+                      and bool(torch.isfinite(a).all()))
+                log(f"[shard] (g) seq ranks {arch} layer {spec.mixer}+"
+                    f"{spec.mlp} at tp {size} (mixer {pl.mixer}, MLP by "
+                    f"rank {pl.mlp}; {x.shape[1] // size} rows a rank) on "
+                    f"{SHARD_TP_TOKENS[0]} x {SHARD_TP_TOKENS[1]}: against "
+                    f"(f)'s layer_ranks bit for bit {bitwise}"
+                    + ("" if bitwise else f" (relative L2 {rel_f:.2e}, hold "
+                       f"{LM_TOL['bfloat16']:g}: the norms on blocks of "
+                       f"rows)")
+                    + f"; the update against the unsharded one's relative "
+                    f"L2 {rel:.2e} (hold {MOE_HOLD:g}), bits repeat {same} "
+                    + ("ok" if ok else "FAIL"))
+                rows.append({"arch": arch, "block": f"{spec.mixer}+"
+                             f"{spec.mlp}", "tp": size, "mixer": pl.mixer,
+                             "mlp_by_rank": pl.mlp, "bitwise_f": bitwise,
+                             "rel_l2_f": rel_f, "rel_l2": rel,
+                             "repeat": same, "ok": ok})
+                if not ok:
+                    fails.append(f"(g) seq ranks {arch} {kind} {size}")
+                del a, b, f
+            log(f"[shard] (g) seq ranks {arch} {kind}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            del p, x, want
+            torch.cuda.empty_cache()
+    for n, (arch, size) in enumerate(SHARD_SEQ_GRAD):
+        cfg, spec, p, x, pos = _tp_layer(arch, "layer", 120 + n, grad=True)
+        leaves = {"x": x, **_flat_leaves(p)}
+        dy = _randn(_gen(130 + n), tuple(x.shape), x.dtype)
+
+        def grads(seq):
+            y = tp_lib.layer_ranks(spec, p, x, cfg, pos, size, seq=seq)
+            return torch.autograd.grad(y, list(leaves.values()), dy,
+                                       allow_unused=True)
+        want, a, b = grads(False), grads(True), grads(True)
+        torch.cuda.synchronize()
+        same = all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip(a, b))
+        rels = {k: _rel_l2(u.float(), w.float())
+                for k, u, w in zip(leaves, a, want) if w is not None}
+        worst = max(rels, key=rels.get)
+        finite = all(bool(torch.isfinite(u).all()) for u in a
+                     if u is not None)
+        ok = same and finite and rels[worst] < MOE_HOLD
+        log(f"[shard] (g) seq ranks {arch} layer gradient at tp {size} "
+            f"against layer_ranks': worst relative L2 {rels[worst]:.2e} "
+            f"({worst}; hold {MOE_HOLD:g}), x {rels['x']:.2e}, bits repeat "
+            f"{same} " + ("ok" if ok else "FAIL"))
+        rows.append({"arch": arch, "layer": "gradient", "tp": size,
+                     "rel_l2": rels, "worst": worst, "repeat": same,
+                     "ok": ok})
+        if not ok:
+            fails.append(f"(g) seq ranks gradient {arch}")
+        del p, x, leaves, want, a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _unplace(model):
+    """On a world of one: every parameter back to the plain tensor its
+    DTensor holds (the whole of it; no copy)."""
+    from torch import nn
+    from repro_torch.launch import shardings
+    for name, t in list(model.named_parameters()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        new = nn.Parameter(shardings.local(t), requires_grad=t.requires_grad)
+        if isinstance(owner, nn.ParameterDict):
+            owner[leaf] = new
+        else:
+            setattr(owner, leaf, new)
+
+
+def _seq_world_of_one(model, mesh, toks, base, base_toks, fails):
+    """(g) The placed Qwen3-8B of (a) on the NCCL world of one under
+    ``ShardCtx(seq_axis="model")`` on its (1, 1) mesh, then placed anew on
+    a (1, 1, 1) ("pod", "data", "model") mesh under
+    ``batch_axes=("pod", "data")``: each prefill and its greedy steps bit
+    for bit the unsharded run's. (counts of the launches, results)"""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, place
+    out, launches = {}, {}
+    cases = (("seq_axis", ShardCtx(mesh=mesh, seq_axis="model")),
+             ("pod_data", ShardCtx(mesh=make_mesh(
+                 (1, 1, 1), ("pod", "data", "model"), "cuda"),
+                 batch_axes=("pod", "data"))))
+    for tag, sctx in cases:
+        if sctx.mesh is not model.ctx.mesh:
+            _unplace(model)
+            place(model, sctx)
+        model.ctx = sctx
+        torch.cuda.synchronize()
+        _reset_all()
+        t0 = time.perf_counter()
+        got, got_toks = _greedy(model, toks)
+        secs = time.perf_counter() - t0
+        for key, n in _lm_launches().items():
+            launches[key] = launches.get(key, 0) + n
+        bitwise = (all(torch.equal(a, b) for a, b in zip(got, base))
+                   and torch.equal(got_toks, base_toks))
+        log(f"[shard] (g) Qwen3-8B on the NCCL world of one under {tag} "
+            f"({sctx.batch_axes or ()}, seq_axis {sctx.seq_axis}, mesh "
+            f"{tuple(sctx.mesh.mesh_dim_names)}): prefill of 2 x "
+            f"{SHARD_PROMPT} and {SHARD_STEPS} greedy steps in {secs:.2f} "
+            f"s, bit for bit the unsharded run {bitwise} "
+            + ("ok" if bitwise else "FAIL"))
+        out[tag] = {"bitwise": bitwise, "seconds": secs}
+        if not bitwise:
+            fails.append(f"(g) world of one {tag}")
+        del got
+    return launches, out
+
+
 def phase_shard(ctx):
     """Sharded serving and training: (a) the world of one over NCCL, (b)
     every rank's body in one process at full width, (c) the partial
     kernel against its plain version, (d) training on the world of one,
     (e) the MoE layer's gradient by rank, (f) head-parallel compute by
-    rank and the split-row norm's kernels."""
+    rank and the split-row norm's kernels, (g) sequence parallelism by
+    rank (its two world-of-one cases run inside (a))."""
     import torch
     fails = []
     with torch.no_grad():
@@ -7889,10 +8070,29 @@ def phase_shard(ctx):
         if tp_launches.get(k, 0) <= 0:
             fails.append(f"(f) never launched {k}")
     split = _split_norm_checks(fails)
+    # (g): launches counted from zero
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    seq_rows = _shard_seq_ranks(fails)
+    torch.cuda.synchronize()
+    seq_launches = _lm_launches()
+    seq_s = time.perf_counter() - t0
+    log(f"[shard] (g) seq ranks in {seq_s:.1f} s, launches {seq_launches}")
+    for k, n in seq_launches.items():
+        ctx["shard_launches"][k] = ctx["shard_launches"].get(k, 0) + n
+    for k in SPLIT_KERNELS:   # Mamba2's gated norm in (g)'s rank bodies
+        ctx["tp_launches"][k] += seq_launches.get(k, 0)
+    for k in SEQ_KERNELS:
+        if seq_launches.get(k, 0) <= 0:
+            fails.append(f"(g) never launched {k}")
     ctx["shard"] = {"world_of_one": world, "moe_ranks": moe_rows,
                     "decode": decode, "partial": partial,
                     "training": train, "moe_grads": moe_grads,
-                    "tp_ranks": tp_rows, "split_norm": split}
+                    "tp_ranks": tp_rows, "split_norm": split,
+                    "seq_ranks": seq_rows, "seq_seconds": seq_s,
+                    "seq_launches": {k: seq_launches.get(k, 0)
+                                     for k in SEQ_KERNELS}}
     if fails:
         raise AssertionError(f"shard: {fails}")
 
@@ -8034,7 +8234,7 @@ def main(argv=None):
     # the split-row norm (Mamba2-2.7B's gated norm under TP), each of its
     # three wrappers at rank 0's shard at tp 2 in bf16 (a row's partial
     # sum, the norm given the totals, its backward), launched by the shard
-    # phase's rank bodies (f)
+    # phase's rank bodies (f) and (g)
     split = {r["tp"]: r for r in ctx.get("shard", {}).get("split_norm", [])
              if r["dtype"] == "bfloat16"}.get(2, {})
     for name, part in (("rmsnorm_stat", "stat"), ("rmsnorm_split", "fwd"),

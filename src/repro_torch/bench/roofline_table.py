@@ -9,10 +9,10 @@ ratio per (arch x shape x mesh). The terms are counts times the H100's
 datasheet rates (``launch.roofline.HW``): bounds, not measurements. The
 reference's gate holds unchanged: no cell may have failed. A cell the
 port does not run (``not_ported``, its reason naming the ROADMAP item that
-would run it, such as 12g's sequence parallelism) is counted beside the
-reference's ``skipped``; since item 12f every cell of the dry run's
-matrix runs, each TP rank computing its heads and columns where they
-divide.
+would run it) is counted beside the reference's ``skipped``; since item
+12f every cell of the dry run's matrix runs, each TP rank computing its
+heads and columns where they divide, and since 12g with
+``--seq-parallel`` too (records with ``meta.seq_axis``).
 
     PYTHONPATH=src python -m repro_torch.bench.roofline_table
 """

@@ -22,10 +22,26 @@ with the result:
   rank's experts or heads, a replicated weight used on the rank's rows or
   heads): the identity forward, and its backward all-reduces the
   gradient.
+* :func:`reduce_scatter`, Megatron sequence parallelism's ḡ: the sum of
+  every rank's partial (B, S, d) that keeps the rank's block of the
+  sequence; the ranks then compute different rows, so the adjoint
+  all-gathers the gradient's blocks. Its f̄ is :func:`all_gather` with
+  ``partial_grads=True`` (each rank's heads or columns read the whole
+  sequence).
+* :func:`split`, the rank's block of a tensor that is the same on every
+  rank (a block computed whole on every rank, the embeddings of every
+  token): the ranks then compute different rows, so the adjoint
+  all-gathers the gradient's blocks.
 * :func:`all_reduce_max` and :func:`all_reduce_min`, the vocab-parallel
   loss's max and the argmax's lowest index over the vocab shards: no
   gradient passes (the max is a constant of the log-sum-exp, as the
   reference's ``stop_gradient`` makes it).
+
+A sequence of length S that the group's n ranks do not divide is laid
+out as XLA lays out an uneven sharding: ``seq_block(S, n)`` rows a rank,
+the padding at the end (on the last ranks). :func:`reduce_scatter` and
+:func:`split` pad with zeros, and :func:`all_gather`'s ``length`` cuts the
+padding off again.
 
 Each takes ``group=None`` for an axis of size 1: no collective runs, and
 the op is the identity both ways. Without a gradient to take the
@@ -39,8 +55,8 @@ import torch.distributed as dist
 
 from . import roofline
 
-__all__ = ["all_gather", "all_reduce", "reduce_grad", "all_reduce_max",
-           "all_reduce_min"]
+__all__ = ["all_gather", "all_reduce", "reduce_grad", "reduce_scatter",
+           "split", "seq_block", "all_reduce_max", "all_reduce_min"]
 
 
 def _record(kind: str, t: torch.Tensor, group) -> None:
@@ -95,6 +111,32 @@ def _sum(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def seq_block(length: int, n: int) -> int:
+    """The rows a rank holds of a sequence of ``length`` split over ``n``
+    ranks (the last ranks' blocks padded)."""
+    return -(-length // n)
+
+
+def _padded(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` with zero rows appended along ``dim`` to a multiple of the
+    group's size."""
+    n = dist.get_world_size(group)
+    pad = seq_block(t.shape[dim], n) * n - t.shape[dim]
+    if pad == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def _cut(t: torch.Tensor, dim: int, length) -> torch.Tensor:
+    """The first ``length`` rows of ``dim`` (``t`` itself for None or a
+    whole length), contiguous."""
+    if length is None or length == t.shape[dim]:
+        return t
+    return t.narrow(dim, 0, length).contiguous()
+
+
 def _needs_grad(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
@@ -111,15 +153,69 @@ class _AllGather(torch.autograd.Function):
         return adj(g, ctx.dim, ctx.group), None, None, None
 
 
-def all_gather(t: torch.Tensor, dim: int, group, *,
-               partial_grads: bool) -> torch.Tensor:
-    """Every rank's block of dim ``dim``, in rank order; the adjoint as the
+def all_gather(t: torch.Tensor, dim: int, group, *, partial_grads: bool,
+               length=None) -> torch.Tensor:
+    """Every rank's block of dim ``dim``, in rank order, its first
+    ``length`` rows (a padded sequence cut back); the adjoint as the
     module says by ``partial_grads``."""
     if group is None:
         return t
     if _needs_grad(t):
-        return _AllGather.apply(t, dim, group, partial_grads)
-    return _gather(t, dim, group)
+        return _cut(_AllGather.apply(t, dim, group, partial_grads), dim,
+                    length)
+    return _cut(_gather(t, dim, group), dim, length)
+
+
+def _blocks_joined(ctx, g):
+    """The adjoint of a rank's block: every rank's block of the gradient
+    gathered, the padding cut."""
+    return _cut(_gather(g, ctx.dim, ctx.group), ctx.dim, ctx.length)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group, ctx.length = dim, group, t.shape[dim]
+        return _reduce_scatter(_padded(t, dim, group), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _blocks_joined(ctx, g), None, None
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The rank's block of dim ``dim`` (``seq_block`` rows, zero-padded at
+    the end) of the sum of every rank's ``t``; the adjoint all-gathers."""
+    if group is None:
+        return t
+    if _needs_grad(t):
+        return _ReduceScatter.apply(t, dim, group)
+    return _reduce_scatter(_padded(t, dim, group), dim, group)
+
+
+def _block(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _slice(_padded(t, dim, group), dim, group)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group, ctx.length = dim, group, t.shape[dim]
+        return _block(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _blocks_joined(ctx, g), None, None
+
+
+def split(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The rank's block of dim ``dim`` (``seq_block`` rows, zero-padded at
+    the end) of ``t``, the same on every rank; the adjoint all-gathers."""
+    if group is None:
+        return t
+    if _needs_grad(t):
+        return _Split.apply(t, dim, group)
+    return _block(t, dim, group)
 
 
 class _AllReduce(torch.autograd.Function):

@@ -17,15 +17,18 @@ not measurements.
   single-pod : (16, 16)       256 ranks, axes ("data", "model")
   multi-pod  : (2, 16, 16)    512 ranks, axes ("pod", "data", "model")
 
-Where the reference shards the batch over "pod" and "data", the port's
-context shards it over "data" (a context with two axes above 1 on one dim
-is ROADMAP §1 item 12g): each pod takes its block of the batch's rows, and
-a train step joins the pods' gradients with one ``all_reduce``
-(``make_train_step(pod_axis="pod")``); a prefill or decode cell runs on
-its pod's (data, model) mesh, which holds every weight a pod holds. The
-decode cells shard the cache's
-sequence over "data" where the batch does not split and the arch is a
-hybrid, as the reference does. Each TP rank computes its heads, FFN
+Every cell shards its batch over the mesh's batch axes, "pod" and "data"
+on the multi-pod mesh, where they divide it, as the reference's
+``build_cell`` does: each rank takes the block of rows at its pod-major
+index, and in training the weights' gradients are reduce-scattered over
+"data" and summed over "pod" (the context's ``row_axes``); the
+partitioned cell's context shards it over "data", its step joining the
+pods. The decode cells shard the cache's sequence over "data" where the
+batch does not split and the arch is a hybrid, as the reference does.
+With ``--seq-parallel`` every cell's context takes ``seq_axis="model"``,
+as the reference's ``build_cell`` and ``build_partitioned_cell`` do:
+between blocks each TP rank holds its block of the residual stream's
+sequence (``models/transformer.py``). Each TP rank computes its heads, FFN
 columns, SSD heads and vocab shard (``models/tp.py``), and a block whose
 heads do not divide the TP size runs replicated, as the reference's rule
 replicates it: each record names those blocks (``meta.replicated``), and
@@ -110,10 +113,10 @@ def _chips(mesh) -> int:
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
-               remat: bool = True, capacity_factor=None,
-               remat_policy: str = "full", accum_dtype: str = "float32",
-               partitioned: bool = False, compress: bool = False,
-               max_micro: int = 8):
+               seq_parallel: bool = False, remat: bool = True,
+               capacity_factor=None, remat_policy: str = "full",
+               accum_dtype: str = "float32", partitioned: bool = False,
+               compress: bool = False, max_micro: int = 8):
     """(run, state, meta): ``run()`` runs the cell's step once on meta
     tensors; ``state`` is what the step starts from (its bytes are the
     record's ``argument_bytes``)."""
@@ -130,26 +133,23 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
         prod *= axis_size(mesh, a)
     shardable = B % prod == 0
     train = shape.kind == "train"
-    # the pods' blocks of rows (the reference's batch over "pod"); an
-    # inference cell runs on its pod's (data, model) mesh, whose weights
-    # are every pod's (replicated over "pod") and whose work is its own
-    pod_split = npods > 1 and shardable
-    model_mesh = mesh if train or npods == 1 else mesh["data", "model"]
-    Bp = B if train or not pod_split else B // npods
     seq_axes = (("data",) if shape.kind == "decode" and not shardable
                 and cfg.family in ("hybrid",) else None)
-    ctx = ShardCtx(mesh=model_mesh,
-                   batch_axes=("data",) if shardable else (),
-                   decode_seq_axes=seq_axes)
+    # the partitioned step's pods run their own microsteps and join
+    ctx = ShardCtx(mesh=mesh,
+                   batch_axes=(("data",) if partitioned else ba)
+                   if shardable else (),
+                   decode_seq_axes=seq_axes,
+                   seq_axis="model" if seq_parallel else None)
     meta = {"arch": arch, "shape": shape.name + ("(partitioned)"
                                                  if partitioned else ""),
             "kind": shape.kind, "global_batch": B, "seq_len": S,
             "mesh": dict(zip(names, mesh.shape)),
             "batch_shardable": shardable,
-            "batch_axes": list(ctx.batch_axes), "pod_batch": Bp,
+            "batch_axes": list(ctx.batch_axes), "seq_axis": ctx.seq_axis,
             "cache_seq_axes": list(seq_axes) if seq_axes else None,
             "replicated": tp_lib.replicated_blocks(
-                cfg, axis_size(model_mesh, "model"))}
+                cfg, axis_size(mesh, "model"))}
     model = build_model(cfg, device="meta", seed=0, ctx=ctx,
                         trainable=train)
     lr = cosine_schedule(3e-4, 100, 10_000)
@@ -157,7 +157,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
     # the VLM's patches or the encoder-decoder's frames
     n_extra = cfg.num_patches or (cfg.encoder_seq
                                   if cfg.is_encoder_decoder else 0)
-    extra = (_meta((Bp, n_extra, cfg.d_model), torch.bfloat16)
+    extra = (_meta((B, n_extra, cfg.d_model), torch.bfloat16)
              if n_extra else None)
 
     if partitioned:
@@ -179,8 +179,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
     if train:
         accum = min(accum, B)
         step = make_train_step(model, cfg, lr, accum=accum,
-                               accum_dtype=getattr(torch, accum_dtype),
-                               pod_axis="pod" if pod_split else None)
+                               accum_dtype=getattr(torch, accum_dtype))
         state = init_state(model)
         meta.update(accum=accum, accum_dtype=accum_dtype)
         toks = _meta((B, n_text))
@@ -188,7 +187,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
         return (lambda: step(state, toks, labels, extra)), state, meta
 
     params = dict(model.named_parameters())
-    toks = _meta((Bp, n_text))
+    toks = _meta((B, n_text))
     if shape.kind == "prefill":
         def run():
             with torch.no_grad():
@@ -198,9 +197,9 @@ def build_cell(arch: str, shape_name: str, mesh, *, accum: int = 8,
         return run, params, meta
     cache_len = min(S, cfg.window) if cfg.window else S
     meta["cache_len"] = cache_len
-    cache = (model.cache_init(Bp, cache_len, cfg.encoder_seq)
-             if cfg.is_encoder_decoder else model.cache_init(Bp, cache_len))
-    tok = _meta((Bp, 1))
+    cache = (model.cache_init(B, cache_len, cfg.encoder_seq)
+             if cfg.is_encoder_decoder else model.cache_init(B, cache_len))
+    tok = _meta((B, 1))
 
     def run():
         with torch.no_grad():
@@ -307,11 +306,6 @@ def main(argv=None) -> None:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--tag", default="", help="suffix for the output filename")
     args = ap.parse_args(argv)
-    if args.seq_parallel:
-        raise NotImplementedError(
-            "--seq-parallel: the port has no sequence axis; Megatron "
-            "sequence parallelism on the residual stream is ROADMAP.md "
-            "section 1, item 12g")
     if not args.all and args.arch is None:
         ap.error("give --arch (and --shape), or --all")
     meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
@@ -323,7 +317,9 @@ def main(argv=None) -> None:
         with fake_world(mk == "multi") as mesh:
             for arch, shape in cells:
                 rec = run_cell(arch, shape, mk, mesh, out_dir=args.out,
-                               accum=args.accum, remat=not args.no_remat,
+                               accum=args.accum,
+                               seq_parallel=args.seq_parallel,
+                               remat=not args.no_remat,
                                partitioned=args.partitioned,
                                compress=args.compress,
                                capacity_factor=args.capacity_factor,

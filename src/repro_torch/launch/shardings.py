@@ -428,15 +428,15 @@ def gather(t, keep: Optional[Spec] = None, rows=()) -> torch.Tensor:
     mesh = t.device_mesh
     names = tuple(mesh.mesh_dim_names)
     out = t.to_local()
-    for i in reversed(range(len(names))):   # the minor axis of a dim first
+    wide = [i for i in reversed(range(len(names))) if mesh.size(i) > 1]
+    # the replicated axes first: their gradient sums run on the shard
+    # (the pods' join of a weight FSDP-sharded over "data")
+    for i in wide:
+        if not t.placements[i].is_shard() and names[i] in rows:
+            out = collectives.reduce_grad(out, mesh.get_group(names[i]))
+    for i in wide:   # the minor axis of a dim first
         pl = t.placements[i]
-        if mesh.size(i) == 1:
-            continue
-        if not pl.is_shard():
-            if names[i] in rows:
-                out = collectives.reduce_grad(out, mesh.get_group(names[i]))
-            continue
-        if names[i] in _kept(keep, pl.dim):
+        if not pl.is_shard() or names[i] in _kept(keep, pl.dim):
             continue
         out = collectives.all_gather(out, pl.dim, mesh.get_group(names[i]),
                                      partial_grads=names[i] in rows)

@@ -225,11 +225,24 @@ def _token_split(ctx, T: int):
     return fa, n, ctx.rank(fa)
 
 
-def moe_apply(p, x, cfg: ModelConfig, ctx=None):
+def moe_apply(p, x, cfg: ModelConfig, ctx=None, seq=None, length: int = 0):
     """x: (B, S, d) -> (B, S, d). ``p``'s expert banks may be DTensors at
     ``launch.shardings`` placements (the rest are plain tensors); ``ctx``
     (a ``ShardCtx``, None = one device) names the TP and FSDP axes. x
-    holds this rank's rows of the batch (its shard over the batch axes)."""
+    holds this rank's rows of the batch (its shard over the batch axes).
+
+    Under sequence parallelism ``seq`` is the TP group over which x holds
+    this rank's block of a sequence of ``length`` positions (``LM``): the
+    layer gathers the whole sequence first, as the reference's
+    ``shard_map`` (whose x spec has no TP axis) makes XLA gather it, so
+    every rank routes the tokens it routes without ``seq`` and capacity
+    counts the same tokens; the partials are reduce-scattered back to the
+    rank's block (Megatron-SP's ḡ) in place of the ``all_reduce``, the
+    shared experts' apart, as their ``all_reduce`` is apart."""
+    whole = x
+    if seq is not None:
+        x = collectives.all_gather(x, 1, seq, partial_grads=True,
+                                   length=length)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     tp_axis = ctx.tp_axis if ctx is not None else None
@@ -252,16 +265,31 @@ def moe_apply(p, x, cfg: ModelConfig, ctx=None):
         xs = collectives.reduce_grad(xs, group).narrow(
             0, r * (B * S // n), B * S // n)
         router = collectives.reduce_grad(router, group)
-    xs = collectives.reduce_grad(xs, tp_group)
+    if seq is None:   # else the gather's adjoint sums x's gradient
+        xs = collectives.reduce_grad(xs, tp_group)
     router = collectives.reduce_grad(router, tp_group)
-    y = collectives.all_reduce(moe_body(xs, router, *slab, cfg, tp, rank),
-                               tp_group)
+    y = moe_body(xs, router, *slab, cfg, tp, rank)
+    if seq is None:
+        y = collectives.all_reduce(y, tp_group)
     if split is not None:
         y = shardings.gather_dim(y, 0, ctx.mesh, axis)
     local = (cfg.num_shared_experts
              and p["shared_up"].shape[-1] < shared_width(cfg))
-    return _shared(p, xt, y, cfg, tp_group if local else None).reshape(
-        B, S, d)
+    if seq is None:
+        return _shared(p, xt, y, cfg, tp_group if local else None).reshape(
+            B, S, d)
+    y = collectives.reduce_scatter(y.reshape(B, S, d), 1, seq)
+    if not cfg.num_shared_experts:
+        return y
+    if local:   # each rank's columns of them: their partial's block
+        return y + collectives.reduce_scatter(
+            _shared_part(p, xt).reshape(B, S, d), 1, seq)
+    # computed whole on every rank, from a gather whose adjoint is the
+    # rank's block: the rank's block of their output
+    xw = collectives.all_gather(whole, 1, seq, partial_grads=False,
+                                length=length)
+    return y + collectives.split(_shared_part(p, xw.reshape(B * S, d))
+                                 .reshape(B, S, d), 1, seq)
 
 
 def moe_ranks(p, x, cfg: ModelConfig, *, tp: int, data: int = 1,

@@ -38,7 +38,11 @@ TP rank's body of a layer, of the vocab-parallel head and of the loss in
 one process, on whole weights cut as the placements cut them, and sum the
 partials (and the gated norm's row totals) in rank order: what an
 ``all_reduce`` of two ranks gives bit for bit, since a sum of two terms
-does not depend on their order.
+does not depend on their order. ``layer_ranks(..., seq=True)`` is the
+layer under sequence parallelism (``ShardCtx.seq_axis``): each rank's
+block of the sequence through the norms, the blocks joined (the gather),
+the partials summed in rank order and cut into the ranks' blocks (the
+reduce-scatter).
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ import torch
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels import rmsnorm as _rn
-from ..launch import shardings
+from ..launch import collectives, shardings
 from ..launch.mesh import MeshShape
 from . import attention as attn
 from . import mla, moe, ssm
@@ -56,7 +60,8 @@ from .layers import lm_head, mlp_apply, rms_norm
 
 __all__ = ["Plan", "attn_mode", "mixer_mode", "ffn_local", "vocab_local",
            "plan", "kv_heads", "kv_cols", "vocab_start", "rank_block",
-           "layer_ranks", "head_ranks", "xent_ranks", "replicated_blocks"]
+           "seq_blocks", "layer_ranks", "head_ranks", "xent_ranks",
+           "replicated_blocks"]
 
 
 class Plan(NamedTuple):
@@ -237,16 +242,44 @@ def _mixer_ranks(spec: LayerSpec, p: dict, h, cfg: ModelConfig, positions,
     return _sum(y @ b["w_out"] for y, b in zip(normed, blocks))
 
 
+def seq_blocks(t, tp: int) -> list:
+    """The TP ranks' blocks of t's sequence (dim 1) under sequence
+    parallelism: ``collectives.seq_block`` rows each, the last zero-padded,
+    contiguous as a reduce-scatter's output is."""
+    S = t.shape[1]
+    c = collectives.seq_block(S, tp)
+    if c * tp > S:
+        t = torch.cat([t, t.new_zeros((t.shape[0], c * tp - S,
+                                       *t.shape[2:]))], 1)
+    return [b.contiguous() for b in t.split(c, 1)]
+
+
+def _joined(blocks: list, length: int):
+    """The sequence of the ranks' ``blocks`` (the gather), cut to
+    ``length``."""
+    return torch.cat(blocks, 1)[:, :length]
+
+
 def layer_ranks(spec: LayerSpec, p: dict, x, cfg: ModelConfig, positions,
-                tp: int, *, data: int = 1):
+                tp: int, *, data: int = 1, seq: bool = False):
     """One layer (``spec``, its whole parameters ``p`` as
     ``remat.unit_params`` gives them) on x (B, S, d) with every TP rank's
     body in one process: the norms on every rank, each block that
     :func:`plan` runs by rank as each rank's partial, the partials summed
     in rank order; a replicated block as one rank computes it. ``data``:
-    the MoE's token split (``moe.moe_ranks``)."""
+    the MoE's token split (``moe.moe_ranks``). With ``seq`` (sequence
+    parallelism, ``tp`` > 1) each norm runs on each rank's block of the
+    sequence (:func:`seq_blocks`) and the blocks are joined: the residual
+    adds are elementwise, so the rest is the same arithmetic."""
+    S = x.shape[1]
+
+    def normed(t, w):
+        if not seq or tp == 1:
+            return rms_norm(t, w, cfg.norm_eps)
+        return _joined([rms_norm(b, w, cfg.norm_eps)
+                        for b in seq_blocks(t, tp)], S)
     pl = plan(cfg, spec, tp)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = normed(x, p["ln1"])
     if pl.mixer is not None:
         m = _mixer_ranks(spec, p["mixer"], h, cfg, positions, tp, pl.mixer)
     elif spec.mixer == "attn":
@@ -258,7 +291,7 @@ def layer_ranks(spec: LayerSpec, p: dict, x, cfg: ModelConfig, positions,
     x = x + m
     if spec.mlp == "none":
         return x
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = normed(x, p["ln2"])
     if spec.mlp == "moe":
         return x + moe.moe_ranks(p["mlp"], h2, cfg, tp=tp, data=data,
                                  shared_tp=pl.mlp)

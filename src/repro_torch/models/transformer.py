@@ -54,6 +54,29 @@ no rank holds the global logits. Under remat each unit's gathers run
 inside its checkpoint, so the backward gathers the weights again and none
 is kept across the unit.
 
+With ``ctx.seq_axis`` (Megatron sequence parallelism, the reference's
+``ctx.hidden`` constraint) the residual stream between blocks is the
+rank's block of its (B, S, d) sequence over the TP axis, ``seq_block(S,
+tp)`` rows, the last ranks' padded where tp does not divide S (XLA's
+layout of an uneven sharding): the embeddings enter as the rank's block
+(the vocab-parallel lookup's partials reduce-scattered), every norm runs
+on the block (its scale's gradient summed over TP), each block gathers
+the sequence (Megatron-SP's f̄: an all-gather whose adjoint reduce-
+scatters) and hands back its block of the summed partials (ḡ: a
+reduce-scatter); a block run replicated gathers the sequence with the
+slice adjoint, computes it whole and keeps its rank's block
+(``collectives.split``, whose adjoint all-gathers), so its weights'
+gradients are whole on every rank. The MoE gathers the sequence and
+routes what it routes without it (``models/moe.py``). The final norm's
+blocks are gathered before the head, and a prefill's cache entries come
+from the gathered sequence, so the logits and the cache are as without
+``seq_axis``. A stream shorter than the TP size (a decode step's token)
+stays whole on every rank (ROADMAP §3 item 34). The batch may split over
+"pod" and "data" together (``batch_axes=("pod", "data")``): each rank
+takes the block of rows at its pod-major index, and a weight's gradient
+is summed over "pod" and reduce-scattered over "data" by the same
+gathers.
+
 Serving state is a dict: per-layer ``{"k", "v"}`` caches (B, Hkv, S, hd)
 for attention layers, ``{"c", "rope"}`` latent caches ((B, S, lora),
 (B, S, rd)) for MLA layers and ``{"ssm", "conv"}`` states ((B, H, P, N)
@@ -91,21 +114,28 @@ from .layers import (dtype_of, embed_init, embed_lookup, lm_head, mlp_apply,
 __all__ = ["LM", "Block", "ShardCtx"]
 
 
-# the axis each field of a ShardCtx may shard over when it has more than
-# one device: the serving model shards over "data" and "model"; the pod
-# axis belongs to the partitioned train step
-_WIDE_AXES = {"batch_axes": "data", "decode_seq_axes": "data",
-              "tp_axis": "model", "fsdp_axis": "data"}
+# the axes each field of a ShardCtx may shard over when they have more
+# than one device: the batch over "pod" and "data" (pod-major, as
+# ``P(("pod", "data"))`` lays it out), the rest as the reference's dry run
+# sets them
+_WIDE_AXES = {"batch_axes": ("pod", "data"), "decode_seq_axes": ("data",),
+              "tp_axis": ("model",), "fsdp_axis": ("data",)}
 
 
 @dataclass(frozen=True)
 class ShardCtx:
     """The sharding context of the JAX package's models (``mesh=None``:
-    local): a ``launch.mesh`` mesh, the axes that shard the batch, the TP
-    (``"model"``: experts) and FSDP (``"data"``: weights, expert banks)
-    axes, and ``decode_seq_axes``, the axes that shard a long cache's
-    sequence in decode. The reference's ``seq_axis`` and ``manual_extra``
-    only steer XLA's partitioner and have no counterpart here.
+    local): a ``launch.mesh`` mesh, the axes that shard the batch (one or
+    both of "pod" and "data"), the TP (``"model"``: experts) and FSDP
+    (``"data"``: weights, expert banks) axes, ``decode_seq_axes``, the
+    axes that shard a long cache's sequence in decode, and ``seq_axis``,
+    Megatron sequence parallelism on the residual stream: between blocks
+    each rank holds its block of the (B, S, d) stream's sequence, as the
+    reference's ``ctx.hidden`` constraint makes XLA hold it (``LM``
+    says how the blocks gather and reduce-scatter it). The port takes it
+    over the TP axis only, as the reference's dry run sets it. The
+    reference's ``manual_extra`` only steers XLA's partitioner and has no
+    counterpart here.
 
     The reference's dry run shards the cache's sequence only when the
     batch is too small to shard (``batch_axes=()``), and the batch over
@@ -117,6 +147,7 @@ class ShardCtx:
     tp_axis: Optional[str] = "model"
     fsdp_axis: Optional[str] = "data"
     decode_seq_axes: Optional[Tuple[str, ...]] = None
+    seq_axis: Optional[str] = None
 
     def size(self, axis) -> int:
         return 1 if self.mesh is None else mesh_lib.axis_size(self.mesh, axis)
@@ -131,7 +162,9 @@ class ShardCtx:
             self.mesh, axis)
 
     def wide(self, axes) -> Optional[str]:
-        """The one axis of ``axes`` with more than one device, or None."""
+        """The one axis of ``axes`` with more than one device, or None
+        (read of ``decode_seq_axes``, which :meth:`check_local` keeps to
+        one axis)."""
         wide = [a for a in (axes or ()) if self.size(a) > 1]
         return wide[0] if wide else None
 
@@ -145,24 +178,33 @@ class ShardCtx:
         """Whether a mesh axis the model reads has more than one device."""
         return any(self.size(a) > 1 for a in (
             *self.batch_axes, *(self.decode_seq_axes or ()), self.tp_axis,
-            self.fsdp_axis))
+            self.fsdp_axis, self.seq_axis))
 
     def check_local(self) -> None:
         """Raises on a context the port does not run (see the class)."""
         if self.mesh is None:
             return
+        if self.seq_axis is not None and self.seq_axis != self.tp_axis:
+            raise ValueError(
+                f"seq_axis {self.seq_axis!r}: the port splits the residual "
+                f"stream's sequence over the TP axis {self.tp_axis!r} only, "
+                f"as the reference's dry run does")
         fields = {"batch_axes": self.batch_axes,
                   "decode_seq_axes": self.decode_seq_axes or (),
                   "tp_axis": (self.tp_axis,) if self.tp_axis else (),
                   "fsdp_axis": (self.fsdp_axis,) if self.fsdp_axis else ()}
         for field, axes in fields.items():
             for axis in axes:
-                if self.size(axis) > 1 and axis != _WIDE_AXES[field]:
+                if self.size(axis) > 1 and axis not in _WIDE_AXES[field]:
                     raise ValueError(
                         f"{field} {axes}: axis {axis!r} has size "
-                        f"{self.size(axis)}; the serving model shards "
-                        f"{field} over {_WIDE_AXES[field]!r} only (the pod "
-                        f"axis belongs to the partitioned train step)")
+                        f"{self.size(axis)}; the model shards {field} over "
+                        f"{_WIDE_AXES[field]} only")
+        names = tuple(self.mesh.mesh_dim_names)
+        order = [names.index(a) for a in self.batch_axes if a in names]
+        if order != sorted(order):
+            raise ValueError(f"batch_axes {self.batch_axes}: the axes of one "
+                             f"dim take the mesh's order {names}")
         shared = set(self.batch_axes) & set(self.decode_seq_axes or ())
         if shared:
             raise ValueError(
@@ -273,9 +315,17 @@ class Sharded(nn.Module):
         """What of a layer ``spec`` runs on its TP rank."""
         return tp_lib.plan(self.cfg, spec, self._tp)
 
-    def _compute(self, p: dict, spec: LayerSpec) -> dict:
+    def _norm_rows(self, seq: bool) -> Tuple[str, ...]:
+        """The axes whose ranks normalize different rows: the batch axes,
+        and with ``seq`` (the stream's sequence in blocks) the TP axis, so
+        a norm scale's gradient is summed there too."""
+        rows = self.ctx.row_axes
+        return (*rows, self.ctx.tp_axis) if seq else rows
+
+    def _compute(self, p: dict, spec: LayerSpec, seq: bool = False) -> dict:
         """A layer's parameters (``remat.unit_params``) to compute with on
-        a ``DeviceMesh``: its norms gathered to full, its mixer and MLP by
+        a ``DeviceMesh``: its norms gathered to full (``seq``: they
+        normalize the rank's block of the sequence), its mixer and MLP by
         :meth:`_plan` (:func:`_gathered_block`)."""
         if not self._placed:
             return p
@@ -286,21 +336,54 @@ class Sharded(nn.Module):
         modes = {"mixer": pl.mixer, "self": pl.mixer, "cross": pl.mixer,
                  "mlp": "mlp" if pl.mlp else None}
         return {k: (_gathered_block(v, modes[k], axis, rows) if k in modes
-                    else shardings.gather(v, rows=rows))
+                    else shardings.gather(v, rows=self._norm_rows(seq)))
                 for k, v in p.items()}
 
-    def _params(self, blk: nn.Module, spec: Optional[LayerSpec] = None
-                ) -> dict:
+    def _params(self, blk: nn.Module, spec: Optional[LayerSpec] = None,
+                seq: bool = False) -> dict:
         """``blk``'s parameters to compute with (``spec``: its layer's,
-        by default ``blk.spec``)."""
-        return self._compute(remat.unit_params(blk), spec or blk.spec)
+        by default ``blk.spec``; ``seq`` as in :meth:`_compute`)."""
+        return self._compute(remat.unit_params(blk), spec or blk.spec, seq)
 
-    def _ffn(self, mlp, h, spec: LayerSpec):
-        """A dense MLP on h, on its hidden columns' TP rank where the plan
-        runs it there (Megatron's f and g around it)."""
+    # ---------------------------------------------- sequence parallelism
+    def _seq_group(self, length: int):
+        """The TP group over which a residual stream of ``length``
+        positions holds its sequence in blocks (``ctx.seq_axis``), or
+        None: no ``seq_axis``, nothing run by rank, or a stream shorter
+        than the TP size (a decode step's token), which stays whole on
+        every rank."""
+        if self.ctx.seq_axis is None or self._tp == 1 or length < self._tp:
+            return None
+        return self._tp_group()
+
+    def _enter(self, h, g, sg, length: int):
+        """A block's input from the stream h: Megatron's f over ``g`` (the
+        TP group where the block runs by rank, else None) where the stream
+        is whole (``sg`` None); else the gathered sequence, whose adjoint
+        reduce-scatters where the block runs by rank (Megatron-SP's f̄)
+        and is the rank's block where every rank computes it whole."""
+        if sg is None:
+            return collectives.reduce_grad(h, g)
+        return collectives.all_gather(h, 1, sg, partial_grads=g is not None,
+                                      length=length)
+
+    def _leave(self, m, g, sg):
+        """A block's output into the stream: the ranks' partials summed
+        over ``g`` (Megatron's g) where the stream is whole; else the
+        rank's block of their sum (ḡ, a reduce-scatter), or of an output
+        every rank computed whole."""
+        if sg is None:
+            return collectives.all_reduce(m, g)
+        if g is not None:
+            return collectives.reduce_scatter(m, 1, sg)
+        return collectives.split(m, 1, sg)
+
+    def _ffn(self, mlp, h, spec: LayerSpec, sg=None, length: int = 0):
+        """A dense MLP on the stream h, on its hidden columns' TP rank
+        where the plan runs it there (:meth:`_enter`, :meth:`_leave`)."""
         g = self._tp_group() if self._plan(spec).mlp else None
-        return collectives.all_reduce(mlp_apply(
-            mlp, collectives.reduce_grad(h, g), self.cfg.mlp_act), g)
+        return self._leave(mlp_apply(mlp, self._enter(h, g, sg, length),
+                                     self.cfg.mlp_act), g, sg)
 
     @property
     def _vocab_local(self) -> bool:
@@ -315,15 +398,17 @@ class Sharded(nn.Module):
         return (tp_lib.vocab_start(self.cfg, self.ctx.rank(self.ctx.tp_axis),
                                    self._tp), self._tp_group())
 
-    def _gathered(self, t):
-        """A weight outside the layers (a final norm) to compute with."""
-        return shardings.gather(t, rows=self.ctx.row_axes) if (
+    def _gathered(self, t, seq: bool = False):
+        """A norm's scale outside the layers (a final norm) to compute
+        with (``seq`` as in :meth:`_compute`)."""
+        return shardings.gather(t, rows=self._norm_rows(seq)) if (
             self._placed) else t
 
-    def _top(self):
+    def _top(self, seq: bool = False):
         """The embedding table, the head and the final norm to compute
         with: gathered, the vocab kept on its TP rank where it runs there
-        (the module's own off a ``DeviceMesh``)."""
+        (the module's own off a ``DeviceMesh``); ``seq`` as in
+        :meth:`_compute`."""
         if not self._placed:
             return self.embed, self.final_norm
         rows = self.ctx.row_axes
@@ -334,7 +419,7 @@ class Sharded(nn.Module):
         else:
             emb = {k: shardings.gather(self.embed[k], rows=rows)
                    for k in ("embedding", "head")}
-        return emb, self._gathered(self.final_norm)
+        return emb, self._gathered(self.final_norm, seq)
 
     def _lookup(self, emb, tokens):
         """Token embeddings from the table ``emb`` (:meth:`_top`), vocab-
@@ -348,6 +433,16 @@ class Sharded(nn.Module):
         by rank."""
         return lm_head(emb, x, self.cfg,
                        self._tp_group() if self._vocab_local else None)
+
+    def _out(self, emb, final_norm, x, sg, length: int):
+        """The logits of the stream x (:meth:`_head`) after the final
+        norm; under sequence parallelism (``sg``) the normed blocks are
+        gathered first, so the logits keep their layout."""
+        x = rms_norm(x, final_norm, self.cfg.norm_eps)
+        if sg is None:
+            return self._head(emb, x)
+        g = self._tp_group() if self._vocab_local else None
+        return lm_head(emb, self._enter(x, g, sg, length), self.cfg)
 
     def _logits(self, t, rows: bool):
         """What an entry point returns of the rank's logits ``t``: ``t``
@@ -371,8 +466,8 @@ class Sharded(nn.Module):
     def rows(self, t):
         """This rank's rows of a global batch (its block over the batch
         axes): also the labels of the logits ``apply(..., rows=True)``
-        returns."""
-        if t is None or not self.ctx.batch_axes:
+        returns; off a ``DeviceMesh`` every row."""
+        if t is None or not self.ctx.batch_axes or not self._placed:
             return t
         return shardings.local_shard(t, self.ctx.mesh,
                                      (tuple(self.ctx.batch_axes),))
@@ -380,7 +475,7 @@ class Sharded(nn.Module):
     def _unrows(self, t):
         """The global batch of every rank's rows ``t`` (the same on every
         rank after it: the gradient's adjoint is the rank's slice)."""
-        if not self.ctx.batch_axes:
+        if not self.ctx.batch_axes or not self._placed:
             return t
         return shardings.gather_dim(t, 0, self.ctx.mesh,
                                     tuple(self.ctx.batch_axes))
@@ -414,9 +509,12 @@ class Sharded(nn.Module):
             for d, axes in enumerate(have):
                 for a in shardings.spec_axes(axes):
                     shape[d] *= ctx.size(a)
+            # the global entry's shape alone (a broadcast of one element:
+            # no storage, which a count would take for a live tensor)
             spec = shardings.cache_specs(
-                {name: torch.empty(shape, device="meta")}, ctx.mesh,
-                self.cfg, seq_axes=ctx.decode_seq_axes, tp=ctx.tp_axis)[name]
+                {name: torch.empty((), device="meta").expand(shape)},
+                ctx.mesh, self.cfg, seq_axes=ctx.decode_seq_axes,
+                tp=ctx.tp_axis)[name]
             out[name] = shardings.distribute(t, ctx.mesh, spec, have)
         return out
 
@@ -469,23 +567,30 @@ class LM(Sharded):
         return self.final_norm.device
 
     # ------------------------------------------------------------- forward
-    def _mlp_part(self, spec: LayerSpec, ln2, mlp, x):
+    def _mlp_part(self, spec: LayerSpec, ln2, mlp, x, sg=None,
+                  length: int = 0):
         if spec.mlp == "none":
             return x
         h2 = rms_norm(x, ln2, self.cfg.norm_eps)
         if spec.mlp == "moe":
-            return x + moe.moe_apply(mlp, h2, self.cfg, self.ctx)
-        return x + self._ffn(mlp, h2, spec)
+            return x + moe.moe_apply(mlp, h2, self.cfg, self.ctx, seq=sg,
+                                     length=length)
+        return x + self._ffn(mlp, h2, spec, sg, length)
 
     def _layer_apply(self, spec: LayerSpec, p, x, positions,
                      collect: bool = False):
         """One layer on its parameters ``p`` (``remat.unit_params`` of its
         Block, to compute with: :meth:`_compute`): (x, its cache entry
-        with ``collect``, else None)."""
+        with ``collect``, else None). Under sequence parallelism x is the
+        rank's block of the stream: the norms run on it, and each block
+        gathers the sequence (:meth:`_enter`) and hands back its block
+        (:meth:`_leave`); the cache entry is the whole sequence's."""
         cfg = self.cfg
+        length = positions.shape[1]
+        sg = self._seq_group(length)
         mode = self._plan(spec).mixer
         g = self._tp_group() if mode else None
-        h = collectives.reduce_grad(rms_norm(x, p["ln1"], cfg.norm_eps), g)
+        h = self._enter(rms_norm(x, p["ln1"], cfg.norm_eps), g, sg, length)
         entry = None
         if spec.mixer == "mamba":
             if collect:
@@ -505,34 +610,53 @@ class LM(Sharded):
                 entry = {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
             else:
                 m = attn.attn_apply(mixer, h, cfg, positions, kv_heads=kvh)
-        m = collectives.all_reduce(m, g)
-        x = self._mlp_part(spec, p.get("ln2"), p.get("mlp"), x + m)
+        m = self._leave(m, g, sg)
+        x = self._mlp_part(spec, p.get("ln2"), p.get("mlp"), x + m, sg,
+                           length)
         return x, entry
 
     def _block_apply(self, blk: Block, x, positions, collect: bool = False):
         """One layer on the weights ``blk`` holds now."""
-        return self._layer_apply(blk.spec, self._params(blk), x, positions,
-                                 collect)
+        seq = self._seq_group(positions.shape[1]) is not None
+        return self._layer_apply(blk.spec, self._params(blk, seq=seq), x,
+                                 positions, collect)
 
     def _unit(self, x, params, positions):
         """One repeat of the pattern (the reference's scan body) on its
         layers' parameters ``params`` (``remat.unit_params``), gathered
         here: inside the checkpoint, so the backward gathers again."""
+        seq = self._seq_group(positions.shape[1]) is not None
         for spec, p in zip(self.cfg.pattern, params):
-            x, _ = self._layer_apply(spec, self._compute(p, spec), x,
+            x, _ = self._layer_apply(spec, self._compute(p, spec, seq), x,
                                      positions)
         return x
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def _embed(self, tokens, extra_embeds, emb=None):
+    def _embed(self, tokens, extra_embeds, emb=None, sg=None):
         """Token embeddings (``emb``: the table to compute with, else the
-        module's) with ``extra_embeds`` prepended."""
-        x = self._lookup(self.embed if emb is None else emb, tokens)
+        module's) with ``extra_embeds`` prepended; under sequence
+        parallelism (``sg``) the rank's block of their sequence: the
+        vocab-parallel lookup's partials reduce-scattered, else the whole
+        embeddings split."""
+        table = self.embed if emb is None else emb
+        if sg is not None and extra_embeds is None and self._vocab_local:
+            start = self.logits_shard()[0]
+            return collectives.reduce_scatter(
+                embed_lookup(table, tokens, self.cfg, (start, None)), 1, sg)
+        x = self._lookup(table, tokens)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-        return x
+        return collectives.split(x, 1, sg)
+
+    def _stream(self, tokens, extra_embeds):
+        """(this rank's rows of the tokens and ``extra_embeds``, the
+        stream's length, its sequence group: :meth:`_seq_group`)."""
+        tokens, extra_embeds = self.rows(tokens), self.rows(extra_embeds)
+        length = tokens.shape[1] + (0 if extra_embeds is None
+                                    else extra_embeds.shape[1])
+        return tokens, extra_embeds, length, self._seq_group(length)
 
     def forward(self, tokens, extra_embeds=None, rows=None):
         """:meth:`apply` (the call ``torch.func.functional_call`` makes)."""
@@ -549,9 +673,10 @@ class LM(Sharded):
         cfg = self.cfg
         if rows is None:
             rows = self._differentiated(extra_embeds)
-        emb, final_norm = self._top()
-        x = self._embed(self.rows(tokens), self.rows(extra_embeds), emb)
-        positions = self._positions(*x.shape[:2])
+        tokens, extra_embeds, length, sg = self._stream(tokens, extra_embeds)
+        emb, final_norm = self._top(sg is not None)
+        x = self._embed(tokens, extra_embeds, emb, sg)
+        positions = self._positions(tokens.shape[0], length)
         layers = list(self.layers)
         if cfg.first_layer_dense:
             x, _ = self._block_apply(layers.pop(0), x, positions)
@@ -561,8 +686,7 @@ class LM(Sharded):
             params = [remat.unit_params(blk) for blk in layers[i:i + P]]
             x = remat.checkpointed(self._unit, x, params, positions,
                                    policy=policy)
-        x = rms_norm(x, final_norm, cfg.norm_eps)
-        return self._logits(self._head(emb, x), rows)
+        return self._logits(self._out(emb, final_norm, x, sg, length), rows)
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, dtype=None) -> dict:
@@ -684,9 +808,10 @@ class LM(Sharded):
                 extra_embeds=None):
         """Forward pass that also builds a decode-ready cache in one pass;
         ``extra_embeds`` as in :meth:`apply`."""
-        emb, final_norm = self._top()
-        x = self._embed(self.rows(tokens), self.rows(extra_embeds), emb)
-        B, S = x.shape[:2]
+        tokens, extra_embeds, S, sg = self._stream(tokens, extra_embeds)
+        emb, final_norm = self._top(sg is not None)
+        x = self._embed(tokens, extra_embeds, emb, sg)
+        B = tokens.shape[0]
         cache_len = cache_len or S
         positions = self._positions(B, S)
         layers = []
@@ -700,8 +825,7 @@ class LM(Sharded):
                          for k, v in entry.items()}
             layers.append(self._store(
                 entry, False, self._plan(blk.spec).mixer == "heads"))
-        x = rms_norm(x, final_norm, self.cfg.norm_eps)
-        logits = self._logits(self._head(emb, x), False)
+        logits = self._logits(self._out(emb, final_norm, x, sg, S), False)
         slot_pos = _prefill_slot_pos(S, cache_len, self.device)
         cache = {"layers": layers,
                  "slot_pos": self._store({"slot_pos": slot_pos},

@@ -4,7 +4,9 @@ The caller passes precomputed patch embeddings (B, num_patches, d_model),
 as in the JAX package; they are prepended to the tokens' embeddings and
 the backbone is the causal :class:`LM`, under the LM's sharding context:
 each rank takes its rows of the patches, and they join its heads' and
-columns' computation as the tokens' embeddings do. Decode is the LM's:
+columns' computation as the tokens' embeddings do (under sequence
+parallelism the patches are prepended, then the joint sequence split).
+Decode is the LM's:
 the patches take part only through the prefilled cache.
 """
 from __future__ import annotations

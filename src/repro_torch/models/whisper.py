@@ -28,9 +28,12 @@ each rank computes its rows of the batch (frames and tokens), and on the
 TP axis (``models/tp.py``) the encoder's attention, the decoder's self-
 and cross-attention (the cross K/V of the encoder output at the rank's
 heads where they divide the TP size), the MLPs' hidden columns and the
-vocab run on their rank, each joined by an ``all_reduce``. The cache
-entries sit at ``cache_specs``' placements, the heads on their TP rank,
-and the logits come back as the LM's do. A sequence-sharded decode
+vocab run on their rank, each joined by an ``all_reduce``. Under
+sequence parallelism (``ShardCtx.seq_axis``) the encoder's and the
+decoder's streams hold the rank's block of their sequences, as the LM's
+does; the encoder's output is gathered once, before the cross K/V. The
+cache entries sit at ``cache_specs``' placements, the heads on their TP
+rank, and the logits come back as the LM's do. A sequence-sharded decode
 (``decode_seq_axes``) is the LM's alone.
 """
 from __future__ import annotations
@@ -151,29 +154,39 @@ class EncDec(Sharded):
         return self._tp_group() if self._mode else None
 
     def _attend(self, p, h, positions, **kw):
-        """An attention block on h: Megatron's f and g around it where it
-        runs by rank."""
-        g = self._group()
-        out = attn.attn_apply(p, collectives.reduce_grad(h, g), self.cfg,
+        """An attention block on the stream h: Megatron's f and g around
+        it where it runs by rank; under sequence parallelism the gathered
+        sequence in and the rank's block out (``Sharded._enter``,
+        ``_leave``)."""
+        g, length = self._group(), positions.shape[1]
+        sg = self._seq_group(length)
+        out = attn.attn_apply(p, self._enter(h, g, sg, length), self.cfg,
                               positions, **kw)
         if kw.get("return_kv"):
-            return collectives.all_reduce(out[0], g), out[1]
-        return collectives.all_reduce(out, g)
+            return self._leave(out[0], g, sg), out[1]
+        return self._leave(out, g, sg)
 
     # ------------------------------------------------------------- encode
     def encode(self, frames):
         """frames: (B, F, d) precomputed embeddings (this rank's rows) ->
-        (B, F, d)."""
+        (B, F, d). Under sequence parallelism the encoder's stream is the
+        rank's block of the frames, gathered once after the final norm
+        (each decoder layer's cross heads then enter it through
+        Megatron's f)."""
         cfg = self.cfg
-        x = self._encoder_input(frames)
-        positions = self._positions(*frames.shape[:2])
+        F = frames.shape[1]
+        sg = self._seq_group(F)
+        x = collectives.split(self._encoder_input(frames), 1, sg)
+        positions = self._positions(frames.shape[0], F)
         policy = _policy(cfg)
         for blk in self.enc_blocks:
             x = remat.checkpointed(self._enc_layer, x,
                                    remat.unit_params(blk), positions,
                                    policy=policy)
-        return rms_norm(x, self._gathered(self.enc_norm).to(x.dtype),
-                        cfg.norm_eps)
+        x = rms_norm(x, self._gathered(self.enc_norm, sg is not None).to(
+            x.dtype), cfg.norm_eps)
+        return collectives.all_gather(x, 1, sg, partial_grads=False,
+                                      length=F)
 
     def _encoder_input(self, frames):
         """The frames plus their sinusoid, in the promoted dtype of frames
@@ -188,14 +201,16 @@ class EncDec(Sharded):
         """One encoder layer on its parameters ``p`` (gathered here, inside
         the checkpoint), promoted to x's dtype."""
         cfg, dt = self.cfg, x.dtype
-        p = self._compute(p, _SPEC)
+        length = positions.shape[1]
+        sg = self._seq_group(length)
+        p = self._compute(p, _SPEC, sg is not None)
         mixer, _ = self._kv_slice(_promote(p["mixer"], dt), self._mode,
                                   False)
         mlp = _promote(p["mlp"], dt)
         h = rms_norm(x, p["ln1"].to(dt), cfg.norm_eps)
         x = x + self._attend(mixer, h, positions, causal=False)
         h = rms_norm(x, p["ln2"].to(dt), cfg.norm_eps)
-        return x + self._ffn(mlp, h, _SPEC)
+        return x + self._ffn(mlp, h, _SPEC, sg, length)
 
     def _cross_kv(self, p_cross, enc_out):
         """The cross-attention K/V of the frames, (B, F, Hkv, hd) each, at
@@ -210,8 +225,10 @@ class EncDec(Sharded):
     def _dec_block(self, p, x, positions, cross_kv, collect: bool = False):
         """One decoder layer on its parameters ``p`` (to compute with:
         ``_compute``); ``cross_kv`` of the cross weights ``_kv_slice``
-        gives with ``collect``."""
+        gives with ``collect``. Under sequence parallelism x is the rank's
+        block of the stream and the entry the whole sequence's."""
         cfg = self.cfg
+        length = positions.shape[1]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         entry = None
         mixer, kvh = self._kv_slice(p["self"], self._mode, collect)
@@ -227,25 +244,28 @@ class EncDec(Sharded):
         x = x + self._attend(p["cross"], h, positions, causal=False,
                              kv_override=cross_kv, kv_heads=kvh)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + self._ffn(p["mlp"], h, _SPEC), entry
+        return x + self._ffn(p["mlp"], h, _SPEC, self._seq_group(length),
+                             length), entry
 
     def _dec_layer(self, x, p, positions, enc_out):
         """The reference's decoder unit: the layer's cross K/V of the
         frames, then the layer (its parameters gathered here, inside the
         checkpoint)."""
-        p = self._compute(p, _SPEC)
+        p = self._compute(p, _SPEC,
+                          self._seq_group(positions.shape[1]) is not None)
         cross, _ = self._kv_slice(p["cross"], self._mode, False)
         # the frames enter the rank's cross heads: Megatron's f
         enc_out = collectives.reduce_grad(enc_out, self._group())
         return self._dec_block(p, x, positions,
                                self._cross_kv(cross, enc_out))[0]
 
-    def _decoder_input(self, tokens, emb=None):
+    def _decoder_input(self, tokens, emb=None, sg=None):
         """The tokens' embeddings (``emb``: the table to compute with,
-        else the module's) plus their sinusoid."""
+        else the module's) plus their sinusoid; the rank's block of their
+        sequence under sequence parallelism (``sg``)."""
         x = self._lookup(self.embed if emb is None else emb, tokens)
-        return x + sinusoid(tokens.shape[1], self.cfg.d_model, x.dtype,
-                            x.device)
+        return collectives.split(x + sinusoid(
+            tokens.shape[1], self.cfg.d_model, x.dtype, x.device), 1, sg)
 
     def forward(self, tokens, frames, rows=None):
         return self.apply(tokens, frames, rows=rows)
@@ -257,18 +277,19 @@ class EncDec(Sharded):
         cfg = self.cfg
         if rows is None:
             rows = self._differentiated(frames)
-        emb, final_norm = self._top()
-        enc_out = self.encode(self.rows(frames))
         tokens = self.rows(tokens)
-        x = self._decoder_input(tokens, emb)
+        S = tokens.shape[1]
+        sg = self._seq_group(S)
+        emb, final_norm = self._top(sg is not None)
+        enc_out = self.encode(self.rows(frames))
+        x = self._decoder_input(tokens, emb, sg)
         positions = self._positions(*tokens.shape)
         policy = _policy(cfg)
         for blk in self.dec_blocks:
             x = remat.checkpointed(self._dec_layer, x,
                                    remat.unit_params(blk), positions,
                                    enc_out, policy=policy)
-        x = rms_norm(x, final_norm, cfg.norm_eps)
-        return self._logits(self._head(emb, x), rows)
+        return self._logits(self._out(emb, final_norm, x, sg, S), rows)
 
     # ------------------------------------------------------------- serving
     def cache_init(self, batch: int, cache_len: int, enc_frames: int,
@@ -298,18 +319,18 @@ class EncDec(Sharded):
     def prefill(self, tokens, frames, cache_len: Optional[int] = None):
         """Encode, then a teacher-forced pass that builds the self- and
         cross-attention caches."""
-        cfg = self.cfg
-        emb, final_norm = self._top()
-        enc_out = self.encode(self.rows(frames))
         tokens = self.rows(tokens)
         B, S = tokens.shape
+        sg = self._seq_group(S)
+        emb, final_norm = self._top(sg is not None)
+        enc_out = self.encode(self.rows(frames))
         cache_len = cache_len or S
-        x = self._decoder_input(tokens, emb)
+        x = self._decoder_input(tokens, emb, sg)
         positions = self._positions(B, S)
         heads = self._mode == "heads"
         layers = []
         for blk in self.dec_blocks:
-            p = self._params(blk, _SPEC)
+            p = self._params(blk, _SPEC, sg is not None)
             ck, cv = self._cross_kv(p["cross"], enc_out)
             x, entry = self._dec_block(p, x, positions, (ck, cv),
                                        collect=True)
@@ -317,13 +338,13 @@ class EncDec(Sharded):
                 **{k: _place_seq(v, cache_len, 2) for k, v in entry.items()},
                 "xk": ck.transpose(1, 2).contiguous(),
                 "xv": cv.transpose(1, 2).contiguous()}, False, heads))
-        x = rms_norm(x, final_norm, cfg.norm_eps)
         slot_pos = _prefill_slot_pos(S, cache_len, self.device)
         cache = {"layers": layers,
                  "slot_pos": self._store({"slot_pos": slot_pos},
                                          False)["slot_pos"],
                  "pos": S}
-        return self._logits(self._head(emb, x), False), cache
+        return self._logits(self._out(emb, final_norm, x, sg, S),
+                            False), cache
 
     def decode_step(self, cache: dict, tokens):
         """tokens: (B, 1). The cross K/V come from the cache. Returns

@@ -30,6 +30,11 @@ rank's rows of it (``LM.rows``): the logits are the rank's rows, the loss
 is summed over the batch axes (``train/loss.py``), and each gradient comes
 out at its parameter's placements, the sum over every rank's rows
 (``models/transformer.py`` says how the gathers' adjoints make it).
+A batch over "pod" and "data" together
+(``ShardCtx(batch_axes=("pod", "data"))``, the reference's multi-pod
+cells) sums the loss over both axes, reduce-scatters the FSDP gathers'
+gradients over "data" and sums the pod-replicated weights' gradients over
+"pod": the join ``pod_axis`` makes, from the context.
 Accumulation and the update run on this rank's shards. Where the vocab
 runs on its TP rank the logits are also the rank's vocab columns and the
 loss is vocab-parallel, so no rank holds the (B, S, Vp) logits. At a world

@@ -687,7 +687,8 @@ def test_the_ports_functions_lint_clean():
     assert errors == []
     assert sorted(project.autograd_functions()) == [
         "_AllGather", "_AllReduce", "_FlashAttention", "_FrontierMoments",
-        "_RMSNorm", "_ReduceGrad", "_SplitRMSNorm", "_SsdScan"]
+        "_RMSNorm", "_ReduceGrad", "_ReduceScatter", "_Split",
+        "_SplitRMSNorm", "_SsdScan"]
     fs = port_lint.run_project(project, select=[
         "RPA002", "RPA010", "RPA011", "RPA012", "RPA040"])
     assert fs == [], port_lint.format_text(fs)

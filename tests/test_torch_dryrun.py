@@ -13,8 +13,10 @@ full-attention ``skipped`` cell. The train cells take
 2 accumulation microsteps instead of the CLI's 8 (the same work a
 microstep, a quarter of the time here). Each record has the reference's
 keys, its parameter and model-FLOP counts equal the reference's, and the
-table's gate holds; the CLI runs one cell in a subprocess, refuses
-``--seq-parallel`` and raises without ``fake_pg``.
+table's gate holds; the CLI runs one cell in a subprocess, counts a
+cell under ``--seq-parallel`` (the residual stream's sequence over
+"model": a lower train_4k peak) and raises without ``fake_pg``. The
+multi-pod cells shard the batch over "pod" and "data".
 """
 import json
 import os
@@ -108,8 +110,10 @@ def test_train_cells_count_the_backward_and_the_collectives(records):
     qw = recs["qwen3-8b", "train_4k", "single"]
     assert qw["meta"]["replicated"] == [] and qw["useful_flops_ratio"] >= 0.5
     ds = recs["deepseek-v2-lite-16b", "train_4k", "multi"]
+    # the batch over both axes of the multi-pod mesh, as the reference's
+    # build_cell shards it (ROADMAP 12g)
     assert ds["roofline"]["chips"] == 512 and ds["meta"]["batch_axes"] == [
-        "data"]
+        "pod", "data"]
     assert ds["hlo_stats"]["dcn_bytes"] > 0
     part = recs["partitioned"]
     assert part["shape"] == "train_4k(partitioned)"
@@ -164,7 +168,7 @@ def _cli(*args, **kw):
                           cwd=ROOT, timeout=300, **kw)
 
 
-def test_cli_one_cell_and_seq_parallel(tmp_path):
+def test_cli_one_cell_and_seq_parallel(tmp_path, records):
     r = _cli("--arch", "qwen3-8b", "--shape", "decode_32k", "--out",
              str(tmp_path))
     assert r.returncode == 0, r.stderr[-2000:]
@@ -172,8 +176,45 @@ def test_cli_one_cell_and_seq_parallel(tmp_path):
     rec = json.loads((tmp_path / "qwen3-8b__decode_32k__pod16x16.json")
                      .read_text())
     assert rec["status"] == "ok"
-    r = _cli("--arch", "qwen3-8b", "--seq-parallel", "--out", str(tmp_path))
-    assert r.returncode != 0 and "12g" in r.stderr
+    # since 12g --seq-parallel counts the cell with seq_axis="model": its
+    # train_4k peak below the record without the flag (the same 2
+    # microsteps), the per-chip FLOPs within 1%
+    r = _cli("--arch", "qwen3-8b", "--seq-parallel", "--accum", "2",
+             "--out", str(tmp_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    sp = json.loads((tmp_path / "qwen3-8b__train_4k__pod16x16.json")
+                    .read_text())
+    base = records[1]["qwen3-8b", "train_4k", "single"]
+    assert sp["status"] == "ok" and sp["meta"]["seq_axis"] == "model"
+    assert base["meta"]["seq_axis"] is None
+    assert sp["memory_analysis"]["peak_bytes"] < base["memory_analysis"][
+        "peak_bytes"]
+    assert sp["hlo_stats"]["flops"] <= 1.01 * base["hlo_stats"]["flops"]
+
+
+def test_prefill_cache_spec_counts_no_global_entry():
+    """A prefill places each cache entry at ``cache_specs`` from the
+    global entry's shape alone: the count sees no tensor of the whole
+    batch's (B, Hkv, S, hd), which it once took for a live one and added
+    to every prefill's peak (ROADMAP §3 item 36)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+    from repro_torch.models import ShardCtx, build_model
+    cfg = get_config("qwen3-8b").tiny()
+    with dryrun.fake_world(False) as mesh:
+        model = build_model(cfg, device="meta", seed=0,
+                            ctx=ShardCtx(mesh=mesh, batch_axes=("data",)))
+        entry = {k: torch.empty((2, cfg.num_kv_heads, 64, cfg.head_dim),
+                                device="meta") for k in ("k", "v")}
+        with roofline.counting() as cnt:
+            placed = model._store(entry, False)
+        assert tuple(placed["k"].shape) == (32, cfg.num_kv_heads, 64,
+                                             cfg.head_dim)
+    # the two entries themselves (the DTensors' local parts); the whole
+    # batch's k alone is 16 times one of them
+    one = entry["k"].numel() * entry["k"].element_size()
+    assert cnt.peak_bytes <= 2 * one
 
 
 def test_missing_fake_pg_raises(monkeypatch):

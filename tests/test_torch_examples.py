@@ -200,8 +200,9 @@ def test_harness_reports_a_failing_suite_and_keeps_going(monkeypatch,
 def test_harness_roofline_names_its_roadmap_item(monkeypatch, tmp_path,
                                                 capsys):
     """The roofline suite (ROADMAP 13a) tabulates the dry run's records; a
-    cell the port does not run names its item (12g, since 12f runs every
-    cell of the matrix) and passes the gate."""
+    cell the port does not run names its item and passes the gate (a
+    synthetic record: since 12g every cell of the matrix runs, with and
+    without ``--seq-parallel``)."""
     import json
     from repro_torch.bench import common, roofline_table
     rec_dir = tmp_path / "dryrun"

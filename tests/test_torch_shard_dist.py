@@ -722,9 +722,23 @@ def test_sharded_ctx_refuses_grad_and_shared_axis():
         ShardCtx(mesh=MeshShape(("data", "model"), (2, 1)),
                  batch_axes=("data",),
                  decode_seq_axes=("data",)).check_local()
-    with pytest.raises(ValueError, match="pod"):
-        ShardCtx(mesh=MeshShape(("pod", "data", "model"), (2, 1, 1)),
-                 batch_axes=("pod",)).check_local()
+    # since 12g the batch may split over "pod" (and "data"): checked, and
+    # off a DeviceMesh the model is the unsharded one
+    pod = ShardCtx(mesh=MeshShape(("pod", "data", "model"), (2, 1, 1)),
+                   batch_axes=("pod",))
+    pod.check_local()
+    one = build_model(cfg, device="cpu")
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    with torch.no_grad():
+        assert torch.equal(build_model(cfg, device="cpu", ctx=pod).apply(
+            toks), one.apply(toks))
+    # the residual stream's sequence splits over the TP axis only
+    with pytest.raises(ValueError, match="seq_axis"):
+        ShardCtx(mesh=MeshShape(("data", "model"), (2, 2)),
+                 seq_axis="data").check_local()
+    with pytest.raises(ValueError, match="mesh's order"):
+        ShardCtx(mesh=MeshShape(("pod", "data", "model"), (2, 2, 1)),
+                 batch_axes=("data", "pod")).check_local()
     ctx = ShardCtx(mesh=MeshShape(("data", "model"), (1, 2)))
     # since 12f the encoder-decoder takes a sharded context too; off a
     # DeviceMesh it is the unsharded model's
